@@ -1,0 +1,385 @@
+// Flash-attention forward for Hopper (sm_90a), bf16 in/out, fp32 accumulation.
+//
+// Replaces the two Pallas TPU forward kernels of
+// opensora_tpu/ops/flash_attention.py:
+//   - _fwd_kernel           (:179, running-max online softmax, optional
+//                            frame-causal ``causal_block`` mask)
+//   - _fwd_kernel_anchored  (:247, softmax anchored at the per-(b, h)
+//                            Cauchy-Schwarz bound A instead of a running max)
+// and the host-side choice between them in _flash_forward (:320-422). On the
+// TPU that choice is a ``lax.cond`` on max(A) < 40; here every block reads
+// its own (b, h) anchor from a device tensor and takes the anchored loop when
+// A < 40 (NaN compares false and falls to the running-max loop), so a call
+// never syncs the host. The causal instantiation always runs the running-max
+// loop, as on the TPU.
+//
+// What it computes, per (b, h): out = softmax(Q K^T * sm_scale) V and the
+// natural-log LSE per row, in the exp2 domain with c = sm_scale * log2(e).
+// Tail columns (>= Lk) and columns of later frames (frame-causal mask) get
+// -1e30 before the exponent; fully masked rows are guarded (m_safe, l_safe).
+// Rows and columns past the sequence are zero-filled on load, so no garbage
+// ever reaches a product (0 * NaN = NaN).
+//
+// What bounds it: the MMDiT call (B=3, H=24, L=8828, D=128) does 4*B*H*L^2*D
+// = 2.87e12 flops on 0.65 GB of q/k/v/o, ~4400 flops per byte, far above the
+// H100's ~295 bf16 flops per byte: it is bound by tensor-core operations.
+// The design keeps both products on the tensor cores (mma.sync m16n8k16 bf16
+// -> fp32), keeps the score tile and the output accumulator in registers and
+// never writes the L x L scores to memory, and double-buffers the K/V tiles
+// with cp.async so loads overlap the math. wgmma/TMA would reach the higher
+// Hopper rate and are left to a later change.
+//
+// Layout: q, k, v, o are (B, H, L, D) contiguous; lse is (B, H, Lq) fp32;
+// anchor is (B, H) fp32 log2-domain bounds (bidirectional only).
+// One block of 4 warps owns 64 query rows (16 per warp) and DV = 128 output
+// columns; it loops over KV tiles of BN keys. D = 512 (the VAE mid-block)
+// would need a 64 x 512 fp32 accumulator that does not fit in registers, so
+// the output's D is split across D / 128 blocks (grid z); each recomputes
+// Q K^T over the full D and keeps only its 128-column slice of P V.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <atomic>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int BM = 64;         // query rows per block
+constexpr int NWARPS = 4;      // 16 rows per warp
+constexpr int NTHREADS = NWARPS * 32;
+constexpr int DV = 128;        // output columns per block
+constexpr int PAD = 8;         // row padding (bf16), keeps ldmatrix conflict-free
+constexpr float NEG_INF = -1e30f;
+constexpr float LN2 = 0.6931471805599453f;
+constexpr float ANCHOR_MAX_LOG2 = 40.0f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy; src_bytes = 0 zero-fills the destination.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t& r0, uint32_t& r1, uint32_t& r2, uint32_t& r3,
+                                            uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                                  uint32_t& r3, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+
+// c += a (16x16, row) * b (16x8, col), bf16 inputs, fp32 accumulator.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Async-copy a ROWS x COLS bf16 tile (rows row0.. of a row-major matrix with
+// leading dimension ld) into shared memory with row stride COLS + PAD.
+// Rows at or past nrows are zero-filled.
+template <int ROWS, int COLS>
+__device__ __forceinline__ void load_tile(bf16* smem, const bf16* g, int row0, int nrows, int ld) {
+  constexpr int CHUNKS = COLS / 8;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < ROWS * CHUNKS; i += NTHREADS) {
+    const int r = i / CHUNKS;
+    const int c = (i % CHUNKS) * 8;
+    const bool valid = row0 + r < nrows;
+    const bf16* src = g + (size_t)(valid ? row0 + r : 0) * ld + c;
+    cp_async16(smem_u32(smem + r * (COLS + PAD) + c), src, valid);
+  }
+}
+
+template <int D, int BN, bool CAUSAL>
+__global__ void __launch_bounds__(NTHREADS)
+    flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                     const float* __restrict__ anchor, int Lq, int Lk, float c, int causal_block) {
+  static_assert(D % DV == 0 && BN % 16 == 0, "tile shape");
+  constexpr int QS = D + PAD;   // Q/K smem row stride
+  constexpr int VS = DV + PAD;  // V smem row stride
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // BM x QS
+  bf16* Ks = Qs + BM * QS;                       // 2 stages x BN x QS
+  bf16* Vs = Ks + 2 * BN * QS;                   // 2 stages x BN x VS
+
+  const int q0 = blockIdx.x * BM;
+  const int bh = blockIdx.y;
+  const int dchunk = blockIdx.z;
+  const bf16* qg = q + (size_t)bh * Lq * D;
+  const bf16* kg = k + (size_t)bh * Lk * D;
+  const bf16* vg = v + (size_t)bh * Lk * D + dchunk * DV;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;  // accumulator row within the 8-row half
+  const int t = lane & 3;   // accumulator column pair
+  const int row_a = q0 + warp * 16 + g;
+  const int row_b = row_a + 8;
+
+  // KV tiles wholly above the causal frontier of this block are skipped.
+  int kv_end = Lk;
+  if (CAUSAL) {
+    const int last_row = min(q0 + BM, Lq) - 1;
+    kv_end = min(Lk, (last_row / causal_block + 1) * causal_block);
+  }
+  const int n_tiles = (kv_end + BN - 1) / BN;
+
+  float a2 = 0.f;
+  bool anchored = false;
+  if (!CAUSAL) {
+    a2 = anchor[bh];
+    anchored = a2 < ANCHOR_MAX_LOG2;  // NaN -> running-max loop
+  }
+
+  load_tile<BM, D>(Qs, qg, q0, Lq, D);
+  load_tile<BN, D>(Ks, kg, 0, Lk, D);
+  load_tile<BN, DV>(Vs, vg, 0, Lk, D);
+  cp_async_commit();
+
+  float acc[DV / 8][4];
+#pragma unroll
+  for (int i = 0; i < DV / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  float m_r[2] = {NEG_INF, NEG_INF};  // running max (log2 domain), rows g and g + 8
+  float l_r[2] = {0.f, 0.f};          // this thread's share of the row sums
+
+  const int mat = lane >> 3;  // which 8x8 matrix this lane addresses in ldmatrix.x4
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j & 1;
+    if (j + 1 < n_tiles) {
+      load_tile<BN, D>(Ks + (st ^ 1) * BN * QS, kg, (j + 1) * BN, Lk, D);
+      load_tile<BN, DV>(Vs + (st ^ 1) * BN * VS, vg, (j + 1) * BN, Lk, D);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    const bf16* Kt = Ks + st * BN * QS;
+    const bf16* Vt = Vs + st * BN * VS;
+
+    // S = Q K^T for this warp's 16 rows x BN keys.
+    float s[BN / 8][4];
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a0, a1, a2r, a3;
+      ldmatrix_x4(a0, a1, a2r, a3,
+                  smem_u32(Qs + (warp * 16 + (lane & 15)) * QS + kk * 16 + (lane >> 4) * 8));
+#pragma unroll
+      for (int nn = 0; nn < BN / 16; ++nn) {
+        uint32_t b0, b1, b2, b3;
+        ldmatrix_x4(b0, b1, b2, b3,
+                    smem_u32(Kt + (nn * 16 + (lane & 7) + (mat >> 1) * 8) * QS + kk * 16 +
+                             (mat & 1) * 8));
+        mma_bf16(s[2 * nn], a0, a1, a2r, a3, b0, b1);
+        mma_bf16(s[2 * nn + 1], a0, a1, a2r, a3, b2, b3);
+      }
+    }
+
+    // Scale into the log2 domain; mask tail and later-frame columns.
+    const int n0 = j * BN;
+    bool need_mask = n0 + BN > Lk;
+    if (CAUSAL) need_mask = need_mask || (n0 + BN - 1) / causal_block > q0 / causal_block;
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[nt][e] * c;
+        if (need_mask) {
+          const int col = n0 + nt * 8 + 2 * t + (e & 1);
+          const int row = e < 2 ? row_a : row_b;
+          bool ok = col < Lk;
+          if (CAUSAL) ok = ok && col / causal_block <= row / causal_block;
+          x = ok ? x : NEG_INF;
+        }
+        s[nt][e] = x;
+      }
+    }
+
+    if (anchored) {
+      // p = exp2(s*c - A): no max, no rescaling (A bounds every logit).
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = fast_exp2(s[nt][e] - a2);
+          l_r[e >> 1] += p;
+          s[nt][e] = p;
+        }
+      }
+    } else {
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
+      }
+      float m_safe[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m_r[r], mx[r]);
+        // a row still fully masked anchors at 0 so exp2(-1e30 - 0) = 0
+        m_safe[r] = m_new <= NEG_INF * 0.5f ? 0.f : m_new;
+        const float corr = fast_exp2(m_r[r] - m_safe[r]);
+        m_r[r] = m_new;
+        l_r[r] *= corr;
+#pragma unroll
+        for (int i = 0; i < DV / 8; ++i) {
+          acc[i][2 * r] *= corr;
+          acc[i][2 * r + 1] *= corr;
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = fast_exp2(s[nt][e] - m_safe[e >> 1]);
+          l_r[e >> 1] += p;
+          s[nt][e] = p;
+        }
+      }
+    }
+
+    // acc += P V: P comes straight from the score registers as A fragments.
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const uint32_t p0 = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      const uint32_t p1 = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      const uint32_t p2 = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      const uint32_t p3 = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int dd = 0; dd < DV / 16; ++dd) {
+        uint32_t b0, b1, b2, b3;
+        ldmatrix_x4_trans(b0, b1, b2, b3,
+                          smem_u32(Vt + (kk * 16 + (lane & 7) + (mat & 1) * 8) * VS + dd * 16 +
+                                   (mat >> 1) * 8));
+        mma_bf16(acc[2 * dd], p0, p1, p2, p3, b0, b1);
+        mma_bf16(acc[2 * dd + 1], p0, p1, p2, p3, b2, b3);
+      }
+    }
+    __syncthreads();  // the next iteration's prefetch overwrites this stage
+  }
+  cp_async_wait<0>();
+
+  float inv[2], row_lse[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_r[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    float l_safe;
+    if (anchored) {
+      l_safe = l <= 0.f ? 1.f : l;
+      row_lse[r] = a2 * LN2 + logf(l_safe);
+    } else {
+      l_safe = l == 0.f ? 1.f : l;
+      row_lse[r] = m_r[r] * LN2 + logf(l_safe);
+    }
+    inv[r] = 1.f / l_safe;
+  }
+
+  bf16* og = o + (size_t)bh * Lq * D + dchunk * DV;
+#pragma unroll
+  for (int i = 0; i < DV / 8; ++i) {
+    const int col = i * 8 + 2 * t;
+    if (row_a < Lq)
+      *reinterpret_cast<__nv_bfloat162*>(og + (size_t)row_a * D + col) =
+          __floats2bfloat162_rn(acc[i][0] * inv[0], acc[i][1] * inv[0]);
+    if (row_b < Lq)
+      *reinterpret_cast<__nv_bfloat162*>(og + (size_t)row_b * D + col) =
+          __floats2bfloat162_rn(acc[i][2] * inv[1], acc[i][3] * inv[1]);
+  }
+  if (dchunk == 0 && t == 0) {
+    if (row_a < Lq) lse[(size_t)bh * Lq + row_a] = row_lse[0];
+    if (row_b < Lq) lse[(size_t)bh * Lq + row_b] = row_lse[1];
+  }
+}
+
+template <int D, int BN, bool CAUSAL>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse,
+                   const void* anchor, int B, int H, int Lq, int Lk, float c, int causal_block,
+                   cudaStream_t stream) {
+  constexpr int smem = (BM * (D + PAD) + 2 * BN * (D + PAD) + 2 * BN * (DV + PAD)) * 2;
+  auto kern = flash_fwd_kernel<D, BN, CAUSAL>;
+  // the shared-memory attribute is set once per device, at its first launch
+  static std::atomic<unsigned> attr_set{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (!(attr_set.load() >> dev & 1u)) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    attr_set.fetch_or(1u << dev);
+  }
+  dim3 grid((Lq + BM - 1) / BM, B * H, D / DV);
+  kern<<<grid, NTHREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), static_cast<float*>(lse), static_cast<const float*>(anchor), Lq, Lk,
+      c, causal_block);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// q, k, v, o: (B, H, L, D) bf16 contiguous; lse: (B, H, Lq) fp32;
+// anchor: (B, H) fp32 log2-domain bound, read only when causal_block <= 0.
+// sm_scale_log2 = sm_scale * log2(e). causal_block <= 0 means bidirectional.
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                                   const void* anchor, int B, int H, int Lq, int Lk, int D,
+                                   float sm_scale_log2, int causal_block, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool causal = causal_block > 0;
+  if (D == 128) {
+    return causal ? launch<128, 64, true>(q, k, v, o, lse, anchor, B, H, Lq, Lk, sm_scale_log2,
+                                          causal_block, s)
+                  : launch<128, 64, false>(q, k, v, o, lse, anchor, B, H, Lq, Lk, sm_scale_log2,
+                                           causal_block, s);
+  }
+  if (D == 512) {
+    return causal ? launch<512, 32, true>(q, k, v, o, lse, anchor, B, H, Lq, Lk, sm_scale_log2,
+                                          causal_block, s)
+                  : launch<512, 32, false>(q, k, v, o, lse, anchor, B, H, Lq, Lk, sm_scale_log2,
+                                           causal_block, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" const char* flash_attention_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,119 @@
+"""Text-to-video generation CLI of the PyTorch port.
+
+    python -m opensora_torch.inference configs/diffusion/inference/256px.py \\
+        --prompt "a cat playing piano" [--sampling_option.num_steps N] \\
+        [--num-sample k] [--motion-score s] [--refine-prompt] [--device cpu]
+
+Prompts come from ``--prompt`` or from the CSV at ``dataset.data_path``
+(a ``text`` column). The config's ``dataset.fps`` / ``dataset.motion_score``
+suffixes are appended as the JAX package's text dataset does. Each sample
+is saved under ``save_dir`` as ``sample_XXXX.npy`` (uint8 frames T, H, W, 3)
+with the prompt in ``sample_XXXX.txt``. Runs on cuda unless ``--device``
+names another device.
+"""
+
+from __future__ import annotations
+
+import csv
+import logging
+import sys
+import time
+from typing import List, Optional
+
+
+logger = logging.getLogger("opensora_torch")
+
+
+def _pop_flag(argv: List[str], names, default=None):
+    """Remove ``--flag value`` from argv and return the value."""
+    for flag in names:
+        if flag in argv:
+            i = argv.index(flag)
+            value = argv[i + 1]
+            del argv[i:i + 2]
+            return value
+    return default
+
+
+def _pop_refine(argv: List[str]) -> bool:
+    """``--refine-prompt`` takes an optional true/false value; a following
+    path (the config) is never taken as its value."""
+    for flag in ("--refine-prompt", "--refine_prompt"):
+        if flag in argv:
+            i = argv.index(flag)
+            nxt = argv[i + 1] if i + 1 < len(argv) else None
+            if nxt is not None and nxt.lower() in ("1", "0", "true", "false", "yes", "no"):
+                del argv[i:i + 2]
+                return nxt.lower() in ("1", "true", "yes")
+            del argv[i]
+            return True
+    return False
+
+
+def read_prompts(cfg, prompt: Optional[str]) -> List[str]:
+    """Prompts from ``--prompt`` or the dataset CSV, with the dataset's
+    fps / motion-score suffixes."""
+    from opensora_torch.utils.inference import add_fps_info_to_text, add_motion_score_to_text
+
+    dataset = cfg.get("dataset", {}) or {}
+    if prompt is not None:
+        texts = [prompt]
+    else:
+        with open(dataset["data_path"], newline="") as f:
+            texts = [row["text"] for row in csv.DictReader(f)]
+    if dataset.get("fps") is not None:
+        texts = add_fps_info_to_text(texts, fps=dataset["fps"])
+    if dataset.get("motion_score") is not None:
+        texts = add_motion_score_to_text(texts, dataset["motion_score"])
+    return texts
+
+
+def main(argv: Optional[List[str]] = None) -> List[str]:
+    """Run the CLI; returns the saved sample paths."""
+    from opensora_torch.utils.api import prepare_api, prepare_models
+    from opensora_torch.utils.config import ae_spatial_compression, parse_configs
+    from opensora_torch.utils.inference import add_motion_score_to_text, process_and_save
+    from opensora_torch.utils.sampling import SamplingOption, sanitize_sampling_option
+
+    logging.basicConfig(level=logging.INFO, format="[%(asctime)s] %(levelname)s %(message)s")
+    argv = list(sys.argv[1:] if argv is None else argv)
+    prompt = _pop_flag(argv, ("--prompt",))
+    motion_score = _pop_flag(argv, ("--motion-score", "--motion_score"))
+    refine = _pop_refine(argv)
+    num_sample = int(_pop_flag(argv, ("--num-sample", "--num_sample"), default=1))
+    device = _pop_flag(argv, ("--device",))
+
+    cfg = parse_configs(argv)
+    if cfg.get("cond_type", "t2v") != "t2v":
+        raise NotImplementedError(f"cond_type {cfg.cond_type!r}: only 't2v' is ported")
+    texts_all = read_prompts(cfg, prompt)
+    model, ae, t5, clip = prepare_models(cfg, device=device, seed=cfg.get("seed", 42))
+    logger.info("models on %s", next(model.parameters()).device)
+    api_fn = prepare_api(model, ae, t5, clip, spatial_compression=ae_spatial_compression(cfg))
+    opt = sanitize_sampling_option(SamplingOption(**cfg.get("sampling_option", {})))
+    save_dir = cfg.get("save_dir", "samples")
+    batch_size = cfg.get("batch_size", 1)
+
+    paths, sample_idx = [], 0
+    for b0 in range(0, len(texts_all), batch_size):
+        texts = texts_all[b0:b0 + batch_size]
+        if refine:
+            logger.info("--refine-prompt: no prompt refiner is available offline; prompts unchanged")
+        if motion_score is not None:
+            texts = add_motion_score_to_text(texts, motion_score)
+        base_seed = opt.seed if opt.seed is not None else 42
+        for j in range(num_sample):
+            t0 = time.perf_counter()
+            x = api_fn(opt, cond_type="t2v", seed=base_seed + j if num_sample > 1 else None, text=texts,
+                       patch_size=cfg.get("patch_size", 2), channel=cfg["model"]["in_channels"])
+            x = x.cpu().numpy()
+            ids = list(range(sample_idx, sample_idx + len(texts)))
+            saved = process_and_save(x, ids, save_dir, prompts=texts)
+            logger.info("generated %s in %.2f s: %s", tuple(x.shape), time.perf_counter() - t0, saved)
+            paths += saved
+            sample_idx += len(texts)
+    return paths
+
+
+if __name__ == "__main__":
+    main()

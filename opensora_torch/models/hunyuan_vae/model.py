@@ -1,0 +1,210 @@
+"""HunyuanVideo causal 3D KL-VAE decoder (counterpart of
+opensora_tpu/models/hunyuan_vae/model.py): 4x in T, 8x in H/W, 16 latent
+channels; the first latent frame is a pure-image frame.
+
+This slice ports the decode side: ``post_quant_conv`` + ``DecoderCausal3D``,
+the scale/shift, and the module-level spatial and temporal tiling with the
+linear overlap blend. The encoder waits for the image-to-video slice. Eager
+PyTorch already decodes tile by tile, so the JAX package's host-level tile
+runner (``tiled.py``) has no counterpart.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from opensora_torch.models.hunyuan_vae.blocks import (
+    CausalConv3d,
+    GroupNorm,
+    UNetMidBlockCausal3D,
+    UpDecoderBlockCausal3D,
+)
+from opensora_torch.registry import MODELS
+
+
+@dataclass
+class AutoEncoder3DConfig:
+    from_pretrained: Optional[str] = None
+    in_channels: int = 3
+    out_channels: int = 3
+    latent_channels: int = 16
+    layers_per_block: int = 2
+    norm_num_groups: int = 32
+    scale_factor: float = 0.476986
+    shift_factor: float = 0.0
+    time_compression_ratio: int = 4
+    spatial_compression_ratio: int = 8
+    mid_block_add_attention: bool = True
+    block_out_channels: Sequence[int] = field(default_factory=lambda: (128, 256, 512, 512))
+    sample_size: int = 256
+    sample_tsize: int = 64
+    use_spatial_tiling: bool = False
+    use_temporal_tiling: bool = False
+    tile_overlap_factor: float = 0.25
+    dtype: str = "bf16"
+
+
+def blend_tiles(a: torch.Tensor, b: torch.Tensor, extent: int, dim: int) -> torch.Tensor:
+    """Linear overlap blend of the tail of ``a`` into the head of ``b``."""
+    extent = min(a.shape[dim], b.shape[dim], extent)
+    if extent == 0:
+        return b
+    shape = [1] * b.dim()
+    shape[dim] = extent
+    ramp = (torch.arange(extent, dtype=torch.float32, device=b.device) / extent).reshape(shape)
+    a_tail = a.narrow(dim, a.shape[dim] - extent, extent).float()
+    b_head = b.narrow(dim, 0, extent).float()
+    blended = (a_tail * (1 - ramp) + b_head * ramp).to(b.dtype)
+    return torch.cat([blended, b.narrow(dim, extent, b.shape[dim] - extent)], dim=dim)
+
+
+def _up_block_strides(cfg: AutoEncoder3DConfig, i: int) -> Tuple[bool, Tuple[int, int, int]]:
+    """Stride schedule from the compression ratios."""
+    n = len(cfg.block_out_channels)
+    is_final = i == n - 1
+    n_spatial = int(np.log2(cfg.spatial_compression_ratio))
+    n_time = int(np.log2(cfg.time_compression_ratio))
+    if cfg.time_compression_ratio == 4:
+        add_spatial = i < n_spatial
+        add_time = i >= (n - 1 - n_time) and not is_final
+    elif cfg.time_compression_ratio == 8:
+        add_spatial = i < n_spatial
+        add_time = i < n_spatial
+    else:
+        raise ValueError(f"Unsupported time_compression_ratio {cfg.time_compression_ratio}")
+    stride = (2 if add_time else 1, 2 if add_spatial else 1, 2 if add_spatial else 1)
+    return (add_spatial or add_time), stride
+
+
+class DecoderCausal3D(nn.Module):
+    def __init__(self, cfg: AutoEncoder3DConfig, **factory):
+        super().__init__()
+        rev = list(reversed(cfg.block_out_channels))
+        g = cfg.norm_num_groups
+        self.conv_in = CausalConv3d(cfg.latent_channels, rev[0], 3, 1, **factory)
+        self.mid_block = UNetMidBlockCausal3D(rev[0], g, add_attention=cfg.mid_block_add_attention, **factory)
+        blocks = []
+        for i, ch in enumerate(rev):
+            add_up, stride = _up_block_strides(cfg, i)
+            blocks.append(UpDecoderBlockCausal3D(
+                rev[max(i - 1, 0)], ch, num_layers=cfg.layers_per_block + 1, add_upsample=add_up,
+                upsample_scale_factor=stride, num_groups=g, **factory,
+            ))
+        self.up_blocks = nn.ModuleList(blocks)
+        self.conv_norm_out = GroupNorm(rev[-1], g, 1e-6, **factory)
+        self.conv_out = CausalConv3d(rev[-1], cfg.out_channels, 3, 1, **factory)
+
+    def forward(self, z):
+        x = self.mid_block(self.conv_in(z))
+        for blk in self.up_blocks:
+            x = blk(x)
+        return self.conv_out(F.silu(self.conv_norm_out(x)))
+
+
+class AutoencoderKLCausal3D(nn.Module):
+    """The VAE's decode path; public tensors are (B, C, T, H, W)."""
+
+    def __init__(self, config: AutoEncoder3DConfig, device=None, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.config = config
+        factory = dict(device=device, dtype=dtype)
+        self.decoder = DecoderCausal3D(config, **factory)
+        self.post_quant_conv = nn.Conv3d(config.latent_channels, config.latent_channels, 1, **factory)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.post_quant_conv.weight.dtype
+
+    @property
+    def tile_sample_min_size(self) -> int:
+        return self.config.sample_size
+
+    @property
+    def tile_latent_min_size(self) -> int:
+        return self.config.sample_size // self.config.spatial_compression_ratio
+
+    @property
+    def tile_sample_min_tsize(self) -> int:
+        return self.config.sample_tsize
+
+    @property
+    def tile_latent_min_tsize(self) -> int:
+        return self.config.sample_tsize // self.config.time_compression_ratio
+
+    def _decode_core(self, z: torch.Tensor) -> torch.Tensor:
+        return self.decoder(self.post_quant_conv(z))
+
+    def spatial_tiled_decode(self, z: torch.Tensor) -> torch.Tensor:
+        """Overlapping tiles over H/W, decoded one by one and blended."""
+        tl = self.tile_latent_min_size
+        overlap = int(tl * (1 - self.config.tile_overlap_factor))
+        blend = int(self.tile_sample_min_size * self.config.tile_overlap_factor)
+        limit = self.tile_sample_min_size - blend
+        rows = [
+            [self._decode_core(z[:, :, :, i:i + tl, j:j + tl]) for j in range(0, z.shape[4], overlap)]
+            for i in range(0, z.shape[3], overlap)
+        ]
+        result_rows = []
+        for i, row in enumerate(rows):
+            result = []
+            for j, tile in enumerate(row):
+                if i > 0:
+                    tile = blend_tiles(rows[i - 1][j], tile, blend, 3)
+                if j > 0:
+                    tile = blend_tiles(row[j - 1], tile, blend, 4)
+                result.append(tile[:, :, :, :limit, :limit])
+            result_rows.append(torch.cat(result, dim=4))
+        return torch.cat(result_rows, dim=3)
+
+    def temporal_tiled_decode(self, z: torch.Tensor) -> torch.Tensor:
+        """Causal temporal tiles: each carries one extra leading frame, whose
+        decode is dropped for all but the first tile before blending."""
+        tlt = self.tile_latent_min_tsize
+        overlap = int(tlt * (1 - self.config.tile_overlap_factor))
+        blend = int(self.tile_sample_min_tsize * self.config.tile_overlap_factor)
+        limit = self.tile_sample_min_tsize - blend
+        tiles = []
+        for i in range(0, z.shape[2], overlap):
+            tile = z[:, :, i:i + tlt + 1]
+            if self.config.use_spatial_tiling and (
+                tile.shape[3] > self.tile_latent_min_size or tile.shape[4] > self.tile_latent_min_size
+            ):
+                dec = self.spatial_tiled_decode(tile)
+            else:
+                dec = self._decode_core(tile)
+            tiles.append(dec[:, :, 1:] if i > 0 else dec)
+        result = []
+        for i, tile in enumerate(tiles):
+            if i > 0:
+                result.append(blend_tiles(tiles[i - 1], tile, blend, 2)[:, :, :limit])
+            else:
+                result.append(tile[:, :, :limit + 1])
+        return torch.cat(result, dim=2)
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        """Scaled latents (B, C, T, H, W) -> video (B, 3, T', H', W')."""
+        assert z.dim() == 5, "expected (B, C, T, H, W)"
+        z = (z / self.config.scale_factor + self.config.shift_factor).to(self.dtype)
+        cfg = self.config
+        if cfg.use_temporal_tiling and z.shape[2] > self.tile_latent_min_tsize:
+            return self.temporal_tiled_decode(z)
+        if cfg.use_spatial_tiling and (
+            z.shape[3] > self.tile_latent_min_size or z.shape[4] > self.tile_latent_min_size
+        ):
+            return self.spatial_tiled_decode(z)
+        return self._decode_core(z)
+
+
+@MODELS.register_module("hunyuan_vae")
+def CausalVAE3D_HUNYUAN(from_pretrained: Optional[str] = None, device=None, **kwargs) -> AutoencoderKLCausal3D:
+    from opensora_torch.utils.misc import torch_dtype
+
+    known = set(AutoEncoder3DConfig.__dataclass_fields__)
+    cfg = AutoEncoder3DConfig(from_pretrained=from_pretrained, **{k: v for k, v in kwargs.items() if k in known})
+    return AutoencoderKLCausal3D(cfg, device=device, dtype=torch_dtype(cfg.dtype))

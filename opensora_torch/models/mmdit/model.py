@@ -1,0 +1,134 @@
+"""MMDiT -- the 11B Flux-derived dual/single-stream diffusion transformer
+(counterpart of opensora_tpu/models/mmdit/model.py).
+
+The JAX package stacks the blocks under ``nn.scan``; here they are
+``nn.ModuleList``s run by a Python loop, with state-dict keys
+``double_blocks.{i}.*`` / ``single_blocks.{i}.*`` in the upstream Open-Sora
+v2 layout.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional, Sequence
+
+import torch
+import torch.nn as nn
+
+from opensora_torch.models.mmdit.layers import (
+    DoubleStreamBlock,
+    LastLayer,
+    MLPEmbedder,
+    SingleStreamBlock,
+    timestep_embedding,
+)
+from opensora_torch.ops.rope import embed_nd
+from opensora_torch.registry import MODELS
+
+
+@dataclass
+class MMDiTConfig:
+    in_channels: int = 64
+    vec_in_dim: int = 768
+    context_in_dim: int = 4096
+    hidden_size: int = 3072
+    mlp_ratio: float = 4.0
+    num_heads: int = 24
+    depth: int = 19
+    depth_single_blocks: int = 38
+    axes_dim: Sequence[int] = field(default_factory=lambda: [16, 56, 56])
+    theta: int = 10_000
+    qkv_bias: bool = True
+    guidance_embed: bool = True
+    cond_embed: bool = False
+    fused_qkv: bool = True
+    patch_size: int = 2
+    rope_convention: str = "split"
+    attn_backend: Optional[str] = None  # None = flash attention; "xla" = plain attention
+    dtype: str = "bf16"
+    from_pretrained: Optional[str] = None
+
+    @property
+    def pe_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+
+class MMDiTModel(nn.Module):
+    def __init__(self, config: MMDiTConfig, device=None, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        cfg = self.config = config
+        if cfg.hidden_size % cfg.num_heads != 0:
+            raise ValueError(f"hidden_size {cfg.hidden_size} not divisible by num_heads {cfg.num_heads}")
+        if sum(cfg.axes_dim) != cfg.pe_dim:
+            raise ValueError(f"axes_dim {cfg.axes_dim} != pe dim {cfg.pe_dim}")
+        factory = dict(device=device, dtype=dtype)
+        hidden = cfg.hidden_size
+        self.img_in = nn.Linear(cfg.in_channels, hidden, **factory)
+        self.time_in = MLPEmbedder(256, hidden, **factory)
+        self.vector_in = MLPEmbedder(cfg.vec_in_dim, hidden, **factory)
+        if cfg.guidance_embed:
+            self.guidance_in = MLPEmbedder(256, hidden, **factory)
+        if cfg.cond_embed:
+            self.cond_in = nn.Linear(cfg.in_channels + cfg.patch_size**2, hidden, **factory)
+            nn.init.zeros_(self.cond_in.weight)
+            nn.init.zeros_(self.cond_in.bias)
+        self.txt_in = nn.Linear(cfg.context_in_dim, hidden, **factory)
+        common = dict(num_heads=cfg.num_heads, mlp_ratio=cfg.mlp_ratio, fused_qkv=cfg.fused_qkv,
+                      rope_convention=cfg.rope_convention, attn_backend=cfg.attn_backend, **factory)
+        self.double_blocks = nn.ModuleList(
+            DoubleStreamBlock(hidden, qkv_bias=cfg.qkv_bias, **common) for _ in range(cfg.depth)
+        )
+        self.single_blocks = nn.ModuleList(
+            SingleStreamBlock(hidden, **common) for _ in range(cfg.depth_single_blocks)
+        )
+        self.final_layer = LastLayer(hidden, cfg.in_channels, **factory)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.img_in.weight.dtype
+
+    def prepare_block_inputs(self, img, img_ids, txt, txt_ids, timesteps, y_vec, cond=None,
+                             guidance=None):
+        """Project the streams, build the conditioning vector and RoPE tables."""
+        cfg = self.config
+        if img.dim() != 3 or txt.dim() != 3:
+            raise ValueError("img and txt must be (B, L, C)")
+        dt = self.dtype
+        img = self.img_in(img.to(dt))
+        if cfg.cond_embed:
+            if cond is None:
+                raise ValueError("cond_embed=True requires a cond input")
+            img = img + self.cond_in(cond.to(dt))
+        vec = self.time_in(timestep_embedding(timesteps, 256).to(dt))
+        if cfg.guidance_embed:
+            if guidance is None:
+                raise ValueError("guidance_embed=True requires a guidance input")
+            vec = vec + self.guidance_in(timestep_embedding(guidance, 256).to(dt))
+        vec = vec + self.vector_in(y_vec.to(dt))
+        txt = self.txt_in(txt.to(dt))
+        pe = embed_nd(torch.cat([txt_ids, img_ids], dim=1), cfg.axes_dim, cfg.theta)
+        return img, txt, vec, pe
+
+    def forward(self, img, img_ids, txt, txt_ids, timesteps, y_vec, cond=None, guidance=None):
+        img, txt, vec, pe = self.prepare_block_inputs(
+            img, img_ids, txt, txt_ids, timesteps, y_vec, cond, guidance
+        )
+        for block in self.double_blocks:
+            img, txt = block(img, txt, vec, pe)
+        x = torch.cat([txt, img], dim=1)
+        for block in self.single_blocks:
+            x = block(x, vec, pe)
+        return self.final_layer(x[:, txt.shape[1]:], vec)
+
+
+@MODELS.register_module("flux")
+def Flux(from_pretrained: Optional[str] = None, dtype: str = "bf16", device=None, **kwargs) -> MMDiTModel:
+    """Build an MMDiT from a config dict's entries; unknown keys are ignored.
+    Weights are random (nn.Linear init, zero ``cond_in``) in the torch dtype
+    named by ``dtype``; ``from_pretrained`` is recorded for a loader."""
+    from opensora_torch.utils.misc import torch_dtype
+
+    known = set(MMDiTConfig.__dataclass_fields__)
+    config = MMDiTConfig(from_pretrained=from_pretrained, dtype=dtype,
+                         **{k: v for k, v in kwargs.items() if k in known})
+    return MMDiTModel(config, device=device, dtype=torch_dtype(dtype))

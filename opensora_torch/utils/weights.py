@@ -1,0 +1,151 @@
+"""Carry JAX parameter trees (nested dicts of numpy arrays, as the JAX
+package's flax modules hold them) into the port's state dicts.
+
+Flax Dense kernels are (in, out): the torch weight is the transpose. Flax
+convolution kernels are (kT, kH, kW, in, out): torch wants (out, in, kT, kH,
+kW). The MMDiT's ``double_blocks``/``single_blocks`` subtrees carry a
+leading layer axis (``nn.scan`` stacking) that is unstacked into
+``{name}.{i}``. The port keeps its own copy of this logic; the results load
+with ``load_state_dict(strict=True)``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+
+Tree = Dict[str, Any]
+
+
+def _flatten(tree: Tree, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def _torch_weight(val: np.ndarray) -> np.ndarray:
+    """Flax kernel -> torch weight layout (torch's threaded copy makes the
+    transpose of a large kernel several times faster than numpy's)."""
+    perm = {5: (4, 3, 0, 1, 2), 4: (3, 2, 0, 1)}.get(val.ndim, (1, 0))
+    return torch.from_numpy(np.asarray(val)).permute(perm).contiguous().numpy()
+
+
+def mmdit_state_dict(params: Tree) -> Dict[str, np.ndarray]:
+    """MMDiT flax params -> ``MMDiTModel`` state dict (upstream Open-Sora v2
+    names). The fused/unfused qkv layout and the RoPE pairing stay as they
+    are in memory, so the port's config must name the same ones."""
+    out: Dict[str, np.ndarray] = {}
+
+    def put(path: Tuple[str, ...], val: np.ndarray) -> None:
+        *mods, leaf = path
+        if mods[:2] == ["final_layer", "adaLN_modulation"]:
+            mods.append("1")  # nn.Sequential(SiLU, Linear)
+        if leaf == "kernel":
+            out[".".join(mods) + ".weight"] = _torch_weight(val)
+        else:  # bias, RMSNorm scale
+            out[".".join(mods + [leaf])] = val
+
+    for path, val in _flatten(params):
+        if path[0] in ("double_blocks", "single_blocks"):
+            for i in range(val.shape[0]):
+                put((path[0], str(i)) + path[1:], val[i])
+        else:
+            put(path, val)
+    return out
+
+
+def _vae_segment(seg: str) -> str:
+    """'resnets_0' -> 'resnets.0', 'to_out' -> 'to_out.0'."""
+    if seg == "to_out":
+        return "to_out.0"
+    head, _, tail = seg.rpartition("_")
+    return f"{head}.{tail}" if head and tail.isdigit() else seg
+
+
+def hunyuan_vae_state_dict(params: Tree) -> Dict[str, np.ndarray]:
+    """HunyuanVAE flax params -> torch-layout state dict (every key,
+    encoder included; see :data:`VAE_DECODER_PREFIXES`)."""
+    out: Dict[str, np.ndarray] = {}
+    for path, val in _flatten(params):
+        *segs, leaf = path
+        name = ".".join(_vae_segment(s) for s in segs)
+        if leaf == "kernel":
+            out[f"{name}.weight"] = _torch_weight(val)
+        else:
+            out[f"{name}.{'weight' if leaf == 'scale' else leaf}"] = val
+    return out
+
+
+# the port's AutoencoderKLCausal3D holds the decode side only
+VAE_DECODER_PREFIXES = ("decoder.", "post_quant_conv.")
+
+
+def hunyuan_vae_decoder_state_dict(params: Tree) -> Dict[str, np.ndarray]:
+    return {k: v for k, v in hunyuan_vae_state_dict(params).items() if k.startswith(VAE_DECODER_PREFIXES)}
+
+
+def t5_state_dict(params: Tree) -> Dict[str, np.ndarray]:
+    """T5Encoder flax params -> port ``T5Encoder`` (HF T5EncoderModel names)."""
+    out = {"shared.weight": np.asarray(params["shared"]["embedding"]),
+           "encoder.final_layer_norm.weight": np.asarray(params["final_layer_norm"]["weight"])}
+    i = 0
+    while f"block_{i}" in params:
+        blk = params[f"block_{i}"]
+        p = f"encoder.block.{i}.layer"
+        out[f"{p}.0.layer_norm.weight"] = np.asarray(blk["ln_attn"]["weight"])
+        for n in ("q", "k", "v", "o"):
+            out[f"{p}.0.SelfAttention.{n}.weight"] = _torch_weight(np.asarray(blk["attention"][n]["kernel"]))
+        if "relative_attention_bias" in blk["attention"]:
+            out[f"{p}.0.SelfAttention.relative_attention_bias.weight"] = np.asarray(
+                blk["attention"]["relative_attention_bias"])
+        out[f"{p}.1.layer_norm.weight"] = np.asarray(blk["ln_ff"]["weight"])
+        for n in ("wi_0", "wi_1", "wo"):
+            out[f"{p}.1.DenseReluDense.{n}.weight"] = _torch_weight(np.asarray(blk[n]["kernel"]))
+        i += 1
+    return out
+
+
+def clip_text_state_dict(params: Tree) -> Dict[str, np.ndarray]:
+    """CLIPTextModel flax params -> port ``CLIPTextModel`` (HF names)."""
+    pre = "text_model."
+
+    def ln(node):
+        return {"weight": np.asarray(node["scale"]), "bias": np.asarray(node["bias"])}
+
+    def lin(node):
+        return {"weight": _torch_weight(np.asarray(node["kernel"])), "bias": np.asarray(node["bias"])}
+
+    out = {
+        pre + "embeddings.token_embedding.weight": np.asarray(params["token_embedding"]["embedding"]),
+        pre + "embeddings.position_embedding.weight": np.asarray(params["position_embedding"]),
+    }
+    out.update({f"{pre}final_layer_norm.{k}": v for k, v in ln(params["final_layer_norm"]).items()})
+    i = 0
+    while f"layers_{i}" in params:
+        layer = params[f"layers_{i}"]
+        p = f"{pre}encoder.layers.{i}"
+        parts = {"layer_norm1": ln(layer["layer_norm1"]), "layer_norm2": ln(layer["layer_norm2"]),
+                 "mlp.fc1": lin(layer["fc1"]), "mlp.fc2": lin(layer["fc2"])}
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            parts[f"self_attn.{n}"] = lin(layer[n])
+        for mod, tensors in parts.items():
+            out.update({f"{p}.{mod}.{k}": v for k, v in tensors.items()})
+        i += 1
+    return out
+
+
+def load_numpy_state_dict(module: torch.nn.Module, sd: Dict[str, np.ndarray]) -> None:
+    """``load_state_dict(strict=True)`` of numpy arrays, cast to each
+    parameter's dtype. A module built on the ``meta`` device takes the
+    arrays as its CPU parameters (no initialization pass)."""
+    own = module.state_dict()
+    meta = any(v.is_meta for v in own.values())
+    tensors = {}
+    for k, v in sd.items():
+        x = torch.from_numpy(np.require(v, requirements=["C", "W"]))
+        tensors[k] = x.to(own[k].dtype) if k in own else x
+    module.load_state_dict(tensors, strict=True, assign=meta)

@@ -48,3 +48,9 @@ def _reset_global_state():
         os.environ.pop("AE_SPATIAL_COMPRESSION", None)
     else:
         os.environ["AE_SPATIAL_COMPRESSION"] = ae
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips itself where torch.cuda.is_available() is False"
+    )
