@@ -3,27 +3,39 @@
     python3 chip_smoke.py
 
 Phases, one line each; any failure exits non-zero:
-  1. build every CUDA kernel from the sources in this checkout (nvcc, sm_90a);
+  1. build every CUDA kernel source in this checkout (one nvcc per source,
+     all started together; sm_90a);
   2. hold each kernel against its plain PyTorch version at the shapes the
-     main path gives it, and time kernel, plain version, the PyTorch library
-     call that computes the same function, and the card's bound;
-  3. check the main path's models at full width on a small input: the
-     card's path against the plain path on the CPU;
-  4. drive the main path -- 256px 129-frame text-to-video with
+     main paths give it -- the flash-attention forward, and the two
+     backward kernels (dkv, dq) -- show that the limits reject known-wrong
+     outputs, and time kernel, plain version, the PyTorch library call that
+     computes the same function, and the card's bound;
+  3. check the main paths' models at full width on a small input: the
+     card's bf16 path (kernels) against the plain fp32 path on the CPU, for
+     inference and for a LoRA train step (loss and LoRA gradients);
+  4. drive the inference path -- 256px 129-frame text-to-video with
      configs/diffusion/inference/256px.py at full width and depth, random
      bf16 weights from a seed -- through prepare_models + api_fn, and check
-     the output and the kernels' launch counts.
+     the output and the kernels' launch counts;
+  5. drive the training path -- configs/diffusion/train/lora.py at full
+     width and depth (random bf16 base from seed 42, LoRA r=128,
+     remat_policy=full) on seeded 129-frame 256px video batches of 3 --
+     through the training CLI's own per-batch body (opensora_torch.train.
+     Trainer.run_batch) for 3 steps, and check losses, gradient norms,
+     that the LoRA factors move, the exact launch counts and peak memory.
 Then it prints the card's name and power limit, one JSON line with the
 kernels' numbers, and last {"ok": true, "device": {...}}.
 
 ``--out-dir DIR`` writes the compiler's register/shared-memory report
-(build_log.txt) there; ``--profile`` adds a profiled second main-path run
-(kernel time by kind, device idle share; with ``--out-dir`` the full table
-goes to DIR/profile_main.txt).
+(build_log.txt) there; ``--profile`` adds a profiled second run of each
+path (kernel time by kind, device idle share; with ``--out-dir`` the full
+tables go to DIR/profile_main.txt and DIR/profile_train.txt).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import gc
 import json
 import math
 import os
@@ -53,7 +65,25 @@ LSE_TOL = 1e-3
 # activations, ~4e-3 per op, compounded over a dozen chained products
 SMALL_TOL = 5e-2
 
-STEPS = 2  # num_steps of the main path, cut from 50 to fit the time limit
+# Backward kernels vs the fp32 plain backward on the same bf16 q, k, v, dO
+# and the same LSE and delta: each of dq, dk, dv within BWD_RTOL of its own
+# scale. P (for dV) and dS (for dK, dQ) are rounded to bf16 before their
+# products, as on the TPU, and the outputs once more; a CPU simulation of
+# that rounding gives 3e-3 to 6e-3 of max|ref| at L = 2000. Every case also
+# checks that the limit rejects known-wrong gradients (bwd_mutant_readings).
+BWD_RTOL = 1e-2
+# The card's bf16 LoRA train step (kernels) vs the CPU's fp32 plain step,
+# full width, 1 + 1 blocks: the loss to SMALL_TOL like the forward; each
+# LoRA gradient to TRAIN_GRAD_TOL of its own scale -- the backward runs the
+# forward's bf16 chain twice more (the recompute and the transposed
+# products), and the factors' gradients are products of the bf16 weight
+# gradient.
+TRAIN_GRAD_TOL = 1e-1
+
+STEPS = 2  # num_steps of the inference path, cut from 50 to fit the time limit
+TRAIN_STEPS = 3  # LoRA steps of the training path
+TRAIN_BATCH = 3  # the 129-frame 256px bucket's batch size (stage1.py)
+TRAIN_FRAMES, TRAIN_RESOLUTION, TRAIN_RATIO = 129, "256px", "16:9"
 # api_fn does not clamp (saving clips). With random weights a little of the
 # decoded video lies outside [-1, 1] (0.43 % in the runs that measured it);
 # a path that blows up puts most of it there.
@@ -216,6 +246,142 @@ def check_attention(device) -> dict:
 
 
 # ----------------------------------------------------------------------
+# phase 2b: flash-attention backward at the path's shapes
+# ----------------------------------------------------------------------
+
+# products of 2 * B * H * D * visible pairs flops each: dkv recomputes S and
+# computes dV, dP, dK; dq recomputes S and dP and computes dQ; the minimal
+# backward (S, dV, dP, dK, dQ) is 5
+BWD_PRODUCTS = {"flash_attention_bwd_dkv": 4, "flash_attention_bwd_dq": 3, "minimal": 5}
+
+
+def bwd_bound(kernel, b, h, l, d, causal_block):
+    """(least ms on the card, "operations" or "bytes") for one backward
+    kernel (or the minimal backward): its products at the bf16 peak, or its
+    inputs read and outputs written once at the memory rate."""
+    flops = BWD_PRODUCTS[kernel] * 2.0 * b * h * d * visible_pairs(l, l, causal_block)
+    n_out = {"flash_attention_bwd_dkv": 2, "flash_attention_bwd_dq": 1, "minimal": 3}[kernel]
+    nbytes = 2.0 * b * h * l * d * (4 + n_out) + 2 * 4.0 * b * h * l  # q, k, v, dO in; lse, delta
+    flops_s, bytes_s = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(flops_s, bytes_s), ("operations" if flops_s >= bytes_s else "bytes")
+
+
+def plain_bwd_chunked(fa, q, k, v, do, lse, delta, causal_block, heads_per_chunk):
+    """The plain fp32 backward over chunks of heads."""
+    parts = []
+    for h0 in range(0, q.shape[1], heads_per_chunk):
+        sl = slice(h0, h0 + heads_per_chunk)
+        parts.append(fa.flash_attention_bwd_ref(q[:, sl], k[:, sl], v[:, sl], do[:, sl], lse[:, sl],
+                                                delta[:, sl], None, causal_block))
+    return tuple(torch.cat(xs, 1) for xs in zip(*parts))
+
+
+def bwd_mutant_readings(fa, q, k, v, do, lse, delta, causal_block, heads_per_chunk, ref) -> dict:
+    """What the check reads (worst of dq, dk, dv as max|err| / max|ref|)
+    for gradients a faulty backward could give: delta left out of dS;
+    sm_scale missing from dK; the last 64-row tile of queries and keys
+    skipped (its rows of the gradients left at 0)."""
+    scales = [r.abs().max().item() for r in ref]
+
+    def reading(grads):
+        return max((g - r).abs().max().item() / sc for g, r, sc in zip(grads, ref, scales))
+
+    l = q.shape[2]
+    keep = l - (l % 64 or 64)
+    cut = plain_bwd_chunked(fa, q[:, :, :keep], k[:, :, :keep], v[:, :, :keep], do[:, :, :keep],
+                            lse[:, :, :keep].contiguous(), delta[:, :, :keep].contiguous(), causal_block,
+                            heads_per_chunk)
+    pad = [torch.nn.functional.pad(g, (0, 0, 0, l - keep)) for g in cut]
+    return {
+        "delta_left_out": reading(plain_bwd_chunked(fa, q, k, v, do, lse, torch.zeros_like(delta), causal_block,
+                                                    heads_per_chunk)),
+        "dk_without_sm_scale": reading((ref[0], ref[1] * math.sqrt(q.shape[-1]), ref[2])),
+        "tail_tile_skipped": reading(pad),
+    }
+
+
+def sdpa_backward_ms(q, k, v, do, mask, iters: int) -> float:
+    """The PyTorch library's attention backward: SDPA forward + backward
+    minus SDPA forward."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    both = time_cuda(lambda: torch.autograd.grad(sdpa(qg, kg, vg, attn_mask=mask), (qg, kg, vg), do), iters)
+    with torch.no_grad():
+        fwd = time_cuda(lambda: sdpa(qg, kg, vg, attn_mask=mask), iters)
+    return both - fwd
+
+
+BWD_CASES = [
+    # name, (B, H, L, D), causal_block
+    ("mmdit_joint", (3, 24, 8828, 128), None),
+    ("tail_bidirectional", (2, 3, 1000, 128), None),
+    ("tail_frame_causal", (1, 2, 1000, 128), 96),
+]
+
+
+def check_attention_bwd(device) -> dict:
+    from opensora_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    cases = []
+    for name, (b, h, l, d), cb in BWD_CASES:
+        shape = (b, h, l, d)
+        q, k, v, do = (torch.randn(shape, generator=gen, device=device).to(torch.bfloat16) for _ in range(4))
+        heads_per_chunk = max(1, (1 << 30) // (l * l * 4 * b))
+        out, lse = plain_chunked(fa, q, k, v, cb, heads_per_chunk)
+        delta = (do.float() * out).sum(-1)
+        del out
+        kw = dict(sm_scale=1.0 / math.sqrt(d), causal_block=cb)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+        ref = plain_bwd_chunked(fa, q, k, v, do, lse, delta, cb, heads_per_chunk)
+        errs = {n: (g.float() - r).abs().max().item() for n, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref)}
+        scales = {n: r.abs().max().item() for n, r in zip(("dq", "dk", "dv"), ref)}
+        rel = {n: errs[n] / scales[n] for n in errs}
+        ok = all(math.isfinite(e) and r <= BWD_RTOL for e, r in zip(errs.values(), rel.values()))
+        mutants = bwd_mutant_readings(fa, q, k, v, do, lse, delta, cb, heads_per_chunk, ref)
+        caught = all(r > BWD_RTOL for r in mutants.values())
+        del ref, dq, dk, dv
+
+        big = l * l * b * h > 1e8
+        iters = 5 if big else 20
+        times = {
+            "flash_attention_bwd_dkv": time_cuda(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw), iters),
+            "flash_attention_bwd_dq": time_cuda(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw), iters),
+        }
+        plain_ms = time_cuda(lambda: plain_bwd_chunked(fa, q, k, v, do, lse, delta, cb, heads_per_chunk),
+                             1 if big else 3, warmup=0)
+        mask = None
+        if cb is not None:
+            idx = torch.arange(l, device=device) // cb
+            mask = idx[None, :] <= idx[:, None]
+        library_ms = sdpa_backward_ms(q, k, v, do, mask, iters)
+        bounds = {n: bwd_bound(n, b, h, l, d, cb) for n in BWD_PRODUCTS}
+        case = dict(name=name, shape=list(shape), causal_block=cb, max_abs_err=errs, ref_max_abs=scales,
+                    rel_err=rel, mutants=mutants, ms=times, plain_ms=plain_ms, library_ms=library_ms,
+                    bound_ms={n: bd[0] for n, bd in bounds.items()}, bound_by={n: bd[1] for n, bd in bounds.items()})
+        cases.append(case)
+        log(
+            f"[kernels] flash_attention_bwd {name} {shape} cb={cb} "
+            f"dq/dk/dv max|err|/max|ref| = {rel['dq']:.3e}/{rel['dk']:.3e}/{rel['dv']:.3e} (tol {BWD_RTOL}) "
+            f"wrong gradients: " + ", ".join(f"{n} {r:.3e}" for n, r in mutants.items())
+            + f" {'rejected' if caught else 'NOT REJECTED'} "
+            f"dkv_ms={times['flash_attention_bwd_dkv']:.3f} dq_ms={times['flash_attention_bwd_dq']:.3f} "
+            f"bound_ms dkv/dq/minimal={bounds['flash_attention_bwd_dkv'][0]:.3f}/"
+            f"{bounds['flash_attention_bwd_dq'][0]:.3f}/{bounds['minimal'][0]:.3f} "
+            f"plain_ms={plain_ms:.3f} sdpa_bwd_ms={library_ms:.3f} {'OK' if ok and caught else 'FAIL'}"
+        )
+        if not ok:
+            raise AssertionError(f"the backward kernels disagree with the plain backward at {name}")
+        if not caught:
+            raise AssertionError(f"the limit at {name} does not reject a known-wrong backward")
+        del q, k, v, do, lse, delta, mask
+        torch.cuda.empty_cache()
+    return {"cases": cases}
+
+
+# ----------------------------------------------------------------------
 # phase 3: the main path
 # ----------------------------------------------------------------------
 
@@ -277,39 +443,44 @@ def check_small_input(device) -> dict:
     return res
 
 
-def profile_main_path(api_fn, run_kwargs: dict, out_dir) -> dict:
-    """Kernel time by kind over one more main-path run under torch.profiler;
-    the full table goes to ``out_dir``/profile_main.txt if given."""
+KERNEL_KINDS = [
+    ("flash_attention_fwd", ("flash_fwd_kernel",)),
+    ("flash_attention_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("flash_attention_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("conv (cuDNN)", ("conv", "fprop", "cudnn", "dgrad", "wgrad")),
+    ("gemm (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
+]
+
+
+def profile_run(fn, tag: str, out_dir) -> dict:
+    """Device time by kernel kind and the device's idle share over one more
+    run of ``fn`` under torch.profiler; the full table goes to
+    ``out_dir``/profile_``tag``.txt if given."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        api_fn(**run_kwargs)
+        fn()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    groups = {"flash_attention_fwd": 0.0, "conv (cuDNN)": 0.0, "gemm (cuBLAS)": 0.0, "other": 0.0}
+    groups = {name: 0.0 for name, _ in KERNEL_KINDS}
+    groups["other"] = 0.0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total", None)
         us = e.self_cuda_time_total if us is None else us
         name = e.key.lower()
-        if "flash_fwd_kernel" in name:
-            groups["flash_attention_fwd"] += us
-        elif any(w in name for w in ("conv", "fprop", "cudnn", "dgrad", "wgrad")):
-            groups["conv (cuDNN)"] += us
-        elif any(w in name for w in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
-            groups["gemm (cuBLAS)"] += us
-        else:
-            groups["other"] += us
+        kind = next((k for k, words in KERNEL_KINDS if any(w in name for w in words)), "other")
+        groups[kind] += us
     busy_s = sum(groups.values()) / 1e6
     out = {"wall_s": wall_s, "kernel_s": {k: v / 1e6 for k, v in groups.items()},
            "device_idle_share": max(0.0, 1.0 - busy_s / wall_s)}
     if out_dir:
-        with open(os.path.join(out_dir, "profile_main.txt"), "w") as f:
+        with open(os.path.join(out_dir, f"profile_{tag}.txt"), "w") as f:
             f.write(json.dumps(out) + "\n")
             f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60))
-    log("[profile] " + json.dumps(out))
+    log(f"[profile {tag}] " + json.dumps(out))
     return out
 
 
@@ -375,7 +546,147 @@ def run_main_path(device, profile: bool = False, out_dir=None) -> dict:
                decode_s=timings["decode_s"], total_s=total_s, peak_mem_gb=peak_gb,
                outside_share=outside, models_build_s=build_s)
     if profile:
-        res["profile"] = profile_main_path(api_fn, run_kwargs, out_dir)
+        res["profile"] = profile_run(lambda: api_fn(**run_kwargs), "main", out_dir)
+    return res
+
+
+# ----------------------------------------------------------------------
+# phase 5: the training path
+# ----------------------------------------------------------------------
+
+LORA_CFG = os.path.join(REPO, "configs", "diffusion", "train", "lora.py")
+# the card cannot hold the "dots" checkpoints of stage1.py at this bucket
+# beside the weights (about 77 GB); full recompute is a listed cut
+TRAIN_OVERRIDES = ["--model.from_pretrained", "", "--ae.from_pretrained", "", "--model.remat_policy", "full"]
+
+
+def check_train_small_input(device) -> dict:
+    """One LoRA train step of the full-width MMDiT at depth 1 + 1 on a small
+    batch: the card's bf16 path (flash forward and backward kernels) vs the
+    CPU's fp32 plain path, same weights, factors, batch and draws."""
+    from opensora_torch.registry import MODELS, build_module
+    from opensora_torch.training.diffusion import compute_loss, compute_shift_alpha
+    from opensora_torch.training.lora import apply_lora, lora_parameters
+    from opensora_torch.utils.api import prepare_models  # noqa: F401  (registers the models)
+    from opensora_torch.utils.config import parse_configs
+    from opensora_torch.utils.sampling import build_img_ids
+
+    cfg = parse_configs([LORA_CFG, *TRAIN_OVERRIDES])
+    mcfg = dict(cfg.model, depth=1, depth_single_blocks=1)
+    torch.manual_seed(0)
+    card = build_module(dict(mcfg), MODELS, device=device)
+    cpu = build_module(dict(mcfg, dtype="fp32"), MODELS, device="meta")
+    cpu.load_state_dict({k: v.float().cpu() for k, v in card.state_dict().items()}, assign=True)
+    rank = cfg.lora_config["r"]
+    apply_lora(card, rank, 1.0)
+    apply_lora(cpu, rank, 1.0)
+    gen = torch.Generator().manual_seed(3)
+    card_f, cpu_f = lora_parameters(card), lora_parameters(cpu)
+    with torch.no_grad():  # nonzero B, so that both factors take gradients
+        for n, p in cpu_f.items():
+            p.copy_(torch.randn(p.shape, generator=gen) * (0.02 if n.endswith("lora_B") else 1.0 / rank))
+            card_f[n].copy_(p)
+
+    b, t, h, w, lt = 3, 2, 8, 12, 32
+    n_img = t * (h // 2) * (w // 2)
+    bf = lambda *shape: torch.randn(shape, generator=gen).to(torch.bfloat16).float()  # noqa: E731
+    batch = dict(
+        x0=bf(b, n_img, mcfg["in_channels"]), img_ids=build_img_ids(t, h, w, bs=b), txt=bf(b, lt, mcfg["context_in_dim"]),
+        txt_ids=torch.zeros(b, lt, 3), y_vec=bf(b, mcfg["vec_in_dim"]), cond=bf(b, n_img, mcfg["in_channels"] + 4),
+        shift_alpha=torch.full((b,), compute_shift_alpha(h, w, t)),
+    )
+    draws = dict(t=torch.rand(b, generator=gen), x1=torch.randn(b, n_img, mcfg["in_channels"], generator=gen))
+
+    def step(model, factors, dev, dtype):
+        on = {k: v.to(dev, dtype if k in ("x0", "txt", "y_vec", "cond") else v.dtype) for k, v in batch.items()}
+        loss = compute_loss(model, on, **{k: v.to(dev) for k, v in draws.items()})
+        loss.backward()
+        return loss.item(), {n: p.grad.float().cpu() for n, p in factors.items()}
+
+    loss_card, g_card = step(card, card_f, device, torch.bfloat16)
+    loss_cpu, g_cpu = step(cpu, cpu_f, "cpu", torch.float32)
+    grad_rel = {n: float((g_card[n] - g).abs().max() / g.abs().max()) for n, g in g_cpu.items()}
+    worst = max(grad_rel, key=grad_rel.get)
+    res = {"loss_card": loss_card, "loss_cpu": loss_cpu, "loss_rel_err": abs(loss_card - loss_cpu) / abs(loss_cpu),
+           "grad_rel_err_max": grad_rel[worst], "grad_rel_err_worst": worst,
+           "grad_rel_err_median": sorted(grad_rel.values())[len(grad_rel) // 2]}
+    del card, cpu
+    torch.cuda.empty_cache()
+    ok = res["loss_rel_err"] <= SMALL_TOL and res["grad_rel_err_max"] <= TRAIN_GRAD_TOL
+    log(f"[small] LoRA train step, full-width MMDiT depth 1+1 (B=3, {n_img + lt} tokens, r={rank}), card bf16 + "
+        f"kernels vs CPU fp32 plain: {json.dumps(res)} (tol loss {SMALL_TOL}, each LoRA gradient "
+        f"{TRAIN_GRAD_TOL} of its scale) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the card's train step disagrees with the plain step on a small input")
+    return res
+
+
+def run_train_path(device, profile: bool = False, out_dir=None) -> dict:
+    from opensora_torch.datasets.aspect import get_resolution_with_aspect_ratio
+    from opensora_torch.ops import _build
+    from opensora_torch.train import Trainer
+    from opensora_torch.training.lora import lora_parameters
+    from opensora_torch.utils.config import parse_configs
+    from opensora_torch.utils.optimizer import global_norm
+    from opensora_torch.utils.train import single_frame_encodes
+
+    cfg = parse_configs([LORA_CFG, *TRAIN_OVERRIDES])
+    n_frames = TRAIN_FRAMES
+    height, width = get_resolution_with_aspect_ratio(TRAIN_RESOLUTION)[1][TRAIN_RATIO]
+    log(f"[train] lora.py at full width and depth, r={cfg.lora_config['r']}, remat_policy=full; "
+        f"{TRAIN_STEPS} steps at the {n_frames}-frame {height}x{width} bucket, B={TRAIN_BATCH}")
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    b_factors = [p for n, p in lora_parameters(trainer.model).items() if n.endswith("lora_B")]
+    n_lora = sum(p.numel() for p in lora_parameters(trainer.model).values())
+    log(f"[train] models built on {device} in {build_s:.1f} s; {n_lora / 1e9:.3f}B LoRA params; "
+        f"{torch.cuda.memory_allocated(device) / 1e9:.2f} GB allocated")
+
+    gen = torch.Generator(device=device).manual_seed(cfg.seed)
+    video = torch.rand((TRAIN_BATCH, 3, n_frames, height, width), generator=gen, device=device) * 2 - 1
+    batch = {"video": video, "text": [
+        "a red panda eating bamboo in a misty forest",
+        "waves breaking on a rocky shore at sunset",
+        "a city street at night in the rain, neon signs",
+    ]}
+    n_blocks = cfg.model["depth"] + cfg.model["depth_single_blocks"]
+    steps = []
+    for i in range(TRAIN_STEPS):
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        metrics = trainer.run_batch(batch)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        times = trainer.timers.to_dict()
+        n_vae = TRAIN_BATCH + single_frame_encodes(trainer.mask_conds)  # one mid-block attention per encode
+        expect = {"flash_attention_fwd": 2 * n_blocks + n_vae,  # forward, recompute, VAE encodes
+                  "flash_attention_bwd_dkv": n_blocks, "flash_attention_bwd_dq": n_blocks}
+        rec = dict(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
+                   lora_b_norm=float(global_norm(b_factors)), mask_conds=trainer.mask_conds,
+                   lr=trainer.state.optimizer.adamw.param_groups[0]["lr"], launches=launches, expected=expect,
+                   encode_video_s=times["time/encode_video"], encode_text_s=times["time/encode_text"],
+                   step_s=times["time/step"], total_s=total_s)
+        steps.append(rec)
+        log(f"[train] step {i + 1}: " + json.dumps(rec))
+        if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"]) and rec["grad_norm"] > 0):
+            raise AssertionError(f"step {i + 1}: loss {rec['loss']} or grad norm {rec['grad_norm']} not finite and > 0")
+        if launches != expect:
+            raise AssertionError(f"step {i + 1}: kernel launches {launches} != expected {expect}")
+    # lr = 0 on the first update (warmup from 0, as optax): B stays 0, then moves
+    if not (steps[0]["lora_b_norm"] == 0.0 < steps[1]["lora_b_norm"]):
+        raise AssertionError(f"LoRA B norms {[r['lora_b_norm'] for r in steps]}: not 0 after step 1 and > 0 after step 2")
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    total = {k: sum(r["launches"].get(k, 0) for r in steps) for k in steps[0]["expected"]}
+    log(f"[train] {TRAIN_STEPS} steps OK; launches {total}; peak_mem_gb={peak_gb:.2f} (limit 80)")
+    if peak_gb >= 80:
+        raise AssertionError(f"peak memory {peak_gb:.2f} GB")
+    res = dict(steps=steps, launches=total, peak_mem_gb=peak_gb, models_build_s=build_s, lora_params=n_lora)
+    if profile:
+        res["profile"] = profile_run(lambda: trainer.run_batch(batch), "train", out_dir)
     return res
 
 
@@ -390,17 +701,26 @@ def main(argv) -> int:
 
     from opensora_torch.ops import _build
 
-    seconds, report = _build.build("flash_attention_fwd")
-    log(f"[build] flash_attention_fwd: {seconds:.1f} s (0.0: the library of this source was built before)")
+    sources = ("flash_attention_fwd", "flash_attention_bwd")
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        built = dict(zip(sources, pool.map(_build.build, sources)))
+    for name, (seconds, _) in built.items():
+        log(f"[build] {name}: {seconds:.1f} s (0.0: the library of this source was built before)")
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "build_log.txt"), "w") as f:
-            f.write(report)
+            f.write("".join(f"== {name}\n{report}" for name, (_, report) in built.items()))
 
     attn = check_attention(device)
+    attn_bwd = check_attention_bwd(device)
     small = check_small_input(device)
+    small_train = check_train_small_input(device)
     main_res = run_main_path(device, "--profile" in argv, out_dir)
     main_res["small_input"] = small
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_res = run_train_path(device, "--profile" in argv, out_dir)
+    train_res["small_input"] = small_train
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -414,12 +734,30 @@ def main(argv) -> int:
         replaces="opensora_tpu/ops/flash_attention.py:179",
         also_replaces="opensora_tpu/ops/flash_attention.py:247",
         launches=main_res["launches"].get("flash_attention_fwd", 0),
+        launches_train=train_res["launches"]["flash_attention_fwd"],
         max_abs_err=max(c["max_abs_err"] for c in attn["cases"]),
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],
         cases=attn["cases"],
     )]
+    bwd_head = attn_bwd["cases"][0]  # the MMDiT shape
+    for name, line in (("flash_attention_bwd_dkv", 425), ("flash_attention_bwd_dq", 497)):
+        grads = ("dk", "dv") if name.endswith("dkv") else ("dq",)
+        kernels.append(dict(
+            name=name,
+            route="cuda",
+            source="opensora_torch/csrc/flash_attention_bwd.cu",
+            replaces=f"opensora_tpu/ops/flash_attention.py:{line}",
+            launches=train_res["launches"][name],
+            max_abs_err=max(c["max_abs_err"][g] for c in attn_bwd["cases"] for g in grads),
+            ms=bwd_head["ms"][name], plain_ms=bwd_head["plain_ms"], bound_ms=bwd_head["bound_ms"][name],
+            bound_by=bwd_head["bound_by"][name], library_ms=bwd_head["library_ms"],
+            plain_and_library_compute="dq, dk and dv (the whole backward)",
+            minimal_backward_bound_ms=bwd_head["bound_ms"]["minimal"],
+            cases=attn_bwd["cases"],
+        ))
     log("[main] " + json.dumps(main_res))
+    log("[train] " + json.dumps(train_res))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

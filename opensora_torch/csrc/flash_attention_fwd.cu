@@ -37,89 +37,17 @@
 // the output's D is split across D / 128 blocks (grid z); each recomputes
 // Q K^T over the full D and keeps only its 128-column slice of P V.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <atomic>
+#include "flash_common.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
+using namespace flash;
 
 constexpr int BM = 64;         // query rows per block
 constexpr int NWARPS = 4;      // 16 rows per warp
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int DV = 128;        // output columns per block
-constexpr int PAD = 8;         // row padding (bf16), keeps ldmatrix conflict-free
-constexpr float NEG_INF = -1e30f;
-constexpr float LN2 = 0.6931471805599453f;
 constexpr float ANCHOR_MAX_LOG2 = 40.0f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; src_bytes = 0 zero-fills the destination.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t& r0, uint32_t& r1, uint32_t& r2, uint32_t& r3,
-                                            uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t& r0, uint32_t& r1, uint32_t& r2,
-                                                  uint32_t& r3, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr));
-}
-
-// c += a (16x16, row) * b (16x8, col), bf16 inputs, fp32 accumulator.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Async-copy a ROWS x COLS bf16 tile (rows row0.. of a row-major matrix with
-// leading dimension ld) into shared memory with row stride COLS + PAD.
-// Rows at or past nrows are zero-filled.
-template <int ROWS, int COLS>
-__device__ __forceinline__ void load_tile(bf16* smem, const bf16* g, int row0, int nrows, int ld) {
-  constexpr int CHUNKS = COLS / 8;
-#pragma unroll 4
-  for (int i = threadIdx.x; i < ROWS * CHUNKS; i += NTHREADS) {
-    const int r = i / CHUNKS;
-    const int c = (i % CHUNKS) * 8;
-    const bool valid = row0 + r < nrows;
-    const bf16* src = g + (size_t)(valid ? row0 + r : 0) * ld + c;
-    cp_async16(smem_u32(smem + r * (COLS + PAD) + c), src, valid);
-  }
-}
 
 template <int D, int BN, bool CAUSAL>
 __global__ void __launch_bounds__(NTHREADS)
@@ -163,9 +91,9 @@ __global__ void __launch_bounds__(NTHREADS)
     anchored = a2 < ANCHOR_MAX_LOG2;  // NaN -> running-max loop
   }
 
-  load_tile<BM, D>(Qs, qg, q0, Lq, D);
-  load_tile<BN, D>(Ks, kg, 0, Lk, D);
-  load_tile<BN, DV>(Vs, vg, 0, Lk, D);
+  load_tile<BM, D, NTHREADS>(Qs, qg, q0, Lq, D);
+  load_tile<BN, D, NTHREADS>(Ks, kg, 0, Lk, D);
+  load_tile<BN, DV, NTHREADS>(Vs, vg, 0, Lk, D);
   cp_async_commit();
 
   float acc[DV / 8][4];
@@ -179,8 +107,8 @@ __global__ void __launch_bounds__(NTHREADS)
   for (int j = 0; j < n_tiles; ++j) {
     const int st = j & 1;
     if (j + 1 < n_tiles) {
-      load_tile<BN, D>(Ks + (st ^ 1) * BN * QS, kg, (j + 1) * BN, Lk, D);
-      load_tile<BN, DV>(Vs + (st ^ 1) * BN * VS, vg, (j + 1) * BN, Lk, D);
+      load_tile<BN, D, NTHREADS>(Ks + (st ^ 1) * BN * QS, kg, (j + 1) * BN, Lk, D);
+      load_tile<BN, DV, NTHREADS>(Vs + (st ^ 1) * BN * VS, vg, (j + 1) * BN, Lk, D);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -336,16 +264,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
                    cudaStream_t stream) {
   constexpr int smem = (BM * (D + PAD) + 2 * BN * (D + PAD) + 2 * BN * (DV + PAD)) * 2;
   auto kern = flash_fwd_kernel<D, BN, CAUSAL>;
-  // the shared-memory attribute is set once per device, at its first launch
-  static std::atomic<unsigned> attr_set{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static unsigned smem_raised = 0;
+  cudaError_t err = raise_smem_limit(kern, smem, smem_raised);
   if (err != cudaSuccess) return err;
-  if (!(attr_set.load() >> dev & 1u)) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    attr_set.fetch_or(1u << dev);
-  }
   dim3 grid((Lq + BM - 1) / BM, B * H, D / DV);
   kern<<<grid, NTHREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),

@@ -1,5 +1,5 @@
 """Aspect-ratio and resolution geometry (the port's copy of
-opensora_tpu/datasets/aspect.py, the part inference needs).
+opensora_tpu/datasets/aspect.py).
 
 All (height, width) pairs snap to multiples of the AE spatial stride D,
 passed explicitly (16 by default). In training mode a pair is nudged by +-D
@@ -15,6 +15,12 @@ from opensora_torch.utils.config import DEFAULT_AE_SPATIAL_COMPRESSION
 
 # width:height names, ordered by decreasing width/height ratio
 ASPECT_RATIO_LD_LIST = ["2.39:1", "2:1", "16:9", "1.85:1", "9:16", "5:8", "3:2", "4:3", "1:1"]
+
+
+def get_ratio(name: str) -> float:
+    """height / width for a 'W:H' ratio name."""
+    width, height = map(float, name.split(":"))
+    return height / width
 
 
 def get_aspect_ratios_dict(
@@ -63,3 +69,28 @@ def get_image_size(
     ar_dict = get_aspect_ratios_dict(get_num_pixels_from_name(resolution), training, spatial_compression)
     assert ar_ratio in ar_dict, f"Aspect ratio {ar_ratio} not found"
     return ar_dict[ar_ratio]
+
+
+def get_resolution_with_aspect_ratio(
+    resolution: str, spatial_compression: int = DEFAULT_AE_SPATIAL_COMPRESSION
+) -> Tuple[int, Dict[str, Tuple[int, int]]]:
+    """'256px' / '360p_ar1:1' / '768px_max' -> (pixels, {ratio: (h, w)})."""
+    keys = resolution.split("_")
+    name, setting = (keys[0], "") if len(keys) == 1 else keys
+    if setting and setting != "max" and not setting.startswith("ar"):
+        raise ValueError(f"Invalid setting {setting}")
+    num_pixels = get_num_pixels_from_name(name)
+    ar_dict = get_aspect_ratios_dict(num_pixels, spatial_compression=spatial_compression)
+    if setting == "max":
+        ar = max(ar_dict, key=lambda x: ar_dict[x][0] * ar_dict[x][1])
+        ar_dict = {ar: ar_dict[ar]}
+    elif setting.startswith("ar"):
+        ar = setting[2:]
+        assert ar in ar_dict, f"Aspect ratio {ar} not found"
+        ar_dict = {ar: ar_dict[ar]}
+    return num_pixels, ar_dict
+
+
+def get_closest_ratio(height: float, width: float, ratios: Dict) -> str:
+    aspect = height / width
+    return min(ratios.keys(), key=lambda r: abs(aspect - get_ratio(r)))

@@ -1,0 +1,95 @@
+"""A threaded prefetching loader over a batch sampler (counterpart of
+opensora_tpu/datasets/dataloader.py). One background thread decodes the
+next batches while the card runs the current step; samples that fail to
+load (None) are dropped at collate."""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Iterator, List, Optional
+
+import numpy as np
+
+from opensora_torch.datasets.sampler import StatefulDistributedSampler, VariableVideoBatchSampler
+
+
+def collate_fn_default(samples: List[Optional[dict]]) -> Optional[dict]:
+    """Stack dict samples; drop Nones."""
+    samples = [s for s in samples if s is not None]
+    if not samples:
+        return None
+    out = {}
+    for key in samples[0]:
+        vals = [s[key] for s in samples]
+        if isinstance(vals[0], np.ndarray):
+            out[key] = np.stack(vals)
+        elif isinstance(vals[0], (int, float)):
+            out[key] = np.asarray(vals)
+        else:
+            out[key] = vals
+    return out
+
+
+class DataLoader:
+    def __init__(self, dataset, batch_sampler, prefetch: int = 2, collate_fn=collate_fn_default):
+        self.dataset = dataset
+        self.batch_sampler = batch_sampler
+        self.prefetch = prefetch
+        self.collate_fn = collate_fn
+
+    def __len__(self):
+        return len(self.batch_sampler)
+
+    def __iter__(self) -> Iterator[dict]:
+        work: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        done = object()
+
+        def producer():
+            try:
+                for indices in self.batch_sampler:
+                    work.put(self.collate_fn([self.dataset[i] for i in indices]))
+                work.put(done)
+            except BaseException as e:  # handed to the consumer, which raises it
+                work.put(e)
+
+        threading.Thread(target=producer, daemon=True).start()
+        while (item := work.get()) is not done:
+            if isinstance(item, BaseException):
+                raise item
+            if item is not None:
+                yield item
+
+
+class _Batched:
+    def __init__(self, sampler, batch_size: int, drop_last: bool):
+        self.sampler, self.batch_size, self.drop_last = sampler, batch_size, drop_last
+
+    def __iter__(self):
+        buf = []
+        for i in self.sampler:
+            buf.append(i)
+            if len(buf) == self.batch_size:
+                yield buf
+                buf = []
+        if buf and not self.drop_last:
+            yield buf
+
+    def __len__(self):
+        n = len(self.sampler)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+
+def prepare_dataloader(dataset, batch_size: Optional[int] = None, bucket_config: Optional[dict] = None,
+                       shuffle: bool = True, seed: int = 42, drop_last: bool = False,
+                       num_replicas: int = 1, rank: int = 0, prefetch: int = 2, **_):
+    """(dataloader, sampler): bucketed batches when ``bucket_config`` is
+    given, else fixed-size batches of shuffled indices."""
+    kw = dict(num_replicas=num_replicas, rank=rank, shuffle=shuffle, seed=seed, drop_last=drop_last)
+    if bucket_config is not None:
+        sampler = VariableVideoBatchSampler(dataset, bucket_config, **kw)
+        return DataLoader(dataset, sampler, prefetch), sampler
+    if batch_size is None:
+        raise ValueError("batch_size is required without a bucket_config")
+    sampler = StatefulDistributedSampler(len(dataset), **kw)
+    return DataLoader(dataset, _Batched(sampler, batch_size, drop_last), prefetch), sampler

@@ -136,6 +136,36 @@ class UNetMidBlockCausal3D(nn.Module):
         return x
 
 
+class DownsampleCausal3D(nn.Module):
+    def __init__(self, channels: int, stride=(2, 2, 2), **factory):
+        super().__init__()
+        self.conv = CausalConv3d(channels, channels, 3, stride, **factory)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class DownEncoderBlockCausal3D(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int, num_layers: int = 2,
+                 add_downsample: bool = True, downsample_stride=(2, 2, 2), num_groups: int = 32,
+                 eps: float = 1e-6, **factory):
+        super().__init__()
+        self.resnets = nn.ModuleList(
+            ResnetBlockCausal3D(in_channels if i == 0 else out_channels, out_channels, num_groups, eps, **factory)
+            for i in range(num_layers)
+        )
+        self.downsamplers = nn.ModuleList(
+            [DownsampleCausal3D(out_channels, downsample_stride, **factory)] if add_downsample else []
+        )
+
+    def forward(self, x):
+        for resnet in self.resnets:
+            x = resnet(x)
+        for down in self.downsamplers:
+            x = down(x)
+        return x
+
+
 class UpDecoderBlockCausal3D(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, num_layers: int = 3,
                  add_upsample: bool = True, upsample_scale_factor=(2, 2, 2), num_groups: int = 32,

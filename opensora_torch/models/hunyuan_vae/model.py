@@ -1,12 +1,17 @@
-"""HunyuanVideo causal 3D KL-VAE decoder (counterpart of
+"""HunyuanVideo causal 3D KL-VAE (counterpart of
 opensora_tpu/models/hunyuan_vae/model.py): 4x in T, 8x in H/W, 16 latent
 channels; the first latent frame is a pure-image frame.
 
-This slice ports the decode side: ``post_quant_conv`` + ``DecoderCausal3D``,
-the scale/shift, and the module-level spatial and temporal tiling with the
-linear overlap blend. The encoder waits for the image-to-video slice. Eager
-PyTorch already decodes tile by tile, so the JAX package's host-level tile
-runner (``tiled.py``) has no counterpart.
+Both sides: ``EncoderCausal3D`` + ``quant_conv`` with the diagonal
+Gaussian posterior, and ``post_quant_conv`` + ``DecoderCausal3D``, the
+scale/shift, and the module-level spatial and temporal tiling with the
+linear overlap blend. Eager PyTorch already runs tile by tile, so the JAX
+package's host-level tile runner (``tiled.py``) has no counterpart.
+
+The encoder runs sample by sample (the same values as one batched call):
+at the 256px 129-frame training bucket one activation of its first stage
+is 2.1 GB per sample in bf16, and a batch of three would hold several such
+tensors at once beside the resident models.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch.nn.functional as F
 
 from opensora_torch.models.hunyuan_vae.blocks import (
     CausalConv3d,
+    DownEncoderBlockCausal3D,
     GroupNorm,
     UNetMidBlockCausal3D,
     UpDecoderBlockCausal3D,
@@ -64,8 +70,28 @@ def blend_tiles(a: torch.Tensor, b: torch.Tensor, extent: int, dim: int) -> torc
     return torch.cat([blended, b.narrow(dim, extent, b.shape[dim] - extent)], dim=dim)
 
 
-def _up_block_strides(cfg: AutoEncoder3DConfig, i: int) -> Tuple[bool, Tuple[int, int, int]]:
-    """Stride schedule from the compression ratios."""
+class DiagonalGaussianDistribution:
+    """The latent posterior over moments (B, 2C, ...) split on ``dim``."""
+
+    def __init__(self, parameters: torch.Tensor, dim: int = 1):
+        self.mean, self.logvar = parameters.chunk(2, dim=dim)
+        self.logvar = self.logvar.clamp(-30.0, 20.0)
+        self.std = torch.exp(0.5 * self.logvar)
+
+    def sample(self, generator: Optional[torch.Generator] = None, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """mean + std * noise; the noise (fp32) is drawn from ``generator``
+        unless given."""
+        if noise is None:
+            noise = torch.randn(self.mean.shape, generator=generator, device=self.mean.device, dtype=torch.float32)
+        return self.mean + self.std * noise.to(self.mean.dtype)
+
+    def mode(self) -> torch.Tensor:
+        return self.mean
+
+
+def _block_strides(cfg: AutoEncoder3DConfig, i: int) -> Tuple[bool, Tuple[int, int, int]]:
+    """Stride schedule from the compression ratios (the same for the
+    encoder's down blocks and the decoder's up blocks)."""
     n = len(cfg.block_out_channels)
     is_final = i == n - 1
     n_spatial = int(np.log2(cfg.spatial_compression_ratio))
@@ -82,6 +108,32 @@ def _up_block_strides(cfg: AutoEncoder3DConfig, i: int) -> Tuple[bool, Tuple[int
     return (add_spatial or add_time), stride
 
 
+class EncoderCausal3D(nn.Module):
+    def __init__(self, cfg: AutoEncoder3DConfig, **factory):
+        super().__init__()
+        boc = list(cfg.block_out_channels)
+        g = cfg.norm_num_groups
+        self.conv_in = CausalConv3d(cfg.in_channels, boc[0], 3, 1, **factory)
+        blocks = []
+        for i, ch in enumerate(boc):
+            add_down, stride = _block_strides(cfg, i)
+            blocks.append(DownEncoderBlockCausal3D(
+                boc[max(i - 1, 0)], ch, num_layers=cfg.layers_per_block, add_downsample=add_down,
+                downsample_stride=stride, num_groups=g, **factory,
+            ))
+        self.down_blocks = nn.ModuleList(blocks)
+        self.mid_block = UNetMidBlockCausal3D(boc[-1], g, add_attention=cfg.mid_block_add_attention, **factory)
+        self.conv_norm_out = GroupNorm(boc[-1], g, 1e-6, **factory)
+        self.conv_out = CausalConv3d(boc[-1], 2 * cfg.latent_channels, 3, 1, **factory)
+
+    def forward(self, x):
+        x = self.conv_in(x)
+        for blk in self.down_blocks:
+            x = blk(x)
+        x = self.mid_block(x)
+        return self.conv_out(F.silu(self.conv_norm_out(x)))
+
+
 class DecoderCausal3D(nn.Module):
     def __init__(self, cfg: AutoEncoder3DConfig, **factory):
         super().__init__()
@@ -91,7 +143,7 @@ class DecoderCausal3D(nn.Module):
         self.mid_block = UNetMidBlockCausal3D(rev[0], g, add_attention=cfg.mid_block_add_attention, **factory)
         blocks = []
         for i, ch in enumerate(rev):
-            add_up, stride = _up_block_strides(cfg, i)
+            add_up, stride = _block_strides(cfg, i)
             blocks.append(UpDecoderBlockCausal3D(
                 rev[max(i - 1, 0)], ch, num_layers=cfg.layers_per_block + 1, add_upsample=add_up,
                 upsample_scale_factor=stride, num_groups=g, **factory,
@@ -108,14 +160,21 @@ class DecoderCausal3D(nn.Module):
 
 
 class AutoencoderKLCausal3D(nn.Module):
-    """The VAE's decode path; public tensors are (B, C, T, H, W)."""
+    """The KL-VAE with tiled encode and decode; public tensors are
+    (B, C, T, H, W)."""
 
     def __init__(self, config: AutoEncoder3DConfig, device=None, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.config = config
         factory = dict(device=device, dtype=dtype)
+        self.encoder = EncoderCausal3D(config, **factory)
         self.decoder = DecoderCausal3D(config, **factory)
+        self.quant_conv = nn.Conv3d(2 * config.latent_channels, 2 * config.latent_channels, 1, **factory)
         self.post_quant_conv = nn.Conv3d(config.latent_channels, config.latent_channels, 1, **factory)
+
+    @property
+    def time_compression_ratio(self) -> int:
+        return self.config.time_compression_ratio
 
     @property
     def dtype(self) -> torch.dtype:
@@ -137,19 +196,68 @@ class AutoencoderKLCausal3D(nn.Module):
     def tile_latent_min_tsize(self) -> int:
         return self.config.sample_tsize // self.config.time_compression_ratio
 
+    def _encode_moments(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.cat([self.quant_conv(self.encoder(x[i:i + 1])) for i in range(x.shape[0])])
+
     def _decode_core(self, z: torch.Tensor) -> torch.Tensor:
         return self.decoder(self.post_quant_conv(z))
 
-    def spatial_tiled_decode(self, z: torch.Tensor) -> torch.Tensor:
-        """Overlapping tiles over H/W, decoded one by one and blended."""
-        tl = self.tile_latent_min_size
-        overlap = int(tl * (1 - self.config.tile_overlap_factor))
-        blend = int(self.tile_sample_min_size * self.config.tile_overlap_factor)
-        limit = self.tile_sample_min_size - blend
+    def spatial_tiled_encode(self, x: torch.Tensor) -> torch.Tensor:
+        """Overlapping tiles over H/W, encoded one by one and blended."""
+        ts = self.tile_sample_min_size
+        overlap = int(ts * (1 - self.config.tile_overlap_factor))
+        blend = int(self.tile_latent_min_size * self.config.tile_overlap_factor)
+        limit = self.tile_latent_min_size - blend
         rows = [
-            [self._decode_core(z[:, :, :, i:i + tl, j:j + tl]) for j in range(0, z.shape[4], overlap)]
-            for i in range(0, z.shape[3], overlap)
+            [self._encode_moments(x[:, :, :, i:i + ts, j:j + ts]) for j in range(0, x.shape[4], overlap)]
+            for i in range(0, x.shape[3], overlap)
         ]
+        return self._stitch(rows, blend, limit)
+
+    def temporal_tiled_encode(self, x: torch.Tensor) -> torch.Tensor:
+        """Causal temporal tiles: each carries one extra leading frame, whose
+        latent frame is dropped for all but the first tile before blending."""
+        tst = self.tile_sample_min_tsize
+        overlap = int(tst * (1 - self.config.tile_overlap_factor))
+        blend = int(self.tile_latent_min_tsize * self.config.tile_overlap_factor)
+        limit = self.tile_latent_min_tsize - blend
+        tiles = []
+        for i in range(0, x.shape[2], overlap):
+            tile = x[:, :, i:i + tst + 1]
+            if self.config.use_spatial_tiling and (
+                tile.shape[3] > self.tile_sample_min_size or tile.shape[4] > self.tile_sample_min_size
+            ):
+                tile = self.spatial_tiled_encode(tile)
+            else:
+                tile = self._encode_moments(tile)
+            tiles.append(tile[:, :, 1:] if i > 0 else tile)
+        return self._join_temporal(tiles, blend, limit)
+
+    def encode(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+               sample_posterior: bool = True, return_posterior: bool = False, noise=None):
+        """Video (B, 3, T, H, W) -> scaled latents (B, C, T', H', W'): a
+        sample of the posterior (noise drawn from ``generator``, or the
+        given ``noise``), or its mode."""
+        assert x.dim() == 5, "expected (B, C, T, H, W)"
+        x = x.to(self.dtype)
+        cfg = self.config
+        if cfg.use_temporal_tiling and x.shape[2] > self.tile_sample_min_tsize:
+            moments = self.temporal_tiled_encode(x)
+        elif cfg.use_spatial_tiling and (
+            x.shape[3] > self.tile_sample_min_size or x.shape[4] > self.tile_sample_min_size
+        ):
+            moments = self.spatial_tiled_encode(x)
+        else:
+            moments = self._encode_moments(x)
+        posterior = DiagonalGaussianDistribution(moments, dim=1)
+        z = posterior.sample(generator, noise) if sample_posterior else posterior.mode()
+        z = cfg.scale_factor * (z - cfg.shift_factor)
+        return (z, posterior) if return_posterior else z
+
+    @staticmethod
+    def _stitch(rows, blend: int, limit: int) -> torch.Tensor:
+        """Blend a grid of spatial tiles into their neighbours and keep each
+        tile's first ``limit`` rows and columns."""
         result_rows = []
         for i, row in enumerate(rows):
             result = []
@@ -161,6 +269,28 @@ class AutoencoderKLCausal3D(nn.Module):
                 result.append(tile[:, :, :, :limit, :limit])
             result_rows.append(torch.cat(result, dim=4))
         return torch.cat(result_rows, dim=3)
+
+    @staticmethod
+    def _join_temporal(tiles, blend: int, limit: int) -> torch.Tensor:
+        result = []
+        for i, tile in enumerate(tiles):
+            if i > 0:
+                result.append(blend_tiles(tiles[i - 1], tile, blend, 2)[:, :, :limit])
+            else:
+                result.append(tile[:, :, :limit + 1])
+        return torch.cat(result, dim=2)
+
+    def spatial_tiled_decode(self, z: torch.Tensor) -> torch.Tensor:
+        """Overlapping tiles over H/W, decoded one by one and blended."""
+        tl = self.tile_latent_min_size
+        overlap = int(tl * (1 - self.config.tile_overlap_factor))
+        blend = int(self.tile_sample_min_size * self.config.tile_overlap_factor)
+        limit = self.tile_sample_min_size - blend
+        rows = [
+            [self._decode_core(z[:, :, :, i:i + tl, j:j + tl]) for j in range(0, z.shape[4], overlap)]
+            for i in range(0, z.shape[3], overlap)
+        ]
+        return self._stitch(rows, blend, limit)
 
     def temporal_tiled_decode(self, z: torch.Tensor) -> torch.Tensor:
         """Causal temporal tiles: each carries one extra leading frame, whose
@@ -179,13 +309,7 @@ class AutoencoderKLCausal3D(nn.Module):
             else:
                 dec = self._decode_core(tile)
             tiles.append(dec[:, :, 1:] if i > 0 else dec)
-        result = []
-        for i, tile in enumerate(tiles):
-            if i > 0:
-                result.append(blend_tiles(tiles[i - 1], tile, blend, 2)[:, :, :limit])
-            else:
-                result.append(tile[:, :, :limit + 1])
-        return torch.cat(result, dim=2)
+        return self._join_temporal(tiles, blend, limit)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """Scaled latents (B, C, T, H, W) -> video (B, 3, T', H', W')."""

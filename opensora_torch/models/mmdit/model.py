@@ -5,15 +5,23 @@ The JAX package stacks the blocks under ``nn.scan``; here they are
 ``nn.ModuleList``s run by a Python loop, with state-dict keys
 ``double_blocks.{i}.*`` / ``single_blocks.{i}.*`` in the upstream Open-Sora
 v2 layout.
+
+Gradient checkpointing (``remat``, ``remat_policy``; the JAX package's
+``nn.remat`` policies, opensora_tpu/models/mmdit/model.py:217-227) wraps
+each block in ``torch.utils.checkpoint`` when gradients are enabled:
+"full" keeps only the block's inputs and recomputes the rest in the
+backward; "dots" also keeps every matmul output (selective checkpointing).
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from opensora_torch.models.mmdit.layers import (
     DoubleStreamBlock,
@@ -45,6 +53,8 @@ class MMDiTConfig:
     patch_size: int = 2
     rope_convention: str = "split"
     attn_backend: Optional[str] = None  # None = flash attention; "xla" = plain attention
+    remat: bool = False  # checkpoint each block when gradients are enabled
+    remat_policy: str = "full"  # "full" | "dots"
     dtype: str = "bf16"
     from_pretrained: Optional[str] = None
 
@@ -53,10 +63,35 @@ class MMDiTConfig:
         return self.hidden_size // self.num_heads
 
 
+_MATMULS = frozenset({
+    torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+    torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default,
+})
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of "dots" (jax.checkpoint_policies.
+    dots_saveable): keep matmul outputs, recompute everything else."""
+    return CheckpointPolicy.MUST_SAVE if op in _MATMULS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+REMAT_CONTEXTS = {
+    "full": {},
+    "dots": dict(context_fn=functools.partial(create_selective_checkpoint_contexts, _save_matmuls)),
+}
+
+
 class MMDiTModel(nn.Module):
     def __init__(self, config: MMDiTConfig, device=None, dtype: Optional[torch.dtype] = None):
         super().__init__()
         cfg = self.config = config
+        if cfg.remat and cfg.remat_policy not in REMAT_CONTEXTS:
+            if cfg.remat_policy == "offload":
+                raise NotImplementedError(
+                    'remat_policy="offload" (checkpoints parked in host memory) is not ported yet '
+                    "(ROADMAP Queue 1 item 10, activation offload)"
+                )
+            raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
         if cfg.hidden_size % cfg.num_heads != 0:
             raise ValueError(f"hidden_size {cfg.hidden_size} not divisible by num_heads {cfg.num_heads}")
         if sum(cfg.axes_dim) != cfg.pe_dim:
@@ -109,15 +144,20 @@ class MMDiTModel(nn.Module):
         pe = embed_nd(torch.cat([txt_ids, img_ids], dim=1), cfg.axes_dim, cfg.theta)
         return img, txt, vec, pe
 
+    def _run_block(self, block: nn.Module, *args):
+        if not (self.config.remat and torch.is_grad_enabled()):
+            return block(*args)
+        return checkpoint(block, *args, use_reentrant=False, **REMAT_CONTEXTS[self.config.remat_policy])
+
     def forward(self, img, img_ids, txt, txt_ids, timesteps, y_vec, cond=None, guidance=None):
         img, txt, vec, pe = self.prepare_block_inputs(
             img, img_ids, txt, txt_ids, timesteps, y_vec, cond, guidance
         )
         for block in self.double_blocks:
-            img, txt = block(img, txt, vec, pe)
+            img, txt = self._run_block(block, img, txt, vec, pe)
         x = torch.cat([txt, img], dim=1)
         for block in self.single_blocks:
-            x = block(x, vec, pe)
+            x = self._run_block(block, x, vec, pe)
         return self.final_layer(x[:, txt.shape[1]:], vec)
 
 

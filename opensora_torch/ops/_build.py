@@ -1,20 +1,23 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Kernel ``name`` is the source ``csrc/<name>.cu``, compiled by ``nvcc`` for
-Hopper (``sm_90a``) into a shared library with a plain C interface and
-loaded with ``ctypes``. Libraries go to ``opensora_torch/_build/``
-(git-ignored), named by the hash of their source, so a changed source is
+Kernel source ``name`` is ``csrc/<name>.cu`` (it may hold several kernels
+and include the shared ``csrc/*.cuh``), compiled by ``nvcc`` for Hopper
+(``sm_90a``) into a shared library with a plain C interface and loaded
+with ``ctypes``. Libraries go to ``opensora_torch/_build/`` (git-ignored),
+named by the hash of their source and headers, so a changed source is
 rebuilt and an unchanged one is reused. Building happens at first use,
 never at import: the CPU test environment has no ``nvcc``.
 
-Every kernel wrapper adds one to ``LAUNCHES[name]`` where it launches its
-kernel, so a run can show which kernels its path went through.
+Every kernel wrapper adds one to ``LAUNCHES[kernel name]`` where it
+launches its kernel, so a run can show which kernels its path went
+through.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -50,9 +53,14 @@ def _source(name: str) -> str:
 
 
 def library_path(name: str) -> str:
-    with open(_source(name), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    """The library of kernel ``name``, named by the hash of its source, the
+    shared headers (``csrc/*.cuh``) and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cuh")))
+    for path in [_source(name), *headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
 def build(name: str) -> Tuple[float, str]:

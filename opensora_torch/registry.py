@@ -36,6 +36,7 @@ class Registry:
 
 
 MODELS = Registry("models")
+DATASETS = Registry("datasets")
 
 
 def build_module(module: Any, builder: Registry = MODELS, **kwargs) -> Any:

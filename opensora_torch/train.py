@@ -1,0 +1,210 @@
+"""MMDiT diffusion training CLI of the PyTorch port (counterpart of
+scripts/diffusion/train.py).
+
+    python -m opensora_torch.train configs/diffusion/train/demo.py \\
+        [--dotted.key value ...] [--device cpu]
+
+The same configs and overrides as the JAX script: a bucketed video-text
+dataloader, the MMDiT / VAE / T5 / CLIP built from the config (random
+weights from ``seed``; ``from_pretrained`` is not ported and raises), LoRA
+when ``lora_config`` is set (EMA only without LoRA), the rectified-flow
+step, logging to ``<outputs>/<exp_name>/log.txt``, checkpoints every
+``ckpt_every`` steps and at the end, and resume from ``load``.
+
+:class:`Trainer` holds the models and the train state;
+:meth:`Trainer.run_batch` is the body of one iteration -- encode the video,
+build the visual condition, encode the text, take the step -- and is what
+``chip_smoke.py`` drives on the card. Runs on cuda unless ``--device``
+names another device. Meshes, pipeline parallelism and multi-host runs
+are not ported (one device).
+"""
+
+from __future__ import annotations
+
+import math
+import sys
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from opensora_torch.inference import _pop_flag
+
+
+def fit_null_txt(null_txt: torch.Tensor, txt_len: int) -> torch.Tensor:
+    """Cut, or pad by repeating the last token, the null text embedding to
+    ``txt_len`` rows (upstream scripts/diffusion/train.py:415-420)."""
+    if null_txt.shape[1] >= txt_len:
+        return null_txt[:, :txt_len]
+    pad = null_txt[:, -1:].expand(-1, txt_len - null_txt.shape[1], -1)
+    return torch.cat([null_txt, pad], dim=1)
+
+
+class Trainer:
+    """Models, train state and the per-batch body of the training loop."""
+
+    def __init__(self, cfg, device=None):
+        from opensora_torch.training.diffusion import TrainState, make_train_step
+        from opensora_torch.training.lora import apply_lora, count_lora_params
+        from opensora_torch.utils.api import prepare_models
+        from opensora_torch.utils.logger import create_logger
+        from opensora_torch.utils.misc import Timers, count_params, format_numel
+        from opensora_torch.utils.optimizer import create_optimizer
+
+        self.cfg = cfg
+        self.logger = create_logger()
+        seed = cfg.get("seed", 42)
+        self.model, self.ae, self.t5, self.clip = prepare_models(cfg, device=device, seed=seed)
+        self.device = next(self.model.parameters()).device
+        self.logger.info("MMDiT params: %s on %s", format_numel(count_params(self.model.parameters())), self.device)
+        self.patch_size = cfg.get("patch_size", 2)
+        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.host_rng = np.random.default_rng(seed)
+
+        lora_cfg = cfg.get("lora_config")
+        if lora_cfg:
+            rank = lora_cfg.get("r", lora_cfg.get("rank", 16))
+            scale = lora_cfg.get("lora_alpha", rank) / rank  # peft semantics
+            apply_lora(self.model, rank=rank, scale=scale, generator=self.gen,
+                       **({"target_regex": lora_cfg["target_regex"]} if "target_regex" in lora_cfg else {}))
+            self.logger.info("LoRA enabled: rank %d, scale %.3f, %s trainable factor params",
+                             rank, scale, format_numel(count_lora_params(self.model)))
+        elif self.model.dtype != torch.float32:
+            raise NotImplementedError(
+                "full finetuning keeps fp32 master weights; with a bf16 model it waits for the "
+                "multi-GPU slice (FSDP full finetune, ROADMAP); use lora_config or dtype fp32"
+            )
+        else:
+            self.model.requires_grad_(True)
+
+        optimizer = create_optimizer(
+            [p for p in self.model.parameters() if p.requires_grad],
+            lr=cfg.get("lr", 1e-4), weight_decay=cfg.get("weight_decay", 0.0), eps=cfg.get("adam_eps", 1e-8),
+            warmup_steps=cfg.get("warmup_steps"), grad_clip=cfg.get("grad_clip"),
+            accumulation_steps=cfg.get("accumulation_steps", 1),
+        )
+        ema_decay = cfg.get("ema_decay", 0.9999)
+        self.state = TrainState.create(self.model, optimizer, ema=ema_decay is not None and not lora_cfg)
+        dropout = cfg.get("dropout_ratio") or {}
+        self.condition_config = cfg.get("condition_config")
+        self.train_step = make_train_step(
+            self.model, ema_decay=ema_decay, text_dropout_prob=dropout.get("t5", 0.0),
+            use_masked_loss=self.condition_config is not None, patch_size=self.patch_size,
+        )
+        with torch.no_grad():
+            self.null_txt = self.t5([""])
+            self.null_vec = self.clip([""])
+        self.timers = Timers(sync=self.device.type == "cuda")
+        self.mask_conds: Optional[List[str]] = None  # the last batch's visual-condition types
+
+    def run_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        """One iteration on a collated batch: ``video`` (B, 3, T, H, W) in
+        [-1, 1] and ``text``, or, with ``cached_video``, ``video_latents``,
+        ``text_t5`` and ``text_clip``. Returns the step's metrics (0-d
+        tensors on the device)."""
+        from opensora_torch.training.diffusion import compute_shift_alpha
+        from opensora_torch.utils.sampling import pack, prepare, prepare_ids
+        from opensora_torch.utils.train import build_visual_condition, choose_mask_conditions
+
+        cfg, dev = self.cfg, self.device
+        masks = cond = None
+        with torch.no_grad():
+            with self.timers("encode_video"):
+                if cfg.get("cached_video", False):
+                    x0 = torch.as_tensor(batch["video_latents"], device=dev)
+                    inp = prepare_ids(x0, torch.as_tensor(batch["text_t5"], device=dev),
+                                      torch.as_tensor(batch["text_clip"], device=dev), self.patch_size)
+                else:
+                    x = torch.as_tensor(batch["video"], device=dev)
+                    x0 = self.ae.encode(x, generator=self.gen)
+                    if self.condition_config is not None:
+                        tc = self.ae.time_compression_ratio
+                        self.mask_conds = choose_mask_conditions(dict(self.condition_config), x.shape[0],
+                                                                 x0.shape[2], tc, self.host_rng)
+                        masks, cond = build_visual_condition(
+                            x, self.mask_conds, lambda xi: self.ae.encode(xi, generator=self.gen), x0, tc)
+                        cond = pack(cond, patch_size=self.patch_size)
+            with self.timers("encode_text"):
+                if not cfg.get("cached_video", False):
+                    inp = prepare(self.t5, self.clip, x0, prompt=list(batch["text"]),
+                                  seq_align=cfg.get("seq_align", 1), patch_size=self.patch_size)
+        lt, lh, lw = x0.shape[2:]
+        b = x0.shape[0]
+        tb = dict(
+            x0=inp["img"], img_ids=inp["img_ids"], txt=inp["txt"], txt_ids=inp["txt_ids"], y_vec=inp["y_vec"],
+            cond=cond, masks=masks,
+            guidance=torch.full((b,), cfg.get("guidance", 4.0), device=dev),
+            shift_alpha=torch.full((b,), compute_shift_alpha(lh, lw, lt), device=dev),
+            null_txt=fit_null_txt(self.null_txt, inp["txt"].shape[1]).expand_as(inp["txt"]).to(inp["txt"].dtype),
+            null_vec=self.null_vec.expand_as(inp["y_vec"]).to(inp["y_vec"].dtype),
+        )
+        with self.timers("step"):
+            return self.train_step(self.state, tb, self.gen)
+
+
+def main(argv: Optional[List[str]] = None) -> Trainer:
+    """Run the CLI; returns the trainer after the last step."""
+    import opensora_torch.datasets.datasets  # noqa: F401  (registers the datasets)
+    from opensora_torch.datasets.dataloader import prepare_dataloader
+    from opensora_torch.registry import DATASETS, build_module
+    from opensora_torch.utils.ckpt import CheckpointIO
+    from opensora_torch.utils.config import create_experiment_workspace, parse_configs
+    from opensora_torch.utils.logger import create_logger
+    from opensora_torch.utils.tb import MetricsWriter
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    device = _pop_flag(argv, ("--device",))
+    cfg = parse_configs(argv)
+    for unported in ("pipeline", "multi_host"):
+        if cfg.get(unported):
+            raise NotImplementedError(f"{unported}: the port trains on one device (multi-GPU slice, ROADMAP)")
+    exp_dir = create_experiment_workspace(cfg)
+    logger = create_logger(exp_dir)
+    logger.info("experiment dir: %s", exp_dir)
+
+    dataset = build_module(dict(cfg.dataset), DATASETS)
+    dataloader, sampler = prepare_dataloader(
+        dataset, batch_size=cfg.get("batch_size"), bucket_config=cfg.get("bucket_config"), seed=cfg.get("seed", 42),
+    )
+    trainer = Trainer(cfg, device)
+    ckpt_io = CheckpointIO()
+    start_epoch = start_step = global_step = 0
+    if cfg.get("load"):
+        _, running, sampler_state = ckpt_io.load(cfg.load, trainer.state)
+        start_epoch, start_step, global_step = running["epoch"], running["step"], running["global_step"]
+        if sampler_state and hasattr(sampler, "load_state_dict"):
+            sampler.load_state_dict(sampler_state)
+        logger.info("resumed at epoch %d step %d", start_epoch, start_step)
+
+    writer = MetricsWriter(exp_dir, use_wandb=cfg.get("wandb", False), config=cfg.to_dict())
+    num_steps_per_epoch = len(dataloader)
+    total_epochs = cfg.get("epochs", 1)
+    log_every, ckpt_every = cfg.get("log_every", 1), cfg.get("ckpt_every", 1000)
+    for epoch in range(start_epoch, total_epochs):
+        sampler.set_epoch(epoch)
+        for step, batch in enumerate(dataloader, start=start_step):
+            metrics = trainer.run_batch(batch)
+            global_step += 1
+            if global_step % log_every == 0:
+                loss, grad_norm = float(metrics["loss"]), float(metrics["grad_norm"])
+                if not math.isfinite(loss):
+                    logger.warning("non-finite loss at global step %d", global_step)
+                tdict = trainer.timers.to_dict()
+                logger.info("epoch %d step %d/%d global_step %d loss %.4f grad_norm %.3f %s",
+                            epoch, step, num_steps_per_epoch, global_step, loss, grad_norm, tdict)
+                writer.log({"loss": loss, "grad_norm": grad_norm, **tdict}, global_step)
+            if global_step % ckpt_every == 0:
+                d = ckpt_io.save(exp_dir, trainer.state, epoch, step + 1, global_step,
+                                 sampler_state=sampler.state_dict(step + 1) if hasattr(sampler, "state_dict") else None,
+                                 keep_n_latest=cfg.get("keep_n_latest", -1))
+                logger.info("checkpoint saved to %s", d)
+        start_step = 0
+    d = ckpt_io.save(exp_dir, trainer.state, total_epochs - 1, num_steps_per_epoch, global_step)
+    logger.info("checkpoint saved to %s", d)
+    writer.close()
+    logger.info("training done")
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

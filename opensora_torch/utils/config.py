@@ -206,3 +206,17 @@ def ae_spatial_compression(cfg: Optional[dict] = None) -> int:
     ``ae_spatial_compression``, 16 when it has none."""
     d = (cfg or {}).get("ae_spatial_compression")
     return int(d) if d is not None else DEFAULT_AE_SPATIAL_COMPRESSION
+
+
+def create_experiment_workspace(cfg: Config, output_root: Optional[str] = None) -> str:
+    """``<outputs>/<exp_name>`` (a timestamp when the config names none),
+    created, with the resolved config written to its config.json."""
+    import json
+    import time
+
+    root = output_root or cfg.get("outputs", "outputs")
+    exp_dir = os.path.join(root, cfg.get("exp_name") or time.strftime("%Y%m%d-%H%M%S"))
+    os.makedirs(exp_dir, exist_ok=True)
+    with open(os.path.join(exp_dir, "config.json"), "w") as f:
+        json.dump(cfg.to_dict(), f, indent=2, default=str)
+    return exp_dir

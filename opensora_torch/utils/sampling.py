@@ -182,6 +182,21 @@ def prepare(t5, clip, img: torch.Tensor, prompt, seq_align: int = 1, patch_size:
     return {"img": img, "img_ids": img_ids, "txt": txt.to(dtype), "txt_ids": txt_ids, "y_vec": vec.to(dtype)}
 
 
+def prepare_ids(img: torch.Tensor, t5_embedding: torch.Tensor, clip_embedding: torch.Tensor,
+                patch_size: int = 2) -> dict:
+    """:func:`prepare` for cached text embeddings."""
+    bs, c, t, h, w = img.shape
+    dtype = img.dtype
+    img_ids = build_img_ids(t, h, w, patch_size, bs, device=img.device)
+    if t5_embedding.shape[0] == 1 and bs > 1:
+        t5_embedding = repeat(t5_embedding, "1 ... -> bs ...", bs=bs)
+    if clip_embedding.shape[0] == 1 and bs > 1:
+        clip_embedding = repeat(clip_embedding, "1 ... -> bs ...", bs=bs)
+    txt_ids = torch.zeros((bs, t5_embedding.shape[1], 3), dtype=torch.float32, device=img.device)
+    return {"img": pack(img, patch_size=patch_size), "img_ids": img_ids, "txt": t5_embedding.to(dtype),
+            "txt_ids": txt_ids, "y_vec": clip_embedding.to(dtype)}
+
+
 class I2VDenoiser:
     """3-way CFG Euler sampler with oscillating guidance and the temporal
     image-guidance ramp."""

@@ -67,8 +67,8 @@ def _vae_segment(seg: str) -> str:
 
 
 def hunyuan_vae_state_dict(params: Tree) -> Dict[str, np.ndarray]:
-    """HunyuanVAE flax params -> torch-layout state dict (every key,
-    encoder included; see :data:`VAE_DECODER_PREFIXES`)."""
+    """HunyuanVAE flax params -> ``AutoencoderKLCausal3D`` state dict
+    (encoder and decoder)."""
     out: Dict[str, np.ndarray] = {}
     for path, val in _flatten(params):
         *segs, leaf = path
@@ -80,12 +80,28 @@ def hunyuan_vae_state_dict(params: Tree) -> Dict[str, np.ndarray]:
     return out
 
 
-# the port's AutoencoderKLCausal3D holds the decode side only
-VAE_DECODER_PREFIXES = ("decoder.", "post_quant_conv.")
+def lora_state_dict(lora: Tree) -> Dict[str, np.ndarray]:
+    """The JAX package's LoRA factor tree (``training/lora.py``: in place of
+    each target ``kernel`` leaf ``{"lora_a": (..., in, r), "lora_b": (...,
+    r, out)}``, a leading
+    layer axis under the block stacks) -> the port's ``lora_A`` (r, in) and
+    ``lora_B`` (out, r) state-dict entries, so that W + s (A @ B) in flax
+    is W + s (lora_B @ lora_A) on the torch weight (out, in)."""
+    out: Dict[str, np.ndarray] = {}
+    names = {"lora_a": "lora_A", "lora_b": "lora_B"}
 
+    def put(mods: Tuple[str, ...], leaf: str, val: np.ndarray) -> None:
+        out[".".join(mods + (names[leaf],))] = np.ascontiguousarray(np.swapaxes(val, -1, -2))
 
-def hunyuan_vae_decoder_state_dict(params: Tree) -> Dict[str, np.ndarray]:
-    return {k: v for k, v in hunyuan_vae_state_dict(params).items() if k.startswith(VAE_DECODER_PREFIXES)}
+    for path, val in _flatten(lora):
+        *mods, kernel, leaf = path
+        assert kernel == "kernel", path
+        if mods[0] in ("double_blocks", "single_blocks"):
+            for i in range(val.shape[0]):
+                put((mods[0], str(i), *mods[1:]), leaf, val[i])
+        else:
+            put(tuple(mods), leaf, val)
+    return out
 
 
 def t5_state_dict(params: Tree) -> Dict[str, np.ndarray]:

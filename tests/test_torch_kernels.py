@@ -65,3 +65,98 @@ def test_flash_kernel_matches_plain_on_cuda(shape, causal_block, qscale):
     ref_out, ref_lse = tflash.flash_attention_ref(q, k, v, None, causal_block)
     assert (out.float() - ref_out).abs().max().item() <= 8e-3 * ref_out.abs().max().item()
     assert (lse - ref_lse).abs().max().item() <= 1e-3
+
+
+# ----------------------------------------------------------------------
+# backward
+# ----------------------------------------------------------------------
+
+# The bf16 backward kernels vs the fp32 plain backward on the same q, k, v,
+# dO, LSE and delta: P (for dV) and dS (for dK, dQ) are rounded to bf16
+# (2^-9 relative) before their products and the outputs once more; over
+# many keys the rounding errors of random sign stay well under 1e-2 of each
+# gradient's scale, the limit chip_smoke.py also holds them to.
+BWD_RTOL = 1e-2
+
+
+def _bwd_inputs(shape, causal_block, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=device).to(torch.bfloat16) for _ in range(4))
+    out, lse = tflash.flash_attention_ref(q, k, v, None, causal_block)
+    delta = (do.float() * out).sum(-1)
+    return q, k, v, do, lse, delta
+
+
+def test_flash_function_on_cpu_matches_autograd_of_plain_attention():
+    """On the CPU the Function takes the plain forward and the plain
+    backward; its gradients equal autograd through the plain attention."""
+    shape, cb = (1, 2, 40, 16), 8
+    base = [torch.from_numpy(_np(shape, s)) for s in (1, 2, 3)]
+    do = torch.from_numpy(_np(shape, 4))
+    q, k, v = (x.clone().requires_grad_() for x in base)
+    before = dict(_build.LAUNCHES)
+    out = tflash.flash_attention(q, k, v, causal_block=cb)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    q2, k2, v2 = (x.clone().requires_grad_() for x in base)
+    ref = tflash.flash_attention_ref(q2, k2, v2, None, cb)[0]
+    ref_grads = torch.autograd.grad(ref, (q2, k2, v2), do)
+    assert out.grad_fn is not None
+    for got, want in zip(grads, ref_grads):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert _build.LAUNCHES == before
+
+
+def test_flash_bwd_kernel_input_checks():
+    """D = 512 and inputs the backward kernels do not take raise before a
+    launch, naming what is missing."""
+    q = torch.zeros((1, 1, 64, 512), dtype=torch.bfloat16)
+    lse = torch.zeros((1, 1, 64))
+    with pytest.raises(ValueError, match="VAE training slice"):
+        tflash._check_bwd(q, q, q, q, lse, lse, None)
+    q = torch.zeros((1, 1, 64, 128), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="delta"):
+        tflash._check_bwd(q, q, q, q, lse, lse[..., :32], None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal_block", [
+    ((2, 3, 1000, 128), None),
+    ((1, 2, 1000, 128), 96),
+    ((1, 2, 256, 128), 64),
+])
+def test_flash_bwd_kernels_match_plain_on_cuda(shape, causal_block):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    q, k, v, do, lse, delta = _bwd_inputs(shape, causal_block, "cuda")
+    before = dict(_build.LAUNCHES)
+    got = tflash.partial_flash_backward(q, k, v, do, lse, delta, causal_block=causal_block)
+    want = tflash.flash_attention_bwd_ref(q, k, v, do, lse, delta, None, causal_block)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        err = (g.float() - w).abs().max().item()
+        assert err <= BWD_RTOL * w.abs().max().item(), (name, err, w.abs().max().item())
+    for name in (tflash.KERNEL_DKV, tflash.KERNEL_DQ):
+        assert _build.LAUNCHES[name] == before.get(name, 0) + 1
+
+
+@pytest.mark.cuda
+def test_flash_function_backward_on_cuda_goes_through_the_kernels():
+    """A backward through the Function on the card launches both backward
+    kernels (no gradient is dropped) and agrees with autograd through the
+    plain fp32 attention on the same bf16 inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    shape = (1, 2, 300, 128)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    base = [torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3)]
+    do = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = (x.clone().requires_grad_() for x in base)
+    before = dict(_build.LAUNCHES)
+    grads = torch.autograd.grad(tflash.flash_attention(q, k, v), (q, k, v), do)
+    assert _build.LAUNCHES[tflash.KERNEL_DKV] == before.get(tflash.KERNEL_DKV, 0) + 1
+    assert _build.LAUNCHES[tflash.KERNEL_DQ] == before.get(tflash.KERNEL_DQ, 0) + 1
+    q2, k2, v2 = (x.float().requires_grad_() for x in base)
+    ref = tflash.flash_attention_ref(q2, k2, v2)[0]
+    ref_grads = torch.autograd.grad(ref, (q2, k2, v2), do.float())
+    for g, w in zip(grads, ref_grads):
+        # the bf16 forward output feeds delta here, adding its rounding
+        assert (g.float() - w).abs().max().item() <= 2 * BWD_RTOL * w.abs().max().item()

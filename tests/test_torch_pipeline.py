@@ -42,7 +42,7 @@ from opensora_torch.utils.api import prepare_api, prepare_models
 from opensora_torch.utils.config import parse_configs
 from opensora_torch.utils.weights import (
     clip_text_state_dict,
-    hunyuan_vae_decoder_state_dict,
+    hunyuan_vae_state_dict,
     load_numpy_state_dict,
     mmdit_state_dict,
     t5_state_dict,
@@ -93,7 +93,7 @@ def tiny_pair():
     model = _meta(MMDiTModel, MMDiTConfig(**mkw))
     load_numpy_state_dict(model, mmdit_state_dict(m_params))
     ae = _meta(AutoencoderKLCausal3D, AutoEncoder3DConfig(**akw))
-    load_numpy_state_dict(ae, hunyuan_vae_decoder_state_dict(v_params))
+    load_numpy_state_dict(ae, hunyuan_vae_state_dict(v_params))
     t5 = HFEmbedder("", max_length=16, t5_config=tt5.t5_small_test_config(), device="meta", dtype=torch.float32)
     load_numpy_state_dict(t5.module, t5_state_dict(t5_params))
     clip = HFEmbedder("clip-tiny", max_length=16, clip_config=tclip.clip_small_test_config(), device="meta",

@@ -1,7 +1,8 @@
-"""The port's HunyuanVideo VAE decoder against the JAX package's on the CPU,
-fp32, with the same carried weights: a tiny config decoded whole, with
-spatial tiling (full and partial tiles, blended), and with temporal plus
-spatial tiling. Also the weight carry against the JAX package's exporter.
+"""The port's HunyuanVideo VAE against the JAX package's on the CPU, fp32,
+with the same carried weights: a tiny config decoded and encoded whole,
+with spatial tiling (full and partial tiles, blended), and with temporal
+plus spatial tiling; the posterior's sample given the same noise. Also the
+weight carry against the JAX package's exporter.
 
 Tolerance: 1e-4 of the output's scale (fp32 convolutions summed in
 another order).
@@ -20,7 +21,6 @@ from opensora_tpu.utils.ckpt import export_hunyuan_vae_state_dict
 
 from opensora_torch.models.hunyuan_vae.model import AutoEncoder3DConfig, AutoencoderKLCausal3D, blend_tiles
 from opensora_torch.utils.weights import (
-    hunyuan_vae_decoder_state_dict,
     hunyuan_vae_state_dict,
     load_numpy_state_dict,
 )
@@ -40,7 +40,7 @@ def _jax_vae(**kw):
 def _port_vae(params, **kw):
     ae = AutoencoderKLCausal3D(AutoEncoder3DConfig(**TINY, dtype="fp32", **kw), device="meta",
                                dtype=torch.float32).eval()
-    load_numpy_state_dict(ae, hunyuan_vae_decoder_state_dict(params))
+    load_numpy_state_dict(ae, hunyuan_vae_state_dict(params))
     return ae
 
 
@@ -75,6 +75,43 @@ def test_vae_weight_carry_equals_jax_exporter():
     assert sorted(ours) == sorted(theirs)
     for k in ours:
         np.testing.assert_array_equal(ours[k], theirs[k], err_msg=k)
-    ae = _port_vae(params)  # strict load of the decode side
-    assert set(ae.state_dict()) == set(hunyuan_vae_decoder_state_dict(params))
-    assert set(ours) - set(ae.state_dict()) == {k for k in ours if k.startswith(("encoder.", "quant_conv."))}
+    ae = _port_vae(params)  # strict load of encoder and decoder
+    assert set(ae.state_dict()) == set(ours)
+
+
+@pytest.mark.parametrize("video_thw,tiling", [
+    ((9, 32, 32), {}),
+    ((5, 48, 40), dict(use_spatial_tiling=True, sample_size=32)),  # 2 x 2 tiles, partial ones blended
+    ((17, 16, 16), dict(use_temporal_tiling=True, sample_tsize=8)),  # causal temporal tiles
+])
+def test_encode_moments_match_jax(video_thw, tiling):
+    """The posterior's moments (mean and clipped log-variance), and the
+    scaled latent's mode, through each tiling path."""
+    vae, params = _jax_vae(**tiling)
+    x = np.random.default_rng(3).uniform(-1, 1, (2, 3, *video_thw)).astype(np.float32)
+    def encode(p, v):
+        z, post = vae.apply({"params": p}, v, sample_posterior=False, return_posterior=True, method=JVAE.encode)
+        return z, post.mean, post.logvar
+
+    z_ref, mean, logvar = jax.jit(encode)(params, jnp.asarray(x))
+    ae = _port_vae(params, **tiling)
+    with torch.no_grad():
+        z, tpost = ae.encode(t(x), sample_posterior=False, return_posterior=True)
+    to_ncthw = lambda a: np.moveaxis(np.asarray(a), -1, 1)  # noqa: E731  (JAX keeps moments channels-last)
+    assert z.shape == z_ref.shape
+    assert max_rel_err(z.numpy(), z_ref) <= TOL
+    assert max_rel_err(tpost.mean.numpy(), to_ncthw(mean)) <= TOL
+    assert max_rel_err(tpost.logvar.numpy(), to_ncthw(logvar)) <= TOL
+
+
+def test_encode_sample_matches_jax_given_the_noise():
+    vae, params = _jax_vae()
+    x = np.random.default_rng(4).uniform(-1, 1, (1, 3, 5, 16, 16)).astype(np.float32)
+    rng = jax.random.PRNGKey(5)
+    z_ref = jax.jit(lambda p, v: vae.apply({"params": p}, v, rng=rng, method=JVAE.encode))(params, jnp.asarray(x))
+    # the JAX posterior draws its noise channels-last: (B, T, H, W, C)
+    b, c, lt, lh, lw = z_ref.shape
+    noise = np.moveaxis(np.asarray(jax.random.normal(rng, (b, lt, lh, lw, c), jnp.float32)), -1, 1)
+    with torch.no_grad():
+        z = _port_vae(params).encode(t(x), noise=t(noise))
+    assert max_rel_err(z.numpy(), z_ref) <= TOL
