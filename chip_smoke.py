@@ -22,7 +22,16 @@ Phases, one line each; any failure exits non-zero:
      remat_policy=full) on seeded 129-frame 256px video batches of 3 --
      through the training CLI's own per-batch body (opensora_torch.train.
      Trainer.run_batch) for 3 steps, and check losses, gradient norms,
-     that the LoRA factors move, the exact launch counts and peak memory.
+     that the LoRA factors move, the exact launch counts and peak memory;
+  6. drive the int8 serving path -- configs/diffusion/inference/
+     256px_int8attn.py (W8A8 products, int8_qk8 attention) at full width
+     and depth, random bf16 weights from seed 42 quantized at build, for 2
+     steps, then with --model.quantized w8a8_fq --model.attn_backend int8
+     for 1 step -- and check the output and the exact launch counts.
+Phase 2c holds the W8A8 GEMM (both instantiations) and the int8 attention
+kernel (both modes, both loops) against their plain versions at the int8
+path's shapes, with known-wrong outputs and timings; phase 3b checks the
+full-width int8 model on a small input against the CPU's plain int8 path.
 Then it prints the card's name and power limit, one JSON line with the
 kernels' numbers, and last {"ok": true, "device": {...}}.
 
@@ -49,7 +58,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
+# exp2 on the special-function units: 16 a clock per SM (times SMs and the
+# card's maximum SM clock, read at run time)
+MUFU_PER_CLOCK_PER_SM = 16
 
 # Kernel vs its fp32 plain version on the same bf16 inputs. The output is
 # held relative to its own scale: max|out - ref| <= OUT_RTOL * max|ref|.
@@ -80,7 +93,19 @@ BWD_RTOL = 1e-2
 # gradient.
 TRAIN_GRAD_TOL = 1e-1
 
+# W8A8 kernels vs their plain versions (exact integer sums in float64, the
+# same fp32 epilogue order): equal in every element at fp32 output.
+# Int8 attention vs its plain version on the same bf16 inputs: the same
+# quantization; the kernel rounds the bf16 output (and in qk8 mode P to
+# bf16) against its own anchors, sums in another order, and in the int8
+# mode a P8 value within an ulp of k + 1/2 may round the other way (one int8
+# step of one key in one row): held like the bf16 forward, OUT_RTOL of the
+# output's scale.
+INT8_ATTN_RTOL = OUT_RTOL
+
 STEPS = 2  # num_steps of the inference path, cut from 50 to fit the time limit
+INT8_CFG = os.path.join(REPO, "configs", "diffusion", "inference", "256px_int8attn.py")
+INT8_FQ_STEPS = 1  # steps of the w8a8_fq / int8 run
 TRAIN_STEPS = 3  # LoRA steps of the training path
 TRAIN_BATCH = 3  # the 129-frame 256px bucket's batch size (stage1.py)
 TRAIN_FRAMES, TRAIN_RESOLUTION, TRAIN_RATIO = 129, "256px", "16:9"
@@ -382,6 +407,209 @@ def check_attention_bwd(device) -> dict:
 
 
 # ----------------------------------------------------------------------
+# phase 2c: the int8 kernels at the int8 serving path's shapes
+# ----------------------------------------------------------------------
+
+# (name, M, K, N): the MMDiT's W8A8 products at 256px 129 frames with the
+# 3-way CFG batch (8316 image + 512 text tokens, B = 3)
+GEMM_CASES = [
+    ("double_img_qkv", 3 * 8316, 3072, 9216),
+    ("double_img_mlp2", 3 * 8316, 12288, 3072),
+    ("single_linear1", 3 * 8828, 3072, 21504),
+    ("single_linear2", 3 * 8828, 15360, 3072),
+    ("modulation", 3, 3072, 18432),
+    ("m_and_n_tails", 1000, 3072, 200),
+]
+GEMM_HEAD = "single_linear1"  # the largest, 38 per forward
+
+
+def gemm_bound(m, k, n, fq: bool):
+    """(least ms, "operations" or "bytes"): 2MNK int8 ops at the int8 peak, or
+    x (int8, or bf16 for fq), the weight, the scales read and the bf16
+    output written once."""
+    ops_s = 2.0 * m * n * k / PEAK_INT8_OPS
+    bytes_s = ((2 if fq else 1) * m * k + n * k + 4.0 * (m + n) + 2.0 * m * n) / PEAK_BYTES
+    return 1e3 * max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s else "bytes")
+
+
+def check_int8_gemm(device) -> dict:
+    from opensora_torch.ops import int8_matmul as im
+
+    gen = torch.Generator(device=device).manual_seed(4)
+    cases = []
+    for name, m, k, n in GEMM_CASES:
+        x8 = torch.randint(-127, 128, (m, k), generator=gen, device=device, dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, k), generator=gen, device=device, dtype=torch.int8)
+        sa = torch.rand((m, 1), generator=gen, device=device) * 1e-2 + 1e-3
+        sw = torch.rand((n,), generator=gen, device=device) * 1e-2 + 1e-3
+        x = (torch.randn((m, k), generator=gen, device=device) * 0.3).to(torch.bfloat16)
+        rec = dict(name=name, shape_mkn=[m, k, n])
+        for kern, fq in (("w8a8_matmul", False), ("w8a8_fq_matmul", True)):
+            if fq:
+                run = lambda dt=torch.bfloat16: im.w8a8_fusedquant_matmul(x, w, sw, out_dtype=dt)  # noqa: E731
+                plain = lambda dt=torch.bfloat16: im.w8a8_fusedquant_matmul_ref(x, w, sw, dt)  # noqa: E731
+                s_a, inv = im.fq_inputs(x)
+                kernel_only = lambda: im.fq_kernel(x, w, sw, s_a, inv)  # noqa: E731
+                x8_used = torch.clamp(torch.round(x.float() * inv), -127, 127)
+            else:
+                run = lambda dt=torch.bfloat16: im.w8a8_matmul(x8, w, sa, sw, out_dtype=dt)  # noqa: E731
+                plain = lambda dt=torch.bfloat16: im.w8a8_matmul_ref(x8, w, sa, sw, dt)  # noqa: E731
+                kernel_only = run
+                s_a, x8_used = sa, x8.float()
+            out = run(torch.float32)
+            torch.cuda.synchronize()
+            ref = plain(torch.float32)
+            n_diff = int((out != ref).sum())
+            ref_scale = ref.abs().max().item()
+            err = (out - ref).abs().max().item()
+            # known-wrong output: one 64-wide K tile of the sum left out
+            tile = x8_used[:, 64:128].double() @ w[:, 64:128].double().T
+            skipped = ref - (tile.float() * s_a.reshape(-1, 1) * sw)
+            mutant = (skipped - ref).abs().max().item() / ref_scale
+            caught = not torch.equal(skipped, ref)
+            del out, ref, tile, skipped
+            big = 2.0 * m * n * k > 1e11
+            ms = time_cuda(kernel_only, 10 if big else 20)
+            wrapper_ms = time_cuda(run, 10 if big else 20)  # fq: with the row abs-max pass in torch
+            plain_ms = time_cuda(plain, 1, warmup=0)
+            library_ms = None
+            if not fq and m > 16:  # torch._int_mm takes more than 16 rows
+                try:  # a yardstick only: a library that refuses the shape leaves it unmeasured
+                    library_ms = time_cuda(
+                        lambda: (torch._int_mm(x8, w.t()).float() * sa * sw).to(torch.bfloat16), 10 if big else 20)
+                except RuntimeError as e:
+                    log(f"[int8] torch._int_mm refused {name}: {str(e).splitlines()[0]}")
+            bound_ms, bound_by = gemm_bound(m, k, n, fq)
+            rec[kern] = dict(elements_differing=n_diff, max_abs_err=err, ref_max_abs=ref_scale,
+                             k_tile_skipped=mutant, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+            ok = n_diff == 0 and caught
+            log(f"[int8] {kern} {name} (M, K, N) = ({m}, {k}, {n}): elements differing from the plain "
+                f"version at fp32 output {n_diff} (must be 0; max|err| {err:.3e}) wrong output (a K tile "
+                f"skipped) {mutant:.3e} of max|ref| {'rejected' if caught else 'NOT REJECTED'} ms={ms:.3f} "
+                f"wrapper_ms={wrapper_ms:.3f} "
+                f"bound_ms={bound_ms:.3f} ({bound_by}) plain_ms={plain_ms:.3f} "
+                f"library_ms={'n/a' if library_ms is None else f'{library_ms:.3f}'} {'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{kern} disagrees with its plain version at {name}")
+        cases.append(rec)
+        del x8, w, sa, sw, x
+        torch.cuda.empty_cache()
+    return {"cases": cases}
+
+
+INT8_ATTN_CASES = [
+    # name, (B, H, L, D), q scale: the anchored loop, the running-max loop
+    # (a2 >= 40), and L = 1000 (no whole 64-key tile) in both
+    ("mmdit_joint_anchored", (3, 24, 8828, 128), 1.0),
+    ("mmdit_joint_running_max", (3, 24, 8828, 128), 3.0),
+    ("tail_anchored", (2, 3, 1000, 128), 1.0),
+    ("tail_running_max", (2, 3, 1000, 128), 3.0),
+]
+
+
+def int8_attention_bound(b, h, l, d, pv_int8: bool, mufu_per_s: float):
+    """(least ms, what bounds it, exp2 ms): Q K^T on int8 plus P V on int8
+    (pv_int8) or bf16 (qk8), both on the tensor cores; the exp2 of every
+    logit on the special-function units, in parallel; or the int8/bf16
+    inputs read and the bf16 output written once."""
+    prod = 2.0 * b * h * l * l * d
+    ops_s = prod / PEAK_INT8_OPS + prod / (PEAK_INT8_OPS if pv_int8 else PEAK_BF16_FLOPS)
+    exp_s = b * h * l * l / mufu_per_s
+    bytes_s = (b * h * l * d * (1 + 1 + (1 if pv_int8 else 2) + 2) + 4.0 * b * h * l) / PEAK_BYTES
+    worst = max(ops_s, exp_s, bytes_s)
+    by = "operations" if worst in (ops_s, exp_s) else "bytes"
+    return 1e3 * worst, by, 1e3 * exp_s
+
+
+def int8_plain_chunked(ia, q, k, v, pv_int8, heads_per_chunk, mutate=None):
+    """The plain version over chunks of heads (everything in it is per
+    (b, h)); ``mutate(pre)`` edits the preamble's output first."""
+    outs = []
+    block_k = ia.default_block_k(k.shape[2])
+    for h0 in range(0, q.shape[1], heads_per_chunk):
+        sl = slice(h0, h0 + heads_per_chunk)
+        pre = ia.quantize_inputs(q[:, sl], k[:, sl], v[:, sl], q.shape[-1] ** -0.5, block_k, pv_int8)
+        if mutate is not None:
+            mutate(pre)
+        outs.append(ia.attention_from_quantized(pre, pv_int8))
+    return torch.cat(outs, 1)
+
+
+def check_int8_attention(device, mufu_per_s: float) -> dict:
+    from opensora_torch.ops import int8_flash as ia
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    cases = []
+    for name, (b, h, l, d), qscale in INT8_ATTN_CASES:
+        q = (torch.randn((b, h, l, d), generator=gen, device=device) * qscale).to(torch.bfloat16)
+        k = torch.randn((b, h, l, d), generator=gen, device=device).to(torch.bfloat16)
+        # V with a common mode, which the int8 mode's smoothing takes out and adds back
+        v = (torch.randn((b, h, l, d), generator=gen, device=device) + 0.5).to(torch.bfloat16)
+        block_k = ia.default_block_k(l)
+        a2_max = float(ia.quantize_inputs(q, k, v, d ** -0.5, block_k, False)["a2"].max())
+        heads_per_chunk = max(1, (1 << 30) // (l * l * 4 * b))
+        for pv_int8 in (False, True):
+            mode = "int8" if pv_int8 else "qk8"
+            out = ia.int8_flash_attention(q, k, v, pv_int8=pv_int8)
+            torch.cuda.synchronize()
+            ref = int8_plain_chunked(ia, q, k, v, pv_int8, heads_per_chunk)
+            scale = ref.abs().max().item()
+            err = (out.float() - ref).abs().max().item()
+            ok = math.isfinite(err) and err <= INT8_ATTN_RTOL * scale
+
+            def reading(wrong):
+                return (wrong - ref).abs().max().item() / scale
+
+            def neighbour_sk(pre):
+                pre["sk"] = pre["sk"].roll(-1, dims=2)
+
+            keep = l - (l % 64 or 64)
+            mutants = {
+                "sk_of_neighbouring_tile": reading(int8_plain_chunked(ia, q, k, v, pv_int8, heads_per_chunk,
+                                                                      neighbour_sk)),
+                "tail_tile_skipped": reading(int8_plain_chunked(
+                    ia, q, k[:, :, :keep].contiguous(), v[:, :, :keep].contiguous(), pv_int8, heads_per_chunk)),
+            }
+            if pv_int8:
+                mutants["v_mean_not_added"] = reading(ref - v.float().mean(dim=2, keepdim=True))
+            caught = all(r > INT8_ATTN_RTOL for r in mutants.values())
+            del ref, out
+            big = l * l * b * h > 1e8
+            iters = 5 if big else 20
+            pre = ia.kernel_inputs(q, k, v, d ** -0.5, block_k, pv_int8)
+            ms = time_cuda(lambda: ia.launch(pre, pv_int8), iters)
+            del pre
+            wrapper_ms = time_cuda(lambda: ia.int8_flash_attention(q, k, v, pv_int8=pv_int8), iters)
+            plain_ms = time_cuda(lambda: int8_plain_chunked(ia, q, k, v, pv_int8, heads_per_chunk), 1, warmup=0)
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            library_ms = time_cuda(lambda: sdpa(q, k, v), iters)
+            bound_ms, bound_by, exp2_ms = int8_attention_bound(b, h, l, d, pv_int8, mufu_per_s)
+            case = dict(name=name, mode=mode, shape=[b, h, l, d], block_k=block_k, a2_max=a2_max,
+                        branch="anchored" if a2_max < 40 else "running_max", max_abs_err=err,
+                        ref_max_abs=scale, rel_err=err / scale, mutants=mutants, ms=ms, wrapper_ms=wrapper_ms,
+                        plain_ms=plain_ms,
+                        library_ms=library_ms, library="bf16 SDPA (the bf16 route's yardstick)",
+                        bound_ms=bound_ms, bound_by=bound_by, exp2_ms=exp2_ms)
+            cases.append(case)
+            wrong = ", ".join(f"{n} {r:.2e}" for n, r in mutants.items())
+            log(f"[int8] int8_flash_attention {mode} {name} {[b, h, l, d]} block_k={block_k} "
+                f"branch={case['branch']} a2_max={a2_max:.2f} err={err:.3e} = {err / scale:.3e} of max|ref| "
+                f"{scale:.3e} (tol {INT8_ATTN_RTOL}) wrong outputs (of max|ref|): {wrong} "
+                f"{'rejected' if caught else 'NOT REJECTED'} ms={ms:.3f} (with the torch preamble "
+                f"{wrapper_ms:.3f}) bound_ms={bound_ms:.3f} ({bound_by}; "
+                f"exp2 alone {exp2_ms:.3f}) plain_ms={plain_ms:.3f} bf16_sdpa_ms={library_ms:.3f} "
+                f"{'OK' if ok and caught else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"int8_flash_attention ({mode}) disagrees with its plain version at {name}")
+            if not caught:
+                raise AssertionError(f"the limit at {name} ({mode}) does not reject a known-wrong output")
+        del q, k, v
+        torch.cuda.empty_cache()
+    return {"cases": cases}
+
+
+# ----------------------------------------------------------------------
 # phase 3: the main path
 # ----------------------------------------------------------------------
 
@@ -443,7 +671,69 @@ def check_small_input(device) -> dict:
     return res
 
 
-KERNEL_KINDS = [
+def check_int8_small_input(device) -> dict:
+    """The int8 serving path's model at full width on a small input (1 + 1
+    blocks, 160 tokens so that int8 attention engages): the card's W8A8 +
+    int8_qk8 path (the kernels) against the port's plain int8 path on the
+    CPU, fp32 around the same int8 weights; and, as a reading, the card's
+    int8 path against its bf16 path on the same float weights."""
+    from opensora_torch.ops.quant import quantize_model_
+    from opensora_torch.registry import MODELS, build_module
+    from opensora_torch.utils.api import prepare_models  # noqa: F401  (registers the models)
+    from opensora_torch.utils.config import parse_configs
+    from opensora_torch.utils.sampling import build_img_ids
+
+    cfg = parse_configs([INT8_CFG])
+    mode, backend = cfg.model["quantized"], cfg.model["attn_backend"]
+    mcfg = dict(cfg.model, depth=1, depth_single_blocks=1, quantized=False)
+    torch.manual_seed(0)
+    card_bf16 = build_module(dict(mcfg, attn_backend=None), MODELS, device=device).eval()
+    card = build_module(dict(mcfg), MODELS, device="meta").eval()
+    card.load_state_dict(card_bf16.state_dict(), assign=True)
+    card = card.to(device)
+    quantize_model_(card, mode)
+    cpu = build_module(dict(mcfg, quantized=mode, dtype="fp32"), MODELS, device="meta").eval()
+    cpu.load_state_dict({k: (v.float() if v.is_floating_point() else v).cpu() for k, v in card.state_dict().items()},
+                        assign=True)
+    gen = torch.Generator().manual_seed(6)
+    b, lt = 3, 32
+    img_ids = build_img_ids(2, 16, 16, bs=b)  # 2 x 8 x 8 = 128 image tokens
+    n_img = img_ids.shape[1]
+    inputs = dict(
+        img=torch.randn(b, n_img, mcfg["in_channels"], generator=gen), img_ids=img_ids,
+        txt=torch.randn(b, lt, mcfg["context_in_dim"], generator=gen), txt_ids=torch.zeros(b, lt, 3),
+        timesteps=torch.rand(b, generator=gen), y_vec=torch.randn(b, mcfg["vec_in_dim"], generator=gen),
+        cond=torch.zeros(b, n_img, mcfg["in_channels"] + 4), guidance=torch.full((b,), 7.5),
+    )
+    from opensora_torch.ops import _build
+
+    before = dict(_build.LAUNCHES)
+    with torch.inference_mode():
+        ref = cpu(**inputs)
+        on_card = {k: v.to(device) for k, v in inputs.items()}
+        out = card(**on_card).float().cpu()
+        out_bf16 = card_bf16(**on_card).float().cpu()
+    launched = {k: _build.LAUNCHES[k] - before.get(k, 0) for k in ("w8a8_matmul", "int8_flash_attention")}
+    res = {
+        "int8_card_vs_int8_cpu_rel_err": float((out - ref).abs().max() / ref.abs().max().clamp(min=1.0)),
+        "int8_vs_bf16_on_card_rel_l2": float((out - out_bf16).norm() / out_bf16.norm()),
+        "launches": launched,
+    }
+    del card, card_bf16, cpu
+    torch.cuda.empty_cache()
+    ok = res["int8_card_vs_int8_cpu_rel_err"] <= SMALL_TOL and launched == {"w8a8_matmul": 13,
+                                                                             "int8_flash_attention": 2}
+    log(f"[small] int8 path ({mode}, {backend}), full-width MMDiT depth 1+1 (B=3, {n_img + lt} tokens), card "
+        f"kernels vs CPU plain int8 path on the same int8 weights: {json.dumps(res)} (tol {SMALL_TOL} of the "
+        f"output's scale; launches 10 + 3 GEMMs, 2 attentions) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the card's int8 path disagrees with the plain int8 path on a small input")
+    return res
+
+
+KERNEL_KINDS = [  # first match wins: int8_flash_fwd_kernel before flash_fwd_kernel
+    ("int8_flash_attention", ("int8_flash_fwd_kernel",)),
+    ("w8a8_gemm", ("w8a8_gemm_kernel",)),
     ("flash_attention_fwd", ("flash_fwd_kernel",)),
     ("flash_attention_bwd_dkv", ("flash_bwd_dkv_kernel",)),
     ("flash_attention_bwd_dq", ("flash_bwd_dq_kernel",)),
@@ -690,6 +980,87 @@ def run_train_path(device, profile: bool = False, out_dir=None) -> dict:
     return res
 
 
+# ----------------------------------------------------------------------
+# phase 6: the int8 serving path
+# ----------------------------------------------------------------------
+
+
+def int8_expected_launches(cfg, steps: int) -> dict:
+    """Kernel launches of ``steps`` denoise steps (one batched-CFG forward
+    each) and the VAE decode. Every block linear is a W8A8 product: 10 per
+    double block (2 modulations, 2 qkv, 2 proj, 4 MLP), 3 per single block
+    (modulation, linear1, linear2). In w8a8_fq mode the products with at
+    least 1024 rows take the fused kernel; the modulations (3 rows) take the
+    quantize-outside rule and w8a8_matmul. Every block runs one attention."""
+    depth, single = cfg.model["depth"], cfg.model["depth_single_blocks"]
+    per_forward = {"w8a8_matmul": 10 * depth + 3 * single}
+    if cfg.model["quantized"] == "w8a8_fq":
+        per_forward = {"w8a8_fq_matmul": 8 * depth + 2 * single, "w8a8_matmul": 2 * depth + single}
+    attn = "int8_flash_attention_pv8" if cfg.model["attn_backend"] == "int8" else "int8_flash_attention"
+    per_forward[attn] = depth + single
+    out = {k: v * steps for k, v in per_forward.items()}
+    out["flash_attention_fwd"] = 2  # the VAE decode's two spatial tiles, one mid-block attention each
+    return out
+
+
+def run_int8_path(device, overrides, steps: int, profile: bool = False, out_dir=None, tag="int8") -> dict:
+    from opensora_torch.ops import _build
+    from opensora_torch.utils.api import prepare_api, prepare_models
+    from opensora_torch.utils.config import parse_configs
+    from opensora_torch.utils.sampling import SamplingOption, sanitize_sampling_option
+
+    cfg = parse_configs([INT8_CFG, "--sampling_option.num_steps", str(steps), *overrides])
+    log(f"[{tag}] 256px_int8attn.py{''.join(' ' + o for o in overrides)} at full width and depth (quantized="
+        f"{cfg.model['quantized']}, attn_backend={cfg.model['attn_backend']}); num_steps cut 50 -> {steps}")
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    model, ae, t5, clip = prepare_models(cfg, device=device, seed=cfg.seed)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    resident_gb = torch.cuda.memory_allocated(device) / 1e9
+    build_peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    log(f"[{tag}] models built and the MMDiT quantized block by block on {device} in {build_s:.1f} s; "
+        f"{resident_gb:.2f} GB resident, {build_peak_gb:.2f} GB peak during the build")
+    torch.cuda.reset_peak_memory_stats(device)
+    api_fn = prepare_api(model, ae, t5, clip)
+    opt = sanitize_sampling_option(SamplingOption(**cfg.sampling_option))
+    prompt = ["a red panda eating bamboo in a misty forest, 16 FPS. 4 motion score."]
+    run_kwargs = dict(opt=opt, cond_type=cfg.cond_type, seed=cfg.seed, text=prompt, channel=cfg.model["in_channels"])
+    _build.LAUNCHES.clear()
+    timings: dict = {}
+    t0 = time.perf_counter()
+    x = api_fn(**run_kwargs, timings=timings)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    expect_shape = (1, 3, opt.num_frames, opt.height, opt.width)
+    finite = bool(torch.isfinite(x).all())
+    outside = float((x.abs() > 1.0).float().mean())
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    expect = int8_expected_launches(cfg, steps)
+    log(f"[{tag}] output {tuple(x.shape)} finite={finite} range=[{float(x.min()):.3f}, {float(x.max()):.3f}] "
+        f"outside [-1, 1]: {outside:.4f} (limit {OUTSIDE_MAX}) text_encode_s={timings['text_encode_s']:.3f} "
+        f"step_s={[round(s, 3) for s in timings['step_s']]} decode_s={timings['decode_s']:.3f} "
+        f"total_s={total_s:.3f} peak_mem_gb={peak_gb:.2f} launches={launches} expected={expect}")
+    if tuple(x.shape) != expect_shape:
+        raise AssertionError(f"output shape {tuple(x.shape)} != {expect_shape}")
+    if not finite or outside > OUTSIDE_MAX:
+        raise AssertionError(f"output not finite, or {outside:.4f} of it outside [-1, 1]")
+    if launches != expect:
+        raise AssertionError(f"kernel launches {launches} != expected {expect}")
+    res = dict(config=dict(quantized=cfg.model["quantized"], attn_backend=cfg.model["attn_backend"]),
+               launches=launches, text_encode_s=timings["text_encode_s"], step_s=timings["step_s"],
+               decode_s=timings["decode_s"], total_s=total_s, peak_mem_gb=peak_gb, resident_gb=resident_gb,
+               build_peak_gb=build_peak_gb,
+               outside_share=outside, models_build_s=build_s)
+    if profile:
+        res["profile"] = profile_run(lambda: api_fn(**run_kwargs), tag, out_dir)
+    del model, ae, t5, clip, api_fn, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def main(argv) -> int:
     out_dir = argv[argv.index("--out-dir") + 1] if "--out-dir" in argv else None
     if not torch.cuda.is_available():
@@ -701,7 +1072,7 @@ def main(argv) -> int:
 
     from opensora_torch.ops import _build
 
-    sources = ("flash_attention_fwd", "flash_attention_bwd")
+    sources = ("flash_attention_fwd", "flash_attention_bwd", "int8_matmul", "int8_flash_attention")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         built = dict(zip(sources, pool.map(_build.build, sources)))
     for name, (seconds, _) in built.items():
@@ -711,21 +1082,36 @@ def main(argv) -> int:
         with open(os.path.join(out_dir, "build_log.txt"), "w") as f:
             f.write("".join(f"== {name}\n{report}" for name, (_, report) in built.items()))
 
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    max_sm_mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    mufu_per_s = MUFU_PER_CLOCK_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count * float(
+        max_sm_mhz) * 1e6
+
     attn = check_attention(device)
     attn_bwd = check_attention_bwd(device)
+    gemm = check_int8_gemm(device)
+    int8_attn = check_int8_attention(device, mufu_per_s)
     small = check_small_input(device)
     small_train = check_train_small_input(device)
+    small_int8 = check_int8_small_input(device)
     main_res = run_main_path(device, "--profile" in argv, out_dir)
     main_res["small_input"] = small
     gc.collect()
     torch.cuda.empty_cache()
     train_res = run_train_path(device, "--profile" in argv, out_dir)
     train_res["small_input"] = small_train
-
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8_res = run_int8_path(device, [], STEPS, "--profile" in argv, out_dir, "int8")
+    int8_res["small_input"] = small_int8
+    fq_res = run_int8_path(device, ["--model.quantized", "w8a8_fq", "--model.attn_backend", "int8"], INT8_FQ_STEPS,
+                           tag="int8_fq")
     head = attn["cases"][0]  # the MMDiT shape, the main path's hot call
     kernels = [dict(
         name="flash_attention_fwd",
@@ -756,8 +1142,38 @@ def main(argv) -> int:
             minimal_backward_bound_ms=bwd_head["bound_ms"]["minimal"],
             cases=attn_bwd["cases"],
         ))
+    gemm_head = next(c for c in gemm["cases"] if c["name"] == GEMM_HEAD)
+    for name, line, also, runs in (
+            ("w8a8_matmul", 31, "opensora_tpu/ops/quant.py:71-80 (the XLA int8 dot_general of w8a8)",
+             {"int8": int8_res, "int8_fq": fq_res}),
+            ("w8a8_fq_matmul", 51, None, {"int8_fq": fq_res})):
+        head = gemm_head[name]
+        kernels.append(dict(
+            name=name, route="cuda", source="opensora_torch/csrc/int8_matmul.cu",
+            replaces=f"opensora_tpu/ops/int8_matmul.py:{line}", also_replaces=also,
+            launches=sum(r["launches"].get(name, 0) for r in runs.values()),
+            launches_by_run={tag: r["launches"].get(name, 0) for tag, r in runs.items()},
+            max_abs_err=max(c[name]["max_abs_err"] for c in gemm["cases"]),
+            ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            library_ms=head["library_ms"], shape_mkn=gemm_head["shape_mkn"],
+            library="torch._int_mm + the fp32 rescale epilogue" if head["library_ms"] is not None else None,
+            cases=[dict(name=c["name"], shape_mkn=c["shape_mkn"], **c[name]) for c in gemm["cases"]],
+        ))
+    for name, mode, res in (("int8_flash_attention", "qk8", int8_res), ("int8_flash_attention_pv8", "int8", fq_res)):
+        mine = [c for c in int8_attn["cases"] if c["mode"] == mode]
+        head = mine[0]  # the MMDiT shape, anchored: the path's case
+        kernels.append(dict(
+            name=name, route="cuda", source="opensora_torch/csrc/int8_flash_attention.cu",
+            replaces="opensora_tpu/ops/int8_flash.py:144", also_replaces="opensora_tpu/ops/int8_flash.py:62",
+            mode=mode, launches=res["launches"].get(name, 0),
+            max_abs_err=max(c["max_abs_err"] for c in mine),
+            ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            library_ms=head["library_ms"], library=head["library"], cases=mine,
+        ))
     log("[main] " + json.dumps(main_res))
     log("[train] " + json.dumps(train_res))
+    log("[int8] " + json.dumps(int8_res))
+    log("[int8_fq] " + json.dumps(fq_res))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -4,7 +4,11 @@ Parameter names follow the upstream Open-Sora v2 state-dict layout
 (``img_attn.qkv`` or ``q_proj``/``k_proj``/``v_proj``, ``img_mlp.0``/``.2``,
 ``final_layer.adaLN_modulation.1``, ...), so a published checkpoint loads
 with ``load_state_dict``. Every module takes ``device`` and ``dtype``
-factory arguments; activations run in the weights' dtype.
+factory arguments; activations run in the weights' dtype. ``quantized``
+(False, True/"w8", "w8a8", "w8a8_pallas", "w8a8_fq") makes every linear of
+the blocks, the modulation's included, an int8 ``QuantLinear``
+(``ops/quant.py``) where the JAX package uses ``dense``; the embedders and
+the final layer stay float.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch.nn.functional as F
 
 from opensora_torch.ops.attention import attention
 from opensora_torch.ops.norms import layer_norm, rms_norm
+from opensora_torch.ops.quant import dense
 
 
 def timestep_embedding(
@@ -70,10 +75,10 @@ class QKNorm(nn.Module):
 class Modulation(nn.Module):
     """AdaLN modulation: vec -> (shift, scale, gate) x (1 or 2), each (B, 1, dim)."""
 
-    def __init__(self, dim: int, double: bool, **factory):
+    def __init__(self, dim: int, double: bool, quantized=False, **factory):
         super().__init__()
         self.multiplier = 6 if double else 3
-        self.lin = nn.Linear(dim, self.multiplier * dim, **factory)
+        self.lin = dense(quantized, dim, self.multiplier * dim, **factory)
 
     def forward(self, vec: torch.Tensor):
         chunks = self.lin(F.silu(vec))[:, None, :].chunk(self.multiplier, dim=-1)
@@ -93,18 +98,18 @@ class SelfAttention(nn.Module):
     """QKV projection + QKNorm + output projection (driven by the blocks)."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = False, fused_qkv: bool = True,
-                 **factory):
+                 quantized=False, **factory):
         super().__init__()
         self.num_heads = num_heads
         self.fused_qkv = fused_qkv
         if fused_qkv:
-            self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias, **factory)
+            self.qkv = dense(quantized, dim, dim * 3, bias=qkv_bias, **factory)
         else:
-            self.q_proj = nn.Linear(dim, dim, bias=qkv_bias, **factory)
-            self.k_proj = nn.Linear(dim, dim, bias=qkv_bias, **factory)
-            self.v_proj = nn.Linear(dim, dim, bias=qkv_bias, **factory)
+            self.q_proj = dense(quantized, dim, dim, bias=qkv_bias, **factory)
+            self.k_proj = dense(quantized, dim, dim, bias=qkv_bias, **factory)
+            self.v_proj = dense(quantized, dim, dim, bias=qkv_bias, **factory)
         self.norm = QKNorm(dim // num_heads, **factory)
-        self.proj = nn.Linear(dim, dim, **factory)
+        self.proj = dense(quantized, dim, dim, **factory)
 
     def qkv_heads(self, x: torch.Tensor):
         """Per-head q, k, v of shape (B, L, H, D), q and k normalized."""
@@ -117,11 +122,11 @@ class SelfAttention(nn.Module):
         return q.to(v.dtype), k.to(v.dtype), v
 
 
-def _mlp(hidden: int, mlp_hidden: int, **factory) -> nn.Sequential:
+def _mlp(hidden: int, mlp_hidden: int, quantized=False, **factory) -> nn.Sequential:
     return nn.Sequential(
-        nn.Linear(hidden, mlp_hidden, **factory),
+        dense(quantized, hidden, mlp_hidden, **factory),
         nn.GELU(approximate="tanh"),
-        nn.Linear(mlp_hidden, hidden, **factory),
+        dense(quantized, mlp_hidden, hidden, **factory),
     )
 
 
@@ -131,17 +136,18 @@ class DoubleStreamBlock(nn.Module):
 
     def __init__(self, hidden_size: int, num_heads: int, mlp_ratio: float, qkv_bias: bool = False,
                  fused_qkv: bool = True, rope_convention: str = "split",
-                 attn_backend: Optional[str] = None, **factory):
+                 attn_backend: Optional[str] = None, quantized=False, **factory):
         super().__init__()
         mlp_hidden = int(hidden_size * mlp_ratio)
         self.rope_convention = rope_convention
         self.attn_backend = attn_backend
-        self.img_mod = Modulation(hidden_size, double=True, **factory)
-        self.txt_mod = Modulation(hidden_size, double=True, **factory)
-        self.img_attn = SelfAttention(hidden_size, num_heads, qkv_bias, fused_qkv, **factory)
-        self.txt_attn = SelfAttention(hidden_size, num_heads, qkv_bias, fused_qkv, **factory)
-        self.img_mlp = _mlp(hidden_size, mlp_hidden, **factory)
-        self.txt_mlp = _mlp(hidden_size, mlp_hidden, **factory)
+        q = dict(quantized=quantized, **factory)
+        self.img_mod = Modulation(hidden_size, double=True, **q)
+        self.txt_mod = Modulation(hidden_size, double=True, **q)
+        self.img_attn = SelfAttention(hidden_size, num_heads, qkv_bias, fused_qkv, **q)
+        self.txt_attn = SelfAttention(hidden_size, num_heads, qkv_bias, fused_qkv, **q)
+        self.img_mlp = _mlp(hidden_size, mlp_hidden, **q)
+        self.txt_mlp = _mlp(hidden_size, mlp_hidden, **q)
 
     def forward(self, img, txt, vec, pe):
         (img_shift1, img_scale1, img_gate1), (img_shift2, img_scale2, img_gate2) = self.img_mod(vec)
@@ -170,7 +176,7 @@ class SingleStreamBlock(nn.Module):
 
     def __init__(self, hidden_size: int, num_heads: int, mlp_ratio: float = 4.0,
                  fused_qkv: bool = True, rope_convention: str = "split",
-                 attn_backend: Optional[str] = None, **factory):
+                 attn_backend: Optional[str] = None, quantized=False, **factory):
         super().__init__()
         self.hidden_size = hidden_size
         self.num_heads = num_heads
@@ -178,15 +184,16 @@ class SingleStreamBlock(nn.Module):
         self.fused_qkv = fused_qkv
         self.rope_convention = rope_convention
         self.attn_backend = attn_backend
+        mlp = self.mlp_hidden_dim
         if fused_qkv:
-            self.linear1 = nn.Linear(hidden_size, hidden_size * 3 + self.mlp_hidden_dim, **factory)
+            self.linear1 = dense(quantized, hidden_size, hidden_size * 3 + mlp, **factory)
         else:
-            self.q_proj = nn.Linear(hidden_size, hidden_size, **factory)
-            self.k_proj = nn.Linear(hidden_size, hidden_size, **factory)
-            self.v_mlp = nn.Linear(hidden_size, hidden_size + self.mlp_hidden_dim, **factory)
-        self.linear2 = nn.Linear(hidden_size + self.mlp_hidden_dim, hidden_size, **factory)
+            self.q_proj = dense(quantized, hidden_size, hidden_size, **factory)
+            self.k_proj = dense(quantized, hidden_size, hidden_size, **factory)
+            self.v_mlp = dense(quantized, hidden_size, hidden_size + mlp, **factory)
+        self.linear2 = dense(quantized, hidden_size + mlp, hidden_size, **factory)
         self.norm = QKNorm(hidden_size // num_heads, **factory)
-        self.modulation = Modulation(hidden_size, double=False, **factory)
+        self.modulation = Modulation(hidden_size, double=False, quantized=quantized, **factory)
 
     def forward(self, x, vec, pe):
         (shift, scale, gate), _ = self.modulation(vec)

@@ -11,13 +11,19 @@ Gradient checkpointing (``remat``, ``remat_policy``; the JAX package's
 each block in ``torch.utils.checkpoint`` when gradients are enabled:
 "full" keeps only the block's inputs and recomputes the rest in the
 backward; "dots" also keeps every matmul output (selective checkpointing).
+
+``quantized`` (False | True/"w8" | "w8a8" | "w8a8_pallas" | "w8a8_fq")
+builds every linear of the blocks as an int8 ``QuantLinear``
+(``ops/quant.py``), zero-initialized as in the JAX package; a quantized
+model for serving comes from a float one by ``quantize_model_`` or from a
+quantized state dict.
 """
 
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass, field
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
@@ -30,6 +36,7 @@ from opensora_torch.models.mmdit.layers import (
     SingleStreamBlock,
     timestep_embedding,
 )
+from opensora_torch.ops.quant import quant_mode
 from opensora_torch.ops.rope import embed_nd
 from opensora_torch.registry import MODELS
 
@@ -52,7 +59,9 @@ class MMDiTConfig:
     fused_qkv: bool = True
     patch_size: int = 2
     rope_convention: str = "split"
-    attn_backend: Optional[str] = None  # None = flash attention; "xla" = plain attention
+    # None = flash attention; "xla" = plain attention; "int8" / "int8_qk8" = int8 attention
+    attn_backend: Optional[str] = None
+    quantized: Union[bool, str] = False  # False | True/"w8" | "w8a8" | "w8a8_pallas" | "w8a8_fq"
     remat: bool = False  # checkpoint each block when gradients are enabled
     remat_policy: str = "full"  # "full" | "dots"
     dtype: str = "bf16"
@@ -96,6 +105,7 @@ class MMDiTModel(nn.Module):
             raise ValueError(f"hidden_size {cfg.hidden_size} not divisible by num_heads {cfg.num_heads}")
         if sum(cfg.axes_dim) != cfg.pe_dim:
             raise ValueError(f"axes_dim {cfg.axes_dim} != pe dim {cfg.pe_dim}")
+        quant_mode(cfg.quantized)  # an unknown mode raises
         factory = dict(device=device, dtype=dtype)
         hidden = cfg.hidden_size
         self.img_in = nn.Linear(cfg.in_channels, hidden, **factory)
@@ -109,7 +119,8 @@ class MMDiTModel(nn.Module):
             nn.init.zeros_(self.cond_in.bias)
         self.txt_in = nn.Linear(cfg.context_in_dim, hidden, **factory)
         common = dict(num_heads=cfg.num_heads, mlp_ratio=cfg.mlp_ratio, fused_qkv=cfg.fused_qkv,
-                      rope_convention=cfg.rope_convention, attn_backend=cfg.attn_backend, **factory)
+                      rope_convention=cfg.rope_convention, attn_backend=cfg.attn_backend,
+                      quantized=cfg.quantized, **factory)
         self.double_blocks = nn.ModuleList(
             DoubleStreamBlock(hidden, qkv_bias=cfg.qkv_bias, **common) for _ in range(cfg.depth)
         )

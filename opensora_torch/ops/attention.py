@@ -4,7 +4,11 @@ sequence-parallel backends).
 
 Backends: ``None`` runs :func:`flash_attention` (the CUDA kernel for CUDA
 tensors, its plain version for CPU tensors); ``"xla"`` runs the plain
-version on any device.
+version on any device; ``"int8"`` and ``"int8_qk8"`` run the serving-only
+:func:`int8_flash_attention` (both products in int8, or only Q K^T),
+bidirectional only, with the JAX package's rule
+(opensora_tpu/ops/attention.py:66-80): sequences shorter than 128 and head
+dims that are not a multiple of 128 take the plain attention.
 
 Layout: q, k, v are (B, L, H, D); the output is (B, L, H * D).
 """
@@ -17,6 +21,7 @@ import torch
 
 from opensora_torch.ops import rope as rope_ops
 from opensora_torch.ops.flash_attention import flash_attention, flash_attention_ref
+from opensora_torch.ops.int8_flash import int8_flash_attention
 
 
 def plain_attention(
@@ -39,6 +44,12 @@ def scaled_dot_product_attention(
         return flash_attention(q, k, v, causal_block=causal_block)
     if backend == "xla":
         return plain_attention(q, k, v, causal_block)
+    if backend in ("int8", "int8_qk8"):
+        if causal_block is not None:
+            raise ValueError("int8 attention is bidirectional only (causal_block must be None)")
+        if min(q.shape[2], k.shape[2]) < 128 or q.shape[-1] % 128:
+            return plain_attention(q, k, v)
+        return int8_flash_attention(q, k, v, pv_int8=backend == "int8")
     raise ValueError(f"unknown attention backend {backend!r}")
 
 

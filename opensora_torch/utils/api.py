@@ -2,7 +2,9 @@
 opensora_tpu/utils/api.py, text-to-video).
 
 ``prepare_models`` builds the MMDiT, the VAE and the two text encoders on
-one device with random weights from a seed; ``prepare_api`` returns
+one device with random weights from a seed (a ``model.quantized`` config
+draws the float MMDiT and quantizes each block as it is built, as the JAX
+package quantizes a loaded checkpoint); ``prepare_api`` returns
 ``api_fn``, which draws the latent noise and hands it to ``generate``:
 text encode -> I2V denoise -> unpack -> VAE decode.
 """
@@ -18,6 +20,8 @@ import torch
 import opensora_torch.models.hunyuan_vae.model  # noqa: F401  (registers "hunyuan_vae")
 import opensora_torch.models.mmdit.model  # noqa: F401  (registers "flux")
 import opensora_torch.models.text.conditioner  # noqa: F401  (registers "text_embedder")
+from opensora_torch.models.mmdit.layers import DoubleStreamBlock, SingleStreamBlock
+from opensora_torch.ops.quant import quant_mode, quantize_as_built
 from opensora_torch.registry import MODELS, build_module
 from opensora_torch.utils import sampling as S
 from opensora_torch.utils.config import DEFAULT_AE_SPATIAL_COMPRESSION
@@ -29,7 +33,11 @@ def prepare_models(cfg, device=None, seed: int = 0):
     """Build (model, ae, t5, clip) from the config's dicts on ``device``
     (default cuda), in eval mode without gradients. Weights are random,
     drawn from ``seed``; the text encoders take the config's top-level
-    ``dtype``."""
+    ``dtype``. With ``model.quantized`` set, the MMDiT is drawn in its float
+    dtype and the linears of each block are swapped for their int8 twins as
+    soon as the block is built (``quantize_as_built``; the JAX package
+    quantizes a loaded checkpoint, opensora_tpu/utils/ckpt.py:553-559): a
+    QuantLinear built directly holds zeros, which would serve nothing."""
     device = resolve_device(device)
     for name in ("model", "ae"):
         if cfg[name].get("from_pretrained"):
@@ -40,7 +48,11 @@ def prepare_models(cfg, device=None, seed: int = 0):
     text_dtype = torch_dtype(cfg.get("dtype", "bf16"))
     with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):
         torch.manual_seed(seed)
-        model = build_module(dict(cfg.model), MODELS, device=device)
+        quantized = quant_mode(cfg.model.get("quantized", False))
+        with quantize_as_built(quantized, (DoubleStreamBlock, SingleStreamBlock)):
+            model = build_module(dict(cfg.model, quantized=False), MODELS, device=device)
+        if quantized:
+            model.config.quantized = quantized
         ae = build_module(dict(cfg.ae), MODELS, device=device)
         t5 = build_module(dict(cfg.t5), MODELS, device=device, dtype=text_dtype)
         clip = build_module(dict(cfg.clip), MODELS, device=device, dtype=text_dtype)

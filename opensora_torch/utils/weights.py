@@ -37,15 +37,19 @@ def _torch_weight(val: np.ndarray) -> np.ndarray:
 def mmdit_state_dict(params: Tree) -> Dict[str, np.ndarray]:
     """MMDiT flax params -> ``MMDiTModel`` state dict (upstream Open-Sora v2
     names). The fused/unfused qkv layout and the RoPE pairing stay as they
-    are in memory, so the port's config must name the same ones."""
+    are in memory, so the port's config must name the same ones. A quantized
+    tree (``quantize_params``) carries ``kernel_q`` (in, out) int8 to
+    ``weight_q`` (out, in) and ``kernel_scale`` to ``weight_scale``."""
     out: Dict[str, np.ndarray] = {}
 
     def put(path: Tuple[str, ...], val: np.ndarray) -> None:
         *mods, leaf = path
         if mods[:2] == ["final_layer", "adaLN_modulation"]:
             mods.append("1")  # nn.Sequential(SiLU, Linear)
-        if leaf == "kernel":
-            out[".".join(mods) + ".weight"] = _torch_weight(val)
+        if leaf in ("kernel", "kernel_q"):
+            out[".".join(mods) + (".weight" if leaf == "kernel" else ".weight_q")] = _torch_weight(val)
+        elif leaf == "kernel_scale":
+            out[".".join(mods) + ".weight_scale"] = val
         else:  # bias, RMSNorm scale
             out[".".join(mods + [leaf])] = val
 
@@ -155,13 +159,14 @@ def clip_text_state_dict(params: Tree) -> Dict[str, np.ndarray]:
 
 
 def load_numpy_state_dict(module: torch.nn.Module, sd: Dict[str, np.ndarray]) -> None:
-    """``load_state_dict(strict=True)`` of numpy arrays, cast to each
-    parameter's dtype. A module built on the ``meta`` device takes the
-    arrays as its CPU parameters (no initialization pass)."""
+    """``load_state_dict(strict=True)`` of numpy arrays, float arrays cast to
+    each parameter's dtype; integer arrays (int8 weights) keep theirs. A
+    module built on the ``meta`` device takes the arrays as its CPU
+    parameters (no initialization pass)."""
     own = module.state_dict()
     meta = any(v.is_meta for v in own.values())
     tensors = {}
     for k, v in sd.items():
         x = torch.from_numpy(np.require(v, requirements=["C", "W"]))
-        tensors[k] = x.to(own[k].dtype) if k in own else x
+        tensors[k] = x.to(own[k].dtype) if k in own and x.is_floating_point() else x
     module.load_state_dict(tensors, strict=True, assign=meta)

@@ -160,3 +160,149 @@ def test_flash_function_backward_on_cuda_goes_through_the_kernels():
     for g, w in zip(grads, ref_grads):
         # the bf16 forward output feeds delta here, adding its rounding
         assert (g.float() - w).abs().max().item() <= 2 * BWD_RTOL * w.abs().max().item()
+
+
+# ----------------------------------------------------------------------
+# W8A8 GEMM (csrc/int8_matmul.cu)
+# ----------------------------------------------------------------------
+
+from opensora_torch.ops import int8_flash as tint8  # noqa: E402
+from opensora_torch.ops import int8_matmul as tgemm  # noqa: E402
+
+
+def _gemm_inputs(m, n, k, seed, device="cpu"):
+    rng = np.random.default_rng(seed)
+    x8 = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(np.int8)).to(device)
+    w = torch.from_numpy(rng.integers(-127, 128, (n, k)).astype(np.int8)).to(device)
+    sa = torch.from_numpy((rng.random((m, 1)) * 0.01 + 1e-3).astype(np.float32)).to(device)
+    sw = torch.from_numpy((rng.random(n) * 0.01 + 1e-3).astype(np.float32)).to(device)
+    x = torch.from_numpy((rng.standard_normal((m, k)) * 0.3).astype(np.float32)).to(device, torch.bfloat16)
+    return x8, w, sa, sw, x
+
+
+def test_w8a8_on_cpu_takes_plain_versions_without_launching():
+    x8, w, sa, sw, x = _gemm_inputs(5, 24, 64, 0)
+    before = dict(_build.LAUNCHES)
+    out = tgemm.w8a8_matmul(x8, w, sa, sw)
+    assert out.dtype == torch.bfloat16 and out.shape == (5, 24)
+    torch.testing.assert_close(out, tgemm.w8a8_matmul_ref(x8, w, sa, sw), rtol=0, atol=0)
+    out = tgemm.w8a8_fusedquant_matmul(x, w, sw, out_dtype=torch.float32)
+    torch.testing.assert_close(out, tgemm.w8a8_fusedquant_matmul_ref(x, w, sw, torch.float32), rtol=0, atol=0)
+    assert _build.LAUNCHES == before
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(x_dtype=torch.float32), "activations"),
+    (dict(w_dtype=torch.int16), "int8"),
+    (dict(k=96), "K tile"),
+    (dict(out_dtype=torch.float16), "out_dtype"),
+])
+def test_w8a8_kernel_input_checks(bad, match):
+    """What the kernel does not take raises before any launch."""
+    k = bad.get("k", 128)
+    x = torch.zeros((4, k), dtype=bad.get("x_dtype", torch.int8))
+    w = torch.zeros((8, k), dtype=bad.get("w_dtype", torch.int8))
+    with pytest.raises((TypeError, ValueError), match=match):
+        tgemm._check(x, w, torch.ones(8), torch.int8, bad.get("out_dtype", torch.bfloat16))
+
+
+# The kernel's integer sums are exact and its fp32 epilogue runs in the
+# plain version's order: at fp32 output the two agree in every element.
+GEMM_CASES = [(300, 512, 1024), (3, 384, 3072), (1000, 200, 640)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", GEMM_CASES)
+def test_w8a8_kernels_equal_plain_on_cuda(m, n, k):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    x8, w, sa, sw, x = _gemm_inputs(m, n, k, 1, "cuda")
+    before = dict(_build.LAUNCHES)
+    got = tgemm.w8a8_matmul(x8, w, sa, sw, out_dtype=torch.float32)
+    assert torch.equal(got, tgemm.w8a8_matmul_ref(x8, w, sa, sw, torch.float32))
+    got = tgemm.w8a8_fusedquant_matmul(x, w, sw, out_dtype=torch.float32)
+    assert torch.equal(got, tgemm.w8a8_fusedquant_matmul_ref(x, w, sw, torch.float32))
+    got = tgemm.w8a8_matmul(x8, w, sa, sw)  # bf16 output: the same values, rounded once
+    assert torch.equal(got, tgemm.w8a8_matmul_ref(x8, w, sa, sw))
+    assert _build.LAUNCHES[tgemm.KERNEL] == before.get(tgemm.KERNEL, 0) + 2
+    assert _build.LAUNCHES[tgemm.KERNEL_FQ] == before.get(tgemm.KERNEL_FQ, 0) + 1
+
+
+# ----------------------------------------------------------------------
+# int8 attention (csrc/int8_flash_attention.cu)
+# ----------------------------------------------------------------------
+
+
+def test_int8_attention_on_cpu_takes_plain_version_without_launching():
+    q = torch.from_numpy(_np((1, 2, 130, 128), 21))
+    before = dict(_build.LAUNCHES)
+    for pv_int8 in (False, True):
+        out = tint8.int8_flash_attention(q, q * 0.5, q, block_k=64, pv_int8=pv_int8)
+        assert out.dtype == q.dtype and out.shape == q.shape
+    assert _build.LAUNCHES == before
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(dtype=torch.float32), "bf16"),
+    (dict(shape=(1, 2, 256, 64)), "head dim"),
+    (dict(block_k=100), "block_k"),
+])
+def test_int8_attention_kernel_input_checks(bad, match):
+    shape = bad.get("shape", (1, 2, 256, 128))
+    q = torch.zeros(shape, dtype=bad.get("dtype", torch.bfloat16))
+    with pytest.raises((TypeError, ValueError), match=match):
+        tint8._check(q, q, q, bad.get("block_k", 128))
+
+
+def test_int8_attention_refuses_causal_block():
+    from opensora_torch.ops.attention import scaled_dot_product_attention
+
+    q = torch.zeros((1, 1, 256, 128))
+    with pytest.raises(ValueError, match="bidirectional"):
+        scaled_dot_product_attention(q, q, q, causal_block=16, backend="int8_qk8")
+
+
+def test_v8_permutation_matches_the_score_fragment():
+    """Logical key 4t + j of a 16-key group is the key a lane with column
+    pair t holds in its score fragment: 2t, 2t + 1 of the group's first
+    8-key tile (j = 0, 1), then of its second (j = 2, 3)."""
+    for t in range(4):
+        assert [tint8.PERM_16[4 * t + j] for j in range(4)] == [2 * t, 2 * t + 1, 8 + 2 * t, 9 + 2 * t]
+    v8 = torch.arange(40, dtype=torch.int8).reshape(1, 1, 40, 1)
+    vt = tint8._v8_transposed(v8)
+    assert vt.shape == (1, 1, 1, 64)
+    want = [16 * grp + p if 16 * grp + p < 40 else 0 for grp in range(4) for p in tint8.PERM_16]
+    assert vt[0, 0, 0].tolist() == want  # padded keys are zero
+
+
+# Each mode in each loop: the anchored loop (N(0,1) inputs, a2 < 40) and
+# the running-max loop (q and k scaled by 4, a2 >= 40); L = 1000 fills no
+# 64-key tile and, with block_k 512, no quantization tile. The kernel sums
+# in another order and rounds P (bf16 in qk8 mode) against other anchors than
+# the plain version's fp32 row softmax; the output is bf16: it is held to
+# 8e-3 of the output's scale, as the bf16 forward (chip_smoke.py OUT_RTOL).
+INT8_ATTN_RTOL = 8e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pv_int8", [False, True])
+@pytest.mark.parametrize("shape,scale,block_k", [
+    ((2, 3, 1000, 128), 1.0, 512),
+    ((2, 3, 1000, 128), 4.0, 512),
+    ((1, 2, 300, 128), 1.0, None),
+])
+def test_int8_attention_kernel_matches_plain_on_cuda(pv_int8, shape, scale, block_k):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda") for _ in range(3))
+    q, k, v = (q * scale).to(torch.bfloat16), (k * scale).to(torch.bfloat16), v.to(torch.bfloat16)
+    pre = tint8.quantize_inputs(q, k, v, shape[-1] ** -0.5, block_k or tint8.default_block_k(shape[2]), pv_int8)
+    assert bool((pre["a2"] < 40).all()) == (scale == 1.0)
+    name = tint8.KERNEL_PV8 if pv_int8 else tint8.KERNEL
+    before = _build.LAUNCHES[name]
+    out = tint8.int8_flash_attention(q, k, v, block_k=block_k, pv_int8=pv_int8)
+    assert _build.LAUNCHES[name] == before + 1
+    ref = tint8.int8_flash_attention_ref(q, k, v, block_k=block_k, pv_int8=pv_int8)
+    err = (out.float() - ref).abs().max().item()
+    assert torch.isfinite(out).all() and err <= INT8_ATTN_RTOL * ref.abs().max().item(), err

@@ -243,3 +243,55 @@ def test_cli_reads_prompts_from_csv_with_dataset_suffixes(tmp_path):
     cfg = parse_configs([os.path.join(CONFIG_DIR, "256px.py"), "--dataset.data_path", str(path)])
     assert read_prompts(cfg, None) == ["raining, sea. 16 FPS. 4 motion score.", "a cat. 16 FPS. 4 motion score."]
     assert read_prompts(cfg, "x") == ["x. 16 FPS. 4 motion score."]
+
+
+def test_cli_tiny_dev_w8a8_writes_a_finite_sample(tmp_path):
+    """The int8 serving path through the CLI on the CPU: tiny_dev.py with
+    --model.quantized w8a8 quantizes the drawn MMDiT's blocks at build and
+    writes a sample; the quantized model's weights are those of the float
+    model drawn from the same seed, quantized."""
+    from opensora_torch.inference import main
+    from opensora_torch.ops.quant import QuantLinear, quantize_weight
+
+    paths = main([TINY_DEV, "--prompt", "raining, sea", "--model.quantized", "w8a8", "--device", "cpu",
+                  "--save_dir", str(tmp_path)])
+    sample = np.load(paths[0])
+    assert sample.shape == (5, 32, 32, 3) and sample.dtype == np.uint8 and sample.std() > 0
+
+    cfg = parse_configs([TINY_DEV, "--model.quantized", "w8a8"])
+    model, *_ = prepare_models(cfg, device="cpu", seed=3)
+    float_model, *_ = prepare_models(parse_configs([TINY_DEV]), device="cpu", seed=3)
+    assert model.config.quantized == "w8a8"
+    quant = {n: m for n, m in model.named_modules() if isinstance(m, QuantLinear)}
+    assert len(quant) == 13 and not isinstance(model.img_in, QuantLinear)
+    for name, m in quant.items():
+        q, s = quantize_weight(float_model.get_submodule(name).weight)
+        assert torch.equal(m.weight_q, q) and torch.equal(m.weight_scale, s), name
+    x = float_model.double_blocks[0].img_attn.qkv
+    assert torch.equal(quant["double_blocks.0.img_attn.qkv"].bias, x.bias)
+
+
+def test_prepare_models_quantizes_each_block_as_it_is_built():
+    """With model.quantized, the float MMDiT never exists whole: when a block
+    is registered in the model, the float linears of every earlier block are
+    already freed (swapped for int8), so at most one block's float weights
+    live at a time; and the mode is recorded in the model's config."""
+    import weakref
+
+    from opensora_torch.models.mmdit.layers import DoubleStreamBlock, SingleStreamBlock
+
+    refs, most_alive = [], []
+
+    def hook(parent, name, sub):  # runs before prepare_models' own hook
+        if isinstance(sub, (DoubleStreamBlock, SingleStreamBlock)):
+            refs.extend(weakref.ref(m) for m in sub.modules() if isinstance(m, torch.nn.Linear))
+            most_alive.append(sum(r() is not None for r in refs))
+
+    handle = torch.nn.modules.module.register_module_module_registration_hook(hook)
+    try:
+        model, *_ = prepare_models(parse_configs([TINY_DEV, "--model.quantized", "w8a8_fq"]), device="cpu", seed=3)
+    finally:
+        handle.remove()
+    assert most_alive == [10, 3]  # one double block's linears, then one single block's
+    assert all(r() is None for r in refs) and model.config.quantized == "w8a8_fq"
+    assert all(not isinstance(m, torch.nn.Linear) for m in model.double_blocks.modules())
