@@ -28,17 +28,35 @@ Phases, one line each; any failure exits non-zero:
      and depth, random bf16 weights from seed 42 quantized at build, for 2
      steps, then with --model.quantized w8a8_fq --model.attn_backend int8
      for 1 step -- and check the output and the exact launch counts.
+  7. drive HunyuanVAE training -- configs/vae/train/video_dc_ae_disc.py with
+     --model.type hunyuan_vae at full width (channels 128/256/512/512,
+     latent 16, fp32 master weights under bf16 compute, random from seed
+     42), the discriminator from step 0, LPIPS on through random-weight
+     VGG16 / LPIPS files written to a temporary directory -- through the VAE
+     training CLI's per-batch body (opensora_torch.train_vae.VAETrainer.
+     run_batch) for 3 steps on seeded 33-frame 256x256 batches of 1, and
+     check finite losses, that the AE and the discriminator move, the exact
+     launch counts of the flash forward and both D = 512 backward kernels,
+     and peak memory;
+  8. drive DC-AE training -- video_dc_ae_disc.py as it is (dc-ae-f32t4c128,
+     full width) -- through the same body for 2 steps on 32-frame 256x256
+     batches of 1: finite losses, moving parameters, no kernel launched.
 Phase 2c holds the W8A8 GEMM (both instantiations) and the int8 attention
 kernel (both modes, both loops) against their plain versions at the int8
 path's shapes, with known-wrong outputs and timings; phase 3b checks the
 full-width int8 model on a small input against the CPU's plain int8 path.
+Phase 2d holds the D = 512 backward kernels against the plain backward at
+the VAE mid-block's shape (1, 1, 9216, 512), causal_block 1024, and at a
+tail (L = 1000, causal_block 96), with known-wrong gradients and timings;
+phase 3c checks one full-width VAE train step on a small clip, card
+against the CPU's fp32 plain step.
 Then it prints the card's name and power limit, one JSON line with the
 kernels' numbers, and last {"ok": true, "device": {...}}.
 
 ``--out-dir DIR`` writes the compiler's register/shared-memory report
 (build_log.txt) there; ``--profile`` adds a profiled second run of each
 path (kernel time by kind, device idle share; with ``--out-dir`` the full
-tables go to DIR/profile_main.txt and DIR/profile_train.txt).
+tables go to DIR/profile_{main,train,int8,vae,dcae}.txt).
 """
 
 from __future__ import annotations
@@ -50,6 +68,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -199,6 +218,7 @@ ATTENTION_CASES = [
     ("mmdit_joint_running_max", (3, 24, 8828, 128), None, 3.0),
     ("vae_mid_tile_24x32", (1, 1, 33 * 768, 512), 768, 1.0),
     ("vae_mid_tile_24x18", (1, 1, 33 * 432, 512), 432, 1.0),
+    ("vae_train_mid_33x256x256", (1, 1, 9216, 512), 1024, 1.0),  # phase 7's mid-blocks (latent 9 x 32 x 32)
     ("tail_bidirectional", (2, 3, 1000, 128), None, 1.0),
     ("tail_frame_causal", (1, 2, 1000, 512), 96, 1.0),
 ]
@@ -305,7 +325,8 @@ def bwd_mutant_readings(fa, q, k, v, do, lse, delta, causal_block, heads_per_chu
     """What the check reads (worst of dq, dk, dv as max|err| / max|ref|)
     for gradients a faulty backward could give: delta left out of dS;
     sm_scale missing from dK; the last 64-row tile of queries and keys
-    skipped (its rows of the gradients left at 0)."""
+    skipped (its rows of the gradients left at 0); for D = 512, the first two
+    128-column slices of the D split swapped, and the last one skipped."""
     scales = [r.abs().max().item() for r in ref]
 
     def reading(grads):
@@ -317,12 +338,21 @@ def bwd_mutant_readings(fa, q, k, v, do, lse, delta, causal_block, heads_per_chu
                             lse[:, :, :keep].contiguous(), delta[:, :, :keep].contiguous(), causal_block,
                             heads_per_chunk)
     pad = [torch.nn.functional.pad(g, (0, 0, 0, l - keep)) for g in cut]
-    return {
+    res = {
         "delta_left_out": reading(plain_bwd_chunked(fa, q, k, v, do, lse, torch.zeros_like(delta), causal_block,
                                                     heads_per_chunk)),
         "dk_without_sm_scale": reading((ref[0], ref[1] * math.sqrt(q.shape[-1]), ref[2])),
         "tail_tile_skipped": reading(pad),
     }
+    if q.shape[-1] > 128:  # the D split over blocks: one block's 128 columns swapped or never written
+
+        def swapped(g):
+            return torch.cat([g[..., 128:256], g[..., :128], g[..., 256:]], dim=-1)
+
+        res["d_slices_0_1_swapped"] = reading([swapped(g) for g in ref])
+        res["d_slice_3_skipped"] = reading([torch.cat([g[..., :384], torch.zeros_like(g[..., 384:])], -1)
+                                            for g in ref])
+    return res
 
 
 def sdpa_backward_ms(q, k, v, do, mask, iters: int) -> float:
@@ -342,14 +372,20 @@ BWD_CASES = [
     ("tail_bidirectional", (2, 3, 1000, 128), None),
     ("tail_frame_causal", (1, 2, 1000, 128), 96),
 ]
+# phase 2d: the HunyuanVAE mid-block in VAE training (33 x 256 x 256 ->
+# latent 9 x 32 x 32: 9216 tokens, frames of 1024), and a tail
+BWD_D512_CASES = [
+    ("vae_mid_33x256x256", (1, 1, 9216, 512), 1024),
+    ("tail_frame_causal_d512", (1, 2, 1000, 512), 96),
+]
 
 
-def check_attention_bwd(device) -> dict:
+def check_attention_bwd(device, cases_in=BWD_CASES, seed: int = 2) -> dict:
     from opensora_torch.ops import flash_attention as fa
 
-    gen = torch.Generator(device=device).manual_seed(2)
+    gen = torch.Generator(device=device).manual_seed(seed)
     cases = []
-    for name, (b, h, l, d), cb in BWD_CASES:
+    for name, (b, h, l, d), cb in cases_in:
         shape = (b, h, l, d)
         q, k, v, do = (torch.randn(shape, generator=gen, device=device).to(torch.bfloat16) for _ in range(4))
         heads_per_chunk = max(1, (1 << 30) // (l * l * 4 * b))
@@ -981,6 +1017,195 @@ def run_train_path(device, profile: bool = False, out_dir=None) -> dict:
 
 
 # ----------------------------------------------------------------------
+# phases 3c, 7 and 8: VAE training
+# ----------------------------------------------------------------------
+
+VAE_CFG = os.path.join(REPO, "configs", "vae", "train", "video_dc_ae_disc.py")
+VAE_STEPS = 3  # HunyuanVAE steps of phase 7
+DCAE_STEPS = 2  # DC-AE steps of phase 8
+VAE_RES = 256  # the training configs' resolution (256px_ar1:1)
+# The card's bf16 VAE train step (kernels) vs the CPU's fp32 plain step at
+# full width on a small clip: the loss to SMALL_TOL; each gradient of the
+# mid-block attention projections in relative L2 (|g - ref| / |ref|) to
+# VAE_GRAD_TOL. The gradient passes back through the decoder's and then the
+# encoder's bf16 convolutions (a dozen each) before it reaches the
+# encoder's attention, and the query and key gradients go through the
+# softmax's derivative: the card read 0.019 to 0.063. The check also shows
+# that the limit rejects the gradients of two known-wrong backwards: delta
+# left out of dS, and dK's last 128-column slice (one block of the D = 512
+# kernel's D split) left at 0, which costs the key projection's gradient a
+# quarter of its rows (about 0.5 in relative L2).
+VAE_GRAD_TOL = 0.15
+
+
+def vae_expected_launches(grad_checkpoint: bool) -> dict:
+    """Kernel launches of one HunyuanVAE train step: the encoder's and the
+    decoder's mid-block attention once each forward (twice with
+    grad_checkpoint: the recompute), and each backward once; the
+    discriminator, LPIPS and the adaptive weight's heads run no kernel."""
+    return {"flash_attention_fwd": 4 if grad_checkpoint else 2,
+            "flash_attention_bwd_dkv": 2, "flash_attention_bwd_dq": 2}
+
+
+def check_vae_train_small_input(device) -> dict:
+    """One full-width HunyuanVAE train step (the generator's loss: L1 under
+    the log-variance and the KL, backward) on a 5 x 64 x 64 clip: the card
+    (fp32 master weights, bf16 compute, the flash forward and both D = 512
+    backward kernels at 128 tokens, frames of 64) against the CPU's fp32
+    plain step with the same weights, video and posterior noise."""
+    from opensora_torch.models.vae2d.losses import vae_loss
+    from opensora_torch.ops import _build
+    from opensora_torch.ops import flash_attention as fa
+    from opensora_torch.utils.ckpt import init_ae
+    from opensora_torch.utils.config import parse_configs
+
+    cfg = parse_configs([VAE_CFG, "--model.type", "hunyuan_vae"])
+    card = init_ae(dict(cfg.model), device, cfg.seed, param_dtype="fp32")
+    cpu = init_ae(dict(cfg.model, dtype="fp32"), "meta", cfg.seed)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()}, assign=True)
+    gen = torch.Generator().manual_seed(7)
+    video = torch.rand((1, 3, 5, 64, 64), generator=gen) * 2 - 1
+    noise = torch.randn((1, card.config.latent_channels, 2, 8, 8), generator=gen)
+    names = [n for n, _ in card.named_parameters() if ".attentions." in n and n.endswith("weight")
+             and "group_norm" not in n]
+
+    def step(model, dev):
+        model.zero_grad(set_to_none=True)
+        logvar = torch.zeros((), device=dev)
+        x_rec, posterior, _ = model(video.to(dev), noise=noise.to(dev))
+        losses = vae_loss(video.to(dev), x_rec, posterior, logvar)
+        loss = losses["nll_loss"] + losses["kl_loss"]
+        loss.backward()
+        params = dict(model.named_parameters())
+        return loss.item(), {n: params[n].grad.float().cpu() for n in names}
+
+    _build.LAUNCHES.clear()
+    loss_card, g_card = step(card, device)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    loss_cpu, g_cpu = step(cpu, "cpu")
+    plain_bwd = fa.flash_attention_bwd_ref
+
+    def without_delta(q, k, v, do, lse, delta, *a):
+        return plain_bwd(q, k, v, do, lse, 0 * delta, *a)
+
+    def dk_slice_zeroed(*args):
+        dq, dk, dv = plain_bwd(*args)
+        return dq, torch.cat([dk[..., :-128], torch.zeros_like(dk[..., -128:])], -1), dv
+
+    def rel_l2(grads):
+        return {n: float((grads[n] - g).norm() / g.norm()) for n, g in g_cpu.items()}
+
+    wrong = {}
+    for name, bwd in (("delta_left_out", without_delta), ("dk_slice_3_zeroed", dk_slice_zeroed)):
+        fa.flash_attention_bwd_ref = bwd
+        try:  # the same CPU step through a known-wrong backward
+            wrong[name] = max(rel_l2(step(cpu, "cpu")[1]).values())
+        finally:
+            fa.flash_attention_bwd_ref = plain_bwd
+
+    grad_rel = rel_l2(g_card)
+    res = {"loss_card": loss_card, "loss_cpu": loss_cpu, "loss_rel_err": abs(loss_card - loss_cpu) / abs(loss_cpu),
+           "grad_rel_l2": grad_rel, "grad_rel_max": {n: float((g_card[n] - g).abs().max() / g.abs().max())
+                                                     for n, g in g_cpu.items()},
+           "wrong_rel_l2": wrong, "launches": launches}
+    del card, cpu
+    torch.cuda.empty_cache()
+    expect = vae_expected_launches(False)
+    ok = (res["loss_rel_err"] <= SMALL_TOL and max(grad_rel.values()) <= VAE_GRAD_TOL < min(wrong.values())
+          and launches == expect)
+    log(f"[small] HunyuanVAE train step, full width, 5x64x64 clip (latent 2x8x8: 128 tokens, D=512, frames of 64), "
+        f"card fp32 master / bf16 + kernels vs CPU fp32 plain: {json.dumps(res)} (tol loss {SMALL_TOL}, each "
+        f"attention projection's gradient {VAE_GRAD_TOL} in relative L2, which each known-wrong backward must "
+        f"exceed; launches {expect}) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the card's VAE train step disagrees with the plain step on a small input")
+    return res
+
+
+def write_lpips_files(root: str) -> tuple:
+    """Random-weight LPIPS files in the published layouts, from seed 0: a
+    torchvision VGG16 state dict (``features.*``) and the LPIPS heads
+    (``lin{i}.model.1.weight``)."""
+    from opensora_torch.models.vae2d.lpips import LPIPS
+
+    torch.manual_seed(0)
+    sd = LPIPS().state_dict()
+    vgg, heads = os.path.join(root, "vgg16.pth"), os.path.join(root, "lpips_heads.pth")
+    torch.save({k[len("vgg."):]: v for k, v in sd.items() if k.startswith("vgg.")}, vgg)
+    torch.save({k: v.abs() for k, v in sd.items() if k.startswith("lin")}, heads)
+    return vgg, heads
+
+
+def run_vae_train_path(device, model_type: str, steps: int, frames: int, lpips_files=None, tag="vae",
+                       profile: bool = False, out_dir=None) -> dict:
+    """``steps`` of VAETrainer.run_batch at full width on seeded frames x
+    VAE_RES x VAE_RES batches of 1."""
+    from opensora_torch.ops import _build
+    from opensora_torch.train_vae import VAETrainer
+    from opensora_torch.utils.config import parse_configs
+
+    args = [VAE_CFG]
+    if model_type != "dc_ae":
+        args += ["--model.type", model_type]
+    if lpips_files:
+        args += ["--vgg_ckpt", lpips_files[0], "--lpips_ckpt", lpips_files[1]]
+    cfg = parse_configs(args)
+    log(f"[{tag}] video_dc_ae_disc.py{' --model.type ' + model_type if model_type != 'dc_ae' else ''} at full width, "
+        f"LPIPS {'on (random-weight files)' if lpips_files else 'off (no vgg_ckpt)'}; {steps} steps on "
+        f"{frames}x{VAE_RES}x{VAE_RES}, B=1")
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    trainer = VAETrainer(cfg, device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_ae = sum(p.numel() for p in trainer.ae.parameters())
+    n_disc = sum(p.numel() for p in trainer.disc.parameters())
+    log(f"[{tag}] built on {device} in {build_s:.1f} s: AE {n_ae / 1e6:.1f} M params "
+        f"({next(trainer.ae.parameters()).dtype}, compute {trainer.ae.dtype}), discriminator {n_disc / 1e6:.1f} M; "
+        f"{torch.cuda.memory_allocated(device) / 1e9:.2f} GB allocated")
+    watch = {"ae": list(trainer.state.params.values()), "disc": list(trainer.state.disc_params.values())}
+    before = {k: [p.detach().clone() for p in ps] for k, ps in watch.items()}
+    gen = torch.Generator(device=device).manual_seed(cfg.seed)
+    expect = vae_expected_launches(cfg.get("grad_checkpoint", False)) if model_type == "hunyuan_vae" else {}
+    steps_out = []
+    for i in range(steps):
+        video = torch.rand((1, 3, frames, VAE_RES, VAE_RES), generator=gen, device=device) * 2 - 1
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        metrics = trainer.run_batch({"video": video})
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        rec = {k: float(v) for k, v in metrics.items()}
+        rec.update(launches=launches, expected=expect, step_s=total_s)
+        steps_out.append(rec)
+        log(f"[{tag}] step {i + 1}: " + json.dumps(rec))
+        if not all(math.isfinite(v) for k, v in rec.items() if isinstance(v, float)):
+            raise AssertionError(f"{tag} step {i + 1}: a loss is not finite: {rec}")
+        if launches != expect:
+            raise AssertionError(f"{tag} step {i + 1}: kernel launches {launches} != expected {expect}")
+    moved = {k: sum(float((p.detach() - b).abs().max()) > 0 for p, b in zip(watch[k], before[k])) for k in watch}
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    log(f"[{tag}] {steps} steps OK; tensors moved: AE {moved['ae']}/{len(watch['ae'])}, discriminator "
+        f"{moved['disc']}/{len(watch['disc'])}; peak_mem_gb={peak_gb:.2f} (limit 80)")
+    if not (moved["ae"] and moved["disc"]):
+        raise AssertionError(f"{tag}: parameters did not move: {moved}")
+    if peak_gb >= 80:
+        raise AssertionError(f"{tag}: peak memory {peak_gb:.2f} GB")
+    total = {k: sum(r["launches"].get(k, 0) for r in steps_out) for k in expect}
+    res = dict(model=model_type, steps=steps_out, launches=total, peak_mem_gb=peak_gb, build_s=build_s,
+               ae_params=n_ae, disc_params=n_disc, moved=moved, lpips=bool(lpips_files))
+    if profile:
+        batch = {"video": torch.rand((1, 3, frames, VAE_RES, VAE_RES), generator=gen, device=device) * 2 - 1}
+        res["profile"] = profile_run(lambda: trainer.run_batch(batch), tag, out_dir)
+    del trainer, watch, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+# ----------------------------------------------------------------------
 # phase 6: the int8 serving path
 # ----------------------------------------------------------------------
 
@@ -1095,11 +1320,13 @@ def main(argv) -> int:
 
     attn = check_attention(device)
     attn_bwd = check_attention_bwd(device)
+    attn_bwd_d512 = check_attention_bwd(device, BWD_D512_CASES, seed=8)
     gemm = check_int8_gemm(device)
     int8_attn = check_int8_attention(device, mufu_per_s)
     small = check_small_input(device)
     small_train = check_train_small_input(device)
     small_int8 = check_int8_small_input(device)
+    small_vae = check_vae_train_small_input(device)
     main_res = run_main_path(device, "--profile" in argv, out_dir)
     main_res["small_input"] = small
     gc.collect()
@@ -1112,6 +1339,12 @@ def main(argv) -> int:
     int8_res["small_input"] = small_int8
     fq_res = run_int8_path(device, ["--model.quantized", "w8a8_fq", "--model.attn_backend", "int8"], INT8_FQ_STEPS,
                            tag="int8_fq")
+    with tempfile.TemporaryDirectory() as tmp:
+        vae_res = run_vae_train_path(device, "hunyuan_vae", VAE_STEPS, 33, write_lpips_files(tmp), "vae",
+                                     "--profile" in argv, out_dir)
+    vae_res["small_input"] = small_vae
+    dcae_res = run_vae_train_path(device, "dc_ae", DCAE_STEPS, 32, tag="dcae", profile="--profile" in argv,
+                                  out_dir=out_dir)
     head = attn["cases"][0]  # the MMDiT shape, the main path's hot call
     kernels = [dict(
         name="flash_attention_fwd",
@@ -1121,6 +1354,7 @@ def main(argv) -> int:
         also_replaces="opensora_tpu/ops/flash_attention.py:247",
         launches=main_res["launches"].get("flash_attention_fwd", 0),
         launches_train=train_res["launches"]["flash_attention_fwd"],
+        launches_vae_train=vae_res["launches"]["flash_attention_fwd"],
         max_abs_err=max(c["max_abs_err"] for c in attn["cases"]),
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],
@@ -1141,6 +1375,24 @@ def main(argv) -> int:
             plain_and_library_compute="dq, dk and dv (the whole backward)",
             minimal_backward_bound_ms=bwd_head["bound_ms"]["minimal"],
             cases=attn_bwd["cases"],
+        ))
+    d512_head = attn_bwd_d512["cases"][0]  # the HunyuanVAE mid-block in VAE training
+    for name, line in (("flash_attention_bwd_dkv", 425), ("flash_attention_bwd_dq", 497)):
+        grads = ("dk", "dv") if name.endswith("dkv") else ("dq",)
+        kernels.append(dict(
+            name=f"{name}_d512",
+            counter=name,
+            route="cuda",
+            source="opensora_torch/csrc/flash_attention_bwd.cu",
+            replaces=f"opensora_tpu/ops/flash_attention.py:{line}",
+            head_dim=512,
+            launches=vae_res["launches"][name],
+            max_abs_err=max(c["max_abs_err"][g] for c in attn_bwd_d512["cases"] for g in grads),
+            ms=d512_head["ms"][name], plain_ms=d512_head["plain_ms"], bound_ms=d512_head["bound_ms"][name],
+            bound_by=d512_head["bound_by"][name], library_ms=d512_head["library_ms"],
+            plain_and_library_compute="dq, dk and dv (the whole backward)",
+            minimal_backward_bound_ms=d512_head["bound_ms"]["minimal"],
+            cases=attn_bwd_d512["cases"],
         ))
     gemm_head = next(c for c in gemm["cases"] if c["name"] == GEMM_HEAD)
     for name, line, also, runs in (
@@ -1174,6 +1426,8 @@ def main(argv) -> int:
     log("[train] " + json.dumps(train_res))
     log("[int8] " + json.dumps(int8_res))
     log("[int8_fq] " + json.dumps(fq_res))
+    log("[vae] " + json.dumps(vae_res))
+    log("[dcae] " + json.dumps(dcae_res))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

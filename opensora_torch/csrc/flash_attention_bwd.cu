@@ -31,6 +31,17 @@
 //   dq:  one block of 4 warps owns 64 query rows (16 per warp) and walks
 //        the keys in steps of 64, as the forward does.
 // Q / dO (dkv) and K / V (dq) tiles are double-buffered with cp.async.
+//
+// D = 512 (the HunyuanVAE mid-block: one head, frame-causal) would need
+// 512-column fp32 accumulators per warp, 4x the registers a thread has. As
+// in the D = 512 forward, the gradient's D is split over D / 128 = 4 blocks
+// (grid z): each block recomputes S^T (dkv) or S (dq) and dP over the full
+// D from shared memory and keeps one 128-column slice of dK / dV (dkv) or
+// dQ (dq) in registers. Keeping the accumulators in shared memory instead
+// would take 64 x 512 x 4 B x 2 = 256 KB for dkv, above the 227 KB a block
+// may have. The resident 64-row tiles at D = 512 take 133 KB, so the
+// streamed tiles shrink to 16 rows (query steps in dkv, key steps in dq),
+// still double-buffered: 195 KB of shared memory, one block per SM.
 // Frame-causal calls (causal_block) skip the query steps (dkv) and key
 // tiles (dq) that the mask hides wholly.
 //
@@ -41,8 +52,12 @@
 // bound it (10.2 ms at 989 TFLOP/s; the minimal backward, 5 products, is
 // 7.3 ms). mma.sync from shared memory; wgmma/TMA are for a later change.
 //
-// D = 512 (the VAE mid-block) would need 512-column dK/dV accumulators per
-// warp; it is not instantiated and the wrapper raises before a launch.
+// At the VAE mid-block's shape (1, 1, 9216, 512), causal_block 1024, the
+// mask leaves 47.2 M (query, key) pairs: dkv's 4 products take 0.20 ms and
+// dq's 3 take 0.15 ms at 989 TFLOP/s, on 57 MB of inputs and outputs (17
+// us at 3.35 TB/s), so operations bound it too. The D split recomputes S
+// and dP in each of the 4 blocks: 10 products' work where 4 are needed in
+// dkv, 9 where 3 are needed in dq.
 //
 // Layout: q, k, v, dout, dq, dk, dv are (B, H, L, D) contiguous bf16; lse
 // and delta are (B, H, Lq) fp32.
@@ -55,25 +70,29 @@ using namespace flash;
 
 constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
-constexpr int D = 128;
-constexpr int RS = D + PAD;  // smem row stride of every tile
+constexpr int DV = 128;      // gradient columns per block (grid z splits D)
 
 constexpr int KV_ROWS = 64;  // dkv: key rows per block
-constexpr int Q_STEP = 32;   // dkv: query rows per step
 constexpr int Q_ROWS = 64;   // dq: query rows per block
-constexpr int KV_STEP = 64;  // dq: keys per step
+// the streamed step: dkv's query rows and dq's keys per step
+template <int D>
+constexpr int step_rows(bool dkv) {
+  return D == 128 ? (dkv ? 32 : 64) : 16;
+}
 
 __device__ __forceinline__ float lse_log2_safe(float l) {
   return l <= NEG_INF * 0.5f ? 0.f : l * LOG2E;
 }
 
-template <bool CAUSAL>
+template <int D, int Q_STEP, bool CAUSAL>
 __global__ void __launch_bounds__(NTHREADS)
     flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          bf16* __restrict__ dk, bf16* __restrict__ dv, int Lq, int Lk,
                          float sm_scale, float c, int causal_block) {
+  static_assert(D % DV == 0 && Q_STEP % 16 == 0, "tile shape");
+  constexpr int RS = D + PAD;  // smem row stride of every tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // KV_ROWS x RS
   bf16* Vs = Ks + KV_ROWS * RS;                  // KV_ROWS x RS
@@ -84,6 +103,7 @@ __global__ void __launch_bounds__(NTHREADS)
 
   const int k0 = blockIdx.x * KV_ROWS;
   const int bh = blockIdx.y;
+  const int c0 = blockIdx.z * DV;  // this block's columns of dK and dV
   const bf16* qg = q + (size_t)bh * Lq * D;
   const bf16* dog = dout + (size_t)bh * Lq * D;
   const float* lg = lse + (size_t)bh * Lq;
@@ -119,9 +139,9 @@ __global__ void __launch_bounds__(NTHREADS)
   if (n_steps > 0) load_step(0, 0);
   cp_async_commit();
 
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  float dk_acc[DV / 8][4], dv_acc[DV / 8][4];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i)
+  for (int i = 0; i < DV / 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
 
@@ -178,7 +198,7 @@ __global__ void __launch_bounds__(NTHREADS)
       }
     }
 
-    // dV += P^T dO, P^T rounded to bf16 as A fragments.
+    // dV += P^T dO[:, c0:c0+DV], P^T rounded to bf16 as A fragments.
 #pragma unroll
     for (int kk = 0; kk < Q_STEP / 16; ++kk) {
       const uint32_t p0 = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
@@ -186,10 +206,10 @@ __global__ void __launch_bounds__(NTHREADS)
       const uint32_t p2 = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
       const uint32_t p3 = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
+      for (int dd = 0; dd < DV / 16; ++dd) {
         uint32_t b0, b1, b2, b3;
         ldmatrix_x4_trans(b0, b1, b2, b3,
-                          smem_u32(dOt + (kk * 16 + (lane & 7) + (mat & 1) * 8) * RS + dd * 16 +
+                          smem_u32(dOt + (kk * 16 + (lane & 7) + (mat & 1) * 8) * RS + c0 + dd * 16 +
                                    (mat >> 1) * 8));
         mma_bf16(dv_acc[2 * dd], p0, p1, p2, p3, b0, b1);
         mma_bf16(dv_acc[2 * dd + 1], p0, p1, p2, p3, b2, b3);
@@ -216,7 +236,8 @@ __global__ void __launch_bounds__(NTHREADS)
       }
     }
 
-    // dS^T = P^T (dP^T - delta), then dK += dS^T Q with dS^T rounded to bf16.
+    // dS^T = P^T (dP^T - delta), then dK += dS^T Q[:, c0:c0+DV] with dS^T
+    // rounded to bf16.
 #pragma unroll
     for (int nt = 0; nt < Q_STEP / 8; ++nt)
 #pragma unroll
@@ -228,10 +249,10 @@ __global__ void __launch_bounds__(NTHREADS)
       const uint32_t p2 = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
       const uint32_t p3 = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
+      for (int dd = 0; dd < DV / 16; ++dd) {
         uint32_t b0, b1, b2, b3;
         ldmatrix_x4_trans(b0, b1, b2, b3,
-                          smem_u32(Qt + (kk * 16 + (lane & 7) + (mat & 1) * 8) * RS + dd * 16 +
+                          smem_u32(Qt + (kk * 16 + (lane & 7) + (mat & 1) * 8) * RS + c0 + dd * 16 +
                                    (mat >> 1) * 8));
         mma_bf16(dk_acc[2 * dd], p0, p1, p2, p3, b0, b1);
         mma_bf16(dk_acc[2 * dd + 1], p0, p1, p2, p3, b2, b3);
@@ -241,10 +262,10 @@ __global__ void __launch_bounds__(NTHREADS)
   }
   cp_async_wait<0>();
 
-  bf16* dkg = dk + (size_t)bh * Lk * D;
-  bf16* dvg = dv + (size_t)bh * Lk * D;
+  bf16* dkg = dk + (size_t)bh * Lk * D + c0;
+  bf16* dvg = dv + (size_t)bh * Lk * D + c0;
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
+  for (int i = 0; i < DV / 8; ++i) {
     const int col = i * 8 + 2 * t;
     if (key_a < Lk) {
       *reinterpret_cast<__nv_bfloat162*>(dkg + (size_t)key_a * D + col) =
@@ -261,13 +282,15 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-template <bool CAUSAL>
+template <int D, int KV_STEP, bool CAUSAL>
 __global__ void __launch_bounds__(NTHREADS)
     flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         bf16* __restrict__ dq, int Lq, int Lk, float sm_scale, float c,
                         int causal_block) {
+  static_assert(D % DV == 0 && KV_STEP % 16 == 0, "tile shape");
+  constexpr int RS = D + PAD;  // smem row stride of every tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // Q_ROWS x RS
   bf16* dOs = Qs + Q_ROWS * RS;                  // Q_ROWS x RS
@@ -276,6 +299,7 @@ __global__ void __launch_bounds__(NTHREADS)
 
   const int q0 = blockIdx.x * Q_ROWS;
   const int bh = blockIdx.y;
+  const int c0 = blockIdx.z * DV;  // this block's columns of dQ
   const bf16* kg = k + (size_t)bh * Lk * D;
   const bf16* vg = v + (size_t)bh * Lk * D;
 
@@ -305,9 +329,9 @@ __global__ void __launch_bounds__(NTHREADS)
   load_tile<KV_STEP, D, NTHREADS>(Vs, vg, 0, Lk, D);
   cp_async_commit();
 
-  float acc[D / 8][4];
+  float acc[DV / 8][4];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int i = 0; i < DV / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 
   for (int j = 0; j < n_tiles; ++j) {
     const int st = j & 1;
@@ -369,7 +393,7 @@ __global__ void __launch_bounds__(NTHREADS)
       }
     }
 
-    // dQ += dS K, dS rounded to bf16 as A fragments.
+    // dQ += dS K[:, c0:c0+DV], dS rounded to bf16 as A fragments.
 #pragma unroll
     for (int kk = 0; kk < KV_STEP / 16; ++kk) {
       const uint32_t p0 = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
@@ -377,10 +401,10 @@ __global__ void __launch_bounds__(NTHREADS)
       const uint32_t p2 = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
       const uint32_t p3 = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
+      for (int dd = 0; dd < DV / 16; ++dd) {
         uint32_t b0, b1, b2, b3;
         ldmatrix_x4_trans(b0, b1, b2, b3,
-                          smem_u32(Kt + (kk * 16 + (lane & 7) + (mat & 1) * 8) * RS + dd * 16 +
+                          smem_u32(Kt + (kk * 16 + (lane & 7) + (mat & 1) * 8) * RS + c0 + dd * 16 +
                                    (mat >> 1) * 8));
         mma_bf16(acc[2 * dd], p0, p1, p2, p3, b0, b1);
         mma_bf16(acc[2 * dd + 1], p0, p1, p2, p3, b2, b3);
@@ -390,9 +414,9 @@ __global__ void __launch_bounds__(NTHREADS)
   }
   cp_async_wait<0>();
 
-  bf16* dqg = dq + (size_t)bh * Lq * D;
+  bf16* dqg = dq + (size_t)bh * Lq * D + c0;
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
+  for (int i = 0; i < DV / 8; ++i) {
     const int col = i * 8 + 2 * t;
     if (row_a < Lq)
       *reinterpret_cast<__nv_bfloat162*>(dqg + (size_t)row_a * D + col) =
@@ -403,19 +427,21 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-constexpr int DKV_SMEM = (2 * KV_ROWS * RS + 4 * Q_STEP * RS) * 2 + 4 * Q_STEP * 4;
-constexpr int DQ_SMEM = (2 * Q_ROWS * RS + 4 * KV_STEP * RS) * 2;
-
-template <bool CAUSAL>
+// causal_block <= 0 picks the bidirectional instantiation
+template <int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv, int BH, int Lq,
                        int Lk, float sm_scale, int causal_block, cudaStream_t stream) {
-  auto kern = flash_bwd_dkv_kernel<CAUSAL>;
-  static unsigned smem_raised = 0;
-  cudaError_t err = raise_smem_limit(kern, DKV_SMEM, smem_raised);
+  constexpr int Q_STEP = step_rows<D>(true);
+  constexpr int RS = D + PAD;
+  constexpr int smem = (2 * KV_ROWS * RS + 4 * Q_STEP * RS) * 2 + 4 * Q_STEP * 4;
+  const bool causal = causal_block > 0;
+  auto kern = causal ? flash_bwd_dkv_kernel<D, Q_STEP, true> : flash_bwd_dkv_kernel<D, Q_STEP, false>;
+  static unsigned smem_raised[2] = {0, 0};
+  cudaError_t err = raise_smem_limit(kern, smem, smem_raised[causal]);
   if (err != cudaSuccess) return err;
-  dim3 grid((Lk + KV_ROWS - 1) / KV_ROWS, BH);
-  kern<<<grid, NTHREADS, DKV_SMEM, stream>>>(
+  dim3 grid((Lk + KV_ROWS - 1) / KV_ROWS, BH, D / DV);
+  kern<<<grid, NTHREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), Lq, Lk,
@@ -423,16 +449,20 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
-template <bool CAUSAL>
+template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, int BH, int Lq, int Lk,
                       float sm_scale, int causal_block, cudaStream_t stream) {
-  auto kern = flash_bwd_dq_kernel<CAUSAL>;
-  static unsigned smem_raised = 0;
-  cudaError_t err = raise_smem_limit(kern, DQ_SMEM, smem_raised);
+  constexpr int KV_STEP = step_rows<D>(false);
+  constexpr int RS = D + PAD;
+  constexpr int smem = (2 * Q_ROWS * RS + 4 * KV_STEP * RS) * 2;
+  const bool causal = causal_block > 0;
+  auto kern = causal ? flash_bwd_dq_kernel<D, KV_STEP, true> : flash_bwd_dq_kernel<D, KV_STEP, false>;
+  static unsigned smem_raised[2] = {0, 0};
+  cudaError_t err = raise_smem_limit(kern, smem, smem_raised[causal]);
   if (err != cudaSuccess) return err;
-  dim3 grid((Lq + Q_ROWS - 1) / Q_ROWS, BH);
-  kern<<<grid, NTHREADS, DQ_SMEM, stream>>>(
+  dim3 grid((Lq + Q_ROWS - 1) / Q_ROWS, BH, D / DV);
+  kern<<<grid, NTHREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dq), Lq, Lk, sm_scale,
@@ -445,30 +475,26 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
 // q, k, v, dout: (B, H, L, D) bf16 contiguous; lse (natural log, from the
 // forward) and delta = rowsum(dout * out): (B, H, Lq) fp32. dk, dv (dkv) and
 // dq (dq) are written in the same layout as k, v and q. causal_block <= 0
-// means bidirectional. Only D = 128 is instantiated. Each returns the
+// means bidirectional. D = 128 and D = 512 are instantiated. Each returns the
 // cudaError_t of its launch (0 on success).
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                        const void* dout, const void* lse, const void* delta,
                                        void* dk, void* dv, int B, int H, int Lq, int Lk, int d,
                                        float sm_scale, int causal_block, void* stream) {
-  if (d != D) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return causal_block > 0 ? launch_dkv<true>(q, k, v, dout, lse, delta, dk, dv, B * H, Lq, Lk,
-                                             sm_scale, causal_block, s)
-                          : launch_dkv<false>(q, k, v, dout, lse, delta, dk, dv, B * H, Lq, Lk,
-                                              sm_scale, causal_block, s);
+  auto launch = d == 128 ? launch_dkv<128> : d == 512 ? launch_dkv<512> : nullptr;
+  if (launch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(q, k, v, dout, lse, delta, dk, dv, B * H, Lq, Lk, sm_scale, causal_block,
+                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                       const void* dout, const void* lse, const void* delta,
                                       void* dq, int B, int H, int Lq, int Lk, int d,
                                       float sm_scale, int causal_block, void* stream) {
-  if (d != D) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return causal_block > 0 ? launch_dq<true>(q, k, v, dout, lse, delta, dq, B * H, Lq, Lk,
-                                            sm_scale, causal_block, s)
-                          : launch_dq<false>(q, k, v, dout, lse, delta, dq, B * H, Lq, Lk,
-                                             sm_scale, causal_block, s);
+  auto launch = d == 128 ? launch_dq<128> : d == 512 ? launch_dq<512> : nullptr;
+  if (launch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(q, k, v, dout, lse, delta, dq, B * H, Lq, Lk, sm_scale, causal_block,
+                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* flash_attention_bwd_error_string(int err) {

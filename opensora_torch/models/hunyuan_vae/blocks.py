@@ -8,6 +8,9 @@ the flash-attention kernel with the frame-causal mask (``causal_block`` =
 H * W tokens per frame) and never builds the L x L mask.
 
 Constructors take the input channel counts that flax infers at init.
+Parameters may be kept in another dtype than the activations (fp32 master
+weights under bf16 compute, for training): every conv and linear casts its
+parameters to its input's dtype at use (``models/cast_layers.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from opensora_torch.models.cast_layers import Conv3d, Linear
 from opensora_torch.ops.attention import scaled_dot_product_attention
 from opensora_torch.ops.norms import group_norm
 
@@ -34,7 +38,7 @@ class CausalConv3d(nn.Module):
         kt, kh, kw = _triple(kernel_size)
         # F.pad order: (W left, W right, H top, H bottom, T front, T back)
         self.pad = (kw // 2, kw // 2, kh // 2, kh // 2, kt - 1, 0)
-        self.conv = nn.Conv3d(in_channels, out_channels, (kt, kh, kw), stride=_triple(stride), **factory)
+        self.conv = Conv3d(in_channels, out_channels, (kt, kh, kw), stride=_triple(stride), **factory)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if any(self.pad):
@@ -102,10 +106,10 @@ class CausalAttention(nn.Module):
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-6, **factory):
         super().__init__()
         self.group_norm = GroupNorm(channels, num_groups, eps, **factory)
-        self.to_q = nn.Linear(channels, channels, **factory)
-        self.to_k = nn.Linear(channels, channels, **factory)
-        self.to_v = nn.Linear(channels, channels, **factory)
-        self.to_out = nn.ModuleList([nn.Linear(channels, channels, **factory)])
+        self.to_q = Linear(channels, channels, **factory)
+        self.to_k = Linear(channels, channels, **factory)
+        self.to_v = Linear(channels, channels, **factory)
+        self.to_out = nn.ModuleList([Linear(channels, channels, **factory)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, t, h, w = x.shape

@@ -8,6 +8,13 @@ scale/shift, and the module-level spatial and temporal tiling with the
 linear overlap blend. Eager PyTorch already runs tile by tile, so the JAX
 package's host-level tile runner (``tiled.py``) has no counterpart.
 
+``forward`` is the training forward, ``(x_rec, posterior, z)``, with the
+posterior's noise drawn from a generator or given. ``param_dtype`` keeps
+the parameters in another dtype than the compute ``dtype`` (fp32 master
+weights under bf16 compute, the JAX modules' default, which VAE training
+asks for); left unset, the parameters are in the compute dtype, as the
+inference and LoRA paths build them.
+
 The encoder runs sample by sample (the same values as one batched call):
 at the 256px 129-frame training bucket one activation of its first stage
 is 2.1 GB per sample in bf16, and a batch of three would hold several such
@@ -16,6 +23,7 @@ tensors at once beside the resident models.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Optional, Sequence, Tuple
 
@@ -23,7 +31,9 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from opensora_torch.models.cast_layers import Conv3d
 from opensora_torch.models.hunyuan_vae.blocks import (
     CausalConv3d,
     DownEncoderBlockCausal3D,
@@ -54,6 +64,7 @@ class AutoEncoder3DConfig:
     use_temporal_tiling: bool = False
     tile_overlap_factor: float = 0.25
     dtype: str = "bf16"
+    param_dtype: Optional[str] = None  # None: the compute dtype
 
 
 def blend_tiles(a: torch.Tensor, b: torch.Tensor, extent: int, dim: int) -> torch.Tensor:
@@ -77,6 +88,7 @@ class DiagonalGaussianDistribution:
         self.mean, self.logvar = parameters.chunk(2, dim=dim)
         self.logvar = self.logvar.clamp(-30.0, 20.0)
         self.std = torch.exp(0.5 * self.logvar)
+        self.var = torch.exp(self.logvar)
 
     def sample(self, generator: Optional[torch.Generator] = None, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """mean + std * noise; the noise (fp32) is drawn from ``generator``
@@ -87,6 +99,16 @@ class DiagonalGaussianDistribution:
 
     def mode(self) -> torch.Tensor:
         return self.mean
+
+    def kl(self) -> torch.Tensor:
+        """KL to N(0, I) per sample (B,), fp32."""
+        m = self.mean.float()
+        return 0.5 * (m * m + self.var.float() - 1.0 - self.logvar.float()).sum(dim=tuple(range(1, m.dim())))
+
+    def nll(self, sample: torch.Tensor, dims=(1, 2, 3)) -> torch.Tensor:
+        """Negative log-likelihood of ``sample``, summed over ``dims``."""
+        s, m = sample.float(), self.mean.float()
+        return 0.5 * (math.log(2.0 * math.pi) + self.logvar.float() + (s - m) ** 2 / self.var.float()).sum(dim=dims)
 
 
 def _block_strides(cfg: AutoEncoder3DConfig, i: int) -> Tuple[bool, Tuple[int, int, int]]:
@@ -163,14 +185,18 @@ class AutoencoderKLCausal3D(nn.Module):
     """The KL-VAE with tiled encode and decode; public tensors are
     (B, C, T, H, W)."""
 
-    def __init__(self, config: AutoEncoder3DConfig, device=None, dtype: Optional[torch.dtype] = None):
+    def __init__(self, config: AutoEncoder3DConfig, device=None, dtype: Optional[torch.dtype] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
+        """``dtype``: the parameters'; ``compute_dtype``: the activations'
+        (default: the parameters')."""
         super().__init__()
         self.config = config
+        self.compute_dtype = compute_dtype
         factory = dict(device=device, dtype=dtype)
         self.encoder = EncoderCausal3D(config, **factory)
         self.decoder = DecoderCausal3D(config, **factory)
-        self.quant_conv = nn.Conv3d(2 * config.latent_channels, 2 * config.latent_channels, 1, **factory)
-        self.post_quant_conv = nn.Conv3d(config.latent_channels, config.latent_channels, 1, **factory)
+        self.quant_conv = Conv3d(2 * config.latent_channels, 2 * config.latent_channels, 1, **factory)
+        self.post_quant_conv = Conv3d(config.latent_channels, config.latent_channels, 1, **factory)
 
     @property
     def time_compression_ratio(self) -> int:
@@ -178,7 +204,8 @@ class AutoencoderKLCausal3D(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.post_quant_conv.weight.dtype
+        """The compute dtype: inputs are cast to it."""
+        return self.compute_dtype or self.post_quant_conv.weight.dtype
 
     @property
     def tile_sample_min_size(self) -> int:
@@ -233,25 +260,31 @@ class AutoencoderKLCausal3D(nn.Module):
             tiles.append(tile[:, :, 1:] if i > 0 else tile)
         return self._join_temporal(tiles, blend, limit)
 
+    def encode_moments(self, x: torch.Tensor) -> torch.Tensor:
+        """Video (B, 3, T, H, W) -> the posterior's moments (B, 2C, T', H',
+        W'), tiled as the config asks."""
+        assert x.dim() == 5, "expected (B, C, T, H, W)"
+        x = x.to(self.dtype)
+        cfg = self.config
+        if cfg.use_temporal_tiling and x.shape[2] > self.tile_sample_min_tsize:
+            return self.temporal_tiled_encode(x)
+        if cfg.use_spatial_tiling and (
+            x.shape[3] > self.tile_sample_min_size or x.shape[4] > self.tile_sample_min_size
+        ):
+            return self.spatial_tiled_encode(x)
+        return self._encode_moments(x)
+
+    def _sample(self, moments: torch.Tensor, generator, sample_posterior: bool, noise):
+        posterior = DiagonalGaussianDistribution(moments, dim=1)
+        z = posterior.sample(generator, noise) if sample_posterior else posterior.mode()
+        return self.config.scale_factor * (z - self.config.shift_factor), posterior
+
     def encode(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                sample_posterior: bool = True, return_posterior: bool = False, noise=None):
         """Video (B, 3, T, H, W) -> scaled latents (B, C, T', H', W'): a
         sample of the posterior (noise drawn from ``generator``, or the
         given ``noise``), or its mode."""
-        assert x.dim() == 5, "expected (B, C, T, H, W)"
-        x = x.to(self.dtype)
-        cfg = self.config
-        if cfg.use_temporal_tiling and x.shape[2] > self.tile_sample_min_tsize:
-            moments = self.temporal_tiled_encode(x)
-        elif cfg.use_spatial_tiling and (
-            x.shape[3] > self.tile_sample_min_size or x.shape[4] > self.tile_sample_min_size
-        ):
-            moments = self.spatial_tiled_encode(x)
-        else:
-            moments = self._encode_moments(x)
-        posterior = DiagonalGaussianDistribution(moments, dim=1)
-        z = posterior.sample(generator, noise) if sample_posterior else posterior.mode()
-        z = cfg.scale_factor * (z - cfg.shift_factor)
+        z, posterior = self._sample(self.encode_moments(x), generator, sample_posterior, noise)
         return (z, posterior) if return_posterior else z
 
     @staticmethod
@@ -324,6 +357,24 @@ class AutoencoderKLCausal3D(nn.Module):
             return self.spatial_tiled_decode(z)
         return self._decode_core(z)
 
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                sample_posterior: bool = True, noise: Optional[torch.Tensor] = None,
+                grad_checkpoint: bool = False):
+        """The training forward: (x_rec (B, 3, T', H', W'), posterior, z),
+        with the posterior's noise (shaped like its mean, (B, C, t, h, w))
+        drawn from ``generator`` unless given. ``grad_checkpoint`` recomputes
+        the encoder and the decoder in the backward; the posterior's draw
+        sits between the two and is not repeated."""
+        moments = checkpoint_if(grad_checkpoint, self.encode_moments, x)
+        z, posterior = self._sample(moments, generator, sample_posterior, noise)
+        return checkpoint_if(grad_checkpoint, self.decode, z), posterior, z
+
+
+def checkpoint_if(enabled: bool, fn, *args):
+    """``fn(*args)``, under a non-reentrant activation checkpoint when
+    ``enabled``."""
+    return checkpoint(fn, *args, use_reentrant=False) if enabled else fn(*args)
+
 
 @MODELS.register_module("hunyuan_vae")
 def CausalVAE3D_HUNYUAN(from_pretrained: Optional[str] = None, device=None, **kwargs) -> AutoencoderKLCausal3D:
@@ -331,4 +382,5 @@ def CausalVAE3D_HUNYUAN(from_pretrained: Optional[str] = None, device=None, **kw
 
     known = set(AutoEncoder3DConfig.__dataclass_fields__)
     cfg = AutoEncoder3DConfig(from_pretrained=from_pretrained, **{k: v for k, v in kwargs.items() if k in known})
-    return AutoencoderKLCausal3D(cfg, device=device, dtype=torch_dtype(cfg.dtype))
+    return AutoencoderKLCausal3D(cfg, device=device, dtype=torch_dtype(cfg.param_dtype or cfg.dtype),
+                                 compute_dtype=torch_dtype(cfg.dtype))

@@ -9,7 +9,8 @@ running-max loop otherwise. A is computed here on the device and read by
 the kernel, so no call syncs with the host.
 
 The backward (``csrc/flash_attention_bwd.cu``) is two kernels, ``dkv``
-and ``dq``, ports of ``_dkv_kernel`` and ``_dq_kernel``: P is recomputed
+and ``dq``, ports of ``_dkv_kernel`` and ``_dq_kernel``, at D = 128 (the
+MMDiT) and D = 512 (the VAE mid-block, D split over blocks): P is recomputed
 from the forward's LSE, delta = rowsum(dO * O) is plain torch (XLA fuses
 it beside the TPU kernels). :class:`FlashAttentionFunction` ties forward
 and backward together as the JAX package's ``custom_vjp`` does, and every
@@ -40,7 +41,7 @@ SUPPORTED_HEAD_DIMS = (128, 512)
 BWD_SOURCE = "flash_attention_bwd"
 KERNEL_DKV = "flash_attention_bwd_dkv"
 KERNEL_DQ = "flash_attention_bwd_dq"
-BWD_HEAD_DIMS = (128,)
+BWD_HEAD_DIMS = (128, 512)
 
 _lib = None
 _bwd_lib = None
@@ -196,11 +197,7 @@ def flash_attention_bwd_ref(
 def _check_bwd(q, k, v, do, lse, delta, causal_block):
     _check(q, k, v, causal_block)
     if q.shape[-1] not in BWD_HEAD_DIMS:
-        raise ValueError(
-            f"the flash-attention backward kernels take head dims {BWD_HEAD_DIMS}, got "
-            f"{q.shape[-1]}; D = 512 (the VAE mid-block) waits for the VAE training slice "
-            "(ROADMAP Queue 2 item 2)"
-        )
+        raise ValueError(f"the flash-attention backward kernels take head dims {BWD_HEAD_DIMS}, got {q.shape[-1]}")
     if do.shape != q.shape or do.dtype != torch.bfloat16 or not do.is_contiguous():
         raise ValueError(f"do must be a contiguous bf16 tensor of q's shape, got {tuple(do.shape)} {do.dtype}")
     for name, x in (("lse", lse), ("delta", delta)):

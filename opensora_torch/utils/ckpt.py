@@ -1,5 +1,7 @@
 """Train-state checkpoints (counterpart of ``CheckpointIO``,
-opensora_tpu/utils/ckpt.py:569-648), written with ``torch.save``.
+opensora_tpu/utils/ckpt.py:569-648), written with ``torch.save``, and the
+random initialization of an autoencoder for VAE training (``init_ae``, the
+JAX package's ``init_ae_variables``).
 
 Layout per save: ``<exp_dir>/epoch{e}-global_step{s}/``
   state.pt              the train state's ``state_dict()`` (trained params,
@@ -18,6 +20,7 @@ import shutil
 from typing import Optional, Tuple
 
 import torch
+import torch.nn as nn
 
 _CKPT_DIR = re.compile(r"epoch(\d+)-global_step(\d+)")
 
@@ -61,3 +64,22 @@ class CheckpointIO:
         )
         for _, name in found[keep_n_latest:]:
             shutil.rmtree(os.path.join(exp_dir, name), ignore_errors=True)
+
+
+def init_ae(model_cfg: dict, device=None, seed: int = 42, **overrides) -> nn.Module:
+    """The autoencoder of ``model_cfg`` (``hunyuan_vae`` or ``dc_ae``) with
+    random weights drawn from ``seed`` on ``device``; ``overrides`` update
+    the config. ``from_pretrained`` raises: no checkpoint loader is ported
+    yet (the JAX package loads one here)."""
+    import opensora_torch.models.dc_ae.model  # noqa: F401  (registers "dc_ae")
+    import opensora_torch.models.hunyuan_vae.model  # noqa: F401  (registers "hunyuan_vae")
+    from opensora_torch.registry import MODELS, build_module
+
+    if model_cfg.get("from_pretrained"):
+        raise NotImplementedError(
+            f"model.from_pretrained={model_cfg['from_pretrained']!r}: checkpoint loading is not ported yet "
+            "(ROADMAP); leave it unset for random weights from the seed")
+    device = torch.device(device if device is not None else "cuda")
+    with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):
+        torch.manual_seed(seed)
+        return build_module(dict(model_cfg, **overrides), MODELS, device=device)

@@ -84,6 +84,95 @@ def hunyuan_vae_state_dict(params: Tree) -> Dict[str, np.ndarray]:
     return out
 
 
+def discriminator_state_dict(params: Tree) -> Dict[str, np.ndarray]:
+    """NLayerDiscriminator3D flax params (``conv_{i}``, ``conv_out``,
+    ``norm_{i}``) -> the port's ``convs.{i}`` (``conv_out`` last) and
+    ``norms.{i - 1}``."""
+    n_convs = sum(k.startswith("conv_") and k != "conv_out" for k in params)
+    out: Dict[str, np.ndarray] = {}
+    for path, val in _flatten(params):
+        mod, leaf = path
+        kind, idx = mod.rsplit("_", 1)
+        name = f"convs.{n_convs if idx == 'out' else idx}" if kind == "conv" else f"norms.{int(idx) - 1}"
+        if leaf == "kernel":
+            out[f"{name}.weight"] = _torch_weight(val)
+        else:
+            out[f"{name}.{'weight' if leaf == 'scale' else leaf}"] = val
+    return out
+
+
+def lpips_state_dict(params: Tree) -> Dict[str, np.ndarray]:
+    """LPIPS flax params (``vgg/conv_{i}``, ``lin_{i}``) -> the port's
+    torchvision / LPIPS names (``vgg.features.{idx}``, ``lin{i}.model.1``)."""
+    from opensora_torch.models.vae2d.lpips import VGG_CONV_INDICES
+
+    out: Dict[str, np.ndarray] = {}
+    for path, val in _flatten(params):
+        *mods, leaf = path
+        if mods[0] == "vgg":
+            name = f"vgg.features.{VGG_CONV_INDICES[int(mods[1].split('_')[1])]}"
+        else:
+            name = f"lin{mods[0].split('_')[1]}.model.1"
+        out[f"{name}.{'weight' if leaf == 'kernel' else leaf}"] = _torch_weight(val) if leaf == "kernel" else val
+    return out
+
+
+def dc_ae_module_state_dict(params: Tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """The flax params of one DC-AE module (a ``ConvLayer``, ``ResBlock``,
+    ``LiteMLA``, ``EfficientViTBlock``, ...) -> the port module's state dict,
+    names under ``prefix``: ``aggreg_{i}_{j}`` -> ``aggreg.{i}.{j}``, the
+    EfficientViT halves gain upstream's ``.main``, kernel -> weight, norm
+    scale -> weight."""
+    out: Dict[str, np.ndarray] = {}
+    for path, val in _flatten(params):
+        *segs, leaf = path
+        names = [prefix] if prefix else []
+        for seg in segs:
+            if seg.startswith("aggreg_"):
+                names += seg.split("_")
+            elif seg in ("context_module", "local_module"):
+                names += [seg, "main"]
+            else:
+                names.append(seg)
+        names.append("weight" if leaf in ("kernel", "scale") else leaf)
+        out[".".join(names)] = _torch_weight(val) if leaf == "kernel" else val
+    return out
+
+
+def dc_ae_state_dict(params: Tree) -> Dict[str, np.ndarray]:
+    """Video DC-AE flax params -> ``DCAE`` state dict (upstream's names: the
+    blocks of a stage, then its downsample, in ``encoder.stages.{s}.op_list``;
+    the upsample, then the blocks, in ``decoder.stages.{s}.op_list``)."""
+    out: Dict[str, np.ndarray] = {}
+    for side in ("encoder", "decoder"):
+        tree = params[side]
+        upsampled = {int(k.split("_")[1]) for k in tree if k.endswith("_upsample")}
+        blocks = {}
+        for k in tree:
+            if "_block_" in k:
+                sid = int(k.split("_")[1])
+                blocks[sid] = blocks.get(sid, 0) + 1
+        for top, sub in tree.items():
+            if top == "project_in":
+                prefix = f"{side}.project_in" + (".main" if side == "decoder" else "")
+            elif top == "project_out":
+                prefix = f"{side}.project_out" + (".main" if side == "encoder" else "") + ".op_list.2"
+            elif top == "out_norm":
+                prefix = f"{side}.project_out" + (".main" if side == "encoder" else "") + ".op_list.0"
+            else:
+                _, sid, kind, *rest = top.split("_")
+                sid = int(sid)
+                if kind == "block":
+                    idx = int(rest[0]) + (1 if sid in upsampled else 0)
+                elif kind == "downsample":
+                    idx = blocks.get(sid, 0)
+                else:  # upsample
+                    idx = 0
+                prefix = f"{side}.stages.{sid}.op_list.{idx}" + ("" if kind == "block" else ".main")
+            out.update(dc_ae_module_state_dict(sub, prefix))
+    return out
+
+
 def lora_state_dict(lora: Tree) -> Dict[str, np.ndarray]:
     """The JAX package's LoRA factor tree (``training/lora.py``: in place of
     each target ``kernel`` leaf ``{"lora_a": (..., in, r), "lora_b": (...,

@@ -35,3 +35,13 @@ def _imported(path):
 def test_port_imports_nothing_of_jax(path):
     bad = [m for m in _imported(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+def test_scan_covers_every_module_of_the_port():
+    """The scan finds each slice's modules, the VAE training slice's among
+    them, so a new module cannot slip past it."""
+    scanned = {os.path.relpath(p, REPO) for p in _port_files()}
+    for module in ("inference.py", "train.py", "train_vae.py", "training/vae.py", "models/cast_layers.py",
+                   "models/dc_ae/model.py", "models/dc_ae/ops.py", "models/vae2d/losses.py",
+                   "models/vae2d/discriminator.py", "models/vae2d/lpips.py", "ops/int8_flash.py"):
+        assert os.path.join("opensora_torch", module) in scanned, module

@@ -107,11 +107,15 @@ def test_flash_function_on_cpu_matches_autograd_of_plain_attention():
 
 
 def test_flash_bwd_kernel_input_checks():
-    """D = 512 and inputs the backward kernels do not take raise before a
-    launch, naming what is missing."""
-    q = torch.zeros((1, 1, 64, 512), dtype=torch.bfloat16)
+    """A head dim the backward kernels were not built for (they take 128 and
+    512) and inputs they do not take raise before a launch, naming what is
+    wrong; D = 512 passes the checks."""
+    assert tflash.BWD_HEAD_DIMS == (128, 512)
     lse = torch.zeros((1, 1, 64))
-    with pytest.raises(ValueError, match="VAE training slice"):
+    q = torch.zeros((1, 1, 64, 512), dtype=torch.bfloat16)
+    tflash._check_bwd(q, q, q, q, lse, lse, 16)
+    q = torch.zeros((1, 1, 64, 256), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
         tflash._check_bwd(q, q, q, q, lse, lse, None)
     q = torch.zeros((1, 1, 64, 128), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="delta"):
@@ -123,6 +127,11 @@ def test_flash_bwd_kernel_input_checks():
     ((2, 3, 1000, 128), None),
     ((1, 2, 1000, 128), 96),
     ((1, 2, 256, 128), 64),
+    # D = 512 (the VAE mid-block: the gradient's D split over 4 blocks):
+    # tails of 1000 % 64 and 1000 % 16 rows, several frames, bidirectional
+    ((1, 2, 1000, 512), 96),
+    ((1, 1, 2048, 512), 256),
+    ((2, 1, 300, 512), None),
 ])
 def test_flash_bwd_kernels_match_plain_on_cuda(shape, causal_block):
     if not torch.cuda.is_available():
@@ -139,23 +148,23 @@ def test_flash_bwd_kernels_match_plain_on_cuda(shape, causal_block):
 
 
 @pytest.mark.cuda
-def test_flash_function_backward_on_cuda_goes_through_the_kernels():
+@pytest.mark.parametrize("shape,causal_block", [((1, 2, 300, 128), None), ((1, 1, 300, 512), 64)])
+def test_flash_function_backward_on_cuda_goes_through_the_kernels(shape, causal_block):
     """A backward through the Function on the card launches both backward
     kernels (no gradient is dropped) and agrees with autograd through the
     plain fp32 attention on the same bf16 inputs."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    shape = (1, 2, 300, 128)
     gen = torch.Generator(device="cuda").manual_seed(1)
     base = [torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3)]
     do = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
     q, k, v = (x.clone().requires_grad_() for x in base)
     before = dict(_build.LAUNCHES)
-    grads = torch.autograd.grad(tflash.flash_attention(q, k, v), (q, k, v), do)
+    grads = torch.autograd.grad(tflash.flash_attention(q, k, v, causal_block=causal_block), (q, k, v), do)
     assert _build.LAUNCHES[tflash.KERNEL_DKV] == before.get(tflash.KERNEL_DKV, 0) + 1
     assert _build.LAUNCHES[tflash.KERNEL_DQ] == before.get(tflash.KERNEL_DQ, 0) + 1
     q2, k2, v2 = (x.float().requires_grad_() for x in base)
-    ref = tflash.flash_attention_ref(q2, k2, v2)[0]
+    ref = tflash.flash_attention_ref(q2, k2, v2, None, causal_block)[0]
     ref_grads = torch.autograd.grad(ref, (q2, k2, v2), do.float())
     for g, w in zip(grads, ref_grads):
         # the bf16 forward output feeds delta here, adding its rounding
