@@ -50,13 +50,29 @@ the VAE mid-block's shape (1, 1, 9216, 512), causal_block 1024, and at a
 tail (L = 1000, causal_block 96), with known-wrong gradients and timings;
 phase 3c checks one full-width VAE train step on a small clip, card
 against the CPU's fp32 plain step.
+Phase 2e holds the three ring kernels (ring_flash_fwd, ring_flash_bwd_dkv,
+ring_flash_bwd_dq) against the plain ring at the slice's shape, global
+(3, 24, 8828, 128) over 4 logical ranks on the card (2207 tokens a rank),
+and at (1, 2, 4000, 128) frame-causal with frames of 96 that the shard
+edges cut, with known-wrong rings (the last hop skipped, local offsets, delta
+left out, dK/dV read from the other slot) and timings; phase 3d runs the
+full-width MMDiT with attn_backend="ring_rdma" over those 4 ranks on a
+small input (forward, and a LoRA step's gradients) against the CPU's plain
+dense path. Phase 9 (run right after phase 4, on its models) switches
+every block to ring_rdma over a mesh of 4 logical ranks on the card and
+drives 256px.py through prepare_api(mesh=...) for 2 steps: exact launches,
+the video against phase 4's (a control with the last hop skipped must
+exceed the limit), then 1 step of attn_backend="ring" (ops/sp.py) against
+1 step of ring_rdma. Phase 10 (after phase 5, on its trainer) runs 2 LoRA
+steps with ring_rdma over the same mesh: finite loss and gradient norm,
+moving factors, exact launches of the three ring kernels.
 Then it prints the card's name and power limit, one JSON line with the
 kernels' numbers, and last {"ok": true, "device": {...}}.
 
 ``--out-dir DIR`` writes the compiler's register/shared-memory report
 (build_log.txt) there; ``--profile`` adds a profiled second run of each
 path (kernel time by kind, device idle share; with ``--out-dir`` the full
-tables go to DIR/profile_{main,train,int8,vae,dcae}.txt).
+tables go to DIR/profile_{main,ring,train,ring_train,int8,vae,dcae}.txt).
 """
 
 from __future__ import annotations
@@ -70,6 +86,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import unittest.mock
 
 import torch
 
@@ -646,15 +663,205 @@ def check_int8_attention(device, mufu_per_s: float) -> dict:
 
 
 # ----------------------------------------------------------------------
+# phase 2e: the ring kernels over logical ranks on one card
+# ----------------------------------------------------------------------
+
+RING_SP = 4  # logical ranks of the 'sp' axis, all on the one card
+RING_CASES = [
+    # name, global (B, H, L, D), causal_block: the MMDiT's joint attention
+    # over 4 ranks (2207 tokens a rank: a ragged last tile), and a
+    # frame-causal case whose shard edges (1000, 2000, 3000) cut frames of 96
+    ("mmdit_joint_sp4", (3, 24, 8828, 128), None),
+    ("causal_off_frame_edges_sp4", (1, 2, 4000, 128), 96),
+]
+RING_KERNELS = ("ring_flash_fwd", "ring_flash_bwd_dkv", "ring_flash_bwd_dq")
+
+
+def ring_mesh(device):
+    from opensora_torch.parallel.mesh import MeshConfig, create_mesh
+
+    return create_mesh(MeshConfig(dp_size=1, sp_size=RING_SP, tp_size=1), [device] * RING_SP)
+
+
+def patched(module, name, wrap):
+    """``module.name`` replaced by ``wrap(module.name)`` inside a with."""
+    return unittest.mock.patch.object(module, name, wrap(getattr(module, name)))
+
+
+def last_hop_skipped(hop):
+    """A forward hop that, on the last hop, folds in no keys (it only
+    writes out and LSE from the state of the first sp - 1 hops)."""
+    def run(q, k, v, *a, **kw):
+        if kw["last"]:
+            k, v = k[:, :, :0], v[:, :, :0]
+        return hop(q, k, v, *a, **kw)
+    return run
+
+
+def local_offsets(hop):
+    """A hop that masks at local offsets (0, 0) in place of the global ones."""
+    def run(*a, **kw):
+        return hop(*a, **dict(kw, q_off=0, k_off=0))
+    return run
+
+
+def delta_left_out(hop):
+    def run(q, k, v, do, lse, delta, *a, **kw):
+        return hop(q, k, v, do, lse, torch.zeros_like(delta), *a, **kw)
+    return run
+
+
+def check_ring(device) -> dict:
+    """The three ring kernels on the card, through ring_flash_attention over
+    RING_SP logical ranks (hops on their own streams, KV and dK/dV copies
+    between the ranks' slots), against the plain ring (the plain hops in
+    sequence) on the same inputs; the limits must reject known-wrong
+    rings; times of the call, of the 16 (rank, hop) launches of each kernel,
+    of the plain ring, of SDPA at the global shape and the bound."""
+    from opensora_torch.ops import ring_flash as rf
+    from opensora_torch.parallel.comm import gather, shard
+
+    mesh = ring_mesh(device)
+    devices = rf.ring_devices(mesh, "sp")
+    sp = len(devices)
+    gen = torch.Generator(device=device).manual_seed(9)
+    cases = []
+    for name, (b, h, l, d), cb in RING_CASES:
+        q, k, v, do = (torch.randn((b, h, l, d), generator=gen, device=device).to(torch.bfloat16) for _ in range(4))
+        sm = 1.0 / math.sqrt(d)
+        qs, ks, vs, dos = (shard(x, 2, devices) for x in (q, k, v, do))
+        lloc = l // sp
+
+        def plain_fwd():
+            outs, lses = rf.ring_forward_shards(qs, ks, vs, sm_scale=sm, causal_block=cb, plain=True)
+            return gather(outs, 2, device).float(), gather(lses, 2, device)
+
+        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+        out, lse = rf.ring_flash_attention(qg, kg, vg, mesh, causal_block=cb)
+        grads = torch.autograd.grad(out, (qg, kg, vg), do)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = plain_fwd()
+        scale = ref_out.abs().max().item()
+        err_out = (out.float() - ref_out).abs().max().item()
+        err_lse = (lse - ref_lse).abs().max().item()
+        outs_k, lses_k = shard(out.detach(), 2, devices), shard(lse, 2, devices)
+
+        def plain_bwd():
+            return [gather(g, 2, device).float()
+                    for g in rf.ring_backward_shards(qs, ks, vs, outs_k, lses_k, dos, sm_scale=sm, causal_block=cb,
+                                                     plain=True)]
+
+        ref_g = plain_bwd()
+        g_scale = {n: r.abs().max().item() for n, r in zip("qkv", ref_g)}
+        g_rel = {n: (g.float() - r).abs().max().item() / g_scale[n] for n, g, r in zip("qkv", grads, ref_g)}
+        ok = (math.isfinite(err_out) and err_out <= OUT_RTOL * scale and err_lse <= LSE_TOL
+              and all(math.isfinite(x) and x <= BWD_RTOL for x in g_rel.values()))
+
+        def fwd_reading():
+            o, s = plain_fwd()
+            return ((o - ref_out).abs().max().item() / scale, (s - ref_lse).abs().max().item())
+
+        def bwd_reading():
+            return max((g - r).abs().max().item() / g_scale[n] for n, g, r in zip("qkv", plain_bwd(), ref_g))
+
+        mutants = {}
+        with patched(rf, "ring_fwd_hop_ref", last_hop_skipped):
+            mutants["last_hop_skipped"] = fwd_reading()
+        if cb is not None:
+            with patched(rf, "ring_fwd_hop_ref", local_offsets):
+                mutants["local_offsets"] = fwd_reading()
+        with patched(rf, "ring_bwd_dkv_hop_ref", delta_left_out), patched(rf, "ring_bwd_dq_hop_ref", delta_left_out):
+            mutants["delta_left_out"] = bwd_reading()
+        with patched(rf, "home_slot", lambda f: lambda n: 1 - f(n)):
+            mutants["dkdv_from_other_slot"] = bwd_reading()
+        caught = all((r[0] > OUT_RTOL or r[1] > LSE_TOL) if isinstance(r, tuple) else r > BWD_RTOL
+                     for r in mutants.values())
+        del ref_out, ref_lse, ref_g, grads
+
+        # the 16 (rank, hop) launches of each kernel back to back on one
+        # stream, on the shards each hop holds (no copies)
+        state = [tuple(torch.empty(s, dtype=torch.float32, device=device) for s in ((b, h, lloc), (b, h, lloc),
+                                                                                    (b, h, lloc, d)))
+                 for _ in range(sp)]
+        o_buf = [torch.empty_like(x) for x in qs]
+        lse_buf = [torch.empty((b, h, lloc), dtype=torch.float32, device=device) for _ in range(sp)]
+        deltas = [(x.float() * o.float()).sum(-1) for x, o in zip(dos, outs_k)]
+        acc_kv = torch.zeros((2, b, h, lloc, d), dtype=torch.float32, device=device)
+        acc_q = torch.zeros((b, h, lloc, d), dtype=torch.float32, device=device)
+
+        def hops(kernel):
+            for r in range(sp):
+                for hop in range(sp):
+                    src = (r - hop) % sp
+                    kw = dict(sm_scale=sm, causal_block=cb, q_off=r * lloc, k_off=src * lloc)
+                    if kernel == "ring_flash_fwd":
+                        rf.ring_fwd_hop(qs[r], ks[src], vs[src], state[r], o_buf[r], lse_buf[r],
+                                        first=hop == 0, last=hop == sp - 1, **kw)
+                    elif kernel == "ring_flash_bwd_dkv":
+                        rf.ring_bwd_dkv_hop(qs[r], ks[src], vs[src], dos[r], lses_k[r], deltas[r], acc_kv[0],
+                                            acc_kv[1], **kw)
+                    else:
+                        rf.ring_bwd_dq_hop(qs[r], ks[src], vs[src], dos[r], lses_k[r], deltas[r], acc_q, **kw)
+
+        big = b * h * l * l > 1e8
+        iters = 5 if big else 20
+        kernels_ms = {n: time_cuda(lambda: hops(n), iters) for n in RING_KERNELS}
+        call_ms = time_cuda(lambda: rf.ring_flash_attention(q, k, v, mesh, causal_block=cb), iters)
+        bwd_call_ms = time_cuda(lambda: rf.ring_backward_shards(qs, ks, vs, outs_k, lses_k, dos, sm_scale=sm,
+                                                                causal_block=cb), iters)
+        plain_ms = time_cuda(plain_fwd, 1 if big else 3, warmup=0)
+        plain_bwd_ms = time_cuda(plain_bwd, 1 if big else 3, warmup=0)
+        mask = None
+        if cb is not None:
+            idx = torch.arange(l, device=device) // cb
+            mask = idx[None, :] <= idx[:, None]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        library_ms = time_cuda(lambda: sdpa(q, k, v, attn_mask=mask), iters)
+        library_bwd_ms = sdpa_backward_ms(q, k, v, do, mask, iters)
+        bound_ms, bound_by = attention_bound(b, h, l, d, cb)
+        bounds = {n: bwd_bound(n, b, h, l, d, cb) for n in BWD_PRODUCTS}
+        case = dict(name=name, shape=[b, h, l, d], sp=sp, local_length=lloc, causal_block=cb,
+                    max_abs_err=err_out, ref_max_abs=scale, rel_err=err_out / scale, lse_max_abs_err=err_lse,
+                    grad_rel_err=g_rel, grad_max_abs_err={n: g_rel[n] * g_scale[n] for n in g_rel},
+                    mutants=mutants, kernels_ms=kernels_ms, call_ms=call_ms, bwd_call_ms=bwd_call_ms,
+                    plain_ms=plain_ms, plain_bwd_ms=plain_bwd_ms, library_ms=library_ms,
+                    library_bwd_ms=library_bwd_ms, bound_ms=bound_ms, bound_by=bound_by,
+                    bwd_bound_ms={n: x[0] for n, x in bounds.items()},
+                    bwd_bound_by={n: x[1] for n, x in bounds.items()})
+        cases.append(case)
+        log(f"[ring] {name} global {[b, h, l, d]} over {sp} logical ranks ({lloc} tokens a rank) cb={cb}: "
+            f"out {err_out / scale:.3e} of max|ref| (tol {OUT_RTOL}) lse_err={err_lse:.3e} (tol {LSE_TOL}) "
+            f"dq/dk/dv {g_rel['q']:.3e}/{g_rel['k']:.3e}/{g_rel['v']:.3e} (tol {BWD_RTOL}); wrong rings: "
+            + ", ".join(f"{n} {r}" for n, r in mutants.items())
+            + f" {'rejected' if caught else 'NOT REJECTED'}; 16 launches ms "
+            + "/".join(f"{kernels_ms[n]:.3f}" for n in RING_KERNELS)
+            + f" (fwd/dkv/dq) call_ms={call_ms:.3f} bwd_call_ms={bwd_call_ms:.3f} bound_ms fwd/dkv/dq="
+            f"{bound_ms:.3f}/{bounds['flash_attention_bwd_dkv'][0]:.3f}/{bounds['flash_attention_bwd_dq'][0]:.3f} "
+            f"plain_ms={plain_ms:.3f} plain_bwd_ms={plain_bwd_ms:.3f} sdpa_ms={library_ms:.3f} "
+            f"sdpa_bwd_ms={library_bwd_ms:.3f} {'OK' if ok and caught else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the ring kernels disagree with the plain ring at {name}")
+        if not caught:
+            raise AssertionError(f"the limits at {name} do not reject a known-wrong ring")
+        del q, k, v, do, qs, ks, vs, dos, out, lse, state, o_buf, acc_kv, acc_q, mask
+        torch.cuda.empty_cache()
+    return {"cases": cases}
+
+
+# ----------------------------------------------------------------------
 # phase 3: the main path
 # ----------------------------------------------------------------------
 
 
-def check_small_input(device) -> dict:
+def check_small_input(device, mesh=None) -> dict:
     """The main path's models at full width on a small input: the card's
     path (bf16 weights, the CUDA kernel at D=128 and at D=512 frame-causal)
     against the port's plain path on the CPU (fp32 copies of the same
-    weights, plain attention)."""
+    weights, plain attention). With ``mesh`` (phase 3d) the card's MMDiT
+    runs ``attn_backend="ring_rdma"`` over the mesh's logical ranks (the
+    ring kernels, 20 tokens a rank) and the VAE is left out."""
+    from opensora_torch.ops import _build
+    from opensora_torch.parallel.context import set_mesh
     from opensora_torch.registry import MODELS, build_module
     from opensora_torch.utils.api import prepare_models  # noqa: F401  (registers the models)
     from opensora_torch.utils.config import parse_configs
@@ -663,9 +870,9 @@ def check_small_input(device) -> dict:
     cfg = parse_configs([os.path.join(REPO, "configs", "diffusion", "inference", "256px.py")])
     gen = torch.Generator().manual_seed(1)
 
-    def twins(conf: dict):
+    def twins(conf: dict, card_conf=None):
         torch.manual_seed(0)
-        card = build_module(dict(conf), MODELS, device=device).eval()
+        card = build_module(dict(conf, **(card_conf or {})), MODELS, device=device).eval()
         cpu = build_module(dict(conf, dtype="fp32"), MODELS, device="meta").eval()
         cpu.load_state_dict({k: v.float().cpu() for k, v in card.state_dict().items()}, assign=True)
         return card, cpu  # CPU tensors take the plain attention
@@ -675,7 +882,7 @@ def check_small_input(device) -> dict:
 
     res = {}
     mcfg = dict(cfg.model, depth=1, depth_single_blocks=1)
-    card, cpu = twins(mcfg)
+    card, cpu = twins(mcfg, dict(attn_backend="ring_rdma") if mesh is not None else None)
     b, lt = 3, 32
     img_ids = build_img_ids(2, 8, 12, bs=b)  # 2 x 4 x 6 = 48 image tokens
     inputs = dict(
@@ -684,11 +891,27 @@ def check_small_input(device) -> dict:
         timesteps=torch.rand(b, generator=gen), y_vec=torch.randn(b, mcfg["vec_in_dim"], generator=gen),
         cond=torch.zeros(b, 48, mcfg["in_channels"] + 4), guidance=torch.full((b,), 7.5),
     )
-    with torch.inference_mode():
-        ref = cpu(**inputs)
-        out = card(**{k: v.to(device) for k, v in inputs.items()})
+    _build.LAUNCHES.clear()
+    set_mesh(mesh)
+    try:
+        with torch.inference_mode():
+            ref = cpu(**inputs)
+            out = card(**{k: v.to(device) for k, v in inputs.items()})
+    finally:
+        set_mesh(None)
+    launches = dict(_build.LAUNCHES)
     res["mmdit_1+1_rel_err"] = rel_err(out, ref)
     del card, cpu
+    if mesh is not None:
+        torch.cuda.empty_cache()
+        expect = {"ring_flash_fwd": 2 * RING_SP * RING_SP}
+        ok = res["mmdit_1+1_rel_err"] <= SMALL_TOL and launches == expect
+        log(f"[small] ring_rdma over {RING_SP} logical ranks: full-width MMDiT depth 1+1 (B=3, 80 tokens), card "
+            f"bf16 + ring kernels vs CPU fp32 plain dense attention: {res} (tol {SMALL_TOL} of the output's "
+            f"scale) launches {launches} (expected {expect}) {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the card's ring path disagrees with the plain path on a small input")
+        return dict(res, launches=launches)
 
     card, cpu = twins(dict(cfg.ae))
     z = torch.randn(1, 16, 2, 4, 4, generator=gen)
@@ -769,6 +992,9 @@ def check_int8_small_input(device) -> dict:
 
 KERNEL_KINDS = [  # first match wins: int8_flash_fwd_kernel before flash_fwd_kernel
     ("int8_flash_attention", ("int8_flash_fwd_kernel",)),
+    ("ring_flash_fwd", ("ring_fwd_kernel",)),
+    ("ring_flash_bwd_dkv", ("ring_bwd_dkv_kernel",)),
+    ("ring_flash_bwd_dq", ("ring_bwd_dq_kernel",)),
     ("w8a8_gemm", ("w8a8_gemm_kernel",)),
     ("flash_attention_fwd", ("flash_fwd_kernel",)),
     ("flash_attention_bwd_dkv", ("flash_bwd_dkv_kernel",)),
@@ -873,6 +1099,106 @@ def run_main_path(device, profile: bool = False, out_dir=None) -> dict:
                outside_share=outside, models_build_s=build_s)
     if profile:
         res["profile"] = profile_run(lambda: api_fn(**run_kwargs), "main", out_dir)
+    return res, dict(cfg=cfg, models=(model, ae, t5, clip), video=x.cpu(), run_kwargs=run_kwargs)
+
+
+# ----------------------------------------------------------------------
+# phase 9: the main path with ring_rdma over logical ranks
+# ----------------------------------------------------------------------
+
+# The ring_rdma video vs the dense (phase 4) video from the same seed and
+# prompt, and the "ring" (ops/sp.py) video vs the ring_rdma one, each in
+# relative L2. Set from the card's readings: 0.0470 and 0.0414 (both paths
+# bf16: the random-weight 57-block MMDiT carries the different rounding of
+# the two attentions through 2 steps into a few percent of the video), and
+# the control, the ring with its last hop skipped, 0.0767, which must exceed
+# the limit. The kernels are deterministic (no atomics), so the readings
+# repeat; the margin is 1.28x on either side.
+RING_VIDEO_TOL = 0.06
+RING_SP_STEPS = 1  # steps of the attn_backend="ring" run
+
+
+def set_attn_backend(model, backend) -> None:
+    for block in (*model.double_blocks, *model.single_blocks):
+        block.attn_backend = backend
+
+
+def run_ring_path(device, built, profile: bool = False, out_dir=None) -> dict:
+    """256px.py at full width and depth with the MMDiT's attention over
+    RING_SP logical ranks on the card (phase 4's models, their blocks
+    switched to ``attn_backend="ring_rdma"``), through prepare_api(mesh=...)
+    and api_fn: shape, finiteness, exact launches, and the video against
+    phase 4's; then one step with ``attn_backend="ring"``."""
+    from opensora_torch.ops import _build
+    from opensora_torch.ops import ring_flash as rf
+    from opensora_torch.parallel.context import set_mesh
+    from opensora_torch.utils.api import prepare_api
+    from opensora_torch.utils.sampling import SamplingOption, sanitize_sampling_option
+
+    cfg, (model, ae, t5, clip), dense = built["cfg"], built["models"], built["video"]
+    mesh = ring_mesh(device)
+    log(f"[ring] 256px.py at full width and depth, attn_backend=ring_rdma over {mesh}; num_steps cut 50 -> {STEPS}")
+    n_blocks = cfg.model["depth"] + cfg.model["depth_single_blocks"]
+    hops = RING_SP * RING_SP
+
+    def run(backend, steps):
+        set_attn_backend(model, backend)
+        api_fn = prepare_api(model, ae, t5, clip, mesh=mesh)
+        opt = sanitize_sampling_option(SamplingOption(**dict(cfg.sampling_option, num_steps=steps)))
+        _build.LAUNCHES.clear()
+        timings: dict = {}
+        t0 = time.perf_counter()
+        x = api_fn(**dict(built["run_kwargs"], opt=opt), timings=timings)
+        torch.cuda.synchronize()
+        return x, dict(_build.LAUNCHES), dict(timings, total_s=time.perf_counter() - t0)
+
+    def rel_l2(a, b):
+        return float((a.float().cpu() - b).norm() / b.norm())
+
+    try:
+        torch.cuda.reset_peak_memory_stats(device)
+        x, launches, timings = run("ring_rdma", STEPS)
+        peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+        finite = bool(torch.isfinite(x).all())
+        outside = float((x.abs() > 1.0).float().mean())
+        expect = {"ring_flash_fwd": n_blocks * STEPS * hops, "flash_attention_fwd": 2}
+        video_rel = rel_l2(x, dense)
+        x_ring_rdma = x.cpu()
+        del x
+        with patched(rf, "ring_fwd_hop", last_hop_skipped):
+            control_rel = rel_l2(run("ring_rdma", STEPS)[0], dense)
+        x1, _, _ = run("ring_rdma", RING_SP_STEPS)
+        xs, sp_launches, sp_timings = run("ring", RING_SP_STEPS)
+        sp_rel = rel_l2(xs, x1.cpu())
+        sp_expect = {"flash_attention_fwd": n_blocks * RING_SP_STEPS * hops + 2}
+        del x1, xs
+    finally:
+        set_attn_backend(model, cfg.model.get("attn_backend"))
+        set_mesh(None)
+    res = dict(mesh=repr(mesh), launches=launches, expected=expect, text_encode_s=timings["text_encode_s"],
+               step_s=timings["step_s"], decode_s=timings["decode_s"], total_s=timings["total_s"],
+               peak_mem_gb=peak_gb, outside_share=outside, video_rel_l2_vs_dense=video_rel,
+               control_last_hop_skipped_rel_l2=control_rel, tol=RING_VIDEO_TOL,
+               sp_ring=dict(steps=RING_SP_STEPS, launches=sp_launches, expected=sp_expect,
+                            step_s=sp_timings["step_s"], video_rel_l2_vs_ring_rdma=sp_rel))
+    log("[ring] " + json.dumps(res))
+    if tuple(x_ring_rdma.shape) != tuple(dense.shape):
+        raise AssertionError(f"output shape {tuple(x_ring_rdma.shape)} != {tuple(dense.shape)}")
+    if not finite or outside > OUTSIDE_MAX:
+        raise AssertionError(f"ring output not finite, or {outside:.4f} of it outside [-1, 1]")
+    if launches != expect or sp_launches != sp_expect:
+        raise AssertionError(f"kernel launches {launches} / {sp_launches} != expected {expect} / {sp_expect}")
+    if not (video_rel <= RING_VIDEO_TOL < control_rel and sp_rel <= RING_VIDEO_TOL):
+        raise AssertionError(f"ring videos: vs dense {video_rel:.4e}, ring vs ring_rdma {sp_rel:.4e} (tol "
+                             f"{RING_VIDEO_TOL}); the control {control_rel:.4e} must exceed the tolerance")
+    if profile:
+        set_attn_backend(model, "ring_rdma")
+        api_fn = prepare_api(model, ae, t5, clip, mesh=mesh)
+        try:
+            res["profile"] = profile_run(lambda: api_fn(**built["run_kwargs"]), "ring", out_dir)
+        finally:
+            set_attn_backend(model, cfg.model.get("attn_backend"))
+            set_mesh(None)
     return res
 
 
@@ -886,10 +1212,14 @@ LORA_CFG = os.path.join(REPO, "configs", "diffusion", "train", "lora.py")
 TRAIN_OVERRIDES = ["--model.from_pretrained", "", "--ae.from_pretrained", "", "--model.remat_policy", "full"]
 
 
-def check_train_small_input(device) -> dict:
+def check_train_small_input(device, mesh=None) -> dict:
     """One LoRA train step of the full-width MMDiT at depth 1 + 1 on a small
     batch: the card's bf16 path (flash forward and backward kernels) vs the
-    CPU's fp32 plain path, same weights, factors, batch and draws."""
+    CPU's fp32 plain path, same weights, factors, batch and draws. With
+    ``mesh`` (phase 3d) the card's MMDiT runs ``attn_backend="ring_rdma"``
+    over the mesh's logical ranks: the three ring kernels."""
+    from opensora_torch.ops import _build
+    from opensora_torch.parallel.context import set_mesh
     from opensora_torch.registry import MODELS, build_module
     from opensora_torch.training.diffusion import compute_loss, compute_shift_alpha
     from opensora_torch.training.lora import apply_lora, lora_parameters
@@ -900,7 +1230,8 @@ def check_train_small_input(device) -> dict:
     cfg = parse_configs([LORA_CFG, *TRAIN_OVERRIDES])
     mcfg = dict(cfg.model, depth=1, depth_single_blocks=1)
     torch.manual_seed(0)
-    card = build_module(dict(mcfg), MODELS, device=device)
+    card = build_module(dict(mcfg, attn_backend="ring_rdma" if mesh is not None else mcfg.get("attn_backend")),
+                        MODELS, device=device)
     cpu = build_module(dict(mcfg, dtype="fp32"), MODELS, device="meta")
     cpu.load_state_dict({k: v.float().cpu() for k, v in card.state_dict().items()}, assign=True)
     rank = cfg.lora_config["r"]
@@ -929,17 +1260,28 @@ def check_train_small_input(device) -> dict:
         loss.backward()
         return loss.item(), {n: p.grad.float().cpu() for n, p in factors.items()}
 
-    loss_card, g_card = step(card, card_f, device, torch.bfloat16)
+    _build.LAUNCHES.clear()
+    set_mesh(mesh)
+    try:
+        loss_card, g_card = step(card, card_f, device, torch.bfloat16)
+    finally:
+        set_mesh(None)
+    launches = dict(_build.LAUNCHES)
     loss_cpu, g_cpu = step(cpu, cpu_f, "cpu", torch.float32)
     grad_rel = {n: float((g_card[n] - g).abs().max() / g.abs().max()) for n, g in g_cpu.items()}
     worst = max(grad_rel, key=grad_rel.get)
     res = {"loss_card": loss_card, "loss_cpu": loss_cpu, "loss_rel_err": abs(loss_card - loss_cpu) / abs(loss_cpu),
            "grad_rel_err_max": grad_rel[worst], "grad_rel_err_worst": worst,
-           "grad_rel_err_median": sorted(grad_rel.values())[len(grad_rel) // 2]}
+           "grad_rel_err_median": sorted(grad_rel.values())[len(grad_rel) // 2], "launches": launches}
     del card, cpu
     torch.cuda.empty_cache()
     ok = res["loss_rel_err"] <= SMALL_TOL and res["grad_rel_err_max"] <= TRAIN_GRAD_TOL
-    log(f"[small] LoRA train step, full-width MMDiT depth 1+1 (B=3, {n_img + lt} tokens, r={rank}), card bf16 + "
+    if mesh is not None:  # 2 blocks: forward (and recompute with remat), backward; 16 launches each
+        hops = RING_SP * RING_SP
+        ok = ok and launches == {"ring_flash_fwd": (4 if mcfg.get("remat") else 2) * hops,
+                                 "ring_flash_bwd_dkv": 2 * hops, "ring_flash_bwd_dq": 2 * hops}
+    log(f"[small] LoRA train step{f' (ring_rdma over {RING_SP} logical ranks)' if mesh is not None else ''}, "
+        f"full-width MMDiT depth 1+1 (B=3, {n_img + lt} tokens, r={rank}), card bf16 + "
         f"kernels vs CPU fp32 plain: {json.dumps(res)} (tol loss {SMALL_TOL}, each LoRA gradient "
         f"{TRAIN_GRAD_TOL} of its scale) {'OK' if ok else 'FAIL'}")
     if not ok:
@@ -1013,6 +1355,68 @@ def run_train_path(device, profile: bool = False, out_dir=None) -> dict:
     res = dict(steps=steps, launches=total, peak_mem_gb=peak_gb, models_build_s=build_s, lora_params=n_lora)
     if profile:
         res["profile"] = profile_run(lambda: trainer.run_batch(batch), "train", out_dir)
+    return res, dict(trainer=trainer, batch=batch)
+
+
+RING_TRAIN_STEPS = 2  # LoRA steps of the ring training path (phase 10)
+
+
+def run_ring_train_path(device, built, profile: bool = False, out_dir=None) -> dict:
+    """Phase 5's trainer (lora.py at full width and depth) with its MMDiT's
+    attention switched to ``ring_rdma`` over RING_SP logical ranks on the
+    card: RING_TRAIN_STEPS steps of Trainer.run_batch; finite loss and
+    gradient norm, moving LoRA factors, the exact launches of the three
+    ring kernels (and of the VAE encode's flash forward)."""
+    from opensora_torch.ops import _build
+    from opensora_torch.parallel.context import set_mesh
+    from opensora_torch.training.lora import lora_parameters
+    from opensora_torch.utils.train import single_frame_encodes
+
+    trainer, batch = built["trainer"], built["batch"]
+    cfg = trainer.cfg
+    mesh = ring_mesh(device)
+    n_blocks = cfg.model["depth"] + cfg.model["depth_single_blocks"]
+    hops = RING_SP * RING_SP
+    factors = list(lora_parameters(trainer.model).values())
+    log(f"[ring_train] lora.py (phase 5's trainer), attn_backend=ring_rdma over {mesh}; {RING_TRAIN_STEPS} steps")
+    set_attn_backend(trainer.model, "ring_rdma")
+    set_mesh(mesh)
+    steps = []
+    try:
+        torch.cuda.reset_peak_memory_stats(device)
+        for i in range(RING_TRAIN_STEPS):
+            before = [p.detach().clone() for p in factors]
+            _build.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            metrics = trainer.run_batch(batch)
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t0
+            launches = dict(_build.LAUNCHES)
+            n_vae = TRAIN_BATCH + single_frame_encodes(trainer.mask_conds)
+            expect = {"flash_attention_fwd": n_vae, "ring_flash_fwd": 2 * n_blocks * hops,
+                      "ring_flash_bwd_dkv": n_blocks * hops, "ring_flash_bwd_dq": n_blocks * hops}
+            moved = sum(float((p.detach() - b).abs().max()) > 0 for p, b in zip(factors, before))
+            times = trainer.timers.to_dict()
+            rec = dict(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]), launches=launches,
+                       expected=expect, factors_moved=moved, factors=len(factors),
+                       step_s=times["time/step"], total_s=total_s)
+            steps.append(rec)
+            log(f"[ring_train] step {i + 1}: " + json.dumps(rec))
+            if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"]) and rec["grad_norm"] > 0):
+                raise AssertionError(f"ring step {i + 1}: loss {rec['loss']} or grad norm {rec['grad_norm']}")
+            if launches != expect:
+                raise AssertionError(f"ring step {i + 1}: kernel launches {launches} != expected {expect}")
+            if moved == 0:
+                raise AssertionError(f"ring step {i + 1}: no LoRA factor moved")
+        peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+        res = dict(mesh=repr(mesh), steps=steps, peak_mem_gb=peak_gb,
+                   launches={k: sum(r["launches"].get(k, 0) for r in steps) for k in steps[0]["expected"]})
+        if profile:
+            res["profile"] = profile_run(lambda: trainer.run_batch(batch), "ring_train", out_dir)
+    finally:
+        set_attn_backend(trainer.model, cfg.model.get("attn_backend"))
+        set_mesh(None)
+    log(f"[ring_train] {RING_TRAIN_STEPS} steps OK; launches {res['launches']}; peak_mem_gb={peak_gb:.2f}")
     return res
 
 
@@ -1297,7 +1701,8 @@ def main(argv) -> int:
 
     from opensora_torch.ops import _build
 
-    sources = ("flash_attention_fwd", "flash_attention_bwd", "int8_matmul", "int8_flash_attention")
+    sources = ("flash_attention_fwd", "flash_attention_bwd", "int8_matmul", "int8_flash_attention",
+               "ring_flash_attention")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         built = dict(zip(sources, pool.map(_build.build, sources)))
     for name, (seconds, _) in built.items():
@@ -1323,16 +1728,25 @@ def main(argv) -> int:
     attn_bwd_d512 = check_attention_bwd(device, BWD_D512_CASES, seed=8)
     gemm = check_int8_gemm(device)
     int8_attn = check_int8_attention(device, mufu_per_s)
+    ring = check_ring(device)
     small = check_small_input(device)
     small_train = check_train_small_input(device)
     small_int8 = check_int8_small_input(device)
     small_vae = check_vae_train_small_input(device)
-    main_res = run_main_path(device, "--profile" in argv, out_dir)
+    small_ring = check_small_input(device, ring_mesh(device))
+    small_ring_train = check_train_small_input(device, ring_mesh(device))
+    main_res, built = run_main_path(device, "--profile" in argv, out_dir)
     main_res["small_input"] = small
+    ring_res = run_ring_path(device, built, "--profile" in argv, out_dir)
+    ring_res["small_input"] = small_ring
+    del built
     gc.collect()
     torch.cuda.empty_cache()
-    train_res = run_train_path(device, "--profile" in argv, out_dir)
+    train_res, built = run_train_path(device, "--profile" in argv, out_dir)
     train_res["small_input"] = small_train
+    ring_train_res = run_ring_train_path(device, built, "--profile" in argv, out_dir)
+    ring_train_res["small_input"] = small_ring_train
+    del built
     gc.collect()
     torch.cuda.empty_cache()
     int8_res = run_int8_path(device, [], STEPS, "--profile" in argv, out_dir, "int8")
@@ -1422,7 +1836,31 @@ def main(argv) -> int:
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], library=head["library"], cases=mine,
         ))
+    for name, line in zip(RING_KERNELS, (70, 185, 185)):
+        mine = ring["cases"]
+        head = mine[0]  # the slice's shape: the MMDiT's joint attention over 4 ranks
+        fwd = name == "ring_flash_fwd"
+        grads = "q" if name.endswith("dq") else "kv"
+        bwd_key = f"flash_attention_bwd_{name.rsplit('_', 1)[1]}"  # the same products' bound
+        kernels.append(dict(
+            name=name, route="cuda", source="opensora_torch/csrc/ring_flash_attention.cu",
+            replaces=f"opensora_tpu/ops/ring_flash.py:{line}",
+            launches=(ring_res if fwd else ring_train_res)["launches"][name],
+            launches_train=ring_train_res["launches"][name],
+            max_abs_err=max(c["max_abs_err"] if fwd else max(c["grad_max_abs_err"][g] for g in grads) for c in mine),
+            ms=head["kernels_ms"][name], ms_is="the 16 (rank, hop) launches of one call, back to back",
+            call_ms=head["call_ms"] if fwd else head["bwd_call_ms"],
+            plain_ms=head["plain_ms"] if fwd else head["plain_bwd_ms"],
+            bound_ms=head["bound_ms"] if fwd else head["bwd_bound_ms"][bwd_key],
+            bound_by=head["bound_by"] if fwd else head["bwd_bound_by"][bwd_key],
+            library_ms=head["library_ms"] if fwd else head["library_bwd_ms"],
+            library="SDPA at the global shape" + ("" if fwd else ", backward"),
+            **({} if fwd else {"plain_and_library_compute": "dq, dk and dv (the whole backward)"}),
+            cases=mine,
+        ))
     log("[main] " + json.dumps(main_res))
+    log("[ring] " + json.dumps(ring_res))
+    log("[ring_train] " + json.dumps(ring_train_res))
     log("[train] " + json.dumps(train_res))
     log("[int8] " + json.dumps(int8_res))
     log("[int8_fq] " + json.dumps(fq_res))

@@ -9,7 +9,9 @@ Prompts come from ``--prompt`` or from the CSV at ``dataset.data_path``
 suffixes are appended as the JAX package's text dataset does. Each sample
 is saved under ``save_dir`` as ``sample_XXXX.npy`` (uint8 frames T, H, W, 3)
 with the prompt in ``sample_XXXX.txt``. Runs on cuda unless ``--device``
-names another device.
+names another device. A config's ``mesh`` (e.g. ``plugins/sp.py``) builds a
+mesh over the host's cards only when it has more than one, as the JAX
+script does; on one card the run goes without a mesh.
 """
 
 from __future__ import annotations
@@ -70,6 +72,8 @@ def read_prompts(cfg, prompt: Optional[str]) -> List[str]:
 
 def main(argv: Optional[List[str]] = None) -> List[str]:
     """Run the CLI; returns the saved sample paths."""
+    import torch
+
     from opensora_torch.utils.api import prepare_api, prepare_models
     from opensora_torch.utils.config import ae_spatial_compression, parse_configs
     from opensora_torch.utils.inference import add_motion_score_to_text, process_and_save
@@ -88,8 +92,16 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
         raise NotImplementedError(f"cond_type {cfg.cond_type!r}: only 't2v' is ported")
     texts_all = read_prompts(cfg, prompt)
     model, ae, t5, clip = prepare_models(cfg, device=device, seed=cfg.get("seed", 42))
-    logger.info("models on %s", next(model.parameters()).device)
-    api_fn = prepare_api(model, ae, t5, clip, spatial_compression=ae_spatial_compression(cfg))
+    model_device = next(model.parameters()).device
+    logger.info("models on %s", model_device)
+    mesh = None
+    # as scripts/diffusion/inference.py:106-112: a mesh only over more than one device
+    if cfg.get("mesh") is not None and model_device.type == "cuda" and torch.cuda.device_count() > 1:
+        from opensora_torch.parallel.mesh import MeshConfig, create_mesh
+
+        mesh = create_mesh(MeshConfig(**cfg.mesh))
+        logger.info("inference mesh: %s", mesh)
+    api_fn = prepare_api(model, ae, t5, clip, spatial_compression=ae_spatial_compression(cfg), mesh=mesh)
     opt = sanitize_sampling_option(SamplingOption(**cfg.get("sampling_option", {})))
     save_dir = cfg.get("save_dir", "samples")
     batch_size = cfg.get("batch_size", 1)

@@ -1,0 +1,159 @@
+"""Sequence parallelism over the 'sp' axis of a mesh: DeepSpeed-Ulysses
+all-to-all and ring attention (counterpart of opensora_tpu/ops/sp.py).
+
+Global q, k, v are (B, L, H, D); the batch splits over the 'data' axis and
+the sequence over 'sp' (the JAX package's P(data, sp)). The ranks are held
+by this process (``parallel/mesh.py``), so ``all_to_all`` and ``ppermute``
+are moves between the ranks' shards (``parallel/comm.py``):
+
+- :func:`ulysses_attention` scatters heads and gathers the sequence before
+  the attention and does the inverse after; autograd differentiates the
+  moves.
+- :func:`ring_attention` keeps each rank's Q shard and rotates the KV
+  shards, merging the per-hop (out, lse) partials by LSE rescaling
+  (:func:`_merge_partials`). Its backward mirrors the reference's: dk/dv
+  accumulators travel with the rotating KV and arrive home after a full
+  circle, dq accumulates locally from the stored global LSE. Each hop runs
+  ``flash_attention_with_lse`` / ``partial_flash_backward`` (the flash
+  kernels on CUDA tensors) for the default backend, and plain einsums for
+  any other.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional
+
+import torch
+
+from opensora_torch.ops.flash_attention import flash_attention_with_lse, partial_flash_backward
+from opensora_torch.parallel.comm import all_to_all, gather, ppermute, shard
+from opensora_torch.parallel.mesh import DATA_AXIS, SP_AXIS, TP_AXIS
+
+
+def _sp_groups(mesh) -> List[List[torch.device]]:
+    """The devices of each sp group, one per 'data' coordinate (tp replicas
+    are left to the TP slice: the group at tp = 0 computes)."""
+    tp = mesh.shape[TP_AXIS]
+    return [[mesh.devices[r] for r in mesh.group(SP_AXIS, d * mesh.shape[SP_AXIS] * tp)]
+            for d in range(mesh.shape[DATA_AXIS])]
+
+
+def _check(q, mesh):
+    dp, sp = mesh.shape[DATA_AXIS], mesh.shape[SP_AXIS]
+    if q.shape[0] % dp or q.shape[1] % sp:
+        raise ValueError(f"(B, L) = {tuple(q.shape[:2])} does not split over (data, sp) = ({dp}, {sp})")
+
+
+def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh,
+                      backend: Optional[str] = None) -> torch.Tensor:
+    """DeepSpeed-Ulysses attention. q, k, v: global (B, L, H, D); the sp
+    size must divide the heads."""
+    from opensora_torch.ops.attention import scaled_dot_product_attention
+
+    sp = mesh.shape[SP_AXIS]
+    if q.shape[2] % sp:
+        raise ValueError(f"sp size {sp} must divide heads {q.shape[2]}")
+    _check(q, mesh)
+    parts = []
+    for devices, qb, kb, vb in zip(_sp_groups(mesh), *(x.chunk(mesh.shape[DATA_AXIS], 0) for x in (q, k, v))):
+        # (B, L/sp, H, D) -> (B, L, H/sp, D)
+        qh, kh, vh = (all_to_all(shard(x, 1, devices), split_dim=2, concat_dim=1) for x in (qb, kb, vb))
+        outs = [scaled_dot_product_attention(a.transpose(1, 2).contiguous(), b.transpose(1, 2).contiguous(),
+                                             c.transpose(1, 2).contiguous(), backend=backend).transpose(1, 2)
+                for a, b, c in zip(qh, kh, vh)]
+        # (B, L, H/sp, D) -> (B, L/sp, H, D)
+        parts.append(gather(all_to_all(outs, split_dim=1, concat_dim=2), 1, q.device))
+    return torch.cat(parts, 0)
+
+
+def _merge_partials(o1, lse1, o2, lse2):
+    """LSE-rescaled merge of two attention partials (reference
+    _rescale_out_lse, distributed.py:305-373). o: (B, H, L, D) fp32; lse:
+    (B, H, L)."""
+    lse_max = torch.maximum(lse1, lse2)
+    w1 = torch.exp(lse1 - lse_max)
+    w2 = torch.exp(lse2 - lse_max)
+    denom = w1 + w2
+    o = o1 * (w1 / denom)[..., None] + o2 * (w2 / denom)[..., None]
+    return o, lse_max + torch.log(denom)
+
+
+def _partial(q, k, v, backend):
+    """One hop's (out fp32, lse) partial over (B, H, L, D) shards."""
+    if backend is None:
+        o, lse = flash_attention_with_lse(q, k, v)
+        return o.float(), lse
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(q.shape[-1])
+    lse = torch.logsumexp(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1), v.float()), lse
+
+
+def _bwd_partial(q, k, v, do, lse, delta, backend):
+    """One hop's (dq, dk, dv) partials in fp32, given the global LSE and
+    delta."""
+    if backend is None:
+        return tuple(g.float() for g in partial_flash_backward(q, k, v, do.to(q.dtype), lse, delta))
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf = q.float(), k.float(), v.float()
+    p = torch.exp(torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale - lse[..., None])
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", do, vf) - delta[..., None]) * scale
+    return torch.einsum("bhqk,bhkd->bhqd", ds, kf), torch.einsum("bhqk,bhqd->bhkd", ds, qf), dv
+
+
+class _RingAttention(torch.autograd.Function):
+    """Ring attention over one sp group's devices; q, k, v (B, H, L, D)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, devices, backend):
+        qs, ks, vs = (shard(x, 2, devices) for x in (q, k, v))
+        # hop 0 on the local shard; each later hop rotates first, then
+        # computes, so no rotation's result is discarded
+        acc = [_partial(a, b, c, backend) for a, b, c in zip(qs, ks, vs)]
+        for _ in range(len(devices) - 1):
+            ks, vs = ppermute(ks), ppermute(vs)
+            acc = [_merge_partials(*ol, *_partial(a, b, c, backend)) for ol, a, b, c in zip(acc, qs, ks, vs)]
+        o = gather([x[0] for x in acc], 2, q.device)
+        lse = gather([x[1] for x in acc], 2, q.device)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.devices, ctx.backend = devices, backend
+        return o.to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = g.float()
+        delta = (do * o).sum(-1)
+        qs, ks, vs, dos, lses, deltas = (shard(x, 2, ctx.devices) for x in (q, k, v, do, lse, delta))
+
+        def partials():
+            return [_bwd_partial(*a, ctx.backend) for a in zip(qs, ks, vs, dos, lses, deltas)]
+
+        # hop 0 on the local shard; the dk/dv accumulators rotate after
+        # every hop's add (hop 0 included): sp hops bring each home
+        parts = partials()
+        dq = [p[0] for p in parts]
+        dk, dv = ppermute([p[1] for p in parts]), ppermute([p[2] for p in parts])
+        for _ in range(len(ctx.devices) - 1):
+            ks, vs = ppermute(ks), ppermute(vs)
+            parts = partials()
+            dq = [a + p[0] for a, p in zip(dq, parts)]
+            dk = ppermute([a + p[1] for a, p in zip(dk, parts)])
+            dv = ppermute([a + p[2] for a, p in zip(dv, parts)])
+        return (gather(dq, 2, q.device).to(q.dtype), gather(dk, 2, k.device).to(k.dtype),
+                gather(dv, 2, v.device).to(v.dtype), None, None)
+
+
+def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh,
+                   backend: Optional[str] = None) -> torch.Tensor:
+    """Ring attention: every rank keeps its Q shard; KV shards rotate
+    around the 'sp' ring, partials merge by LSE rescaling (reference
+    RingAttention, distributed.py:219-373). q, k, v: global (B, L, H, D).
+    Differentiable (custom backward)."""
+    _check(q, mesh)
+    parts = []
+    for devices, qb, kb, vb in zip(_sp_groups(mesh), *(x.chunk(mesh.shape[DATA_AXIS], 0) for x in (q, k, v))):
+        out = _RingAttention.apply(*(x.transpose(1, 2) for x in (qb, kb, vb)), tuple(devices), backend)
+        parts.append(out.transpose(1, 2))
+    return torch.cat(parts, 0)

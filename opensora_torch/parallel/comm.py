@@ -1,0 +1,171 @@
+"""Moving data between the ranks of a mesh held by one process.
+
+The JAX package moves shards between chips with ``lax.all_to_all`` and
+``lax.ppermute`` (ops/sp.py) and, inside the ring kernels, with
+``make_async_remote_copy`` plus DMA and "ack" semaphores
+(ops/ring_flash.py:108-116,166-181). Here every rank's tensors live in this
+process, on the rank's device:
+
+- :func:`shard`, :func:`gather`, :func:`all_to_all` and :func:`ppermute`
+  are copies between the ranks' tensors, differentiable by autograd;
+- :class:`RingTransport` is the double-buffered ring of the in-kernel ring
+  attention. Each rank has two slots per rotating buffer. The copy of a
+  rank's slot ``cur`` into its right neighbour's slot ``nxt`` runs on the
+  rank's copy stream while the rank computes on ``cur``; a "received" event
+  gates the neighbour's next hop on that slot, and an "ack" event, recorded
+  after the hop that read a slot and after the sends out of it drained,
+  gates the next copy into that slot. Ranks run their hops on their own
+  compute streams, so on one card the ranks' hops overlap each other and
+  the copies. Every buffer is allocated on the caller's stream before the
+  ring starts, and at the end the caller's stream waits on every rank's
+  streams, so the caching allocator never hands out a buffer that another
+  stream still uses. The copies are real copies between the ranks' slots,
+  also when all ranks share a card.
+
+With ``sequential=True`` (always for CPU tensors) the same slot logic runs
+in program order on the caller's stream: no streams, no events.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Dict, List, Sequence, Tuple
+
+import torch
+
+
+def shard(x: torch.Tensor, dim: int, devices: Sequence[torch.device]) -> List[torch.Tensor]:
+    """``x`` cut into len(devices) equal contiguous pieces along ``dim``,
+    piece i on devices[i]."""
+    n = len(devices)
+    if x.shape[dim] % n:
+        raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not split over {n} ranks")
+    return [p.to(d).contiguous() for p, d in zip(x.chunk(n, dim), devices)]
+
+
+def gather(parts: Sequence[torch.Tensor], dim: int, device: torch.device) -> torch.Tensor:
+    return torch.cat([p.to(device) for p in parts], dim)
+
+
+def all_to_all(parts: Sequence[torch.Tensor], split_dim: int, concat_dim: int) -> List[torch.Tensor]:
+    """``lax.all_to_all(tiled=True)`` over the ranks' tensors: rank j
+    receives piece j (along ``split_dim``) of every rank, concatenated along
+    ``concat_dim`` in rank order."""
+    n = len(parts)
+    pieces = [p.chunk(n, split_dim) for p in parts]
+    return [torch.cat([pieces[i][j].to(parts[j].device) for i in range(n)], concat_dim) for j in range(n)]
+
+
+def ppermute(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The ring shift i -> i + 1: rank i receives rank i - 1's tensor."""
+    n = len(parts)
+    return [parts[(i - 1) % n].to(parts[i].device) for i in range(n)]
+
+
+_STREAMS: Dict[Tuple[int, int, str], torch.cuda.Stream] = {}
+
+
+def _stream(device: torch.device, rank: int, kind: str) -> "torch.cuda.Stream":
+    key = (device.index if device.index is not None else torch.cuda.current_device(), rank, kind)
+    if key not in _STREAMS:
+        _STREAMS[key] = torch.cuda.Stream(device=device)
+    return _STREAMS[key]
+
+
+class RingTransport:
+    """The slots, streams and events of one ring over ``devices`` (rank r on
+    devices[r]; its right neighbour is r + 1 mod n). Use: allocate slots
+    with :meth:`slots`, fill slot 0, :meth:`start`, then per hop and rank,
+    inside ``with t.on(r)``: :meth:`wait_received`, :meth:`send`, the hop's
+    compute, :meth:`release`; last :meth:`finish`."""
+
+    def __init__(self, devices: Sequence[torch.device], sequential: bool = False):
+        self.devices = [torch.device(d) for d in devices]
+        self.n = len(self.devices)
+        self.sequential = sequential or self.devices[0].type != "cuda"
+        if not self.sequential:
+            self.compute = [_stream(d, r, "compute") for r, d in enumerate(self.devices)]
+            self.copy = [_stream(d, r, "copy") for r, d in enumerate(self.devices)]
+        self._received: Dict[Tuple[str, int, int], torch.cuda.Event] = {}
+        self._ack: Dict[Tuple[int, int], torch.cuda.Event] = {}
+        self._sent: Dict[Tuple[int, int], List[torch.cuda.Event]] = {}
+
+    def slots(self, shape, dtype, zero_first: bool = False) -> List[torch.Tensor]:
+        """Per rank a (2, *shape) buffer: slot 0 and slot 1 (slot 0 zeroed
+        with ``zero_first``), allocated on the caller's stream."""
+        out = [torch.empty((2, *shape), dtype=dtype, device=d) for d in self.devices]
+        if zero_first:
+            for b in out:
+                b[0].zero_()
+        return out
+
+    def start(self) -> None:
+        """Every rank's streams wait for the caller's stream (the buffers
+        and inputs it prepared)."""
+        if self.sequential:
+            return
+        for r, d in enumerate(self.devices):
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(d))
+            self.compute[r].wait_event(ready)
+            self.copy[r].wait_event(ready)
+
+    @contextlib.contextmanager
+    def on(self, r: int):
+        """Rank r's compute stream as the current stream."""
+        if self.sequential:
+            yield
+            return
+        with torch.cuda.device(self.devices[r]), torch.cuda.stream(self.compute[r]):
+            yield
+
+    def wait_received(self, r: int, name: str, slot: int) -> None:
+        """Rank r's compute waits until its ``slot`` of ``name`` arrived."""
+        ev = self._received.get((name, r, slot))
+        if ev is not None:
+            self.compute[r].wait_event(ev)
+
+    def send(self, r: int, name: str, bufs: Sequence[torch.Tensor], cur: int) -> None:
+        """Copy rank r's slot ``cur`` of ``bufs`` into its right neighbour's
+        other slot, once what r's compute stream has queued so far is done
+        and the neighbour acknowledged its last use of that slot."""
+        right, nxt = (r + 1) % self.n, 1 - cur
+        src, dst = bufs[r][cur], bufs[right][nxt]
+        if self.sequential:
+            dst.copy_(src)
+            return
+        stream = self.copy[r]
+        ready = torch.cuda.Event()
+        ready.record(self.compute[r])
+        stream.wait_event(ready)
+        ack = self._ack.get((right, nxt))
+        if ack is not None:
+            stream.wait_event(ack)
+        with torch.cuda.device(self.devices[r]), torch.cuda.stream(stream):
+            dst.copy_(src, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+        self._received[(name, right, nxt)] = done
+        self._sent.setdefault((r, cur), []).append(done)
+
+    def release(self, r: int, slot: int) -> None:
+        """Rank r is done with ``slot``: its reads are queued and its sends
+        out of it drain first; then the left neighbour may overwrite it."""
+        if self.sequential:
+            return
+        for ev in self._sent.pop((r, slot), []):
+            self.compute[r].wait_event(ev)
+        ack = torch.cuda.Event()
+        ack.record(self.compute[r])
+        self._ack[(r, slot)] = ack
+
+    def finish(self) -> None:
+        """The caller's stream waits on every rank's streams."""
+        if self.sequential:
+            return
+        for r, d in enumerate(self.devices):
+            caller = torch.cuda.current_stream(d)
+            for s in (self.compute[r], self.copy[r]):
+                ev = torch.cuda.Event()
+                ev.record(s)
+                caller.wait_event(ev)

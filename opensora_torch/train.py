@@ -41,9 +41,16 @@ def fit_null_txt(null_txt: torch.Tensor, txt_len: int) -> torch.Tensor:
 
 
 class Trainer:
-    """Models, train state and the per-batch body of the training loop."""
+    """Models, train state and the per-batch body of the training loop.
+    ``mesh`` (``opensora_torch.parallel.mesh``) becomes the process's mesh,
+    as the JAX train script sets its mesh, so that a model whose
+    ``attn_backend`` is sequence-parallel ("ring_rdma", "ring", "ulysses")
+    runs its attention over the mesh's 'sp' ranks. The parameters, the
+    optimizer state and the batch stay whole on ``device``: FSDP, data
+    sharding and PP wait for the multi-GPU slice."""
 
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, mesh=None):
+        from opensora_torch.parallel.context import set_mesh
         from opensora_torch.training.diffusion import TrainState, make_train_step
         from opensora_torch.training.lora import apply_lora, count_lora_params
         from opensora_torch.utils.api import prepare_models
@@ -53,6 +60,8 @@ class Trainer:
 
         self.cfg = cfg
         self.logger = create_logger()
+        if mesh is not None:
+            set_mesh(mesh)
         seed = cfg.get("seed", 42)
         self.model, self.ae, self.t5, self.clip = prepare_models(cfg, device=device, seed=seed)
         self.device = next(self.model.parameters()).device

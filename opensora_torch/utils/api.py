@@ -22,6 +22,7 @@ import opensora_torch.models.mmdit.model  # noqa: F401  (registers "flux")
 import opensora_torch.models.text.conditioner  # noqa: F401  (registers "text_embedder")
 from opensora_torch.models.mmdit.layers import DoubleStreamBlock, SingleStreamBlock
 from opensora_torch.ops.quant import quant_mode, quantize_as_built
+from opensora_torch.parallel.context import set_mesh
 from opensora_torch.registry import MODELS, build_module
 from opensora_torch.utils import sampling as S
 from opensora_torch.utils.config import DEFAULT_AE_SPATIAL_COMPRESSION
@@ -67,12 +68,18 @@ def _sync(device: torch.device) -> None:
 
 
 def prepare_api(model, model_ae, model_t5, model_clip,
-                spatial_compression: int = DEFAULT_AE_SPATIAL_COMPRESSION):
+                spatial_compression: int = DEFAULT_AE_SPATIAL_COMPRESSION, mesh=None):
     """Returns ``api_fn(opt, cond_type, seed, text, ...)`` -> video
     (B, 3, T, H, W), nominally in [-1, 1] and not clamped (saving clips), as
     in the JAX package. ``api_fn.generate`` is the step after the noise is
-    drawn."""
+    drawn. ``mesh`` (``opensora_torch.parallel.mesh``) becomes the process's
+    mesh, which the sequence-parallel attention backends
+    (``model.attn_backend`` "ring_rdma", "ring", "ulysses") run over; the TP
+    placement of the parameters the JAX package makes there waits for the TP
+    slice: the MMDiT stays whole on its device."""
     device = next(model.parameters()).device
+    if mesh is not None:
+        set_mesh(mesh)
 
     @torch.inference_mode()
     def generate(z: torch.Tensor, text, opt: S.SamplingOption, cond_type: str = "t2v", neg=None,

@@ -38,10 +38,12 @@ def test_port_imports_nothing_of_jax(path):
 
 
 def test_scan_covers_every_module_of_the_port():
-    """The scan finds each slice's modules, the VAE training slice's among
-    them, so a new module cannot slip past it."""
+    """The scan finds each slice's modules, the VAE training slice's and the
+    sequence-parallel slice's among them, so a new module cannot slip past
+    it."""
     scanned = {os.path.relpath(p, REPO) for p in _port_files()}
     for module in ("inference.py", "train.py", "train_vae.py", "training/vae.py", "models/cast_layers.py",
                    "models/dc_ae/model.py", "models/dc_ae/ops.py", "models/vae2d/losses.py",
-                   "models/vae2d/discriminator.py", "models/vae2d/lpips.py", "ops/int8_flash.py"):
+                   "models/vae2d/discriminator.py", "models/vae2d/lpips.py", "ops/int8_flash.py",
+                   "parallel/mesh.py", "parallel/context.py", "parallel/comm.py", "ops/ring_flash.py", "ops/sp.py"):
         assert os.path.join("opensora_torch", module) in scanned, module

@@ -315,3 +315,96 @@ def test_int8_attention_kernel_matches_plain_on_cuda(pv_int8, shape, scale, bloc
     ref = tint8.int8_flash_attention_ref(q, k, v, block_k=block_k, pv_int8=pv_int8)
     err = (out.float() - ref).abs().max().item()
     assert torch.isfinite(out).all() and err <= INT8_ATTN_RTOL * ref.abs().max().item(), err
+
+
+# ----------------------------------------------------------------------
+# ring flash attention (csrc/ring_flash_attention.cu)
+# ----------------------------------------------------------------------
+
+from opensora_torch.ops import ring_flash as tring  # noqa: E402
+from opensora_torch.parallel.mesh import MeshConfig, create_mesh  # noqa: E402
+
+RING_KERNELS = (tring.KERNEL_FWD, tring.KERNEL_DKV, tring.KERNEL_DQ)
+
+
+def _ring_mesh(device, sp=4):
+    return create_mesh(MeshConfig(dp_size=1, sp_size=sp, tp_size=1), [torch.device(device)] * sp)
+
+
+def test_ring_on_cpu_takes_plain_hops_without_launching():
+    """CPU tensors go through the plain hops (over 4 logical CPU ranks) and
+    launch nothing; the result is the dense attention's, causal at global
+    offsets, at a local length that fills no tile."""
+    shape, cb = (1, 2, 4 * 37, 32), 24
+    q, k, v = (torch.from_numpy(_np(shape, s)) for s in (5, 6, 7))
+    before = dict(_build.LAUNCHES)
+    out, lse = tring.ring_flash_attention(q, k, v, _ring_mesh("cpu"), causal_block=cb)
+    ref, ref_lse = tflash.flash_attention_ref(q, k, v, None, cb)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+    assert _build.LAUNCHES == before
+
+
+def test_ring_kernel_input_checks():
+    """What the hop kernels do not take raises before any launch, naming it."""
+    q = torch.zeros((1, 2, 64, 128), dtype=torch.bfloat16)
+    f = torch.zeros((1, 2, 64), dtype=torch.float32)
+    tring._check(bf16=(("q", q), ("k", q)), fp32=(("lse", f),), like=q)
+    with pytest.raises(TypeError, match="bf16"):
+        tring._check(bf16=(("k", q.float()),), like=q)
+    with pytest.raises(ValueError, match="128"):
+        tring._check(bf16=(("k", torch.zeros((1, 2, 64, 64), dtype=torch.bfloat16)),), like=q)
+    with pytest.raises(TypeError, match="fp32"):
+        tring._check(fp32=(("acc", q),), like=q)
+    with pytest.raises(ValueError, match="contiguous"):
+        tring._check(bf16=(("k", q.transpose(2, 3).contiguous().transpose(2, 3)),), like=q)
+    with pytest.raises(ValueError, match="split"):
+        tring.ring_flash_attention(q[:, :, :62], q[:, :, :62], q[:, :, :62], _ring_mesh("cpu"))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tring._route(q.to("meta"))
+
+
+# (global shape, causal_block) over 4 logical ranks on one card: local
+# lengths 250 and 1000 fill no 64-row tile; frames of 96 cut by the shard
+# edges. Forward to 8e-3 of the output's scale and the LSE to 1e-3, the
+# gradients to 1e-2 of their scales, as the flash kernels.
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal_block", [((2, 3, 1000, 128), None), ((1, 2, 4000, 128), 96)])
+def test_ring_kernels_match_plain_ring_on_cuda(shape, causal_block):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from opensora_torch.parallel.comm import gather, shard
+
+    mesh = _ring_mesh("cuda")
+    devices = tring.ring_devices(mesh, "sp")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(4))
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    before = dict(_build.LAUNCHES)
+    out, lse = tring.ring_flash_attention(qg, kg, vg, mesh, causal_block=causal_block)
+    grads = torch.autograd.grad(out, (qg, kg, vg), do)
+    torch.cuda.synchronize()
+    for name in RING_KERNELS:  # 16 (rank, hop) launches a call
+        assert _build.LAUNCHES[name] == before.get(name, 0) + 16, name
+    sm = shape[-1] ** -0.5
+    parts = [shard(x, 2, devices) for x in (q, k, v)]
+    outs, lses = tring.ring_forward_shards(*parts, sm_scale=sm, causal_block=causal_block, plain=True)
+    ref, ref_lse = gather(outs, 2, q.device).float(), gather(lses, 2, q.device)
+    assert (out.float() - ref).abs().max().item() <= 8e-3 * ref.abs().max().item()
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    ref_g = tring.ring_backward_shards(*parts, shard(out.detach(), 2, devices), shard(lse, 2, devices),
+                                       shard(do, 2, devices), sm_scale=sm, causal_block=causal_block, plain=True)
+    for name, g, w in zip("qkv", grads, ref_g):
+        w = gather(w, 2, q.device).float()
+        assert (g.float() - w).abs().max().item() <= BWD_RTOL * w.abs().max().item(), name
+
+
+@pytest.mark.cuda
+def test_ring_on_cuda_raises_where_the_kernel_cannot_run():
+    """A CUDA call never takes the plain hops: a head dim the kernels were
+    not built for raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    q = torch.zeros((1, 2, 256, 64), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="128"):
+        tring.ring_flash_attention(q, q, q, _ring_mesh("cuda"))
