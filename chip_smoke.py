@@ -6,10 +6,11 @@ Phases, one line each; any failure exits non-zero:
   1. build every CUDA kernel source in this checkout (one nvcc per source,
      all started together; sm_90a);
   2. hold each kernel against its plain PyTorch version at the shapes the
-     main paths give it -- the flash-attention forward, and the two
-     backward kernels (dkv, dq) -- show that the limits reject known-wrong
-     outputs, and time kernel, plain version, the PyTorch library call that
-     computes the same function, and the card's bound;
+     main paths give it -- the flash-attention forward, and (phase 2b) the
+     D = 128 backward: the fused wgmma/TMA kernel and its dQ epilogue
+     kernel -- show that the limits reject known-wrong outputs, and time
+     kernel, plain version, the PyTorch library call that computes the same
+     function, and the card's bound;
   3. check the main paths' models at full width on a small input: the
      card's bf16 path (kernels) against the plain fp32 path on the CPU, for
      inference and for a LoRA train step (loss and LoRA gradients);
@@ -45,6 +46,14 @@ Phase 2c holds the W8A8 GEMM (both instantiations) and the int8 attention
 kernel (both modes, both loops) against their plain versions at the int8
 path's shapes, with known-wrong outputs and timings; phase 3b checks the
 full-width int8 model on a small input against the CPU's plain int8 path.
+Phase 2b holds the fused D = 128 backward (flash_attention_bwd_fused +
+flash_attention_bwd_dq_convert) against the plain backward at the MMDiT
+shape (3, 24, 8828, 128) and two tails (L = 1000, bidirectional and
+frames of 96), with known-wrong gradients (delta left out, sm_scale
+missing from dK, the tail tile skipped, one 128-key block's dQ
+contribution dropped or added twice, dK/dV from the neighbouring query
+tile's dO) and times of the kernel, the epilogue and the whole
+partial_flash_backward call.
 Phase 2d holds the D = 512 backward kernels against the plain backward at
 the VAE mid-block's shape (1, 1, 9216, 512), causal_block 1024, and at a
 tail (L = 1000, causal_block 96), with known-wrong gradients and timings;
@@ -312,20 +321,37 @@ def check_attention(device) -> dict:
 # ----------------------------------------------------------------------
 
 # products of 2 * B * H * D * visible pairs flops each: dkv recomputes S and
-# computes dV, dP, dK; dq recomputes S and dP and computes dQ; the minimal
-# backward (S, dV, dP, dK, dQ) is 5
-BWD_PRODUCTS = {"flash_attention_bwd_dkv": 4, "flash_attention_bwd_dq": 3, "minimal": 5}
+# computes dV, dP, dK; dq recomputes S and dP and computes dQ; the fused
+# kernel (D = 128) computes the minimal backward's 5 (S, dV, dP, dK, dQ)
+BWD_PRODUCTS = {"flash_attention_bwd_dkv": 4, "flash_attention_bwd_dq": 3, "flash_attention_bwd_fused": 5,
+                "minimal": 5}
+
+
+def dq_accum_rows(l: int) -> int:
+    """Rows of the fused kernel's dq_accum: L padded to its query tile."""
+    from opensora_torch.ops.flash_attention import FUSED_BLOCK_M
+
+    return -(-l // FUSED_BLOCK_M) * FUSED_BLOCK_M
 
 
 def bwd_bound(kernel, b, h, l, d, causal_block):
     """(least ms on the card, "operations" or "bytes") for one backward
     kernel (or the minimal backward): its products at the bf16 peak, or its
-    inputs read and outputs written once at the memory rate."""
+    inputs read and outputs written once at the memory rate (q, k, v, dO,
+    LSE and delta in; its gradients out, bf16, and for the fused kernel the
+    fp32 dq_accum)."""
     flops = BWD_PRODUCTS[kernel] * 2.0 * b * h * d * visible_pairs(l, l, causal_block)
-    n_out = {"flash_attention_bwd_dkv": 2, "flash_attention_bwd_dq": 1, "minimal": 3}[kernel]
-    nbytes = 2.0 * b * h * l * d * (4 + n_out) + 2 * 4.0 * b * h * l  # q, k, v, dO in; lse, delta
+    out_bytes = {"flash_attention_bwd_dkv": 2 * 2 * l, "flash_attention_bwd_dq": 2 * l, "minimal": 3 * 2 * l,
+                 "flash_attention_bwd_fused": 2 * 2 * l + 4 * dq_accum_rows(l)}[kernel]
+    nbytes = b * h * d * (4 * 2.0 * l + out_bytes) + 2 * 4.0 * b * h * l
     flops_s, bytes_s = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     return 1e3 * max(flops_s, bytes_s), ("operations" if flops_s >= bytes_s else "bytes")
+
+
+def dq_convert_bound(b, h, l, d):
+    """(least ms, "bytes") of the dQ epilogue: dq_accum (fp32) read and dq
+    (bf16) written once at the memory rate; one multiply an element."""
+    return 1e3 * b * h * d * (4.0 * dq_accum_rows(l) + 2.0 * l) / PEAK_BYTES, "bytes"
 
 
 def plain_bwd_chunked(fa, q, k, v, do, lse, delta, causal_block, heads_per_chunk):
@@ -342,8 +368,11 @@ def bwd_mutant_readings(fa, q, k, v, do, lse, delta, causal_block, heads_per_chu
     """What the check reads (worst of dq, dk, dv as max|err| / max|ref|)
     for gradients a faulty backward could give: delta left out of dS;
     sm_scale missing from dK; the last 64-row tile of queries and keys
-    skipped (its rows of the gradients left at 0); for D = 512, the first two
-    128-column slices of the D split swapped, and the last one skipped."""
+    skipped (its rows of the gradients left at 0); for D = 128 (the fused
+    kernel), one 128-key block's dQ contribution dropped or added twice, and
+    dK, dV computed with the neighbouring 64-row query tile's dO; for D =
+    512, the first two 128-column slices of the D split swapped, and the
+    last one skipped."""
     scales = [r.abs().max().item() for r in ref]
 
     def reading(grads):
@@ -361,6 +390,19 @@ def bwd_mutant_readings(fa, q, k, v, do, lse, delta, causal_block, heads_per_chu
         "dk_without_sm_scale": reading((ref[0], ref[1] * math.sqrt(q.shape[-1]), ref[2])),
         "tail_tile_skipped": reading(pad),
     }
+    if q.shape[-1] == 128:  # the fused kernel: one key block's dQ reduce-add lost or doubled, a tile's dO misread
+        # Zeroing that block's keys zeroes its terms dS K of dQ and leaves the
+        # others (P comes from the external LSE).
+        n0 = 128 if k.shape[2] > 256 else 0
+        k_cut = k.clone()
+        k_cut[:, :, n0:n0 + 128] = 0
+        dq_rest = plain_bwd_chunked(fa, q, k_cut, v, do, lse, delta, causal_block, heads_per_chunk)[0]
+        del k_cut
+        res["dq_key_block_dropped"] = reading((dq_rest, ref[1], ref[2]))
+        res["dq_key_block_added_twice"] = reading((2 * ref[0] - dq_rest, ref[1], ref[2]))
+        del dq_rest
+        _, dk_n, dv_n = plain_bwd_chunked(fa, q, k, v, do.roll(64, dims=2), lse, delta, causal_block, heads_per_chunk)
+        res["dkv_from_neighbour_do_tile"] = reading((ref[0], dk_n, dv_n))
     if q.shape[-1] > 128:  # the D split over blocks: one block's 128 columns swapped or never written
 
         def swapped(g):
@@ -398,36 +440,75 @@ BWD_D512_CASES = [
 
 
 def check_attention_bwd(device, cases_in=BWD_CASES, seed: int = 2) -> dict:
+    """Phase 2b (D = 128: the fused kernel and its dQ epilogue) and 2d (D =
+    512: the dkv and dq kernels): the backward against the plain backward,
+    known-wrong gradients, times beside the bounds, the plain backward and
+    SDPA's backward."""
     from opensora_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=device).manual_seed(seed)
     cases = []
     for name, (b, h, l, d), cb in cases_in:
+        fused = d == fa.FUSED_HEAD_DIM
+        kernels = (fa.KERNEL_FUSED, fa.KERNEL_DQ_CONVERT) if fused else (fa.KERNEL_DKV, fa.KERNEL_DQ)
         shape = (b, h, l, d)
         q, k, v, do = (torch.randn(shape, generator=gen, device=device).to(torch.bfloat16) for _ in range(4))
         heads_per_chunk = max(1, (1 << 30) // (l * l * 4 * b))
         out, lse = plain_chunked(fa, q, k, v, cb, heads_per_chunk)
         delta = (do.float() * out).sum(-1)
-        del out
+        out = out.to(torch.bfloat16)  # the forward's output as FlashAttentionFunction saves it (call_ms)
         kw = dict(sm_scale=1.0 / math.sqrt(d), causal_block=cb)
-        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
-        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
-        torch.cuda.synchronize()
+        extra = {}
+        if fused:
+            acc, dk, dv = fa.flash_attention_bwd_fused_accum(q, k, v, do, lse, delta, **kw)
+            dq = fa.flash_attention_bwd_dq_convert(acc, l, sm_scale=kw["sm_scale"])
+            torch.cuda.synchronize()
+            # the epilogue against its plain version on the same dq_accum: the
+            # same fp32 multiply and bf16 rounding, so equal
+            convert_err = (dq.float() - fa.flash_attention_bwd_dq_convert_ref(acc, l, kw["sm_scale"]).float()).abs().max().item()
+            extra["dq_convert_max_abs_err"] = convert_err
+            # dQ's sum is added in an order that changes from run to run:
+            # the spread of a second run, fp32 dq_accum and bf16 dq, of max|.|
+            acc2 = fa.flash_attention_bwd_fused_accum(q, k, v, do, lse, delta, **kw)[0]
+            dq2 = fa.flash_attention_bwd_dq_convert(acc2, l, sm_scale=kw["sm_scale"])
+            extra["run_spread"] = {"dq_accum": ((acc2 - acc).abs().max() / acc.abs().max()).item(),
+                                   "dq": ((dq2.float() - dq.float()).abs().max() / dq.float().abs().max()).item()}
+            del acc, acc2, dq2
+        else:
+            dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+            dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+            torch.cuda.synchronize()
         ref = plain_bwd_chunked(fa, q, k, v, do, lse, delta, cb, heads_per_chunk)
         errs = {n: (g.float() - r).abs().max().item() for n, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref)}
         scales = {n: r.abs().max().item() for n, r in zip(("dq", "dk", "dv"), ref)}
         rel = {n: errs[n] / scales[n] for n in errs}
         ok = all(math.isfinite(e) and r <= BWD_RTOL for e, r in zip(errs.values(), rel.values()))
+        ok = ok and extra.get("dq_convert_max_abs_err", 0.0) == 0.0
         mutants = bwd_mutant_readings(fa, q, k, v, do, lse, delta, cb, heads_per_chunk, ref)
         caught = all(r > BWD_RTOL for r in mutants.values())
         del ref, dq, dk, dv
 
         big = l * l * b * h > 1e8
         iters = 5 if big else 20
-        times = {
-            "flash_attention_bwd_dkv": time_cuda(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw), iters),
-            "flash_attention_bwd_dq": time_cuda(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw), iters),
-        }
+        if fused:
+            acc = fa.flash_attention_bwd_fused_accum(q, k, v, do, lse, delta, **kw)[0]
+            times = {
+                fa.KERNEL_FUSED: time_cuda(lambda: fa.flash_attention_bwd_fused_accum(q, k, v, do, lse, delta, **kw), iters),
+                fa.KERNEL_DQ_CONVERT: time_cuda(lambda: fa.flash_attention_bwd_dq_convert(acc, l, sm_scale=kw["sm_scale"]), iters),
+            }
+            # what the fused wrapper's time includes besides the kernel
+            extra["dq_accum_zero_fill_ms"] = time_cuda(lambda: torch.zeros_like(acc), iters)
+            extra["dq_convert_plain_ms"] = time_cuda(
+                lambda: fa.flash_attention_bwd_dq_convert_ref(acc, l, kw["sm_scale"]), iters)
+            del acc
+        else:
+            times = {
+                fa.KERNEL_DKV: time_cuda(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw), iters),
+                fa.KERNEL_DQ: time_cuda(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw), iters),
+            }
+        # the whole backward as FlashAttentionFunction runs it: delta, then the kernels
+        call_ms = time_cuda(lambda: fa.partial_flash_backward(q, k, v, do, lse, (do.float() * out.float()).sum(-1),
+                                                              **kw), iters)
         plain_ms = time_cuda(lambda: plain_bwd_chunked(fa, q, k, v, do, lse, delta, cb, heads_per_chunk),
                              1 if big else 3, warmup=0)
         mask = None
@@ -435,26 +516,31 @@ def check_attention_bwd(device, cases_in=BWD_CASES, seed: int = 2) -> dict:
             idx = torch.arange(l, device=device) // cb
             mask = idx[None, :] <= idx[:, None]
         library_ms = sdpa_backward_ms(q, k, v, do, mask, iters)
-        bounds = {n: bwd_bound(n, b, h, l, d, cb) for n in BWD_PRODUCTS}
+        bounds = {n: bwd_bound(n, b, h, l, d, cb) for n in (*kernels[:1 if fused else 2], "minimal")}
+        if fused:
+            bounds[fa.KERNEL_DQ_CONVERT] = dq_convert_bound(b, h, l, d)
         case = dict(name=name, shape=list(shape), causal_block=cb, max_abs_err=errs, ref_max_abs=scales,
-                    rel_err=rel, mutants=mutants, ms=times, plain_ms=plain_ms, library_ms=library_ms,
-                    bound_ms={n: bd[0] for n, bd in bounds.items()}, bound_by={n: bd[1] for n, bd in bounds.items()})
+                    rel_err=rel, mutants=mutants, ms=times, call_ms=call_ms, plain_ms=plain_ms, library_ms=library_ms,
+                    bound_ms={n: bd[0] for n, bd in bounds.items()}, bound_by={n: bd[1] for n, bd in bounds.items()},
+                    **extra)
         cases.append(case)
         log(
-            f"[kernels] flash_attention_bwd {name} {shape} cb={cb} "
+            f"[kernels] flash_attention_bwd {name} {shape} cb={cb} ({' + '.join(kernels)}) "
             f"dq/dk/dv max|err|/max|ref| = {rel['dq']:.3e}/{rel['dk']:.3e}/{rel['dv']:.3e} (tol {BWD_RTOL}) "
-            f"wrong gradients: " + ", ".join(f"{n} {r:.3e}" for n, r in mutants.items())
+            + (f"dq epilogue vs its plain version max|err| {extra['dq_convert_max_abs_err']} (tol 0) run-to-run "
+               f"spread of max|.|: dq_accum {extra['run_spread']['dq_accum']:.3e} dq {extra['run_spread']['dq']:.3e} "
+               if fused else "")
+            + "wrong gradients: " + ", ".join(f"{n} {r:.3e}" for n, r in mutants.items())
             + f" {'rejected' if caught else 'NOT REJECTED'} "
-            f"dkv_ms={times['flash_attention_bwd_dkv']:.3f} dq_ms={times['flash_attention_bwd_dq']:.3f} "
-            f"bound_ms dkv/dq/minimal={bounds['flash_attention_bwd_dkv'][0]:.3f}/"
-            f"{bounds['flash_attention_bwd_dq'][0]:.3f}/{bounds['minimal'][0]:.3f} "
-            f"plain_ms={plain_ms:.3f} sdpa_bwd_ms={library_ms:.3f} {'OK' if ok and caught else 'FAIL'}"
+            + " ".join(f"{n}_ms={t:.3f}" for n, t in times.items())
+            + f" call_ms={call_ms:.3f} bound_ms " + " ".join(f"{n}={bd[0]:.3f}" for n, bd in bounds.items())
+            + f" plain_ms={plain_ms:.3f} sdpa_bwd_ms={library_ms:.3f} {'OK' if ok and caught else 'FAIL'}"
         )
         if not ok:
-            raise AssertionError(f"the backward kernels disagree with the plain backward at {name}")
+            raise AssertionError(f"the backward kernels disagree with their plain versions at {name}")
         if not caught:
             raise AssertionError(f"the limit at {name} does not reject a known-wrong backward")
-        del q, k, v, do, lse, delta, mask
+        del q, k, v, do, lse, delta, out, mask
         torch.cuda.empty_cache()
     return {"cases": cases}
 
@@ -997,6 +1083,8 @@ KERNEL_KINDS = [  # first match wins: int8_flash_fwd_kernel before flash_fwd_ker
     ("ring_flash_bwd_dq", ("ring_bwd_dq_kernel",)),
     ("w8a8_gemm", ("w8a8_gemm_kernel",)),
     ("flash_attention_fwd", ("flash_fwd_kernel",)),
+    ("flash_attention_bwd_fused", ("flash_bwd_fused_kernel",)),
+    ("flash_attention_bwd_dq_convert", ("flash_bwd_dq_convert_kernel",)),
     ("flash_attention_bwd_dkv", ("flash_bwd_dkv_kernel",)),
     ("flash_attention_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("conv (cuDNN)", ("conv", "fprop", "cudnn", "dgrad", "wgrad")),
@@ -1276,10 +1364,14 @@ def check_train_small_input(device, mesh=None) -> dict:
     del card, cpu
     torch.cuda.empty_cache()
     ok = res["loss_rel_err"] <= SMALL_TOL and res["grad_rel_err_max"] <= TRAIN_GRAD_TOL
-    if mesh is not None:  # 2 blocks: forward (and recompute with remat), backward; 16 launches each
+    n_fwd = 4 if mcfg.get("remat") else 2  # 2 blocks: forward (and recompute with remat), backward
+    if mesh is not None:  # 16 launches each
         hops = RING_SP * RING_SP
-        ok = ok and launches == {"ring_flash_fwd": (4 if mcfg.get("remat") else 2) * hops,
-                                 "ring_flash_bwd_dkv": 2 * hops, "ring_flash_bwd_dq": 2 * hops}
+        ok = ok and launches == {"ring_flash_fwd": n_fwd * hops, "ring_flash_bwd_dkv": 2 * hops,
+                                 "ring_flash_bwd_dq": 2 * hops}
+    else:
+        ok = ok and launches == {"flash_attention_fwd": n_fwd, "flash_attention_bwd_fused": 2,
+                                 "flash_attention_bwd_dq_convert": 2}
     log(f"[small] LoRA train step{f' (ring_rdma over {RING_SP} logical ranks)' if mesh is not None else ''}, "
         f"full-width MMDiT depth 1+1 (B=3, {n_img + lt} tokens, r={rank}), card bf16 + "
         f"kernels vs CPU fp32 plain: {json.dumps(res)} (tol loss {SMALL_TOL}, each LoRA gradient "
@@ -1332,7 +1424,7 @@ def run_train_path(device, profile: bool = False, out_dir=None) -> dict:
         times = trainer.timers.to_dict()
         n_vae = TRAIN_BATCH + single_frame_encodes(trainer.mask_conds)  # one mid-block attention per encode
         expect = {"flash_attention_fwd": 2 * n_blocks + n_vae,  # forward, recompute, VAE encodes
-                  "flash_attention_bwd_dkv": n_blocks, "flash_attention_bwd_dq": n_blocks}
+                  "flash_attention_bwd_fused": n_blocks, "flash_attention_bwd_dq_convert": n_blocks}
         rec = dict(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
                    lora_b_norm=float(global_norm(b_factors)), mask_conds=trainer.mask_conds,
                    lr=trainer.state.optimizer.adamw.param_groups[0]["lr"], launches=launches, expected=expect,
@@ -1701,8 +1793,8 @@ def main(argv) -> int:
 
     from opensora_torch.ops import _build
 
-    sources = ("flash_attention_fwd", "flash_attention_bwd", "int8_matmul", "int8_flash_attention",
-               "ring_flash_attention")
+    sources = ("flash_attention_fwd", "flash_attention_bwd_sm90", "flash_attention_bwd", "int8_matmul",
+               "int8_flash_attention", "ring_flash_attention")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         built = dict(zip(sources, pool.map(_build.build, sources)))
     for name, (seconds, _) in built.items():
@@ -1775,21 +1867,39 @@ def main(argv) -> int:
         cases=attn["cases"],
     )]
     bwd_head = attn_bwd["cases"][0]  # the MMDiT shape
-    for name, line in (("flash_attention_bwd_dkv", 425), ("flash_attention_bwd_dq", 497)):
-        grads = ("dk", "dv") if name.endswith("dkv") else ("dq",)
-        kernels.append(dict(
-            name=name,
-            route="cuda",
-            source="opensora_torch/csrc/flash_attention_bwd.cu",
-            replaces=f"opensora_tpu/ops/flash_attention.py:{line}",
-            launches=train_res["launches"][name],
-            max_abs_err=max(c["max_abs_err"][g] for c in attn_bwd["cases"] for g in grads),
-            ms=bwd_head["ms"][name], plain_ms=bwd_head["plain_ms"], bound_ms=bwd_head["bound_ms"][name],
-            bound_by=bwd_head["bound_by"][name], library_ms=bwd_head["library_ms"],
-            plain_and_library_compute="dq, dk and dv (the whole backward)",
-            minimal_backward_bound_ms=bwd_head["bound_ms"]["minimal"],
-            cases=attn_bwd["cases"],
-        ))
+    kernels.append(dict(
+        name="flash_attention_bwd_fused",
+        route="cuda",
+        source="opensora_torch/csrc/flash_attention_bwd_sm90.cu",
+        replaces="opensora_tpu/ops/flash_attention.py:425",
+        also_replaces="opensora_tpu/ops/flash_attention.py:497 (dQ's sum; the epilogue kernel finishes it)",
+        head_dim=128,
+        launches=train_res["launches"]["flash_attention_bwd_fused"],
+        max_abs_err=max(c["max_abs_err"][g] for c in attn_bwd["cases"] for g in ("dq", "dk", "dv")),
+        max_abs_err_is="dq (after the epilogue), dk and dv against the plain backward",
+        ms=bwd_head["ms"]["flash_attention_bwd_fused"],
+        ms_includes=f"zeroing dq_accum ({bwd_head['dq_accum_zero_fill_ms']:.3f} ms alone)",
+        call_ms=bwd_head["call_ms"], call_is="partial_flash_backward with delta: both kernels and the wrappers",
+        plain_ms=bwd_head["plain_ms"], bound_ms=bwd_head["bound_ms"]["flash_attention_bwd_fused"],
+        bound_by=bwd_head["bound_by"]["flash_attention_bwd_fused"], library_ms=bwd_head["library_ms"],
+        plain_and_library_compute="dq, dk and dv (the whole backward)",
+        minimal_backward_bound_ms=bwd_head["bound_ms"]["minimal"],
+        cases=attn_bwd["cases"],
+    ))
+    kernels.append(dict(
+        name="flash_attention_bwd_dq_convert",
+        route="cuda",
+        source="opensora_torch/csrc/flash_attention_bwd_sm90.cu",
+        replaces="opensora_tpu/ops/flash_attention.py:497 (the finalize of _dq_kernel: dq_scr * sm_scale to bf16)",
+        head_dim=128,
+        launches=train_res["launches"]["flash_attention_bwd_dq_convert"],
+        max_abs_err=max(c["dq_convert_max_abs_err"] for c in attn_bwd["cases"]),
+        max_abs_err_is="against its plain version on the same dq_accum",
+        ms=bwd_head["ms"]["flash_attention_bwd_dq_convert"], plain_ms=bwd_head["dq_convert_plain_ms"],
+        bound_ms=bwd_head["bound_ms"]["flash_attention_bwd_dq_convert"],
+        bound_by=bwd_head["bound_by"]["flash_attention_bwd_dq_convert"],
+        library_ms=None, library="none: no one PyTorch call reorders, scales and rounds",
+    ))
     d512_head = attn_bwd_d512["cases"][0]  # the HunyuanVAE mid-block in VAE training
     for name, line in (("flash_attention_bwd_dkv", 425), ("flash_attention_bwd_dq", 497)):
         grads = ("dk", "dv") if name.endswith("dkv") else ("dq",)

@@ -1,8 +1,10 @@
-// Flash-attention backward for Hopper (sm_90a): two kernels, bf16 in/out,
-// fp32 accumulation.
+// Flash-attention backward at head dim 512 (the HunyuanVAE mid-block: one
+// head, frame-causal) for Hopper (sm_90a): two kernels, bf16 in/out, fp32
+// accumulation. Head dim 128 (the MMDiT) runs the fused wgmma/TMA kernel
+// of csrc/flash_attention_bwd_sm90.cu instead.
 //
 // Replaces the two Pallas TPU backward kernels of
-// opensora_tpu/ops/flash_attention.py:
+// opensora_tpu/ops/flash_attention.py at D = 512:
 //   - _dkv_kernel (:425)  dV = sum_q P^T dO,  dK = sm_scale * sum_q dS^T Q
 //   - _dq_kernel  (:497)  dQ = sm_scale * sum_k dS K
 // with P recomputed from the forward's LSE and dS = P * (dP - delta),
@@ -22,42 +24,30 @@
 // VMEM scratch across the last grid axis. Here that axis is a loop inside
 // the block:
 //   dkv: one block of 4 warps owns 64 key rows (16 per warp) of one (b, h)
-//        and walks the query rows in steps of 32. Each warp works on the
-//        transposed scores S^T = K Q^T (16 keys x 32 queries), so the dK and
-//        dV sums of its 16 key rows stay in its registers. Those two fp32
-//        accumulators take 2 x 64 = 128 registers a thread at D = 128; the
-//        query step is 32 (not 64) so the score and dP tiles take 16
-//        registers each and nothing spills.
+//        and walks the query rows in steps of 16. Each warp works on the
+//        transposed scores S^T = K Q^T, so the dK and dV sums of its 16 key
+//        rows stay in its registers.
 //   dq:  one block of 4 warps owns 64 query rows (16 per warp) and walks
-//        the keys in steps of 64, as the forward does.
-// Q / dO (dkv) and K / V (dq) tiles are double-buffered with cp.async.
-//
-// D = 512 (the HunyuanVAE mid-block: one head, frame-causal) would need
-// 512-column fp32 accumulators per warp, 4x the registers a thread has. As
-// in the D = 512 forward, the gradient's D is split over D / 128 = 4 blocks
-// (grid z): each block recomputes S^T (dkv) or S (dq) and dP over the full
-// D from shared memory and keeps one 128-column slice of dK / dV (dkv) or
-// dQ (dq) in registers. Keeping the accumulators in shared memory instead
-// would take 64 x 512 x 4 B x 2 = 256 KB for dkv, above the 227 KB a block
-// may have. The resident 64-row tiles at D = 512 take 133 KB, so the
-// streamed tiles shrink to 16 rows (query steps in dkv, key steps in dq),
-// still double-buffered: 195 KB of shared memory, one block per SM.
+//        the keys in steps of 16, as the forward does.
+// 512-column fp32 accumulators per warp would take 4x the registers a
+// thread has. As in the D = 512 forward, the gradient's D is split over
+// D / 128 = 4 blocks (grid z): each block recomputes S^T (dkv) or S (dq)
+// and dP over the full D from shared memory and keeps one 128-column slice
+// of dK / dV (dkv) or dQ (dq) in registers. Keeping the accumulators in
+// shared memory instead would take 64 x 512 x 4 B x 2 = 256 KB for dkv,
+// above the 227 KB a block may have. The resident 64-row tiles take 133 KB,
+// so the streamed tiles are 16 rows (query steps in dkv, key steps in dq),
+// double-buffered with cp.async: 195 KB of shared memory, one block per SM.
 // Frame-causal calls (causal_block) skip the query steps (dkv) and key
 // tiles (dq) that the mask hides wholly.
 //
-// What bounds it: at the MMDiT shape (B=3, H=24, L=8828, D=128) the two
-// kernels do 7 products of 2*B*H*L^2*D = 1.44 TFLOP each (dkv: S, dV, dP,
-// dK; dq: S, dP, dQ), 10.1 TFLOP, on 0.98 GB of q/k/v/dO/dq/dk/dv: ~10^4
-// flops per byte, far above the H100's ~295, so tensor-core operations
-// bound it (10.2 ms at 989 TFLOP/s; the minimal backward, 5 products, is
-// 7.3 ms). mma.sync from shared memory; wgmma/TMA are for a later change.
-//
-// At the VAE mid-block's shape (1, 1, 9216, 512), causal_block 1024, the
-// mask leaves 47.2 M (query, key) pairs: dkv's 4 products take 0.20 ms and
-// dq's 3 take 0.15 ms at 989 TFLOP/s, on 57 MB of inputs and outputs (17
-// us at 3.35 TB/s), so operations bound it too. The D split recomputes S
-// and dP in each of the 4 blocks: 10 products' work where 4 are needed in
-// dkv, 9 where 3 are needed in dq.
+// What bounds it: at the VAE mid-block's shape (1, 1, 9216, 512),
+// causal_block 1024, the mask leaves 47.2 M (query, key) pairs: dkv's 4
+// products take 0.20 ms and dq's 3 take 0.15 ms at 989 TFLOP/s, on 57 MB of
+// inputs and outputs (17 us at 3.35 TB/s), so operations bound it. The D
+// split recomputes S and dP in each of the 4 blocks: 10 products' work
+// where 4 are needed in dkv, 9 where 3 are needed in dq. mma.sync from
+// shared memory.
 //
 // Layout: q, k, v, dout, dq, dk, dv are (B, H, L, D) contiguous bf16; lse
 // and delta are (B, H, Lq) fp32.
@@ -72,17 +62,9 @@ constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int DV = 128;      // gradient columns per block (grid z splits D)
 
-constexpr int KV_ROWS = 64;  // dkv: key rows per block
-constexpr int Q_ROWS = 64;   // dq: query rows per block
-// the streamed step: dkv's query rows and dq's keys per step
-template <int D>
-constexpr int step_rows(bool dkv) {
-  return D == 128 ? (dkv ? 32 : 64) : 16;
-}
-
-__device__ __forceinline__ float lse_log2_safe(float l) {
-  return l <= NEG_INF * 0.5f ? 0.f : l * LOG2E;
-}
+constexpr int KV_ROWS = 64;   // dkv: key rows per block
+constexpr int Q_ROWS = 64;    // dq: query rows per block
+constexpr int STEP_ROWS = 16; // the streamed step: dkv's query rows and dq's keys
 
 template <int D, int Q_STEP, bool CAUSAL>
 __global__ void __launch_bounds__(NTHREADS)
@@ -432,7 +414,7 @@ template <int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv, int BH, int Lq,
                        int Lk, float sm_scale, int causal_block, cudaStream_t stream) {
-  constexpr int Q_STEP = step_rows<D>(true);
+  constexpr int Q_STEP = STEP_ROWS;
   constexpr int RS = D + PAD;
   constexpr int smem = (2 * KV_ROWS * RS + 4 * Q_STEP * RS) * 2 + 4 * Q_STEP * 4;
   const bool causal = causal_block > 0;
@@ -453,7 +435,7 @@ template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, int BH, int Lq, int Lk,
                       float sm_scale, int causal_block, cudaStream_t stream) {
-  constexpr int KV_STEP = step_rows<D>(false);
+  constexpr int KV_STEP = STEP_ROWS;
   constexpr int RS = D + PAD;
   constexpr int smem = (2 * Q_ROWS * RS + 4 * KV_STEP * RS) * 2;
   const bool causal = causal_block > 0;
@@ -475,13 +457,13 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
 // q, k, v, dout: (B, H, L, D) bf16 contiguous; lse (natural log, from the
 // forward) and delta = rowsum(dout * out): (B, H, Lq) fp32. dk, dv (dkv) and
 // dq (dq) are written in the same layout as k, v and q. causal_block <= 0
-// means bidirectional. D = 128 and D = 512 are instantiated. Each returns the
+// means bidirectional. Only D = 512 is instantiated. Each returns the
 // cudaError_t of its launch (0 on success).
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                        const void* dout, const void* lse, const void* delta,
                                        void* dk, void* dv, int B, int H, int Lq, int Lk, int d,
                                        float sm_scale, int causal_block, void* stream) {
-  auto launch = d == 128 ? launch_dkv<128> : d == 512 ? launch_dkv<512> : nullptr;
+  auto launch = d == 512 ? launch_dkv<512> : nullptr;
   if (launch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return launch(q, k, v, dout, lse, delta, dk, dv, B * H, Lq, Lk, sm_scale, causal_block,
                 static_cast<cudaStream_t>(stream));
@@ -491,7 +473,7 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
                                       const void* dout, const void* lse, const void* delta,
                                       void* dq, int B, int H, int Lq, int Lk, int d,
                                       float sm_scale, int causal_block, void* stream) {
-  auto launch = d == 128 ? launch_dq<128> : d == 512 ? launch_dq<512> : nullptr;
+  auto launch = d == 512 ? launch_dq<512> : nullptr;
   if (launch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return launch(q, k, v, dout, lse, delta, dq, B * H, Lq, Lk, sm_scale, causal_block,
                 static_cast<cudaStream_t>(stream));

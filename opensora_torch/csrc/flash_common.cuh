@@ -1,6 +1,6 @@
 // Device helpers shared by the port's kernels (sm_90a): cp.async tile loads
 // with zero-fill, ldmatrix, the bf16 m16n8k16 and int8 m16n8k32 tensor-core
-// MMAs, bf16 packing and exp2.
+// MMAs, bf16 packing, exp2 and the backward's exp2-domain LSE.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A 16x16 row-major: a0 (row g, k 2t..2t+1), a1 (row g+8, k 2t..),
@@ -81,6 +81,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
+
+// The backward's LSE in the exp2 domain: lse * log2(e), with fully masked
+// rows (lse <= -5e29) anchored at 0 as the TPU kernels do.
+__device__ __forceinline__ float lse_log2_safe(float l) { return l <= NEG_INF * 0.5f ? 0.f : l * LOG2E; }
 
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;

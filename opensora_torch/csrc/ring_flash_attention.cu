@@ -74,10 +74,6 @@ __device__ __forceinline__ int frame_end(int row, int causal_block) {
   return (row / causal_block + 1) * causal_block;
 }
 
-__device__ __forceinline__ float lse_log2_safe(float l) {
-  return l <= NEG_INF * 0.5f ? 0.f : l * LOG2E;
-}
-
 // One hop of the forward: fold the keys of the current slot into the
 // rank's (m, l, acc); the first hop starts from (-inf, 0, 0), the last
 // writes out = acc / l and lse = m ln 2 + ln l instead of the state.

@@ -8,11 +8,14 @@ bound A = sm_scale * log2(e) * max|q| * max|k| is below 40, and the
 running-max loop otherwise. A is computed here on the device and read by
 the kernel, so no call syncs with the host.
 
-The backward (``csrc/flash_attention_bwd.cu``) is two kernels, ``dkv``
-and ``dq``, ports of ``_dkv_kernel`` and ``_dq_kernel``, at D = 128 (the
-MMDiT) and D = 512 (the VAE mid-block, D split over blocks): P is recomputed
-from the forward's LSE, delta = rowsum(dO * O) is plain torch (XLA fuses
-it beside the TPU kernels). :class:`FlashAttentionFunction` ties forward
+The backward ports ``_dkv_kernel`` and ``_dq_kernel`` twice. At D = 128
+(the MMDiT) one fused warp-specialised wgmma/TMA kernel computes dK, dV and
+an fp32 dQ sum, and a small epilogue kernel scales and rounds dQ
+(``csrc/flash_attention_bwd_sm90.cu``). At D = 512 (the VAE mid-block, D
+split over blocks) two kernels, ``dkv`` and ``dq``, do
+(``csrc/flash_attention_bwd.cu``). P is recomputed from the forward's LSE;
+delta = rowsum(dO * O) is plain torch (XLA fuses it beside the TPU
+kernels). :class:`FlashAttentionFunction` ties forward
 and backward together as the JAX package's ``custom_vjp`` does, and every
 attention call of the port goes through it.
 
@@ -37,14 +40,22 @@ NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 KERNEL = "flash_attention_fwd"
 SUPPORTED_HEAD_DIMS = (128, 512)
-# the backward's source holds two kernels, each with its own launch count
+# the backward: D = 128 on the fused Hopper kernel and its dQ epilogue,
+# D = 512 on the split dkv / dq pair; each kernel has its own launch count
+FUSED_SOURCE = "flash_attention_bwd_sm90"
+KERNEL_FUSED = "flash_attention_bwd_fused"
+KERNEL_DQ_CONVERT = "flash_attention_bwd_dq_convert"
+FUSED_HEAD_DIM = 128
+FUSED_BLOCK_M = 64  # query rows per tile of the fused kernel (dq_accum's padding)
 BWD_SOURCE = "flash_attention_bwd"
 KERNEL_DKV = "flash_attention_bwd_dkv"
 KERNEL_DQ = "flash_attention_bwd_dq"
-BWD_HEAD_DIMS = (128, 512)
+SPLIT_HEAD_DIM = 512
+BWD_HEAD_DIMS = (FUSED_HEAD_DIM, SPLIT_HEAD_DIM)
 
 _lib = None
 _bwd_lib = None
+_fused_lib = None
 
 
 def _kernel_lib():
@@ -75,6 +86,21 @@ def _kernel_lib_bwd():
         lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
         _bwd_lib = lib
     return _bwd_lib
+
+
+def _kernel_lib_fused():
+    global _fused_lib
+    if _fused_lib is None:
+        lib = _build.load(FUSED_SOURCE)
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_attention_bwd_fused.argtypes = [vp] * 9 + [i] * 5 + [f, i, vp]
+        lib.flash_attention_bwd_dq_convert.argtypes = [vp] * 2 + [i] * 4 + [f, vp]
+        lib.flash_attention_bwd_fused.restype = ctypes.c_int
+        lib.flash_attention_bwd_dq_convert.restype = ctypes.c_int
+        lib.flash_attention_bwd_sm90_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_bwd_sm90_error_string.restype = ctypes.c_char_p
+        _fused_lib = lib
+    return _fused_lib
 
 
 def flash_attention_ref(
@@ -207,37 +233,140 @@ def _check_bwd(q, k, v, do, lse, delta, causal_block):
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
 
 
-def _launch_bwd(fn_name: str, counter: str, ptrs, q, k, sm_scale, causal_block):
-    lib = _kernel_lib_bwd()
-    b, h, lq, d = q.shape
+def _check_head_dim(q, head_dim: int, kernel: str):
+    if q.shape[-1] != head_dim:
+        raise ValueError(f"{kernel} takes head dim {head_dim}, got {q.shape[-1]}")
+
+
+def _launch_bwd(lib, error_string, kernel: str, args, q):
+    """Calls the C function ``kernel`` (also its launch counter) on q's
+    current stream; raises on a non-zero cudaError_t."""
     with torch.cuda.device(q.device):
-        err = getattr(lib, fn_name)(
-            *ptrs, b, h, lq, k.shape[2], d, sm_scale, causal_block or 0,
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+        err = getattr(lib, kernel)(*args, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        msg = lib.flash_attention_bwd_error_string(err).decode()
-        raise RuntimeError(f"{fn_name} launch failed: {msg} ({err})")
-    _build.LAUNCHES[counter] += 1
+        raise RuntimeError(f"{kernel} launch failed: {error_string(err).decode()} ({err})")
+    _build.LAUNCHES[kernel] += 1
+
+
+# dq_accum, the fused kernel's fp32 dQ sum: each 64-row query tile of a
+# (b, h) is two consumers' 64 x 64 partials, each in the wgmma accumulator
+# order [j 0..7][thread 0..127][4], thread t = 32 w + 4 g + q holding rows
+# 16 w + g + 8 i and columns 64 c + 8 j + 2 q + e in its float 2 i + e.
+# As dims: (B, H, tile, c, j, w, g, q, i, e) -> rows (tile, w, i, g),
+# columns (c, j, q, e).
+_ACCUM_DIMS = (2, 8, 4, 8, 4, 2, 2)  # c, j, w, g, q, i, e
+_ACCUM_TO_ROWS = (0, 1, 2, 5, 8, 6, 3, 4, 7, 9)
+
+
+def dq_accum_to_rows(dq_accum: torch.Tensor, lq: int) -> torch.Tensor:
+    """(B, H, Lq, 128) fp32 rows and columns of a dq_accum."""
+    b, h, n_rows, d = dq_accum.shape
+    x = dq_accum.reshape(b, h, n_rows // FUSED_BLOCK_M, *_ACCUM_DIMS).permute(_ACCUM_TO_ROWS)
+    return x.reshape(b, h, n_rows, d)[:, :, :lq]
+
+
+def dq_rows_to_accum(dq: torch.Tensor) -> torch.Tensor:
+    """The dq_accum (B, H, ceil(Lq / 64) * 64, 128) fp32 that holds dq
+    (B, H, Lq, 128): the inverse of :func:`dq_accum_to_rows`."""
+    b, h, lq, d = dq.shape
+    n_rows = -(-lq // FUSED_BLOCK_M) * FUSED_BLOCK_M
+    x = torch.nn.functional.pad(dq.float(), (0, 0, 0, n_rows - lq))
+    c, j, w, g, q, i, e = _ACCUM_DIMS
+    x = x.reshape(b, h, n_rows // FUSED_BLOCK_M, w, i, g, c, j, q, e)
+    inverse = [_ACCUM_TO_ROWS.index(n) for n in range(10)]
+    return x.permute(inverse).reshape(b, h, n_rows, d).contiguous()
+
+
+def flash_attention_bwd_dq_convert_ref(dq_accum: torch.Tensor, lq: int, sm_scale: float) -> torch.Tensor:
+    """Plain version of the dQ epilogue kernel: bf16(dq_accum * sm_scale)
+    in rows and columns, (B, H, Lq, 128)."""
+    return (dq_accum_to_rows(dq_accum, lq) * sm_scale).to(torch.bfloat16)
+
+
+def _check_fused(q, k, v, do, lse, delta, causal_block):
+    _check_bwd(q, k, v, do, lse, delta, causal_block)
+    _check_head_dim(q, FUSED_HEAD_DIM, KERNEL_FUSED)
+    for name, x in (("q", q), ("k", k), ("v", v), ("do", do)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{KERNEL_FUSED}: {name} must be 16-byte aligned (its TMA tensor map)")
+
+
+def _check_dq_accum(dq_accum, lq):
+    if (dq_accum.dim() != 4 or dq_accum.dtype != torch.float32 or not dq_accum.is_contiguous()
+            or dq_accum.shape[2:] != (-(-lq // FUSED_BLOCK_M) * FUSED_BLOCK_M, FUSED_HEAD_DIM)):
+        raise ValueError(f"dq_accum must be contiguous fp32 (B, H, ceil(Lq / {FUSED_BLOCK_M}) * {FUSED_BLOCK_M}, "
+                         f"{FUSED_HEAD_DIM}) for Lq = {lq}, got {tuple(dq_accum.shape)} {dq_accum.dtype}")
+
+
+def flash_attention_bwd_fused_accum(q, k, v, do, lse, delta, *, sm_scale: float, causal_block: Optional[int] = None
+                                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq_accum, dk, dv) at D = 128 by the fused kernel: dK and dV in k's
+    dtype and the unscaled fp32 dQ sum, added into a zeroed dq_accum.
+    CUDA bf16 tensors launch the kernel (dQ's fp32 sum is taken in an order
+    that changes from run to run); CPU tensors take the plain backward."""
+    if q.device.type == "cpu":
+        dq, dk, dv = flash_attention_bwd_ref(q, k, v, do, lse, delta, sm_scale, causal_block)
+        return dq_rows_to_accum(dq / sm_scale), dk.to(k.dtype), dv.to(v.dtype)
+    _check_fused(q, k, v, do, lse, delta, causal_block)
+    b, h, lq, d = q.shape
+    n_rows = -(-lq // FUSED_BLOCK_M) * FUSED_BLOCK_M
+    dq_accum = torch.zeros((b, h, n_rows, d), dtype=torch.float32, device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = _kernel_lib_fused()
+    ptrs = [x.data_ptr() for x in (q, k, v, do, lse, delta, dk, dv, dq_accum)]
+    _launch_bwd(lib, lib.flash_attention_bwd_sm90_error_string, KERNEL_FUSED,
+                [*ptrs, b, h, lq, k.shape[2], d, sm_scale, causal_block or 0], q)
+    return dq_accum, dk, dv
+
+
+def flash_attention_bwd_dq_convert(dq_accum: torch.Tensor, lq: int, *, sm_scale: float) -> torch.Tensor:
+    """dq (B, H, Lq, 128) bf16 = dq_accum * sm_scale by the dQ epilogue
+    kernel; CPU tensors take :func:`flash_attention_bwd_dq_convert_ref`."""
+    if dq_accum.device.type == "cpu":
+        return flash_attention_bwd_dq_convert_ref(dq_accum, lq, sm_scale)
+    _check_dq_accum(dq_accum, lq)
+    b, h, _, d = dq_accum.shape
+    dq = torch.empty((b, h, lq, d), dtype=torch.bfloat16, device=dq_accum.device)
+    lib = _kernel_lib_fused()
+    _launch_bwd(lib, lib.flash_attention_bwd_sm90_error_string, KERNEL_DQ_CONVERT,
+                [dq_accum.data_ptr(), dq.data_ptr(), b, h, lq, d, sm_scale], dq_accum)
+    return dq
+
+
+def flash_attention_bwd_fused(q, k, v, do, lse, delta, *, sm_scale: float,
+                              causal_block: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) at D = 128: the fused kernel, then the dQ epilogue."""
+    dq_accum, dk, dv = flash_attention_bwd_fused_accum(q, k, v, do, lse, delta, sm_scale=sm_scale,
+                                                       causal_block=causal_block)
+    return flash_attention_bwd_dq_convert(dq_accum, q.shape[2], sm_scale=sm_scale), dk, dv
+
+
+def _launch_split(kernel: str, ptrs, q, k, sm_scale, causal_block):
+    b, h, lq, d = q.shape
+    lib = _kernel_lib_bwd()
+    _launch_bwd(lib, lib.flash_attention_bwd_error_string, kernel,
+                [*ptrs, b, h, lq, k.shape[2], d, sm_scale, causal_block or 0], q)
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, sm_scale: float,
                             causal_block: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv) by the ``dkv`` kernel; CUDA bf16 tensors only."""
+    """(dk, dv) by the ``dkv`` kernel at D = 512; CUDA bf16 tensors only."""
     _check_bwd(q, k, v, do, lse, delta, causal_block)
+    _check_head_dim(q, SPLIT_HEAD_DIM, KERNEL_DKV)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     ptrs = [x.data_ptr() for x in (q, k, v, do, lse, delta, dk, dv)]
-    _launch_bwd("flash_attention_bwd_dkv", KERNEL_DKV, ptrs, q, k, sm_scale, causal_block)
+    _launch_split(KERNEL_DKV, ptrs, q, k, sm_scale, causal_block)
     return dk, dv
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, sm_scale: float,
                            causal_block: Optional[int] = None) -> torch.Tensor:
-    """dq by the ``dq`` kernel; CUDA bf16 tensors only."""
+    """dq by the ``dq`` kernel at D = 512; CUDA bf16 tensors only."""
     _check_bwd(q, k, v, do, lse, delta, causal_block)
+    _check_head_dim(q, SPLIT_HEAD_DIM, KERNEL_DQ)
     dq = torch.empty_like(q)
     ptrs = [x.data_ptr() for x in (q, k, v, do, lse, delta, dq)]
-    _launch_bwd("flash_attention_bwd_dq", KERNEL_DQ, ptrs, q, k, sm_scale, causal_block)
+    _launch_split(KERNEL_DQ, ptrs, q, k, sm_scale, causal_block)
     return dq
 
 
@@ -254,8 +383,9 @@ def partial_flash_backward(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) given an external global LSE and delta = rowsum(do *
     out), in the dtypes of q, k, v: the ring-attention building block
-    (opensora_tpu/ops/flash_attention.py:550). Both kernels for CUDA
-    tensors, the plain backward for CPU tensors."""
+    (opensora_tpu/ops/flash_attention.py:550). CUDA tensors: the fused
+    kernel and its dQ epilogue at D = 128, the dkv and dq kernels at D =
+    512; CPU tensors: the plain backward."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
@@ -264,6 +394,8 @@ def partial_flash_backward(
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
     kw = dict(sm_scale=sm_scale, causal_block=causal_block)
+    if q.shape[-1] == FUSED_HEAD_DIM:
+        return flash_attention_bwd_fused(q, k, v, do, lse, delta, **kw)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
     return flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw), dk, dv
 
@@ -272,8 +404,8 @@ class FlashAttentionFunction(torch.autograd.Function):
     """Differentiable flash attention (the JAX package's ``custom_vjp``,
     opensora_tpu/ops/flash_attention.py:660-702): the forward kernel saves
     q, k, v, out and the LSE; the backward computes delta = rowsum(dO * O)
-    in fp32 and runs the two backward kernels. Returns (out, lse); the LSE
-    takes no gradient."""
+    in fp32 and runs the backward kernels (``partial_flash_backward``).
+    Returns (out, lse); the LSE takes no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, sm_scale: float, causal_block: Optional[int]):

@@ -79,12 +79,22 @@ def test_flash_kernel_matches_plain_on_cuda(shape, causal_block, qscale):
 BWD_RTOL = 1e-2
 
 
-def _bwd_inputs(shape, causal_block, device, seed=0):
+def _bwd_inputs(shape, causal_block, device, seed=0, lk=None):
     gen = torch.Generator(device=device).manual_seed(seed)
-    q, k, v, do = (torch.randn(shape, generator=gen, device=device).to(torch.bfloat16) for _ in range(4))
+    kshape = shape[:2] + (lk or shape[2], shape[3])
+    q, k, v, do = (torch.randn(s, generator=gen, device=device).to(torch.bfloat16)
+                   for s in (shape, kshape, kshape, shape))
     out, lse = tflash.flash_attention_ref(q, k, v, None, causal_block)
     delta = (do.float() * out).sum(-1)
     return q, k, v, do, lse, delta
+
+
+def _bwd_kernels(head_dim):
+    """The backward's kernels at a head dim: the fused kernel and its dQ
+    epilogue at 128, the split dkv / dq pair at 512."""
+    if head_dim == tflash.FUSED_HEAD_DIM:
+        return (tflash.KERNEL_FUSED, tflash.KERNEL_DQ_CONVERT)
+    return (tflash.KERNEL_DKV, tflash.KERNEL_DQ)
 
 
 def test_flash_function_on_cpu_matches_autograd_of_plain_attention():
@@ -143,7 +153,7 @@ def test_flash_bwd_kernels_match_plain_on_cuda(shape, causal_block):
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         err = (g.float() - w).abs().max().item()
         assert err <= BWD_RTOL * w.abs().max().item(), (name, err, w.abs().max().item())
-    for name in (tflash.KERNEL_DKV, tflash.KERNEL_DQ):
+    for name in _bwd_kernels(shape[-1]):
         assert _build.LAUNCHES[name] == before.get(name, 0) + 1
 
 
@@ -161,14 +171,144 @@ def test_flash_function_backward_on_cuda_goes_through_the_kernels(shape, causal_
     q, k, v = (x.clone().requires_grad_() for x in base)
     before = dict(_build.LAUNCHES)
     grads = torch.autograd.grad(tflash.flash_attention(q, k, v, causal_block=causal_block), (q, k, v), do)
-    assert _build.LAUNCHES[tflash.KERNEL_DKV] == before.get(tflash.KERNEL_DKV, 0) + 1
-    assert _build.LAUNCHES[tflash.KERNEL_DQ] == before.get(tflash.KERNEL_DQ, 0) + 1
+    launched = {n: c - before.get(n, 0) for n, c in _build.LAUNCHES.items() if c != before.get(n, 0)}
+    assert launched == {tflash.KERNEL: 1, **{n: 1 for n in _bwd_kernels(shape[-1])}}
     q2, k2, v2 = (x.float().requires_grad_() for x in base)
     ref = tflash.flash_attention_ref(q2, k2, v2, None, causal_block)[0]
     ref_grads = torch.autograd.grad(ref, (q2, k2, v2), do.float())
     for g, w in zip(grads, ref_grads):
         # the bf16 forward output feeds delta here, adding its rounding
         assert (g.float() - w).abs().max().item() <= 2 * BWD_RTOL * w.abs().max().item()
+
+
+# ----------------------------------------------------------------------
+# the fused D = 128 backward (csrc/flash_attention_bwd_sm90.cu)
+# ----------------------------------------------------------------------
+
+
+def test_dq_accum_layout_is_the_wgmma_fragment_order():
+    """dq_accum's layout: float 2 i + e of thread t = 32 w + 4 g + q in
+    float4 j of consumer c of query tile T is row 64 T + 16 w + g + 8 i,
+    column 64 c + 8 j + 2 q + e; the two maps are each other's inverse."""
+    acc = torch.zeros((1, 1, 128, 128))
+    for tile, c, j, w, g, q, i, e in ((1, 1, 3, 2, 5, 3, 1, 0), (0, 0, 7, 3, 7, 0, 0, 1)):
+        acc.zero_()
+        acc.view(-1)[tile * 8192 + c * 4096 + (j * 128 + 32 * w + 4 * g + q) * 4 + 2 * i + e] = 1.0
+        rows = tflash.dq_accum_to_rows(acc, 128)
+        assert rows.nonzero().tolist() == [[0, 0, 64 * tile + 16 * w + g + 8 * i, 64 * c + 8 * j + 2 * q + e]]
+    x = torch.from_numpy(_np((2, 3, 100, 128), 5))
+    acc = tflash.dq_rows_to_accum(x)
+    assert acc.shape == (2, 3, 128, 128)
+    assert torch.equal(tflash.dq_accum_to_rows(acc, 100), x)
+    assert int((acc != 0).sum()) == int((x != 0).sum())  # the padding rows hold zeros only
+
+
+def test_fused_backward_on_cpu_takes_plain_versions_without_launching():
+    """CPU tensors: the fused wrapper pair gives the plain backward (dq
+    through dq_accum and the plain epilogue), with no launch."""
+    q, k, v, do, lse, delta = _bwd_inputs((1, 2, 100, 128), 48, "cpu")
+    before = dict(_build.LAUNCHES)
+    dq, dk, dv = tflash.flash_attention_bwd_fused(q, k, v, do, lse, delta, sm_scale=0.125, causal_block=48)
+    ref = tflash.flash_attention_bwd_ref(q, k, v, do, lse, delta, 0.125, 48)
+    assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    for got, want in zip((dq, dk, dv), ref):
+        assert torch.equal(got, want.to(torch.bfloat16))
+    assert _build.LAUNCHES == before
+
+
+def test_fused_backward_input_checks():
+    """What the fused kernel and its epilogue do not take raises before a
+    launch: another head dim, a misaligned tensor (the TMA's 16 bytes), a
+    dq_accum of the wrong shape or dtype."""
+    lse = torch.zeros((1, 1, 64))
+    q = torch.zeros((1, 1, 64, 128), dtype=torch.bfloat16)
+    tflash._check_fused(q, q, q, q, lse, lse, None)
+    q512 = torch.zeros((1, 1, 64, 512), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 128"):
+        tflash._check_fused(q512, q512, q512, q512, lse, lse, None)
+    shifted = torch.zeros(64 * 128 + 1, dtype=torch.bfloat16)[1:].view(1, 1, 64, 128)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tflash._check_fused(q, shifted, q, q, lse, lse, None)
+    tflash._check_dq_accum(torch.zeros((1, 1, 64, 128)), 50)
+    for bad in (torch.zeros((1, 1, 50, 128)), torch.zeros((1, 1, 64, 128), dtype=torch.bfloat16)):
+        with pytest.raises(ValueError, match="dq_accum"):
+            tflash._check_dq_accum(bad, 50)
+
+
+# (B, H, Lq, D), causal_block, Lk: a tail of 64-row tiles and 128-key
+# blocks, several frames, L < 64, Lq != Lk both ways
+FUSED_CASES = [
+    ((2, 3, 1000, 128), None, None),
+    ((1, 2, 1000, 128), 96, None),
+    ((1, 2, 50, 128), None, None),
+    ((1, 2, 300, 128), None, 500),
+    ((1, 2, 500, 128), 64, 300),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal_block,lk", FUSED_CASES)
+def test_fused_backward_kernels_match_plain_on_cuda(shape, causal_block, lk):
+    """The fused kernel's dk, dv and dq_accum against the plain backward
+    (BWD_RTOL of each gradient's scale; dq_accum read through its layout),
+    and the epilogue kernel equal to its plain version on the same
+    dq_accum (the same fp32 multiply and bf16 rounding)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    q, k, v, do, lse, delta = _bwd_inputs(shape, causal_block, "cuda", lk=lk)
+    sm_scale = shape[-1] ** -0.5
+    before = dict(_build.LAUNCHES)
+    acc, dk, dv = tflash.flash_attention_bwd_fused_accum(q, k, v, do, lse, delta, sm_scale=sm_scale,
+                                                         causal_block=causal_block)
+    dq = tflash.flash_attention_bwd_dq_convert(acc, shape[2], sm_scale=sm_scale)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[tflash.KERNEL_FUSED] == before.get(tflash.KERNEL_FUSED, 0) + 1
+    assert _build.LAUNCHES[tflash.KERNEL_DQ_CONVERT] == before.get(tflash.KERNEL_DQ_CONVERT, 0) + 1
+    want = tflash.flash_attention_bwd_ref(q, k, v, do, lse, delta, sm_scale, causal_block)
+    got = (tflash.dq_accum_to_rows(acc, shape[2]) * sm_scale, dk, dv)
+    for name, g, w in zip(("dq_accum", "dk", "dv"), got, want):
+        err = (g.float() - w).abs().max().item()
+        assert err <= BWD_RTOL * w.abs().max().item(), (name, err, w.abs().max().item())
+    assert torch.equal(dq, tflash.flash_attention_bwd_dq_convert_ref(acc, shape[2], sm_scale))
+
+
+@pytest.mark.cuda
+def test_fused_backward_run_to_run_spread_on_cuda():
+    """dQ's fp32 sum is added in an order that changes from run to run. Two
+    runs' dq_accum differ by fp32 rounding alone: 8 key blocks' partials
+    summed in another order, a few fp32 ulps of the partials, held to 1e-5
+    of max|dq_accum|. So their bf16 dq differ by at most that (times
+    sm_scale) plus one bf16 ulp of the element (2^-7 of it). dk and dv are
+    summed in registers in a fixed order and agree bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    q, k, v, do, lse, delta = _bwd_inputs((2, 3, 1000, 128), None, "cuda", seed=3)
+    sm_scale = 128 ** -0.5
+    acc0, dk0, dv0 = tflash.flash_attention_bwd_fused_accum(q, k, v, do, lse, delta, sm_scale=sm_scale)
+    dq0 = tflash.flash_attention_bwd_dq_convert(acc0, 1000, sm_scale=sm_scale).float()
+    scale = acc0.abs().max().item()
+    for _ in range(3):
+        acc, dk, dv = tflash.flash_attention_bwd_fused_accum(q, k, v, do, lse, delta, sm_scale=sm_scale)
+        spread = (acc - acc0).abs().max().item()
+        assert spread <= 1e-5 * scale, (spread, scale)
+        dq = tflash.flash_attention_bwd_dq_convert(acc, 1000, sm_scale=sm_scale).float()
+        bound = 2.0 ** -7 * torch.maximum(dq.abs(), dq0.abs()) + 1e-5 * scale * sm_scale
+        assert bool(((dq - dq0).abs() <= bound).all())
+        assert torch.equal(dk, dk0) and torch.equal(dv, dv0)
+
+
+@pytest.mark.cuda
+def test_fused_backward_raises_on_cuda_inputs_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    q, k, v, do, lse, delta = _bwd_inputs((1, 1, 64, 64), None, "cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        tflash.flash_attention_bwd_fused(q, k, v, do, lse, delta, sm_scale=0.125)
+    q, k, v, do, lse, delta = _bwd_inputs((1, 1, 64, 128), None, "cuda")
+    with pytest.raises(TypeError, match="bf16"):
+        tflash.flash_attention_bwd_fused(q.float(), k, v, do, lse, delta, sm_scale=0.125)
+    with pytest.raises(ValueError, match="dq_accum"):
+        tflash.flash_attention_bwd_dq_convert(torch.zeros((1, 1, 64, 128), device="cuda"), 65, sm_scale=0.125)
 
 
 # ----------------------------------------------------------------------
