@@ -6,10 +6,12 @@ Phases, one line each; any failure exits non-zero:
   1. build every CUDA kernel source in this checkout (one nvcc per source,
      all started together; sm_90a);
   2. hold each kernel against its plain PyTorch version at the shapes the
-     main paths give it -- the flash-attention forward, and (phase 2b) the
-     D = 128 backward: the fused wgmma/TMA kernel and its dQ epilogue
-     kernel -- show that the limits reject known-wrong outputs, and time
-     kernel, plain version, the PyTorch library call that computes the same
+     main paths give it -- the flash-attention forward (D = 128: the
+     warp-specialised wgmma/TMA kernel flash_attention_fwd_sm90, both
+     loops; D = 512: the mma.sync kernel), and (phase 2b) the D = 128
+     backward: the fused wgmma/TMA kernel and its dQ epilogue kernel --
+     show that the limits reject known-wrong outputs, and time kernel,
+     plain version, the PyTorch library call that computes the same
      function, and the card's bound;
   3. check the main paths' models at full width on a small input: the
      card's bf16 path (kernels) against the plain fp32 path on the CPU, for
@@ -59,12 +61,20 @@ the VAE mid-block's shape (1, 1, 9216, 512), causal_block 1024, and at a
 tail (L = 1000, causal_block 96), with known-wrong gradients and timings;
 phase 3c checks one full-width VAE train step on a small clip, card
 against the CPU's fp32 plain step.
-Phase 2e holds the three ring kernels (ring_flash_fwd, ring_flash_bwd_dkv,
-ring_flash_bwd_dq) against the plain ring at the slice's shape, global
+Phase 2 holds the D = 128 forward to known-wrong outputs aimed at its
+design too: one consumer's 64 rows taken from the other consumer's, the
+last 128-key tile dropped, and (on a case whose bound A is far above 40)
+a running-max head given the anchored loop. Every phase-2 case times the
+wrapper and SDPA in turns and logs both ranges.
+Phase 2e holds the ring kernels (ring_flash_fwd, and the backward hop
+ring_flash_bwd_fused -- the fused D = 128 backward's main loop at the hop's
+offsets -- with the dQ epilogue flash_attention_bwd_dq_convert once per
+rank) against the plain ring at the slice's shape, global
 (3, 24, 8828, 128) over 4 logical ranks on the card (2207 tokens a rank),
 and at (1, 2, 4000, 128) frame-causal with frames of 96 that the shard
 edges cut, with known-wrong rings (the last hop skipped, local offsets, delta
-left out, dK/dV read from the other slot) and timings; phase 3d runs the
+left out, dK/dV read from the other slot, one (rank, hop)'s dK/dV add
+dropped) and timings; phase 3d runs the
 full-width MMDiT with attn_backend="ring_rdma" over those 4 ranks on a
 small input (forward, and a LoRA step's gradients) against the CPU's plain
 dense path. Phase 9 (run right after phase 4, on its models) switches
@@ -74,7 +84,7 @@ the video against phase 4's (a control with the last hop skipped must
 exceed the limit), then 1 step of attn_backend="ring" (ops/sp.py) against
 1 step of ring_rdma. Phase 10 (after phase 5, on its trainer) runs 2 LoRA
 steps with ring_rdma over the same mesh: finite loss and gradient norm,
-moving factors, exact launches of the three ring kernels.
+moving factors, exact launches of the ring kernels and the dQ epilogue.
 Then it prints the card's name and power limit, one JSON line with the
 kernels' numbers, and last {"ok": true, "device": {...}}.
 
@@ -216,11 +226,37 @@ def plain_chunked(fa, q, k, v, causal_block, heads_per_chunk):
     return torch.cat(outs, 1), torch.cat(lses, 1)
 
 
-def mutant_readings(fa, q, k, v, causal_block, heads_per_chunk, ref_out, ref_lse) -> dict:
+def anchored_loop_chunked(fa, q, k, v, heads_per_chunk):
+    """What the anchored loop gives every (b, h), in fp32 with the kernel's
+    flush of exp2 below 2^-126 to zero: p = exp2(s c - A), out = p V / l,
+    lse = A ln 2 + ln l (l = 0 divides by 1)."""
+    sm = 1.0 / math.sqrt(q.shape[-1])
+    c = sm * fa.LOG2E
+    outs, lses = [], []
+    for h0 in range(0, q.shape[1], heads_per_chunk):
+        sl = slice(h0, h0 + heads_per_chunk)
+        a2 = fa.anchor_log2(q[:, sl], k[:, sl], sm)[..., None, None]
+        x = torch.einsum("bhqd,bhkd->bhqk", q[:, sl].float(), k[:, sl].float()) * c - a2
+        p = torch.where(x < -126, torch.zeros_like(x), torch.exp2(x))
+        l = p.sum(-1)
+        l_safe = torch.where(l == 0, torch.ones_like(l), l)
+        outs.append(torch.einsum("bhqk,bhkd->bhqd", p, v[:, sl].float()) / l_safe[..., None])
+        lses.append(a2[..., 0] * math.log(2.0) + torch.log(l_safe))
+    return torch.cat(outs, 1), torch.cat(lses, 1)
+
+
+def mutant_readings(fa, q, k, v, causal_block, heads_per_chunk, ref_out, ref_lse, anchored_mutant=False) -> dict:
     """What the check reads for outputs a faulty kernel could give, as
     (out error / max|ref|, LSE error) against the plain version: V read one
-    64-row tile off; the last KV tile (the tail) skipped; for D = 512, the
-    output's 128-column slices of the D split swapped."""
+    64-row tile off; the last 64 keys (the tail) skipped; for D = 512, the
+    output's 128-column slices of the D split swapped. For D = 128 (the
+    wgmma/TMA kernel): one consumer's 64 rows taken from the other's (each
+    128-row CTA's rows 64..127 a copy of rows 0..63), the last 128-key tile
+    dropped and, with ``anchored_mutant`` (a case whose bound A lies far
+    above 40), every head given the anchored loop: it differs from the
+    running max only where exp2(s c - A) flushes to zero (s c - A < -126),
+    which on these random inputs needs a bound far above 40, so that fault
+    shows only on such a case."""
     scale = ref_out.abs().max().item()
 
     def reading(out, lse):
@@ -235,6 +271,21 @@ def mutant_readings(fa, q, k, v, causal_block, heads_per_chunk, ref_out, ref_lse
     }
     if q.shape[-1] > 128:
         res["d_slice_swapped"] = reading(ref_out.roll(128, dims=-1), ref_lse)
+    else:
+        lq = q.shape[2]
+        swap_out, swap_lse = ref_out.clone(), ref_lse.clone()
+        for m0 in range(0, lq - 64, 128):
+            n = min(64, lq - m0 - 64)
+            swap_out[:, :, m0 + 64:m0 + 64 + n] = ref_out[:, :, m0:m0 + n]
+            swap_lse[:, :, m0 + 64:m0 + 64 + n] = ref_lse[:, :, m0:m0 + n]
+        res["consumer_rows_from_other_consumer"] = reading(swap_out, swap_lse)
+        del swap_out, swap_lse
+        keep = l - (l % 128 or 128)
+        res["last_key_tile_dropped"] = reading(*plain_chunked(
+            fa, q, k[:, :, :keep], v[:, :, :keep], causal_block, heads_per_chunk))
+        if anchored_mutant:
+            res["running_max_head_given_anchored_loop"] = reading(*anchored_loop_chunked(fa, q, k, v,
+                                                                                         heads_per_chunk))
     return res
 
 
@@ -246,16 +297,19 @@ ATTENTION_CASES = [
     ("vae_mid_tile_24x18", (1, 1, 33 * 432, 512), 432, 1.0),
     ("vae_train_mid_33x256x256", (1, 1, 9216, 512), 1024, 1.0),  # phase 7's mid-blocks (latent 9 x 32 x 32)
     ("tail_bidirectional", (2, 3, 1000, 128), None, 1.0),
+    ("tail_running_max_wide", (2, 3, 1000, 128), None, 8.0),  # A ~ 200: the anchored loop would underflow
+    ("tail_frame_causal_d128", (1, 2, 1000, 128), 96, 1.0),
     ("tail_frame_causal", (1, 2, 1000, 512), 96, 1.0),
 ]
+WIDE_ANCHOR = "tail_running_max_wide"
 
 
-def check_attention(device) -> dict:
+def check_attention(device, attention_cases=ATTENTION_CASES) -> dict:
     from opensora_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=device).manual_seed(0)
     cases = []
-    for name, (b, h, l, d), cb, qscale in ATTENTION_CASES:
+    for name, (b, h, l, d), cb, qscale in attention_cases:
         shape = (b, h, l, d)
         q = (torch.randn(shape, generator=gen, device=device) * qscale).to(torch.bfloat16)
         k = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
@@ -272,43 +326,56 @@ def check_attention(device) -> dict:
         err_out = (out.float() - ref_out).abs().max().item()
         err_lse = (lse - ref_lse).abs().max().item()
         ok = math.isfinite(err_out) and err_out <= OUT_RTOL * ref_scale and err_lse <= LSE_TOL
-        mutants = mutant_readings(fa, q, k, v, cb, heads_per_chunk, ref_out, ref_lse)
+        mutants = mutant_readings(fa, q, k, v, cb, heads_per_chunk, ref_out, ref_lse,
+                                  anchored_mutant=name == WIDE_ANCHOR)
         caught = all(r_out > OUT_RTOL or r_lse > LSE_TOL for r_out, r_lse in mutants.values())
         del ref_out, ref_lse
 
         big = l * l * b * h > 1e8
         iters = 5 if big else 20
-        ms = time_cuda(lambda: fa.flash_attention_with_lse(q, k, v, causal_block=cb), iters)
-        plain_ms = time_cuda(
-            lambda: plain_chunked(fa, q, k, v, cb, heads_per_chunk), 1 if big else 3, warmup=0
-        )
         mask = None
         if cb is not None:
             idx = torch.arange(l, device=device) // cb
             mask = idx[None, :] <= idx[:, None]
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        library_ms = time_cuda(lambda: sdpa(q, k, v, attn_mask=mask), iters)
-        del mask
+        # the wrapper and SDPA in turns (K S S K, twice): back-to-back
+        # readings of one call spread by up to 10 %, so the two are compared
+        # only by their ranges in these turns
+        fns = dict(ms=lambda: fa.flash_attention_with_lse(q, k, v, causal_block=cb),
+                   library_ms=lambda: sdpa(q, k, v, attn_mask=mask))
+        turns = dict(ms=[], library_ms=[])
+        for key in ("ms", "library_ms", "library_ms", "ms") * 2:
+            turns[key].append(time_cuda(fns[key], iters))
+        ms, library_ms = (sum(x) / len(x) for x in (turns["ms"], turns["library_ms"]))
+        del fns, mask
+        anchor_ms = time_cuda(lambda: fa.anchor_log2(q, k, sm_scale), iters) if cb is None else 0.0
+        plain_ms = time_cuda(
+            lambda: plain_chunked(fa, q, k, v, cb, heads_per_chunk), 1 if big else 3, warmup=0
+        )
         bound_ms, bound_by = attention_bound(b, h, l, d, cb)
         case = dict(
             name=name, shape=list(shape), causal_block=cb, anchor_max=anchor,
             branch=("running_max" if cb is not None or not anchor < 40 else "anchored"),
             max_abs_err=err_out, ref_max_abs=ref_scale, rel_err=err_out / ref_scale,
             lse_max_abs_err=err_lse, mutants=mutants, ms=ms, plain_ms=plain_ms,
-            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=library_ms, ms_turns=turns["ms"], library_ms_turns=turns["library_ms"],
+            anchor_ms=anchor_ms, bound_ms=bound_ms, bound_by=bound_by,
+            kernel=fa.KERNEL_FWD_SM90 if d == fa.FWD_SM90_HEAD_DIM else fa.KERNEL,
         )
         cases.append(case)
         wrong = ", ".join(f"{n} ({ro:.2e}, {rl:.2e})" for n, (ro, rl) in mutants.items())
         log(
-            f"[kernels] flash_attention_fwd {name} {shape} cb={cb} branch={case['branch']} "
+            f"[kernels] {case['kernel']} {name} {shape} cb={cb} branch={case['branch']} "
             f"A_max={anchor} out_err={err_out:.3e} = {err_out / ref_scale:.3e} of max|ref| {ref_scale:.3e} "
             f"(tol {OUT_RTOL}) lse_err={err_lse:.3e} (tol {LSE_TOL}) "
             f"wrong outputs (out/max|ref|, lse): {wrong} "
-            f"{'rejected' if caught else 'NOT REJECTED'} ms={ms:.3f} bound_ms={bound_ms:.3f} "
-            f"plain_ms={plain_ms:.3f} sdpa_ms={library_ms:.3f} {'OK' if ok and caught else 'FAIL'}"
+            f"{'rejected' if caught else 'NOT REJECTED'} ms={ms:.3f} ({min(turns['ms']):.3f}-"
+            f"{max(turns['ms']):.3f}) sdpa_ms={library_ms:.3f} ({min(turns['library_ms']):.3f}-"
+            f"{max(turns['library_ms']):.3f}) in turns anchor_log2_ms={anchor_ms:.3f} bound_ms={bound_ms:.3f} "
+            f"plain_ms={plain_ms:.3f} {'OK' if ok and caught else 'FAIL'}"
         )
         if not ok:
-            raise AssertionError(f"flash_attention_fwd disagrees with its plain version at {name}")
+            raise AssertionError(f"{case['kernel']} disagrees with its plain version at {name}")
         if not caught:
             raise AssertionError(f"the limits at {name} do not reject a known-wrong output")
         del q, k, v, out, lse
@@ -760,7 +827,7 @@ RING_CASES = [
     ("mmdit_joint_sp4", (3, 24, 8828, 128), None),
     ("causal_off_frame_edges_sp4", (1, 2, 4000, 128), 96),
 ]
-RING_KERNELS = ("ring_flash_fwd", "ring_flash_bwd_dkv", "ring_flash_bwd_dq")
+RING_KERNELS = ("ring_flash_fwd", "ring_flash_bwd_fused")
 
 
 def ring_mesh(device):
@@ -797,8 +864,21 @@ def delta_left_out(hop):
     return run
 
 
+def dkv_add_dropped(q_off: int, k_off: int):
+    """A backward hop that, at one (rank, hop) -- the one of these offsets --
+    adds nothing into the travelling dK/dV (dQ as it should)."""
+    def wrap(hop):
+        def run(q, k, v, do, lse, delta, dk, dv, dq, **kw):
+            if (kw["q_off"], kw["k_off"]) == (q_off, k_off):
+                dk, dv = torch.zeros_like(dk), torch.zeros_like(dv)
+            return hop(q, k, v, do, lse, delta, dk, dv, dq, **kw)
+        return run
+    return wrap
+
+
 def check_ring(device) -> dict:
-    """The three ring kernels on the card, through ring_flash_attention over
+    """The ring kernels on the card (the forward hop, the fused backward hop
+    and, once per rank, the dQ epilogue), through ring_flash_attention over
     RING_SP logical ranks (hops on their own streams, KV and dK/dV copies
     between the ranks' slots), against the plain ring (the plain hops in
     sequence) on the same inputs; the limits must reject known-wrong
@@ -856,10 +936,12 @@ def check_ring(device) -> dict:
         if cb is not None:
             with patched(rf, "ring_fwd_hop_ref", local_offsets):
                 mutants["local_offsets"] = fwd_reading()
-        with patched(rf, "ring_bwd_dkv_hop_ref", delta_left_out), patched(rf, "ring_bwd_dq_hop_ref", delta_left_out):
+        with patched(rf, "ring_bwd_hop_ref", delta_left_out):
             mutants["delta_left_out"] = bwd_reading()
         with patched(rf, "home_slot", lambda f: lambda n: 1 - f(n)):
             mutants["dkdv_from_other_slot"] = bwd_reading()
+        with patched(rf, "ring_bwd_hop_ref", dkv_add_dropped(lloc, 0)):  # rank 1, hop 1
+            mutants["one_hop_dkdv_add_dropped"] = bwd_reading()
         caught = all((r[0] > OUT_RTOL or r[1] > LSE_TOL) if isinstance(r, tuple) else r > BWD_RTOL
                      for r in mutants.values())
         del ref_out, ref_lse, ref_g, grads
@@ -873,7 +955,7 @@ def check_ring(device) -> dict:
         lse_buf = [torch.empty((b, h, lloc), dtype=torch.float32, device=device) for _ in range(sp)]
         deltas = [(x.float() * o.float()).sum(-1) for x, o in zip(dos, outs_k)]
         acc_kv = torch.zeros((2, b, h, lloc, d), dtype=torch.float32, device=device)
-        acc_q = torch.zeros((b, h, lloc, d), dtype=torch.float32, device=device)
+        acc_q = torch.zeros((b, h, dq_accum_rows(lloc), d), dtype=torch.float32, device=device)
 
         def hops(kernel):
             for r in range(sp):
@@ -883,11 +965,9 @@ def check_ring(device) -> dict:
                     if kernel == "ring_flash_fwd":
                         rf.ring_fwd_hop(qs[r], ks[src], vs[src], state[r], o_buf[r], lse_buf[r],
                                         first=hop == 0, last=hop == sp - 1, **kw)
-                    elif kernel == "ring_flash_bwd_dkv":
-                        rf.ring_bwd_dkv_hop(qs[r], ks[src], vs[src], dos[r], lses_k[r], deltas[r], acc_kv[0],
-                                            acc_kv[1], **kw)
                     else:
-                        rf.ring_bwd_dq_hop(qs[r], ks[src], vs[src], dos[r], lses_k[r], deltas[r], acc_q, **kw)
+                        rf.ring_bwd_hop(qs[r], ks[src], vs[src], dos[r], lses_k[r], deltas[r], acc_kv[0],
+                                        acc_kv[1], acc_q, **kw)
 
         big = b * h * l * l > 1e8
         iters = 5 if big else 20
@@ -921,8 +1001,8 @@ def check_ring(device) -> dict:
             + ", ".join(f"{n} {r}" for n, r in mutants.items())
             + f" {'rejected' if caught else 'NOT REJECTED'}; 16 launches ms "
             + "/".join(f"{kernels_ms[n]:.3f}" for n in RING_KERNELS)
-            + f" (fwd/dkv/dq) call_ms={call_ms:.3f} bwd_call_ms={bwd_call_ms:.3f} bound_ms fwd/dkv/dq="
-            f"{bound_ms:.3f}/{bounds['flash_attention_bwd_dkv'][0]:.3f}/{bounds['flash_attention_bwd_dq'][0]:.3f} "
+            + f" (fwd/bwd) call_ms={call_ms:.3f} bwd_call_ms={bwd_call_ms:.3f} bound_ms fwd/bwd="
+            f"{bound_ms:.3f}/{bounds['flash_attention_bwd_fused'][0]:.3f} "
             f"plain_ms={plain_ms:.3f} plain_bwd_ms={plain_bwd_ms:.3f} sdpa_ms={library_ms:.3f} "
             f"sdpa_bwd_ms={library_bwd_ms:.3f} {'OK' if ok and caught else 'FAIL'}")
         if not ok:
@@ -1079,9 +1159,9 @@ def check_int8_small_input(device) -> dict:
 KERNEL_KINDS = [  # first match wins: int8_flash_fwd_kernel before flash_fwd_kernel
     ("int8_flash_attention", ("int8_flash_fwd_kernel",)),
     ("ring_flash_fwd", ("ring_fwd_kernel",)),
-    ("ring_flash_bwd_dkv", ("ring_bwd_dkv_kernel",)),
-    ("ring_flash_bwd_dq", ("ring_bwd_dq_kernel",)),
+    ("ring_flash_bwd_fused", ("ring_bwd_fused_kernel",)),
     ("w8a8_gemm", ("w8a8_gemm_kernel",)),
+    ("flash_attention_fwd_sm90", ("flash_fwd_sm90_kernel",)),
     ("flash_attention_fwd", ("flash_fwd_kernel",)),
     ("flash_attention_bwd_fused", ("flash_bwd_fused_kernel",)),
     ("flash_attention_bwd_dq_convert", ("flash_bwd_dq_convert_kernel",)),
@@ -1175,13 +1255,13 @@ def run_main_path(device, profile: bool = False, out_dir=None) -> dict:
         raise AssertionError(f"output not finite, or {outside:.4f} of it outside [-1, 1]")
     n_blocks = cfg.model["depth"] + cfg.model["depth_single_blocks"]
     # the 33x24x42 latent decodes as two spatial tiles (24x32, 24x18), each
-    # with one mid-block attention
+    # with one mid-block attention (D = 512)
     n_vae = 2
-    expect = n_blocks * STEPS + n_vae
-    got = launches.get("flash_attention_fwd", 0)
-    log(f"[main] flash_attention_fwd launches={got} expected={n_blocks}x{STEPS} MMDiT + {n_vae} VAE")
-    if got != expect:
-        raise AssertionError(f"flash_attention_fwd launched {got} times, expected {expect}")
+    expect = {"flash_attention_fwd_sm90": n_blocks * STEPS, "flash_attention_fwd": n_vae}
+    log(f"[main] launches={launches} expected={expect} ({n_blocks}x{STEPS} MMDiT at D = 128, {n_vae} VAE at "
+        f"D = 512)")
+    if launches != expect:
+        raise AssertionError(f"kernel launches {launches} != expected {expect}")
     res = dict(launches=launches, text_encode_s=timings["text_encode_s"], step_s=timings["step_s"],
                decode_s=timings["decode_s"], total_s=total_s, peak_mem_gb=peak_gb,
                outside_share=outside, models_build_s=build_s)
@@ -1258,7 +1338,7 @@ def run_ring_path(device, built, profile: bool = False, out_dir=None) -> dict:
         x1, _, _ = run("ring_rdma", RING_SP_STEPS)
         xs, sp_launches, sp_timings = run("ring", RING_SP_STEPS)
         sp_rel = rel_l2(xs, x1.cpu())
-        sp_expect = {"flash_attention_fwd": n_blocks * RING_SP_STEPS * hops + 2}
+        sp_expect = {"flash_attention_fwd_sm90": n_blocks * RING_SP_STEPS * hops, "flash_attention_fwd": 2}
         del x1, xs
     finally:
         set_attn_backend(model, cfg.model.get("attn_backend"))
@@ -1305,7 +1385,7 @@ def check_train_small_input(device, mesh=None) -> dict:
     batch: the card's bf16 path (flash forward and backward kernels) vs the
     CPU's fp32 plain path, same weights, factors, batch and draws. With
     ``mesh`` (phase 3d) the card's MMDiT runs ``attn_backend="ring_rdma"``
-    over the mesh's logical ranks: the three ring kernels."""
+    over the mesh's logical ranks: the ring kernels and the dQ epilogue."""
     from opensora_torch.ops import _build
     from opensora_torch.parallel.context import set_mesh
     from opensora_torch.registry import MODELS, build_module
@@ -1365,12 +1445,12 @@ def check_train_small_input(device, mesh=None) -> dict:
     torch.cuda.empty_cache()
     ok = res["loss_rel_err"] <= SMALL_TOL and res["grad_rel_err_max"] <= TRAIN_GRAD_TOL
     n_fwd = 4 if mcfg.get("remat") else 2  # 2 blocks: forward (and recompute with remat), backward
-    if mesh is not None:  # 16 launches each
+    if mesh is not None:  # 16 hop launches a call, one dQ epilogue per rank and backward call
         hops = RING_SP * RING_SP
-        ok = ok and launches == {"ring_flash_fwd": n_fwd * hops, "ring_flash_bwd_dkv": 2 * hops,
-                                 "ring_flash_bwd_dq": 2 * hops}
+        ok = ok and launches == {"ring_flash_fwd": n_fwd * hops, "ring_flash_bwd_fused": 2 * hops,
+                                 "flash_attention_bwd_dq_convert": 2 * RING_SP}
     else:
-        ok = ok and launches == {"flash_attention_fwd": n_fwd, "flash_attention_bwd_fused": 2,
+        ok = ok and launches == {"flash_attention_fwd_sm90": n_fwd, "flash_attention_bwd_fused": 2,
                                  "flash_attention_bwd_dq_convert": 2}
     log(f"[small] LoRA train step{f' (ring_rdma over {RING_SP} logical ranks)' if mesh is not None else ''}, "
         f"full-width MMDiT depth 1+1 (B=3, {n_img + lt} tokens, r={rank}), card bf16 + "
@@ -1423,7 +1503,8 @@ def run_train_path(device, profile: bool = False, out_dir=None) -> dict:
         launches = dict(_build.LAUNCHES)
         times = trainer.timers.to_dict()
         n_vae = TRAIN_BATCH + single_frame_encodes(trainer.mask_conds)  # one mid-block attention per encode
-        expect = {"flash_attention_fwd": 2 * n_blocks + n_vae,  # forward, recompute, VAE encodes
+        expect = {"flash_attention_fwd_sm90": 2 * n_blocks,  # forward and recompute
+                  "flash_attention_fwd": n_vae,  # the VAE encodes' mid-block (D = 512)
                   "flash_attention_bwd_fused": n_blocks, "flash_attention_bwd_dq_convert": n_blocks}
         rec = dict(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
                    lora_b_norm=float(global_norm(b_factors)), mask_conds=trainer.mask_conds,
@@ -1457,8 +1538,9 @@ def run_ring_train_path(device, built, profile: bool = False, out_dir=None) -> d
     """Phase 5's trainer (lora.py at full width and depth) with its MMDiT's
     attention switched to ``ring_rdma`` over RING_SP logical ranks on the
     card: RING_TRAIN_STEPS steps of Trainer.run_batch; finite loss and
-    gradient norm, moving LoRA factors, the exact launches of the three
-    ring kernels (and of the VAE encode's flash forward)."""
+    gradient norm, moving LoRA factors, the exact launches of the ring
+    kernels, the dQ epilogue (once per rank and backward call) and the VAE
+    encode's flash forward."""
     from opensora_torch.ops import _build
     from opensora_torch.parallel.context import set_mesh
     from opensora_torch.training.lora import lora_parameters
@@ -1486,7 +1568,7 @@ def run_ring_train_path(device, built, profile: bool = False, out_dir=None) -> d
             launches = dict(_build.LAUNCHES)
             n_vae = TRAIN_BATCH + single_frame_encodes(trainer.mask_conds)
             expect = {"flash_attention_fwd": n_vae, "ring_flash_fwd": 2 * n_blocks * hops,
-                      "ring_flash_bwd_dkv": n_blocks * hops, "ring_flash_bwd_dq": n_blocks * hops}
+                      "ring_flash_bwd_fused": n_blocks * hops, "flash_attention_bwd_dq_convert": n_blocks * RING_SP}
             moved = sum(float((p.detach() - b).abs().max()) > 0 for p, b in zip(factors, before))
             times = trainer.timers.to_dict()
             rec = dict(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]), launches=launches,
@@ -1793,8 +1875,8 @@ def main(argv) -> int:
 
     from opensora_torch.ops import _build
 
-    sources = ("flash_attention_fwd", "flash_attention_bwd_sm90", "flash_attention_bwd", "int8_matmul",
-               "int8_flash_attention", "ring_flash_attention")
+    sources = ("flash_attention_fwd_sm90", "flash_attention_fwd", "flash_attention_bwd_sm90", "flash_attention_bwd",
+               "int8_matmul", "int8_flash_attention", "ring_flash_attention")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         built = dict(zip(sources, pool.map(_build.build, sources)))
     for name, (seconds, _) in built.items():
@@ -1851,21 +1933,42 @@ def main(argv) -> int:
     vae_res["small_input"] = small_vae
     dcae_res = run_vae_train_path(device, "dc_ae", DCAE_STEPS, 32, tag="dcae", profile="--profile" in argv,
                                   out_dir=out_dir)
-    head = attn["cases"][0]  # the MMDiT shape, the main path's hot call
+    sm90_cases = [c for c in attn["cases"] if c["kernel"] == "flash_attention_fwd_sm90"]
+    d512_cases = [c for c in attn["cases"] if c["kernel"] == "flash_attention_fwd"]
+    head = sm90_cases[0]  # the MMDiT shape, anchored: the main path's hot call
     kernels = [dict(
+        name="flash_attention_fwd_sm90",
+        route="cuda",
+        source="opensora_torch/csrc/flash_attention_fwd_sm90.cu",
+        replaces="opensora_tpu/ops/flash_attention.py:247",
+        also_replaces="opensora_tpu/ops/flash_attention.py:179 (the running-max loop) and :320-422 (the dispatch)",
+        head_dim=128,
+        launches=main_res["launches"].get("flash_attention_fwd_sm90", 0),
+        launches_train=train_res["launches"]["flash_attention_fwd_sm90"],
+        max_abs_err=max(c["max_abs_err"] for c in sm90_cases),
+        ms=head["ms"], ms_is="flash_attention_with_lse (the bound A on the device, then the kernel), the mean of "
+        "4 readings in turns with SDPA's 4 (library_ms)", anchor_ms=head["anchor_ms"],
+        running_max_ms=sm90_cases[1]["ms"],
+        plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=head["library_ms"],
+        cases=sm90_cases,
+    )]
+    head = d512_cases[0]  # the main path's VAE decode tile
+    kernels.append(dict(
         name="flash_attention_fwd",
         route="cuda",
         source="opensora_torch/csrc/flash_attention_fwd.cu",
         replaces="opensora_tpu/ops/flash_attention.py:179",
         also_replaces="opensora_tpu/ops/flash_attention.py:247",
+        head_dim=512,
         launches=main_res["launches"].get("flash_attention_fwd", 0),
         launches_train=train_res["launches"]["flash_attention_fwd"],
         launches_vae_train=vae_res["launches"]["flash_attention_fwd"],
-        max_abs_err=max(c["max_abs_err"] for c in attn["cases"]),
+        max_abs_err=max(c["max_abs_err"] for c in d512_cases),
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],
-        cases=attn["cases"],
-    )]
+        cases=d512_cases,
+    ))
     bwd_head = attn_bwd["cases"][0]  # the MMDiT shape
     kernels.append(dict(
         name="flash_attention_bwd_fused",
@@ -1893,6 +1996,7 @@ def main(argv) -> int:
         replaces="opensora_tpu/ops/flash_attention.py:497 (the finalize of _dq_kernel: dq_scr * sm_scale to bf16)",
         head_dim=128,
         launches=train_res["launches"]["flash_attention_bwd_dq_convert"],
+        launches_ring_train=ring_train_res["launches"]["flash_attention_bwd_dq_convert"],
         max_abs_err=max(c["dq_convert_max_abs_err"] for c in attn_bwd["cases"]),
         max_abs_err_is="against its plain version on the same dq_accum",
         ms=bwd_head["ms"]["flash_attention_bwd_dq_convert"], plain_ms=bwd_head["dq_convert_plain_ms"],
@@ -1946,26 +2050,25 @@ def main(argv) -> int:
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], library=head["library"], cases=mine,
         ))
-    for name, line in zip(RING_KERNELS, (70, 185, 185)):
+    for name, line in zip(RING_KERNELS, (70, 185)):
         mine = ring["cases"]
         head = mine[0]  # the slice's shape: the MMDiT's joint attention over 4 ranks
         fwd = name == "ring_flash_fwd"
-        grads = "q" if name.endswith("dq") else "kv"
-        bwd_key = f"flash_attention_bwd_{name.rsplit('_', 1)[1]}"  # the same products' bound
         kernels.append(dict(
             name=name, route="cuda", source="opensora_torch/csrc/ring_flash_attention.cu",
             replaces=f"opensora_tpu/ops/ring_flash.py:{line}",
             launches=(ring_res if fwd else ring_train_res)["launches"][name],
             launches_train=ring_train_res["launches"][name],
-            max_abs_err=max(c["max_abs_err"] if fwd else max(c["grad_max_abs_err"][g] for g in grads) for c in mine),
+            max_abs_err=max(c["max_abs_err"] if fwd else max(c["grad_max_abs_err"].values()) for c in mine),
             ms=head["kernels_ms"][name], ms_is="the 16 (rank, hop) launches of one call, back to back",
             call_ms=head["call_ms"] if fwd else head["bwd_call_ms"],
             plain_ms=head["plain_ms"] if fwd else head["plain_bwd_ms"],
-            bound_ms=head["bound_ms"] if fwd else head["bwd_bound_ms"][bwd_key],
-            bound_by=head["bound_by"] if fwd else head["bwd_bound_by"][bwd_key],
+            bound_ms=head["bound_ms"] if fwd else head["bwd_bound_ms"]["flash_attention_bwd_fused"],
+            bound_by=head["bound_by"] if fwd else head["bwd_bound_by"]["flash_attention_bwd_fused"],
             library_ms=head["library_ms"] if fwd else head["library_bwd_ms"],
             library="SDPA at the global shape" + ("" if fwd else ", backward"),
-            **({} if fwd else {"plain_and_library_compute": "dq, dk and dv (the whole backward)"}),
+            **({} if fwd else {"plain_and_library_compute": "dq, dk and dv (the whole backward)",
+                               "max_abs_err_is": "dq (after the dQ epilogue), dk and dv of the ring call"}),
             cases=mine,
         ))
     log("[main] " + json.dumps(main_res))

@@ -1,7 +1,9 @@
-// Flash-attention forward for Hopper (sm_90a), bf16 in/out, fp32 accumulation.
+// Flash-attention forward at head dim 512 (the VAE mid-block) for Hopper
+// (sm_90a), bf16 in/out, fp32 accumulation. Head dim 128 (the MMDiT) runs
+// on the warp-specialised wgmma/TMA kernel of flash_attention_fwd_sm90.cu.
 //
 // Replaces the two Pallas TPU forward kernels of
-// opensora_tpu/ops/flash_attention.py:
+// opensora_tpu/ops/flash_attention.py at D = 512:
 //   - _fwd_kernel           (:179, running-max online softmax, optional
 //                            frame-causal ``causal_block`` mask)
 //   - _fwd_kernel_anchored  (:247, softmax anchored at the per-(b, h)
@@ -20,22 +22,22 @@
 // Rows and columns past the sequence are zero-filled on load, so no garbage
 // ever reaches a product (0 * NaN = NaN).
 //
-// What bounds it: the MMDiT call (B=3, H=24, L=8828, D=128) does 4*B*H*L^2*D
-// = 2.87e12 flops on 0.65 GB of q/k/v/o, ~4400 flops per byte, far above the
-// H100's ~295 bf16 flops per byte: it is bound by tensor-core operations.
+// What bounds it: the VAE training mid-block (B=1, H=1, L=9216, D=512,
+// frames of 1024) does 4*B*H*D times the visible (query, key) pairs, 0.097
+// TFLOP, on 38 MB of q/k/v/o: ~2500 flops per byte, above the H100's ~295
+// bf16 flops per byte, so it is bound by tensor-core operations.
 // The design keeps both products on the tensor cores (mma.sync m16n8k16 bf16
 // -> fp32), keeps the score tile and the output accumulator in registers and
 // never writes the L x L scores to memory, and double-buffers the K/V tiles
-// with cp.async so loads overlap the math. wgmma/TMA would reach the higher
-// Hopper rate and are left to a later change.
+// with cp.async so loads overlap the math.
 //
 // Layout: q, k, v, o are (B, H, L, D) contiguous; lse is (B, H, Lq) fp32;
 // anchor is (B, H) fp32 log2-domain bounds (bidirectional only).
 // One block of 4 warps owns 64 query rows (16 per warp) and DV = 128 output
-// columns; it loops over KV tiles of BN keys. D = 512 (the VAE mid-block)
-// would need a 64 x 512 fp32 accumulator that does not fit in registers, so
-// the output's D is split across D / 128 blocks (grid z); each recomputes
-// Q K^T over the full D and keeps only its 128-column slice of P V.
+// columns; it loops over KV tiles of BN keys. D = 512 needs a 64 x 512 fp32
+// accumulator that does not fit in registers, so the output's D is split
+// across D / 128 blocks (grid z); each recomputes Q K^T over the full D and
+// keeps only its 128-column slice of P V.
 
 #include "flash_common.cuh"
 
@@ -277,7 +279,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
 
 }  // namespace
 
-// q, k, v, o: (B, H, L, D) bf16 contiguous; lse: (B, H, Lq) fp32;
+// q, k, v, o: (B, H, L, D) bf16 contiguous, D = 512; lse: (B, H, Lq) fp32;
 // anchor: (B, H) fp32 log2-domain bound, read only when causal_block <= 0.
 // sm_scale_log2 = sm_scale * log2(e). causal_block <= 0 means bidirectional.
 // Returns the cudaError_t of the launch (0 on success).
@@ -286,12 +288,6 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    float sm_scale_log2, int causal_block, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool causal = causal_block > 0;
-  if (D == 128) {
-    return causal ? launch<128, 64, true>(q, k, v, o, lse, anchor, B, H, Lq, Lk, sm_scale_log2,
-                                          causal_block, s)
-                  : launch<128, 64, false>(q, k, v, o, lse, anchor, B, H, Lq, Lk, sm_scale_log2,
-                                           causal_block, s);
-  }
   if (D == 512) {
     return causal ? launch<512, 32, true>(q, k, v, o, lse, anchor, B, H, Lq, Lk, sm_scale_log2,
                                           causal_block, s)

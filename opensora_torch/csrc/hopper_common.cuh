@@ -242,6 +242,11 @@ __device__ __forceinline__ void reg_dealloc() {
 __device__ __forceinline__ void named_bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
+// Arrives at barrier ID (of N threads) without waiting: the other side of
+// a producer / consumer hand-over between warpgroups.
+__device__ __forceinline__ void named_bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
 
 // ---- host: tensor maps -----------------------------------------------------
 
@@ -264,15 +269,17 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A tensor map over a bf16 tensor of shape DIMS (innermost first, RANK
-// dims, innermost contiguous), STRIDES in bytes of dims 1.. , tiles of BOX,
-// 128-byte swizzle, out-of-bounds elements read as zero.
-inline cudaError_t encode_bf16_sw128(CUtensorMap* map, const void* ptr, int rank, const uint64_t* dims,
-                                     const uint64_t* strides, const uint32_t* box) {
+// A tensor map over a contiguous (B*H, L, D) bf16 tensor seen as the 3-D
+// (D, L, B*H): boxes of 64 columns (one 128-byte swizzled row) by ROWS rows
+// of one head, so a tile never reads the next head: rows past L read as zero.
+inline cudaError_t encode_heads_bf16_sw128(CUtensorMap* map, const void* ptr, int d, int L, int BH, int rows) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides, box,
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)L, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)L * d * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
                   elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

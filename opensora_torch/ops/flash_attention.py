@@ -1,29 +1,33 @@
 """Flash attention: the Hopper CUDA kernels, their wrappers, their plain
 PyTorch versions and the autograd Function over them.
 
-Counterpart of opensora_tpu/ops/flash_attention.py. The forward kernel
-(``csrc/flash_attention_fwd.cu``) fuses the TPU's two forward kernels, ``_fwd_kernel`` and ``_fwd_kernel_anchored``: for bidirectional
-attention each (b, h) takes the anchored loop when its Cauchy-Schwarz logit
-bound A = sm_scale * log2(e) * max|q| * max|k| is below 40, and the
-running-max loop otherwise. A is computed here on the device and read by
-the kernel, so no call syncs with the host.
+Counterpart of opensora_tpu/ops/flash_attention.py. The forward ports the
+TPU's two forward kernels, ``_fwd_kernel`` and ``_fwd_kernel_anchored``,
+and the choice between them: for bidirectional attention each (b, h) takes
+the anchored loop when its Cauchy-Schwarz logit bound A = sm_scale *
+log2(e) * max|q| * max|k| is below 40, and the running-max loop otherwise.
+A is computed here on the device and read by the kernel, so no call syncs
+with the host. At D = 128 (the MMDiT) one warp-specialised wgmma/TMA kernel
+runs both loops (``csrc/flash_attention_fwd_sm90.cu``); at D = 512 (the VAE
+mid-block, the output's D split over blocks) the mma.sync kernel does
+(``csrc/flash_attention_fwd.cu``).
 
 The backward ports ``_dkv_kernel`` and ``_dq_kernel`` twice. At D = 128
-(the MMDiT) one fused warp-specialised wgmma/TMA kernel computes dK, dV and
+one fused warp-specialised wgmma/TMA kernel computes dK, dV and
 an fp32 dQ sum, and a small epilogue kernel scales and rounds dQ
-(``csrc/flash_attention_bwd_sm90.cu``). At D = 512 (the VAE mid-block, D
-split over blocks) two kernels, ``dkv`` and ``dq``, do
-(``csrc/flash_attention_bwd.cu``). P is recomputed from the forward's LSE;
-delta = rowsum(dO * O) is plain torch (XLA fuses it beside the TPU
-kernels). :class:`FlashAttentionFunction` ties forward
+(``csrc/flash_attention_bwd_sm90.cu``). At D = 512 two kernels, ``dkv``
+and ``dq``, do (``csrc/flash_attention_bwd.cu``). P is recomputed from the
+forward's LSE; delta = rowsum(dO * O) is plain torch (XLA fuses it beside
+the TPU kernels). :class:`FlashAttentionFunction` ties forward
 and backward together as the JAX package's ``custom_vjp`` does, and every
 attention call of the port goes through it.
 
 Layout (B, H, L, D). The wrappers launch the kernels for CUDA tensors and
 raise on anything a kernel does not take (dtype other than bf16, a head
-dim it was not built for, non-contiguous input); CPU tensors go to the
-plain versions, :func:`flash_attention_ref` and
-:func:`flash_attention_bwd_ref`. A CUDA call never falls back to them.
+dim it was not built for, non-contiguous or, for the TMA kernels, not
+16-byte aligned input); CPU tensors go to the plain versions,
+:func:`flash_attention_ref` and :func:`flash_attention_bwd_ref`. A CUDA
+call never falls back to them.
 """
 
 from __future__ import annotations
@@ -38,8 +42,13 @@ from opensora_torch.ops import _build
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
-KERNEL = "flash_attention_fwd"
 SUPPORTED_HEAD_DIMS = (128, 512)
+# the forward: D = 128 on the Hopper kernel, D = 512 on the mma.sync one;
+# each kernel has its own launch count (its C entry's name)
+FWD_SM90_SOURCE = "flash_attention_fwd_sm90"
+KERNEL_FWD_SM90 = "flash_attention_fwd_sm90"
+FWD_SM90_HEAD_DIM = 128
+KERNEL = "flash_attention_fwd"  # D = 512
 # the backward: D = 128 on the fused Hopper kernel and its dQ epilogue,
 # D = 512 on the split dkv / dq pair; each kernel has its own launch count
 FUSED_SOURCE = "flash_attention_bwd_sm90"
@@ -54,6 +63,7 @@ SPLIT_HEAD_DIM = 512
 BWD_HEAD_DIMS = (FUSED_HEAD_DIM, SPLIT_HEAD_DIM)
 
 _lib = None
+_fwd_sm90_lib = None
 _bwd_lib = None
 _fused_lib = None
 
@@ -71,6 +81,19 @@ def _kernel_lib():
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def _kernel_lib_fwd_sm90():
+    global _fwd_sm90_lib
+    if _fwd_sm90_lib is None:
+        lib = _build.load(FWD_SM90_SOURCE)
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.flash_attention_fwd_sm90.argtypes = [vp] * 6 + [i] * 5 + [ctypes.c_float, i, vp]
+        lib.flash_attention_fwd_sm90.restype = ctypes.c_int
+        lib.flash_attention_fwd_sm90_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_fwd_sm90_error_string.restype = ctypes.c_char_p
+        _fwd_sm90_lib = lib
+    return _fwd_sm90_lib
 
 
 def _kernel_lib_bwd():
@@ -152,9 +175,16 @@ def _check(q, k, v, causal_block):
         raise ValueError(f"causal_block must be positive, got {causal_block}")
 
 
+def _check_aligned(kernel: str, tensors):
+    for name, x in tensors:
+        if x.data_ptr() % 16:
+            raise ValueError(f"{kernel}: {name} must be 16-byte aligned (its TMA tensor map)")
+
+
 def _flash_forward(q, k, v, sm_scale: float, causal_block: Optional[int]):
-    """(out in q's dtype, lse fp32): the kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    """(out in q's dtype, lse fp32): the kernel for CUDA tensors (D = 128:
+    ``flash_attention_fwd_sm90``; D = 512: ``flash_attention_fwd``), the
+    plain version for CPU tensors."""
     if q.device.type == "cpu":
         out, lse = flash_attention_ref(q, k, v, sm_scale, causal_block)
         return out.to(q.dtype), lse
@@ -163,21 +193,23 @@ def _flash_forward(q, k, v, sm_scale: float, causal_block: Optional[int]):
     _check(q, k, v, causal_block)
     b, h, lq, d = q.shape
     lk = k.shape[2]
+    sm90 = d == FWD_SM90_HEAD_DIM
+    if sm90:
+        _check_aligned(KERNEL_FWD_SM90, (("q", q), ("k", k), ("v", v)))
     out = torch.empty_like(q)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     anchor = anchor_log2(q, k, sm_scale) if causal_block is None else None
-    lib = _kernel_lib()
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+    lib = _kernel_lib_fwd_sm90() if sm90 else _kernel_lib()
+    name = KERNEL_FWD_SM90 if sm90 else KERNEL
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             anchor.data_ptr() if anchor is not None else None,
-            b, h, lq, lk, d, sm_scale * LOG2E, causal_block or 0,
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+            b, h, lq, lk, d, sm_scale * LOG2E, causal_block or 0]
+    with torch.cuda.device(q.device):
+        err = getattr(lib, name)(*args, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        msg = lib.flash_attention_error_string(err).decode()
-        raise RuntimeError(f"flash_attention_fwd launch failed: {msg} ({err})")
-    _build.LAUNCHES[KERNEL] += 1
+        msg = (lib.flash_attention_fwd_sm90_error_string if sm90 else lib.flash_attention_error_string)(err).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({err})")
+    _build.LAUNCHES[name] += 1
     return out, lse
 
 
@@ -253,25 +285,35 @@ def _launch_bwd(lib, error_string, kernel: str, args, q):
 # order [j 0..7][thread 0..127][4], thread t = 32 w + 4 g + q holding rows
 # 16 w + g + 8 i and columns 64 c + 8 j + 2 q + e in its float 2 i + e.
 # As dims: (B, H, tile, c, j, w, g, q, i, e) -> rows (tile, w, i, g),
-# columns (c, j, q, e).
-_ACCUM_DIMS = (2, 8, 4, 8, 4, 2, 2)  # c, j, w, g, q, i, e
+# columns (c, j, q, e). The plain ring backward keeps the same order at the
+# narrow head dims of small models (see _accum_dims).
 _ACCUM_TO_ROWS = (0, 1, 2, 5, 8, 6, 3, 4, 7, 9)
 
 
+def _accum_dims(d: int):
+    """(c, j, w, g, q, i, e) of a dq_accum of head dim d: (2, 8, 4, 8, 4, 2,
+    2) at 128, the kernel's; at other d, 64-column halves c where d allows
+    and 8-column groups j where a half allows, else the columns in order."""
+    c = d // 64 if d % 64 == 0 else 1
+    half = d // c
+    j, q, e = (half // 8, 4, 2) if half % 8 == 0 else (1, 1, half)
+    return c, j, 4, 8, q, 2, e
+
+
 def dq_accum_to_rows(dq_accum: torch.Tensor, lq: int) -> torch.Tensor:
-    """(B, H, Lq, 128) fp32 rows and columns of a dq_accum."""
+    """(B, H, Lq, D) fp32 rows and columns of a dq_accum."""
     b, h, n_rows, d = dq_accum.shape
-    x = dq_accum.reshape(b, h, n_rows // FUSED_BLOCK_M, *_ACCUM_DIMS).permute(_ACCUM_TO_ROWS)
+    x = dq_accum.reshape(b, h, n_rows // FUSED_BLOCK_M, *_accum_dims(d)).permute(_ACCUM_TO_ROWS)
     return x.reshape(b, h, n_rows, d)[:, :, :lq]
 
 
 def dq_rows_to_accum(dq: torch.Tensor) -> torch.Tensor:
-    """The dq_accum (B, H, ceil(Lq / 64) * 64, 128) fp32 that holds dq
-    (B, H, Lq, 128): the inverse of :func:`dq_accum_to_rows`."""
+    """The dq_accum (B, H, ceil(Lq / 64) * 64, D) fp32 that holds dq
+    (B, H, Lq, D): the inverse of :func:`dq_accum_to_rows`."""
     b, h, lq, d = dq.shape
     n_rows = -(-lq // FUSED_BLOCK_M) * FUSED_BLOCK_M
     x = torch.nn.functional.pad(dq.float(), (0, 0, 0, n_rows - lq))
-    c, j, w, g, q, i, e = _ACCUM_DIMS
+    c, j, w, g, q, i, e = _accum_dims(d)
     x = x.reshape(b, h, n_rows // FUSED_BLOCK_M, w, i, g, c, j, q, e)
     inverse = [_ACCUM_TO_ROWS.index(n) for n in range(10)]
     return x.permute(inverse).reshape(b, h, n_rows, d).contiguous()
@@ -286,9 +328,7 @@ def flash_attention_bwd_dq_convert_ref(dq_accum: torch.Tensor, lq: int, sm_scale
 def _check_fused(q, k, v, do, lse, delta, causal_block):
     _check_bwd(q, k, v, do, lse, delta, causal_block)
     _check_head_dim(q, FUSED_HEAD_DIM, KERNEL_FUSED)
-    for name, x in (("q", q), ("k", k), ("v", v), ("do", do)):
-        if x.data_ptr() % 16:
-            raise ValueError(f"{KERNEL_FUSED}: {name} must be 16-byte aligned (its TMA tensor map)")
+    _check_aligned(KERNEL_FUSED, (("q", q), ("k", k), ("v", v), ("do", do)))
 
 
 def _check_dq_accum(dq_accum, lq):

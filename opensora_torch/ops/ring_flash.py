@@ -12,10 +12,14 @@ one launch of a kernel of ``csrc/ring_flash_attention.cu``:
 
 - ``ring_flash_fwd`` folds the keys of the rank's current slot into its
   fp32 (m, l, acc) and, on the last hop, writes out and the LSE;
-- ``ring_flash_bwd_dkv`` adds the rank's dK, dV into the fp32 accumulators
-  that travel with the KV shard (sent on after every hop, the last
-  included, so they land home after sp hops, in slot sp % 2);
-- ``ring_flash_bwd_dq`` adds into the rank's fp32 dQ, which stays home.
+- ``ring_flash_bwd_fused`` (the dense D = 128 backward's fused wgmma/TMA
+  main loop at the hop's global offsets) adds the rank's dK, dV into the
+  fp32 accumulators that travel with the KV shard (sent on after every
+  hop, the last included, so they land home after sp hops, in slot sp %
+  2) and its dQ partials into the rank's fp32 ``dq_accum`` (the fused
+  kernel's fragment-order layout), which stays home; after the last hop
+  the dense backward's epilogue kernel, ``flash_attention_bwd_dq_convert``,
+  scales and rounds it once per rank.
 
 Every hop masks at global offsets: the rank's queries start at rank * L_q,
 the shard it holds at hop h came from src = (rank - h) mod sp. The kernels
@@ -24,8 +28,8 @@ that each local length tiles evenly). Head dim 128 (the MMDiT's).
 
 The hop wrappers launch the kernels for CUDA tensors and raise on anything
 they do not take; CPU tensors go to the plain hop functions
-(``*_hop_ref``), which run the same state updates in fp32. A CUDA call never
-falls back to them. ``plain=True`` in :func:`ring_forward_shards` /
+(``*_hop_ref``), which run the same state and accumulator updates in
+fp32. A CUDA call never falls back to them. ``plain=True`` in :func:`ring_forward_shards` /
 :func:`ring_backward_shards` runs the plain hops in sequence on any device:
 the reference ``chip_smoke.py`` holds the kernels against.
 
@@ -42,14 +46,14 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from opensora_torch.ops import _build
+from opensora_torch.ops import flash_attention as fa
 from opensora_torch.ops.flash_attention import LOG2E, NEG_INF
 from opensora_torch.parallel.comm import RingTransport, gather, shard
 
 LN2 = math.log(2.0)
 SOURCE = "ring_flash_attention"
 KERNEL_FWD = "ring_flash_fwd"
-KERNEL_DKV = "ring_flash_bwd_dkv"
-KERNEL_DQ = "ring_flash_bwd_dq"
+KERNEL_BWD = "ring_flash_bwd_fused"
 HEAD_DIM = 128
 
 _lib = None
@@ -61,9 +65,8 @@ def _kernel_lib():
         lib = _build.load(SOURCE)
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.ring_flash_fwd.argtypes = [vp] * 8 + [i] * 5 + [f] + [i] * 5 + [vp]
-        lib.ring_flash_bwd_dkv.argtypes = [vp] * 8 + [i] * 5 + [f] + [i] * 3 + [vp]
-        lib.ring_flash_bwd_dq.argtypes = [vp] * 7 + [i] * 5 + [f] + [i] * 3 + [vp]
-        for fn in (lib.ring_flash_fwd, lib.ring_flash_bwd_dkv, lib.ring_flash_bwd_dq):
+        lib.ring_flash_bwd_fused.argtypes = [vp] * 9 + [i] * 5 + [f] + [i] * 3 + [vp]
+        for fn in (lib.ring_flash_fwd, lib.ring_flash_bwd_fused):
             fn.restype = ctypes.c_int
         lib.ring_flash_error_string.argtypes = [ctypes.c_int]
         lib.ring_flash_error_string.restype = ctypes.c_char_p
@@ -134,19 +137,32 @@ def _p_ds(q, k, v, do, lse, delta, sm_scale, causal_block, q_off, k_off):
     return p, p * (dp - delta.float()[..., None])
 
 
-def ring_bwd_dkv_hop_ref(q, k, v, do, lse, delta, dk_acc, dv_acc, *, sm_scale: float,
-                         causal_block: Optional[int], q_off: int, k_off: int) -> None:
-    """One hop, keys' side: dk_acc += sm_scale dS^T Q, dv_acc += P^T dO."""
+def ring_bwd_hop_ref(q, k, v, do, lse, delta, dk_acc, dv_acc, dq_accum, *, sm_scale: float,
+                     causal_block: Optional[int], q_off: int, k_off: int) -> None:
+    """One backward hop: dk_acc += sm_scale dS^T Q and dv_acc += P^T dO (the
+    slot's travelling accumulators), dq_accum += dS K, unscaled (sm_scale
+    multiplies it once, after the last hop). dq_accum is the fused kernel's
+    (flash_attention.dq_rows_to_accum), as for the kernel."""
     p, ds = _p_ds(q, k, v, do, lse, delta, sm_scale, causal_block, q_off, k_off)
     dv_acc.add_(torch.einsum("bhqk,bhqd->bhkd", p, do.float()))
     dk_acc.add_(torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * sm_scale)
+    dq_accum.add_(fa.dq_rows_to_accum(torch.einsum("bhqk,bhkd->bhqd", ds, k.float())))
 
 
-def ring_bwd_dq_hop_ref(q, k, v, do, lse, delta, dq_acc, *, sm_scale: float,
-                        causal_block: Optional[int], q_off: int, k_off: int) -> None:
-    """One hop, queries' side: dq_acc += sm_scale dS K."""
-    _, ds = _p_ds(q, k, v, do, lse, delta, sm_scale, causal_block, q_off, k_off)
-    dq_acc.add_(torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * sm_scale)
+def dq_finish_ref(dq_accum: torch.Tensor, lq: int, *, sm_scale: float, dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of :func:`dq_finish`, in ``dtype``."""
+    return (fa.dq_accum_to_rows(dq_accum, lq) * sm_scale).to(dtype)
+
+
+def dq_finish(dq_accum: torch.Tensor, lq: int, *, sm_scale: float, dtype: torch.dtype) -> torch.Tensor:
+    """A rank's dq (B, H, Lq, D) in ``dtype`` from its dq_accum: the dense
+    backward's epilogue kernel (CUDA tensors; bf16 only), the plain version
+    for CPU tensors."""
+    if not _route(dq_accum):
+        return dq_finish_ref(dq_accum, lq, sm_scale=sm_scale, dtype=dtype)
+    if dtype != torch.bfloat16:
+        raise ValueError(f"ring backward: the dQ epilogue writes bf16, got {dtype}")
+    return fa.flash_attention_bwd_dq_convert(dq_accum, lq, sm_scale=sm_scale)
 
 
 # ----------------------------------------------------------------------
@@ -218,32 +234,20 @@ def _check_bwd(q, k, v, do, lse, delta, accs):
         raise ValueError("ring backward: k and v, do, lse and delta must match q's shape")
 
 
-def ring_bwd_dkv_hop(q, k, v, do, lse, delta, dk_acc, dv_acc, *, sm_scale: float,
-                     causal_block: Optional[int], q_off: int, k_off: int) -> None:
-    """One backward hop by the ``ring_flash_bwd_dkv`` kernel (CPU tensors:
+def ring_bwd_hop(q, k, v, do, lse, delta, dk_acc, dv_acc, dq_accum, *, sm_scale: float,
+                 causal_block: Optional[int], q_off: int, k_off: int) -> None:
+    """One backward hop by the ``ring_flash_bwd_fused`` kernel (CPU tensors:
     the plain version)."""
     kw = dict(sm_scale=sm_scale, causal_block=causal_block, q_off=q_off, k_off=k_off)
     if not _route(q):
-        return ring_bwd_dkv_hop_ref(q, k, v, do, lse, delta, dk_acc, dv_acc, **kw)
-    _check_bwd(q, k, v, do, lse, delta, (("dk_acc", dk_acc), ("dv_acc", dv_acc)))
+        return ring_bwd_hop_ref(q, k, v, do, lse, delta, dk_acc, dv_acc, dq_accum, **kw)
+    _check_bwd(q, k, v, do, lse, delta, (("dk_acc", dk_acc), ("dv_acc", dv_acc), ("dq_accum", dq_accum)))
     if dk_acc.shape != k.shape or dv_acc.shape != k.shape:
-        raise ValueError("ring_flash_bwd_dkv: the accumulators must match k's shape")
-    ptrs = [x.data_ptr() for x in (q, k, v, do, lse, delta, dk_acc, dv_acc)]
-    _launch("ring_flash_bwd_dkv", KERNEL_DKV, ptrs, q, k, sm_scale, causal_block or 0, q_off, k_off)
-
-
-def ring_bwd_dq_hop(q, k, v, do, lse, delta, dq_acc, *, sm_scale: float, causal_block: Optional[int],
-                    q_off: int, k_off: int) -> None:
-    """One backward hop by the ``ring_flash_bwd_dq`` kernel (CPU tensors:
-    the plain version)."""
-    kw = dict(sm_scale=sm_scale, causal_block=causal_block, q_off=q_off, k_off=k_off)
-    if not _route(q):
-        return ring_bwd_dq_hop_ref(q, k, v, do, lse, delta, dq_acc, **kw)
-    _check_bwd(q, k, v, do, lse, delta, (("dq_acc", dq_acc),))
-    if dq_acc.shape != q.shape:
-        raise ValueError("ring_flash_bwd_dq: the accumulator must match q's shape")
-    ptrs = [x.data_ptr() for x in (q, k, v, do, lse, delta, dq_acc)]
-    _launch("ring_flash_bwd_dq", KERNEL_DQ, ptrs, q, k, sm_scale, causal_block or 0, q_off, k_off)
+        raise ValueError("ring_flash_bwd_fused: the dK/dV accumulators must match k's shape")
+    fa._check_dq_accum(dq_accum, q.shape[2])
+    fa._check_aligned(KERNEL_BWD, (("q", q), ("k", k), ("v", v), ("do", do)))
+    ptrs = [x.data_ptr() for x in (q, k, v, do, lse, delta, dk_acc, dv_acc, dq_accum)]
+    _launch("ring_flash_bwd_fused", KERNEL_BWD, ptrs, q, k, sm_scale, causal_block or 0, q_off, k_off)
 
 
 # ----------------------------------------------------------------------
@@ -297,18 +301,19 @@ def ring_backward_shards(qs, ks, vs, outs, lses, dos, *, sm_scale: float, causal
     rotate as in the forward, their fp32 dK/dV accumulators travel with
     them (sent on after this rank's contribution is added, every hop) and
     land home in slot ``home_slot(sp)``; dQ accumulates locally from the
-    global LSE (ring_flash.py:185-299). delta = rowsum(dO * O) is computed
+    global LSE in a dq_accum, finished once after the last hop
+    (:func:`dq_finish`; ring_flash.py:185-299). delta = rowsum(dO * O) is computed
     here, outside the kernels, as the JAX package does."""
     sp = len(qs)
-    dkv_fn = ring_bwd_dkv_hop_ref if plain else ring_bwd_dkv_hop
-    dq_fn = ring_bwd_dq_hop_ref if plain else ring_bwd_dq_hop
+    hop_fn, finish = (ring_bwd_hop_ref, dq_finish_ref) if plain else (ring_bwd_hop, dq_finish)
     t = RingTransport([x.device for x in qs], sequential=plain)
     b, h, lq, d = qs[0].shape
     lk = ks[0].shape[2]
     kv = t.slots((2, b, h, lk, d), ks[0].dtype)
     grad = t.slots((2, b, h, lk, d), torch.float32, zero_first=True)  # per rank: [slot][dk/dv]
     deltas = [(do.float() * o.float()).sum(-1) for do, o in zip(dos, outs)]
-    dq = [torch.zeros((b, h, lq, d), dtype=torch.float32, device=q.device) for q in qs]
+    n_rows = -(-lq // fa.FUSED_BLOCK_M) * fa.FUSED_BLOCK_M
+    dq = [torch.zeros((b, h, n_rows, d), dtype=torch.float32, device=q.device) for q in qs]
     for r in range(sp):
         kv[r][0, 0].copy_(ks[r])
         kv[r][0, 1].copy_(vs[r])
@@ -323,14 +328,13 @@ def ring_backward_shards(qs, ks, vs, outs, lses, dos, *, sm_scale: float, causal
                 if hop + 1 < sp:
                     t.send(r, "kv", kv, cur)
                 kw = dict(sm_scale=sm_scale, causal_block=causal_block, q_off=r * lq, k_off=(r - hop) % sp * lk)
-                args = (qs[r], kv[r][cur, 0], kv[r][cur, 1], dos[r], lses[r], deltas[r])
-                dkv_fn(*args, grad[r][cur, 0], grad[r][cur, 1], **kw)
-                dq_fn(*args, dq[r], **kw)
+                hop_fn(qs[r], kv[r][cur, 0], kv[r][cur, 1], dos[r], lses[r], deltas[r], grad[r][cur, 0],
+                       grad[r][cur, 1], dq[r], **kw)
                 t.send(r, "grad", grad, cur)  # after the contribution, on every hop
                 t.release(r, cur)
     t.finish()
     home = home_slot(sp)
-    return ([g.to(q.dtype) for g, q in zip(dq, qs)],
+    return ([finish(g, lq, sm_scale=sm_scale, dtype=q.dtype) for g, q in zip(dq, qs)],
             [grad[r][home, 0].to(ks[r].dtype) for r in range(sp)],
             [grad[r][home, 1].to(vs[r].dtype) for r in range(sp)])
 

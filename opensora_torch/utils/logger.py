@@ -12,20 +12,29 @@ LOGGER_NAME = "opensora_torch"
 
 
 def create_logger(exp_dir: Optional[str] = None, name: str = LOGGER_NAME) -> logging.Logger:
-    """The named logger; its handlers are set up at the first call."""
+    """The named logger: stdout from the first call on and, once a call
+    names ``exp_dir``, ``<exp_dir>/log.txt``. A call with another
+    ``exp_dir`` moves the file handler there; a call without one keeps the
+    handlers as they are."""
     logger = logging.getLogger(name)
-    if logger.handlers:
-        return logger
-    logger.setLevel(logging.INFO)
     fmt = logging.Formatter("[%(asctime)s] %(levelname)s %(message)s", datefmt="%Y-%m-%d %H:%M:%S")
-    handlers = [logging.StreamHandler(sys.stdout)]
+    if not logger.handlers:
+        logger.setLevel(logging.INFO)
+        stream = logging.StreamHandler(sys.stdout)
+        stream.setFormatter(fmt)
+        logger.addHandler(stream)
+        logger.propagate = False
     if exp_dir is not None:
-        os.makedirs(exp_dir, exist_ok=True)
-        handlers.append(logging.FileHandler(os.path.join(exp_dir, "log.txt")))
-    for h in handlers:
-        h.setFormatter(fmt)
-        logger.addHandler(h)
-    logger.propagate = False
+        path = os.path.abspath(os.path.join(exp_dir, "log.txt"))
+        files = [h for h in logger.handlers if isinstance(h, logging.FileHandler)]
+        if [h.baseFilename for h in files] != [path]:
+            for h in files:
+                logger.removeHandler(h)
+                h.close()
+            os.makedirs(exp_dir, exist_ok=True)
+            handler = logging.FileHandler(path)
+            handler.setFormatter(fmt)
+            logger.addHandler(handler)
     return logger
 
 

@@ -20,11 +20,12 @@ def _np(shape, seed, scale=1.0):
 
 
 def test_flash_on_cpu_takes_plain_version_without_launching():
-    q = torch.from_numpy(_np((1, 1, 40, 64), 13))
-    before = _build.LAUNCHES["flash_attention_fwd"]
-    out = tflash.flash_attention(q, q, q, causal_block=8)
-    assert out.dtype == q.dtype and out.shape == q.shape
-    assert _build.LAUNCHES["flash_attention_fwd"] == before
+    before = dict(_build.LAUNCHES)
+    for d in (64, 128):
+        q = torch.from_numpy(_np((1, 1, 40, d), 13))
+        out = tflash.flash_attention(q, q, q, causal_block=8)
+        assert out.dtype == q.dtype and out.shape == q.shape
+    assert _build.LAUNCHES == before
 
 
 @pytest.mark.parametrize("bad,match", [
@@ -40,28 +41,55 @@ def test_flash_kernel_input_checks(bad, match):
         tflash._check(q, q, q, bad.get("causal_block"))
 
 
-# (shape, causal_block, q scale): the anchored loop, the running-max loop
-# (q scaled so the logit bound A >= 40), and the frame-causal D=512 kernel;
-# L = 1000 fills no tile exactly.
+def _fwd_kernel(head_dim):
+    """The forward's kernel at a head dim: the Hopper wgmma/TMA kernel at
+    128, the mma.sync kernel at 512."""
+    return tflash.KERNEL_FWD_SM90 if head_dim == tflash.FWD_SM90_HEAD_DIM else tflash.KERNEL
+
+
+def test_fwd_sm90_input_checks():
+    """The D = 128 forward's TMA tensor maps need 16-byte aligned inputs:
+    a misaligned one raises before a launch, naming it."""
+    q = torch.zeros((1, 1, 64, 128), dtype=torch.bfloat16)
+    tflash._check_aligned(tflash.KERNEL_FWD_SM90, (("q", q), ("k", q), ("v", q)))
+    shifted = torch.zeros(64 * 128 + 1, dtype=torch.bfloat16)[1:].view(1, 1, 64, 128)
+    with pytest.raises(ValueError, match="k must be 16-byte aligned"):
+        tflash._check_aligned(tflash.KERNEL_FWD_SM90, (("q", q), ("k", shifted), ("v", q)))
+
+
+# (shape, causal_block, q scale, Lk): the anchored loop, the running-max
+# loop (q scaled so the logit bound A >= 40), the MMDiT's length over 4
+# heads in both loops, frame-causal at D = 128 and at D = 512, Lq != Lk
+# both ways, L below one 128-row tile; L = 1000 fills no tile exactly.
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,causal_block,qscale", [
-    ((2, 3, 1000, 128), None, 1.0),
-    ((2, 3, 1000, 128), None, 4.0),
-    ((1, 2, 1000, 512), 96, 1.0),
+@pytest.mark.parametrize("shape,causal_block,qscale,lk", [
+    ((2, 3, 1000, 128), None, 1.0, None),
+    ((2, 3, 1000, 128), None, 4.0, None),
+    ((1, 4, 8828, 128), None, 1.0, None),
+    ((1, 4, 8828, 128), None, 3.0, None),
+    ((1, 2, 1000, 128), 96, 1.0, None),
+    ((1, 2, 300, 128), None, 1.0, 500),
+    ((1, 2, 500, 128), 64, 1.0, 300),
+    ((2, 2, 50, 128), None, 4.0, None),
+    ((1, 2, 1000, 512), 96, 1.0, None),
 ])
-def test_flash_kernel_matches_plain_on_cuda(shape, causal_block, qscale):
+def test_flash_kernel_matches_plain_on_cuda(shape, causal_block, qscale, lk):
     """bf16 kernel vs the fp32 plain version on the card: bf16 output
     rounding (2^-8 relative) bounds the difference; the limit is twice
     that, of the output's scale (as in chip_smoke.py)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
+    kshape = shape[:2] + (lk or shape[2], shape[3])
+    q, k, v = (torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16) for s in (shape, kshape, kshape))
     q = (q.float() * qscale).to(torch.bfloat16)
     if causal_block is None:
         anchor_max = tflash.anchor_log2(q, k, shape[-1] ** -0.5).max().item()
         assert (anchor_max < 40) == (qscale == 1.0)
+    before = dict(_build.LAUNCHES)
     out, lse = tflash.flash_attention_with_lse(q, k, v, causal_block=causal_block)
+    launched = {n: c - before.get(n, 0) for n, c in _build.LAUNCHES.items() if c != before.get(n, 0)}
+    assert launched == {_fwd_kernel(shape[-1]): 1}
     ref_out, ref_lse = tflash.flash_attention_ref(q, k, v, None, causal_block)
     assert (out.float() - ref_out).abs().max().item() <= 8e-3 * ref_out.abs().max().item()
     assert (lse - ref_lse).abs().max().item() <= 1e-3
@@ -172,7 +200,7 @@ def test_flash_function_backward_on_cuda_goes_through_the_kernels(shape, causal_
     before = dict(_build.LAUNCHES)
     grads = torch.autograd.grad(tflash.flash_attention(q, k, v, causal_block=causal_block), (q, k, v), do)
     launched = {n: c - before.get(n, 0) for n, c in _build.LAUNCHES.items() if c != before.get(n, 0)}
-    assert launched == {tflash.KERNEL: 1, **{n: 1 for n in _bwd_kernels(shape[-1])}}
+    assert launched == {_fwd_kernel(shape[-1]): 1, **{n: 1 for n in _bwd_kernels(shape[-1])}}
     q2, k2, v2 = (x.float().requires_grad_() for x in base)
     ref = tflash.flash_attention_ref(q2, k2, v2, None, causal_block)[0]
     ref_grads = torch.autograd.grad(ref, (q2, k2, v2), do.float())
@@ -201,6 +229,18 @@ def test_dq_accum_layout_is_the_wgmma_fragment_order():
     assert acc.shape == (2, 3, 128, 128)
     assert torch.equal(tflash.dq_accum_to_rows(acc, 100), x)
     assert int((acc != 0).sum()) == int((x != 0).sum())  # the padding rows hold zeros only
+
+
+@pytest.mark.parametrize("d", [32, 24, 20])
+def test_dq_accum_layout_round_trips_at_narrow_head_dims(d):
+    """The plain ring backward keeps its dQ sum in the dq_accum layout at the
+    small models' head dims too: the two maps stay each other's inverse and
+    move only rows within their 64-row tile."""
+    x = torch.from_numpy(_np((1, 2, 100, d), 6))
+    acc = tflash.dq_rows_to_accum(x)
+    assert acc.shape == (1, 2, 128, d)
+    assert torch.equal(tflash.dq_accum_to_rows(acc, 100), x)
+    assert torch.equal(acc[:, :, :64].flatten().sort().values, x[:, :, :64].flatten().sort().values)
 
 
 def test_fused_backward_on_cpu_takes_plain_versions_without_launching():
@@ -464,7 +504,7 @@ def test_int8_attention_kernel_matches_plain_on_cuda(pv_int8, shape, scale, bloc
 from opensora_torch.ops import ring_flash as tring  # noqa: E402
 from opensora_torch.parallel.mesh import MeshConfig, create_mesh  # noqa: E402
 
-RING_KERNELS = (tring.KERNEL_FWD, tring.KERNEL_DKV, tring.KERNEL_DQ)
+RING_KERNELS = (tring.KERNEL_FWD, tring.KERNEL_BWD)
 
 
 def _ring_mesh(device, sp=4):
@@ -504,6 +544,100 @@ def test_ring_kernel_input_checks():
         tring._route(q.to("meta"))
 
 
+def _hop_inputs(lq, lk, causal_block, q_off, device, seed=6):
+    """One backward hop's inputs: q, dO of a rank's lq rows at global
+    offset q_off, the k, v it holds, and the LSE and delta of its rows
+    over every key of the ring (here: these keys and a second, unseen set)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    b, h, d = 1, 2, 128
+    q, do = (torch.randn((b, h, lq, d), generator=gen, device=device).to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((b, h, lk, d), generator=gen, device=device).to(torch.bfloat16) for _ in range(2))
+    lse = torch.logsumexp(torch.randn((b, h, lq, 4), generator=gen, device=device) * 2 + 8, -1)
+    delta = torch.randn((b, h, lq), generator=gen, device=device) * 0.1
+    return q, k, v, do, lse.contiguous(), delta
+
+
+def _hop_accs(q, k, seed=7):
+    """Nonzero travelling dK/dV accumulators and a dq_accum (the fused
+    kernel's layout, its padding rows 0), as a hop finds them after earlier
+    hops."""
+    gen = torch.Generator(device=q.device).manual_seed(seed)
+    dk, dv, dq = (torch.randn(x.shape, generator=gen, device=q.device) for x in (k, k, q))
+    return dk, dv, tflash.dq_rows_to_accum(dq)
+
+
+def test_ring_bwd_hop_on_cpu_takes_plain_version_and_checks_its_inputs():
+    """CPU tensors: the fused hop's wrapper runs the plain hop (no launch);
+    what the kernel does not take raises: a dq_accum that is not the fused
+    kernel's, one 64-row tile per 64 rows."""
+    q, k, v, do, lse, delta = _hop_inputs(100, 70, 48, 100, "cpu")
+    kw = dict(sm_scale=128 ** -0.5, causal_block=48, q_off=100, k_off=30)
+    accs = _hop_accs(q, k)
+    want = [x.clone() for x in accs]
+    before = dict(_build.LAUNCHES)
+    tring.ring_bwd_hop(q, k, v, do, lse, delta, *accs, **kw)
+    tring.ring_bwd_hop_ref(q, k, v, do, lse, delta, *want, **kw)
+    assert _build.LAUNCHES == before
+    for got, w in zip(accs, want):
+        assert torch.equal(got, w)
+    assert accs[2].shape == (1, 2, 128, 128)
+    with pytest.raises(ValueError, match="dq_accum"):
+        tflash._check_dq_accum(torch.zeros((1, 2, 100, 128)), 100)
+
+
+def test_ring_dq_finish_reads_the_dq_accum_layout_on_cpu():
+    """One dq_accum layout on every device: on the CPU, dq_finish of the
+    dq_accum that dq_rows_to_accum builds gives back its rows, scaled."""
+    x = torch.randn((1, 2, 100, 128), generator=torch.Generator().manual_seed(3))
+    got = tring.dq_finish(tflash.dq_rows_to_accum(x), 100, sm_scale=0.5, dtype=torch.float32)
+    assert torch.equal(got, x * 0.5)
+
+
+# (Lq, Lk, causal_block, q_off, k_off): one hop at global offsets; local
+# lengths that fill no 64-row tile or 128-key block; a causal hop whose
+# keys come from a later rank (all but the 16 of the frame the shard edge
+# cuts unseen: 7 of 8 key blocks add nothing), and one from an earlier rank.
+HOP_CASES = [
+    (250, 250, None, 250, 0),
+    (1000, 1000, 96, 1000, 2000),
+    (1000, 1000, 96, 2000, 1000),
+    (300, 500, 64, 0, 300),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk,causal_block,q_off,k_off", HOP_CASES)
+def test_ring_bwd_fused_hop_matches_plain_hop_on_cuda(lq, lk, causal_block, q_off, k_off):
+    """The fused hop kernel adds into the travelling dK/dV and the rank's
+    dq_accum what the plain hop adds: each sum held to 1e-2 of the scale of
+    what the hop adds (P and dS rounded to bf16, as in the dense backward);
+    where no query sees the keys the accumulators keep their values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    q, k, v, do, lse, delta = _hop_inputs(lq, lk, causal_block, q_off, "cuda")
+    kw = dict(sm_scale=128 ** -0.5, causal_block=causal_block, q_off=q_off, k_off=k_off)
+    start = _hop_accs(q, k)
+    accs = [x.clone() for x in start]
+    want = [x.clone() for x in start]
+    before = dict(_build.LAUNCHES)
+    tring.ring_bwd_hop(q, k, v, do, lse, delta, *accs, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[tring.KERNEL_BWD] == before.get(tring.KERNEL_BWD, 0) + 1
+    tring.ring_bwd_hop_ref(q, k, v, do, lse, delta, *want, **kw)
+    rows = lambda x: tflash.dq_accum_to_rows(x, lq)  # noqa: E731  (the padding rows hold no dq)
+    accs[2], want[2], s0_dq = rows(accs[2]), rows(want[2]), rows(start[2])
+    for name, got, w, s0 in zip(("dk", "dv", "dq"), accs, want, (*start[:2], s0_dq)):
+        added = (w - s0).abs().max().item()
+        err = (got - w).abs().max().item()
+        assert err <= BWD_RTOL * added + 1e-6 * s0.abs().max().item(), (name, err, added)
+    seen = tring.visible(lq, lk, q_off, k_off, causal_block, q.device)
+    if seen is not None:  # keys no query sees (whole 128-key blocks return at once) keep their sums bitwise
+        unseen = ~seen.any(0)
+        assert bool(unseen.any()) == (k_off > q_off)
+        for got, s0 in zip(accs[:2], start[:2]):
+            assert torch.equal(got[:, :, unseen], s0[:, :, unseen])
+
+
 # (global shape, causal_block) over 4 logical ranks on one card: local
 # lengths 250 and 1000 fill no 64-row tile; frames of 96 cut by the shard
 # edges. Forward to 8e-3 of the output's scale and the LSE to 1e-3, the
@@ -526,6 +660,8 @@ def test_ring_kernels_match_plain_ring_on_cuda(shape, causal_block):
     torch.cuda.synchronize()
     for name in RING_KERNELS:  # 16 (rank, hop) launches a call
         assert _build.LAUNCHES[name] == before.get(name, 0) + 16, name
+    # one dQ epilogue per rank, after the last hop
+    assert _build.LAUNCHES[tflash.KERNEL_DQ_CONVERT] == before.get(tflash.KERNEL_DQ_CONVERT, 0) + 4
     sm = shape[-1] ** -0.5
     parts = [shard(x, 2, devices) for x in (q, k, v)]
     outs, lses = tring.ring_forward_shards(*parts, sm_scale=sm, causal_block=causal_block, plain=True)

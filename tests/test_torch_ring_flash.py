@@ -93,6 +93,44 @@ def test_ring_backward_matches_jax(jmesh, tmesh, causal_block):
         _close(got.numpy(), want, GRAD_TOL)
 
 
+@pytest.mark.parametrize("causal_block", [None, 128])
+def test_fused_hop_plain_version_through_the_dq_accum_layout_matches_jax(jmesh, tmesh, causal_block):
+    """The fused hop's plain version, hop by hop as the kernel runs it: each
+    (rank, hop) adds into the travelling dK/dV of the shard it holds, and
+    its dQ partial goes into the rank's dq_accum in the kernel's fragment
+    order (dq_rows_to_accum), finished once by the dQ epilogue's plain
+    version (bf16); the layout's round trip is exact. dk and dv to the JAX file's limit; dq to 8e-3 of its
+    scale (the epilogue rounds to bf16: 2^-8 relative, twice that)."""
+    from opensora_torch.parallel.comm import shard
+
+    q, k, v, w = _qkv(seed=1, n=4)
+
+    def loss(a, b, c):
+        out, _ = j_ring(a, b, c, jmesh, block_q=128, block_k=128, causal_block=causal_block, interpret=True)
+        return jnp.sum(out * jnp.asarray(w))
+
+    j_grads = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
+    devices = tring.ring_devices(tmesh, "sp")
+    sp, sm = len(devices), 128 ** -0.5
+    qs, ks, vs, dos = (shard(torch.from_numpy(x), 2, devices) for x in (q, k, v, w))
+    outs, lses = tring.ring_forward_shards(qs, ks, vs, sm_scale=sm, causal_block=causal_block, plain=True)
+    lq = qs[0].shape[2]
+    dk = [torch.zeros_like(x) for x in ks]
+    dv = [torch.zeros_like(x) for x in vs]
+    dq = []
+    for r in range(sp):
+        delta = (dos[r] * outs[r]).sum(-1)
+        accum = tflash.dq_rows_to_accum(torch.zeros_like(qs[r]))
+        for hop in range(sp):
+            src = (r - hop) % sp
+            tring.ring_bwd_hop_ref(qs[r], ks[src], vs[src], dos[r], lses[r], delta, dk[src], dv[src], accum,
+                                   sm_scale=sm, causal_block=causal_block, q_off=r * lq, k_off=src * lq)
+        assert torch.equal(tflash.dq_rows_to_accum(tflash.dq_accum_to_rows(accum, lq)), accum)  # the round trip
+        dq.append(tflash.flash_attention_bwd_dq_convert_ref(accum, lq, sm).float())
+    for got, want, tol in ((dq, j_grads[0], 8e-3), (dk, j_grads[1], GRAD_TOL), (dv, j_grads[2], GRAD_TOL)):
+        _close(torch.cat(got, 2).numpy(), want, tol)
+
+
 @pytest.mark.parametrize("L,causal_block", [(4 * 75, None), (4 * 75, 32), (4 * 70, 48)])
 def test_ring_at_ragged_lengths_matches_dense(tmesh, L, causal_block):
     """Local lengths that fill no 64-row tile (75, 70; the JAX kernel cannot

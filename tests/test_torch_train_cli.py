@@ -135,6 +135,31 @@ def test_train_cli_demo_two_steps_then_resume(tmp_path):
         assert not torch.equal(p, resumed.state.params[n])  # trained on from the checkpoint
 
 
+def test_train_cli_writes_its_log_after_a_trainer_was_built_in_the_process(tmp_path):
+    """A Trainer built earlier in the process sets the logger up with
+    stdout alone; a later ``train.main`` must still attach
+    ``<exp_dir>/log.txt`` (the logger once returned early as soon as it had
+    any handler, so this order lost the file)."""
+    from opensora_torch import train as train_cli
+    from opensora_torch.utils.config import parse_configs
+
+    demo = os.path.join(REPO, "configs", "diffusion", "train", "demo.py")
+    csv = _write_videos(str(tmp_path / "videos"), n=4)
+    out = str(tmp_path / "out")
+    cfg = tmp_path / "cfg.py"
+    cfg.write_text(f"_base_ = [{demo!r}]\nbucket_config = {{'64px': {{5: (1.0, 4)}}}}\n")
+    close_logger()
+    try:
+        train_cli.Trainer(parse_configs([demo]), "cpu")
+        train_cli.main([str(cfg), "--device", "cpu", "--outputs", out, "--dataset.data_path", csv,
+                        "--warmup_steps", "0", "--exp_name", "c", "--epochs", "1"])
+    finally:
+        close_logger()
+    losses, log = _losses(os.path.join(out, "c"))
+    assert len(losses) == 1 and np.isfinite(losses).all(), log
+    assert log.count("experiment dir:") == 1
+
+
 def test_checkpoint_io_keeps_the_newest_and_restores_state(tmp_path):
     from opensora_torch.training.diffusion import TrainState
     from opensora_torch.utils.ckpt import CheckpointIO
