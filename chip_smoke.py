@@ -44,10 +44,17 @@ Phases, one line each; any failure exits non-zero:
   8. drive DC-AE training -- video_dc_ae_disc.py as it is (dc-ae-f32t4c128,
      full width) -- through the same body for 2 steps on 32-frame 256x256
      batches of 1: finite losses, moving parameters, no kernel launched.
-Phase 2c holds the W8A8 GEMM (both instantiations) and the int8 attention
-kernel (both modes, both loops) against their plain versions at the int8
-path's shapes, with known-wrong outputs and timings; phase 3b checks the
-full-width int8 model on a small input against the CPU's plain int8 path.
+Phase 2c holds the W8A8 GEMMs (w8a8_matmul, the mma.sync kernel, and
+w8a8_fq_matmul, the fused-quant int8 wgmma/TMA kernel; every element equal
+to the plain version's at fp32 output, at the path's shapes and at a case
+whose rows have abs-max 127 and hold half-integers, so that x * inv falls
+on ties) and the int8 attention kernel (both modes, both loops) against
+their plain versions, with known-wrong outputs (for the fused-quant kernel:
+one 32-wide K slice dropped, one consumer's rows from the other's, ties
+rounded half away from zero) and timings (the fused-quant kernel, its
+wrapper and w8a8_matmul in turns); phase 3b checks the full-width int8
+model on a small input against the CPU's plain int8 path; phase 6 logs the
+w8a8_fq step time.
 Phase 2b holds the fused D = 128 backward (flash_attention_bwd_fused +
 flash_attention_bwd_dq_convert) against the plain backward at the MMDiT
 shape (3, 24, 8828, 128) and two tails (L = 1000, bidirectional and
@@ -66,15 +73,18 @@ design too: one consumer's 64 rows taken from the other consumer's, the
 last 128-key tile dropped, and (on a case whose bound A is far above 40)
 a running-max head given the anchored loop. Every phase-2 case times the
 wrapper and SDPA in turns and logs both ranges.
-Phase 2e holds the ring kernels (ring_flash_fwd, and the backward hop
+Phase 2e holds the ring kernels (ring_flash_fwd -- the D = 128 forward's
+wgmma/TMA main loop from and to the rank's state -- and the backward hop
 ring_flash_bwd_fused -- the fused D = 128 backward's main loop at the hop's
 offsets -- with the dQ epilogue flash_attention_bwd_dq_convert once per
 rank) against the plain ring at the slice's shape, global
 (3, 24, 8828, 128) over 4 logical ranks on the card (2207 tokens a rank),
 and at (1, 2, 4000, 128) frame-causal with frames of 96 that the shard
-edges cut, with known-wrong rings (the last hop skipped, local offsets, delta
-left out, dK/dV read from the other slot, one (rank, hop)'s dK/dV add
-dropped) and timings; phase 3d runs the
+edges cut, with known-wrong rings (the last hop skipped, local offsets, a
+middle hop started from the empty state, the loaded row sum given to every
+lane of a quad, one consumer's rows from the other's, delta left out, dK/dV
+read from the other slot, one (rank, hop)'s dK/dV add dropped) and timings
+(the forward's 16 hop launches, the call and SDPA in turns); phase 3d runs the
 full-width MMDiT with attn_backend="ring_rdma" over those 4 ranks on a
 small input (forward, and a LoRA step's gradients) against the CPU's plain
 dense path. Phase 9 (run right after phase 4, on its models) switches
@@ -627,6 +637,9 @@ GEMM_CASES = [
     ("m_and_n_tails", 1000, 3072, 200),
 ]
 GEMM_HEAD = "single_linear1"  # the largest, 38 per forward
+# rows of abs-max exactly 127 (s_a = inv = 1) holding half-integers: x * inv
+# falls on ties, which the fused-quant kernel must round half to even
+GEMM_TIE_CASE = ("ties_abs_max_127", 1000, 3072, 512)
 
 
 def gemm_bound(m, k, n, fq: bool):
@@ -638,70 +651,133 @@ def gemm_bound(m, k, n, fq: bool):
     return 1e3 * max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s else "bytes")
 
 
-def check_int8_gemm(device) -> dict:
+def gemm_from_x8(x8, w, s_a, sw):
+    """The plain product of the int8 values x8 (any float dtype): the exact
+    integer sum, then float(acc) * s_a * s_w in fp32, in that order."""
+    return (x8.double() @ w.double().T).float() * s_a.reshape(-1, 1) * sw
+
+
+def consumer_rows_swapped(out):
+    """Each 128-row tile's second 64 rows replaced by its first 64 (one
+    consumer's rows taken from the other's)."""
+    wrong = out.clone()
+    for t0 in range(0, out.shape[0], 128):
+        n = min(out.shape[0], t0 + 128) - (t0 + 64)
+        if n > 0:
+            wrong[t0 + 64:t0 + 64 + n] = out[t0:t0 + n]
+    return wrong
+
+
+def gemm_mutants(fq: bool, x8_used, w, s_a, sw, ref, y=None) -> dict:
+    """Known-wrong outputs, each as the count of elements that differ from
+    the plain version's (the check is exact: any count above 0 is
+    rejected). Row 5: one 64-wide K tile of the sum left out. Fused-quant:
+    one 32-wide K slice (one k32 product) left out; where the tile has a
+    second consumer, its rows taken from the first's; where ``y`` = x * inv
+    holds ties that the two rules round apart (k + 1/2, k even), round half
+    away from zero in place of half to even."""
+    def differing(wrong):
+        return int((wrong != ref).sum())
+
+    k0, width = (32, 32) if fq else (64, 64)
+    out = {f"k{'32_slice' if fq else '_tile'}_dropped":
+           differing(ref - gemm_from_x8(x8_used[:, k0:k0 + width], w[:, k0:k0 + width], s_a, sw))}
+    if fq and ref.shape[0] > 64:
+        out["consumer_rows_swapped"] = differing(consumer_rows_swapped(ref))
+    if fq and y is not None:
+        away = torch.clamp(torch.sign(y) * torch.floor(y.abs() + 0.5), -127, 127)
+        if not torch.equal(away, x8_used):  # ties at k + 1/2 with k even
+            out["round_half_away"] = differing(gemm_from_x8(away, w, s_a, sw))
+    return out
+
+
+def check_int8_gemm(device, cases=GEMM_CASES + [GEMM_TIE_CASE]) -> dict:
     from opensora_torch.ops import int8_matmul as im
 
     gen = torch.Generator(device=device).manual_seed(4)
-    cases = []
-    for name, m, k, n in GEMM_CASES:
+    out_cases = []
+    for name, m, k, n in cases:
         x8 = torch.randint(-127, 128, (m, k), generator=gen, device=device, dtype=torch.int8)
         w = torch.randint(-127, 128, (n, k), generator=gen, device=device, dtype=torch.int8)
         sa = torch.rand((m, 1), generator=gen, device=device) * 1e-2 + 1e-3
         sw = torch.rand((n,), generator=gen, device=device) * 1e-2 + 1e-3
-        x = (torch.randn((m, k), generator=gen, device=device) * 0.3).to(torch.bfloat16)
+        if name == GEMM_TIE_CASE[0]:
+            x = torch.randint(-127, 127, (m, k), generator=gen, device=device).float() + 0.5
+            x[:, 0] = 127.0
+            x = x.to(torch.bfloat16)
+        else:
+            x = (torch.randn((m, k), generator=gen, device=device) * 0.3).to(torch.bfloat16)
+        s_a_fq, inv = im.fq_inputs(x)
+        y = x.float() * inv
         rec = dict(name=name, shape_mkn=[m, k, n])
-        for kern, fq in (("w8a8_matmul", False), ("w8a8_fq_matmul", True)):
-            if fq:
-                run = lambda dt=torch.bfloat16: im.w8a8_fusedquant_matmul(x, w, sw, out_dtype=dt)  # noqa: E731
-                plain = lambda dt=torch.bfloat16: im.w8a8_fusedquant_matmul_ref(x, w, sw, dt)  # noqa: E731
-                s_a, inv = im.fq_inputs(x)
-                kernel_only = lambda: im.fq_kernel(x, w, sw, s_a, inv)  # noqa: E731
-                x8_used = torch.clamp(torch.round(x.float() * inv), -127, 127)
-            else:
-                run = lambda dt=torch.bfloat16: im.w8a8_matmul(x8, w, sa, sw, out_dtype=dt)  # noqa: E731
-                plain = lambda dt=torch.bfloat16: im.w8a8_matmul_ref(x8, w, sa, sw, dt)  # noqa: E731
-                kernel_only = run
-                s_a, x8_used = sa, x8.float()
+        bf16 = torch.bfloat16
+        fns = {  # kernel (wrapper) and plain version, by output dtype
+            "w8a8_matmul": (lambda dt=bf16: im.w8a8_matmul(x8, w, sa, sw, out_dtype=dt),
+                            lambda dt=bf16: im.w8a8_matmul_ref(x8, w, sa, sw, dt)),
+            "w8a8_fq_matmul": (lambda dt=bf16: im.w8a8_fusedquant_matmul(x, w, sw, out_dtype=dt),
+                               lambda dt=bf16: im.w8a8_fusedquant_matmul_ref(x, w, sw, dt)),
+        }
+        for kern, (run, plain) in fns.items():
+            fq = kern == "w8a8_fq_matmul"
             out = run(torch.float32)
             torch.cuda.synchronize()
             ref = plain(torch.float32)
             n_diff = int((out != ref).sum())
             ref_scale = ref.abs().max().item()
             err = (out - ref).abs().max().item()
-            # known-wrong output: one 64-wide K tile of the sum left out
-            tile = x8_used[:, 64:128].double() @ w[:, 64:128].double().T
-            skipped = ref - (tile.float() * s_a.reshape(-1, 1) * sw)
-            mutant = (skipped - ref).abs().max().item() / ref_scale
-            caught = not torch.equal(skipped, ref)
-            del out, ref, tile, skipped
-            big = 2.0 * m * n * k > 1e11
-            ms = time_cuda(kernel_only, 10 if big else 20)
-            wrapper_ms = time_cuda(run, 10 if big else 20)  # fq: with the row abs-max pass in torch
-            plain_ms = time_cuda(plain, 1, warmup=0)
-            library_ms = None
-            if not fq and m > 16:  # torch._int_mm takes more than 16 rows
-                try:  # a yardstick only: a library that refuses the shape leaves it unmeasured
-                    library_ms = time_cuda(
-                        lambda: (torch._int_mm(x8, w.t()).float() * sa * sw).to(torch.bfloat16), 10 if big else 20)
-                except RuntimeError as e:
-                    log(f"[int8] torch._int_mm refused {name}: {str(e).splitlines()[0]}")
-            bound_ms, bound_by = gemm_bound(m, k, n, fq)
-            rec[kern] = dict(elements_differing=n_diff, max_abs_err=err, ref_max_abs=ref_scale,
-                             k_tile_skipped=mutant, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
-                             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+            if fq:
+                mutants = gemm_mutants(True, torch.clamp(torch.round(y), -127, 127), w, s_a_fq, sw, ref, y)
+            else:
+                mutants = gemm_mutants(False, x8.float(), w, sa, sw, ref)
+            caught = all(c > 0 for c in mutants.values())
+            if name == GEMM_TIE_CASE[0] and fq and "round_half_away" not in mutants:
+                raise AssertionError("the tie case holds no tie")
+            del out, ref
+            rec[kern] = dict(elements_differing=n_diff, max_abs_err=err, ref_max_abs=ref_scale, mutants=mutants)
             ok = n_diff == 0 and caught
             log(f"[int8] {kern} {name} (M, K, N) = ({m}, {k}, {n}): elements differing from the plain "
-                f"version at fp32 output {n_diff} (must be 0; max|err| {err:.3e}) wrong output (a K tile "
-                f"skipped) {mutant:.3e} of max|ref| {'rejected' if caught else 'NOT REJECTED'} ms={ms:.3f} "
-                f"wrapper_ms={wrapper_ms:.3f} "
-                f"bound_ms={bound_ms:.3f} ({bound_by}) plain_ms={plain_ms:.3f} "
-                f"library_ms={'n/a' if library_ms is None else f'{library_ms:.3f}'} {'OK' if ok else 'FAIL'}")
+                f"version at fp32 output {n_diff} (must be 0; max|err| {err:.3e}) wrong outputs (elements "
+                f"differing): {mutants} {'rejected' if caught else 'NOT REJECTED'} {'OK' if ok else 'FAIL'}")
             if not ok:
-                raise AssertionError(f"{kern} disagrees with its plain version at {name}")
-        cases.append(rec)
-        del x8, w, sa, sw, x
+                raise AssertionError(f"{kern} disagrees with its plain version at {name}, or the check "
+                                     "does not reject a known-wrong output")
+        # the fused-quant kernel alone and row 5's kernel (both given their
+        # scales), and the fused-quant wrapper (with the row abs-max pass in
+        # torch), in turns: back-to-back readings spread, so they are
+        # compared by their ranges in these turns
+        big = 2.0 * m * n * k > 1e11
+        iters = 10 if big else 20
+        timed = dict(fq=lambda: im.fq_kernel(x, w, sw, s_a_fq, inv), row5=fns["w8a8_matmul"][0],
+                     fq_wrapper=fns["w8a8_fq_matmul"][0])
+        turns = {key: [] for key in timed}
+        for key in ("fq", "row5", "fq_wrapper", "fq_wrapper", "row5", "fq") * 2:
+            turns[key].append(time_cuda(timed[key], iters))
+        mean = {key: sum(v) / len(v) for key, v in turns.items()}
+        library_ms = None
+        if m > 16:  # torch._int_mm takes more than 16 rows
+            try:  # a yardstick only: a library that refuses the shape leaves it unmeasured
+                library_ms = time_cuda(
+                    lambda: (torch._int_mm(x8, w.t()).float() * sa * sw).to(torch.bfloat16), iters)
+            except RuntimeError as e:
+                log(f"[int8] torch._int_mm refused {name}: {str(e).splitlines()[0]}")
+        for kern, key, fq in (("w8a8_matmul", "row5", False), ("w8a8_fq_matmul", "fq", True)):
+            bound_ms, bound_by = gemm_bound(m, k, n, fq)
+            plain_ms = time_cuda(fns[kern][1], 1, warmup=0)
+            rec[kern].update(ms=mean[key], ms_turns=turns[key], plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=None if fq else library_ms)
+            if fq:
+                rec[kern].update(wrapper_ms=mean["fq_wrapper"], wrapper_ms_turns=turns["fq_wrapper"])
+        rng = {key: f"{min(v):.3f}-{max(v):.3f}" for key, v in turns.items()}
+        log(f"[int8] {name} in turns (ms, mean and range): w8a8_fq_matmul {mean['fq']:.3f} ({rng['fq']}), "
+            f"with the abs-max pass {mean['fq_wrapper']:.3f} ({rng['fq_wrapper']}); w8a8_matmul (row 5) "
+            f"{mean['row5']:.3f} ({rng['row5']}); bound fq/row5 {rec['w8a8_fq_matmul']['bound_ms']:.3f}/"
+            f"{rec['w8a8_matmul']['bound_ms']:.3f}; plain fq/row5 {rec['w8a8_fq_matmul']['plain_ms']:.3f}/"
+            f"{rec['w8a8_matmul']['plain_ms']:.3f}; library (row 5) "
+            f"{'n/a' if library_ms is None else f'{library_ms:.3f}'}")
+        out_cases.append(rec)
+        del x8, w, sa, sw, x, y, s_a_fq, inv
         torch.cuda.empty_cache()
-    return {"cases": cases}
+    return {"cases": out_cases}
 
 
 INT8_ATTN_CASES = [
@@ -858,6 +934,42 @@ def local_offsets(hop):
     return run
 
 
+def middle_hop_from_zero(q_off: int, k_off: int):
+    """A forward hop that, at one middle (rank, hop) -- the one of these
+    offsets -- starts from the empty state instead of the loaded one."""
+    def wrap(hop):
+        def run(*a, **kw):
+            if (kw["q_off"], kw["k_off"]) == (q_off, k_off) and not kw["last"]:
+                kw = dict(kw, first=True)
+            return hop(*a, **kw)
+        return run
+    return wrap
+
+
+def l_on_every_quad_lane(hop):
+    """A forward hop that gives the loaded row sum to all four lanes of a
+    quad: the loaded l counted four times."""
+    def run(q, k, v, state, *a, **kw):
+        if not kw["first"]:
+            state[1].mul_(4.0)
+        return hop(q, k, v, state, *a, **kw)
+    return run
+
+
+def consumer_rows_from_other(hop):
+    """A forward hop whose last epilogue writes each 128-row CTA's second
+    consumer's rows (out and LSE) from the first consumer's."""
+    def run(q, k, v, state, out, lse, **kw):
+        hop(q, k, v, state, out, lse, **kw)
+        if kw["last"]:
+            for t0 in range(0, out.shape[2], 128):
+                n = min(out.shape[2], t0 + 128) - (t0 + 64)
+                if n > 0:
+                    out[:, :, t0 + 64:t0 + 64 + n] = out[:, :, t0:t0 + n].clone()
+                    lse[:, :, t0 + 64:t0 + 64 + n] = lse[:, :, t0:t0 + n].clone()
+    return run
+
+
 def delta_left_out(hop):
     def run(q, k, v, do, lse, delta, *a, **kw):
         return hop(q, k, v, do, lse, torch.zeros_like(delta), *a, **kw)
@@ -936,6 +1048,12 @@ def check_ring(device) -> dict:
         if cb is not None:
             with patched(rf, "ring_fwd_hop_ref", local_offsets):
                 mutants["local_offsets"] = fwd_reading()
+        with patched(rf, "ring_fwd_hop_ref", middle_hop_from_zero(lloc, 0)):  # rank 1, hop 1
+            mutants["middle_hop_from_zero"] = fwd_reading()
+        with patched(rf, "ring_fwd_hop_ref", l_on_every_quad_lane):
+            mutants["l_on_every_quad_lane"] = fwd_reading()
+        with patched(rf, "ring_fwd_hop_ref", consumer_rows_from_other):
+            mutants["consumer_rows_from_other"] = fwd_reading()
         with patched(rf, "ring_bwd_hop_ref", delta_left_out):
             mutants["delta_left_out"] = bwd_reading()
         with patched(rf, "home_slot", lambda f: lambda n: 1 - f(n)):
@@ -971,18 +1089,27 @@ def check_ring(device) -> dict:
 
         big = b * h * l * l > 1e8
         iters = 5 if big else 20
-        kernels_ms = {n: time_cuda(lambda: hops(n), iters) for n in RING_KERNELS}
-        call_ms = time_cuda(lambda: rf.ring_flash_attention(q, k, v, mesh, causal_block=cb), iters)
-        bwd_call_ms = time_cuda(lambda: rf.ring_backward_shards(qs, ks, vs, outs_k, lses_k, dos, sm_scale=sm,
-                                                                causal_block=cb), iters)
-        plain_ms = time_cuda(plain_fwd, 1 if big else 3, warmup=0)
-        plain_bwd_ms = time_cuda(plain_bwd, 1 if big else 3, warmup=0)
         mask = None
         if cb is not None:
             idx = torch.arange(l, device=device) // cb
             mask = idx[None, :] <= idx[:, None]
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        library_ms = time_cuda(lambda: sdpa(q, k, v, attn_mask=mask), iters)
+        # the forward's 16 hop launches, the ring call and SDPA at the global
+        # shape in turns (back-to-back readings spread: compare ranges)
+        timed = dict(fwd_hops=lambda: hops("ring_flash_fwd"),
+                     call=lambda: rf.ring_flash_attention(q, k, v, mesh, causal_block=cb),
+                     sdpa=lambda: sdpa(q, k, v, attn_mask=mask))
+        turns = {key: [] for key in timed}
+        for key in ("fwd_hops", "call", "sdpa", "sdpa", "call", "fwd_hops") * 2:
+            turns[key].append(time_cuda(timed[key], iters))
+        mean = {key: sum(v) / len(v) for key, v in turns.items()}
+        kernels_ms = {"ring_flash_fwd": mean["fwd_hops"],
+                      "ring_flash_bwd_fused": time_cuda(lambda: hops("ring_flash_bwd_fused"), iters)}
+        call_ms, library_ms = mean["call"], mean["sdpa"]
+        bwd_call_ms = time_cuda(lambda: rf.ring_backward_shards(qs, ks, vs, outs_k, lses_k, dos, sm_scale=sm,
+                                                                causal_block=cb), iters)
+        plain_ms = time_cuda(plain_fwd, 1 if big else 3, warmup=0)
+        plain_bwd_ms = time_cuda(plain_bwd, 1 if big else 3, warmup=0)
         library_bwd_ms = sdpa_backward_ms(q, k, v, do, mask, iters)
         bound_ms, bound_by = attention_bound(b, h, l, d, cb)
         bounds = {n: bwd_bound(n, b, h, l, d, cb) for n in BWD_PRODUCTS}
@@ -990,6 +1117,7 @@ def check_ring(device) -> dict:
                     max_abs_err=err_out, ref_max_abs=scale, rel_err=err_out / scale, lse_max_abs_err=err_lse,
                     grad_rel_err=g_rel, grad_max_abs_err={n: g_rel[n] * g_scale[n] for n in g_rel},
                     mutants=mutants, kernels_ms=kernels_ms, call_ms=call_ms, bwd_call_ms=bwd_call_ms,
+                    fwd_turns_ms=turns,
                     plain_ms=plain_ms, plain_bwd_ms=plain_bwd_ms, library_ms=library_ms,
                     library_bwd_ms=library_bwd_ms, bound_ms=bound_ms, bound_by=bound_by,
                     bwd_bound_ms={n: x[0] for n, x in bounds.items()},
@@ -999,11 +1127,13 @@ def check_ring(device) -> dict:
             f"out {err_out / scale:.3e} of max|ref| (tol {OUT_RTOL}) lse_err={err_lse:.3e} (tol {LSE_TOL}) "
             f"dq/dk/dv {g_rel['q']:.3e}/{g_rel['k']:.3e}/{g_rel['v']:.3e} (tol {BWD_RTOL}); wrong rings: "
             + ", ".join(f"{n} {r}" for n, r in mutants.items())
-            + f" {'rejected' if caught else 'NOT REJECTED'}; 16 launches ms "
-            + "/".join(f"{kernels_ms[n]:.3f}" for n in RING_KERNELS)
-            + f" (fwd/bwd) call_ms={call_ms:.3f} bwd_call_ms={bwd_call_ms:.3f} bound_ms fwd/bwd="
+            + f" {'rejected' if caught else 'NOT REJECTED'}; in turns (ms, mean and range): 16 forward "
+            + ", ".join(f"{label} {mean[n]:.3f} ({min(turns[n]):.3f}-{max(turns[n]):.3f})"
+                        for label, n in (("launches", "fwd_hops"), ("the call", "call"), ("SDPA", "sdpa")))
+            + f"; 16 backward launches {kernels_ms['ring_flash_bwd_fused']:.3f} ms"
+            + f" bwd_call_ms={bwd_call_ms:.3f} bound_ms fwd/bwd="
             f"{bound_ms:.3f}/{bounds['flash_attention_bwd_fused'][0]:.3f} "
-            f"plain_ms={plain_ms:.3f} plain_bwd_ms={plain_bwd_ms:.3f} sdpa_ms={library_ms:.3f} "
+            f"plain_ms={plain_ms:.3f} plain_bwd_ms={plain_bwd_ms:.3f} "
             f"sdpa_bwd_ms={library_bwd_ms:.3f} {'OK' if ok and caught else 'FAIL'}")
         if not ok:
             raise AssertionError(f"the ring kernels disagree with the plain ring at {name}")
@@ -1158,8 +1288,9 @@ def check_int8_small_input(device) -> dict:
 
 KERNEL_KINDS = [  # first match wins: int8_flash_fwd_kernel before flash_fwd_kernel
     ("int8_flash_attention", ("int8_flash_fwd_kernel",)),
-    ("ring_flash_fwd", ("ring_fwd_kernel",)),
+    ("ring_flash_fwd", ("ring_fwd_sm90_kernel",)),
     ("ring_flash_bwd_fused", ("ring_bwd_fused_kernel",)),
+    ("w8a8_fq_matmul", ("w8a8_fq_sm90_kernel",)),
     ("w8a8_gemm", ("w8a8_gemm_kernel",)),
     ("flash_attention_fwd_sm90", ("flash_fwd_sm90_kernel",)),
     ("flash_attention_fwd", ("flash_fwd_kernel",)),
@@ -1876,7 +2007,7 @@ def main(argv) -> int:
     from opensora_torch.ops import _build
 
     sources = ("flash_attention_fwd_sm90", "flash_attention_fwd", "flash_attention_bwd_sm90", "flash_attention_bwd",
-               "int8_matmul", "int8_flash_attention", "ring_flash_attention")
+               "int8_matmul", "int8_matmul_sm90", "int8_flash_attention", "ring_flash_attention")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         built = dict(zip(sources, pool.map(_build.build, sources)))
     for name, (seconds, _) in built.items():
@@ -1927,6 +2058,9 @@ def main(argv) -> int:
     int8_res["small_input"] = small_int8
     fq_res = run_int8_path(device, ["--model.quantized", "w8a8_fq", "--model.attn_backend", "int8"], INT8_FQ_STEPS,
                            tag="int8_fq")
+    log(f"[int8_fq] w8a8_fq / int8 denoise step: {[round(s, 3) for s in fq_res['step_s']]} s "
+        f"({fq_res['launches'].get('w8a8_fq_matmul', 0)} launches of w8a8_fq_matmul; the w8a8 / int8_qk8 "
+        f"steps {[round(s, 3) for s in int8_res['step_s']]} s)")
     with tempfile.TemporaryDirectory() as tmp:
         vae_res = run_vae_train_path(device, "hunyuan_vae", VAE_STEPS, 33, write_lpips_files(tmp), "vae",
                                      "--profile" in argv, out_dir)
@@ -2023,13 +2157,19 @@ def main(argv) -> int:
             cases=attn_bwd_d512["cases"],
         ))
     gemm_head = next(c for c in gemm["cases"] if c["name"] == GEMM_HEAD)
-    for name, line, also, runs in (
+    for name, line, also, runs, source in (
             ("w8a8_matmul", 31, "opensora_tpu/ops/quant.py:71-80 (the XLA int8 dot_general of w8a8)",
-             {"int8": int8_res, "int8_fq": fq_res}),
-            ("w8a8_fq_matmul", 51, None, {"int8_fq": fq_res})):
+             {"int8": int8_res, "int8_fq": fq_res}, "int8_matmul.cu"),
+            ("w8a8_fq_matmul", 51, None, {"int8_fq": fq_res}, "int8_matmul_sm90.cu")):
         head = gemm_head[name]
+        fq_extra = {}
+        if name == "w8a8_fq_matmul":
+            fq_extra = dict(ms_is="the kernel alone, the mean of 4 readings in turns with w8a8_matmul's and the "
+                            "wrapper's", wrapper_ms=head["wrapper_ms"], ms_turns=head["ms_turns"],
+                            path_step_s=fq_res["step_s"],
+                            path_step_is="the w8a8_fq / int8 denoise step of phase 6")
         kernels.append(dict(
-            name=name, route="cuda", source="opensora_torch/csrc/int8_matmul.cu",
+            name=name, route="cuda", source=f"opensora_torch/csrc/{source}", **fq_extra,
             replaces=f"opensora_tpu/ops/int8_matmul.py:{line}", also_replaces=also,
             launches=sum(r["launches"].get(name, 0) for r in runs.values()),
             launches_by_run={tag: r["launches"].get(name, 0) for tag, r in runs.items()},

@@ -1,15 +1,18 @@
 // Hopper (sm_90a) building blocks shared by the port's warp-specialised
-// kernels: wgmma shared-memory descriptors and the bf16 -> fp32 wgmma
-// products (m64n64k16, m64n128k16; A from shared memory or registers; the
-// transpose bits for MN-major operands), the wgmma fence / commit / wait,
+// kernels: wgmma shared-memory descriptors (128- and 64-byte swizzle), the
+// bf16 -> fp32 wgmma products (m64n64k16, m64n128k16; A from shared memory
+// or registers; the transpose bits for MN-major operands), the int8 ->
+// int32 product m64n256k32 (A from registers), the wgmma fence / commit / wait,
 // mbarriers, TMA tensor loads through a __grid_constant__ CUtensorMap, the
 // bulk reduce-add of fp32 tiles into device memory, setmaxnreg, named
-// barriers, and a host helper that encodes tensor maps through the CUDA
-// runtime's entry-point lookup (nothing extra is linked).
+// barriers, and host helpers that encode tensor maps (3-D over heads, 2-D
+// over a row-major matrix) through the CUDA runtime's entry-point lookup
+// (nothing extra is linked).
 //
-// Shared-memory layout of every wgmma operand here: 128-byte swizzle, the
-// layout a TMA load with CU_TENSOR_MAP_SWIZZLE_128B writes. A tile of R
-// rows x 64 bf16 (128 B a row) is stored row after row; each 8-row x 128 B
+// Shared-memory layout of every bf16 wgmma operand here: 128-byte swizzle,
+// the layout a TMA load with CU_TENSOR_MAP_SWIZZLE_128B writes (an int8
+// K-major operand of 64-byte rows takes the 64-byte swizzle, desc_sw64). A
+// tile of R rows x 64 bf16 (128 B a row) is stored row after row; each 8-row x 128 B
 // atom (1 KB, 1 KB aligned) has the 16-byte chunk c of row r at chunk
 // c ^ (r % 8). A 128-column tile is two such 64-column halves one after
 // the other. One tile serves both majors:
@@ -48,6 +51,14 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t smem_addr, uint32_t lbo_
          (uint64_t)((sbo_bytes >> 4) & 0x3FFF) << 32 | (uint64_t)1 << 62;
 }
 
+// Descriptor of a 64-byte-swizzled K-major operand (rows of 64 bytes, the
+// layout a TMA load with CU_TENSOR_MAP_SWIZZLE_64B writes: 8-row atoms of
+// 512 B, the 16-byte chunk c of row r at c ^ ((r / 2) % 4)); SBO = 512 B.
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t smem_addr) {
+  return (uint64_t)((smem_addr & 0x3FFFF) >> 4) | (uint64_t)1 << 16 | (uint64_t)(512 >> 4) << 32 |
+         (uint64_t)2 << 62;
+}
+
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
 template <int N>
@@ -65,6 +76,11 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 }
 template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
@@ -148,6 +164,47 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
       "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
       "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+}
+
+// d (+)= A B over one K slice of 32 int8 values, int32 sums: A (m64k32 s8)
+// from registers, B (N = 256 rows, K-major) through a descriptor; scale_d =
+// 0 overwrites d. Integer wgmma takes K-major operands only (no transpose
+// bits). The A fragment has the mma.m16n8k32 layout over the warp's 16
+// rows: register r holds row g + 8 (r % 2), K columns 16 (r / 2) + 4 q ..
+// + 3, the lowest K in the lowest byte.
+__device__ __forceinline__ void wgmma_m64n256k32_s8_rs(int (&d)[128], const uint32_t (&a)[4], uint64_t desc_b,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p;\n}\n"
+      :
+      "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+      "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+      "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+      "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+      "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+      "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+      "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+      "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+      "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+      "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+      "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+      "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+      "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+      "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+      "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+      "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
 // ---- mbarriers ---------------------------------------------------------
@@ -282,6 +339,24 @@ inline cudaError_t encode_heads_bf16_sw128(CUtensorMap* map, const void* ptr, in
   CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
                   elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A tensor map over a row-major (ROWS, COLS) matrix of bf16 or int8
+// (TYPE), row stride COLS elements: boxes of BOX_COLS x BOX_ROWS in the
+// given swizzle (BOX_COLS * element size at most the swizzle's width).
+// Rows and columns outside the matrix read as zero.
+inline cudaError_t encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int cols, int rows,
+                             int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t elem = type == CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 ? 2 : 1;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  CUresult r = fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

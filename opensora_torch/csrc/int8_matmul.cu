@@ -2,35 +2,29 @@
 //
 //   out[m, n] = (sum_k x8[m, k] * w8[n, k]) * s_a[m] * s_w[n]
 //
-// Replaces the two Pallas TPU kernels of opensora_tpu/ops/int8_matmul.py:
-//   - _w8a8_kernel     (:31, called by w8a8_matmul :136): x arrives int8 with
-//                       per-row scales s_a;
-//   - _w8a8_fq_kernel  (:51, called by w8a8_fusedquant_matmul :83): x arrives
-//                       bf16 and is quantized inside the kernel against the
-//                       precomputed per-row reciprocal inv = 1 / s_a:
-//                       clip(round_half_even(x * inv), -127, 127). The product
-//                       x * inv is rounded on its own (__fmul_rn, never fused
-//                       into anything), as the TPU kernel multiplies by the
-//                       reciprocal where the XLA path divides.
-// One templated kernel, instantiated for both (FQ), and for a bf16 or fp32
-// output. The epilogue is float(acc) * s_a[m] * s_w[n] in fp32, in that order,
-// with round-to-nearest conversions, so the result is exactly the plain
+// Replaces the Pallas TPU kernel _w8a8_kernel of
+// opensora_tpu/ops/int8_matmul.py (:31, called by w8a8_matmul :136): x
+// arrives int8 with per-row scales s_a. The fused-quant kernel
+// (_w8a8_fq_kernel, :51) is csrc/int8_matmul_sm90.cu. One templated kernel,
+// instantiated for a bf16 or fp32 output. The epilogue is float(acc) *
+// s_a[m] * s_w[n] in fp32, in that order, with round-to-nearest conversions, so the result is exactly the plain
 // version's (w8a8_matmul_ref: the integer sum exact in float64, the same fp32
 // epilogue): every partial sum is an integer below 2^31 (K * 127^2 <= 2.5e8).
 //
 // Layout: x (M, K) and the weight (N, K) are both K-contiguous, which is what
 // mma.sync.m16n8k32.row.col.s32.s8.s8.s32 takes for its A and B operands, so
-// the weight stays as torch holds it (nn.Linear's (out, in)). s_a, inv (M,),
+// the weight stays as torch holds it (nn.Linear's (out, in)). s_a (M,),
 // s_w (N,) fp32; out (M, N) row-major.
 //
 // What bounds it: at the MMDiT's shapes (M = 24948..26484 tokens, K and N
 // 3072..21504) a GEMM does 2*M*N*K ops on (M + N)*K + 2*M*N bytes, ~1000 ops
 // per byte, far above the H100's ~590 int8 ops per byte: tensor-core bound.
 // The design keeps the int32 accumulator in registers (the point of the TPU
-// kernel: it never reaches device memory), feeds mma.sync from a 3- or 4-stage
+// kernel: it never reaches device memory), feeds mma.sync from a 4-stage
 // cp.async ring of 128 x 64-byte tiles, and walks the output tiles in groups of
 // 8 block rows so that concurrently running blocks share A rows and weight
-// columns in L2. wgmma/TMA, which reach Hopper's full int8 rate, are later work.
+// columns in L2. wgmma/TMA, which reach Hopper's full int8 rate, are later work
+// (the fused-quant kernel's main loop with an int8 A tile).
 //
 // Tiles: a block of 8 warps owns a 128 x 128 output tile (2 x 4 warps of
 // 64 x 32); the K loop steps 64 bytes. M and N tails are zero-filled on load
@@ -50,40 +44,18 @@ constexpr int WN = BN / WARPS_N;  // 32 columns per warp
 constexpr int MT = WM / 16;       // m16 tiles per warp
 constexpr int NT = WN / 8;        // n8 tiles per warp
 constexpr int SROW = BK + 16;     // int8 smem row stride (bytes): ldmatrix rows conflict-free
-constexpr int XROW = 2 * BK + 16; // bf16 x staging row stride (bytes), FQ only
 constexpr int GROUP_M = 8;        // block rows walked together (L2 reuse)
+constexpr int S = 4;              // stages
+constexpr int A_STAGE = BM * SROW;  // bytes of one A stage
+constexpr int SMEM_BYTES = S * (BM * SROW + BN * SROW);
 
-__device__ __forceinline__ uint32_t quant4(const bf16* x, float inv) {
-  uint32_t packed = 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    int q = __float2int_rn(__fmul_rn(__bfloat162float(x[j]), inv));  // half to even
-    q = max(-127, min(127, q));
-    packed |= (static_cast<uint32_t>(q) & 0xffu) << (8 * j);
-  }
-  return packed;
-}
-
-template <bool FQ>
-__host__ __device__ constexpr int stages() { return FQ ? 3 : 4; }
-
-template <bool FQ>
-__host__ __device__ constexpr int smem_bytes() {
-  return FQ ? stages<FQ>() * (BM * XROW + BN * SROW) + BM * SROW
-            : stages<FQ>() * (BM * SROW + BN * SROW);
-}
-
-template <bool FQ, bool OUT_F32>
+template <bool OUT_F32>
 __global__ void __launch_bounds__(NTHREADS)
-    w8a8_gemm_kernel(const void* __restrict__ x, const int8_t* __restrict__ w,
-                     const float* __restrict__ inv, const float* __restrict__ sa,
+    w8a8_gemm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, const float* __restrict__ sa,
                      const float* __restrict__ sw, void* __restrict__ out, int M, int N, int K) {
-  constexpr int S = stages<FQ>();
-  constexpr int A_STAGE = FQ ? BM * XROW : BM * SROW;  // bytes of one A stage
   extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* As = smem;                    // S stages of A (int8, or bf16 for FQ)
+  unsigned char* As = smem;                    // S stages of A
   unsigned char* Bs = smem + S * A_STAGE;      // S stages of W
-  unsigned char* A8 = Bs + S * BN * SROW;      // FQ: the quantized A tile
 
   // grouped tile order: GROUP_M block rows share each weight tile in L2
   const int pid = blockIdx.x;
@@ -101,24 +73,9 @@ __global__ void __launch_bounds__(NTHREADS)
 
   auto load_stage = [&](int kt) {
     const int st = kt % S;
-    if constexpr (FQ)
-      load_rows<BM, 2 * BK, XROW, NTHREADS>(As + st * A_STAGE, static_cast<const bf16*>(x) + kt * BK, m0, M,
-                                            2 * (size_t)K);
-    else
-      load_rows<BM, BK, SROW, NTHREADS>(As + st * A_STAGE, static_cast<const int8_t*>(x) + kt * BK, m0, M, K);
+    load_rows<BM, BK, SROW, NTHREADS>(As + st * A_STAGE, x + kt * BK, m0, M, K);
     load_rows<BN, BK, SROW, NTHREADS>(Bs + st * BN * SROW, w + kt * BK, n0, N, K);
   };
-
-  // FQ: each thread quantizes the same 4 rows of every stage; their reciprocals
-  constexpr int QCHUNKS = BK / 8;  // 8-element chunks per row
-  float inv_r[BM * QCHUNKS / NTHREADS];
-  if constexpr (FQ) {
-#pragma unroll
-    for (int i = 0; i < BM * QCHUNKS / NTHREADS; ++i) {
-      const int row = m0 + (threadIdx.x + i * NTHREADS) / QCHUNKS;
-      inv_r[i] = row < M ? inv[row] : 0.f;
-    }
-  }
 
   int acc[MT][NT][4];
 #pragma unroll
@@ -135,24 +92,7 @@ __global__ void __launch_bounds__(NTHREADS)
   for (int kt = 0; kt < n_k; ++kt) {
     cp_async_wait<S - 2>();
     __syncthreads();  // tile kt has landed; every warp is done with tile kt - 1
-    const unsigned char* At;
-    if constexpr (FQ) {
-      const unsigned char* xs = As + (kt % S) * A_STAGE;
-#pragma unroll
-      for (int i = 0; i < BM * QCHUNKS / NTHREADS; ++i) {
-        const int idx = threadIdx.x + i * NTHREADS;
-        const int r = idx / QCHUNKS, c = (idx % QCHUNKS) * 8;
-        const bf16* src = reinterpret_cast<const bf16*>(xs + r * XROW) + c;
-        uint2 q;
-        q.x = quant4(src, inv_r[i]);
-        q.y = quant4(src + 4, inv_r[i]);
-        *reinterpret_cast<uint2*>(A8 + r * SROW + c) = q;
-      }
-      __syncthreads();
-      At = A8;
-    } else {
-      At = As + (kt % S) * A_STAGE;
-    }
+    const unsigned char* At = As + (kt % S) * A_STAGE;
     if (kt + S - 1 < n_k) load_stage(kt + S - 1);  // into the stage tile kt - 1 used
     cp_async_commit();
 
@@ -223,19 +163,18 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-template <bool FQ, bool OUT_F32>
-cudaError_t launch(const void* x, const void* w, const void* inv, const void* sa, const void* sw, void* out,
-                   int M, int N, int K, cudaStream_t stream) {
+template <bool OUT_F32>
+cudaError_t launch(const void* x, const void* w, const void* sa, const void* sw, void* out, int M, int N, int K,
+                   cudaStream_t stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % BK != 0) return cudaErrorInvalidValue;
-  constexpr int smem = smem_bytes<FQ>();
-  auto kern = w8a8_gemm_kernel<FQ, OUT_F32>;
+  auto kern = w8a8_gemm_kernel<OUT_F32>;
   static unsigned smem_raised = 0;
-  cudaError_t err = raise_smem_limit(kern, smem, smem_raised);
+  cudaError_t err = raise_smem_limit(kern, SMEM_BYTES, smem_raised);
   if (err != cudaSuccess) return err;
   const long long blocks = (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  kern<<<(unsigned)blocks, NTHREADS, smem, stream>>>(
-      x, static_cast<const int8_t*>(w), static_cast<const float*>(inv), static_cast<const float*>(sa),
+  kern<<<(unsigned)blocks, NTHREADS, SMEM_BYTES, stream>>>(
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), static_cast<const float*>(sa),
       static_cast<const float*>(sw), out, M, N, K);
   return cudaGetLastError();
 }
@@ -248,17 +187,7 @@ cudaError_t launch(const void* x, const void* w, const void* inv, const void* sa
 extern "C" int w8a8_matmul(const void* x8, const void* w, const void* sa, const void* sw, void* out, int M,
                            int N, int K, int out_f32, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return out_f32 ? launch<false, true>(x8, w, nullptr, sa, sw, out, M, N, K, s)
-                 : launch<false, false>(x8, w, nullptr, sa, sw, out, M, N, K, s);
-}
-
-// The fused-quant instantiation: x (M, K) bf16 and inv (M,) = 1 / s_a fp32
-// in place of x8.
-extern "C" int w8a8_fq_matmul(const void* x, const void* w, const void* inv, const void* sa, const void* sw,
-                              void* out, int M, int N, int K, int out_f32, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return out_f32 ? launch<true, true>(x, w, inv, sa, sw, out, M, N, K, s)
-                 : launch<true, false>(x, w, inv, sa, sw, out, M, N, K, s);
+  return out_f32 ? launch<true>(x8, w, sa, sw, out, M, N, K, s) : launch<false>(x8, w, sa, sw, out, M, N, K, s);
 }
 
 extern "C" const char* int8_matmul_error_string(int err) {

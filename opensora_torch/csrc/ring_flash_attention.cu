@@ -39,6 +39,20 @@
 // outside (ring_flash.py:373-376), and P and dS are rounded to bf16 before
 // their products, as in the dense kernels.
 //
+// The forward hop is the dense D = 128 forward's main loop
+// (flash_fwd_sm90.cuh's fwd_mainloop: a TMA producer warpgroup, two wgmma
+// consumers of 64 query rows each, 128-key tiles through 2 stages, the
+// consumers' ping-pong) at the hop's global offsets, always in the
+// running-max loop (the TPU's ring kernel has no anchored form), with a
+// start hook that loads the rank's state (LoadState) and an epilogue that
+// stores it (StoreState) or, on the last hop, writes out and the LSE (the
+// dense kernel's StoreOut). A CTA that the frame-causal mask leaves no key
+// tile returns at once on a middle hop; on the first hop it still writes
+// the empty state, on the last out and LSE from the loaded one. It replaces
+// an mma.sync hop (64-row blocks of 4 warps, each warp reading K and V from
+// shared memory on its own, cp.async and two __syncthreads a tile), the
+// design the dense forward left for this main loop.
+//
 // What bounds it: at the slice's shape (global B=3, H=24, L=8828, D=128,
 // sp=4: L_q = L_k = 2207 a rank) one forward hop does 4*B*H*L_q*L_k*D =
 // 0.18 TFLOP on q, k, v (7 MB each) plus the fp32 state (m, l, acc: 82 MB
@@ -47,235 +61,99 @@
 // launches of a call 2.9 ms). The state traffic costs ~0.05 ms a hop at
 // 3.35 TB/s and is the price of running a hop per launch; a kernel that
 // walks all hops with the state in registers would need the shards of all
-// ranks at once, which is what the ring avoids. The forward keeps both
-// products on the tensor cores (mma.sync m16n8k16 from shared memory, as
-// csrc/flash_attention_fwd.cu), the scores in registers, and K/V tiles
-// double-buffered with cp.async; its wgmma/TMA redesign is later work. A
-// backward hop does the dense backward's 5 products over L_q x L_k (7.26 ms
-// for the 16 hops at 989 TFLOP/s) plus the travelling fp32 dK and dV, 81 MB
-// each, read and written (~0.1 ms a hop at 3.35 TB/s).
+// ranks at once, which is what the ring avoids. The state is kept row-major
+// (acc (B, H, L_q, D)): each quad of threads loads and stores 32
+// contiguous bytes of a row, whole sectors. A backward hop does the dense
+// backward's 5 products over L_q x L_k (7.26 ms for the 16 hops at 989
+// TFLOP/s) plus the travelling fp32 dK and dV, 81 MB each, read and
+// written (~0.1 ms a hop at 3.35 TB/s).
 //
-// Layout: q, k, v, dout: (B, H, L, D) bf16 contiguous with D = 128; m, l,
-// lse, delta: (B, H, L_q) fp32; acc: (B, H, L_q, D) fp32; dq_accum: (B, H,
-// ceil(L_q / 64) * 64, D) fp32 (flash_bwd_sm90.cuh's layout); dk_acc,
-// dv_acc: (B, H, L_k, D) fp32.
+// Layout: q, k, v, dout: (B, H, L, D) bf16 contiguous with D = 128, 16-byte
+// aligned (their TMA tensor maps); m, l, lse, delta: (B, H, L_q) fp32; acc:
+// (B, H, L_q, D) fp32; dq_accum: (B, H, ceil(L_q / 64) * 64, D) fp32
+// (flash_bwd_sm90.cuh's layout); dk_acc, dv_acc: (B, H, L_k, D) fp32.
 
 #include "flash_bwd_sm90.cuh"
 #include "flash_common.cuh"
+#include "flash_fwd_sm90.cuh"
 
 namespace {
 
 using namespace flash;
 
 constexpr int D = 128;
-constexpr int RS = D + PAD;  // smem row stride of every tile
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int BM = 64;  // forward: query rows per block
-constexpr int BN = 64;  // forward: keys per streamed tile
 
-__device__ __forceinline__ int frame_end(int row, int causal_block) {
-  return (row / causal_block + 1) * causal_block;
-}
+// The start of a forward hop: the rank's state (m, l, acc) as the previous
+// hop stored it, or (-1e30, 0, 0) on the first hop and for rows past Lq.
+// The whole-row sum l goes to lane q = 0 of the quad, 0 to the other three,
+// as the main loop keeps its per-thread shares.
+struct LoadState {
+  const float* m;
+  const float* l;
+  const float* acc;
+  int Lq, first;
+  __device__ __forceinline__ void operator()(float (&o)[64], float (&mr)[2], float (&lr)[2], int bh, int row0,
+                                             int tid) const {
+    if (first) return ffwd::EmptyState{}(o, mr, lr, bh, row0, tid);
+    const int warp = tid / 32, g = (tid % 32) / 4, q = tid % 4;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 16 * warp + g + 8 * i;
+      const bool in = row < Lq;
+      const size_t sr = (size_t)bh * Lq + row;
+      mr[i] = in ? m[sr] : NEG_INF;
+      lr[i] = in && q == 0 ? l[sr] : 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        float2 a = make_float2(0.f, 0.f);
+        if (in) a = *reinterpret_cast<const float2*>(acc + sr * D + 8 * j + 2 * q);
+        o[4 * j + 2 * i] = a.x;
+        o[4 * j + 2 * i + 1] = a.y;
+      }
+    }
+  }
+};
 
-// One hop of the forward: fold the keys of the current slot into the
-// rank's (m, l, acc); the first hop starts from (-inf, 0, 0), the last
-// writes out = acc / l and lse = m ln 2 + ln l instead of the state.
+// The epilogue of a forward hop: the state (m, l as whole-row sums, acc)
+// for the next hop, or on the last hop out = acc / l and the LSE.
+struct StoreState {
+  float* m;
+  float* l;
+  float* acc;
+  ffwd::StoreOut out;
+  int last;
+  __device__ __forceinline__ void operator()(const float (&o)[64], const float (&mr)[2], const float (&lr)[2], int bh,
+                                             int row0, int wg, int tid, unsigned char* stage) const {
+    if (last) return out(o, mr, lr, bh, row0, wg, tid, stage);
+    const int warp = tid / 32, g = (tid % 32) / 4, q = tid % 4;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 16 * warp + g + 8 * i;
+      if (row >= out.Lq) continue;
+      const size_t sr = (size_t)bh * out.Lq + row;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        *reinterpret_cast<float2*>(acc + sr * D + 8 * j + 2 * q) = make_float2(o[4 * j + 2 * i], o[4 * j + 2 * i + 1]);
+      if (q == 0) {
+        m[sr] = mr[i];
+        l[sr] = lr[i];
+      }
+    }
+  }
+};
+
+// One hop of the forward: fwd_mainloop (flash_fwd_sm90.cuh) on the rank's
+// queries against the keys of the slot it holds, at the hop's global
+// offsets, from the stored state. A CTA whose causal frontier leaves it no
+// key tile on a middle hop returns at once: its state stays as it is.
 template <bool CAUSAL>
-__global__ void __launch_bounds__(NTHREADS)
-    ring_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, float* __restrict__ m_state,
-                    float* __restrict__ l_state, float* __restrict__ acc_state,
-                    bf16* __restrict__ o, float* __restrict__ lse, int Lq, int Lk, float c,
-                    int causal_block, int q_off, int k_off, int first, int last) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // BM x RS
-  bf16* Ks = Qs + BM * RS;                       // 2 stages x BN x RS
-  bf16* Vs = Ks + 2 * BN * RS;                   // 2 stages x BN x RS
-
-  const int q0 = blockIdx.x * BM;
-  const int bh = blockIdx.y;
-  const bf16* qg = q + (size_t)bh * Lq * D;
-  const bf16* kg = k + (size_t)bh * Lk * D;
-  const bf16* vg = v + (size_t)bh * Lk * D;
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int mat = lane >> 3;
-  const int row_a = q0 + warp * 16 + g;
-  const int row_b = row_a + 8;
-
-  // Keys of frames after this block's last (global) row are hidden.
-  int kv_end = Lk;
-  if (CAUSAL) {
-    const int last_row = q_off + min(q0 + BM, Lq) - 1;
-    kv_end = min(Lk, max(0, frame_end(last_row, causal_block) - k_off));
-  }
-  const int n_tiles = (kv_end + BN - 1) / BN;
-  if (n_tiles == 0 && !first && !last) return;  // the state stays as it is
-
-  if (n_tiles > 0) {
-    load_tile<BM, D, NTHREADS>(Qs, qg, q0, Lq, D);
-    load_tile<BN, D, NTHREADS>(Ks, kg, 0, Lk, D);
-    load_tile<BN, D, NTHREADS>(Vs, vg, 0, Lk, D);
-  }
-  cp_async_commit();
-
-  float acc[D / 8][4];
-  float m_r[2], l_r[2];  // l_r: this thread's share of the row sums
-  const int rows[2] = {row_a, row_b};
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const bool in = !first && rows[r] < Lq;
-    const size_t sr = (size_t)bh * Lq + rows[r];
-    m_r[r] = in ? m_state[sr] : NEG_INF;
-    l_r[r] = in && t == 0 ? l_state[sr] : 0.f;
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      float2 a = make_float2(0.f, 0.f);
-      if (in) a = *reinterpret_cast<const float2*>(acc_state + sr * D + i * 8 + 2 * t);
-      acc[i][2 * r] = a.x;
-      acc[i][2 * r + 1] = a.y;
-    }
-  }
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int st = j & 1;
-    if (j + 1 < n_tiles) {
-      load_tile<BN, D, NTHREADS>(Ks + (st ^ 1) * BN * RS, kg, (j + 1) * BN, Lk, D);
-      load_tile<BN, D, NTHREADS>(Vs + (st ^ 1) * BN * RS, vg, (j + 1) * BN, Lk, D);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    const bf16* Kt = Ks + st * BN * RS;
-    const bf16* Vt = Vs + st * BN * RS;
-
-    // S = Q K^T for this warp's 16 rows x BN keys.
-    float s[BN / 8][4];
-#pragma unroll
-    for (int i = 0; i < BN / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a0, a1, a2, a3;
-      ldmatrix_x4(a0, a1, a2, a3,
-                  smem_u32(Qs + (warp * 16 + (lane & 15)) * RS + kk * 16 + (lane >> 4) * 8));
-#pragma unroll
-      for (int nn = 0; nn < BN / 16; ++nn) {
-        uint32_t b0, b1, b2, b3;
-        ldmatrix_x4(b0, b1, b2, b3,
-                    smem_u32(Kt + (nn * 16 + (lane & 7) + (mat >> 1) * 8) * RS + kk * 16 +
-                             (mat & 1) * 8));
-        mma_bf16(s[2 * nn], a0, a1, a2, a3, b0, b1);
-        mma_bf16(s[2 * nn + 1], a0, a1, a2, a3, b2, b3);
-      }
-    }
-
-    // Scale into the log2 domain; mask tail columns and, at global
-    // offsets, columns of later frames.
-    const int n0 = j * BN;
-    bool need_mask = n0 + BN > Lk;
-    if (CAUSAL)
-      need_mask = need_mask || (k_off + n0 + BN - 1) / causal_block > (q_off + q0) / causal_block;
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[nt][e] * c;
-        if (need_mask) {
-          const int col = n0 + nt * 8 + 2 * t + (e & 1);
-          bool ok = col < Lk;
-          if (CAUSAL) ok = ok && (k_off + col) / causal_block <= (q_off + rows[e >> 1]) / causal_block;
-          x = ok ? x : NEG_INF;
-        }
-        s[nt][e] = x;
-      }
-    }
-
-    float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
-    }
-    float m_safe[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_r[r], mx[r]);
-      // a row still fully masked anchors at 0 so exp2(-1e30 - 0) = 0
-      m_safe[r] = m_new <= NEG_INF * 0.5f ? 0.f : m_new;
-      const float corr = fast_exp2(m_r[r] - m_safe[r]);
-      m_r[r] = m_new;
-      l_r[r] *= corr;
-#pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
-        acc[i][2 * r] *= corr;
-        acc[i][2 * r + 1] *= corr;
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = fast_exp2(s[nt][e] - m_safe[e >> 1]);
-        l_r[e >> 1] += p;
-        s[nt][e] = p;
-      }
-    }
-
-    // acc += P V: P comes straight from the score registers as A fragments.
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint32_t p0 = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      const uint32_t p1 = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      const uint32_t p2 = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      const uint32_t p3 = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
-        uint32_t b0, b1, b2, b3;
-        ldmatrix_x4_trans(b0, b1, b2, b3,
-                          smem_u32(Vt + (kk * 16 + (lane & 7) + (mat & 1) * 8) * RS + dd * 16 +
-                                   (mat >> 1) * 8));
-        mma_bf16(acc[2 * dd], p0, p1, p2, p3, b0, b1);
-        mma_bf16(acc[2 * dd + 1], p0, p1, p2, p3, b2, b3);
-      }
-    }
-    __syncthreads();  // the next iteration's prefetch overwrites this stage
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = l_r[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    if (rows[r] >= Lq) continue;
-    const size_t sr = (size_t)bh * Lq + rows[r];
-    if (last) {
-      const float l_safe = l == 0.f ? 1.f : l;
-      const float inv = 1.f / l_safe;
-      bf16* og = o + sr * D;
-#pragma unroll
-      for (int i = 0; i < D / 8; ++i)
-        *reinterpret_cast<__nv_bfloat162*>(og + i * 8 + 2 * t) =
-            __floats2bfloat162_rn(acc[i][2 * r] * inv, acc[i][2 * r + 1] * inv);
-      if (t == 0) lse[sr] = m_r[r] * LN2 + logf(l_safe);
-    } else {
-#pragma unroll
-      for (int i = 0; i < D / 8; ++i)
-        *reinterpret_cast<float2*>(acc_state + sr * D + i * 8 + 2 * t) =
-            make_float2(acc[i][2 * r], acc[i][2 * r + 1]);
-      if (t == 0) {
-        m_state[sr] = m_r[r];
-        l_state[sr] = l;
-      }
-    }
-  }
+__global__ void __launch_bounds__(ffwd::NTHREADS, 1)
+    ring_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv, const ffwd::FwdParams p, const LoadState start,
+                         const StoreState epilogue) {
+  const int m0 = blockIdx.x * ffwd::BLOCK_M;
+  if (!start.first && !epilogue.last && ffwd::kv_tiles<CAUSAL>(p, m0) == 0) return;
+  ffwd::fwd_mainloop<CAUSAL>(&tq, &tk, &tv, p, m0, blockIdx.y, start, epilogue);
 }
 
 // One hop of the backward: bwd_mainloop (flash_bwd_sm90.cuh) on the rank's
@@ -322,24 +200,10 @@ __global__ void __launch_bounds__(fbwd::NTHREADS, 1)
   fbwd::bwd_mainloop<CAUSAL>(&tq, &tk, &tv, &tdo, p, blockIdx.x * fbwd::BLOCK_N, blockIdx.y, epilogue);
 }
 
-constexpr int FWD_SMEM = (BM + 4 * BN) * RS * 2;
-
-// Launch ``kern`` (the causal or the bidirectional instantiation) over grid
-// (tiles, B * H) after raising its shared-memory limit; an empty grid
-// launches nothing.
-template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kern, unsigned& smem_raised, int smem, int tiles, int BH,
-                   cudaStream_t stream, Args... args) {
-  if (tiles == 0 || BH == 0) return cudaSuccess;
-  cudaError_t err = raise_smem_limit(kern, smem, smem_raised);
-  if (err != cudaSuccess) return err;
-  kern<<<dim3(tiles, BH), NTHREADS, smem, stream>>>(args...);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
-// q, k, v: (B, H, L, D) bf16 contiguous, D = 128; m, l: (B, H, Lq) fp32 and
+// q, k, v: (B, H, L, D) bf16 contiguous, D = 128, 16-byte aligned (their
+// TMA tensor maps); m, l: (B, H, Lq) fp32 and
 // acc: (B, H, Lq, D) fp32, the rank's state (read unless first, written
 // unless last); out (bf16, q's layout) and lse ((B, H, Lq) fp32, natural
 // log) are written on the last hop. c = sm_scale * log2(e); causal_block <=
@@ -350,15 +214,29 @@ extern "C" int ring_flash_fwd(const void* q, const void* k, const void* v, void*
                               void* acc, void* out, void* lse, int B, int H, int Lq, int Lk,
                               int d, float c, int causal_block, int q_off, int k_off, int first,
                               int last, void* stream) {
-  if (d != D) return static_cast<int>(cudaErrorInvalidValue);
-  static unsigned raised[2] = {0, 0};
+  if (d != D || Lk < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (Lq == 0 || B * H == 0) return static_cast<int>(cudaSuccess);
+  // With no keys (Lk = 0) no CTA has a key tile and K, V are never read:
+  // q's map stands in for theirs, which cannot span 0 rows.
+  CUtensorMap maps[3];
+  cudaError_t err = Lk > 0 ? ffwd::encode_maps(maps, q, k, v, B * H, Lq, Lk)
+                           : ffwd::encode_maps(maps, q, q, q, B * H, Lq, Lq);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const bool causal = causal_block > 0;
-  auto kern = causal ? ring_fwd_kernel<true> : ring_fwd_kernel<false>;
-  return launch(kern, raised[causal], FWD_SMEM, (Lq + BM - 1) / BM, B * H,
-                static_cast<cudaStream_t>(stream), static_cast<const bf16*>(q),
-                static_cast<const bf16*>(k), static_cast<const bf16*>(v), static_cast<float*>(m),
-                static_cast<float*>(l), static_cast<float*>(acc), static_cast<bf16*>(out),
-                static_cast<float*>(lse), Lq, Lk, c, causal_block, q_off, k_off, first, last);
+  const ffwd::FwdParams p{nullptr, Lq, Lk, c, causal_block, q_off, k_off};  // the running-max loop only
+  float* mf = static_cast<float*>(m);
+  float* lf = static_cast<float*>(l);
+  float* af = static_cast<float*>(acc);
+  const LoadState start{mf, lf, af, Lq, first};
+  const StoreState epi{mf, lf, af, {static_cast<bf16*>(out), static_cast<float*>(lse), Lq}, last};
+  auto kern = causal ? ring_fwd_sm90_kernel<true> : ring_fwd_sm90_kernel<false>;
+  static unsigned raised[2] = {0, 0};
+  err = raise_smem_limit(kern, ffwd::SMEM_BYTES, raised[causal]);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((Lq + ffwd::BLOCK_M - 1) / ffwd::BLOCK_M, B * H);
+  kern<<<grid, ffwd::NTHREADS, ffwd::SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(maps[0], maps[1], maps[2], p,
+                                                                                      start, epi);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // dout: (B, H, Lq, D) bf16; lse (natural log, global) and delta =

@@ -10,8 +10,10 @@ in-kernel remote DMA, double-buffered with "ack" semaphores
 copy stream per rank, "received" and "ack" events) and each (rank, hop) is
 one launch of a kernel of ``csrc/ring_flash_attention.cu``:
 
-- ``ring_flash_fwd`` folds the keys of the rank's current slot into its
-  fp32 (m, l, acc) and, on the last hop, writes out and the LSE;
+- ``ring_flash_fwd`` (the dense D = 128 forward's wgmma/TMA main loop at
+  the hop's global offsets, running max only) folds the keys of the rank's
+  current slot into its fp32 (m, l, acc), loaded unless first and stored
+  unless last, and on the last hop writes out and the LSE;
 - ``ring_flash_bwd_fused`` (the dense D = 128 backward's fused wgmma/TMA
   main loop at the hop's global offsets) adds the rank's dK, dV into the
   fp32 accumulators that travel with the KV shard (sent on after every
@@ -222,6 +224,7 @@ def ring_fwd_hop(q, k, v, state, out, lse, *, sm_scale: float, causal_block: Opt
     if k.shape != v.shape or m.shape != q.shape[:3] or l.shape != m.shape or lse.shape != m.shape \
             or acc.shape != q.shape or out.shape != q.shape:
         raise ValueError("ring_flash_fwd: k and v, and the state, out and lse must match q's shape")
+    fa._check_aligned(KERNEL_FWD, (("q", q), ("k", k), ("v", v)))
     ptrs = [x.data_ptr() for x in (q, k, v, m, l, acc, out, lse)]
     _launch("ring_flash_fwd", KERNEL_FWD, ptrs, q, k, sm_scale * LOG2E, causal_block or 0, q_off, k_off,
             int(first), int(last))

@@ -417,6 +417,29 @@ def test_w8a8_kernels_equal_plain_on_cuda(m, n, k):
     assert _build.LAUNCHES[tgemm.KERNEL_FQ] == before.get(tgemm.KERNEL_FQ, 0) + 1
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", [(1000, 512, 1024), (130, 264, 64)])
+def test_w8a8_fq_kernel_rounds_ties_half_to_even_on_cuda(m, n, k):
+    """Rows of abs-max 127 (s_a = inv = 1) holding half-integers put x * inv
+    on ties: the fused-quant kernel (csrc/int8_matmul_sm90.cu, the magic-
+    number rounding) equals the plain version, which rounds half to even, in
+    every element at fp32 and bf16 output; an N no multiple of 8 takes the
+    element-wise bf16 stores."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    rng = np.random.default_rng(5)
+    x = (rng.integers(-127, 127, (m, k)) + 0.5).astype(np.float32)
+    x[:, 0] = 127.0
+    x = torch.from_numpy(x).to("cuda", torch.bfloat16)
+    w = torch.from_numpy(rng.integers(-127, 128, (n, k)).astype(np.int8)).to("cuda")
+    sw = torch.from_numpy((rng.random(n) * 0.01 + 1e-3).astype(np.float32)).to("cuda")
+    s_a, inv = tgemm.fq_inputs(x)
+    assert bool((s_a == 1).all()) and bool((inv == 1).all())
+    for dt in (torch.float32, torch.bfloat16):
+        got = tgemm.w8a8_fusedquant_matmul(x, w, sw, out_dtype=dt)
+        assert torch.equal(got, tgemm.w8a8_fusedquant_matmul_ref(x, w, sw, dt)), dt
+
+
 # ----------------------------------------------------------------------
 # int8 attention (csrc/int8_flash_attention.cu)
 # ----------------------------------------------------------------------
@@ -636,6 +659,61 @@ def test_ring_bwd_fused_hop_matches_plain_hop_on_cuda(lq, lk, causal_block, q_of
         assert bool(unseen.any()) == (k_off > q_off)
         for got, s0 in zip(accs[:2], start[:2]):
             assert torch.equal(got[:, :, unseen], s0[:, :, unseen])
+
+
+# (Lq, Lk, causal_block, q_off, k_off, first, last): forward hops at global
+# offsets from a loaded state: a middle hop at the slice's local length
+# (2207 rows: 17 full CTAs and a 31-row tail); a last hop whose frames of
+# 96 the shard edges cut; and a 159-row shard (a full CTA, a 31-row tail)
+# holding keys that its first CTA does not see, on a middle, the first and
+# the last hop; a last hop with no keys at all (out and LSE from the loaded
+# state, as chip_smoke's skipped-last-hop control runs it).
+FWD_HOP_CASES = [
+    (2207, 2207, None, 2207, 0, False, False),
+    (250, 250, 96, 500, 250, False, True),
+    (159, 159, 64, 0, 128, False, False),
+    (159, 159, 64, 0, 128, True, False),
+    (159, 159, 64, 0, 128, False, True),
+    (159, 0, None, 0, 0, False, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk,causal_block,q_off,k_off,first,last", FWD_HOP_CASES)
+def test_ring_fwd_hop_matches_plain_hop_on_cuda(lq, lk, causal_block, q_off, k_off, first, last):
+    """The forward hop kernel (the D = 128 forward's main loop from and to
+    the rank's state) against the plain hop from the same loaded state: m
+    to 1e-3 and l to 1e-3 of its scale (fp32 sums), acc to 1e-2 of its
+    scale (P rounded to bf16 for the PV product), out to 8e-3 of its scale
+    and the LSE to 1e-3, as the dense forward; a CTA with no key tile keeps
+    its rows' state bitwise on a middle hop."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q = torch.randn((1, 2, lq, 128), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((1, 2, lk, 128), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2))
+    start = (torch.randn((1, 2, lq), generator=gen, device="cuda") * 3,
+             torch.rand((1, 2, lq), generator=gen, device="cuda") * 50 + 1,
+             torch.randn((1, 2, lq, 128), generator=gen, device="cuda") * 10)
+    state, want = [x.clone() for x in start], [x.clone() for x in start]
+    out, lse = torch.zeros_like(q), torch.zeros((1, 2, lq), device="cuda")
+    ref_out, ref_lse = torch.zeros_like(q), torch.zeros_like(lse)
+    kw = dict(sm_scale=128 ** -0.5, causal_block=causal_block, q_off=q_off, k_off=k_off, first=first, last=last)
+    before = dict(_build.LAUNCHES)
+    tring.ring_fwd_hop(q, k, v, state, out, lse, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[tring.KERNEL_FWD] == before.get(tring.KERNEL_FWD, 0) + 1
+    tring.ring_fwd_hop_ref(q, k, v, want, ref_out, ref_lse, **kw)
+    if last:
+        assert (out.float() - ref_out.float()).abs().max().item() <= 8e-3 * ref_out.float().abs().max().item()
+        assert (lse - ref_lse).abs().max().item() <= 1e-3
+        return
+    for name, got, w, tol in zip("mla", state, want, (1e-3, 1e-3, 1e-2)):
+        err = (got - w).abs().max().item()
+        assert err <= tol * max(1.0, w.abs().max().item()), (name, err)
+    if causal_block is not None and not first:  # the first CTA sees no key: it returned, its rows as loaded
+        for got, s0 in zip(state, start):
+            assert torch.equal(got[:, :, :128], s0[:, :, :128])
 
 
 # (global shape, causal_block) over 4 logical ranks on one card: local
