@@ -44,17 +44,23 @@ Phases, one line each; any failure exits non-zero:
   8. drive DC-AE training -- video_dc_ae_disc.py as it is (dc-ae-f32t4c128,
      full width) -- through the same body for 2 steps on 32-frame 256x256
      batches of 1: finite losses, moving parameters, no kernel launched.
-Phase 2c holds the W8A8 GEMMs (w8a8_matmul, the mma.sync kernel, and
-w8a8_fq_matmul, the fused-quant int8 wgmma/TMA kernel; every element equal
-to the plain version's at fp32 output, at the path's shapes and at a case
-whose rows have abs-max 127 and hold half-integers, so that x * inv falls
-on ties) and the int8 attention kernel (both modes, both loops) against
-their plain versions, with known-wrong outputs (for the fused-quant kernel:
-one 32-wide K slice dropped, one consumer's rows from the other's, ties
-rounded half away from zero) and timings (the fused-quant kernel, its
-wrapper and w8a8_matmul in turns); phase 3b checks the full-width int8
-model on a small input against the CPU's plain int8 path; phase 6 logs the
-w8a8_fq step time.
+Phase 2c holds the W8A8 GEMMs (the two instantiations of the persistent
+int8 wgmma/TMA kernel: w8a8_matmul with an int8 A tile, w8a8_fq_matmul
+quantizing bf16 A into the products' fragments; every element equal to the
+plain version's at fp32 output, at the path's shapes and at a case whose
+rows have abs-max 127 and hold half-integers, so that x * inv falls on
+ties) and the int8 attention kernel (wgmma/TMA, both modes, both loops)
+against their plain versions, with known-wrong outputs (both GEMMs: one
+32-wide K slice dropped, one consumer's rows from the other's; w8a8_matmul:
+the int8 A tile read unswizzled; the fused-quant kernel: ties rounded half
+away from zero; int8 attention: sk of the neighbouring tile, the tail tile
+skipped, and in the int8 mode V's mean not added, v8t not key-permuted and
+p_scale from the neighbouring quantization tile) and timings in turns (the
+two GEMMs, the fused-quant wrapper and torch._int_mm + rescale; each
+attention mode's kernel, its wrapper and bf16 SDPA); phase 1 prints every
+kernel's ptxas registers and spills, and fails if an int8 wgmma kernel
+spills; phase 3b checks the full-width int8 model on a small input against
+the CPU's plain int8 path; phase 6 logs the w8a8_fq step time.
 Phase 2b holds the fused D = 128 backward (flash_attention_bwd_fused +
 flash_attention_bwd_dq_convert) against the plain backward at the MMDiT
 shape (3, 24, 8828, 128) and two tails (L = 1000, bidirectional and
@@ -668,22 +674,33 @@ def consumer_rows_swapped(out):
     return wrong
 
 
+def a_tile_unswizzled(x8):
+    """x8 (M, K) as the products would read the int8 A tile if their
+    descriptor ignored the TMA's 64-byte swizzle: in each 64-byte row r of a
+    stage, 16-byte chunk c holds logical chunk c ^ ((r / 2) % 4)."""
+    m, k = x8.shape
+    rows = torch.arange(m, device=x8.device)[:, None]
+    cols = torch.arange(k, device=x8.device)[None, :]
+    src = (cols // 64) * 64 + (((cols % 64) // 16) ^ ((rows // 2) % 4)) * 16 + cols % 16
+    return torch.gather(x8, 1, src.expand(m, k))
+
+
 def gemm_mutants(fq: bool, x8_used, w, s_a, sw, ref, y=None) -> dict:
     """Known-wrong outputs, each as the count of elements that differ from
     the plain version's (the check is exact: any count above 0 is
-    rejected). Row 5: one 64-wide K tile of the sum left out. Fused-quant:
-    one 32-wide K slice (one k32 product) left out; where the tile has a
-    second consumer, its rows taken from the first's; where ``y`` = x * inv
-    holds ties that the two rules round apart (k + 1/2, k even), round half
-    away from zero in place of half to even."""
+    rejected): one 32-wide K slice (one k32 product) left out; where the
+    tile has a second consumer, its rows taken from the first's. The int8
+    instantiation: the A tile read unswizzled. Fused-quant: where ``y`` =
+    x * inv holds ties that the two rules round apart (k + 1/2, k even),
+    round half away from zero in place of half to even."""
     def differing(wrong):
         return int((wrong != ref).sum())
 
-    k0, width = (32, 32) if fq else (64, 64)
-    out = {f"k{'32_slice' if fq else '_tile'}_dropped":
-           differing(ref - gemm_from_x8(x8_used[:, k0:k0 + width], w[:, k0:k0 + width], s_a, sw))}
-    if fq and ref.shape[0] > 64:
+    out = {"k32_slice_dropped": differing(ref - gemm_from_x8(x8_used[:, 32:64], w[:, 32:64], s_a, sw))}
+    if ref.shape[0] > 64:
         out["consumer_rows_swapped"] = differing(consumer_rows_swapped(ref))
+    if not fq:
+        out["a_tile_read_unswizzled"] = differing(gemm_from_x8(a_tile_unswizzled(x8_used), w, s_a, sw))
     if fq and y is not None:
         away = torch.clamp(torch.sign(y) * torch.floor(y.abs() + 0.5), -127, 127)
         if not torch.equal(away, x8_used):  # ties at k + 1/2 with k even
@@ -728,7 +745,7 @@ def check_int8_gemm(device, cases=GEMM_CASES + [GEMM_TIE_CASE]) -> dict:
             if fq:
                 mutants = gemm_mutants(True, torch.clamp(torch.round(y), -127, 127), w, s_a_fq, sw, ref, y)
             else:
-                mutants = gemm_mutants(False, x8.float(), w, sa, sw, ref)
+                mutants = gemm_mutants(False, x8, w, sa, sw, ref)
             caught = all(c > 0 for c in mutants.values())
             if name == GEMM_TIE_CASE[0] and fq and "round_half_away" not in mutants:
                 raise AssertionError("the tie case holds no tie")
@@ -742,38 +759,41 @@ def check_int8_gemm(device, cases=GEMM_CASES + [GEMM_TIE_CASE]) -> dict:
                 raise AssertionError(f"{kern} disagrees with its plain version at {name}, or the check "
                                      "does not reject a known-wrong output")
         # the fused-quant kernel alone and row 5's kernel (both given their
-        # scales), and the fused-quant wrapper (with the row abs-max pass in
-        # torch), in turns: back-to-back readings spread, so they are
-        # compared by their ranges in these turns
+        # scales), the fused-quant wrapper (with the row abs-max pass in
+        # torch) and row 5's yardstick (torch._int_mm + the fp32 rescale) in
+        # turns: back-to-back readings spread, so they are compared by their
+        # ranges in these turns
         big = 2.0 * m * n * k > 1e11
         iters = 10 if big else 20
         timed = dict(fq=lambda: im.fq_kernel(x, w, sw, s_a_fq, inv), row5=fns["w8a8_matmul"][0],
                      fq_wrapper=fns["w8a8_fq_matmul"][0])
-        turns = {key: [] for key in timed}
-        for key in ("fq", "row5", "fq_wrapper", "fq_wrapper", "row5", "fq") * 2:
-            turns[key].append(time_cuda(timed[key], iters))
-        mean = {key: sum(v) / len(v) for key, v in turns.items()}
-        library_ms = None
         if m > 16:  # torch._int_mm takes more than 16 rows
+            library = lambda: (torch._int_mm(x8, w.t()).float() * sa * sw).to(torch.bfloat16)  # noqa: E731
             try:  # a yardstick only: a library that refuses the shape leaves it unmeasured
-                library_ms = time_cuda(
-                    lambda: (torch._int_mm(x8, w.t()).float() * sa * sw).to(torch.bfloat16), iters)
+                library()
+                timed["library"] = library
             except RuntimeError as e:
                 log(f"[int8] torch._int_mm refused {name}: {str(e).splitlines()[0]}")
+        turns = {key: [] for key in timed}
+        for key in (tuple(timed) + tuple(timed)[::-1]) * 2:
+            turns[key].append(time_cuda(timed[key], iters))
+        mean = {key: sum(v) / len(v) for key, v in turns.items()}
+        library_ms = mean.get("library")
         for kern, key, fq in (("w8a8_matmul", "row5", False), ("w8a8_fq_matmul", "fq", True)):
             bound_ms, bound_by = gemm_bound(m, k, n, fq)
             plain_ms = time_cuda(fns[kern][1], 1, warmup=0)
             rec[kern].update(ms=mean[key], ms_turns=turns[key], plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, library_ms=None if fq else library_ms)
+                             bound_by=bound_by, library_ms=None if fq else library_ms,
+                             library_ms_turns=None if fq else turns.get("library"))
             if fq:
                 rec[kern].update(wrapper_ms=mean["fq_wrapper"], wrapper_ms_turns=turns["fq_wrapper"])
         rng = {key: f"{min(v):.3f}-{max(v):.3f}" for key, v in turns.items()}
+        library_txt = "n/a" if library_ms is None else f"{library_ms:.3f} ({rng['library']})"
         log(f"[int8] {name} in turns (ms, mean and range): w8a8_fq_matmul {mean['fq']:.3f} ({rng['fq']}), "
             f"with the abs-max pass {mean['fq_wrapper']:.3f} ({rng['fq_wrapper']}); w8a8_matmul (row 5) "
-            f"{mean['row5']:.3f} ({rng['row5']}); bound fq/row5 {rec['w8a8_fq_matmul']['bound_ms']:.3f}/"
-            f"{rec['w8a8_matmul']['bound_ms']:.3f}; plain fq/row5 {rec['w8a8_fq_matmul']['plain_ms']:.3f}/"
-            f"{rec['w8a8_matmul']['plain_ms']:.3f}; library (row 5) "
-            f"{'n/a' if library_ms is None else f'{library_ms:.3f}'}")
+            f"{mean['row5']:.3f} ({rng['row5']}); library (row 5) {library_txt}; "
+            f"bound fq/row5 {rec['w8a8_fq_matmul']['bound_ms']:.3f}/{rec['w8a8_matmul']['bound_ms']:.3f}; "
+            f"plain fq/row5 {rec['w8a8_fq_matmul']['plain_ms']:.3f}/{rec['w8a8_matmul']['plain_ms']:.3f}")
         out_cases.append(rec)
         del x8, w, sa, sw, x, y, s_a_fq, inv
         torch.cuda.empty_cache()
@@ -804,9 +824,10 @@ def int8_attention_bound(b, h, l, d, pv_int8: bool, mufu_per_s: float):
     return 1e3 * worst, by, 1e3 * exp_s
 
 
-def int8_plain_chunked(ia, q, k, v, pv_int8, heads_per_chunk, mutate=None):
+def int8_plain_chunked(ia, q, k, v, pv_int8, heads_per_chunk, mutate=None, plain=None):
     """The plain version over chunks of heads (everything in it is per
-    (b, h)); ``mutate(pre)`` edits the preamble's output first."""
+    (b, h)); ``mutate(pre)`` edits the preamble's output first, ``plain``
+    stands in for ia.attention_from_quantized."""
     outs = []
     block_k = ia.default_block_k(k.shape[2])
     for h0 in range(0, q.shape[1], heads_per_chunk):
@@ -814,8 +835,48 @@ def int8_plain_chunked(ia, q, k, v, pv_int8, heads_per_chunk, mutate=None):
         pre = ia.quantize_inputs(q[:, sl], k[:, sl], v[:, sl], q.shape[-1] ** -0.5, block_k, pv_int8)
         if mutate is not None:
             mutate(pre)
-        outs.append(ia.attention_from_quantized(pre, pv_int8))
+        outs.append((plain or ia.attention_from_quantized)(pre, pv_int8))
     return torch.cat(outs, 1)
+
+
+def v8t_unpermuted(pre):
+    """What the pv_int8 kernel computes if v8t held V8 transposed but not
+    key-permuted: its P8 fragments put logical key PERM_16[p] at physical
+    position p of each 16-key group, so key PERM_16[p] meets V8 of key p."""
+    from opensora_torch.ops.int8_flash import PERM_16
+
+    v8 = pre["v8"]
+    b, h, lk, d = v8.shape
+    pad = -lk % 16
+    groups = torch.nn.functional.pad(v8, (0, 0, 0, pad)).reshape(b, h, -1, 16, d)
+    inverse = torch.empty(16, dtype=torch.long)
+    inverse[torch.tensor(PERM_16)] = torch.arange(16)
+    pre["v8"] = groups[:, :, :, inverse.to(v8.device)].reshape(b, h, lk + pad, d)[:, :, :lk]
+
+
+def pv_int8_p_scale_of_next_tile(pre, pv_int8):
+    """The pv_int8 plain version with each quantization tile's P quantized
+    and dequantized by the next tile's p_scale (the last by the first's)."""
+    import torch.nn.functional as F
+
+    nk, block_k, lk = pre["nk"], pre["block_k"], pre["k8"].shape[2]
+    s32 = pre["q8"].float() @ pre["k8"].float().transpose(-1, -2)
+    sk_col = pre["sk"][..., 0].repeat_interleave(block_k, dim=-1)[..., :lk]
+    s = s32 * (pre["sq"] * sk_col[..., None, :])
+    b, h, lq, _ = s.shape
+    sp = F.pad(s, (0, nk * block_k - lk), value=-1e30).reshape(b, h, lq, nk, block_k)
+    m_run = torch.cummax(sp.amax(dim=-1), dim=-1).values
+    m_safe = torch.where(m_run <= -5e29, torch.zeros_like(m_run), m_run)
+    a2 = pre["a2"][..., None, None]
+    anc = torch.where(a2 < 40.0, a2.expand_as(m_safe), m_safe)
+    p = torch.exp2(sp - anc[..., None])
+    p_scale = torch.clamp(p.amax(dim=-1), min=1e-8).roll(-1, dims=-1)
+    p8 = torch.clamp(torch.round(p * (127.0 / p_scale)[..., None]), max=127)
+    v8 = F.pad(pre["v8"].float(), (0, 0, 0, nk * block_k - lk)).reshape(b, h, nk, block_k, -1)
+    pv = torch.einsum("bhqtk,bhtkd->bhqtd", p8, v8) * (p_scale * (1.0 / 127.0))[..., None] * pre["sv"][:, :, None]
+    w = torch.exp2(anc - anc[..., -1:])
+    den = (p.sum(dim=-1) * w).sum(dim=-1, keepdim=True)
+    return (pv * w[..., None]).sum(dim=-2) / torch.where(den <= 0, torch.ones_like(den), den) + pre["v_mean"]
 
 
 def check_int8_attention(device, mufu_per_s: float) -> dict:
@@ -855,33 +916,46 @@ def check_int8_attention(device, mufu_per_s: float) -> dict:
             }
             if pv_int8:
                 mutants["v_mean_not_added"] = reading(ref - v.float().mean(dim=2, keepdim=True))
+                mutants["v8t_unpermuted"] = reading(int8_plain_chunked(ia, q, k, v, True, heads_per_chunk,
+                                                                       v8t_unpermuted))
+                if l > block_k:  # a neighbouring quantization tile exists
+                    mutants["p_scale_of_neighbouring_tile"] = reading(int8_plain_chunked(
+                        ia, q, k, v, True, heads_per_chunk, plain=pv_int8_p_scale_of_next_tile))
             caught = all(r > INT8_ATTN_RTOL for r in mutants.values())
             del ref, out
             big = l * l * b * h > 1e8
             iters = 5 if big else 20
+            # the kernel alone (on the preamble's output), the wrapper (with the
+            # torch preamble) and bf16 SDPA, the yardstick, in turns
             pre = ia.kernel_inputs(q, k, v, d ** -0.5, block_k, pv_int8)
-            ms = time_cuda(lambda: ia.launch(pre, pv_int8), iters)
-            del pre
-            wrapper_ms = time_cuda(lambda: ia.int8_flash_attention(q, k, v, pv_int8=pv_int8), iters)
-            plain_ms = time_cuda(lambda: int8_plain_chunked(ia, q, k, v, pv_int8, heads_per_chunk), 1, warmup=0)
             sdpa = torch.nn.functional.scaled_dot_product_attention
-            library_ms = time_cuda(lambda: sdpa(q, k, v), iters)
+            timed = dict(kernel=lambda: ia.launch(pre, pv_int8),
+                         wrapper=lambda: ia.int8_flash_attention(q, k, v, pv_int8=pv_int8),
+                         library=lambda: sdpa(q, k, v))
+            turns = {key: [] for key in timed}
+            for key in (tuple(timed) + tuple(timed)[::-1]) * 2:
+                turns[key].append(time_cuda(timed[key], iters))
+            del pre, timed
+            mean = {key: sum(t) / len(t) for key, t in turns.items()}
+            rng = {key: f"{min(t):.3f}-{max(t):.3f}" for key, t in turns.items()}
+            plain_ms = time_cuda(lambda: int8_plain_chunked(ia, q, k, v, pv_int8, heads_per_chunk), 1, warmup=0)
             bound_ms, bound_by, exp2_ms = int8_attention_bound(b, h, l, d, pv_int8, mufu_per_s)
             case = dict(name=name, mode=mode, shape=[b, h, l, d], block_k=block_k, a2_max=a2_max,
                         branch="anchored" if a2_max < 40 else "running_max", max_abs_err=err,
-                        ref_max_abs=scale, rel_err=err / scale, mutants=mutants, ms=ms, wrapper_ms=wrapper_ms,
-                        plain_ms=plain_ms,
-                        library_ms=library_ms, library="bf16 SDPA (the bf16 route's yardstick)",
+                        ref_max_abs=scale, rel_err=err / scale, mutants=mutants, ms=mean["kernel"],
+                        ms_turns=turns["kernel"], wrapper_ms=mean["wrapper"], wrapper_ms_turns=turns["wrapper"],
+                        plain_ms=plain_ms, library_ms=mean["library"], library_ms_turns=turns["library"],
+                        library="bf16 SDPA (the bf16 route's yardstick)",
                         bound_ms=bound_ms, bound_by=bound_by, exp2_ms=exp2_ms)
             cases.append(case)
             wrong = ", ".join(f"{n} {r:.2e}" for n, r in mutants.items())
             log(f"[int8] int8_flash_attention {mode} {name} {[b, h, l, d]} block_k={block_k} "
                 f"branch={case['branch']} a2_max={a2_max:.2f} err={err:.3e} = {err / scale:.3e} of max|ref| "
                 f"{scale:.3e} (tol {INT8_ATTN_RTOL}) wrong outputs (of max|ref|): {wrong} "
-                f"{'rejected' if caught else 'NOT REJECTED'} ms={ms:.3f} (with the torch preamble "
-                f"{wrapper_ms:.3f}) bound_ms={bound_ms:.3f} ({bound_by}; "
-                f"exp2 alone {exp2_ms:.3f}) plain_ms={plain_ms:.3f} bf16_sdpa_ms={library_ms:.3f} "
-                f"{'OK' if ok and caught else 'FAIL'}")
+                f"{'rejected' if caught else 'NOT REJECTED'}; in turns (ms, mean and range): kernel "
+                f"{mean['kernel']:.3f} ({rng['kernel']}), with the torch preamble {mean['wrapper']:.3f} "
+                f"({rng['wrapper']}), bf16 SDPA {mean['library']:.3f} ({rng['library']}); bound_ms={bound_ms:.3f} "
+                f"({bound_by}; exp2 alone {exp2_ms:.3f}) plain_ms={plain_ms:.3f} {'OK' if ok and caught else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"int8_flash_attention ({mode}) disagrees with its plain version at {name}")
             if not caught:
@@ -1290,8 +1364,8 @@ KERNEL_KINDS = [  # first match wins: int8_flash_fwd_kernel before flash_fwd_ker
     ("int8_flash_attention", ("int8_flash_fwd_kernel",)),
     ("ring_flash_fwd", ("ring_fwd_sm90_kernel",)),
     ("ring_flash_bwd_fused", ("ring_bwd_fused_kernel",)),
-    ("w8a8_fq_matmul", ("w8a8_fq_sm90_kernel",)),
-    ("w8a8_gemm", ("w8a8_gemm_kernel",)),
+    ("w8a8_fq_matmul", ("w8a8_sm90_kernel<false",)),  # the template's A_INT8 = false
+    ("w8a8_gemm", ("w8a8_sm90_kernel<true",)),
     ("flash_attention_fwd_sm90", ("flash_fwd_sm90_kernel",)),
     ("flash_attention_fwd", ("flash_fwd_kernel",)),
     ("flash_attention_bwd_fused", ("flash_bwd_fused_kernel",)),
@@ -1995,6 +2069,57 @@ def run_int8_path(device, overrides, steps: int, profile: bool = False, out_dir=
     return res
 
 
+def _kernel_name(mangled: str) -> str:
+    """The kernel's name and template arguments from its mangled name (the
+    length-prefixed identifier ending in "kernel", then Lb0/Lb1/Li<n>)."""
+    import re
+
+    for run in re.finditer(r"\d+", mangled):
+        for j in range(len(run.group())):
+            n = int(run.group()[j:])
+            name = mangled[run.end():run.end() + n]
+            if n and name.endswith("kernel") and re.fullmatch(r"[A-Za-z_]\w*", name):
+                rest = mangled[run.end() + n:]
+                args = re.match(r"I((?:L[bi]\d+E)+)E", rest)
+                if not args:
+                    return name
+                vals = [("true" if v == "1" else "false") if t == "b" else v
+                        for t, v in re.findall(r"L([bi])(\d+)E", args.group(1))]
+                return f"{name}<{', '.join(vals)}>"
+    return mangled
+
+
+def ptxas_report(report: str) -> list:
+    """Per kernel of one nvcc run: registers, spilled bytes and the wgmma
+    serialization diagnostics (C75xx) ptxas printed for it."""
+    import re
+
+    out, cur = [], None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = dict(kernel=_kernel_name(m.group(1)), registers=None, spill_stores=0, spill_loads=0,
+                       wgmma_serialized=[])
+            out.append(cur)
+            continue
+        if cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+        m = re.search(r"\b(C75\d\d)\b", line)
+        if m:  # the diagnostic names its function where ptxas gives one
+            named = re.search(r"'(_Z\w+)'", line)
+            owner = next((r for r in out if named and r["kernel"] == _kernel_name(named.group(1))), cur)
+            if owner is None:
+                owner = dict(kernel="(unnamed)", registers=None, spill_stores=0, spill_loads=0, wgmma_serialized=[])
+                out.append(owner)
+            owner["wgmma_serialized"].append(m.group(1))
+    return out
+
+
 def main(argv) -> int:
     out_dir = argv[argv.index("--out-dir") + 1] if "--out-dir" in argv else None
     if not torch.cuda.is_available():
@@ -2007,11 +2132,21 @@ def main(argv) -> int:
     from opensora_torch.ops import _build
 
     sources = ("flash_attention_fwd_sm90", "flash_attention_fwd", "flash_attention_bwd_sm90", "flash_attention_bwd",
-               "int8_matmul", "int8_matmul_sm90", "int8_flash_attention", "ring_flash_attention")
+               "int8_matmul_sm90", "int8_flash_attention", "ring_flash_attention")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         built = dict(zip(sources, pool.map(_build.build, sources)))
-    for name, (seconds, _) in built.items():
-        log(f"[build] {name}: {seconds:.1f} s (0.0: the library of this source was built before)")
+    ptxas = {}
+    for name, (seconds, report) in built.items():
+        ptxas[name] = ptxas_report(report)
+        regs = "; ".join(f"{r['kernel']}: {r['registers']} registers, {r['spill_stores']}/{r['spill_loads']} bytes "
+                         f"spilled (stores/loads){', ' + ' '.join(r['wgmma_serialized']) if r['wgmma_serialized'] else ''}"
+                         for r in ptxas[name])
+        log(f"[build] {name}: {seconds:.1f} s (0.0: the library of this source was built before); ptxas: "
+            f"{regs or 'no report (reused library)'}")
+    spilled = [f"{name}: {r['kernel']}" for name in ("int8_matmul_sm90", "int8_flash_attention")
+               for r in ptxas[name] if r["spill_stores"] or r["spill_loads"]]
+    if spilled:
+        raise AssertionError(f"the int8 wgmma kernels spill registers: {spilled}")
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "build_log.txt"), "w") as f:
@@ -2157,19 +2292,23 @@ def main(argv) -> int:
             cases=attn_bwd_d512["cases"],
         ))
     gemm_head = next(c for c in gemm["cases"] if c["name"] == GEMM_HEAD)
-    for name, line, also, runs, source in (
+    for name, line, also, runs, a_int8 in (
             ("w8a8_matmul", 31, "opensora_tpu/ops/quant.py:71-80 (the XLA int8 dot_general of w8a8)",
-             {"int8": int8_res, "int8_fq": fq_res}, "int8_matmul.cu"),
-            ("w8a8_fq_matmul", 51, None, {"int8_fq": fq_res}, "int8_matmul_sm90.cu")):
+             {"int8": int8_res, "int8_fq": fq_res}, "true"),
+            ("w8a8_fq_matmul", 51, None, {"int8_fq": fq_res}, "false")):
         head = gemm_head[name]
-        fq_extra = {}
+        extra = dict(ms_is="the kernel alone, the mean of 4 readings in turns with the other instantiation's, the "
+                     "fused-quant wrapper's and the library call's", ms_turns=head["ms_turns"],
+                     path_step_s=(fq_res if name == "w8a8_fq_matmul" else int8_res)["step_s"],
+                     path_step_is=f"the {'w8a8_fq / int8' if name == 'w8a8_fq_matmul' else 'w8a8 / int8_qk8'} "
+                     "denoise steps of phase 6",
+                     ptxas=[r for r in ptxas["int8_matmul_sm90"] if r["kernel"].startswith(f"w8a8_sm90_kernel<{a_int8}")])
         if name == "w8a8_fq_matmul":
-            fq_extra = dict(ms_is="the kernel alone, the mean of 4 readings in turns with w8a8_matmul's and the "
-                            "wrapper's", wrapper_ms=head["wrapper_ms"], ms_turns=head["ms_turns"],
-                            path_step_s=fq_res["step_s"],
-                            path_step_is="the w8a8_fq / int8 denoise step of phase 6")
+            extra["wrapper_ms"] = head["wrapper_ms"]
+        else:
+            extra["library_ms_turns"] = head["library_ms_turns"]
         kernels.append(dict(
-            name=name, route="cuda", source=f"opensora_torch/csrc/{source}", **fq_extra,
+            name=name, route="cuda", source="opensora_torch/csrc/int8_matmul_sm90.cu", **extra,
             replaces=f"opensora_tpu/ops/int8_matmul.py:{line}", also_replaces=also,
             launches=sum(r["launches"].get(name, 0) for r in runs.values()),
             launches_by_run={tag: r["launches"].get(name, 0) for tag, r in runs.items()},
@@ -2182,13 +2321,19 @@ def main(argv) -> int:
     for name, mode, res in (("int8_flash_attention", "qk8", int8_res), ("int8_flash_attention_pv8", "int8", fq_res)):
         mine = [c for c in int8_attn["cases"] if c["mode"] == mode]
         head = mine[0]  # the MMDiT shape, anchored: the path's case
+        pv = "true" if mode == "int8" else "false"
         kernels.append(dict(
             name=name, route="cuda", source="opensora_torch/csrc/int8_flash_attention.cu",
-            replaces="opensora_tpu/ops/int8_flash.py:144", also_replaces="opensora_tpu/ops/int8_flash.py:62",
+            replaces="opensora_tpu/ops/int8_flash.py:144",
+            also_replaces="opensora_tpu/ops/int8_flash.py:62 (the running-max loop) and :230 (the dispatch)",
             mode=mode, launches=res["launches"].get(name, 0),
             max_abs_err=max(c["max_abs_err"] for c in mine),
-            ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-            library_ms=head["library_ms"], library=head["library"], cases=mine,
+            ms=head["ms"], ms_is="the kernel alone on the preamble's output, the mean of 4 readings in turns with "
+            "the wrapper's and bf16 SDPA's", ms_turns=head["ms_turns"], wrapper_ms=head["wrapper_ms"],
+            plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            library_ms=head["library_ms"], library=head["library"],
+            ptxas=[r for r in ptxas["int8_flash_attention"] if r["kernel"].startswith(f"int8_flash_fwd_kernel<{pv}")],
+            cases=mine,
         ))
     for name, line in zip(RING_KERNELS, (70, 185)):
         mine = ring["cases"]
@@ -2211,6 +2356,8 @@ def main(argv) -> int:
                                "max_abs_err_is": "dq (after the dQ epilogue), dk and dv of the ring call"}),
             cases=mine,
         ))
+    for entry in kernels:  # every kernel with the ptxas lines of its source, where not narrowed above
+        entry.setdefault("ptxas", ptxas[os.path.basename(entry["source"])[:-len(".cu")]])
     log("[main] " + json.dumps(main_res))
     log("[ring] " + json.dumps(ring_res))
     log("[ring_train] " + json.dumps(ring_train_res))

@@ -15,9 +15,10 @@ Counterpart of opensora_tpu/ops/int8_flash.py, SageAttention-style:
 
 The quantization tile ``block_k`` is part of the function, so the default
 is the JAX package's own rule (:func:`default_block_k`, a copy of the bk
-rule of ``pick_blocks``). The kernel (``csrc/int8_flash_attention.cu``) has
-two instantiations, qk8 and pv_int8, with the launch counters
-``int8_flash_attention`` and ``int8_flash_attention_pv8``; each block
+rule of ``pick_blocks``). The kernel (``csrc/int8_flash_attention.cu``:
+TMA and int8 wgmma, a producer warpgroup and two consumers of 64 query
+rows) has two modes, qk8 and pv_int8, with the launch counters
+``int8_flash_attention`` and ``int8_flash_attention_pv8``; each CTA
 chooses the anchored or the running-max loop for its (b, h) from a device
 tensor, so no call syncs with the host.
 
@@ -40,12 +41,12 @@ SOURCE = "int8_flash_attention"
 KERNEL = "int8_flash_attention"  # the qk8 instantiation's launch counter
 KERNEL_PV8 = "int8_flash_attention_pv8"  # the pv_int8 instantiation's
 HEAD_DIM = 128
-COMPUTE_TILE = 64  # keys per kernel tile; block_k must be a multiple, or cover L
+COMPUTE_TILE = 64  # the kernel's smallest key tile; block_k must be a multiple, or cover L
 LOG2E = 1.4426950408889634
 NEG_INF = -1e30
 ANCHOR_MAX_LOG2 = 40.0
 # within each 16-key group, v8t position p holds key PERM_16[p]: the keys a
-# thread's score fragment holds, in the order of its int8 A fragment
+# thread's s32 score fragment holds, in the order of its s8 A fragment
 PERM_16 = [8 * ((p % 4) // 2) + 2 * (p // 4) + p % 2 for p in range(16)]
 
 _lib = None
@@ -210,10 +211,8 @@ def int8_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def kernel_inputs(q, k, v, sm_scale: float, block_k: int, pv_int8: bool) -> dict:
     """The preamble's output in the kernel's layouts: V8 transposed and
-    key-permuted (pv_int8), the compute tiles per quantization tile."""
+    key-permuted (pv_int8)."""
     pre = quantize_inputs(q, k, v, sm_scale, block_k, pv_int8)
-    n_tiles = -(-k.shape[2] // COMPUTE_TILE)
-    pre["tiles_per_qt"] = n_tiles if pre["nk"] == 1 else block_k // COMPUTE_TILE
     pre["vin"] = _v8_transposed(pre["v8"]) if pv_int8 else pre["v"].contiguous()
     return pre
 
@@ -225,13 +224,16 @@ def launch(pre: dict, pv_int8: bool) -> torch.Tensor:
     lk = pre["k8"].shape[2]
     vin = pre["vin"]
     sv = pre["sv"] if pv_int8 else pre["sq"]  # the kernel reads sv only in pv_int8 mode
+    for name, t in (("q8", pre["q8"]), ("k8", pre["k8"]), ("v", vin)):
+        if t.data_ptr() % 16 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned (the kernel's TMA tensor maps)")
     out = torch.empty((b, h, lq, d), dtype=torch.bfloat16, device=vin.device)
     lib = _kernel_lib()
     with torch.cuda.device(vin.device):
         err = lib.int8_flash_attention_fwd(
             pre["q8"].data_ptr(), pre["k8"].data_ptr(), vin.data_ptr(), pre["sq"].data_ptr(),
             pre["sk"].data_ptr(), sv.data_ptr(), pre["a2"].data_ptr(), out.data_ptr(),
-            b, h, lq, lk, vin.shape[-1] if pv_int8 else lk, pre["nk"], pre["tiles_per_qt"], int(pv_int8),
+            b, h, lq, lk, vin.shape[-1] if pv_int8 else lk, pre["nk"], pre["block_k"], int(pv_int8),
             torch.cuda.current_stream(vin.device).cuda_stream,
         )
     if err != 0:

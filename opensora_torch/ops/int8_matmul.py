@@ -1,16 +1,16 @@
 """W8A8 matrix products: the Hopper CUDA kernel, its wrappers and their
 plain PyTorch versions.
 
-Counterpart of opensora_tpu/ops/int8_matmul.py. Two kernels replace its
-two TPU kernels:
+Counterpart of opensora_tpu/ops/int8_matmul.py. One kernel source,
+``csrc/int8_matmul_sm90.cu`` (TMA and int8 wgmma, persistent CTAs),
+replaces its two TPU kernels with two instantiations of one main loop:
 
 - :func:`w8a8_matmul` (``_w8a8_kernel``): int8 activations with per-row
-  scales; ``csrc/int8_matmul.cu`` (mma.sync), launch counter
-  ``w8a8_matmul``;
+  scales, the int8 A tile read by the products through a shared-memory
+  descriptor; launch counter ``w8a8_matmul``;
 - :func:`w8a8_fusedquant_matmul` (``_w8a8_fq_kernel``): bf16 activations,
-  quantized inside the kernel against the per-row reciprocal computed here;
-  ``csrc/int8_matmul_sm90.cu`` (TMA and int8 wgmma, the quantize straight
-  into the A fragments), launch counter ``w8a8_fq_matmul``.
+  quantized inside the kernel against the per-row reciprocal computed here,
+  straight into the products' A fragments; launch counter ``w8a8_fq_matmul``.
 
 Both compute ``out[m, n] = (sum_k x8[m, k] * w[n, k]) * s_a[m] * s_w[n]``
 with the int32 sum kept in registers. The weight is (N, K) int8, as torch
@@ -30,29 +30,27 @@ import torch
 
 from opensora_torch.ops import _build
 
-SOURCE = "int8_matmul"
-SOURCE_FQ = "int8_matmul_sm90"
+SOURCE = "int8_matmul_sm90"
 KERNEL = "w8a8_matmul"
 KERNEL_FQ = "w8a8_fq_matmul"
-K_TILE = 64  # the kernels' K step: K must be a multiple of it
+K_TILE = 64  # the kernel's K step: K must be a multiple of it
 
-_libs = {}
+_lib = None
 
 
-def _kernel_lib(source: str):
-    """The library of ``source`` with its entry point and error string typed."""
-    lib = _libs.get(source)
-    if lib is None:
-        lib = _build.load(source)
+def _kernel_lib():
+    """The kernel library with its two entry points and error string typed."""
+    global _lib
+    if _lib is None:
+        lib = _build.load(SOURCE)
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn = lib.w8a8_matmul if source == SOURCE else lib.w8a8_fq_matmul
-        fn.argtypes = [vp] * (5 if source == SOURCE else 6) + [i] * 4 + [vp]
-        fn.restype = ctypes.c_int
-        err = getattr(lib, f"{source}_error_string")
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        _libs[source] = lib
-    return lib
+        lib.w8a8_matmul.argtypes = [vp] * 5 + [i] * 4 + [vp]
+        lib.w8a8_fq_matmul.argtypes = [vp] * 6 + [i] * 4 + [vp]
+        lib.w8a8_matmul.restype = lib.w8a8_fq_matmul.restype = ctypes.c_int
+        lib.int8_matmul_sm90_error_string.argtypes = [ctypes.c_int]
+        lib.int8_matmul_sm90_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
 
 
 def act_scale(x: torch.Tensor) -> torch.Tensor:
@@ -110,21 +108,23 @@ def _check(x, w, s_w, x_dtype, out_dtype):
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if x.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("x and w must be 16-byte aligned (the kernels copy 16-byte chunks or tiles by TMA)")
+    for name, t in (("x", x), ("w", w)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel loads its tiles through TMA tensor maps)")
 
 
-def _launch(source, fn_name, counter, ptrs, x, w, out):
-    lib = _kernel_lib(source)
+def _launch(kernel, ptrs, x, w, out):
+    """Launches entry point KERNEL (also its launch counter's name)."""
+    lib = _kernel_lib()
     with torch.cuda.device(x.device):
-        err = getattr(lib, fn_name)(
+        err = getattr(lib, kernel)(
             *ptrs, out.data_ptr(), x.shape[0], w.shape[0], x.shape[1], int(out.dtype == torch.float32),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
-        msg = getattr(lib, f"{source}_error_string")(err).decode()
-        raise RuntimeError(f"{fn_name} launch failed: {msg} ({err})")
-    _build.LAUNCHES[counter] += 1
+        msg = lib.int8_matmul_sm90_error_string(err).decode()
+        raise RuntimeError(f"{kernel} launch failed: {msg} ({err})")
+    _build.LAUNCHES[kernel] += 1
     return out
 
 
@@ -147,7 +147,7 @@ def w8a8_matmul(x8: torch.Tensor, w: torch.Tensor, s_a: torch.Tensor, s_w: torch
     if s_a.shape != (x8.shape[0],) or s_a.dtype != torch.float32 or not s_a.is_contiguous():
         raise ValueError(f"s_a must be {x8.shape[0]} contiguous fp32 row scales, got {tuple(s_a.shape)}")
     out = torch.empty((x8.shape[0], w.shape[0]), dtype=out_dtype, device=x8.device)
-    return _launch(SOURCE, "w8a8_matmul", KERNEL, [x8.data_ptr(), w.data_ptr(), s_a.data_ptr(), s_w.data_ptr()],
+    return _launch(KERNEL, [x8.data_ptr(), w.data_ptr(), s_a.data_ptr(), s_w.data_ptr()],
                    x8, w, out)
 
 
@@ -166,5 +166,4 @@ def fq_kernel(x, w, s_w, s_a, inv, out_dtype=torch.bfloat16) -> torch.Tensor:
     """The fused-quant kernel alone, given the row scales and reciprocals
     of :func:`fq_inputs` (checked inputs on the card)."""
     out = torch.empty((x.shape[0], w.shape[0]), dtype=out_dtype, device=x.device)
-    return _launch(SOURCE_FQ, "w8a8_fq_matmul", KERNEL_FQ,
-                   [x.data_ptr(), w.data_ptr(), inv.data_ptr(), s_a.data_ptr(), s_w.data_ptr()], x, w, out)
+    return _launch(KERNEL_FQ, [x.data_ptr(), w.data_ptr(), inv.data_ptr(), s_a.data_ptr(), s_w.data_ptr()], x, w, out)

@@ -352,7 +352,7 @@ def test_fused_backward_raises_on_cuda_inputs_it_does_not_take():
 
 
 # ----------------------------------------------------------------------
-# W8A8 GEMM (csrc/int8_matmul.cu)
+# W8A8 GEMM (csrc/int8_matmul_sm90.cu)
 # ----------------------------------------------------------------------
 
 from opensora_torch.ops import int8_flash as tint8  # noqa: E402
@@ -397,7 +397,11 @@ def test_w8a8_kernel_input_checks(bad, match):
 
 # The kernel's integer sums are exact and its fp32 epilogue runs in the
 # plain version's order: at fp32 output the two agree in every element.
-GEMM_CASES = [(300, 512, 1024), (3, 384, 3072), (1000, 200, 640)]
+# (1000, 200, 3072) and (3, 18432, 3072) are chip_smoke.py's m_and_n_tails
+# and modulation shapes; (520, 300, 448) has an N no multiple of 8 and a K
+# loop of 7 steps, more than the int8 instantiation's 6 stages.
+GEMM_CASES = [(300, 512, 1024), (3, 384, 3072), (1000, 200, 640), (1000, 200, 3072), (3, 18432, 3072),
+              (520, 300, 448)]
 
 
 @pytest.mark.cuda
@@ -502,8 +506,13 @@ INT8_ATTN_RTOL = 8e-3
     ((2, 3, 1000, 128), 1.0, 512),
     ((2, 3, 1000, 128), 4.0, 512),
     ((1, 2, 300, 128), 1.0, None),
+    ((2, 3, 1000, 128), 1.0, 64),
+    ((2, 3, 1000, 128), 4.0, 192),
+    ((1, 2, 4000, 128), 1.0, 1536),
 ])
 def test_int8_attention_kernel_matches_plain_on_cuda(pv_int8, shape, scale, block_k):
+    """block_k 512, 1536 and a whole L = 300 run 128-key compute tiles; 64
+    and 192 (no multiple of 128) run 64-key ones."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     gen = torch.Generator(device="cuda").manual_seed(3)
