@@ -8,8 +8,9 @@ Phases, one line each; any failure exits non-zero:
   2. hold each kernel against its plain PyTorch version at the shapes the
      main paths give it -- the flash-attention forward (D = 128: the
      warp-specialised wgmma/TMA kernel flash_attention_fwd_sm90, both
-     loops; D = 512: the mma.sync kernel), and (phase 2b) the D = 128
-     backward: the fused wgmma/TMA kernel and its dQ epilogue kernel --
+     loops; D = 512: the wgmma/TMA kernel flash_attention_fwd_d512, both
+     loops), and (phase 2b) the D = 128 backward: the fused wgmma/TMA
+     kernel and its dQ epilogue kernel --
      show that the limits reject known-wrong outputs, and time kernel,
      plain version, the PyTorch library call that computes the same
      function, and the card's bound;
@@ -39,8 +40,8 @@ Phases, one line each; any failure exits non-zero:
      training CLI's per-batch body (opensora_torch.train_vae.VAETrainer.
      run_batch) for 3 steps on seeded 33-frame 256x256 batches of 1, and
      check finite losses, that the AE and the discriminator move, the exact
-     launch counts of the flash forward and both D = 512 backward kernels,
-     and peak memory;
+     launch counts of the D = 512 flash forward, backward and dQ epilogue
+     kernels, and peak memory;
   8. drive DC-AE training -- video_dc_ae_disc.py as it is (dc-ae-f32t4c128,
      full width) -- through the same body for 2 steps on 32-frame 256x256
      batches of 1: finite losses, moving parameters, no kernel launched.
@@ -58,8 +59,8 @@ skipped, and in the int8 mode V's mean not added, v8t not key-permuted and
 p_scale from the neighbouring quantization tile) and timings in turns (the
 two GEMMs, the fused-quant wrapper and torch._int_mm + rescale; each
 attention mode's kernel, its wrapper and bf16 SDPA); phase 1 prints every
-kernel's ptxas registers and spills, and fails if an int8 wgmma kernel
-spills; phase 3b checks the full-width int8 model on a small input against
+kernel's ptxas registers and spills, and fails if any kernel spills;
+phase 3b checks the full-width int8 model on a small input against
 the CPU's plain int8 path; phase 6 logs the w8a8_fq step time.
 Phase 2b holds the fused D = 128 backward (flash_attention_bwd_fused +
 flash_attention_bwd_dq_convert) against the plain backward at the MMDiT
@@ -69,16 +70,23 @@ missing from dK, the tail tile skipped, one 128-key block's dQ
 contribution dropped or added twice, dK/dV from the neighbouring query
 tile's dO) and times of the kernel, the epilogue and the whole
 partial_flash_backward call.
-Phase 2d holds the D = 512 backward kernels against the plain backward at
-the VAE mid-block's shape (1, 1, 9216, 512), causal_block 1024, and at a
-tail (L = 1000, causal_block 96), with known-wrong gradients and timings;
+Phase 2d holds the D = 512 backward (flash_attention_bwd_d512, its dV CTAs
+and dK / dQ CTAs in one launch, + flash_attention_bwd_d512_dq_convert)
+against the plain backward at the VAE mid-block's shape (1, 1, 9216, 512),
+causal_block 1024, at a tail (L = 1000, causal_block 96) and bidirectional
+with Lq != Lk, with known-wrong gradients (among them one consumer's
+columns from the other's, dV from the previous query tile's P and one
+64-key block's dQ adds dropped) and timings;
 phase 3c checks one full-width VAE train step on a small clip, card
 against the CPU's fp32 plain step.
 Phase 2 holds the D = 128 forward to known-wrong outputs aimed at its
 design too: one consumer's 64 rows taken from the other consumer's, the
 last 128-key tile dropped, and (on a case whose bound A is far above 40)
-a running-max head given the anchored loop. Every phase-2 case times the
-wrapper and SDPA in turns and logs both ranges.
+a running-max head given the anchored loop; and the D = 512 forward to
+its own: one consumer's 256 columns taken from the other's, P V with the
+previous key tile's P, the row maxima or the row sums not exchanged
+between the consumers. Every phase-2 case times the wrapper and SDPA in
+turns and logs both ranges.
 Phase 2e holds the ring kernels (ring_flash_fwd -- the D = 128 forward's
 wgmma/TMA main loop from and to the rank's state -- and the backward hop
 ring_flash_bwd_fused -- the fused D = 128 backward's main loop at the hop's
@@ -221,12 +229,13 @@ def visible_pairs(lq: int, lk: int, causal_block) -> int:
     return total
 
 
-def attention_bound(b, h, l, d, causal_block):
+def attention_bound(b, h, l, d, causal_block, lk=None):
     """(least ms on the card, "operations" or "bytes"): the two products over
     the visible pairs at the bf16 peak, or q, k, v read and out, lse written
     once at the memory rate, whichever is longer."""
-    flops_s = 4.0 * b * h * d * visible_pairs(l, l, causal_block) / PEAK_BF16_FLOPS
-    bytes_s = (2.0 * b * h * d * 4 * l + 4.0 * b * h * l) / PEAK_BYTES
+    lk = l if lk is None else lk
+    flops_s = 4.0 * b * h * d * visible_pairs(l, lk, causal_block) / PEAK_BF16_FLOPS
+    bytes_s = (2.0 * b * h * d * (2 * l + 2 * lk) + 4.0 * b * h * l) / PEAK_BYTES
     return 1e3 * max(flops_s, bytes_s), ("operations" if flops_s >= bytes_s else "bytes")
 
 
@@ -265,10 +274,11 @@ def mutant_readings(fa, q, k, v, causal_block, heads_per_chunk, ref_out, ref_lse
     """What the check reads for outputs a faulty kernel could give, as
     (out error / max|ref|, LSE error) against the plain version: V read one
     64-row tile off; the last 64 keys (the tail) skipped; for D = 512, the
-    output's 128-column slices of the D split swapped. For D = 128 (the
-    wgmma/TMA kernel): one consumer's 64 rows taken from the other's (each
-    128-row CTA's rows 64..127 a copy of rows 0..63), the last 128-key tile
-    dropped and, with ``anchored_mutant`` (a case whose bound A lies far
+    output's 128-column slices swapped (the fault of the split kernel it
+    replaced) and the faults of its design (d512_fwd_mutants). For D = 128
+    (the wgmma/TMA kernel): one consumer's 64 rows taken from the other's
+    (each 128-row CTA's rows 64..127 a copy of rows 0..63), the last 128-key
+    tile dropped and, with ``anchored_mutant`` (a case whose bound A lies far
     above 40), every head given the anchored loop: it differs from the
     running max only where exp2(s c - A) flushes to zero (s c - A < -126),
     which on these random inputs needs a bound far above 40, so that fault
@@ -287,6 +297,12 @@ def mutant_readings(fa, q, k, v, causal_block, heads_per_chunk, ref_out, ref_lse
     }
     if q.shape[-1] > 128:
         res["d_slice_swapped"] = reading(ref_out.roll(128, dims=-1), ref_lse)
+        res["consumer_columns_from_other_consumer"] = reading(
+            torch.cat([ref_out[..., :256], ref_out[..., :256]], -1), ref_lse)
+        running = causal_block is not None or bool((fa.anchor_log2(q, k, q.shape[-1] ** -0.5) >= 40).any())
+        for fault in D512_FWD_FAULTS:
+            if fault != "row_max_not_exchanged" or running:  # that fault needs a running-max (b, h)
+                res[fault] = reading(*d512_fwd_mutant(fa, q, k, v, causal_block, fault))
     else:
         lq = q.shape[2]
         swap_out, swap_lse = ref_out.clone(), ref_lse.clone()
@@ -305,17 +321,93 @@ def mutant_readings(fa, q, k, v, causal_block, heads_per_chunk, ref_out, ref_lse
     return res
 
 
+# The D = 512 forward's design faults that d512_fwd_mutant emulates: P V
+# with the previous 64-key tile's P (the P buffers' order broken); each
+# consumer's P and rescale from its own 32 keys' row maxima (the maxima not
+# exchanged: a fault of the running-max loop only, read on the cases with a
+# running-max (b, h)); each consumer dividing by its own keys' share of the
+# row sum (the sums not exchanged).
+D512_FWD_FAULTS = ("p_of_previous_key_tile", "row_max_not_exchanged", "row_sum_not_exchanged")
+
+
+def d512_fwd_mutant(fa, q, k, v, causal_block, fault, block=64):
+    """(out, lse) fp32 of the D = 512 forward's order of work with one of
+    D512_FWD_FAULTS (None: no fault), on q's device: all rows of a (b, h)
+    at once against 64-key tiles, consumer w computing S for keys 32 w ..
+    32 w + 31 of a tile and holding O[:, 256 w ..], each (b, h) in the loop
+    its bound A picks."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    sm = 1.0 / math.sqrt(d)
+    c = sm * fa.LOG2E
+    anchor = fa.anchor_log2(q, k, sm) if causal_block is None else None
+    out = torch.empty(b, h, lq, d, device=q.device)
+    lse = torch.empty(b, h, lq, device=q.device)
+    rows = torch.arange(lq, device=q.device)
+    for bi in range(b):
+        for hi in range(h):
+            anchored = anchor is not None and float(anchor[bi, hi]) < 40.0
+            a2 = float(anchor[bi, hi]) if anchored else 0.0
+            qf, kf, vf = q[bi, hi].float(), k[bi, hi].float(), v[bi, hi].float()
+            m = [torch.full((lq,), fa.NEG_INF, device=q.device) for _ in range(2)]
+            l = [torch.zeros(lq, device=q.device) for _ in range(2)]
+            o = [torch.zeros(lq, d // 2, device=q.device) for _ in range(2)]
+            p_prev = torch.zeros(lq, block, device=q.device)
+            for n0 in range(0, lk, block):
+                keys = torch.arange(n0, n0 + block, device=q.device)
+                s = qf @ torch.nn.functional.pad(kf[n0:n0 + block], (0, 0, 0, n0 + block - min(lk, n0 + block))).T
+                ok = (keys < lk)[None, :].expand(lq, -1)
+                if causal_block is not None:
+                    ok = ok & (keys[None, :] // causal_block <= rows[:, None] // causal_block)
+                s = torch.where(ok, s, torch.full_like(s, -math.inf))
+                halves = (s[:, :32], s[:, 32:])
+                if anchored:
+                    ps = [torch.exp2(x * c - a2) for x in halves]
+                    corr = [None, None]
+                else:
+                    mx = [x.amax(-1) for x in halves]
+                    if fault != "row_max_not_exchanged":
+                        mx = [torch.maximum(mx[0], mx[1])] * 2
+                    m_new = [torch.maximum(m[w], mx[w] * c) for w in range(2)]
+                    m_safe = [torch.where(x <= fa.NEG_INF * 0.5, torch.zeros_like(x), x) for x in m_new]
+                    corr = [torch.exp2(m[w] - m_safe[w]) for w in range(2)]
+                    ps = [torch.exp2(halves[w] * c - m_safe[w][:, None]) for w in range(2)]
+                    m = m_new
+                p = torch.cat(ps, -1)
+                p_used = p_prev if fault == "p_of_previous_key_tile" else p
+                vt = torch.nn.functional.pad(vf[n0:n0 + block], (0, 0, 0, n0 + block - min(lk, n0 + block)))
+                for w in range(2):
+                    if corr[w] is not None:
+                        l[w], o[w] = l[w] * corr[w], o[w] * corr[w][:, None]
+                    l[w] = l[w] + ps[w].sum(-1)
+                    o[w] = o[w] + p_used.to(torch.bfloat16).float() @ vt[:, 256 * w:256 * (w + 1)]
+                p_prev = p
+            total = l[0] + l[1]
+            for w in range(2):
+                lw = l[w] if fault == "row_sum_not_exchanged" else total
+                out[bi, hi, :, 256 * w:256 * (w + 1)] = o[w] / torch.where(lw == 0, torch.ones_like(lw), lw)[:, None]
+            l0 = l[0] if fault == "row_sum_not_exchanged" else total
+            m0 = torch.full_like(m[0], a2) if anchored else m[0]
+            lse[bi, hi] = m0 * math.log(2.0) + torch.log(torch.where(l0 == 0, torch.ones_like(l0), l0))
+    return out, lse
+
+
 ATTENTION_CASES = [
-    # name, (B, H, L, D), causal_block, q scale
+    # name, (B, H, L, D), causal_block, q scale[, Lk]
     ("mmdit_joint_anchored", (3, 24, 8828, 128), None, 1.0),
     ("mmdit_joint_running_max", (3, 24, 8828, 128), None, 3.0),
     ("vae_mid_tile_24x32", (1, 1, 33 * 768, 512), 768, 1.0),
     ("vae_mid_tile_24x18", (1, 1, 33 * 432, 512), 432, 1.0),
     ("vae_train_mid_33x256x256", (1, 1, 9216, 512), 1024, 1.0),  # phase 7's mid-blocks (latent 9 x 32 x 32)
+    # the 768px decode's full spatial tile (latent 33 x 32 x 32 of 96 x 170, tile 32, stride 24)
+    ("vae_mid_tile_768px", (1, 1, 33 * 1024, 512), 1024, 1.0),
     ("tail_bidirectional", (2, 3, 1000, 128), None, 1.0),
     ("tail_running_max_wide", (2, 3, 1000, 128), None, 8.0),  # A ~ 200: the anchored loop would underflow
     ("tail_frame_causal_d128", (1, 2, 1000, 128), 96, 1.0),
     ("tail_frame_causal", (1, 2, 1000, 512), 96, 1.0),
+    ("bidirectional_d512_anchored", (2, 2, 1000, 512), None, 0.5),  # A ~ 20 (at q scale 1 A ~ 40)
+    ("bidirectional_d512_running_max", (2, 2, 1000, 512), None, 4.0),  # A >= 40
+    ("lq_ne_lk_d512", (1, 2, 700, 512), None, 1.0, 1000),
 ]
 WIDE_ANCHOR = "tail_running_max_wide"
 
@@ -325,18 +417,18 @@ def check_attention(device, attention_cases=ATTENTION_CASES) -> dict:
 
     gen = torch.Generator(device=device).manual_seed(0)
     cases = []
-    for name, (b, h, l, d), cb, qscale in attention_cases:
-        shape = (b, h, l, d)
+    for name, (b, h, l, d), cb, qscale, *lk in attention_cases:
+        shape, kshape = (b, h, l, d), (b, h, lk[0] if lk else l, d)
         q = (torch.randn(shape, generator=gen, device=device) * qscale).to(torch.bfloat16)
-        k = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
-        v = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+        k = torch.randn(kshape, generator=gen, device=device).to(torch.bfloat16)
+        v = torch.randn(kshape, generator=gen, device=device).to(torch.bfloat16)
         sm_scale = 1.0 / math.sqrt(d)
         anchor = None
         if cb is None:
             anchor = float(fa.anchor_log2(q, k, sm_scale).max())
         out, lse = fa.flash_attention_with_lse(q, k, v, causal_block=cb)
         torch.cuda.synchronize()
-        heads_per_chunk = max(1, (1 << 30) // (l * l * 4 * b))
+        heads_per_chunk = max(1, (1 << 30) // (l * kshape[2] * 4 * b))
         ref_out, ref_lse = plain_chunked(fa, q, k, v, cb, heads_per_chunk)
         ref_scale = ref_out.abs().max().item()
         err_out = (out.float() - ref_out).abs().max().item()
@@ -347,7 +439,7 @@ def check_attention(device, attention_cases=ATTENTION_CASES) -> dict:
         caught = all(r_out > OUT_RTOL or r_lse > LSE_TOL for r_out, r_lse in mutants.values())
         del ref_out, ref_lse
 
-        big = l * l * b * h > 1e8
+        big = l * kshape[2] * b * h > 1e8
         iters = 5 if big else 20
         mask = None
         if cb is not None:
@@ -368,20 +460,20 @@ def check_attention(device, attention_cases=ATTENTION_CASES) -> dict:
         plain_ms = time_cuda(
             lambda: plain_chunked(fa, q, k, v, cb, heads_per_chunk), 1 if big else 3, warmup=0
         )
-        bound_ms, bound_by = attention_bound(b, h, l, d, cb)
+        bound_ms, bound_by = attention_bound(b, h, l, d, cb, kshape[2])
         case = dict(
-            name=name, shape=list(shape), causal_block=cb, anchor_max=anchor,
+            name=name, shape=list(shape), lk=kshape[2], causal_block=cb, anchor_max=anchor,
             branch=("running_max" if cb is not None or not anchor < 40 else "anchored"),
             max_abs_err=err_out, ref_max_abs=ref_scale, rel_err=err_out / ref_scale,
             lse_max_abs_err=err_lse, mutants=mutants, ms=ms, plain_ms=plain_ms,
             library_ms=library_ms, ms_turns=turns["ms"], library_ms_turns=turns["library_ms"],
             anchor_ms=anchor_ms, bound_ms=bound_ms, bound_by=bound_by,
-            kernel=fa.KERNEL_FWD_SM90 if d == fa.FWD_SM90_HEAD_DIM else fa.KERNEL,
+            kernel=fa.KERNEL_FWD_SM90 if d == fa.FWD_SM90_HEAD_DIM else fa.KERNEL_FWD_D512,
         )
         cases.append(case)
         wrong = ", ".join(f"{n} ({ro:.2e}, {rl:.2e})" for n, (ro, rl) in mutants.items())
         log(
-            f"[kernels] {case['kernel']} {name} {shape} cb={cb} branch={case['branch']} "
+            f"[kernels] {case['kernel']} {name} {shape} lk={kshape[2]} cb={cb} branch={case['branch']} "
             f"A_max={anchor} out_err={err_out:.3e} = {err_out / ref_scale:.3e} of max|ref| {ref_scale:.3e} "
             f"(tol {OUT_RTOL}) lse_err={err_lse:.3e} (tol {LSE_TOL}) "
             f"wrong outputs (out/max|ref|, lse): {wrong} "
@@ -403,38 +495,36 @@ def check_attention(device, attention_cases=ATTENTION_CASES) -> dict:
 # phase 2b: flash-attention backward at the path's shapes
 # ----------------------------------------------------------------------
 
-# products of 2 * B * H * D * visible pairs flops each: dkv recomputes S and
-# computes dV, dP, dK; dq recomputes S and dP and computes dQ; the fused
-# kernel (D = 128) computes the minimal backward's 5 (S, dV, dP, dK, dQ)
-BWD_PRODUCTS = {"flash_attention_bwd_dkv": 4, "flash_attention_bwd_dq": 3, "flash_attention_bwd_fused": 5,
-                "minimal": 5}
+# products of 2 * B * H * D * visible pairs flops each: the fused kernel (D
+# = 128) computes the minimal backward's 5 (S, dV, dP, dK, dQ); the D = 512
+# kernel 6 (its dV CTAs S and dV, its dK / dQ CTAs S, dP, dK and dQ). The
+# report's bound_ms of either is the minimal backward's: the work the
+# function needs, whatever the kernel's design adds
+BWD_PRODUCTS = {"flash_attention_bwd_fused": 5, "flash_attention_bwd_d512": 6, "minimal": 5}
 
 
-def dq_accum_rows(l: int) -> int:
-    """Rows of the fused kernel's dq_accum: L padded to its query tile."""
-    from opensora_torch.ops.flash_attention import FUSED_BLOCK_M
-
-    return -(-l // FUSED_BLOCK_M) * FUSED_BLOCK_M
-
-
-def bwd_bound(kernel, b, h, l, d, causal_block):
+def bwd_bound(kernel, b, h, l, d, causal_block, lk=None):
     """(least ms on the card, "operations" or "bytes") for one backward
     kernel (or the minimal backward): its products at the bf16 peak, or its
     inputs read and outputs written once at the memory rate (q, k, v, dO,
-    LSE and delta in; its gradients out, bf16, and for the fused kernel the
-    fp32 dq_accum)."""
-    flops = BWD_PRODUCTS[kernel] * 2.0 * b * h * d * visible_pairs(l, l, causal_block)
-    out_bytes = {"flash_attention_bwd_dkv": 2 * 2 * l, "flash_attention_bwd_dq": 2 * l, "minimal": 3 * 2 * l,
-                 "flash_attention_bwd_fused": 2 * 2 * l + 4 * dq_accum_rows(l)}[kernel]
-    nbytes = b * h * d * (4 * 2.0 * l + out_bytes) + 2 * 4.0 * b * h * l
+    LSE and delta in; its gradients out, bf16, and for a kernel the fp32
+    dq_accum in place of dq)."""
+    from opensora_torch.ops.flash_attention import dq_accum_rows
+
+    lk = l if lk is None else lk
+    flops = BWD_PRODUCTS[kernel] * 2.0 * b * h * d * visible_pairs(l, lk, causal_block)
+    out_bytes = 2 * (l + 2 * lk) if kernel == "minimal" else 2 * 2 * lk + 4 * dq_accum_rows(l, d)
+    nbytes = b * h * d * (2.0 * (2 * l + 2 * lk) + out_bytes) + 2 * 4.0 * b * h * l
     flops_s, bytes_s = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     return 1e3 * max(flops_s, bytes_s), ("operations" if flops_s >= bytes_s else "bytes")
 
 
 def dq_convert_bound(b, h, l, d):
-    """(least ms, "bytes") of the dQ epilogue: dq_accum (fp32) read and dq
+    """(least ms, "bytes") of a dQ epilogue: dq_accum (fp32) read and dq
     (bf16) written once at the memory rate; one multiply an element."""
-    return 1e3 * b * h * d * (4.0 * dq_accum_rows(l) + 2.0 * l) / PEAK_BYTES, "bytes"
+    from opensora_torch.ops.flash_attention import dq_accum_rows
+
+    return 1e3 * b * h * d * (4.0 * dq_accum_rows(l, d) + 2.0 * l) / PEAK_BYTES, "bytes"
 
 
 def plain_bwd_chunked(fa, q, k, v, do, lse, delta, causal_block, heads_per_chunk):
@@ -451,42 +541,47 @@ def bwd_mutant_readings(fa, q, k, v, do, lse, delta, causal_block, heads_per_chu
     """What the check reads (worst of dq, dk, dv as max|err| / max|ref|)
     for gradients a faulty backward could give: delta left out of dS;
     sm_scale missing from dK; the last 64-row tile of queries and keys
-    skipped (its rows of the gradients left at 0); for D = 128 (the fused
-    kernel), one 128-key block's dQ contribution dropped or added twice, and
-    dK, dV computed with the neighbouring 64-row query tile's dO; for D =
-    512, the first two 128-column slices of the D split swapped, and the
-    last one skipped."""
+    skipped (its rows of the gradients left at 0); one key block's dQ
+    contribution dropped (128 keys for D = 128, 64 for D = 512); for D =
+    128 (the fused kernel), that block's contribution added twice, and dK,
+    dV computed with the neighbouring 64-row query tile's dO; for D = 512,
+    the first two 128-column slices swapped and the last one skipped (the
+    faults of the split kernels it replaced), one consumer's 256 columns of
+    every gradient taken from the other's, and dV with the previous 64-row
+    query tile's P (the dV CTAs' P buffers out of order)."""
     scales = [r.abs().max().item() for r in ref]
 
     def reading(grads):
         return max((g - r).abs().max().item() / sc for g, r, sc in zip(grads, ref, scales))
 
-    l = q.shape[2]
-    keep = l - (l % 64 or 64)
-    cut = plain_bwd_chunked(fa, q[:, :, :keep], k[:, :, :keep], v[:, :, :keep], do[:, :, :keep],
-                            lse[:, :, :keep].contiguous(), delta[:, :, :keep].contiguous(), causal_block,
+    lq, lk = q.shape[2], k.shape[2]
+    keep_q, keep_k = lq - (lq % 64 or 64), lk - (lk % 64 or 64)
+    cut = plain_bwd_chunked(fa, q[:, :, :keep_q], k[:, :, :keep_k], v[:, :, :keep_k], do[:, :, :keep_q],
+                            lse[:, :, :keep_q].contiguous(), delta[:, :, :keep_q].contiguous(), causal_block,
                             heads_per_chunk)
-    pad = [torch.nn.functional.pad(g, (0, 0, 0, l - keep)) for g in cut]
+    pad = [torch.nn.functional.pad(g, (0, 0, 0, n - g.shape[2])) for g, n in zip(cut, (lq, lk, lk))]
     res = {
         "delta_left_out": reading(plain_bwd_chunked(fa, q, k, v, do, lse, torch.zeros_like(delta), causal_block,
                                                     heads_per_chunk)),
         "dk_without_sm_scale": reading((ref[0], ref[1] * math.sqrt(q.shape[-1]), ref[2])),
         "tail_tile_skipped": reading(pad),
     }
-    if q.shape[-1] == 128:  # the fused kernel: one key block's dQ reduce-add lost or doubled, a tile's dO misread
-        # Zeroing that block's keys zeroes its terms dS K of dQ and leaves the
-        # others (P comes from the external LSE).
-        n0 = 128 if k.shape[2] > 256 else 0
-        k_cut = k.clone()
-        k_cut[:, :, n0:n0 + 128] = 0
-        dq_rest = plain_bwd_chunked(fa, q, k_cut, v, do, lse, delta, causal_block, heads_per_chunk)[0]
-        del k_cut
-        res["dq_key_block_dropped"] = reading((dq_rest, ref[1], ref[2]))
+    # Zeroing a key block's keys zeroes its terms dS K of dQ and leaves the
+    # others (P comes from the external LSE).
+    block = 128 if q.shape[-1] == 128 else 64
+    n0 = block if lk > 2 * block else 0
+    k_cut = k.clone()
+    k_cut[:, :, n0:n0 + block] = 0
+    dq_rest = plain_bwd_chunked(fa, q, k_cut, v, do, lse, delta, causal_block, heads_per_chunk)[0]
+    del k_cut
+    res["dq_key_block_dropped"] = reading((dq_rest, ref[1], ref[2]))
+    if q.shape[-1] == 128:  # the fused kernel: a key block's dQ reduce-add doubled, a tile's dO misread
         res["dq_key_block_added_twice"] = reading((2 * ref[0] - dq_rest, ref[1], ref[2]))
         del dq_rest
         _, dk_n, dv_n = plain_bwd_chunked(fa, q, k, v, do.roll(64, dims=2), lse, delta, causal_block, heads_per_chunk)
         res["dkv_from_neighbour_do_tile"] = reading((ref[0], dk_n, dv_n))
-    if q.shape[-1] > 128:  # the D split over blocks: one block's 128 columns swapped or never written
+    else:
+        del dq_rest
 
         def swapped(g):
             return torch.cat([g[..., 128:256], g[..., :128], g[..., 256:]], dim=-1)
@@ -494,7 +589,37 @@ def bwd_mutant_readings(fa, q, k, v, do, lse, delta, causal_block, heads_per_chu
         res["d_slices_0_1_swapped"] = reading([swapped(g) for g in ref])
         res["d_slice_3_skipped"] = reading([torch.cat([g[..., :384], torch.zeros_like(g[..., 384:])], -1)
                                             for g in ref])
+        res["consumer_columns_from_other_consumer"] = reading([torch.cat([g[..., :256], g[..., :256]], -1)
+                                                               for g in ref])
+        res["dv_from_previous_query_tile_p"] = reading(
+            (ref[0], ref[1], dv_previous_tile_p(fa, q, k, do, lse, causal_block, heads_per_chunk)))
     return res
+
+
+def dv_previous_tile_p(fa, q, k, do, lse, causal_block, heads_per_chunk, tile=64):
+    """dV = sum over query tiles t of P_{t-1}^T dO_t (P rounded to bf16 as
+    the kernel rounds it; the first tile takes P = 0), fp32: what the D = 512
+    kernel's dV CTAs give with their P buffers out of order. Under the
+    causal mask a key block's first query tile follows rows whose P is 0 for
+    its keys, so shifting P by one tile over all rows is that fault."""
+    sm = 1.0 / math.sqrt(q.shape[-1])
+    parts = []
+    for h0 in range(0, q.shape[1], heads_per_chunk):
+        sl = slice(h0, h0 + heads_per_chunk)
+        s = torch.einsum("bhqd,bhkd->bhqk", q[:, sl].float(), k[:, sl].float())
+        lse_c = lse[:, sl].float()
+        lse2 = torch.where(lse_c <= fa.NEG_INF * 0.5, torch.zeros_like(lse_c), lse_c) * fa.LOG2E
+        p = torch.exp2(s * (sm * fa.LOG2E) - lse2[..., None])
+        del s
+        if causal_block is not None:
+            qi = torch.arange(q.shape[2], device=q.device)[:, None] // causal_block
+            ki = torch.arange(k.shape[2], device=q.device)[None, :] // causal_block
+            p = p.masked_fill(ki > qi, 0.0)
+        p = p.to(torch.bfloat16).float().roll(tile, dims=2)
+        p[:, :, :tile] = 0
+        parts.append(torch.einsum("bhqk,bhqd->bhkd", p, do[:, sl].float()))
+        del p
+    return torch.cat(parts, 1)
 
 
 def sdpa_backward_ms(q, k, v, do, mask, iters: int) -> float:
@@ -509,86 +634,77 @@ def sdpa_backward_ms(q, k, v, do, mask, iters: int) -> float:
 
 
 BWD_CASES = [
-    # name, (B, H, L, D), causal_block
+    # name, (B, H, L, D), causal_block[, Lk]
     ("mmdit_joint", (3, 24, 8828, 128), None),
     ("tail_bidirectional", (2, 3, 1000, 128), None),
     ("tail_frame_causal", (1, 2, 1000, 128), 96),
 ]
 # phase 2d: the HunyuanVAE mid-block in VAE training (33 x 256 x 256 ->
-# latent 9 x 32 x 32: 9216 tokens, frames of 1024), and a tail
+# latent 9 x 32 x 32: 9216 tokens, frames of 1024), a tail, and a
+# bidirectional call with Lq != Lk
 BWD_D512_CASES = [
     ("vae_mid_33x256x256", (1, 1, 9216, 512), 1024),
     ("tail_frame_causal_d512", (1, 2, 1000, 512), 96),
+    ("bidirectional_lq_ne_lk_d512", (2, 2, 700, 512), None, 1000),
 ]
 
 
 def check_attention_bwd(device, cases_in=BWD_CASES, seed: int = 2) -> dict:
     """Phase 2b (D = 128: the fused kernel and its dQ epilogue) and 2d (D =
-    512: the dkv and dq kernels): the backward against the plain backward,
-    known-wrong gradients, times beside the bounds, the plain backward and
-    SDPA's backward."""
+    512: its wgmma/TMA kernel and its dQ epilogue): the backward against the
+    plain backward, the epilogue against its plain version, the run-to-run
+    spread of dQ's atomic sum, known-wrong gradients, times beside the
+    bounds, the plain backward and SDPA's backward."""
     from opensora_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=device).manual_seed(seed)
     cases = []
-    for name, (b, h, l, d), cb in cases_in:
-        fused = d == fa.FUSED_HEAD_DIM
-        kernels = (fa.KERNEL_FUSED, fa.KERNEL_DQ_CONVERT) if fused else (fa.KERNEL_DKV, fa.KERNEL_DQ)
-        shape = (b, h, l, d)
-        q, k, v, do = (torch.randn(shape, generator=gen, device=device).to(torch.bfloat16) for _ in range(4))
-        heads_per_chunk = max(1, (1 << 30) // (l * l * 4 * b))
+    for name, (b, h, l, d), cb, *lk in cases_in:
+        lk = lk[0] if lk else l
+        kernels = tuple(fa._BWD_ENTRIES[d][1])  # the kernel, its dQ epilogue
+        accum, convert, convert_ref = (fa.flash_attention_bwd_accum, fa.flash_attention_bwd_dq_convert,
+                                       fa.flash_attention_bwd_dq_convert_ref)
+        shape, kshape = (b, h, l, d), (b, h, lk, d)
+        q, k, v, do = (torch.randn(x, generator=gen, device=device).to(torch.bfloat16)
+                       for x in (shape, kshape, kshape, shape))
+        heads_per_chunk = max(1, (1 << 30) // (l * lk * 4 * b))
         out, lse = plain_chunked(fa, q, k, v, cb, heads_per_chunk)
         delta = (do.float() * out).sum(-1)
         out = out.to(torch.bfloat16)  # the forward's output as FlashAttentionFunction saves it (call_ms)
         kw = dict(sm_scale=1.0 / math.sqrt(d), causal_block=cb)
-        extra = {}
-        if fused:
-            acc, dk, dv = fa.flash_attention_bwd_fused_accum(q, k, v, do, lse, delta, **kw)
-            dq = fa.flash_attention_bwd_dq_convert(acc, l, sm_scale=kw["sm_scale"])
-            torch.cuda.synchronize()
-            # the epilogue against its plain version on the same dq_accum: the
-            # same fp32 multiply and bf16 rounding, so equal
-            convert_err = (dq.float() - fa.flash_attention_bwd_dq_convert_ref(acc, l, kw["sm_scale"]).float()).abs().max().item()
-            extra["dq_convert_max_abs_err"] = convert_err
-            # dQ's sum is added in an order that changes from run to run:
-            # the spread of a second run, fp32 dq_accum and bf16 dq, of max|.|
-            acc2 = fa.flash_attention_bwd_fused_accum(q, k, v, do, lse, delta, **kw)[0]
-            dq2 = fa.flash_attention_bwd_dq_convert(acc2, l, sm_scale=kw["sm_scale"])
-            extra["run_spread"] = {"dq_accum": ((acc2 - acc).abs().max() / acc.abs().max()).item(),
-                                   "dq": ((dq2.float() - dq.float()).abs().max() / dq.float().abs().max()).item()}
-            del acc, acc2, dq2
-        else:
-            dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
-            dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
-            torch.cuda.synchronize()
+        acc, dk, dv = accum(q, k, v, do, lse, delta, **kw)
+        dq = convert(acc, l, sm_scale=kw["sm_scale"])
+        torch.cuda.synchronize()
+        # the epilogue against its plain version on the same dq_accum: the
+        # same fp32 multiply and bf16 rounding, so equal
+        extra = {"dq_convert_max_abs_err": (dq.float() - convert_ref(acc, l, kw["sm_scale"]).float()).abs().max().item()}
+        # dQ's sum is added in an order that changes from run to run: the
+        # spread of a second run, fp32 dq_accum and bf16 dq, of max|.|
+        acc2 = accum(q, k, v, do, lse, delta, **kw)[0]
+        dq2 = convert(acc2, l, sm_scale=kw["sm_scale"])
+        extra["run_spread"] = {"dq_accum": ((acc2 - acc).abs().max() / acc.abs().max()).item(),
+                               "dq": ((dq2.float() - dq.float()).abs().max() / dq.float().abs().max()).item()}
+        del acc2, dq2
         ref = plain_bwd_chunked(fa, q, k, v, do, lse, delta, cb, heads_per_chunk)
         errs = {n: (g.float() - r).abs().max().item() for n, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref)}
         scales = {n: r.abs().max().item() for n, r in zip(("dq", "dk", "dv"), ref)}
         rel = {n: errs[n] / scales[n] for n in errs}
         ok = all(math.isfinite(e) and r <= BWD_RTOL for e, r in zip(errs.values(), rel.values()))
-        ok = ok and extra.get("dq_convert_max_abs_err", 0.0) == 0.0
+        ok = ok and extra["dq_convert_max_abs_err"] == 0.0
         mutants = bwd_mutant_readings(fa, q, k, v, do, lse, delta, cb, heads_per_chunk, ref)
         caught = all(r > BWD_RTOL for r in mutants.values())
         del ref, dq, dk, dv
 
-        big = l * l * b * h > 1e8
+        big = l * lk * b * h > 1e8
         iters = 5 if big else 20
-        if fused:
-            acc = fa.flash_attention_bwd_fused_accum(q, k, v, do, lse, delta, **kw)[0]
-            times = {
-                fa.KERNEL_FUSED: time_cuda(lambda: fa.flash_attention_bwd_fused_accum(q, k, v, do, lse, delta, **kw), iters),
-                fa.KERNEL_DQ_CONVERT: time_cuda(lambda: fa.flash_attention_bwd_dq_convert(acc, l, sm_scale=kw["sm_scale"]), iters),
-            }
-            # what the fused wrapper's time includes besides the kernel
-            extra["dq_accum_zero_fill_ms"] = time_cuda(lambda: torch.zeros_like(acc), iters)
-            extra["dq_convert_plain_ms"] = time_cuda(
-                lambda: fa.flash_attention_bwd_dq_convert_ref(acc, l, kw["sm_scale"]), iters)
-            del acc
-        else:
-            times = {
-                fa.KERNEL_DKV: time_cuda(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw), iters),
-                fa.KERNEL_DQ: time_cuda(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw), iters),
-            }
+        times = {
+            kernels[0]: time_cuda(lambda: accum(q, k, v, do, lse, delta, **kw), iters),
+            kernels[1]: time_cuda(lambda: convert(acc, l, sm_scale=kw["sm_scale"]), iters),
+        }
+        # what the kernel's wrapper time includes besides the kernel
+        extra["dq_accum_zero_fill_ms"] = time_cuda(lambda: torch.zeros_like(acc), iters)
+        extra["dq_convert_plain_ms"] = time_cuda(lambda: convert_ref(acc, l, kw["sm_scale"]), iters)
+        del acc
         # the whole backward as FlashAttentionFunction runs it: delta, then the kernels
         call_ms = time_cuda(lambda: fa.partial_flash_backward(q, k, v, do, lse, (do.float() * out.float()).sum(-1),
                                                               **kw), iters)
@@ -599,20 +715,18 @@ def check_attention_bwd(device, cases_in=BWD_CASES, seed: int = 2) -> dict:
             idx = torch.arange(l, device=device) // cb
             mask = idx[None, :] <= idx[:, None]
         library_ms = sdpa_backward_ms(q, k, v, do, mask, iters)
-        bounds = {n: bwd_bound(n, b, h, l, d, cb) for n in (*kernels[:1 if fused else 2], "minimal")}
-        if fused:
-            bounds[fa.KERNEL_DQ_CONVERT] = dq_convert_bound(b, h, l, d)
-        case = dict(name=name, shape=list(shape), causal_block=cb, max_abs_err=errs, ref_max_abs=scales,
+        bounds = {n: bwd_bound(n, b, h, l, d, cb, lk) for n in (kernels[0], "minimal")}
+        bounds[kernels[1]] = dq_convert_bound(b, h, l, d)
+        case = dict(name=name, shape=list(shape), lk=lk, causal_block=cb, max_abs_err=errs, ref_max_abs=scales,
                     rel_err=rel, mutants=mutants, ms=times, call_ms=call_ms, plain_ms=plain_ms, library_ms=library_ms,
                     bound_ms={n: bd[0] for n, bd in bounds.items()}, bound_by={n: bd[1] for n, bd in bounds.items()},
                     **extra)
         cases.append(case)
         log(
-            f"[kernels] flash_attention_bwd {name} {shape} cb={cb} ({' + '.join(kernels)}) "
+            f"[kernels] flash_attention_bwd {name} {shape} lk={lk} cb={cb} ({' + '.join(kernels)}) "
             f"dq/dk/dv max|err|/max|ref| = {rel['dq']:.3e}/{rel['dk']:.3e}/{rel['dv']:.3e} (tol {BWD_RTOL}) "
-            + (f"dq epilogue vs its plain version max|err| {extra['dq_convert_max_abs_err']} (tol 0) run-to-run "
-               f"spread of max|.|: dq_accum {extra['run_spread']['dq_accum']:.3e} dq {extra['run_spread']['dq']:.3e} "
-               if fused else "")
+            f"dq epilogue vs its plain version max|err| {extra['dq_convert_max_abs_err']} (tol 0) run-to-run "
+            f"spread of max|.|: dq_accum {extra['run_spread']['dq_accum']:.3e} dq {extra['run_spread']['dq']:.3e} "
             + "wrong gradients: " + ", ".join(f"{n} {r:.3e}" for n, r in mutants.items())
             + f" {'rejected' if caught else 'NOT REJECTED'} "
             + " ".join(f"{n}_ms={t:.3f}" for n, t in times.items())
@@ -1070,6 +1184,7 @@ def check_ring(device) -> dict:
     sequence) on the same inputs; the limits must reject known-wrong
     rings; times of the call, of the 16 (rank, hop) launches of each kernel,
     of the plain ring, of SDPA at the global shape and the bound."""
+    from opensora_torch.ops import flash_attention as fa
     from opensora_torch.ops import ring_flash as rf
     from opensora_torch.parallel.comm import gather, shard
 
@@ -1147,7 +1262,7 @@ def check_ring(device) -> dict:
         lse_buf = [torch.empty((b, h, lloc), dtype=torch.float32, device=device) for _ in range(sp)]
         deltas = [(x.float() * o.float()).sum(-1) for x, o in zip(dos, outs_k)]
         acc_kv = torch.zeros((2, b, h, lloc, d), dtype=torch.float32, device=device)
-        acc_q = torch.zeros((b, h, dq_accum_rows(lloc), d), dtype=torch.float32, device=device)
+        acc_q = torch.zeros((b, h, fa.dq_accum_rows(lloc, d), d), dtype=torch.float32, device=device)
 
         def hops(kernel):
             for r in range(sp):
@@ -1186,7 +1301,7 @@ def check_ring(device) -> dict:
         plain_bwd_ms = time_cuda(plain_bwd, 1 if big else 3, warmup=0)
         library_bwd_ms = sdpa_backward_ms(q, k, v, do, mask, iters)
         bound_ms, bound_by = attention_bound(b, h, l, d, cb)
-        bounds = {n: bwd_bound(n, b, h, l, d, cb) for n in BWD_PRODUCTS}
+        bounds = {n: bwd_bound(n, b, h, l, d, cb) for n in ("flash_attention_bwd_fused", "minimal")}
         case = dict(name=name, shape=[b, h, l, d], sp=sp, local_length=lloc, causal_block=cb,
                     max_abs_err=err_out, ref_max_abs=scale, rel_err=err_out / scale, lse_max_abs_err=err_lse,
                     grad_rel_err=g_rel, grad_max_abs_err={n: g_rel[n] * g_scale[n] for n in g_rel},
@@ -1367,11 +1482,11 @@ KERNEL_KINDS = [  # first match wins: int8_flash_fwd_kernel before flash_fwd_ker
     ("w8a8_fq_matmul", ("w8a8_sm90_kernel<false",)),  # the template's A_INT8 = false
     ("w8a8_gemm", ("w8a8_sm90_kernel<true",)),
     ("flash_attention_fwd_sm90", ("flash_fwd_sm90_kernel",)),
-    ("flash_attention_fwd", ("flash_fwd_kernel",)),
+    ("flash_attention_fwd_d512", ("flash_fwd_d512_kernel",)),
     ("flash_attention_bwd_fused", ("flash_bwd_fused_kernel",)),
     ("flash_attention_bwd_dq_convert", ("flash_bwd_dq_convert_kernel",)),
-    ("flash_attention_bwd_dkv", ("flash_bwd_dkv_kernel",)),
-    ("flash_attention_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("flash_attention_bwd_d512", ("flash_bwd_d512_kernel",)),
+    ("flash_attention_bwd_d512_dq_convert", ("flash_bwd_d512_dq_convert_kernel",)),
     ("conv (cuDNN)", ("conv", "fprop", "cudnn", "dgrad", "wgrad")),
     ("gemm (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
 ]
@@ -1462,7 +1577,7 @@ def run_main_path(device, profile: bool = False, out_dir=None) -> dict:
     # the 33x24x42 latent decodes as two spatial tiles (24x32, 24x18), each
     # with one mid-block attention (D = 512)
     n_vae = 2
-    expect = {"flash_attention_fwd_sm90": n_blocks * STEPS, "flash_attention_fwd": n_vae}
+    expect = {"flash_attention_fwd_sm90": n_blocks * STEPS, "flash_attention_fwd_d512": n_vae}
     log(f"[main] launches={launches} expected={expect} ({n_blocks}x{STEPS} MMDiT at D = 128, {n_vae} VAE at "
         f"D = 512)")
     if launches != expect:
@@ -1534,7 +1649,7 @@ def run_ring_path(device, built, profile: bool = False, out_dir=None) -> dict:
         peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
         finite = bool(torch.isfinite(x).all())
         outside = float((x.abs() > 1.0).float().mean())
-        expect = {"ring_flash_fwd": n_blocks * STEPS * hops, "flash_attention_fwd": 2}
+        expect = {"ring_flash_fwd": n_blocks * STEPS * hops, "flash_attention_fwd_d512": 2}
         video_rel = rel_l2(x, dense)
         x_ring_rdma = x.cpu()
         del x
@@ -1543,7 +1658,7 @@ def run_ring_path(device, built, profile: bool = False, out_dir=None) -> dict:
         x1, _, _ = run("ring_rdma", RING_SP_STEPS)
         xs, sp_launches, sp_timings = run("ring", RING_SP_STEPS)
         sp_rel = rel_l2(xs, x1.cpu())
-        sp_expect = {"flash_attention_fwd_sm90": n_blocks * RING_SP_STEPS * hops, "flash_attention_fwd": 2}
+        sp_expect = {"flash_attention_fwd_sm90": n_blocks * RING_SP_STEPS * hops, "flash_attention_fwd_d512": 2}
         del x1, xs
     finally:
         set_attn_backend(model, cfg.model.get("attn_backend"))
@@ -1709,7 +1824,7 @@ def run_train_path(device, profile: bool = False, out_dir=None) -> dict:
         times = trainer.timers.to_dict()
         n_vae = TRAIN_BATCH + single_frame_encodes(trainer.mask_conds)  # one mid-block attention per encode
         expect = {"flash_attention_fwd_sm90": 2 * n_blocks,  # forward and recompute
-                  "flash_attention_fwd": n_vae,  # the VAE encodes' mid-block (D = 512)
+                  "flash_attention_fwd_d512": n_vae,  # the VAE encodes' mid-block (D = 512)
                   "flash_attention_bwd_fused": n_blocks, "flash_attention_bwd_dq_convert": n_blocks}
         rec = dict(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
                    lora_b_norm=float(global_norm(b_factors)), mask_conds=trainer.mask_conds,
@@ -1772,7 +1887,7 @@ def run_ring_train_path(device, built, profile: bool = False, out_dir=None) -> d
             total_s = time.perf_counter() - t0
             launches = dict(_build.LAUNCHES)
             n_vae = TRAIN_BATCH + single_frame_encodes(trainer.mask_conds)
-            expect = {"flash_attention_fwd": n_vae, "ring_flash_fwd": 2 * n_blocks * hops,
+            expect = {"flash_attention_fwd_d512": n_vae, "ring_flash_fwd": 2 * n_blocks * hops,
                       "ring_flash_bwd_fused": n_blocks * hops, "flash_attention_bwd_dq_convert": n_blocks * RING_SP}
             moved = sum(float((p.detach() - b).abs().max()) > 0 for p, b in zip(factors, before))
             times = trainer.timers.to_dict()
@@ -1815,9 +1930,9 @@ VAE_RES = 256  # the training configs' resolution (256px_ar1:1)
 # encoder's attention, and the query and key gradients go through the
 # softmax's derivative: the card read 0.019 to 0.063. The check also shows
 # that the limit rejects the gradients of two known-wrong backwards: delta
-# left out of dS, and dK's last 128-column slice (one block of the D = 512
-# kernel's D split) left at 0, which costs the key projection's gradient a
-# quarter of its rows (about 0.5 in relative L2).
+# left out of dS, and dK's last 128-column slice (one block of the D split
+# of the kernel the D = 512 backward replaced) left at 0, which costs the
+# key projection's gradient a quarter of its rows (about 0.5 in relative L2).
 VAE_GRAD_TOL = 0.15
 
 
@@ -1826,15 +1941,15 @@ def vae_expected_launches(grad_checkpoint: bool) -> dict:
     decoder's mid-block attention once each forward (twice with
     grad_checkpoint: the recompute), and each backward once; the
     discriminator, LPIPS and the adaptive weight's heads run no kernel."""
-    return {"flash_attention_fwd": 4 if grad_checkpoint else 2,
-            "flash_attention_bwd_dkv": 2, "flash_attention_bwd_dq": 2}
+    return {"flash_attention_fwd_d512": 4 if grad_checkpoint else 2,
+            "flash_attention_bwd_d512": 2, "flash_attention_bwd_d512_dq_convert": 2}
 
 
 def check_vae_train_small_input(device) -> dict:
     """One full-width HunyuanVAE train step (the generator's loss: L1 under
     the log-variance and the KL, backward) on a 5 x 64 x 64 clip: the card
-    (fp32 master weights, bf16 compute, the flash forward and both D = 512
-    backward kernels at 128 tokens, frames of 64) against the CPU's fp32
+    (fp32 master weights, bf16 compute, the D = 512 flash forward, backward
+    and dQ epilogue kernels at 128 tokens, frames of 64) against the CPU's fp32
     plain step with the same weights, video and posterior noise."""
     from opensora_torch.models.vae2d.losses import vae_loss
     from opensora_torch.ops import _build
@@ -2007,7 +2122,7 @@ def int8_expected_launches(cfg, steps: int) -> dict:
     attn = "int8_flash_attention_pv8" if cfg.model["attn_backend"] == "int8" else "int8_flash_attention"
     per_forward[attn] = depth + single
     out = {k: v * steps for k, v in per_forward.items()}
-    out["flash_attention_fwd"] = 2  # the VAE decode's two spatial tiles, one mid-block attention each
+    out["flash_attention_fwd_d512"] = 2  # the VAE decode's two spatial tiles, one mid-block attention each
     return out
 
 
@@ -2131,8 +2246,8 @@ def main(argv) -> int:
 
     from opensora_torch.ops import _build
 
-    sources = ("flash_attention_fwd_sm90", "flash_attention_fwd", "flash_attention_bwd_sm90", "flash_attention_bwd",
-               "int8_matmul_sm90", "int8_flash_attention", "ring_flash_attention")
+    sources = ("flash_attention_fwd_sm90", "flash_attention_fwd_d512_sm90", "flash_attention_bwd_sm90",
+               "flash_attention_bwd_d512_sm90", "int8_matmul_sm90", "int8_flash_attention", "ring_flash_attention")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         built = dict(zip(sources, pool.map(_build.build, sources)))
     ptxas = {}
@@ -2143,10 +2258,9 @@ def main(argv) -> int:
                          for r in ptxas[name])
         log(f"[build] {name}: {seconds:.1f} s (0.0: the library of this source was built before); ptxas: "
             f"{regs or 'no report (reused library)'}")
-    spilled = [f"{name}: {r['kernel']}" for name in ("int8_matmul_sm90", "int8_flash_attention")
-               for r in ptxas[name] if r["spill_stores"] or r["spill_loads"]]
+    spilled = [f"{name}: {r['kernel']}" for name in sources for r in ptxas[name] if r["spill_stores"] or r["spill_loads"]]
     if spilled:
-        raise AssertionError(f"the int8 wgmma kernels spill registers: {spilled}")
+        raise AssertionError(f"kernels spill registers: {spilled}")
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "build_log.txt"), "w") as f:
@@ -2203,7 +2317,7 @@ def main(argv) -> int:
     dcae_res = run_vae_train_path(device, "dc_ae", DCAE_STEPS, 32, tag="dcae", profile="--profile" in argv,
                                   out_dir=out_dir)
     sm90_cases = [c for c in attn["cases"] if c["kernel"] == "flash_attention_fwd_sm90"]
-    d512_cases = [c for c in attn["cases"] if c["kernel"] == "flash_attention_fwd"]
+    d512_cases = [c for c in attn["cases"] if c["kernel"] == "flash_attention_fwd_d512"]
     head = sm90_cases[0]  # the MMDiT shape, anchored: the main path's hot call
     kernels = [dict(
         name="flash_attention_fwd_sm90",
@@ -2224,18 +2338,19 @@ def main(argv) -> int:
     )]
     head = d512_cases[0]  # the main path's VAE decode tile
     kernels.append(dict(
-        name="flash_attention_fwd",
+        name="flash_attention_fwd_d512",
         route="cuda",
-        source="opensora_torch/csrc/flash_attention_fwd.cu",
+        source="opensora_torch/csrc/flash_attention_fwd_d512_sm90.cu",
         replaces="opensora_tpu/ops/flash_attention.py:179",
-        also_replaces="opensora_tpu/ops/flash_attention.py:247",
+        also_replaces="opensora_tpu/ops/flash_attention.py:247 (the anchored loop) and :320-422 (the dispatch)",
         head_dim=512,
-        launches=main_res["launches"].get("flash_attention_fwd", 0),
-        launches_train=train_res["launches"]["flash_attention_fwd"],
-        launches_vae_train=vae_res["launches"]["flash_attention_fwd"],
+        launches=main_res["launches"].get("flash_attention_fwd_d512", 0),
+        launches_train=train_res["launches"]["flash_attention_fwd_d512"],
+        launches_vae_train=vae_res["launches"]["flash_attention_fwd_d512"],
         max_abs_err=max(c["max_abs_err"] for c in d512_cases),
-        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-        bound_by=head["bound_by"], library_ms=head["library_ms"],
+        ms=head["ms"], ms_is="flash_attention_with_lse, the mean of 4 readings in turns with SDPA's 4 (library_ms)",
+        plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=head["library_ms"], library="SDPA with the frame-causal block mask",
         cases=d512_cases,
     ))
     bwd_head = attn_bwd["cases"][0]  # the MMDiT shape
@@ -2252,10 +2367,11 @@ def main(argv) -> int:
         ms=bwd_head["ms"]["flash_attention_bwd_fused"],
         ms_includes=f"zeroing dq_accum ({bwd_head['dq_accum_zero_fill_ms']:.3f} ms alone)",
         call_ms=bwd_head["call_ms"], call_is="partial_flash_backward with delta: both kernels and the wrappers",
-        plain_ms=bwd_head["plain_ms"], bound_ms=bwd_head["bound_ms"]["flash_attention_bwd_fused"],
-        bound_by=bwd_head["bound_by"]["flash_attention_bwd_fused"], library_ms=bwd_head["library_ms"],
+        plain_ms=bwd_head["plain_ms"], bound_ms=bwd_head["bound_ms"]["minimal"],
+        bound_by=bwd_head["bound_by"]["minimal"],
+        bound_is="the minimal backward: 5 products, bf16 dq, dk and dv written once",
+        library_ms=bwd_head["library_ms"],
         plain_and_library_compute="dq, dk and dv (the whole backward)",
-        minimal_backward_bound_ms=bwd_head["bound_ms"]["minimal"],
         cases=attn_bwd["cases"],
     ))
     kernels.append(dict(
@@ -2274,23 +2390,43 @@ def main(argv) -> int:
         library_ms=None, library="none: no one PyTorch call reorders, scales and rounds",
     ))
     d512_head = attn_bwd_d512["cases"][0]  # the HunyuanVAE mid-block in VAE training
-    for name, line in (("flash_attention_bwd_dkv", 425), ("flash_attention_bwd_dq", 497)):
-        grads = ("dk", "dv") if name.endswith("dkv") else ("dq",)
-        kernels.append(dict(
-            name=f"{name}_d512",
-            counter=name,
-            route="cuda",
-            source="opensora_torch/csrc/flash_attention_bwd.cu",
-            replaces=f"opensora_tpu/ops/flash_attention.py:{line}",
-            head_dim=512,
-            launches=vae_res["launches"][name],
-            max_abs_err=max(c["max_abs_err"][g] for c in attn_bwd_d512["cases"] for g in grads),
-            ms=d512_head["ms"][name], plain_ms=d512_head["plain_ms"], bound_ms=d512_head["bound_ms"][name],
-            bound_by=d512_head["bound_by"][name], library_ms=d512_head["library_ms"],
-            plain_and_library_compute="dq, dk and dv (the whole backward)",
-            minimal_backward_bound_ms=d512_head["bound_ms"]["minimal"],
-            cases=attn_bwd_d512["cases"],
-        ))
+    kernels.append(dict(
+        name="flash_attention_bwd_d512",
+        route="cuda",
+        source="opensora_torch/csrc/flash_attention_bwd_d512_sm90.cu",
+        replaces="opensora_tpu/ops/flash_attention.py:425",
+        also_replaces="opensora_tpu/ops/flash_attention.py:497 (dQ's sum; the epilogue kernel finishes it)",
+        head_dim=512,
+        products=BWD_PRODUCTS["flash_attention_bwd_d512"],
+        launches=vae_res["launches"]["flash_attention_bwd_d512"],
+        max_abs_err=max(c["max_abs_err"][g] for c in attn_bwd_d512["cases"] for g in ("dq", "dk", "dv")),
+        max_abs_err_is="dq (after the epilogue), dk and dv against the plain backward",
+        ms=d512_head["ms"]["flash_attention_bwd_d512"],
+        ms_includes=f"zeroing dq_accum ({d512_head['dq_accum_zero_fill_ms']:.3f} ms alone)",
+        call_ms=d512_head["call_ms"], call_is="partial_flash_backward with delta: both kernels and the wrappers",
+        plain_ms=d512_head["plain_ms"], bound_ms=d512_head["bound_ms"]["minimal"],
+        bound_by=d512_head["bound_by"]["minimal"],
+        bound_is="the minimal backward: 5 products, bf16 dq, dk and dv written once",
+        design_products_bound_ms=d512_head["bound_ms"]["flash_attention_bwd_d512"],
+        library_ms=d512_head["library_ms"],
+        library="SDPA backward with the frame-causal block mask (forward + backward minus forward)",
+        plain_and_library_compute="dq, dk and dv (the whole backward)",
+        cases=attn_bwd_d512["cases"],
+    ))
+    kernels.append(dict(
+        name="flash_attention_bwd_d512_dq_convert",
+        route="cuda",
+        source="opensora_torch/csrc/flash_attention_bwd_d512_sm90.cu",
+        replaces="opensora_tpu/ops/flash_attention.py:497 (the finalize of _dq_kernel: dq_scr * sm_scale to bf16)",
+        head_dim=512,
+        launches=vae_res["launches"]["flash_attention_bwd_d512_dq_convert"],
+        max_abs_err=max(c["dq_convert_max_abs_err"] for c in attn_bwd_d512["cases"]),
+        max_abs_err_is="against its plain version on the same dq_accum",
+        ms=d512_head["ms"]["flash_attention_bwd_d512_dq_convert"], plain_ms=d512_head["dq_convert_plain_ms"],
+        bound_ms=d512_head["bound_ms"]["flash_attention_bwd_d512_dq_convert"],
+        bound_by=d512_head["bound_by"]["flash_attention_bwd_d512_dq_convert"],
+        library_ms=None, library="none: no one PyTorch call reorders, scales and rounds",
+    ))
     gemm_head = next(c for c in gemm["cases"] if c["name"] == GEMM_HEAD)
     for name, line, also, runs, a_int8 in (
             ("w8a8_matmul", 31, "opensora_tpu/ops/quant.py:71-80 (the XLA int8 dot_general of w8a8)",

@@ -14,7 +14,7 @@
 // past Lq, keys past Lk and keys of later frames (causal_block) give P = 0
 // exactly; rows outside the tensors are zero-filled by the TMA, so no
 // garbage reaches a product. delta = rowsum(dO * O) comes from the caller.
-// D = 512 (the VAE mid-block) stays on csrc/flash_attention_bwd.cu.
+// D = 512 (the VAE mid-block) runs csrc/flash_attention_bwd_d512_sm90.cu.
 //
 // Design. One CTA owns 128 keys of one (b, h) (grid ceil(Lk / 128) x B*H)
 // and walks that (b, h)'s query rows in tiles of 64. Three warpgroups:

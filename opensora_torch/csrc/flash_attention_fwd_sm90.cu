@@ -13,7 +13,7 @@
 // p = exp2(s c - A) with no max and no rescale, when A < 40 (NaN compares
 // false and takes the running-max loop): uniform per CTA, no host sync. The
 // causal instantiation always runs the running-max loop. D = 512 (the VAE
-// mid-block) stays on csrc/flash_attention_fwd.cu.
+// mid-block) runs csrc/flash_attention_fwd_d512_sm90.cu.
 //
 // What it computes, per (b, h): out = softmax(Q K^T * sm_scale) V (bf16) and
 // the natural-log LSE per row (fp32), in the exp2 domain with c = sm_scale *
@@ -22,7 +22,7 @@
 // are zero-filled by the TMA through 3-D tensor maps (D, L, B*H), so no
 // garbage, and never the next head, reaches a product. A row that has seen
 // only masked keys keeps m = -1e30, anchors its exponent at 0 (m_safe) and
-// divides by 1 (l_safe), as csrc/flash_attention_fwd.cu does. P is rounded
+// divides by 1 (l_safe), as the D = 512 kernel does. P is rounded
 // to bf16 before the PV product, as the TPU kernel does; the row sum l adds
 // the fp32 p.
 //
@@ -54,8 +54,8 @@
 // products of 2 * B * H * L^2 * D = 1.436 TFLOP each, 2.87 TFLOP, 2.905 ms
 // at 989 TFLOP/s, on 0.65 GB of q, k, v, out: ~4400 flops a byte, so
 // operations bound it. What the design does about the kernel it replaces
-// at D = 128 (csrc/flash_attention_fwd.cu: 64 rows a block, 4 warps,
-// mma.sync m16n8k16 fed by ldmatrix, cp.async and two __syncthreads a
+// at D = 128 (the former csrc/flash_attention_fwd.cu: 64 rows a block, 4
+// warps, mma.sync m16n8k16 fed by ldmatrix, cp.async and two __syncthreads a
 // tile): wgmma is the only path to the
 // card's tensor-core rate; a 64-row warpgroup product reads each K and V
 // tile from shared memory once instead of once per warp; 128-row CTAs halve

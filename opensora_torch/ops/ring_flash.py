@@ -315,8 +315,7 @@ def ring_backward_shards(qs, ks, vs, outs, lses, dos, *, sm_scale: float, causal
     kv = t.slots((2, b, h, lk, d), ks[0].dtype)
     grad = t.slots((2, b, h, lk, d), torch.float32, zero_first=True)  # per rank: [slot][dk/dv]
     deltas = [(do.float() * o.float()).sum(-1) for do, o in zip(dos, outs)]
-    n_rows = -(-lq // fa.FUSED_BLOCK_M) * fa.FUSED_BLOCK_M
-    dq = [torch.zeros((b, h, n_rows, d), dtype=torch.float32, device=q.device) for q in qs]
+    dq = [torch.zeros((b, h, fa.dq_accum_rows(lq, d), d), dtype=torch.float32, device=q.device) for q in qs]
     for r in range(sp):
         kv[r][0, 0].copy_(ks[r])
         kv[r][0, 1].copy_(vs[r])

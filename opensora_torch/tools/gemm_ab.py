@@ -41,6 +41,7 @@ import torch
 
 from opensora_torch.ops import _build
 from opensora_torch.ops import int8_matmul as im
+from opensora_torch.tools import ab
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc", "int8_matmul_sm90.cu")
 BUILD = os.path.join(_build.BUILD_DIR, "gemm_ab")
@@ -117,18 +118,6 @@ def build(name: str, sources) -> tuple:
     return types.SimpleNamespace(**entries), report
 
 
-def time_ms(fn, iters: int = 10) -> float:
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline", help="a csrc directory whose W8A8 entry points to time beside these")
@@ -180,25 +169,19 @@ def main(argv=None) -> int:
                         raise AssertionError(f"{name} ({kern}) disagrees with the plain version")
             del ins
     fns = runs(*inputs(*LINEAR1))
-    names = list(builds)
-    turns = {(name, kern): [] for kern in fns for name in names if hasattr(builds[name][0], kern)}
     # one entry point at a time, so that every reading follows a kernel of
     # the same kind (the card's clock under its power limit depends on what
     # ran just before)
     for kern, (run, _) in fns.items():
-        mine = [name for name in names if (name, kern) in turns]
-        for order in (mine, mine[::-1]) * ROUNDS:
-            for name in order:
-                im._lib = builds[name][0]
-                turns[(name, kern)].append(time_ms(run))
+        def pick(name, run=run):
+            im._lib = builds[name][0]
+            return run
+
+        mine = [name for name in builds if hasattr(builds[name][0], kern)]
+        for name, t in ab.in_turns(mine, pick, ROUNDS).items():
+            print(f"[ab] {name} {kern}: linear1 {LINEAR1} {ab.summary(t)}, each of 10 launches")
     im._lib = None
-    for (name, kern), t in turns.items():
-        print(f"[ab] {name} {kern}: linear1 {LINEAR1} ms mean {sum(t) / len(t):.3f} range "
-              f"{min(t):.3f}-{max(t):.3f} ({len(t)} readings of 10 launches; in order: "
-              f"{' '.join(f'{v:.3f}' for v in t)})")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    print(smi)
+    print(ab.card())
     return 0
 
 

@@ -42,9 +42,9 @@ def test_flash_kernel_input_checks(bad, match):
 
 
 def _fwd_kernel(head_dim):
-    """The forward's kernel at a head dim: the Hopper wgmma/TMA kernel at
-    128, the mma.sync kernel at 512."""
-    return tflash.KERNEL_FWD_SM90 if head_dim == tflash.FWD_SM90_HEAD_DIM else tflash.KERNEL
+    """The forward's kernel at a head dim: one Hopper wgmma/TMA kernel each,
+    128 query rows a CTA at 128, 64 rows x all 512 columns at 512."""
+    return tflash.KERNEL_FWD_SM90 if head_dim == tflash.FWD_SM90_HEAD_DIM else tflash.KERNEL_FWD_D512
 
 
 def test_fwd_sm90_input_checks():
@@ -60,7 +60,9 @@ def test_fwd_sm90_input_checks():
 # (shape, causal_block, q scale, Lk): the anchored loop, the running-max
 # loop (q scaled so the logit bound A >= 40), the MMDiT's length over 4
 # heads in both loops, frame-causal at D = 128 and at D = 512, Lq != Lk
-# both ways, L below one 128-row tile; L = 1000 fills no tile exactly.
+# both ways, L below one 128-row tile; L = 1000 fills no tile exactly; at D
+# = 512 both loops of the bidirectional call (q scale 0.5: A ~ 20, since
+# at 1 the bound of 512-wide rows lies near 40) and Lq != Lk.
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,causal_block,qscale,lk", [
     ((2, 3, 1000, 128), None, 1.0, None),
@@ -72,6 +74,10 @@ def test_fwd_sm90_input_checks():
     ((1, 2, 500, 128), 64, 1.0, 300),
     ((2, 2, 50, 128), None, 4.0, None),
     ((1, 2, 1000, 512), 96, 1.0, None),
+    ((2, 2, 1000, 512), None, 0.5, None),
+    ((2, 2, 1000, 512), None, 4.0, None),
+    ((1, 2, 300, 512), None, 1.0, 500),
+    ((1, 2, 500, 512), 64, 1.0, 300),
 ])
 def test_flash_kernel_matches_plain_on_cuda(shape, causal_block, qscale, lk):
     """bf16 kernel vs the fp32 plain version on the card: bf16 output
@@ -85,7 +91,7 @@ def test_flash_kernel_matches_plain_on_cuda(shape, causal_block, qscale, lk):
     q = (q.float() * qscale).to(torch.bfloat16)
     if causal_block is None:
         anchor_max = tflash.anchor_log2(q, k, shape[-1] ** -0.5).max().item()
-        assert (anchor_max < 40) == (qscale == 1.0)
+        assert (anchor_max < 40) == (qscale <= 1.0)
     before = dict(_build.LAUNCHES)
     out, lse = tflash.flash_attention_with_lse(q, k, v, causal_block=causal_block)
     launched = {n: c - before.get(n, 0) for n, c in _build.LAUNCHES.items() if c != before.get(n, 0)}
@@ -118,11 +124,11 @@ def _bwd_inputs(shape, causal_block, device, seed=0, lk=None):
 
 
 def _bwd_kernels(head_dim):
-    """The backward's kernels at a head dim: the fused kernel and its dQ
-    epilogue at 128, the split dkv / dq pair at 512."""
+    """The backward's kernels at a head dim: the head dim's wgmma/TMA kernel
+    and its dQ epilogue."""
     if head_dim == tflash.FUSED_HEAD_DIM:
         return (tflash.KERNEL_FUSED, tflash.KERNEL_DQ_CONVERT)
-    return (tflash.KERNEL_DKV, tflash.KERNEL_DQ)
+    return (tflash.KERNEL_BWD_D512, tflash.KERNEL_BWD_D512_DQ_CONVERT)
 
 
 def test_flash_function_on_cpu_matches_autograd_of_plain_attention():
@@ -165,8 +171,8 @@ def test_flash_bwd_kernel_input_checks():
     ((2, 3, 1000, 128), None),
     ((1, 2, 1000, 128), 96),
     ((1, 2, 256, 128), 64),
-    # D = 512 (the VAE mid-block: the gradient's D split over 4 blocks):
-    # tails of 1000 % 64 and 1000 % 16 rows, several frames, bidirectional
+    # D = 512 (the VAE mid-block: dV CTAs beside dK / dQ CTAs): tails of
+    # 1000 % 64 and 1000 % 32 rows, several frames, bidirectional
     ((1, 2, 1000, 512), 96),
     ((1, 1, 2048, 512), 256),
     ((2, 1, 300, 512), None),
@@ -244,11 +250,12 @@ def test_dq_accum_layout_round_trips_at_narrow_head_dims(d):
 
 
 def test_fused_backward_on_cpu_takes_plain_versions_without_launching():
-    """CPU tensors: the fused wrapper pair gives the plain backward (dq
-    through dq_accum and the plain epilogue), with no launch."""
+    """CPU tensors: the wrapper pair gives the plain backward (dq through
+    dq_accum and the plain epilogue), with no launch."""
     q, k, v, do, lse, delta = _bwd_inputs((1, 2, 100, 128), 48, "cpu")
     before = dict(_build.LAUNCHES)
-    dq, dk, dv = tflash.flash_attention_bwd_fused(q, k, v, do, lse, delta, sm_scale=0.125, causal_block=48)
+    acc, dk, dv = tflash.flash_attention_bwd_accum(q, k, v, do, lse, delta, sm_scale=0.125, causal_block=48)
+    dq = tflash.flash_attention_bwd_dq_convert(acc, 100, sm_scale=0.125)
     ref = tflash.flash_attention_bwd_ref(q, k, v, do, lse, delta, 0.125, 48)
     assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
     for got, want in zip((dq, dk, dv), ref):
@@ -258,17 +265,17 @@ def test_fused_backward_on_cpu_takes_plain_versions_without_launching():
 
 def test_fused_backward_input_checks():
     """What the fused kernel and its epilogue do not take raises before a
-    launch: another head dim, a misaligned tensor (the TMA's 16 bytes), a
-    dq_accum of the wrong shape or dtype."""
+    launch: a head dim no backward kernel was built for, a misaligned tensor
+    (the TMA's 16 bytes), a dq_accum of the wrong shape or dtype."""
     lse = torch.zeros((1, 1, 64))
     q = torch.zeros((1, 1, 64, 128), dtype=torch.bfloat16)
-    tflash._check_fused(q, q, q, q, lse, lse, None)
-    q512 = torch.zeros((1, 1, 64, 512), dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim 128"):
-        tflash._check_fused(q512, q512, q512, q512, lse, lse, None)
+    tflash._check_kernel_bwd(q, q, q, q, lse, lse, None)
+    q256 = torch.zeros((1, 1, 64, 256), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        tflash._check_kernel_bwd(q256, q256, q256, q256, lse, lse, None)
     shifted = torch.zeros(64 * 128 + 1, dtype=torch.bfloat16)[1:].view(1, 1, 64, 128)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        tflash._check_fused(q, shifted, q, q, lse, lse, None)
+    with pytest.raises(ValueError, match="flash_attention_bwd_fused: k must be 16-byte aligned"):
+        tflash._check_kernel_bwd(q, shifted, q, q, lse, lse, None)
     tflash._check_dq_accum(torch.zeros((1, 1, 64, 128)), 50)
     for bad in (torch.zeros((1, 1, 50, 128)), torch.zeros((1, 1, 64, 128), dtype=torch.bfloat16)):
         with pytest.raises(ValueError, match="dq_accum"):
@@ -298,8 +305,8 @@ def test_fused_backward_kernels_match_plain_on_cuda(shape, causal_block, lk):
     q, k, v, do, lse, delta = _bwd_inputs(shape, causal_block, "cuda", lk=lk)
     sm_scale = shape[-1] ** -0.5
     before = dict(_build.LAUNCHES)
-    acc, dk, dv = tflash.flash_attention_bwd_fused_accum(q, k, v, do, lse, delta, sm_scale=sm_scale,
-                                                         causal_block=causal_block)
+    acc, dk, dv = tflash.flash_attention_bwd_accum(q, k, v, do, lse, delta, sm_scale=sm_scale,
+                                                   causal_block=causal_block)
     dq = tflash.flash_attention_bwd_dq_convert(acc, shape[2], sm_scale=sm_scale)
     torch.cuda.synchronize()
     assert _build.LAUNCHES[tflash.KERNEL_FUSED] == before.get(tflash.KERNEL_FUSED, 0) + 1
@@ -324,11 +331,11 @@ def test_fused_backward_run_to_run_spread_on_cuda():
         pytest.skip("needs an NVIDIA GPU")
     q, k, v, do, lse, delta = _bwd_inputs((2, 3, 1000, 128), None, "cuda", seed=3)
     sm_scale = 128 ** -0.5
-    acc0, dk0, dv0 = tflash.flash_attention_bwd_fused_accum(q, k, v, do, lse, delta, sm_scale=sm_scale)
+    acc0, dk0, dv0 = tflash.flash_attention_bwd_accum(q, k, v, do, lse, delta, sm_scale=sm_scale)
     dq0 = tflash.flash_attention_bwd_dq_convert(acc0, 1000, sm_scale=sm_scale).float()
     scale = acc0.abs().max().item()
     for _ in range(3):
-        acc, dk, dv = tflash.flash_attention_bwd_fused_accum(q, k, v, do, lse, delta, sm_scale=sm_scale)
+        acc, dk, dv = tflash.flash_attention_bwd_accum(q, k, v, do, lse, delta, sm_scale=sm_scale)
         spread = (acc - acc0).abs().max().item()
         assert spread <= 1e-5 * scale, (spread, scale)
         dq = tflash.flash_attention_bwd_dq_convert(acc, 1000, sm_scale=sm_scale).float()
@@ -343,12 +350,125 @@ def test_fused_backward_raises_on_cuda_inputs_it_does_not_take():
         pytest.skip("needs an NVIDIA GPU")
     q, k, v, do, lse, delta = _bwd_inputs((1, 1, 64, 64), None, "cuda")
     with pytest.raises(ValueError, match="head dim"):
-        tflash.flash_attention_bwd_fused(q, k, v, do, lse, delta, sm_scale=0.125)
+        tflash.flash_attention_bwd_accum(q, k, v, do, lse, delta, sm_scale=0.125)
     q, k, v, do, lse, delta = _bwd_inputs((1, 1, 64, 128), None, "cuda")
     with pytest.raises(TypeError, match="bf16"):
-        tflash.flash_attention_bwd_fused(q.float(), k, v, do, lse, delta, sm_scale=0.125)
+        tflash.flash_attention_bwd_accum(q.float(), k, v, do, lse, delta, sm_scale=0.125)
     with pytest.raises(ValueError, match="dq_accum"):
         tflash.flash_attention_bwd_dq_convert(torch.zeros((1, 1, 64, 128), device="cuda"), 65, sm_scale=0.125)
+
+
+# ----------------------------------------------------------------------
+# the D = 512 backward (csrc/flash_attention_bwd_d512_sm90.cu)
+# ----------------------------------------------------------------------
+
+
+def test_d512_dq_accum_layout_is_the_dq_t_fragment_order():
+    """The D = 512 dq_accum: float 2 i + e of thread t = 32 warp + 4 g + q in
+    float4 j of block mb of consumer w of query tile T is row 32 T + 8 j + 2
+    q + e, column 256 w + 64 mb + 16 warp + g + 8 i; the two maps are each
+    other's inverse and keep the padding rows zero."""
+    acc = torch.zeros((1, 1, 64, 512))
+    for tile, w, mb, j, warp, g, q, i, e in ((1, 1, 2, 3, 2, 5, 3, 1, 0), (0, 0, 0, 0, 3, 7, 0, 0, 1)):
+        acc.zero_()
+        tid = 32 * warp + 4 * g + q
+        acc.view(-1)[tile * 16384 + (((w * 4 + mb) * 4 + j) * 128 + tid) * 4 + 2 * i + e] = 1.0
+        rows = tflash.dq_accum_to_rows(acc, 64)
+        assert rows.nonzero().tolist() == [[0, 0, 32 * tile + 8 * j + 2 * q + e, 256 * w + 64 * mb + 16 * warp + g + 8 * i]]
+    x = torch.from_numpy(_np((2, 3, 100, 512), 7))
+    acc = tflash.dq_rows_to_accum(x)
+    assert acc.shape == (2, 3, 128, 512)
+    assert torch.equal(tflash.dq_accum_to_rows(acc, 100), x)
+    assert int((acc != 0).sum()) == int((x != 0).sum())
+
+
+def test_d512_backward_on_cpu_takes_plain_versions_without_launching():
+    """CPU tensors: the wrapper pair at D = 512 gives the plain backward (dq
+    through the D = 512 dq_accum and the plain epilogue), with no launch."""
+    q, k, v, do, lse, delta = _bwd_inputs((1, 2, 100, 512), 48, "cpu")
+    before = dict(_build.LAUNCHES)
+    acc, dk, dv = tflash.flash_attention_bwd_accum(q, k, v, do, lse, delta, sm_scale=512 ** -0.5, causal_block=48)
+    assert acc.shape == (1, 2, 128, 512)
+    dq = tflash.flash_attention_bwd_dq_convert(acc, 100, sm_scale=512 ** -0.5)
+    ref = tflash.flash_attention_bwd_ref(q, k, v, do, lse, delta, 512 ** -0.5, 48)
+    assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    for got, want in zip((dq, dk, dv), ref):
+        assert (got.float() - want).abs().max().item() <= 2.0 ** -8 * want.abs().max().item()
+    assert _build.LAUNCHES == before
+
+
+def test_d512_backward_input_checks():
+    """What the D = 512 kernel and its epilogue do not take raises before a
+    launch: a misaligned tensor (the TMA's 16 bytes), a dq_accum not padded
+    to 32 rows (64 rows is the D = 128 padding) or not fp32."""
+    lse = torch.zeros((1, 1, 64))
+    q = torch.zeros((1, 1, 64, 512), dtype=torch.bfloat16)
+    tflash._check_kernel_bwd(q, q, q, q, lse, lse, 16)
+    shifted = torch.zeros(64 * 512 + 1, dtype=torch.bfloat16)[1:].view(1, 1, 64, 512)
+    with pytest.raises(ValueError, match="flash_attention_bwd_d512: do must be 16-byte aligned"):
+        tflash._check_kernel_bwd(q, q, q, shifted, lse, lse, None)
+    tflash._check_dq_accum(torch.zeros((1, 1, 64, 512)), 50)
+    tflash._check_dq_accum(torch.zeros((1, 1, 32, 512)), 20)
+    for bad, lq in ((torch.zeros((1, 1, 50, 512)), 50), (torch.zeros((1, 1, 64, 512), dtype=torch.bfloat16), 50),
+                    (torch.zeros((1, 1, 64, 512)), 20)):
+        with pytest.raises(ValueError, match="dq_accum"):
+            tflash._check_dq_accum(bad, lq)
+
+
+# (B, H, Lq, D), causal_block, Lk: the tails of 64-key blocks and 32- and
+# 64-row query tiles, several frames, L < 32, Lq != Lk both ways (keys no
+# query sees under the mask get zero gradients)
+D512_BWD_CASES = [
+    ((1, 2, 1000, 512), 96, None),
+    ((2, 1, 1000, 512), None, None),
+    ((1, 2, 20, 512), None, None),
+    ((1, 2, 300, 512), None, 500),
+    ((1, 2, 500, 512), 64, 300),
+    ((1, 1, 300, 512), 64, 500),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal_block,lk", D512_BWD_CASES)
+def test_d512_backward_kernels_match_plain_on_cuda(shape, causal_block, lk):
+    """The D = 512 kernel's dk, dv and dq_accum against the plain backward
+    (BWD_RTOL of each gradient's scale; dq_accum read through its layout),
+    and its epilogue equal to the plain epilogue on the same dq_accum."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    q, k, v, do, lse, delta = _bwd_inputs(shape, causal_block, "cuda", lk=lk)
+    sm_scale = shape[-1] ** -0.5
+    before = dict(_build.LAUNCHES)
+    acc, dk, dv = tflash.flash_attention_bwd_accum(q, k, v, do, lse, delta, sm_scale=sm_scale,
+                                                   causal_block=causal_block)
+    dq = tflash.flash_attention_bwd_dq_convert(acc, shape[2], sm_scale=sm_scale)
+    torch.cuda.synchronize()
+    for name in _bwd_kernels(512):
+        assert _build.LAUNCHES[name] == before.get(name, 0) + 1
+    want = tflash.flash_attention_bwd_ref(q, k, v, do, lse, delta, sm_scale, causal_block)
+    got = (tflash.dq_accum_to_rows(acc, shape[2]) * sm_scale, dk, dv)
+    for name, g, w in zip(("dq_accum", "dk", "dv"), got, want):
+        err = (g.float() - w).abs().max().item()
+        assert err <= BWD_RTOL * max(w.abs().max().item(), 1e-30), (name, err, w.abs().max().item())
+    assert torch.equal(dq, tflash.flash_attention_bwd_dq_convert_ref(acc, shape[2], sm_scale))
+
+
+@pytest.mark.cuda
+def test_d512_backward_run_to_run_spread_on_cuda():
+    """dQ's fp32 sum at D = 512 is added by atomics in an order that changes
+    from run to run: two runs' dq_accum differ by fp32 rounding alone (16
+    key blocks' partials, held to 1e-5 of max|dq_accum|); dk and dv are
+    summed in registers in a fixed order and agree bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    q, k, v, do, lse, delta = _bwd_inputs((1, 2, 1000, 512), None, "cuda", seed=3)
+    sm_scale = 512 ** -0.5
+    acc0, dk0, dv0 = tflash.flash_attention_bwd_accum(q, k, v, do, lse, delta, sm_scale=sm_scale)
+    scale = acc0.abs().max().item()
+    for _ in range(3):
+        acc, dk, dv = tflash.flash_attention_bwd_accum(q, k, v, do, lse, delta, sm_scale=sm_scale)
+        assert (acc - acc0).abs().max().item() <= 1e-5 * scale
+        assert torch.equal(dk, dk0) and torch.equal(dv, dv0)
 
 
 # ----------------------------------------------------------------------
