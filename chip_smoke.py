@@ -109,13 +109,27 @@ exceed the limit), then 1 step of attn_backend="ring" (ops/sp.py) against
 1 step of ring_rdma. Phase 10 (after phase 5, on its trainer) runs 2 LoRA
 steps with ring_rdma over the same mesh: finite loss and gradient norm,
 moving factors, exact launches of the ring kernels and the dQ epilogue.
+The conditioned paths: phase 2 holds the D = 128 forward at the t2i2v
+image stage's shape (1, 24, 2816, 128) too; phase 3e checks the image
+stage's full-width Flux MMDiT (1 + 1 blocks, guidance vector on) through
+one DistilledDenoiser step and the Flux AE decoder on a small latent, card
+against CPU; phase 11 (after phase 9, on phase 4's models) builds the image
+stage of configs/diffusion/inference/t2i2v_256px.py (the 12B-class
+distilled Flux MMDiT and the 2D Flux AE, random from the config's seed)
+and runs the CLI's t2i2v flow, STEPS steps in each stage: the 768 x 768
+image, saved and read back, encoded by the HunyuanVAE as the i2v_head
+reference of the 129-frame 192 x 336 video, decoded: shapes, finite
+outputs, the latent's first frame equal to the encoded reference, exact
+launches; phase 12 runs v2v_head_easy for 1 step with phase 4's video,
+saved and read back, as its reference (65 frames encoded, 17 latent frames
+conditioned, checked to be that encode's).
 Then it prints the card's name and power limit, one JSON line with the
 kernels' numbers, and last {"ok": true, "device": {...}}.
 
 ``--out-dir DIR`` writes the compiler's register/shared-memory report
 (build_log.txt) there; ``--profile`` adds a profiled second run of each
 path (kernel time by kind, device idle share; with ``--out-dir`` the full
-tables go to DIR/profile_{main,ring,train,ring_train,int8,vae,dcae}.txt).
+tables go to DIR/profile_{main,ring,t2i2v,train,ring_train,int8,vae,dcae}.txt).
 """
 
 from __future__ import annotations
@@ -396,8 +410,15 @@ ATTENTION_CASES = [
     # name, (B, H, L, D), causal_block, q scale[, Lk]
     ("mmdit_joint_anchored", (3, 24, 8828, 128), None, 1.0),
     ("mmdit_joint_running_max", (3, 24, 8828, 128), None, 3.0),
+    ("flux_image_768px", (1, 24, 2816, 128), None, 1.0),  # the t2i2v image stage: 2304 image + 512 text tokens
     ("vae_mid_tile_24x32", (1, 1, 33 * 768, 512), 768, 1.0),
     ("vae_mid_tile_24x18", (1, 1, 33 * 432, 512), 432, 1.0),
+    # the reference encodes: one frame (i2v, t2i2v; causal_block = L) and
+    # v2v's 65 frames (17 latent frames), in the encoder's two tile widths
+    ("vae_mid_encode_1frame_24x32", (1, 1, 768, 512), 768, 1.0),
+    ("vae_mid_encode_1frame_24x18", (1, 1, 432, 512), 432, 1.0),
+    ("vae_mid_v2v_17f_24x32", (1, 1, 17 * 768, 512), 768, 1.0),
+    ("vae_mid_v2v_17f_24x18", (1, 1, 17 * 432, 512), 432, 1.0),
     ("vae_train_mid_33x256x256", (1, 1, 9216, 512), 1024, 1.0),  # phase 7's mid-blocks (latent 9 x 32 x 32)
     # the 768px decode's full spatial tile (latent 33 x 32 x 32 of 96 x 170, tile 32, stride 24)
     ("vae_mid_tile_768px", (1, 1, 33 * 1024, 512), 1024, 1.0),
@@ -1537,7 +1558,7 @@ def run_main_path(device, profile: bool = False, out_dir=None) -> dict:
     log(f"[main] 256px.py at full width and depth; num_steps cut 50 -> {STEPS}")
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    model, ae, t5, clip = prepare_models(cfg, device=device, seed=cfg.seed)
+    model, ae, t5, clip, _ = prepare_models(cfg, device=device, seed=cfg.seed)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
@@ -1687,6 +1708,311 @@ def run_ring_path(device, built, profile: bool = False, out_dir=None) -> dict:
         finally:
             set_attn_backend(model, cfg.model.get("attn_backend"))
             set_mesh(None)
+    return res
+
+
+# ----------------------------------------------------------------------
+# phases 3e, 11 and 12: the conditioned paths (t2i2v, i2v, v2v)
+# ----------------------------------------------------------------------
+
+T2I2V_CFG = os.path.join(REPO, "configs", "diffusion", "inference", "t2i2v_256px.py")
+V2V_STEPS = 1  # steps of the v2v run
+T2I2V_PROMPT = ["a red panda eating bamboo in a misty forest, 16 FPS. 4 motion score."]
+
+
+def check_t2i_small_input(device) -> dict:
+    """The t2i2v image stage's models at full width on a small input, the
+    card's bf16 path against the port's plain fp32 path on the CPU (same
+    weights): the distilled Flux MMDiT at depth 1 + 1 (guidance vector on,
+    64 image + 32 text tokens, the D = 128 kernel on the card) through one
+    DistilledDenoiser step -- its update x_1 - x_0 held to SMALL_TOL of its
+    own scale --, and the Flux AE decoder (fp32 master weights, bf16
+    compute on the card; plain fp32 attention on both) on a 16 x 8 x 8
+    latent."""
+    from opensora_torch.ops import _build
+    from opensora_torch.registry import MODELS, build_module
+    from opensora_torch.utils.api import prepare_models  # noqa: F401  (registers the models)
+    from opensora_torch.utils.config import parse_configs
+    from opensora_torch.utils.sampling import DistilledDenoiser, build_img_ids, get_schedule
+
+    cfg = parse_configs([T2I2V_CFG])
+    gen = torch.Generator().manual_seed(3)
+
+    def twins(conf: dict):
+        torch.manual_seed(0)
+        card = build_module(dict(conf), MODELS, device=device).eval()
+        cpu = build_module(dict(conf, dtype="fp32"), MODELS, device="meta").eval()
+        cpu.load_state_dict({k: v.float().cpu() for k, v in card.state_dict().items()}, assign=True)
+        return card, cpu
+
+    def rel_err(card_out, cpu_out):
+        return float((card_out.float().cpu() - cpu_out).abs().max() / cpu_out.abs().max().clamp(min=1.0))
+
+    mcfg = dict(cfg.img_flux, depth=1, depth_single_blocks=1)
+    card, cpu = twins(mcfg)
+    b, lt = 1, 32
+    img_ids = build_img_ids(1, 16, 16, bs=b)  # 8 x 8 = 64 image tokens
+    img = torch.randn(b, 64, mcfg["in_channels"], generator=gen)
+    cond = dict(img_ids=img_ids, txt=torch.randn(b, lt, mcfg["context_in_dim"], generator=gen),
+                txt_ids=torch.zeros(b, lt, 3), y_vec=torch.randn(b, mcfg["vec_in_dim"], generator=gen))
+    ts = get_schedule(1, 64, 1)
+    guidance = cfg.sampling_option_t2i["guidance"]
+    _build.LAUNCHES.clear()
+    with torch.inference_mode():
+        ref = DistilledDenoiser().denoise(cpu, img=img, timesteps=ts, guidance=guidance, **cond)
+        out = DistilledDenoiser().denoise(card, img=img.to(device), timesteps=ts, guidance=guidance,
+                                          **{k: v.to(device) for k, v in cond.items()})
+    launches = dict(_build.LAUNCHES)
+    res = {"flux_1+1_distilled_step_rel_err": rel_err(out, ref),
+           "flux_1+1_distilled_update_rel_err": float(((out.float().cpu() - img) - (ref - img)).abs().max()
+                                                      / (ref - img).abs().max())}
+    del card, cpu
+    card, cpu = twins(dict(cfg.img_flux_ae))
+    z = torch.randn(1, 16, 8, 8, generator=gen)
+    with torch.inference_mode():
+        ref = cpu.decode(z)
+        out = card.decode(z.to(device))
+    res["flux_ae_decode_rel_err"] = rel_err(out, ref)
+    del card, cpu
+    torch.cuda.empty_cache()
+    expect = {"flash_attention_fwd_sm90": 2}
+    ok = (res["flux_1+1_distilled_update_rel_err"] <= SMALL_TOL and res["flux_ae_decode_rel_err"] <= SMALL_TOL
+          and launches == expect)
+    log(f"[small] t2i2v image stage: full-width Flux MMDiT depth 1+1 (B=1, 96 tokens, guidance {guidance}) "
+        f"through one DistilledDenoiser step and the Flux AE decode (latent 16x8x8), card bf16 + kernel vs CPU fp32 "
+        f"plain: {res} (tol {SMALL_TOL} of the update's / output's scale) launches {launches} (expected {expect}) "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the card's image stage disagrees with the plain path on a small input")
+    return dict(res, launches=launches)
+
+
+def hunyuan_mid_launches(ae, shape, decode: bool) -> int:
+    """D = 512 launches of one HunyuanVAE encode of a (B, 3, T, H, W) clip,
+    or decode of a latent of that shape: one mid-block attention per sample
+    (the encoder) or per batch (the decoder) and spatial tile, the tiles
+    laid out as the AE's spatial tiling lays them (no temporal tiling in
+    these configs)."""
+    cfg = ae.config
+    b, _, t, h, w = shape
+    tile = ae.tile_latent_min_size if decode else ae.tile_sample_min_size
+    if cfg.use_temporal_tiling and t > (ae.tile_latent_min_tsize if decode else ae.tile_sample_min_tsize):
+        raise ValueError("temporal tiling is not counted")
+    per_tile = 1 if decode else b
+    if cfg.use_spatial_tiling and (h > tile or w > tile):
+        step = int(tile * (1 - cfg.tile_overlap_factor))
+        return per_tile * len(range(0, h, step)) * len(range(0, w, step))
+    return per_tile
+
+
+class AERecorder:
+    """Records what the video AE encodes (its input and output) and what it
+    decodes, while active, by wrapping the instance's methods."""
+
+    def __init__(self, ae):
+        self.ae, self.encoded, self.decoded = ae, [], []
+
+    def __enter__(self):
+        encode, decode = self.ae.encode, self.ae.decode
+
+        def rec_encode(x, *a, **kw):
+            z = encode(x, *a, **kw)
+            self.encoded.append((x.detach().float().cpu(), z.detach().cpu()))
+            return z
+
+        def rec_decode(z, *a, **kw):
+            self.decoded.append(z.detach().cpu())
+            return decode(z, *a, **kw)
+
+        self.ae.encode, self.ae.decode = rec_encode, rec_decode
+        return self
+
+    def __exit__(self, *exc):
+        del self.ae.encode, self.ae.decode
+        return False
+
+
+def run_t2i2v_path(device, built, out_root, profile: bool = False, out_dir=None) -> dict:
+    """configs/diffusion/inference/t2i2v_256px.py at full width and depth on
+    phase 4's video models (the config's are 256px.py's, the same seed) plus
+    its image stage drawn from the config's seed: the CLI's t2i2v flow
+    (opensora_torch.inference.prepare_image_stage and make_reference_images,
+    then api_fn with cond_type i2v_head and the saved image as the
+    reference), STEPS steps in each stage. Checks shapes, finite outputs,
+    that the latent's first frame before decoding equals the encoded
+    reference and the exact launches."""
+    from opensora_torch.inference import make_reference_images, prepare_image_stage
+    from opensora_torch.ops import _build
+    from opensora_torch.utils.api import prepare_api, prepare_optional_models
+    from opensora_torch.utils.config import parse_configs
+    from opensora_torch.utils.sampling import SamplingOption, sanitize_sampling_option
+
+    cfg = parse_configs([T2I2V_CFG, "--sampling_option.num_steps", str(STEPS),
+                         "--sampling_option_t2i.num_steps", str(STEPS)])
+    cfg.sampling_option_t2i["seed"] = cfg.seed  # the image from the config's seed, so that the run repeats
+    model, ae, t5, clip = built["models"]
+    for key in ("model", "ae", "t5", "clip", "sampling_option"):
+        if cfg[key] != built["cfg"][key]:
+            raise AssertionError(f"t2i2v_256px.py's {key} is not phase 4's")
+    log(f"[t2i2v] t2i2v_256px.py at full width and depth on phase 4's models; num_steps cut 50 -> {STEPS} in "
+        f"each stage")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    torch.manual_seed(cfg.seed)
+    optional = prepare_optional_models(cfg, device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    img_flux, img_ae = optional["img_flux"], optional["img_flux_ae"]
+    n_img = sum(p.numel() for p in img_flux.parameters())
+    resident_gb = torch.cuda.memory_allocated(device) / 1e9
+    log(f"[t2i2v] image stage built in {build_s:.1f} s: Flux MMDiT {n_img / 1e9:.2f}B params, Flux AE "
+        f"{sum(p.numel() for p in img_ae.parameters()) / 1e6:.1f}M; resident {resident_gb:.2f} GB")
+    patch = cfg.get("patch_size", 2)
+    api_img, opt_img = prepare_image_stage(cfg, optional, t5, clip, patch)
+    api_fn = prepare_api(model, ae, t5, clip)
+    opt = sanitize_sampling_option(SamplingOption(**cfg.sampling_option))
+    n_img_blocks = cfg.img_flux["depth"] + cfg.img_flux["depth_single_blocks"]
+    n_blocks = cfg.model["depth"] + cfg.model["depth_single_blocks"]
+
+    _build.LAUNCHES.clear()
+    img_timings: dict = {}
+    t0 = time.perf_counter()
+    refs = make_reference_images(api_img, opt_img, T2I2V_PROMPT, out_root, 0, cfg.img_flux["in_channels"], patch,
+                                 timings=img_timings)
+    torch.cuda.synchronize()
+    image_s = time.perf_counter() - t0
+    img_launches = dict(_build.LAUNCHES)
+    from opensora_torch.datasets.utils import read_from_path
+
+    image = read_from_path(refs[0], (opt_img.height, opt_img.width))
+    timings: dict = {}
+    with AERecorder(ae) as rec:
+        t0 = time.perf_counter()
+        x = api_fn(opt, cond_type=cfg.cond_type, seed=cfg.seed, text=T2I2V_PROMPT,
+                   channel=cfg.model["in_channels"], timings=timings, ref=refs)
+        torch.cuda.synchronize()
+        video_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+
+    (enc_in, enc_out), = rec.encoded
+    latent, = rec.decoded
+    first_equal = bool(torch.equal(latent[0, :, :1], enc_out[0][:, :1].to(latent.dtype)))
+    ref_frame = torch.from_numpy(read_from_path(refs[0], (opt.height, opt.width))[:, :1])
+    enc_in_err = float((enc_in[0] - ref_frame).abs().max())
+    n_enc = hunyuan_mid_launches(ae, tuple(enc_in.shape), decode=False)
+    n_dec = hunyuan_mid_launches(ae, tuple(latent.shape), decode=True)
+    expect_img = {"flash_attention_fwd_sm90": n_img_blocks * STEPS}
+    expect = {"flash_attention_fwd_sm90": (n_img_blocks + n_blocks) * STEPS, "flash_attention_fwd_d512": n_enc + n_dec}
+    finite = bool(torch.isfinite(x).all()) and bool(torch.isfinite(torch.from_numpy(image)).all())
+    outside = float((x.abs() > 1.0).float().mean())
+    res = dict(reference=os.path.basename(refs[0]), image_shape=list(image.shape), video_shape=list(x.shape),
+               image_s=image_s, image_step_s=img_timings["step_s"], image_decode_s=img_timings["decode_s"],
+               encode_ref_s=timings["encode_ref_s"], step_s=timings["step_s"], decode_s=timings["decode_s"],
+               video_s=video_s, peak_mem_gb=peak_gb, resident_gb=resident_gb,
+               card_total_gb=torch.cuda.get_device_properties(device).total_memory / 1e9, models_build_s=build_s,
+               outside_share=outside, first_latent_frame_equals_encoded_reference=first_equal,
+               encode_input_vs_saved_image_max_abs=enc_in_err, launches=launches, expected=expect,
+               image_launches=img_launches, image_expected=expect_img, encode_launches=n_enc, decode_launches=n_dec)
+    log("[t2i2v] " + json.dumps(res))
+    expect_video = (1, 3, opt.num_frames, opt.height, opt.width)
+    if tuple(image.shape) != (3, 1, opt_img.height, opt_img.width) or tuple(x.shape) != expect_video:
+        raise AssertionError(f"image {tuple(image.shape)} / video {tuple(x.shape)} shapes")
+    if not finite or outside > OUTSIDE_MAX:
+        raise AssertionError(f"t2i2v output not finite, or {outside:.4f} of the video outside [-1, 1]")
+    if not first_equal or enc_in_err > 1e-6:
+        raise AssertionError("the video's first latent frame is not the encoded reference image")
+    if img_launches != expect_img or launches != expect:
+        raise AssertionError(f"kernel launches {img_launches} / {launches} != expected {expect_img} / {expect}")
+    if profile:
+        def run():
+            r = make_reference_images(api_img, opt_img, T2I2V_PROMPT, out_root, 0, cfg.img_flux["in_channels"],
+                                      patch)
+            api_fn(opt, cond_type=cfg.cond_type, seed=cfg.seed, text=T2I2V_PROMPT,
+                   channel=cfg.model["in_channels"], ref=r)
+        res["profile"] = profile_run(run, "t2i2v", out_dir)
+    del optional, img_flux, img_ae, api_img, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_v2v_path(device, built, out_root) -> dict:
+    """v2v_head_easy on phase 4's models for V2V_STEPS step(s), its reference
+    phase 4's 129-frame video saved by save_sample as the port's lossless
+    .npy sample (the route where OpenCV is absent, taken here whether or not
+    it is) and read back: the first 65 frames encoded, the first 17 latent
+    frames conditioned. Checks that the encoder got the saved frames (those
+    read back, and phase 4's video to uint8 precision), that the conditioned
+    latent frames are that encode's, shape, finiteness and launches."""
+    import opensora_torch.utils.api as api_mod
+    from opensora_torch.datasets.utils import read_from_path
+    from opensora_torch.ops import _build
+    from opensora_torch.utils.inference import save_sample
+    from opensora_torch.utils.sampling import SamplingOption, sanitize_sampling_option
+
+    cfg, (model, ae, t5, clip) = built["cfg"], built["models"]
+    video = built["video"]
+    with unittest.mock.patch.dict(sys.modules, {"cv2": None}):
+        ref_path = save_sample(video[0].numpy(), os.path.join(out_root, "v2v_reference"))
+    opt = sanitize_sampling_option(SamplingOption(**dict(cfg.sampling_option, num_steps=V2V_STEPS)))
+    api_fn = api_mod.prepare_api(model, ae, t5, clip)
+    conditions = []
+
+    def record_condition(fn):
+        def run(*a, **kw):
+            masks, masked = fn(*a, **kw)
+            conditions.append((masks.cpu(), masked.cpu()))
+            return masks, masked
+        return run
+
+    log(f"[v2v] v2v_head_easy on phase 4's models, reference {os.path.basename(ref_path)} (phase 4's video); "
+        f"num_steps {V2V_STEPS}")
+    _build.LAUNCHES.clear()
+    timings: dict = {}
+    with AERecorder(ae) as rec, patched(api_mod, "prepare_inference_condition", record_condition):
+        t0 = time.perf_counter()
+        x = api_fn(opt, cond_type="v2v_head_easy", seed=cfg.seed, text=T2I2V_PROMPT,
+                   channel=cfg.model["in_channels"], timings=timings, ref=[ref_path])
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    (enc_in, enc_out), = rec.encoded
+    (masks, masked), = conditions
+    k = 16 + int(opt.is_causal_vae)
+    read_back = torch.from_numpy(read_from_path(ref_path, (opt.height, opt.width))[:, :enc_in.shape[2]])
+    read_back_equal = bool(torch.equal(enc_in[0], read_back))
+    # the .npy sample holds phase 4's video clipped to [-1, 1] and floored to uint8 (at most 2/255 below)
+    enc_in_err = float((read_back - video[0, :, :enc_in.shape[2]].clamp(-1, 1)).abs().max())
+    saved_ok = ref_path.endswith(".npy") and enc_in_err <= 2 / 255 + 1e-6
+    cond_equal = bool(torch.equal(masked[0, :, :k], enc_out[0][:, :k].to(masked.dtype)))
+    mask_ok = bool(masks[0, :, :k].eq(1).all()) and bool(masks[0, :, k:].eq(0).all())
+    latent, = rec.decoded
+    n_enc = hunyuan_mid_launches(ae, tuple(enc_in.shape), decode=False)
+    n_blocks = cfg.model["depth"] + cfg.model["depth_single_blocks"]
+    expect = {"flash_attention_fwd_sm90": n_blocks * V2V_STEPS,
+              "flash_attention_fwd_d512": n_enc + hunyuan_mid_launches(ae, tuple(latent.shape), decode=True)}
+    finite = bool(torch.isfinite(x).all())
+    outside = float((x.abs() > 1.0).float().mean())
+    res = dict(reference=os.path.basename(ref_path), encoded_frames=int(enc_in.shape[2]),
+               encoded_latent_frames=int(enc_out.shape[2]), conditioned_latent_frames=k,
+               encode_input_equals_read_back=read_back_equal, saved_vs_phase4_video_max_abs=enc_in_err,
+               conditioned_frames_equal_encoded=cond_equal,
+               masks_ok=mask_ok, video_shape=list(x.shape), encode_ref_s=timings["encode_ref_s"],
+               step_s=timings["step_s"], decode_s=timings["decode_s"], total_s=total_s, outside_share=outside,
+               launches=launches, expected=expect)
+    log("[v2v] " + json.dumps(res))
+    if tuple(enc_in.shape[2:]) != (65, opt.height, opt.width) or enc_out.shape[2] != k:
+        raise AssertionError(f"v2v encoded {tuple(enc_in.shape)} -> {tuple(enc_out.shape)}, expected 65 frames, {k} "
+                             "latent frames")
+    if not (read_back_equal and saved_ok and cond_equal and mask_ok):
+        raise AssertionError("the conditioned latent frames did not come from phase 4's video")
+    if tuple(x.shape) != tuple(video.shape) or not finite or outside > OUTSIDE_MAX:
+        raise AssertionError(f"v2v video {tuple(x.shape)} finite={finite} outside={outside:.4f}")
+    if launches != expect:
+        raise AssertionError(f"kernel launches {launches} != expected {expect}")
     return res
 
 
@@ -2137,7 +2463,7 @@ def run_int8_path(device, overrides, steps: int, profile: bool = False, out_dir=
         f"{cfg.model['quantized']}, attn_backend={cfg.model['attn_backend']}); num_steps cut 50 -> {steps}")
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    model, ae, t5, clip = prepare_models(cfg, device=device, seed=cfg.seed)
+    model, ae, t5, clip, _ = prepare_models(cfg, device=device, seed=cfg.seed)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     resident_gb = torch.cuda.memory_allocated(device) / 1e9
@@ -2289,10 +2615,15 @@ def main(argv) -> int:
     small_vae = check_vae_train_small_input(device)
     small_ring = check_small_input(device, ring_mesh(device))
     small_ring_train = check_train_small_input(device, ring_mesh(device))
+    small_t2i = check_t2i_small_input(device)
     main_res, built = run_main_path(device, "--profile" in argv, out_dir)
     main_res["small_input"] = small
     ring_res = run_ring_path(device, built, "--profile" in argv, out_dir)
     ring_res["small_input"] = small_ring
+    with tempfile.TemporaryDirectory() as tmp:
+        t2i2v_res = run_t2i2v_path(device, built, tmp, "--profile" in argv, out_dir)
+        t2i2v_res["small_input"] = small_t2i
+        v2v_res = run_v2v_path(device, built, tmp)
     del built
     gc.collect()
     torch.cuda.empty_cache()
@@ -2328,6 +2659,9 @@ def main(argv) -> int:
         head_dim=128,
         launches=main_res["launches"].get("flash_attention_fwd_sm90", 0),
         launches_train=train_res["launches"]["flash_attention_fwd_sm90"],
+        launches_t2i2v=dict(image=t2i2v_res["image_launches"]["flash_attention_fwd_sm90"],
+                            image_and_i2v_video=t2i2v_res["launches"]["flash_attention_fwd_sm90"],
+                            v2v=v2v_res["launches"]["flash_attention_fwd_sm90"]),
         max_abs_err=max(c["max_abs_err"] for c in sm90_cases),
         ms=head["ms"], ms_is="flash_attention_with_lse (the bound A on the device, then the kernel), the mean of "
         "4 readings in turns with SDPA's 4 (library_ms)", anchor_ms=head["anchor_ms"],
@@ -2347,6 +2681,8 @@ def main(argv) -> int:
         launches=main_res["launches"].get("flash_attention_fwd_d512", 0),
         launches_train=train_res["launches"]["flash_attention_fwd_d512"],
         launches_vae_train=vae_res["launches"]["flash_attention_fwd_d512"],
+        launches_t2i2v=dict(i2v_encode_and_decode=t2i2v_res["launches"]["flash_attention_fwd_d512"],
+                            v2v_encode_and_decode=v2v_res["launches"]["flash_attention_fwd_d512"]),
         max_abs_err=max(c["max_abs_err"] for c in d512_cases),
         ms=head["ms"], ms_is="flash_attention_with_lse, the mean of 4 readings in turns with SDPA's 4 (library_ms)",
         plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
@@ -2496,6 +2832,8 @@ def main(argv) -> int:
         entry.setdefault("ptxas", ptxas[os.path.basename(entry["source"])[:-len(".cu")]])
     log("[main] " + json.dumps(main_res))
     log("[ring] " + json.dumps(ring_res))
+    log("[t2i2v] " + json.dumps(t2i2v_res))
+    log("[v2v] " + json.dumps(v2v_res))
     log("[ring_train] " + json.dumps(ring_train_res))
     log("[train] " + json.dumps(train_res))
     log("[int8] " + json.dumps(int8_res))

@@ -1,8 +1,10 @@
 """Media IO and data helpers (counterpart of opensora_tpu/datasets/utils.py).
 
-Decoding and resizing use OpenCV, imported where a function needs it, so
-the package imports where OpenCV is absent. Arrays are numpy (C, T, H, W),
-float32.
+Decoding png/mp4 uses OpenCV, imported where a function needs it, so the
+package imports where OpenCV is absent; the port's own samples (uint8
+frames (T, H, W, 3) in ``.npy``, written where OpenCV is absent) read
+without it. Resizing is torch's bilinear interpolation. Arrays are numpy
+(C, T, H, W), float32.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ import os
 from typing import Tuple
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 IMG_EXTENSIONS = (".jpg", ".jpeg", ".png", ".ppm", ".bmp", ".pgm", ".tif", ".tiff", ".webp")
 
@@ -57,25 +61,42 @@ def read_video(path: str, sampling_interval: int = 1) -> Tuple[np.ndarray, float
     return np.transpose(np.stack(frames).astype(np.float32), (3, 0, 1, 2)), fps
 
 
-def resize_crop(video: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
-    """Resize keeping the aspect ratio, then center-crop to ``size`` (H, W)."""
-    import cv2
+def read_sample(path: str) -> np.ndarray:
+    """A sample ``.npy`` of uint8 frames (T, H, W, 3) -> (C, T, H, W) RGB
+    float32 in [0, 255], as :func:`read_image` / :func:`read_video` give."""
+    frames = np.load(path)
+    if frames.dtype != np.uint8 or frames.ndim != 4 or frames.shape[-1] != 3:
+        raise ValueError(f"{path}: expected uint8 frames (T, H, W, 3), got {frames.dtype} {frames.shape}")
+    return np.transpose(frames, (3, 0, 1, 2)).astype(np.float32)
 
+
+def resize_crop(video: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """Resize keeping the aspect ratio (bilinear with half-pixel centres and
+    no antialiasing, as cv2.INTER_LINEAR samples), then center-crop to
+    ``size`` (H, W); float32."""
     th, tw = size
     c, t, h, w = video.shape
     scale = max(th / h, tw / w)
     nh, nw = int(round(h * scale)), int(round(w * scale))
-    out = np.empty((c, t, th, tw), video.dtype)
     i0, j0 = (nh - th) // 2, (nw - tw) // 2
-    for k in range(t):
-        frame = cv2.resize(np.transpose(video[:, k], (1, 2, 0)), (nw, nh), interpolation=cv2.INTER_LINEAR)
-        out[:, k] = np.transpose(frame[i0:i0 + th, j0:j0 + tw], (2, 0, 1))
-    return out
+    frames = torch.from_numpy(np.ascontiguousarray(video, np.float32)).transpose(0, 1)  # (T, C, H, W)
+    frames = F.interpolate(frames, size=(nh, nw), mode="bilinear", align_corners=False, antialias=False)
+    return frames[:, :, i0:i0 + th, j0:j0 + tw].transpose(0, 1).contiguous().numpy()
 
 
 def normalize_video(video: np.ndarray) -> np.ndarray:
     """[0, 255] -> [-1, 1]."""
     return video / 127.5 - 1.0
+
+
+def read_from_path(path: str, image_size: Tuple[int, int]) -> np.ndarray:
+    """An image, a video or a sample ``.npy`` -> (C, T, H, W) in [-1, 1],
+    resized and center-cropped to ``image_size`` (H, W)."""
+    if path.endswith(".npy"):
+        media = read_sample(path)
+    else:
+        media = read_image(path) if is_img(path) else read_video(path)[0]
+    return normalize_video(resize_crop(media, image_size))
 
 
 def temporal_random_crop(video: np.ndarray, num_frames: int, frame_interval: int,

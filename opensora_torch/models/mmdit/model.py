@@ -59,6 +59,9 @@ class MMDiTConfig:
     fused_qkv: bool = True
     patch_size: int = 2
     rope_convention: str = "split"
+    # the RoPE pairing the from_pretrained weights were trained with (original
+    # Flux checkpoints: "interleaved"); read by a checkpoint loader
+    ckpt_rope_convention: str = "split"
     # None = flash attention; "xla" = plain attention; "int8" / "int8_qk8" = int8 attention
     attn_backend: Optional[str] = None
     quantized: Union[bool, str] = False  # False | True/"w8" | "w8a8" | "w8a8_pallas" | "w8a8_fq"

@@ -39,6 +39,10 @@ OUT_RTOL, LSE_TOL, BWD_RTOL = 8e-3, 1e-3, 1e-2
 FWD_CASES = [
     ("vae_mid_tile_24x32", (1, 1, 33 * 768, 512), 768, 1.0, None),  # the 256px decode's spatial tiles
     ("vae_mid_tile_24x18", (1, 1, 33 * 432, 512), 432, 1.0, None),
+    ("vae_mid_encode_1frame_24x32", (1, 1, 768, 512), 768, 1.0, None),  # the reference encodes (i2v, v2v)
+    ("vae_mid_encode_1frame_24x18", (1, 1, 432, 512), 432, 1.0, None),
+    ("vae_mid_v2v_17f_24x32", (1, 1, 17 * 768, 512), 768, 1.0, None),
+    ("vae_mid_v2v_17f_24x18", (1, 1, 17 * 432, 512), 432, 1.0, None),
     ("vae_train_mid_33x256x256", (1, 1, 9216, 512), 1024, 1.0, None),  # HunyuanVAE training, latent 9x32x32
     ("vae_mid_tile_768px", (1, 1, 33 * 1024, 512), 1024, 1.0, None),  # the 768px decode's full tile
     ("tail_frame_causal", (1, 2, 1000, 512), 96, 1.0, None),

@@ -63,7 +63,7 @@ class Trainer:
         if mesh is not None:
             set_mesh(mesh)
         seed = cfg.get("seed", 42)
-        self.model, self.ae, self.t5, self.clip = prepare_models(cfg, device=device, seed=seed)
+        self.model, self.ae, self.t5, self.clip, _ = prepare_models(cfg, device=device, seed=seed)
         self.device = next(self.model.parameters()).device
         self.logger.info("MMDiT params: %s on %s", format_numel(count_params(self.model.parameters())), self.device)
         self.patch_size = cfg.get("patch_size", 2)

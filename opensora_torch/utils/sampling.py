@@ -1,5 +1,6 @@
-"""Rectified-flow sampling: options, schedule, noise, packing, and the I2V
-denoiser (counterpart of opensora_tpu/utils/sampling.py).
+"""Rectified-flow sampling: options, schedule, noise, packing, the I2V
+denoiser and the distilled (guidance-embedded) denoiser (counterpart of
+opensora_tpu/utils/sampling.py).
 
 The JAX package runs the step loop as ``lax.scan`` inside one ``jit``; here
 it is a Python loop over eager calls. The 3-way CFG batch (cond,
@@ -279,4 +280,37 @@ class I2VDenoiser:
         return x
 
 
-SamplingMethodDict = {SamplingMethod.I2V: I2VDenoiser()}
+class DistilledDenoiser:
+    """Plain Euler loop of a guidance-distilled model (the Flux image stage
+    of t2i2v): no CFG batch, the guidance scale goes in as a vector."""
+
+    # the I2V denoiser's arguments, which a caller may pass to either
+    I2V_ONLY = ("masks", "masked_ref", "text_osci", "image_osci", "scale_temporal_osci", "patch_size",
+                "guidance_img", "sigma_min", "cfg_batched")
+
+    def prepare_guidance(self, text, neg=None, guidance_img=None, **kwargs):
+        return list(text), {}
+
+    def denoise(self, model_fn: Callable, *, img: torch.Tensor, timesteps: torch.Tensor, guidance: float,
+                step_seconds: Optional[List[float]] = None, **model_kwargs) -> torch.Tensor:
+        """The latents after ``len(timesteps) - 1`` steps; ``step_seconds``
+        as in :meth:`I2VDenoiser.denoise`."""
+        for k in self.I2V_ONLY:
+            model_kwargs.pop(k, None)
+        guidance_vec = torch.full((img.shape[0],), guidance, dtype=img.dtype, device=img.device)
+        x = img
+        ts = timesteps.float()
+        for i in range(timesteps.shape[0] - 1):
+            t0 = time.perf_counter()
+            t_vec = torch.full((x.shape[0],), float(ts[i]), dtype=x.dtype, device=x.device)
+            pred = model_fn(img=x, timesteps=t_vec, guidance=guidance_vec, **model_kwargs)
+            # the fp32 Euler update, cast back to the latent dtype
+            x = x + ((ts[i + 1] - ts[i]) * pred.float()).to(x.dtype)
+            if step_seconds is not None:
+                if x.is_cuda:
+                    torch.cuda.synchronize(x.device)
+                step_seconds.append(time.perf_counter() - t0)
+        return x
+
+
+SamplingMethodDict = {SamplingMethod.I2V: I2VDenoiser(), SamplingMethod.DISTILLED: DistilledDenoiser()}

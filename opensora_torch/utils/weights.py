@@ -70,18 +70,43 @@ def _vae_segment(seg: str) -> str:
     return f"{head}.{tail}" if head and tail.isdigit() else seg
 
 
-def hunyuan_vae_state_dict(params: Tree) -> Dict[str, np.ndarray]:
-    """HunyuanVAE flax params -> ``AutoencoderKLCausal3D`` state dict
-    (encoder and decoder)."""
+def _conv_net_state_dict(params: Tree, segment) -> Dict[str, np.ndarray]:
+    """Flax params of a conv net -> state dict: module names mapped segment
+    by segment, kernels to torch weights, norm scales to weights."""
     out: Dict[str, np.ndarray] = {}
     for path, val in _flatten(params):
         *segs, leaf = path
-        name = ".".join(_vae_segment(s) for s in segs)
+        name = ".".join(segment(s) for s in segs)
         if leaf == "kernel":
             out[f"{name}.weight"] = _torch_weight(val)
         else:
             out[f"{name}.{'weight' if leaf == 'scale' else leaf}"] = val
     return out
+
+
+def hunyuan_vae_state_dict(params: Tree) -> Dict[str, np.ndarray]:
+    """HunyuanVAE flax params -> ``AutoencoderKLCausal3D`` state dict
+    (encoder and decoder)."""
+    return _conv_net_state_dict(params, _vae_segment)
+
+
+def _ae2d_segment(seg: str) -> str:
+    """'down_0_block_1' -> 'down.0.block.1', 'up_2_upsample' ->
+    'up.2.upsample.conv', 'mid_attn_1' -> 'mid.attn_1'."""
+    parts = seg.split("_")
+    if parts[0] in ("down", "up") and len(parts) > 2:
+        tail = ".".join(parts[2:])
+        return f"{parts[0]}.{parts[1]}.{tail}" + (".conv" if tail in ("downsample", "upsample") else "")
+    if parts[0] == "mid":
+        return f"mid.{'_'.join(parts[1:])}"
+    return seg
+
+
+def autoencoder_2d_state_dict(params: Tree) -> Dict[str, np.ndarray]:
+    """Flux 2D AE flax params (``encoder``/``decoder`` with ``down_{i}_block_{j}``,
+    ``mid_attn_1``, ``up_{i}_upsample``, ...) -> ``AutoEncoder2D`` state dict
+    (upstream Flux names)."""
+    return _conv_net_state_dict(params, _ae2d_segment)
 
 
 def discriminator_state_dict(params: Tree) -> Dict[str, np.ndarray]:

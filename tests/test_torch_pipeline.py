@@ -47,7 +47,7 @@ from opensora_torch.utils.weights import (
     mmdit_state_dict,
     t5_state_dict,
 )
-from torch_parity_utils import max_rel_err, randomize, t, to_numpy
+from torch_parity_utils import max_rel_err, randomize, read_frames, t, to_numpy
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG_DIR = os.path.join(REPO, "configs", "diffusion", "inference")
@@ -60,8 +60,9 @@ def _meta(cls, *args):
 
 
 @pytest.fixture(scope="module")
-def tiny_pair():
-    """The tiny_dev.py models in both packages, fp32, same seeded weights."""
+def tiny_models():
+    """The tiny_dev.py models in both packages, fp32, same seeded weights:
+    (cfg, the JAX side's callables, the port's models by name)."""
     cfg = parse_configs([TINY_DEV])
     mkw = {k: v for k, v in cfg.model.items() if k != "type"}
     akw = {k: v for k, v in cfg.ae.items() if k != "type"}
@@ -99,7 +100,14 @@ def tiny_pair():
     clip = HFEmbedder("clip-tiny", max_length=16, clip_config=tclip.clip_small_test_config(), device="meta",
                       dtype=torch.float32)
     load_numpy_state_dict(clip.module, clip_text_state_dict(clip_params))
-    return cfg, jax_side, prepare_api(model, ae, t5.eval(), clip.eval())
+    return cfg, jax_side, dict(model=model, model_ae=ae, model_t5=t5.eval(), model_clip=clip.eval())
+
+
+@pytest.fixture(scope="module")
+def tiny_pair(tiny_models):
+    """(cfg, the JAX side, the port's api_fn) over tiny_models."""
+    cfg, jax_side, models = tiny_models
+    return cfg, jax_side, prepare_api(**models)
 
 
 def _jax_generate(js, z, prompts, opt):
@@ -204,8 +212,8 @@ def test_cli_tiny_dev_shape_and_determinism(tmp_path):
         save_dir = str(tmp_path / f"run{r}")
         paths = main([TINY_DEV, "--prompt", "raining, sea", "--motion-score", "4", "--num-sample", "2",
                       "--device", "cpu", "--save_dir", save_dir])
-        assert [os.path.basename(p) for p in paths] == ["sample_0000.npy", "sample_0001.npy"]
-        runs.append([np.load(p) for p in paths])
+        assert [os.path.basename(p) for p in paths] == ["sample_0000.mp4", "sample_0001.mp4"]
+        runs.append([read_frames(p) for p in paths])
         with open(os.path.join(save_dir, "sample_0000.txt")) as f:
             assert f.read() == "raining, sea 4 motion score."
     for a, b in zip(*runs):
@@ -255,7 +263,7 @@ def test_cli_tiny_dev_w8a8_writes_a_finite_sample(tmp_path):
 
     paths = main([TINY_DEV, "--prompt", "raining, sea", "--model.quantized", "w8a8", "--device", "cpu",
                   "--save_dir", str(tmp_path)])
-    sample = np.load(paths[0])
+    sample = read_frames(paths[0])
     assert sample.shape == (5, 32, 32, 3) and sample.dtype == np.uint8 and sample.std() > 0
 
     cfg = parse_configs([TINY_DEV, "--model.quantized", "w8a8"])

@@ -203,4 +203,4 @@ def test_prepare_api_sets_the_mesh_and_the_cli_builds_none_on_one_device(tmp_pat
     cfg.write_text(f"_base_ = [{os.path.join(REPO, 'configs', 'diffusion', 'inference', 'tiny_dev.py')!r}]\n"
                    "mesh = dict(dp_size=1, sp_size=-1, tp_size=1)\n")
     paths = main([str(cfg), "--prompt", "a cat", "--device", "cpu", "--save_dir", str(tmp_path / "out")])
-    assert get_mesh() is None and len(paths) == 1 and paths[0].endswith(".npy")
+    assert get_mesh() is None and len(paths) == 1 and paths[0].endswith(".mp4")

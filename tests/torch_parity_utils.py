@@ -41,6 +41,27 @@ def t(x) -> torch.Tensor:
     return torch.tensor(np.asarray(x))
 
 
+def read_frames(path: str) -> np.ndarray:
+    """A saved sample's uint8 frames (T, H, W, 3), RGB: png and mp4 through
+    OpenCV, the port's ``.npy`` as it is."""
+    import cv2
+
+    if path.endswith(".npy"):
+        return np.load(path)
+    if path.endswith(".png"):
+        return cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)[None]
+    cap = cv2.VideoCapture(path)
+    frames = []
+    try:
+        ok, frame = cap.read()
+        while ok:
+            frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+            ok, frame = cap.read()
+    finally:
+        cap.release()
+    return np.stack(frames)
+
+
 def max_rel_err(out, ref) -> float:
     out, ref = np.asarray(out, np.float64), np.asarray(ref, np.float64)
     return float(np.abs(out - ref).max() / max(1.0, np.abs(ref).max()))
