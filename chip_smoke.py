@@ -123,6 +123,27 @@ outputs, the latent's first frame equal to the encoded reference, exact
 launches; phase 12 runs v2v_head_easy for 1 step with phase 4's video,
 saved and read back, as its reference (65 frames encoded, 17 latent frames
 conditioned, checked to be that encode's).
+Checkpoints, last: phases 4, 6 and 11 record their models' first calls;
+phase 13 draws those models again from their seeds (the first calls
+replayed bitwise), writes them with the port's safetensors writer in
+published layouts -- the 11B MMDiT as one file in the unfused
+(q_proj/k_proj/v_proj/v_mlp) layout, the HunyuanVAE, T5-XXL as a sharded
+HF directory with its index, CLIP-L as a CLIPModel file with vision keys,
+the Flux image model in flux1-dev's layout (fused, q/k rows in the
+interleaved pairing) and the 2D Flux AE -- frees them and loads each back
+through prepare_models / prepare_optional_models / the text embedder
+(256px.py's fused model from the unfused file, 256px_int8attn.py quantized
+at load, the image model with ckpt_rope_convention="interleaved"): every
+loaded tensor equal to its checksum (the quantized one to quantize_model_
+of the float weights), each phase's first call replayed bitwise on the
+loaded model with exact launches (57, 304 + 57, 57), every load's seconds,
+GB/s and host RSS printed; one file on disk at a time. Phase 14 runs
+python -m opensora_torch.vae_inference and vae_stats on
+configs/vae/inference/hunyuan_vae.py (phase 13's VAE file) and
+video_dc_ae.py (phase 8's DC-AE drawn again and written) over 4 seeded
+33 x 256 x 256 mp4 clips: the latent statistics equal a direct encode's
+with the same generator, PSNR finite, D = 512 launches exactly the
+tiles' mid-blocks (none for the DC-AE), seconds per clip printed.
 Then it prints the card's name and power limit, one JSON line with the
 kernels' numbers, and last {"ok": true, "device": {...}}.
 
@@ -139,6 +160,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1545,7 +1567,10 @@ def profile_run(fn, tag: str, out_dir) -> dict:
     return out
 
 
-def run_main_path(device, profile: bool = False, out_dir=None) -> dict:
+def run_main_path(device, profile: bool = False, out_dir=None, records=None) -> dict:
+    """256px.py at full width and depth through prepare_models and api_fn;
+    ``records`` (a dict) receives the first call of the MMDiT, T5 and CLIP
+    (phase 13 replays them)."""
     from opensora_torch.ops import _build
     from opensora_torch.utils.api import prepare_api, prepare_models
     from opensora_torch.utils.config import parse_configs
@@ -1572,11 +1597,14 @@ def run_main_path(device, profile: bool = False, out_dir=None) -> dict:
                       channel=cfg.model["in_channels"])
     _build.LAUNCHES.clear()
     timings: dict = {}
-    t0 = time.perf_counter()
-    x = api_fn(**run_kwargs, timings=timings)
-    torch.cuda.synchronize()
-    total_s = time.perf_counter() - t0
+    with FirstCall(model) as rec_model, FirstCall(t5) as rec_t5, FirstCall(clip) as rec_clip:
+        t0 = time.perf_counter()
+        x = api_fn(**run_kwargs, timings=timings)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
+    if records is not None:
+        records.update(main=rec_model, t5=rec_t5, clip=rec_clip)
 
     expect_shape = (1, 3, opt.num_frames, opt.height, opt.width)
     finite = bool(torch.isfinite(x).all())
@@ -1832,7 +1860,7 @@ class AERecorder:
         return False
 
 
-def run_t2i2v_path(device, built, out_root, profile: bool = False, out_dir=None) -> dict:
+def run_t2i2v_path(device, built, out_root, profile: bool = False, out_dir=None, records=None) -> dict:
     """configs/diffusion/inference/t2i2v_256px.py at full width and depth on
     phase 4's video models (the config's are 256px.py's, the same seed) plus
     its image stage drawn from the config's seed: the CLI's t2i2v flow
@@ -1840,7 +1868,8 @@ def run_t2i2v_path(device, built, out_root, profile: bool = False, out_dir=None)
     then api_fn with cond_type i2v_head and the saved image as the
     reference), STEPS steps in each stage. Checks shapes, finite outputs,
     that the latent's first frame before decoding equals the encoded
-    reference and the exact launches."""
+    reference and the exact launches. ``records`` (a dict) receives the
+    image model's first call and the Flux AE's decode (phase 13)."""
     from opensora_torch.inference import make_reference_images, prepare_image_stage
     from opensora_torch.ops import _build
     from opensora_torch.utils.api import prepare_api, prepare_optional_models
@@ -1878,12 +1907,15 @@ def run_t2i2v_path(device, built, out_root, profile: bool = False, out_dir=None)
 
     _build.LAUNCHES.clear()
     img_timings: dict = {}
-    t0 = time.perf_counter()
-    refs = make_reference_images(api_img, opt_img, T2I2V_PROMPT, out_root, 0, cfg.img_flux["in_channels"], patch,
-                                 timings=img_timings)
-    torch.cuda.synchronize()
-    image_s = time.perf_counter() - t0
+    with FirstCall(img_flux) as rec_flux, FirstCall(img_ae, "decode") as rec_decode:
+        t0 = time.perf_counter()
+        refs = make_reference_images(api_img, opt_img, T2I2V_PROMPT, out_root, 0, cfg.img_flux["in_channels"],
+                                     patch, timings=img_timings)
+        torch.cuda.synchronize()
+        image_s = time.perf_counter() - t0
     img_launches = dict(_build.LAUNCHES)
+    if records is not None:
+        records.update(img_flux=rec_flux, img_decode=rec_decode)
     from opensora_torch.datasets.utils import read_from_path
 
     image = read_from_path(refs[0], (opt_img.height, opt_img.width))
@@ -2022,7 +2054,10 @@ def run_v2v_path(device, built, out_root) -> dict:
 
 LORA_CFG = os.path.join(REPO, "configs", "diffusion", "train", "lora.py")
 # the card cannot hold the "dots" checkpoints of stage1.py at this bucket
-# beside the weights (about 77 GB); full recompute is a listed cut
+# beside the weights (about 77 GB); full recompute is a listed cut. lora.py
+# names the published ./ckpts/Open_Sora_v2.safetensors and
+# hunyuan_vae.safetensors, which are not in the repository: the trainer
+# starts from the seed's weights (phase 13 loads checkpoints written here)
 TRAIN_OVERRIDES = ["--model.from_pretrained", "", "--ae.from_pretrained", "", "--model.remat_policy", "full"]
 
 
@@ -2452,7 +2487,10 @@ def int8_expected_launches(cfg, steps: int) -> dict:
     return out
 
 
-def run_int8_path(device, overrides, steps: int, profile: bool = False, out_dir=None, tag="int8") -> dict:
+def run_int8_path(device, overrides, steps: int, profile: bool = False, out_dir=None, tag="int8",
+                  records=None) -> dict:
+    """256px_int8attn.py (with ``overrides``) for ``steps`` steps; ``records``
+    (a dict) receives the MMDiT's first call under ``tag``."""
     from opensora_torch.ops import _build
     from opensora_torch.utils.api import prepare_api, prepare_models
     from opensora_torch.utils.config import parse_configs
@@ -2477,11 +2515,14 @@ def run_int8_path(device, overrides, steps: int, profile: bool = False, out_dir=
     run_kwargs = dict(opt=opt, cond_type=cfg.cond_type, seed=cfg.seed, text=prompt, channel=cfg.model["in_channels"])
     _build.LAUNCHES.clear()
     timings: dict = {}
-    t0 = time.perf_counter()
-    x = api_fn(**run_kwargs, timings=timings)
-    torch.cuda.synchronize()
-    total_s = time.perf_counter() - t0
+    with FirstCall(model) as rec_model:
+        t0 = time.perf_counter()
+        x = api_fn(**run_kwargs, timings=timings)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
+    if records is not None:
+        records[tag] = rec_model
     expect_shape = (1, 3, opt.num_frames, opt.height, opt.width)
     finite = bool(torch.isfinite(x).all())
     outside = float((x.abs() > 1.0).float().mean())
@@ -2507,6 +2548,397 @@ def run_int8_path(device, overrides, steps: int, profile: bool = False, out_dir=
     del model, ae, t5, clip, api_fn, x
     gc.collect()
     torch.cuda.empty_cache()
+    return res
+
+
+# ----------------------------------------------------------------------
+# phases 13 and 14: checkpoints, and the VAE CLIs
+# ----------------------------------------------------------------------
+
+T5_SHARD_BYTES = 4 * 10**9  # T5-XXL's 9.5 GB in 3 shards, as a sharded HF directory holds it
+CLIP_EXTRAS = {  # a CLIPModel file's keys beyond its text tower (CLIP-L's shapes)
+    "vision_model.embeddings.class_embedding": (1024,), "vision_model.post_layernorm.weight": (1024,),
+    "visual_projection.weight": (768, 1024), "text_projection.weight": (768, 768), "logit_scale": (),
+}
+MAIN_CFG = os.path.join(REPO, "configs", "diffusion", "inference", "256px.py")  # phase 4's config
+CLI_CLIPS, CLI_FRAMES, CLI_SIZE = 4, 33, 256  # phase 14's seeded clips
+VAE_CLI_CFGS = {"hunyuan_vae": os.path.join(REPO, "configs", "vae", "inference", "hunyuan_vae.py"),
+                "dc_ae": os.path.join(REPO, "configs", "vae", "inference", "video_dc_ae.py")}
+
+
+def _tree_to(x, device):
+    """Tensors in nested tuples / lists / dicts moved to ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(device)
+    if isinstance(x, (tuple, list)):
+        return type(x)(_tree_to(v, device) for v in x)
+    if isinstance(x, dict):
+        return {k: _tree_to(v, device) for k, v in x.items()}
+    return x
+
+
+class FirstCall:
+    """Records the first call of ``obj.<method>`` while active: its
+    arguments and its output, on the CPU. ``replay(fn, device)`` calls
+    ``fn`` with the same arguments on ``device``."""
+
+    def __init__(self, obj, method: str = "forward"):
+        self.obj, self.method = obj, method
+        self.args = self.kwargs = self.out = None
+
+    def __enter__(self):
+        fn = getattr(self.obj, self.method)
+
+        def rec(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            if self.out is None:
+                self.args, self.kwargs, self.out = _tree_to(args, "cpu"), _tree_to(kwargs, "cpu"), _tree_to(out, "cpu")
+            return out
+
+        setattr(self.obj, self.method, rec)
+        return self
+
+    def __exit__(self, *exc):
+        delattr(self.obj, self.method)
+        self.obj = None  # the record must not keep the model alive
+        return False
+
+    def replay(self, fn, device):
+        with torch.inference_mode():
+            return _tree_to(fn(*_tree_to(self.args, device), **_tree_to(self.kwargs, device)), "cpu")
+
+
+def tensor_checksum(t: torch.Tensor) -> tuple:
+    """(sum of the bytes, sum of the bytes weighted by a hash of their
+    position) of a tensor, on its device: equal tensors have equal sums, and
+    a changed, moved or swapped byte changes the second."""
+    b = t.detach().reshape(-1).contiguous().view(torch.uint8) if t.numel() else torch.zeros(0, dtype=torch.uint8)
+    total = weighted = 0
+    for lo in range(0, b.numel(), 1 << 26):
+        v = b[lo:lo + (1 << 26)].to(torch.int64)
+        pos = torch.arange(lo, lo + v.numel(), device=v.device, dtype=torch.int64)
+        total += int(v.sum())
+        weighted += int((v * ((pos * 2654435761) % 2147483647 + 1)).sum())
+    return str(t.dtype), tuple(t.shape), total, weighted
+
+
+def checksums(tensors) -> dict:
+    return {k: tensor_checksum(v) for k, v in tensors.items()}
+
+
+def compare_checksums(tag: str, got: dict, want: dict) -> None:
+    bad = sorted(set(got) ^ set(want)) + [k for k in want if k in got and got[k] != want[k]]
+    log(f"[ckpt] {tag}: {len(got)} tensors loaded, {len(bad)} differ from the in-memory ones")
+    if bad:
+        raise AssertionError(f"{tag}: loaded tensors differ from the written ones: {bad[:8]}")
+
+
+def file_bytes(path: str) -> int:
+    from opensora_torch.utils.ckpt import checkpoint_files
+
+    return sum(os.path.getsize(f) for f in checkpoint_files(path))
+
+
+class LoadRecorder:
+    """Times every ``utils.ckpt.load_checkpoint`` call while active (device
+    synchronized around it) and samples the process's resident set every
+    10 ms during it: seconds, GB/s of the checkpoint's files, the peak RSS
+    above the call's start, ``getrusage``'s peak after it and the peak
+    device memory during it."""
+
+    def __init__(self):
+        self.loads = []
+
+    def __enter__(self):
+        import resource
+
+        import opensora_torch.utils.ckpt as ckpt
+        from opensora_torch.tools.ckpt_io import RssSampler
+
+        def wrap(fn):
+            def timed(module, path, kind="mmdit", device=None):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                with RssSampler() as rss:
+                    t0 = time.perf_counter()
+                    out = fn(module, path, kind, device)
+                    torch.cuda.synchronize()
+                    seconds = time.perf_counter() - t0
+                nbytes = file_bytes(path)
+                self.loads.append(dict(kind=kind, file=os.path.basename(path.rstrip("/")), gb=nbytes / 1e9,
+                                       seconds=seconds, gb_per_s=nbytes / 1e9 / seconds,
+                                       peak_rss_above_start_gb=rss.peak_above_start / 1e9,
+                                       rss_at_start_gb=rss.start / 1e9,
+                                       peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
+                                       ru_maxrss_gb=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9))
+                log(f"[ckpt] loaded {json.dumps(self.loads[-1])}")
+                return out
+            return timed
+
+        self._patch = patched(ckpt, "load_checkpoint", wrap)
+        self._patch.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._patch.__exit__(*exc)
+
+
+def write_checkpoint(tensors, path: str) -> dict:
+    from opensora_torch.utils.safetensors_io import save_file
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nbytes = save_file(tensors, path)
+    seconds = time.perf_counter() - t0
+    res = dict(file=os.path.basename(path), gb=nbytes / 1e9, write_s=seconds, write_gb_per_s=nbytes / 1e9 / seconds)
+    log(f"[ckpt] wrote {json.dumps(res)}")
+    return res
+
+
+def free():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_replay(tag: str, rec: FirstCall, fn, device, expect_launches: dict) -> dict:
+    """``fn`` on the recorded call's inputs against its recorded output:
+    bitwise equal (the same weights through the same deterministic kernels
+    and cuBLAS calls; every replay measured on an H100 was bitwise) and
+    exactly ``expect_launches``."""
+    from opensora_torch.ops import _build
+
+    _build.LAUNCHES.clear()
+    out = rec.replay(fn, device)
+    launches = dict(_build.LAUNCHES)
+    ref = rec.out
+    err = float((out.float() - ref.float()).abs().max() / ref.float().abs().max().clamp(min=1e-30))
+    res = dict(bitwise_equal=bool(torch.equal(out, ref)), rel_err=err, launches=launches, expected=expect_launches)
+    log(f"[ckpt] {tag}: {json.dumps(res)}")
+    if not res["bitwise_equal"] or launches != expect_launches:
+        raise AssertionError(f"{tag}: {res}")
+    return res
+
+
+def run_ckpt_path(device, records: dict, root: str) -> dict:
+    """Phase 13: the weights of phases 4, 6 and 11, each drawn again from
+    its seed (the rebuild's first step checked bitwise against the phase's),
+    written with the port's writer in a published layout, freed, and loaded
+    back through the entry points: the 11B MMDiT as one .safetensors in the
+    published unfused layout into 256px.py's fused model (and quantized at
+    load for 256px_int8attn.py), the HunyuanVAE, T5-XXL as a sharded
+    HF directory, CLIP-L as a CLIPModel file (its vision keys skipped), the
+    Flux image model in flux1-dev's layout (fused, q/k rows in the
+    interleaved pairing) and the 2D Flux AE. Every loaded tensor equals its
+    checksum; each loaded step equals its phase's first step. Files are
+    deleted after their check (the VAE's is kept for phase 14)."""
+    from opensora_torch.ops.quant import quantize_model_
+    from opensora_torch.registry import MODELS, build_module
+    from opensora_torch.utils.api import prepare_models, prepare_optional_models
+    from opensora_torch.utils.ckpt import export_mmdit_state_dict
+    from opensora_torch.utils.config import parse_configs
+    from opensora_torch.utils.misc import torch_dtype
+    from opensora_torch.utils.safetensors_io import save_sharded
+
+    res = {"writes": [], "steps": {}}
+    base_cfg = MAIN_CFG
+    cfg = parse_configs([base_cfg])
+    log("[ckpt] phase 4's models drawn again from the seed, written, freed and loaded back")
+    free()
+    model, ae, t5, clip, _ = prepare_models(cfg, device=device, seed=cfg.seed)
+    n_blocks = cfg.model["depth"] + cfg.model["depth_single_blocks"]
+    res["steps"]["rebuild_256px"] = check_replay("256px step of the model drawn again vs phase 4's",
+                                                records["main"], model, device,
+                                                {"flash_attention_fwd_sm90": n_blocks})
+    text_dtype = torch_dtype(cfg.get("dtype", "bf16"))
+    with LoadRecorder() as rec:
+        # T5-XXL as a sharded HF directory, CLIP-L as a CLIPModel file
+        t5_dir = os.path.join(root, "t5_v1_1_xxl")
+        t0 = time.perf_counter()
+        shards = save_sharded(t5.module.state_dict(), t5_dir, T5_SHARD_BYTES)
+        res["writes"].append(dict(file="t5_v1_1_xxl/ (%d shards + index)" % len(shards), gb=file_bytes(t5_dir) / 1e9,
+                                  write_s=time.perf_counter() - t0))
+        want = checksums(t5.module.state_dict())
+        t5_loaded = build_module(dict(cfg.t5, from_pretrained=t5_dir), MODELS, device=device, dtype=text_dtype)
+        compare_checksums("T5-XXL (sharded directory)", checksums(t5_loaded.module.state_dict()), want)
+        res["steps"]["t5"] = check_replay("T5-XXL loaded: embeddings of phase 4's prompts", records["t5"],
+                                          t5_loaded, device, {})
+        del t5_loaded, t5
+        free()
+        shutil.rmtree(t5_dir)
+        clip_dir = os.path.join(root, "clip_vit_large")
+        os.makedirs(clip_dir)
+        gen = torch.Generator(device=device).manual_seed(0)
+        extras = {k: torch.randn(s, generator=gen, device=device).to(text_dtype) for k, s in CLIP_EXTRAS.items()}
+        extras["text_model.embeddings.position_ids"] = torch.arange(77, device=device)[None]
+        res["writes"].append(write_checkpoint({**clip.module.state_dict(), **extras},
+                                              os.path.join(clip_dir, "model.safetensors")))
+        want = checksums(clip.module.state_dict())
+        clip_loaded = build_module(dict(cfg.clip, from_pretrained=clip_dir), MODELS, device=device, dtype=text_dtype)
+        compare_checksums("CLIP-L (CLIPModel file)", checksums(clip_loaded.module.state_dict()), want)
+        res["steps"]["clip"] = check_replay("CLIP-L loaded: pooled embeddings of phase 4's prompts", records["clip"],
+                                            clip_loaded, device, {})
+        del clip_loaded, clip, extras
+        free()
+        shutil.rmtree(clip_dir)
+
+        # the 11B MMDiT in the published unfused layout, the HunyuanVAE
+        mmdit_path = os.path.join(root, "Open_Sora_v2.safetensors")
+        vae_path = os.path.join(root, "hunyuan_vae.safetensors")
+        res["writes"].append(write_checkpoint(export_mmdit_state_dict(model, fused=False), mmdit_path))
+        res["writes"].append(write_checkpoint(ae.state_dict(), vae_path))
+        want_model, want_ae = checksums(model.state_dict()), checksums(ae.state_dict())
+        quantize_model_(model, parse_configs([INT8_CFG]).model["quantized"])
+        want_int8 = checksums(model.state_dict())
+        del model, ae
+        free()
+        torch.cuda.reset_peak_memory_stats(device)
+        model, ae, t5, clip, _ = prepare_models(
+            parse_configs([base_cfg, "--model.from_pretrained", mmdit_path, "--ae.from_pretrained", vae_path]),
+            device=device, seed=cfg.seed)
+        res["peak_mem_gb_256px_load"] = torch.cuda.max_memory_allocated(device) / 1e9
+        del t5, clip
+        compare_checksums("MMDiT (unfused file into the fused model)", checksums(model.state_dict()), want_model)
+        compare_checksums("HunyuanVAE", checksums(ae.state_dict()), want_ae)
+        res["steps"]["256px"] = check_replay("256px step of the loaded MMDiT vs phase 4's first step",
+                                             records["main"], model, device, {"flash_attention_fwd_sm90": n_blocks})
+        del model, ae
+        free()
+        cfg_q = parse_configs([INT8_CFG, "--model.from_pretrained", mmdit_path, "--ae.from_pretrained", vae_path])
+        model, ae, t5, clip, _ = prepare_models(cfg_q, device=device, seed=cfg.seed)
+        del ae, t5, clip
+        compare_checksums("MMDiT quantized at load vs quantize_model_ of the float weights",
+                          checksums(model.state_dict()), want_int8)
+        depth, single = cfg_q.model["depth"], cfg_q.model["depth_single_blocks"]
+        res["steps"]["256px_int8attn"] = check_replay(
+            "256px_int8attn step of the loaded, quantized MMDiT vs phase 6's first step", records["int8"], model,
+            device, {"w8a8_matmul": 10 * depth + 3 * single, "int8_flash_attention": depth + single})
+        del model
+        free()
+        os.remove(mmdit_path)
+
+        # the Flux image model in flux1-dev's layout, the 2D Flux AE
+        cfg_i = parse_configs([T2I2V_CFG])
+        torch.manual_seed(cfg_i.seed)
+        optional = prepare_optional_models(cfg_i, device)
+        img_flux, img_ae = optional["img_flux"], optional["img_flux_ae"]
+        n_img = cfg_i.img_flux["depth"] + cfg_i.img_flux["depth_single_blocks"]
+        res["steps"]["rebuild_image"] = check_replay("image step of the model drawn again vs phase 11's",
+                                                     records["img_flux"], img_flux, device,
+                                                     {"flash_attention_fwd_sm90": n_img})
+        flux_path, ae2d_path = os.path.join(root, "flux1-dev.safetensors"), os.path.join(root, "ae.safetensors")
+        flux1_dev_layout = export_mmdit_state_dict(img_flux, fused=True, rope_convention="interleaved")
+        res["writes"].append(write_checkpoint(flux1_dev_layout, flux_path))
+        del flux1_dev_layout
+        res["writes"].append(write_checkpoint(img_ae.state_dict(), ae2d_path))
+        want_flux, want_ae2d = checksums(img_flux.state_dict()), checksums(img_ae.state_dict())
+        del optional, img_flux, img_ae
+        free()
+        cfg_il = parse_configs([T2I2V_CFG, "--img_flux.from_pretrained", flux_path,
+                                "--img_flux_ae.from_pretrained", ae2d_path])
+        optional = prepare_optional_models(cfg_il, device)
+        compare_checksums(f"Flux image model (flux1-dev layout, ckpt_rope_convention="
+                          f"{cfg_il.img_flux['ckpt_rope_convention']})", checksums(optional["img_flux"].state_dict()),
+                          want_flux)
+        compare_checksums("2D Flux AE", checksums(optional["img_flux_ae"].state_dict()), want_ae2d)
+        res["steps"]["image"] = check_replay("image step of the loaded Flux model vs phase 11's first step",
+                                             records["img_flux"], optional["img_flux"], device,
+                                             {"flash_attention_fwd_sm90": n_img})
+        res["steps"]["image_decode"] = check_replay("2D Flux AE decode of the loaded AE vs phase 11's",
+                                                    records["img_decode"], optional["img_flux_ae"].decode, device, {})
+        del optional
+        free()
+        os.remove(flux_path)
+        os.remove(ae2d_path)
+    res["loads"] = rec.loads
+    res["vae_file"] = vae_path
+    return res
+
+
+def write_clip_csv(root: str, n: int = CLI_CLIPS, frames: int = CLI_FRAMES, size: int = CLI_SIZE, seed: int = 0):
+    """``n`` seeded clips (moving noise, mp4 through OpenCV) and their CSV."""
+    import cv2
+    import numpy as np
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        path = os.path.join(root, f"clip{i}.mp4")
+        writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 16.0, (size, size))
+        base = rng.integers(0, 255, (size, size, 3), np.uint8)
+        for k in range(frames):
+            writer.write(np.roll(base, 4 * k, axis=1))
+        writer.release()
+        rows.append(f"{path},clip {i},{size},{size},{frames},16.0")
+    csv = os.path.join(root, "meta.csv")
+    with open(csv, "w") as f:
+        f.write("path,text,height,width,num_frames,fps\n" + "\n".join(rows) + "\n")
+    return csv
+
+
+def run_vae_cli_path(device, vae_file: str, root: str) -> dict:
+    """Phase 14: ``vae_inference`` and ``vae_stats`` on
+    configs/vae/inference/hunyuan_vae.py with phase 13's HunyuanVAE file and
+    on video_dc_ae.py with phase 8's DC-AE (drawn from its seed, written in
+    upstream names), over 4 seeded 33 x 256 x 256 clips: the CLIs' latent
+    mean and std equal a direct encode's of the same batches with the same
+    generator, PSNR is finite, and the D = 512 launches are exactly the
+    mid-blocks of the encode (and decode) tiles (none for the DC-AE)."""
+    from opensora_torch import vae_inference, vae_stats
+    from opensora_torch.ops import _build
+    from opensora_torch.utils.ckpt import init_ae
+    from opensora_torch.utils.config import parse_configs
+
+    csv = write_clip_csv(os.path.join(root, "clips"))
+    dcae_path = os.path.join(root, "dc_ae.safetensors")
+    vae_cfg = parse_configs([VAE_CFG])
+    dcae = init_ae(dict(vae_cfg.model), device, vae_cfg.get("seed", 42), param_dtype="fp32")  # phase 8's, as built
+    write_checkpoint(dcae.state_dict(), dcae_path)
+    del dcae
+    free()
+    res = {}
+    for kind, ckpt in (("hunyuan_vae", vae_file), ("dc_ae", dcae_path)):
+        argv = [VAE_CLI_CFGS[kind], "--model.from_pretrained", ckpt, "--dataset.data_path", csv,
+                "--save_dir", os.path.join(root, f"recon_{kind}"), "--device", str(device)]
+        _build.LAUNCHES.clear()
+        inf = vae_inference.main(list(argv))
+        inf_launches = dict(_build.LAUNCHES)
+        _build.LAUNCHES.clear()
+        st = vae_stats.main(list(argv))
+        st_launches = dict(_build.LAUNCHES)
+        # the direct encode of the same batches with the same generator
+        cfg, dataloader, ae, _, gen, _ = vae_inference.prepare_vae_eval(list(argv), lambda c: True)
+        stats, enc_mid, dec_mid, n = vae_inference.LatentStats(), 0, 0, 0
+        with torch.inference_mode():
+            for batch in dataloader:
+                x = torch.as_tensor(batch["video"]).to(device, torch.float32)
+                z = ae.encode(x, generator=gen)
+                stats.add(z)
+                n += x.shape[0]
+                if kind == "hunyuan_vae":
+                    enc_mid += hunyuan_mid_launches(ae, tuple(x.shape), decode=False)
+                    dec_mid += hunyuan_mid_launches(ae, tuple(z.shape), decode=True)
+        direct = stats.result()
+        del ae
+        free()
+        expect_inf = {"flash_attention_fwd_d512": enc_mid + dec_mid} if enc_mid + dec_mid else {}
+        expect_st = {"flash_attention_fwd_d512": enc_mid} if enc_mid else {}
+        keys = ("latent_mean", "latent_std", "latent_count")
+        r = dict(clips=n, inference={k: inf[k] for k in ("psnr", "psnr_mean", "seconds_per_clip") + keys},
+                 stats={k: st[k] for k in ("seconds_per_clip",) + keys}, direct={k: direct[k] for k in keys},
+                 scale_factor=inf["scale_factor"], shift_factor=inf["shift_factor"],
+                 launches_inference=inf_launches, expected_inference=expect_inf,
+                 launches_stats=st_launches, expected_stats=expect_st)
+        log(f"[vae_cli] {kind}: {json.dumps(r)}")
+        if n != CLI_CLIPS or any(inf[k] != direct[k] or st[k] != direct[k] for k in keys):
+            raise AssertionError(f"{kind}: the CLIs' latent statistics are not the direct encode's")
+        if not all(math.isfinite(p) for p in inf["psnr"]):
+            raise AssertionError(f"{kind}: PSNR not finite: {inf['psnr']}")
+        if inf_launches != expect_inf or st_launches != expect_st:
+            raise AssertionError(f"{kind}: D = 512 launches {inf_launches} / {st_launches} != {expect_inf} / "
+                                 f"{expect_st}")
+        res[kind] = r
+    os.remove(dcae_path)
     return res
 
 
@@ -2616,12 +3048,13 @@ def main(argv) -> int:
     small_ring = check_small_input(device, ring_mesh(device))
     small_ring_train = check_train_small_input(device, ring_mesh(device))
     small_t2i = check_t2i_small_input(device)
-    main_res, built = run_main_path(device, "--profile" in argv, out_dir)
+    records: dict = {}  # first calls of phases 4, 6 and 11, replayed by phase 13
+    main_res, built = run_main_path(device, "--profile" in argv, out_dir, records)
     main_res["small_input"] = small
     ring_res = run_ring_path(device, built, "--profile" in argv, out_dir)
     ring_res["small_input"] = small_ring
     with tempfile.TemporaryDirectory() as tmp:
-        t2i2v_res = run_t2i2v_path(device, built, tmp, "--profile" in argv, out_dir)
+        t2i2v_res = run_t2i2v_path(device, built, tmp, "--profile" in argv, out_dir, records)
         t2i2v_res["small_input"] = small_t2i
         v2v_res = run_v2v_path(device, built, tmp)
     del built
@@ -2634,7 +3067,7 @@ def main(argv) -> int:
     del built
     gc.collect()
     torch.cuda.empty_cache()
-    int8_res = run_int8_path(device, [], STEPS, "--profile" in argv, out_dir, "int8")
+    int8_res = run_int8_path(device, [], STEPS, "--profile" in argv, out_dir, "int8", records)
     int8_res["small_input"] = small_int8
     fq_res = run_int8_path(device, ["--model.quantized", "w8a8_fq", "--model.attn_backend", "int8"], INT8_FQ_STEPS,
                            tag="int8_fq")
@@ -2647,6 +3080,10 @@ def main(argv) -> int:
     vae_res["small_input"] = small_vae
     dcae_res = run_vae_train_path(device, "dc_ae", DCAE_STEPS, 32, tag="dcae", profile="--profile" in argv,
                                   out_dir=out_dir)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_res = run_ckpt_path(device, records, tmp)
+        cli_res = run_vae_cli_path(device, ckpt_res.pop("vae_file"), tmp)
+    del records
     sm90_cases = [c for c in attn["cases"] if c["kernel"] == "flash_attention_fwd_sm90"]
     d512_cases = [c for c in attn["cases"] if c["kernel"] == "flash_attention_fwd_d512"]
     head = sm90_cases[0]  # the MMDiT shape, anchored: the main path's hot call
@@ -2662,6 +3099,8 @@ def main(argv) -> int:
         launches_t2i2v=dict(image=t2i2v_res["image_launches"]["flash_attention_fwd_sm90"],
                             image_and_i2v_video=t2i2v_res["launches"]["flash_attention_fwd_sm90"],
                             v2v=v2v_res["launches"]["flash_attention_fwd_sm90"]),
+        launches_ckpt={k: ckpt_res["steps"][k]["launches"].get("flash_attention_fwd_sm90", 0)
+                       for k in ("256px", "image")},
         max_abs_err=max(c["max_abs_err"] for c in sm90_cases),
         ms=head["ms"], ms_is="flash_attention_with_lse (the bound A on the device, then the kernel), the mean of "
         "4 readings in turns with SDPA's 4 (library_ms)", anchor_ms=head["anchor_ms"],
@@ -2683,6 +3122,8 @@ def main(argv) -> int:
         launches_vae_train=vae_res["launches"]["flash_attention_fwd_d512"],
         launches_t2i2v=dict(i2v_encode_and_decode=t2i2v_res["launches"]["flash_attention_fwd_d512"],
                             v2v_encode_and_decode=v2v_res["launches"]["flash_attention_fwd_d512"]),
+        launches_vae_cli={k: cli_res["hunyuan_vae"][k].get("flash_attention_fwd_d512", 0)
+                          for k in ("launches_inference", "launches_stats")},
         max_abs_err=max(c["max_abs_err"] for c in d512_cases),
         ms=head["ms"], ms_is="flash_attention_with_lse, the mean of 4 readings in turns with SDPA's 4 (library_ms)",
         plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
@@ -2784,6 +3225,7 @@ def main(argv) -> int:
             replaces=f"opensora_tpu/ops/int8_matmul.py:{line}", also_replaces=also,
             launches=sum(r["launches"].get(name, 0) for r in runs.values()),
             launches_by_run={tag: r["launches"].get(name, 0) for tag, r in runs.items()},
+            launches_ckpt_int8_step=ckpt_res["steps"]["256px_int8attn"]["launches"].get(name, 0),
             max_abs_err=max(c[name]["max_abs_err"] for c in gemm["cases"]),
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], shape_mkn=gemm_head["shape_mkn"],
@@ -2799,6 +3241,7 @@ def main(argv) -> int:
             replaces="opensora_tpu/ops/int8_flash.py:144",
             also_replaces="opensora_tpu/ops/int8_flash.py:62 (the running-max loop) and :230 (the dispatch)",
             mode=mode, launches=res["launches"].get(name, 0),
+            launches_ckpt_int8_step=ckpt_res["steps"]["256px_int8attn"]["launches"].get(name, 0),
             max_abs_err=max(c["max_abs_err"] for c in mine),
             ms=head["ms"], ms_is="the kernel alone on the preamble's output, the mean of 4 readings in turns with "
             "the wrapper's and bf16 SDPA's", ms_turns=head["ms_turns"], wrapper_ms=head["wrapper_ms"],
@@ -2840,6 +3283,8 @@ def main(argv) -> int:
     log("[int8_fq] " + json.dumps(fq_res))
     log("[vae] " + json.dumps(vae_res))
     log("[dcae] " + json.dumps(dcae_res))
+    log("[ckpt] " + json.dumps(ckpt_res))
+    log("[vae_cli] " + json.dumps(cli_res))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

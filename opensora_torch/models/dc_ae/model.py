@@ -21,6 +21,7 @@ unset, they are in the compute dtype.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
@@ -306,11 +307,15 @@ def dc_ae_f32(name: str = "dc-ae-f32t4c128", **overrides) -> DCAEConfig:
 @MODELS.register_module("dc_ae")
 def DC_AE(model_name: str = "dc-ae-f32t4c128", from_pretrained: Optional[str] = None, device=None,
           **kwargs) -> DCAE:
-    if from_pretrained:
-        raise NotImplementedError(
-            f"from_pretrained={from_pretrained!r}: checkpoint loading is not ported yet (ROADMAP); "
-            "leave it unset for random weights from the seed")
+    """Build from a config dict's entries (unknown keys are ignored): weights
+    from the checkpoint ``from_pretrained`` names (upstream DC-AE names),
+    else random."""
+    from opensora_torch.utils.ckpt import load_checkpoint
+
     known = set(DCAEConfig.__dataclass_fields__)
     cfg = dc_ae_f32(model_name, **{k: v for k, v in kwargs.items() if k in known})
-    return DCAE(cfg, device=device, dtype=torch_dtype(cfg.param_dtype or cfg.dtype),
-                compute_dtype=torch_dtype(cfg.dtype))
+    build = functools.partial(DCAE, cfg, dtype=torch_dtype(cfg.param_dtype or cfg.dtype),
+                              compute_dtype=torch_dtype(cfg.dtype))
+    if from_pretrained:
+        return load_checkpoint(build(device="meta"), from_pretrained, "dc_ae", device)
+    return build(device=device)

@@ -23,6 +23,7 @@ tensors at once beside the resident models.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass, field
 from typing import Optional, Sequence, Tuple
@@ -378,9 +379,16 @@ def checkpoint_if(enabled: bool, fn, *args):
 
 @MODELS.register_module("hunyuan_vae")
 def CausalVAE3D_HUNYUAN(from_pretrained: Optional[str] = None, device=None, **kwargs) -> AutoencoderKLCausal3D:
+    """Build from a config dict's entries (unknown keys are ignored): weights
+    from the checkpoint ``from_pretrained`` names (the names of the JAX
+    package's ``export_hunyuan_vae_state_dict``), else random."""
+    from opensora_torch.utils.ckpt import load_checkpoint
     from opensora_torch.utils.misc import torch_dtype
 
     known = set(AutoEncoder3DConfig.__dataclass_fields__)
     cfg = AutoEncoder3DConfig(from_pretrained=from_pretrained, **{k: v for k, v in kwargs.items() if k in known})
-    return AutoencoderKLCausal3D(cfg, device=device, dtype=torch_dtype(cfg.param_dtype or cfg.dtype),
-                                 compute_dtype=torch_dtype(cfg.dtype))
+    build = functools.partial(AutoencoderKLCausal3D, cfg, dtype=torch_dtype(cfg.param_dtype or cfg.dtype),
+                              compute_dtype=torch_dtype(cfg.dtype))
+    if from_pretrained:
+        return load_checkpoint(build(device="meta"), from_pretrained, "hunyuan_vae", device)
+    return build(device=device)

@@ -16,7 +16,8 @@ backward; "dots" also keeps every matmul output (selective checkpointing).
 builds every linear of the blocks as an int8 ``QuantLinear``
 (``ops/quant.py``), zero-initialized as in the JAX package; a quantized
 model for serving comes from a float one by ``quantize_model_`` or from a
-quantized state dict.
+quantized state dict; ``from_pretrained`` quantizes the checkpoint's float
+weights as they load (``utils/ckpt.load_checkpoint``).
 """
 
 from __future__ import annotations
@@ -60,7 +61,7 @@ class MMDiTConfig:
     patch_size: int = 2
     rope_convention: str = "split"
     # the RoPE pairing the from_pretrained weights were trained with (original
-    # Flux checkpoints: "interleaved"); read by a checkpoint loader
+    # Flux checkpoints: "interleaved"); the loader permutes q/k rows to rope_convention
     ckpt_rope_convention: str = "split"
     # None = flash attention; "xla" = plain attention; "int8" / "int8_qk8" = int8 attention
     attn_backend: Optional[str] = None
@@ -178,11 +179,18 @@ class MMDiTModel(nn.Module):
 @MODELS.register_module("flux")
 def Flux(from_pretrained: Optional[str] = None, dtype: str = "bf16", device=None, **kwargs) -> MMDiTModel:
     """Build an MMDiT from a config dict's entries; unknown keys are ignored.
-    Weights are random (nn.Linear init, zero ``cond_in``) in the torch dtype
-    named by ``dtype``; ``from_pretrained`` is recorded for a loader."""
+    Weights, in the torch dtype named by ``dtype``, are loaded from the
+    checkpoint ``from_pretrained`` names (either upstream layout and RoPE
+    pairing, quantized at load for a ``quantized`` config; see
+    ``utils/ckpt.load_checkpoint``), else random (nn.Linear init, zero
+    ``cond_in``)."""
+    from opensora_torch.utils.ckpt import load_checkpoint
     from opensora_torch.utils.misc import torch_dtype
 
     known = set(MMDiTConfig.__dataclass_fields__)
     config = MMDiTConfig(from_pretrained=from_pretrained, dtype=dtype,
                          **{k: v for k, v in kwargs.items() if k in known})
+    if from_pretrained:
+        return load_checkpoint(MMDiTModel(config, device="meta", dtype=torch_dtype(dtype)), from_pretrained,
+                               "mmdit", device)
     return MMDiTModel(config, device=device, dtype=torch_dtype(dtype))

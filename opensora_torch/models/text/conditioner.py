@@ -5,13 +5,23 @@ counterpart of opensora_tpu/models/text/conditioner.py.
   (added_tokens + txt_len) % seq_align == 0;
 - CLIP pads/truncates to ``max_length`` (77) and returns the pooled EOT state.
 
+Weights come from a local Hugging Face directory or file that
+``from_pretrained`` names (its ``model.safetensors``, sharded safetensors
+with their index, or ``pytorch_model.bin``; read by ``utils/ckpt``, without
+``transformers``); a name that is no local path (``"google/t5-v1_1-xxl"``
+on a machine without it) keeps the seeded random weights and logs so, as
+the JAX package does. A local path that fails to load raises (the JAX
+package falls back to random weights there).
+
 Tokenization is the deterministic byte-fallback tokenizer, the path the JAX
-package takes too when no tokenizer assets are present. HF tokenizers and
-pretrained text weights wait until those assets are in the repository.
+package takes too when no tokenizer assets are present; tokenizers read
+from the checkpoint directory's own files are a later item (ROADMAP).
 """
 
 from __future__ import annotations
 
+import logging
+import os
 from typing import List, Optional
 
 import numpy as np
@@ -52,8 +62,9 @@ class ByteFallbackTokenizer:
 @MODELS.register_module("text_embedder")
 class HFEmbedder(nn.Module):
     """text -> embeddings: T5 last hidden state, or CLIP pooled output when
-    ``from_pretrained`` names a CLIP model. Weights are random (the module's
-    default init) until pretrained loading lands."""
+    ``from_pretrained`` names a CLIP model. Weights are loaded where
+    ``from_pretrained`` is a local path, else random (the module's default
+    init; see the module docstring)."""
 
     def __init__(
         self,
@@ -70,14 +81,23 @@ class HFEmbedder(nn.Module):
         self.is_clip = "openai" in from_pretrained or "clip" in from_pretrained.lower()
         self.max_length = max_length
         self.from_pretrained = from_pretrained
+        local = bool(from_pretrained) and os.path.exists(from_pretrained)
+        if from_pretrained and not local:
+            logging.getLogger(__name__).info("%s is no local path: %s weights are random", from_pretrained,
+                                             "CLIP" if self.is_clip else "T5")
+        factory = dict(device="meta" if local else device, dtype=dtype)
         if self.is_clip:
             self.config = clip_config or (clip_small_test_config() if _tiny else clip_l_config())
-            self.module = CLIPTextModel(self.config, device=device, dtype=dtype)
+            self.module = CLIPTextModel(self.config, **factory)
             eos = self.config.eos_token_id
         else:
             self.config = t5_config or (t5_small_test_config() if _tiny else t5_xxl_config())
-            self.module = T5Encoder(self.config, device=device, dtype=dtype)
+            self.module = T5Encoder(self.config, **factory)
             eos = 1
+        if local:
+            from opensora_torch.utils.ckpt import load_checkpoint
+
+            load_checkpoint(self.module, from_pretrained, "clip" if self.is_clip else "t5", device)
         self.tokenizer = ByteFallbackTokenizer(self.config.vocab_size, max_length, eos)
         self.pad_token_id = self.tokenizer.pad_token_id
 

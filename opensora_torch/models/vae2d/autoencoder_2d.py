@@ -13,6 +13,7 @@ H*W tokens, one head of the full channel width.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
@@ -249,9 +250,15 @@ class AutoEncoder2D(nn.Module):
 @MODELS.register_module("autoencoder_2d")
 def AutoEncoderFlux(from_pretrained: Optional[str] = None, device=None, **kwargs) -> AutoEncoder2D:
     """Build from a config dict's entries; unknown keys are ignored, as the
-    JAX builder ignores them."""
+    JAX builder ignores them. Weights from the checkpoint ``from_pretrained``
+    names (upstream Flux names, e.g. ``ae.safetensors``), else random."""
+    from opensora_torch.utils.ckpt import load_checkpoint
     from opensora_torch.utils.misc import torch_dtype
 
     known = set(AutoEncoderConfig.__dataclass_fields__)
     cfg = AutoEncoderConfig(from_pretrained=from_pretrained, **{k: v for k, v in kwargs.items() if k in known})
-    return AutoEncoder2D(cfg, device=device, dtype=torch_dtype(cfg.param_dtype), compute_dtype=torch_dtype(cfg.dtype))
+    build = functools.partial(AutoEncoder2D, cfg, dtype=torch_dtype(cfg.param_dtype),
+                              compute_dtype=torch_dtype(cfg.dtype))
+    if from_pretrained:
+        return load_checkpoint(build(device="meta"), from_pretrained, "vae2d", device)
+    return build(device=device)

@@ -73,7 +73,10 @@ class NLayerDiscriminator3D(nn.Module):
 @MODELS.register_module("N_Layer_discriminator_3D")
 def build_discriminator_3d(from_pretrained: Optional[str] = None, device=None, **kwargs) -> NLayerDiscriminator3D:
     if from_pretrained:
+        # the JAX builder ignores from_pretrained and draws random weights
+        # (ROADMAP Queue 3 R9); raising says so rather than training from them
         raise NotImplementedError(
-            "loading a pretrained discriminator is not ported yet (ROADMAP): no checkpoint is in the repository")
+            "loading a pretrained discriminator is not ported (the JAX package ignores from_pretrained here; "
+            "ROADMAP Queue 3 R9)")
     known = ("input_nc", "ndf", "n_layers", "dropout", "dtype", "param_dtype")
     return NLayerDiscriminator3D(**{k: v for k, v in kwargs.items() if k in known}, device=device)

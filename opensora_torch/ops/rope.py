@@ -3,7 +3,10 @@ opensora_tpu/ops/rope.py).
 
 Two pairings: "split" (rotate-half, pairs (i, i + D/2); the published
 Open-Sora v2 checkpoints' layout) and "interleaved" (Flux original, pairs
-(2i, 2i + 1)). Tables are (cos, sin), each (B, L, D/2) fp32.
+(2i, 2i + 1)). Tables are (cos, sin), each (B, L, D/2) fp32. A checkpoint
+trained in one pairing serves in the other once its q/k projection rows
+are permuted (:func:`permute_qk_weight`): attention is unchanged by the
+basis change.
 """
 
 from __future__ import annotations
@@ -46,3 +49,23 @@ def apply_rope_interleaved(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     c = cos[..., None, :].float()
     s = sin[..., None, :].float()
     return torch.stack([x0 * c - x1 * s, x0 * s + x1 * c], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def interleaved_to_split_permutation(dim: int) -> torch.Tensor:
+    """perm[d]: the interleaved-layout channel that split-layout channel d
+    comes from (d < D/2: 2d, else 2(d - D/2) + 1)."""
+    return torch.cat([torch.arange(0, dim, 2), torch.arange(1, dim, 2)])
+
+
+def permute_qk_weight(w: torch.Tensor, num_heads: int, head_dim: int, dim: int = 0,
+                      inverse: bool = False) -> torch.Tensor:
+    """A q/k projection's weight (out, in) or bias (out,), its output
+    features on ``dim`` laid out as (num_heads, head_dim), from the
+    interleaved to the split pairing (``inverse``: back)."""
+    perm = interleaved_to_split_permutation(head_dim).to(w.device)
+    if inverse:
+        perm = torch.argsort(perm)
+    w = w.movedim(dim, 0)
+    shape = w.shape
+    w = w.reshape(num_heads, head_dim, *shape[1:])[:, perm].reshape(shape)
+    return w.movedim(0, dim)

@@ -5,11 +5,13 @@ scripts/diffusion/train.py).
         [--dotted.key value ...] [--device cpu]
 
 The same configs and overrides as the JAX script: a bucketed video-text
-dataloader, the MMDiT / VAE / T5 / CLIP built from the config (random
-weights from ``seed``; ``from_pretrained`` is not ported and raises), LoRA
-when ``lora_config`` is set (EMA only without LoRA), the rectified-flow
-step, logging to ``<outputs>/<exp_name>/log.txt``, checkpoints every
-``ckpt_every`` steps and at the end, and resume from ``load``.
+dataloader, the MMDiT / VAE / T5 / CLIP built from the config (each loaded
+from its ``from_pretrained`` where set, checked against the model's shapes
+and cast to its dtype, else random weights from ``seed``), LoRA factors on
+the (loaded) base when ``lora_config`` is set (EMA only without LoRA), the
+rectified-flow step, logging to ``<outputs>/<exp_name>/log.txt``,
+checkpoints every ``ckpt_every`` steps and at the end, and resume from
+``load``.
 
 :class:`Trainer` holds the models and the train state;
 :meth:`Trainer.run_batch` is the body of one iteration -- encode the video,
@@ -65,6 +67,8 @@ class Trainer:
         seed = cfg.get("seed", 42)
         self.model, self.ae, self.t5, self.clip, _ = prepare_models(cfg, device=device, seed=seed)
         self.device = next(self.model.parameters()).device
+        if cfg.model.get("from_pretrained"):
+            self.logger.info("loaded pretrained MMDiT weights from %s", cfg.model["from_pretrained"])
         self.logger.info("MMDiT params: %s on %s", format_numel(count_params(self.model.parameters())), self.device)
         self.patch_size = cfg.get("patch_size", 2)
         self.gen = torch.Generator(device=self.device).manual_seed(seed)

@@ -7,9 +7,9 @@ scripts/vae/train.py).
 The same configs and overrides as the JAX script: a bucketed video
 dataloader; the autoencoder of ``model`` (``dc_ae``, or ``hunyuan_vae``
 with ``--model.type hunyuan_vae``: the HunyuanVAE builder drops the keys it
-does not know) with random weights from ``seed`` in fp32 master weights
-under the config's compute ``dtype`` (``from_pretrained`` is not ported
-and raises); the 3D discriminator with its own AdamW when
+does not know) in fp32 master weights under the config's compute ``dtype``,
+loaded from ``model.from_pretrained`` where it is set, else random from
+``seed``; the 3D discriminator with its own AdamW when
 ``discriminator`` is set; LPIPS only when ``vgg_ckpt`` names a file on
 disk; the ``mixed_strategy`` truncations drawn from a numpy
 ``default_rng(seed)``; the EMA; logging to ``<outputs>/<exp_name>/log.txt``;

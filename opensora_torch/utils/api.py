@@ -2,10 +2,11 @@
 opensora_tpu/utils/api.py).
 
 ``prepare_models`` builds the MMDiT, the VAE and the two text encoders on
-one device with random weights from a seed (a ``model.quantized`` config
-draws the float MMDiT and quantizes each block as it is built, as the JAX
-package quantizes a loaded checkpoint), and the t2i2v image stage
-(``img_flux``, ``img_flux_ae``) where the config has one. ``prepare_api``
+one device, and the t2i2v image stage (``img_flux``, ``img_flux_ae``) where
+the config has one: each from the checkpoint its ``from_pretrained`` names,
+else with random weights from a seed (a ``model.quantized`` config
+quantizes the MMDiT's blocks as they load, or draws the float MMDiT and
+quantizes each block as it is built). ``prepare_api``
 returns ``api_fn``, which draws the latent noise, encodes the references
 of an i2v / v2v cond type and hands both to ``generate``: text encode ->
 denoise (I2V with the references' masks, or distilled) -> unpack -> the
@@ -39,28 +40,29 @@ def prepare_models(cfg, device=None, seed: int = 0):
     """Build (model, ae, t5, clip, optional) from the config's dicts on
     ``device`` (default cuda), in eval mode without gradients; ``optional``
     holds ``img_flux`` and ``img_flux_ae`` where the config has them (the
-    t2i2v image stage), else it is empty. Weights are random, drawn from
-    ``seed``; the text encoders take the config's top-level ``dtype``. With
-    ``model.quantized`` set, the MMDiT is drawn in its float dtype and the
-    linears of each block are swapped for their int8 twins as soon as the
-    block is built (``quantize_as_built``; the JAX package quantizes a
-    loaded checkpoint, opensora_tpu/utils/ckpt.py:553-559): a QuantLinear
-    built directly holds zeros, which would serve nothing."""
+    t2i2v image stage), else it is empty. A model whose dict sets
+    ``from_pretrained`` is loaded from that checkpoint (a local directory or
+    file for T5 / CLIP); the others are random, drawn from ``seed`` in the
+    order model, ae, t5, clip (a loaded model draws nothing, so the draws
+    of a config without a checkpoint are as they always were). The text
+    encoders take the config's top-level ``dtype``. With ``model.quantized``
+    set, a loaded MMDiT is quantized as its weights land (the JAX package's
+    ``load_model_bundle``, opensora_tpu/utils/ckpt.py:553-559); a drawn one
+    in its float dtype with the linears of each block swapped for their
+    int8 twins as soon as the block is built (``quantize_as_built``): a
+    QuantLinear built directly holds zeros, which would serve nothing."""
     device = resolve_device(device)
-    for name in ("model", "ae", "img_flux", "img_flux_ae"):
-        if (cfg.get(name) or {}).get("from_pretrained"):
-            raise NotImplementedError(
-                f"{name}.from_pretrained: checkpoint loading is not ported yet "
-                "(opensora_torch.utils.weights carries JAX parameters)"
-            )
     text_dtype = torch_dtype(cfg.get("dtype", "bf16"))
     with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):
         torch.manual_seed(seed)
         quantized = quant_mode(cfg.model.get("quantized", False))
-        with quantize_as_built(quantized, (DoubleStreamBlock, SingleStreamBlock)):
-            model = build_module(dict(cfg.model, quantized=False), MODELS, device=device)
-        if quantized:
-            model.config.quantized = quantized
+        if cfg.model.get("from_pretrained"):
+            model = build_module(dict(cfg.model), MODELS, device=device)
+        else:
+            with quantize_as_built(quantized, (DoubleStreamBlock, SingleStreamBlock)):
+                model = build_module(dict(cfg.model, quantized=False), MODELS, device=device)
+            if quantized:
+                model.config.quantized = quantized
         ae = build_module(dict(cfg.ae), MODELS, device=device)
         t5 = build_module(dict(cfg.t5), MODELS, device=device, dtype=text_dtype)
         clip = build_module(dict(cfg.clip), MODELS, device=device, dtype=text_dtype)
@@ -72,8 +74,9 @@ def prepare_models(cfg, device=None, seed: int = 0):
 
 def prepare_optional_models(cfg, device) -> dict:
     """The t2i2v image stage, ``{"img_flux": ..., "img_flux_ae": ...}``
-    where the config has it (else {}), drawn from the current random state,
-    in eval mode without gradients."""
+    where the config has it (else {}), each loaded from its
+    ``from_pretrained`` or drawn from the current random state, in eval mode
+    without gradients."""
     if cfg.get("img_flux") is None:
         return {}
     optional = {name: build_module(dict(cfg[name]), MODELS, device=device) for name in ("img_flux", "img_flux_ae")}

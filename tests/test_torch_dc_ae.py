@@ -210,7 +210,7 @@ def test_dc_ae_builder_keeps_fp32_master_weights_under_bf16_compute():
     jm = JDCAE(JConfig())
     shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), jnp.zeros((1, 3, 4, 32, 32)))
     assert sum(p.numel() for p in full.parameters()) == sum(x.size for x in jax.tree.leaves(shapes["params"]))
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(FileNotFoundError, match="ckpt.safetensors"):  # the builder loads from_pretrained
         DC_AE(from_pretrained="ckpt.safetensors", device="meta")
     with pytest.raises(NotImplementedError):
         DC_AE(model_name="dc-ae-f64", device="meta")

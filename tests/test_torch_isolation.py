@@ -1,6 +1,8 @@
 """The port stands alone: no module of ``opensora_torch/``, and not
 ``chip_smoke.py``, imports JAX, flax, optax or anything of the JAX package
-(an AST scan of every import statement, at any depth)."""
+(an AST scan of every import statement, at any depth); nor ``safetensors``
+or ``transformers``, which the card's machine lacks: checkpoints are read
+by the port's own reader."""
 
 import ast
 import os
@@ -9,6 +11,7 @@ import pytest
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "opensora_tpu")
+CHECKPOINT_PACKAGES = ("safetensors", "transformers", "huggingface_hub")
 
 
 def _port_files():
@@ -37,6 +40,12 @@ def test_port_imports_nothing_of_jax(path):
     assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
 
 
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, REPO))
+def test_port_imports_no_checkpoint_package(path):
+    bad = [m for m in _imported(path) if m.split(".")[0] in CHECKPOINT_PACKAGES]
+    assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
 def test_scan_covers_every_module_of_the_port():
     """The scan finds each slice's modules, the VAE training slice's and the
     sequence-parallel slice's among them, so a new module cannot slip past
@@ -45,5 +54,6 @@ def test_scan_covers_every_module_of_the_port():
     for module in ("inference.py", "train.py", "train_vae.py", "training/vae.py", "models/cast_layers.py",
                    "models/dc_ae/model.py", "models/dc_ae/ops.py", "models/vae2d/losses.py",
                    "models/vae2d/discriminator.py", "models/vae2d/lpips.py", "ops/int8_flash.py",
-                   "parallel/mesh.py", "parallel/context.py", "parallel/comm.py", "ops/ring_flash.py", "ops/sp.py"):
+                   "parallel/mesh.py", "parallel/context.py", "parallel/comm.py", "ops/ring_flash.py", "ops/sp.py",
+                   "utils/ckpt.py", "utils/safetensors_io.py", "vae_inference.py", "vae_stats.py"):
         assert os.path.join("opensora_torch", module) in scanned, module
