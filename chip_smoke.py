@@ -144,13 +144,34 @@ video_dc_ae.py (phase 8's DC-AE drawn again and written) over 4 seeded
 33 x 256 x 256 mp4 clips: the latent statistics equal a direct encode's
 with the same generator, PSNR finite, D = 512 launches exactly the
 tiles' mid-blocks (none for the DC-AE), seconds per clip printed.
+The high-compression paths (Video DC-AE latents, patch 1), last: phase 2
+holds the D = 128 forward at their shapes, (3, 24, 2624, 128) for t2v at
+192 x 336 and (3, 24, 2560, 128) at 256 x 256, and phase 2b the backward at
+the training clip's (3, 24, 2560, 128); phase 3f checks one full-finetune
+step (fp32 masters, bf16 compute) of the training config's full-width MMDiT
+at depth 1 + 1 against the CPU's fp32 step, and, on phase 15's models, the
+full-width, full-depth MMDiT on a small latent (the CPU's plain path
+streamed block by block; a control with one block skipped must fail) and
+the DC-AE decoder; phase 15 runs configs/diffusion/inference/
+high_compression.py at full width and depth, t2v for 2 steps at 192 x 336,
+129 frames (decoded 128 x 192 x 352, as the JAX package decodes 11 latent
+columns), then i2v_head for 1 step from a seeded 256 x 256 image: shapes,
+finite videos, the first latent frame equal to the encoded reference, 57
+launches a step; phase 16 runs configs/diffusion/train/high_compression.py
+as a full finetune at full width and 2 + 4 blocks for 3 steps on a seeded
+128 x 256 x 256 clip, B = 3 (losses, moving parameters, exact launches,
+peak memory), one step from one saved state with remat_policy "full" and
+one with "offload" (equal losses, gradients within the backward's limit,
+the device memory held through the forward, offload's below full's, and
+the backward's peaks side by side), and rf_eval_loss over the trained
+model.
 Then it prints the card's name and power limit, one JSON line with the
 kernels' numbers, and last {"ok": true, "device": {...}}.
 
 ``--out-dir DIR`` writes the compiler's register/shared-memory report
 (build_log.txt) there; ``--profile`` adds a profiled second run of each
 path (kernel time by kind, device idle share; with ``--out-dir`` the full
-tables go to DIR/profile_{main,ring,t2i2v,train,ring_train,int8,vae,dcae}.txt).
+tables go to DIR/profile_{main,ring,t2i2v,train,ring_train,int8,vae,dcae,hc,hc_train}.txt).
 """
 
 from __future__ import annotations
@@ -433,6 +454,11 @@ ATTENTION_CASES = [
     ("mmdit_joint_anchored", (3, 24, 8828, 128), None, 1.0),
     ("mmdit_joint_running_max", (3, 24, 8828, 128), None, 3.0),
     ("flux_image_768px", (1, 24, 2816, 128), None, 1.0),  # the t2i2v image stage: 2304 image + 512 text tokens
+    # the high-compression paths (patch 1 over DC-AE latents, 512 text tokens):
+    # t2v at 192 x 336 (32 x 6 x 11 latent tokens) and, at the 256px bucket's
+    # 1:1 size, i2v_head and the training clip (32 x 8 x 8)
+    ("hc_t2v_192x336", (3, 24, 2624, 128), None, 1.0),
+    ("hc_256x256", (3, 24, 2560, 128), None, 1.0),
     ("vae_mid_tile_24x32", (1, 1, 33 * 768, 512), 768, 1.0),
     ("vae_mid_tile_24x18", (1, 1, 33 * 432, 512), 432, 1.0),
     # the reference encodes: one frame (i2v, t2i2v; causal_block = L) and
@@ -679,6 +705,7 @@ def sdpa_backward_ms(q, k, v, do, mask, iters: int) -> float:
 BWD_CASES = [
     # name, (B, H, L, D), causal_block[, Lk]
     ("mmdit_joint", (3, 24, 8828, 128), None),
+    ("hc_train_128x256x256", (3, 24, 2560, 128), None),  # phase 16: 32 x 8 x 8 latent + 512 text tokens
     ("tail_bidirectional", (2, 3, 1000, 128), None),
     ("tail_frame_causal", (1, 2, 1000, 128), 96),
 ]
@@ -2567,9 +2594,9 @@ VAE_CLI_CFGS = {"hunyuan_vae": os.path.join(REPO, "configs", "vae", "inference",
 
 
 def _tree_to(x, device):
-    """Tensors in nested tuples / lists / dicts moved to ``device``."""
+    """Tensors in nested tuples / lists / dicts copied to ``device``."""
     if isinstance(x, torch.Tensor):
-        return x.detach().to(device)
+        return x.detach().to(device, copy=True)
     if isinstance(x, (tuple, list)):
         return type(x)(_tree_to(v, device) for v in x)
     if isinstance(x, dict):
@@ -2942,6 +2969,512 @@ def run_vae_cli_path(device, vae_file: str, root: str) -> dict:
     return res
 
 
+# ----------------------------------------------------------------------
+# phases 3f, 15 and 16: the high-compression paths (Video DC-AE latents)
+# ----------------------------------------------------------------------
+
+HC_INF_CFG = os.path.join(REPO, "configs", "diffusion", "inference", "high_compression.py")
+HC_TRAIN_CFG = os.path.join(REPO, "configs", "diffusion", "train", "high_compression.py")
+HC_STEPS = 2  # t2v steps of phase 15, cut from 50
+HC_I2V_STEPS = 1  # i2v_head steps of phase 15
+# The DC-AE halves each tile five times in space and twice in time, so a
+# 256px 16:9 frame (192 x 336: tiles of 256 and 144 px) and a clip of 4k + 1
+# frames (a last temporal tile of 9) cannot be encoded, in the JAX package as
+# here (ROADMAP Queue 3 R11). The i2v reference and the training clip take
+# the 256px bucket's 1:1 size; the clip, the 129-frame bucket's batch less
+# one frame.
+HC_I2V_RATIO = "1:1"
+HC_TRAIN_FRAMES, HC_TRAIN_SIZE, HC_TRAIN_BATCH = 128, (256, 256), 3
+# fp32 masters, their gradients, Adam's two moments and the fp32 EMA take 20
+# bytes a parameter: 236 GB at full depth. 2 double + 4 single blocks are
+# 1.25 B parameters (25 GB of state); the full width is kept
+HC_TRAIN_DEPTH = (2, 4)
+HC_TRAIN_STEPS = 3
+# Phase 3f's full-depth forward, card bf16 vs the CPU's fp32 plain path, in
+# relative L2 of the output. The random-weight blocks each move the residual
+# stream by little: leaving out one block moves the output by 0.026 (the
+# last single block) of its norm, while the bf16 path sits 0.0142 from the
+# plain one (on an H100; both paths are deterministic, so the readings
+# repeat). The limit lies between, and each control must exceed it
+HC_DEEP_TOL = 0.02
+# the DC-AE decoder, card bf16 vs CPU fp32, max|err| of the output's scale:
+# it chains ~40 bf16 convolutions, norms and LiteMLA products, three times
+# the dozen that SMALL_TOL was set for (read: 0.043)
+HC_DCAE_TOL = 0.1
+# phase 16's "full" and "offload" steps from one state, each weight
+# gradient's max|difference| of its own scale: dQ's atomic sum rounds to bf16
+# differently from run to run (an element by one bf16 step, 2^-8 of itself),
+# and the bf16 backward carries that into the weight gradients (read: 6.6e-3
+# at worst, median 2.2e-3); twice the backward kernels' own limit
+HC_REMAT_GRAD_TOL = 2 * BWD_RTOL
+# phase 3f's train step: Adam's eps raised from the config's 1e-8 so that the
+# first update is near linear in the clipped gradient (at 1e-8 it is
+# lr * sign(g), and elements whose gradient rounds near zero in bf16 flip),
+# and lr from its 3e-5 so that the update stands far above the fp32 spacing
+# of the parameters it is added to
+HC_SMALL_ADAM = dict(lr=1e-2, eps=1e-2)
+HC_PROMPT = ["a red panda eating bamboo in a misty forest, 16 FPS. 4 motion score."]
+
+
+def cpu_copy(module, **attrs):
+    """An fp32 copy of ``module`` on the CPU (its compute dtype unset, so it
+    computes in fp32 with the plain attention)."""
+    import copy
+
+    out = copy.deepcopy(module).to("cpu", torch.float32)
+    for k, v in attrs.items():
+        setattr(out, k, v)
+    return out
+
+
+def mmdit_forward_streamed(model, inputs: dict) -> torch.Tensor:
+    """``model``'s forward in fp32 on the CPU, one block copied there at a
+    time (host memory holds one block, not the 47.6 GB of fp32 weights)."""
+    import torch.nn as nn
+
+    blocks = model.double_blocks, model.single_blocks
+    model.double_blocks, model.single_blocks = nn.ModuleList(), nn.ModuleList()
+    try:
+        shell = cpu_copy(model, compute_dtype=None)
+    finally:
+        model.double_blocks, model.single_blocks = blocks
+    with torch.no_grad():
+        img, txt, vec, pe = shell.prepare_block_inputs(**inputs)
+        for block in model.double_blocks:
+            img, txt = cpu_copy(block)(img, txt, vec, pe)
+        x = torch.cat([txt, img], dim=1)
+        for block in model.single_blocks:
+            x = cpu_copy(block)(x, vec, pe)
+        return shell.final_layer(x[:, txt.shape[1]:], vec)
+
+
+def check_hc_small_input(device, model, ae) -> dict:
+    """Phase 3f, inference: phase 15's full-width, full-depth MMDiT (19 + 38
+    blocks, 128 latent channels, patch 1) on a small latent (2 x 2 x 3
+    tokens, 16 of text), the card's bf16 path (57 launches of the D = 128
+    forward) against the port's fp32 plain path on the CPU, streamed block
+    by block; controls with the first double block or the last single
+    block skipped on the card must exceed the limit. And phase 15's DC-AE
+    decoder on a 2 x 2 x 2 latent, card bf16 against CPU fp32."""
+    from opensora_torch.ops import _build
+    from opensora_torch.utils.sampling import build_img_ids
+
+    mc = model.config
+    gen = torch.Generator().manual_seed(5)
+    b, t, h, w, lt = 1, 2, 2, 3, 16
+    n_img = t * h * w
+    inputs = dict(img=torch.randn(b, n_img, mc.in_channels, generator=gen),
+                  img_ids=build_img_ids(t, h, w, patch_size=1, bs=b).contiguous(),
+                  txt=torch.randn(b, lt, mc.context_in_dim, generator=gen), txt_ids=torch.zeros(b, lt, 3),
+                  timesteps=torch.rand(b, generator=gen), y_vec=torch.randn(b, mc.vec_in_dim, generator=gen),
+                  cond=torch.randn(b, n_img, mc.in_channels + mc.patch_size**2, generator=gen))
+    on_card = {k: v.to(device) for k, v in inputs.items()}
+    n_blocks = mc.depth + mc.depth_single_blocks
+    _build.LAUNCHES.clear()
+    with torch.inference_mode():
+        out = model(**on_card).float().cpu()
+    launches = dict(_build.LAUNCHES)
+    controls = {}
+    for name, block in (("first_double_block_skipped", model.double_blocks[0]),
+                        ("last_single_block_skipped", model.single_blocks[-1])):
+        handle = block.register_forward_hook(lambda mod, args, res: args[:2] if len(args) == 4 else args[0])
+        try:
+            with torch.inference_mode():
+                controls[name] = model(**on_card).float().cpu()
+        finally:
+            handle.remove()
+    t0 = time.perf_counter()
+    ref = mmdit_forward_streamed(model, inputs)
+    cpu_s = time.perf_counter() - t0
+
+    def rel_l2(a, r):
+        return float((a - r).norm() / r.norm())
+
+    res = dict(mmdit_rel_l2=rel_l2(out, ref), mmdit_max_abs_rel=float((out - ref).abs().max() / ref.abs().max()),
+               controls_rel_l2={k: rel_l2(v, ref) for k, v in controls.items()}, tol=HC_DEEP_TOL, launches=launches,
+               expected={"flash_attention_fwd_sm90": n_blocks}, cpu_streamed_s=cpu_s, ref_max_abs=float(ref.abs().max()))
+    z = torch.randn(1, ae.config.latent_channels, 2, 2, 2, generator=gen)
+    with torch.inference_mode():
+        card_x = ae.decode(z.to(device)).float().cpu()
+        cpu_x = cpu_copy(ae, compute_dtype=None).decode(z)
+    res["dc_ae_decode_rel_err"] = float((card_x - cpu_x).abs().max() / cpu_x.abs().max().clamp(min=1.0))
+    res["dc_ae_decode_shape"] = list(card_x.shape)
+    ok = (res["mmdit_rel_l2"] <= HC_DEEP_TOL < min(res["controls_rel_l2"].values())
+          and launches == res["expected"] and res["dc_ae_decode_rel_err"] <= HC_DCAE_TOL)
+    log(f"[small] high compression: full-width, full-depth MMDiT ({n_blocks} blocks, {n_img} + {lt} tokens), card "
+        f"bf16 + kernel vs CPU fp32 plain (streamed): {json.dumps(res)} (tol {HC_DEEP_TOL} in relative L2, the "
+        f"controls above it; the DC-AE decode {HC_DCAE_TOL} of the output's scale) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the card's high-compression path disagrees with the plain path on a small input")
+    return res
+
+
+def check_hc_train_small_input(device) -> dict:
+    """Phase 3f, training: one full-finetune step of the training config's
+    MMDiT at full width, depth 1 + 1, on a small batch (3 x 12 latent
+    tokens, 32 of text, i2v_head masks on the first sample): the card's fp32
+    masters computing in bf16 (the kernels; "dots" recompute) against the
+    CPU's fp32 plain step from the same weights, batch and draws. The loss
+    to SMALL_TOL; each parameter's gradient and its update by clip + AdamW
+    to TRAIN_GRAD_TOL of its own scale."""
+    from opensora_torch.ops import _build
+    from opensora_torch.registry import MODELS, build_module
+    from opensora_torch.training.diffusion import TrainState, compute_shift_alpha, make_train_step
+    from opensora_torch.utils.api import prepare_models  # noqa: F401  (registers the models)
+    from opensora_torch.utils.config import parse_configs
+    from opensora_torch.utils.optimizer import create_optimizer
+    from opensora_torch.utils.sampling import build_img_ids, pack
+
+    cfg = parse_configs([HC_TRAIN_CFG])
+    mcfg = dict(cfg.model, depth=1, depth_single_blocks=1, param_dtype="fp32")
+    torch.manual_seed(0)
+    card = build_module(mcfg, MODELS, device=device).requires_grad_(True)
+    cpu = build_module(dict(mcfg, dtype="fp32"), MODELS, device="meta")
+    cpu.load_state_dict({k: v.detach().cpu().clone() for k, v in card.state_dict().items()}, assign=True)
+    cpu.requires_grad_(True)
+    gen = torch.Generator().manual_seed(4)
+    b, t, h, w, lt, c = 3, 2, 2, 3, 32, mcfg["in_channels"]
+    n_img = t * h * w
+    bf = lambda *shape: torch.randn(shape, generator=gen).to(torch.bfloat16).float()  # noqa: E731
+    masks = torch.zeros(b, 1, t, h, w)
+    masks[0, :, 0] = 1
+    batch = dict(x0=bf(b, n_img, c), img_ids=build_img_ids(t, h, w, patch_size=1, bs=b).contiguous(),
+                 txt=bf(b, lt, mcfg["context_in_dim"]), txt_ids=torch.zeros(b, lt, 3), y_vec=bf(b, mcfg["vec_in_dim"]),
+                 cond=pack(torch.cat([masks, masks * bf(b, c, t, h, w)], 1), 1), masks=masks,
+                 shift_alpha=torch.full((b,), compute_shift_alpha(h, w, t)),
+                 null_txt=bf(b, lt, mcfg["context_in_dim"]), null_vec=bf(b, mcfg["vec_in_dim"]))
+    draws = dict(t=torch.rand(b, generator=gen), x1=torch.randn(b, n_img, c, generator=gen),
+                 drop_txt=torch.tensor([False, True, False]), drop_vec=torch.tensor([False, False, True]))
+
+    def step(model, dev, dtype):
+        opt = create_optimizer(list(model.parameters()), weight_decay=cfg.weight_decay, warmup_steps=0,
+                               grad_clip=cfg.grad_clip, **HC_SMALL_ADAM)
+        state = TrainState.create(model, opt)
+        grads = {}
+        for n, p in state.params.items():
+            p.register_hook(lambda g, n=n: grads.__setitem__(n, g.detach().float().cpu()))
+        before = {n: p.detach().cpu().clone() for n, p in state.params.items()}
+        on = {k: v.to(dev, dtype if k in ("x0", "txt", "y_vec", "cond", "null_txt", "null_vec") else v.dtype)
+              for k, v in batch.items()}
+        metrics = make_train_step(model, ema_decay=cfg.ema_decay, text_dropout_prob=0.5, use_masked_loss=True,
+                                  patch_size=1)(state, on, draws={k: v.to(dev) for k, v in draws.items()})
+        upd = {n: p.detach().cpu() - before[n] for n, p in state.params.items()}
+        return float(metrics["loss"]), grads, upd
+
+    _build.LAUNCHES.clear()
+    loss_card, g_card, u_card = step(card, device, torch.bfloat16)
+    launches = dict(_build.LAUNCHES)
+    loss_cpu, g_cpu, u_cpu = step(cpu, "cpu", torch.float32)
+
+    def worst(a, r):
+        rel = {n: float((a[n] - x).abs().max() / x.abs().max()) for n, x in r.items() if x.abs().max() > 0}
+        n = max(rel, key=rel.get)
+        return rel[n], n, sorted(rel.values())[len(rel) // 2]
+
+    g_rel, g_name, g_med = worst(g_card, g_cpu)
+    u_rel, u_name, u_med = worst(u_card, u_cpu)
+    expect = {"flash_attention_fwd_sm90": 4, "flash_attention_bwd_fused": 2, "flash_attention_bwd_dq_convert": 2}
+    res = dict(loss_card=loss_card, loss_cpu=loss_cpu, loss_rel_err=abs(loss_card - loss_cpu) / abs(loss_cpu),
+               grad_rel_err_max=g_rel, grad_rel_err_worst=g_name, grad_rel_err_median=g_med,
+               update_rel_err_max=u_rel, update_rel_err_worst=u_name, update_rel_err_median=u_med,
+               moved=sum(bool(u.abs().max() > 0) for u in u_card.values()), params=len(u_card),
+               launches=launches, expected=expect)
+    del card, cpu
+    torch.cuda.empty_cache()
+    ok = (res["loss_rel_err"] <= SMALL_TOL and g_rel <= TRAIN_GRAD_TOL and u_rel <= TRAIN_GRAD_TOL
+          and res["moved"] == res["params"] and launches == expect)
+    log(f"[small] high compression: full-finetune step (fp32 masters, bf16 compute, remat "
+        f"{mcfg.get('remat_policy')}), full-width MMDiT depth 1+1 (B={b}, {n_img + lt} tokens), card vs CPU fp32 "
+        f"plain: {json.dumps(res)} (tol loss {SMALL_TOL}, each gradient and update {TRAIN_GRAD_TOL} of its scale) "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the card's full-finetune step disagrees with the plain step on a small input")
+    return res
+
+
+def run_hc_inference_path(device, root: str, profile: bool = False, out_dir=None) -> dict:
+    """Phase 15: configs/diffusion/inference/high_compression.py at full
+    width and depth (random weights from the config's seed) through
+    prepare_models and api_fn: t2v at the config's 192 x 336, 129 frames
+    (32 x 6 x 11 latent tokens; decoded 128 x 192 x 352, as the JAX package
+    decodes it), HC_STEPS steps, then i2v_head for HC_I2V_STEPS from a
+    seeded 256 x 256 image (HC_I2V_RATIO: the DC-AE cannot encode the 16:9
+    frame), its 3 padding frames trimmed. Checks shapes, finite videos, the
+    first latent frame equal to the encoded reference and the exact
+    launches (57 a step at D = 128, none at D = 512); phase 3f runs on the
+    built models first."""
+    from opensora_torch.ops import _build
+    from opensora_torch.utils.api import prepare_api, prepare_models
+    from opensora_torch.utils.config import ae_spatial_compression, parse_configs
+    from opensora_torch.utils.inference import save_sample
+    from opensora_torch.utils.sampling import SamplingOption, sanitize_sampling_option
+
+    cfg = parse_configs([HC_INF_CFG, "--sampling_option.num_steps", str(HC_STEPS)])
+    log(f"[hc] high_compression.py at full width and depth; num_steps cut 50 -> {HC_STEPS} (t2v), "
+        f"{HC_I2V_STEPS} (i2v_head at {HC_I2V_RATIO})")
+    free()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    model, ae, t5, clip, _ = prepare_models(cfg, device=device, seed=cfg.seed)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    resident_gb = torch.cuda.memory_allocated(device) / 1e9
+    log(f"[hc] models built on {device} in {build_s:.1f} s: MMDiT {sum(p.numel() for p in model.parameters()) / 1e9:.2f}B, "
+        f"DC-AE {sum(p.numel() for p in ae.parameters()) / 1e6:.1f}M params; resident {resident_gb:.2f} GB")
+    small = check_hc_small_input(device, model, ae)
+    compression = ae_spatial_compression(cfg)
+    api_fn = prepare_api(model, ae, t5, clip, spatial_compression=compression)
+    patch, channel = cfg.patch_size, cfg.model["in_channels"]
+    n_blocks = cfg.model["depth"] + cfg.model["depth_single_blocks"]
+    runs = {}
+    ref_path = None
+    for cond_type, opt_over in (("t2v", {}), ("i2v_head", dict(aspect_ratio=HC_I2V_RATIO, num_steps=HC_I2V_STEPS))):
+        opt = sanitize_sampling_option(SamplingOption(**dict(cfg.sampling_option, **opt_over)))
+        kw = {}
+        if cond_type != "t2v":
+            img = torch.rand((3, 1, opt.height, opt.width), generator=torch.Generator().manual_seed(cfg.seed)) * 2 - 1
+            ref_path = save_sample(img.numpy(), os.path.join(root, "hc_reference"))
+            kw["ref"] = [ref_path]
+        latent = (opt.num_frames // opt.temporal_reduction, math.ceil(opt.height / compression),
+                  math.ceil(opt.width / compression))
+        torch.cuda.reset_peak_memory_stats(device)
+        _build.LAUNCHES.clear()
+        timings: dict = {}
+        with AERecorder(ae) as rec:
+            t0 = time.perf_counter()
+            x = api_fn(opt, cond_type, seed=cfg.seed, text=HC_PROMPT, patch_size=patch, channel=channel,
+                       timings=timings, **kw)
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        frames = min(opt.num_frames, latent[0] * opt.temporal_reduction) - (3 if cond_type == "i2v_head" else 0)
+        expect_shape = (1, 3, frames, latent[1] * compression, latent[2] * compression)
+        expect = {"flash_attention_fwd_sm90": n_blocks * opt.num_steps}
+        r = dict(size=[opt.height, opt.width], latent=list(latent), tokens=latent[0] * latent[1] * latent[2],
+                 video_shape=list(x.shape), expected_shape=list(expect_shape), finite=bool(torch.isfinite(x).all()),
+                 outside_share=float((x.abs() > 1.0).float().mean()), range=[float(x.min()), float(x.max())],
+                 text_encode_s=timings["text_encode_s"], step_s=timings["step_s"], decode_s=timings["decode_s"],
+                 total_s=total_s, peak_mem_gb=torch.cuda.max_memory_allocated(device) / 1e9, launches=launches,
+                 expected=expect)
+        if cond_type != "t2v":
+            (enc_in, enc_out), = rec.encoded
+            decoded, = rec.decoded
+            r["encode_ref_s"] = timings["encode_ref_s"]
+            r["reference_latent_shape"] = list(enc_out.shape)
+            r["first_latent_frame_equals_encoded_reference"] = bool(
+                torch.equal(decoded[0, :, :1], enc_out[0][:, :1].to(decoded.dtype)))
+        runs[cond_type] = r
+        log(f"[hc] {cond_type}: {json.dumps(r)}")
+        # a random DC-AE decoder has no trained output range: finite is what holds
+        if tuple(x.shape) != expect_shape or not r["finite"]:
+            raise AssertionError(f"{cond_type}: video {tuple(x.shape)} (expected {expect_shape}), finite {r['finite']}")
+        if launches != expect:
+            raise AssertionError(f"{cond_type}: kernel launches {launches} != expected {expect}")
+        if cond_type != "t2v" and not r["first_latent_frame_equals_encoded_reference"]:
+            raise AssertionError("i2v_head: the first latent frame is not the encoded reference")
+        del x
+    res = dict(models_build_s=build_s, resident_gb=resident_gb, small_input=small, **runs)
+    if profile:
+        opt = sanitize_sampling_option(SamplingOption(**cfg.sampling_option))
+        res["profile"] = profile_run(lambda: api_fn(opt, "t2v", seed=cfg.seed, text=HC_PROMPT, patch_size=patch,
+                                                    channel=channel), "hc", out_dir)
+    del model, ae, t5, clip, api_fn
+    free()
+    return res
+
+
+def run_hc_train_path(device, profile: bool = False, out_dir=None) -> dict:
+    """Phase 16: configs/diffusion/train/high_compression.py, a full finetune
+    (fp32 masters, bf16 compute, the config's remat_policy "dots") at full
+    width and HC_TRAIN_DEPTH blocks, through the training CLI's per-batch
+    body (Trainer.run_batch: the DC-AE encode, the mask-type draw, the
+    single-frame encodes, T5 / CLIP, the step) for HC_TRAIN_STEPS steps on a
+    seeded HC_TRAIN_FRAMES x 256 x 256 clip, B = HC_TRAIN_BATCH. Then, from
+    one saved state, batch and generator state, one step with "full" and
+    one with "offload": bitwise equal losses (the same forward), gradients
+    within HC_REMAT_GRAD_TOL of each other (dQ's atomic sum orders differently from
+    run to run; the parameters after AdamW are counted where they differ),
+    and the device memory above the step's start held after the forward and
+    at the forward's and the backward's peaks side by side: "offload" must
+    hold less through the forward (the blocks' saved inputs wait in host
+    memory); the backward's peak, reached as the fp32 gradients fill in,
+    is printed. Then rf_eval_loss over the trained model. Non-finite
+    losses, parameters that did not move or inexact launches fail."""
+    from opensora_torch.eval.rf_loss import rf_eval_loss
+    from opensora_torch.ops import _build
+    from opensora_torch.train import Trainer
+    from opensora_torch.utils.config import parse_configs
+
+    depth, single = HC_TRAIN_DEPTH
+    cfg = parse_configs([HC_TRAIN_CFG, "--model.depth", str(depth), "--model.depth_single_blocks", str(single)])
+    n_blocks = depth + single
+    h, w = HC_TRAIN_SIZE
+    log(f"[hc_train] high_compression.py full finetune at full width, depth {depth}+{single} (cut from 19+38); "
+        f"{HC_TRAIN_STEPS} steps on a {HC_TRAIN_FRAMES}x{h}x{w} clip, B={HC_TRAIN_BATCH}, remat "
+        f"{cfg.model['remat_policy']}")
+    free()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    state = trainer.state
+    n_params = sum(p.numel() for p in state.params.values())
+    dtypes = sorted({str(p.dtype) for p in state.params.values()})
+    log(f"[hc_train] built in {build_s:.1f} s: {n_params / 1e9:.3f}B trainable MMDiT params ({dtypes}, computing in "
+        f"{trainer.model.dtype}); {torch.cuda.memory_allocated(device) / 1e9:.2f} GB allocated")
+    if dtypes != ["torch.float32"] or trainer.model.dtype != torch.bfloat16:
+        raise AssertionError(f"the full finetune trains {dtypes} computing in {trainer.model.dtype}")
+    gen = torch.Generator(device=device).manual_seed(cfg.seed)
+    video = torch.rand((HC_TRAIN_BATCH, 3, HC_TRAIN_FRAMES, h, w), generator=gen, device=device) * 2 - 1
+    batch = {"video": video, "text": ["a red panda eating bamboo in a misty forest",
+                                      "waves breaking on a rocky shore at sunset",
+                                      "a city street at night in the rain, neon signs"]}
+    start = {n: p.detach().clone() for n, p in state.params.items()}
+    captured: dict = {}
+    train_step = trainer.train_step
+
+    def capture(st, tb, generator=None):
+        captured["tb"] = tb
+        return train_step(st, tb, generator)
+
+    trainer.train_step = capture
+    expect = {"flash_attention_fwd_sm90": 2 * n_blocks,  # forward and recompute
+              "flash_attention_bwd_fused": n_blocks, "flash_attention_bwd_dq_convert": n_blocks}
+    steps = []
+    for i in range(HC_TRAIN_STEPS):
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        metrics = trainer.run_batch(batch)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        times = trainer.timers.to_dict()
+        rec = dict(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]), mask_conds=trainer.mask_conds,
+                   lr=state.optimizer.adamw.param_groups[0]["lr"], launches=dict(_build.LAUNCHES), expected=expect,
+                   encode_video_s=times["time/encode_video"], encode_text_s=times["time/encode_text"],
+                   step_s=times["time/step"], total_s=total_s)
+        steps.append(rec)
+        log(f"[hc_train] step {i + 1}: " + json.dumps(rec))
+        if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"]) and rec["grad_norm"] > 0):
+            raise AssertionError(f"step {i + 1}: loss {rec['loss']} or grad norm {rec['grad_norm']} not finite and > 0")
+        if rec["launches"] != expect:
+            raise AssertionError(f"step {i + 1}: kernel launches {rec['launches']} != expected {expect}")
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    still = [n for n, p in state.params.items() if torch.equal(p, start[n])]
+    del start
+    tb = captured["tb"]
+    tokens = tb["x0"].shape[1] + tb["txt"].shape[1]
+    log(f"[hc_train] {HC_TRAIN_STEPS} steps OK; {tokens} tokens a sample ({tb['x0'].shape[1]} latent + "
+        f"{tb['txt'].shape[1]} text); peak_mem_gb={peak_gb:.2f}; parameters that did not move: {len(still)}")
+    if still or peak_gb >= 80:
+        raise AssertionError(f"parameters that did not move: {still[:8]}; peak memory {peak_gb:.2f} GB")
+
+    # one step from one saved state with "full", then with "offload"
+    from opensora_torch.training import diffusion as tdiff
+
+    snapshot = _tree_to(state.state_dict(), "cpu")
+    rng_states = trainer.gen.get_state(), dict(trainer.host_rng.bit_generator.state)
+    optimizer_step = state.optimizer.step
+    reading: dict = {}
+
+    def gb_above_start(nbytes):
+        return (nbytes - reading["start"]) / 1e9
+
+    def step_from_reset(st, tb_, generator=None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        reading["start"] = torch.cuda.memory_allocated(device)
+        return train_step(st, tb_, generator)
+
+    def loss_reading_memory(fn):
+        def wrapped(*args, **kwargs):
+            loss = fn(*args, **kwargs)
+            reading["forward_peak_gb"] = gb_above_start(torch.cuda.max_memory_allocated(device))
+            reading["held_after_forward_gb"] = gb_above_start(torch.cuda.memory_allocated(device))
+            return loss
+        return wrapped
+
+    def step_reading_backward():
+        reading["backward_peak_gb"] = gb_above_start(torch.cuda.max_memory_allocated(device))
+        reading["grads"] = {n: p.grad for n, p in state.params.items()}
+        optimizer_step()
+
+    remat = {}
+    state.optimizer.step = step_reading_backward
+    trainer.train_step = step_from_reset
+    try:
+        with patched(tdiff, "compute_loss", loss_reading_memory):
+            for policy in ("full", "offload"):
+                if policy != "full":
+                    state.load_state_dict(snapshot)
+                    trainer.gen.set_state(rng_states[0])
+                    trainer.host_rng.bit_generator.state = rng_states[1]
+                trainer.model.config.remat_policy = policy
+                _build.LAUNCHES.clear()
+                t0 = time.perf_counter()
+                metrics = trainer.run_batch(batch)
+                torch.cuda.synchronize()
+                remat[policy] = dict(loss=metrics["loss"].detach().clone(), grad_norm=float(metrics["grad_norm"]),
+                                     step_s=trainer.timers.to_dict()["time/step"], total_s=time.perf_counter() - t0,
+                                     launches=dict(_build.LAUNCHES), mask_conds=trainer.mask_conds,
+                                     grads=reading.pop("grads"),
+                                     params={n: p.detach().clone() for n, p in state.params.items()},
+                                     **{k: reading[k] for k in ("held_after_forward_gb", "forward_peak_gb",
+                                                                "backward_peak_gb")})
+    finally:
+        del state.optimizer.step
+        trainer.train_step = train_step
+        trainer.model.config.remat_policy = cfg.model["remat_policy"]
+    full, off = remat["full"], remat["offload"]
+    grad_rel = {n: float((off["grads"][n] - g).abs().max() / g.abs().max().clamp(min=1e-30))
+                for n, g in full["grads"].items()}
+    worst = max(grad_rel, key=grad_rel.get)
+    n_diff = n_over = 0
+    for n, p in off["params"].items():
+        d = (p - full["params"][n]).abs()
+        n_diff += int((d > 0).sum())
+        n_over += int((d > torch.abs(p).nextafter(torch.full_like(p, math.inf)) - torch.abs(p)).sum())
+    for r in remat.values():
+        del r["grads"], r["params"]
+    del snapshot
+    cmp = dict(loss_full=float(full["loss"]), loss_offload=float(off["loss"]),
+               loss_bitwise_equal=bool(torch.equal(full["loss"], off["loss"])),
+               grad_rel_err_max=grad_rel[worst], grad_rel_err_worst=worst,
+               grad_rel_err_median=sorted(grad_rel.values())[len(grad_rel) // 2], grad_tol=HC_REMAT_GRAD_TOL,
+               params_differing=n_diff, params_differing_by_more_than_their_spacing=n_over, params=n_params,
+               **{f"{k}_{p}": remat[p][k] for p in remat for k in (
+                   "grad_norm", "held_after_forward_gb", "forward_peak_gb", "backward_peak_gb", "step_s",
+                   "launches")})
+    log("[hc_train] full vs offload from one state (memory above the step's start): " + json.dumps(cmp))
+    if (not cmp["loss_bitwise_equal"] or grad_rel[worst] > HC_REMAT_GRAD_TOL or full["launches"] != expect
+            or off["launches"] != expect or full["mask_conds"] != off["mask_conds"]):
+        raise AssertionError(f"remat full vs offload: {cmp}")
+    if not (off["held_after_forward_gb"] < full["held_after_forward_gb"] and off["forward_peak_gb"] < full["forward_peak_gb"]):
+        raise AssertionError("offload holds no less device memory than full through the forward")
+
+    x0 = tb["x0"]
+    kwargs = {k: tb[k] for k in ("img_ids", "txt", "txt_ids", "y_vec", "cond", "guidance")}
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    ev = rf_eval_loss(trainer.model, x0, kwargs, torch.Generator(device=device).manual_seed(cfg.seed))
+    torch.cuda.synchronize()
+    ev = {k: float(v) for k, v in ev.items()}
+    eval_launches = dict(_build.LAUNCHES)
+    eval_expect = {"flash_attention_fwd_sm90": 5 * n_blocks}
+    log(f"[hc_train] rf_eval_loss over the trained model: {json.dumps(ev)} in {time.perf_counter() - t0:.3f} s; "
+        f"launches {eval_launches} (expected {eval_expect})")
+    if not all(math.isfinite(v) for v in ev.values()) or eval_launches != eval_expect:
+        raise AssertionError(f"rf_eval_loss: {ev}, launches {eval_launches}")
+    total = {k: sum(r["launches"].get(k, 0) for r in steps) for k in expect}
+    res = dict(depth=[depth, single], params=n_params, models_build_s=build_s, steps=steps, launches=total,
+               peak_mem_gb=peak_gb, tokens=tokens, remat_full_vs_offload=cmp, eval=ev, eval_launches=eval_launches)
+    if profile:
+        res["profile"] = profile_run(lambda: trainer.run_batch(batch), "hc_train", out_dir)
+    del trainer, state, video, batch, captured, tb, x0, kwargs
+    free()
+    return res
+
+
 def _kernel_name(mangled: str) -> str:
     """The kernel's name and template arguments from its mangled name (the
     length-prefixed identifier ending in "kernel", then Lb0/Lb1/Li<n>)."""
@@ -3084,6 +3617,11 @@ def main(argv) -> int:
         ckpt_res = run_ckpt_path(device, records, tmp)
         cli_res = run_vae_cli_path(device, ckpt_res.pop("vae_file"), tmp)
     del records
+    small_hc_train = check_hc_train_small_input(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        hc_res = run_hc_inference_path(device, tmp, "--profile" in argv, out_dir)
+    hc_train_res = run_hc_train_path(device, "--profile" in argv, out_dir)
+    hc_train_res["small_input"] = small_hc_train
     sm90_cases = [c for c in attn["cases"] if c["kernel"] == "flash_attention_fwd_sm90"]
     d512_cases = [c for c in attn["cases"] if c["kernel"] == "flash_attention_fwd_d512"]
     head = sm90_cases[0]  # the MMDiT shape, anchored: the main path's hot call
@@ -3101,6 +3639,10 @@ def main(argv) -> int:
                             v2v=v2v_res["launches"]["flash_attention_fwd_sm90"]),
         launches_ckpt={k: ckpt_res["steps"][k]["launches"].get("flash_attention_fwd_sm90", 0)
                        for k in ("256px", "image")},
+        launches_hc=dict(t2v=hc_res["t2v"]["launches"]["flash_attention_fwd_sm90"],
+                         i2v_head=hc_res["i2v_head"]["launches"]["flash_attention_fwd_sm90"],
+                         train=hc_train_res["launches"]["flash_attention_fwd_sm90"],
+                         rf_eval_loss=hc_train_res["eval_launches"]["flash_attention_fwd_sm90"]),
         max_abs_err=max(c["max_abs_err"] for c in sm90_cases),
         ms=head["ms"], ms_is="flash_attention_with_lse (the bound A on the device, then the kernel), the mean of "
         "4 readings in turns with SDPA's 4 (library_ms)", anchor_ms=head["anchor_ms"],
@@ -3139,6 +3681,7 @@ def main(argv) -> int:
         also_replaces="opensora_tpu/ops/flash_attention.py:497 (dQ's sum; the epilogue kernel finishes it)",
         head_dim=128,
         launches=train_res["launches"]["flash_attention_bwd_fused"],
+        launches_hc_train=hc_train_res["launches"]["flash_attention_bwd_fused"],
         max_abs_err=max(c["max_abs_err"][g] for c in attn_bwd["cases"] for g in ("dq", "dk", "dv")),
         max_abs_err_is="dq (after the epilogue), dk and dv against the plain backward",
         ms=bwd_head["ms"]["flash_attention_bwd_fused"],
@@ -3159,6 +3702,7 @@ def main(argv) -> int:
         head_dim=128,
         launches=train_res["launches"]["flash_attention_bwd_dq_convert"],
         launches_ring_train=ring_train_res["launches"]["flash_attention_bwd_dq_convert"],
+        launches_hc_train=hc_train_res["launches"]["flash_attention_bwd_dq_convert"],
         max_abs_err=max(c["dq_convert_max_abs_err"] for c in attn_bwd["cases"]),
         max_abs_err_is="against its plain version on the same dq_accum",
         ms=bwd_head["ms"]["flash_attention_bwd_dq_convert"], plain_ms=bwd_head["dq_convert_plain_ms"],
@@ -3285,6 +3829,8 @@ def main(argv) -> int:
     log("[dcae] " + json.dumps(dcae_res))
     log("[ckpt] " + json.dumps(ckpt_res))
     log("[vae_cli] " + json.dumps(cli_res))
+    log("[hc] " + json.dumps(hc_res))
+    log("[hc_train] " + json.dumps(hc_train_res))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -4,7 +4,9 @@ Parameter names follow the upstream Open-Sora v2 state-dict layout
 (``img_attn.qkv`` or ``q_proj``/``k_proj``/``v_proj``, ``img_mlp.0``/``.2``,
 ``final_layer.adaLN_modulation.1``, ...), so a published checkpoint loads
 with ``load_state_dict``. Every module takes ``device`` and ``dtype``
-factory arguments; activations run in the weights' dtype. ``quantized``
+factory arguments (the parameters' dtype); activations run in the dtype
+they come in, each float linear casting its parameters to it at use
+(``models/cast_layers.py``). ``quantized``
 (False, True/"w8", "w8a8", "w8a8_pallas", "w8a8_fq") makes every linear of
 the blocks, the modulation's included, an int8 ``QuantLinear``
 (``ops/quant.py``) where the JAX package uses ``dense``; the embedders and
@@ -20,6 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from opensora_torch.models.cast_layers import Linear
 from opensora_torch.ops.attention import attention
 from opensora_torch.ops.norms import layer_norm, rms_norm
 from opensora_torch.ops.quant import dense
@@ -44,8 +47,8 @@ def timestep_embedding(
 class MLPEmbedder(nn.Module):
     def __init__(self, in_dim: int, hidden_dim: int, **factory):
         super().__init__()
-        self.in_layer = nn.Linear(in_dim, hidden_dim, **factory)
-        self.out_layer = nn.Linear(hidden_dim, hidden_dim, **factory)
+        self.in_layer = Linear(in_dim, hidden_dim, **factory)
+        self.out_layer = Linear(hidden_dim, hidden_dim, **factory)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.out_layer(F.silu(self.in_layer(x)))
@@ -220,8 +223,8 @@ class LastLayer(nn.Module):
 
     def __init__(self, hidden_size: int, out_dim: int, **factory):
         super().__init__()
-        self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(hidden_size, 2 * hidden_size, **factory))
-        self.linear = nn.Linear(hidden_size, out_dim, **factory)
+        self.adaLN_modulation = nn.Sequential(nn.SiLU(), Linear(hidden_size, 2 * hidden_size, **factory))
+        self.linear = Linear(hidden_size, out_dim, **factory)
 
     def forward(self, x: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
         shift, scale = self.adaLN_modulation(vec).chunk(2, dim=-1)

@@ -7,10 +7,21 @@ The JAX package stacks the blocks under ``nn.scan``; here they are
 v2 layout.
 
 Gradient checkpointing (``remat``, ``remat_policy``; the JAX package's
-``nn.remat`` policies, opensora_tpu/models/mmdit/model.py:217-227) wraps
+``nn.remat`` policies, opensora_tpu/models/mmdit/model.py:215-226) wraps
 each block in ``torch.utils.checkpoint`` when gradients are enabled:
 "full" keeps only the block's inputs and recomputes the rest in the
-backward; "dots" also keeps every matmul output (selective checkpointing).
+backward; "dots" also keeps every matmul output (selective checkpointing);
+"offload" recomputes as "full" does and parks each block's saved inputs in
+pinned host memory until its backward (the JAX policy is
+``save_and_offload_only_these_names`` with both name lists empty: nothing
+inside a block is saved, and what stays per block is the scanned carry).
+
+``param_dtype`` keeps the parameters in another dtype than the compute
+``dtype`` (fp32 master weights under bf16 compute, as the JAX package
+trains): every float linear casts its weight and bias to the input's dtype
+at use (``models/cast_layers.py``), the norm scales are cast by the norms.
+Left unset, the parameters are in the compute dtype; the trainer sets it
+for a full finetune (``opensora_torch/train.py``).
 
 ``quantized`` (False | True/"w8" | "w8a8" | "w8a8_pallas" | "w8a8_fq")
 builds every linear of the blocks as an int8 ``QuantLinear``
@@ -30,6 +41,7 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
+from opensora_torch.models.cast_layers import Linear
 from opensora_torch.models.mmdit.layers import (
     DoubleStreamBlock,
     LastLayer,
@@ -67,8 +79,9 @@ class MMDiTConfig:
     attn_backend: Optional[str] = None
     quantized: Union[bool, str] = False  # False | True/"w8" | "w8a8" | "w8a8_pallas" | "w8a8_fq"
     remat: bool = False  # checkpoint each block when gradients are enabled
-    remat_policy: str = "full"  # "full" | "dots"
+    remat_policy: str = "full"  # "full" | "dots" | "offload"
     dtype: str = "bf16"
+    param_dtype: Optional[str] = None  # None: the compute dtype
     from_pretrained: Optional[str] = None
 
     @property
@@ -91,20 +104,20 @@ def _save_matmuls(ctx, op, *args, **kwargs):
 REMAT_CONTEXTS = {
     "full": {},
     "dots": dict(context_fn=functools.partial(create_selective_checkpoint_contexts, _save_matmuls)),
+    "offload": {},
 }
 
 
 class MMDiTModel(nn.Module):
-    def __init__(self, config: MMDiTConfig, device=None, dtype: Optional[torch.dtype] = None):
+    def __init__(self, config: MMDiTConfig, device=None, dtype: Optional[torch.dtype] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
+        """``dtype``: the parameters'; ``compute_dtype``: the activations'
+        (default: the parameters')."""
         super().__init__()
         cfg = self.config = config
+        self.compute_dtype = compute_dtype
         if cfg.remat and cfg.remat_policy not in REMAT_CONTEXTS:
-            if cfg.remat_policy == "offload":
-                raise NotImplementedError(
-                    'remat_policy="offload" (checkpoints parked in host memory) is not ported yet '
-                    "(ROADMAP Queue 1 item 10, activation offload)"
-                )
-            raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+            raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; expected one of {sorted(REMAT_CONTEXTS)}")
         if cfg.hidden_size % cfg.num_heads != 0:
             raise ValueError(f"hidden_size {cfg.hidden_size} not divisible by num_heads {cfg.num_heads}")
         if sum(cfg.axes_dim) != cfg.pe_dim:
@@ -112,16 +125,16 @@ class MMDiTModel(nn.Module):
         quant_mode(cfg.quantized)  # an unknown mode raises
         factory = dict(device=device, dtype=dtype)
         hidden = cfg.hidden_size
-        self.img_in = nn.Linear(cfg.in_channels, hidden, **factory)
+        self.img_in = Linear(cfg.in_channels, hidden, **factory)
         self.time_in = MLPEmbedder(256, hidden, **factory)
         self.vector_in = MLPEmbedder(cfg.vec_in_dim, hidden, **factory)
         if cfg.guidance_embed:
             self.guidance_in = MLPEmbedder(256, hidden, **factory)
         if cfg.cond_embed:
-            self.cond_in = nn.Linear(cfg.in_channels + cfg.patch_size**2, hidden, **factory)
+            self.cond_in = Linear(cfg.in_channels + cfg.patch_size**2, hidden, **factory)
             nn.init.zeros_(self.cond_in.weight)
             nn.init.zeros_(self.cond_in.bias)
-        self.txt_in = nn.Linear(cfg.context_in_dim, hidden, **factory)
+        self.txt_in = Linear(cfg.context_in_dim, hidden, **factory)
         common = dict(num_heads=cfg.num_heads, mlp_ratio=cfg.mlp_ratio, fused_qkv=cfg.fused_qkv,
                       rope_convention=cfg.rope_convention, attn_backend=cfg.attn_backend,
                       quantized=cfg.quantized, **factory)
@@ -135,7 +148,8 @@ class MMDiTModel(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.img_in.weight.dtype
+        """The compute dtype: inputs are cast to it."""
+        return self.compute_dtype or self.img_in.weight.dtype
 
     def prepare_block_inputs(self, img, img_ids, txt, txt_ids, timesteps, y_vec, cond=None,
                              guidance=None):
@@ -160,9 +174,15 @@ class MMDiTModel(nn.Module):
         return img, txt, vec, pe
 
     def _run_block(self, block: nn.Module, *args):
-        if not (self.config.remat and torch.is_grad_enabled()):
+        cfg = self.config
+        if not (cfg.remat and torch.is_grad_enabled()):
             return block(*args)
-        return checkpoint(block, *args, use_reentrant=False, **REMAT_CONTEXTS[self.config.remat_policy])
+        if cfg.remat_policy == "offload":
+            # the checkpoint saves the block's inputs through the hooks open
+            # around it: these move them to pinned host memory and back
+            with torch.autograd.graph.save_on_cpu(pin_memory=True):
+                return checkpoint(block, *args, use_reentrant=False)
+        return checkpoint(block, *args, use_reentrant=False, **REMAT_CONTEXTS[cfg.remat_policy])
 
     def forward(self, img, img_ids, txt, txt_ids, timesteps, y_vec, cond=None, guidance=None):
         img, txt, vec, pe = self.prepare_block_inputs(
@@ -179,18 +199,20 @@ class MMDiTModel(nn.Module):
 @MODELS.register_module("flux")
 def Flux(from_pretrained: Optional[str] = None, dtype: str = "bf16", device=None, **kwargs) -> MMDiTModel:
     """Build an MMDiT from a config dict's entries; unknown keys are ignored.
-    Weights, in the torch dtype named by ``dtype``, are loaded from the
-    checkpoint ``from_pretrained`` names (either upstream layout and RoPE
-    pairing, quantized at load for a ``quantized`` config; see
+    Weights, in the torch dtype named by ``param_dtype`` (by ``dtype`` where
+    it is unset), are loaded from the checkpoint ``from_pretrained`` names
+    (either upstream layout and RoPE pairing, quantized at load for a
+    ``quantized`` config, cast to the parameters' dtype; see
     ``utils/ckpt.load_checkpoint``), else random (nn.Linear init, zero
-    ``cond_in``)."""
+    ``cond_in``); the model computes in ``dtype``."""
     from opensora_torch.utils.ckpt import load_checkpoint
     from opensora_torch.utils.misc import torch_dtype
 
     known = set(MMDiTConfig.__dataclass_fields__)
     config = MMDiTConfig(from_pretrained=from_pretrained, dtype=dtype,
                          **{k: v for k, v in kwargs.items() if k in known})
+    build = functools.partial(MMDiTModel, config, dtype=torch_dtype(config.param_dtype or dtype),
+                              compute_dtype=torch_dtype(dtype))
     if from_pretrained:
-        return load_checkpoint(MMDiTModel(config, device="meta", dtype=torch_dtype(dtype)), from_pretrained,
-                               "mmdit", device)
-    return MMDiTModel(config, device=device, dtype=torch_dtype(dtype))
+        return load_checkpoint(build(device="meta"), from_pretrained, "mmdit", device)
+    return build(device=device)

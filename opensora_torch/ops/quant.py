@@ -30,6 +30,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from opensora_torch.models.cast_layers import Linear as CastLinear
 from opensora_torch.ops.int8_matmul import act_scale, quantize_rows, w8a8_fusedquant_matmul, w8a8_matmul
 
 MODES = ("w8", "w8a8", "w8a8_pallas", "w8a8_fq")
@@ -119,11 +120,13 @@ class QuantLinear(nn.Module):
 
 def dense(quantized: Union[bool, str, None], in_features: int, out_features: int, bias: bool = True,
           **factory) -> nn.Module:
-    """``nn.Linear`` or, when ``quantized`` names a mode (True = "w8"), a
-    :class:`QuantLinear` of the same shape (opensora_tpu/ops/quant.py:170)."""
+    """A float linear (``models/cast_layers.Linear``: ``nn.Linear`` whose
+    parameters are cast to the input's dtype at use) or, when ``quantized``
+    names a mode (True = "w8"), a :class:`QuantLinear` of the same shape
+    (opensora_tpu/ops/quant.py:170)."""
     mode = quant_mode(quantized)
     if mode is None:
-        return nn.Linear(in_features, out_features, bias=bias, **factory)
+        return CastLinear(in_features, out_features, bias=bias, **factory)
     return QuantLinear(in_features, out_features, bias=bias, mode=mode, **factory)
 
 

@@ -8,10 +8,11 @@ The same configs and overrides as the JAX script: a bucketed video-text
 dataloader, the MMDiT / VAE / T5 / CLIP built from the config (each loaded
 from its ``from_pretrained`` where set, checked against the model's shapes
 and cast to its dtype, else random weights from ``seed``), LoRA factors on
-the (loaded) base when ``lora_config`` is set (EMA only without LoRA), the
-rectified-flow step, logging to ``<outputs>/<exp_name>/log.txt``,
-checkpoints every ``ckpt_every`` steps and at the end, and resume from
-``load``.
+the (loaded) base when ``lora_config`` is set, else a full finetune
+of the MMDiT over fp32 master weights computing in the config's ``dtype``
+(with an fp32 EMA), the rectified-flow step, logging to
+``<outputs>/<exp_name>/log.txt``, checkpoints every ``ckpt_every`` steps
+and at the end, and resume from ``load``.
 
 :class:`Trainer` holds the models and the train state;
 :meth:`Trainer.run_batch` is the body of one iteration -- encode the video,
@@ -56,10 +57,18 @@ class Trainer:
         from opensora_torch.training.diffusion import TrainState, make_train_step
         from opensora_torch.training.lora import apply_lora, count_lora_params
         from opensora_torch.utils.api import prepare_models
+        from opensora_torch.utils.config import Config
         from opensora_torch.utils.logger import create_logger
         from opensora_torch.utils.misc import Timers, count_params, format_numel
         from opensora_torch.utils.optimizer import create_optimizer
 
+        lora_cfg = cfg.get("lora_config")
+        if not lora_cfg and cfg.model.get("param_dtype") is None:
+            # a full finetune trains fp32 master weights under the compute
+            # dtype, as the JAX package does (its MMDiTConfig.param_dtype is
+            # "fp32"); the default is set here and not in MMDiTConfig, where
+            # a served bf16 model would double its resident weights
+            cfg = Config(cfg, model=Config(cfg.model, param_dtype="fp32"))
         self.cfg = cfg
         self.logger = create_logger()
         if mesh is not None:
@@ -74,7 +83,6 @@ class Trainer:
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         self.host_rng = np.random.default_rng(seed)
 
-        lora_cfg = cfg.get("lora_config")
         if lora_cfg:
             rank = lora_cfg.get("r", lora_cfg.get("rank", 16))
             scale = lora_cfg.get("lora_alpha", rank) / rank  # peft semantics
@@ -82,13 +90,10 @@ class Trainer:
                        **({"target_regex": lora_cfg["target_regex"]} if "target_regex" in lora_cfg else {}))
             self.logger.info("LoRA enabled: rank %d, scale %.3f, %s trainable factor params",
                              rank, scale, format_numel(count_lora_params(self.model)))
-        elif self.model.dtype != torch.float32:
-            raise NotImplementedError(
-                "full finetuning keeps fp32 master weights; with a bf16 model it waits for the "
-                "multi-GPU slice (FSDP full finetune, ROADMAP); use lora_config or dtype fp32"
-            )
         else:
             self.model.requires_grad_(True)
+            self.logger.info("full finetune: %s parameters, computing in %s",
+                             next(self.model.parameters()).dtype, self.model.dtype)
 
         optimizer = create_optimizer(
             [p for p in self.model.parameters() if p.requires_grad],
@@ -131,7 +136,7 @@ class Trainer:
                     x = torch.as_tensor(batch["video"], device=dev)
                     x0 = self.ae.encode(x, generator=self.gen)
                     if self.condition_config is not None:
-                        tc = self.ae.time_compression_ratio
+                        tc = self.ae.config.time_compression_ratio
                         self.mask_conds = choose_mask_conditions(dict(self.condition_config), x.shape[0],
                                                                  x0.shape[2], tc, self.host_rng)
                         masks, cond = build_visual_condition(

@@ -22,6 +22,7 @@ from typing import Optional
 
 import torch
 
+import opensora_torch.models.dc_ae.model  # noqa: F401  (registers "dc_ae")
 import opensora_torch.models.hunyuan_vae.model  # noqa: F401  (registers "hunyuan_vae")
 import opensora_torch.models.mmdit.model  # noqa: F401  (registers "flux")
 import opensora_torch.models.text.conditioner  # noqa: F401  (registers "text_embedder")
