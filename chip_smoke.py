@@ -165,6 +165,29 @@ one with "offload" (equal losses, gradients within the backward's limit,
 the device memory held through the forward, offload's below full's, and
 the backward's peaks side by side), and rf_eval_loss over the trained
 model.
+Tokenizers and the evaluation, last: phase 13 keeps its T5-XXL and CLIP-L
+directories; phase 3g holds the evaluation's CLIP ViT-L/14 vision tower
+and the CLIP-L text tower at full size (random from a seed, fp32, TF32
+off as the scorer sets it under PyTorch's defaults) against the CPU on 2
+frames and a prompt (a vision layer skipped on the CPU must fail the
+limit); phase 17a writes spiece.model (32000 pieces,
+a non-empty charsmap) and vocab.json / merges.txt (49408 entries), both
+generated from text in the repository, beside those weights and runs
+256px.py through the inference CLI at full width and depth for 2 steps
+with --motion-score 4 and t5 / clip naming the directories: the encoders'
+ids are the tokenizers' (equal to ids computed on the CPU and stored
+here, not the byte fallback's), 57 D = 128 launches a step and 2 D = 512
+in the decode, the sample saved as .npy; phase 17b writes a random
+ViT-L/14 CLIPModel (HF layout, with the tokenizer files) and a random
+LAION aesthetic head and runs python -m opensora_torch.evaluate on the
+card over that sample and seeded clips whose sidecars name each detection
+dimension, pooled and with --suite vbench, under PyTorch's TF32 defaults
+as a user's process runs it: every named dimension scored and finite, the
+others None, the motion-score sample matched to its suite (R3), no kernel
+launched; pooled again over every sample twice, the same report and the
+same peak memory (the samples stay on the host); it times the scorer's
+loading apart from the scoring, the tower on 8 frames and the evaluation
+of the 129-frame video.
 Then it prints the card's name and power limit, one JSON line with the
 kernels' numbers, and last {"ok": true, "device": {...}}.
 
@@ -177,6 +200,7 @@ tables go to DIR/profile_{main,ring,t2i2v,train,ring_train,int8,vae,dcae,hc,hc_t
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import gc
 import json
 import math
@@ -2746,7 +2770,7 @@ def check_replay(tag: str, rec: FirstCall, fn, device, expect_launches: dict) ->
     return res
 
 
-def run_ckpt_path(device, records: dict, root: str) -> dict:
+def run_ckpt_path(device, records: dict, root: str, text_root: str) -> dict:
     """Phase 13: the weights of phases 4, 6 and 11, each drawn again from
     its seed (the rebuild's first step checked bitwise against the phase's),
     written with the port's writer in a published layout, freed, and loaded
@@ -2757,7 +2781,8 @@ def run_ckpt_path(device, records: dict, root: str) -> dict:
     Flux image model in flux1-dev's layout (fused, q/k rows in the
     interleaved pairing) and the 2D Flux AE. Every loaded tensor equals its
     checksum; each loaded step equals its phase's first step. Files are
-    deleted after their check (the VAE's is kept for phase 14)."""
+    deleted after their check (the VAE's is kept for phase 14, T5-XXL's
+    and CLIP-L's directories under ``text_root`` for phase 17a)."""
     from opensora_torch.ops.quant import quantize_model_
     from opensora_torch.registry import MODELS, build_module
     from opensora_torch.utils.api import prepare_models, prepare_optional_models
@@ -2779,7 +2804,7 @@ def run_ckpt_path(device, records: dict, root: str) -> dict:
     text_dtype = torch_dtype(cfg.get("dtype", "bf16"))
     with LoadRecorder() as rec:
         # T5-XXL as a sharded HF directory, CLIP-L as a CLIPModel file
-        t5_dir = os.path.join(root, "t5_v1_1_xxl")
+        t5_dir = os.path.join(text_root, "t5_v1_1_xxl")
         t0 = time.perf_counter()
         shards = save_sharded(t5.module.state_dict(), t5_dir, T5_SHARD_BYTES)
         res["writes"].append(dict(file="t5_v1_1_xxl/ (%d shards + index)" % len(shards), gb=file_bytes(t5_dir) / 1e9,
@@ -2791,8 +2816,7 @@ def run_ckpt_path(device, records: dict, root: str) -> dict:
                                           t5_loaded, device, {})
         del t5_loaded, t5
         free()
-        shutil.rmtree(t5_dir)
-        clip_dir = os.path.join(root, "clip_vit_large")
+        clip_dir = os.path.join(text_root, "clip_vit_large")
         os.makedirs(clip_dir)
         gen = torch.Generator(device=device).manual_seed(0)
         extras = {k: torch.randn(s, generator=gen, device=device).to(text_dtype) for k, s in CLIP_EXTRAS.items()}
@@ -2806,7 +2830,7 @@ def run_ckpt_path(device, records: dict, root: str) -> dict:
                                             clip_loaded, device, {})
         del clip_loaded, clip, extras
         free()
-        shutil.rmtree(clip_dir)
+        res["text_dirs"] = dict(t5=t5_dir, clip=clip_dir)  # kept for phase 17a
 
         # the 11B MMDiT in the published unfused layout, the HunyuanVAE
         mmdit_path = os.path.join(root, "Open_Sora_v2.safetensors")
@@ -3475,6 +3499,673 @@ def run_hc_train_path(device, profile: bool = False, out_dir=None) -> dict:
     return res
 
 
+# ----------------------------------------------------------------------
+# phases 3g and 17: tokenizers from the checkpoint directories, and the
+# evaluation CLI (CLIP ViT-L/14 scorer, aesthetic head, VBench-style suites)
+# ----------------------------------------------------------------------
+
+# Text that predates the port and stays as it is: the tokenizer files are
+# generated from it, so that ids computed once on the CPU stay right.
+TOKENIZER_CORPUS = ("docs", "opensora_tpu")
+# phase 17a's prompt: one of the VBench overall_consistency suite's, so that
+# phase 17b's --suite run matches the sample through its --motion-score
+# suffix (ROADMAP R3)
+TOK_PROMPT = "a dog jumping over a log near the campsite"
+TOK_SUITE = "overall_consistency"
+TOK_MOTION = "4"
+# a text through the T5 charsmap (ligature, full-width letters, no-break space)
+TOK_PROBE = "ﬁne Ａpples on a ①st ﬂoor"
+# ids computed on the CPU from the files write_{t5,clip}_tokenizer_files
+# generate, for TOK_PROMPT + " 4 motion score." (to the end token) and TOK_PROBE
+T5_PROMPT_IDS = [144, 1635, 73, 227, 2338, 238, 1356, 144, 2271, 118, 3462, 207, 169, 566, 85, 883, 2662, 6719, 2123,
+                 16, 1]
+CLIP_PROMPT_IDS = [49406, 320, 7962, 73, 5380, 79, 520, 326, 782, 320, 1223, 77, 1232, 337, 516, 2702, 79, 12277, 324,
+                   275, 667, 615, 660, 82, 622, 1165, 269, 49407]
+T5_PROBE_IDS = [118, 9692, 1096, 82, 4620, 647, 144, 269, 138, 1153, 128, 1]
+# Phase 3g: the CLIP towers at full size, fp32 with TF32 off, card against
+# CPU: the same products summed in another order, ~1e-6 of the scale per
+# layer, 24 + 12 pre-LN layers; a tower with one layer skipped must fail.
+CLIP_CARD_TOL = 1e-4
+EVAL_CLIP_FRAMES, EVAL_CLIP_SIZE = 33, (192, 336)  # phase 17b's seeded clips: 33 frames at 256px.py's 192 x 336
+EVAL_SLOTS = {  # phase 17b's seeded clips: each names one detection dimension (and its slot) in its sidecar
+    "object_class": {"object": "dog"}, "multiple_objects": {"objects": ["cat", "dog"]},
+    "color": {"color_object": ["red", "car"]}, "spatial_relationship": {"spatial": ["cat", "left", "dog"]},
+    "scene": {"scene": "beach"}, "human_action": {"action": "dancing"},
+}
+EVAL_STYLED = {"appearance_style": "a river at dawn, in the style of Van Gogh",
+               "temporal_style": "a busy market, zoom in"}
+# Phase 17b, every sample twice: each mean over its values twice (the same
+# scores, from fp32 towers, summed in another order); the peak may grow by
+# less than one of the smallest sample's float32 copies on the card
+# (33 x 192 x 336 x 3 x 4 bytes = 25.5 MB), so holding one more video there
+# fails.
+EVAL_TWICE_TOL = 1e-6
+EVAL_PEAK_GROWTH = 8e6  # bytes
+
+
+def tokenizer_corpus() -> str:
+    parts = []
+    for top in TOKENIZER_CORPUS:
+        for root, dirs, names in os.walk(os.path.join(REPO, top)):
+            dirs.sort()
+            for name in sorted(names):
+                if name.endswith((".md", ".py")):
+                    with open(os.path.join(root, name), encoding="utf-8") as f:
+                        parts.append(f.read())
+    return "\n".join(parts)
+
+
+def write_clip_tokenizer_files(directory: str, corpus: str) -> int:
+    """CLIP's vocab.json and merges.txt at the published sizes: the 256
+    byte symbols, each again with </w>, 48894 merges, <|startoftext|> 49406
+    and <|endoftext|> 49407. The merges build the corpus's words left to
+    right (most frequent words first), then pairs over the byte alphabet
+    fill the count. Returns the vocabulary's size."""
+    import collections
+
+    from opensora_torch.models.text import clip_tokenizer as ct
+
+    be = ct.bytes_to_unicode()
+    words = collections.Counter("".join(be[b] for b in w.encode("utf-8"))
+                                for w in ct.split_words(ct.basic_clean(corpus)))
+    merges, seen = [], set()
+
+    def add(pair):
+        if pair not in seen and len(merges) < ct.MAX_MERGES:
+            seen.add(pair)
+            merges.append(pair)
+
+    for w, _ in sorted(words.items(), key=lambda kv: (-kv[1], kv[0])):
+        cur = w[0] if len(w) > 1 else w + "</w>"
+        for i, ch in enumerate(w[1:], 1):
+            nxt = ch + ("</w>" if i == len(w) - 1 else "")
+            add((cur, nxt))
+            cur += nxt
+    symbols = list(be.values())
+    for a in symbols:
+        for b in symbols:
+            add((a, b))
+    vocab = symbols + [s + "</w>" for s in symbols] + ["".join(m) for m in merges] + ["<|startoftext|>",
+                                                                                     "<|endoftext|>"]
+    if len(set(vocab)) != 49408:
+        raise AssertionError(f"CLIP vocabulary of {len(set(vocab))} entries")
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump({v: i for i, v in enumerate(vocab)}, f)
+    with open(os.path.join(directory, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "\n".join(" ".join(m) for m in merges) + "\n")
+    return len(vocab)
+
+
+def _pb_varint(v: int) -> bytes:
+    v &= (1 << 64) - 1
+    out = bytearray()
+    while True:
+        out.append((v & 0x7F) | (0x80 if v > 0x7F else 0))
+        v >>= 7
+        if not v:
+            return bytes(out)
+
+
+def _pb_field(number: int, value) -> bytes:
+    """One protobuf field: length-delimited for bytes / str, fixed32 for a
+    float, else a varint."""
+    import struct
+
+    if isinstance(value, (bytes, str)):
+        value = value.encode("utf-8") if isinstance(value, str) else value
+        return _pb_varint(number << 3 | 2) + _pb_varint(len(value)) + value
+    if isinstance(value, float):
+        return _pb_varint(number << 3 | 5) + struct.pack("<f", value)
+    return _pb_varint(number << 3) + _pb_varint(int(value))
+
+
+def write_spiece_model(path: str, m) -> None:
+    """Write a ``t5_tokenizer.ModelProto`` as a ``spiece.model`` file (the
+    field numbers the reader takes)."""
+    from opensora_torch.models.text import t5_tokenizer as tt
+
+    out = bytearray()
+    for piece, score, kind in m.pieces:
+        out += _pb_field(1, _pb_field(1, piece) + _pb_field(2, float(score)) + _pb_field(3, kind))
+    out += _pb_field(2, b"".join(_pb_field(n, getattr(m, name)) for n, name in sorted(tt._TRAINER.items())))
+    out += _pb_field(3, _pb_field(1, "nmt_nfkc" if m.precompiled_charsmap else "identity")
+                     + b"".join(_pb_field(n, getattr(m, name)) for n, name in sorted(tt._NORMALIZER.items())))
+    with open(path, "wb") as f:
+        f.write(bytes(out))
+
+
+def build_charsmap(rules: dict) -> bytes:
+    """The ``precompiled_charsmap`` blob that replaces each key of ``rules``
+    (longest key first) by its value: a darts-clone double array over the
+    keys' UTF-8 bytes (a node's children at ``pos ^ offset ^ label``, its
+    value in the label-0 child), padded to whole 256-unit blocks, and the
+    NUL-terminated values."""
+    import struct
+
+    import numpy as np
+
+    normalized, value_of = bytearray(), {}
+    trie: dict = {}
+    for key, repl in sorted(rules.items()):
+        if not key or "\0" in key + repl:
+            raise ValueError(f"bad rule {key!r} -> {repl!r}")
+        value_of[key] = len(normalized)
+        normalized += repl.encode("utf-8") + b"\0"
+        node = trie
+        for b in key.encode("utf-8"):
+            node = node.setdefault(b, {})
+        node[0] = value_of[key]  # label 0: the leaf
+    units = [0]
+    used, bases = {0}, set()
+    first_free = [1]
+
+    def free_base(pos: int, labels: list) -> int:
+        while first_free[0] in used:
+            first_free[0] += 1
+        slot = first_free[0]
+        while True:  # the first base whose label slots are all free
+            base = slot ^ labels[0]
+            if (slot not in used and base and base not in bases and (pos ^ base) < 1 << 21
+                    and not any(base ^ c in used for c in labels)):
+                return base
+            slot += 1
+
+    def place(node: dict, pos: int) -> None:
+        labels = sorted(node)
+        base = free_base(pos, labels)
+        bases.add(base)
+        offset = pos ^ base
+        units[pos] = (units[pos] & ((1 << 31) | 0x1FF)) | (offset << 10)
+        for c in labels:
+            used.add(base ^ c)
+        units.extend([0] * (max(base ^ c for c in labels) + 1 - len(units)))
+        for c in labels:
+            child = base ^ c
+            if c == 0:
+                units[child] = node[0] | (1 << 31)
+                units[pos] |= 1 << 8  # has_leaf
+            else:
+                units[child] = c
+        for c in labels:
+            if c:
+                place(node[c], base ^ c)
+
+    place(trie, 0)
+    # every lookup ``base ^ byte`` lands in the 256-unit block of its base: pad to whole blocks
+    units.extend([0] * ((max(bases) | 0xFF) + 1 - len(units)))
+    blob = np.asarray(units, "<u4").tobytes()
+    return struct.pack("<I", len(blob)) + blob + bytes(normalized)
+
+
+def write_t5_tokenizer_files(directory: str, corpus: str) -> int:
+    """T5's spiece.model at the published size: 32000 pieces, <pad> 0, </s> 1,
+    <unk> 2, then the corpus's characters and its most frequent substrings
+    of up to 8 characters (a word-start mark first where they start a
+    word), scored by log frequency; a non-empty precompiled_charsmap of
+    NFKC rules (ligatures, full-width and enclosed forms, spaces) and tabs
+    and newlines to spaces. Returns the number of pieces."""
+    import collections
+    import heapq
+    import unicodedata
+
+    from opensora_torch.models.text import t5_tokenizer as tt
+
+    counts = collections.Counter()
+    for w, n in collections.Counter(corpus.split()).items():
+        w = tt.SPACE + w
+        for i in range(len(w)):
+            for j in range(i + 1, min(len(w), i + 8) + 1):
+                counts[w[i:j]] += n
+    chars = sorted({c for c in corpus if not c.isspace()} | set(map(chr, range(33, 127))) | {tt.SPACE})
+    ranked = [p for p, _ in heapq.nsmallest(32000 - 3 - len(chars), ((p, n) for p, n in counts.items()
+                                                                     if len(p) > 1 and tt.SPACE not in p[1:]),
+                                            key=lambda kv: (-kv[1], kv[0]))]
+    pieces = chars + ranked[:32000 - 3 - len(chars)]
+    total = sum(counts.values())
+    ranges = [(0xA0, 0xFF), (0x2000, 0x206F), (0x2100, 0x218F), (0x2460, 0x24FF), (0x3000, 0x3000), (0xFB00, 0xFB4F),
+              (0xFF01, 0xFF60)]
+    rules = {c: n for lo, hi in ranges for c in map(chr, range(lo, hi + 1))
+             if (n := unicodedata.normalize("NFKC", c)) != c and n and "\0" not in n}
+    rules.update({"\t": " ", "\n": " ", "\r": " "})
+    model = tt.ModelProto(
+        pieces=[("<pad>", 0.0, tt.CONTROL), ("</s>", 0.0, tt.CONTROL), ("<unk>", 0.0, tt.UNKNOWN)]
+        + [(p, math.log(max(counts[p], 1) / total), tt.NORMAL) for p in pieces],
+        unk_id=2, bos_id=-1, eos_id=1, pad_id=0, precompiled_charsmap=build_charsmap(rules))
+    if len(model.pieces) != 32000:
+        raise AssertionError(f"spiece.model of {len(model.pieces)} pieces")
+    os.makedirs(directory, exist_ok=True)
+    write_spiece_model(os.path.join(directory, tt.FILE), model)
+    return len(model.pieces)
+
+
+def tokenized_prompt() -> str:
+    from opensora_torch.utils.inference import add_motion_score_to_text
+
+    return add_motion_score_to_text([TOK_PROMPT], TOK_MOTION)[0]
+
+
+def ids_to_end(ids, eos: int) -> list:
+    ids = [int(i) for i in ids]
+    return ids[:ids.index(eos) + 1]
+
+
+@contextlib.contextmanager
+def torch_tf32_defaults():
+    """PyTorch's own TF32 defaults (cuBLAS off, cuDNN on) in place of this
+    script's (both off), for the code that sets its precision itself, as a
+    user's process runs it."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def check_clip_small_input(device) -> dict:
+    """Phase 3g: the evaluation's CLIP ViT-L/14 vision tower (24 layers of
+    1024, patch 14, 224 px) and CLIP-L text tower (12 layers of 768) at full
+    size, random weights from a seed, fp32 on the card with TF32 off as the
+    scorer sets it (``clip_scorer.full_fp32``, under PyTorch's TF32
+    defaults) against the CPU on a 2-frame input and a tokenized prompt:
+    last hidden state, pooled output and projected features within
+    CLIP_CARD_TOL of their scale; the CPU with one vision layer skipped must
+    exceed it."""
+    from opensora_torch.eval.clip_scorer import full_fp32
+    from opensora_torch.models.text.clip import CLIPModel, clip_l_config, clip_vision_l_config
+    from opensora_torch.models.text.conditioner import ByteFallbackTokenizer
+
+    torch.manual_seed(0)
+    t0 = time.perf_counter()
+    cpu = CLIPModel(clip_l_config(), clip_vision_l_config()).eval()
+    card = CLIPModel(clip_l_config(), clip_vision_l_config(), device="meta").eval()
+    card.load_state_dict({k: v.to(device) for k, v in cpu.state_dict().items()}, assign=True)
+    build_s = time.perf_counter() - t0
+    gen = torch.Generator().manual_seed(3)
+    px = torch.randn(2, 3, 224, 224, generator=gen)
+    ids = torch.from_numpy(ByteFallbackTokenizer(49408, 77, 49407)([tokenized_prompt()]))
+
+    def run(model, dev, skip_layer=False):
+        layers = model.vision_model.encoder.layers
+        if skip_layer:
+            model.vision_model.encoder.layers = layers[:-1]
+        try:
+            with torch.inference_mode(), torch_tf32_defaults(), full_fp32():
+                hidden, pooled = model.vision_model(px.to(dev))
+                txt_hidden, txt_pooled = model.text_model(ids.to(dev))
+                return dict(vision_hidden=hidden, vision_pooled=pooled, image_features=model.visual_projection(pooled),
+                            text_hidden=txt_hidden, text_features=model.text_projection(txt_pooled))
+        finally:
+            model.vision_model.encoder.layers = layers
+
+    t0 = time.perf_counter()
+    ref = run(cpu, "cpu")
+    cpu_s = time.perf_counter() - t0
+    out = run(card, device)
+    torch.cuda.synchronize()
+    bad = run(cpu, "cpu", skip_layer=True)
+
+    def rel(a, b):
+        return float((a.float().cpu() - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+    res = {k: rel(out[k], ref[k]) for k in ref}
+    control = rel(bad["vision_pooled"], ref["vision_pooled"])
+    ok = all(v <= CLIP_CARD_TOL for v in res.values()) and control > CLIP_CARD_TOL
+    log(f"[clip_small] ViT-L/14 + CLIP-L text towers (fp32, TF32 off by the scorer's pin), 2 frames of 224 px and "
+        f"one prompt, card vs CPU "
+        f"(built in {build_s:.1f} s, CPU forward {cpu_s:.1f} s): {json.dumps(res)} (tol {CLIP_CARD_TOL} of the "
+        f"scale); control, one vision layer skipped on the CPU: {control:.3g} {'OK' if ok else 'FAIL'}")
+    del cpu, card, out, ref, bad
+    free()
+    if not ok:
+        raise AssertionError("the card's CLIP towers disagree with the CPU's, or the limit misses a skipped layer")
+    return dict(res, control_layer_skipped=control, tol=CLIP_CARD_TOL)
+
+
+def tokenized_expected_launches(cfg) -> dict:
+    """Phase 17a's launches: the D = 128 forward once a block a step, the
+    D = 512 forward once a VAE decode tile (the 33 x 24 x 42 latent decodes
+    as two spatial tiles)."""
+    n_blocks = cfg.model["depth"] + cfg.model["depth_single_blocks"]
+    return {"flash_attention_fwd_sm90": n_blocks * cfg.sampling_option["num_steps"], "flash_attention_fwd_d512": 2}
+
+
+def run_tokenized_path(device, text_dirs: dict, root: str) -> dict:
+    """Phase 17a: the tokenizer files written beside phase 13's T5-XXL and
+    CLIP-L weights, then the generation CLI (``opensora_torch.inference``)
+    on 256px.py at full width and depth -- 2 steps, ``--motion-score 4``,
+    t5 / clip naming those directories, the dataset's own fps / motion
+    suffixes off so that the sample's prompt is the suite prompt and the
+    CLI's suffix -- saving the sample as the port's .npy (OpenCV hidden).
+    Checks: the embedders hold the files' tokenizers, the ids the encoders
+    saw are the ids computed on the CPU (not the byte fallback's), a T5
+    probe through the charsmap too, 57 D = 128 launches a step and 2 D = 512
+    launches in the decode, the sample and its prompt on disk."""
+    import numpy as np
+
+    import opensora_torch.utils.api as api
+    import opensora_torch.utils.inference as inference_utils
+    from opensora_torch import inference
+    from opensora_torch.models.text.clip_tokenizer import CLIPTokenizer
+    from opensora_torch.models.text.conditioner import ByteFallbackTokenizer
+    from opensora_torch.models.text.t5_tokenizer import T5Tokenizer
+    from opensora_torch.ops import _build
+    from opensora_torch.utils.config import parse_configs
+    from opensora_torch.utils.sampling import SamplingOption, sanitize_sampling_option
+
+    t0 = time.perf_counter()
+    corpus = tokenizer_corpus()
+    n_t5 = write_t5_tokenizer_files(text_dirs["t5"], corpus)
+    n_clip = write_clip_tokenizer_files(text_dirs["clip"], corpus)
+    files_s = time.perf_counter() - t0
+    cfg_path = os.path.join(root, "256px_tokenized.py")
+    with open(cfg_path, "w") as f:
+        f.write(f"_base_ = [{MAIN_CFG!r}]\ndataset = dict(_delete_=True, type='text')\n")
+    samples = os.path.join(root, "samples")
+    argv = [cfg_path, "--prompt", TOK_PROMPT, "--motion-score", TOK_MOTION, "--sampling_option.num_steps",
+            str(STEPS), "--t5.from_pretrained", text_dirs["t5"], "--clip.from_pretrained", text_dirs["clip"],
+            "--save_dir", samples, "--device", str(device)]
+    log(f"[tok] spiece.model ({n_t5} pieces) and vocab.json / merges.txt ({n_clip} entries) written in "
+        f"{files_s:.1f} s; 256px.py at full width and depth through the CLI, num_steps cut 50 -> {STEPS}, "
+        f"--motion-score {TOK_MOTION}, t5 / clip from phase 13's directories")
+    seen, timings = {}, {}
+
+    def wrap_models(fn):
+        def build(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seen["build_s"] = time.perf_counter() - t
+            seen["t5"], seen["clip"] = out[2], out[3]
+            seen["rec_t5"] = FirstCall(out[2].module).__enter__()
+            seen["rec_clip"] = FirstCall(out[3].module).__enter__()
+            return out
+        return build
+
+    def wrap_api(fn):
+        def make(*args, **kwargs):
+            api_fn = fn(*args, **kwargs)
+            return lambda *a, **k: api_fn(*a, timings=timings, **k)
+        return make
+
+    def wrap_save(fn):  # OpenCV hidden around the save only: a module first imported under the patch would not stay
+        def save(*args, **kwargs):
+            with unittest.mock.patch.dict(sys.modules, {"cv2": None}):
+                return fn(*args, **kwargs)
+        return save
+
+    torch.cuda.reset_peak_memory_stats(device)
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    try:
+        with patched(api, "prepare_models", wrap_models), patched(api, "prepare_api", wrap_api), \
+                patched(inference_utils, "process_and_save", wrap_save):
+            paths = inference.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        for k in ("rec_t5", "rec_clip"):
+            if k in seen:
+                seen[k].__exit__(None, None, None)
+    total_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    t5, clip = seen.pop("t5"), seen.pop("clip")
+    text = tokenized_prompt()
+    t5_ids = ids_to_end(seen["rec_t5"].args[0][0], 1)
+    clip_ids = ids_to_end(seen["rec_clip"].args[0][0], 49407)
+    t5_bytes = ids_to_end(ByteFallbackTokenizer(t5.config.vocab_size, 512)([text])[0], 1)
+    probe = ids_to_end(t5.tokenizer([TOK_PROBE])[0], 1)
+
+    def per_prompt_ms(tok, n=200):
+        t = time.perf_counter()
+        for _ in range(n):
+            tok([text])
+        return (time.perf_counter() - t) / n * 1e3
+
+    t = time.perf_counter()
+    T5Tokenizer(text_dirs["t5"])
+    t5_load_s = time.perf_counter() - t
+    t = time.perf_counter()
+    CLIPTokenizer(text_dirs["clip"])
+    clip_load_s = time.perf_counter() - t
+    res = dict(
+        prompt=text, t5_ids=t5_ids, clip_ids=clip_ids, t5_probe_ids=probe,
+        t5_ids_equal_cpu=t5_ids == T5_PROMPT_IDS, clip_ids_equal_cpu=clip_ids == CLIP_PROMPT_IDS,
+        t5_probe_equal_cpu=probe == T5_PROBE_IDS, t5_ids_are_not_bytes=t5_ids != t5_bytes,
+        tokenizers=[type(t5.tokenizer).__name__, type(clip.tokenizer).__name__],
+        t5_tokenizer_ms_per_prompt=per_prompt_ms(t5.tokenizer),
+        clip_tokenizer_ms_per_prompt=per_prompt_ms(clip.tokenizer),
+        t5_tokenizer_load_s=t5_load_s, clip_tokenizer_load_s=clip_load_s, tokenizer_files_s=files_s,
+        text_encode_s=timings.get("text_encode_s"), step_s=timings.get("step_s"), decode_s=timings.get("decode_s"),
+        models_build_s=seen["build_s"], total_s=total_s, peak_mem_gb=peak_gb, launches=launches)
+    del t5, clip, seen
+    free()
+    cfg = parse_configs([cfg_path, "--sampling_option.num_steps", str(STEPS)])
+    opt = sanitize_sampling_option(SamplingOption(**cfg.sampling_option))
+    expect = tokenized_expected_launches(cfg)
+    res["expected_launches"] = expect
+    sample = paths[0] if len(paths) == 1 else None
+    frames = np.load(sample) if sample and sample.endswith(".npy") else None
+    with open(os.path.join(samples, "sample_0000.txt")) as f:
+        res["saved_prompt"] = f.read()
+    res["sample_shape"] = list(frames.shape) if frames is not None else None
+    want_shape = [opt.num_frames, opt.height, opt.width, 3]
+    log("[tok] " + json.dumps({k: v for k, v in res.items() if k not in ("t5_ids", "clip_ids", "t5_probe_ids")}))
+    log(f"[tok] T5 ids {t5_ids}; CLIP ids {clip_ids}; probe {probe}")
+    if not (res["t5_ids_equal_cpu"] and res["clip_ids_equal_cpu"] and res["t5_probe_equal_cpu"]
+            and res["t5_ids_are_not_bytes"] and res["tokenizers"] == ["T5Tokenizer", "CLIPTokenizer"]):
+        raise AssertionError("the embedders did not tokenize with the files' tokenizers as computed on the CPU")
+    if launches != expect:
+        raise AssertionError(f"kernel launches {launches} != expected {expect}")
+    if res["sample_shape"] != want_shape or res["saved_prompt"] != text:
+        raise AssertionError(f"sample {sample} {res['sample_shape']}, prompt {res['saved_prompt']!r}")
+    res["samples"] = samples
+    return res
+
+
+def write_clip_model(directory: str, corpus: str, device, text=None, vision=None) -> dict:
+    """A random-weight CLIPModel (seed 0; ViT-L/14 and CLIP-L unless
+    ``text`` / ``vision`` configs are given) in HF's layout:
+    model.safetensors (with logit_scale), config.json (the head counts, the
+    text eos id) and the CLIP tokenizer files."""
+    from opensora_torch.models.text.clip import CLIPModel, clip_l_config, clip_vision_l_config
+    from opensora_torch.utils.safetensors_io import save_file
+
+    t0 = time.perf_counter()
+    torch.manual_seed(0)
+    text, vision = text or clip_l_config(), vision or clip_vision_l_config()
+    model = CLIPModel(text, vision, device=device)
+    with torch.no_grad():  # HF's initializer scale for the embeddings
+        for name, p in model.named_parameters():
+            if "embedding" in name:
+                p.mul_(0.02)
+    os.makedirs(directory, exist_ok=True)
+    nbytes = save_file({**model.state_dict(), "logit_scale": torch.tensor(2.6592, device=device)},
+                       os.path.join(directory, "model.safetensors"))
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        json.dump({"architectures": ["CLIPModel"], "projection_dim": vision.projection_dim,
+                   "text_config": {"num_attention_heads": text.num_heads, "eos_token_id": text.eos_token_id},
+                   "vision_config": {"num_attention_heads": vision.num_heads, "patch_size": vision.patch_size}}, f)
+    write_clip_tokenizer_files(directory, corpus)
+    del model
+    free()
+    return dict(gb=nbytes / 1e9, write_s=time.perf_counter() - t0)
+
+
+def write_eval_clips(directory: str, seed: int = 0) -> list:
+    """Seeded clips (a textured background and a moving square, uint8 .npy
+    as the port saves samples), each with a prompt and a .json sidecar that
+    names one detection dimension and its slot; two more whose prompts carry
+    a style and a temporal-style phrase."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t, (h, w) = EVAL_CLIP_FRAMES, EVAL_CLIP_SIZE
+    names = []
+    for i, (dim, text) in enumerate(list((d, f"seeded clip {k}") for k, d in enumerate(EVAL_SLOTS))
+                                    + list(EVAL_STYLED.items())):
+        bg = rng.integers(0, 256, (1, h, w, 3), dtype=np.uint8)
+        v = np.repeat(bg, t, axis=0)
+        for f in range(t):
+            x0 = (8 + (3 + i) * f) % (w - 48)
+            v[f, 40:88, x0:x0 + 48] = 230
+        name = f"clip_{i:02d}"
+        np.save(os.path.join(directory, name + ".npy"), v)
+        with open(os.path.join(directory, name + ".txt"), "w") as f:
+            f.write(text)
+        with open(os.path.join(directory, name + ".json"), "w") as f:
+            json.dump({"dimension": dim, **EVAL_SLOTS.get(dim, {})}, f)
+        names.append(name)
+    return names
+
+
+def run_eval_path(device, samples: str, root: str) -> dict:
+    """Phase 17b: ``python -m opensora_torch.evaluate`` on the card, in this
+    process, over phase 17a's sample and seeded clips naming every detection
+    dimension: a random ViT-L/14 CLIPModel with the CLIP tokenizer's files
+    and a random LAION-layout aesthetic head (768 -> 1024 -> 128 -> 64 -> 16
+    -> 1) on disk. Pooled: every dimension the samples name scored and
+    finite. ``--suite vbench``: each dimension with samples scored and
+    finite, the others None, phase 17a's sample (its prompt ends in the
+    --motion-score suffix) matched to its suite (R3). Pooled over a
+    directory holding every sample twice: the same report (each mean over
+    its values twice) and a peak within EVAL_PEAK_GROWTH of the first run's,
+    since the CLI keeps the samples on the host (control: with the samples
+    loaded onto the card first the peak grows past it). No kernel launches. The
+    runs time the scorer's and head's loading apart from the scoring (from
+    the first video to the last), and the phase times the scorer's vision
+    tower on 8 frames and the pooled evaluation of phase 17a's video (129
+    frames, 192 x 336) alone."""
+    from opensora_torch import evaluate
+    from opensora_torch.eval import aesthetic, clip_scorer, suites, vbench
+    from opensora_torch.eval.aesthetic import AestheticHead
+    from opensora_torch.eval.clip_scorer import CLIPScorer
+    from opensora_torch.eval.suites import DIMENSIONS
+    from opensora_torch.ops import _build
+    from opensora_torch.utils.ckpt import clip_model_configs
+
+    corpus = tokenizer_corpus()
+    clip_dir = os.path.join(root, "clip-vit-large-patch14")
+    written = write_clip_model(clip_dir, corpus, device)
+    aes = os.path.join(root, "aesthetic_predictor.pth")
+    torch.manual_seed(1)
+    proj = clip_model_configs(clip_dir)[1].projection_dim  # 768: LAION's predictor over ViT-L/14
+    torch.save(AestheticHead({0: (1024, proj), 2: (128, 1024), 4: (64, 128), 6: (16, 64), 7: (1, 16)}).state_dict(),
+               aes)
+    names = write_eval_clips(samples)
+    n_videos = len(names) + 1
+    twice = os.path.join(root, "samples_twice")  # every sample under two names
+    os.makedirs(twice, exist_ok=True)
+    for f in os.listdir(samples):
+        for prefix in ("a_", "b_"):
+            shutil.copyfile(os.path.join(samples, f), os.path.join(twice, prefix + f))
+    argv = ["--clip", clip_dir, "--aesthetic", aes, "--device", str(device)]
+    res = dict(clip_model=written, videos=n_videos)
+
+    def timed(module, name, seconds: dict):
+        fn = getattr(module, name)
+
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+
+        return unittest.mock.patch.object(module, name, run)
+
+    for mode, directory, n, extra in (("pooled", samples, n_videos, []),
+                                      ("suite", samples, n_videos, ["--suite", "vbench"]),
+                                      ("pooled_twice", twice, 2 * n_videos, [])):
+        free()
+        torch.cuda.reset_peak_memory_stats(device)
+        _build.LAUNCHES.clear()
+        seconds = {}
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(torch_tf32_defaults())
+            for module, name in ((clip_scorer, "try_load_scorer"), (aesthetic, "try_load_head"),
+                                 (vbench, "evaluate_videos"), (suites, "evaluate_suite")):
+                stack.enter_context(timed(module, name, seconds))
+            report = evaluate.main(["--samples", directory] + argv + extra)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        score_s = seconds.get("evaluate_suite" if extra else "evaluate_videos")
+        res[mode] = dict(report=report, videos=n, cli_s=total,
+                         load_s=seconds["try_load_scorer"] + seconds["try_load_head"], score_s=score_s,
+                         score_s_per_video=score_s / n, peak_mem_gb=torch.cuda.max_memory_allocated(device) / 1e9,
+                         launches=dict(_build.LAUNCHES))
+    pooled, suite, pooled_twice = (res[m]["report"] for m in ("pooled", "suite", "pooled_twice"))
+    named = ["clip_score", "subject_consistency", "background_consistency", "aesthetic_quality", "overall_consistency",
+             "temporal_consistency", "motion_magnitude", "temporal_flickering", "motion_smoothness", "dynamic_degree",
+             "imaging_quality", *EVAL_SLOTS, *EVAL_STYLED]
+    bad_pooled = [k for k in named if not (isinstance(pooled.get(k), float) and math.isfinite(pooled[k]))]
+    dims = list(DIMENSIONS)
+    bad_suite = [k for k in dims if (suite[k]["n"] > 0) != (suite[k]["score"] is not None)
+                 or (suite[k]["score"] is not None and not math.isfinite(suite[k]["score"]))]
+    want_scored = {*EVAL_SLOTS, *EVAL_STYLED, TOK_SUITE}
+    scored = {k for k in dims if suite[k]["score"] is not None}
+    r3 = suite[TOK_SUITE]["n"] == 1 and suite["_summary"]["samples_matched"] == n_videos
+    twice_diff = {k: abs(pooled_twice[k] - v) for k, v in pooled.items() if k != "num_samples"}
+    twice_same = (set(pooled_twice) == set(pooled) and pooled_twice["num_samples"] == 2 * n_videos
+                  and max(twice_diff.values()) <= EVAL_TWICE_TOL)
+    growth = res["pooled_twice"]["peak_mem_gb"] - res["pooled"]["peak_mem_gb"]
+    res.update(twice_max_abs_diff=max(twice_diff.values()), peak_growth_gb=growth)
+
+    # the parts: the vision tower on 8 frames, the pooled evaluation of phase 17a's video alone
+    video = evaluate.to_video(evaluate.load_frames(os.path.join(samples, "sample_0000.npy")), device)
+    with torch_tf32_defaults():
+        scorer = CLIPScorer.from_pretrained(clip_dir, device=device)
+        head = AestheticHead.from_pretrained(aes, device)
+        scorer.embed_frames(video, 8)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            scorer.embed_frames(video, 8)
+        torch.cuda.synchronize()
+        res["vision_tower_8_frames_s"] = (time.perf_counter() - t0) / 5
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        vbench.evaluate_videos([video], [tokenized_prompt()], scorer, head)
+        torch.cuda.synchronize()
+        res["eval_one_video_s"] = time.perf_counter() - t0
+        res["eval_one_video_shape"] = list(video.shape)
+        res["eval_one_video_peak_mem_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+        # control: every sample loaded onto the card first, as a list, once and twice; the peak must grow
+        peaks = []
+        for directory in (samples, twice):
+            files = sorted(f for f in os.listdir(directory) if f.endswith(".npy"))
+            resident = [evaluate.to_video(evaluate.load_frames(os.path.join(directory, f)), device) for f in files]
+            torch.cuda.reset_peak_memory_stats(device)
+            vbench.evaluate_videos(resident, [""] * len(files), scorer, head)
+            peaks.append(torch.cuda.max_memory_allocated(device) / 1e9)
+            del resident
+        res["control_resident_peak_growth_gb"] = peaks[1] - peaks[0]
+    res.update(bad_pooled=bad_pooled, bad_suite=bad_suite, scored=sorted(scored), r3_matched=r3)
+    del scorer, head, video
+    free()
+    shutil.rmtree(twice, ignore_errors=True)
+    log("[eval] " + json.dumps({k: ({m: v for m, v in r.items() if m != "report"} if isinstance(r, dict)
+                                    and "report" in r else r) for k, r in res.items()}))
+    log("[eval] pooled " + json.dumps(pooled))
+    log("[eval] suite " + json.dumps({k: v for k, v in suite.items()}))
+    if bad_pooled or bad_suite or scored != want_scored or not r3:
+        raise AssertionError(f"evaluation: unscored or non-finite {bad_pooled} / {bad_suite}, scored {sorted(scored)} "
+                             f"(expected {sorted(want_scored)}), R3 match {r3}")
+    limit_gb = EVAL_PEAK_GROWTH / 1e9
+    if not twice_same or growth > limit_gb or res["control_resident_peak_growth_gb"] <= limit_gb:
+        raise AssertionError(f"evaluation over every sample twice: report equal {twice_same} (max abs diff "
+                             f"{max(twice_diff.values())}), peak memory grew {growth:.4f} GB (limit "
+                             f"{EVAL_PEAK_GROWTH / 1e9} GB; control, samples resident on the card: "
+                             f"{res['control_resident_peak_growth_gb']:.4f} GB, must exceed it)")
+    if any(res[m]["launches"] for m in ("pooled", "suite", "pooled_twice")):
+        raise AssertionError("the evaluation launched a kernel")
+    return res
+
+
 def _kernel_name(mangled: str) -> str:
     """The kernel's name and template arguments from its mangled name (the
     length-prefixed identifier ending in "kernel", then Lb0/Lb1/Li<n>)."""
@@ -3613,15 +4304,23 @@ def main(argv) -> int:
     vae_res["small_input"] = small_vae
     dcae_res = run_vae_train_path(device, "dc_ae", DCAE_STEPS, 32, tag="dcae", profile="--profile" in argv,
                                   out_dir=out_dir)
-    with tempfile.TemporaryDirectory() as tmp:
-        ckpt_res = run_ckpt_path(device, records, tmp)
-        cli_res = run_vae_cli_path(device, ckpt_res.pop("vae_file"), tmp)
-    del records
-    small_hc_train = check_hc_train_small_input(device)
-    with tempfile.TemporaryDirectory() as tmp:
-        hc_res = run_hc_inference_path(device, tmp, "--profile" in argv, out_dir)
-    hc_train_res = run_hc_train_path(device, "--profile" in argv, out_dir)
-    hc_train_res["small_input"] = small_hc_train
+    text_root = tempfile.mkdtemp(prefix="chip_smoke_text_")  # phase 13's T5-XXL and CLIP-L, phase 17's files
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt_res = run_ckpt_path(device, records, tmp, text_root)
+            cli_res = run_vae_cli_path(device, ckpt_res.pop("vae_file"), tmp)
+        del records
+        small_hc_train = check_hc_train_small_input(device)
+        with tempfile.TemporaryDirectory() as tmp:
+            hc_res = run_hc_inference_path(device, tmp, "--profile" in argv, out_dir)
+        hc_train_res = run_hc_train_path(device, "--profile" in argv, out_dir)
+        hc_train_res["small_input"] = small_hc_train
+        small_clip = check_clip_small_input(device)
+        tok_res = run_tokenized_path(device, ckpt_res.pop("text_dirs"), text_root)
+        eval_res = run_eval_path(device, tok_res.pop("samples"), text_root)
+        eval_res["small_input"] = small_clip
+    finally:
+        shutil.rmtree(text_root, ignore_errors=True)
     sm90_cases = [c for c in attn["cases"] if c["kernel"] == "flash_attention_fwd_sm90"]
     d512_cases = [c for c in attn["cases"] if c["kernel"] == "flash_attention_fwd_d512"]
     head = sm90_cases[0]  # the MMDiT shape, anchored: the main path's hot call
@@ -3643,6 +4342,7 @@ def main(argv) -> int:
                          i2v_head=hc_res["i2v_head"]["launches"]["flash_attention_fwd_sm90"],
                          train=hc_train_res["launches"]["flash_attention_fwd_sm90"],
                          rf_eval_loss=hc_train_res["eval_launches"]["flash_attention_fwd_sm90"]),
+        launches_tokenized_t2v=tok_res["launches"]["flash_attention_fwd_sm90"],
         max_abs_err=max(c["max_abs_err"] for c in sm90_cases),
         ms=head["ms"], ms_is="flash_attention_with_lse (the bound A on the device, then the kernel), the mean of "
         "4 readings in turns with SDPA's 4 (library_ms)", anchor_ms=head["anchor_ms"],
@@ -3666,6 +4366,7 @@ def main(argv) -> int:
                             v2v_encode_and_decode=v2v_res["launches"]["flash_attention_fwd_d512"]),
         launches_vae_cli={k: cli_res["hunyuan_vae"][k].get("flash_attention_fwd_d512", 0)
                           for k in ("launches_inference", "launches_stats")},
+        launches_tokenized_t2v=tok_res["launches"]["flash_attention_fwd_d512"],
         max_abs_err=max(c["max_abs_err"] for c in d512_cases),
         ms=head["ms"], ms_is="flash_attention_with_lse, the mean of 4 readings in turns with SDPA's 4 (library_ms)",
         plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
@@ -3817,6 +4518,8 @@ def main(argv) -> int:
         ))
     for entry in kernels:  # every kernel with the ptxas lines of its source, where not narrowed above
         entry.setdefault("ptxas", ptxas[os.path.basename(entry["source"])[:-len(".cu")]])
+        entry["launches_eval_cli"] = sum(eval_res[m]["launches"].get(entry["name"], 0)
+                                          for m in ("pooled", "suite", "pooled_twice"))
     log("[main] " + json.dumps(main_res))
     log("[ring] " + json.dumps(ring_res))
     log("[t2i2v] " + json.dumps(t2i2v_res))
@@ -3831,6 +4534,8 @@ def main(argv) -> int:
     log("[vae_cli] " + json.dumps(cli_res))
     log("[hc] " + json.dumps(hc_res))
     log("[hc_train] " + json.dumps(hc_train_res))
+    log("[tok] " + json.dumps(tok_res))
+    log("[eval] " + json.dumps({k: v for k, v in eval_res.items() if k not in ("pooled", "suite", "pooled_twice")}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,9 +1,17 @@
-"""CLIP-L text tower (counterpart of opensora_tpu/models/text/clip.py).
+"""CLIP towers (counterpart of opensora_tpu/models/text/clip.py).
 
-Learned positional embeddings, pre-LN transformer with a causal mask,
-quick-GELU MLP, final LayerNorm; the pooled output is the hidden state at
-the EOT token. Parameter names follow HF's ``CLIPTextModel`` state dict
-(``text_model.encoder.layers.{i}.self_attn.q_proj``, ...).
+The text tower (CLIP-L, the MMDiT's pooled-vector conditioner): learned
+positional embeddings, pre-LN transformer with a causal mask, quick-GELU
+MLP, final LayerNorm; the pooled output is the hidden state at the EOT
+token. The vision tower (ViT-L/14, the evaluation's scorer): a patch
+convolution without bias and a class token, pre-LN ``pre_layrnorm``, the
+same encoder layers without a mask; the pooled output is the post-LN class
+token and the last hidden state has no post-LN. ``CLIPModel`` holds both
+towers and their projections. Attention is plain torch with fp32 scores, as
+the JAX package's einsum computes it. Parameter names follow HF's
+``CLIPTextModel`` / ``CLIPVisionModel`` / ``CLIPModel`` state dicts
+(``text_model.encoder.layers.{i}.self_attn.q_proj``,
+``vision_model.embeddings.patch_embedding``, ``visual_projection``, ...).
 """
 
 from __future__ import annotations
@@ -36,6 +44,31 @@ def clip_small_test_config() -> CLIPTextConfig:
                           num_heads=2, max_position_embeddings=16, eos_token_id=127)
 
 
+@dataclass
+class CLIPVisionConfig:
+    """ViT-L/14 (openai/clip-vit-large-patch14's vision side). The
+    transformer fields carry CLIPTextConfig's names, so the towers share
+    ``CLIPEncoderLayer``."""
+
+    hidden_size: int = 1024
+    intermediate_size: int = 4096
+    num_layers: int = 24
+    num_heads: int = 16
+    image_size: int = 224
+    patch_size: int = 14
+    projection_dim: int = 768
+    layer_norm_eps: float = 1e-5
+
+
+def clip_vision_l_config() -> CLIPVisionConfig:
+    return CLIPVisionConfig()
+
+
+def clip_vision_small_test_config() -> CLIPVisionConfig:
+    return CLIPVisionConfig(hidden_size=32, intermediate_size=64, num_layers=2, num_heads=2, image_size=28,
+                            patch_size=14, projection_dim=16)
+
+
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 
@@ -50,12 +83,14 @@ class CLIPAttention(nn.Module):
         self.v_proj = nn.Linear(h, h, **factory)
         self.out_proj = nn.Linear(h, h, **factory)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
         b, l, c = x.shape
         hd = c // self.num_heads
         q, k, v = (p(x).reshape(b, l, self.num_heads, hd) for p in (self.q_proj, self.k_proj, self.v_proj))
         scores = torch.einsum("blhd,bmhd->bhlm", q.float(), k.float()) / hd**0.5
-        probs = scores.masked_fill(~mask, -1e9).softmax(dim=-1).to(x.dtype)
+        if mask is not None:
+            scores = scores.masked_fill(~mask, -1e9)
+        probs = scores.softmax(dim=-1).to(x.dtype)
         return self.out_proj(torch.einsum("bhlm,bmhd->blhd", probs, v).reshape(b, l, c))
 
 
@@ -101,9 +136,21 @@ class CLIPEncoder(nn.Module):
 class CLIPTextTransformer(nn.Module):
     def __init__(self, cfg: CLIPTextConfig, **factory):
         super().__init__()
+        self.eos_token_id = cfg.eos_token_id
         self.embeddings = CLIPEmbeddings(cfg, **factory)
         self.encoder = CLIPEncoder(cfg, **factory)
         self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps, **factory)
+
+    def forward(self, input_ids: torch.Tensor):
+        b, l = input_ids.shape
+        x = self.embeddings(input_ids)
+        causal = torch.ones(l, l, dtype=torch.bool, device=x.device).tril()[None, None]
+        for layer in self.encoder.layers:
+            x = layer(x, causal)
+        x = self.final_layer_norm(x)
+        # pooled = hidden state at the first EOT token
+        eot = (input_ids == self.eos_token_id).int().argmax(dim=-1)
+        return x, x[torch.arange(b, device=x.device), eot]
 
 
 class CLIPTextModel(nn.Module):
@@ -115,13 +162,70 @@ class CLIPTextModel(nn.Module):
         self.text_model = CLIPTextTransformer(config, device=device, dtype=dtype)
 
     def forward(self, input_ids: torch.Tensor):
-        tm = self.text_model
-        b, l = input_ids.shape
-        x = tm.embeddings(input_ids)
-        causal = torch.ones(l, l, dtype=torch.bool, device=x.device).tril()[None, None]
-        for layer in tm.encoder.layers:
-            x = layer(x, causal)
-        x = tm.final_layer_norm(x)
-        # pooled = hidden state at the first EOT token
-        eot = (input_ids == self.config.eos_token_id).int().argmax(dim=-1)
-        return x, x[torch.arange(b, device=x.device), eot]
+        return self.text_model(input_ids)
+
+
+class CLIPVisionEmbeddings(nn.Module):
+    def __init__(self, cfg: CLIPVisionConfig, **factory):
+        super().__init__()
+        self.class_embedding = nn.Parameter(torch.empty(cfg.hidden_size, **factory).normal_(std=0.02))
+        self.patch_embedding = nn.Conv2d(3, cfg.hidden_size, cfg.patch_size, stride=cfg.patch_size, bias=False,
+                                         **factory)
+        self.position_embedding = nn.Embedding((cfg.image_size // cfg.patch_size) ** 2 + 1, cfg.hidden_size,
+                                               **factory)
+
+    def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
+        w = self.patch_embedding.weight
+        x = self.patch_embedding(pixel_values.to(w.dtype)).flatten(2).transpose(1, 2)  # (B, N, C), rows first
+        x = torch.cat([self.class_embedding.expand(x.shape[0], 1, -1), x], dim=1)
+        return x + self.position_embedding.weight[None, : x.shape[1]]
+
+
+class CLIPVisionTransformer(nn.Module):
+    def __init__(self, cfg: CLIPVisionConfig, **factory):
+        super().__init__()
+        self.embeddings = CLIPVisionEmbeddings(cfg, **factory)
+        self.pre_layrnorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps, **factory)  # HF's spelling
+        self.encoder = CLIPEncoder(cfg, **factory)
+        self.post_layernorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps, **factory)
+
+    def forward(self, pixel_values: torch.Tensor):
+        x = self.pre_layrnorm(self.embeddings(pixel_values))
+        for layer in self.encoder.layers:
+            x = layer(x, None)
+        return x, self.post_layernorm(x[:, 0])
+
+
+class CLIPVisionModel(nn.Module):
+    """pixel_values (B, 3, S, S) -> (last hidden state (B, 1 + N, C) without
+    the post-LN, pooled (B, C): the post-LN class token)."""
+
+    def __init__(self, config: CLIPVisionConfig, device=None, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.config = config
+        self.vision_model = CLIPVisionTransformer(config, device=device, dtype=dtype)
+
+    def forward(self, pixel_values: torch.Tensor):
+        return self.vision_model(pixel_values)
+
+
+class CLIPModel(nn.Module):
+    """Both towers and their bias-free projections into the shared space,
+    under HF ``CLIPModel``'s names."""
+
+    def __init__(self, text_config: CLIPTextConfig, vision_config: CLIPVisionConfig, device=None,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.text_config, self.vision_config = text_config, vision_config
+        factory = dict(device=device, dtype=dtype)
+        self.text_model = CLIPTextTransformer(text_config, **factory)
+        self.vision_model = CLIPVisionTransformer(vision_config, **factory)
+        proj = vision_config.projection_dim
+        self.visual_projection = nn.Linear(vision_config.hidden_size, proj, bias=False, **factory)
+        self.text_projection = nn.Linear(text_config.hidden_size, proj, bias=False, **factory)
+
+    def image_features(self, pixel_values: torch.Tensor) -> torch.Tensor:
+        return self.visual_projection(self.vision_model(pixel_values)[1])
+
+    def text_features(self, input_ids: torch.Tensor) -> torch.Tensor:
+        return self.text_projection(self.text_model(input_ids)[1])

@@ -13,9 +13,15 @@ on a machine without it) keeps the seeded random weights and logs so, as
 the JAX package does. A local path that fails to load raises (the JAX
 package falls back to random weights there).
 
-Tokenization is the deterministic byte-fallback tokenizer, the path the JAX
-package takes too when no tokenizer assets are present; tokenizers read
-from the checkpoint directory's own files are a later item (ROADMAP).
+Tokenization: where ``from_pretrained`` is a local directory that holds
+the tokenizer's files, the port reads them itself, as the JAX package
+tokenizes with ``transformers`` there (its conditioner.py:53-61): CLIP's BPE
+from ``vocab.json`` + ``merges.txt`` (``clip_tokenizer``), T5's SentencePiece
+unigram from ``spiece.model`` (``t5_tokenizer``); the pad id is then the
+tokenizer's (49407 for CLIP). Without the files, or for a name that is no
+local directory, the deterministic byte-fallback tokenizer, as the JAX
+package. Files that are present but unreadable raise (the JAX package falls
+back to bytes there).
 """
 
 from __future__ import annotations
@@ -59,12 +65,32 @@ class ByteFallbackTokenizer:
         return out
 
 
+def load_tokenizer(path: str, is_clip: bool, max_length: int):
+    """The tokenizer that the files in directory ``path`` define, or None
+    where ``path`` is no directory or holds none of them; a tokenizer whose
+    files are there only in part raises."""
+    from opensora_torch.models.text import clip_tokenizer, t5_tokenizer
+
+    if not path or not os.path.isdir(path):
+        return None
+    files = clip_tokenizer.FILES if is_clip else (t5_tokenizer.FILE,)
+    present = [f for f in files if os.path.exists(os.path.join(path, f))]
+    if not present:
+        return None
+    if len(present) < len(files):
+        raise FileNotFoundError(f"{path} holds {present} but not {sorted(set(files) - set(present))}")
+    if is_clip:
+        return clip_tokenizer.CLIPTokenizer(path, max_length)
+    return t5_tokenizer.T5Tokenizer(path, max_length)
+
+
 @MODELS.register_module("text_embedder")
 class HFEmbedder(nn.Module):
     """text -> embeddings: T5 last hidden state, or CLIP pooled output when
     ``from_pretrained`` names a CLIP model. Weights are loaded where
     ``from_pretrained`` is a local path, else random (the module's default
-    init; see the module docstring)."""
+    init), and the tokenizer read from its files where it is a directory
+    that holds them (module docstring)."""
 
     def __init__(
         self,
@@ -98,7 +124,8 @@ class HFEmbedder(nn.Module):
             from opensora_torch.utils.ckpt import load_checkpoint
 
             load_checkpoint(self.module, from_pretrained, "clip" if self.is_clip else "t5", device)
-        self.tokenizer = ByteFallbackTokenizer(self.config.vocab_size, max_length, eos)
+        self.tokenizer = (load_tokenizer(from_pretrained, self.is_clip, max_length)
+                          or ByteFallbackTokenizer(self.config.vocab_size, max_length, eos))
         self.pad_token_id = self.tokenizer.pad_token_id
 
     @property

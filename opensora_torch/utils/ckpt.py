@@ -28,6 +28,9 @@ the file. ``kind``:
 - ``"t5"``, ``"clip"``: Hugging Face ``T5EncoderModel`` / ``CLIPTextModel``
   names; a ``T5ForConditionalGeneration`` or ``CLIPModel`` file's other
   half is skipped (``KNOWN_EXTRAS``).
+- ``"clip_model"``: a whole HF ``CLIPModel`` (both towers and both
+  projections; ``logit_scale`` skipped), the evaluation's scorer;
+  :func:`clip_model_configs` reads its configuration.
 
 A missing, unexpected or mis-shaped key raises ``ValueError`` naming it.
 
@@ -59,12 +62,13 @@ from opensora_torch.ops.rope import permute_qk_weight
 from opensora_torch.utils.safetensors_io import INDEX_SUFFIX, SafetensorsFile, Staging
 
 _CKPT_DIR = re.compile(r"epoch(\d+)-global_step(\d+)")
-KINDS = ("mmdit", "hunyuan_vae", "dc_ae", "vae2d", "t5", "clip")
+KINDS = ("mmdit", "hunyuan_vae", "dc_ae", "vae2d", "t5", "clip", "clip_model")
 # keys of a kind's published files that its module does not hold
 KNOWN_EXTRAS = {
     "t5": (r"decoder\..*", r"lm_head\.weight", r"encoder\.embed_tokens\.weight"),
     "clip": (r"vision_model\..*", r"visual_projection\..*", r"text_projection\..*", r"logit_scale",
              r".*position_ids"),
+    "clip_model": (r"logit_scale", r".*position_ids"),
 }
 # the attention input projections of the MMDiT blocks, either layout
 _MMDIT_QKV = re.compile(r"(double_blocks\.\d+\.(?:img|txt)_attn|single_blocks\.\d+)"
@@ -167,6 +171,10 @@ class StateDictReader:
     def get(self, name: str) -> torch.Tensor:
         return self._where[name].get(name)
 
+    def shape(self, name: str) -> Tuple[int, ...]:
+        src = self._where[name]
+        return tuple(src.info(name)[1] if isinstance(src, SafetensorsFile) else src.get(name).shape)
+
     def to_device(self, name: str, device: torch.device) -> torch.Tensor:
         """The tensor ``name`` on ``device``: from a safetensors file to a
         card through two pinned chunks in turn (``Staging``), else read on
@@ -184,6 +192,52 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     its own (opensora_tpu/utils/ckpt.py:57-75)."""
     with StateDictReader(path) as reader:
         return {k: reader.get(k).clone() for k in reader.keys()}
+
+
+def clip_model_configs(path: str):
+    """(CLIPTextConfig, CLIPVisionConfig) of the HF ``CLIPModel`` checkpoint
+    at ``path`` (``model.safetensors``, sharded safetensors or
+    ``pytorch_model.bin``, or such a file): the head counts and the text
+    ``eos_token_id`` from the ``config.json`` beside it, else 64-wide heads
+    and eos = vocab - 1, as opensora_tpu/eval/clip_scorer.py:86-125 reads
+    them; vocabulary, widths, depths, positions and image size from the
+    weights' shapes. An eos id of 2 is HF's legacy value for CLIP, whose
+    models pool at the largest id (their EOT, vocab - 1): read as such."""
+    from opensora_torch.models.text.clip import CLIPTextConfig, CLIPVisionConfig
+
+    cfg_json = os.path.join(path if os.path.isdir(path) else os.path.dirname(path), "config.json")
+    hf = {}
+    if os.path.exists(cfg_json):
+        with open(cfg_json) as f:
+            hf = json.load(f)
+    with StateDictReader(path) as r:
+        if "visual_projection.weight" not in r:
+            raise FileNotFoundError(f"{path} is not a full CLIPModel checkpoint (visual_projection missing): "
+                                    "the scorer needs both towers")
+
+        def depth(tower: str) -> int:
+            layer = re.compile(rf"{tower}\.encoder\.layers\.\d+\.self_attn\.q_proj\.weight")
+            return sum(1 for k in r.keys() if layer.fullmatch(k))
+
+        vocab, hidden_t = r.shape("text_model.embeddings.token_embedding.weight")
+        hidden_v = r.shape("vision_model.embeddings.class_embedding")[0]
+        n_pos, patch = (r.shape("vision_model.embeddings.position_embedding.weight")[0],
+                        r.shape("vision_model.embeddings.patch_embedding.weight")[-1])
+        heads_v = hf.get("vision_config", {}).get("num_attention_heads")
+        heads_t = hf.get("text_config", {}).get("num_attention_heads")
+        eos = hf.get("text_config", {}).get("eos_token_id")
+        vision = CLIPVisionConfig(
+            hidden_size=hidden_v, intermediate_size=r.shape("vision_model.encoder.layers.0.mlp.fc1.weight")[0],
+            num_layers=depth("vision_model"), num_heads=heads_v or max(hidden_v // 64, 1),
+            image_size=int(round((n_pos - 1) ** 0.5)) * patch, patch_size=patch,
+            projection_dim=r.shape("visual_projection.weight")[0])
+        text = CLIPTextConfig(
+            vocab_size=vocab, hidden_size=hidden_t,
+            intermediate_size=r.shape("text_model.encoder.layers.0.mlp.fc1.weight")[0],
+            num_layers=depth("text_model"), num_heads=heads_t or max(hidden_t // 64, 1),
+            max_position_embeddings=r.shape("text_model.embeddings.position_embedding.weight")[0],
+            eos_token_id=vocab - 1 if eos in (None, 2) else eos)
+    return text, vision
 
 
 def _qk_permuter(src_rope: str, dst_rope: str, num_heads: int, head_dim: int) -> Callable:

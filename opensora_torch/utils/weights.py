@@ -243,32 +243,63 @@ def t5_state_dict(params: Tree) -> Dict[str, np.ndarray]:
     return out
 
 
-def clip_text_state_dict(params: Tree) -> Dict[str, np.ndarray]:
-    """CLIPTextModel flax params -> port ``CLIPTextModel`` (HF names)."""
-    pre = "text_model."
+def _ln(node: Tree) -> Dict[str, np.ndarray]:
+    return {"weight": np.asarray(node["scale"]), "bias": np.asarray(node["bias"])}
 
-    def ln(node):
-        return {"weight": np.asarray(node["scale"]), "bias": np.asarray(node["bias"])}
+
+def _clip_encoder_state_dict(params: Tree, pre: str) -> Dict[str, np.ndarray]:
+    """The ``layers_{i}`` of a flax CLIP tower -> ``{pre}encoder.layers.{i}``."""
 
     def lin(node):
         return {"weight": _torch_weight(np.asarray(node["kernel"])), "bias": np.asarray(node["bias"])}
 
-    out = {
-        pre + "embeddings.token_embedding.weight": np.asarray(params["token_embedding"]["embedding"]),
-        pre + "embeddings.position_embedding.weight": np.asarray(params["position_embedding"]),
-    }
-    out.update({f"{pre}final_layer_norm.{k}": v for k, v in ln(params["final_layer_norm"]).items()})
+    out = {}
     i = 0
     while f"layers_{i}" in params:
         layer = params[f"layers_{i}"]
-        p = f"{pre}encoder.layers.{i}"
-        parts = {"layer_norm1": ln(layer["layer_norm1"]), "layer_norm2": ln(layer["layer_norm2"]),
+        parts = {"layer_norm1": _ln(layer["layer_norm1"]), "layer_norm2": _ln(layer["layer_norm2"]),
                  "mlp.fc1": lin(layer["fc1"]), "mlp.fc2": lin(layer["fc2"])}
         for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
             parts[f"self_attn.{n}"] = lin(layer[n])
         for mod, tensors in parts.items():
-            out.update({f"{p}.{mod}.{k}": v for k, v in tensors.items()})
+            out.update({f"{pre}encoder.layers.{i}.{mod}.{k}": v for k, v in tensors.items()})
         i += 1
+    return out
+
+
+def clip_text_state_dict(params: Tree) -> Dict[str, np.ndarray]:
+    """CLIPTextModel flax params -> port ``CLIPTextModel`` (HF names)."""
+    pre = "text_model."
+    out = {
+        pre + "embeddings.token_embedding.weight": np.asarray(params["token_embedding"]["embedding"]),
+        pre + "embeddings.position_embedding.weight": np.asarray(params["position_embedding"]),
+    }
+    out.update({f"{pre}final_layer_norm.{k}": v for k, v in _ln(params["final_layer_norm"]).items()})
+    out.update(_clip_encoder_state_dict(params, pre))
+    return out
+
+
+def clip_vision_state_dict(params: Tree) -> Dict[str, np.ndarray]:
+    """CLIPVisionModel flax params -> port ``CLIPVisionModel`` (HF names)."""
+    pre = "vision_model."
+    out = {
+        pre + "embeddings.class_embedding": np.asarray(params["class_embedding"]),
+        pre + "embeddings.patch_embedding.weight": _torch_weight(np.asarray(params["patch_embedding"]["kernel"])),
+        pre + "embeddings.position_embedding.weight": np.asarray(params["position_embedding"]),
+    }
+    for name in ("pre_layrnorm", "post_layernorm"):
+        out.update({f"{pre}{name}.{k}": v for k, v in _ln(params[name]).items()})
+    out.update(_clip_encoder_state_dict(params, pre))
+    return out
+
+
+def clip_model_state_dict(text_params: Tree, vision_params: Tree, visual_projection: np.ndarray,
+                          text_projection: np.ndarray) -> Dict[str, np.ndarray]:
+    """Both towers' flax params and the projections, (in, out) as the JAX
+    ``CLIPScorer`` holds them, -> port ``CLIPModel`` (HF CLIPModel names)."""
+    out = {**clip_text_state_dict(text_params), **clip_vision_state_dict(vision_params)}
+    out["visual_projection.weight"] = np.ascontiguousarray(np.asarray(visual_projection).T)
+    out["text_projection.weight"] = np.ascontiguousarray(np.asarray(text_projection).T)
     return out
 
 

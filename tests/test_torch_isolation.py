@@ -1,8 +1,10 @@
 """The port stands alone: no module of ``opensora_torch/``, and not
 ``chip_smoke.py``, imports JAX, flax, optax or anything of the JAX package
-(an AST scan of every import statement, at any depth); nor ``safetensors``
-or ``transformers``, which the card's machine lacks: checkpoints are read
-by the port's own reader."""
+(an AST scan of every import statement, at any depth); nor ``safetensors``,
+``transformers`` or the tokenizer packages (``tokenizers``,
+``sentencepiece``, ``regex``, ``ftfy``, protobuf's ``google``), which the
+card's machine lacks: checkpoints and tokenizer files are read by the
+port's own readers."""
 
 import ast
 import os
@@ -11,7 +13,8 @@ import pytest
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "opensora_tpu")
-CHECKPOINT_PACKAGES = ("safetensors", "transformers", "huggingface_hub")
+CHECKPOINT_PACKAGES = ("safetensors", "transformers", "huggingface_hub", "tokenizers", "sentencepiece", "regex", "ftfy",
+                       "google")
 
 
 def _port_files():
@@ -55,5 +58,7 @@ def test_scan_covers_every_module_of_the_port():
                    "models/dc_ae/model.py", "models/dc_ae/ops.py", "models/vae2d/losses.py",
                    "models/vae2d/discriminator.py", "models/vae2d/lpips.py", "ops/int8_flash.py",
                    "parallel/mesh.py", "parallel/context.py", "parallel/comm.py", "ops/ring_flash.py", "ops/sp.py",
-                   "utils/ckpt.py", "utils/safetensors_io.py", "vae_inference.py", "vae_stats.py"):
+                   "utils/ckpt.py", "utils/safetensors_io.py", "vae_inference.py", "vae_stats.py",
+                   "models/text/clip_tokenizer.py", "models/text/t5_tokenizer.py", "eval/metrics.py", "eval/vbench.py",
+                   "eval/aesthetic.py", "eval/clip_scorer.py", "eval/suites.py", "evaluate.py"):
         assert os.path.join("opensora_torch", module) in scanned, module
