@@ -188,13 +188,34 @@ launched; pooled again over every sample twice, the same report and the
 same peak memory (the samples stay on the host); it times the scorer's
 loading apart from the scoring, the tower on 8 frames and the evaluation
 of the 129-frame video.
+768px generation: phase 2 holds the D = 512 forward at the 768px decode's
+tiles (latent 33 x 32 x 32, 32 x 8, 24 x 8 besides 24 x 32) and the one-
+frame tiles of the reference encode at 576 x 1024; phase 18 (after phase 9,
+on phase 4's models, no image model resident) runs configs/diffusion/
+inference/768px.py at full width and depth through parse_configs, the
+CLI's mesh rule (sp_size=-1 on one card: no mesh) and api_fn for 2 steps:
+a finite (1, 3, 129, 576, 1024) video, 76032 image tokens, 57 D = 128
+launches a step and 18 D = 512 launches in the decode (the 3 x 6 tile
+grid), the peak under 80 GB; then holds the D = 128 forward at the path's
+(3, 24, 76544, 128) against the plain version on three (b, h) pairs with
+all keys, in query chunks (one pair on the running-max loop, two on the
+anchored), with phase 2's known-wrong outputs, and times the kernel and
+SDPA in turns; phase 19 (after phase 11, on its image models) runs
+configs/diffusion/inference/t2i2v_768px.py through the CLI's t2i2v code
+(inference.ImageStage: the image, then the image models parked in host
+memory): the 768 x 768 image, the i2v_head video of (1, 3, 129, 576,
+1024) for 1 step, the first latent frame equal to the encoded reference,
+the exact launches (the reference encode's 18 D = 512 tiles among them),
+the peak under 80 GB, the host memory and the seconds of parking and
+loading; then, as the control, the same video with every model resident
+(its peak, or the card's out-of-memory error).
 Then it prints the card's name and power limit, one JSON line with the
 kernels' numbers, and last {"ok": true, "device": {...}}.
 
 ``--out-dir DIR`` writes the compiler's register/shared-memory report
 (build_log.txt) there; ``--profile`` adds a profiled second run of each
 path (kernel time by kind, device idle share; with ``--out-dir`` the full
-tables go to DIR/profile_{main,ring,t2i2v,train,ring_train,int8,vae,dcae,hc,hc_train}.txt).
+tables go to DIR/profile_{main,ring,768px,t2i2v,train,ring_train,int8,vae,dcae,hc,hc_train}.txt).
 """
 
 from __future__ import annotations
@@ -492,8 +513,15 @@ ATTENTION_CASES = [
     ("vae_mid_v2v_17f_24x32", (1, 1, 17 * 768, 512), 768, 1.0),
     ("vae_mid_v2v_17f_24x18", (1, 1, 17 * 432, 512), 432, 1.0),
     ("vae_train_mid_33x256x256", (1, 1, 9216, 512), 1024, 1.0),  # phase 7's mid-blocks (latent 9 x 32 x 32)
-    # the 768px decode's full spatial tile (latent 33 x 32 x 32 of 96 x 170, tile 32, stride 24)
+    # the 768px decode's tiles (latent 33 x 72 x 128, tile 32, stride 24): 32 x 32, (24 x 32 above), 32 x 8,
+    # 24 x 8; the reference encode's at 576 x 1024 (one frame, tile 256 px, stride 192): 32 x 32, (24 x 32
+    # above), 32 x 8, 24 x 8
     ("vae_mid_tile_768px", (1, 1, 33 * 1024, 512), 1024, 1.0),
+    ("vae_mid_tile_768px_32x8", (1, 1, 33 * 256, 512), 256, 1.0),
+    ("vae_mid_tile_768px_24x8", (1, 1, 33 * 192, 512), 192, 1.0),
+    ("vae_mid_encode_1frame_32x32", (1, 1, 1024, 512), 1024, 1.0),
+    ("vae_mid_encode_1frame_32x8", (1, 1, 256, 512), 256, 1.0),
+    ("vae_mid_encode_1frame_24x8", (1, 1, 192, 512), 192, 1.0),
     ("tail_bidirectional", (2, 3, 1000, 128), None, 1.0),
     ("tail_running_max_wide", (2, 3, 1000, 128), None, 8.0),  # A ~ 200: the anchored loop would underflow
     ("tail_frame_causal_d128", (1, 2, 1000, 128), 96, 1.0),
@@ -1920,7 +1948,8 @@ def run_t2i2v_path(device, built, out_root, profile: bool = False, out_dir=None,
     reference), STEPS steps in each stage. Checks shapes, finite outputs,
     that the latent's first frame before decoding equals the encoded
     reference and the exact launches. ``records`` (a dict) receives the
-    image model's first call and the Flux AE's decode (phase 13)."""
+    image model's first call and the Flux AE's decode (phase 13); ``built``
+    receives the image models (``image_models``, phase 19)."""
     from opensora_torch.inference import make_reference_images, prepare_image_stage
     from opensora_torch.ops import _build
     from opensora_torch.utils.api import prepare_api, prepare_optional_models
@@ -2016,6 +2045,7 @@ def run_t2i2v_path(device, built, out_root, profile: bool = False, out_dir=None,
             api_fn(opt, cond_type=cfg.cond_type, seed=cfg.seed, text=T2I2V_PROMPT,
                    channel=cfg.model["in_channels"], ref=r)
         res["profile"] = profile_run(run, "t2i2v", out_dir)
+    built["image_models"] = optional
     del optional, img_flux, img_ae, api_img, x
     gc.collect()
     torch.cuda.empty_cache()
@@ -2096,6 +2126,347 @@ def run_v2v_path(device, built, out_root) -> dict:
         raise AssertionError(f"v2v video {tuple(x.shape)} finite={finite} outside={outside:.4f}")
     if launches != expect:
         raise AssertionError(f"kernel launches {launches} != expected {expect}")
+    return res
+
+
+# ----------------------------------------------------------------------
+# phases 18-19: 768px generation (768px.py, t2i2v_768px.py)
+# ----------------------------------------------------------------------
+
+CFG_768 = os.path.join(REPO, "configs", "diffusion", "inference", "768px.py")
+T2I2V_768_CFG = os.path.join(REPO, "configs", "diffusion", "inference", "t2i2v_768px.py")
+STEPS_768 = 2  # phase 18's steps, cut from 50
+T2I2V_768_STEPS = 1  # phase 19's video steps, cut from 50 (its image stage takes STEPS)
+SIZE_768, IMAGE_SIZE_768 = (576, 1024), (768, 768)  # 768px 16:9 (the video), 768px 1:1 (the t2i2v image)
+# the 129-frame 576 x 1024 video's latent is 33 x 72 x 128; patches of 2 x 2
+IMAGE_TOKENS_768 = 33 * 36 * 64
+# the 768px decode's spatial tiles (tile 32, stride 24 over 72 x 128 latent
+# rows and columns): 10 of 32 x 32, 5 of 24 x 32, 2 of 32 x 8, 1 of 24 x 8
+DECODE_TILES_768 = {(32, 32): 10, (24, 32): 5, (32, 8): 2, (24, 8): 1}
+PEAK_LIMIT_GB = 80.0  # every 768px phase's peak (torch.cuda.max_memory_allocated / 1e9)
+# 768px's joint attention: 3 CFG passes x 24 heads over 76032 image + 512
+# text tokens, held against the plain version on these (b, h) pairs with all
+# keys; (0, 0) has q scaled by 3 so that the device picks the running-max
+# loop there (A >= 40), the other pairs the anchored loop
+ATTN_768 = (3, 24, IMAGE_TOKENS_768 + 512, 128)
+ATTN_768_PAIRS = ((0, 0), (1, 11), (2, 23))
+ATTN_768_ROWS = 4096  # query rows a chunk of the plain version (1.25 GB of fp32 scores)
+
+
+def tile_grid(ae, h: int, w: int, decode: bool) -> dict:
+    """{(rows, columns): count} of the spatial tiles the HunyuanVAE's tiled
+    encode (pixels) or decode (latent rows) cuts an h x w frame into, laid
+    out as ``spatial_tiled_encode`` / ``spatial_tiled_decode`` lay them:
+    tiles of ``tile`` from every multiple of ``tile * (1 - overlap)``, in
+    the encode's latent units (its mid-block runs there)."""
+    tile = ae.tile_latent_min_size if decode else ae.tile_sample_min_size
+    step = int(tile * (1 - ae.config.tile_overlap_factor))
+    scale = 1 if decode else ae.config.spatial_compression_ratio
+    grid: dict = {}
+    for i in range(0, h, step):
+        for j in range(0, w, step):
+            key = (min(tile, h - i) // scale, min(tile, w - j) // scale)
+            grid[key] = grid.get(key, 0) + 1
+    return grid
+
+
+def grid_text(grid: dict) -> str:
+    return ", ".join(f"{n} of {r}x{c}" for (r, c), n in grid.items())
+
+
+def plain_rows(fa, q, k, v, rows: int = ATTN_768_ROWS):
+    """The plain version of one (b, h) over chunks of query rows, all keys."""
+    outs, lses = [], []
+    for r0 in range(0, q.shape[2], rows):
+        o, lse = fa.flash_attention_ref(q[:, :, r0:r0 + rows], k, v)
+        outs.append(o)
+        lses.append(lse)
+    return torch.cat(outs, 2), torch.cat(lses, 2)
+
+
+def check_attention_768px(device) -> dict:
+    """The D = 128 forward at 768px's joint attention (3, 24, 76544, 128)
+    bf16 on seeded inputs: the kernel's output and LSE against the plain
+    version on ATTN_768_PAIRS with all keys, in query chunks (all 72 pairs
+    would need 23 GB of fp32 scores each), with phase 2's known-wrong
+    outputs read on the same pairs (one consumer's rows from the other's,
+    the last 128-key tile dropped, V one tile off, the last 64 keys
+    skipped); the loop the device picked for every (b, h); the wrapper and
+    SDPA timed in turns; the plain version's time on one pair."""
+    from opensora_torch.ops import flash_attention as fa
+
+    b, h, l, d = ATTN_768
+    gen = torch.Generator(device=device).manual_seed(18)
+    q = torch.randn(b, h, l, d, generator=gen, device=device)
+    q[0, 0] *= 3.0
+    q = q.to(torch.bfloat16)
+    k = torch.randn(b, h, l, d, generator=gen, device=device).to(torch.bfloat16)
+    v = torch.randn(b, h, l, d, generator=gen, device=device).to(torch.bfloat16)
+    anchor = fa.anchor_log2(q, k, d ** -0.5).cpu()
+    out, lse = fa.flash_attention_with_lse(q, k, v)
+    torch.cuda.synchronize()
+    pairs, ok = [], True
+    for bi, hi in ATTN_768_PAIRS:
+        qs, ks, vs = (t[bi:bi + 1, hi:hi + 1] for t in (q, k, v))
+        ref_out, ref_lse = plain_rows(fa, qs, ks, vs)
+        scale = ref_out.abs().max().item()
+        err_out = (out[bi:bi + 1, hi:hi + 1].float() - ref_out).abs().max().item()
+        err_lse = (lse[bi:bi + 1, hi:hi + 1] - ref_lse).abs().max().item()
+
+        def reading(o, s):
+            return ((o - ref_out).abs().max().item() / scale, (s - ref_lse).abs().max().item())
+
+        swap_out, swap_lse = ref_out.clone(), ref_lse.clone()
+        for m0 in range(0, l - 64, 128):
+            n = min(64, l - m0 - 64)
+            swap_out[:, :, m0 + 64:m0 + 64 + n] = ref_out[:, :, m0:m0 + n]
+            swap_lse[:, :, m0 + 64:m0 + 64 + n] = ref_lse[:, :, m0:m0 + n]
+        mutants = {"consumer_rows_from_other_consumer": reading(swap_out, swap_lse)}
+        del swap_out, swap_lse
+        mutants["last_key_tile_dropped"] = reading(*plain_rows(fa, qs, ks[:, :, :l - 128], vs[:, :, :l - 128]))
+        mutants["v_tile_shifted"] = reading(*plain_rows(fa, qs, ks, vs.roll(64, dims=2)))
+        mutants["tail_keys_skipped"] = reading(*plain_rows(fa, qs, ks[:, :, :l - 64], vs[:, :, :l - 64]))
+        caught = all(r_out > OUT_RTOL or r_lse > LSE_TOL for r_out, r_lse in mutants.values())
+        good = math.isfinite(err_out) and err_out <= OUT_RTOL * scale and err_lse <= LSE_TOL
+        ok &= good and caught
+        pairs.append(dict(b=bi, h=hi, anchor=float(anchor[bi, hi]),
+                          branch="anchored" if float(anchor[bi, hi]) < 40 else "running_max",
+                          max_abs_err=err_out, ref_max_abs=scale, rel_err=err_out / scale, lse_max_abs_err=err_lse,
+                          mutants=mutants, within_limits=good, wrong_rejected=caught))
+        del ref_out, ref_lse
+    plain_ms = time_cuda(lambda: plain_rows(fa, q[:1, :1], k[:1, :1], v[:1, :1]), 1, warmup=0)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fns = dict(ms=lambda: fa.flash_attention_with_lse(q, k, v), library_ms=lambda: sdpa(q, k, v))
+    turns = dict(ms=[], library_ms=[])
+    for key in ("ms", "library_ms", "library_ms", "ms"):
+        turns[key].append(time_cuda(fns[key], 1))
+    ms, library_ms = (sum(x) / len(x) for x in (turns["ms"], turns["library_ms"]))
+    bound_ms, bound_by = attention_bound(b, h, l, d, None)
+    branches = {"anchored": int((anchor < 40).sum()), "running_max": int((anchor >= 40).sum())}
+    res = dict(name="mmdit_joint_768px", shape=list(ATTN_768), causal_block=None, pairs=pairs,
+               device_branches=branches, max_abs_err=max(p["max_abs_err"] for p in pairs),
+               rel_err=max(p["rel_err"] for p in pairs), lse_max_abs_err=max(p["lse_max_abs_err"] for p in pairs),
+               ms=ms, ms_turns=turns["ms"], library_ms=library_ms, library_ms_turns=turns["library_ms"],
+               plain_ms_one_pair=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               kernel=fa.KERNEL_FWD_SM90)
+    log(f"[768px] {fa.KERNEL_FWD_SM90} {list(ATTN_768)}: loops picked {branches}; on (b, h) "
+        + "; ".join(f"({p['b']}, {p['h']}) {p['branch']} A={p['anchor']:.1f} out_err={p['rel_err']:.3e} of max|ref| "
+                    f"(tol {OUT_RTOL}) lse_err={p['lse_max_abs_err']:.3e} (tol {LSE_TOL}) wrong outputs "
+                    + ", ".join(f"{n} ({ro:.2e}, {rl:.2e})" for n, (ro, rl) in p["mutants"].items())
+                    + (" rejected" if p["wrong_rejected"] else " NOT REJECTED") for p in pairs)
+        + f"; ms={ms:.3f} ({min(turns['ms']):.3f}-{max(turns['ms']):.3f}) sdpa_ms={library_ms:.3f} "
+        f"({min(turns['library_ms']):.3f}-{max(turns['library_ms']):.3f}) in turns bound_ms={bound_ms:.3f} "
+        f"({bound_by}) plain_ms one pair={plain_ms:.3f} {'OK' if ok else 'FAIL'}")
+    del q, k, v, out, lse, fns
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("the D = 128 forward at 768px disagrees with its plain version, or a known-wrong "
+                             "output passes the limits")
+    return res
+
+
+def check_same_models(cfg, other, keys, what: str) -> None:
+    for key in keys:
+        if cfg[key] != other[key]:
+            raise AssertionError(f"{what}'s {key} differs")
+
+
+def check_peak(tag: str, peak_gb: float) -> None:
+    if peak_gb >= PEAK_LIMIT_GB:
+        raise AssertionError(f"{tag}: peak {peak_gb:.2f} GB is not under {PEAK_LIMIT_GB} GB")
+
+
+def run_768px_path(device, built, profile: bool = False, out_dir=None) -> dict:
+    """configs/diffusion/inference/768px.py at full width and depth on phase
+    4's models (the config's model, ae, t5 and clip are 256px.py's), while
+    no image model is resident, through parse_configs, the CLI's mesh rule
+    and api_fn for STEPS_768 steps: a finite (1, 3, 129, 576, 1024) video,
+    76032 image tokens, 57 D = 128 launches a step and one D = 512 launch per
+    decode tile (DECODE_TILES_768), the peak under PEAK_LIMIT_GB; then the
+    D = 128 forward at the path's attention shape (check_attention_768px)."""
+    from opensora_torch.inference import inference_mesh
+    from opensora_torch.ops import _build
+    from opensora_torch.utils.api import prepare_api
+    from opensora_torch.utils.config import parse_configs
+    from opensora_torch.utils.sampling import SamplingOption, sanitize_sampling_option
+
+    cfg = parse_configs([CFG_768, "--sampling_option.num_steps", str(STEPS_768)])
+    check_same_models(cfg, built["cfg"], ("model", "ae", "t5", "clip"), "768px.py (against 256px.py)")
+    model, ae, t5, clip = built["models"]
+    mesh = inference_mesh(cfg, device)
+    opt = sanitize_sampling_option(SamplingOption(**cfg.sampling_option))
+    lt = (opt.num_frames - 1) // opt.temporal_reduction + 1
+    tokens = lt * (opt.height // 16) * (opt.width // 16)
+    log(f"[768px] 768px.py at full width and depth on phase 4's models; num_steps cut 50 -> {STEPS_768}; mesh "
+        f"{dict(cfg.mesh)} on {torch.cuda.device_count()} card(s): {'none' if mesh is None else mesh}; video "
+        f"{opt.num_frames} x {opt.height} x {opt.width}, latent {lt} x {opt.height // 8} x {opt.width // 8}, "
+        f"{tokens} image tokens")
+    if mesh is not None or (opt.height, opt.width) != SIZE_768 or tokens != IMAGE_TOKENS_768:
+        raise AssertionError(f"768px.py: mesh {mesh}, size {opt.height} x {opt.width}, {tokens} tokens")
+    api_fn = prepare_api(model, ae, t5, clip, mesh=mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    _build.LAUNCHES.clear()
+    timings: dict = {}
+    with AERecorder(ae) as rec:
+        t0 = time.perf_counter()
+        x = api_fn(opt, cond_type=cfg.cond_type, seed=cfg.seed, text=T2I2V_PROMPT,
+                   channel=cfg.model["in_channels"], timings=timings)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    latent, = rec.decoded
+    grid = tile_grid(ae, latent.shape[3], latent.shape[4], decode=True)
+    n_blocks = cfg.model["depth"] + cfg.model["depth_single_blocks"]
+    expect = {"flash_attention_fwd_sm90": n_blocks * STEPS_768, "flash_attention_fwd_d512": sum(grid.values())}
+    finite = bool(torch.isfinite(x).all())
+    outside = float((x.abs() > 1.0).float().mean())
+    res = dict(video_shape=list(x.shape), latent_shape=list(latent.shape), image_tokens=tokens,
+               decode_tiles={f"{r}x{c}": n for (r, c), n in grid.items()}, text_encode_s=timings["text_encode_s"],
+               step_s=timings["step_s"], decode_s=timings["decode_s"], total_s=total_s, peak_mem_gb=peak_gb,
+               outside_share=outside, launches=launches, expected=expect)
+    log(f"[768px] decode tiles ({grid_text(grid)}) " + json.dumps(res))
+    del x
+    if tuple(res["video_shape"]) != (1, 3, opt.num_frames, opt.height, opt.width) or not finite \
+            or outside > OUTSIDE_MAX:
+        raise AssertionError(f"768px video {res['video_shape']} finite={finite} outside={outside:.4f}")
+    if grid != DECODE_TILES_768 or launches != expect:
+        raise AssertionError(f"768px tiles {grid} / launches {launches} != {DECODE_TILES_768} / {expect}")
+    check_peak("768px.py", peak_gb)
+    if profile:
+        res["profile"] = profile_run(lambda: api_fn(opt, cond_type=cfg.cond_type, seed=cfg.seed, text=T2I2V_PROMPT,
+                                                    channel=cfg.model["in_channels"]), "768px", out_dir)
+    res["attention"] = check_attention_768px(device)
+    return res
+
+
+def run_t2i2v_768px_path(device, built, out_root) -> dict:
+    """configs/diffusion/inference/t2i2v_768px.py at full width and depth on
+    phase 4's video models and phase 11's image models (the config's are
+    theirs), through the CLI's own t2i2v code (inference.ImageStage:
+    prepare_image_stage, make_reference_images, then the image models
+    parked in host memory): the 768 x 768 image in STEPS steps, then the
+    i2v_head video of (1, 3, 129, 576, 1024) in T2I2V_768_STEPS step(s).
+    Checks shapes, finite outputs, that the latent's first frame before
+    decoding equals the encoded reference, the exact launches (the
+    reference encode's D = 512 tiles among them), the peak under
+    PEAK_LIMIT_GB; logs the host memory and the seconds of parking and of
+    loading back. Then the control: the image models loaded back and the
+    same video made with every model resident, its peak (or the card's
+    out-of-memory error) logged, and whether its video equals the parked
+    run's if it fits."""
+    from opensora_torch.datasets.utils import read_from_path
+    from opensora_torch.inference import ImageStage
+    from opensora_torch.ops import _build
+    from opensora_torch.utils.api import load_to_device, prepare_api
+    from opensora_torch.utils.config import parse_configs
+    from opensora_torch.utils.sampling import SamplingOption, sanitize_sampling_option
+
+    cfg = parse_configs([T2I2V_768_CFG, "--sampling_option.num_steps", str(T2I2V_768_STEPS),
+                         "--sampling_option_t2i.num_steps", str(STEPS)])
+    cfg.sampling_option_t2i["seed"] = cfg.seed
+    check_same_models(cfg, built["cfg"], ("model", "ae", "t5", "clip"), "t2i2v_768px.py (against 256px.py)")
+    check_same_models(cfg, parse_configs([T2I2V_CFG]), ("img_flux", "img_flux_ae"),
+                      "t2i2v_768px.py (against t2i2v_256px.py)")
+    model, ae, t5, clip = built["models"]
+    optional = built.pop("image_models")
+    patch = cfg.get("patch_size", 2)
+    stage = ImageStage(cfg, optional, t5, clip, patch)
+    api_fn = prepare_api(model, ae, t5, clip)
+    opt = sanitize_sampling_option(SamplingOption(**cfg.sampling_option))
+    n_img_blocks = cfg.img_flux["depth"] + cfg.img_flux["depth_single_blocks"]
+    n_blocks = cfg.model["depth"] + cfg.model["depth_single_blocks"]
+    log(f"[t2i2v_768px] t2i2v_768px.py at full width and depth on phases 4 and 11's models; num_steps cut 50 -> "
+        f"{STEPS} (image), {T2I2V_768_STEPS} (video); the image models parked between the stages: {stage.park}")
+    if not stage.park:
+        raise AssertionError("the CLI's t2i2v flow does not park the image models on a card")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    resident_gb = torch.cuda.memory_allocated(device) / 1e9
+    _build.LAUNCHES.clear()
+    img_timings: dict = {}
+    t0 = time.perf_counter()
+    refs = stage(T2I2V_PROMPT, out_root, 0, img_timings)
+    image_s = time.perf_counter() - t0
+    img_launches = dict(_build.LAUNCHES)
+    image_peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    parked_resident_gb = torch.cuda.memory_allocated(device) / 1e9
+    image = read_from_path(refs[0], (stage.opt.height, stage.opt.width))
+
+    def video(tag: str):
+        torch.cuda.reset_peak_memory_stats(device)
+        _build.LAUNCHES.clear()
+        timings: dict = {}
+        with AERecorder(ae) as rec:
+            t0 = time.perf_counter()
+            x = api_fn(opt, cond_type=cfg.cond_type, seed=cfg.seed, text=T2I2V_PROMPT,
+                       channel=cfg.model["in_channels"], timings=timings, ref=refs)
+            torch.cuda.synchronize()
+            timings["video_s"] = time.perf_counter() - t0
+        log(f"[t2i2v_768px] {tag} video made in {timings['video_s']:.1f} s")
+        return x.cpu(), rec, timings, dict(_build.LAUNCHES), torch.cuda.max_memory_allocated(device) / 1e9
+
+    x, rec, timings, launches, video_peak_gb = video("parked")
+    (enc_in, enc_out), = rec.encoded
+    latent, = rec.decoded
+    first_equal = bool(torch.equal(latent[0, :, :1], enc_out[0][:, :1].to(latent.dtype)))
+    ref_frame = torch.from_numpy(read_from_path(refs[0], (opt.height, opt.width))[:, :1])
+    enc_in_err = float((enc_in[0] - ref_frame).abs().max())
+    enc_grid = tile_grid(ae, enc_in.shape[3], enc_in.shape[4], decode=False)
+    dec_grid = tile_grid(ae, latent.shape[3], latent.shape[4], decode=True)
+    expect_img = {"flash_attention_fwd_sm90": n_img_blocks * STEPS}
+    expect = {"flash_attention_fwd_sm90": n_blocks * T2I2V_768_STEPS,
+              "flash_attention_fwd_d512": enc_in.shape[0] * sum(enc_grid.values()) + sum(dec_grid.values())}
+    finite = bool(torch.isfinite(x).all()) and bool(torch.isfinite(torch.from_numpy(image)).all())
+    outside = float((x.abs() > 1.0).float().mean())
+    peak_gb = max(image_peak_gb, video_peak_gb)
+    res = dict(reference=os.path.basename(refs[0]), image_shape=list(image.shape), video_shape=list(x.shape),
+               image_s=image_s, image_step_s=img_timings["step_s"], image_decode_s=img_timings["decode_s"],
+               park_s=img_timings.get("park_s"), parked_gb=img_timings.get("parked_gb"),
+               host_available_gb=img_timings.get("host_available_gb"), resident_before_gb=resident_gb,
+               resident_parked_gb=parked_resident_gb, image_peak_gb=image_peak_gb, video_peak_gb=video_peak_gb,
+               peak_mem_gb=peak_gb, encode_ref_s=timings["encode_ref_s"], step_s=timings["step_s"],
+               decode_s=timings["decode_s"], video_s=timings["video_s"], outside_share=outside,
+               first_latent_frame_equals_encoded_reference=first_equal,
+               encode_input_vs_saved_image_max_abs=enc_in_err,
+               encode_tiles={f"{r}x{c}": n for (r, c), n in enc_grid.items()},
+               decode_tiles={f"{r}x{c}": n for (r, c), n in dec_grid.items()},
+               launches=launches, expected=expect, image_launches=img_launches, image_expected=expect_img)
+    log(f"[t2i2v_768px] encode tiles ({grid_text(enc_grid)}), decode tiles ({grid_text(dec_grid)}) "
+        + json.dumps(res))
+    if tuple(image.shape) != (3, 1, *IMAGE_SIZE_768) or tuple(x.shape) != (1, 3, opt.num_frames, *SIZE_768):
+        raise AssertionError(f"image {tuple(image.shape)} / video {tuple(x.shape)} shapes")
+    if not finite or outside > OUTSIDE_MAX:
+        raise AssertionError(f"t2i2v_768px output not finite, or {outside:.4f} of the video outside [-1, 1]")
+    if not first_equal or enc_in_err > 1e-6:
+        raise AssertionError("the video's first latent frame is not the encoded reference image")
+    if img_launches != expect_img or launches != expect or dec_grid != DECODE_TILES_768:
+        raise AssertionError(f"kernel launches {img_launches} / {launches} != expected {expect_img} / {expect}")
+    check_peak("t2i2v_768px.py", peak_gb)
+
+    # the control: every model resident through the video stage
+    t0 = time.perf_counter()
+    loaded = sum(load_to_device(m, device) for m in stage.models)
+    res["load_s"], res["loaded_gb"] = time.perf_counter() - t0, loaded / 1e9
+    control = dict(resident_gb=torch.cuda.memory_allocated(device) / 1e9)
+    try:
+        x_res, _, t_res, _, control["peak_mem_gb"] = video("resident (control)")
+        control.update(fits=True, video_s=t_res["video_s"], video_equal_parked=bool(torch.equal(x_res, x)))
+        del x_res
+    except torch.cuda.OutOfMemoryError as e:
+        control.update(fits=False, peak_mem_gb=torch.cuda.max_memory_allocated(device) / 1e9,
+                       error=str(e).splitlines()[0])
+    res["resident_control"] = control
+    log(f"[t2i2v_768px] image models loaded back in {res['load_s']:.2f} s ({res['loaded_gb']:.2f} GB); with every "
+        "model resident: " + json.dumps(control))
+    del stage, optional, x
+    gc.collect()
+    torch.cuda.empty_cache()
     return res
 
 
@@ -4277,9 +4648,11 @@ def main(argv) -> int:
     main_res["small_input"] = small
     ring_res = run_ring_path(device, built, "--profile" in argv, out_dir)
     ring_res["small_input"] = small_ring
+    res_768 = run_768px_path(device, built, "--profile" in argv, out_dir)
     with tempfile.TemporaryDirectory() as tmp:
         t2i2v_res = run_t2i2v_path(device, built, tmp, "--profile" in argv, out_dir, records)
         t2i2v_res["small_input"] = small_t2i
+        t2i2v_768_res = run_t2i2v_768px_path(device, built, tmp)
         v2v_res = run_v2v_path(device, built, tmp)
     del built
     gc.collect()
@@ -4343,13 +4716,16 @@ def main(argv) -> int:
                          train=hc_train_res["launches"]["flash_attention_fwd_sm90"],
                          rf_eval_loss=hc_train_res["eval_launches"]["flash_attention_fwd_sm90"]),
         launches_tokenized_t2v=tok_res["launches"]["flash_attention_fwd_sm90"],
-        max_abs_err=max(c["max_abs_err"] for c in sm90_cases),
+        launches_768px=dict(t2v=res_768["launches"]["flash_attention_fwd_sm90"],
+                            t2i2v_image=t2i2v_768_res["image_launches"]["flash_attention_fwd_sm90"],
+                            t2i2v_video=t2i2v_768_res["launches"]["flash_attention_fwd_sm90"]),
+        max_abs_err=max([c["max_abs_err"] for c in sm90_cases] + [res_768["attention"]["max_abs_err"]]),
         ms=head["ms"], ms_is="flash_attention_with_lse (the bound A on the device, then the kernel), the mean of "
         "4 readings in turns with SDPA's 4 (library_ms)", anchor_ms=head["anchor_ms"],
         running_max_ms=sm90_cases[1]["ms"],
         plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],
-        cases=sm90_cases,
+        cases=sm90_cases + [res_768.pop("attention")],
     )]
     head = d512_cases[0]  # the main path's VAE decode tile
     kernels.append(dict(
@@ -4367,6 +4743,8 @@ def main(argv) -> int:
         launches_vae_cli={k: cli_res["hunyuan_vae"][k].get("flash_attention_fwd_d512", 0)
                           for k in ("launches_inference", "launches_stats")},
         launches_tokenized_t2v=tok_res["launches"]["flash_attention_fwd_d512"],
+        launches_768px=dict(t2v_decode=res_768["launches"]["flash_attention_fwd_d512"],
+                            t2i2v_encode_and_decode=t2i2v_768_res["launches"]["flash_attention_fwd_d512"]),
         max_abs_err=max(c["max_abs_err"] for c in d512_cases),
         ms=head["ms"], ms_is="flash_attention_with_lse, the mean of 4 readings in turns with SDPA's 4 (library_ms)",
         plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
@@ -4523,6 +4901,8 @@ def main(argv) -> int:
     log("[main] " + json.dumps(main_res))
     log("[ring] " + json.dumps(ring_res))
     log("[t2i2v] " + json.dumps(t2i2v_res))
+    log("[768px] " + json.dumps(res_768))
+    log("[t2i2v_768px] " + json.dumps(t2i2v_768_res))
     log("[v2v] " + json.dumps(v2v_res))
     log("[ring_train] " + json.dumps(ring_train_res))
     log("[train] " + json.dumps(train_res))

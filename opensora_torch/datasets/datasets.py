@@ -1,4 +1,4 @@
-"""Datasets: video-text pairs and cached latents (counterpart of
+"""Datasets: prompts, video-text pairs and cached latents (counterpart of
 opensora_tpu/datasets/datasets.py; upstream opensora/datasets/datasets.py).
 
 Tables load without pandas: :func:`read_data_file` reads CSV and JSON
@@ -73,6 +73,47 @@ def read_data_file(path: str) -> Table:
     if path.endswith(".parquet"):
         raise NotImplementedError("parquet tables need pandas, which the port does not use; convert to csv or jsonl")
     raise ValueError(f"unsupported data file {path}")
+
+
+def _is_absent(value) -> bool:
+    """A cell that holds nothing: missing (None) or empty (NaN), as
+    ``pd.isna`` reads a scalar."""
+    return value is None or (isinstance(value, float) and math.isnan(value))
+
+
+@DATASETS.register_module("text")
+class TextDataset:
+    """Prompts for inference: each item is ``{"text", "index"}`` plus the
+    row's ``ref`` and ``neg`` where the table has the column and the cell
+    is not empty (opensora_tpu/datasets/datasets.py:32-71). The texts get
+    the fps / motion-score suffixes when ``fps`` / ``motion_score`` are
+    given. ``table`` stands in for the file at ``data_path``."""
+
+    def __init__(self, data_path: Optional[str] = None, fps: Optional[int] = None,
+                 motion_score: Optional[str] = None, table: Optional[Table] = None, **_):
+        self.data_path = data_path
+        self.data = read_data_file(data_path) if table is None else table
+        if "text" not in self.data.columns:
+            raise ValueError(f"{data_path}: a prompt file needs a text column")
+        from opensora_torch.utils.inference import add_fps_info_to_text, add_motion_score_to_text
+
+        texts = [row["text"] for row in self.data]
+        if fps is not None:
+            texts = add_fps_info_to_text(texts, fps=fps)
+        if motion_score is not None:
+            texts = add_motion_score_to_text(texts, motion_score)
+        self.texts = texts
+
+    def __len__(self):
+        return len(self.data)
+
+    def __getitem__(self, idx: int) -> dict:
+        row = self.data[idx]
+        out = {"text": self.texts[idx], "index": idx}
+        for key in ("ref", "neg"):
+            if key in self.data.columns and not _is_absent(row[key]):
+                out[key] = row[key]
+        return out
 
 
 @DATASETS.register_module("video_text")

@@ -44,7 +44,12 @@ FWD_CASES = [
     ("vae_mid_v2v_17f_24x32", (1, 1, 17 * 768, 512), 768, 1.0, None),
     ("vae_mid_v2v_17f_24x18", (1, 1, 17 * 432, 512), 432, 1.0, None),
     ("vae_train_mid_33x256x256", (1, 1, 9216, 512), 1024, 1.0, None),  # HunyuanVAE training, latent 9x32x32
-    ("vae_mid_tile_768px", (1, 1, 33 * 1024, 512), 1024, 1.0, None),  # the 768px decode's full tile
+    ("vae_mid_tile_768px", (1, 1, 33 * 1024, 512), 1024, 1.0, None),  # the 768px decode's tiles
+    ("vae_mid_tile_768px_32x8", (1, 1, 33 * 256, 512), 256, 1.0, None),
+    ("vae_mid_tile_768px_24x8", (1, 1, 33 * 192, 512), 192, 1.0, None),
+    ("vae_mid_encode_1frame_32x32", (1, 1, 1024, 512), 1024, 1.0, None),  # the 576x1024 reference encode
+    ("vae_mid_encode_1frame_32x8", (1, 1, 256, 512), 256, 1.0, None),
+    ("vae_mid_encode_1frame_24x8", (1, 1, 192, 512), 192, 1.0, None),
     ("tail_frame_causal", (1, 2, 1000, 512), 96, 1.0, None),
     ("bidirectional_anchored", (2, 2, 1000, 512), None, 0.5, None),  # A ~ 20
     ("bidirectional_running_max", (2, 2, 1000, 512), None, 4.0, None),  # A >= 40

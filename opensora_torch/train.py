@@ -12,7 +12,8 @@ the (loaded) base when ``lora_config`` is set, else a full finetune
 of the MMDiT over fp32 master weights computing in the config's ``dtype``
 (with an fp32 EMA), the rectified-flow step, logging to
 ``<outputs>/<exp_name>/log.txt``, checkpoints every ``ckpt_every`` steps
-and at the end, and resume from ``load``.
+and at the end, resume from ``load``, and a Chrome trace of the global
+steps in ``profile = dict(start=, end=)`` under ``<exp_dir>/profile``.
 
 :class:`Trainer` holds the models and the train state;
 :meth:`Trainer.run_batch` is the body of one iteration -- encode the video,
@@ -25,6 +26,7 @@ are not ported (one device).
 from __future__ import annotations
 
 import math
+import os
 import sys
 from typing import Dict, List, Optional
 
@@ -160,6 +162,49 @@ class Trainer:
             return self.train_step(self.state, tb, self.gen)
 
 
+class ProfileWindow:
+    """The config's ``profile = dict(start=, end=)`` in global steps, as the
+    JAX train script traces it (scripts/diffusion/train.py:362-371):
+    ``torch.profiler`` (host, and the card's kernels on cuda) starts before
+    the step taken at ``global_step == start`` and stops after the step that
+    brings ``global_step`` to ``end``; the Chrome trace goes to
+    ``<exp_dir>/profile/trace.json``. A window that does not open, or whose
+    end the run never reaches, writes nothing, as the JAX script's
+    unstopped trace writes nothing."""
+
+    def __init__(self, window: Optional[dict], exp_dir: str, device: torch.device, logger):
+        self.window, self.device, self.logger = window or {}, device, logger
+        self.out_dir = os.path.join(exp_dir, "profile")
+        self.prof = None
+
+    def before_step(self, global_step: int) -> None:
+        if self.window and global_step == self.window.get("start", -1):
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
+            self.prof = profile(activities=activities)
+            self.prof.start()
+
+    def after_step(self, global_step: int) -> None:
+        if self.prof is not None and global_step == self.window.get("end", -1):
+            self._stop()
+            os.makedirs(self.out_dir, exist_ok=True)
+            self.prof.export_chrome_trace(os.path.join(self.out_dir, "trace.json"))
+            self.prof = None
+            self.logger.info("profile written to %s", self.out_dir)
+
+    def close(self) -> None:
+        if self.prof is not None:
+            self._stop()
+            self.prof = None
+            self.logger.warning("profile window %s: its end was not reached, no trace written", self.window)
+
+    def _stop(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+
+
 def main(argv: Optional[List[str]] = None) -> Trainer:
     """Run the CLI; returns the trainer after the last step."""
     import opensora_torch.datasets.datasets  # noqa: F401  (registers the datasets)
@@ -198,25 +243,32 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
     num_steps_per_epoch = len(dataloader)
     total_epochs = cfg.get("epochs", 1)
     log_every, ckpt_every = cfg.get("log_every", 1), cfg.get("ckpt_every", 1000)
-    for epoch in range(start_epoch, total_epochs):
-        sampler.set_epoch(epoch)
-        for step, batch in enumerate(dataloader, start=start_step):
-            metrics = trainer.run_batch(batch)
-            global_step += 1
-            if global_step % log_every == 0:
-                loss, grad_norm = float(metrics["loss"]), float(metrics["grad_norm"])
-                if not math.isfinite(loss):
-                    logger.warning("non-finite loss at global step %d", global_step)
-                tdict = trainer.timers.to_dict()
-                logger.info("epoch %d step %d/%d global_step %d loss %.4f grad_norm %.3f %s",
-                            epoch, step, num_steps_per_epoch, global_step, loss, grad_norm, tdict)
-                writer.log({"loss": loss, "grad_norm": grad_norm, **tdict}, global_step)
-            if global_step % ckpt_every == 0:
-                d = ckpt_io.save(exp_dir, trainer.state, epoch, step + 1, global_step,
-                                 sampler_state=sampler.state_dict(step + 1) if hasattr(sampler, "state_dict") else None,
-                                 keep_n_latest=cfg.get("keep_n_latest", -1))
-                logger.info("checkpoint saved to %s", d)
-        start_step = 0
+    window = ProfileWindow(cfg.get("profile"), exp_dir, trainer.device, logger)
+    try:
+        for epoch in range(start_epoch, total_epochs):
+            sampler.set_epoch(epoch)
+            for step, batch in enumerate(dataloader, start=start_step):
+                window.before_step(global_step)
+                with torch.profiler.record_function(f"train step to global_step {global_step + 1}"):
+                    metrics = trainer.run_batch(batch)
+                global_step += 1
+                window.after_step(global_step)
+                if global_step % log_every == 0:
+                    loss, grad_norm = float(metrics["loss"]), float(metrics["grad_norm"])
+                    if not math.isfinite(loss):
+                        logger.warning("non-finite loss at global step %d", global_step)
+                    tdict = trainer.timers.to_dict()
+                    logger.info("epoch %d step %d/%d global_step %d loss %.4f grad_norm %.3f %s",
+                                epoch, step, num_steps_per_epoch, global_step, loss, grad_norm, tdict)
+                    writer.log({"loss": loss, "grad_norm": grad_norm, **tdict}, global_step)
+                if global_step % ckpt_every == 0:
+                    d = ckpt_io.save(exp_dir, trainer.state, epoch, step + 1, global_step,
+                                     sampler_state=sampler.state_dict(step + 1) if hasattr(sampler, "state_dict")
+                                     else None, keep_n_latest=cfg.get("keep_n_latest", -1))
+                    logger.info("checkpoint saved to %s", d)
+            start_step = 0
+    finally:
+        window.close()
     d = ckpt_io.save(exp_dir, trainer.state, total_epochs - 1, num_steps_per_epoch, global_step)
     logger.info("checkpoint saved to %s", d)
     writer.close()

@@ -11,11 +11,13 @@ returns ``api_fn``, which draws the latent noise, encodes the references
 of an i2v / v2v cond type and hands both to ``generate``: text encode ->
 denoise (I2V with the references' masks, or distilled) -> unpack -> the
 references' latent frames put back -> AE decode -> the non-causal pad
-trimmed.
+trimmed. ``offload_to_host`` / ``load_to_device`` park a model in host
+memory between its uses and bring it back.
 """
 
 from __future__ import annotations
 
+import itertools
 import random as pyrandom
 import time
 from typing import Optional
@@ -84,6 +86,50 @@ def prepare_optional_models(cfg, device) -> dict:
     for m in optional.values():
         m.eval().requires_grad_(False)
     return optional
+
+
+def _tensors(module: torch.nn.Module):
+    return itertools.chain(module.parameters(), module.buffers())
+
+
+def host_available_bytes() -> Optional[int]:
+    """The host's available memory (``MemAvailable`` of /proc/meminfo) in
+    bytes; None where the file does not say."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return None
+
+
+def offload_to_host(module: torch.nn.Module) -> int:
+    """Park ``module``'s parameters and buffers in host memory and return
+    the bytes parked (counterpart of opensora_tpu/utils/api.py:43-53, the
+    t2i2v swap of upstream's scripts/diffusion/inference.py:161-214). Each
+    tensor is copied into a host tensor of its own and the module's tensor
+    points at the copy, so its device memory is freed once nothing else
+    holds it. The copies are pageable: PyTorch's pinned-memory allocator
+    rounds each block up to a power of two, which would come near to
+    doubling the host memory a 12 B model's 24 GB take."""
+    parked = 0
+    for t in _tensors(module):
+        t.data = t.data.to("cpu", copy=True)
+        parked += t.numel() * t.element_size()
+    return parked
+
+
+def load_to_device(module: torch.nn.Module, device) -> int:
+    """Bring a parked module's parameters and buffers to ``device`` (a copy
+    each) and return the bytes moved (opensora_tpu/utils/api.py:56-60)."""
+    device, moved = torch.device(device), 0
+    for t in _tensors(module):
+        t.data = t.data.to(device, copy=True)
+        moved += t.numel() * t.element_size()
+    _sync(device)
+    return moved
 
 
 def _sync(device: torch.device) -> None:

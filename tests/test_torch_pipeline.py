@@ -110,13 +110,13 @@ def tiny_pair(tiny_models):
     return cfg, jax_side, prepare_api(**models)
 
 
-def _jax_generate(js, z, prompts, opt):
+def _jax_generate(js, z, prompts, opt, neg=None):
     """The JAX package's api_fn body for t2v, given the noise."""
     num_frames = z.shape[2]
     denoiser = JS.SamplingMethodDict[opt.method]
     timesteps = JS.get_schedule(opt.num_steps, (z.shape[-1] * z.shape[-2]) // 4, num_frames,
                                 shift=opt.shift, shift_alpha=opt.flow_shift)
-    text, additional = denoiser.prepare_guidance(text=prompts, neg=None, guidance_img=opt.guidance_img)
+    text, additional = denoiser.prepare_guidance(text=prompts, neg=neg, guidance_img=opt.guidance_img)
     zj = jnp.asarray(z)
     inp = JS.prepare(js["t5"], js["clip"], zj, prompt=text, patch_size=2)
     img = inp.pop("img")
@@ -241,7 +241,7 @@ def test_cli_reads_prompts_from_csv_with_dataset_suffixes(tmp_path):
     dataset's fps and motion-score suffixes, as the JAX text dataset adds."""
     import csv
 
-    from opensora_torch.inference import read_prompts
+    from opensora_torch.inference import text_dataset
 
     path = tmp_path / "prompts.csv"
     with open(path, "w", newline="") as f:
@@ -249,8 +249,9 @@ def test_cli_reads_prompts_from_csv_with_dataset_suffixes(tmp_path):
         w.writerow(["text"])
         w.writerows([["raining, sea"], ["a cat."]])
     cfg = parse_configs([os.path.join(CONFIG_DIR, "256px.py"), "--dataset.data_path", str(path)])
-    assert read_prompts(cfg, None) == ["raining, sea. 16 FPS. 4 motion score.", "a cat. 16 FPS. 4 motion score."]
-    assert read_prompts(cfg, "x") == ["x. 16 FPS. 4 motion score."]
+    assert text_dataset(cfg, None).texts == ["raining, sea. 16 FPS. 4 motion score.",
+                                             "a cat. 16 FPS. 4 motion score."]
+    assert text_dataset(cfg, "x").texts == ["x. 16 FPS. 4 motion score."]
 
 
 def test_cli_tiny_dev_w8a8_writes_a_finite_sample(tmp_path):

@@ -14,7 +14,7 @@ import pytest
 
 from opensora_tpu.utils.config import parse_configs as jparse_configs
 
-from opensora_torch.inference import main, read_references
+from opensora_torch.inference import main, text_dataset
 from opensora_torch.utils.api import prepare_api, prepare_models
 from opensora_torch.utils.config import parse_configs
 from opensora_torch.utils.inference import process_and_save
@@ -73,7 +73,8 @@ def test_i2v_head_cli_reads_the_reference_from_the_csv(tmp_path):
     paths = main(args + ["--cond_type", "i2v_head", "--save_dir", str(tmp_path / "i2v")])
     t2v = main(args + ["--save_dir", str(tmp_path / "t2v")])
     cfg = parse_configs(args[:3] + ["--cond_type", "i2v_head"])
-    assert read_references(cfg, None) == [ref, None] and read_references(cfg, "x") == []
+    data = text_dataset(cfg, None)
+    assert [data[i].get("ref") for i in range(2)] == [ref, None] and "ref" not in text_dataset(cfg, "x")[0]
 
     model, ae, t5, clip, optional = prepare_models(cfg, device="cpu", seed=cfg.seed)
     assert optional == {}
