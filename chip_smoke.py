@@ -209,13 +209,31 @@ the exact launches (the reference encode's 18 D = 512 tiles among them),
 the peak under 80 GB, the host memory and the seconds of parking and
 loading; then, as the control, the same video with every model resident
 (its peak, or the card's out-of-memory error).
+Tensor and data parallelism over logical ranks on the card: phase 2 holds
+the D = 128 forward at a TP 4 rank's heads (3, 6, 8828, 128) and phase 2b
+the backward at phase 21's per-rank shapes (1, 24, 8828, 128) and (2, 12,
+8828, 128); phase 3h runs the full-width MMDiT at 1 + 1 blocks under TP
+(1, 1, 4) and (1, 2, 2) with ring_rdma against the CPU's plain path and
+the card's unsharded forward, and one full-finetune step over (2, 1, 2)
+with FSDP against the unsharded step, each with known-wrong variants that
+must fail (fused axes cut contiguously, the row bias on every rank, one
+data rank's rows twice, gradients not divided by dp); phase 20 (after
+phase 12, on phase 4's models, sharded in place) runs configs/diffusion/
+inference/256px_tp.py at full width and depth over 4 logical ranks, 2
+steps, the latent against phase 4's, exact launches, the peak, and with
+--profile the all-reduce's share; phase 21 (after phase 10) runs
+configs/diffusion/train/stage1.py's full finetune at 2 + 4 blocks through
+Trainer.run_batch: one step from one saved state by the trainer without
+a mesh, then by Trainer(mesh=...) over (2, 1, 2) and over (4, 1, 1) with
+FSDP (the state loaded and resharded), the sharded against the
+unsharded, then 2 timed FSDP steps.
 Then it prints the card's name and power limit, one JSON line with the
 kernels' numbers, and last {"ok": true, "device": {...}}.
 
 ``--out-dir DIR`` writes the compiler's register/shared-memory report
 (build_log.txt) there; ``--profile`` adds a profiled second run of each
 path (kernel time by kind, device idle share; with ``--out-dir`` the full
-tables go to DIR/profile_{main,ring,768px,t2i2v,train,ring_train,int8,vae,dcae,hc,hc_train}.txt).
+tables go to DIR/profile_{main,ring,768px,t2i2v,tp,train,ring_train,fsdp,int8,vae,dcae,hc,hc_train}.txt).
 """
 
 from __future__ import annotations
@@ -498,6 +516,7 @@ ATTENTION_CASES = [
     # name, (B, H, L, D), causal_block, q scale[, Lk]
     ("mmdit_joint_anchored", (3, 24, 8828, 128), None, 1.0),
     ("mmdit_joint_running_max", (3, 24, 8828, 128), None, 3.0),
+    ("mmdit_tp4_rank", (3, 6, 8828, 128), None, 1.0),  # phase 20: 256px_tp.py, one of 4 tp ranks' heads
     ("flux_image_768px", (1, 24, 2816, 128), None, 1.0),  # the t2i2v image stage: 2304 image + 512 text tokens
     # the high-compression paths (patch 1 over DC-AE latents, 512 text tokens):
     # t2v at 192 x 336 (32 x 6 x 11 latent tokens) and, at the 256px bucket's
@@ -758,6 +777,8 @@ BWD_CASES = [
     # name, (B, H, L, D), causal_block[, Lk]
     ("mmdit_joint", (3, 24, 8828, 128), None),
     ("hc_train_128x256x256", (3, 24, 2560, 128), None),  # phase 16: 32 x 8 x 8 latent + 512 text tokens
+    ("fsdp4_data_rank", (1, 24, 8828, 128), None),  # phase 21 over (4, 1, 1): one data rank's row
+    ("dp2_tp2_rank", (2, 12, 8828, 128), None),  # phase 21 over (2, 1, 2): a rank's rows and heads
     ("tail_bidirectional", (2, 3, 1000, 128), None),
     ("tail_frame_causal", (1, 2, 1000, 128), 96),
 ]
@@ -1614,10 +1635,12 @@ KERNEL_KINDS = [  # first match wins: int8_flash_fwd_kernel before flash_fwd_ker
 ]
 
 
-def profile_run(fn, tag: str, out_dir) -> dict:
+def profile_run(fn, tag: str, out_dir, spans=()) -> dict:
     """Device time by kernel kind and the device's idle share over one more
     run of ``fn`` under torch.profiler; the full table goes to
-    ``out_dir``/profile_``tag``.txt if given."""
+    ``out_dir``/profile_``tag``.txt if given. For each name in ``spans``
+    (a ``record_function`` range), ``<name>_device_s``: the device time of
+    the kernels launched inside it."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1627,7 +1650,13 @@ def profile_run(fn, tag: str, out_dir) -> dict:
         wall_s = time.perf_counter() - t0
     groups = {name: 0.0 for name, _ in KERNEL_KINDS}
     groups["other"] = 0.0
+    span_s = {f"{n}_device_s": 0.0 for n in spans}
     for e in prof.key_averages():
+        if e.key in spans:  # the range itself, on either side: not a kernel
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                us = getattr(e, "device_time_total", None)
+                span_s[f"{e.key}_device_s"] += (e.cuda_time_total if us is None else us) / 1e6
+            continue
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total", None)
@@ -1637,7 +1666,7 @@ def profile_run(fn, tag: str, out_dir) -> dict:
         groups[kind] += us
     busy_s = sum(groups.values()) / 1e6
     out = {"wall_s": wall_s, "kernel_s": {k: v / 1e6 for k, v in groups.items()},
-           "device_idle_share": max(0.0, 1.0 - busy_s / wall_s)}
+           "device_idle_share": max(0.0, 1.0 - busy_s / wall_s), **span_s}
     if out_dir:
         with open(os.path.join(out_dir, f"profile_{tag}.txt"), "w") as f:
             f.write(json.dumps(out) + "\n")
@@ -1676,7 +1705,8 @@ def run_main_path(device, profile: bool = False, out_dir=None, records=None) -> 
                       channel=cfg.model["in_channels"])
     _build.LAUNCHES.clear()
     timings: dict = {}
-    with FirstCall(model) as rec_model, FirstCall(t5) as rec_t5, FirstCall(clip) as rec_clip:
+    with FirstCall(model) as rec_model, FirstCall(t5) as rec_t5, FirstCall(clip) as rec_clip, \
+            LatentRecorder(ae) as rec_latent:
         t0 = time.perf_counter()
         x = api_fn(**run_kwargs, timings=timings)
         torch.cuda.synchronize()
@@ -1715,7 +1745,8 @@ def run_main_path(device, profile: bool = False, out_dir=None, records=None) -> 
                outside_share=outside, models_build_s=build_s)
     if profile:
         res["profile"] = profile_run(lambda: api_fn(**run_kwargs), "main", out_dir)
-    return res, dict(cfg=cfg, models=(model, ae, t5, clip), video=x.cpu(), run_kwargs=run_kwargs)
+    return res, dict(cfg=cfg, models=(model, ae, t5, clip), video=x.cpu(), run_kwargs=run_kwargs,
+                     latent=rec_latent.latents[0], step_s=timings["step_s"])
 
 
 # ----------------------------------------------------------------------
@@ -4537,6 +4568,478 @@ def run_eval_path(device, samples: str, root: str) -> dict:
     return res
 
 
+# ----------------------------------------------------------------------
+# phases 3h, 20 and 21: tensor parallelism and FSDP over logical ranks
+# ----------------------------------------------------------------------
+
+TP_CFG = os.path.join(REPO, "configs", "diffusion", "inference", "256px_tp.py")
+STAGE1_CFG = os.path.join(REPO, "configs", "diffusion", "train", "stage1.py")
+TP_RANKS = 4  # 256px_tp.py's tp_size=-1 over four logical ranks on the card
+# Phase 3h's TP forwards against the card's unsharded bf16 forward on the
+# same weights, relative L2 of the output: the tp ranks' partial products,
+# each rounded to bf16, summed in fp32 and rounded once, where the
+# unsharded product rounds once (an ulp, 2^-8, here and there at the 5
+# row-parallel products; the max|difference| reads in whole ulps of the
+# bf16 output: 1 right, 4-10 for the known-wrong variants in the first
+# card run). Each known-wrong variant must exceed it; against the CPU's
+# fp32 plain path they are held to SMALL_TOL, as phase 3
+TP_FWD_TOL = 5e-3
+# Phase 3h's forward model draws its biases with this standard deviation:
+# nn.Linear's default init leaves them within 1/sqrt(fan_in) (0.008-0.018
+# at full width), where a row bias added on every tp rank would move the
+# output by less than the bf16 limit and pass unseen
+TP_BIAS_STD = 0.05
+# Phase 3h's train step, (2, 1, 2) with FSDP against the card's unsharded
+# step from the same state, batch and draws, both bf16 with fp32 masters:
+# the loss's and the gradient norm's relative difference, and the largest
+# relative L2 difference of a master's change. The sharded step sums the
+# tp ranks' partial products (each rounded to bf16) in fp32 and the data
+# ranks' weight gradients (each a bf16 product over its rows) in fp32,
+# where the unsharded step rounds one product: bf16 roundings (2^-8) in
+# other places. The known-wrong variants move the loss (a data rank's rows
+# twice) or the gradient norm (not divided by dp: 2x) far past these.
+TP_TRAIN_LOSS_TOL = 5e-3
+TP_TRAIN_NORM_TOL = 2e-2
+TP_TRAIN_UPDATE_TOL = 5e-2
+# Adam's eps and lr of phases 3h and 21: the update is then near linear in
+# the clipped gradient (phase 3f's reasoning), so the masters' change
+# compares gradients
+TP_ADAM = dict(lr=1e-2, eps=1e-2)
+# Phase 20: the final latent of 256px_tp.py over TP_RANKS ranks against
+# phase 4's from the same seed, relative L2. Both bf16; the random-weight
+# 57-block MMDiT carries the other rounding of the tp partial sums through
+# 2 steps (the ring's video moved 0.047 from the dense one, phase 9)
+TP_LATENT_TOL = 0.06
+# Phase 21: stage1.py at depth 2 + 4 on 4 seeded 129-frame clips, the
+# sharded steps against the unsharded step from one state
+FSDP_BATCH = 4
+FSDP_STEPS = 2  # timed FSDP steps after the comparison
+FSDP_SIZE = (192, 336)  # the 129-frame 256px bucket at 16:9
+FSDP_MESHES = (("dp2_tp2", (2, 1, 2)), ("fsdp4", (4, 1, 1)))
+
+
+def logical_mesh(device, sizes):
+    from opensora_torch.parallel.mesh import MeshConfig, create_mesh
+
+    return create_mesh(MeshConfig(*sizes), [device] * math.prod(sizes))
+
+
+def _contiguous_segments(name, shape, config):
+    """Known-wrong: qkv, linear1, v_mlp and linear2 cut contiguously."""
+    return None
+
+
+def _bias_on_every_rank(linear, partials, group):
+    """Known-wrong: the row bias added to every tp rank's partial."""
+    from opensora_torch.parallel.comm import all_reduce
+
+    bias = linear._placements.get("bias")
+    return all_reduce([p + bias.local(group.data, t, p.dtype) for t, p in enumerate(partials)])
+
+
+def _one_rank_rows_twice(n_rows, dp, d):
+    """Known-wrong: every data rank reads data rank 0's rows."""
+    return slice(0, n_rows // dp)
+
+
+def _gradients_not_divided(losses):
+    """Known-wrong: the global loss's value, the gradient of the data
+    ranks' sum (FSDP gradients not divided by dp)."""
+    stacked = torch.stack(losses)
+    return stacked.mean().detach() + (stacked.sum() - stacked.sum().detach())
+
+
+def check_tp_small_input(device) -> dict:
+    """Phase 3h: the full-width MMDiT at 1 + 1 blocks on a small input over
+    logical ranks on the card. The TP forward over (1, 1, 4) (the D = 128
+    forward at 6 heads a rank) and a (1, 2, 2) forward with ``ring_rdma``
+    (each tp coordinate's ring over its own sp group and heads), each
+    against the CPU's unsharded fp32 plain path; one full-finetune step
+    (stage1.py's model, fp32 masters) over (2, 1, 2) with FSDP against the
+    card's unsharded step from the same state and draws. Known-wrong
+    variants must fail: the fused axes cut contiguously, the row bias on
+    every tp rank (forward); one data rank's rows twice, the gradients not
+    divided by dp (step)."""
+    import copy
+
+    from opensora_torch.ops import _build
+    from opensora_torch.parallel import data as pdata
+    from opensora_torch.parallel import sharding as psh
+    from opensora_torch.parallel.context import set_mesh
+    from opensora_torch.registry import MODELS, build_module
+    from opensora_torch.training import diffusion as tdiff
+    from opensora_torch.utils.api import prepare_models  # noqa: F401  (registers the models)
+    from opensora_torch.utils.config import parse_configs
+    from opensora_torch.utils.optimizer import create_optimizer
+    from opensora_torch.utils.sampling import build_img_ids
+
+    cfg = parse_configs([TP_CFG])
+    mcfg = dict(cfg.model, depth=1, depth_single_blocks=1)
+    torch.manual_seed(0)
+    card = build_module(dict(mcfg), MODELS, device=device).eval()
+    with torch.no_grad():  # biases of TP_BIAS_STD (see there)
+        bias_gen = torch.Generator(device=device).manual_seed(12)
+        for name, p in card.named_parameters():
+            if name.endswith(".bias"):
+                p.copy_(torch.randn(p.shape, generator=bias_gen, device=device) * TP_BIAS_STD)
+    cpu = build_module(dict(mcfg, dtype="fp32"), MODELS, device="meta").eval()
+    cpu.load_state_dict({k: v.float().cpu() for k, v in card.state_dict().items()}, assign=True)
+    gen = torch.Generator().manual_seed(11)
+    b, lt = 3, 32
+    img_ids = build_img_ids(2, 8, 12, bs=b)  # 48 image tokens: 80 with the text, 40 a rank under sp 2
+    inputs = dict(
+        img=torch.randn(b, 48, mcfg["in_channels"], generator=gen), img_ids=img_ids,
+        txt=torch.randn(b, lt, mcfg["context_in_dim"], generator=gen), txt_ids=torch.zeros(b, lt, 3),
+        timesteps=torch.rand(b, generator=gen), y_vec=torch.randn(b, mcfg["vec_in_dim"], generator=gen),
+        cond=torch.zeros(b, 48, mcfg["in_channels"] + 4), guidance=torch.full((b,), 7.5),
+    )
+    with torch.inference_mode():
+        ref = cpu(**inputs)
+    del cpu
+    on_card = {k: v.to(device) for k, v in inputs.items()}
+    with torch.inference_mode():
+        whole = card(**on_card).float().cpu()  # the card's unsharded bf16 forward
+    variants = {"right": None, "contiguous_segments": (psh, "tp_segments", _contiguous_segments),
+                "bias_on_every_tp_rank": (psh, "row_parallel", _bias_on_every_rank)}
+    forwards = {}
+    for sizes, backend, expect in (((1, 1, TP_RANKS), None, {"flash_attention_fwd_sm90": 2 * TP_RANKS}),
+                                   ((1, 2, 2), "ring_rdma", {"ring_flash_fwd": 2 * 2 * 2 * 2})):
+        mesh = logical_mesh(device, sizes)
+        tag = "x".join(map(str, sizes)) + (f"_{backend}" if backend else "")
+        for name, patch in variants.items():
+            with contextlib.ExitStack() as stack:
+                if patch is not None:
+                    stack.enter_context(unittest.mock.patch.object(*patch))
+                model = psh.shard_params(mesh, copy.deepcopy(card), fsdp=False)
+                set_attn_backend(model, backend)
+                set_mesh(mesh)
+                _build.LAUNCHES.clear()
+                try:
+                    with torch.inference_mode():
+                        out = model(**on_card)
+                finally:
+                    set_mesh(None)
+                launches = dict(_build.LAUNCHES)
+                out = out.float().cpu()
+                err = float((out - ref).abs().max() / ref.abs().max().clamp(min=1.0))
+                forwards[f"{tag}_{name}_vs_unsharded_max"] = float((out - whole).abs().max() / whole.abs().max())
+                forwards[f"{tag}_{name}_vs_unsharded"] = float((out - whole).norm() / whole.norm())
+                del model, out
+            forwards[f"{tag}_{name}"] = err
+            if name == "right":
+                forwards[f"{tag}_launches"] = launches
+                if launches != expect:
+                    raise AssertionError(f"3h {tag}: launches {launches} != expected {expect}")
+    del card
+    free()
+
+    # one full-finetune step, unsharded and over (2, 1, 2) with FSDP
+    tcfg = parse_configs([STAGE1_CFG])
+    tmcfg = dict(tcfg.model, depth=1, depth_single_blocks=1, param_dtype="fp32")
+    torch.manual_seed(1)
+    base = build_module(tmcfg, MODELS, device=device)
+    start = {k: v.detach().cpu().clone() for k, v in base.state_dict().items()}
+    bt, t_, h_, w_ = 4, 2, 8, 12
+    n_img = t_ * (h_ // 2) * (w_ // 2)
+    bf = lambda *shape: torch.randn(shape, generator=gen).to(torch.bfloat16)  # noqa: E731
+    batch = dict(x0=bf(bt, n_img, tmcfg["in_channels"]), img_ids=build_img_ids(t_, h_, w_, bs=bt),
+                 txt=bf(bt, lt, tmcfg["context_in_dim"]), txt_ids=torch.zeros(bt, lt, 3),
+                 y_vec=bf(bt, tmcfg["vec_in_dim"]), cond=bf(bt, n_img, tmcfg["in_channels"] + 4),
+                 shift_alpha=torch.full((bt,), tdiff.compute_shift_alpha(h_, w_, t_)))
+    batch = {k: v.to(device) for k, v in batch.items()}
+    draws = dict(t=torch.rand(bt, generator=gen).to(device),
+                 x1=torch.randn(bt, n_img, tmcfg["in_channels"], generator=gen).to(device))
+
+    def step(mesh):
+        model = copy.deepcopy(base).requires_grad_(True)
+        state = tdiff.TrainState.create(model, create_optimizer(list(model.parameters()), grad_clip=1.0, **TP_ADAM))
+        if mesh is not None:
+            state = tdiff.shard_state(mesh, state, model, fsdp=True)
+        _build.LAUNCHES.clear()
+        m = tdiff.make_train_step(model, ema_decay=0.9)(state, dict(batch), draws=draws)
+        launches = dict(_build.LAUNCHES)
+        params = state.state_dict()["params"]
+        out = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), launches=launches,
+                   change={n: params[n].float().cpu() - start[n] for n in start})
+        del model, state, params
+        free()
+        return out
+
+    mesh = logical_mesh(device, (2, 1, 2))
+    ref_step = step(None)
+    steps = {}
+    for name, patch in (("right", None), ("one_data_rank_rows_twice", (pdata, "row_slice", _one_rank_rows_twice)),
+                        ("gradients_not_divided_by_dp", (tdiff, "data_mean", _gradients_not_divided))):
+        with contextlib.ExitStack() as stack:
+            if patch is not None:
+                stack.enter_context(unittest.mock.patch.object(*patch))
+            got = step(mesh)
+        upd = max(float((got["change"][n] - c).norm() / c.norm().clamp(min=1e-30))
+                  for n, c in ref_step["change"].items())
+        steps[name] = dict(loss_rel=abs(got["loss"] - ref_step["loss"]) / abs(ref_step["loss"]),
+                           grad_norm_rel=abs(got["grad_norm"] - ref_step["grad_norm"]) / ref_step["grad_norm"],
+                           update_rel_l2_max=upd, launches=got["launches"])
+    del base, start
+    free()
+    n_blk = 2
+    expect_step = {"flash_attention_fwd_sm90": 2 * n_blk * 2 * 2, "flash_attention_bwd_fused": n_blk * 2 * 2,
+                   "flash_attention_bwd_dq_convert": n_blk * 2 * 2}
+
+    def within(r):
+        return (r["loss_rel"] <= TP_TRAIN_LOSS_TOL and r["grad_norm_rel"] <= TP_TRAIN_NORM_TOL
+                and r["update_rel_l2_max"] <= TP_TRAIN_UPDATE_TOL)
+
+    res = dict(forward_rel_err=forwards, tol=SMALL_TOL, tol_vs_unsharded=TP_FWD_TOL, step=steps, step_ref=dict(
+        loss=ref_step["loss"], grad_norm=ref_step["grad_norm"], launches=ref_step["launches"]),
+        step_tols=dict(loss=TP_TRAIN_LOSS_TOL, grad_norm=TP_TRAIN_NORM_TOL, update=TP_TRAIN_UPDATE_TOL),
+        step_launches_expected=expect_step)
+    fwd_ok = all(forwards[f"{tag}_right"] <= SMALL_TOL and forwards[f"{tag}_right_vs_unsharded"] <= TP_FWD_TOL
+                 < min(forwards[f"{tag}_contiguous_segments_vs_unsharded"],
+                       forwards[f"{tag}_bias_on_every_tp_rank_vs_unsharded"])
+                 for tag in (f"1x1x{TP_RANKS}", "1x2x2_ring_rdma"))
+    step_ok = (within(steps["right"]) and not within(steps["one_data_rank_rows_twice"])
+               and not within(steps["gradients_not_divided_by_dp"]) and steps["right"]["launches"] == expect_step)
+    log(f"[small] TP / FSDP over logical ranks, full-width MMDiT depth 1+1: {json.dumps(res)} "
+        f"{'OK' if fwd_ok and step_ok else 'FAIL'}")
+    if not (fwd_ok and step_ok):
+        raise AssertionError("phase 3h: the sharded paths disagree with the plain / unsharded paths, or a "
+                             "known-wrong variant passed")
+    return res
+
+
+class LatentRecorder:
+    """Records the latent each ``ae.decode`` call receives (on the host)."""
+
+    def __init__(self, ae):
+        self.ae, self.latents = ae, []
+
+    def __enter__(self):
+        decode = self.ae.decode
+
+        def recording(z, *args, **kwargs):
+            self.latents.append(z.detach().float().cpu())
+            return decode(z, *args, **kwargs)
+
+        self.ae.decode = recording
+        return self
+
+    def __exit__(self, *exc):
+        del self.ae.decode
+        return False
+
+
+def allreduce_share(prof_out: dict) -> dict:
+    """The all-reduce's device time (its ``record_function`` span) over the
+    profiled run's device busy time."""
+    span = prof_out.get("all_reduce_device_s")
+    busy = sum(prof_out["kernel_s"].values())
+    return dict(all_reduce_device_s=span, device_busy_s=busy,
+                all_reduce_share=None if not span else span / busy)
+
+
+def run_tp_path(device, built, profile: bool = False, out_dir=None) -> dict:
+    """Phase 20: configs/diffusion/inference/256px_tp.py at full width and
+    depth, its mesh (tp_size=-1) over TP_RANKS logical ranks on the card,
+    through prepare_api(mesh=...) and api_fn on phase 4's models, the MMDiT
+    sharded in place (the phases that need it whole ran before). 2 steps:
+    the final latent against phase 4's from the same seed within
+    TP_LATENT_TOL, exact launches (57 x TP_RANKS D = 128 forwards a step at
+    6 heads a rank, 2 D = 512 in the decode), step seconds and the peak;
+    with ``--profile`` the all-reduce's share of the device time."""
+    from opensora_torch.ops import _build
+    from opensora_torch.parallel.context import set_mesh
+    from opensora_torch.parallel.mesh import MeshConfig, create_mesh
+    from opensora_torch.utils.api import prepare_api
+    from opensora_torch.utils.config import parse_configs
+
+    cfg = parse_configs([TP_CFG, "--sampling_option.num_steps", str(STEPS)])
+    check_same_models(cfg, built["cfg"], ("model", "ae", "t5", "clip", "sampling_option"), "256px_tp.py")
+    model, ae, t5, clip = built["models"]
+    mesh = create_mesh(MeshConfig(**cfg.mesh), [device] * TP_RANKS)
+    log(f"[tp] 256px_tp.py at full width and depth on phase 4's models, mesh {dict(cfg.mesh)} over {mesh}; "
+        f"num_steps cut 50 -> {STEPS}")
+    n_blocks = cfg.model["depth"] + cfg.model["depth_single_blocks"]
+    try:
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        api_fn = prepare_api(model, ae, t5, clip, mesh=mesh)
+        torch.cuda.synchronize()
+        shard_s = time.perf_counter() - t0
+        resident_gb = torch.cuda.memory_allocated(device) / 1e9
+        _build.LAUNCHES.clear()
+        timings: dict = {}
+        with LatentRecorder(ae) as rec:
+            t0 = time.perf_counter()
+            x = api_fn(**built["run_kwargs"], timings=timings)
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+        latent, dense = rec.latents[0], built["latent"]
+        latent_rel = float((latent - dense).norm() / dense.norm())
+        finite = bool(torch.isfinite(x).all())
+        outside = float((x.abs() > 1.0).float().mean())
+        video_rel = float((x.float().cpu() - built["video"]).norm() / built["video"].norm())
+        shape = tuple(x.shape)
+        del x
+        prof = None
+        if profile:
+            prof = profile_run(lambda: api_fn(**built["run_kwargs"]), "tp", out_dir, spans=("all_reduce",))
+    finally:
+        set_mesh(None)
+    expect = {"flash_attention_fwd_sm90": n_blocks * TP_RANKS * STEPS, "flash_attention_fwd_d512": 2}
+    res = dict(mesh=repr(mesh), tp=model.sharding.tp, launches=launches, expected=expect, shard_s=shard_s,
+               resident_gb_after_sharding=resident_gb, text_encode_s=timings["text_encode_s"],
+               step_s=timings["step_s"], decode_s=timings["decode_s"], total_s=total_s, peak_mem_gb=peak_gb,
+               latent_rel_l2_vs_phase4=latent_rel, tol=TP_LATENT_TOL, video_rel_l2_vs_phase4=video_rel,
+               outside_share=outside, phase4_step_s=built["step_s"])
+    if prof is not None:
+        res["profile"] = dict(prof, **allreduce_share(prof))
+    log("[tp] " + json.dumps(res))
+    if shape != tuple(built["video"].shape) or not finite or outside > OUTSIDE_MAX:
+        raise AssertionError(f"tp output {shape}, finite={finite}, outside [-1, 1]: {outside:.4f}")
+    if launches != expect:
+        raise AssertionError(f"tp launches {launches} != expected {expect}")
+    if not latent_rel <= TP_LATENT_TOL:
+        raise AssertionError(f"tp latent vs phase 4's: relative L2 {latent_rel:.4e} > {TP_LATENT_TOL}")
+    check_peak("tp", peak_gb)
+    return res
+
+
+def run_fsdp_train_path(device, profile: bool = False, out_dir=None) -> dict:
+    """Phase 21: configs/diffusion/train/stage1.py, a full finetune (fp32
+    masters, bf16 compute, remat "dots") at full width and HC_TRAIN_DEPTH
+    blocks through Trainer.run_batch on FSDP_BATCH seeded 129-frame 192 x
+    336 clips (Adam's lr and eps as TP_ADAM, no warmup). One step from one
+    saved state, batch and generator state: by Trainer(cfg, device), then
+    by Trainer(cfg, device, mesh=...) over (2, 1, 2) and (4, 1, 1), which
+    shards the MMDiT with FSDP and loads the saved state with
+    ``state.load_state_dict`` (which reshards it); one trainer on the card at
+    a time. The sharded steps' loss, gradient norm and masters' change
+    against the unsharded step's within the TP_TRAIN_* limits, exact
+    launches. Then FSDP_STEPS more steps over (4, 1, 1): timed, finite,
+    exact launches, the peak."""
+    from opensora_torch.ops import _build
+    from opensora_torch.parallel.context import set_mesh
+    from opensora_torch.train import Trainer
+    from opensora_torch.utils.config import parse_configs
+    from opensora_torch.utils.train import single_frame_encodes
+
+    depth, single = HC_TRAIN_DEPTH
+    cfg = parse_configs([STAGE1_CFG, "--model.depth", str(depth), "--model.depth_single_blocks", str(single),
+                         "--warmup_steps", "0", "--lr", str(TP_ADAM["lr"]), "--adam_eps", str(TP_ADAM["eps"])])
+    n_blocks = depth + single
+    log(f"[fsdp] stage1.py full finetune at full width, depth {depth}+{single}; one step unsharded, over "
+        f"{[s for _, s in FSDP_MESHES]} from one state, then {FSDP_STEPS} FSDP steps; B={FSDP_BATCH}, "
+        f"{TRAIN_FRAMES} frames at 192x336")
+    free()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    gen = torch.Generator(device=device).manual_seed(cfg.seed)
+    video = torch.rand((FSDP_BATCH, 3, TRAIN_FRAMES, *FSDP_SIZE), generator=gen, device=device) * 2 - 1
+    batch = {"video": video, "text": ["a red panda eating bamboo in a misty forest",
+                                      "waves breaking on a rocky shore at sunset",
+                                      "a city street at night in the rain, neon signs",
+                                      "a hot air balloon over a desert canyon at dawn"]}
+    snapshot = _tree_to(trainer.state.state_dict(), "cpu")
+    start = snapshot["params"]
+    n_params = sum(v.numel() for v in start.values())
+    rng_states = trainer.gen.get_state(), dict(trainer.host_rng.bit_generator.state)
+    build_s_sharded = {}  # per mesh: Trainer(mesh=...) and the resharding load
+
+    def expected(sizes):
+        dp, _, tp = sizes
+        ranks = dp * tp
+        return {"flash_attention_fwd_sm90": 2 * n_blocks * ranks, "flash_attention_bwd_fused": n_blocks * ranks,
+                "flash_attention_bwd_dq_convert": n_blocks * ranks,
+                "flash_attention_fwd_d512": FSDP_BATCH + single_frame_encodes(trainer.mask_conds)}
+
+    def one(trainer, tag):
+        trainer.gen.set_state(rng_states[0])
+        trainer.host_rng.bit_generator.state = rng_states[1]
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        m = trainer.run_batch(batch)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        rec = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), launches=dict(_build.LAUNCHES),
+                   step_s=trainer.timers.to_dict()["time/step"], total_s=total_s, mask_conds=trainer.mask_conds,
+                   allocated_gb=torch.cuda.memory_allocated(device) / 1e9)
+        log(f"[fsdp] {tag}: " + json.dumps(rec))
+        return rec
+
+    runs = {"unsharded": one(trainer, "unsharded")}
+    runs["unsharded"]["expected"] = expected((1, 1, 1))
+    ref_change = {n: p.float().cpu() - start[n] for n, p in trainer.state.state_dict()["params"].items()}
+    cmp = {}
+    try:
+        for tag, sizes in FSDP_MESHES:
+            trainer = None
+            free()
+            t0 = time.perf_counter()
+            trainer = Trainer(cfg, device, mesh=logical_mesh(device, sizes))
+            trainer.state.load_state_dict(snapshot)
+            torch.cuda.synchronize()
+            build_s_sharded[tag] = time.perf_counter() - t0
+            runs[tag] = one(trainer, tag)
+            runs[tag]["expected"] = expected(sizes)
+            params = trainer.state.state_dict()["params"]
+            upd = {n: float((params[n].float() - start[n] - c).norm() / c.norm().clamp(min=1e-30))
+                   for n, c in ref_change.items()}
+            worst = max(upd, key=upd.get)
+            ref = runs["unsharded"]
+            cmp[tag] = dict(loss_rel=abs(runs[tag]["loss"] - ref["loss"]) / abs(ref["loss"]),
+                            grad_norm_rel=abs(runs[tag]["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"],
+                            update_rel_l2_max=upd[worst], update_rel_l2_worst=worst,
+                            update_rel_l2_median=sorted(upd.values())[len(upd) // 2],
+                            same_mask_conds=runs[tag]["mask_conds"] == runs["unsharded"]["mask_conds"])
+            del params
+        log("[fsdp] sharded vs unsharded from one state: " + json.dumps(cmp))
+        del ref_change, snapshot
+        steps = []
+        phase_peak_gb = torch.cuda.max_memory_allocated(device) / 1e9  # the three steps from the saved state
+        torch.cuda.reset_peak_memory_stats(device)
+        for i in range(FSDP_STEPS):
+            steps.append(one(trainer, f"fsdp4 step {i + 2}"))
+            steps[-1]["expected"] = expected(FSDP_MESHES[-1][1])
+        peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+        prof = profile_run(lambda: trainer.run_batch(batch), "fsdp", out_dir) if profile else None
+    finally:
+        set_mesh(None)
+    res = dict(depth=[depth, single], params=n_params, models_build_s=build_s, sharded_build_and_load_s=build_s_sharded,
+               runs=runs, sharded_vs_unsharded=cmp,
+               tols=dict(loss=TP_TRAIN_LOSS_TOL, grad_norm=TP_TRAIN_NORM_TOL, update=TP_TRAIN_UPDATE_TOL),
+               fsdp_steps=steps, peak_mem_gb=peak_gb, peak_mem_gb_compared_steps=phase_peak_gb,
+               launches={k: sum(r["launches"].get(k, 0) for r in steps) for k in steps[0]["expected"]})
+    if prof is not None:
+        res["profile"] = prof
+    del trainer, video, batch
+    free()
+    log(f"[fsdp] {FSDP_STEPS} FSDP steps: losses {[r['loss'] for r in steps]}, step_s "
+        f"{[round(r['step_s'], 3) for r in steps]}, peak_mem_gb={peak_gb:.2f}")
+    for tag, rec in list(runs.items()) + [(f"fsdp4 step {i + 2}", r) for i, r in enumerate(steps)]:
+        if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])):
+            raise AssertionError(f"fsdp {tag}: loss {rec['loss']} or grad norm {rec['grad_norm']} not finite")
+        if rec["launches"] != rec["expected"]:
+            raise AssertionError(f"fsdp {tag}: launches {rec['launches']} != expected {rec['expected']}")
+    for tag, c in cmp.items():
+        if not (c["same_mask_conds"] and c["loss_rel"] <= TP_TRAIN_LOSS_TOL and c["grad_norm_rel"] <= TP_TRAIN_NORM_TOL
+                and c["update_rel_l2_max"] <= TP_TRAIN_UPDATE_TOL):
+            raise AssertionError(f"fsdp {tag} vs the unsharded step: {c}")
+    check_peak("fsdp", max(peak_gb, phase_peak_gb))
+    return res
+
+
+def fsdp_launches(res: dict, kernel: str) -> dict:
+    """Phase 21's launches of ``kernel``: each step from the saved state and
+    the FSDP steps' sum."""
+    return dict({tag: r["launches"].get(kernel, 0) for tag, r in res["runs"].items()},
+                fsdp4_steps=res["launches"].get(kernel, 0))
+
+
 def _kernel_name(mangled: str) -> str:
     """The kernel's name and template arguments from its mangled name (the
     length-prefixed identifier ending in "kernel", then Lb0/Lb1/Li<n>)."""
@@ -4643,6 +5146,7 @@ def main(argv) -> int:
     small_ring = check_small_input(device, ring_mesh(device))
     small_ring_train = check_train_small_input(device, ring_mesh(device))
     small_t2i = check_t2i_small_input(device)
+    small_tp = check_tp_small_input(device)
     records: dict = {}  # first calls of phases 4, 6 and 11, replayed by phase 13
     main_res, built = run_main_path(device, "--profile" in argv, out_dir, records)
     main_res["small_input"] = small
@@ -4654,6 +5158,8 @@ def main(argv) -> int:
         t2i2v_res["small_input"] = small_t2i
         t2i2v_768_res = run_t2i2v_768px_path(device, built, tmp)
         v2v_res = run_v2v_path(device, built, tmp)
+    tp_res = run_tp_path(device, built, "--profile" in argv, out_dir)  # shards phase 4's MMDiT: the last user
+    tp_res["small_input"] = small_tp
     del built
     gc.collect()
     torch.cuda.empty_cache()
@@ -4664,6 +5170,7 @@ def main(argv) -> int:
     del built
     gc.collect()
     torch.cuda.empty_cache()
+    fsdp_res = run_fsdp_train_path(device, "--profile" in argv, out_dir)
     int8_res = run_int8_path(device, [], STEPS, "--profile" in argv, out_dir, "int8", records)
     int8_res["small_input"] = small_int8
     fq_res = run_int8_path(device, ["--model.quantized", "w8a8_fq", "--model.attn_backend", "int8"], INT8_FQ_STEPS,
@@ -4719,6 +5226,8 @@ def main(argv) -> int:
         launches_768px=dict(t2v=res_768["launches"]["flash_attention_fwd_sm90"],
                             t2i2v_image=t2i2v_768_res["image_launches"]["flash_attention_fwd_sm90"],
                             t2i2v_video=t2i2v_768_res["launches"]["flash_attention_fwd_sm90"]),
+        launches_tp=tp_res["launches"]["flash_attention_fwd_sm90"],
+        launches_fsdp=fsdp_launches(fsdp_res, "flash_attention_fwd_sm90"),
         max_abs_err=max([c["max_abs_err"] for c in sm90_cases] + [res_768["attention"]["max_abs_err"]]),
         ms=head["ms"], ms_is="flash_attention_with_lse (the bound A on the device, then the kernel), the mean of "
         "4 readings in turns with SDPA's 4 (library_ms)", anchor_ms=head["anchor_ms"],
@@ -4761,6 +5270,7 @@ def main(argv) -> int:
         head_dim=128,
         launches=train_res["launches"]["flash_attention_bwd_fused"],
         launches_hc_train=hc_train_res["launches"]["flash_attention_bwd_fused"],
+        launches_fsdp=fsdp_launches(fsdp_res, "flash_attention_bwd_fused"),
         max_abs_err=max(c["max_abs_err"][g] for c in attn_bwd["cases"] for g in ("dq", "dk", "dv")),
         max_abs_err_is="dq (after the epilogue), dk and dv against the plain backward",
         ms=bwd_head["ms"]["flash_attention_bwd_fused"],
@@ -4782,6 +5292,7 @@ def main(argv) -> int:
         launches=train_res["launches"]["flash_attention_bwd_dq_convert"],
         launches_ring_train=ring_train_res["launches"]["flash_attention_bwd_dq_convert"],
         launches_hc_train=hc_train_res["launches"]["flash_attention_bwd_dq_convert"],
+        launches_fsdp=fsdp_launches(fsdp_res, "flash_attention_bwd_dq_convert"),
         max_abs_err=max(c["dq_convert_max_abs_err"] for c in attn_bwd["cases"]),
         max_abs_err_is="against its plain version on the same dq_accum",
         ms=bwd_head["ms"]["flash_attention_bwd_dq_convert"], plain_ms=bwd_head["dq_convert_plain_ms"],
@@ -4905,6 +5416,8 @@ def main(argv) -> int:
     log("[t2i2v_768px] " + json.dumps(t2i2v_768_res))
     log("[v2v] " + json.dumps(v2v_res))
     log("[ring_train] " + json.dumps(ring_train_res))
+    log("[tp] " + json.dumps(tp_res))
+    log("[fsdp] " + json.dumps(fsdp_res))
     log("[train] " + json.dumps(train_res))
     log("[int8] " + json.dumps(int8_res))
     log("[int8_fq] " + json.dumps(fq_res))

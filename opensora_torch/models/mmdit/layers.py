@@ -11,6 +11,14 @@ they come in, each float linear casting its parameters to it at use
 the blocks, the modulation's included, an int8 ``QuantLinear``
 (``ops/quant.py``) where the JAX package uses ``dense``; the embedders and
 the final layer stay float.
+
+Each block's ``forward_tp`` runs it over the tp ranks of a sharded model
+(``parallel/sharding.RankGroup``): rank r reads its shards of the weights
+(whole heads of ``qkv`` and ``linear1``, its MLP columns), attends over
+its heads, and the row-parallel products (``proj``, ``img_mlp.2``,
+``txt_mlp.2``, ``linear2``) are summed over the ranks with the bias added
+once. The unsharded ``forward`` is ``forward_tp`` over one rank
+(``parallel/sharding.ONE_RANK``), so the block's math is written once.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from opensora_torch.models.cast_layers import Linear
 from opensora_torch.ops.attention import attention
 from opensora_torch.ops.norms import layer_norm, rms_norm
 from opensora_torch.ops.quant import dense
+from opensora_torch.parallel.sharding import ONE_RANK
 
 
 def timestep_embedding(
@@ -88,9 +97,11 @@ class Modulation(nn.Module):
         return tuple(chunks[:3]), (tuple(chunks[3:]) if self.multiplier == 6 else None)
 
 
-def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+def _split_heads(x: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """(B, L, n * head_dim) -> (B, L, n, head_dim): n is all the heads, or
+    a tp rank's share of them."""
     b, l, d = x.shape
-    return x.reshape(b, l, num_heads, d // num_heads)
+    return x.reshape(b, l, d // head_dim, head_dim)
 
 
 def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -104,6 +115,7 @@ class SelfAttention(nn.Module):
                  quantized=False, **factory):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
         self.fused_qkv = fused_qkv
         if fused_qkv:
             self.qkv = dense(quantized, dim, dim * 3, bias=qkv_bias, **factory)
@@ -120,7 +132,7 @@ class SelfAttention(nn.Module):
             q, k, v = self.qkv(x).chunk(3, dim=-1)
         else:
             q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
-        q, k, v = (_split_heads(t, self.num_heads) for t in (q, k, v))
+        q, k, v = (_split_heads(t, self.head_dim) for t in (q, k, v))
         q, k = self.norm(q, k)
         return q.to(v.dtype), k.to(v.dtype), v
 
@@ -152,12 +164,11 @@ class DoubleStreamBlock(nn.Module):
         self.img_mlp = _mlp(hidden_size, mlp_hidden, **q)
         self.txt_mlp = _mlp(hidden_size, mlp_hidden, **q)
 
-    def forward(self, img, txt, vec, pe):
-        (img_shift1, img_scale1, img_gate1), (img_shift2, img_scale2, img_gate2) = self.img_mod(vec)
-        (txt_shift1, txt_scale1, txt_gate1), (txt_shift2, txt_scale2, txt_gate2) = self.txt_mod(vec)
-
-        img_q, img_k, img_v = self.img_attn.qkv_heads(modulate(layer_norm(img), img_shift1, img_scale1))
-        txt_q, txt_k, txt_v = self.txt_attn.qkv_heads(modulate(layer_norm(txt), txt_shift1, txt_scale1))
+    def _attend(self, img_x, txt_x, pe):
+        """Joint attention of the modulated streams over the heads this rank
+        holds: (txt, img) outputs, heads merged."""
+        img_q, img_k, img_v = self.img_attn.qkv_heads(img_x)
+        txt_q, txt_k, txt_v = self.txt_attn.qkv_heads(txt_x)
         attn_out = attention(
             torch.cat([txt_q, img_q], dim=1),
             torch.cat([txt_k, img_k], dim=1),
@@ -165,13 +176,42 @@ class DoubleStreamBlock(nn.Module):
             pe=pe, rope_convention=self.rope_convention, backend=self.attn_backend,
         )
         txt_len = txt_q.shape[1]
-        txt_attn, img_attn = attn_out[:, :txt_len], attn_out[:, txt_len:]
+        return attn_out[:, :txt_len], attn_out[:, txt_len:]
 
-        img = img + img_gate1 * self.img_attn.proj(img_attn)
-        txt = txt + txt_gate1 * self.txt_attn.proj(txt_attn)
-        img = img + img_gate2 * self.img_mlp(modulate(layer_norm(img), img_shift2, img_scale2))
-        txt = txt + txt_gate2 * self.txt_mlp(modulate(layer_norm(txt), txt_shift2, txt_scale2))
-        return img, txt
+    def forward(self, img, txt, vec, pe):
+        img, txt = self.forward_tp(ONE_RANK, [img], [txt], [vec], [pe])
+        return img[0], txt[0]
+
+    def forward_tp(self, g, img, txt, vec, pe):
+        """The block over the tp ranks of ``g`` (``parallel/sharding.
+        RankGroup`` or ``ONE_RANK``); every argument and result is a list
+        with one entry per rank. Modulation, norms and residuals are
+        replicated (once per device); each rank attends over its heads and
+        computes its MLP columns; one all-reduce follows each row-parallel
+        product."""
+        mods = g.rep(lambda t: (self.img_mod(vec[t]), self.txt_mod(vec[t])))
+
+        def first(t):
+            ((img_shift1, img_scale1, _), _), ((txt_shift1, txt_scale1, _), _) = mods[t]
+            return (modulate(layer_norm(img[t]), img_shift1, img_scale1),
+                    modulate(layer_norm(txt[t]), txt_shift1, txt_scale1))
+
+        x = g.rep(first)
+        attn = g.each(lambda t: self._attend(*x[t], pe[t]))
+        img_o = g.row(self.img_attn.proj, [a[1] for a in attn])
+        txt_o = g.row(self.txt_attn.proj, [a[0] for a in attn])
+
+        def second(t):
+            ((_, _, img_gate1), (img_shift2, img_scale2, _)), ((_, _, txt_gate1), (txt_shift2, txt_scale2, _)) = mods[t]
+            i, x_ = img[t] + img_gate1 * img_o[t], txt[t] + txt_gate1 * txt_o[t]
+            return (i, x_, modulate(layer_norm(i), img_shift2, img_scale2),
+                    modulate(layer_norm(x_), txt_shift2, txt_scale2))
+
+        r = g.rep(second)
+        img_m = g.row(self.img_mlp[2], g.each(lambda t: self.img_mlp[1](self.img_mlp[0](r[t][2]))))
+        txt_m = g.row(self.txt_mlp[2], g.each(lambda t: self.txt_mlp[1](self.txt_mlp[0](r[t][3]))))
+        out = g.rep(lambda t: (r[t][0] + mods[t][0][1][2] * img_m[t], r[t][1] + mods[t][1][1][2] * txt_m[t]))
+        return [o[0] for o in out], [o[1] for o in out]
 
 
 class SingleStreamBlock(nn.Module):
@@ -198,24 +238,35 @@ class SingleStreamBlock(nn.Module):
         self.norm = QKNorm(hidden_size // num_heads, **factory)
         self.modulation = Modulation(hidden_size, double=False, quantized=quantized, **factory)
 
-    def forward(self, x, vec, pe):
-        (shift, scale, gate), _ = self.modulation(vec)
-        h = self.hidden_size
-        x_mod = modulate(layer_norm(x), shift, scale)
+    def _attn_mlp(self, x_mod, pe, tp: int):
+        """[attention | gelu(mlp)] of the modulated input over the heads and
+        MLP columns of one of ``tp`` ranks: the input of ``linear2``."""
+        h, mlp_w = self.hidden_size // tp, self.mlp_hidden_dim // tp
         if self.fused_qkv:
-            qkv, mlp = self.linear1(x_mod).split([3 * h, self.mlp_hidden_dim], dim=-1)
+            qkv, mlp = self.linear1(x_mod).split([3 * h, mlp_w], dim=-1)
             q, k, v = qkv.chunk(3, dim=-1)
         else:
             q, k = self.q_proj(x_mod), self.k_proj(x_mod)
-            v, mlp = self.v_mlp(x_mod).split([h, self.mlp_hidden_dim], dim=-1)
-        q, k, v = (_split_heads(t, self.num_heads) for t in (q, k, v))
+            v, mlp = self.v_mlp(x_mod).split([h, mlp_w], dim=-1)
+        q, k, v = (_split_heads(t, self.hidden_size // self.num_heads) for t in (q, k, v))
         q, k = self.norm(q, k)
         attn_out = attention(
             q.to(v.dtype), k.to(v.dtype), v, pe=pe,
             rope_convention=self.rope_convention, backend=self.attn_backend,
         )
-        out = self.linear2(torch.cat([attn_out, F.gelu(mlp, approximate="tanh")], dim=-1))
-        return x + gate * out
+        return torch.cat([attn_out, F.gelu(mlp, approximate="tanh")], dim=-1)
+
+    def forward(self, x, vec, pe):
+        return self.forward_tp(ONE_RANK, [x], [vec], [pe])[0]
+
+    def forward_tp(self, g, x, vec, pe):
+        """The block over the tp ranks of ``g``, per-rank lists in and out
+        (see ``DoubleStreamBlock.forward_tp``): one all-reduce, after
+        ``linear2``."""
+        mods = g.rep(lambda t: self.modulation(vec[t])[0])
+        x_mod = g.rep(lambda t: modulate(layer_norm(x[t]), mods[t][0], mods[t][1]))
+        out = g.row(self.linear2, g.each(lambda t: self._attn_mlp(x_mod[t], pe[t], g.tp)))
+        return g.rep(lambda t: x[t] + mods[t][2] * out[t])
 
 
 class LastLayer(nn.Module):

@@ -23,6 +23,15 @@ at use (``models/cast_layers.py``), the norm scales are cast by the norms.
 Left unset, the parameters are in the compute dtype; the trainer sets it
 for a full finetune (``opensora_torch/train.py``).
 
+Sharded over a mesh (``parallel/sharding.shard_params``, which sets
+``sharding``), the forward cuts the rows over the data ranks
+(:meth:`MMDiTModel.forward_rank` runs one data rank's rows) and runs each
+block's ``forward_tp`` over the tp ranks: the embedders and the final
+layer replicated, each rank's heads and MLP columns on its own device, the
+row-parallel products all-reduced. The blocks are checkpointed as above,
+so an FSDP weight is gathered inside the checkpointed function (and again
+for its recompute) and freed after use.
+
 ``quantized`` (False | True/"w8" | "w8a8" | "w8a8_pallas" | "w8a8_fq")
 builds every linear of the blocks as an int8 ``QuantLinear``
 (``ops/quant.py``), zero-initialized as in the JAX package; a quantized
@@ -109,6 +118,8 @@ REMAT_CONTEXTS = {
 
 
 class MMDiTModel(nn.Module):
+    sharding = None  # a parallel/sharding.ModelSharding once shard_params has cut the parameters
+
     def __init__(self, config: MMDiTConfig, device=None, dtype: Optional[torch.dtype] = None,
                  compute_dtype: Optional[torch.dtype] = None):
         """``dtype``: the parameters'; ``compute_dtype``: the activations'
@@ -185,6 +196,8 @@ class MMDiTModel(nn.Module):
         return checkpoint(block, *args, use_reentrant=False, **REMAT_CONTEXTS[cfg.remat_policy])
 
     def forward(self, img, img_ids, txt, txt_ids, timesteps, y_vec, cond=None, guidance=None):
+        if self.sharding is not None:
+            return self._forward_sharded(img, img_ids, txt, txt_ids, timesteps, y_vec, cond, guidance)
         img, txt, vec, pe = self.prepare_block_inputs(
             img, img_ids, txt, txt_ids, timesteps, y_vec, cond, guidance
         )
@@ -194,6 +207,42 @@ class MMDiTModel(nn.Module):
         for block in self.single_blocks:
             x = self._run_block(block, x, vec, pe)
         return self.final_layer(x[:, txt.shape[1]:], vec)
+
+    def _forward_sharded(self, img, *inputs):
+        """The forward over the mesh the parameters are sharded on: the rows
+        cut over the data ranks (all rows on data rank 0 where they do not
+        divide, as the JAX package's ``constrain`` leaves them replicated),
+        each run by :meth:`forward_rank`, the outputs joined on ``img``'s
+        device."""
+        from opensora_torch.parallel.data import row_slice
+
+        b, dp = img.shape[0], self.sharding.dp
+        pieces = dp if b % dp == 0 else 1
+        outs = []
+        for d in range(pieces):
+            rows = row_slice(b, pieces, d)
+            out = self.forward_rank(d, img[rows], *(None if x is None else x[rows] for x in inputs))
+            outs.append(out.to(img.device))
+        return torch.cat(outs, 0) if len(outs) > 1 else outs[0]
+
+    def forward_rank(self, d, img, img_ids, txt, txt_ids, timesteps, y_vec, cond=None, guidance=None):
+        """Data rank ``d``'s rows through the sharded model: its tp ranks
+        (``parallel/sharding.RankGroup``) run every block together, each on
+        its home device; the embedders and the final layer are replicated.
+        Returns the output on the device of rank (d, 0, 0)."""
+        from opensora_torch.parallel.sharding import RankGroup
+
+        g = RankGroup(self.sharding, d)
+        inputs = (img, img_ids, txt, txt_ids, timesteps, y_vec, cond, guidance)
+        prep = g.rep(lambda t: self.prepare_block_inputs(*(None if x is None else x.to(g.devices[t]) for x in inputs)))
+        img, txt, vec, pe = ([p[i] for p in prep] for i in range(4))
+        for block in self.double_blocks:
+            img, txt = self._run_block(functools.partial(block.forward_tp, g), img, txt, vec, pe)
+        x = g.rep(lambda t: torch.cat([txt[t], img[t]], dim=1))
+        for block in self.single_blocks:
+            x = self._run_block(functools.partial(block.forward_tp, g), x, vec, pe)
+        n_txt = txt[0].shape[1]
+        return g.rep(lambda t: self.final_layer(x[t][:, n_txt:], vec[t]))[0]
 
 
 @MODELS.register_module("flux")

@@ -51,6 +51,8 @@ from opensora_torch.ops import _build
 from opensora_torch.ops import flash_attention as fa
 from opensora_torch.ops.flash_attention import LOG2E, NEG_INF
 from opensora_torch.parallel.comm import RingTransport, gather, shard
+from opensora_torch.parallel.context import sp_groups
+from opensora_torch.parallel.mesh import SP_AXIS
 
 LN2 = math.log(2.0)
 SOURCE = "ring_flash_attention"
@@ -367,8 +369,8 @@ class RingFlashAttentionFunction(torch.autograd.Function):
 
 
 def ring_devices(mesh, axis: str) -> Tuple[torch.device, ...]:
-    """The devices of the ring along ``axis`` (the group of rank 0: the
-    other axes hold replicas, as the JAX kernel's in_specs say)."""
+    """The devices of the ring along ``axis`` through rank 0 (the other
+    axes hold replicas, as the JAX kernel's in_specs say)."""
     return tuple(mesh.devices[r] for r in mesh.group(axis))
 
 
@@ -380,12 +382,27 @@ def ring_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh
     q, k, v: global (B, H, L, D) with L a multiple of the axis size. Returns
     (out (B, H, L, D) in q's dtype, lse (B, H, L) fp32, natural log).
     Differentiable in q, k, v. CUDA tensors run the ring kernels (bf16, head
-    dim 128) or raise; CPU tensors the plain hops."""
-    devices = ring_devices(mesh, axis)
+    dim 128) or raise; CPU tensors the plain hops. Over 'sp' each (data,
+    tp) coordinate runs its own ring on its rows and heads
+    (``parallel/context.sp_groups``)."""
+    if axis == SP_AXIS:
+        groups, rows, heads = sp_groups(mesh)
+    else:
+        groups, rows, heads = [list(ring_devices(mesh, axis))], 1, 1
+    if q.shape[0] % rows or q.shape[1] % heads:
+        raise ValueError(f"(B, H) = {tuple(q.shape[:2])} does not split over (data, tp) = ({rows}, {heads})")
+    devices = [d for g in groups for d in g]
     if any(d.type != q.device.type for d in devices):
         raise ValueError(f"the mesh's devices {sorted({str(d) for d in devices})} and q ({q.device}) differ in kind")
-    if q.shape[2] % len(devices) or k.shape[2] % len(devices):
-        raise ValueError(f"sequence lengths {q.shape[2]}, {k.shape[2]} do not split over {len(devices)} ranks")
+    n = len(groups[0])
+    if q.shape[2] % n or k.shape[2] % n:
+        raise ValueError(f"sequence lengths {q.shape[2]}, {k.shape[2]} do not split over {n} ranks")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    return RingFlashAttentionFunction.apply(q, k, v, devices, sm_scale, causal_block)
+    if len(groups) == 1:
+        return RingFlashAttentionFunction.apply(q, k, v, tuple(groups[0]), sm_scale, causal_block)
+    blocks = [[r.chunk(heads, 1) for r in x.chunk(rows, 0)] for x in (q, k, v)]
+    res = [RingFlashAttentionFunction.apply(*(b[d][t] for b in blocks), tuple(groups[d * heads + t]), sm_scale,
+                                            causal_block) for d in range(rows) for t in range(heads)]
+    return tuple(torch.cat([torch.cat([res[d * heads + t][i] for t in range(heads)], 1) for d in range(rows)], 0)
+                 for i in range(2))

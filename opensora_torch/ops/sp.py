@@ -1,8 +1,11 @@
 """Sequence parallelism over the 'sp' axis of a mesh: DeepSpeed-Ulysses
 all-to-all and ring attention (counterpart of opensora_tpu/ops/sp.py).
 
-Global q, k, v are (B, L, H, D); the batch splits over the 'data' axis and
-the sequence over 'sp' (the JAX package's P(data, sp)). The ranks are held
+Global q, k, v are (B, L, H, D); the batch splits over the 'data' axis, the
+heads over 'tp' and the sequence over 'sp' (the JAX package's P(data, sp)
+with the heads of each tp rank): each (data, tp) coordinate runs its own sp
+group (``parallel/context.sp_groups``; inside a sharded model's rank scope
+only that rank's group, on the rows and heads it holds). The ranks are held
 by this process (``parallel/mesh.py``), so ``all_to_all`` and ``ppermute``
 are moves between the ranks' shards (``parallel/comm.py``):
 
@@ -22,27 +25,34 @@ are moves between the ranks' shards (``parallel/comm.py``):
 from __future__ import annotations
 
 import math
-from typing import List, Optional
+from typing import Optional
 
 import torch
 
 from opensora_torch.ops.flash_attention import flash_attention_with_lse, partial_flash_backward
 from opensora_torch.parallel.comm import all_to_all, gather, ppermute, shard
-from opensora_torch.parallel.mesh import DATA_AXIS, SP_AXIS, TP_AXIS
+from opensora_torch.parallel.context import sp_groups
+from opensora_torch.parallel.mesh import SP_AXIS
 
 
-def _sp_groups(mesh) -> List[List[torch.device]]:
-    """The devices of each sp group, one per 'data' coordinate (tp replicas
-    are left to the TP slice: the group at tp = 0 computes)."""
-    tp = mesh.shape[TP_AXIS]
-    return [[mesh.devices[r] for r in mesh.group(SP_AXIS, d * mesh.shape[SP_AXIS] * tp)]
-            for d in range(mesh.shape[DATA_AXIS])]
+def _blocks(xs, rows: int, heads: int):
+    """Per (data, tp) piece, in row-major order: each of ``xs`` (B, L, H,
+    D) cut into ``rows`` pieces of rows, each cut into ``heads`` pieces of
+    heads."""
+    cut = [[r.chunk(heads, 2) for r in x.chunk(rows, 0)] for x in xs]
+    return [tuple(c[d][t] for c in cut) for d in range(rows) for t in range(heads)]
 
 
-def _check(q, mesh):
-    dp, sp = mesh.shape[DATA_AXIS], mesh.shape[SP_AXIS]
-    if q.shape[0] % dp or q.shape[1] % sp:
-        raise ValueError(f"(B, L) = {tuple(q.shape[:2])} does not split over (data, sp) = ({dp}, {sp})")
+def _join(outs, rows: int, heads: int) -> torch.Tensor:
+    """The inverse of :func:`_blocks` for (B, L, H, D) outputs."""
+    return torch.cat([torch.cat(outs[d * heads:(d + 1) * heads], 2) for d in range(rows)], 0)
+
+
+def _check(q, mesh, rows: int, heads: int):
+    sp = mesh.shape[SP_AXIS]
+    if q.shape[0] % rows or q.shape[1] % sp or q.shape[2] % heads:
+        raise ValueError(f"(B, L, H) = {tuple(q.shape[:3])} does not split over (data, sp, tp) = "
+                         f"({rows}, {sp}, {heads})")
 
 
 def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh,
@@ -52,11 +62,12 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh,
     from opensora_torch.ops.attention import scaled_dot_product_attention
 
     sp = mesh.shape[SP_AXIS]
-    if q.shape[2] % sp:
-        raise ValueError(f"sp size {sp} must divide heads {q.shape[2]}")
-    _check(q, mesh)
+    groups, rows, heads = sp_groups(mesh)
+    _check(q, mesh, rows, heads)
+    if (q.shape[2] // heads) % sp:
+        raise ValueError(f"sp size {sp} must divide heads {q.shape[2] // heads} (of {q.shape[2]} over tp {heads})")
     parts = []
-    for devices, qb, kb, vb in zip(_sp_groups(mesh), *(x.chunk(mesh.shape[DATA_AXIS], 0) for x in (q, k, v))):
+    for devices, (qb, kb, vb) in zip(groups, _blocks((q, k, v), rows, heads)):
         # (B, L/sp, H, D) -> (B, L, H/sp, D)
         qh, kh, vh = (all_to_all(shard(x, 1, devices), split_dim=2, concat_dim=1) for x in (qb, kb, vb))
         outs = [scaled_dot_product_attention(a.transpose(1, 2).contiguous(), b.transpose(1, 2).contiguous(),
@@ -64,7 +75,7 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh,
                 for a, b, c in zip(qh, kh, vh)]
         # (B, L, H/sp, D) -> (B, L/sp, H, D)
         parts.append(gather(all_to_all(outs, split_dim=1, concat_dim=2), 1, q.device))
-    return torch.cat(parts, 0)
+    return _join(parts, rows, heads)
 
 
 def _merge_partials(o1, lse1, o2, lse2):
@@ -151,9 +162,10 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh,
     around the 'sp' ring, partials merge by LSE rescaling (reference
     RingAttention, distributed.py:219-373). q, k, v: global (B, L, H, D).
     Differentiable (custom backward)."""
-    _check(q, mesh)
+    groups, rows, heads = sp_groups(mesh)
+    _check(q, mesh, rows, heads)
     parts = []
-    for devices, qb, kb, vb in zip(_sp_groups(mesh), *(x.chunk(mesh.shape[DATA_AXIS], 0) for x in (q, k, v))):
-        out = _RingAttention.apply(*(x.transpose(1, 2) for x in (qb, kb, vb)), tuple(devices), backend)
+    for devices, blk in zip(groups, _blocks((q, k, v), rows, heads)):
+        out = _RingAttention.apply(*(x.transpose(1, 2) for x in blk), tuple(devices), backend)
         parts.append(out.transpose(1, 2))
-    return torch.cat(parts, 0)
+    return _join(parts, rows, heads)

@@ -8,6 +8,10 @@ process, on the rank's device:
 
 - :func:`shard`, :func:`gather`, :func:`all_to_all` and :func:`ppermute`
   are copies between the ranks' tensors, differentiable by autograd;
+- :func:`all_reduce` (sum), :func:`all_gather` and :func:`reduce_scatter`
+  run over a group of ranks (``Mesh.group``), given the ranks' tensors in
+  group order; they too are differentiable, and ranks that share a device
+  share one result (a mesh of logical ranks on one card computes it once);
 - :class:`RingTransport` is the double-buffered ring of the in-kernel ring
   attention. Each rank has two slots per rotating buffer. The copy of a
   rank's slot ``cur`` into its right neighbour's slot ``nxt`` runs on the
@@ -44,6 +48,8 @@ def shard(x: torch.Tensor, dim: int, devices: Sequence[torch.device]) -> List[to
 
 
 def gather(parts: Sequence[torch.Tensor], dim: int, device: torch.device) -> torch.Tensor:
+    """The ranks' tensors concatenated along ``dim`` in rank order, on
+    ``device``: :func:`all_gather` for the one rank that reads it."""
     return torch.cat([p.to(device) for p in parts], dim)
 
 
@@ -60,6 +66,55 @@ def ppermute(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """The ring shift i -> i + 1: rank i receives rank i - 1's tensor."""
     n = len(parts)
     return [parts[(i - 1) % n].to(parts[i].device) for i in range(n)]
+
+
+def _per_device(parts: Sequence[torch.Tensor], fn) -> List[torch.Tensor]:
+    """``fn(device)`` for each rank's device, computed once per distinct
+    device: ranks that share a device share the result."""
+    done: Dict[torch.device, torch.Tensor] = {}
+    out = []
+    for p in parts:
+        if p.device not in done:
+            done[p.device] = fn(p.device)
+        out.append(done[p.device])
+    return out
+
+
+def all_reduce(parts: Sequence[torch.Tensor], dtype=None, bias=None) -> List[torch.Tensor]:
+    """The sum of the ranks' tensors, on every rank's device. The sum is
+    taken in fp32 and rounded once to ``dtype`` (default: the parts'), so
+    that tp partial products summed in bf16 do not drift from the
+    unsharded product; ``bias`` (per rank, replicated), where given, is
+    added once to the fp32 sum before that rounding (a row-parallel
+    product's bias). Differentiable: each part receives the gradient of the
+    sum."""
+    dtype = dtype or parts[0].dtype
+
+    def total(device):
+        s = sum(p.to(device).float() for p in parts)
+        if bias is not None:
+            s = s + bias[[p.device for p in parts].index(device)].float()
+        return s.to(dtype)
+
+    with torch.profiler.record_function("all_reduce"):  # a profile's span of the collective
+        return _per_device(parts, total)
+
+
+def all_gather(parts: Sequence[torch.Tensor], dim: int) -> List[torch.Tensor]:
+    """Every rank's tensor concatenated along ``dim`` in rank order, on
+    every rank's device. Its gradient is the reduce-scatter: each part
+    receives the sum over the ranks of its slice of their gradients."""
+    return _per_device(parts, lambda device: gather(parts, dim, device))
+
+
+def reduce_scatter(parts: Sequence[torch.Tensor], dim: int) -> List[torch.Tensor]:
+    """Rank i receives piece i (along ``dim``) of the sum of the ranks'
+    tensors, summed in fp32 and rounded once to their dtype."""
+    n = len(parts)
+    if parts[0].shape[dim] % n:
+        raise ValueError(f"dimension {dim} of {tuple(parts[0].shape)} does not split over {n} ranks")
+    pieces = [p.chunk(n, dim) for p in parts]
+    return [sum(pieces[j][i].to(parts[i].device).float() for j in range(n)).to(parts[i].dtype) for i in range(n)]
 
 
 _STREAMS: Dict[Tuple[int, int, str], torch.cuda.Stream] = {}

@@ -1,14 +1,29 @@
 """The process-wide mesh that model code reads to decide whether and how to
 run sequence-parallel attention (counterpart of
-opensora_tpu/parallel/context.py:17-48)."""
+opensora_tpu/parallel/context.py:17-48), and the rank scope of a sharded
+model's forward.
+
+One process holds every rank of the mesh (``parallel/mesh.py``). A model
+sharded by ``parallel/sharding.py`` runs its ranks one after another; while
+it runs the ranks at data coordinate d and tp coordinate t, the scope is
+(d, t): the sharded parameters then read that rank's shards, and the
+sequence-parallel attention runs over the sp group through (d, 0, t) on the
+rows and heads it is given. Outside a scope, the attention splits the rows
+over 'data' and the heads over 'tp' and runs each (d, t) group itself
+(:func:`sp_groups`).
+"""
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import List, Optional, Tuple
 
-from opensora_torch.parallel.mesh import SP_AXIS, Mesh
+import torch
+
+from opensora_torch.parallel.mesh import DATA_AXIS, SP_AXIS, TP_AXIS, Mesh
 
 _MESH: Optional[Mesh] = None
+_SCOPE: Optional[Tuple[int, int]] = None
 
 
 def set_mesh(mesh: Optional[Mesh]) -> None:
@@ -26,9 +41,47 @@ def axis_size(axis: str) -> int:
     return _MESH.shape.get(axis, 1)
 
 
+def dp_size() -> int:
+    return axis_size(DATA_AXIS)
+
+
 def sp_size() -> int:
     return axis_size(SP_AXIS)
 
 
+def tp_size() -> int:
+    return axis_size(TP_AXIS)
+
+
 def sp_enabled() -> bool:
     return sp_size() > 1
+
+
+@contextlib.contextmanager
+def rank_scope(data: int, tp: int):
+    """Run the ranks at (data, ·, tp): see the module docstring."""
+    global _SCOPE
+    outer, _SCOPE = _SCOPE, (data, tp)
+    try:
+        yield
+    finally:
+        _SCOPE = outer
+
+
+def get_scope() -> Optional[Tuple[int, int]]:
+    return _SCOPE
+
+
+def sp_groups(mesh: Mesh) -> Tuple[List[List[torch.device]], int, int]:
+    """The devices of the sp groups that an attention call runs over, and
+    the number of pieces its rows and its heads are cut into: inside a rank
+    scope (d, t) the one group through (d, 0, t), uncut; else the group of
+    every (d, t) in row-major order, rows cut over 'data' and heads over
+    'tp'."""
+    def devices(d: int, t: int) -> List[torch.device]:
+        return [mesh.devices[r] for r in mesh.group(SP_AXIS, mesh.rank((d, 0, t)))]
+
+    if _SCOPE is not None:
+        return [devices(*_SCOPE)], 1, 1
+    dp, tp = mesh.shape[DATA_AXIS], mesh.shape[TP_AXIS]
+    return [devices(d, t) for d in range(dp) for t in range(tp)], dp, tp

@@ -1,0 +1,102 @@
+"""Global batch placement over the ranks of a mesh (counterpart of
+opensora_tpu/parallel/data.py:21-76).
+
+JAX places a host batch as global arrays laid out over the mesh: rows on
+'data', the token dim of the token tensors on 'sp'. The counterpart here is
+:class:`Placed`: one global batch entry cut into one piece per rank, each
+on its rank's device, with the spec that cut it. A data rank reads its
+rows back with :meth:`Placed.rows` (tokens joined over its sp ranks: the
+sequence-parallel design computes outside the attention on the home
+device).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from opensora_torch.parallel.mesh import DATA_AXIS, SP_AXIS, Mesh
+from opensora_torch.parallel.sharding import constrain
+
+# batch entries whose dim 1 is the token axis (cut over 'sp')
+TOKEN_KEYS = frozenset({"x0", "img_ids", "txt", "txt_ids", "cond", "null_txt"})
+
+
+def row_slice(n_rows: int, dp: int, d: int) -> slice:
+    """The rows of data rank ``d`` of ``dp`` in a batch of ``n_rows``."""
+    per = n_rows // dp
+    return slice(d * per, (d + 1) * per)
+
+
+def batch_sharding(mesh: Mesh, key: str, shape) -> Tuple[Optional[str], ...]:
+    """The spec of one batch entry: rows on 'data'; the token dim on 'sp'
+    when the key is a token tensor and its length divides the sp axis
+    (``seq_align`` sees to it for the text; image tokens that do not divide
+    stay whole on every sp rank: correct, only less cut)."""
+    spec = (DATA_AXIS, SP_AXIS if key in TOKEN_KEYS else None, *[None] * (len(shape) - 2))[:len(shape)]
+    return (DATA_AXIS,) + constrain(shape, spec, mesh)[1:]
+
+
+@dataclass
+class Placed:
+    """A global tensor cut over ``mesh``: ``shards[r]`` is rank r's piece,
+    on its device."""
+
+    mesh: Mesh
+    spec: Tuple[Optional[str], ...]
+    shards: List[torch.Tensor]
+    shape: torch.Size
+
+    @property
+    def device(self) -> torch.device:
+        return self.shards[0].device
+
+    def rows(self, d: int) -> torch.Tensor:
+        """Data rank ``d``'s rows, whole along every other dim, on the
+        device of rank (d, 0, 0)."""
+        ranks = self.mesh.group(SP_AXIS, self.mesh.rank((d, 0, 0)))
+        home = self.mesh.devices[ranks[0]]
+        if SP_AXIS in self.spec:
+            return torch.cat([self.shards[r].to(home) for r in ranks], self.spec.index(SP_AXIS))
+        return self.shards[ranks[0]]
+
+    def full(self, device=None) -> torch.Tensor:
+        """The global tensor on ``device`` (default: rank 0's)."""
+        device = device or self.device
+        return torch.cat([self.rows(d).to(device) for d in range(self.mesh.shape[DATA_AXIS])], 0)
+
+
+def place(mesh: Mesh, key: str, x: torch.Tensor) -> Placed:
+    """``x`` cut by :func:`batch_sharding`, one piece per rank on its device."""
+    spec = batch_sharding(mesh, key, x.shape)
+    dp, sp = mesh.shape[DATA_AXIS], mesh.shape[SP_AXIS]
+    shards = []
+    for r, dev in enumerate(mesh.devices):
+        d, s, _ = mesh.coords(r)
+        piece = x[row_slice(x.shape[0], dp, d)]
+        if SP_AXIS in spec:
+            piece = piece.chunk(sp, 1)[s]
+        shards.append(piece.to(dev))
+    return Placed(mesh, spec, shards, x.shape)
+
+
+def make_global_batch(mesh: Mesh, batch: Dict[str, Optional[torch.Tensor]]) -> Dict[str, Optional[Placed]]:
+    """Place a batch dict on the mesh (None stays None). A batch whose rows
+    do not divide over 'data' raises, with the JAX package's message."""
+    dp = mesh.shape[DATA_AXIS]
+    out: Dict[str, Optional[Placed]] = {}
+    for key, val in batch.items():
+        if val is None:
+            out[key] = None
+            continue
+        val = torch.as_tensor(val)
+        if val.shape[0] % dp != 0:
+            raise ValueError(
+                f"global batch {val.shape[0]} (key {key!r}) not divisible by the "
+                f"mesh 'data' axis ({dp}); set each bucket's batch size to a "
+                f"multiple of dp (configs bucket_config) or shrink dp_size"
+            )
+        out[key] = place(mesh, key, val)
+    return out

@@ -51,6 +51,14 @@ class MeshConfig:
         return dp, sp, tp
 
 
+def _indexed(device: torch.device) -> torch.device:
+    """``cuda`` as ``cuda:<current>``: tensors name their device with its
+    index, and the mesh's devices are compared with theirs."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 class Mesh:
     """Axis sizes and the device of each rank (row-major over ``AXES``)."""
 
@@ -58,7 +66,7 @@ class Mesh:
         if len(sizes) != len(AXES) or math.prod(sizes) != len(devices):
             raise ValueError(f"mesh {tuple(sizes)} over {len(devices)} devices")
         self.shape: Dict[str, int] = dict(zip(AXES, (int(s) for s in sizes)))
-        self.devices: List[torch.device] = [torch.device(d) for d in devices]
+        self.devices: List[torch.device] = [_indexed(torch.device(d)) for d in devices]
 
     def coords(self, rank: int) -> Tuple[int, ...]:
         out = []
@@ -84,6 +92,11 @@ class Mesh:
             out.append(self.rank(coords))
         return out
 
+    def home(self, data: int, tp: int) -> torch.device:
+        """The device of rank (data, 0, tp): where the ranks at (data, ·,
+        tp) compute outside the sequence-parallel attention."""
+        return self.devices[self.rank((data, 0, tp))]
+
     def __repr__(self) -> str:
         names = sorted({str(d) for d in self.devices})
         return f"Mesh({self.shape}, {len(self.devices)} ranks on {', '.join(names)})"
@@ -101,6 +114,14 @@ def create_mesh(mesh_config: Union[MeshConfig, dict, None] = None,
     if not devices:
         raise RuntimeError("no devices for the mesh")
     return Mesh(mesh_config.resolve(len(devices)), devices)
+
+
+def local_batch_size(global_batch: int, mesh: Mesh) -> int:
+    """The rows of each data rank (opensora_tpu/parallel/mesh.py:94-97)."""
+    dp = mesh.shape[DATA_AXIS]
+    if global_batch % dp:
+        raise ValueError(f"global batch {global_batch} does not split over the mesh 'data' axis ({dp})")
+    return global_batch // dp
 
 
 def round_up(x: int, m: int) -> int:

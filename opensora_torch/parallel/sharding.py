@@ -1,0 +1,411 @@
+"""Parameter sharding rules (TP + FSDP) and the placement of a sharded
+MMDiT over the ranks of a mesh (counterpart of
+opensora_tpu/parallel/sharding.py:28-137).
+
+The rules are JAX's, over the port's upstream-named parameters, each JAX
+kernel axis mapped to its transposed torch dim (a torch weight is (out,
+in)):
+
+- column-parallel ``qkv``, ``linear1``, ``img_mlp.0``, ``txt_mlp.0``,
+  ``q_proj``, ``k_proj``, ``v_proj``, ``v_mlp``: output features (dim 0)
+  and the bias on 'tp';
+- row-parallel ``proj``, ``linear2``, ``img_mlp.2``, ``txt_mlp.2``: input
+  features (dim 1) on 'tp', the bias replicated;
+- with ``fsdp``, the other dim of those weights on 'data', and so the input
+  dim of the modulation, embedder and final-layer weights.
+
+JAX lays the 'tp' cut of a fused product out contiguously and lets GSPMD
+reshard after it. The port computes each tp rank's heads itself, so a
+fused output axis ([q | k | v] of ``qkv``, [q | k | v | mlp] of
+``linear1``, [v | mlp] of ``v_mlp``) and ``linear2``'s input axis ([attn |
+mlp]) are cut per segment: rank r holds rows r of each segment, as
+upstream's ColossalAI policy does. The rule table still names the axis.
+
+:func:`shard_params` turns a built model into per-rank shards: every
+parameter becomes a :class:`Placement` whose leaves (one per distinct shard
+and device: ranks on one device share one leaf) are the trained
+parameters, registered as ``<name>_shards``. The module keeps its name and
+reads, in place of the parameter, the shard of the rank whose scope is
+open (``parallel/context.rank_scope``): cast to the compute dtype first,
+then, where it is cut over 'data', gathered (FSDP; the gathered copy lives
+as long as the product that reads it). A row-parallel linear reads no bias:
+:func:`row_parallel` sums the ranks' partial products (fp32, rounded once)
+and adds the bias once. The ranks at data coordinate d compute on the
+device of rank (d, 0, t) (``Mesh.home``); sp ranks hold no shard of their
+own (the sequence-parallel design computes outside the attention on the
+home device).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import re
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+
+from opensora_torch.parallel.comm import all_reduce, gather
+from opensora_torch.parallel.context import get_mesh, get_scope, rank_scope
+from opensora_torch.parallel.mesh import DATA_AXIS, SP_AXIS, TP_AXIS, Mesh
+
+Spec = Tuple[Optional[str], ...]
+
+_COL = r"(qkv|linear1|img_mlp\.0|txt_mlp\.0|q_proj|k_proj|v_proj|v_mlp)"
+_ROW = r"(proj|linear2|img_mlp\.2|txt_mlp\.2)"
+
+
+def _mmdit_rules(fsdp: bool):
+    dp = DATA_AXIS if fsdp else None
+    return [
+        (rf".*{_COL}\.weight", (TP_AXIS, dp)),
+        (rf".*{_COL}\.bias", (TP_AXIS,)),
+        (rf".*{_ROW}\.weight", (dp, TP_AXIS)),
+        (rf".*{_ROW}\.bias", (None,)),
+        # modulation / embedders / final layer: replicated over tp, the
+        # input dim on 'data' under FSDP
+        (r".*(mod|modulation|adaLN_modulation\.1|lin)\.weight", (None, dp)),
+        (r".*(img_in|txt_in|cond_in|in_layer|out_layer|linear)\.weight", (None, dp)),
+    ]
+
+
+def mmdit_param_specs(state_dict_or_model, fsdp: bool = True) -> Dict[str, Spec]:
+    """The spec of each parameter (by state-dict name): per torch dim the
+    mesh axis it is cut over, or None."""
+    if isinstance(state_dict_or_model, nn.Module):
+        shapes = {n: p.shape for n, p in state_dict_or_model.named_parameters()}
+    else:
+        shapes = {n: getattr(v, "shape", v) for n, v in state_dict_or_model.items()}
+    rules = _mmdit_rules(fsdp)
+    out = {}
+    for name, shape in shapes.items():
+        spec: Spec = (None,) * len(shape)
+        for pattern, rule in rules:
+            if re.fullmatch(pattern, name):
+                spec = tuple(rule[len(rule) - len(shape):]) if len(rule) >= len(shape) else spec
+                break
+        out[name] = spec
+    return out
+
+
+def tp_segments(name: str, shape, config) -> Optional[List[int]]:
+    """The segments of a fused axis that 'tp' cuts one by one (see the
+    module docstring), or None for one contiguous cut."""
+    if config is None:
+        return None
+    h = config.hidden_size
+    leaf = name.rsplit(".", 2)[-2]
+    if leaf == "qkv":
+        return [h, h, h]
+    if leaf == "linear1":
+        return [h, h, h, shape[0] - 3 * h]
+    if leaf == "v_mlp":
+        return [h, shape[0] - h]
+    if leaf == "linear2" and name.endswith(".weight"):
+        return [h, shape[1] - h]
+    return None
+
+
+def _tp_cut(x: torch.Tensor, dim: int, j: int, tp: int, segments) -> torch.Tensor:
+    segs = x.split(segments, dim) if segments else (x,)
+    return torch.cat([s.chunk(tp, dim)[j] for s in segs], dim) if len(segs) > 1 else segs[0].chunk(tp, dim)[j]
+
+
+def _tp_join(locals_: Sequence[torch.Tensor], dim: int, segments) -> torch.Tensor:
+    if not segments:
+        return torch.cat(list(locals_), dim)
+    tp = len(locals_)
+    parts = [x.split([s // tp for s in segments], dim) for x in locals_]
+    return torch.cat([torch.cat([p[s] for p in parts], dim) for s in range(len(segments))], dim)
+
+
+def _own(x: torch.Tensor, device) -> torch.Tensor:
+    """A contiguous copy of ``x`` on ``device`` that shares no storage."""
+    out = torch.empty(x.shape, dtype=x.dtype, device=device)
+    out.copy_(x)
+    return out
+
+
+class Placement:
+    """One parameter cut over the mesh: ``keys`` lists (data index, tp
+    index, device) of each leaf, one per distinct shard and device of the
+    ranks (d, 0, t); ``leaves`` (set by :func:`shard_params`) holds them."""
+
+    def __init__(self, name: str, shape, spec: Spec, segments, sharding: "ModelSharding"):
+        self.name, self.shape, self.spec, self.segments = name, tuple(shape), spec, segments
+        self.sharding = sharding
+        self.data_dim = spec.index(DATA_AXIS) if DATA_AXIS in spec else None
+        self.tp_dim = spec.index(TP_AXIS) if TP_AXIS in spec else None
+        # ``q_proj.bias`` also ends in "proj.bias": the column rule comes first, as in the table
+        self.row_bias = bool(re.fullmatch(rf".*{_ROW}\.bias", name)) and not re.fullmatch(rf".*{_COL}\.bias", name)
+        mesh = sharding.mesh
+        self.keys: List[Tuple[int, int, torch.device]] = []
+        for d in range(sharding.dp):
+            for t in range(sharding.tp):
+                key = (d if self.data_dim is not None else 0, t if self.tp_dim is not None else 0, mesh.home(d, t))
+                if key not in self.keys:
+                    self.keys.append(key)
+        self.index = {k: i for i, k in enumerate(self.keys)}
+        self.leaves: Optional[nn.ParameterList] = None
+
+    def piece(self, full: torch.Tensor, i: int, j: int) -> torch.Tensor:
+        """Shard (i, j) of a tensor of the full shape (a view where it can be)."""
+        x = full
+        if self.tp_dim is not None:
+            x = _tp_cut(x, self.tp_dim, j, self.sharding.tp, self.segments)
+        if self.data_dim is not None:
+            x = x.chunk(self.sharding.dp, self.data_dim)[i]
+        return x
+
+    def shard(self, full: torch.Tensor) -> List[torch.Tensor]:
+        """One tensor per key: the key's shard of ``full`` on its device,
+        owning its memory (``full`` itself where the key holds all of it on
+        its device)."""
+        out = []
+        for i, j, dev in self.keys:
+            x = self.piece(full, i, j)
+            out.append(full if x.shape == full.shape and full.device == dev else _own(x, dev))
+        return out
+
+    def canonical(self) -> List[int]:
+        """The index of one leaf per distinct shard (i, j)."""
+        seen: Dict[Tuple[int, int], int] = {}
+        for n, (i, j, _) in enumerate(self.keys):
+            seen.setdefault((i, j), n)
+        return list(seen.values())
+
+    def gather(self, tensors: Sequence[torch.Tensor], device=None) -> torch.Tensor:
+        """The full tensor from one tensor per key (the leaves, or their
+        gradients or optimizer moments), on ``device`` (default: the first's)."""
+        device = device or tensors[0].device
+        by_shard = {self.keys[n][:2]: tensors[n].to(device) for n in self.canonical()}
+        n_i = self.sharding.dp if self.data_dim is not None else 1
+        n_j = self.sharding.tp if self.tp_dim is not None else 1
+        locals_ = [torch.cat([by_shard[(i, j)] for i in range(n_i)], self.data_dim) if self.data_dim is not None
+                   else by_shard[(0, j)] for j in range(n_j)]
+        return _tp_join(locals_, self.tp_dim, self.segments) if self.tp_dim is not None else locals_[0]
+
+    def local(self, d: int, t: int, dtype) -> torch.Tensor:
+        """What rank (d, 0, t) computes with: its tp shard, cast to
+        ``dtype``, then gathered over 'data' (FSDP) on its device."""
+        dev = self.sharding.mesh.home(d, t)
+        j = t if self.tp_dim is not None else 0
+        if self.data_dim is None:
+            return self.leaves[self.index[(0, j, dev)]].to(dtype)
+        mesh = self.sharding.mesh
+        parts = [self.leaves[self.index[(i, j, mesh.home(i, t))]].to(dtype) for i in range(self.sharding.dp)]
+        # the FSDP all-gather for the one rank that reads it; its gradient
+        # is the reduce-scatter: each shard receives the sum of the data
+        # ranks' gradients of its slice
+        return gather(parts, self.data_dim, dev)
+
+    def current(self) -> Optional[torch.Tensor]:
+        scope = get_scope()
+        if scope is None:
+            raise RuntimeError(f"{self.name} is sharded over {self.sharding.mesh}: read it inside a rank scope")
+        return None if self.row_bias else self.local(*scope, self.sharding.dtype)
+
+
+class ModelSharding:
+    """The placements of a sharded model's parameters (by unsharded name,
+    in the model's order) over ``mesh``; ``dtype`` is the compute dtype."""
+
+    def __init__(self, mesh: Mesh, dtype: torch.dtype):
+        self.mesh, self.dtype = mesh, dtype
+        self.dp, self.tp = mesh.shape[DATA_AXIS], mesh.shape[TP_AXIS]
+        self.placements: Dict[str, Placement] = {}
+
+    def leaf_names(self) -> Dict[str, List[str]]:
+        """Per unsharded name, the state-dict names of its leaves."""
+        out = {}
+        for name, pl in self.placements.items():
+            mod, _, leaf = name.rpartition(".")
+            prefix = f"{mod}.{leaf}_shards" if mod else f"{leaf}_shards"
+            out[name] = [f"{prefix}.{i}" for i in range(len(pl.keys))]
+        return out
+
+    def replicas(self) -> List[List[nn.Parameter]]:
+        """The leaves that hold one shard on several devices, grouped."""
+        groups = []
+        for pl in self.placements.values():
+            by_shard: Dict[Tuple[int, int], List[nn.Parameter]] = {}
+            for n, (i, j, _) in enumerate(pl.keys):
+                by_shard.setdefault((i, j), []).append(pl.leaves[n])
+            groups += [g for g in by_shard.values() if len(g) > 1]
+        return groups
+
+    def non_canonical(self) -> set:
+        """The ids of the leaves that repeat a shard another leaf holds."""
+        keep = {id(pl.leaves[n]) for pl in self.placements.values() for n in pl.canonical()}
+        return {id(p) for pl in self.placements.values() for p in pl.leaves if id(p) not in keep}
+
+    @torch.no_grad()
+    def sync_replica_grads(self) -> None:
+        """Replicas on different devices each received their ranks' part
+        of the gradient: every replica gets the sum (the DP all-reduce)."""
+        for group in self.replicas():
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in group]
+            for p, g in zip(group, all_reduce(grads)):
+                p.grad = g
+
+
+class RankGroup:
+    """The tp ranks at one data coordinate of a sharded model, each on its
+    home device; ``at(t)`` opens rank t's scope."""
+
+    def __init__(self, sharding: ModelSharding, data: int):
+        self.sharding, self.data, self.tp = sharding, data, sharding.tp
+        self.devices = [sharding.mesh.home(data, t) for t in range(self.tp)]
+
+    @contextlib.contextmanager
+    def at(self, t: int):
+        with rank_scope(self.data, t):
+            yield
+
+    def each(self, fn: Callable[[int], object]) -> list:
+        """``fn(t)`` in each tp rank's scope."""
+        out = []
+        for t in range(self.tp):
+            with self.at(t):
+                out.append(fn(t))
+        return out
+
+    def rep(self, fn: Callable[[int], object]) -> list:
+        """A replicated computation: ``fn(t)`` once per distinct device, in
+        the scope of its first rank, shared by the ranks on that device."""
+        done: Dict[torch.device, object] = {}
+        out = []
+        for t, dev in enumerate(self.devices):
+            if dev not in done:
+                with self.at(t):
+                    done[dev] = fn(t)
+            out.append(done[dev])
+        return out
+
+    def row(self, linear: nn.Module, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """A row-parallel product: each rank's partial, then
+        :func:`row_parallel`."""
+        return row_parallel(linear, self.each(lambda t: linear(xs[t])), self)
+
+
+class OneRank:
+    """The one-rank form of :class:`RankGroup`, for an unsharded model: each
+    function runs once, and a row-parallel product is the linear itself,
+    its bias included."""
+
+    tp = 1
+
+    @staticmethod
+    def each(fn: Callable[[int], object]) -> list:
+        return [fn(0)]
+
+    rep = each
+
+    @staticmethod
+    def row(linear: nn.Module, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        return [linear(xs[0])]
+
+
+ONE_RANK = OneRank()
+
+
+def row_parallel(linear: nn.Module, partials: Sequence[torch.Tensor], group: RankGroup) -> List[torch.Tensor]:
+    """The all-reduce of the tp ranks' partial products, summed in fp32 and
+    rounded once, with the row bias added once to the sum."""
+    bias = getattr(linear, "_placements", {}).get("bias")
+    b = None if bias is None else [bias.local(group.data, t, partials[t].dtype) for t in range(group.tp)]
+    return all_reduce(partials, bias=b)
+
+
+_SHARDED_CLASSES: Dict[Tuple[type, Tuple[str, ...]], type] = {}
+
+
+def _sharded_class(cls: type, names: Tuple[str, ...]) -> type:
+    """``cls`` with each of ``names`` read from its placement."""
+    key = (cls, names)
+    if key not in _SHARDED_CLASSES:
+        def reader(n):
+            return property(lambda self: self._placements[n].current())
+
+        _SHARDED_CLASSES[key] = type(f"Sharded{cls.__name__}", (cls,), {n: reader(n) for n in names})
+    return _SHARDED_CLASSES[key]
+
+
+def _check_tp(model: nn.Module, mesh: Mesh) -> None:
+    tp, sp = mesh.shape[TP_AXIS], mesh.shape[SP_AXIS]
+    config = getattr(model, "config", None)
+    if config is None or tp == 1:
+        return
+    mlp = int(config.hidden_size * config.mlp_ratio)
+    if config.num_heads % tp or mlp % tp:
+        raise ValueError(f"tp {tp} must divide the heads ({config.num_heads}) and the MLP width ({mlp}); "
+                         f"(tp, sp) = ({tp}, {sp})")
+    if config.quantized:
+        raise NotImplementedError("int8 (a quantized MMDiT) under tp > 1 is not ported: ROADMAP Queue 1 item 1 "
+                                  "(f), int8 under TP")
+
+
+def mesh_spec(spec: Spec, shape, mesh: Mesh) -> Spec:
+    """The spec a parameter of ``shape`` takes on ``mesh``: a 'data' dim
+    stays whole where the axis has one rank or does not divide it ('tp'
+    must divide what it cuts: ``shard_params`` raises)."""
+    dp = mesh.shape[DATA_AXIS]
+    return tuple(a if a != DATA_AXIS or (dp > 1 and shape[i] % dp == 0) else None for i, a in enumerate(spec))
+
+
+def shard_params(mesh: Mesh, model: nn.Module, fsdp: bool = True, specs: Optional[Dict[str, Spec]] = None
+                 ) -> nn.Module:
+    """Cut ``model``'s parameters into per-rank shards on the ranks'
+    devices, in place: each parameter is replaced by its leaves as they are
+    made, so its unsharded copy is freed before the next one is cut. Sets
+    ``model.sharding`` (a :class:`ModelSharding`); its forward then runs
+    over the mesh. ``specs`` (by name, on this mesh; a train state's come
+    from ``training/diffusion.state_shardings``) default to the rules
+    through :func:`mesh_spec`: an axis whose size does not divide a 'data'
+    dim, or a mesh of one data rank, leaves that dim replicated
+    (``constrain``'s rule); 'tp' must divide what it cuts."""
+    _check_tp(model, mesh)
+    config = getattr(model, "config", None)
+    dtype = getattr(model, "compute_dtype", None) or next(model.parameters()).dtype
+    sharding = ModelSharding(mesh, dtype)
+    rules = mmdit_param_specs(model, fsdp)
+    specs = dict(specs or {})
+    for name, p in model.named_parameters():
+        specs.setdefault(name, mesh_spec(rules[name], p.shape, mesh))
+    for mod_name, module in list(model.named_modules()):
+        names = tuple(n for n, p in module._parameters.items() if p is not None)
+        if not names:
+            continue
+        module._placements = {}
+        for pn in names:
+            full = f"{mod_name}.{pn}" if mod_name else pn
+            p = module._parameters.pop(pn)
+            spec = specs[full]
+            pl = Placement(full, p.shape, spec, tp_segments(full, p.shape, config) if TP_AXIS in spec else None,
+                           sharding)
+            if pl.tp_dim is not None and p.shape[pl.tp_dim] % sharding.tp:
+                raise ValueError(f"{full} {tuple(p.shape)}: dim {pl.tp_dim} does not split over tp {sharding.tp}")
+            requires_grad = p.requires_grad
+            tensors = pl.shard(p.data)
+            del p
+            pl.leaves = nn.ParameterList([nn.Parameter(x, requires_grad=requires_grad) for x in tensors])
+            setattr(module, f"{pn}_shards", pl.leaves)
+            module._placements[pn] = pl
+            sharding.placements[full] = pl
+        module.__class__ = _sharded_class(type(module), names)
+    if hasattr(model, "compute_dtype") and model.compute_dtype is None:
+        model.compute_dtype = dtype
+    model.sharding = sharding
+    return model
+
+
+def constrain(shape, spec: Spec, mesh: Optional[Mesh] = None) -> Spec:
+    """The spec a tensor of ``shape`` takes on the mesh (default: the
+    process's): an axis the mesh lacks, or whose size does not divide its
+    dim, degrades to None (replicated), as the JAX package's ``constrain``
+    does (the reference's degenerate-split guard)."""
+    mesh = mesh or get_mesh()
+    if mesh is None:
+        return (None,) * len(shape)
+    return tuple(a if a is not None and a in mesh.shape and dim % mesh.shape[a] == 0 else None
+                 for a, dim in zip(spec, shape))

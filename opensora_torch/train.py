@@ -19,8 +19,11 @@ steps in ``profile = dict(start=, end=)`` under ``<exp_dir>/profile``.
 :meth:`Trainer.run_batch` is the body of one iteration -- encode the video,
 build the visual condition, encode the text, take the step -- and is what
 ``chip_smoke.py`` drives on the card. Runs on cuda unless ``--device``
-names another device. Meshes, pipeline parallelism and multi-host runs
-are not ported (one device).
+names another device. The config's ``mesh`` is built over the host's
+cards where there are several (:func:`train_mesh`): data and tensor
+parallelism with FSDP (``parallel/sharding.py``, ``parallel/data.py``) and
+sequence parallelism over them; pipeline parallelism and multi-host runs
+are not ported.
 """
 
 from __future__ import annotations
@@ -45,17 +48,34 @@ def fit_null_txt(null_txt: torch.Tensor, txt_len: int) -> torch.Tensor:
     return torch.cat([null_txt, pad], dim=1)
 
 
+def train_mesh(cfg, device):
+    """The config's ``mesh`` over the host's cards, or None where there is
+    one (as ``inference.inference_mesh``): stage1.py's ``dp_size=-1`` and
+    stage2.py's ``sp_size=4`` then train on one card without a mesh."""
+    from opensora_torch.inference import inference_mesh
+
+    return inference_mesh(cfg, device)
+
+
 class Trainer:
     """Models, train state and the per-batch body of the training loop.
     ``mesh`` (``opensora_torch.parallel.mesh``) becomes the process's mesh,
     as the JAX train script sets its mesh, so that a model whose
     ``attn_backend`` is sequence-parallel ("ring_rdma", "ring", "ulysses")
-    runs its attention over the mesh's 'sp' ranks. The parameters, the
-    optimizer state and the batch stay whole on ``device``: FSDP, data
-    sharding and PP wait for the multi-GPU slice."""
+    runs its attention over the mesh's 'sp' ranks. Where the mesh has a
+    'data' or a 'tp' axis, the MMDiT's parameters are sharded by the TP +
+    FSDP rules (``fsdp=True``, as JAX's scripts/diffusion/train.py:167-168
+    does; ``parallel/sharding.shard_params``) once the models are built
+    (until then the whole MMDiT lies on ``device``), each full weight freed
+    as its shards are made; the optimizer and the EMA are then made over
+    the shards, so no full copy of them exists. Each batch
+    is placed over the mesh (``parallel/data.make_global_batch``) before
+    the step. A LoRA run does not shard (ROADMAP)."""
 
     def __init__(self, cfg, device=None, mesh=None):
         from opensora_torch.parallel.context import set_mesh
+        from opensora_torch.parallel.mesh import DATA_AXIS, TP_AXIS
+        from opensora_torch.parallel.sharding import shard_params
         from opensora_torch.training.diffusion import TrainState, make_train_step
         from opensora_torch.training.lora import apply_lora, count_lora_params
         from opensora_torch.utils.api import prepare_models
@@ -97,6 +117,13 @@ class Trainer:
             self.logger.info("full finetune: %s parameters, computing in %s",
                              next(self.model.parameters()).dtype, self.model.dtype)
 
+        self.mesh = mesh if mesh is not None and mesh.shape[DATA_AXIS] * mesh.shape[TP_AXIS] > 1 else None
+        if self.mesh is not None:
+            if lora_cfg:
+                raise NotImplementedError("LoRA over a 'data' or 'tp' mesh axis is not ported (ROADMAP Queue 1 "
+                                          "item 1 (g))")
+            shard_params(self.mesh, self.model, fsdp=True)
+            self.logger.info("MMDiT sharded over %s (TP + FSDP)", self.mesh)
         optimizer = create_optimizer(
             [p for p in self.model.parameters() if p.requires_grad],
             lr=cfg.get("lr", 1e-4), weight_decay=cfg.get("weight_decay", 0.0), eps=cfg.get("adam_eps", 1e-8),
@@ -122,6 +149,7 @@ class Trainer:
         [-1, 1] and ``text``, or, with ``cached_video``, ``video_latents``,
         ``text_t5`` and ``text_clip``. Returns the step's metrics (0-d
         tensors on the device)."""
+        from opensora_torch.parallel.data import make_global_batch
         from opensora_torch.training.diffusion import compute_shift_alpha
         from opensora_torch.utils.sampling import pack, prepare, prepare_ids
         from opensora_torch.utils.train import build_visual_condition, choose_mask_conditions
@@ -158,6 +186,8 @@ class Trainer:
             null_txt=fit_null_txt(self.null_txt, inp["txt"].shape[1]).expand_as(inp["txt"]).to(inp["txt"].dtype),
             null_vec=self.null_vec.expand_as(inp["y_vec"]).to(inp["y_vec"].dtype),
         )
+        if self.mesh is not None:
+            tb = make_global_batch(self.mesh, tb)
         with self.timers("step"):
             return self.train_step(self.state, tb, self.gen)
 
@@ -218,9 +248,9 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
     argv = list(sys.argv[1:] if argv is None else argv)
     device = _pop_flag(argv, ("--device",))
     cfg = parse_configs(argv)
-    for unported in ("pipeline", "multi_host"):
+    for unported, item in (("pipeline", "(c)"), ("multi_host", "(e)")):
         if cfg.get(unported):
-            raise NotImplementedError(f"{unported}: the port trains on one device (multi-GPU slice, ROADMAP)")
+            raise NotImplementedError(f"{unported}: not ported (ROADMAP Queue 1 item 1 {item})")
     exp_dir = create_experiment_workspace(cfg)
     logger = create_logger(exp_dir)
     logger.info("experiment dir: %s", exp_dir)
@@ -229,7 +259,7 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
     dataloader, sampler = prepare_dataloader(
         dataset, batch_size=cfg.get("batch_size"), bucket_config=cfg.get("bucket_config"), seed=cfg.get("seed", 42),
     )
-    trainer = Trainer(cfg, device)
+    trainer = Trainer(cfg, device, mesh=train_mesh(cfg, device or "cuda"))
     ckpt_io = CheckpointIO()
     start_epoch = start_step = global_step = 0
     if cfg.get("load"):

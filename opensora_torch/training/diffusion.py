@@ -11,17 +11,33 @@ lets a test feed the JAX package's ``jax.random`` draws.
 
 Under LoRA (``training/lora.py``) the trained parameters are the factors
 only; the step is the same.
+
+Over a mesh (``parallel/``): :func:`shard_state` cuts the model, the
+optimizer's moments and the EMA by the TP + FSDP rules
+(``parallel/sharding.py``; the counterparts of JAX's ``state_shardings``,
+``match_opt_shardings`` and ``shard_state``), and the step of a sharded
+model places the batch (``parallel/data.make_global_batch``), draws t, x1
+and the dropout choices over the global batch, runs each data rank's
+forward and backward on its rows (the loss is the mean over the global
+batch: the mean of the data ranks' means), sums the gradients of a shard's
+replicas on other devices, and takes the norm over each shard once; AdamW
+and the EMA run on the shards. A state dict is always in the unsharded
+layout (gathered on the host), so a checkpoint crosses between sharded and
+unsharded runs both ways.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
+from opensora_torch.parallel.data import Placed, make_global_batch, row_slice
+from opensora_torch.parallel.sharding import ModelSharding, mesh_spec, mmdit_param_specs, shard_params
 from opensora_torch.utils.optimizer import Optimizer, global_norm
 from opensora_torch.utils.sampling import get_res_lin_function, time_shift
 from opensora_torch.utils.train import (
@@ -36,20 +52,39 @@ from opensora_torch.utils.train import (
 @dataclass
 class TrainState:
     """The trained parameters (by state-dict name), their optimizer, an
-    optional fp32 EMA of them, and the count of steps taken."""
+    optional fp32 EMA of them, and the count of steps taken. ``sharding``
+    is the model's where its parameters are cut over a mesh: ``params``
+    then holds the shards."""
 
     params: Dict[str, nn.Parameter]
     optimizer: Optimizer
     ema: Optional[Dict[str, torch.Tensor]] = None
     step: int = 0
+    sharding: Optional[ModelSharding] = None
 
     @classmethod
     def create(cls, model: nn.Module, optimizer: Optimizer, ema: bool = True) -> "TrainState":
+        """The state of ``model``'s trained parameters; of a sharded model,
+        its shards (the EMA made from them, and the shards that repeat
+        another on a second device left out of the clip's norm)."""
         params = {n: p for n, p in model.named_parameters() if p.requires_grad}
         ema_params = {n: p.detach().float().clone() for n, p in params.items()} if ema else None
-        return cls(params=params, optimizer=optimizer, ema=ema_params)
+        sharding = getattr(model, "sharding", None)
+        if sharding is not None:
+            optimizer.replica_ids = sharding.non_canonical()
+        return cls(params=params, optimizer=optimizer, ema=ema_params, sharding=sharding)
+
+    def _layout(self) -> List[Tuple[str, object, List[int]]]:
+        """Per trained unsharded parameter: its name, placement and the
+        positions of its shards in ``params`` (the optimizer's order)."""
+        pos = {n: i for i, n in enumerate(self.params)}
+        names = self.sharding.leaf_names()
+        return [(name, pl, [pos[n] for n in names[name]]) for name, pl in self.sharding.placements.items()
+                if names[name][0] in pos]
 
     def state_dict(self) -> dict:
+        if self.sharding is not None:
+            return self._gathered_state_dict()
         return dict(
             step=self.step,
             params={n: p.detach() for n, p in self.params.items()},
@@ -59,6 +94,8 @@ class TrainState:
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
+        if self.sharding is not None:
+            state = self._sharded(state)
         self.step = state["step"]
         for n, p in self.params.items():
             p.copy_(state["params"][n])
@@ -66,6 +103,113 @@ class TrainState:
         if self.ema is not None:
             for n, e in self.ema.items():
                 e.copy_(state["ema"][n])
+
+    @torch.no_grad()
+    def _gathered_state_dict(self) -> dict:
+        """The unsharded layout, each tensor gathered on the host."""
+        layout, leaves = self._layout(), list(self.params)
+
+        def gather(per_leaf):
+            return {name: pl.gather([per_leaf[leaves[j]] for j in idx], "cpu") for name, pl, idx in layout}
+
+        opt = self.optimizer.state_dict()
+        adam, acc = opt["adamw"], opt["acc"]
+        moments = {i: dict(step=adam["state"][idx[0]]["step"].cpu(),
+                           **{k: pl.gather([adam["state"][j][k] for j in idx], "cpu")
+                              for k in ("exp_avg", "exp_avg_sq")})
+                   for i, (_, pl, idx) in enumerate(layout) if idx[0] in adam["state"]}
+        groups = [dict(g, params=list(range(len(layout)))) for g in adam["param_groups"]]
+        return dict(
+            step=self.step,
+            params=gather({n: p.detach() for n, p in self.params.items()}),
+            optimizer=dict(opt, adamw=dict(state=moments, param_groups=groups),
+                           acc=None if acc is None else [pl.gather([acc[j] for j in idx], "cpu")
+                                                         for _, pl, idx in layout]),
+            ema=None if self.ema is None else gather(self.ema),
+        )
+
+    def _sharded(self, state: dict) -> dict:
+        """An unsharded-layout state dict cut into this state's shards."""
+        layout, leaves = self._layout(), list(self.params)
+
+        def cut(full):
+            return {leaves[j]: x for name, pl, idx in layout for j, x in zip(idx, pl.shard(full[name]))}
+
+        return dict(step=state["step"], params=cut(state["params"]),
+                    optimizer=self._sharded_optimizer(state["optimizer"]),
+                    ema=None if self.ema is None else cut(state["ema"]))
+
+    def _sharded_optimizer(self, opt: dict, consume: bool = False) -> dict:
+        """The optimizer's unsharded-layout state dict cut into shards: each
+        moment (and accumulated gradient) as its parameter is cut, since
+        ``match_opt_shardings`` gives a moment its parameter's spec. With
+        ``consume``, each full moment leaves ``opt`` as it is cut."""
+        layout, n_leaves = self._layout(), len(self.params)
+        adam, moments, acc = opt["adamw"], {}, [None] * n_leaves
+        for i, (_, pl, idx) in enumerate(layout):
+            if i in adam["state"]:
+                st = adam["state"].pop(i) if consume else adam["state"][i]
+                cut = {k: pl.shard(st[k]) for k in ("exp_avg", "exp_avg_sq")}
+                for n, j in enumerate(idx):
+                    moments[j] = dict(step=st["step"], exp_avg=cut["exp_avg"][n], exp_avg_sq=cut["exp_avg_sq"][n])
+            if opt["acc"] is not None:
+                for j, x in zip(idx, pl.shard(opt["acc"][i])):
+                    acc[j] = x
+                if consume:
+                    opt["acc"][i] = None
+        groups = [dict(g, params=list(range(n_leaves))) for g in adam["param_groups"]]
+        return dict(opt, adamw=dict(state=moments, param_groups=groups), acc=None if opt["acc"] is None else acc)
+
+
+def state_shardings(mesh, state: TrainState, fsdp: bool = True) -> dict:
+    """The spec of each entry of an unsharded train state on ``mesh``: the
+    parameters' by the rules (``parallel/sharding.mesh_spec``), the EMA's
+    and the optimizer moments' the same (matched by
+    :func:`match_opt_shardings`), the step replicated."""
+    pspecs = {n: mesh_spec(s, state.params[n].shape, mesh)
+              for n, s in mmdit_param_specs(state.params, fsdp=fsdp).items()}
+    return dict(step=(), params=pspecs, ema=pspecs if state.ema is not None else None,
+                optimizer=match_opt_shardings(state.params, pspecs, state.optimizer.state_dict()))
+
+
+def match_opt_shardings(params: Dict[str, torch.Tensor], pspecs: dict, opt_state: dict) -> dict:
+    """The spec of each optimizer-state entry: AdamW keeps its moments by
+    the position of their parameter, so moment i takes parameter i's spec
+    where the shapes agree (the JAX package matches by tree path, with the
+    same shape check); anything else is replicated."""
+    names = list(params)
+    out = {}
+    for i, st in opt_state["adamw"]["state"].items():
+        out[i] = {k: (pspecs[names[i]] if hasattr(v, "shape") and tuple(v.shape) == tuple(params[names[i]].shape)
+                      else (None,) * getattr(v, "ndim", 0)) for k, v in st.items()}
+    return out
+
+
+def shard_state(mesh, state: TrainState, model: nn.Module, fsdp: bool = True) -> TrainState:
+    """``state`` (of the unsharded ``model``) cut by :func:`state_shardings`:
+    the model's parameters into shards (``parallel/sharding.shard_params``,
+    in place), a new optimizer over the shards with the same settings and
+    the moments cut to match, the EMA cut tensor by tensor. Each full
+    parameter, moment and EMA tensor is freed as its shards are made."""
+    specs = state_shardings(mesh, state, fsdp)["params"]
+    old, ema = state.optimizer, state.ema
+    opt = old.state_dict()
+    old.params.clear()  # the unsharded parameters are freed as they are cut
+    old.adamw.param_groups.clear()
+    old.adamw.state.clear()
+    state.params = state.ema = None
+    shard_params(mesh, model, fsdp=fsdp, specs=specs)
+    sharded = TrainState.create(model, old.like([p for p in model.parameters() if p.requires_grad]), ema=False)
+    sharded.step = state.step
+    layout, leaves = sharded._layout(), list(sharded.params)
+    if ema is not None:
+        sharded.ema = {}
+        for name, pl, idx in layout:
+            for j, x in zip(idx, pl.shard(ema.pop(name))):
+                sharded.ema[leaves[j]] = x
+    if opt["adamw"]["state"] or opt["acc"] is not None:
+        sharded.optimizer.load_state_dict(sharded._sharded_optimizer(opt, consume=True))
+    return sharded
 
 
 def draw_step(batch: Dict, text_dropout_prob: float, generator: Optional[torch.Generator] = None) -> Dict:
@@ -131,14 +275,21 @@ def make_train_step(
     txt_ids, y_vec; cond (B, L, C + p^2) or None; masks (B, 1, T, H, W) or
     None; shift_alpha (B,); guidance (B,) or None; null_txt, null_vec."""
 
+    loss_kw = dict(sigma_min=sigma_min, use_masked_loss=use_masked_loss, patch_size=patch_size)
+
     def train_step(state: TrainState, batch: Dict, generator: Optional[torch.Generator] = None,
                    draws: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
-        if draws is None:
-            draws = draw_step(batch, text_dropout_prob, generator)
-        loss = compute_loss(model, batch, sigma_min=sigma_min, use_masked_loss=use_masked_loss,
-                            patch_size=patch_size, **draws)
+        if state.sharding is not None:
+            loss = sharded_loss(model, state.sharding, batch, generator, draws, text_dropout_prob, loss_kw)
+        else:
+            if draws is None:
+                draws = draw_step(batch, text_dropout_prob, generator)
+            loss = compute_loss(model, batch, **loss_kw, **draws)
         loss.backward()
         params = list(state.params.values())
+        if state.sharding is not None:
+            state.sharding.sync_replica_grads()
+            params = [p for p in params if id(p) not in state.optimizer.replica_ids]
         grad_norm = global_norm([torch.zeros_like(p) if p.grad is None else p.grad for p in params])
         state.optimizer.step()
         state.optimizer.zero_grad()
@@ -148,6 +299,33 @@ def make_train_step(
         return {"loss": loss.detach(), "grad_norm": grad_norm}
 
     return train_step
+
+
+def sharded_loss(model: nn.Module, sharding: ModelSharding, batch: Dict, generator, draws, text_dropout_prob: float,
+                 loss_kw: dict) -> torch.Tensor:
+    """The loss of a model sharded over a mesh: the batch placed (unless it
+    is), the draws made over the global batch (as the unsharded step makes
+    them: one generator, one order) and cut by rows, each data rank's loss
+    on its rows, their mean on the device of rank 0."""
+    mesh = sharding.mesh
+    if not all(v is None or isinstance(v, Placed) for v in batch.values()):
+        batch = make_global_batch(mesh, batch)
+    if draws is None:
+        draws = draw_step(dict(x0=batch["x0"], shift_alpha=batch["shift_alpha"].full()), text_dropout_prob, generator)
+    b, home = batch["x0"].shape[0], mesh.home(0, 0)
+    losses = []
+    for d in range(sharding.dp):
+        rows = {k: None if v is None else v.rows(d) for k, v in batch.items()}
+        cut = {k: v[row_slice(b, sharding.dp, d)].to(mesh.home(d, 0)) for k, v in draws.items()}
+        losses.append(compute_loss(functools.partial(model.forward_rank, d), rows, **loss_kw, **cut).to(home))
+    return data_mean(losses)
+
+
+def data_mean(losses) -> torch.Tensor:
+    """The mean of the data ranks' losses (each the mean over its rows):
+    the loss of the global batch, whose gradient reaches each shard as the
+    data ranks' gradients summed and divided by dp."""
+    return torch.stack(losses).mean()
 
 
 def compute_shift_alpha(latent_h: int, latent_w: int, latent_t: int) -> float:

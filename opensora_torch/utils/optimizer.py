@@ -63,9 +63,11 @@ def cosine_annealing_warmup_schedule(lr: float, warmup_steps: int, total_steps: 
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over all tensors, fp32, on their device."""
+    """sqrt of the sum of squares over all tensors, fp32, on the first
+    tensor's device (the tensors may lie on several: a sharded state's
+    shards)."""
     norms = [torch.linalg.vector_norm(t.detach().float()) for t in tensors]
-    return torch.linalg.vector_norm(torch.stack(norms))
+    return torch.linalg.vector_norm(torch.stack([n.to(norms[0].device) for n in norms]))
 
 
 class Optimizer:
@@ -83,6 +85,8 @@ class Optimizer:
         accumulation_steps: int = 1,
     ):
         self.params = list(params)
+        self.settings = dict(schedule=schedule, weight_decay=weight_decay, eps=eps, betas=betas, grad_clip=grad_clip,
+                             accumulation_steps=accumulation_steps)
         self.schedule = schedule if callable(schedule) else (lambda count, lr=schedule: lr)
         self.grad_clip = grad_clip
         self.accumulation_steps = accumulation_steps
@@ -90,6 +94,9 @@ class Optimizer:
         self.count = 0  # inner (AdamW) updates made
         self.mini_step = 0
         self.acc: Optional[List[torch.Tensor]] = None
+        # ids of parameters left out of the clip's norm: replicas of a shard
+        # that another parameter holds (``parallel/sharding``), counted once
+        self.replica_ids: set = set()
 
     @torch.no_grad()
     def step(self) -> None:
@@ -109,15 +116,19 @@ class Optimizer:
             for a in self.acc:
                 a.zero_()
         if self.grad_clip:
-            norm = global_norm(grads)
-            clip = norm >= self.grad_clip
-            grads = [torch.where(clip, g / norm * self.grad_clip, g) for g in grads]
+            norm = global_norm([g for p, g in zip(self.params, grads) if id(p) not in self.replica_ids])
+            grads = [torch.where(norm.to(g.device) >= self.grad_clip, g / norm.to(g.device) * self.grad_clip, g)
+                     for g in grads]
         for p, g in zip(self.params, grads):
             p.grad = g
         for group in self.adamw.param_groups:
             group["lr"] = float(self.schedule(self.count))
         self.adamw.step()
         self.count += 1
+
+    def like(self, params: Iterable[torch.nn.Parameter]) -> "Optimizer":
+        """A fresh optimizer with these settings over ``params``."""
+        return Optimizer(params, **self.settings)
 
     def zero_grad(self) -> None:
         for p in self.params:
