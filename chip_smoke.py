@@ -227,6 +227,19 @@ Trainer.run_batch: one step from one saved state by the trainer without
 a mesh, then by Trainer(mesh=...) over (2, 1, 2) and over (4, 1, 1) with
 FSDP (the state loaded and resharded), the sharded against the
 unsharded, then 2 timed FSDP steps.
+Pipeline and VAE context parallelism over logical ranks on the card:
+phase 22 (after phase 21) runs stage1.py's full finetune at 2 + 4 blocks
+through Trainer(cfg, device, mesh=create_pp_mesh(...)) with a pipeline
+key, GPipe over (pp 2, data 2) with 2 microbatches and (pp 2, tp 2) with
+4, one step each from phase 21's saved state, batch and generator state
+against phase 21's unsharded step, exact launches, the stage-to-stage
+copies' device time, the peak, and two known-wrong pipelines that must
+fail (the last stage fed the neighbouring microbatch, its blocks
+skipped); phase 23 encodes and decodes one 33-frame 256 x 256 clip with
+the full-width HunyuanVAE, its height over 2 and over 4 logical ranks,
+against the unsharded VAE, exact D = 512 launches, times, the peak, and
+two known-wrong variants that must fail (interior strip edges
+replicate-padded, per-strip group-norm statistics).
 Then it prints the card's name and power limit, one JSON line with the
 kernels' numbers, and last {"ok": true, "device": {...}}.
 
@@ -4906,7 +4919,7 @@ def run_tp_path(device, built, profile: bool = False, out_dir=None) -> dict:
     return res
 
 
-def run_fsdp_train_path(device, profile: bool = False, out_dir=None) -> dict:
+def run_fsdp_train_path(device, profile: bool = False, out_dir=None, carry=None) -> dict:
     """Phase 21: configs/diffusion/train/stage1.py, a full finetune (fp32
     masters, bf16 compute, remat "dots") at full width and HC_TRAIN_DEPTH
     blocks through Trainer.run_batch on FSDP_BATCH seeded 129-frame 192 x
@@ -4918,7 +4931,9 @@ def run_fsdp_train_path(device, profile: bool = False, out_dir=None) -> dict:
     a time. The sharded steps' loss, gradient norm and masters' change
     against the unsharded step's within the TP_TRAIN_* limits, exact
     launches. Then FSDP_STEPS more steps over (4, 1, 1): timed, finite,
-    exact launches, the peak."""
+    exact launches, the peak. ``carry`` (a dict), where given, receives
+    the saved state, the batch, the generator states and the unsharded
+    step's reading, for phase 22."""
     from opensora_torch.ops import _build
     from opensora_torch.parallel.context import set_mesh
     from opensora_torch.train import Trainer
@@ -4998,6 +5013,9 @@ def run_fsdp_train_path(device, profile: bool = False, out_dir=None) -> dict:
                             same_mask_conds=runs[tag]["mask_conds"] == runs["unsharded"]["mask_conds"])
             del params
         log("[fsdp] sharded vs unsharded from one state: " + json.dumps(cmp))
+        if carry is not None:
+            carry.update(cfg=cfg, snapshot=snapshot, start=start, batch=batch, rng_states=rng_states,
+                         ref=runs["unsharded"], ref_change=ref_change, n_blocks=n_blocks)
         del ref_change, snapshot
         steps = []
         phase_peak_gb = torch.cuda.max_memory_allocated(device) / 1e9  # the three steps from the saved state
@@ -5038,6 +5056,379 @@ def fsdp_launches(res: dict, kernel: str) -> dict:
     the FSDP steps' sum."""
     return dict({tag: r["launches"].get(kernel, 0) for tag, r in res["runs"].items()},
                 fsdp4_steps=res["launches"].get(kernel, 0))
+
+
+# Phase 22: stage1.py at depth 2 + 4 (which divides by pp 2) through
+# Trainer(cfg, device, mesh=create_pp_mesh(...)) over logical ranks, one step
+# each from phase 21's saved state, batch and generator state, held to the
+# TP_TRAIN_* limits against phase 21's unsharded step: (tag, (pp, data, tp),
+# n_micro)
+PP_MESHES = (("pp2_dp2", (2, 2, 1), 2), ("pp2_tp2", (2, 1, 2), 4))
+
+
+def pp_launches(res: dict, kernel: str) -> dict:
+    """Phase 22's launches of ``kernel``, per mesh."""
+    return {tag: r["launches"].get(kernel, 0) for tag, r in res["runs"].items()}
+
+
+def _stage2_neighbour_microbatch(apply):
+    """Known-wrong (pp = 2): in the double-stream pipeline the last stage
+    runs on the neighbouring microbatch's activation, (m + 1) mod n_micro
+    (in both pipelines, n_micro = 2 would undo the swap)."""
+    from opensora_torch.parallel import pipeline as pl
+
+    calls = []
+
+    def wrong(stage_fn, stages, x_mb, mesh, axis="pp"):
+        calls.append(1)
+        if len(calls) > 1:
+            return apply(stage_fn, stages, x_mb, mesh, axis)
+        out = []
+        for d, row in enumerate(x_mb):
+            sent = [pl.send_activation(stage_fn(stages[0], a, d, 0), pl.stage_devices(mesh, d, 1, axis)) for a in row]
+            out.append([pl.broadcast_activation(stage_fn(stages[1], sent[(m + 1) % len(row)], d, 1), mesh, d, 1,
+                                                axis) for m in range(len(row))])
+        return out
+
+    return wrong
+
+
+def _last_stage_skipped(apply):
+    """Known-wrong: the last stage's blocks are not run."""
+    return lambda stage_fn, stages, x_mb, mesh, axis="pp": apply(stage_fn, list(stages[:-1]) + [[]], x_mb, mesh,
+                                                                  axis)
+
+
+class CopyTimer:
+    """CUDA events around every ``parallel/comm.copy_to`` while open: the
+    stage-to-stage sends and their reverse copies in the backward; their
+    device time and bytes."""
+
+    def __init__(self):
+        self.events, self.bytes = [], 0
+
+    def __enter__(self):
+        from opensora_torch.parallel import comm
+
+        copy_to = comm.copy_to
+
+        def timed(x, device):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = copy_to(x, device)
+            end.record()
+            self.events.append((start, end))
+            self.bytes += x.numel() * x.element_size()
+            return out
+
+        self.patch = unittest.mock.patch.object(comm, "copy_to", timed)
+        self.patch.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.patch.__exit__(*exc)
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+def run_pp_train_path(device, carry: dict) -> dict:
+    """Phase 22: GPipe over logical ranks on the card. stage1.py's full
+    finetune at full width and phase 21's depth, by Trainer(cfg, device,
+    mesh=create_pp_mesh(...)) with a ``pipeline`` key, over each of
+    PP_MESHES: phase 21's saved state loaded (resharded by stage), one step
+    on phase 21's batch from its generator states, timed, against phase
+    21's unsharded step within the TP_TRAIN_* limits; exact launches (2 *
+    blocks * n_micro * data * tp forwards with remat, blocks * n_micro *
+    data * tp fused backwards and dQ epilogues; the VAE encode's D = 512
+    forwards as phase 21's), the stage-to-stage copies' device time and
+    bytes (CUDA events around each copy), the peak. On the first mesh two
+    known-wrong pipelines rerun the step from the saved state on the same
+    step inputs and must fail the limits: the last stage fed the
+    neighbouring microbatch, the last stage's blocks skipped."""
+    from opensora_torch.ops import _build
+    from opensora_torch.parallel.context import set_mesh
+    from opensora_torch.parallel.mesh import create_pp_mesh
+    from opensora_torch.train import Trainer, pipeline_mesh
+    from opensora_torch.training import pp as pp_mod
+    from opensora_torch.utils.config import Config
+
+    ref, ref_change, start, snapshot = carry["ref"], carry["ref_change"], carry["start"], carry["snapshot"]
+    n_blocks = carry["n_blocks"]
+    log(f"[pp] stage1.py at full width, {n_blocks} blocks, GPipe over {[(t, s, n) for t, s, n in PP_MESHES]} "
+        f"(pp, data, tp), n_micro; one step each from phase 21's state, B={FSDP_BATCH}")
+
+    def compare(trainer, m) -> dict:
+        params = trainer.state.state_dict()["params"]
+        upd = {n: float((params[n].float() - start[n] - c).norm() / c.norm().clamp(min=1e-30))
+               for n, c in ref_change.items()}
+        worst = max(upd, key=upd.get)
+        return dict(loss_rel=abs(float(m["loss"]) - ref["loss"]) / abs(ref["loss"]),
+                    grad_norm_rel=abs(float(m["grad_norm"]) - ref["grad_norm"]) / ref["grad_norm"],
+                    update_rel_l2_max=upd[worst], update_rel_l2_worst=worst,
+                    update_rel_l2_median=sorted(upd.values())[len(upd) // 2])
+
+    def held(c) -> bool:
+        return (c["loss_rel"] <= TP_TRAIN_LOSS_TOL and c["grad_norm_rel"] <= TP_TRAIN_NORM_TOL
+                and c["update_rel_l2_max"] <= TP_TRAIN_UPDATE_TOL)
+
+    runs, controls = {}, {}
+    trainer = None
+    try:
+        for tag, (pp, data, tp), n_micro in PP_MESHES:
+            trainer = None
+            free()
+            torch.cuda.reset_peak_memory_stats(device)
+            cfg = Config(carry["cfg"], pipeline=dict(pp_size=pp, tp_size=tp, data_size=data, n_micro=n_micro))
+            mesh = create_pp_mesh(pp, data, tp, [device] * (pp * data * tp))
+            if pipeline_mesh(cfg, device).devices != mesh.devices:
+                raise AssertionError(f"pp {tag}: the CLI's mesh {pipeline_mesh(cfg, device)} is not {mesh}")
+            t0 = time.perf_counter()
+            trainer = Trainer(cfg, device, mesh=mesh)
+            trainer.state.load_state_dict(snapshot)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            trainer.gen.set_state(carry["rng_states"][0])
+            trainer.host_rng.bit_generator.state = carry["rng_states"][1]
+            seen = {}
+            step = trainer.train_step
+
+            def recorded(state, tb, gen):  # the step's inputs, for the controls
+                seen.update(tb=tb, gen_state=gen.get_state())
+                return step(state, tb, gen)
+
+            trainer.train_step = recorded
+            _build.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            with CopyTimer() as copies:
+                m = trainer.run_batch(carry["batch"])
+                torch.cuda.synchronize()
+            total_s = time.perf_counter() - t0
+            rec = dict(mesh=dict(mesh.shape), n_micro=n_micro, loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                       launches=dict(_build.LAUNCHES), step_s=trainer.timers.to_dict()["time/step"],
+                       total_s=total_s, build_and_load_s=build_s, mask_conds=trainer.mask_conds,
+                       copies=dict(n=len(copies.events), bytes=copies.bytes, device_ms=copies.ms()),
+                       peak_mem_gb=torch.cuda.max_memory_allocated(device) / 1e9)
+            rec["copies"]["share_of_step"] = rec["copies"]["device_ms"] / 1e3 / rec["step_s"]
+            ranks = n_micro * data * tp
+            rec["expected"] = {"flash_attention_fwd_sm90": 2 * n_blocks * ranks,
+                               "flash_attention_bwd_fused": n_blocks * ranks,
+                               "flash_attention_bwd_dq_convert": n_blocks * ranks,
+                               "flash_attention_fwd_d512": ref["expected"]["flash_attention_fwd_d512"]}
+            rec["vs_unsharded"] = compare(trainer, m)
+            rec["vs_unsharded"]["same_mask_conds"] = trainer.mask_conds == ref["mask_conds"]
+            log(f"[pp] {tag}: " + json.dumps(rec))
+            runs[tag] = rec
+            if tag == PP_MESHES[0][0]:
+                for name, wrap in (("stage2_neighbour_microbatch", _stage2_neighbour_microbatch),
+                                   ("last_stage_skipped", _last_stage_skipped)):
+                    trainer.state.load_state_dict(snapshot)
+                    gen = torch.Generator(device=device)
+                    gen.set_state(seen["gen_state"])
+                    with patched(pp_mod, "pipeline_apply", wrap):
+                        m = step(trainer.state, seen["tb"], gen)
+                    controls[name] = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                                          **compare(trainer, m))
+                    log(f"[pp] control {name}: " + json.dumps(controls[name]))
+                del seen
+    finally:
+        set_mesh(None)
+        trainer = None
+        free()
+    for tag, rec in runs.items():
+        if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])):
+            raise AssertionError(f"pp {tag}: loss {rec['loss']} or grad norm {rec['grad_norm']} not finite")
+        if rec["launches"] != rec["expected"]:
+            raise AssertionError(f"pp {tag}: launches {rec['launches']} != expected {rec['expected']}")
+        if not (rec["vs_unsharded"]["same_mask_conds"] and held(rec["vs_unsharded"])):
+            raise AssertionError(f"pp {tag} vs the unsharded step: {rec['vs_unsharded']}")
+        check_peak(f"pp {tag}", rec["peak_mem_gb"])
+    for name, c in controls.items():
+        if held(c):
+            raise AssertionError(f"pp control {name} passed the limits: {c}")
+    return dict(depth=[n_blocks], runs=runs, controls=controls,
+                tols=dict(loss=TP_TRAIN_LOSS_TOL, grad_norm=TP_TRAIN_NORM_TOL, update=TP_TRAIN_UPDATE_TOL),
+                launches={k: sum(r["launches"].get(k, 0) for r in runs.values()) for k in runs[PP_MESHES[0][0]]["expected"]})
+
+
+# Phase 23: the full-width HunyuanVAE (stage1.py's ae, random bf16 weights from
+# seed 42) on one 33-frame 256 x 256 clip, encoded and decoded with its height
+# over VAE_CP_SP logical ranks, against the unsharded VAE on the card. The two
+# bf16 passes round differently (the sharded group norms apply whole-height
+# fp32 statistics themselves, F.group_norm its own), and a random-weight VAE
+# carries a rounding through its ~30 layers to the output: the first card run
+# read 2.1e-2 (encode) and 5.2e-2 (decode) in relative L2 between them, as far
+# as the unsharded bf16 pass itself lies from the fp32 pass. So the limit of
+# each pass is VAE_CP_FP32_FACTOR times the unsharded bf16 pass's relative L2
+# from the CPU's fp32 pass, measured in the same run on a small clip
+# (VAE_CP_SMALL), where the sharded bf16 pass must also lie no farther from
+# the fp32 pass than VAE_CP_SHARDED_FACTOR times the unsharded one. The halo
+# convolutions are held alone to the kernels' limit (OUT_RTOL of the largest
+# value), and the known-wrong variants must exceed the encode's limit.
+VAE_CP_SP = (2, 4)
+VAE_CP_FRAMES, VAE_CP_SIZE = 33, 256
+VAE_CP_SMALL = (9, 32)  # frames, side: 32 rows split over 4 ranks at every level
+VAE_CP_FP32_FACTOR = 2.0
+VAE_CP_SHARDED_FACTOR = 1.25
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.float().cpu(), b.float().cpu()
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+def max_rel(a, b) -> float:
+    a, b = a.float().cpu(), b.float().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def _own_edges(halo):
+    """Known-wrong: every strip replicate-pads its own edges (no halo rows
+    from the neighbours)."""
+    from opensora_torch.parallel.vae_sharding import ONE_STRIP
+
+    return lambda self, xs, top, bottom: [halo(ONE_STRIP, [x], top, bottom)[0] for x in xs]
+
+
+def _per_strip_moments(moments):
+    """Known-wrong: each strip's own group-norm statistics."""
+    def wrong(self, xs, num_groups):
+        flat = [x.float().reshape(x.shape[0], num_groups, -1) for x in xs]
+        return [f.mean(-1, keepdim=True) for f in flat], [f.var(-1, unbiased=False, keepdim=True) for f in flat]
+
+    return wrong
+
+
+def vae_cp_clip(device, frames: int, size: int, seed: int) -> torch.Tensor:
+    """(1, 3, frames, size, size) in [-1, 1]: a vertical ramp under seeded
+    noise, so that a strip's group-norm statistics are not the whole
+    height's."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    ramp = torch.linspace(-0.8, 0.8, size, device=device)[:, None]
+    return (0.2 * torch.randn((1, 3, frames, size, size), generator=gen, device=device) + ramp).clamp(-1, 1)
+
+
+def run_vae_cp_path(device) -> dict:
+    """Phase 23: HunyuanVAE context parallelism over height
+    (``parallel/vae_sharding.make_sharded_vae_fn``) on logical ranks of the
+    card. On a small clip, the unsharded and the sp-4 bf16 passes against
+    the CPU's fp32 VAE (the limits, see VAE_CP_FP32_FACTOR). On the full
+    clip: the halo convolutions alone (conv_in and the first stride-2
+    downsampler over 4 strips) within OUT_RTOL of the unsharded
+    convolution; the encode (posterior mode) and the decode unsharded, then
+    over a (1, sp, 1) mesh for each of VAE_CP_SP, within the limits in
+    relative L2 of the unsharded result; exact D = 512 launches (one
+    mid-block attention per encode and per decode: the ranks share the
+    card, so the gathered attention runs once), the time of a second call
+    and the peak of each. Two known-wrong sharded encodes at sp 4 must
+    exceed the encode's limit: interior strip edges replicate-padded,
+    per-strip group-norm statistics."""
+    import copy
+
+    from opensora_torch.models.hunyuan_vae.model import CausalVAE3D_HUNYUAN
+    from opensora_torch.ops import _build
+    from opensora_torch.parallel.comm import shard
+    from opensora_torch.parallel.vae_sharding import HeightStrips, make_sharded_vae_fn
+    from opensora_torch.utils.config import parse_configs
+
+    cfg = parse_configs([STAGE1_CFG])
+    torch.manual_seed(cfg.seed)
+    vae = CausalVAE3D_HUNYUAN(device=device, **{k: v for k, v in dict(cfg.ae).items() if k != "type"}).eval()
+    sp_max = VAE_CP_SP[-1]
+    log(f"[vae_cp] full-width HunyuanVAE, {VAE_CP_FRAMES}x{VAE_CP_SIZE}x{VAE_CP_SIZE}, height over sp "
+        f"{list(VAE_CP_SP)} logical ranks; limits from a {VAE_CP_SMALL} clip against the CPU's fp32 VAE")
+
+    # the limits: the bf16 passes against the fp32 pass on a small clip
+    small = vae_cp_clip(device, *VAE_CP_SMALL[:1], VAE_CP_SMALL[1], cfg.seed + 1)
+    cpu = copy.deepcopy(vae).float().cpu()
+    mesh = logical_mesh(device, (1, sp_max, 1))
+    with torch.no_grad():
+        z32 = cpu.encode(small.float().cpu(), sample_posterior=False)
+        zb = z32.to(device, torch.bfloat16)  # both decodes start from the bf16 latent
+        y32 = cpu.decode(zb.float().cpu())
+        del cpu
+        fp32 = dict(unsharded=dict(encode=rel_l2(vae.encode(small, sample_posterior=False), z32),
+                                   decode=rel_l2(vae.decode(zb), y32)),
+                    sharded=dict(encode=rel_l2(make_sharded_vae_fn(vae, mesh, "encode")(small, sample_posterior=False),
+                                               z32),
+                                 decode=rel_l2(make_sharded_vae_fn(vae, mesh, "decode")(zb), y32)))
+    limits = {w: VAE_CP_FP32_FACTOR * fp32["unsharded"][w] for w in ("encode", "decode")}
+    log(f"[vae_cp] bf16 against fp32 on the small clip: {json.dumps(fp32)}; limits {json.dumps(limits)}")
+
+    x = vae_cp_clip(device, VAE_CP_FRAMES, VAE_CP_SIZE, cfg.seed)
+    cp = HeightStrips([device] * sp_max)
+    with torch.no_grad():  # the halo convolutions alone, at the full clip
+        conv_in, down = vae.encoder.conv_in, vae.encoder.down_blocks[0].downsamplers[0]
+        h = conv_in(x.to(vae.dtype))
+        halo = dict(conv_in=max_rel(torch.cat(conv_in.forward_strips(cp, shard(x.to(vae.dtype), 3, cp.devices)), 3),
+                                    h),
+                    downsample=max_rel(torch.cat(down.forward_strips(cp, list(h.chunk(sp_max, 3))), 3), down(h)))
+        del h
+
+    def run(fn, arg) -> tuple:
+        free()
+        torch.cuda.reset_peak_memory_stats(device)
+        _build.LAUNCHES.clear()
+        with torch.no_grad():
+            out = fn(arg)
+            torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)
+            t0 = time.perf_counter()
+            fn(arg)
+            torch.cuda.synchronize()
+        rec = dict(seconds=time.perf_counter() - t0, launches=launches,
+                   peak_mem_gb=torch.cuda.max_memory_allocated(device) / 1e9)
+        return out, rec
+
+    z_ref, rec_enc = run(lambda v: vae.encode(v, sample_posterior=False), x)
+    y_ref, rec_dec = run(vae.decode, z_ref)
+    res = dict(shape=list(x.shape), latent=list(z_ref.shape), small_clip=list(small.shape), fp32=fp32, limits=limits,
+               halo_convs_max_rel=halo, unsharded=dict(encode=rec_enc, decode=rec_dec), sp={}, controls={})
+    for sp in VAE_CP_SP:
+        mesh = logical_mesh(device, (1, sp, 1))
+        enc = make_sharded_vae_fn(vae, mesh, "encode")
+        z, rec_e = run(lambda v: enc(v, sample_posterior=False), x)
+        y, rec_d = run(make_sharded_vae_fn(vae, mesh, "decode"), z_ref)
+        for rec, out, ref in ((rec_e, z, z_ref), (rec_d, y, y_ref)):
+            rec.update(rel_l2=rel_l2(out, ref), max_rel=max_rel(out, ref))
+        res["sp"][sp] = dict(encode=rec_e, decode=rec_d)
+        log(f"[vae_cp] sp {sp}: " + json.dumps(res["sp"][sp]))
+        del z, y
+    mesh = logical_mesh(device, (1, sp_max, 1))
+    for name, attr, wrap in (("own_edges_replicated", "halo", _own_edges),
+                             ("per_strip_group_norm", "group_moments", _per_strip_moments)):
+        with patched(HeightStrips, attr, wrap), torch.no_grad():
+            z = make_sharded_vae_fn(vae, mesh, "encode")(x, sample_posterior=False)
+        res["controls"][name] = dict(rel_l2=rel_l2(z, z_ref), max_rel=max_rel(z, z_ref))
+        del z
+    log("[vae_cp] halo convolutions " + json.dumps(halo) + ", controls " + json.dumps(res["controls"]))
+    del vae, x, z_ref, y_ref
+    free()
+    for w in ("encode", "decode"):
+        if not fp32["sharded"][w] <= VAE_CP_SHARDED_FACTOR * fp32["unsharded"][w]:
+            raise AssertionError(f"vae_cp {w}: the sharded bf16 pass lies {fp32['sharded'][w]} from fp32, the "
+                                 f"unsharded {fp32['unsharded'][w]}")
+    for name, err in halo.items():
+        if not err <= OUT_RTOL:
+            raise AssertionError(f"vae_cp halo {name}: {err} over {OUT_RTOL}")
+    for sp, r in res["sp"].items():
+        for w in ("encode", "decode"):
+            rec = r[w]
+            if not rec["rel_l2"] <= limits[w]:
+                raise AssertionError(f"vae_cp sp {sp} {w}: {rec['rel_l2']} over {limits[w]}")
+            if rec["launches"] != {"flash_attention_fwd_d512": 1}:
+                raise AssertionError(f"vae_cp sp {sp} {w}: launches {rec['launches']}")
+            check_peak(f"vae_cp sp {sp} {w}", rec["peak_mem_gb"])
+    for w, rec in res["unsharded"].items():
+        if rec["launches"] != {"flash_attention_fwd_d512": 1}:
+            raise AssertionError(f"vae_cp unsharded {w}: launches {rec['launches']}")
+    for name, c in res["controls"].items():
+        if not c["rel_l2"] > limits["encode"]:
+            raise AssertionError(f"vae_cp control {name} passed the limit {limits['encode']}: {c}")
+    res["launches"] = {"flash_attention_fwd_d512": sum(r[w]["launches"]["flash_attention_fwd_d512"]
+                                                       for r in res["sp"].values() for w in ("encode", "decode"))}
+    return res
 
 
 def _kernel_name(mangled: str) -> str:
@@ -5170,7 +5561,11 @@ def main(argv) -> int:
     del built
     gc.collect()
     torch.cuda.empty_cache()
-    fsdp_res = run_fsdp_train_path(device, "--profile" in argv, out_dir)
+    carry: dict = {}  # phase 21's saved state, batch and unsharded step, for phase 22
+    fsdp_res = run_fsdp_train_path(device, "--profile" in argv, out_dir, carry)
+    pp_res = run_pp_train_path(device, carry)
+    del carry
+    vae_cp_res = run_vae_cp_path(device)
     int8_res = run_int8_path(device, [], STEPS, "--profile" in argv, out_dir, "int8", records)
     int8_res["small_input"] = small_int8
     fq_res = run_int8_path(device, ["--model.quantized", "w8a8_fq", "--model.attn_backend", "int8"], INT8_FQ_STEPS,
@@ -5228,6 +5623,7 @@ def main(argv) -> int:
                             t2i2v_video=t2i2v_768_res["launches"]["flash_attention_fwd_sm90"]),
         launches_tp=tp_res["launches"]["flash_attention_fwd_sm90"],
         launches_fsdp=fsdp_launches(fsdp_res, "flash_attention_fwd_sm90"),
+        launches_pp=pp_launches(pp_res, "flash_attention_fwd_sm90"),
         max_abs_err=max([c["max_abs_err"] for c in sm90_cases] + [res_768["attention"]["max_abs_err"]]),
         ms=head["ms"], ms_is="flash_attention_with_lse (the bound A on the device, then the kernel), the mean of "
         "4 readings in turns with SDPA's 4 (library_ms)", anchor_ms=head["anchor_ms"],
@@ -5254,6 +5650,9 @@ def main(argv) -> int:
         launches_tokenized_t2v=tok_res["launches"]["flash_attention_fwd_d512"],
         launches_768px=dict(t2v_decode=res_768["launches"]["flash_attention_fwd_d512"],
                             t2i2v_encode_and_decode=t2i2v_768_res["launches"]["flash_attention_fwd_d512"]),
+        launches_pp=pp_launches(pp_res, "flash_attention_fwd_d512"),
+        launches_vae_cp={f"sp{sp}": {w: r[w]["launches"]["flash_attention_fwd_d512"] for w in ("encode", "decode")}
+                         for sp, r in vae_cp_res["sp"].items()},
         max_abs_err=max(c["max_abs_err"] for c in d512_cases),
         ms=head["ms"], ms_is="flash_attention_with_lse, the mean of 4 readings in turns with SDPA's 4 (library_ms)",
         plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
@@ -5271,6 +5670,7 @@ def main(argv) -> int:
         launches=train_res["launches"]["flash_attention_bwd_fused"],
         launches_hc_train=hc_train_res["launches"]["flash_attention_bwd_fused"],
         launches_fsdp=fsdp_launches(fsdp_res, "flash_attention_bwd_fused"),
+        launches_pp=pp_launches(pp_res, "flash_attention_bwd_fused"),
         max_abs_err=max(c["max_abs_err"][g] for c in attn_bwd["cases"] for g in ("dq", "dk", "dv")),
         max_abs_err_is="dq (after the epilogue), dk and dv against the plain backward",
         ms=bwd_head["ms"]["flash_attention_bwd_fused"],
@@ -5293,6 +5693,7 @@ def main(argv) -> int:
         launches_ring_train=ring_train_res["launches"]["flash_attention_bwd_dq_convert"],
         launches_hc_train=hc_train_res["launches"]["flash_attention_bwd_dq_convert"],
         launches_fsdp=fsdp_launches(fsdp_res, "flash_attention_bwd_dq_convert"),
+        launches_pp=pp_launches(pp_res, "flash_attention_bwd_dq_convert"),
         max_abs_err=max(c["dq_convert_max_abs_err"] for c in attn_bwd["cases"]),
         max_abs_err_is="against its plain version on the same dq_accum",
         ms=bwd_head["ms"]["flash_attention_bwd_dq_convert"], plain_ms=bwd_head["dq_convert_plain_ms"],
@@ -5418,6 +5819,8 @@ def main(argv) -> int:
     log("[ring_train] " + json.dumps(ring_train_res))
     log("[tp] " + json.dumps(tp_res))
     log("[fsdp] " + json.dumps(fsdp_res))
+    log("[pp] " + json.dumps(pp_res))
+    log("[vae_cp] " + json.dumps(vae_cp_res))
     log("[train] " + json.dumps(train_res))
     log("[int8] " + json.dumps(int8_res))
     log("[int8_fq] " + json.dumps(fq_res))

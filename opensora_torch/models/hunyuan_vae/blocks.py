@@ -7,6 +7,14 @@ padding is a symmetric k // 2 replicate pad. The mid-block attention runs
 the flash-attention kernel with the frame-causal mask (``causal_block`` =
 H * W tokens per frame) and never builds the L x L mask.
 
+Each block also runs height-sharded (``parallel/vae_sharding.py``):
+``forward_strips(cp, xs)`` maps the strips of one activation, one per sp
+rank of ``cp`` (a ``HeightStrips``), to the strips of its output. The
+convolutions take halo rows from the neighbouring strips, the group norms
+all-reduce their statistics, the mid-block attention gathers the height.
+Over ``ONE_STRIP`` (one strip: the whole tensor) every block is its plain
+forward, which the composite blocks' ``forward`` is.
+
 Constructors take the input channel counts that flax infers at init.
 Parameters may be kept in another dtype than the activations (fp32 master
 weights under bf16 compute, for training): every conv and linear casts its
@@ -24,6 +32,7 @@ import torch.nn.functional as F
 from opensora_torch.models.cast_layers import Conv3d, Linear
 from opensora_torch.ops.attention import scaled_dot_product_attention
 from opensora_torch.ops.norms import group_norm
+from opensora_torch.parallel.vae_sharding import ONE_STRIP
 
 
 def _triple(x: Union[int, Sequence[int]]) -> Tuple[int, int, int]:
@@ -45,6 +54,19 @@ class CausalConv3d(nn.Module):
             x = F.pad(x, self.pad, mode="replicate")
         return self.conv(x)
 
+    def forward_strips(self, cp, xs):
+        """Each strip with its halo rows (k // 2 above, k - stride - k // 2
+        below), padded in T and W, then convolved: the unsharded conv's
+        output rows of that strip."""
+        if cp.n == 1:
+            return [self(x) for x in xs]
+        kh, sh = self.conv.kernel_size[1], self.conv.stride[1]
+        if any(x.shape[3] % sh for x in xs):
+            raise ValueError(f"strips of {xs[0].shape[3]} rows under a height stride of {sh}")
+        pad = self.pad[:2] + (0, 0) + self.pad[4:]
+        xs = cp.halo(xs, kh // 2, kh - sh - kh // 2)
+        return [self.conv(F.pad(x, pad, mode="replicate") if any(pad) else x) for x in xs]
+
 
 class GroupNorm(nn.Module):
     def __init__(self, num_channels: int, num_groups: int = 32, eps: float = 1e-6, **factory):
@@ -56,6 +78,22 @@ class GroupNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return group_norm(x, self.num_groups, self.weight, self.bias, self.eps)
+
+    def forward_strips(self, cp, xs):
+        """The norm with each group's mean and variance over the whole
+        height (``cp.group_moments``), applied as ``F.group_norm`` applies
+        its statistics: x * a + b in fp32 with a = rstd * weight and
+        b = bias - mean * a per channel, rounded once."""
+        if cp.n == 1:
+            return [self(x) for x in xs]
+        means, vars_ = cp.group_moments(xs, self.num_groups)
+        out = []
+        for x, mean, var in zip(xs, means, vars_):
+            a = torch.rsqrt(var + self.eps) * self.weight.float().reshape(self.num_groups, -1)  # (B, G, C / G)
+            b = self.bias.float().reshape(self.num_groups, -1) - mean * a
+            y = x.float().reshape(*a.shape, -1) * a[..., None] + b[..., None]
+            out.append(y.reshape(x.shape).to(x.dtype))
+        return out
 
 
 def upsample_nearest_causal(x: torch.Tensor, factor: Tuple[int, int, int]) -> torch.Tensor:
@@ -78,6 +116,9 @@ class UpsampleCausal3D(nn.Module):
     def forward(self, x):
         return self.conv(upsample_nearest_causal(x, self.upsample_factor))
 
+    def forward_strips(self, cp, xs):
+        return self.conv.forward_strips(cp, [upsample_nearest_causal(x, self.upsample_factor) for x in xs])
+
 
 class ResnetBlockCausal3D(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, groups: int = 32, eps: float = 1e-6,
@@ -91,11 +132,14 @@ class ResnetBlockCausal3D(nn.Module):
             self.conv_shortcut = CausalConv3d(in_channels, out_channels, 1, 1, **factory)
 
     def forward(self, x):
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(F.silu(self.norm2(h)))
+        return self.forward_strips(ONE_STRIP, [x])[0]
+
+    def forward_strips(self, cp, xs):
+        h = self.conv1.forward_strips(cp, [F.silu(y) for y in self.norm1.forward_strips(cp, xs)])
+        h = self.conv2.forward_strips(cp, [F.silu(y) for y in self.norm2.forward_strips(cp, h)])
         if hasattr(self, "conv_shortcut"):
-            x = self.conv_shortcut(x)
-        return x + h
+            xs = self.conv_shortcut.forward_strips(cp, xs)
+        return [x + y for x, y in zip(xs, h)]
 
 
 class CausalAttention(nn.Module):
@@ -112,12 +156,26 @@ class CausalAttention(nn.Module):
         self.to_out = nn.ModuleList([Linear(channels, channels, **factory)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, c, t, h, w = x.shape
-        y = self.group_norm(x).flatten(2).transpose(1, 2)  # (B, T*H*W, C)
+        return self._attend(self.group_norm(x)) + x
+
+    def _attend(self, normed: torch.Tensor) -> torch.Tensor:
+        """The attention of the normalized activation, (B, C, T, H, W) in
+        and out, before the residual."""
+        b, c, t, h, w = normed.shape
+        y = normed.flatten(2).transpose(1, 2)  # (B, T*H*W, C)
         q, k, v = (proj(y)[:, None].contiguous() for proj in (self.to_q, self.to_k, self.to_v))
         out = scaled_dot_product_attention(q, k, v, causal_block=h * w)[:, 0]
         out = self.to_out[0](out)
-        return out.transpose(1, 2).reshape(b, c, t, h, w) + x
+        return out.transpose(1, 2).reshape(b, c, t, h, w)
+
+    def forward_strips(self, cp, xs):
+        """The normalized strips gathered along H, attended once per
+        distinct device over the full height, each rank's rows cut back
+        out."""
+        if cp.n == 1:
+            return [self(x) for x in xs]
+        outs = cp.gathered(self._attend, self.group_norm.forward_strips(cp, xs))
+        return [o + x for o, x in zip(outs, xs)]
 
 
 class UNetMidBlockCausal3D(nn.Module):
@@ -132,12 +190,15 @@ class UNetMidBlockCausal3D(nn.Module):
         )
 
     def forward(self, x):
-        x = self.resnets[0](x)
+        return self.forward_strips(ONE_STRIP, [x])[0]
+
+    def forward_strips(self, cp, xs):
+        xs = self.resnets[0].forward_strips(cp, xs)
         for i, resnet in enumerate(self.resnets[1:]):
             if len(self.attentions):
-                x = self.attentions[i](x)
-            x = resnet(x)
-        return x
+                xs = self.attentions[i].forward_strips(cp, xs)
+            xs = resnet.forward_strips(cp, xs)
+        return xs
 
 
 class DownsampleCausal3D(nn.Module):
@@ -147,6 +208,9 @@ class DownsampleCausal3D(nn.Module):
 
     def forward(self, x):
         return self.conv(x)
+
+    def forward_strips(self, cp, xs):
+        return self.conv.forward_strips(cp, xs)
 
 
 class DownEncoderBlockCausal3D(nn.Module):
@@ -163,11 +227,14 @@ class DownEncoderBlockCausal3D(nn.Module):
         )
 
     def forward(self, x):
+        return self.forward_strips(ONE_STRIP, [x])[0]
+
+    def forward_strips(self, cp, xs):
         for resnet in self.resnets:
-            x = resnet(x)
+            xs = resnet.forward_strips(cp, xs)
         for down in self.downsamplers:
-            x = down(x)
-        return x
+            xs = down.forward_strips(cp, xs)
+        return xs
 
 
 class UpDecoderBlockCausal3D(nn.Module):
@@ -184,8 +251,11 @@ class UpDecoderBlockCausal3D(nn.Module):
         )
 
     def forward(self, x):
+        return self.forward_strips(ONE_STRIP, [x])[0]
+
+    def forward_strips(self, cp, xs):
         for resnet in self.resnets:
-            x = resnet(x)
+            xs = resnet.forward_strips(cp, xs)
         for up in self.upsamplers:
-            x = up(x)
-        return x
+            xs = up.forward_strips(cp, xs)
+        return xs

@@ -42,6 +42,7 @@ from opensora_torch.models.hunyuan_vae.blocks import (
     UNetMidBlockCausal3D,
     UpDecoderBlockCausal3D,
 )
+from opensora_torch.parallel.vae_sharding import ONE_STRIP
 from opensora_torch.registry import MODELS
 
 
@@ -150,11 +151,14 @@ class EncoderCausal3D(nn.Module):
         self.conv_out = CausalConv3d(boc[-1], 2 * cfg.latent_channels, 3, 1, **factory)
 
     def forward(self, x):
-        x = self.conv_in(x)
+        return self.forward_strips(ONE_STRIP, [x])[0]
+
+    def forward_strips(self, cp, xs):
+        xs = self.conv_in.forward_strips(cp, xs)
         for blk in self.down_blocks:
-            x = blk(x)
-        x = self.mid_block(x)
-        return self.conv_out(F.silu(self.conv_norm_out(x)))
+            xs = blk.forward_strips(cp, xs)
+        xs = self.mid_block.forward_strips(cp, xs)
+        return self.conv_out.forward_strips(cp, [F.silu(y) for y in self.conv_norm_out.forward_strips(cp, xs)])
 
 
 class DecoderCausal3D(nn.Module):
@@ -176,15 +180,22 @@ class DecoderCausal3D(nn.Module):
         self.conv_out = CausalConv3d(rev[-1], cfg.out_channels, 3, 1, **factory)
 
     def forward(self, z):
-        x = self.mid_block(self.conv_in(z))
+        return self.forward_strips(ONE_STRIP, [z])[0]
+
+    def forward_strips(self, cp, zs):
+        xs = self.mid_block.forward_strips(cp, self.conv_in.forward_strips(cp, zs))
         for blk in self.up_blocks:
-            x = blk(x)
-        return self.conv_out(F.silu(self.conv_norm_out(x)))
+            xs = blk.forward_strips(cp, xs)
+        return self.conv_out.forward_strips(cp, [F.silu(y) for y in self.conv_norm_out.forward_strips(cp, xs)])
 
 
 class AutoencoderKLCausal3D(nn.Module):
     """The KL-VAE with tiled encode and decode; public tensors are
-    (B, C, T, H, W)."""
+    (B, C, T, H, W). While ``height_sharding`` is set
+    (``parallel/vae_sharding.make_sharded_vae_fn``), the core passes run
+    each tile with its height cut over a mesh's sp ranks."""
+
+    height_sharding = None
 
     def __init__(self, config: AutoEncoder3DConfig, device=None, dtype: Optional[torch.dtype] = None,
                  compute_dtype: Optional[torch.dtype] = None):
@@ -225,9 +236,13 @@ class AutoencoderKLCausal3D(nn.Module):
         return self.config.sample_tsize // self.config.time_compression_ratio
 
     def _encode_moments(self, x: torch.Tensor) -> torch.Tensor:
+        if self.height_sharding is not None:
+            return self.height_sharding.encode_moments(self, x)
         return torch.cat([self.quant_conv(self.encoder(x[i:i + 1])) for i in range(x.shape[0])])
 
     def _decode_core(self, z: torch.Tensor) -> torch.Tensor:
+        if self.height_sharding is not None:
+            return self.height_sharding.decode_core(self, z)
         return self.decoder(self.post_quant_conv(z))
 
     def spatial_tiled_encode(self, x: torch.Tensor) -> torch.Tensor:

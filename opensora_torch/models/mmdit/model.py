@@ -24,7 +24,9 @@ Left unset, the parameters are in the compute dtype; the trainer sets it
 for a full finetune (``opensora_torch/train.py``).
 
 Sharded over a mesh (``parallel/sharding.shard_params``, which sets
-``sharding``), the forward cuts the rows over the data ranks
+``sharding``; a pipeline mesh's forward is ``training/pp.make_pp_forward``
+over :meth:`MMDiTModel.prepare_block_inputs`, :meth:`MMDiTModel.run_block`
+and ``final_layer``), the forward cuts the rows over the data ranks
 (:meth:`MMDiTModel.forward_rank` runs one data rank's rows) and runs each
 block's ``forward_tp`` over the tp ranks: the embedders and the final
 layer replicated, each rank's heads and MLP columns on its own device, the
@@ -195,6 +197,13 @@ class MMDiTModel(nn.Module):
                 return checkpoint(block, *args, use_reentrant=False)
         return checkpoint(block, *args, use_reentrant=False, **REMAT_CONTEXTS[cfg.remat_policy])
 
+    def run_block(self, block: nn.Module, g, *args):
+        """One block over the tp ranks of ``g`` (``parallel/sharding.
+        RankGroup``), per-rank lists in and out, checkpointed as the
+        config asks: what a pipeline stage runs block by block
+        (``training/pp.py``), as :meth:`forward_rank` does."""
+        return self._run_block(functools.partial(block.forward_tp, g), *args)
+
     def forward(self, img, img_ids, txt, txt_ids, timesteps, y_vec, cond=None, guidance=None):
         if self.sharding is not None:
             return self._forward_sharded(img, img_ids, txt, txt_ids, timesteps, y_vec, cond, guidance)
@@ -237,10 +246,10 @@ class MMDiTModel(nn.Module):
         prep = g.rep(lambda t: self.prepare_block_inputs(*(None if x is None else x.to(g.devices[t]) for x in inputs)))
         img, txt, vec, pe = ([p[i] for p in prep] for i in range(4))
         for block in self.double_blocks:
-            img, txt = self._run_block(functools.partial(block.forward_tp, g), img, txt, vec, pe)
+            img, txt = self.run_block(block, g, img, txt, vec, pe)
         x = g.rep(lambda t: torch.cat([txt[t], img[t]], dim=1))
         for block in self.single_blocks:
-            x = self._run_block(functools.partial(block.forward_tp, g), x, vec, pe)
+            x = self.run_block(block, g, x, vec, pe)
         n_txt = txt[0].shape[1]
         return g.rep(lambda t: self.final_layer(x[t][:, n_txt:], vec[t]))[0]
 

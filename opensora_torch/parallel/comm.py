@@ -8,6 +8,11 @@ process, on the rank's device:
 
 - :func:`shard`, :func:`gather`, :func:`all_to_all` and :func:`ppermute`
   are copies between the ranks' tensors, differentiable by autograd;
+- :func:`send` is the pipeline's stage-to-stage send (the acyclic
+  ``ppermute`` of opensora_tpu/parallel/pipeline.py:138) and
+  :func:`broadcast` the last stage's outputs on every stage (its ``psum``,
+  :152-160); both are differentiable, each copy's backward the reverse
+  copy, so autograd runs the pipeline backwards;
 - :func:`all_reduce` (sum), :func:`all_gather` and :func:`reduce_scatter`
   run over a group of ranks (``Mesh.group``), given the ranks' tensors in
   group order; they too are differentiable, and ranks that share a device
@@ -66,6 +71,56 @@ def ppermute(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """The ring shift i -> i + 1: rank i receives rank i - 1's tensor."""
     n = len(parts)
     return [parts[(i - 1) % n].to(parts[i].device) for i in range(n)]
+
+
+def copy_to(x: torch.Tensor, device) -> torch.Tensor:
+    """A contiguous copy of ``x`` on ``device`` that shares no storage,
+    also where ``device`` is ``x``'s own."""
+    out = torch.empty(x.shape, dtype=x.dtype, device=device)
+    out.copy_(x)
+    return out
+
+
+class _Send(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, device):
+        ctx.source = x.device
+        return copy_to(x, device)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return copy_to(grad, ctx.source), None
+
+
+def send(parts: Sequence[torch.Tensor], devices: Sequence[torch.device]) -> List[torch.Tensor]:
+    """Rank i's tensor copied to ``devices[i]`` (the next pipeline stage's
+    rank), a buffer of the receiver's own even on the sender's device, as
+    the ranks of a ring hold their own slots. A tensor that several ranks
+    share is sent once per destination device. Differentiable: the
+    gradient is sent back."""
+    done: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+    out = []
+    for p, d in zip(parts, devices):
+        key = (id(p), torch.device(d))
+        if key not in done:
+            done[key] = _Send.apply(p, d)
+        out.append(done[key])
+    return out
+
+
+def broadcast(x: torch.Tensor, source: torch.device, devices: Sequence[torch.device]) -> List[torch.Tensor]:
+    """``x``, held by the rank on ``source``, on every rank's device: the
+    tensor itself on ``source``, one copy per other distinct device (ranks
+    that share a device share it). Its gradient is the sum of the ranks'
+    gradients."""
+    done: Dict[torch.device, torch.Tensor] = {torch.device(source): x}
+    out = []
+    for d in devices:
+        d = torch.device(d)
+        if d not in done:
+            done[d] = _Send.apply(x, d)
+        out.append(done[d])
+    return out
 
 
 def _per_device(parts: Sequence[torch.Tensor], fn) -> List[torch.Tensor]:

@@ -10,7 +10,8 @@ it runs the ranks at data coordinate d and tp coordinate t, the scope is
 sequence-parallel attention runs over the sp group through (d, 0, t) on the
 rows and heads it is given. Outside a scope, the attention splits the rows
 over 'data' and the heads over 'tp' and runs each (d, t) group itself
-(:func:`sp_groups`).
+(:func:`sp_groups`). On a pipeline mesh the scope also names the stage:
+(d, t, s) reads the shards on the device of rank (d, s, t).
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 from opensora_torch.parallel.mesh import DATA_AXIS, SP_AXIS, TP_AXIS, Mesh
 
 _MESH: Optional[Mesh] = None
-_SCOPE: Optional[Tuple[int, int]] = None
+_SCOPE: Optional[Tuple[int, int, int]] = None
 
 
 def set_mesh(mesh: Optional[Mesh]) -> None:
@@ -58,17 +59,18 @@ def sp_enabled() -> bool:
 
 
 @contextlib.contextmanager
-def rank_scope(data: int, tp: int):
-    """Run the ranks at (data, ·, tp): see the module docstring."""
+def rank_scope(data: int, tp: int, stage: int = 0):
+    """Run the ranks at (data, ·, tp), or on a pipeline mesh the rank
+    (data, stage, tp): see the module docstring."""
     global _SCOPE
-    outer, _SCOPE = _SCOPE, (data, tp)
+    outer, _SCOPE = _SCOPE, (data, tp, stage)
     try:
         yield
     finally:
         _SCOPE = outer
 
 
-def get_scope() -> Optional[Tuple[int, int]]:
+def get_scope() -> Optional[Tuple[int, int, int]]:
     return _SCOPE
 
 
@@ -82,6 +84,6 @@ def sp_groups(mesh: Mesh) -> Tuple[List[List[torch.device]], int, int]:
         return [mesh.devices[r] for r in mesh.group(SP_AXIS, mesh.rank((d, 0, t)))]
 
     if _SCOPE is not None:
-        return [devices(*_SCOPE)], 1, 1
+        return [devices(*_SCOPE[:2])], 1, 1
     dp, tp = mesh.shape[DATA_AXIS], mesh.shape[TP_AXIS]
     return [devices(d, t) for d in range(dp) for t in range(tp)], dp, tp

@@ -1,10 +1,12 @@
-"""The device mesh: axis sizes (data, sp, tp) and one device per rank
-(counterpart of opensora_tpu/parallel/mesh.py:33-105).
+"""The device mesh: axis sizes (data, sp, tp), or (data, pp, tp) for a
+pipeline, and one device per rank (counterpart of
+opensora_tpu/parallel/mesh.py:33-105 and of ``create_pp_mesh``,
+opensora_tpu/training/pp.py:193-211).
 
 JAX drives a mesh from one controller process; the counterpart here is one
 process that holds every rank of the mesh and its device. Ranks are
-numbered in row-major order over (data, sp, tp), as JAX flattens logical
-device ids. A device may appear more than once: several *logical ranks*
+numbered in row-major order over the mesh's axes, as JAX flattens logical
+device ids; the middle axis is 'sp' or 'pp'. A device may appear more than once: several *logical ranks*
 then share one device, as the JAX package's tests put a mesh on virtual CPU
 devices. ``[torch.device("cuda", 0)] * 4`` is a 4-rank mesh on one card;
 ``[torch.device("cuda", i) for i in range(4)]`` the same mesh over four
@@ -24,7 +26,9 @@ import torch
 DATA_AXIS = "data"
 SP_AXIS = "sp"
 TP_AXIS = "tp"
+PP_AXIS = "pp"
 AXES = (DATA_AXIS, SP_AXIS, TP_AXIS)
+PP_AXES = (DATA_AXIS, PP_AXIS, TP_AXIS)
 
 
 @dataclass
@@ -60,31 +64,33 @@ def _indexed(device: torch.device) -> torch.device:
 
 
 class Mesh:
-    """Axis sizes and the device of each rank (row-major over ``AXES``)."""
+    """Axis sizes and the device of each rank (row-major over ``axes``:
+    ``AXES``, or ``PP_AXES`` for a pipeline)."""
 
-    def __init__(self, sizes: Sequence[int], devices: Sequence[torch.device]):
-        if len(sizes) != len(AXES) or math.prod(sizes) != len(devices):
+    def __init__(self, sizes: Sequence[int], devices: Sequence[torch.device], axes: Sequence[str] = AXES):
+        if len(sizes) != len(axes) or math.prod(sizes) != len(devices):
             raise ValueError(f"mesh {tuple(sizes)} over {len(devices)} devices")
-        self.shape: Dict[str, int] = dict(zip(AXES, (int(s) for s in sizes)))
+        self.axes = tuple(axes)
+        self.shape: Dict[str, int] = dict(zip(self.axes, (int(s) for s in sizes)))
         self.devices: List[torch.device] = [_indexed(torch.device(d)) for d in devices]
 
     def coords(self, rank: int) -> Tuple[int, ...]:
         out = []
-        for name in reversed(AXES):
+        for name in reversed(self.axes):
             rank, c = divmod(rank, self.shape[name])
             out.append(c)
         return tuple(reversed(out))
 
     def rank(self, coords: Sequence[int]) -> int:
         r = 0
-        for name, c in zip(AXES, coords):
+        for name, c in zip(self.axes, coords):
             r = r * self.shape[name] + c
         return r
 
     def group(self, axis: str, rank: int = 0) -> List[int]:
         """The ranks along ``axis`` through ``rank``, in axis order: the
         other coordinates stay (a ring keeps its data and tp group)."""
-        i = AXES.index(axis)
+        i = self.axes.index(axis)
         coords = list(self.coords(rank))
         out = []
         for c in range(self.shape[axis]):
@@ -92,10 +98,12 @@ class Mesh:
             out.append(self.rank(coords))
         return out
 
-    def home(self, data: int, tp: int) -> torch.device:
-        """The device of rank (data, 0, tp): where the ranks at (data, ·,
-        tp) compute outside the sequence-parallel attention."""
-        return self.devices[self.rank((data, 0, tp))]
+    def home(self, data: int, tp: int, stage: int = 0) -> torch.device:
+        """The device of rank (data, stage, tp): with stage 0 on an sp mesh,
+        where the ranks at (data, ·, tp) compute outside the
+        sequence-parallel attention; on a pipeline mesh, the device of that
+        pipeline stage."""
+        return self.devices[self.rank((data, stage, tp))]
 
     def __repr__(self) -> str:
         names = sorted({str(d) for d in self.devices})
@@ -114,6 +122,20 @@ def create_mesh(mesh_config: Union[MeshConfig, dict, None] = None,
     if not devices:
         raise RuntimeError("no devices for the mesh")
     return Mesh(mesh_config.resolve(len(devices)), devices)
+
+
+def create_pp_mesh(pp: int, data: int = 1, tp: int = 1, devices: Optional[Sequence[torch.device]] = None) -> Mesh:
+    """A (data, pp, tp) mesh over the first data * pp * tp of ``devices``
+    (default: every CUDA device of the host), row-major; a device may
+    repeat. ``tp`` > 1 cuts each pipeline stage's blocks over 'tp' (the
+    PP x TP hybrid, ``training/pp.py``)."""
+    n = data * pp * tp
+    if devices is None:
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    devices = list(devices)[:n]
+    if len(devices) != n:
+        raise ValueError(f"a (data {data}, pp {pp}, tp {tp}) mesh needs {n} devices, got {len(devices)}")
+    return Mesh((data, pp, tp), devices, PP_AXES)
 
 
 def local_batch_size(global_batch: int, mesh: Mesh) -> int:

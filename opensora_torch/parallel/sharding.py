@@ -34,6 +34,13 @@ and adds the bias once. The ranks at data coordinate d compute on the
 device of rank (d, 0, t) (``Mesh.home``); sp ranks hold no shard of their
 own (the sequence-parallel design computes outside the attention on the
 home device).
+
+On a pipeline mesh (data, pp, tp) a parameter may belong to one stage
+(``stages``: a block of the stack, ``training/pp.py``): its leaves then lie
+on that stage's devices only, and the ranks (d, s, t) of its stage read it
+in the scope (d, t, s). A parameter of no stage (the embedders, the final
+layer) is replicated on every stage's devices. PP cuts nothing over
+'data'.
 """
 
 from __future__ import annotations
@@ -45,9 +52,9 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from opensora_torch.parallel.comm import all_reduce, gather
+from opensora_torch.parallel.comm import all_reduce, copy_to, gather
 from opensora_torch.parallel.context import get_mesh, get_scope, rank_scope
-from opensora_torch.parallel.mesh import DATA_AXIS, SP_AXIS, TP_AXIS, Mesh
+from opensora_torch.parallel.mesh import DATA_AXIS, PP_AXIS, SP_AXIS, TP_AXIS, Mesh
 
 Spec = Tuple[Optional[str], ...]
 
@@ -119,32 +126,31 @@ def _tp_join(locals_: Sequence[torch.Tensor], dim: int, segments) -> torch.Tenso
     return torch.cat([torch.cat([p[s] for p in parts], dim) for s in range(len(segments))], dim)
 
 
-def _own(x: torch.Tensor, device) -> torch.Tensor:
-    """A contiguous copy of ``x`` on ``device`` that shares no storage."""
-    out = torch.empty(x.shape, dtype=x.dtype, device=device)
-    out.copy_(x)
-    return out
-
-
 class Placement:
     """One parameter cut over the mesh: ``keys`` lists (data index, tp
     index, device) of each leaf, one per distinct shard and device of the
-    ranks (d, 0, t); ``leaves`` (set by :func:`shard_params`) holds them."""
+    ranks (d, s, t) that hold it (s: 0, or on a pipeline mesh its
+    ``stage``, every stage where it has none); ``leaves`` (set by
+    :func:`shard_params`) holds them."""
 
-    def __init__(self, name: str, shape, spec: Spec, segments, sharding: "ModelSharding"):
+    def __init__(self, name: str, shape, spec: Spec, segments, sharding: "ModelSharding",
+                 stage: Optional[int] = None):
         self.name, self.shape, self.spec, self.segments = name, tuple(shape), spec, segments
-        self.sharding = sharding
+        self.sharding, self.stage = sharding, stage
         self.data_dim = spec.index(DATA_AXIS) if DATA_AXIS in spec else None
         self.tp_dim = spec.index(TP_AXIS) if TP_AXIS in spec else None
         # ``q_proj.bias`` also ends in "proj.bias": the column rule comes first, as in the table
         self.row_bias = bool(re.fullmatch(rf".*{_ROW}\.bias", name)) and not re.fullmatch(rf".*{_COL}\.bias", name)
         mesh = sharding.mesh
         self.keys: List[Tuple[int, int, torch.device]] = []
+        stages = range(sharding.pp) if stage is None else (stage,)
         for d in range(sharding.dp):
-            for t in range(sharding.tp):
-                key = (d if self.data_dim is not None else 0, t if self.tp_dim is not None else 0, mesh.home(d, t))
-                if key not in self.keys:
-                    self.keys.append(key)
+            for s in stages:
+                for t in range(sharding.tp):
+                    key = (d if self.data_dim is not None else 0, t if self.tp_dim is not None else 0,
+                           mesh.home(d, t, s))
+                    if key not in self.keys:
+                        self.keys.append(key)
         self.index = {k: i for i, k in enumerate(self.keys)}
         self.leaves: Optional[nn.ParameterList] = None
 
@@ -164,7 +170,7 @@ class Placement:
         out = []
         for i, j, dev in self.keys:
             x = self.piece(full, i, j)
-            out.append(full if x.shape == full.shape and full.device == dev else _own(x, dev))
+            out.append(full if x.shape == full.shape and full.device == dev else copy_to(x, dev))
         return out
 
     def canonical(self) -> List[int]:
@@ -185,15 +191,17 @@ class Placement:
                    else by_shard[(0, j)] for j in range(n_j)]
         return _tp_join(locals_, self.tp_dim, self.segments) if self.tp_dim is not None else locals_[0]
 
-    def local(self, d: int, t: int, dtype) -> torch.Tensor:
-        """What rank (d, 0, t) computes with: its tp shard, cast to
+    def local(self, d: int, t: int, dtype, s: int = 0) -> torch.Tensor:
+        """What rank (d, s, t) computes with: its tp shard, cast to
         ``dtype``, then gathered over 'data' (FSDP) on its device."""
-        dev = self.sharding.mesh.home(d, t)
+        if self.stage is not None and s != self.stage:
+            raise RuntimeError(f"{self.name} belongs to pipeline stage {self.stage}, read in stage {s}'s scope")
+        dev = self.sharding.mesh.home(d, t, s)
         j = t if self.tp_dim is not None else 0
         if self.data_dim is None:
             return self.leaves[self.index[(0, j, dev)]].to(dtype)
         mesh = self.sharding.mesh
-        parts = [self.leaves[self.index[(i, j, mesh.home(i, t))]].to(dtype) for i in range(self.sharding.dp)]
+        parts = [self.leaves[self.index[(i, j, mesh.home(i, t, s))]].to(dtype) for i in range(self.sharding.dp)]
         # the FSDP all-gather for the one rank that reads it; its gradient
         # is the reduce-scatter: each shard receives the sum of the data
         # ranks' gradients of its slice
@@ -203,7 +211,8 @@ class Placement:
         scope = get_scope()
         if scope is None:
             raise RuntimeError(f"{self.name} is sharded over {self.sharding.mesh}: read it inside a rank scope")
-        return None if self.row_bias else self.local(*scope, self.sharding.dtype)
+        d, t, stage = scope
+        return None if self.row_bias else self.local(d, t, self.sharding.dtype, stage)
 
 
 class ModelSharding:
@@ -212,7 +221,7 @@ class ModelSharding:
 
     def __init__(self, mesh: Mesh, dtype: torch.dtype):
         self.mesh, self.dtype = mesh, dtype
-        self.dp, self.tp = mesh.shape[DATA_AXIS], mesh.shape[TP_AXIS]
+        self.dp, self.tp, self.pp = mesh.shape[DATA_AXIS], mesh.shape[TP_AXIS], mesh.shape.get(PP_AXIS, 1)
         self.placements: Dict[str, Placement] = {}
 
     def leaf_names(self) -> Dict[str, List[str]]:
@@ -250,16 +259,17 @@ class ModelSharding:
 
 
 class RankGroup:
-    """The tp ranks at one data coordinate of a sharded model, each on its
-    home device; ``at(t)`` opens rank t's scope."""
+    """The tp ranks at one data coordinate (and pipeline ``stage``) of a
+    sharded model, each on its home device; ``at(t)`` opens rank t's
+    scope."""
 
-    def __init__(self, sharding: ModelSharding, data: int):
-        self.sharding, self.data, self.tp = sharding, data, sharding.tp
-        self.devices = [sharding.mesh.home(data, t) for t in range(self.tp)]
+    def __init__(self, sharding: ModelSharding, data: int, stage: int = 0):
+        self.sharding, self.data, self.stage, self.tp = sharding, data, stage, sharding.tp
+        self.devices = [sharding.mesh.home(data, t, stage) for t in range(self.tp)]
 
     @contextlib.contextmanager
     def at(self, t: int):
-        with rank_scope(self.data, t):
+        with rank_scope(self.data, t, self.stage):
             yield
 
     def each(self, fn: Callable[[int], object]) -> list:
@@ -313,7 +323,7 @@ def row_parallel(linear: nn.Module, partials: Sequence[torch.Tensor], group: Ran
     """The all-reduce of the tp ranks' partial products, summed in fp32 and
     rounded once, with the row bias added once to the sum."""
     bias = getattr(linear, "_placements", {}).get("bias")
-    b = None if bias is None else [bias.local(group.data, t, partials[t].dtype) for t in range(group.tp)]
+    b = None if bias is None else [bias.local(group.data, t, partials[t].dtype, group.stage) for t in range(group.tp)]
     return all_reduce(partials, bias=b)
 
 
@@ -332,7 +342,7 @@ def _sharded_class(cls: type, names: Tuple[str, ...]) -> type:
 
 
 def _check_tp(model: nn.Module, mesh: Mesh) -> None:
-    tp, sp = mesh.shape[TP_AXIS], mesh.shape[SP_AXIS]
+    tp, sp = mesh.shape[TP_AXIS], mesh.shape.get(SP_AXIS, 1)
     config = getattr(model, "config", None)
     if config is None or tp == 1:
         return
@@ -353,8 +363,8 @@ def mesh_spec(spec: Spec, shape, mesh: Mesh) -> Spec:
     return tuple(a if a != DATA_AXIS or (dp > 1 and shape[i] % dp == 0) else None for i, a in enumerate(spec))
 
 
-def shard_params(mesh: Mesh, model: nn.Module, fsdp: bool = True, specs: Optional[Dict[str, Spec]] = None
-                 ) -> nn.Module:
+def shard_params(mesh: Mesh, model: nn.Module, fsdp: bool = True, specs: Optional[Dict[str, Spec]] = None,
+                 stages: Optional[Dict[str, Optional[int]]] = None) -> nn.Module:
     """Cut ``model``'s parameters into per-rank shards on the ranks'
     devices, in place: each parameter is replaced by its leaves as they are
     made, so its unsharded copy is freed before the next one is cut. Sets
@@ -363,7 +373,8 @@ def shard_params(mesh: Mesh, model: nn.Module, fsdp: bool = True, specs: Optiona
     from ``training/diffusion.state_shardings``) default to the rules
     through :func:`mesh_spec`: an axis whose size does not divide a 'data'
     dim, or a mesh of one data rank, leaves that dim replicated
-    (``constrain``'s rule); 'tp' must divide what it cuts."""
+    (``constrain``'s rule); 'tp' must divide what it cuts. ``stages`` (by
+    name, on a pipeline mesh) puts a parameter on one stage's ranks."""
     _check_tp(model, mesh)
     config = getattr(model, "config", None)
     dtype = getattr(model, "compute_dtype", None) or next(model.parameters()).dtype
@@ -382,7 +393,7 @@ def shard_params(mesh: Mesh, model: nn.Module, fsdp: bool = True, specs: Optiona
             p = module._parameters.pop(pn)
             spec = specs[full]
             pl = Placement(full, p.shape, spec, tp_segments(full, p.shape, config) if TP_AXIS in spec else None,
-                           sharding)
+                           sharding, (stages or {}).get(full))
             if pl.tp_dim is not None and p.shape[pl.tp_dim] % sharding.tp:
                 raise ValueError(f"{full} {tuple(p.shape)}: dim {pl.tp_dim} does not split over tp {sharding.tp}")
             requires_grad = p.requires_grad

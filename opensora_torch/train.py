@@ -22,8 +22,10 @@ build the visual condition, encode the text, take the step -- and is what
 names another device. The config's ``mesh`` is built over the host's
 cards where there are several (:func:`train_mesh`): data and tensor
 parallelism with FSDP (``parallel/sharding.py``, ``parallel/data.py``) and
-sequence parallelism over them; pipeline parallelism and multi-host runs
-are not ported.
+sequence parallelism over them. A ``pipeline = dict(pp_size, tp_size=1,
+data_size=None, n_micro=2 * pp_size)`` key trains over a (data, pp, tp)
+mesh instead (:func:`pipeline_mesh`; GPipe, ``training/pp.py``); multi-host
+runs are not ported.
 """
 
 from __future__ import annotations
@@ -37,6 +39,10 @@ import numpy as np
 import torch
 
 from opensora_torch.inference import _pop_flag
+
+
+# as the JAX train script refuses it (scripts/diffusion/train.py:226-230)
+PIPELINE_LORA = "pipeline + lora_config: not ported (LoRA's factors fit without pipeline stages)"
 
 
 def fit_null_txt(null_txt: torch.Tensor, txt_len: int) -> torch.Tensor:
@@ -57,6 +63,28 @@ def train_mesh(cfg, device):
     return inference_mesh(cfg, device)
 
 
+def pipeline_mesh(cfg, device):
+    """The (data, pp, tp) mesh of the config's ``pipeline`` key (JAX's
+    scripts/diffusion/train.py:83-97): ``data_size`` None is the host's
+    cards (one device for another ``device`` type) // (pp_size * tp_size).
+    The ranks go over the cards in order, consecutive ranks sharing a card
+    where there are fewer cards than ranks (logical ranks)."""
+    from opensora_torch.parallel.mesh import create_pp_mesh
+
+    p = dict(cfg.pipeline)
+    pp, tp = p["pp_size"], p.get("tp_size", 1)
+    device = torch.device(device)
+    cards = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())] if device.type == "cuda"
+             else [device])
+    data = p.get("data_size") or len(cards) // (pp * tp)
+    if data < 1:
+        raise ValueError(f"pipeline {p}: {len(cards)} device(s) hold no pp_size x tp_size = {pp * tp} ranks; set "
+                         f"pipeline.data_size to lay the ranks over them as logical ranks")
+    n = data * pp * tp
+    devices = cards[:n] if len(cards) >= n else [cards[r * len(cards) // n] for r in range(n)]
+    return create_pp_mesh(pp, data, tp, devices)
+
+
 class Trainer:
     """Models, train state and the per-batch body of the training loop.
     ``mesh`` (``opensora_torch.parallel.mesh``) becomes the process's mesh,
@@ -70,11 +98,17 @@ class Trainer:
     as its shards are made; the optimizer and the EMA are then made over
     the shards, so no full copy of them exists. Each batch
     is placed over the mesh (``parallel/data.make_global_batch``) before
-    the step. A LoRA run does not shard (ROADMAP)."""
+    the step. A LoRA run does not shard (ROADMAP). A pipeline mesh
+    (``parallel/mesh.create_pp_mesh``, or :func:`pipeline_mesh` from the
+    config's ``pipeline`` key) places each block on its stage's ranks, cut
+    over 'tp' inside the stage where that axis has more than one rank
+    (``training/pp.shard_pp``), and the step runs the GPipe forward over
+    the global batch with the ``pipeline`` key's ``n_micro`` microbatches
+    (default 2 * pp_size; ``training/pp.make_pp_forward``)."""
 
     def __init__(self, cfg, device=None, mesh=None):
         from opensora_torch.parallel.context import set_mesh
-        from opensora_torch.parallel.mesh import DATA_AXIS, TP_AXIS
+        from opensora_torch.parallel.mesh import DATA_AXIS, PP_AXIS, TP_AXIS
         from opensora_torch.parallel.sharding import shard_params
         from opensora_torch.training.diffusion import TrainState, make_train_step
         from opensora_torch.training.lora import apply_lora, count_lora_params
@@ -117,8 +151,19 @@ class Trainer:
             self.logger.info("full finetune: %s parameters, computing in %s",
                              next(self.model.parameters()).dtype, self.model.dtype)
 
-        self.mesh = mesh if mesh is not None and mesh.shape[DATA_AXIS] * mesh.shape[TP_AXIS] > 1 else None
-        if self.mesh is not None:
+        pp = mesh is not None and PP_AXIS in mesh.shape
+        self.mesh = mesh if pp or mesh is not None and mesh.shape[DATA_AXIS] * mesh.shape[TP_AXIS] > 1 else None
+        forward_fn = None
+        if pp:
+            from opensora_torch.training.pp import make_pp_forward, shard_pp
+
+            if lora_cfg:
+                raise NotImplementedError(PIPELINE_LORA)
+            n_micro = dict(cfg.get("pipeline") or {}).get("n_micro") or 2 * mesh.shape[PP_AXIS]
+            shard_pp(mesh, self.model)
+            forward_fn = make_pp_forward(self.model, mesh, n_micro)
+            self.logger.info("MMDiT placed over the pipeline mesh %s, %d microbatches", mesh, n_micro)
+        elif self.mesh is not None:
             if lora_cfg:
                 raise NotImplementedError("LoRA over a 'data' or 'tp' mesh axis is not ported (ROADMAP Queue 1 "
                                           "item 1 (g))")
@@ -136,8 +181,9 @@ class Trainer:
         self.condition_config = cfg.get("condition_config")
         self.train_step = make_train_step(
             self.model, ema_decay=ema_decay, text_dropout_prob=dropout.get("t5", 0.0),
-            use_masked_loss=self.condition_config is not None, patch_size=self.patch_size,
+            use_masked_loss=self.condition_config is not None, patch_size=self.patch_size, forward_fn=forward_fn,
         )
+        self.place_batch = self.mesh is not None and forward_fn is None
         with torch.no_grad():
             self.null_txt = self.t5([""])
             self.null_vec = self.clip([""])
@@ -186,7 +232,7 @@ class Trainer:
             null_txt=fit_null_txt(self.null_txt, inp["txt"].shape[1]).expand_as(inp["txt"]).to(inp["txt"].dtype),
             null_vec=self.null_vec.expand_as(inp["y_vec"]).to(inp["y_vec"].dtype),
         )
-        if self.mesh is not None:
+        if self.place_batch:
             tb = make_global_batch(self.mesh, tb)
         with self.timers("step"):
             return self.train_step(self.state, tb, self.gen)
@@ -248,9 +294,10 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
     argv = list(sys.argv[1:] if argv is None else argv)
     device = _pop_flag(argv, ("--device",))
     cfg = parse_configs(argv)
-    for unported, item in (("pipeline", "(c)"), ("multi_host", "(e)")):
-        if cfg.get(unported):
-            raise NotImplementedError(f"{unported}: not ported (ROADMAP Queue 1 item 1 {item})")
+    if cfg.get("multi_host"):
+        raise NotImplementedError("multi_host: not ported (ROADMAP Queue 1 item 1 (e))")
+    if cfg.get("pipeline") and cfg.get("lora_config"):
+        raise NotImplementedError(PIPELINE_LORA)
     exp_dir = create_experiment_workspace(cfg)
     logger = create_logger(exp_dir)
     logger.info("experiment dir: %s", exp_dir)
@@ -259,7 +306,8 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
     dataloader, sampler = prepare_dataloader(
         dataset, batch_size=cfg.get("batch_size"), bucket_config=cfg.get("bucket_config"), seed=cfg.get("seed", 42),
     )
-    trainer = Trainer(cfg, device, mesh=train_mesh(cfg, device or "cuda"))
+    mesh = pipeline_mesh(cfg, device or "cuda") if cfg.get("pipeline") else train_mesh(cfg, device or "cuda")
+    trainer = Trainer(cfg, device, mesh=mesh)
     ckpt_io = CheckpointIO()
     start_epoch = start_step = global_step = 0
     if cfg.get("load"):

@@ -23,7 +23,10 @@ batch: the mean of the data ranks' means), sums the gradients of a shard's
 replicas on other devices, and takes the norm over each shard once; AdamW
 and the EMA run on the shards. A state dict is always in the unsharded
 layout (gathered on the host), so a checkpoint crosses between sharded and
-unsharded runs both ways.
+unsharded runs both ways. On a pipeline mesh (``training/pp.py``) the
+state's shards are placed by stage, and the step's forward is the
+pipeline's (``make_train_step(forward_fn=)``) on the global batch: the
+draws, the loss and the optimizer are the unsharded step's.
 """
 
 from __future__ import annotations
@@ -151,7 +154,9 @@ class TrainState:
                 st = adam["state"].pop(i) if consume else adam["state"][i]
                 cut = {k: pl.shard(st[k]) for k in ("exp_avg", "exp_avg_sq")}
                 for n, j in enumerate(idx):
-                    moments[j] = dict(step=st["step"], exp_avg=cut["exp_avg"][n], exp_avg_sq=cut["exp_avg_sq"][n])
+                    # a step count of each leaf's own: AdamW adds to it in place
+                    moments[j] = dict(step=st["step"].clone(), exp_avg=cut["exp_avg"][n],
+                                      exp_avg_sq=cut["exp_avg_sq"][n])
             if opt["acc"] is not None:
                 for j, x in zip(idx, pl.shard(opt["acc"][i])):
                     acc[j] = x
@@ -185,20 +190,24 @@ def match_opt_shardings(params: Dict[str, torch.Tensor], pspecs: dict, opt_state
     return out
 
 
-def shard_state(mesh, state: TrainState, model: nn.Module, fsdp: bool = True) -> TrainState:
-    """``state`` (of the unsharded ``model``) cut by :func:`state_shardings`:
-    the model's parameters into shards (``parallel/sharding.shard_params``,
-    in place), a new optimizer over the shards with the same settings and
-    the moments cut to match, the EMA cut tensor by tensor. Each full
-    parameter, moment and EMA tensor is freed as its shards are made."""
-    specs = state_shardings(mesh, state, fsdp)["params"]
+def shard_state(mesh, state: TrainState, model: nn.Module, fsdp: bool = True,
+                shardings: Optional[dict] = None) -> TrainState:
+    """``state`` (of the unsharded ``model``) cut by ``shardings`` (default
+    :func:`state_shardings`; on a pipeline mesh ``training/pp.
+    pp_state_shardings``, whose ``stages`` place each block): the model's
+    parameters into shards (``parallel/sharding.shard_params``, in place),
+    a new optimizer over the shards with the same settings and the moments
+    cut to match, the EMA cut tensor by tensor. Each full parameter, moment
+    and EMA tensor is freed as its shards are made."""
+    shardings = shardings or state_shardings(mesh, state, fsdp)
+    specs = shardings["params"]
     old, ema = state.optimizer, state.ema
     opt = old.state_dict()
     old.params.clear()  # the unsharded parameters are freed as they are cut
     old.adamw.param_groups.clear()
     old.adamw.state.clear()
     state.params = state.ema = None
-    shard_params(mesh, model, fsdp=fsdp, specs=specs)
+    shard_params(mesh, model, fsdp=fsdp, specs=specs, stages=shardings.get("stages"))
     sharded = TrainState.create(model, old.like([p for p in model.parameters() if p.requires_grad]), ema=False)
     sharded.step = state.step
     layout, leaves = sharded._layout(), list(sharded.params)
@@ -264,12 +273,18 @@ def make_train_step(
     sigma_min: float = 1e-5,
     use_masked_loss: bool = False,
     patch_size: int = 2,
+    forward_fn: Optional[Callable] = None,
 ) -> Callable:
     """``train_step(state, batch, generator=None, draws=None) -> metrics``:
     one rectified-flow step that updates ``state`` in place. ``draws``
     (t, x1 and, with text dropout, drop_txt / drop_vec) replaces the
     draws from ``generator``. Metrics: the loss and the global norm of the
     step's gradients, as 0-d tensors on the model's device.
+    ``forward_fn`` (the model's signature) replaces the model's forward on
+    the whole batch, e.g. the pipeline-parallel forward
+    (``training/pp.make_pp_forward``); the loss, the optimizer and the EMA
+    stay shared (the JAX package's ``forward_fn``,
+    opensora_tpu/training/diffusion.py:122).
 
     batch: x0 packed clean latent (B, L, C); img_ids (B, L, 3); txt,
     txt_ids, y_vec; cond (B, L, C + p^2) or None; masks (B, 1, T, H, W) or
@@ -279,12 +294,12 @@ def make_train_step(
 
     def train_step(state: TrainState, batch: Dict, generator: Optional[torch.Generator] = None,
                    draws: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
-        if state.sharding is not None:
+        if state.sharding is not None and forward_fn is None:
             loss = sharded_loss(model, state.sharding, batch, generator, draws, text_dropout_prob, loss_kw)
         else:
             if draws is None:
                 draws = draw_step(batch, text_dropout_prob, generator)
-            loss = compute_loss(model, batch, **loss_kw, **draws)
+            loss = compute_loss(forward_fn or model, batch, **loss_kw, **draws)
         loss.backward()
         params = list(state.params.values())
         if state.sharding is not None:

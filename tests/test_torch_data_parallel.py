@@ -420,7 +420,7 @@ def test_training_cli_names_the_queued_slices(tmp_path):
     with pytest.raises(NotImplementedError, match="LoRA over a 'data' or 'tp' mesh axis"):
         Trainer(parse_configs([str(lora)]), "cpu", mesh=_mesh(2, 1, 1))
 
-    cfg = tmp_path / "pp.py"
-    cfg.write_text(f"_base_ = [{DEMO!r}]\npipeline = dict(pp_size=2)\n")
-    with pytest.raises(NotImplementedError, match=r"pipeline: not ported \(ROADMAP Queue 1 item 1 \(c\)\)"):
+    cfg = tmp_path / "multi_host.py"
+    cfg.write_text(f"_base_ = [{DEMO!r}]\nmulti_host = True\n")
+    with pytest.raises(NotImplementedError, match=r"multi_host: not ported \(ROADMAP Queue 1 item 1 \(e\)\)"):
         main([str(cfg), "--device", "cpu"])

@@ -60,5 +60,6 @@ def test_scan_covers_every_module_of_the_port():
                    "parallel/mesh.py", "parallel/context.py", "parallel/comm.py", "ops/ring_flash.py", "ops/sp.py",
                    "utils/ckpt.py", "utils/safetensors_io.py", "vae_inference.py", "vae_stats.py",
                    "models/text/clip_tokenizer.py", "models/text/t5_tokenizer.py", "eval/metrics.py", "eval/vbench.py",
-                   "eval/aesthetic.py", "eval/clip_scorer.py", "eval/suites.py", "evaluate.py"):
+                   "eval/aesthetic.py", "eval/clip_scorer.py", "eval/suites.py", "evaluate.py",
+                   "parallel/pipeline.py", "training/pp.py", "parallel/vae_sharding.py"):
         assert os.path.join("opensora_torch", module) in scanned, module
