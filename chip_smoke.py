@@ -239,7 +239,28 @@ skipped); phase 23 encodes and decodes one 33-frame 256 x 256 clip with
 the full-width HunyuanVAE, its height over 2 and over 4 logical ranks,
 against the unsharded VAE, exact D = 512 launches, times, the peak, and
 two known-wrong variants that must fail (interior strip edges
-replicate-padded, per-strip group-norm statistics).
+replicate-padded, per-strip group-norm statistics). Phase 2 holds the
+D = 128 forward, and phase 2b the backward, at phase 22's PP x TP
+microbatch (1, 12, 8828, 128) and phase 24's per-process rank (2, 24,
+8828, 128).
+Training across processes (multi_host) on the card: phase 24 (after
+phase 22) starts two processes of this script with torchrun's variables
+(``--multi-process-worker DIR``); each joins the group as the training CLI
+does (both on cuda:0, so gloo, the CUDA tensors staged through host
+memory), builds Trainer(cfg, device, mesh=train_mesh(...)) over (data 2,
+1, 1) for phase 21's configuration, loads phase 21's saved state from a
+file and takes one step on its 2 rows of phase 21's batch from phase 21's
+generator states, held to phase 21's limits against the unsharded step
+(loss, norm, the masters' change summed over both processes' shards),
+exact launches per process, the peaks, the staged copies' device time;
+process 0 dropping the cross-process sum of the replicated gradients must
+fail the limits. On a host of two cards or more the same runs again, one
+process a card, over nccl (else it prints "nccl: not run"). Then
+``python -m torch.distributed.run --nproc-per-node 2 -m
+opensora_torch.train`` trains stage1.py at full width and 1 + 1 blocks
+for 2 steps of one seeded 33 x 256 x 256 clip a process: both exit 0, one
+log.txt writer, disjoint samples, and the checkpoint loads into a
+single-process Trainer equal to its file.
 Then it prints the card's name and power limit, one JSON line with the
 kernels' numbers, and last {"ok": true, "device": {...}}.
 
@@ -530,6 +551,8 @@ ATTENTION_CASES = [
     ("mmdit_joint_anchored", (3, 24, 8828, 128), None, 1.0),
     ("mmdit_joint_running_max", (3, 24, 8828, 128), None, 3.0),
     ("mmdit_tp4_rank", (3, 6, 8828, 128), None, 1.0),  # phase 20: 256px_tp.py, one of 4 tp ranks' heads
+    ("pp2_tp2_microbatch", (1, 12, 8828, 128), None, 1.0),  # phase 22 over (pp 2, tp 2): a 1-row microbatch's heads
+    ("multi_process_rank", (2, 24, 8828, 128), None, 1.0),  # phase 24: one process's data rank, 2 rows
     ("flux_image_768px", (1, 24, 2816, 128), None, 1.0),  # the t2i2v image stage: 2304 image + 512 text tokens
     # the high-compression paths (patch 1 over DC-AE latents, 512 text tokens):
     # t2v at 192 x 336 (32 x 6 x 11 latent tokens) and, at the 256px bucket's
@@ -792,6 +815,8 @@ BWD_CASES = [
     ("hc_train_128x256x256", (3, 24, 2560, 128), None),  # phase 16: 32 x 8 x 8 latent + 512 text tokens
     ("fsdp4_data_rank", (1, 24, 8828, 128), None),  # phase 21 over (4, 1, 1): one data rank's row
     ("dp2_tp2_rank", (2, 12, 8828, 128), None),  # phase 21 over (2, 1, 2): a rank's rows and heads
+    ("pp2_tp2_microbatch", (1, 12, 8828, 128), None),  # phase 22 over (pp 2, tp 2): a 1-row microbatch's heads
+    ("multi_process_rank", (2, 24, 8828, 128), None),  # phase 24: one process's data rank, 2 rows
     ("tail_bidirectional", (2, 3, 1000, 128), None),
     ("tail_frame_causal", (1, 2, 1000, 128), 96),
 ]
@@ -4631,6 +4656,15 @@ FSDP_SIZE = (192, 336)  # the 129-frame 256px bucket at 16:9
 FSDP_MESHES = (("dp2_tp2", (2, 1, 2)), ("fsdp4", (4, 1, 1)))
 
 
+def fsdp_cfg_args() -> list:
+    """Phase 21's configuration (stage1.py at HC_TRAIN_DEPTH, TP_ADAM, no
+    warmup) as ``parse_configs`` arguments (phase 24's processes parse it
+    too)."""
+    depth, single = HC_TRAIN_DEPTH
+    return [STAGE1_CFG, "--model.depth", str(depth), "--model.depth_single_blocks", str(single),
+            "--warmup_steps", "0", "--lr", str(TP_ADAM["lr"]), "--adam_eps", str(TP_ADAM["eps"])]
+
+
 def logical_mesh(device, sizes):
     from opensora_torch.parallel.mesh import MeshConfig, create_mesh
 
@@ -4941,8 +4975,7 @@ def run_fsdp_train_path(device, profile: bool = False, out_dir=None, carry=None)
     from opensora_torch.utils.train import single_frame_encodes
 
     depth, single = HC_TRAIN_DEPTH
-    cfg = parse_configs([STAGE1_CFG, "--model.depth", str(depth), "--model.depth_single_blocks", str(single),
-                         "--warmup_steps", "0", "--lr", str(TP_ADAM["lr"]), "--adam_eps", str(TP_ADAM["eps"])])
+    cfg = parse_configs(fsdp_cfg_args())
     n_blocks = depth + single
     log(f"[fsdp] stage1.py full finetune at full width, depth {depth}+{single}; one step unsharded, over "
         f"{[s for _, s in FSDP_MESHES]} from one state, then {FSDP_STEPS} FSDP steps; B={FSDP_BATCH}, "
@@ -5252,6 +5285,400 @@ def run_pp_train_path(device, carry: dict) -> dict:
                 launches={k: sum(r["launches"].get(k, 0) for r in runs.values()) for k in runs[PP_MESHES[0][0]]["expected"]})
 
 
+# Phase 24: training across processes (multi_host) on the one card. Part (a):
+# MP_WORLD worker processes of this script, started with torchrun's variables,
+# each joins the group as the training CLI does (parallel/distributed.
+# initialize: both on cuda:0, so gloo, the CUDA tensors staged through host
+# memory), builds Trainer(cfg, device, mesh=train_mesh(...)) over (data 2, 1,
+# 1) for phase 21's configuration, loads phase 21's saved state (a file the
+# parent writes), and takes one step on its 2 rows of phase 21's batch from
+# phase 21's generator states: held to the TP_TRAIN_* limits against phase
+# 21's unsharded step (the loss and norm every process reports, the masters'
+# change summed over the processes' shards), exact launches per process, the
+# peaks; the control (process 0's replicated gradients not summed across
+# processes) must fail them. Part (b): the training CLI under torchrun, two
+# processes, stage1.py at full width and MP_CLI_DEPTH blocks for MP_CLI_STEPS
+# steps of one seeded clip per process; its checkpoint loads into a
+# single-process Trainer.
+MP_WORLD = 2
+MP_WORKER = "--multi-process-worker"  # the worker's argument (part (a))
+MP_TIMEOUT = 600  # seconds for part (a)'s processes, and for part (b)'s run
+MP_GROUP_TIMEOUT = 300  # seconds a collective waits before it raises
+MP_CLI_DEPTH = (1, 1)
+MP_CLI_STEPS, MP_CLI_FRAMES, MP_CLI_SIZE, MP_CLI_BUCKET = 2, 33, 256, "256px"
+MP_CLI_CFG = """_base_ = [{base!r}]
+model = dict(depth={depth}, depth_single_blocks={single})
+bucket_config = {{"_delete_": True, {bucket!r}: {{{frames}: (1.0, 1)}}}}
+warmup_steps = 0
+log_every = 1
+ckpt_every = 1000
+epochs = 1
+"""
+
+
+def mp_launches(res: dict, kernel: str) -> dict:
+    """Phase 24's launches of ``kernel``, per part (a) run and process."""
+    return {tag: [r["launches"].get(kernel, 0) for r in run["processes"]] for tag, run in res["part_a"].items()}
+
+
+def torchrun_env(rank: int, world: int, port: int, **extra) -> dict:
+    """The variables torchrun sets for process ``rank`` of ``world`` on one
+    host."""
+    return dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost", MASTER_PORT=str(port), **extra)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def wait_all(procs, timeout: float, tag: str) -> None:
+    """Wait for every process; one that fails, or the time limit, stops the
+    others (each process is killed on the way out, in every case)."""
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, 9)
+                p.wait()
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        raise AssertionError(f"{tag}: exit codes {codes} (-9: stopped after a failure or the {timeout} s limit)")
+
+
+class StagingTimer:
+    """CUDA events around each staged copy of the gloo collectives
+    (``parallel/comm.staged_copy``) and the host seconds of each
+    torch.distributed call, while open."""
+
+    def __init__(self):
+        self.events, self.host_s, self.calls = [], 0.0, 0
+
+    def __enter__(self):
+        from opensora_torch.parallel import comm
+
+        staged = comm.staged_copy
+
+        def timed_copy(x, device):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = staged(x, device)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        def timed(op):
+            def run(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return op(*args, **kwargs)
+                finally:
+                    self.host_s += time.perf_counter() - t0
+                    self.calls += 1
+            return run
+
+        self.patches = [unittest.mock.patch.object(comm, "staged_copy", timed_copy)] + [
+            unittest.mock.patch.object(comm.dist, name, timed(getattr(comm.dist, name)))
+            for name in ("all_reduce", "all_gather", "reduce_scatter", "gather")]
+        for p in self.patches:
+            p.__enter__()
+        comm.STAGED.update(copies=0, bytes=0)
+        return self
+
+    def __exit__(self, *exc):
+        for p in reversed(self.patches):
+            p.__exit__(*exc)
+
+    def read(self) -> dict:
+        from opensora_torch.parallel import comm
+
+        torch.cuda.synchronize()
+        return dict(copies=comm.STAGED["copies"], bytes=comm.STAGED["bytes"],
+                    copies_device_ms=sum(a.elapsed_time(b) for a, b in self.events),
+                    collectives=self.calls, collectives_host_s=self.host_s)
+
+
+def _masters_change(state, start: dict, ref_change: dict) -> dict:
+    """The relative L2 of each master's change against phase 21's
+    unsharded change, over the whole parameter: each process sums the
+    squares of its shards (each shard counted on one process), the sums
+    are added over the processes."""
+    from opensora_torch.parallel.comm import process_all_reduce
+
+    names = list(state.sharding.placements)
+    sums = []
+    for name in names:
+        pl = state.sharding.placements[name]
+        acc = torch.zeros(2, dtype=torch.float64, device=pl.leaves[0].device)
+        for n, leaf in enumerate(pl.leaves):
+            if id(leaf) in state.optimizer.replica_ids:
+                continue
+            i, j = pl.keys[n][:2]
+            change = pl.piece(ref_change[name], i, j).to(leaf.device)
+            err = leaf.detach().float() - pl.piece(start[name], i, j).to(leaf.device) - change
+            acc += torch.stack([(err.double() ** 2).sum(), (change.double() ** 2).sum()])
+        sums.append(acc.cpu())
+    sums = process_all_reduce(torch.stack(sums))
+    upd = {n: float(sums[k, 0].sqrt() / sums[k, 1].sqrt().clamp(min=1e-30)) for k, n in enumerate(names)}
+    worst = max(upd, key=upd.get)
+    return dict(update_rel_l2_max=upd[worst], update_rel_l2_worst=worst,
+                update_rel_l2_median=sorted(upd.values())[len(upd) // 2])
+
+
+def multi_process_worker(root: str) -> int:
+    """Part (a) in one process: see the phase's comment."""
+    import datetime
+
+    from opensora_torch.ops import _build
+    from opensora_torch.parallel import distributed
+    from opensora_torch.parallel.comm import process_all_reduce
+    from opensora_torch.train import Trainer, train_mesh
+    from opensora_torch.utils.config import parse_configs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = distributed.initialize("cuda", timeout=datetime.timedelta(seconds=MP_GROUP_TIMEOUT))
+    rank = distributed.process_index()
+    data = torch.load(os.path.join(root, "inputs.pt"), mmap=True, weights_only=False)
+    t0 = time.perf_counter()
+    cfg = parse_configs(fsdp_cfg_args())
+    mesh = train_mesh(cfg, device)
+    trainer = Trainer(cfg, device, mesh=mesh)
+    snapshot = torch.load(os.path.join(root, "state.pt"), mmap=True, weights_only=False)
+    trainer.state.load_state_dict(snapshot)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    per = data["video"].shape[0] // distributed.process_count()
+    rows = slice(rank * per, (rank + 1) * per)
+    batch = {"video": data["video"][rows].to(device), "text": data["text"][rows]}
+    trainer.gen.set_state(data["rng_states"][0])
+    trainer.host_rng.bit_generator.state = data["rng_states"][1]
+    seen = {}
+    step = trainer.train_step
+
+    def recorded(state, tb, gen):  # the step's inputs, for the control
+        seen.update(tb=tb, gen_state=gen.get_state())
+        return step(state, tb, gen)
+
+    trainer.train_step = recorded
+    _build.LAUNCHES.clear()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    with StagingTimer() as staging:
+        m = trainer.run_batch(batch)
+        torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    free_b, total_b = torch.cuda.mem_get_info(device)
+    rec = dict(rank=rank, device=str(device), backend=distributed.backend(), mesh=repr(mesh),
+               loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), launches=dict(_build.LAUNCHES),
+               step_s=trainer.timers.to_dict()["time/step"], total_s=total_s, build_and_load_s=build_s,
+               mask_conds=trainer.mask_conds, rows=[rows.start, rows.stop], staging=staging.read(),
+               peak_mem_gb=torch.cuda.max_memory_allocated(device) / 1e9,
+               card_used_gb=(total_b - free_b) / 1e9, card_total_gb=total_b / 1e9)
+    rec.update(_masters_change(trainer.state, snapshot["params"], data["ref_change"]))
+
+    # the control: the step again from the saved state on the same inputs,
+    # process 0 dropping the cross-process sum of the replicated gradients
+    trainer.state.load_state_dict(snapshot)
+    gen = torch.Generator(device=device)
+    gen.set_state(seen["gen_state"])
+
+    def unsummed(flat):
+        process_all_reduce(flat)
+        return flat
+
+    with unittest.mock.patch("opensora_torch.parallel.sharding.process_all_reduce", unsummed) if rank == 0 \
+            else contextlib.nullcontext():
+        c = step(trainer.state, seen["tb"], gen)
+    rec["control"] = dict(loss=float(c["loss"]), grad_norm=float(c["grad_norm"]),
+                          **_masters_change(trainer.state, snapshot["params"], data["ref_change"]))
+    with open(os.path.join(root, f"result_{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    distributed.shutdown()
+    return 0
+
+
+def run_multi_process_path(device, carry: dict) -> dict:
+    """Phase 24 (see its comment): part (a) on the one card over gloo (and,
+    where the host has two cards or more, over nccl, one process a card),
+    then part (b)."""
+    ref, n_blocks = carry["ref"], carry["n_blocks"]
+    res = {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+    try:
+        t0 = time.perf_counter()
+        torch.save(carry["snapshot"], os.path.join(root, "state.pt"))
+        torch.save(dict(video=carry["batch"]["video"].cpu(), text=carry["batch"]["text"],
+                        rng_states=carry["rng_states"], ref_change=carry["ref_change"]), os.path.join(root, "inputs.pt"))
+        write_s = time.perf_counter() - t0
+        free()
+        res["parent_gb"] = dict(allocated=torch.cuda.memory_allocated(device) / 1e9,
+                                reserved=torch.cuda.memory_reserved(device) / 1e9)
+        log(f"[multi_process] phase 21's state and inputs written in {write_s:.1f} s; this process holds "
+            f"{res['parent_gb']['allocated']:.2f} GB on the card ({res['parent_gb']['reserved']:.2f} GB reserved)")
+        runs = {"gloo_one_card": dict(CUDA_VISIBLE_DEVICES=str(device.index or 0))}
+        if torch.cuda.device_count() >= MP_WORLD:
+            runs["nccl"] = {}
+        else:
+            log(f"[multi_process] nccl: not run ({torch.cuda.device_count()} CUDA device)")
+        res["part_a"] = {tag: _multi_process_part_a(root, tag, extra, ref, n_blocks) for tag, extra in runs.items()}
+        res["inputs_write_s"] = write_s
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res["cli"] = _multi_process_part_b(device)
+    return res
+
+
+def _multi_process_part_a(root: str, tag: str, extra_env: dict, ref: dict, n_blocks: int) -> dict:
+    from opensora_torch.utils.train import single_frame_encodes
+
+    port = free_port()
+    logs = [open(os.path.join(root, f"{tag}_worker_{r}.log"), "w") for r in range(MP_WORLD)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), MP_WORKER, root],
+                              env=torchrun_env(r, MP_WORLD, port, **extra_env), stdout=logs[r],
+                              stderr=subprocess.STDOUT, start_new_session=True) for r in range(MP_WORLD)]
+    try:
+        wait_all(procs, MP_TIMEOUT, f"multi_process {tag}")
+    except AssertionError:
+        for r in range(MP_WORLD):
+            logs[r].close()
+            with open(os.path.join(root, f"{tag}_worker_{r}.log")) as f:
+                log(f"[multi_process] {tag} process {r}'s output (end):\n{f.read()[-6000:]}")
+        raise
+    finally:
+        for f in logs:
+            f.close()
+    wall_s = time.perf_counter() - t0
+    recs = []
+    for r in range(MP_WORLD):
+        with open(os.path.join(root, f"result_{r}.json")) as f:
+            recs.append(json.load(f))
+        os.remove(os.path.join(root, f"result_{r}.json"))
+    for rec in recs:
+        log(f"[multi_process] {tag} process {rec['rank']}: backend {rec['backend']}, device {rec['device']}")
+    out = dict(processes=recs, wall_s=wall_s, tols=dict(loss=TP_TRAIN_LOSS_TOL, grad_norm=TP_TRAIN_NORM_TOL,
+                                                          update=TP_TRAIN_UPDATE_TOL))
+    log(f"[multi_process] {tag}: " + json.dumps(out))
+
+    def compare(r):
+        return dict(loss_rel=abs(r["loss"] - ref["loss"]) / abs(ref["loss"]),
+                    grad_norm_rel=abs(r["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"],
+                    update_rel_l2_max=r["update_rel_l2_max"])
+
+    def held(c):
+        return (c["loss_rel"] <= TP_TRAIN_LOSS_TOL and c["grad_norm_rel"] <= TP_TRAIN_NORM_TOL
+                and c["update_rel_l2_max"] <= TP_TRAIN_UPDATE_TOL)
+
+    out["vs_unsharded"] = [compare(r) for r in recs]
+    out["control_vs_unsharded"] = [compare(r["control"]) for r in recs]
+    for rec, c, cc in zip(recs, out["vs_unsharded"], out["control_vs_unsharded"]):
+        mine = rec["mask_conds"][rec["rows"][0]:rec["rows"][1]]
+        rec["expected"] = {"flash_attention_fwd_sm90": 2 * n_blocks, "flash_attention_bwd_fused": n_blocks,
+                           "flash_attention_bwd_dq_convert": n_blocks,
+                           "flash_attention_fwd_d512": len(mine) + single_frame_encodes(mine)}
+        if rec["launches"] != rec["expected"]:
+            raise AssertionError(f"multi_process {tag} process {rec['rank']}: launches {rec['launches']} != "
+                                 f"expected {rec['expected']}")
+        if not (rec["mask_conds"] == ref["mask_conds"] and held(c)):
+            raise AssertionError(f"multi_process {tag} process {rec['rank']} vs the unsharded step: {c}, mask "
+                                 f"conditions {rec['mask_conds']} vs {ref['mask_conds']}")
+        if held(cc):
+            raise AssertionError(f"multi_process {tag}: the control (process 0's replicated gradients not summed) "
+                                 f"passed the limits: {cc}")
+        check_peak(f"multi_process {tag} process {rec['rank']}", rec["peak_mem_gb"])
+    if sum(r["peak_mem_gb"] for r in recs) >= PEAK_LIMIT_GB:
+        raise AssertionError(f"multi_process {tag}: the processes' peaks add up to "
+                             f"{sum(r['peak_mem_gb'] for r in recs):.2f} GB")
+    return out
+
+
+def _multi_process_part_b(device) -> dict:
+    """Part (b): the training CLI under torchrun (see the phase's comment)."""
+    import re
+
+    from opensora_torch.train import Trainer
+    from opensora_torch.utils.ckpt import CheckpointIO
+    from opensora_torch.utils.config import parse_configs
+
+    depth, single = MP_CLI_DEPTH
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_mp_")
+    try:
+        csv = write_clip_csv(os.path.join(root, "clips"), n=MP_WORLD * MP_CLI_STEPS, frames=MP_CLI_FRAMES,
+                             size=MP_CLI_SIZE)
+        cfg_file = os.path.join(root, "stage1_mp.py")
+        with open(cfg_file, "w") as f:
+            f.write(MP_CLI_CFG.format(base=STAGE1_CFG, depth=depth, single=single, frames=MP_CLI_FRAMES,
+                                      bucket=MP_CLI_BUCKET))
+        out = os.path.join(root, "out")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(MP_WORLD), "--master-addr",
+               "localhost", "--master-port", str(free_port()), "-m", "opensora_torch.train", cfg_file,
+               "--multi_host", "True", "--outputs", out, "--exp_name", "mh", "--dataset.data_path", csv]
+        log(f"[multi_process_cli] {' '.join(cmd[2:])}")
+        t0 = time.perf_counter()
+        with open(os.path.join(root, "torchrun.log"), "w") as f:
+            proc = subprocess.Popen(cmd, cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), stdout=f,
+                                    stderr=subprocess.STDOUT, start_new_session=True)
+            try:
+                wait_all([proc], MP_TIMEOUT, "multi_process_cli")
+            except AssertionError:
+                with open(os.path.join(root, "torchrun.log")) as g:
+                    log(f"[multi_process_cli] torchrun's output (end):\n{g.read()[-8000:]}")
+                raise
+        wall_s = time.perf_counter() - t0
+        exp = os.path.join(out, "mh")
+        with open(os.path.join(exp, "log.txt")) as f:
+            text = f.read()
+        losses = [float(v) for v in re.findall(r" loss (-?\d+\.\d+|nan)", text)]
+        read = [json.loads(v) for v in re.findall(r"samples by process (\[.*\])", text)]
+        steps = [float(v) for v in re.findall(r"'time/step': (\d+\.\d+)", text)]
+        procs = re.findall(r"multi_host: (\d+) processes, backend (\w+), devices (\[.*\])", text)
+        ckpt = os.path.join(exp, f"epoch0-global_step{MP_CLI_STEPS}")
+        t1 = time.perf_counter()
+        saved = torch.load(os.path.join(ckpt, "state.pt"), map_location="cpu", weights_only=False)
+        trainer = Trainer(parse_configs([cfg_file]), device)
+        CheckpointIO().load(ckpt, trainer.state)
+        again = trainer.state.state_dict()
+        equal = (again["step"] == saved["step"] == MP_CLI_STEPS
+                 and all(torch.equal(again["params"][n].cpu(), p) and torch.equal(again["ema"][n].cpu(),
+                                                                                  saved["ema"][n])
+                         for n, p in saved["params"].items())
+                 and all(torch.equal(again["optimizer"]["adamw"]["state"][i][k].cpu(), st[k])
+                         for i, st in saved["optimizer"]["adamw"]["state"].items() for k in ("exp_avg", "exp_avg_sq")))
+        load_s = time.perf_counter() - t1
+        ckpt_gb = os.path.getsize(os.path.join(ckpt, "state.pt")) / 1e9
+        del trainer, again, saved
+        free()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res = dict(depth=[depth, single], wall_s=wall_s, losses=losses, step_s=steps, samples_by_process=read,
+               log_writers=text.count("experiment dir"), processes=procs, checkpoint_gb=ckpt_gb,
+               checkpoint_equal=equal, load_and_compare_s=load_s)
+    log("[multi_process_cli] " + json.dumps(res))
+    if len(procs) != 1 or int(procs[0][0]) != MP_WORLD:
+        raise AssertionError(f"multi_process_cli: the run's processes were not logged once: {procs}")
+    log(f"[multi_process_cli] backend {procs[0][1]}, the processes' devices {procs[0][2]}")
+    if not (len(losses) == MP_CLI_STEPS and all(math.isfinite(v) for v in losses)):
+        raise AssertionError(f"multi_process_cli: losses {losses}")
+    if res["log_writers"] != 1:
+        raise AssertionError(f"multi_process_cli: {res['log_writers']} log.txt writers")
+    if not (len(read) == MP_CLI_STEPS and all(not set(r[0]) & set(r[1]) for r in read)
+            and len({i for r in read for p in r for i in p}) == MP_WORLD * MP_CLI_STEPS):
+        raise AssertionError(f"multi_process_cli: the processes' samples {read} are not disjoint")
+    if not equal:
+        raise AssertionError("multi_process_cli: the checkpoint loaded into one process differs from the file")
+    return res
+
+
 # Phase 23: the full-width HunyuanVAE (stage1.py's ae, random bf16 weights from
 # seed 42) on one 33-frame 256 x 256 clip, encoded and decoded with its height
 # over VAE_CP_SP logical ranks, against the unsharded VAE on the card. The two
@@ -5483,6 +5910,8 @@ def ptxas_report(report: str) -> list:
 
 
 def main(argv) -> int:
+    if MP_WORKER in argv:  # one of phase 24's processes
+        return multi_process_worker(argv[argv.index(MP_WORKER) + 1])
     out_dir = argv[argv.index("--out-dir") + 1] if "--out-dir" in argv else None
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5564,6 +5993,7 @@ def main(argv) -> int:
     carry: dict = {}  # phase 21's saved state, batch and unsharded step, for phase 22
     fsdp_res = run_fsdp_train_path(device, "--profile" in argv, out_dir, carry)
     pp_res = run_pp_train_path(device, carry)
+    mp_res = run_multi_process_path(device, carry)
     del carry
     vae_cp_res = run_vae_cp_path(device)
     int8_res = run_int8_path(device, [], STEPS, "--profile" in argv, out_dir, "int8", records)
@@ -5624,6 +6054,7 @@ def main(argv) -> int:
         launches_tp=tp_res["launches"]["flash_attention_fwd_sm90"],
         launches_fsdp=fsdp_launches(fsdp_res, "flash_attention_fwd_sm90"),
         launches_pp=pp_launches(pp_res, "flash_attention_fwd_sm90"),
+        launches_multi_process=mp_launches(mp_res, "flash_attention_fwd_sm90"),
         max_abs_err=max([c["max_abs_err"] for c in sm90_cases] + [res_768["attention"]["max_abs_err"]]),
         ms=head["ms"], ms_is="flash_attention_with_lse (the bound A on the device, then the kernel), the mean of "
         "4 readings in turns with SDPA's 4 (library_ms)", anchor_ms=head["anchor_ms"],
@@ -5651,6 +6082,7 @@ def main(argv) -> int:
         launches_768px=dict(t2v_decode=res_768["launches"]["flash_attention_fwd_d512"],
                             t2i2v_encode_and_decode=t2i2v_768_res["launches"]["flash_attention_fwd_d512"]),
         launches_pp=pp_launches(pp_res, "flash_attention_fwd_d512"),
+        launches_multi_process=mp_launches(mp_res, "flash_attention_fwd_d512"),
         launches_vae_cp={f"sp{sp}": {w: r[w]["launches"]["flash_attention_fwd_d512"] for w in ("encode", "decode")}
                          for sp, r in vae_cp_res["sp"].items()},
         max_abs_err=max(c["max_abs_err"] for c in d512_cases),
@@ -5671,6 +6103,7 @@ def main(argv) -> int:
         launches_hc_train=hc_train_res["launches"]["flash_attention_bwd_fused"],
         launches_fsdp=fsdp_launches(fsdp_res, "flash_attention_bwd_fused"),
         launches_pp=pp_launches(pp_res, "flash_attention_bwd_fused"),
+        launches_multi_process=mp_launches(mp_res, "flash_attention_bwd_fused"),
         max_abs_err=max(c["max_abs_err"][g] for c in attn_bwd["cases"] for g in ("dq", "dk", "dv")),
         max_abs_err_is="dq (after the epilogue), dk and dv against the plain backward",
         ms=bwd_head["ms"]["flash_attention_bwd_fused"],
@@ -5694,6 +6127,7 @@ def main(argv) -> int:
         launches_hc_train=hc_train_res["launches"]["flash_attention_bwd_dq_convert"],
         launches_fsdp=fsdp_launches(fsdp_res, "flash_attention_bwd_dq_convert"),
         launches_pp=pp_launches(pp_res, "flash_attention_bwd_dq_convert"),
+        launches_multi_process=mp_launches(mp_res, "flash_attention_bwd_dq_convert"),
         max_abs_err=max(c["dq_convert_max_abs_err"] for c in attn_bwd["cases"]),
         max_abs_err_is="against its plain version on the same dq_accum",
         ms=bwd_head["ms"]["flash_attention_bwd_dq_convert"], plain_ms=bwd_head["dq_convert_plain_ms"],
@@ -5820,6 +6254,7 @@ def main(argv) -> int:
     log("[tp] " + json.dumps(tp_res))
     log("[fsdp] " + json.dumps(fsdp_res))
     log("[pp] " + json.dumps(pp_res))
+    log("[multi_process] " + json.dumps(mp_res))
     log("[vae_cp] " + json.dumps(vae_cp_res))
     log("[train] " + json.dumps(train_res))
     log("[int8] " + json.dumps(int8_res))

@@ -12,6 +12,7 @@ from typing import Iterator, List, Optional
 import numpy as np
 
 from opensora_torch.datasets.sampler import StatefulDistributedSampler, VariableVideoBatchSampler
+from opensora_torch.parallel import distributed
 
 
 def collate_fn_default(samples: List[Optional[dict]]) -> Optional[dict]:
@@ -82,9 +83,14 @@ class _Batched:
 
 def prepare_dataloader(dataset, batch_size: Optional[int] = None, bucket_config: Optional[dict] = None,
                        shuffle: bool = True, seed: int = 42, drop_last: bool = False,
-                       num_replicas: int = 1, rank: int = 0, prefetch: int = 2, **_):
+                       num_replicas: Optional[int] = None, rank: Optional[int] = None, prefetch: int = 2, **_):
     """(dataloader, sampler): bucketed batches when ``bucket_config`` is
-    given, else fixed-size batches of shuffled indices."""
+    given, else fixed-size batches of shuffled indices. ``num_replicas``
+    and ``rank`` default to the process group's (one process: 1 and 0), so
+    each process reads its own part of the same epoch's order
+    (opensora_tpu/datasets/dataloader.py:105-108)."""
+    num_replicas = distributed.process_count() if num_replicas is None else num_replicas
+    rank = distributed.process_index() if rank is None else rank
     kw = dict(num_replicas=num_replicas, rank=rank, shuffle=shuffle, seed=seed, drop_last=drop_last)
     if bucket_config is not None:
         sampler = VariableVideoBatchSampler(dataset, bucket_config, **kw)

@@ -290,7 +290,10 @@ class AutoencoderKLCausal3D(nn.Module):
             return self.spatial_tiled_encode(x)
         return self._encode_moments(x)
 
-    def _sample(self, moments: torch.Tensor, generator, sample_posterior: bool, noise):
+    def sample_moments(self, moments: torch.Tensor, generator: Optional[torch.Generator] = None,
+                       sample_posterior: bool = True, noise: Optional[torch.Tensor] = None):
+        """The posterior's moments -> (scaled latents: a sample, its noise
+        drawn from ``generator`` unless given, or the mode; the posterior)."""
         posterior = DiagonalGaussianDistribution(moments, dim=1)
         z = posterior.sample(generator, noise) if sample_posterior else posterior.mode()
         return self.config.scale_factor * (z - self.config.shift_factor), posterior
@@ -300,7 +303,7 @@ class AutoencoderKLCausal3D(nn.Module):
         """Video (B, 3, T, H, W) -> scaled latents (B, C, T', H', W'): a
         sample of the posterior (noise drawn from ``generator``, or the
         given ``noise``), or its mode."""
-        z, posterior = self._sample(self.encode_moments(x), generator, sample_posterior, noise)
+        z, posterior = self.sample_moments(self.encode_moments(x), generator, sample_posterior, noise)
         return (z, posterior) if return_posterior else z
 
     @staticmethod
@@ -382,7 +385,7 @@ class AutoencoderKLCausal3D(nn.Module):
         the encoder and the decoder in the backward; the posterior's draw
         sits between the two and is not repeated."""
         moments = checkpoint_if(grad_checkpoint, self.encode_moments, x)
-        z, posterior = self._sample(moments, generator, sample_posterior, noise)
+        z, posterior = self.sample_moments(moments, generator, sample_posterior, noise)
         return checkpoint_if(grad_checkpoint, self.decode, z), posterior, z
 
 

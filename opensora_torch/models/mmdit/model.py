@@ -222,15 +222,16 @@ class MMDiTModel(nn.Module):
         cut over the data ranks (all rows on data rank 0 where they do not
         divide, as the JAX package's ``constrain`` leaves them replicated),
         each run by :meth:`forward_rank`, the outputs joined on ``img``'s
-        device."""
+        device. Over processes, the rows are this process's, cut over its
+        data ranks."""
         from opensora_torch.parallel.data import row_slice
 
-        b, dp = img.shape[0], self.sharding.dp
-        pieces = dp if b % dp == 0 else 1
+        b, local = img.shape[0], self.sharding.mesh.local_data
+        pieces = len(local) if b % len(local) == 0 else 1
         outs = []
-        for d in range(pieces):
-            rows = row_slice(b, pieces, d)
-            out = self.forward_rank(d, img[rows], *(None if x is None else x[rows] for x in inputs))
+        for k in range(pieces):
+            rows = row_slice(b, pieces, k)
+            out = self.forward_rank(local[k], img[rows], *(None if x is None else x[rows] for x in inputs))
             outs.append(out.to(img.device))
         return torch.cat(outs, 0) if len(outs) > 1 else outs[0]
 

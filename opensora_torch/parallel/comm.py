@@ -33,14 +33,30 @@ process, on the rank's device:
 
 With ``sequential=True`` (always for CPU tensors) the same slot logic runs
 in program order on the caller's stream: no streams, no events.
+
+Across processes (a multi-process run, ``parallel/distributed.py``; only
+the mesh's 'data' axis crosses them) the collectives are
+``torch.distributed``'s over every process, each under a profiler span
+``"dist_collective"``: :func:`process_all_reduce` (sum),
+:func:`process_all_gather` (joined along a dim), :func:`process_reduce_scatter`
+(this process's piece of the sum), :func:`process_gather` (to one process)
+and :func:`process_gather_shards`, the FSDP all-gather as an autograd
+Function whose backward is the reduce-scatter of the gradients, summed in
+fp32. Under ``nccl`` they run on the tensors where they lie. Under ``gloo``
+a CUDA tensor is staged: copied to host memory (:func:`staged_copy`), the
+gloo op, copied back; ``STAGED`` counts those copies and their bytes (gloo
+is not asked to read device memory).
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
+
+from opensora_torch.parallel import distributed
 
 
 def shard(x: torch.Tensor, dim: int, devices: Sequence[torch.device]) -> List[torch.Tensor]:
@@ -170,6 +186,126 @@ def reduce_scatter(parts: Sequence[torch.Tensor], dim: int) -> List[torch.Tensor
         raise ValueError(f"dimension {dim} of {tuple(parts[0].shape)} does not split over {n} ranks")
     pieces = [p.chunk(n, dim) for p in parts]
     return [sum(pieces[j][i].to(parts[i].device).float() for j in range(n)).to(parts[i].dtype) for i in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# across processes
+# ---------------------------------------------------------------------------
+
+# the staged copies of the gloo collectives on CUDA tensors since the last
+# reset: how many, and their bytes
+STAGED = {"copies": 0, "bytes": 0}
+DIST_SPAN = "dist_collective"  # a profile's span of each collective across processes
+
+
+def staged_copy(x: torch.Tensor, device) -> torch.Tensor:
+    """A copy of ``x`` on ``device``: a gloo collective's host staging of a
+    CUDA tensor (into page-locked memory), or its way back. Counted in
+    ``STAGED``."""
+    STAGED["copies"] += 1
+    STAGED["bytes"] += x.numel() * x.element_size()
+    if torch.device(device).type == "cpu":
+        out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        out.copy_(x)
+        return out
+    return copy_to(x, device)
+
+
+def _transport_device() -> torch.device:
+    """Where the backend reads and writes: host memory for gloo, the
+    process's card for nccl."""
+    return torch.device("cpu") if distributed.backend() == "gloo" else distributed.group().device
+
+
+def _send_buffer(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x`` on the transport's device, which the
+    collective may read and overwrite (a staged copy for a CUDA tensor
+    under gloo)."""
+    dev = _transport_device()
+    return staged_copy(x.contiguous(), dev) if dev.type == "cpu" and x.device.type == "cuda" else copy_to(x, dev)
+
+
+def _receive_buffer(like: torch.Tensor) -> torch.Tensor:
+    """An empty transport buffer shaped like ``like`` (page-locked where
+    ``like`` is)."""
+    return torch.empty(like.shape, dtype=like.dtype, device=like.device, pin_memory=like.is_pinned())
+
+
+def _received(buf: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A transport buffer on ``like``'s device."""
+    if buf.device == like.device:
+        return buf
+    return staged_copy(buf, like.device) if buf.device.type == "cpu" and like.device.type == "cuda" else \
+        copy_to(buf, like.device)
+
+
+def process_all_reduce(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the processes of their ``x`` (same shape and dtype), a
+    new tensor on ``x``'s device."""
+    with torch.profiler.record_function(DIST_SPAN):
+        buf = _send_buffer(x)
+        dist.all_reduce(buf)
+        return _received(buf, x)
+
+
+def process_all_gather(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """The processes' ``x`` (same shape) joined along ``dim`` in process
+    order, on ``x``'s device (joined there)."""
+    with torch.profiler.record_function(DIST_SPAN):
+        buf = _send_buffer(x)
+        parts = [_receive_buffer(buf) for _ in range(distributed.process_count())]
+        dist.all_gather(parts, buf)
+        return torch.cat([_received(p, x) for p in parts], dim)
+
+
+def process_reduce_scatter(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Piece p (of process_count() equal pieces along ``dim``) of the sum
+    over the processes of their ``x``, on process p, on ``x``'s device
+    (the pieces cut where ``x`` lies)."""
+    n = distributed.process_count()
+    if x.shape[dim] % n:
+        raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not split over {n} processes")
+    with torch.profiler.record_function(DIST_SPAN):
+        pieces = [_send_buffer(c) for c in x.chunk(n, dim)]
+        out = _receive_buffer(pieces[0])
+        dist.reduce_scatter(out, pieces)
+        return _received(out, x)
+
+
+def process_gather(x: torch.Tensor, dst: int = 0) -> Optional[List[torch.Tensor]]:
+    """Every process's ``x`` (same shape), in process order, on process
+    ``dst`` (on ``x``'s device); None on the others."""
+    with torch.profiler.record_function(DIST_SPAN):
+        buf = _send_buffer(x)
+        parts = [_receive_buffer(buf) for _ in range(distributed.process_count())] \
+            if distributed.process_index() == dst else None
+        dist.gather(buf, parts, dst=dst)
+        return None if parts is None else [_received(p, x) for p in parts]
+
+
+class _GatherShards(torch.autograd.Function):
+    """Forward: this process's shards cast to ``dtype`` and joined along
+    ``dim`` on ``device``, then joined with the other processes' (the
+    FSDP all-gather). Backward: the reduce-scatter of the gradient, summed
+    in fp32, each shard receiving its slice in its own dtype."""
+
+    @staticmethod
+    def forward(ctx, dim, dtype, device, *shards):
+        ctx.dim, ctx.meta = dim, [(s.shape[dim], s.device, s.dtype) for s in shards]
+        local = torch.cat([s.to(device=device, dtype=dtype) for s in shards], dim)
+        return process_all_gather(local, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mine = process_reduce_scatter(grad.float(), ctx.dim)
+        pieces = mine.split([n for n, _, _ in ctx.meta], ctx.dim)
+        return (None, None, None, *(p.to(device=d, dtype=t) for p, (_, d, t) in zip(pieces, ctx.meta)))
+
+
+def process_gather_shards(shards: Sequence[torch.Tensor], dim: int, dtype, device) -> torch.Tensor:
+    """The FSDP all-gather across processes (see :class:`_GatherShards`):
+    ``shards`` are this process's, in 'data' order."""
+    return _GatherShards.apply(dim, dtype, torch.device(device), *shards)
 
 
 _STREAMS: Dict[Tuple[int, int, str], torch.cuda.Stream] = {}

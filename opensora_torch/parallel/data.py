@@ -8,6 +8,13 @@ on its rank's device, with the spec that cut it. A data rank reads its
 rows back with :meth:`Placed.rows` (tokens joined over its sp ranks: the
 sequence-parallel design computes outside the attention on the home
 device).
+
+Over processes (a mesh whose 'data' axis crosses them) each process gives
+its local rows, as ``jax.make_array_from_process_local_data`` takes them
+(opensora_tpu/parallel/data.py:52-73): the global batch is the processes'
+rows joined in process order, and a process holds the pieces of its own
+ranks only (None for the others'). The processes' batches must have the
+same shapes.
 """
 
 from __future__ import annotations
@@ -17,6 +24,8 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from opensora_torch.parallel import distributed
+from opensora_torch.parallel.comm import process_all_gather
 from opensora_torch.parallel.mesh import DATA_AXIS, SP_AXIS, Mesh
 from opensora_torch.parallel.sharding import constrain
 
@@ -41,21 +50,22 @@ def batch_sharding(mesh: Mesh, key: str, shape) -> Tuple[Optional[str], ...]:
 
 @dataclass
 class Placed:
-    """A global tensor cut over ``mesh``: ``shards[r]`` is rank r's piece,
-    on its device."""
+    """A global tensor (of ``shape``) cut over ``mesh``: ``shards[r]`` is
+    rank r's piece, on its device (None where another process holds the
+    rank)."""
 
     mesh: Mesh
     spec: Tuple[Optional[str], ...]
-    shards: List[torch.Tensor]
+    shards: List[Optional[torch.Tensor]]
     shape: torch.Size
 
     @property
     def device(self) -> torch.device:
-        return self.shards[0].device
+        return self.shards[self.mesh.local_ranks[0]].device
 
     def rows(self, d: int) -> torch.Tensor:
-        """Data rank ``d``'s rows, whole along every other dim, on the
-        device of rank (d, 0, 0)."""
+        """Data rank ``d``'s rows (a rank of this process), whole along
+        every other dim, on the device of rank (d, 0, 0)."""
         ranks = self.mesh.group(SP_AXIS, self.mesh.rank((d, 0, 0)))
         home = self.mesh.devices[ranks[0]]
         if SP_AXIS in self.spec:
@@ -63,38 +73,55 @@ class Placed:
         return self.shards[ranks[0]]
 
     def full(self, device=None) -> torch.Tensor:
-        """The global tensor on ``device`` (default: rank 0's)."""
+        """The global tensor on ``device`` (default: the first local
+        rank's); over processes, gathered from every process (every
+        process calls it)."""
         device = device or self.device
-        return torch.cat([self.rows(d).to(device) for d in range(self.mesh.shape[DATA_AXIS])], 0)
+        mine = torch.cat([self.rows(d).to(device) for d in self.mesh.local_data], 0)
+        return process_all_gather(mine) if self.mesh.n_processes > 1 else mine
 
 
 def place(mesh: Mesh, key: str, x: torch.Tensor) -> Placed:
-    """``x`` cut by :func:`batch_sharding`, one piece per rank on its device."""
+    """``x`` (this process's rows of the global batch) cut by
+    :func:`batch_sharding`, one piece per rank of this process on its
+    device."""
     spec = batch_sharding(mesh, key, x.shape)
-    dp, sp = mesh.shape[DATA_AXIS], mesh.shape[SP_AXIS]
-    shards = []
+    sp, local = mesh.shape[SP_AXIS], mesh.local_data
+    shards: List[Optional[torch.Tensor]] = []
     for r, dev in enumerate(mesh.devices):
+        if not mesh.is_local(r):
+            shards.append(None)
+            continue
         d, s, _ = mesh.coords(r)
-        piece = x[row_slice(x.shape[0], dp, d)]
+        piece = x[row_slice(x.shape[0], len(local), local.index(d))]
         if SP_AXIS in spec:
             piece = piece.chunk(sp, 1)[s]
         shards.append(piece.to(dev))
-    return Placed(mesh, spec, shards, x.shape)
+    return Placed(mesh, spec, shards, torch.Size((x.shape[0] * mesh.n_processes, *x.shape[1:])))
 
 
 def make_global_batch(mesh: Mesh, batch: Dict[str, Optional[torch.Tensor]]) -> Dict[str, Optional[Placed]]:
-    """Place a batch dict on the mesh (None stays None). A batch whose rows
-    do not divide over 'data' raises, with the JAX package's message."""
+    """Place a batch dict on the mesh (None stays None): over processes,
+    each process's entries are its local rows. A global batch whose rows
+    do not divide over 'data' raises, with the JAX package's message, and
+    so do processes whose batches differ in shape."""
     dp = mesh.shape[DATA_AXIS]
+    batch = {k: None if v is None else torch.as_tensor(v) for k, v in batch.items()}
+    if mesh.n_processes > 1:
+        shapes = {k: None if v is None else tuple(v.shape) for k, v in batch.items()}
+        every = distributed.all_gather_object(shapes)
+        if any(s != shapes for s in every):
+            raise ValueError(f"the processes' batches differ in shape: {every}; every process must give rows of "
+                             f"the same shapes (one bucket a step)")
     out: Dict[str, Optional[Placed]] = {}
     for key, val in batch.items():
         if val is None:
             out[key] = None
             continue
-        val = torch.as_tensor(val)
-        if val.shape[0] % dp != 0:
+        b_global = val.shape[0] * mesh.n_processes
+        if b_global % dp != 0:
             raise ValueError(
-                f"global batch {val.shape[0]} (key {key!r}) not divisible by the "
+                f"global batch {b_global} (key {key!r}) not divisible by the "
                 f"mesh 'data' axis ({dp}); set each bucket's batch size to a "
                 f"multiple of dp (configs bucket_config) or shrink dp_size"
             )

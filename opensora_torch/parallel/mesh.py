@@ -3,16 +3,25 @@ pipeline, and one device per rank (counterpart of
 opensora_tpu/parallel/mesh.py:33-105 and of ``create_pp_mesh``,
 opensora_tpu/training/pp.py:193-211).
 
-JAX drives a mesh from one controller process; the counterpart here is one
-process that holds every rank of the mesh and its device. Ranks are
-numbered in row-major order over the mesh's axes, as JAX flattens logical
-device ids; the middle axis is 'sp' or 'pp'. A device may appear more than once: several *logical ranks*
-then share one device, as the JAX package's tests put a mesh on virtual CPU
-devices. ``[torch.device("cuda", 0)] * 4`` is a 4-rank mesh on one card;
+JAX drives a mesh from one controller process per host; the counterpart
+here is one process that holds every rank of the mesh and its device, or,
+in a multi-process run (``parallel/distributed.py``), the ranks at its own
+'data' coordinates. Ranks are numbered in row-major order over the mesh's
+axes, as JAX flattens logical device ids; the middle axis is 'sp' or 'pp'.
+A device may appear more than once: several *logical ranks* then share one
+device, as the JAX package's tests put a mesh on virtual CPU devices.
+``[torch.device("cuda", 0)] * 4`` is a 4-rank mesh on one card;
 ``[torch.device("cuda", i) for i in range(4)]`` the same mesh over four
-cards of one host. Collectives between the ranks are moves between their
-tensors (``parallel/comm.py``); a transport across processes is not part of
-this module.
+cards of one host. Collectives between the ranks of a process are moves
+between their tensors (``parallel/comm.py``).
+
+Across processes, ``processes[r]`` names the process that holds rank r.
+'data' is the outermost axis, so each process holds a contiguous block of
+whole sp / tp / pp groups, as the hosts of a pod cut JAX's mesh
+(opensora_tpu/parallel/mesh.py:61-79); only the 'data' axis crosses
+processes. Two processes on one card both name their device ``cuda:0``, so
+a rank's identity is (process, device) (:meth:`Mesh.home_key`), never the
+device alone.
 """
 
 from __future__ import annotations
@@ -22,6 +31,8 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
+
+from opensora_torch.parallel import distributed
 
 DATA_AXIS = "data"
 SP_AXIS = "sp"
@@ -63,16 +74,49 @@ def _indexed(device: torch.device) -> torch.device:
     return device
 
 
-class Mesh:
-    """Axis sizes and the device of each rank (row-major over ``axes``:
-    ``AXES``, or ``PP_AXES`` for a pipeline)."""
+# a group other than 'data' across processes (see Mesh)
+SPANNING_GROUP = ("a mesh whose {axis} group spans processes is not ported: ROADMAP Queue 1 item 1 (e2), the ring "
+                  "kernels' KV transport, the TP all-reduce and the pipeline's sends across processes; lay the "
+                  "processes along 'data' only (each holding whole sp / tp / pp groups)")
 
-    def __init__(self, sizes: Sequence[int], devices: Sequence[torch.device], axes: Sequence[str] = AXES):
+
+class Mesh:
+    """Axis sizes, the device of each rank (row-major over ``axes``:
+    ``AXES``, or ``PP_AXES`` for a pipeline) and the process that holds it
+    (``processes``, default: this process for every rank). A group along an
+    axis other than 'data' must lie in one process."""
+
+    def __init__(self, sizes: Sequence[int], devices: Sequence[torch.device], axes: Sequence[str] = AXES,
+                 processes: Optional[Sequence[int]] = None):
         if len(sizes) != len(axes) or math.prod(sizes) != len(devices):
             raise ValueError(f"mesh {tuple(sizes)} over {len(devices)} devices")
         self.axes = tuple(axes)
         self.shape: Dict[str, int] = dict(zip(self.axes, (int(s) for s in sizes)))
         self.devices: List[torch.device] = [_indexed(torch.device(d)) for d in devices]
+        self.process = distributed.process_index()
+        self.processes: List[int] = [self.process] * len(self.devices) if processes is None else list(processes)
+        self.n_processes = len(set(self.processes))
+        if len(self.processes) != len(self.devices):
+            raise ValueError(f"{len(self.processes)} processes for {len(self.devices)} ranks")
+        for r in range(len(self.devices)):
+            c = self.coords(r)
+            if self.processes[r] != self.processes[self.rank((c[0],) + (0,) * (len(c) - 1))]:
+                axis = next(a for a, x in zip(self.axes[1:], c[1:]) if x)
+                raise NotImplementedError(SPANNING_GROUP.format(axis=repr(axis)))
+        if self.n_processes > 1 and sorted(set(self.processes)) != list(range(distributed.process_count())):
+            raise ValueError(f"a mesh over processes {sorted(set(self.processes))} in a run of "
+                             f"{distributed.process_count()}")
+        self.local_ranks: List[int] = [r for r, p in enumerate(self.processes) if p == self.process]
+        self.local_data: List[int] = self.process_data(self.process)
+
+    def process_data(self, process: int) -> List[int]:
+        """The 'data' coordinates of ``process``'s ranks, in order (a
+        contiguous run)."""
+        return sorted({self.coords(r)[0] for r, p in enumerate(self.processes) if p == process})
+
+    def is_local(self, rank: int) -> bool:
+        """Whether this process holds ``rank``."""
+        return self.processes[rank] == self.process
 
     def coords(self, rank: int) -> Tuple[int, ...]:
         out = []
@@ -105,37 +149,62 @@ class Mesh:
         pipeline stage."""
         return self.devices[self.rank((data, stage, tp))]
 
+    def home_key(self, data: int, tp: int, stage: int = 0) -> Tuple[int, torch.device]:
+        """The identity of :meth:`home`'s rank: (process, device)."""
+        r = self.rank((data, stage, tp))
+        return self.processes[r], self.devices[r]
+
     def __repr__(self) -> str:
         names = sorted({str(d) for d in self.devices})
-        return f"Mesh({self.shape}, {len(self.devices)} ranks on {', '.join(names)})"
+        procs = f" in {self.n_processes} processes" if self.n_processes > 1 else ""
+        return f"Mesh({self.shape}, {len(self.devices)} ranks on {', '.join(names)}{procs})"
+
+
+def _over_processes(devices: Optional[Sequence[torch.device]]) -> Tuple[List[torch.device], Optional[List[int]]]:
+    """The mesh's devices and their processes. In a multi-process run:
+    every process's ``devices`` (default: its own device), in process
+    order, as ``jax.devices()`` orders them; else ``devices`` (default:
+    every CUDA device of the host) and None."""
+    if distributed.process_count() == 1:
+        if devices is None:
+            devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        return list(devices), None
+    local = [str(_indexed(torch.device(d))) for d in (devices or [distributed.group().device])]
+    per = distributed.all_gather_object(local)
+    if len({len(p) for p in per}) != 1:
+        raise ValueError(f"the processes hold different numbers of ranks: {[len(p) for p in per]}")
+    return [torch.device(d) for p in per for d in p], [i for i, p in enumerate(per) for _ in p]
 
 
 def create_mesh(mesh_config: Union[MeshConfig, dict, None] = None,
                 devices: Optional[Sequence[torch.device]] = None) -> Mesh:
     """A mesh over ``devices`` (default: every CUDA device of the host, one
-    rank each)."""
+    rank each). In a multi-process run ``devices`` are this process's
+    (default: its device) and the mesh is over every process's, in process
+    order (a collective: every process calls it)."""
     if isinstance(mesh_config, dict):
         mesh_config = MeshConfig(**mesh_config)
     mesh_config = mesh_config or MeshConfig()
-    if devices is None:
-        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    devices, processes = _over_processes(devices)
     if not devices:
         raise RuntimeError("no devices for the mesh")
-    return Mesh(mesh_config.resolve(len(devices)), devices)
+    return Mesh(mesh_config.resolve(len(devices)), devices, processes=processes)
 
 
 def create_pp_mesh(pp: int, data: int = 1, tp: int = 1, devices: Optional[Sequence[torch.device]] = None) -> Mesh:
     """A (data, pp, tp) mesh over the first data * pp * tp of ``devices``
     (default: every CUDA device of the host), row-major; a device may
     repeat. ``tp`` > 1 cuts each pipeline stage's blocks over 'tp' (the
-    PP x TP hybrid, ``training/pp.py``)."""
+    PP x TP hybrid, ``training/pp.py``). In a multi-process run ``devices``
+    are this process's, each process's data / n_processes rows of the mesh
+    (a collective, as :func:`create_mesh`)."""
     n = data * pp * tp
-    if devices is None:
-        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    devices = list(devices)[:n]
+    devices, processes = _over_processes(devices)
+    if processes is None:
+        devices = devices[:n]
     if len(devices) != n:
         raise ValueError(f"a (data {data}, pp {pp}, tp {tp}) mesh needs {n} devices, got {len(devices)}")
-    return Mesh((data, pp, tp), devices, PP_AXES)
+    return Mesh((data, pp, tp), devices, PP_AXES, processes=processes)
 
 
 def local_batch_size(global_batch: int, mesh: Mesh) -> int:

@@ -33,7 +33,7 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from opensora_torch.parallel.comm import broadcast, send
-from opensora_torch.parallel.mesh import DATA_AXIS, PP_AXIS, TP_AXIS, Mesh
+from opensora_torch.parallel.mesh import PP_AXIS, TP_AXIS, Mesh
 
 Activation = List[Any]  # one pytree of tensors per tp rank
 
@@ -95,29 +95,31 @@ def pipeline_apply(
     """Run every microbatch through all stages (``pipeline_apply``,
     opensora_tpu/parallel/pipeline.py:63-166).
 
-    ``x_mb[d][m]``: data rank d's rows of microbatch m, on the devices of
-    stage 0 (ranks (d, 0, t)). ``stage_fn(stages[s], act, d, s)`` maps one
-    microbatch through stage s's layers on the ranks (d, s, ·) and returns
-    an activation of the same structure. Returns ``out[d][m][s]``: the last
-    stage's output, broadcast to stage s's devices (replicated over
-    ``axis``, as JAX's ``psum`` of the last stage's values leaves it)."""
+    ``x_mb[k][m]``: the rows of microbatch m of data rank d, the k-th of
+    this process's data coordinates (``Mesh.local_data``; one process: d =
+    k), on the devices of stage 0 (ranks (d, 0, t)). ``stage_fn(stages[s],
+    act, d, s)`` maps one microbatch through stage s's layers on the ranks
+    (d, s, ·) and returns an activation of the same structure. Returns
+    ``out[k][m][s]``: the last stage's output, broadcast to stage s's
+    devices (replicated over ``axis``, as JAX's ``psum`` of the last
+    stage's values leaves it)."""
     n_stages = mesh.shape[axis]
     if len(stages) != n_stages:
         raise ValueError(f"{len(stages)} stages over a '{axis}' axis of {n_stages}")
-    dp = mesh.shape.get(DATA_AXIS, 1)
+    local = mesh.local_data
     n_micro = len(x_mb[0])
-    received = {}  # (d, s, m): what stage s - 1 sent
-    out: List[List[Any]] = [[None] * n_micro for _ in range(dp)]
+    received = {}  # (k, s, m): what stage s - 1 sent
+    out: List[List[Any]] = [[None] * n_micro for _ in local]
     for tick in range(n_micro + n_stages - 1):
         for s in range(n_stages):
             m = tick - s
             if not 0 <= m < n_micro:
                 continue  # a bubble: no work
-            for d in range(dp):
-                act = x_mb[d][m] if s == 0 else received.pop((d, s, m))
+            for k, d in enumerate(local):
+                act = x_mb[k][m] if s == 0 else received.pop((k, s, m))
                 y = stage_fn(stages[s], act, d, s)
                 if s + 1 < n_stages:
-                    received[(d, s + 1, m)] = send_activation(y, stage_devices(mesh, d, s + 1, axis))
+                    received[(k, s + 1, m)] = send_activation(y, stage_devices(mesh, d, s + 1, axis))
                 else:
-                    out[d][m] = broadcast_activation(y, mesh, d, s, axis)
+                    out[k][m] = broadcast_activation(y, mesh, d, s, axis)
     return out

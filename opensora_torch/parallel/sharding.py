@@ -41,6 +41,17 @@ on that stage's devices only, and the ranks (d, s, t) of its stage read it
 in the scope (d, t, s). A parameter of no stage (the embedders, the final
 layer) is replicated on every stage's devices. PP cuts nothing over
 'data'.
+
+Over processes (a mesh whose 'data' axis crosses them,
+``parallel/mesh.py``) a process makes the leaves of its own 'data'
+coordinates only: a shard cut over 'data' lies in one process, a shard
+whole along 'data' in every process. A leaf's key is (i, j, (process,
+device)). The FSDP read joins the process's shards with the others' by
+``comm.process_gather_shards`` (its backward the reduce-scatter);
+:meth:`ModelSharding.sync_replica_grads` sums a shard held by every
+process across them (per device, in buckets); such a shard counts in the
+clip's norm on process 0 only (:meth:`ModelSharding.non_canonical`);
+:meth:`Placement.gather` brings a full tensor to process 0.
 """
 
 from __future__ import annotations
@@ -52,11 +63,21 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from opensora_torch.parallel.comm import all_reduce, copy_to, gather
+from opensora_torch.parallel import distributed
+from opensora_torch.parallel.comm import (
+    all_reduce,
+    copy_to,
+    gather,
+    process_all_reduce,
+    process_gather,
+    process_gather_shards,
+)
 from opensora_torch.parallel.context import get_mesh, get_scope, rank_scope
 from opensora_torch.parallel.mesh import DATA_AXIS, PP_AXIS, SP_AXIS, TP_AXIS, Mesh
 
 Spec = Tuple[Optional[str], ...]
+
+REPLICA_BUCKET = 1 << 26  # fp32 elements of one cross-process gradient sum (256 MB)
 
 _COL = r"(qkv|linear1|img_mlp\.0|txt_mlp\.0|q_proj|k_proj|v_proj|v_mlp)"
 _ROW = r"(proj|linear2|img_mlp\.2|txt_mlp\.2)"
@@ -128,10 +149,10 @@ def _tp_join(locals_: Sequence[torch.Tensor], dim: int, segments) -> torch.Tenso
 
 class Placement:
     """One parameter cut over the mesh: ``keys`` lists (data index, tp
-    index, device) of each leaf, one per distinct shard and device of the
-    ranks (d, s, t) that hold it (s: 0, or on a pipeline mesh its
-    ``stage``, every stage where it has none); ``leaves`` (set by
-    :func:`shard_params`) holds them."""
+    index, (process, device)) of each leaf, one per distinct shard and
+    device of this process's ranks (d, s, t) that hold it (s: 0, or on a
+    pipeline mesh its ``stage``, every stage where it has none); ``leaves``
+    (set by :func:`shard_params`) holds them."""
 
     def __init__(self, name: str, shape, spec: Spec, segments, sharding: "ModelSharding",
                  stage: Optional[int] = None):
@@ -142,17 +163,19 @@ class Placement:
         # ``q_proj.bias`` also ends in "proj.bias": the column rule comes first, as in the table
         self.row_bias = bool(re.fullmatch(rf".*{_ROW}\.bias", name)) and not re.fullmatch(rf".*{_COL}\.bias", name)
         mesh = sharding.mesh
-        self.keys: List[Tuple[int, int, torch.device]] = []
+        self.keys: List[Tuple[int, int, Tuple[int, torch.device]]] = []
         stages = range(sharding.pp) if stage is None else (stage,)
-        for d in range(sharding.dp):
+        for d in mesh.local_data:
             for s in stages:
                 for t in range(sharding.tp):
                     key = (d if self.data_dim is not None else 0, t if self.tp_dim is not None else 0,
-                           mesh.home(d, t, s))
+                           mesh.home_key(d, t, s))
                     if key not in self.keys:
                         self.keys.append(key)
         self.index = {k: i for i, k in enumerate(self.keys)}
         self.leaves: Optional[nn.ParameterList] = None
+        # held whole along 'data' by every process of a mesh across processes
+        self.on_every_process = sharding.across_processes and self.data_dim is None
 
     def piece(self, full: torch.Tensor, i: int, j: int) -> torch.Tensor:
         """Shard (i, j) of a tensor of the full shape (a view where it can be)."""
@@ -168,7 +191,7 @@ class Placement:
         owning its memory (``full`` itself where the key holds all of it on
         its device)."""
         out = []
-        for i, j, dev in self.keys:
+        for i, j, (_, dev) in self.keys:
             x = self.piece(full, i, j)
             out.append(full if x.shape == full.shape and full.device == dev else copy_to(x, dev))
         return out
@@ -180,32 +203,59 @@ class Placement:
             seen.setdefault((i, j), n)
         return list(seen.values())
 
-    def gather(self, tensors: Sequence[torch.Tensor], device=None) -> torch.Tensor:
+    def gather(self, tensors: Sequence[torch.Tensor], device=None) -> Optional[torch.Tensor]:
         """The full tensor from one tensor per key (the leaves, or their
-        gradients or optimizer moments), on ``device`` (default: the first's)."""
+        gradients or optimizer moments), on ``device`` (default: the
+        first's). Over processes every process calls it; process 0 gets the
+        tensor, the others None."""
         device = device or tensors[0].device
         by_shard = {self.keys[n][:2]: tensors[n].to(device) for n in self.canonical()}
+        if self.sharding.across_processes:
+            if self.data_dim is not None:
+                by_shard = self._from_every_process(by_shard)
+            if distributed.process_index() != 0:
+                return None
         n_i = self.sharding.dp if self.data_dim is not None else 1
         n_j = self.sharding.tp if self.tp_dim is not None else 1
         locals_ = [torch.cat([by_shard[(i, j)] for i in range(n_i)], self.data_dim) if self.data_dim is not None
                    else by_shard[(0, j)] for j in range(n_j)]
         return _tp_join(locals_, self.tp_dim, self.segments) if self.tp_dim is not None else locals_[0]
 
+    def _from_every_process(self, by_shard: Dict[Tuple[int, int], torch.Tensor]) -> Dict[Tuple[int, int], torch.Tensor]:
+        """This process's shards (i, j), and on process 0 every process's
+        (a gather to process 0: per process its shards stacked over j,
+        each joined over its 'data' indices i)."""
+        mine = sorted({i for i, _ in by_shard})
+        n_j = self.sharding.tp if self.tp_dim is not None else 1
+        stacked = torch.stack([torch.cat([by_shard[(i, j)] for i in mine], self.data_dim) for j in range(n_j)])
+        parts = process_gather(stacked)
+        if parts is None:
+            return by_shard
+        out = {}
+        for p, part in enumerate(parts):
+            coords = self.sharding.mesh.process_data(p)
+            for j in range(n_j):
+                for i, x in zip(coords, part[j].chunk(len(coords), self.data_dim)):
+                    out[(i, j)] = x
+        return out
+
     def local(self, d: int, t: int, dtype, s: int = 0) -> torch.Tensor:
         """What rank (d, s, t) computes with: its tp shard, cast to
         ``dtype``, then gathered over 'data' (FSDP) on its device."""
         if self.stage is not None and s != self.stage:
             raise RuntimeError(f"{self.name} belongs to pipeline stage {self.stage}, read in stage {s}'s scope")
-        dev = self.sharding.mesh.home(d, t, s)
+        mesh = self.sharding.mesh
+        dev = mesh.home(d, t, s)
         j = t if self.tp_dim is not None else 0
         if self.data_dim is None:
-            return self.leaves[self.index[(0, j, dev)]].to(dtype)
-        mesh = self.sharding.mesh
-        parts = [self.leaves[self.index[(i, j, mesh.home(i, t, s))]].to(dtype) for i in range(self.sharding.dp)]
+            return self.leaves[self.index[(0, j, mesh.home_key(d, t, s))]].to(dtype)
+        parts = [self.leaves[self.index[(i, j, mesh.home_key(i, t, s))]] for i in mesh.local_data]
         # the FSDP all-gather for the one rank that reads it; its gradient
         # is the reduce-scatter: each shard receives the sum of the data
         # ranks' gradients of its slice
-        return gather(parts, self.data_dim, dev)
+        if self.sharding.across_processes:
+            return process_gather_shards(parts, self.data_dim, dtype, dev)
+        return gather([p.to(dtype) for p in parts], self.data_dim, dev)
 
     def current(self) -> Optional[torch.Tensor]:
         scope = get_scope()
@@ -222,6 +272,7 @@ class ModelSharding:
     def __init__(self, mesh: Mesh, dtype: torch.dtype):
         self.mesh, self.dtype = mesh, dtype
         self.dp, self.tp, self.pp = mesh.shape[DATA_AXIS], mesh.shape[TP_AXIS], mesh.shape.get(PP_AXIS, 1)
+        self.across_processes = mesh.n_processes > 1
         self.placements: Dict[str, Placement] = {}
 
     def leaf_names(self) -> Dict[str, List[str]]:
@@ -244,18 +295,57 @@ class ModelSharding:
         return groups
 
     def non_canonical(self) -> set:
-        """The ids of the leaves that repeat a shard another leaf holds."""
-        keep = {id(pl.leaves[n]) for pl in self.placements.values() for n in pl.canonical()}
+        """The ids of the leaves that repeat a shard another leaf holds: in
+        this process, or, for a shard every process holds, on a process
+        other than 0."""
+        later = distributed.process_index() != 0
+        keep = {id(pl.leaves[n]) for pl in self.placements.values() if not (later and pl.on_every_process)
+                for n in pl.canonical()}
         return {id(p) for pl in self.placements.values() for p in pl.leaves if id(p) not in keep}
 
     @torch.no_grad()
     def sync_replica_grads(self) -> None:
         """Replicas on different devices each received their ranks' part
-        of the gradient: every replica gets the sum (the DP all-reduce)."""
+        of the gradient: every replica gets the sum (the DP all-reduce),
+        first over this process's devices, then, for a shard every process
+        holds, over the processes: fp32 all-reduces of at most
+        ``REPLICA_BUCKET`` elements, each of the leaves of one pipeline
+        stage and tp rank (on one device), so that no device holds
+        another's gradients."""
         for group in self.replicas():
             grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in group]
             for p, g in zip(group, all_reduce(grads)):
                 p.grad = g
+        # per (stage, tp index): the leaves of each shard every process holds,
+        # its first (this process's first data rank's) leading
+        shared: Dict[Tuple[int, int], List[List[nn.Parameter]]] = {}
+        for pl in self.placements.values():
+            if pl.on_every_process:
+                for n in pl.canonical():
+                    shard = pl.keys[n][:2]
+                    shared.setdefault((pl.stage or 0, shard[1]), []).append(
+                        [pl.leaves[m] for m, key in enumerate(pl.keys) if key[:2] == shard])
+        for where in sorted(shared):
+            for bucket in _buckets(shared[where], REPLICA_BUCKET):
+                grads = [g[0].grad if g[0].grad is not None else torch.zeros_like(g[0]) for g in bucket]
+                total = process_all_reduce(torch.cat([x.detach().float().flatten() for x in grads]))
+                for group, piece in zip(bucket, total.split([x.numel() for x in grads])):
+                    for p in group:
+                        p.grad = piece.view(p.shape).to(device=p.device, dtype=p.dtype)
+
+
+def _buckets(groups: List[List[nn.Parameter]], limit: int) -> List[List[List[nn.Parameter]]]:
+    """``groups`` in order, cut into runs of at most ``limit`` elements (of
+    their first leaves; a larger leaf makes a run of its own)."""
+    out: List[List[List[nn.Parameter]]] = [[]]
+    size = 0
+    for g in groups:
+        if out[-1] and size + g[0].numel() > limit:
+            out.append([])
+            size = 0
+        out[-1].append(g)
+        size += g[0].numel()
+    return out
 
 
 class RankGroup:
@@ -264,8 +354,11 @@ class RankGroup:
     scope."""
 
     def __init__(self, sharding: ModelSharding, data: int, stage: int = 0):
+        if data not in sharding.mesh.local_data:
+            raise RuntimeError(f"data rank {data} is another process's (this one holds {sharding.mesh.local_data})")
         self.sharding, self.data, self.stage, self.tp = sharding, data, stage, sharding.tp
         self.devices = [sharding.mesh.home(data, t, stage) for t in range(self.tp)]
+        self.keys = [sharding.mesh.home_key(data, t, stage) for t in range(self.tp)]
 
     @contextlib.contextmanager
     def at(self, t: int):
@@ -283,13 +376,13 @@ class RankGroup:
     def rep(self, fn: Callable[[int], object]) -> list:
         """A replicated computation: ``fn(t)`` once per distinct device, in
         the scope of its first rank, shared by the ranks on that device."""
-        done: Dict[torch.device, object] = {}
+        done: Dict[Tuple[int, torch.device], object] = {}
         out = []
-        for t, dev in enumerate(self.devices):
-            if dev not in done:
+        for t, key in enumerate(self.keys):
+            if key not in done:
                 with self.at(t):
-                    done[dev] = fn(t)
-            out.append(done[dev])
+                    done[key] = fn(t)
+            out.append(done[key])
         return out
 
     def row(self, linear: nn.Module, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:

@@ -24,8 +24,20 @@ cards where there are several (:func:`train_mesh`): data and tensor
 parallelism with FSDP (``parallel/sharding.py``, ``parallel/data.py``) and
 sequence parallelism over them. A ``pipeline = dict(pp_size, tp_size=1,
 data_size=None, n_micro=2 * pp_size)`` key trains over a (data, pp, tp)
-mesh instead (:func:`pipeline_mesh`; GPipe, ``training/pp.py``); multi-host
-runs are not ported.
+mesh instead (:func:`pipeline_mesh`; GPipe, ``training/pp.py``).
+
+``multi_host=True`` trains over processes that torchrun starts:
+
+    python -m torch.distributed.run --nproc-per-node N -m opensora_torch.train CFG --multi_host True
+
+Each process joins the group first (``parallel/distributed.initialize``:
+its card, ``nccl`` where each process has a card of its own, else
+``gloo``), and the mesh is over every process's device, the processes
+along 'data' (:func:`train_mesh`). Each process reads its own part of the
+data, encodes its rows (the posterior noise and the visual conditions drawn
+for the global batch and cut, as the step's draws are) and runs its data
+ranks; process 0 names the experiment directory, logs, writes the
+checkpoints, the metrics and the profile.
 """
 
 from __future__ import annotations
@@ -33,7 +45,7 @@ from __future__ import annotations
 import math
 import os
 import sys
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -57,9 +69,15 @@ def fit_null_txt(null_txt: torch.Tensor, txt_len: int) -> torch.Tensor:
 def train_mesh(cfg, device):
     """The config's ``mesh`` over the host's cards, or None where there is
     one (as ``inference.inference_mesh``): stage1.py's ``dp_size=-1`` and
-    stage2.py's ``sp_size=4`` then train on one card without a mesh."""
+    stage2.py's ``sp_size=4`` then train on one card without a mesh. In a
+    multi-process run, the mesh (default ``dp_size=-1``) over every
+    process's device, one rank each (a collective)."""
     from opensora_torch.inference import inference_mesh
+    from opensora_torch.parallel import distributed
+    from opensora_torch.parallel.mesh import MeshConfig, create_mesh
 
+    if distributed.process_count() > 1:
+        return create_mesh(MeshConfig(**(cfg.get("mesh") or {})))
     return inference_mesh(cfg, device)
 
 
@@ -69,18 +87,25 @@ def pipeline_mesh(cfg, device):
     cards (one device for another ``device`` type) // (pp_size * tp_size).
     The ranks go over the cards in order, consecutive ranks sharing a card
     where there are fewer cards than ranks (logical ranks)."""
+    from opensora_torch.parallel import distributed
     from opensora_torch.parallel.mesh import create_pp_mesh
 
     p = dict(cfg.pipeline)
     pp, tp = p["pp_size"], p.get("tp_size", 1)
     device = torch.device(device)
-    cards = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())] if device.type == "cuda"
-             else [device])
-    data = p.get("data_size") or len(cards) // (pp * tp)
-    if data < 1:
-        raise ValueError(f"pipeline {p}: {len(cards)} device(s) hold no pp_size x tp_size = {pp * tp} ranks; set "
-                         f"pipeline.data_size to lay the ranks over them as logical ranks")
-    n = data * pp * tp
+    n_proc = distributed.process_count()
+    if n_proc > 1:  # each process lays its rows of the mesh over its own device
+        cards = [distributed.group().device]
+    else:
+        cards = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())] if device.type == "cuda"
+                 else [device])
+    data = p.get("data_size") or n_proc * len(cards) // (pp * tp)
+    if data < 1 or data % n_proc:
+        raise ValueError(f"pipeline {p}: {len(cards)} device(s) in each of {n_proc} process(es) hold no pp_size x "
+                         f"tp_size = {pp * tp} ranks, or data_size does not divide over the processes; set "
+                         f"pipeline.data_size (a multiple of the processes) to lay the ranks over them as logical "
+                         f"ranks")
+    n = data // n_proc * pp * tp  # this process's ranks
     devices = cards[:n] if len(cards) >= n else [cards[r * len(cards) // n] for r in range(n)]
     return create_pp_mesh(pp, data, tp, devices)
 
@@ -104,7 +129,11 @@ class Trainer:
     over 'tp' inside the stage where that axis has more than one rank
     (``training/pp.shard_pp``), and the step runs the GPipe forward over
     the global batch with the ``pipeline`` key's ``n_micro`` microbatches
-    (default 2 * pp_size; ``training/pp.make_pp_forward``)."""
+    (default 2 * pp_size; ``training/pp.make_pp_forward``). A mesh across
+    processes (a multi-process run's :func:`train_mesh` /
+    :func:`pipeline_mesh`) gives each process its 'data' coordinates'
+    ranks; :meth:`run_batch` then takes the process's rows of the global
+    batch (:meth:`process_rows`)."""
 
     def __init__(self, cfg, device=None, mesh=None):
         from opensora_torch.parallel.context import set_mesh
@@ -210,13 +239,15 @@ class Trainer:
                                       torch.as_tensor(batch["text_clip"], device=dev), self.patch_size)
                 else:
                     x = torch.as_tensor(batch["video"], device=dev)
-                    x0 = self.ae.encode(x, generator=self.gen)
+                    rows = self.process_rows(x.shape[0])
+                    x0 = self.encode_rows(x, rows)
                     if self.condition_config is not None:
                         tc = self.ae.config.time_compression_ratio
-                        self.mask_conds = choose_mask_conditions(dict(self.condition_config), x.shape[0],
-                                                                 x0.shape[2], tc, self.host_rng)
-                        masks, cond = build_visual_condition(
-                            x, self.mask_conds, lambda xi: self.ae.encode(xi, generator=self.gen), x0, tc)
+                        # the global batch's draws
+                        self.mask_conds = choose_mask_conditions(dict(self.condition_config), rows.n, x0.shape[2],
+                                                                 tc, self.host_rng)
+                        mine = self.mask_conds[rows.start:rows.stop]
+                        masks, cond = build_visual_condition(x, mine, self.single_frame_encoder(x0, rows), x0, tc)
                         cond = pack(cond, patch_size=self.patch_size)
             with self.timers("encode_text"):
                 if not cfg.get("cached_video", False):
@@ -236,6 +267,52 @@ class Trainer:
             tb = make_global_batch(self.mesh, tb)
         with self.timers("step"):
             return self.train_step(self.state, tb, self.gen)
+
+    def process_rows(self, n_local: int) -> "Rows":
+        """This process's rows [p * n_local, (p + 1) * n_local) of the global
+        batch of n_local * n_processes rows (process p; one process holds
+        them all)."""
+        p, n = (self.mesh.process, self.mesh.n_processes) if self.mesh is not None else (0, 1)
+        return Rows(p * n_local, (p + 1) * n_local, n_local * n)
+
+    def encode_rows(self, x: torch.Tensor, rows: "Rows") -> torch.Tensor:
+        """The latents of this process's clips ``x``: the AE's posterior
+        noise drawn from the generator for the global batch, as one process
+        draws it for all the rows, and cut to ``rows``. An AE without
+        ``sample_moments`` draws its own rows' noise from the generator
+        (the 2-D AE), or none (the DC-AE)."""
+        if not hasattr(self.ae, "sample_moments"):
+            return self.ae.encode(x, generator=self.gen)
+        moments = self.ae.encode_moments(x)
+        noise = torch.randn((rows.n, moments.shape[1] // 2, *moments.shape[2:]), generator=self.gen,
+                            device=moments.device, dtype=torch.float32)
+        return self.ae.sample_moments(moments, noise=noise[rows.start:rows.stop])[0]
+
+    def single_frame_encoder(self, x0: torch.Tensor, rows: "Rows"):
+        """The encoder of the visual conditions' single frames: the noise of
+        every single frame the global batch encodes is drawn, in the global
+        batch's order, and this process's are used in turn."""
+        if not hasattr(self.ae, "sample_moments"):
+            return lambda xi: self.ae.encode(xi, generator=self.gen)
+        from opensora_torch.utils.train import single_frame_encodes
+
+        # build_visual_condition encodes no single frame at one latent frame
+        frames = single_frame_encodes if x0.shape[2] > 1 else (lambda conds: 0)
+        before = frames(self.mask_conds[:rows.start])
+        mine = frames(self.mask_conds[rows.start:rows.stop])
+        shape = (1, x0.shape[1], 1, *x0.shape[3:])
+        noises = [torch.randn(shape, generator=self.gen, device=x0.device, dtype=torch.float32)
+                  for _ in range(frames(self.mask_conds))]
+        ours = iter(noises[before:before + mine])
+        return lambda xi: self.ae.encode(xi, noise=next(ours))
+
+
+class Rows(NamedTuple):
+    """Rows [start, stop) of a global batch of ``n`` rows."""
+
+    start: int
+    stop: int
+    n: int
 
 
 class ProfileWindow:
@@ -285,6 +362,7 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
     """Run the CLI; returns the trainer after the last step."""
     import opensora_torch.datasets.datasets  # noqa: F401  (registers the datasets)
     from opensora_torch.datasets.dataloader import prepare_dataloader
+    from opensora_torch.parallel import distributed
     from opensora_torch.registry import DATASETS, build_module
     from opensora_torch.utils.ckpt import CheckpointIO
     from opensora_torch.utils.config import create_experiment_workspace, parse_configs
@@ -294,13 +372,22 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
     argv = list(sys.argv[1:] if argv is None else argv)
     device = _pop_flag(argv, ("--device",))
     cfg = parse_configs(argv)
+    main_process = True
     if cfg.get("multi_host"):
-        raise NotImplementedError("multi_host: not ported (ROADMAP Queue 1 item 1 (e))")
+        # multi-host: every process joins the group before anything else
+        # (scripts/diffusion/train.py:69-72)
+        device = distributed.initialize(device or "cuda")
+        main_process = distributed.is_main_process()
     if cfg.get("pipeline") and cfg.get("lora_config"):
         raise NotImplementedError(PIPELINE_LORA)
-    exp_dir = create_experiment_workspace(cfg)
+    # process 0 names the directory (a timestamped name could differ by a
+    # second between processes); the others take its name
+    exp_dir = distributed.broadcast_object(create_experiment_workspace(cfg) if main_process else None)
     logger = create_logger(exp_dir)
     logger.info("experiment dir: %s", exp_dir)
+    if cfg.get("multi_host"):
+        logger.info("multi_host: %d processes, backend %s, devices %s", distributed.process_count(),
+                    distributed.backend(), distributed.all_gather_object(str(device)))
 
     dataset = build_module(dict(cfg.dataset), DATASETS)
     dataloader, sampler = prepare_dataloader(
@@ -317,11 +404,12 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
             sampler.load_state_dict(sampler_state)
         logger.info("resumed at epoch %d step %d", start_epoch, start_step)
 
-    writer = MetricsWriter(exp_dir, use_wandb=cfg.get("wandb", False), config=cfg.to_dict())
+    writer = MetricsWriter(exp_dir, use_wandb=cfg.get("wandb", False), config=cfg.to_dict()) if main_process \
+        else None
     num_steps_per_epoch = len(dataloader)
     total_epochs = cfg.get("epochs", 1)
     log_every, ckpt_every = cfg.get("log_every", 1), cfg.get("ckpt_every", 1000)
-    window = ProfileWindow(cfg.get("profile"), exp_dir, trainer.device, logger)
+    window = ProfileWindow(cfg.get("profile") if main_process else None, exp_dir, trainer.device, logger)
     try:
         for epoch in range(start_epoch, total_epochs):
             sampler.set_epoch(epoch)
@@ -330,6 +418,9 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
                 with torch.profiler.record_function(f"train step to global_step {global_step + 1}"):
                     metrics = trainer.run_batch(batch)
                 global_step += 1
+                if distributed.process_count() > 1:  # which samples each process read
+                    read = distributed.all_gather_object([int(i) for i in batch.get("index", [])])
+                    logger.info("global_step %d samples by process %s", global_step, read)
                 window.after_step(global_step)
                 if global_step % log_every == 0:
                     loss, grad_norm = float(metrics["loss"]), float(metrics["grad_norm"])
@@ -338,7 +429,8 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
                     tdict = trainer.timers.to_dict()
                     logger.info("epoch %d step %d/%d global_step %d loss %.4f grad_norm %.3f %s",
                                 epoch, step, num_steps_per_epoch, global_step, loss, grad_norm, tdict)
-                    writer.log({"loss": loss, "grad_norm": grad_norm, **tdict}, global_step)
+                    if writer is not None:
+                        writer.log({"loss": loss, "grad_norm": grad_norm, **tdict}, global_step)
                 if global_step % ckpt_every == 0:
                     d = ckpt_io.save(exp_dir, trainer.state, epoch, step + 1, global_step,
                                      sampler_state=sampler.state_dict(step + 1) if hasattr(sampler, "state_dict")
@@ -349,7 +441,8 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
         window.close()
     d = ckpt_io.save(exp_dir, trainer.state, total_epochs - 1, num_steps_per_epoch, global_step)
     logger.info("checkpoint saved to %s", d)
-    writer.close()
+    if writer is not None:
+        writer.close()
     logger.info("training done")
     return trainer
 

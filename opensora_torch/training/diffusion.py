@@ -27,6 +27,18 @@ unsharded runs both ways. On a pipeline mesh (``training/pp.py``) the
 state's shards are placed by stage, and the step's forward is the
 pipeline's (``make_train_step(forward_fn=)``) on the global batch: the
 draws, the loss and the optimizer are the unsharded step's.
+
+Over processes (a mesh whose 'data' axis crosses them, each process given
+its local rows): every process draws the global batch's t, x1 and dropout
+choices from the same generator in the unsharded order and cuts its rows
+(JAX's ``r_step`` draw on the global array, scripts/diffusion/train.py:
+366-367); it runs its own data ranks; the loss the gradient flows through
+is their sum over every data rank divided by dp (:func:`process_mean`),
+its value the all-reduced mean; the gradients meet in the FSDP
+reduce-scatter and the replicas' all-reduce, the norm is summed across
+processes, and a state dict is gathered on process 0. A pipeline over
+processes runs each process's rows through its own data ranks' pipelines
+on the global batch's draws (:func:`process_draws`).
 """
 
 from __future__ import annotations
@@ -34,11 +46,14 @@ from __future__ import annotations
 import functools
 import math
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
+from opensora_torch.parallel import distributed
+from opensora_torch.parallel.comm import process_all_gather, process_all_reduce
 from opensora_torch.parallel.data import Placed, make_global_batch, row_slice
 from opensora_torch.parallel.sharding import ModelSharding, mesh_spec, mmdit_param_specs, shard_params
 from opensora_torch.utils.optimizer import Optimizer, global_norm
@@ -75,6 +90,7 @@ class TrainState:
         sharding = getattr(model, "sharding", None)
         if sharding is not None:
             optimizer.replica_ids = sharding.non_canonical()
+            optimizer.across_processes = sharding.across_processes
         return cls(params=params, optimizer=optimizer, ema=ema_params, sharding=sharding)
 
     def _layout(self) -> List[Tuple[str, object, List[int]]]:
@@ -85,7 +101,10 @@ class TrainState:
         return [(name, pl, [pos[n] for n in names[name]]) for name, pl in self.sharding.placements.items()
                 if names[name][0] in pos]
 
-    def state_dict(self) -> dict:
+    def state_dict(self) -> Optional[dict]:
+        """The state in the unsharded layout. A state cut across processes
+        is gathered on process 0 (every process calls it; the others get
+        None)."""
         if self.sharding is not None:
             return self._gathered_state_dict()
         return dict(
@@ -108,8 +127,9 @@ class TrainState:
                 e.copy_(state["ema"][n])
 
     @torch.no_grad()
-    def _gathered_state_dict(self) -> dict:
-        """The unsharded layout, each tensor gathered on the host."""
+    def _gathered_state_dict(self) -> Optional[dict]:
+        """The unsharded layout, each tensor gathered on the host (of
+        process 0, over processes)."""
         layout, leaves = self._layout(), list(self.params)
 
         def gather(per_leaf):
@@ -122,7 +142,7 @@ class TrainState:
                               for k in ("exp_avg", "exp_avg_sq")})
                    for i, (_, pl, idx) in enumerate(layout) if idx[0] in adam["state"]}
         groups = [dict(g, params=list(range(len(layout)))) for g in adam["param_groups"]]
-        return dict(
+        out = dict(
             step=self.step,
             params=gather({n: p.detach() for n, p in self.params.items()}),
             optimizer=dict(opt, adamw=dict(state=moments, param_groups=groups),
@@ -130,6 +150,7 @@ class TrainState:
                                                          for _, pl, idx in layout]),
             ema=None if self.ema is None else gather(self.ema),
         )
+        return out if distributed.process_index() == 0 or not self.sharding.across_processes else None
 
     def _sharded(self, state: dict) -> dict:
         """An unsharded-layout state dict cut into this state's shards."""
@@ -296,16 +317,23 @@ def make_train_step(
                    draws: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
         if state.sharding is not None and forward_fn is None:
             loss = sharded_loss(model, state.sharding, batch, generator, draws, text_dropout_prob, loss_kw)
+        elif state.sharding is not None and state.sharding.across_processes:
+            # a pipeline over processes: this process's rows, the global draws
+            if draws is None:
+                draws = process_draws(batch, text_dropout_prob, generator)
+            loss = process_mean(compute_loss(forward_fn, batch, **loss_kw, **draws), distributed.process_count())
         else:
             if draws is None:
                 draws = draw_step(batch, text_dropout_prob, generator)
             loss = compute_loss(forward_fn or model, batch, **loss_kw, **draws)
         loss.backward()
         params = list(state.params.values())
+        device = params[0].device
         if state.sharding is not None:
             state.sharding.sync_replica_grads()
             params = [p for p in params if id(p) not in state.optimizer.replica_ids]
-        grad_norm = global_norm([torch.zeros_like(p) if p.grad is None else p.grad for p in params])
+        grad_norm = global_norm([torch.zeros_like(p) if p.grad is None else p.grad for p in params],
+                                state.optimizer.across_processes, device)
         state.optimizer.step()
         state.optimizer.zero_grad()
         if state.ema is not None:
@@ -321,19 +349,38 @@ def sharded_loss(model: nn.Module, sharding: ModelSharding, batch: Dict, generat
     """The loss of a model sharded over a mesh: the batch placed (unless it
     is), the draws made over the global batch (as the unsharded step makes
     them: one generator, one order) and cut by rows, each data rank's loss
-    on its rows, their mean on the device of rank 0."""
+    on its rows (this process's data ranks), their mean on the device of
+    the first of them, then over the processes (:func:`process_mean`)."""
     mesh = sharding.mesh
     if not all(v is None or isinstance(v, Placed) for v in batch.values()):
         batch = make_global_batch(mesh, batch)
     if draws is None:
-        draws = draw_step(dict(x0=batch["x0"], shift_alpha=batch["shift_alpha"].full()), text_dropout_prob, generator)
-    b, home = batch["x0"].shape[0], mesh.home(0, 0)
+        draws = global_draws(batch, text_dropout_prob, generator)
+    b, home = batch["x0"].shape[0], mesh.home(mesh.local_data[0], 0)
     losses = []
-    for d in range(sharding.dp):
+    for d in mesh.local_data:
         rows = {k: None if v is None else v.rows(d) for k, v in batch.items()}
         cut = {k: v[row_slice(b, sharding.dp, d)].to(mesh.home(d, 0)) for k, v in draws.items()}
         losses.append(compute_loss(functools.partial(model.forward_rank, d), rows, **loss_kw, **cut).to(home))
-    return data_mean(losses)
+    return process_mean(data_mean(losses), mesh.n_processes)
+
+
+def global_draws(batch: Dict[str, Optional[Placed]], text_dropout_prob: float, generator) -> Dict:
+    """The step's draws over the placed global batch, as the unsharded step
+    draws them (every process alike)."""
+    return draw_step(dict(x0=batch["x0"], shift_alpha=batch["shift_alpha"].full()), text_dropout_prob, generator)
+
+
+def process_draws(batch: Dict, text_dropout_prob: float, generator) -> Dict:
+    """The step's draws for this process's rows (``batch``, unplaced) of
+    the global batch (the processes' rows joined in process order): drawn
+    over the global batch, as the unsharded step draws them, and cut."""
+    n, p = distributed.process_count(), distributed.process_index()
+    x0, rows = batch["x0"], batch["x0"].shape[0]
+    whole = SimpleNamespace(shape=torch.Size((rows * n, *x0.shape[1:])), device=x0.device)
+    draws = draw_step(dict(x0=whole, shift_alpha=process_all_gather(batch["shift_alpha"].float())),
+                      text_dropout_prob, generator)
+    return {k: v[p * rows:(p + 1) * rows] for k, v in draws.items()}
 
 
 def data_mean(losses) -> torch.Tensor:
@@ -341,6 +388,17 @@ def data_mean(losses) -> torch.Tensor:
     the loss of the global batch, whose gradient reaches each shard as the
     data ranks' gradients summed and divided by dp."""
     return torch.stack(losses).mean()
+
+
+def process_mean(loss: torch.Tensor, n_processes: int) -> torch.Tensor:
+    """Over ``n_processes`` processes, each holding the mean ``loss`` of
+    its data ranks: the mean over the processes (all-reduced), whose
+    gradient is that of ``loss / n_processes``: the data ranks' gradients
+    meet in the cross-process sums, so each is divided by dp once."""
+    if n_processes == 1:
+        return loss
+    mine = loss / n_processes
+    return mine - mine.detach() + process_all_reduce(mine.detach())
 
 
 def compute_shift_alpha(latent_h: int, latent_w: int, latent_t: int) -> float:

@@ -91,18 +91,20 @@ def make_pp_forward(model: nn.Module, mesh: Mesh, n_micro: int, axis: str = PP_A
                     data_axis: Optional[str] = DATA_AXIS) -> Callable:
     """The MMDiT forward with the block stacks as GPipe pipelines over
     ``mesh``'s ``axis`` (``make_pp_forward``, :119-190): the model's
-    signature, the global batch in, the output on ``img``'s device. The
-    model must be placed on ``mesh`` (:func:`shard_pp`). ``n_micro``
+    signature, the global batch in (over processes: this process's rows,
+    over its own data ranks), the output on ``img``'s device. The model
+    must be placed on ``mesh`` (:func:`shard_pp`). ``n_micro``
     microbatches must divide the batch (fill the pipeline with n_micro >=
-    2 * pp for a small bubble), and each microbatch's rows the 'data'
-    ranks."""
+    2 * pp for a small bubble), and each microbatch's rows the (process's)
+    'data' ranks."""
     n_stages = mesh.shape[axis]
     _check_depths(model, n_stages)
     sharding = model.sharding
     if sharding is None or sharding.mesh is not mesh:
         raise ValueError("make_pp_forward: place the model on the mesh first (training/pp.shard_pp)")
-    dp = mesh.shape[data_axis] if data_axis and data_axis in mesh.shape else 1
-    groups = {(d, s): RankGroup(sharding, d, s) for d in range(dp) for s in range(n_stages)}
+    local = mesh.local_data if data_axis and data_axis in mesh.shape else [0]
+    dp = len(local)
+    groups = {(d, s): RankGroup(sharding, d, s) for d in local for s in range(n_stages)}
     dbl = split_stages(model.double_blocks, n_stages)
     sgl = split_stages(model.single_blocks, n_stages)
 
@@ -140,9 +142,9 @@ def make_pp_forward(model: nn.Module, mesh: Mesh, n_micro: int, axis: str = PP_A
                 cut[id(p)] = [tree_map(lambda f: f.chunk(n_micro)[m], p) for m in range(n_micro)]
             return cut[id(p)]
 
-        for d in range(dp):
+        for k, d in enumerate(local):
             # data rank d's rows of every microbatch, microbatch by microbatch
-            rows = torch.cat([torch.arange(m * mb + d * per, m * mb + (d + 1) * per) for m in range(n_micro)])
+            rows = torch.cat([torch.arange(m * mb + k * per, m * mb + (k + 1) * per) for m in range(n_micro)])
             g = groups[(d, 0)]
             prep = g.rep(lambda t: model.prepare_block_inputs(
                 *(None if x is None else x[rows.to(x.device)].to(g.devices[t]) for x in inputs)))
@@ -150,11 +152,11 @@ def make_pp_forward(model: nn.Module, mesh: Mesh, n_micro: int, axis: str = PP_A
         outs = pipeline_apply(dbl_stage, dbl, x_mb, mesh, axis)
         n_txt = txt.shape[1]
         x_mb = []
-        for d in range(dp):
+        for k, d in enumerate(local):
             g = groups[(d, 0)]
             row = []
             for m in range(n_micro):
-                act = outs[d][m][0]
+                act = outs[k][m][0]
                 x = g.rep(lambda t: torch.cat([act[t][1], act[t][0]], dim=1))
                 row.append([(x[t], act[t][2], act[t][3]) for t in range(g.tp)])
             x_mb.append(row)
@@ -163,9 +165,9 @@ def make_pp_forward(model: nn.Module, mesh: Mesh, n_micro: int, axis: str = PP_A
         last = n_stages - 1
         pieces = []
         for m in range(n_micro):
-            for d in range(dp):
+            for k, d in enumerate(local):
                 g = groups[(d, last)]
-                act = outs[d][m][last]
+                act = outs[k][m][last]
                 y = g.rep(lambda t: model.final_layer(act[t][0][:, n_txt:], act[t][1]))[0]
                 pieces.append(y.to(img.device))
         return torch.cat(pieces, 0)

@@ -59,6 +59,7 @@ import torch.nn as nn
 
 from opensora_torch.ops.quant import quantize_weight
 from opensora_torch.ops.rope import permute_qk_weight
+from opensora_torch.parallel import distributed
 from opensora_torch.utils.safetensors_io import INDEX_SUFFIX, SafetensorsFile, Staging
 
 _CKPT_DIR = re.compile(r"epoch(\d+)-global_step(\d+)")
@@ -382,18 +383,28 @@ def load_checkpoint(module: nn.Module, path: str, kind: str = "mmdit", device=No
 
 
 class CheckpointIO:
+    """A train state's checkpoint directory: ``state.pt`` (the unsharded
+    layout), ``running_states.json`` and ``sampler_state.json``. In a
+    multi-process run every process calls :meth:`save` (the state's
+    gather is a collective); process 0 writes and deletes old checkpoints,
+    as opensora_tpu/utils/ckpt.py:603, 636 do, and a barrier follows, so
+    that no process returns before the files are whole."""
+
     def save(self, exp_dir: str, state, epoch: int, step: int, global_step: int,
              sampler_state: Optional[dict] = None, keep_n_latest: int = -1) -> str:
         d = os.path.join(os.path.abspath(exp_dir), f"epoch{epoch}-global_step{global_step}")
-        os.makedirs(d, exist_ok=True)
-        torch.save(state.state_dict(), os.path.join(d, "state.pt"))
-        with open(os.path.join(d, "running_states.json"), "w") as f:
-            json.dump({"epoch": epoch, "step": step, "global_step": global_step}, f)
-        if sampler_state is not None:
-            with open(os.path.join(d, "sampler_state.json"), "w") as f:
-                json.dump(sampler_state, f)
-        if keep_n_latest > 0:
-            self.rm_checkpoints(exp_dir, keep_n_latest)
+        sd = state.state_dict()
+        if distributed.is_main_process():
+            os.makedirs(d, exist_ok=True)
+            torch.save(sd, os.path.join(d, "state.pt"))
+            with open(os.path.join(d, "running_states.json"), "w") as f:
+                json.dump({"epoch": epoch, "step": step, "global_step": global_step}, f)
+            if sampler_state is not None:
+                with open(os.path.join(d, "sampler_state.json"), "w") as f:
+                    json.dump(sampler_state, f)
+            if keep_n_latest > 0:
+                self.rm_checkpoints(exp_dir, keep_n_latest)
+        distributed.barrier()
         return d
 
     def load(self, path: str, state) -> Tuple[object, dict, Optional[dict]]:

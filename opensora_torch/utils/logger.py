@@ -1,5 +1,7 @@
-"""The trainer's logger (counterpart of opensora_tpu/utils/logger.py): one
-process, to stdout and ``<exp_dir>/log.txt``."""
+"""The trainer's logger (counterpart of opensora_tpu/utils/logger.py): to
+stdout and ``<exp_dir>/log.txt`` from process 0 of a multi-process run (or
+the only process); the other processes' logger holds a ``NullHandler``,
+as the JAX package's process-0 logger does."""
 
 from __future__ import annotations
 
@@ -7,6 +9,8 @@ import logging
 import os
 import sys
 from typing import Optional
+
+from opensora_torch.parallel import distributed
 
 LOGGER_NAME = "opensora_torch"
 
@@ -17,6 +21,11 @@ def create_logger(exp_dir: Optional[str] = None, name: str = LOGGER_NAME) -> log
     ``exp_dir`` moves the file handler there; a call without one keeps the
     handlers as they are."""
     logger = logging.getLogger(name)
+    if not distributed.is_main_process():
+        if not logger.handlers:
+            logger.addHandler(logging.NullHandler())
+            logger.propagate = False
+        return logger
     fmt = logging.Formatter("[%(asctime)s] %(levelname)s %(message)s", datefmt="%Y-%m-%d %H:%M:%S")
     if not logger.handlers:
         logger.setLevel(logging.INFO)

@@ -62,12 +62,23 @@ def cosine_annealing_warmup_schedule(lr: float, warmup_steps: int, total_steps: 
     return join_schedules([linear_schedule(0.0, lr, warmup), cosine], [warmup])
 
 
-def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+def global_norm(tensors: Iterable[torch.Tensor], across_processes: bool = False, device=None) -> torch.Tensor:
     """sqrt of the sum of squares over all tensors, fp32, on the first
     tensor's device (the tensors may lie on several: a sharded state's
-    shards)."""
+    shards). ``across_processes``: the tensors are this process's part
+    (each shard counted on one process; there may be none, then the sum is
+    0 on ``device``), and the sums of squares are summed over the processes
+    before the square root, so every process gets the same norm."""
     norms = [torch.linalg.vector_norm(t.detach().float()) for t in tensors]
-    return torch.linalg.vector_norm(torch.stack([n.to(norms[0].device) for n in norms]))
+    if not across_processes:
+        return torch.linalg.vector_norm(torch.stack([n.to(norms[0].device) for n in norms]))
+    from opensora_torch.parallel.comm import process_all_reduce
+
+    # the squares summed in fp64, so that the order of the sum (per
+    # process, then over processes) leaves no trace in the fp32 norm
+    dev = norms[0].device if norms else device
+    squares = sum((n.double().to(dev) ** 2 for n in norms), torch.zeros((), dtype=torch.float64, device=dev))
+    return process_all_reduce(squares).sqrt().float()
 
 
 class Optimizer:
@@ -97,6 +108,9 @@ class Optimizer:
         # ids of parameters left out of the clip's norm: replicas of a shard
         # that another parameter holds (``parallel/sharding``), counted once
         self.replica_ids: set = set()
+        # the parameters are one process's part of a state cut across
+        # processes: the clip's norm sums over them
+        self.across_processes = False
 
     @torch.no_grad()
     def step(self) -> None:
@@ -116,7 +130,8 @@ class Optimizer:
             for a in self.acc:
                 a.zero_()
         if self.grad_clip:
-            norm = global_norm([g for p, g in zip(self.params, grads) if id(p) not in self.replica_ids])
+            norm = global_norm([g for p, g in zip(self.params, grads) if id(p) not in self.replica_ids],
+                               self.across_processes, self.params[0].device)
             grads = [torch.where(norm.to(g.device) >= self.grad_clip, g / norm.to(g.device) * self.grad_clip, g)
                      for g in grads]
         for p, g in zip(self.params, grads):

@@ -41,7 +41,7 @@ from opensora_torch.models.mmdit.model import MMDiTConfig, MMDiTModel
 from opensora_torch.parallel import data as tdata
 from opensora_torch.parallel import sharding as tsh
 from opensora_torch.parallel.context import set_mesh
-from opensora_torch.parallel.mesh import MeshConfig, create_mesh, local_batch_size
+from opensora_torch.parallel.mesh import Mesh, MeshConfig, create_mesh, local_batch_size
 from opensora_torch.training import diffusion as tdiff
 from opensora_torch.utils import optimizer as topt
 from opensora_torch.utils.ckpt import CheckpointIO
@@ -411,16 +411,26 @@ def test_state_shardings_give_moments_and_ema_their_parameters_specs():
     assert specs["params"]["double_blocks.0.img_attn.qkv.weight"] == ("tp", "data")
 
 
-def test_training_cli_names_the_queued_slices(tmp_path):
+def test_training_cli_names_the_queued_slices(tmp_path, monkeypatch):
+    from opensora_torch.parallel.distributed import ENV
     from opensora_torch.train import Trainer, main
     from opensora_torch.utils.config import parse_configs
+
+    for name in ENV:
+        monkeypatch.delenv(name, raising=False)
 
     lora = tmp_path / "lora.py"
     lora.write_text(f"_base_ = [{DEMO!r}]\nlora_config = dict(r=4)\ncached_video = True\n")
     with pytest.raises(NotImplementedError, match="LoRA over a 'data' or 'tp' mesh axis"):
         Trainer(parse_configs([str(lora)]), "cpu", mesh=_mesh(2, 1, 1))
 
+    # multi_host is ported for processes along 'data'; a tp group across
+    # processes stays queued, and multi_host outside torchrun names its
+    # variables
+    with pytest.raises(NotImplementedError, match=r"'tp' group spans processes .* ROADMAP Queue 1 item 1 \(e2\)"):
+        Mesh((1, 1, 2), [CPU, CPU], processes=[0, 1])
     cfg = tmp_path / "multi_host.py"
     cfg.write_text(f"_base_ = [{DEMO!r}]\nmulti_host = True\n")
-    with pytest.raises(NotImplementedError, match=r"multi_host: not ported \(ROADMAP Queue 1 item 1 \(e\)\)"):
+    with pytest.raises(RuntimeError, match="RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT "
+                                           "not set"):
         main([str(cfg), "--device", "cpu"])

@@ -61,5 +61,5 @@ def test_scan_covers_every_module_of_the_port():
                    "utils/ckpt.py", "utils/safetensors_io.py", "vae_inference.py", "vae_stats.py",
                    "models/text/clip_tokenizer.py", "models/text/t5_tokenizer.py", "eval/metrics.py", "eval/vbench.py",
                    "eval/aesthetic.py", "eval/clip_scorer.py", "eval/suites.py", "evaluate.py",
-                   "parallel/pipeline.py", "training/pp.py", "parallel/vae_sharding.py"):
+                   "parallel/pipeline.py", "training/pp.py", "parallel/vae_sharding.py", "parallel/distributed.py"):
         assert os.path.join("opensora_torch", module) in scanned, module

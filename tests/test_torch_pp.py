@@ -280,9 +280,9 @@ def test_pp_over_distinct_devices_sums_replica_gradients(jax_pp, monkeypatch):
     m_s = _step(tm_s, mesh_s, state_s, jax_pp)
     tm, mesh, state = _pp(jax_pp["params"], (2, 1, 2), devices)
     m = _step(tm, mesh, state, jax_pp)
-    assert [k[2] for k in tm.sharding.placements["img_in.weight"].keys] == devices
+    assert [k[2] for k in tm.sharding.placements["img_in.weight"].keys] == [(0, d) for d in devices]
     block = tm.sharding.placements["single_blocks.7.linear1.weight"]
-    assert block.stage == 1 and [k[2] for k in block.keys] == devices[2:]
+    assert block.stage == 1 and [k[2] for k in block.keys] == [(0, d) for d in devices[2:]]
     groups = tm.sharding.replicas()
     assert len(groups) > 10 and len(state.optimizer.replica_ids) == sum(len(g) - 1 for g in groups)
     for g in groups:

@@ -1,0 +1,388 @@
+"""The worker side of tests/test_torch_multi_process.py: functions that run
+in each of the processes a test starts, and :class:`Processes`, which
+starts them.
+
+Imports torch and the port only: the workers are started with the
+``spawn`` method (the pytest process has JAX initialised, so ``fork`` is
+unsafe), and each imports this module afresh. A worker joins a gloo group
+on the CPU through ``opensora_torch.parallel.distributed.initialize`` with
+the variables torchrun would set, runs its function, and saves the result
+for the test to read.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import datetime
+import multiprocessing
+import os
+import socket
+import tempfile
+import time
+import traceback
+import unittest.mock
+from typing import Optional
+
+import numpy as np
+import torch
+
+CPU = torch.device("cpu")
+JOIN_TIMEOUT = 120.0  # seconds a test waits for its processes
+GROUP_TIMEOUT = datetime.timedelta(seconds=90)  # a collective that waits longer raises
+
+
+def free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _entry(fn, rank: int, world: int, port: int, out: str) -> None:
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    torch.set_num_threads(1)
+    from opensora_torch.parallel import distributed
+
+    try:
+        distributed.initialize("cpu", timeout=GROUP_TIMEOUT)
+        result = fn(*torch.load(f"{out}.args.pt", weights_only=False))
+        torch.save(result, f"{out}.{rank}.pt")
+    except BaseException:
+        with open(f"{out}.{rank}.err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        distributed.shutdown()
+
+
+class Processes:
+    """``fn(*args)`` in ``world`` spawned processes of one gloo group,
+    started at once; :meth:`results` waits for them (the caller may work
+    meanwhile) and returns their results in process order. A process that
+    fails or outlives ``timeout`` (counted from the start) fails it; the
+    others are stopped. ``args`` go through a file: a start then returns
+    at once, where a pipe larger than its buffer would wait for the child
+    to import torch."""
+
+    def __init__(self, fn, *args, world: int = 2, timeout: float = JOIN_TIMEOUT):
+        ctx = multiprocessing.get_context("spawn")
+        self.tmp = tempfile.TemporaryDirectory()
+        self.out, self.world = os.path.join(self.tmp.name, "result"), world
+        torch.save(args, f"{self.out}.args.pt")
+        port = free_port()
+        self.procs = [ctx.Process(target=_entry, args=(fn, r, world, port, self.out)) for r in range(world)]
+        for p in self.procs:
+            p.start()
+        self.deadline = time.monotonic() + timeout
+        self.timeout = timeout
+
+    def results(self) -> list:
+        out, world = self.out, self.world
+        try:
+            for p in self.procs:
+                p.join(max(0.0, self.deadline - time.monotonic()))
+            hung = [r for r, p in enumerate(self.procs) if p.is_alive()]
+            errors = {r: open(f"{out}.{r}.err").read() for r in range(world) if os.path.exists(f"{out}.{r}.err")}
+            if hung:
+                raise AssertionError(f"processes {hung} still ran after {self.timeout} s; errors: {errors}")
+            codes = [p.exitcode for p in self.procs]
+            if any(codes) or errors:
+                raise AssertionError(f"exit codes {codes}; errors: {errors}")
+            return [torch.load(f"{out}.{r}.pt", weights_only=False) for r in range(world)]
+        finally:
+            for p in self.procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+            self.tmp.cleanup()
+
+
+def run_calls(calls) -> list:
+    """Each (function name of this module, args, kwargs) of ``calls`` in
+    turn, in every process: one start-up for many cases."""
+    return [globals()[name](*args, **kwargs) for name, args, kwargs in calls]
+
+
+# ----------------------------------------------------------------------
+# the sharded train step over processes
+# ----------------------------------------------------------------------
+
+
+def port_state(params: dict, geom: dict, opt: dict):
+    """The port's MMDiT from the JAX package's numpy params (fp32), and its
+    train state with an EMA."""
+    from opensora_torch.models.mmdit.model import MMDiTConfig, MMDiTModel
+    from opensora_torch.training import diffusion as tdiff
+    from opensora_torch.utils import optimizer as topt
+    from opensora_torch.utils.weights import load_numpy_state_dict, mmdit_state_dict
+
+    tm = MMDiTModel(MMDiTConfig(**geom, dtype="fp32", attn_backend="xla", remat=True), device="meta",
+                    dtype=torch.float32)
+    load_numpy_state_dict(tm, {k: v.copy() for k, v in mmdit_state_dict(params).items()})
+    tm.requires_grad_(True)
+    return tm, tdiff.TrainState.create(tm, topt.create_optimizer(list(tm.parameters()), **opt), ema=True)
+
+
+def local_rows(batch: dict) -> dict:
+    """This process's rows of a global numpy batch, as torch tensors."""
+    from opensora_torch.parallel import distributed
+
+    p, n = distributed.process_index(), distributed.process_count()
+    out = {}
+    for k, v in batch.items():
+        per = v.shape[0] // n
+        out[k] = torch.from_numpy(np.ascontiguousarray(v[p * per:(p + 1) * per]))
+    return out
+
+
+def _unsummed(flat):
+    """Known-wrong: the replicated leaves' gradients are not summed across
+    processes (the all-reduce runs, its sum is dropped)."""
+    from opensora_torch.parallel.comm import process_all_reduce
+
+    process_all_reduce(flat)
+    return flat
+
+
+def _local_draws(batch, text_dropout_prob, generator):
+    """Known-wrong: each process draws t, x1 and the dropout choices for its
+    own rows only (every process's rows get the same draws)."""
+    from opensora_torch.parallel import distributed
+    from opensora_torch.training.diffusion import draw_step
+
+    mesh = batch["x0"].mesh
+    x0 = torch.cat([batch["x0"].rows(d) for d in mesh.local_data])
+    alpha = torch.cat([batch["shift_alpha"].rows(d) for d in mesh.local_data])
+    draws = draw_step(dict(x0=x0, shift_alpha=alpha), text_dropout_prob, generator)
+    return {k: torch.cat([v] * distributed.process_count()) for k, v in draws.items()}
+
+
+def _undivided(loss, n_processes):
+    """Known-wrong: the loss is not divided across processes (its value the
+    mean, its gradient the process's own mean's)."""
+    from opensora_torch.parallel.comm import process_all_reduce
+
+    return loss - loss.detach() + process_all_reduce(loss.detach() / n_processes)
+
+
+VARIANTS = {
+    "right": None,
+    "unsummed": ("opensora_torch.parallel.sharding.process_all_reduce", _unsummed),
+    "local_draws": ("opensora_torch.training.diffusion.global_draws", _local_draws),
+    "undivided": ("opensora_torch.training.diffusion.process_mean", _undivided),
+}
+
+
+def _gathered(state) -> dict:
+    """A state dict gathered on process 0 (None elsewhere), with the AdamW
+    moments by parameter name."""
+    sd = state.state_dict()
+    if sd is None:
+        return None
+    names = list(sd["params"])
+    moments = {names[i]: {k: st[k] for k in ("exp_avg", "exp_avg_sq")}
+               for i, st in sd["optimizer"]["adamw"]["state"].items()}
+    return dict(params=sd["params"], ema=sd["ema"], moments=moments, step=sd["step"])
+
+
+def sharded_steps(params, batch, geom, opt, sizes, draws=None, seed=None, variant="right", n_steps=2,
+                  prob=0.5, ckpt_dir=None) -> dict:
+    """``n_steps`` steps of the full-finetune train step over a (dp, sp, tp)
+    mesh whose 'data' axis crosses the processes, from the JAX package's
+    params, each process given its rows of ``batch``: with ``draws`` (a
+    list per step, the global batch's) or drawn from a generator seeded
+    ``seed``, under the named known-wrong ``variant``. Returns the metrics
+    per step, and on process 0 the gathered state; ``ckpt_dir``: the state
+    is also saved there by ``CheckpointIO`` (every process calls it)."""
+    from opensora_torch.parallel.context import set_mesh
+    from opensora_torch.parallel.mesh import MeshConfig, create_mesh
+    from opensora_torch.training import diffusion as tdiff
+    from opensora_torch.utils.ckpt import CheckpointIO
+
+    dp, sp, tp = sizes
+    mesh = create_mesh(MeshConfig(dp, sp, tp), [CPU] * (dp * sp * tp // 2))
+    set_mesh(mesh)
+    tm, state = port_state(params, geom, opt)
+    state = tdiff.shard_state(mesh, state, tm, fsdp=True)
+    step = tdiff.make_train_step(tm, ema_decay=0.9, text_dropout_prob=prob, use_masked_loss=True)
+    mine = local_rows(batch)
+    gen = None if seed is None else torch.Generator().manual_seed(seed)
+    patch = VARIANTS[variant]
+    metrics = []
+    with unittest.mock.patch(patch[0], patch[1]) if patch else contextlib.nullcontext():
+        for i in range(n_steps):
+            m = step(state, mine, generator=gen, draws=None if draws is None else draws[i])
+            metrics.append({k: float(v) for k, v in m.items()})
+    leaves = sum(p.numel() for p in state.params.values())
+    out = dict(metrics=metrics, state=_gathered(state), mesh=repr(mesh), local_leaf_numel=leaves,
+               replica_ids=len(state.optimizer.replica_ids))
+    if ckpt_dir is not None:
+        out["ckpt"] = CheckpointIO().save(ckpt_dir, state, 0, n_steps, n_steps)
+    set_mesh(None)
+    return out
+
+
+def load_sharded(params, geom, opt, sizes, ckpt) -> dict:
+    """A 2-process sharded state (from ``params``) loaded from an unsharded
+    state's checkpoint, gathered on process 0."""
+    from opensora_torch.parallel.context import set_mesh
+    from opensora_torch.parallel.mesh import MeshConfig, create_mesh
+    from opensora_torch.training import diffusion as tdiff
+    from opensora_torch.utils.ckpt import CheckpointIO
+
+    dp, sp, tp = sizes
+    mesh = create_mesh(MeshConfig(dp, sp, tp), [CPU] * (dp * sp * tp // 2))
+    set_mesh(mesh)
+    tm, state = port_state(params, geom, opt)
+    state = tdiff.shard_state(mesh, state, tm, fsdp=True)
+    _, running, _ = CheckpointIO().load(ckpt, state)
+    out = dict(state=_gathered(state), running=running, count=state.optimizer.count)
+    set_mesh(None)
+    return out
+
+
+def pp_step(state_dict: dict, geom: dict, opt: dict, sizes, n_micro: int, batch: dict, seed: int,
+            bucket: Optional[int] = None) -> dict:
+    """One GPipe step over a (pp, data, tp) mesh (``sizes``), from
+    ``state_dict``, on this process's rows of ``batch``, the draws from a
+    generator seeded ``seed``: over processes, each holds its data rows'
+    whole pipelines; in one process (no group), every rank. Returns the
+    metrics and the gathered state (None off process 0); with ``bucket``,
+    the cross-process gradient sum runs in buckets of that many elements,
+    and ``buckets`` lists, per call of ``sharding._buckets``, its buckets'
+    leaf sizes."""
+    from opensora_torch.models.mmdit.model import MMDiTConfig, MMDiTModel
+    from opensora_torch.parallel import distributed, sharding
+    from opensora_torch.parallel.context import set_mesh
+    from opensora_torch.parallel.mesh import create_pp_mesh
+    from opensora_torch.training import diffusion as tdiff
+    from opensora_torch.training.pp import make_pp_forward, pp_state_shardings
+    from opensora_torch.utils import optimizer as topt
+
+    pp, data, tp = sizes
+    tm = MMDiTModel(MMDiTConfig(**geom, dtype="fp32", attn_backend="xla", remat=True), device="cpu",
+                    dtype=torch.float32)
+    tm.load_state_dict(state_dict)
+    tm.requires_grad_(True)
+    mesh = create_pp_mesh(pp, data, tp, [CPU] * (pp * data * tp // distributed.process_count()))
+    set_mesh(mesh)
+    state = tdiff.TrainState.create(tm, topt.create_optimizer(list(tm.parameters()), **opt), ema=True)
+    state = tdiff.shard_state(mesh, state, tm, shardings=pp_state_shardings(mesh, state, tm))
+    step = tdiff.make_train_step(tm, ema_decay=0.9, forward_fn=make_pp_forward(tm, mesh, n_micro))
+    seen, cut = [], sharding._buckets
+
+    def recorded(groups, limit):
+        runs = cut(groups, limit)
+        seen.append([[g[0].numel() for g in run] for run in runs])
+        return runs
+
+    with unittest.mock.patch.multiple(sharding, REPLICA_BUCKET=bucket, _buckets=recorded) if bucket \
+            else contextlib.nullcontext():
+        m = step(state, local_rows(batch), generator=torch.Generator().manual_seed(seed))
+    out = dict(metrics=[{k: float(v) for k, v in m.items()}], state=_gathered(state), mesh=repr(mesh),
+               buckets=seen)
+    set_mesh(None)
+    return out
+
+
+# ----------------------------------------------------------------------
+# the data layer, the logger, the mesh
+# ----------------------------------------------------------------------
+
+
+def data_layer(n_rows: int, table: list, buckets: dict, seed: int) -> dict:
+    """``make_global_batch`` from this process's rows (each rank's pieces,
+    the global tensor back, the error for rows that do not divide), the
+    sampler's indices of ``prepare_dataloader`` with its defaults (the
+    index sampler and the bucket sampler), and what the logger writes."""
+    import logging
+
+    from opensora_torch.datasets.dataloader import prepare_dataloader
+    from opensora_torch.parallel import distributed
+    from opensora_torch.parallel.data import make_global_batch
+    from opensora_torch.parallel.mesh import MeshConfig, create_mesh
+    from opensora_torch.utils.logger import create_logger
+
+    out = {}
+    mesh = create_mesh(MeshConfig(4, 2, 1), [CPU] * 4)
+    p = distributed.process_index()
+    x = torch.arange(n_rows * 6 * 3, dtype=torch.float32).reshape(n_rows, 6, 3) + 1000 * p
+    placed = make_global_batch(mesh, {"x0": x, "y_vec": x[:, 0], "cond": None})
+    out["shape"] = tuple(placed["x0"].shape)
+    out["spec"] = placed["x0"].spec
+    out["shards"] = [None if s is None else s.clone() for s in placed["x0"].shards]
+    out["rows"] = {d: placed["x0"].rows(d).clone() for d in mesh.local_data}
+    out["full"] = placed["x0"].full().clone()
+    out["full_y"] = placed["y_vec"].full().clone()
+    try:
+        make_global_batch(create_mesh(MeshConfig(4, 1, 1), [CPU] * 2), {"x0": torch.zeros(3, 2)})
+    except ValueError as e:
+        out["error"] = str(e)
+    try:
+        make_global_batch(mesh, {"x0": torch.zeros(2 + 2 * p, 2)})
+    except ValueError as e:
+        out["shape_error"] = str(e)
+
+    class Data:
+        data = table
+
+        def __len__(self):
+            return len(table)
+
+    _, index_sampler = prepare_dataloader(Data(), batch_size=3, seed=seed)
+    _, bucket_sampler = prepare_dataloader(Data(), bucket_config=buckets, seed=seed)
+    out["index_sampler"] = list(index_sampler)
+    bucket_sampler.set_epoch(1)
+    out["bucket_sampler"] = list(bucket_sampler)
+    out["replicas"] = (index_sampler.num_replicas, index_sampler.rank, bucket_sampler.num_replicas,
+                       bucket_sampler.rank)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = os.path.join(tmp, f"p{p}")
+        logger = create_logger(exp, name="multi_process_test")
+        logger.info("a line from process %d", p)
+        for h in logger.handlers:
+            h.flush()
+        out["handlers"] = [type(h).__name__ for h in logger.handlers]
+        out["log_exists"] = os.path.exists(os.path.join(exp, "log.txt"))
+        logging.getLogger("multi_process_test").handlers.clear()
+    return out
+
+
+def spanning_mesh(sizes) -> str:
+    """The error of a mesh whose non-'data' group crosses the processes."""
+    from opensora_torch.parallel.mesh import MeshConfig, create_mesh
+
+    try:
+        create_mesh(MeshConfig(*sizes), [CPU] * (sizes[0] * sizes[1] * sizes[2] // 2))
+    except NotImplementedError as e:
+        return str(e)
+    return "no error"
+
+
+# ----------------------------------------------------------------------
+# the Trainer's iteration
+# ----------------------------------------------------------------------
+
+
+def trainer_iteration(cfg_path: str, video: np.ndarray, texts: list, state_path: str) -> dict:
+    """``Trainer.run_batch`` over (data 2, 1, 1) across the processes, each
+    given its rows of ``video`` / ``texts``, from the unsharded trainer's
+    saved state: the metrics, the mask conditions, and the masters on
+    process 0."""
+    from opensora_torch.parallel.context import set_mesh
+    from opensora_torch.train import Trainer, train_mesh
+    from opensora_torch.utils.config import parse_configs
+
+    cfg = parse_configs([cfg_path])
+    mesh = train_mesh(cfg, "cpu")
+    trainer = Trainer(cfg, "cpu", mesh=mesh)
+    trainer.state.load_state_dict(torch.load(state_path, weights_only=False))
+    rows = local_rows({"video": video})["video"]
+    p, n = mesh.process, mesh.n_processes
+    per = len(texts) // n
+    m = trainer.run_batch({"video": rows, "text": texts[p * per:(p + 1) * per]})
+    sd = trainer.state.state_dict()
+    set_mesh(None)
+    return dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), mask_conds=trainer.mask_conds,
+                mesh=repr(mesh), params=None if sd is None else sd["params"])
