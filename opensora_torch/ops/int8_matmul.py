@@ -76,17 +76,19 @@ def w8a8_matmul_ref(x8: torch.Tensor, w: torch.Tensor, s_a: torch.Tensor, s_w: t
     return _epilogue(acc, s_a, s_w, out_dtype)
 
 
-def fq_inputs(x: torch.Tensor):
-    """(s_a (M, 1), inv = 1 / s_a (M, 1)) fp32 of the fused-quant kernel."""
-    s_a = act_scale(x)
+def fq_inputs(x: torch.Tensor, s_a: Optional[torch.Tensor] = None):
+    """(s_a (M, 1), inv = 1 / s_a (M, 1)) fp32 of the fused-quant kernel;
+    ``s_a`` given (a row cut over tp ranks: the whole row's scale), only
+    the reciprocal is computed."""
+    s_a = act_scale(x) if s_a is None else s_a.reshape(-1, 1)
     return s_a, 1.0 / s_a
 
 
 def w8a8_fusedquant_matmul_ref(x: torch.Tensor, w: torch.Tensor, s_w: torch.Tensor,
-                               out_dtype=torch.bfloat16) -> torch.Tensor:
+                               out_dtype=torch.bfloat16, s_a: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of the fused-quant product: x quantized against the
     reciprocal, clip(round(x * inv), -127, 127), then as w8a8_matmul_ref."""
-    s_a, inv = fq_inputs(x)
+    s_a, inv = fq_inputs(x, s_a)
     x8 = torch.clamp(torch.round(x.float() * inv), -127, 127)
     return _epilogue(x8.double() @ w.double().T, s_a, s_w, out_dtype)
 
@@ -152,14 +154,18 @@ def w8a8_matmul(x8: torch.Tensor, w: torch.Tensor, s_a: torch.Tensor, s_w: torch
 
 
 def w8a8_fusedquant_matmul(x: torch.Tensor, w: torch.Tensor, s_w: torch.Tensor,
-                           out_dtype: Optional[torch.dtype] = torch.bfloat16) -> torch.Tensor:
+                           out_dtype: Optional[torch.dtype] = torch.bfloat16,
+                           s_a: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Dynamic W8A8 product of bf16 activations (M, K), quantized inside the
     kernel: s_a = max(max|x| / 127, 1e-8) per row, x8 = clip(round(x *
-    (1 / s_a)), -127, 127). Only the row abs-max is computed outside."""
+    (1 / s_a)), -127, 127). Only the row abs-max is computed outside, or
+    given as ``s_a`` (M, 1) fp32 where x holds a tp rank's slice of each
+    row and the scale is the whole row's."""
     if not _on_cuda(x):
-        return w8a8_fusedquant_matmul_ref(x, w, s_w, out_dtype)
+        return w8a8_fusedquant_matmul_ref(x, w, s_w, out_dtype, s_a)
     _check(x, w, s_w, torch.bfloat16, out_dtype)
-    return fq_kernel(x, w, s_w, *fq_inputs(x), out_dtype=out_dtype)
+    s_a, inv = fq_inputs(x, s_a)
+    return fq_kernel(x, w, s_w, s_a.contiguous(), inv.contiguous(), out_dtype=out_dtype)
 
 
 def fq_kernel(x, w, s_w, s_a, inv, out_dtype=torch.bfloat16) -> torch.Tensor:

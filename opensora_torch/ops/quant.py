@@ -19,12 +19,24 @@
 
 The weight is held as torch holds a linear layer's: ``weight_q`` (out, in)
 int8, ``weight_scale`` (out,) fp32, and an optional ``bias``.
+
+Under tensor parallelism (``parallel/sharding.py``) a column-parallel
+QuantLinear reads its rank's output channels (int8 rows, scales, bias) and
+computes them as the whole layer would. A row-parallel one holds the
+int8 columns of its rank's input slice; the dynamic modes quantize each
+token against the abs-max of its WHOLE row, as the JAX package's GSPMD
+program does, so the ranks first take the max of their slices' maxima
+(``parallel/comm.all_reduce_max``); each rank's partial product is then
+kept in fp32 (the kernel's fp32 output) and the ranks' partials are summed
+in fp32 and rounded once, the bias added once (:meth:`QuantLinear.
+tp_row_partials`). The fused-kernel rule reads the layer's whole input
+width, as JAX decides it on the global shape.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Optional, Sequence, Tuple, Union
+from typing import Any, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -32,6 +44,7 @@ import torch.nn as nn
 
 from opensora_torch.models.cast_layers import Linear as CastLinear
 from opensora_torch.ops.int8_matmul import act_scale, quantize_rows, w8a8_fusedquant_matmul, w8a8_matmul
+from opensora_torch.parallel import comm
 
 MODES = ("w8", "w8a8", "w8a8_pallas", "w8a8_fq")
 W8A8_MODES = ("w8a8", "w8a8_pallas", "w8a8_fq")
@@ -95,8 +108,13 @@ class QuantLinear(nn.Module):
         return (f"in_features={self.in_features}, out_features={self.out_features}, "
                 f"bias={self.bias is not None}, mode={self.mode}")
 
-    def forward(self, x: torch.Tensor, col_slice: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, col_slice: Optional[Tuple[int, int]] = None,
+                s_a: Optional[torch.Tensor] = None, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """``s_a`` (rows, 1) fp32: the activation scale of the dynamic
+        modes, given where ``x`` is a tp rank's slice of each row;
+        ``out_dtype`` (default ``dtype``): fp32 for a rank's partial."""
         w, scale, bias = self.weight_q, self.weight_scale, self.bias
+        out_dtype = out_dtype or self.dtype
         if col_slice is not None:
             a, b = col_slice
             w, scale = w[a:b], scale[a:b]
@@ -104,18 +122,29 @@ class QuantLinear(nn.Module):
         in_f = x.shape[-1]
         lead = x.shape[:-1]
         x2 = x.reshape(-1, in_f)
-        if self.mode == "w8a8_fq" and x2.shape[0] >= FUSED_MIN_ROWS and in_f % FUSED_K_MULTIPLE == 0:
-            y = w8a8_fusedquant_matmul(x2.to(self.dtype).contiguous(), w, scale, out_dtype=self.dtype)
+        if self.mode == "w8a8_fq" and x2.shape[0] >= FUSED_MIN_ROWS and self.in_features % FUSED_K_MULTIPLE == 0:
+            y = w8a8_fusedquant_matmul(x2.to(self.dtype).contiguous(), w, scale, out_dtype=out_dtype, s_a=s_a)
         elif self.mode in W8A8_MODES:
-            s_a = act_scale(x2)
-            y = w8a8_matmul(quantize_rows(x2, s_a), w, s_a, scale, out_dtype=self.dtype)
+            s_a = act_scale(x2) if s_a is None else s_a
+            y = w8a8_matmul(quantize_rows(x2, s_a), w, s_a, scale, out_dtype=out_dtype)
         else:
             # the scale multiply stays fp32: rounding it to bf16 would add
             # ~0.4 % relative error on top of the int8 weights
-            y = ((x2.to(self.dtype) @ w.to(self.dtype).T).float() * scale).to(self.dtype)
+            y = ((x2.to(self.dtype) @ w.to(self.dtype).T).float() * scale).to(out_dtype)
         if bias is not None:
-            y = y + bias.to(self.dtype)
+            y = y + bias.to(out_dtype)
         return y.reshape(*lead, w.shape[0])
+
+    def tp_row_partials(self, g, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """The tp ranks' fp32 partial products of this row-parallel layer
+        over the ranks of ``g`` (``parallel/sharding.RankGroup``), rank t's
+        input slice ``xs[t]``: in the dynamic modes each row quantized
+        against the whole row's scale, the max over the ranks of their
+        slices' scales."""
+        s_a = [None] * g.tp
+        if self.mode in W8A8_MODES:
+            s_a = comm.all_reduce_max(g.each(lambda t: act_scale(xs[t].reshape(-1, xs[t].shape[-1]))))
+        return g.each(lambda t: self(xs[t], s_a=s_a[t], out_dtype=torch.float32))
 
 
 def dense(quantized: Union[bool, str, None], in_features: int, out_features: int, bias: bool = True,

@@ -13,7 +13,8 @@ process, on the rank's device:
   :func:`broadcast` the last stage's outputs on every stage (its ``psum``,
   :152-160); both are differentiable, each copy's backward the reverse
   copy, so autograd runs the pipeline backwards;
-- :func:`all_reduce` (sum), :func:`all_gather` and :func:`reduce_scatter`
+- :func:`all_reduce` (sum), :func:`all_reduce_max`, :func:`all_gather` and
+  :func:`reduce_scatter`
   run over a group of ranks (``Mesh.group``), given the ranks' tensors in
   group order; they too are differentiable, and ranks that share a device
   share one result (a mesh of logical ranks on one card computes it once);
@@ -169,6 +170,13 @@ def all_reduce(parts: Sequence[torch.Tensor], dtype=None, bias=None) -> List[tor
 
     with torch.profiler.record_function("all_reduce"):  # a profile's span of the collective
         return _per_device(parts, total)
+
+
+def all_reduce_max(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The elementwise max of the ranks' tensors, on every rank's device
+    (the per-token activation scale of an int8 row-parallel product, whose
+    row the ranks hold in slices)."""
+    return _per_device(parts, lambda device: torch.stack([p.to(device) for p in parts]).amax(0))
 
 
 def all_gather(parts: Sequence[torch.Tensor], dim: int) -> List[torch.Tensor]:

@@ -4,7 +4,12 @@ opensora_tpu/parallel/sharding.py:28-137).
 
 The rules are JAX's, over the port's upstream-named parameters, each JAX
 kernel axis mapped to its transposed torch dim (a torch weight is (out,
-in)):
+in)), and an int8 linear's ``weight_q`` (``ops/quant.QuantLinear``) is cut
+as its float weight would be, its per-output-channel ``weight_scale`` as
+the bias of a column-parallel linear (JAX leaves ``kernel_q`` /
+``kernel_scale`` replicated and lets GSPMD split the products; each tp
+rank here holds only the int8 columns or rows it multiplies, which is
+exact since every scale belongs to one output channel):
 
 - column-parallel ``qkv``, ``linear1``, ``img_mlp.0``, ``txt_mlp.0``,
   ``q_proj``, ``k_proj``, ``v_proj``, ``v_mlp``: output features (dim 0)
@@ -22,18 +27,20 @@ mlp]) are cut per segment: rank r holds rows r of each segment, as
 upstream's ColossalAI policy does. The rule table still names the axis.
 
 :func:`shard_params` turns a built model into per-rank shards: every
-parameter becomes a :class:`Placement` whose leaves (one per distinct shard
-and device: ranks on one device share one leaf) are the trained
-parameters, registered as ``<name>_shards``. The module keeps its name and
-reads, in place of the parameter, the shard of the rank whose scope is
-open (``parallel/context.rank_scope``): cast to the compute dtype first,
-then, where it is cut over 'data', gathered (FSDP; the gathered copy lives
-as long as the product that reads it). A row-parallel linear reads no bias:
-:func:`row_parallel` sums the ranks' partial products (fp32, rounded once)
-and adds the bias once. The ranks at data coordinate d compute on the
-device of rank (d, 0, t) (``Mesh.home``); sp ranks hold no shard of their
-own (the sequence-parallel design computes outside the attention on the
-home device).
+parameter (and an int8 linear's ``weight_q`` / ``weight_scale`` buffers)
+becomes a :class:`Placement` whose leaves (one per distinct shard and
+device: ranks on one device share one leaf) are the trained parameters,
+registered as ``<name>_shards``. The module keeps its name and reads, in
+place of the parameter, the shard of the rank whose scope is open
+(``parallel/context.rank_scope``): cast to the compute dtype first (a
+float weight; the LoRA factors, the int8 weights and their fp32 scales
+keep their dtype), then, where it is cut over 'data', gathered (FSDP; the
+gathered copy lives as long as the product that reads it). A row-parallel
+linear reads no bias: :func:`row_parallel` sums the ranks' partial
+products (fp32, rounded once) and adds the bias once. The ranks at data
+coordinate d compute on the device of rank (d, 0, t) (``Mesh.home``); sp
+ranks hold no shard of their own (the sequence-parallel design computes
+outside the attention on the home device).
 
 On a pipeline mesh (data, pp, tp) a parameter may belong to one stage
 (``stages``: a block of the stack, ``training/pp.py``): its leaves then lie
@@ -78,6 +85,11 @@ from opensora_torch.parallel.mesh import DATA_AXIS, PP_AXIS, SP_AXIS, TP_AXIS, M
 Spec = Tuple[Optional[str], ...]
 
 REPLICA_BUCKET = 1 << 26  # fp32 elements of one cross-process gradient sum (256 MB)
+# an int8 linear's buffers, placed as parameters are (``ops/quant.QuantLinear``)
+QUANT_BUFFERS = ("weight_q", "weight_scale")
+# leaves read in their own dtype, not the compute dtype: the LoRA factors
+# (fp32, merged in fp32) and the int8 weights' fp32 scales
+OWN_DTYPE = (".lora_A", ".lora_B", ".weight_scale")
 
 _COL = r"(qkv|linear1|img_mlp\.0|txt_mlp\.0|q_proj|k_proj|v_proj|v_mlp)"
 _ROW = r"(proj|linear2|img_mlp\.2|txt_mlp\.2)"
@@ -86,9 +98,9 @@ _ROW = r"(proj|linear2|img_mlp\.2|txt_mlp\.2)"
 def _mmdit_rules(fsdp: bool):
     dp = DATA_AXIS if fsdp else None
     return [
-        (rf".*{_COL}\.weight", (TP_AXIS, dp)),
-        (rf".*{_COL}\.bias", (TP_AXIS,)),
-        (rf".*{_ROW}\.weight", (dp, TP_AXIS)),
+        (rf".*{_COL}\.weight(_q)?", (TP_AXIS, dp)),
+        (rf".*{_COL}\.(bias|weight_scale)", (TP_AXIS,)),
+        (rf".*{_ROW}\.weight(_q)?", (dp, TP_AXIS)),
         (rf".*{_ROW}\.bias", (None,)),
         # modulation / embedders / final layer: replicated over tp, the
         # input dim on 'data' under FSDP
@@ -97,11 +109,20 @@ def _mmdit_rules(fsdp: bool):
     ]
 
 
+def placed_tensors(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """What :func:`shard_params` places, by state-dict name: the
+    parameters and the int8 linears' :data:`QUANT_BUFFERS`."""
+    out = dict(model.named_parameters())
+    out.update((n, b) for n, b in model.named_buffers() if n.rpartition(".")[2] in QUANT_BUFFERS)
+    return out
+
+
 def mmdit_param_specs(state_dict_or_model, fsdp: bool = True) -> Dict[str, Spec]:
-    """The spec of each parameter (by state-dict name): per torch dim the
-    mesh axis it is cut over, or None."""
+    """The spec of each parameter (by state-dict name; of a model, each of
+    :func:`placed_tensors`): per torch dim the mesh axis it is cut over, or
+    None."""
     if isinstance(state_dict_or_model, nn.Module):
-        shapes = {n: p.shape for n, p in state_dict_or_model.named_parameters()}
+        shapes = {n: p.shape for n, p in placed_tensors(state_dict_or_model).items()}
     else:
         shapes = {n: getattr(v, "shape", v) for n, v in state_dict_or_model.items()}
     rules = _mmdit_rules(fsdp)
@@ -129,7 +150,7 @@ def tp_segments(name: str, shape, config) -> Optional[List[int]]:
         return [h, h, h, shape[0] - 3 * h]
     if leaf == "v_mlp":
         return [h, shape[0] - h]
-    if leaf == "linear2" and name.endswith(".weight"):
+    if leaf == "linear2" and name.endswith((".weight", ".weight_q")):
         return [h, shape[1] - h]
     return None
 
@@ -155,9 +176,10 @@ class Placement:
     (set by :func:`shard_params`) holds them."""
 
     def __init__(self, name: str, shape, spec: Spec, segments, sharding: "ModelSharding",
-                 stage: Optional[int] = None):
+                 stage: Optional[int] = None, dtype: Optional[torch.dtype] = None):
         self.name, self.shape, self.spec, self.segments = name, tuple(shape), spec, segments
         self.sharding, self.stage = sharding, stage
+        self.dtype = dtype or sharding.dtype  # what a rank reads it in
         self.data_dim = spec.index(DATA_AXIS) if DATA_AXIS in spec else None
         self.tp_dim = spec.index(TP_AXIS) if TP_AXIS in spec else None
         # ``q_proj.bias`` also ends in "proj.bias": the column rule comes first, as in the table
@@ -262,7 +284,13 @@ class Placement:
         if scope is None:
             raise RuntimeError(f"{self.name} is sharded over {self.sharding.mesh}: read it inside a rank scope")
         d, t, stage = scope
-        return None if self.row_bias else self.local(d, t, self.sharding.dtype, stage)
+        return None if self.row_bias else self.local(d, t, self.dtype, stage)
+
+    def rank_piece(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The open scope's tp rank's cut of ``x`` along ``dim``, per
+        segment as this placement's 'tp' dim is cut (a LoRA factor's rows or
+        columns that meet the rank's weight shard)."""
+        return _tp_cut(x, dim, get_scope()[1], self.sharding.tp, self.segments)
 
 
 class ModelSharding:
@@ -313,6 +341,8 @@ class ModelSharding:
         stage and tp rank (on one device), so that no device holds
         another's gradients."""
         for group in self.replicas():
+            if not group[0].requires_grad:  # a frozen leaf (a LoRA run's base) has no gradient
+                continue
             grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in group]
             for p, g in zip(group, all_reduce(grads)):
                 p.grad = g
@@ -320,7 +350,7 @@ class ModelSharding:
         # its first (this process's first data rank's) leading
         shared: Dict[Tuple[int, int], List[List[nn.Parameter]]] = {}
         for pl in self.placements.values():
-            if pl.on_every_process:
+            if pl.on_every_process and pl.leaves[0].requires_grad:
                 for n in pl.canonical():
                     shard = pl.keys[n][:2]
                     shared.setdefault((pl.stage or 0, shard[1]), []).append(
@@ -387,8 +417,13 @@ class RankGroup:
 
     def row(self, linear: nn.Module, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """A row-parallel product: each rank's partial, then
-        :func:`row_parallel`."""
-        return row_parallel(linear, self.each(lambda t: linear(xs[t])), self)
+        :func:`row_parallel`. A linear with ``tp_row_partials`` (an int8
+        ``QuantLinear``, whose activation scale spans the whole row) makes
+        its partials itself, and the sum is rounded to its ``dtype``."""
+        partials = getattr(linear, "tp_row_partials", None)
+        if partials is None:
+            return row_parallel(linear, self.each(lambda t: linear(xs[t])), self)
+        return row_parallel(linear, partials(self, xs), self, dtype=linear.dtype)
 
 
 class OneRank:
@@ -412,12 +447,14 @@ class OneRank:
 ONE_RANK = OneRank()
 
 
-def row_parallel(linear: nn.Module, partials: Sequence[torch.Tensor], group: RankGroup) -> List[torch.Tensor]:
+def row_parallel(linear: nn.Module, partials: Sequence[torch.Tensor], group: RankGroup,
+                 dtype=None) -> List[torch.Tensor]:
     """The all-reduce of the tp ranks' partial products, summed in fp32 and
-    rounded once, with the row bias added once to the sum."""
+    rounded once (to ``dtype``, default the partials'), with the row bias
+    added once to the sum."""
     bias = getattr(linear, "_placements", {}).get("bias")
     b = None if bias is None else [bias.local(group.data, t, partials[t].dtype, group.stage) for t in range(group.tp)]
-    return all_reduce(partials, bias=b)
+    return all_reduce(partials, dtype=dtype, bias=b)
 
 
 _SHARDED_CLASSES: Dict[Tuple[type, Tuple[str, ...]], type] = {}
@@ -443,9 +480,6 @@ def _check_tp(model: nn.Module, mesh: Mesh) -> None:
     if config.num_heads % tp or mlp % tp:
         raise ValueError(f"tp {tp} must divide the heads ({config.num_heads}) and the MLP width ({mlp}); "
                          f"(tp, sp) = ({tp}, {sp})")
-    if config.quantized:
-        raise NotImplementedError("int8 (a quantized MMDiT) under tp > 1 is not ported: ROADMAP Queue 1 item 1 "
-                                  "(f), int8 under TP")
 
 
 def mesh_spec(spec: Spec, shape, mesh: Mesh) -> Spec:
@@ -474,19 +508,21 @@ def shard_params(mesh: Mesh, model: nn.Module, fsdp: bool = True, specs: Optiona
     sharding = ModelSharding(mesh, dtype)
     rules = mmdit_param_specs(model, fsdp)
     specs = dict(specs or {})
-    for name, p in model.named_parameters():
+    for name, p in placed_tensors(model).items():
         specs.setdefault(name, mesh_spec(rules[name], p.shape, mesh))
     for mod_name, module in list(model.named_modules()):
         names = tuple(n for n, p in module._parameters.items() if p is not None)
+        names += tuple(n for n in QUANT_BUFFERS if module._buffers.get(n) is not None)
         if not names:
             continue
         module._placements = {}
         for pn in names:
             full = f"{mod_name}.{pn}" if mod_name else pn
-            p = module._parameters.pop(pn)
+            p = module._parameters.pop(pn) if pn in module._parameters else module._buffers.pop(pn)
             spec = specs[full]
+            own = not p.is_floating_point() or full.endswith(OWN_DTYPE)
             pl = Placement(full, p.shape, spec, tp_segments(full, p.shape, config) if TP_AXIS in spec else None,
-                           sharding, (stages or {}).get(full))
+                           sharding, (stages or {}).get(full), dtype=p.dtype if own else None)
             if pl.tp_dim is not None and p.shape[pl.tp_dim] % sharding.tp:
                 raise ValueError(f"{full} {tuple(p.shape)}: dim {pl.tp_dim} does not split over tp {sharding.tp}")
             requires_grad = p.requires_grad

@@ -123,7 +123,10 @@ class Trainer:
     as its shards are made; the optimizer and the EMA are then made over
     the shards, so no full copy of them exists. Each batch
     is placed over the mesh (``parallel/data.make_global_batch``) before
-    the step. A LoRA run does not shard (ROADMAP). A pipeline mesh
+    the step. Under LoRA the frozen base is sharded so, and the factors
+    (the trained parameters: no EMA) are replicated on every rank, as the
+    JAX script places its factor tree (``training/lora.py``); a pipeline
+    mesh with LoRA raises, as in JAX. A pipeline mesh
     (``parallel/mesh.create_pp_mesh``, or :func:`pipeline_mesh` from the
     config's ``pipeline`` key) places each block on its stage's ranks, cut
     over 'tp' inside the stage where that axis has more than one rank
@@ -193,11 +196,9 @@ class Trainer:
             forward_fn = make_pp_forward(self.model, mesh, n_micro)
             self.logger.info("MMDiT placed over the pipeline mesh %s, %d microbatches", mesh, n_micro)
         elif self.mesh is not None:
-            if lora_cfg:
-                raise NotImplementedError("LoRA over a 'data' or 'tp' mesh axis is not ported (ROADMAP Queue 1 "
-                                          "item 1 (g))")
             shard_params(self.mesh, self.model, fsdp=True)
-            self.logger.info("MMDiT sharded over %s (TP + FSDP)", self.mesh)
+            self.logger.info("MMDiT sharded over %s (TP + FSDP)%s", self.mesh,
+                             ", the LoRA factors replicated" if lora_cfg else "")
         optimizer = create_optimizer(
             [p for p in self.model.parameters() if p.requires_grad],
             lr=cfg.get("lr", 1e-4), weight_decay=cfg.get("weight_decay", 0.0), eps=cfg.get("adam_eps", 1e-8),

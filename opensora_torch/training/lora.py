@@ -9,6 +9,16 @@ W + s * (A @ B) in flax's (in, out) layout -- is formed per linear inside
 its forward and rounded to the base weight's dtype there. The JAX package
 merges the whole tree before the forward; per linear gives the same values
 without a second copy of the base weights (23.6 GB in bf16 at full width).
+
+Over a mesh (``parallel/sharding.shard_params``) the base is cut by the
+TP + FSDP rules and the factors are replicated on every rank, as the JAX
+package places its factor tree with ``P()``. A rank reads its shard of
+the weight (gathered over 'data' first) and merges into it the part of
+the delta that falls on it (:func:`rank_factors`): the rows of ``lora_B``
+that meet a column-parallel weight's rows, the columns of ``lora_A`` that
+meet a row-parallel weight's input columns, each cut per segment as the
+weight is. The factors' gradients then meet on the shared leaf (or, on
+ranks with devices of their own, in the replicas' sum).
 """
 
 from __future__ import annotations
@@ -43,11 +53,29 @@ class LoRALinear(nn.Module):
         self.lora_B = nn.Parameter(torch.zeros((out_f, rank), device=dev))
 
     def merged_weight(self) -> torch.Tensor:
-        w = torch.addmm(self.weight.float(), self.lora_B, self.lora_A, alpha=self.scale)
-        return w.to(self.weight.dtype)
+        """W + scale * (lora_B @ lora_A), summed in fp32 and rounded to the
+        base's dtype; sharded, the open scope's rank's shard of it."""
+        weight, a, b = self.weight, self.lora_A, self.lora_B
+        placement = getattr(self, "_placements", {}).get("weight")
+        if placement is not None:
+            a, b = rank_factors(placement, a, b)
+        w = torch.addmm(weight.float(), b, a, alpha=self.scale)
+        return w.to(weight.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.merged_weight(), self.bias)
+
+
+def rank_factors(placement, a: torch.Tensor, b: torch.Tensor):
+    """The factors (A (r, in), B (out, r)) that a tp rank merges into its
+    shard of the weight ``placement`` cuts: B's rows where 'tp' cuts the
+    output dim, A's columns where it cuts the input dim, per segment as the
+    weight (the 'data' dim is whole again after the FSDP gather)."""
+    if placement.tp_dim == 0:
+        return a, placement.rank_piece(b, 0)
+    if placement.tp_dim == 1:
+        return placement.rank_piece(a, 1), b
+    return a, b
 
 
 def apply_lora(

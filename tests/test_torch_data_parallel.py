@@ -413,16 +413,22 @@ def test_state_shardings_give_moments_and_ema_their_parameters_specs():
 
 def test_training_cli_names_the_queued_slices(tmp_path, monkeypatch):
     from opensora_torch.parallel.distributed import ENV
+    from opensora_torch.parallel.mesh import create_pp_mesh
     from opensora_torch.train import Trainer, main
     from opensora_torch.utils.config import parse_configs
 
     for name in ENV:
         monkeypatch.delenv(name, raising=False)
 
+    # LoRA runs over a data / tp mesh (tests/test_torch_lora_sharded.py);
+    # pipeline + lora_config raises, as the JAX script does
     lora = tmp_path / "lora.py"
-    lora.write_text(f"_base_ = [{DEMO!r}]\nlora_config = dict(r=4)\ncached_video = True\n")
-    with pytest.raises(NotImplementedError, match="LoRA over a 'data' or 'tp' mesh axis"):
-        Trainer(parse_configs([str(lora)]), "cpu", mesh=_mesh(2, 1, 1))
+    lora.write_text(f"_base_ = [{DEMO!r}]\nlora_config = dict(r=4)\ncached_video = True\n"
+                    "pipeline = dict(pp_size=2, data_size=1)\n")
+    with pytest.raises(NotImplementedError, match=r"pipeline \+ lora_config"):
+        main([str(lora), "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match=r"pipeline \+ lora_config"):
+        Trainer(parse_configs([str(lora)]), "cpu", mesh=create_pp_mesh(2, 1, 1, [CPU, CPU]))
 
     # multi_host is ported for processes along 'data'; a tp group across
     # processes stays queued, and multi_host outside torchrun names its

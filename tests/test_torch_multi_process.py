@@ -44,7 +44,7 @@ from opensora_tpu.datasets.sampler import VariableVideoBatchSampler as JBucketSa
 from opensora_torch.parallel.context import set_mesh
 from opensora_torch.training import diffusion as tdiff
 from opensora_torch.utils.ckpt import CheckpointIO
-from opensora_torch.utils.weights import mmdit_state_dict
+from opensora_torch.utils.weights import lora_state_dict, mmdit_state_dict
 from test_torch_data_parallel import (
     DEMO,
     EMA_TOL,
@@ -59,6 +59,7 @@ from test_torch_data_parallel import (
     _port_state,
     _rel_l2,
 )
+from test_torch_lora_sharded import RANK, SCALE, lora_inputs, port_lora_steps
 from test_torch_training import _batch, _jax_draws
 from torch_multi_process_workers import JOIN_TIMEOUT, Processes, free_port, pp_step, run_calls
 from torch_parity_utils import one_torch_thread
@@ -212,6 +213,10 @@ def runs(tmp_path_factory):
               ("spanning_mesh", ((1, 1, 2),), {}),
               ("spanning_mesh", ((1, 2, 1),), {}),
               ("trainer_iteration", (str(cfg_path), video, texts, state_path), {})]
+    l_params, l_factors, l_batch = lora_inputs()
+    l_draws = [_jax_draws(l_batch, jax.random.PRNGKey(11), 0, PROB)]
+    calls += [("lora_steps", (l_params, lora_state_dict(l_factors), l_batch, GEOM, OPT, (2, 1, 2), RANK, SCALE,
+                              l_draws), {})]
     procs = Processes(run_calls, calls)
 
     ref = {sizes: dict(jax=_jax_steps(params, batch, sizes, "xla", rng) if sizes in JAX_MESHES else None,
@@ -224,13 +229,15 @@ def runs(tmp_path_factory):
     trainer_ref = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), mask_conds=trainer.mask_conds,
                        params=trainer.state.state_dict()["params"])
     set_mesh(None)
+    l_metrics, l_state, _ = port_lora_steps(l_params, l_factors, l_batch, (2, 1, 2), l_draws)
+    lora_ref = dict(metrics=l_metrics, factors=l_state.state_dict()["params"], start=lora_state_dict(l_factors))
     results = procs.results()
     names = ["mesh_" + "x".join(map(str, s)) for s in MESHES] + ["gen_right"] + [f"gen_{v}" for v in WRONG] + \
         ["pp_" + "x".join(map(str, s)) for s in PP_MESHES] + ["pp_bucketed", "load", "data", "span_tp", "span_sp",
-                                                               "trainer"]
+                                                               "trainer", "lora"]
     return dict(by_name={n: [r[i] for r in results] for i, n in enumerate(names)}, ref=ref, gen_ref=gen_ref,
-                pp_ref=pp_ref, pp_start=pp_sd, trainer_ref=trainer_ref, params=params, unsharded=unsharded,
-                ckpt_u=ckpt_u, tmp=tmp)
+                pp_ref=pp_ref, pp_start=pp_sd, trainer_ref=trainer_ref, lora_ref=lora_ref, params=params,
+                unsharded=unsharded, ckpt_u=ckpt_u, tmp=tmp)
 
 
 def _changes(got: dict, want: dict, p0: dict) -> dict:
@@ -454,6 +461,24 @@ def test_trainer_iteration_across_processes_equals_one_process(runs):
     for n, p in ref["params"].items():
         assert _rel_l2(out[0]["params"][n].numpy() - state[n].numpy(), p.numpy() - state[n].numpy()) <= \
             PORT_UPDATE_TOL, n
+
+
+def test_two_process_lora_step_matches_the_single_process_port(runs):
+    """One LoRA step over (data 2, 1, 2) across 2 processes (the frozen
+    base FSDP-cut over the processes and TP-cut, the factors replicated in
+    both): the loss and norm on every process (1e-6) and each factor's
+    change (1e-5) against the port's single-process step over the same mesh
+    of logical ranks; the base's FSDP gathers cross the processes, and no
+    reduce-scatter runs (the frozen base takes no gradient), no EMA."""
+    out, ref = runs["by_name"]["lora"], runs["lora_ref"]
+    assert out[1]["factors"] is None and out[0]["ema"] is None
+    for r in out:
+        assert r["gathers"] > 0 and r["reduce_scatters"] == 0, r
+        for k in ("loss", "grad_norm"):
+            assert r["metrics"][0][k] == pytest.approx(ref["metrics"][0][k], rel=PORT_TOL), k
+    got = {n: p.numpy() for n, p in out[0]["factors"].items()}
+    want = {n: p.numpy() for n, p in ref["factors"].items()}
+    assert sorted(got) == sorted(ref["start"]) and max(_changes(got, want, ref["start"]).values()) <= PORT_UPDATE_TOL
 
 
 def test_training_cli_multi_host_under_torchrun(cli):

@@ -31,8 +31,10 @@ from opensora_tpu.parallel.mesh import create_mesh as j_create_mesh
 from opensora_tpu.parallel.sharding import make_shardings, mmdit_param_specs as j_specs
 
 from opensora_torch.models.mmdit.model import MMDiTConfig, MMDiTModel
+from opensora_torch.ops.quant import quantize_model_
 from opensora_torch.parallel import comm
 from opensora_torch.parallel import sharding as tsh
+from opensora_torch.parallel.context import rank_scope
 from opensora_torch.parallel.mesh import MeshConfig, create_mesh
 from opensora_torch.utils.weights import load_numpy_state_dict, mmdit_state_dict
 from torch_parity_utils import max_rel_err, one_torch_thread, randomize, to_numpy
@@ -185,13 +187,31 @@ def test_tp_forward_matches_jax_and_known_wrong_variants_fail(tp, fused_qkv, mon
 
 
 def test_tp_must_divide_the_heads_and_int8_under_tp_raises():
+    """tp 3 over 4 heads raises; a quantized model (int8 under TP is
+    ported: tests/test_torch_int8_tp.py) shards, its int8 weights and fp32
+    scales kept in their dtypes, cut as the float weights and biases are,
+    and gathers back bitwise."""
     _, params = _jax(True, seed=5)
     with pytest.raises(ValueError, match=r"tp 3 must divide the heads \(4\)"):
         tsh.shard_params(_mesh(1, 1, 3), _port(params), fsdp=False)
-    q = _port(params)
-    q.config.quantized = "w8a8"
-    with pytest.raises(NotImplementedError, match="int8"):
-        tsh.shard_params(_mesh(1, 1, 2), q, fsdp=False)
+    q = quantize_model_(_port(params), "w8a8")
+    q.compute_dtype = torch.bfloat16  # a bf16 model's: its float leaves are read in bf16
+    want = {k: v.clone() for k, v in q.state_dict().items()}
+    tsh.shard_params(_mesh(1, 1, 2), q, fsdp=False)
+    placements = q.sharding.placements
+    assert sorted(placements) == sorted(want)
+    for name, pl in placements.items():
+        assert all(p.dtype == want[name].dtype for p in pl.leaves), name
+        assert torch.equal(pl.gather([p.detach() for p in pl.leaves], CPU), want[name]), name
+    with rank_scope(0, 1, 0):
+        qkv = q.double_blocks[0].img_attn.qkv
+        assert (qkv.weight_q.dtype, qkv.weight_scale.dtype, qkv.bias.dtype) == (torch.int8, torch.float32,
+                                                                                torch.bfloat16)
+        assert torch.equal(qkv.weight_q, placements["double_blocks.0.img_attn.qkv.weight_q"].leaves[1])
+    assert placements["double_blocks.0.img_attn.qkv.weight_q"].spec == ("tp", None)
+    assert placements["single_blocks.0.linear2.weight_q"].spec == (None, "tp")
+    assert placements["single_blocks.0.linear1.weight_scale"].spec == ("tp",)
+    assert placements["single_blocks.0.linear2.weight_scale"].spec == (None,)
 
 
 def test_constrain_degrades_axes_that_do_not_divide():

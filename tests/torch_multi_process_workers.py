@@ -241,6 +241,55 @@ def load_sharded(params, geom, opt, sizes, ckpt) -> dict:
     return out
 
 
+def lora_steps(params: dict, factors: dict, batch: dict, geom: dict, opt: dict, sizes, rank: int, scale: float,
+               draws: list, prob: float = 0.5) -> dict:
+    """LoRA steps over a (dp, sp, tp) mesh whose 'data' axis crosses the
+    processes: the base from the JAX package's params (frozen, FSDP + TP),
+    the factors (``lora_state_dict`` names) replicated, each process given
+    its rows of ``batch``, the global batch's ``draws`` per step. Returns
+    the metrics, the factors gathered on process 0, and how many FSDP
+    gathers and reduce-scatters crossed the processes (the frozen base's
+    gathers take no gradient: no reduce-scatter)."""
+    from opensora_torch.models.mmdit.model import MMDiTConfig, MMDiTModel
+    from opensora_torch.parallel import comm
+    from opensora_torch.parallel.context import set_mesh
+    from opensora_torch.parallel.mesh import MeshConfig, create_mesh
+    from opensora_torch.training import diffusion as tdiff
+    from opensora_torch.training.lora import apply_lora
+    from opensora_torch.utils import optimizer as topt
+    from opensora_torch.utils.weights import load_numpy_state_dict, mmdit_state_dict
+
+    dp, sp, tp = sizes
+    mesh = create_mesh(MeshConfig(dp, sp, tp), [CPU] * (dp * sp * tp // 2))
+    set_mesh(mesh)
+    tm = MMDiTModel(MMDiTConfig(**geom, dtype="fp32", attn_backend="xla", remat=True), device="meta",
+                    dtype=torch.float32)
+    load_numpy_state_dict(tm, {k: v.copy() for k, v in mmdit_state_dict(params).items()})
+    apply_lora(tm, rank=rank, scale=scale)
+    tm.load_state_dict({k: torch.from_numpy(v.copy()) for k, v in factors.items()}, strict=False)
+    state = tdiff.TrainState.create(
+        tm, topt.create_optimizer([p for p in tm.parameters() if p.requires_grad], **opt), ema=False)
+    state = tdiff.shard_state(mesh, state, tm, fsdp=True)
+    step = tdiff.make_train_step(tm, ema_decay=0.9, text_dropout_prob=prob, use_masked_loss=True)
+    counts = {"gathers": 0, "reduce_scatters": 0}
+
+    def counted(fn, key):
+        def wrapped(*args, **kwargs):
+            counts[key] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    mine = local_rows(batch)
+    with unittest.mock.patch.multiple(comm, process_all_gather=counted(comm.process_all_gather, "gathers"),
+                                      process_reduce_scatter=counted(comm.process_reduce_scatter,
+                                                                     "reduce_scatters")):
+        metrics = [{k: float(v) for k, v in step(state, mine, draws=d).items()} for d in draws]
+    sd = state.state_dict()
+    set_mesh(None)
+    return dict(metrics=metrics, factors=None if sd is None else sd["params"], ema=None if sd is None else sd["ema"],
+                **counts)
+
+
 def pp_step(state_dict: dict, geom: dict, opt: dict, sizes, n_micro: int, batch: dict, seed: int,
             bucket: Optional[int] = None) -> dict:
     """One GPipe step over a (pp, data, tp) mesh (``sizes``), from
