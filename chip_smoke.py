@@ -98,17 +98,24 @@ edges cut, with known-wrong rings (the last hop skipped, local offsets, a
 middle hop started from the empty state, the loaded row sum given to every
 lane of a quad, one consumer's rows from the other's, delta left out, dK/dV
 read from the other slot, one (rank, hop)'s dK/dV add dropped) and timings
-(the forward's 16 hop launches, the call and SDPA in turns); phase 3d runs the
-full-width MMDiT with attn_backend="ring_rdma" over those 4 ranks on a
-small input (forward, and a LoRA step's gradients) against the CPU's plain
-dense path. Phase 9 (run right after phase 4, on its models) switches
-every block to ring_rdma over a mesh of 4 logical ranks on the card and
-drives 256px.py through prepare_api(mesh=...) for 2 steps: exact launches,
-the video against phase 4's (a control with the last hop skipped must
-exceed the limit), then 1 step of attn_backend="ring" (ops/sp.py) against
-1 step of ring_rdma. Phase 10 (after phase 5, on its trainer) runs 1 LoRA
-step with ring_rdma over the same mesh: finite loss and gradient norm,
-moving factors, exact launches of the ring kernels and the dQ epilogue.
+(the forward's 16 hop launches, the call and SDPA in turns). The ring
+phases run the sequence-sharded MMDiT: each of the 4 sp ranks holds its
+chunk of the joint [txt, img] tokens through every block (at 256px, B = 3:
+2207 tokens and 40.7 MB of residual stream a rank against 8828 and 162.7
+MB whole) and only the attention spans the ranks; each prints its ranks'
+token counts and residual bytes. Phase 3d runs the full-width MMDiT with
+attn_backend="ring_rdma" sharded over those 4 ranks on a small input
+(forward, and a LoRA step's gradients) against the CPU's plain dense path.
+Phase 9 (run right after phase 4, on its models) switches every block to
+ring_rdma over a mesh of 4 logical ranks on the card and drives 256px.py
+through prepare_api(mesh=...), which places the MMDiT over the ranks
+(unsharded again after the phase), for 2 steps: exact launches, the video
+against phase 4's (a control with the last hop skipped must exceed the
+limit), then 1 step of attn_backend="ring" (ops/sp.py) against 1 step of
+ring_rdma. Phase 10 (after phase 5, on its trainer, whose state it places
+over the same mesh) runs 1 LoRA step with ring_rdma: finite loss and
+gradient norm, moving factors, exact launches of the ring kernels and the
+dQ epilogue.
 The conditioned paths: phase 2 holds the D = 128 forward at the t2i2v
 image stage's shape (1, 24, 2816, 128) too; phase 3e checks the image
 stage's full-width Flux MMDiT (1 + 1 blocks, guidance vector on) through
@@ -215,7 +222,8 @@ Tensor and data parallelism over logical ranks on the card: phase 2 holds
 the D = 128 forward at a TP 4 rank's heads (3, 6, 8828, 128) and phase 2b
 the backward at phase 21's per-rank shapes (1, 24, 8828, 128) and (2, 12,
 8828, 128); phase 3h runs the full-width MMDiT at 1 + 1 blocks under TP
-(1, 1, 4) and (1, 2, 2) with ring_rdma against the CPU's plain path and
+(1, 1, 4) and (1, 2, 2) with ring_rdma (the tokens in chunks of 40 over
+the sp ranks) against the CPU's plain path and
 the card's unsharded forward, and one full-finetune step over (2, 1, 2)
 with FSDP against the unsharded step, each with known-wrong variants that
 must fail (fused axes cut contiguously, the row bias on every rank, one
@@ -282,6 +290,17 @@ INT8_TP_LATENT_TOL of phase 6's (and phase 6 run again within it too),
 exact launches of w8a8_matmul and int8 attention at the tp ranks' shapes
 (phase 2c holds both kernels at those shapes), the steps' seconds beside
 phase 6's, the peak.
+Sequence-sharded training: phase 27 (after phase 24) trains stage2.py
+(sp 4, remat "offload", the default attention: gathered on sp rank 0 for
+one flash call a block, the output cut back) on phase 21's cell through
+Trainer(cfg, device, mesh=...) over stage2's own mesh (1, 4, 1) and over
+(2, 2, 1) with FSDP, one timed step each from phase 21's saved state,
+batch and generator states, held to phase 21's limits against its
+unsharded step, exact launches, each rank's tokens and residual bytes,
+the peak; the last sp rank's image chunk left out of the gathered output
+must fail the limits. Phase 2 holds the D = 128 forward at the gathered sp
+group's (4, 24, 8828, 128) and the "ring" backend's hop (3, 24, 2207,
+128), phase 2b the backward at (4, 24, 8828, 128).
 Each phase's wall time is printed as "[time] <phase>: <s> s", and the sum
 as "[time] total: <s> s" before the card's line.
 Then it prints the card's name and power limit, one JSON line with the
@@ -590,6 +609,10 @@ ATTENTION_CASES = [
     ("mmdit_tp4_rank", (3, 6, 8828, 128), None, 1.0),  # phase 20: 256px_tp.py, one of 4 tp ranks' heads
     ("pp2_tp2_microbatch", (1, 12, 8828, 128), None, 1.0),  # phase 22 over (pp 2, tp 2): a 1-row microbatch's heads
     ("multi_process_rank", (2, 24, 8828, 128), None, 1.0),  # phase 24: one process's data rank, 2 rows
+    # phase 27 over (1, 4, 1): the default attention on the sp group's gathered q, k, v (its (2, 2, 1) data
+    # rank is the 2-row case above); phase 9's "ring" backend: one hop, a rank's queries on one KV shard
+    ("sp4_gathered_data_rank", (4, 24, 8828, 128), None, 1.0),
+    ("ring_sp4_hop", (3, 24, 2207, 128), None, 1.0),
     ("flux_image_768px", (1, 24, 2816, 128), None, 1.0),  # the t2i2v image stage: 2304 image + 512 text tokens
     # the high-compression paths (patch 1 over DC-AE latents, 512 text tokens):
     # t2v at 192 x 336 (32 x 6 x 11 latent tokens) and, at the 256px bucket's
@@ -854,6 +877,7 @@ BWD_CASES = [
     ("dp2_tp2_rank", (2, 12, 8828, 128), None),  # phase 21 over (2, 1, 2): a rank's rows and heads
     ("pp2_tp2_microbatch", (1, 12, 8828, 128), None),  # phase 22 over (pp 2, tp 2): a 1-row microbatch's heads
     ("multi_process_rank", (2, 24, 8828, 128), None),  # phase 24: one process's data rank, 2 rows
+    ("sp4_gathered_data_rank", (4, 24, 8828, 128), None),  # phase 27 over (1, 4, 1): the gathered sp group
     ("tail_bidirectional", (2, 3, 1000, 128), None),
     ("tail_frame_causal", (1, 2, 1000, 128), 96),
 ]
@@ -1324,6 +1348,49 @@ def ring_mesh(device):
     return create_mesh(MeshConfig(dp_size=1, sp_size=RING_SP, tp_size=1), [device] * RING_SP)
 
 
+class RankTokens:
+    """While active, records on the first call of a model's first double
+    and first single block each rank's tokens of the residual stream (a
+    double block's text + image parts, a single block's chunk) and their
+    bytes: what each rank holds a block (``summary()``)."""
+
+    def __init__(self, model):
+        self.model, self.seen = model, {}
+
+    def __enter__(self):
+        for kind, block, n in (("double", self.model.double_blocks[0], 2), ("single", self.model.single_blocks[0], 1)):
+            def recorded(g, *args, fwd=block.forward_tp, kind=kind, n=n):
+                if kind not in self.seen:
+                    self.seen[kind] = [(sum(x[r].shape[1] for x in args[:n]),
+                                        sum(x[r].numel() * x[r].element_size() for x in args[:n]))
+                                       for r in range(len(args[0]))]
+                return fwd(g, *args)
+
+            block.forward_tp = recorded
+        return self
+
+    def __exit__(self, *exc):
+        for block in (self.model.double_blocks[0], self.model.single_blocks[0]):
+            del block.forward_tp
+
+    def summary(self) -> dict:
+        return {kind: dict(tokens=[t for t, _ in v], residual_bytes=[b for _, b in v]) for kind, v in self.seen.items()}
+
+    def check(self, tag: str, ranks: int, total: int) -> dict:
+        """The summary, after checking that both blocks ran over ``ranks``
+        ranks of ``total`` / ``ranks`` tokens each."""
+        out = self.summary()
+        for kind, v in out.items():
+            if v["tokens"] != [total // ranks] * ranks:
+                raise AssertionError(f"{tag}: the {kind} block's ranks hold {v['tokens']} tokens, not {total} in "
+                                     f"{ranks} chunks")
+        if set(out) != {"double", "single"}:
+            raise AssertionError(f"{tag}: blocks recorded {sorted(out)}")
+        log(f"[{tag}] per rank and block: tokens {out['single']['tokens']}, residual stream "
+            f"{[round(b / 1e6, 1) for b in out['single']['residual_bytes']]} MB")
+        return out
+
+
 def patched(module, name, wrap):
     """``module.name`` replaced by ``wrap(module.name)`` inside a with."""
     return unittest.mock.patch.object(module, name, wrap(getattr(module, name)))
@@ -1592,6 +1659,10 @@ def check_small_input(device, mesh=None) -> dict:
     res = {}
     mcfg = dict(cfg.model, depth=1, depth_single_blocks=1)
     card, cpu = twins(mcfg, dict(attn_backend="ring_rdma") if mesh is not None else None)
+    if mesh is not None:  # the tokens in chunks over the sp ranks
+        from opensora_torch.parallel.sharding import shard_params
+
+        shard_params(mesh, card, fsdp=False)
     b, lt = 3, 32
     img_ids = build_img_ids(2, 8, 12, bs=b)  # 2 x 4 x 6 = 48 image tokens
     inputs = dict(
@@ -1603,7 +1674,7 @@ def check_small_input(device, mesh=None) -> dict:
     _build.LAUNCHES.clear()
     set_mesh(mesh)
     try:
-        with torch.inference_mode():
+        with torch.inference_mode(), RankTokens(card) as tokens:
             ref = cpu(**inputs)
             out = card(**{k: v.to(device) for k, v in inputs.items()})
     finally:
@@ -1612,6 +1683,7 @@ def check_small_input(device, mesh=None) -> dict:
     res["mmdit_1+1_rel_err"] = rel_err(out, ref)
     del card, cpu
     if mesh is not None:
+        ranks = tokens.check("small", RING_SP, 48 + lt)
         torch.cuda.empty_cache()
         expect = {"ring_flash_fwd": 2 * RING_SP * RING_SP}
         ok = res["mmdit_1+1_rel_err"] <= SMALL_TOL and launches == expect
@@ -1620,7 +1692,7 @@ def check_small_input(device, mesh=None) -> dict:
             f"scale) launches {launches} (expected {expect}) {'OK' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("the card's ring path disagrees with the plain path on a small input")
-        return dict(res, launches=launches)
+        return dict(res, launches=launches, ranks=ranks)
 
     card, cpu = twins(dict(cfg.ae))
     z = torch.randn(1, 16, 2, 4, 4, generator=gen)
@@ -1852,14 +1924,17 @@ def set_attn_backend(model, backend) -> None:
 
 
 def run_ring_path(device, built, profile: bool = False, out_dir=None) -> dict:
-    """256px.py at full width and depth with the MMDiT's attention over
-    RING_SP logical ranks on the card (phase 4's models, their blocks
+    """256px.py at full width and depth with the MMDiT's tokens in chunks
+    over RING_SP logical ranks on the card (phase 4's models, their blocks
     switched to ``attn_backend="ring_rdma"``), through prepare_api(mesh=...)
-    and api_fn: shape, finiteness, exact launches, and the video against
-    phase 4's; then one step with ``attn_backend="ring"``."""
+    (which places the MMDiT over the ranks; it is unsharded again at the
+    end, for the phases after) and api_fn: shape, finiteness, exact
+    launches, each rank's tokens, and the video against phase 4's; then one
+    step with ``attn_backend="ring"``."""
     from opensora_torch.ops import _build
     from opensora_torch.ops import ring_flash as rf
     from opensora_torch.parallel.context import set_mesh
+    from opensora_torch.parallel.sharding import unshard_params
     from opensora_torch.utils.api import prepare_api
     from opensora_torch.utils.sampling import SamplingOption, sanitize_sampling_option
 
@@ -1885,8 +1960,10 @@ def run_ring_path(device, built, profile: bool = False, out_dir=None) -> dict:
 
     try:
         torch.cuda.reset_peak_memory_stats(device)
-        x, launches, timings = run("ring_rdma", STEPS)
+        with RankTokens(model) as tokens:
+            x, launches, timings = run("ring_rdma", STEPS)
         peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+        ranks = tokens.check("ring", RING_SP, sum(tokens.summary()["single"]["tokens"]))
         finite = bool(torch.isfinite(x).all())
         outside = float((x.abs() > 1.0).float().mean())
         expect = {"ring_flash_fwd": n_blocks * STEPS * hops, "flash_attention_fwd_d512": 2}
@@ -1903,7 +1980,8 @@ def run_ring_path(device, built, profile: bool = False, out_dir=None) -> dict:
     finally:
         set_attn_backend(model, cfg.model.get("attn_backend"))
         set_mesh(None)
-    res = dict(mesh=repr(mesh), launches=launches, expected=expect, text_encode_s=timings["text_encode_s"],
+        unshard_params(model)
+    res = dict(mesh=repr(mesh), ranks=ranks, launches=launches, expected=expect, text_encode_s=timings["text_encode_s"],
                step_s=timings["step_s"], decode_s=timings["decode_s"], total_s=timings["total_s"],
                peak_mem_gb=peak_gb, outside_share=outside, video_rel_l2_vs_dense=video_rel,
                control_last_hop_skipped_rel_l2=control_rel, tol=RING_VIDEO_TOL,
@@ -1927,6 +2005,7 @@ def run_ring_path(device, built, profile: bool = False, out_dir=None) -> dict:
         finally:
             set_attn_backend(model, cfg.model.get("attn_backend"))
             set_mesh(None)
+            unshard_params(model)
     return res
 
 
@@ -2643,6 +2722,11 @@ def check_train_small_input(device, mesh=None) -> dict:
         for n, p in cpu_f.items():
             p.copy_(torch.randn(p.shape, generator=gen) * (0.02 if n.endswith("lora_B") else 1.0 / rank))
             card_f[n].copy_(p)
+    if mesh is not None:  # the tokens in chunks over the sp ranks; one leaf a factor on the one card
+        from opensora_torch.parallel.sharding import shard_params
+
+        shard_params(mesh, card, fsdp=False)
+        card_f = {n: card.sharding.placements[n].leaves[0] for n in cpu_f}
 
     b, t, h, w, lt = 3, 2, 8, 12, 32
     n_img = t * (h // 2) * (w // 2)
@@ -2663,7 +2747,8 @@ def check_train_small_input(device, mesh=None) -> dict:
     _build.LAUNCHES.clear()
     set_mesh(mesh)
     try:
-        loss_card, g_card = step(card, card_f, device, torch.bfloat16)
+        with RankTokens(card) as tokens:
+            loss_card, g_card = step(card, card_f, device, torch.bfloat16)
     finally:
         set_mesh(None)
     launches = dict(_build.LAUNCHES)
@@ -2673,6 +2758,8 @@ def check_train_small_input(device, mesh=None) -> dict:
     res = {"loss_card": loss_card, "loss_cpu": loss_cpu, "loss_rel_err": abs(loss_card - loss_cpu) / abs(loss_cpu),
            "grad_rel_err_max": grad_rel[worst], "grad_rel_err_worst": worst,
            "grad_rel_err_median": sorted(grad_rel.values())[len(grad_rel) // 2], "launches": launches}
+    if mesh is not None:
+        res["ranks"] = tokens.check("small", RING_SP, n_img + lt)
     del card, cpu
     torch.cuda.empty_cache()
     ok = res["loss_rel_err"] <= SMALL_TOL and res["grad_rel_err_max"] <= TRAIN_GRAD_TOL
@@ -2767,15 +2854,17 @@ RING_TRAIN_STEPS = 1  # LoRA steps of the ring training path (phase 10)
 
 
 def run_ring_train_path(device, built, profile: bool = False, out_dir=None) -> dict:
-    """Phase 5's trainer (lora.py at full width and depth) with its MMDiT's
-    attention switched to ``ring_rdma`` over RING_SP logical ranks on the
-    card: RING_TRAIN_STEPS steps of Trainer.run_batch; finite loss and
-    gradient norm, moving LoRA factors, the exact launches of the ring
-    kernels, the dQ epilogue (once per rank and backward call) and the VAE
-    encode's flash forward."""
+    """Phase 5's trainer (lora.py at full width and depth) with its state
+    placed over RING_SP logical ranks on the card (``shard_state``: the
+    frozen base and the factors replicated, the tokens in chunks over the
+    sp ranks) and its MMDiT's attention switched to ``ring_rdma``:
+    RING_TRAIN_STEPS steps of Trainer.run_batch; finite loss and gradient
+    norm, moving LoRA factors, each rank's tokens, the exact launches of
+    the ring kernels, the dQ epilogue (once per rank and backward call) and
+    the VAE encode's flash forward. The trainer is not used after."""
     from opensora_torch.ops import _build
     from opensora_torch.parallel.context import set_mesh
-    from opensora_torch.training.lora import lora_parameters
+    from opensora_torch.training.diffusion import shard_state
     from opensora_torch.utils.train import single_frame_encodes
 
     trainer, batch = built["trainer"], built["batch"]
@@ -2783,8 +2872,11 @@ def run_ring_train_path(device, built, profile: bool = False, out_dir=None) -> d
     mesh = ring_mesh(device)
     n_blocks = cfg.model["depth"] + cfg.model["depth_single_blocks"]
     hops = RING_SP * RING_SP
-    factors = list(lora_parameters(trainer.model).values())
-    log(f"[ring_train] lora.py (phase 5's trainer), attn_backend=ring_rdma over {mesh}; {RING_TRAIN_STEPS} steps")
+    trainer.state = shard_state(mesh, trainer.state, trainer.model)
+    trainer.mesh, trainer.place_batch = mesh, True
+    factors = list(trainer.state.params.values())  # the factors' leaves
+    log(f"[ring_train] lora.py (phase 5's trainer), placed over {mesh}, attn_backend=ring_rdma; "
+        f"{RING_TRAIN_STEPS} steps")
     set_attn_backend(trainer.model, "ring_rdma")
     set_mesh(mesh)
     steps = []
@@ -2794,7 +2886,8 @@ def run_ring_train_path(device, built, profile: bool = False, out_dir=None) -> d
             before = [p.detach().clone() for p in factors]
             _build.LAUNCHES.clear()
             t0 = time.perf_counter()
-            metrics = trainer.run_batch(batch)
+            with RankTokens(trainer.model) as tokens:
+                metrics = trainer.run_batch(batch)
             torch.cuda.synchronize()
             total_s = time.perf_counter() - t0
             launches = dict(_build.LAUNCHES)
@@ -2805,7 +2898,8 @@ def run_ring_train_path(device, built, profile: bool = False, out_dir=None) -> d
             times = trainer.timers.to_dict()
             rec = dict(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]), launches=launches,
                        expected=expect, factors_moved=moved, factors=len(factors),
-                       step_s=times["time/step"], total_s=total_s)
+                       step_s=times["time/step"], total_s=total_s,
+                       ranks=tokens.check("ring_train", RING_SP, sum(tokens.summary()["single"]["tokens"])))
             steps.append(rec)
             log(f"[ring_train] step {i + 1}: " + json.dumps(rec))
             if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"]) and rec["grad_norm"] > 0):
@@ -4923,11 +5017,13 @@ def check_tp_small_input(device) -> dict:
                 set_mesh(mesh)
                 _build.LAUNCHES.clear()
                 try:
-                    with torch.inference_mode():
+                    with torch.inference_mode(), RankTokens(model) as tokens:
                         out = model(**on_card)
                 finally:
                     set_mesh(None)
                 launches = dict(_build.LAUNCHES)
+                if name == "right" and sizes[1] > 1:  # 80 tokens, 40 on each sp rank (both tp ranks)
+                    forwards[f"{tag}_rank_tokens"] = tokens.check("small", sizes[1] * sizes[2], 80 * sizes[2])
                 out = out.float().cpu()
                 err = float((out - ref).abs().max() / ref.abs().max().clamp(min=1.0))
                 forwards[f"{tag}_{name}_vs_unsharded_max"] = float((out - whole).abs().max() / whole.abs().max())
@@ -5645,6 +5741,154 @@ def run_pp_train_path(device, carry: dict) -> dict:
     return dict(depth=[n_blocks], runs=runs, controls=controls,
                 tols=dict(loss=TP_TRAIN_LOSS_TOL, grad_norm=TP_TRAIN_NORM_TOL, update=TP_TRAIN_UPDATE_TOL),
                 launches={k: sum(r["launches"].get(k, 0) for r in runs.values()) for k in runs[PP_MESHES[0][0]]["expected"]})
+
+
+# Phase 27: configs/diffusion/train/stage2.py (sp 4, seq_align 4, remat
+# "offload", the default attention) on phase 21's cell (2 + 4 blocks, 4
+# seeded 129 x 192 x 336 clips: 512 + 8316 tokens, which need no seq_align
+# padding, the lr / eps overrides), through Trainer(cfg, device, mesh=...)
+# over stage2's own mesh (SP_MESHES' None: the config's (dp -1, sp 4) over 4
+# logical ranks) and over (2, 2, 1) with FSDP: one timed step each from
+# phase 21's saved state, batch and generator states, held to phase 21's
+# TP_TRAIN_* limits against its unsharded step (stage1.py: "offload"
+# recomputes what "dots" keeps, the same math); the control leaves the last
+# sp rank's image chunk out of the gathered output and must fail them
+STAGE2_CFG = os.path.join(REPO, "configs", "diffusion", "train", "stage2.py")
+SP_MESHES = (("sp4", None), ("dp2_sp2", (2, 2, 1)))
+
+
+def stage2_cfg_args() -> list:
+    """Phase 27's configuration: stage2.py with phase 21's overrides."""
+    return [STAGE2_CFG, *fsdp_cfg_args()[1:]]
+
+
+def _last_chunk_left_out(chunks):
+    """Known-wrong: the last sp rank's image chunk left out of the gathered
+    output (zeros in its place)."""
+    def wrong(self, fn):
+        out = chunks(self, fn)
+        return out[:-1] + [torch.zeros_like(out[-1])]
+
+    return wrong
+
+
+def sp_train_launches(res: dict, kernel: str) -> dict:
+    """Phase 27's launches of ``kernel``, per mesh."""
+    return {tag: r["launches"].get(kernel, 0) for tag, r in res["runs"].items()}
+
+
+def run_sp_train_path(device, carry: dict) -> dict:
+    """Phase 27 (see SP_MESHES): per mesh, Trainer(cfg, device, mesh=...)
+    for stage2.py, phase 21's saved state loaded (placed over the mesh), one
+    step on phase 21's batch from its generator states, timed, against
+    phase 21's unsharded step within the TP_TRAIN_* limits; exact launches
+    (the default attention gathers each data rank's sp group for one flash
+    call a block: 2 * blocks * dp forwards with the recompute, blocks * dp
+    fused backwards and dQ epilogues; the VAE encode's D = 512 forwards as
+    phase 21's); each rank's tokens and residual bytes; the peak. On the
+    first mesh the control reruns the step from the saved state on the same
+    step inputs and must fail the limits."""
+    from opensora_torch.ops import _build
+    from opensora_torch.parallel import sharding as psh
+    from opensora_torch.parallel.context import set_mesh
+    from opensora_torch.parallel.mesh import MeshConfig, create_mesh
+    from opensora_torch.train import Trainer
+    from opensora_torch.utils.config import parse_configs
+
+    cfg = parse_configs(stage2_cfg_args())
+    ref, ref_change, start, snapshot = carry["ref"], carry["ref_change"], carry["start"], carry["snapshot"]
+    n_blocks = carry["n_blocks"]
+    log(f"[sp_train] stage2.py (remat {cfg.model['remat_policy']}, seq_align {cfg.seq_align}) at full width, "
+        f"{n_blocks} blocks, over {[(t, s or cfg.mesh) for t, s in SP_MESHES]}; one step each from phase 21's "
+        f"state, B={FSDP_BATCH}")
+    start_d, ref_change_d = _tree_to(start, device), _tree_to(ref_change, device)
+
+    def compare(trainer, m) -> dict:
+        upd = update_rel_l2(trainer.state, start_d, ref_change_d)
+        worst = max(upd, key=upd.get)
+        return dict(loss_rel=abs(float(m["loss"]) - ref["loss"]) / abs(ref["loss"]),
+                    grad_norm_rel=abs(float(m["grad_norm"]) - ref["grad_norm"]) / ref["grad_norm"],
+                    update_rel_l2_max=upd[worst], update_rel_l2_worst=worst,
+                    update_rel_l2_median=sorted(upd.values())[len(upd) // 2])
+
+    def held(c) -> bool:
+        return (c["loss_rel"] <= TP_TRAIN_LOSS_TOL and c["grad_norm_rel"] <= TP_TRAIN_NORM_TOL
+                and c["update_rel_l2_max"] <= TP_TRAIN_UPDATE_TOL)
+
+    runs, controls = {}, {}
+    trainer = None
+    try:
+        for tag, sizes in SP_MESHES:
+            trainer = None
+            free()
+            torch.cuda.reset_peak_memory_stats(device)
+            mesh = (create_mesh(MeshConfig(**cfg.mesh), [device] * RING_SP) if sizes is None
+                    else logical_mesh(device, sizes))
+            t0 = time.perf_counter()
+            trainer = Trainer(cfg, device, mesh=mesh)
+            trainer.state.load_state_dict(snapshot)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            trainer.gen.set_state(carry["rng_states"][0])
+            trainer.host_rng.bit_generator.state = carry["rng_states"][1]
+            seen = {}
+            step = trainer.train_step
+
+            def recorded(state, tb, gen):  # the step's inputs, for the control
+                seen.update(tb=tb, gen_state=gen.get_state())
+                return step(state, tb, gen)
+
+            trainer.train_step = recorded
+            _build.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            with RankTokens(trainer.model) as tokens:
+                m = trainer.run_batch(carry["batch"])
+                torch.cuda.synchronize()
+            total_s = time.perf_counter() - t0
+            dp, sp = mesh.shape["data"], mesh.shape["sp"]
+            rec = dict(mesh=dict(mesh.shape), loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                       launches=dict(_build.LAUNCHES), step_s=trainer.timers.to_dict()["time/step"],
+                       unsharded_step_s=ref["step_s"], total_s=total_s, build_and_load_s=build_s,
+                       mask_conds=trainer.mask_conds, peak_mem_gb=torch.cuda.max_memory_allocated(device) / 1e9)
+            rec["ranks"] = tokens.check("sp_train", sp, sum(tokens.summary()["single"]["tokens"]))
+            rec["ranks"]["whole_residual_bytes"] = sp * rec["ranks"]["single"]["residual_bytes"][0]
+            rec["expected"] = {"flash_attention_fwd_sm90": 2 * n_blocks * dp,
+                               "flash_attention_bwd_fused": n_blocks * dp,
+                               "flash_attention_bwd_dq_convert": n_blocks * dp,
+                               "flash_attention_fwd_d512": ref["expected"]["flash_attention_fwd_d512"]}
+            rec["vs_unsharded"] = compare(trainer, m)
+            rec["vs_unsharded"]["same_mask_conds"] = trainer.mask_conds == ref["mask_conds"]
+            log(f"[sp_train] {tag}: " + json.dumps(rec))
+            runs[tag] = rec
+            if tag == SP_MESHES[0][0]:
+                trainer.state.load_state_dict(snapshot)
+                gen = torch.Generator(device=device)
+                gen.set_state(seen["gen_state"])
+                with patched(psh.RankGroup, "chunks", _last_chunk_left_out):
+                    m = step(trainer.state, seen["tb"], gen)
+                controls["last_chunk_left_out"] = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                                                       **compare(trainer, m))
+                log("[sp_train] control last_chunk_left_out: " + json.dumps(controls["last_chunk_left_out"]))
+            del seen
+    finally:
+        set_mesh(None)
+        trainer = start_d = ref_change_d = None
+        free()
+    for tag, rec in runs.items():
+        if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])):
+            raise AssertionError(f"sp_train {tag}: loss {rec['loss']} or grad norm {rec['grad_norm']} not finite")
+        if rec["launches"] != rec["expected"]:
+            raise AssertionError(f"sp_train {tag}: launches {rec['launches']} != expected {rec['expected']}")
+        if not (rec["vs_unsharded"]["same_mask_conds"] and held(rec["vs_unsharded"])):
+            raise AssertionError(f"sp_train {tag} vs the unsharded step: {rec['vs_unsharded']}")
+        check_peak(f"sp_train {tag}", rec["peak_mem_gb"])
+    for name, c in controls.items():
+        if held(c):
+            raise AssertionError(f"sp_train control {name} passed the limits: {c}")
+    return dict(depth=[n_blocks], runs=runs, controls=controls,
+                tols=dict(loss=TP_TRAIN_LOSS_TOL, grad_norm=TP_TRAIN_NORM_TOL, update=TP_TRAIN_UPDATE_TOL),
+                launches={k: sum(r["launches"].get(k, 0) for r in runs.values())
+                          for k in runs[SP_MESHES[0][0]]["expected"]})
 
 
 # Phase 24: training across processes (multi_host) on the one card. Part (a):
@@ -6367,6 +6611,7 @@ def main(argv) -> int:
     fsdp_res = timed("phase 21 FSDP training", run_fsdp_train_path, device, "--profile" in argv, out_dir, carry)
     pp_res = timed("phase 22 GPipe training", run_pp_train_path, device, carry)
     mp_res = timed("phase 24 processes", run_multi_process_path, device, carry)
+    sp_train_res = timed("phase 27 stage2 over sp", run_sp_train_path, device, carry)
     del carry
     with tempfile.TemporaryDirectory() as tmp:
         lora_res = timed("phase 25 LoRA over a sharded mesh", run_lora_sharded_path, device, tmp)
@@ -6436,6 +6681,8 @@ def main(argv) -> int:
         launches_pp=pp_launches(pp_res, "flash_attention_fwd_sm90"),
         launches_multi_process=mp_launches(mp_res, "flash_attention_fwd_sm90"),
         launches_lora_sharded=lora_sharded_launches(lora_res, "flash_attention_fwd_sm90"),
+        launches_sp_train=sp_train_launches(sp_train_res, "flash_attention_fwd_sm90"),
+        launches_ring_sp_step=ring_res["sp_ring"]["launches"].get("flash_attention_fwd_sm90", 0),
         max_abs_err=max([c["max_abs_err"] for c in sm90_cases] + [res_768["attention"]["max_abs_err"]]),
         ms=head["ms"], ms_is="flash_attention_with_lse (the bound A on the device, then the kernel), the mean of "
         "4 readings in turns with SDPA's 4 (library_ms)", anchor_ms=head["anchor_ms"],
@@ -6487,6 +6734,7 @@ def main(argv) -> int:
         launches_pp=pp_launches(pp_res, "flash_attention_bwd_fused"),
         launches_multi_process=mp_launches(mp_res, "flash_attention_bwd_fused"),
         launches_lora_sharded=lora_sharded_launches(lora_res, "flash_attention_bwd_fused"),
+        launches_sp_train=sp_train_launches(sp_train_res, "flash_attention_bwd_fused"),
         max_abs_err=max(c["max_abs_err"][g] for c in attn_bwd["cases"] for g in ("dq", "dk", "dv")),
         max_abs_err_is="dq (after the epilogue), dk and dv against the plain backward",
         ms=bwd_head["ms"]["flash_attention_bwd_fused"],
@@ -6512,6 +6760,7 @@ def main(argv) -> int:
         launches_pp=pp_launches(pp_res, "flash_attention_bwd_dq_convert"),
         launches_multi_process=mp_launches(mp_res, "flash_attention_bwd_dq_convert"),
         launches_lora_sharded=lora_sharded_launches(lora_res, "flash_attention_bwd_dq_convert"),
+        launches_sp_train=sp_train_launches(sp_train_res, "flash_attention_bwd_dq_convert"),
         max_abs_err=max(c["dq_convert_max_abs_err"] for c in attn_bwd["cases"]),
         max_abs_err_is="against its plain version on the same dq_accum",
         ms=bwd_head["ms"]["flash_attention_bwd_dq_convert"], plain_ms=bwd_head["dq_convert_plain_ms"],
@@ -6642,6 +6891,7 @@ def main(argv) -> int:
     log("[pp] " + json.dumps(pp_res))
     log("[multi_process] " + json.dumps(mp_res))
     log("[lora_sharded] " + json.dumps(lora_res))
+    log("[sp_train] " + json.dumps(sp_train_res))
     log("[int8_tp] " + json.dumps(int8_tp_res))
     log("[vae_cp] " + json.dumps(vae_cp_res))
     log("[train] " + json.dumps(train_res))

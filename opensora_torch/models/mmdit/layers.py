@@ -12,12 +12,20 @@ the blocks, the modulation's included, an int8 ``QuantLinear``
 (``ops/quant.py``) where the JAX package uses ``dense``; the embedders and
 the final layer stay float.
 
-Each block's ``forward_tp`` runs it over the tp ranks of a sharded model
-(``parallel/sharding.RankGroup``): rank r reads its shards of the weights
-(whole heads of ``qkv`` and ``linear1``, its MLP columns), attends over
-its heads, and the row-parallel products (``proj``, ``img_mlp.2``,
-``txt_mlp.2``, ``linear2``) are summed over the ranks with the bias added
-once. The unsharded ``forward`` is ``forward_tp`` over one rank
+Each block's ``forward_tp`` runs it over the ranks of a sharded model
+(``parallel/sharding.RankGroup``), per-rank lists in and out: rank r reads
+its shards of the weights (whole heads of ``qkv`` and ``linear1``, its MLP
+columns), and the row-parallel products (``proj``, ``img_mlp.2``,
+``txt_mlp.2``, ``linear2``) are summed over the tp ranks with the bias
+added once. Over an sp group (a ``seq`` RankGroup) each rank also holds
+only its chunk of the joint [txt, img] sequence: a double block's chunk is
+a text part and an image part, either possibly empty, to which the rank
+applies the text and the image weights; the attention is the one step that
+spans the group. Each block runs in three steps: per-rank q, k, v and
+their norms, the group's attention (:func:`group_attention`), then per
+rank the output projections, MLPs and residuals. A part without tokens
+runs none of its linears (:func:`tokenwise`), so no kernel is launched
+with no rows. The unsharded ``forward`` is ``forward_tp`` over one rank
 (``parallel/sharding.ONE_RANK``), so the block's math is written once.
 """
 
@@ -31,7 +39,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from opensora_torch.models.cast_layers import Linear
-from opensora_torch.ops.attention import attention
+from opensora_torch.ops.attention import attention, attention_shards
 from opensora_torch.ops.norms import layer_norm, rms_norm
 from opensora_torch.ops.quant import dense
 from opensora_torch.parallel.sharding import ONE_RANK
@@ -97,6 +105,30 @@ class Modulation(nn.Module):
         return tuple(chunks[:3]), (tuple(chunks[3:]) if self.multiplier == 6 else None)
 
 
+def tokenwise(fn, x: torch.Tensor, width: int) -> torch.Tensor:
+    """``fn(x)`` over x's tokens (B, L, ·); where L is 0, an empty (B, 0,
+    width) in x's dtype, and ``fn`` is not called."""
+    return fn(x) if x.shape[1] else x.new_empty((x.shape[0], 0, width))
+
+
+def group_attention(g, qkv, pe, rope_convention: str, backend: Optional[str]):
+    """The attention of every rank of ``g`` (``parallel/sharding.
+    RankGroup`` or ``ONE_RANK``): per-rank (q, k, v), each (B, L_r, H_r,
+    D), and pe in, per-rank outputs (B, L_r, H_r * D) out. Over whole
+    sequences each rank attends by itself; over an sp group
+    (``g.sp`` > 1) the ranks of each tp coordinate attend together over
+    their chunks (``ops/attention.attention_shards``)."""
+    kw = dict(rope_convention=rope_convention, backend=backend)
+    if g.sp == 1:
+        return g.each(lambda r: attention(*qkv[r], pe=pe[r], **kw))
+    out = [None] * len(qkv)
+    for ranks in g.sp_sets():
+        parts = attention_shards(*([qkv[r][i] for r in ranks] for i in range(3)), [pe[r] for r in ranks], **kw)
+        for r, o in zip(ranks, parts):
+            out[r] = o
+    return out
+
+
 def _split_heads(x: torch.Tensor, head_dim: int) -> torch.Tensor:
     """(B, L, n * head_dim) -> (B, L, n, head_dim): n is all the heads, or
     a tp rank's share of them."""
@@ -126,8 +158,12 @@ class SelfAttention(nn.Module):
         self.norm = QKNorm(dim // num_heads, **factory)
         self.proj = dense(quantized, dim, dim, **factory)
 
-    def qkv_heads(self, x: torch.Tensor):
-        """Per-head q, k, v of shape (B, L, H, D), q and k normalized."""
+    def qkv_heads(self, x: torch.Tensor, tp: int = 1):
+        """Per-head q, k, v of shape (B, L, H / tp, D) (one of ``tp``
+        ranks' heads), q and k normalized; empty where x has no tokens."""
+        if not x.shape[1]:
+            empty = x.new_empty((x.shape[0], 0, self.num_heads // tp, self.head_dim))
+            return empty, empty, empty
         if self.fused_qkv:
             q, k, v = self.qkv(x).chunk(3, dim=-1)
         else:
@@ -153,7 +189,7 @@ class DoubleStreamBlock(nn.Module):
                  fused_qkv: bool = True, rope_convention: str = "split",
                  attn_backend: Optional[str] = None, quantized=False, **factory):
         super().__init__()
-        mlp_hidden = int(hidden_size * mlp_ratio)
+        mlp_hidden = self.mlp_hidden_dim = int(hidden_size * mlp_ratio)
         self.rope_convention = rope_convention
         self.attn_backend = attn_backend
         q = dict(quantized=quantized, **factory)
@@ -164,53 +200,50 @@ class DoubleStreamBlock(nn.Module):
         self.img_mlp = _mlp(hidden_size, mlp_hidden, **q)
         self.txt_mlp = _mlp(hidden_size, mlp_hidden, **q)
 
-    def _attend(self, img_x, txt_x, pe):
-        """Joint attention of the modulated streams over the heads this rank
-        holds: (txt, img) outputs, heads merged."""
-        img_q, img_k, img_v = self.img_attn.qkv_heads(img_x)
-        txt_q, txt_k, txt_v = self.txt_attn.qkv_heads(txt_x)
-        attn_out = attention(
-            torch.cat([txt_q, img_q], dim=1),
-            torch.cat([txt_k, img_k], dim=1),
-            torch.cat([txt_v, img_v], dim=1),
-            pe=pe, rope_convention=self.rope_convention, backend=self.attn_backend,
-        )
-        txt_len = txt_q.shape[1]
-        return attn_out[:, :txt_len], attn_out[:, txt_len:]
-
     def forward(self, img, txt, vec, pe):
         img, txt = self.forward_tp(ONE_RANK, [img], [txt], [vec], [pe])
         return img[0], txt[0]
 
     def forward_tp(self, g, img, txt, vec, pe):
-        """The block over the tp ranks of ``g`` (``parallel/sharding.
+        """The block over the ranks of ``g`` (``parallel/sharding.
         RankGroup`` or ``ONE_RANK``); every argument and result is a list
-        with one entry per rank. Modulation, norms and residuals are
-        replicated (once per device); each rank attends over its heads and
-        computes its MLP columns; one all-reduce follows each row-parallel
-        product."""
-        mods = g.rep(lambda t: (self.img_mod(vec[t]), self.txt_mod(vec[t])))
+        with one entry per rank, a rank's img and txt its parts of the
+        joint sequence. Modulation, norms and residuals are replicated over
+        'tp' (once per chunk and device); each rank attends over its heads
+        and computes its MLP columns; one all-reduce over 'tp' follows each
+        row-parallel product."""
+        hidden = img[0].shape[-1]
+        mods = g.rep(lambda r: (self.img_mod(vec[r]), self.txt_mod(vec[r])))
 
-        def first(t):
-            ((img_shift1, img_scale1, _), _), ((txt_shift1, txt_scale1, _), _) = mods[t]
-            return (modulate(layer_norm(img[t]), img_shift1, img_scale1),
-                    modulate(layer_norm(txt[t]), txt_shift1, txt_scale1))
+        def first(r):
+            ((img_shift1, img_scale1, _), _), ((txt_shift1, txt_scale1, _), _) = mods[r]
+            return (modulate(layer_norm(img[r]), img_shift1, img_scale1),
+                    modulate(layer_norm(txt[r]), txt_shift1, txt_scale1))
 
         x = g.rep(first)
-        attn = g.each(lambda t: self._attend(*x[t], pe[t]))
-        img_o = g.row(self.img_attn.proj, [a[1] for a in attn])
-        txt_o = g.row(self.txt_attn.proj, [a[0] for a in attn])
 
-        def second(t):
-            ((_, _, img_gate1), (img_shift2, img_scale2, _)), ((_, _, txt_gate1), (txt_shift2, txt_scale2, _)) = mods[t]
-            i, x_ = img[t] + img_gate1 * img_o[t], txt[t] + txt_gate1 * txt_o[t]
+        def qkv(r):  # the joint [txt, img] q, k, v of the rank's heads
+            img_q, txt_q = self.img_attn.qkv_heads(x[r][0], g.tp), self.txt_attn.qkv_heads(x[r][1], g.tp)
+            return tuple(torch.cat([a, b], dim=1) for a, b in zip(txt_q, img_q))
+
+        attn = group_attention(g, g.each(qkv), pe, self.rope_convention, self.attn_backend)
+        n_txt = [t.shape[1] for t in txt]
+        img_o = g.row(self.img_attn.proj, [a[:, n:] for a, n in zip(attn, n_txt)], hidden)
+        txt_o = g.row(self.txt_attn.proj, [a[:, :n] for a, n in zip(attn, n_txt)], hidden)
+
+        def second(r):
+            ((_, _, img_gate1), (img_shift2, img_scale2, _)), ((_, _, txt_gate1), (txt_shift2, txt_scale2, _)) = mods[r]
+            i, x_ = img[r] + img_gate1 * img_o[r], txt[r] + txt_gate1 * txt_o[r]
             return (i, x_, modulate(layer_norm(i), img_shift2, img_scale2),
                     modulate(layer_norm(x_), txt_shift2, txt_scale2))
 
-        r = g.rep(second)
-        img_m = g.row(self.img_mlp[2], g.each(lambda t: self.img_mlp[1](self.img_mlp[0](r[t][2]))))
-        txt_m = g.row(self.txt_mlp[2], g.each(lambda t: self.txt_mlp[1](self.txt_mlp[0](r[t][3]))))
-        out = g.rep(lambda t: (r[t][0] + mods[t][0][1][2] * img_m[t], r[t][1] + mods[t][1][1][2] * txt_m[t]))
+        r2 = g.rep(second)
+        mlp_w = self.mlp_hidden_dim // g.tp
+        img_m = g.row(self.img_mlp[2], g.each(lambda r: tokenwise(lambda y: self.img_mlp[1](self.img_mlp[0](y)),
+                                                                   r2[r][2], mlp_w)), hidden)
+        txt_m = g.row(self.txt_mlp[2], g.each(lambda r: tokenwise(lambda y: self.txt_mlp[1](self.txt_mlp[0](y)),
+                                                                   r2[r][3], mlp_w)), hidden)
+        out = g.rep(lambda r: (r2[r][0] + mods[r][0][1][2] * img_m[r], r2[r][1] + mods[r][1][1][2] * txt_m[r]))
         return [o[0] for o in out], [o[1] for o in out]
 
 
@@ -238,9 +271,10 @@ class SingleStreamBlock(nn.Module):
         self.norm = QKNorm(hidden_size // num_heads, **factory)
         self.modulation = Modulation(hidden_size, double=False, quantized=quantized, **factory)
 
-    def _attn_mlp(self, x_mod, pe, tp: int):
-        """[attention | gelu(mlp)] of the modulated input over the heads and
-        MLP columns of one of ``tp`` ranks: the input of ``linear2``."""
+    def _qkv_mlp(self, x_mod, tp: int):
+        """q, k, v (B, L, H / tp, D), q and k normalized, and the MLP's
+        pre-activation of the modulated input, over the heads and MLP
+        columns of one of ``tp`` ranks."""
         h, mlp_w = self.hidden_size // tp, self.mlp_hidden_dim // tp
         if self.fused_qkv:
             qkv, mlp = self.linear1(x_mod).split([3 * h, mlp_w], dim=-1)
@@ -250,23 +284,22 @@ class SingleStreamBlock(nn.Module):
             v, mlp = self.v_mlp(x_mod).split([h, mlp_w], dim=-1)
         q, k, v = (_split_heads(t, self.hidden_size // self.num_heads) for t in (q, k, v))
         q, k = self.norm(q, k)
-        attn_out = attention(
-            q.to(v.dtype), k.to(v.dtype), v, pe=pe,
-            rope_convention=self.rope_convention, backend=self.attn_backend,
-        )
-        return torch.cat([attn_out, F.gelu(mlp, approximate="tanh")], dim=-1)
+        return q.to(v.dtype), k.to(v.dtype), v, mlp
 
     def forward(self, x, vec, pe):
         return self.forward_tp(ONE_RANK, [x], [vec], [pe])[0]
 
     def forward_tp(self, g, x, vec, pe):
-        """The block over the tp ranks of ``g``, per-rank lists in and out
-        (see ``DoubleStreamBlock.forward_tp``): one all-reduce, after
-        ``linear2``."""
-        mods = g.rep(lambda t: self.modulation(vec[t])[0])
-        x_mod = g.rep(lambda t: modulate(layer_norm(x[t]), mods[t][0], mods[t][1]))
-        out = g.row(self.linear2, g.each(lambda t: self._attn_mlp(x_mod[t], pe[t], g.tp)))
-        return g.rep(lambda t: x[t] + mods[t][2] * out[t])
+        """The block over the ranks of ``g``, per-rank lists in and out
+        (see ``DoubleStreamBlock.forward_tp``): the [attention | gelu(mlp)]
+        input of ``linear2``, then one all-reduce over 'tp' after it."""
+        mods = g.rep(lambda r: self.modulation(vec[r])[0])
+        x_mod = g.rep(lambda r: modulate(layer_norm(x[r]), mods[r][0], mods[r][1]))
+        qkv_mlp = g.each(lambda r: self._qkv_mlp(x_mod[r], g.tp))
+        attn = group_attention(g, [a[:3] for a in qkv_mlp], pe, self.rope_convention, self.attn_backend)
+        hidden = g.each(lambda r: torch.cat([attn[r], F.gelu(qkv_mlp[r][3], approximate="tanh")], dim=-1))
+        out = g.row(self.linear2, hidden, x[0].shape[-1])
+        return g.rep(lambda r: x[r] + mods[r][2] * out[r])
 
 
 class LastLayer(nn.Module):

@@ -28,11 +28,30 @@ Sharded over a mesh (``parallel/sharding.shard_params``, which sets
 over :meth:`MMDiTModel.prepare_block_inputs`, :meth:`MMDiTModel.run_block`
 and ``final_layer``), the forward cuts the rows over the data ranks
 (:meth:`MMDiTModel.forward_rank` runs one data rank's rows) and runs each
-block's ``forward_tp`` over the tp ranks: the embedders and the final
-layer replicated, each rank's heads and MLP columns on its own device, the
-row-parallel products all-reduced. The blocks are checkpointed as above,
-so an FSDP weight is gathered inside the checkpointed function (and again
-for its recompute) and freed after use.
+block's ``forward_tp`` over the ranks of the data coordinate: the
+embedders and the final layer replicated over 'tp', each rank's heads and
+MLP columns on its own device, the row-parallel products all-reduced. The
+blocks are checkpointed as above, so an FSDP weight is gathered inside the
+checkpointed function (and again for its recompute) and freed after use.
+
+On a mesh with an 'sp' axis the tokens are cut over it from the embedders
+to the final layer, in the layout JAX's attention under SP sees
+(``parallel/data.joint_chunks``): sp rank s holds the joint [txt, img]
+tokens [s L / sp, (s + 1) L / sp) with their RoPE ids and rows of
+``cond``, and runs every linear, norm, MLP and modulation of both stacks
+on them alone, on its own device; only the attention spans the group. In
+a double block a rank's chunk is a text part and an image part (rank 0
+holds all 512 text tokens of a 256px clip and 1695 image tokens, ranks 1-3
+2207 image tokens each); the final layer runs on each rank's image part,
+and the parts are gathered in order on the device of rank (d, 0, 0), whose
+backward cuts the gradient. Every op outside the attention works token by
+token (the modulation per sample), so the result is the unsharded
+forward's up to rounding. JAX pins the text and the image stream to 'sp'
+each in the double blocks (opensora_tpu/models/mmdit/model.py:178-185);
+the joint chunks give the same result and need only that L divides by sp,
+which ``seq_align`` sees to. Where L does not divide, the tokens stay whole
+on the ranks at sp coordinate 0 and only the attention is cut over 'sp',
+as JAX's ``constrain`` leaves them replicated.
 
 ``quantized`` (False | True/"w8" | "w8a8" | "w8a8_pallas" | "w8a8_fq")
 builds every linear of the blocks as an int8 ``QuantLinear``
@@ -45,6 +64,7 @@ weights as they load (``utils/ckpt.load_checkpoint``).
 from __future__ import annotations
 
 import functools
+import logging
 from dataclasses import dataclass, field
 from typing import Optional, Sequence, Union
 
@@ -59,10 +79,20 @@ from opensora_torch.models.mmdit.layers import (
     MLPEmbedder,
     SingleStreamBlock,
     timestep_embedding,
+    tokenwise,
 )
 from opensora_torch.ops.quant import quant_mode
 from opensora_torch.ops.rope import embed_nd
 from opensora_torch.registry import MODELS
+
+logger = logging.getLogger(__name__)
+
+
+@functools.lru_cache(maxsize=None)
+def _log_whole_sequence(n: int, sp: int) -> None:
+    """Logs, once per length and sp size, that the tokens stay whole."""
+    logger.info("%d joint tokens do not split over sp %d: the blocks run the whole sequence on sp rank 0, the "
+                "attention cut over 'sp'", n, sp)
 
 
 @dataclass
@@ -170,19 +200,19 @@ class MMDiTModel(nn.Module):
         cfg = self.config
         if img.dim() != 3 or txt.dim() != 3:
             raise ValueError("img and txt must be (B, L, C)")
-        dt = self.dtype
-        img = self.img_in(img.to(dt))
+        dt, hidden = self.dtype, cfg.hidden_size
+        img = tokenwise(self.img_in, img.to(dt), hidden)
         if cfg.cond_embed:
             if cond is None:
                 raise ValueError("cond_embed=True requires a cond input")
-            img = img + self.cond_in(cond.to(dt))
+            img = img + tokenwise(self.cond_in, cond.to(dt), hidden)
         vec = self.time_in(timestep_embedding(timesteps, 256).to(dt))
         if cfg.guidance_embed:
             if guidance is None:
                 raise ValueError("guidance_embed=True requires a guidance input")
             vec = vec + self.guidance_in(timestep_embedding(guidance, 256).to(dt))
         vec = vec + self.vector_in(y_vec.to(dt))
-        txt = self.txt_in(txt.to(dt))
+        txt = tokenwise(self.txt_in, txt.to(dt), hidden)
         pe = embed_nd(torch.cat([txt_ids, img_ids], dim=1), cfg.axes_dim, cfg.theta)
         return img, txt, vec, pe
 
@@ -236,23 +266,43 @@ class MMDiTModel(nn.Module):
         return torch.cat(outs, 0) if len(outs) > 1 else outs[0]
 
     def forward_rank(self, d, img, img_ids, txt, txt_ids, timesteps, y_vec, cond=None, guidance=None):
-        """Data rank ``d``'s rows through the sharded model: its tp ranks
+        """Data rank ``d``'s rows through the sharded model: its ranks
         (``parallel/sharding.RankGroup``) run every block together, each on
-        its home device; the embedders and the final layer are replicated.
-        Returns the output on the device of rank (d, 0, 0)."""
+        its home device. On an sp mesh whose joint sequence splits over
+        'sp', sp rank s embeds and runs its chunk of the tokens (see the
+        module docstring). Returns the output on the device of rank (d, 0,
+        0)."""
+        from opensora_torch.parallel.data import joint_chunks
         from opensora_torch.parallel.sharding import RankGroup
 
-        g = RankGroup(self.sharding, d)
-        inputs = (img, img_ids, txt, txt_ids, timesteps, y_vec, cond, guidance)
-        prep = g.rep(lambda t: self.prepare_block_inputs(*(None if x is None else x.to(g.devices[t]) for x in inputs)))
+        n_txt, n_img, sp = txt.shape[1], img.shape[1], self.sharding.sp
+        seq = (n_txt + n_img) % sp == 0
+        if not seq:
+            _log_whole_sequence(n_txt + n_img, sp)
+        g = RankGroup(self.sharding, d, seq=seq)
+        chunks = joint_chunks(n_txt, n_img, g.sp)
+
+        def prepare(r):
+            ts, is_ = chunks[g.coords[r][0]]
+            dev = g.devices[r]
+
+            def cut(x, rows):
+                return None if x is None else x[:, rows].to(dev)
+
+            return self.prepare_block_inputs(cut(img, is_), cut(img_ids, is_), cut(txt, ts), cut(txt_ids, ts),
+                                             *(None if x is None else x.to(dev) for x in (timesteps, y_vec)),
+                                             cut(cond, is_), None if guidance is None else guidance.to(dev))
+
+        prep = g.rep(prepare)
         img, txt, vec, pe = ([p[i] for p in prep] for i in range(4))
         for block in self.double_blocks:
             img, txt = self.run_block(block, g, img, txt, vec, pe)
-        x = g.rep(lambda t: torch.cat([txt[t], img[t]], dim=1))
+        x = g.rep(lambda r: torch.cat([txt[r], img[r]], dim=1))
         for block in self.single_blocks:
             x = self.run_block(block, g, x, vec, pe)
-        n_txt = txt[0].shape[1]
-        return g.rep(lambda t: self.final_layer(x[t][:, n_txt:], vec[t]))[0]
+        out_dim = self.config.in_channels
+        outs = g.chunks(lambda r: tokenwise(lambda y: self.final_layer(y, vec[r]), x[r][:, txt[r].shape[1]:], out_dim))
+        return torch.cat([o.to(g.devices[0]) for o in outs], 1) if len(outs) > 1 else outs[0]
 
 
 @MODELS.register_module("flux")

@@ -18,19 +18,27 @@ kernels for CUDA tensors); ``"ring"`` and ``"ulysses"`` run
 ``"ulysses:<inner>"`` with the backend ``<inner>``.
 
 Layout: q, k, v are (B, L, H, D); the output is (B, L, H * D).
+
+:func:`attention` takes whole sequences. :func:`attention_shards` takes one
+sp group of a sequence-sharded model, each rank's chunk of the joint
+sequence on its device, and returns each rank's output: the sp backends run
+over the shards as they are; any other backend gathers the group's q, k, v
+on the first rank's device, makes one call and cuts the output back (as
+JAX's GSPMD gathers around the Pallas call under P(data, sp)).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from opensora_torch.ops import rope as rope_ops
 from opensora_torch.ops.flash_attention import flash_attention, flash_attention_ref
 from opensora_torch.ops.int8_flash import int8_flash_attention
-from opensora_torch.ops.ring_flash import ring_flash_attention
-from opensora_torch.ops.sp import ring_attention, ulysses_attention
+from opensora_torch.ops.ring_flash import ring_flash_attention, ring_flash_shards
+from opensora_torch.ops.sp import ring_attention, ring_shards, ulysses_attention, ulysses_shards
+from opensora_torch.parallel.comm import gather
 from opensora_torch.parallel.context import get_mesh
 
 
@@ -77,6 +85,21 @@ def _sequence_parallel(q, k, v, backend: str) -> torch.Tensor:
     return fn(q, k, v, mesh, backend=inner or None).reshape(b, l, h * d)
 
 
+def _sequence_parallel_backend(backend) -> bool:
+    return backend == "ring_rdma" or (isinstance(backend, str) and backend.split(":")[0] in ("ring", "ulysses"))
+
+
+def _rope(q, k, pe, rope_convention: str):
+    if pe is None:
+        return q, k
+    cos, sin = pe
+    if rope_convention == "split":
+        return rope_ops.apply_rope_split(q, cos, sin), rope_ops.apply_rope_split(k, cos, sin)
+    if rope_convention == "interleaved":
+        return rope_ops.apply_rope_interleaved(q, cos, sin), rope_ops.apply_rope_interleaved(k, cos, sin)
+    raise ValueError(f"unknown rope convention {rope_convention!r}")
+
+
 def attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -90,18 +113,38 @@ def attention(
 
     q, k, v: (B, L, H, D); pe: (cos, sin) each (B, L, D/2) or None.
     """
-    if pe is not None:
-        cos, sin = pe
-        if rope_convention == "split":
-            q, k = rope_ops.apply_rope_split(q, cos, sin), rope_ops.apply_rope_split(k, cos, sin)
-        elif rope_convention == "interleaved":
-            q = rope_ops.apply_rope_interleaved(q, cos, sin)
-            k = rope_ops.apply_rope_interleaved(k, cos, sin)
-        else:
-            raise ValueError(f"unknown rope convention {rope_convention!r}")
-    if backend == "ring_rdma" or (isinstance(backend, str) and backend.split(":")[0] in ("ring", "ulysses")):
+    q, k = _rope(q, k, pe, rope_convention)
+    if _sequence_parallel_backend(backend):
         return _sequence_parallel(q, k, v, backend)
     qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     out = scaled_dot_product_attention(qh, kh, vh, backend=backend)
     b, h, l, d = out.shape
     return out.transpose(1, 2).reshape(b, l, h * d)
+
+
+def attention_shards(
+    qs: Sequence[torch.Tensor],
+    ks: Sequence[torch.Tensor],
+    vs: Sequence[torch.Tensor],
+    pes: Sequence[Optional[Tuple[torch.Tensor, torch.Tensor]]],
+    *,
+    rope_convention: str = "split",
+    backend: Optional[str] = None,
+) -> List[torch.Tensor]:
+    """MMDiT attention over one sp group of a sequence-sharded model: rank
+    i's q, k, v (B, L_i, H, D) and pe (its chunk's RoPE tables) on its
+    device -> its output (B, L_i, H * D). RoPE per rank, then the sp
+    backend over the shards (equal L_i), or one call of any other backend
+    on the gathered sequence (see the module docstring)."""
+    qs, ks = zip(*(_rope(q, k, pe, rope_convention) for q, k, pe in zip(qs, ks, pes)))
+    b, _, h, d = qs[0].shape
+    if backend == "ring_rdma":
+        outs = ring_flash_shards(*([x.transpose(1, 2) for x in xs] for xs in (qs, ks, vs)))
+        return [o.transpose(1, 2).reshape(b, o.shape[2], h * d) for o in outs]
+    if _sequence_parallel_backend(backend):
+        name, _, inner = backend.partition(":")
+        outs = (ulysses_shards if name == "ulysses" else ring_shards)(qs, ks, vs, backend=inner or None)
+        return [o.reshape(b, o.shape[1], h * d) for o in outs]
+    home = qs[0].device
+    out = attention(*(gather(list(xs), 1, home) for xs in (qs, ks, vs)), backend=backend)
+    return [o.to(q.device) for o, q in zip(out.split([q.shape[1] for q in qs], 1), qs)]

@@ -36,7 +36,11 @@ fp32. A CUDA call never falls back to them. ``plain=True`` in :func:`ring_forwar
 the reference ``chip_smoke.py`` holds the kernels against.
 
 Layout (B, H, L, D) for the global tensors; each rank holds the slice
-L/sp * rank .. of the sequence.
+L/sp * rank .. of the sequence. Two differentiable entry points:
+:func:`ring_flash_shards` takes one ring's shards (rank r's q, k, v on its
+device) and returns rank r's output, what a sequence-sharded model calls;
+:func:`ring_flash_attention` takes global tensors, cuts them over the mesh
+and gathers (out, lse) back.
 """
 
 from __future__ import annotations
@@ -343,29 +347,47 @@ def ring_backward_shards(qs, ks, vs, outs, lses, dos, *, sm_scale: float, causal
             [grad[r][home, 1].to(vs[r].dtype) for r in range(sp)])
 
 
-class RingFlashAttentionFunction(torch.autograd.Function):
-    """Differentiable ring flash attention over the ranks on ``devices``
-    (the JAX package's ``custom_vjp``, ring_flash.py:380-392): global q, k,
-    v (B, H, L, D) are cut along L into one shard per rank; returns the
-    gathered (out, lse). The LSE takes no gradient."""
+class RingFlashShardsFunction(torch.autograd.Function):
+    """Differentiable ring flash attention over one ring's shards (the JAX
+    package's ``custom_vjp``, ring_flash.py:380-392): rank r's q, k, v (B,
+    H, L/sp, D), contiguous on its device, in that order after ``sm_scale``
+    and ``causal_block``; returns the ranks' outputs, then their LSEs, which
+    take no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, devices, sm_scale: float, causal_block: Optional[int]):
-        outs, lses = ring_forward_shards(*(shard(x, 2, devices) for x in (q, k, v)), sm_scale=sm_scale,
+    def forward(ctx, sm_scale: float, causal_block: Optional[int], *shards):
+        n = len(shards) // 3
+        outs, lses = ring_forward_shards(shards[:n], shards[n:2 * n], shards[2 * n:], sm_scale=sm_scale,
                                          causal_block=causal_block)
-        out, lse = gather(outs, 2, q.device), gather(lses, 2, q.device)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.devices, ctx.sm_scale, ctx.causal_block = devices, sm_scale, causal_block
-        ctx.mark_non_differentiable(lse)
-        return out, lse
+        ctx.save_for_backward(*shards, *outs, *lses)
+        ctx.n, ctx.sm_scale, ctx.causal_block = n, sm_scale, causal_block
+        ctx.mark_non_differentiable(*lses)
+        return (*outs, *lses)
 
     @staticmethod
-    def backward(ctx, dout, _dlse):
-        q, k, v, out, lse = ctx.saved_tensors
-        dout = dout.to(q.dtype)
-        parts = [shard(x, 2, ctx.devices) for x in (q, k, v, out, lse, dout)]
-        dq, dk, dv = ring_backward_shards(*parts, sm_scale=ctx.sm_scale, causal_block=ctx.causal_block)
-        return gather(dq, 2, q.device), gather(dk, 2, k.device), gather(dv, 2, v.device), None, None, None
+    def backward(ctx, *grads):
+        n, saved = ctx.n, ctx.saved_tensors
+        qs, ks, vs, outs, lses = (saved[i * n:(i + 1) * n] for i in range(5))
+        dos = [d.to(q.dtype).contiguous() for d, q in zip(grads[:n], qs)]
+        dq, dk, dv = ring_backward_shards(qs, ks, vs, outs, lses, dos, sm_scale=ctx.sm_scale,
+                                          causal_block=ctx.causal_block)
+        return (None, None, *dq, *dk, *dv)
+
+
+def ring_flash_shards(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor], vs: Sequence[torch.Tensor], *,
+                      causal_block: Optional[int] = None, sm_scale: Optional[float] = None) -> List[torch.Tensor]:
+    """Sequence-parallel flash attention over one ring's shards: rank r's
+    q, k, v (B, H, L/sp, D) on its device (every rank the same shape; its
+    queries and keys start at r L/sp) -> its output (B, H, L/sp, D) in q's
+    dtype. Differentiable in q, k, v. CUDA tensors run the ring kernels
+    (bf16, head dim 128) or raise; CPU tensors the plain hops."""
+    shapes = {tuple(x.shape) for x in (*qs, *ks, *vs)}
+    if len(shapes) != 1:
+        raise ValueError(f"the ring's shards differ in shape: {sorted(shapes)}")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(qs[0].shape[-1])
+    res = RingFlashShardsFunction.apply(sm_scale, causal_block, *(x.contiguous() for x in (*qs, *ks, *vs)))
+    return list(res[:len(qs)])
 
 
 def ring_devices(mesh, axis: str) -> Tuple[torch.device, ...]:
@@ -399,10 +421,15 @@ def ring_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh
         raise ValueError(f"sequence lengths {q.shape[2]}, {k.shape[2]} do not split over {n} ranks")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
+
+    def ring(q, k, v, devices):  # global (out, lse) of one ring: cut, the shards' ring, gathered
+        shards = (p for x in (q, k, v) for p in shard(x, 2, devices))
+        res = RingFlashShardsFunction.apply(sm_scale, causal_block, *shards)
+        return gather(res[:n], 2, q.device), gather(res[n:], 2, q.device)
+
     if len(groups) == 1:
-        return RingFlashAttentionFunction.apply(q, k, v, tuple(groups[0]), sm_scale, causal_block)
+        return ring(q, k, v, groups[0])
     blocks = [[r.chunk(heads, 1) for r in x.chunk(rows, 0)] for x in (q, k, v)]
-    res = [RingFlashAttentionFunction.apply(*(b[d][t] for b in blocks), tuple(groups[d * heads + t]), sm_scale,
-                                            causal_block) for d in range(rows) for t in range(heads)]
+    res = [ring(*(b[d][t] for b in blocks), groups[d * heads + t]) for d in range(rows) for t in range(heads)]
     return tuple(torch.cat([torch.cat([res[d * heads + t][i] for t in range(heads)], 1) for d in range(rows)], 0)
                  for i in range(2))

@@ -1,13 +1,20 @@
 """Sequence parallelism over the 'sp' axis of a mesh: DeepSpeed-Ulysses
 all-to-all and ring attention (counterpart of opensora_tpu/ops/sp.py).
 
-Global q, k, v are (B, L, H, D); the batch splits over the 'data' axis, the
-heads over 'tp' and the sequence over 'sp' (the JAX package's P(data, sp)
-with the heads of each tp rank): each (data, tp) coordinate runs its own sp
-group (``parallel/context.sp_groups``; inside a sharded model's rank scope
-only that rank's group, on the rows and heads it holds). The ranks are held
-by this process (``parallel/mesh.py``), so ``all_to_all`` and ``ppermute``
-are moves between the ranks' shards (``parallel/comm.py``):
+Each function comes in two forms. :func:`ulysses_shards` and
+:func:`ring_shards` take one sp group's shards, rank i's q, k, v (B, L/sp,
+H, D) on its device, and return rank i's output: what a sequence-sharded
+model calls, its ranks each holding a chunk of the tokens
+(``ops/attention.attention_shards``). :func:`ulysses_attention` and
+:func:`ring_attention` take global q, k, v (B, L, H, D), cut them, run the
+shard form and gather the output back: the batch splits over the 'data'
+axis, the heads over 'tp' and the sequence over 'sp' (the JAX package's
+P(data, sp) with the heads of each tp rank), each (data, tp) coordinate
+running its own sp group (``parallel/context.sp_groups``; inside a sharded
+model's rank scope only that rank's group, on the rows and heads it holds).
+The ranks are held by this process (``parallel/mesh.py``), so
+``all_to_all`` and ``ppermute`` are moves between the ranks' shards
+(``parallel/comm.py``):
 
 - :func:`ulysses_attention` scatters heads and gathers the sequence before
   the attention and does the inverse after; autograd differentiates the
@@ -25,7 +32,7 @@ are moves between the ranks' shards (``parallel/comm.py``):
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -55,26 +62,35 @@ def _check(q, mesh, rows: int, heads: int):
                          f"({rows}, {sp}, {heads})")
 
 
+def ulysses_shards(qs, ks, vs, backend: Optional[str] = None) -> List[torch.Tensor]:
+    """DeepSpeed-Ulysses attention over one sp group's shards: rank i's q,
+    k, v (B, L/sp, H, D) -> its output (B, L/sp, H, D). The sp size must
+    divide the heads."""
+    from opensora_torch.ops.attention import scaled_dot_product_attention
+
+    sp = len(qs)
+    if qs[0].shape[2] % sp:
+        raise ValueError(f"sp size {sp} must divide heads {qs[0].shape[2]}")
+    # (B, L/sp, H, D) -> (B, L, H/sp, D)
+    qh, kh, vh = (all_to_all(list(x), split_dim=2, concat_dim=1) for x in (qs, ks, vs))
+    outs = [scaled_dot_product_attention(a.transpose(1, 2).contiguous(), b.transpose(1, 2).contiguous(),
+                                         c.transpose(1, 2).contiguous(), backend=backend).transpose(1, 2)
+            for a, b, c in zip(qh, kh, vh)]
+    # (B, L, H/sp, D) -> (B, L/sp, H, D)
+    return all_to_all(outs, split_dim=1, concat_dim=2)
+
+
 def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh,
                       backend: Optional[str] = None) -> torch.Tensor:
     """DeepSpeed-Ulysses attention. q, k, v: global (B, L, H, D); the sp
     size must divide the heads."""
-    from opensora_torch.ops.attention import scaled_dot_product_attention
-
     sp = mesh.shape[SP_AXIS]
     groups, rows, heads = sp_groups(mesh)
     _check(q, mesh, rows, heads)
     if (q.shape[2] // heads) % sp:
         raise ValueError(f"sp size {sp} must divide heads {q.shape[2] // heads} (of {q.shape[2]} over tp {heads})")
-    parts = []
-    for devices, (qb, kb, vb) in zip(groups, _blocks((q, k, v), rows, heads)):
-        # (B, L/sp, H, D) -> (B, L, H/sp, D)
-        qh, kh, vh = (all_to_all(shard(x, 1, devices), split_dim=2, concat_dim=1) for x in (qb, kb, vb))
-        outs = [scaled_dot_product_attention(a.transpose(1, 2).contiguous(), b.transpose(1, 2).contiguous(),
-                                             c.transpose(1, 2).contiguous(), backend=backend).transpose(1, 2)
-                for a, b, c in zip(qh, kh, vh)]
-        # (B, L, H/sp, D) -> (B, L/sp, H, D)
-        parts.append(gather(all_to_all(outs, split_dim=1, concat_dim=2), 1, q.device))
+    parts = [gather(ulysses_shards(*(shard(x, 1, devices) for x in blk), backend=backend), 1, q.device)
+             for devices, blk in zip(groups, _blocks((q, k, v), rows, heads))]
     return _join(parts, rows, heads)
 
 
@@ -114,29 +130,31 @@ def _bwd_partial(q, k, v, do, lse, delta, backend):
 
 
 class _RingAttention(torch.autograd.Function):
-    """Ring attention over one sp group's devices; q, k, v (B, H, L, D)."""
+    """Ring attention over one sp group's shards: rank i's q, k, v (B, H,
+    L/sp, D), contiguous on its device, in that order after ``backend``;
+    returns the ranks' outputs."""
 
     @staticmethod
-    def forward(ctx, q, k, v, devices, backend):
-        qs, ks, vs = (shard(x, 2, devices) for x in (q, k, v))
+    def forward(ctx, backend, *shards):
+        n = len(shards) // 3
+        qs, ks, vs = list(shards[:n]), list(shards[n:2 * n]), list(shards[2 * n:])
         # hop 0 on the local shard; each later hop rotates first, then
         # computes, so no rotation's result is discarded
         acc = [_partial(a, b, c, backend) for a, b, c in zip(qs, ks, vs)]
-        for _ in range(len(devices) - 1):
+        for _ in range(n - 1):
             ks, vs = ppermute(ks), ppermute(vs)
             acc = [_merge_partials(*ol, *_partial(a, b, c, backend)) for ol, a, b, c in zip(acc, qs, ks, vs)]
-        o = gather([x[0] for x in acc], 2, q.device)
-        lse = gather([x[1] for x in acc], 2, q.device)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.devices, ctx.backend = devices, backend
-        return o.to(q.dtype)
+        os_, lses = [x[0] for x in acc], [x[1] for x in acc]
+        ctx.save_for_backward(*shards, *os_, *lses)
+        ctx.n, ctx.backend = n, backend
+        return tuple(o.to(q.dtype) for o, q in zip(os_, qs))
 
     @staticmethod
-    def backward(ctx, g):
-        q, k, v, o, lse = ctx.saved_tensors
-        do = g.float()
-        delta = (do * o).sum(-1)
-        qs, ks, vs, dos, lses, deltas = (shard(x, 2, ctx.devices) for x in (q, k, v, do, lse, delta))
+    def backward(ctx, *grads):
+        n, saved = ctx.n, ctx.saved_tensors
+        qs, ks, vs, os_, lses = (list(saved[i * n:(i + 1) * n]) for i in range(5))
+        dos = [g.float() for g in grads]
+        deltas = [(do * o).sum(-1) for do, o in zip(dos, os_)]
 
         def partials():
             return [_bwd_partial(*a, ctx.backend) for a in zip(qs, ks, vs, dos, lses, deltas)]
@@ -146,14 +164,22 @@ class _RingAttention(torch.autograd.Function):
         parts = partials()
         dq = [p[0] for p in parts]
         dk, dv = ppermute([p[1] for p in parts]), ppermute([p[2] for p in parts])
-        for _ in range(len(ctx.devices) - 1):
+        for _ in range(n - 1):
             ks, vs = ppermute(ks), ppermute(vs)
             parts = partials()
             dq = [a + p[0] for a, p in zip(dq, parts)]
             dk = ppermute([a + p[1] for a, p in zip(dk, parts)])
             dv = ppermute([a + p[2] for a, p in zip(dv, parts)])
-        return (gather(dq, 2, q.device).to(q.dtype), gather(dk, 2, k.device).to(k.dtype),
-                gather(dv, 2, v.device).to(v.dtype), None, None)
+        qs, ks, vs = (list(saved[i * n:(i + 1) * n]) for i in range(3))
+        return (None, *(g.to(x.dtype) for g, x in zip(dq + dk + dv, qs + ks + vs)))
+
+
+def ring_shards(qs, ks, vs, backend: Optional[str] = None) -> List[torch.Tensor]:
+    """Ring attention over one sp group's shards: rank i's q, k, v (B,
+    L/sp, H, D) -> its output (B, L/sp, H, D). Differentiable (custom
+    backward)."""
+    outs = _RingAttention.apply(backend, *(x.transpose(1, 2).contiguous() for x in (*qs, *ks, *vs)))
+    return [o.transpose(1, 2) for o in outs]
 
 
 def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh,
@@ -164,8 +190,6 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh,
     Differentiable (custom backward)."""
     groups, rows, heads = sp_groups(mesh)
     _check(q, mesh, rows, heads)
-    parts = []
-    for devices, blk in zip(groups, _blocks((q, k, v), rows, heads)):
-        out = _RingAttention.apply(*(x.transpose(1, 2) for x in blk), tuple(devices), backend)
-        parts.append(out.transpose(1, 2))
+    parts = [gather(ring_shards(*(shard(x, 1, devices) for x in blk), backend=backend), 1, q.device)
+             for devices, blk in zip(groups, _blocks((q, k, v), rows, heads))]
     return _join(parts, rows, heads)

@@ -5,13 +5,21 @@ model's forward.
 
 One process holds every rank of the mesh (``parallel/mesh.py``). A model
 sharded by ``parallel/sharding.py`` runs its ranks one after another; while
-it runs the ranks at data coordinate d and tp coordinate t, the scope is
-(d, t): the sharded parameters then read that rank's shards, and the
-sequence-parallel attention runs over the sp group through (d, 0, t) on the
-rows and heads it is given. Outside a scope, the attention splits the rows
-over 'data' and the heads over 'tp' and runs each (d, t) group itself
-(:func:`sp_groups`). On a pipeline mesh the scope also names the stage:
-(d, t, s) reads the shards on the device of rank (d, s, t).
+it runs rank (d, m, t), the scope is (d, t, m): the sharded parameters then
+read that rank's shards on its device. ``m`` is the rank's coordinate on
+the mesh's middle axis: on an sp mesh the sp rank, on a pipeline mesh the
+stage.
+
+On an sp mesh whose joint sequence splits over 'sp', each sp rank holds
+and computes its own chunk of the tokens (``models/mmdit/model.py``), and
+an attention call over the group takes the ranks' shards as they are,
+with no cut and no gather (``ops/attention.attention_shards``). Where the
+tokens stay whole (a length 'sp' does not divide), the ranks at sp
+coordinate 0 compute, and the attention called in scope (d, t, 0) cuts the
+rows and heads it is given over the sp group through (d, 0, t) and gathers
+the output back. Outside a scope, the attention splits the rows over
+'data' and the heads over 'tp' and runs each (d, t) group itself
+(:func:`sp_groups`).
 """
 
 from __future__ import annotations
@@ -59,11 +67,11 @@ def sp_enabled() -> bool:
 
 
 @contextlib.contextmanager
-def rank_scope(data: int, tp: int, stage: int = 0):
-    """Run the ranks at (data, ·, tp), or on a pipeline mesh the rank
-    (data, stage, tp): see the module docstring."""
+def rank_scope(data: int, tp: int, mid: int = 0):
+    """Run rank (data, mid, tp): ``mid`` is the sp rank on an sp mesh, the
+    stage on a pipeline mesh (see the module docstring)."""
     global _SCOPE
-    outer, _SCOPE = _SCOPE, (data, tp, stage)
+    outer, _SCOPE = _SCOPE, (data, tp, mid)
     try:
         yield
     finally:
@@ -75,11 +83,12 @@ def get_scope() -> Optional[Tuple[int, int, int]]:
 
 
 def sp_groups(mesh: Mesh) -> Tuple[List[List[torch.device]], int, int]:
-    """The devices of the sp groups that an attention call runs over, and
-    the number of pieces its rows and its heads are cut into: inside a rank
-    scope (d, t) the one group through (d, 0, t), uncut; else the group of
-    every (d, t) in row-major order, rows cut over 'data' and heads over
-    'tp'."""
+    """The devices of the sp groups that an attention call on whole
+    sequences runs over, and the number of pieces its rows and its heads
+    are cut into: inside a rank scope (d, t, ·) the one group through (d,
+    0, t), uncut; else the group of every (d, t) in row-major order, rows
+    cut over 'data' and heads over 'tp'. (An attention over sequence
+    shards is given its group's shards and needs none of this.)"""
     def devices(d: int, t: int) -> List[torch.device]:
         return [mesh.devices[r] for r in mesh.group(SP_AXIS, mesh.rank((d, 0, t)))]
 

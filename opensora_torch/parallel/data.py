@@ -5,9 +5,16 @@ JAX places a host batch as global arrays laid out over the mesh: rows on
 'data', the token dim of the token tensors on 'sp'. The counterpart here is
 :class:`Placed`: one global batch entry cut into one piece per rank, each
 on its rank's device, with the spec that cut it. A data rank reads its
-rows back with :meth:`Placed.rows` (tokens joined over its sp ranks: the
-sequence-parallel design computes outside the attention on the home
-device).
+rows back with :meth:`Placed.rows` (tokens joined over its sp ranks, on
+the device of rank (d, 0, 0)).
+
+The MMDiT's sequence-parallel forward does not keep this cut: its sp ranks
+hold chunks of the joint [txt, img] sequence (:func:`joint_chunks`, the one
+place that layout is defined), which the model cuts from a data rank's
+whole rows (``MMDiTModel.forward_rank``). The trainer hands it those rows,
+since the loss's interpolation and target are taken over them, so a
+batch entry's per-key cut over 'sp' is JAX's placement of the batch and
+no more.
 
 Over processes (a mesh whose 'data' axis crosses them) each process gives
 its local rows, as ``jax.make_array_from_process_local_data`` takes them
@@ -37,6 +44,24 @@ def row_slice(n_rows: int, dp: int, d: int) -> slice:
     """The rows of data rank ``d`` of ``dp`` in a batch of ``n_rows``."""
     per = n_rows // dp
     return slice(d * per, (d + 1) * per)
+
+
+def joint_chunks(n_txt: int, n_img: int, sp: int) -> List[Tuple[slice, slice]]:
+    """The sequence-parallel layout of the MMDiT's tokens: sp rank s holds
+    the joint [txt, img] tokens [s L / sp, (s + 1) L / sp), L = n_txt +
+    n_img, as JAX's attention under SP sees the joint sequence
+    (opensora_tpu/ops/sp.py:55, :111). Per rank, (its slice of the text
+    tokens, its slice of the image tokens); either may be empty. L must
+    divide by sp (``seq_align`` pads the text so that it does)."""
+    total = n_txt + n_img
+    if total % sp:
+        raise ValueError(f"{total} joint tokens do not split over sp {sp}")
+    per = total // sp
+    out = []
+    for s in range(sp):
+        lo, hi = s * per, (s + 1) * per
+        out.append((slice(min(lo, n_txt), min(hi, n_txt)), slice(max(lo - n_txt, 0), max(hi - n_txt, 0))))
+    return out
 
 
 def batch_sharding(mesh: Mesh, key: str, shape) -> Tuple[Optional[str], ...]:

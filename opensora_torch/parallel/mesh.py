@@ -75,8 +75,9 @@ def _indexed(device: torch.device) -> torch.device:
 
 
 # a group other than 'data' across processes (see Mesh)
-SPANNING_GROUP = ("a mesh whose {axis} group spans processes is not ported: ROADMAP Queue 1 item 1 (e2), the ring "
-                  "kernels' KV transport, the TP all-reduce and the pipeline's sends across processes; lay the "
+SPANNING_GROUP = ("a mesh whose {axis} group spans processes is not ported (ROADMAP Queue 1: sp / tp / pp groups "
+                  "across processes): the ring kernels' "
+                  "KV transport, the TP all-reduce and the pipeline's sends across processes; lay the "
                   "processes along 'data' only (each holding whole sp / tp / pp groups)")
 
 
@@ -142,16 +143,17 @@ class Mesh:
             out.append(self.rank(coords))
         return out
 
-    def home(self, data: int, tp: int, stage: int = 0) -> torch.device:
-        """The device of rank (data, stage, tp): with stage 0 on an sp mesh,
-        where the ranks at (data, ·, tp) compute outside the
-        sequence-parallel attention; on a pipeline mesh, the device of that
-        pipeline stage."""
-        return self.devices[self.rank((data, stage, tp))]
+    def home(self, data: int, tp: int, mid: int = 0) -> torch.device:
+        """The device of rank (data, mid, tp), ``mid`` the coordinate on the
+        middle axis: on an sp mesh the sp rank, which holds and computes
+        its own chunk of the tokens (``models/mmdit/model.py``; 0 where
+        the tokens stay whole on the ranks at (data, 0, tp)); on a
+        pipeline mesh the stage."""
+        return self.devices[self.rank((data, mid, tp))]
 
-    def home_key(self, data: int, tp: int, stage: int = 0) -> Tuple[int, torch.device]:
+    def home_key(self, data: int, tp: int, mid: int = 0) -> Tuple[int, torch.device]:
         """The identity of :meth:`home`'s rank: (process, device)."""
-        r = self.rank((data, stage, tp))
+        r = self.rank((data, mid, tp))
         return self.processes[r], self.devices[r]
 
     def __repr__(self) -> str:

@@ -37,10 +37,21 @@ float weight; the LoRA factors, the int8 weights and their fp32 scales
 keep their dtype), then, where it is cut over 'data', gathered (FSDP; the
 gathered copy lives as long as the product that reads it). A row-parallel
 linear reads no bias: :func:`row_parallel` sums the ranks' partial
-products (fp32, rounded once) and adds the bias once. The ranks at data
-coordinate d compute on the device of rank (d, 0, t) (``Mesh.home``); sp
-ranks hold no shard of their own (the sequence-parallel design computes
-outside the attention on the home device).
+products (fp32, rounded once) and adds the bias once.
+
+On an sp mesh (data, sp, tp) every rank (d, s, t) computes on its own
+device (``Mesh.home``) and reads its shards there in the scope (d, t, s).
+No rule names 'sp', so each weight is replicated over the sp ranks, as JAX
+leaves it: one leaf per distinct device, the ranks that share a device
+sharing it (autograd sums their gradients there), the replicas on other
+devices summed by :meth:`ModelSharding.sync_replica_grads` and counted once
+in the clip's norm. FSDP still cuts over 'data' and gathers on each sp
+rank's device. Where the joint sequence splits over 'sp', a
+:class:`RankGroup` with ``seq`` runs every (s, t) rank of a data
+coordinate, sp rank s on its own chunk of the tokens
+(``models/mmdit/model.py``); else the ranks at sp coordinate 0 run the
+whole sequence and only the attention is cut over 'sp'.
+:func:`unshard_params` puts a sharded model back on one device.
 
 On a pipeline mesh (data, pp, tp) a parameter may belong to one stage
 (``stages``: a block of the stack, ``training/pp.py``): its leaves then lie
@@ -80,7 +91,7 @@ from opensora_torch.parallel.comm import (
     process_gather_shards,
 )
 from opensora_torch.parallel.context import get_mesh, get_scope, rank_scope
-from opensora_torch.parallel.mesh import DATA_AXIS, PP_AXIS, SP_AXIS, TP_AXIS, Mesh
+from opensora_torch.parallel.mesh import DATA_AXIS, SP_AXIS, TP_AXIS, Mesh
 
 Spec = Tuple[Optional[str], ...]
 
@@ -156,11 +167,15 @@ def tp_segments(name: str, shape, config) -> Optional[List[int]]:
 
 
 def _tp_cut(x: torch.Tensor, dim: int, j: int, tp: int, segments) -> torch.Tensor:
+    if tp == 1:
+        return x
     segs = x.split(segments, dim) if segments else (x,)
     return torch.cat([s.chunk(tp, dim)[j] for s in segs], dim) if len(segs) > 1 else segs[0].chunk(tp, dim)[j]
 
 
 def _tp_join(locals_: Sequence[torch.Tensor], dim: int, segments) -> torch.Tensor:
+    if len(locals_) == 1:
+        return locals_[0]
     if not segments:
         return torch.cat(list(locals_), dim)
     tp = len(locals_)
@@ -171,9 +186,9 @@ def _tp_join(locals_: Sequence[torch.Tensor], dim: int, segments) -> torch.Tenso
 class Placement:
     """One parameter cut over the mesh: ``keys`` lists (data index, tp
     index, (process, device)) of each leaf, one per distinct shard and
-    device of this process's ranks (d, s, t) that hold it (s: 0, or on a
-    pipeline mesh its ``stage``, every stage where it has none); ``leaves``
-    (set by :func:`shard_params`) holds them."""
+    device of this process's ranks (d, m, t) that hold it (m: every sp rank
+    of an sp mesh; on a pipeline mesh its ``stage``, every stage where it
+    has none); ``leaves`` (set by :func:`shard_params`) holds them."""
 
     def __init__(self, name: str, shape, spec: Spec, segments, sharding: "ModelSharding",
                  stage: Optional[int] = None, dtype: Optional[torch.dtype] = None):
@@ -186,9 +201,9 @@ class Placement:
         self.row_bias = bool(re.fullmatch(rf".*{_ROW}\.bias", name)) and not re.fullmatch(rf".*{_COL}\.bias", name)
         mesh = sharding.mesh
         self.keys: List[Tuple[int, int, Tuple[int, torch.device]]] = []
-        stages = range(sharding.pp) if stage is None else (stage,)
+        mids = range(sharding.mid) if stage is None else (stage,)
         for d in mesh.local_data:
-            for s in stages:
+            for s in mids:
                 for t in range(sharding.tp):
                     key = (d if self.data_dim is not None else 0, t if self.tp_dim is not None else 0,
                            mesh.home_key(d, t, s))
@@ -262,8 +277,9 @@ class Placement:
         return out
 
     def local(self, d: int, t: int, dtype, s: int = 0) -> torch.Tensor:
-        """What rank (d, s, t) computes with: its tp shard, cast to
-        ``dtype``, then gathered over 'data' (FSDP) on its device."""
+        """What rank (d, s, t) computes with (s: its sp rank or pipeline
+        stage): its tp shard, cast to ``dtype``, then gathered over 'data'
+        (FSDP) on its device."""
         if self.stage is not None and s != self.stage:
             raise RuntimeError(f"{self.name} belongs to pipeline stage {self.stage}, read in stage {s}'s scope")
         mesh = self.sharding.mesh
@@ -283,8 +299,8 @@ class Placement:
         scope = get_scope()
         if scope is None:
             raise RuntimeError(f"{self.name} is sharded over {self.sharding.mesh}: read it inside a rank scope")
-        d, t, stage = scope
-        return None if self.row_bias else self.local(d, t, self.dtype, stage)
+        d, t, mid = scope
+        return None if self.row_bias else self.local(d, t, self.dtype, mid)
 
     def rank_piece(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """The open scope's tp rank's cut of ``x`` along ``dim``, per
@@ -299,7 +315,9 @@ class ModelSharding:
 
     def __init__(self, mesh: Mesh, dtype: torch.dtype):
         self.mesh, self.dtype = mesh, dtype
-        self.dp, self.tp, self.pp = mesh.shape[DATA_AXIS], mesh.shape[TP_AXIS], mesh.shape.get(PP_AXIS, 1)
+        self.dp, self.tp = mesh.shape[DATA_AXIS], mesh.shape[TP_AXIS]
+        self.sp = mesh.shape.get(SP_AXIS, 1)
+        self.mid = mesh.shape[mesh.axes[1]]  # the middle axis: 'sp', or 'pp' on a pipeline mesh
         self.across_processes = mesh.n_processes > 1
         self.placements: Dict[str, Placement] = {}
 
@@ -379,47 +397,84 @@ def _buckets(groups: List[List[nn.Parameter]], limit: int) -> List[List[List[nn.
 
 
 class RankGroup:
-    """The tp ranks at one data coordinate (and pipeline ``stage``) of a
-    sharded model, each on its home device; ``at(t)`` opens rank t's
-    scope."""
+    """The ranks of a sharded model at one data coordinate that run a
+    forward together, each on its home device: the tp ranks at (data, mid,
+    ·) (``mid``: the pipeline stage, or sp coordinate 0 where the tokens
+    stay whole), or with ``seq`` every rank (data, s, t) of an sp mesh, sp
+    rank s holding the s-th chunk of the tokens. Per-rank lists are indexed
+    r = s * tp + t; ``at(r)`` opens rank r's scope."""
 
-    def __init__(self, sharding: ModelSharding, data: int, stage: int = 0):
+    def __init__(self, sharding: ModelSharding, data: int, mid: int = 0, seq: bool = False):
         if data not in sharding.mesh.local_data:
             raise RuntimeError(f"data rank {data} is another process's (this one holds {sharding.mesh.local_data})")
-        self.sharding, self.data, self.stage, self.tp = sharding, data, stage, sharding.tp
-        self.devices = [sharding.mesh.home(data, t, stage) for t in range(self.tp)]
-        self.keys = [sharding.mesh.home_key(data, t, stage) for t in range(self.tp)]
+        self.sharding, self.data, self.mid, self.tp = sharding, data, mid, sharding.tp
+        self.sp = sharding.sp if seq else 1
+        mesh = sharding.mesh
+        self.coords = [(s, t) for s in (range(self.sp) if seq else (mid,)) for t in range(self.tp)]
+        self.devices = [mesh.home(data, t, s) for s, t in self.coords]
+        self.keys = [mesh.home_key(data, t, s) for s, t in self.coords]
 
     @contextlib.contextmanager
-    def at(self, t: int):
-        with rank_scope(self.data, t, self.stage):
+    def at(self, r: int):
+        s, t = self.coords[r]
+        with rank_scope(self.data, t, s):
             yield
 
     def each(self, fn: Callable[[int], object]) -> list:
-        """``fn(t)`` in each tp rank's scope."""
+        """``fn(r)`` in each rank's scope."""
         out = []
-        for t in range(self.tp):
-            with self.at(t):
-                out.append(fn(t))
+        for r in range(len(self.coords)):
+            with self.at(r):
+                out.append(fn(r))
         return out
 
     def rep(self, fn: Callable[[int], object]) -> list:
-        """A replicated computation: ``fn(t)`` once per distinct device, in
-        the scope of its first rank, shared by the ranks on that device."""
-        done: Dict[Tuple[int, torch.device], object] = {}
+        """A computation replicated over 'tp': ``fn(r)`` once per chunk of
+        the tokens and distinct device, in the scope of its first rank,
+        shared by the tp ranks of that chunk on that device. The chunk is
+        part of the key: ranks that share a device but hold other tokens
+        compute their own."""
+        done: Dict[Tuple[int, Tuple[int, torch.device]], object] = {}
         out = []
-        for t, key in enumerate(self.keys):
+        for r, key in enumerate(self.keys):
+            key = (self.coords[r][0], key)
             if key not in done:
-                with self.at(t):
-                    done[key] = fn(t)
+                with self.at(r):
+                    done[key] = fn(r)
             out.append(done[key])
         return out
 
-    def row(self, linear: nn.Module, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        """A row-parallel product: each rank's partial, then
-        :func:`row_parallel`. A linear with ``tp_row_partials`` (an int8
-        ``QuantLinear``, whose activation scale spans the whole row) makes
-        its partials itself, and the sum is rounded to its ``dtype``."""
+    def chunks(self, fn: Callable[[int], object]) -> list:
+        """``fn(r)`` once per chunk of the tokens, in the scope of its tp
+        rank 0: a list over the sp ranks."""
+        out = []
+        for r in range(0, len(self.coords), self.tp):
+            with self.at(r):
+                out.append(fn(r))
+        return out
+
+    def sp_sets(self) -> List[List[int]]:
+        """Per tp rank t, the ranks of its sp group in sp order: the ranks
+        an attention over sequence shards runs over."""
+        return [list(range(t, len(self.coords), self.tp)) for t in range(self.tp)]
+
+    def row(self, linear: nn.Module, xs: Sequence[torch.Tensor], width: Optional[int] = None) -> List[torch.Tensor]:
+        """A row-parallel product over the tp ranks of each chunk: each
+        rank's partial, then :func:`row_parallel`. A linear with
+        ``tp_row_partials`` (an int8 ``QuantLinear``, whose activation scale
+        spans the whole row) makes its partials itself, and the sum is
+        rounded to its ``dtype``. A chunk without tokens (the text part of
+        an image-only chunk) gets an empty output ``width`` wide and runs
+        nothing."""
+        if self.sp > 1:
+            out: List[torch.Tensor] = []
+            for s in range(self.sp):
+                part = xs[s * self.tp:(s + 1) * self.tp]
+                if part[0].shape[1] == 0:
+                    out += [x.new_empty((*x.shape[:-1], width)) for x in part]
+                else:
+                    out += RankGroup(self.sharding, self.data, s).row(linear, part)
+            return out
         partials = getattr(linear, "tp_row_partials", None)
         if partials is None:
             return row_parallel(linear, self.each(lambda t: linear(xs[t])), self)
@@ -431,7 +486,7 @@ class OneRank:
     function runs once, and a row-parallel product is the linear itself,
     its bias included."""
 
-    tp = 1
+    tp = sp = 1
 
     @staticmethod
     def each(fn: Callable[[int], object]) -> list:
@@ -440,7 +495,7 @@ class OneRank:
     rep = each
 
     @staticmethod
-    def row(linear: nn.Module, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    def row(linear: nn.Module, xs: Sequence[torch.Tensor], width: Optional[int] = None) -> List[torch.Tensor]:
         return [linear(xs[0])]
 
 
@@ -453,7 +508,7 @@ def row_parallel(linear: nn.Module, partials: Sequence[torch.Tensor], group: Ran
     rounded once (to ``dtype``, default the partials'), with the row bias
     added once to the sum."""
     bias = getattr(linear, "_placements", {}).get("bias")
-    b = None if bias is None else [bias.local(group.data, t, partials[t].dtype, group.stage) for t in range(group.tp)]
+    b = None if bias is None else [bias.local(group.data, t, partials[t].dtype, group.mid) for t in range(group.tp)]
     return all_reduce(partials, dtype=dtype, bias=b)
 
 
@@ -536,6 +591,34 @@ def shard_params(mesh: Mesh, model: nn.Module, fsdp: bool = True, specs: Optiona
     if hasattr(model, "compute_dtype") and model.compute_dtype is None:
         model.compute_dtype = dtype
     model.sharding = sharding
+    return model
+
+
+def unshard_params(model: nn.Module) -> nn.Module:
+    """The inverse of :func:`shard_params`, in place: each placement's
+    leaves joined into one parameter (or int8 buffer) on the device of its
+    first leaf, where a leaf that holds the whole tensor is taken as it is
+    (a mesh of logical ranks on the model's device copies nothing), and the
+    modules' classes restored. One process only."""
+    sharding = getattr(model, "sharding", None)
+    if sharding is None:
+        return model
+    if sharding.across_processes:
+        raise NotImplementedError("unsharding a model whose shards span processes")
+    for module in model.modules():
+        placements = module.__dict__.pop("_placements", None)
+        if placements is None:
+            continue
+        module.__class__ = module.__class__.__bases__[0]
+        for pn, pl in placements.items():
+            leaves = getattr(module, f"{pn}_shards")
+            delattr(module, f"{pn}_shards")
+            full = pl.gather([p.detach() for p in leaves])
+            if pn in QUANT_BUFFERS:
+                module.register_buffer(pn, full)
+            else:
+                module.register_parameter(pn, nn.Parameter(full, requires_grad=leaves[0].requires_grad))
+    del model.sharding
     return model
 
 

@@ -116,7 +116,8 @@ class HeightSharding:
     """A VAE's core passes over ``mesh``: rows over 'data', height over
     'sp' (the ranks at tp coordinate 0). The ranks are logical ranks on the
     VAE's own device: a rank on another card would need a replica of the
-    VAE there, which is not ported (ROADMAP Queue 1 item 1 (e))."""
+    VAE there, which is not ported (ROADMAP Queue 1: VAE context parallel over
+    several cards)."""
 
     def __init__(self, vae: nn.Module, mesh: Mesh):
         self.mesh = mesh
@@ -126,7 +127,7 @@ class HeightSharding:
         away = {str(d) for group in devices for d in group if torch.empty(0, device=d).device != home}
         if away:
             raise NotImplementedError(f"the VAE's height sharding over ranks on {sorted(away)}, away from the VAE's "
-                                      f"{home}: not ported (ROADMAP Queue 1 item 1 (e))")
+                                      f"{home}: not ported (ROADMAP Queue 1: VAE context parallel over several cards)")
         self.groups = [HeightStrips(group) for group in devices]
 
     def _rows(self, b: int) -> int:

@@ -115,10 +115,12 @@ class Trainer:
     ``mesh`` (``opensora_torch.parallel.mesh``) becomes the process's mesh,
     as the JAX train script sets its mesh, so that a model whose
     ``attn_backend`` is sequence-parallel ("ring_rdma", "ring", "ulysses")
-    runs its attention over the mesh's 'sp' ranks. Where the mesh has a
-    'data' or a 'tp' axis, the MMDiT's parameters are sharded by the TP +
-    FSDP rules (``fsdp=True``, as JAX's scripts/diffusion/train.py:167-168
-    does; ``parallel/sharding.shard_params``) once the models are built
+    runs its attention over the mesh's 'sp' ranks. Where the mesh has more
+    than one rank, the MMDiT's parameters are sharded by the TP + FSDP
+    rules (``fsdp=True``, as JAX's scripts/diffusion/train.py:167-168 does;
+    ``parallel/sharding.shard_params``; replicated over 'sp', whose ranks
+    each run their chunk of the tokens through every block, as
+    ``prepare_api`` does for inference) once the models are built
     (until then the whole MMDiT lies on ``device``), each full weight freed
     as its shards are made; the optimizer and the EMA are then made over
     the shards, so no full copy of them exists. Each batch
@@ -140,7 +142,7 @@ class Trainer:
 
     def __init__(self, cfg, device=None, mesh=None):
         from opensora_torch.parallel.context import set_mesh
-        from opensora_torch.parallel.mesh import DATA_AXIS, PP_AXIS, TP_AXIS
+        from opensora_torch.parallel.mesh import PP_AXIS
         from opensora_torch.parallel.sharding import shard_params
         from opensora_torch.training.diffusion import TrainState, make_train_step
         from opensora_torch.training.lora import apply_lora, count_lora_params
@@ -184,7 +186,7 @@ class Trainer:
                              next(self.model.parameters()).dtype, self.model.dtype)
 
         pp = mesh is not None and PP_AXIS in mesh.shape
-        self.mesh = mesh if pp or mesh is not None and mesh.shape[DATA_AXIS] * mesh.shape[TP_AXIS] > 1 else None
+        self.mesh = mesh if pp or mesh is not None and len(mesh.devices) > 1 else None
         forward_fn = None
         if pp:
             from opensora_torch.training.pp import make_pp_forward, shard_pp
@@ -197,7 +199,7 @@ class Trainer:
             self.logger.info("MMDiT placed over the pipeline mesh %s, %d microbatches", mesh, n_micro)
         elif self.mesh is not None:
             shard_params(self.mesh, self.model, fsdp=True)
-            self.logger.info("MMDiT sharded over %s (TP + FSDP)%s", self.mesh,
+            self.logger.info("MMDiT sharded over %s (TP + FSDP, the tokens over 'sp')%s", self.mesh,
                              ", the LoRA factors replicated" if lora_cfg else "")
         optimizer = create_optimizer(
             [p for p in self.model.parameters() if p.requires_grad],

@@ -32,7 +32,7 @@ import opensora_torch.models.vae2d.autoencoder_2d  # noqa: F401  (registers "aut
 from opensora_torch.models.mmdit.layers import DoubleStreamBlock, SingleStreamBlock
 from opensora_torch.ops.quant import quant_mode, quantize_as_built
 from opensora_torch.parallel.context import set_mesh
-from opensora_torch.parallel.mesh import TP_AXIS
+from opensora_torch.parallel.mesh import SP_AXIS, TP_AXIS
 from opensora_torch.parallel.sharding import shard_params
 from opensora_torch.registry import MODELS, build_module
 from opensora_torch.utils import sampling as S
@@ -172,17 +172,18 @@ def prepare_api(model, model_ae, model_t5, model_clip,
     pixels per latent token edge (the AE's stride times the patch size).
     ``mesh`` (``opensora_torch.parallel.mesh``) becomes the process's mesh,
     which the sequence-parallel attention backends (``model.attn_backend``
-    "ring_rdma", "ring", "ulysses") run over; where it has a 'tp' axis, the
-    MMDiT is sharded by the TP rules in place (``fsdp=False``, as the JAX
-    package does, opensora_tpu/utils/api.py:160-169): each weight moves into
-    its shards and its unsharded copy is freed, and the denoiser's calls
-    run over the tp ranks (``parallel/sharding.py``). Without one the MMDiT
-    stays whole on its device (the sequence-parallel design computes
-    outside the attention there)."""
+    "ring_rdma", "ring", "ulysses") run over; where it has a 'tp' or an
+    'sp' axis, the MMDiT is sharded by the TP rules in place (``fsdp=False``,
+    as the JAX package does, opensora_tpu/utils/api.py:160-169; replicated
+    over 'sp'): each weight moves into its shards and its unsharded copy is
+    freed, and the denoiser's calls run over the tp ranks and, with the
+    tokens cut into chunks, over the sp ranks (``parallel/sharding.py``,
+    ``models/mmdit/model.py``). Without one the MMDiT stays whole on its
+    device."""
     device = next(model.parameters()).device
     if mesh is not None:
         set_mesh(mesh)
-        if mesh.shape[TP_AXIS] > 1 and getattr(model, "sharding", None) is None:
+        if (mesh.shape[TP_AXIS] > 1 or mesh.shape[SP_AXIS] > 1) and getattr(model, "sharding", None) is None:
             shard_params(mesh, model, fsdp=False)
 
     @torch.inference_mode()

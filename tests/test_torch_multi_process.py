@@ -437,10 +437,11 @@ def test_only_process_0_logs(runs):
 
 def test_a_group_other_than_data_across_processes_raises(runs):
     """A mesh whose tp (or sp) group would span the two processes raises,
-    naming ROADMAP item (e2)."""
+    naming its ROADMAP item by title."""
     for name, axis in (("span_tp", "tp"), ("span_sp", "sp")):
         for msg in runs["by_name"][name]:
-            assert f"'{axis}' group spans processes" in msg and "ROADMAP Queue 1 item 1 (e2)" in msg
+            assert f"'{axis}' group spans processes" in msg
+            assert "ROADMAP Queue 1: sp / tp / pp groups across processes" in msg
 
 
 def test_trainer_iteration_across_processes_equals_one_process(runs):

@@ -109,13 +109,19 @@ def test_prepare_api_with_the_tp_mesh_matches_jax(tp_cfg, tiny_models, monkeypat
 
 
 def test_prepare_api_without_a_tp_axis_keeps_the_model_whole(tiny_models):  # noqa: F811
-    """A mesh with no 'tp' axis (sequence parallelism) places no weight:
-    the MMDiT stays whole on its device; a sharded model is not cut again."""
+    """A mesh with no 'tp' axis (sequence parallelism) cuts no weight: the
+    MMDiT is placed replicated over 'sp' (its sp ranks each run their chunk
+    of the tokens), one whole leaf per parameter on the one device, the
+    parameter's own tensor; a sharded model is not cut again."""
     _, _, models = tiny_models
     model = copy.deepcopy(models["model"])
+    whole = {n: p.data_ptr() for n, p in model.named_parameters()}
     prepare_api(model, models["model_ae"], models["model_t5"], models["model_clip"],
                 mesh=create_mesh(MeshConfig(1, 2, 1), [CPU] * 2))
-    assert model.sharding is None and not any("_shards" in n for n, _ in model.named_parameters())
+    placements = model.sharding.placements
+    assert sorted(placements) == sorted(whole)
+    for name, pl in placements.items():
+        assert len(pl.leaves) == 1 and pl.leaves[0].data_ptr() == whole[name], name
     tp = create_mesh(MeshConfig(1, 1, 2), [CPU] * 2)
     prepare_api(model, models["model_ae"], models["model_t5"], models["model_clip"], mesh=tp)
     sharding = model.sharding
