@@ -254,7 +254,7 @@ D = 128 forward, and phase 2b the backward, at phase 22's PP x TP
 microbatch (1, 12, 8828, 128) and phase 24's per-process rank (2, 24,
 8828, 128).
 Training across processes (multi_host) on the card: phase 24 (after
-phase 22) starts two processes of this script with torchrun's variables
+phases 22 and 27) starts two processes of this script with torchrun's variables
 (``--multi-process-worker DIR``); each joins the group as the training CLI
 does (both on cuda:0, so gloo, the CUDA tensors staged through host
 memory), builds Trainer(cfg, device, mesh=train_mesh(...)) over (data 2,
@@ -265,7 +265,21 @@ generator states, held to phase 21's limits against the unsharded step
 exact launches per process, the peaks, the staged copies' device time;
 process 0 dropping the cross-process sum of the replicated gradients must
 fail the limits. On a host of two cards or more the same runs again, one
-process a card, over nccl (else it prints "nccl: not run"). Then
+process a card, over nccl (else it prints "nccl: not run"). Phase 28
+runs in the same two processes after phase 24's step: stage2.py's sp group
+across them (Trainer(cfg, device, mesh=train_mesh(...)) over (1, 4, 1),
+sp ranks 0-1 in process 0 and 2-3 in process 1, logical ranks on the card;
+T5, CLIP and the VAE dropped: the step is taken on phase 21's encoded step
+inputs), one step with the default attention (gathered across the
+processes) and one with ring_rdma (the ring's KV and dK/dV accumulators
+sent between them), from phase 21's saved state and generator state: held
+to phase 21's limits (each process's masters), exact launches per process,
+the ring's cross-process sends exact by arithmetic, the distance to phase
+27's (1, 4, 1) step, the staged bytes, the gloo and ring-wait seconds and
+each process's peak; a ring forward reusing the receiving rank's own KV on
+the cross-process hop must move the output by more than phase 9's limit,
+and process 1 dropping the cross-process sum of the weight gradients must
+fail the limits. Then
 ``python -m torch.distributed.run --nproc-per-node 2 -m
 opensora_torch.train`` trains stage1.py at full width and 1 + 0 blocks
 for 1 step of one seeded 33 x 256 x 256 clip a process: both exit 0, one
@@ -290,7 +304,7 @@ INT8_TP_LATENT_TOL of phase 6's (and phase 6 run again within it too),
 exact launches of w8a8_matmul and int8 attention at the tp ranks' shapes
 (phase 2c holds both kernels at those shapes), the steps' seconds beside
 phase 6's, the peak.
-Sequence-sharded training: phase 27 (after phase 24) trains stage2.py
+Sequence-sharded training: phase 27 (after phase 22) trains stage2.py
 (sp 4, remat "offload", the default attention: gathered on sp rank 0 for
 one flash call a block, the output cut back) on phase 21's cell through
 Trainer(cfg, device, mesh=...) over stage2's own mesh (1, 4, 1) and over
@@ -1338,6 +1352,7 @@ RING_CASES = [
     # frame-causal case whose shard edges (1000, 2000, 3000) cut frames of 96
     ("mmdit_joint_sp4", (3, 24, 8828, 128), None),
     ("causal_off_frame_edges_sp4", (1, 2, 4000, 128), 96),
+    ("stage2_sp4_b4", (4, 24, 8828, 128), None),  # phase 28's ring_rdma step: B = 4
 ]
 RING_KERNELS = ("ring_flash_fwd", "ring_flash_bwd_fused")
 
@@ -5224,8 +5239,9 @@ def run_fsdp_train_path(device, profile: bool = False, out_dir=None, carry=None)
     against the unsharded step's within the TP_TRAIN_* limits, exact
     launches. Then FSDP_STEPS more steps over (4, 1, 1): timed, finite,
     exact launches, the peak. ``carry`` (a dict), where given, receives
-    the saved state, the batch, the generator states and the unsharded
-    step's reading, for phase 22."""
+    the saved state, the batch, the generator states, the unsharded step's
+    reading and its inputs (the batch as the step takes it, the generator
+    state), for phases 22, 24, 27 and 28."""
     from opensora_torch.ops import _build
     from opensora_torch.parallel.context import set_mesh
     from opensora_torch.train import Trainer
@@ -5258,9 +5274,17 @@ def run_fsdp_train_path(device, profile: bool = False, out_dir=None, carry=None)
                 "flash_attention_bwd_dq_convert": n_blocks * ranks,
                 "flash_attention_fwd_d512": FSDP_BATCH + single_frame_encodes(trainer.mask_conds)}
 
-    def one(trainer, tag):
+    def one(trainer, tag, record=None):
         trainer.gen.set_state(rng_states[0])
         trainer.host_rng.bit_generator.state = rng_states[1]
+        if record is not None:  # the step's inputs (phase 28 takes the step on them)
+            step = trainer.train_step
+
+            def recorded(state, tb, gen):
+                record.update(tb=tb, gen_state=gen.get_state())
+                return step(state, tb, gen)
+
+            trainer.train_step = recorded
         _build.LAUNCHES.clear()
         t0 = time.perf_counter()
         m = trainer.run_batch(batch)
@@ -5272,8 +5296,10 @@ def run_fsdp_train_path(device, profile: bool = False, out_dir=None, carry=None)
         log(f"[fsdp] {tag}: " + json.dumps(rec))
         return rec
 
-    runs = {"unsharded": one(trainer, "unsharded")}
+    step_inputs = {}
+    runs = {"unsharded": one(trainer, "unsharded", step_inputs)}
     runs["unsharded"]["expected"] = expected((1, 1, 1))
+    step_inputs["tb"] = _tree_to(step_inputs["tb"], "cpu")
     ref_change = {n: p.float().cpu() - start[n] for n, p in trainer.state.state_dict()["params"].items()}
     # the comparisons run on the card
     start_d, ref_change_d = _tree_to(start, device), _tree_to(ref_change, device)
@@ -5301,7 +5327,7 @@ def run_fsdp_train_path(device, profile: bool = False, out_dir=None, carry=None)
         log("[fsdp] sharded vs unsharded from one state: " + json.dumps(cmp))
         if carry is not None:
             carry.update(cfg=cfg, snapshot=snapshot, start=start, batch=batch, rng_states=rng_states,
-                         ref=runs["unsharded"], ref_change=ref_change, n_blocks=n_blocks)
+                         ref=runs["unsharded"], ref_change=ref_change, n_blocks=n_blocks, step_inputs=step_inputs)
         del ref_change, snapshot
         steps = []
         phase_peak_gb = torch.cuda.max_memory_allocated(device) / 1e9  # the three steps from the saved state
@@ -5860,6 +5886,8 @@ def run_sp_train_path(device, carry: dict) -> dict:
             rec["vs_unsharded"]["same_mask_conds"] = trainer.mask_conds == ref["mask_conds"]
             log(f"[sp_train] {tag}: " + json.dumps(rec))
             runs[tag] = rec
+            if sizes is None:  # phase 28 reads its distance to this one-process (1, 4, 1) step
+                carry["sp4_ref"] = dict(loss=rec["loss"], grad_norm=rec["grad_norm"])
             if tag == SP_MESHES[0][0]:
                 trainer.state.load_state_dict(snapshot)
                 gen = torch.Generator(device=device)
@@ -5927,6 +5955,172 @@ def mp_launches(res: dict, kernel: str) -> dict:
     return {tag: [r["launches"].get(kernel, 0) for r in run["processes"]] for tag, run in res["part_a"].items()}
 
 
+def sp_proc_launches(res: dict, kernel: str) -> dict:
+    """Phase 28's launches of ``kernel``, per part (a) run, step and
+    process."""
+    return {tag: {name: [p["runs"][name]["launches"].get(kernel, 0) for p in run["processes"]]
+                  for name, _ in SP_PROC_BACKENDS} for tag, run in res["sp_processes"].items()}
+
+
+# Phase 28: stage2.py with its sp group across processes, in phase 24's two
+# worker processes after phase 24's step (its trainer freed): each builds
+# Trainer(cfg, device, mesh=train_mesh(...)) for stage2.py at phase 21's cell
+# over stage2's own (1, 4, 1), sp ranks 0-1 in process 0 and 2-3 in process 1
+# (logical ranks on the one card; gloo, the CUDA tensors staged through host
+# memory), drops its T5, CLIP and VAE (the step is taken on phase 21's
+# encoded inputs: two processes' full states and a T5-XXL each do not fit
+# the card), loads phase 21's saved state and takes one step with the
+# default attention (the sp group gathered across the processes for one
+# flash call a block on every process) and one with ring_rdma (the ring's
+# KV slots and dK/dV accumulators sent between the processes), both from
+# phase 21's generator state. Each is held to phase 21's limits (TP_TRAIN_*)
+# against phase 21's unsharded step: the loss and norm every process reports,
+# and each process's copy of every master; exact launches per process; the
+# ring's cross-process sends (comm.RING_REMOTE) exact by arithmetic; the
+# distance to phase 27's one-process (1, 4, 1) step printed. Known-wrong
+# variants, each a step that must fail phase 21's limits: the default step
+# with process 1 dropping the cross-process sum of the weight gradients, and
+# the ring_rdma step in which the receiving rank reuses its own KV on the
+# cross-process hop (its forward's output distance from the right step's is
+# printed beside phase 9's video limit: at 2 + 4 random-weight blocks it
+# read 0.016, below that limit, in the first card run; the masters see it).
+SP_PROC_BACKENDS = (("default", None), ("ring_rdma", "ring_rdma"))
+
+
+def sp_proc_expected(backend, n_blocks: int, local: int, sp: int) -> dict:
+    """Phase 28's launches per process and step: the default attention's
+    gathered call on every process (forward and recompute, backward and its
+    dQ epilogue a block); ring_rdma's (rank, hop) launches of this process's
+    ranks and a dQ epilogue per rank and block."""
+    if backend is None:
+        return {"flash_attention_fwd_sm90": 2 * n_blocks, "flash_attention_bwd_fused": n_blocks,
+                "flash_attention_bwd_dq_convert": n_blocks}
+    return {"ring_flash_fwd": 2 * n_blocks * local * sp, "ring_flash_bwd_fused": n_blocks * local * sp,
+            "flash_attention_bwd_dq_convert": n_blocks * local}
+
+
+def sp_proc_traffic(tb: dict, heads: int, head_dim: int, n_blocks: int, sp: int, dtype) -> dict:
+    """Phase 28's ring sends across processes per process and step, by
+    arithmetic: one rank of each process sends to the next process; per
+    block the forward and its recompute send the KV slot (2, B, H, L/sp, D)
+    in the compute ``dtype`` on sp - 1 hops each, the backward the KV slot
+    on sp - 1 hops and the fp32 dK/dV accumulators on all sp."""
+    b = tb["x0"].shape[0]
+    lq = (tb["x0"].shape[1] + tb["txt"].shape[1]) // sp
+    slot = 2 * b * heads * lq * head_dim
+    kv_sends, grad_sends = 3 * n_blocks * (sp - 1), n_blocks * sp
+    return dict(sends=kv_sends + grad_sends,
+                bytes=kv_sends * slot * torch.finfo(dtype).bits // 8 + grad_sends * slot * 4)
+
+
+def _own_kv_land(self, name, work, buf, slots, slot):
+    """Known-wrong: the ring's cross-process KV hop skipped: the receiving
+    rank reuses its own KV (its other slot) in place of its left
+    neighbour's."""
+    work.wait()
+    if name == "kv":
+        slots[slot].copy_(slots[1 - slot])
+    elif buf is not None:
+        slots[slot].copy_(buf, non_blocking=True)
+
+
+def _own_masters_change(state, start: dict, ref_change: dict) -> dict:
+    """The relative L2 of each master's change against phase 21's, over
+    this process's copy of it (one leaf per shard it holds: every master
+    whole at (1, 4, 1)); the worst of each process (a collective)."""
+    from opensora_torch.parallel import distributed
+
+    upd = {}
+    for name, pl in state.sharding.placements.items():
+        acc = torch.zeros(2, dtype=torch.float64, device=pl.leaves[0].device)
+        for n in pl.canonical():
+            i, j = pl.keys[n][:2]
+            leaf = pl.leaves[n]
+            change = pl.piece(ref_change[name], i, j).to(leaf.device)
+            err = leaf.detach().float() - pl.piece(start[name], i, j).to(leaf.device) - change
+            acc += torch.stack([(err.double() ** 2).sum(), (change.double() ** 2).sum()])
+        num, den = acc.tolist()
+        upd[name] = math.sqrt(num) / max(math.sqrt(den), 1e-30)
+    worst = max(upd, key=upd.get)
+    every = distributed.all_gather_object(dict(update_rel_l2_max=upd[worst], update_rel_l2_worst=worst,
+                                               update_rel_l2_median=sorted(upd.values())[len(upd) // 2]))
+    return dict(update_rel_l2_max=max(e["update_rel_l2_max"] for e in every), by_process=every)
+
+
+def sp_processes_worker(device, data: dict, snapshot: dict) -> dict:
+    """Phase 28 in one process (see its comment)."""
+    from opensora_torch.ops import _build
+    from opensora_torch.parallel import comm, distributed
+    from opensora_torch.parallel.comm import process_all_reduce
+    from opensora_torch.train import Trainer, train_mesh
+    from opensora_torch.utils.config import parse_configs
+
+    rank = distributed.process_index()
+    t0 = time.perf_counter()
+    cfg = parse_configs(stage2_cfg_args())
+    mesh = train_mesh(cfg, device)
+    trainer = Trainer(cfg, device, mesh=mesh)
+    trainer.t5 = trainer.clip = trainer.ae = None
+    free()
+    trainer.state.load_state_dict(snapshot)
+    torch.cuda.synchronize()
+    out = dict(mesh=repr(mesh), local_ranks=mesh.local_ranks, build_and_load_s=time.perf_counter() - t0, runs={})
+    tb = _tree_to(data["step_inputs"]["tb"], device)
+    model_cfg = trainer.model.config
+    n_blocks, sp, local = data["n_blocks"], mesh.shape["sp"], len(mesh.local_ranks)
+    traffic = sp_proc_traffic(tb, model_cfg.num_heads, model_cfg.hidden_size // model_cfg.num_heads, n_blocks, sp,
+                              trainer.model.dtype)
+
+    def step(backend, patch=None):
+        """One step from phase 21's state and generator state: its
+        reading, and the model's output (its forward, before the loss)."""
+        set_attn_backend(trainer.model, backend)
+        trainer.state.load_state_dict(snapshot)
+        gen = torch.Generator(device=device)
+        gen.set_state(data["step_inputs"]["gen_state"])
+        _build.LAUNCHES.clear()
+        comm.RING_REMOTE.update(sends=0, bytes=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        outs, forward_rank = [], trainer.model.forward_rank
+
+        def recorded(*args, **kwargs):
+            out = forward_rank(*args, **kwargs)
+            outs.append(out.detach().float())
+            return out
+
+        with StagingTimer() as staging, unittest.mock.patch.object(trainer.model, "forward_rank", recorded), \
+                patch or contextlib.nullcontext():
+            t0 = time.perf_counter()
+            m = trainer.train_step(trainer.state, tb, gen)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+        rec = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), launches=dict(_build.LAUNCHES),
+                   expected=sp_proc_expected(backend, n_blocks, local, sp), ring_remote=dict(comm.RING_REMOTE),
+                   staging=staging.read(), step_s=step_s, peak_mem_gb=torch.cuda.max_memory_allocated(device) / 1e9)
+        rec.update(_own_masters_change(trainer.state, snapshot["params"], data["ref_change"]))
+        return rec, outs[0]
+
+    outputs = {}
+    for tag, backend in SP_PROC_BACKENDS:
+        out["runs"][tag], outputs[tag] = step(backend)
+    out["runs"]["ring_rdma"]["expected_ring_remote"] = traffic
+
+    def unsummed(flat, group=None):
+        process_all_reduce(flat, group)
+        return flat
+
+    out["control_unsummed_on_1"], _ = step(None, unittest.mock.patch(
+        "opensora_torch.parallel.sharding.process_all_reduce", unsummed) if rank == 1 else None)
+    out["control_kv_skipped"], wrong = step("ring_rdma", unittest.mock.patch.object(comm.RingTransport, "_land",
+                                                                                   _own_kv_land))
+    out["control_kv_skipped"]["output_rel_l2"] = rel_l2(wrong, outputs["ring_rdma"])
+    out["seconds"] = time.perf_counter() - t0
+    del trainer, tb, outputs, wrong
+    free()
+    return out
+
+
 def torchrun_env(rank: int, world: int, port: int, **extra) -> dict:
     """The variables torchrun sets for process ``rank`` of ``world`` on one
     host."""
@@ -5963,11 +6157,13 @@ def wait_all(procs, timeout: float, tag: str) -> None:
 
 class StagingTimer:
     """CUDA events around each staged copy of the gloo collectives
-    (``parallel/comm.staged_copy``) and the host seconds of each
-    torch.distributed call, while open."""
+    (``parallel/comm.staged_copy``), the host seconds of each
+    torch.distributed call (the p2p posts among them) and of the ring
+    transport's waits on its sends and receives across processes, while
+    open."""
 
     def __init__(self):
-        self.events, self.host_s, self.calls = [], 0.0, 0
+        self.events, self.host_s, self.calls, self.ring_wait_s = [], 0.0, 0, 0.0
 
     def __enter__(self):
         from opensora_torch.parallel import comm
@@ -5992,9 +6188,20 @@ class StagingTimer:
                     self.calls += 1
             return run
 
+        def ring_timed(op):
+            def run(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return op(*args, **kwargs)
+                finally:
+                    self.ring_wait_s += time.perf_counter() - t0
+            return run
+
         self.patches = [unittest.mock.patch.object(comm, "staged_copy", timed_copy)] + [
             unittest.mock.patch.object(comm.dist, name, timed(getattr(comm.dist, name)))
-            for name in ("all_reduce", "all_gather", "reduce_scatter", "gather")]
+            for name in ("all_reduce", "all_gather", "reduce_scatter", "gather", "batch_isend_irecv")] + [
+            unittest.mock.patch.object(comm.RingTransport, name, ring_timed(getattr(comm.RingTransport, name)))
+            for name in ("_land", "release")]
         for p in self.patches:
             p.__enter__()
         comm.STAGED.update(copies=0, bytes=0)
@@ -6010,7 +6217,7 @@ class StagingTimer:
         torch.cuda.synchronize()
         return dict(copies=comm.STAGED["copies"], bytes=comm.STAGED["bytes"],
                     copies_device_ms=sum(a.elapsed_time(b) for a, b in self.events),
-                    collectives=self.calls, collectives_host_s=self.host_s)
+                    collectives=self.calls, collectives_host_s=self.host_s, ring_wait_s=self.ring_wait_s)
 
 
 def _masters_change(state, start: dict, ref_change: dict) -> dict:
@@ -6099,8 +6306,8 @@ def multi_process_worker(root: str) -> int:
     gen = torch.Generator(device=device)
     gen.set_state(seen["gen_state"])
 
-    def unsummed(flat):
-        process_all_reduce(flat)
+    def unsummed(flat, group=None):
+        process_all_reduce(flat, group)
         return flat
 
     with unittest.mock.patch("opensora_torch.parallel.sharding.process_all_reduce", unsummed) if rank == 0 \
@@ -6108,6 +6315,12 @@ def multi_process_worker(root: str) -> int:
         c = step(trainer.state, seen["tb"], gen)
     rec["control"] = dict(loss=float(c["loss"]), grad_norm=float(c["grad_norm"]),
                           **_masters_change(trainer.state, snapshot["params"], data["ref_change"]))
+    del trainer, seen, step, c, m
+    free()
+    distributed.barrier()  # phase 24's state freed in both processes
+    t0 = time.perf_counter()
+    rec["sp_processes"] = sp_processes_worker(device, data, snapshot)
+    rec["sp_processes"]["phase_s"] = time.perf_counter() - t0
     with open(os.path.join(root, f"result_{rank}.json"), "w") as f:
         json.dump(rec, f)
     distributed.shutdown()
@@ -6130,24 +6343,82 @@ def run_multi_process_path(device, carry: dict) -> dict:
             raise AssertionError("phase 21's saved state is not the initial one (its EMA differs from the masters)")
         torch.save(dict(snapshot, ema=None), os.path.join(root, "state.pt"))
         torch.save(dict(video=carry["batch"]["video"].cpu(), text=carry["batch"]["text"],
-                        rng_states=carry["rng_states"], ref_change=carry["ref_change"]), os.path.join(root, "inputs.pt"))
+                        rng_states=carry["rng_states"], ref_change=carry["ref_change"],
+                        step_inputs=carry["step_inputs"], n_blocks=n_blocks), os.path.join(root, "inputs.pt"))
         write_s = time.perf_counter() - t0
         free()
         res["parent_gb"] = dict(allocated=torch.cuda.memory_allocated(device) / 1e9,
                                 reserved=torch.cuda.memory_reserved(device) / 1e9)
         log(f"[multi_process] phase 21's state and inputs written in {write_s:.1f} s; this process holds "
             f"{res['parent_gb']['allocated']:.2f} GB on the card ({res['parent_gb']['reserved']:.2f} GB reserved)")
-        runs = {"gloo_one_card": dict(CUDA_VISIBLE_DEVICES=str(device.index or 0))}
+        # expandable segments: two processes' states on one card, allocated and freed phase by phase
+        alloc = dict(PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+        runs = {"gloo_one_card": dict(CUDA_VISIBLE_DEVICES=str(device.index or 0), **alloc)}
         if torch.cuda.device_count() >= MP_WORLD:
-            runs["nccl"] = {}
+            runs["nccl"] = alloc
         else:
-            log(f"[multi_process] nccl: not run ({torch.cuda.device_count()} CUDA device)")
+            log(f"[multi_process] nccl: not run ({torch.cuda.device_count()} CUDA device; phases 24 and 28)")
         res["part_a"] = {tag: _multi_process_part_a(root, tag, extra, ref, n_blocks) for tag, extra in runs.items()}
+        res["sp_processes"] = {tag: check_sp_processes(tag, run, ref, carry["sp4_ref"])
+                               for tag, run in res["part_a"].items()}
         res["inputs_write_s"] = write_s
     finally:
         shutil.rmtree(root, ignore_errors=True)
     res["cli"] = _multi_process_part_b(device)
     return res
+
+
+def check_sp_processes(tag: str, run: dict, ref: dict, sp4_ref: dict) -> dict:
+    """Phase 28's readings from one part (a) run's processes, held to the
+    phase's limits (see its comment)."""
+    recs = [r["sp_processes"] for r in run["processes"]]
+
+    def rel(r, want):
+        return dict(loss_rel=abs(r["loss"] - want["loss"]) / abs(want["loss"]),
+                    grad_norm_rel=abs(r["grad_norm"] - want["grad_norm"]) / want["grad_norm"])
+
+    def held(c):
+        return (c["loss_rel"] <= TP_TRAIN_LOSS_TOL and c["grad_norm_rel"] <= TP_TRAIN_NORM_TOL
+                and c["update_rel_l2_max"] <= TP_TRAIN_UPDATE_TOL)
+
+    controls = ("control_unsummed_on_1", "control_kv_skipped")
+    for p, rec in enumerate(recs):
+        for name, r in list(rec["runs"].items()) + [(c, rec[c]) for c in controls]:
+            r["vs_unsharded"] = dict(rel(r, ref), update_rel_l2_max=r["update_rel_l2_max"])
+            r["vs_phase27"] = rel(r, sp4_ref)
+        log(f"[sp_processes] {tag} process {p} ({rec['mesh']}, ranks {rec['local_ranks']}): " + json.dumps(rec))
+        for name, r in rec["runs"].items():
+            log(f"[sp_processes] {tag} process {p} {name}: step {r['step_s']:.2f} s, loss/norm/masters vs phase 21 "
+                f"{r['vs_unsharded']}, vs phase 27 {r['vs_phase27']}; ring sends {r['ring_remote']}; staged "
+                f"{r['staging']['bytes'] / 1e9:.2f} GB in {r['staging']['copies']} copies; collectives "
+                f"{r['staging']['collectives_host_s']:.2f} s, ring waits {r['staging']['ring_wait_s']:.2f} s; "
+                f"peak {r['peak_mem_gb']:.2f} GB")
+            if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) and held(r["vs_unsharded"])):
+                raise AssertionError(f"sp_processes {tag} process {p} {name} vs phase 21's step: {r['vs_unsharded']}")
+            if r["launches"] != r["expected"]:
+                raise AssertionError(f"sp_processes {tag} process {p} {name}: launches {r['launches']} != expected "
+                                     f"{r['expected']}")
+            check_peak(f"sp_processes {tag} process {p} {name}", r["peak_mem_gb"])
+        ring = rec["runs"]["ring_rdma"]
+        if ring["ring_remote"] != ring["expected_ring_remote"]:
+            raise AssertionError(f"sp_processes {tag} process {p}: the ring's sends across processes "
+                                 f"{ring['ring_remote']} != {ring['expected_ring_remote']}")
+        kv = rec["control_kv_skipped"]
+        log(f"[sp_processes] {tag} process {p} controls: unsummed on process 1 "
+            f"{rec['control_unsummed_on_1']['vs_unsharded']}; the cross-process KV hop skipped "
+            f"{kv['vs_unsharded']}, its forward's output {kv['output_rel_l2']:.4f} from the right ring_rdma step's "
+            f"(phase 9's video limit {RING_VIDEO_TOL})")
+        for c in controls:
+            if held(rec[c]["vs_unsharded"]):
+                raise AssertionError(f"sp_processes {tag}: the control {c} passed phase 21's limits: "
+                                     f"{rec[c]['vs_unsharded']}")
+    for name in recs[0]["runs"]:
+        if sum(r["runs"][name]["peak_mem_gb"] for r in recs) >= PEAK_LIMIT_GB:
+            raise AssertionError(f"sp_processes {tag} {name}: the processes' peaks add up to "
+                                 f"{sum(r['runs'][name]['peak_mem_gb'] for r in recs):.2f} GB")
+    log(f"[time] phase 28 ({tag}, inside phase 24's processes): {max(r['phase_s'] for r in recs):.1f} s")
+    return dict(processes=recs, tols=dict(loss=TP_TRAIN_LOSS_TOL, grad_norm=TP_TRAIN_NORM_TOL,
+                                          update=TP_TRAIN_UPDATE_TOL))
 
 
 def _multi_process_part_a(root: str, tag: str, extra_env: dict, ref: dict, n_blocks: int) -> dict:
@@ -6610,8 +6881,8 @@ def main(argv) -> int:
     carry: dict = {}  # phase 21's saved state, batch and unsharded step, for phase 22
     fsdp_res = timed("phase 21 FSDP training", run_fsdp_train_path, device, "--profile" in argv, out_dir, carry)
     pp_res = timed("phase 22 GPipe training", run_pp_train_path, device, carry)
-    mp_res = timed("phase 24 processes", run_multi_process_path, device, carry)
     sp_train_res = timed("phase 27 stage2 over sp", run_sp_train_path, device, carry)
+    mp_res = timed("phase 24 processes (and phase 28 in them)", run_multi_process_path, device, carry)
     del carry
     with tempfile.TemporaryDirectory() as tmp:
         lora_res = timed("phase 25 LoRA over a sharded mesh", run_lora_sharded_path, device, tmp)
@@ -6682,6 +6953,7 @@ def main(argv) -> int:
         launches_multi_process=mp_launches(mp_res, "flash_attention_fwd_sm90"),
         launches_lora_sharded=lora_sharded_launches(lora_res, "flash_attention_fwd_sm90"),
         launches_sp_train=sp_train_launches(sp_train_res, "flash_attention_fwd_sm90"),
+        launches_sp_processes=sp_proc_launches(mp_res, "flash_attention_fwd_sm90"),
         launches_ring_sp_step=ring_res["sp_ring"]["launches"].get("flash_attention_fwd_sm90", 0),
         max_abs_err=max([c["max_abs_err"] for c in sm90_cases] + [res_768["attention"]["max_abs_err"]]),
         ms=head["ms"], ms_is="flash_attention_with_lse (the bound A on the device, then the kernel), the mean of "
@@ -6735,6 +7007,7 @@ def main(argv) -> int:
         launches_multi_process=mp_launches(mp_res, "flash_attention_bwd_fused"),
         launches_lora_sharded=lora_sharded_launches(lora_res, "flash_attention_bwd_fused"),
         launches_sp_train=sp_train_launches(sp_train_res, "flash_attention_bwd_fused"),
+        launches_sp_processes=sp_proc_launches(mp_res, "flash_attention_bwd_fused"),
         max_abs_err=max(c["max_abs_err"][g] for c in attn_bwd["cases"] for g in ("dq", "dk", "dv")),
         max_abs_err_is="dq (after the epilogue), dk and dv against the plain backward",
         ms=bwd_head["ms"]["flash_attention_bwd_fused"],
@@ -6761,6 +7034,7 @@ def main(argv) -> int:
         launches_multi_process=mp_launches(mp_res, "flash_attention_bwd_dq_convert"),
         launches_lora_sharded=lora_sharded_launches(lora_res, "flash_attention_bwd_dq_convert"),
         launches_sp_train=sp_train_launches(sp_train_res, "flash_attention_bwd_dq_convert"),
+        launches_sp_processes=sp_proc_launches(mp_res, "flash_attention_bwd_dq_convert"),
         max_abs_err=max(c["dq_convert_max_abs_err"] for c in attn_bwd["cases"]),
         max_abs_err_is="against its plain version on the same dq_accum",
         ms=bwd_head["ms"]["flash_attention_bwd_dq_convert"], plain_ms=bwd_head["dq_convert_plain_ms"],
@@ -6863,6 +7137,7 @@ def main(argv) -> int:
             replaces=f"opensora_tpu/ops/ring_flash.py:{line}",
             launches=(ring_res if fwd else ring_train_res)["launches"][name],
             launches_train=ring_train_res["launches"][name],
+            launches_sp_processes=sp_proc_launches(mp_res, name),
             max_abs_err=max(c["max_abs_err"] if fwd else max(c["grad_max_abs_err"].values()) for c in mine),
             ms=head["kernels_ms"][name], ms_is="the 16 (rank, hop) launches of one call, back to back",
             call_ms=head["call_ms"] if fwd else head["bwd_call_ms"],

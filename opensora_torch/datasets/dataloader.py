@@ -12,7 +12,6 @@ from typing import Iterator, List, Optional
 import numpy as np
 
 from opensora_torch.datasets.sampler import StatefulDistributedSampler, VariableVideoBatchSampler
-from opensora_torch.parallel import distributed
 
 
 def collate_fn_default(samples: List[Optional[dict]]) -> Optional[dict]:
@@ -86,11 +85,18 @@ def prepare_dataloader(dataset, batch_size: Optional[int] = None, bucket_config:
                        num_replicas: Optional[int] = None, rank: Optional[int] = None, prefetch: int = 2, **_):
     """(dataloader, sampler): bucketed batches when ``bucket_config`` is
     given, else fixed-size batches of shuffled indices. ``num_replicas``
-    and ``rank`` default to the process group's (one process: 1 and 0), so
-    each process reads its own part of the same epoch's order
-    (opensora_tpu/datasets/dataloader.py:105-108)."""
-    num_replicas = distributed.process_count() if num_replicas is None else num_replicas
-    rank = distributed.process_index() if rank is None else rank
+    and ``rank`` default to the data blocks of the process's mesh
+    (``parallel/data.data_replicas``: without a mesh, the process group's;
+    one process: 1 and 0), so each data coordinate reads its own part of
+    the same epoch's order (opensora_tpu/datasets/dataloader.py:105-108
+    reads by process) and the processes of one coordinate, its sp ranks,
+    read the same samples."""
+    from opensora_torch.parallel.context import get_mesh
+    from opensora_torch.parallel.data import data_replicas
+
+    default = data_replicas(get_mesh())
+    num_replicas = default["num_replicas"] if num_replicas is None else num_replicas
+    rank = default["rank"] if rank is None else rank
     kw = dict(num_replicas=num_replicas, rank=rank, shuffle=shuffle, seed=seed, drop_last=drop_last)
     if bucket_config is not None:
         sampler = VariableVideoBatchSampler(dataset, bucket_config, **kw)

@@ -115,15 +115,17 @@ def group_attention(g, qkv, pe, rope_convention: str, backend: Optional[str]):
     """The attention of every rank of ``g`` (``parallel/sharding.
     RankGroup`` or ``ONE_RANK``): per-rank (q, k, v), each (B, L_r, H_r,
     D), and pe in, per-rank outputs (B, L_r, H_r * D) out. Over whole
-    sequences each rank attends by itself; over an sp group
-    (``g.sp`` > 1) the ranks of each tp coordinate attend together over
-    their chunks (``ops/attention.attention_shards``)."""
+    sequences each rank attends by itself; over an sp group (``g.seq``)
+    the ranks of each tp coordinate attend together over their chunks
+    (``ops/attention.attention_shards``), with the group's ranks in other
+    processes where it spans them (``g.shard_group``)."""
     kw = dict(rope_convention=rope_convention, backend=backend)
-    if g.sp == 1:
+    if not g.seq:
         return g.each(lambda r: attention(*qkv[r], pe=pe[r], **kw))
     out = [None] * len(qkv)
-    for ranks in g.sp_sets():
-        parts = attention_shards(*([qkv[r][i] for r in ranks] for i in range(3)), [pe[r] for r in ranks], **kw)
+    for t, ranks in enumerate(g.sp_sets()):
+        parts = attention_shards(*([qkv[r][i] for r in ranks] for i in range(3)), [pe[r] for r in ranks], **kw,
+                                 group=g.shard_group(t))
         for r, o in zip(ranks, parts):
             out[r] = o
     return out

@@ -270,17 +270,25 @@ class MMDiTModel(nn.Module):
         (``parallel/sharding.RankGroup``) run every block together, each on
         its home device. On an sp mesh whose joint sequence splits over
         'sp', sp rank s embeds and runs its chunk of the tokens (see the
-        module docstring). Returns the output on the device of rank (d, 0,
-        0)."""
+        module docstring). Returns the output on the device of the group's
+        first rank (of rank (d, 0, 0) in one process); where the sp group
+        spans processes, each holds its ranks' chunks, and the output is
+        joined over the group's processes (``comm.gather_replicated``: the
+        loss over it is then the same on each of them)."""
+        from opensora_torch.parallel.comm import gather_replicated
         from opensora_torch.parallel.data import joint_chunks
         from opensora_torch.parallel.sharding import RankGroup
 
         n_txt, n_img, sp = txt.shape[1], img.shape[1], self.sharding.sp
         seq = (n_txt + n_img) % sp == 0
-        if not seq:
-            _log_whole_sequence(n_txt + n_img, sp)
         g = RankGroup(self.sharding, d, seq=seq)
-        chunks = joint_chunks(n_txt, n_img, g.sp)
+        group = g.shard_group(0) if seq else None
+        if not seq:
+            if len(self.sharding.mesh.local_mid) < sp:  # the sp group spans processes
+                raise NotImplementedError(f"{n_txt + n_img} joint tokens do not split over sp {sp}, whose group "
+                                          f"spans processes: pad the text so that they do (seq_align)")
+            _log_whole_sequence(n_txt + n_img, sp)
+        chunks = joint_chunks(n_txt, n_img, sp if seq else 1)
 
         def prepare(r):
             ts, is_ = chunks[g.coords[r][0]]
@@ -302,7 +310,13 @@ class MMDiTModel(nn.Module):
             x = self.run_block(block, g, x, vec, pe)
         out_dim = self.config.in_channels
         outs = g.chunks(lambda r: tokenwise(lambda y: self.final_layer(y, vec[r]), x[r][:, txt[r].shape[1]:], out_dim))
-        return torch.cat([o.to(g.devices[0]) for o in outs], 1) if len(outs) > 1 else outs[0]
+        out = torch.cat([o.to(g.devices[0]) for o in outs], 1) if len(outs) > 1 else outs[0]
+        if group is None:
+            return out
+        # each process's image tokens: those of its run of sp ranks
+        sizes = [sum(chunks[s][1].stop - chunks[s][1].start for s in range(sp) if group.processes[s] == q)
+                 for q in group.comm.ranks]
+        return gather_replicated(out, 1, sizes, group.comm, anchors=list({id(y): y for y in x}.values()))
 
 
 @MODELS.register_module("flux")

@@ -39,6 +39,10 @@ Layout (B, H, L, D) for the global tensors; each rank holds the slice
 L/sp * rank .. of the sequence. Two differentiable entry points:
 :func:`ring_flash_shards` takes one ring's shards (rank r's q, k, v on its
 device) and returns rank r's output, what a sequence-sharded model calls;
+its ring may span processes (a ``comm.ShardGroup``): the shards are then
+this process's ranks', each keeping its rank in the group for its offsets,
+and the transport sends the KV slots and the dK/dV accumulators between
+the processes, the hop kernels called as in one process;
 :func:`ring_flash_attention` takes global tensors, cuts them over the mesh
 and gathers (out, lse) back.
 """
@@ -54,7 +58,7 @@ import torch
 from opensora_torch.ops import _build
 from opensora_torch.ops import flash_attention as fa
 from opensora_torch.ops.flash_attention import LOG2E, NEG_INF
-from opensora_torch.parallel.comm import RingTransport, gather, shard
+from opensora_torch.parallel.comm import RingTransport, ShardGroup, gather, shard
 from opensora_torch.parallel.context import sp_groups
 from opensora_torch.parallel.mesh import SP_AXIS
 
@@ -265,19 +269,20 @@ def ring_bwd_hop(q, k, v, do, lse, delta, dk_acc, dv_acc, dq_accum, *, sm_scale:
 
 
 def ring_forward_shards(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor], vs: Sequence[torch.Tensor], *,
-                        sm_scale: float, causal_block: Optional[int] = None,
-                        plain: bool = False) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+                        sm_scale: float, causal_block: Optional[int] = None, plain: bool = False,
+                        group: Optional[ShardGroup] = None) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """Rank r's (out, lse) from its shards qs[r], ks[r], vs[r] (each on the
-    rank's device): sp hops, the KV shard moving one rank to the right
-    after each (ring_flash.py:97-183)."""
-    sp = len(qs)
+    rank's device; this process's ranks of ``group``, default every rank):
+    sp hops, the KV shard moving one rank to the right after each
+    (ring_flash.py:97-183)."""
     hop_fn = ring_fwd_hop_ref if plain else ring_fwd_hop
-    t = RingTransport([x.device for x in qs], sequential=plain)
+    t = RingTransport([x.device for x in qs], sequential=plain, group=group)
+    sp, first = t.n, t.group.first
     b, h, lq, d = qs[0].shape
     lk = ks[0].shape[2]
     kv = t.slots((2, b, h, lk, d), ks[0].dtype)  # per rank: [slot][k/v]
     state, outs, lses = [], [], []
-    for r in range(sp):
+    for r in range(t.m):
         kv[r][0, 0].copy_(ks[r])
         kv[r][0, 1].copy_(vs[r])
         dev = qs[r].device
@@ -289,14 +294,15 @@ def ring_forward_shards(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor], 
     t.start()
     for hop in range(sp):
         cur = hop % 2
-        for r in range(sp):
+        for r in range(t.m):
             with t.on(r):
                 if hop:
                     t.wait_received(r, "kv", cur)
                 if hop + 1 < sp:  # the next rank's copy runs while this hop computes
                     t.send(r, "kv", kv, cur)
+                g = first + r  # the rank in the group
                 hop_fn(qs[r], kv[r][cur, 0], kv[r][cur, 1], state[r], outs[r], lses[r], sm_scale=sm_scale,
-                       causal_block=causal_block, q_off=r * lq, k_off=(r - hop) % sp * lk,
+                       causal_block=causal_block, q_off=g * lq, k_off=(g - hop) % sp * lk,
                        first=hop == 0, last=hop == sp - 1)
                 if hop + 1 < sp:
                     t.release(r, cur)
@@ -305,37 +311,39 @@ def ring_forward_shards(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor], 
 
 
 def ring_backward_shards(qs, ks, vs, outs, lses, dos, *, sm_scale: float, causal_block: Optional[int] = None,
-                         plain: bool = False):
+                         plain: bool = False, group: Optional[ShardGroup] = None):
     """Rank r's (dq, dk, dv) in the dtypes of its shards: the KV shards
     rotate as in the forward, their fp32 dK/dV accumulators travel with
     them (sent on after this rank's contribution is added, every hop) and
     land home in slot ``home_slot(sp)``; dQ accumulates locally from the
     global LSE in a dq_accum, finished once after the last hop
     (:func:`dq_finish`; ring_flash.py:185-299). delta = rowsum(dO * O) is computed
-    here, outside the kernels, as the JAX package does."""
-    sp = len(qs)
+    here, outside the kernels, as the JAX package does. ``group``: as
+    :func:`ring_forward_shards`."""
     hop_fn, finish = (ring_bwd_hop_ref, dq_finish_ref) if plain else (ring_bwd_hop, dq_finish)
-    t = RingTransport([x.device for x in qs], sequential=plain)
+    t = RingTransport([x.device for x in qs], sequential=plain, group=group)
+    sp, first = t.n, t.group.first
     b, h, lq, d = qs[0].shape
     lk = ks[0].shape[2]
     kv = t.slots((2, b, h, lk, d), ks[0].dtype)
     grad = t.slots((2, b, h, lk, d), torch.float32, zero_first=True)  # per rank: [slot][dk/dv]
     deltas = [(do.float() * o.float()).sum(-1) for do, o in zip(dos, outs)]
     dq = [torch.zeros((b, h, fa.dq_accum_rows(lq, d), d), dtype=torch.float32, device=q.device) for q in qs]
-    for r in range(sp):
+    for r in range(t.m):
         kv[r][0, 0].copy_(ks[r])
         kv[r][0, 1].copy_(vs[r])
     t.start()
     for hop in range(sp):
         cur = hop % 2
-        for r in range(sp):
+        for r in range(t.m):
             with t.on(r):
                 if hop:
                     t.wait_received(r, "kv", cur)
                     t.wait_received(r, "grad", cur)
                 if hop + 1 < sp:
                     t.send(r, "kv", kv, cur)
-                kw = dict(sm_scale=sm_scale, causal_block=causal_block, q_off=r * lq, k_off=(r - hop) % sp * lk)
+                g = first + r
+                kw = dict(sm_scale=sm_scale, causal_block=causal_block, q_off=g * lq, k_off=(g - hop) % sp * lk)
                 hop_fn(qs[r], kv[r][cur, 0], kv[r][cur, 1], dos[r], lses[r], deltas[r], grad[r][cur, 0],
                        grad[r][cur, 1], dq[r], **kw)
                 t.send(r, "grad", grad, cur)  # after the contribution, on every hop
@@ -343,24 +351,25 @@ def ring_backward_shards(qs, ks, vs, outs, lses, dos, *, sm_scale: float, causal
     t.finish()
     home = home_slot(sp)
     return ([finish(g, lq, sm_scale=sm_scale, dtype=q.dtype) for g, q in zip(dq, qs)],
-            [grad[r][home, 0].to(ks[r].dtype) for r in range(sp)],
-            [grad[r][home, 1].to(vs[r].dtype) for r in range(sp)])
+            [grad[r][home, 0].to(ks[r].dtype) for r in range(t.m)],
+            [grad[r][home, 1].to(vs[r].dtype) for r in range(t.m)])
 
 
 class RingFlashShardsFunction(torch.autograd.Function):
     """Differentiable ring flash attention over one ring's shards (the JAX
     package's ``custom_vjp``, ring_flash.py:380-392): rank r's q, k, v (B,
-    H, L/sp, D), contiguous on its device, in that order after ``sm_scale``
-    and ``causal_block``; returns the ranks' outputs, then their LSEs, which
-    take no gradient."""
+    H, L/sp, D), contiguous on its device, in that order after ``sm_scale``,
+    ``causal_block`` and the ring's ``comm.ShardGroup`` (None: every rank
+    here); returns the ranks' outputs, then their LSEs, which take no
+    gradient."""
 
     @staticmethod
-    def forward(ctx, sm_scale: float, causal_block: Optional[int], *shards):
+    def forward(ctx, sm_scale: float, causal_block: Optional[int], group: Optional[ShardGroup], *shards):
         n = len(shards) // 3
         outs, lses = ring_forward_shards(shards[:n], shards[n:2 * n], shards[2 * n:], sm_scale=sm_scale,
-                                         causal_block=causal_block)
+                                         causal_block=causal_block, group=group)
         ctx.save_for_backward(*shards, *outs, *lses)
-        ctx.n, ctx.sm_scale, ctx.causal_block = n, sm_scale, causal_block
+        ctx.n, ctx.sm_scale, ctx.causal_block, ctx.group = n, sm_scale, causal_block, group
         ctx.mark_non_differentiable(*lses)
         return (*outs, *lses)
 
@@ -370,23 +379,25 @@ class RingFlashShardsFunction(torch.autograd.Function):
         qs, ks, vs, outs, lses = (saved[i * n:(i + 1) * n] for i in range(5))
         dos = [d.to(q.dtype).contiguous() for d, q in zip(grads[:n], qs)]
         dq, dk, dv = ring_backward_shards(qs, ks, vs, outs, lses, dos, sm_scale=ctx.sm_scale,
-                                          causal_block=ctx.causal_block)
-        return (None, None, *dq, *dk, *dv)
+                                          causal_block=ctx.causal_block, group=ctx.group)
+        return (None, None, None, *dq, *dk, *dv)
 
 
 def ring_flash_shards(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor], vs: Sequence[torch.Tensor], *,
-                      causal_block: Optional[int] = None, sm_scale: Optional[float] = None) -> List[torch.Tensor]:
+                      causal_block: Optional[int] = None, sm_scale: Optional[float] = None,
+                      group: Optional[ShardGroup] = None) -> List[torch.Tensor]:
     """Sequence-parallel flash attention over one ring's shards: rank r's
     q, k, v (B, H, L/sp, D) on its device (every rank the same shape; its
     queries and keys start at r L/sp) -> its output (B, H, L/sp, D) in q's
-    dtype. Differentiable in q, k, v. CUDA tensors run the ring kernels
-    (bf16, head dim 128) or raise; CPU tensors the plain hops."""
+    dtype; over a ``group`` that spans processes, this process's ranks'.
+    Differentiable in q, k, v. CUDA tensors run the ring kernels (bf16,
+    head dim 128) or raise; CPU tensors the plain hops."""
     shapes = {tuple(x.shape) for x in (*qs, *ks, *vs)}
     if len(shapes) != 1:
         raise ValueError(f"the ring's shards differ in shape: {sorted(shapes)}")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(qs[0].shape[-1])
-    res = RingFlashShardsFunction.apply(sm_scale, causal_block, *(x.contiguous() for x in (*qs, *ks, *vs)))
+    res = RingFlashShardsFunction.apply(sm_scale, causal_block, group, *(x.contiguous() for x in (*qs, *ks, *vs)))
     return list(res[:len(qs)])
 
 
@@ -424,7 +435,7 @@ def ring_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh
 
     def ring(q, k, v, devices):  # global (out, lse) of one ring: cut, the shards' ring, gathered
         shards = (p for x in (q, k, v) for p in shard(x, 2, devices))
-        res = RingFlashShardsFunction.apply(sm_scale, causal_block, *shards)
+        res = RingFlashShardsFunction.apply(sm_scale, causal_block, None, *shards)
         return gather(res[:n], 2, q.device), gather(res[n:], 2, q.device)
 
     if len(groups) == 1:

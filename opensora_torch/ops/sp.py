@@ -14,7 +14,10 @@ running its own sp group (``parallel/context.sp_groups``; inside a sharded
 model's rank scope only that rank's group, on the rows and heads it holds).
 The ranks are held by this process (``parallel/mesh.py``), so
 ``all_to_all`` and ``ppermute`` are moves between the ranks' shards
-(``parallel/comm.py``):
+(``parallel/comm.py``); the shard forms also take an sp group whose ranks
+lie in several processes (a ``comm.ShardGroup``, this process's ranks'
+shards in and out), and then exchange with the other processes
+(``comm.process_all_to_all``, ``comm.ring_shift``):
 
 - :func:`ulysses_attention` scatters heads and gathers the sequence before
   the attention and does the inverse after; autograd differentiates the
@@ -37,7 +40,7 @@ from typing import List, Optional
 import torch
 
 from opensora_torch.ops.flash_attention import flash_attention_with_lse, partial_flash_backward
-from opensora_torch.parallel.comm import all_to_all, gather, ppermute, shard
+from opensora_torch.parallel.comm import ShardGroup, gather, process_all_to_all, ring_shift, shard
 from opensora_torch.parallel.context import sp_groups
 from opensora_torch.parallel.mesh import SP_AXIS
 
@@ -62,22 +65,24 @@ def _check(q, mesh, rows: int, heads: int):
                          f"({rows}, {sp}, {heads})")
 
 
-def ulysses_shards(qs, ks, vs, backend: Optional[str] = None) -> List[torch.Tensor]:
+def ulysses_shards(qs, ks, vs, backend: Optional[str] = None, group: Optional[ShardGroup] = None
+                   ) -> List[torch.Tensor]:
     """DeepSpeed-Ulysses attention over one sp group's shards: rank i's q,
-    k, v (B, L/sp, H, D) -> its output (B, L/sp, H, D). The sp size must
-    divide the heads."""
+    k, v (B, L/sp, H, D) -> its output (B, L/sp, H, D) (over a ``group``
+    that spans processes, this process's ranks'). The sp size must divide
+    the heads."""
     from opensora_torch.ops.attention import scaled_dot_product_attention
 
-    sp = len(qs)
+    sp = len(qs) if group is None else group.size
     if qs[0].shape[2] % sp:
         raise ValueError(f"sp size {sp} must divide heads {qs[0].shape[2]}")
     # (B, L/sp, H, D) -> (B, L, H/sp, D)
-    qh, kh, vh = (all_to_all(list(x), split_dim=2, concat_dim=1) for x in (qs, ks, vs))
+    qh, kh, vh = (process_all_to_all(list(x), 2, 1, group) for x in (qs, ks, vs))
     outs = [scaled_dot_product_attention(a.transpose(1, 2).contiguous(), b.transpose(1, 2).contiguous(),
                                          c.transpose(1, 2).contiguous(), backend=backend).transpose(1, 2)
             for a, b, c in zip(qh, kh, vh)]
     # (B, L, H/sp, D) -> (B, L/sp, H, D)
-    return all_to_all(outs, split_dim=1, concat_dim=2)
+    return process_all_to_all(outs, 1, 2, group)
 
 
 def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh,
@@ -131,22 +136,24 @@ def _bwd_partial(q, k, v, do, lse, delta, backend):
 
 class _RingAttention(torch.autograd.Function):
     """Ring attention over one sp group's shards: rank i's q, k, v (B, H,
-    L/sp, D), contiguous on its device, in that order after ``backend``;
-    returns the ranks' outputs."""
+    L/sp, D), contiguous on its device, in that order after ``backend`` and
+    the group (None: every rank here; else this process's ranks); returns
+    the ranks' outputs."""
 
     @staticmethod
-    def forward(ctx, backend, *shards):
+    def forward(ctx, backend, group, *shards):
         n = len(shards) // 3
+        hops = n if group is None else group.size
         qs, ks, vs = list(shards[:n]), list(shards[n:2 * n]), list(shards[2 * n:])
         # hop 0 on the local shard; each later hop rotates first, then
         # computes, so no rotation's result is discarded
         acc = [_partial(a, b, c, backend) for a, b, c in zip(qs, ks, vs)]
-        for _ in range(n - 1):
-            ks, vs = ppermute(ks), ppermute(vs)
+        for _ in range(hops - 1):
+            ks, vs = ring_shift(ks, group), ring_shift(vs, group)
             acc = [_merge_partials(*ol, *_partial(a, b, c, backend)) for ol, a, b, c in zip(acc, qs, ks, vs)]
         os_, lses = [x[0] for x in acc], [x[1] for x in acc]
         ctx.save_for_backward(*shards, *os_, *lses)
-        ctx.n, ctx.backend = n, backend
+        ctx.n, ctx.hops, ctx.backend, ctx.group = n, hops, backend, group
         return tuple(o.to(q.dtype) for o, q in zip(os_, qs))
 
     @staticmethod
@@ -161,24 +168,26 @@ class _RingAttention(torch.autograd.Function):
 
         # hop 0 on the local shard; the dk/dv accumulators rotate after
         # every hop's add (hop 0 included): sp hops bring each home
+        group = ctx.group
         parts = partials()
         dq = [p[0] for p in parts]
-        dk, dv = ppermute([p[1] for p in parts]), ppermute([p[2] for p in parts])
-        for _ in range(n - 1):
-            ks, vs = ppermute(ks), ppermute(vs)
+        dk, dv = ring_shift([p[1] for p in parts], group), ring_shift([p[2] for p in parts], group)
+        for _ in range(ctx.hops - 1):
+            ks, vs = ring_shift(ks, group), ring_shift(vs, group)
             parts = partials()
             dq = [a + p[0] for a, p in zip(dq, parts)]
-            dk = ppermute([a + p[1] for a, p in zip(dk, parts)])
-            dv = ppermute([a + p[2] for a, p in zip(dv, parts)])
+            dk = ring_shift([a + p[1] for a, p in zip(dk, parts)], group)
+            dv = ring_shift([a + p[2] for a, p in zip(dv, parts)], group)
         qs, ks, vs = (list(saved[i * n:(i + 1) * n]) for i in range(3))
-        return (None, *(g.to(x.dtype) for g, x in zip(dq + dk + dv, qs + ks + vs)))
+        return (None, None, *(g.to(x.dtype) for g, x in zip(dq + dk + dv, qs + ks + vs)))
 
 
-def ring_shards(qs, ks, vs, backend: Optional[str] = None) -> List[torch.Tensor]:
+def ring_shards(qs, ks, vs, backend: Optional[str] = None, group: Optional[ShardGroup] = None
+                ) -> List[torch.Tensor]:
     """Ring attention over one sp group's shards: rank i's q, k, v (B,
-    L/sp, H, D) -> its output (B, L/sp, H, D). Differentiable (custom
-    backward)."""
-    outs = _RingAttention.apply(backend, *(x.transpose(1, 2).contiguous() for x in (*qs, *ks, *vs)))
+    L/sp, H, D) -> its output (B, L/sp, H, D) (over a ``group`` that spans
+    processes, this process's ranks'). Differentiable (custom backward)."""
+    outs = _RingAttention.apply(backend, group, *(x.transpose(1, 2).contiguous() for x in (*qs, *ks, *vs)))
     return [o.transpose(1, 2) for o in outs]
 
 

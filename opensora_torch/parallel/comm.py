@@ -1,10 +1,11 @@
-"""Moving data between the ranks of a mesh held by one process.
+"""Moving data between the ranks of a mesh: within one process, and
+across processes.
 
 The JAX package moves shards between chips with ``lax.all_to_all`` and
 ``lax.ppermute`` (ops/sp.py) and, inside the ring kernels, with
 ``make_async_remote_copy`` plus DMA and "ack" semaphores
-(ops/ring_flash.py:108-116,166-181). Here every rank's tensors live in this
-process, on the rank's device:
+(ops/ring_flash.py:108-116,166-181). Within a process, each rank's tensors
+live on the rank's device:
 
 - :func:`shard`, :func:`gather`, :func:`all_to_all` and :func:`ppermute`
   are copies between the ranks' tensors, differentiable by autograd;
@@ -35,23 +36,33 @@ process, on the rank's device:
 With ``sequential=True`` (always for CPU tensors) the same slot logic runs
 in program order on the caller's stream: no streams, no events.
 
-Across processes (a multi-process run, ``parallel/distributed.py``; only
-the mesh's 'data' axis crosses them) the collectives are
-``torch.distributed``'s over every process, each under a profiler span
-``"dist_collective"``: :func:`process_all_reduce` (sum),
-:func:`process_all_gather` (joined along a dim), :func:`process_reduce_scatter`
-(this process's piece of the sum), :func:`process_gather` (to one process)
-and :func:`process_gather_shards`, the FSDP all-gather as an autograd
-Function whose backward is the reduce-scatter of the gradients, summed in
-fp32. Under ``nccl`` they run on the tensors where they lie. Under ``gloo``
-a CUDA tensor is staged: copied to host memory (:func:`staged_copy`), the
-gloo op, copied back; ``STAGED`` counts those copies and their bytes (gloo
-is not asked to read device memory).
+Across processes (a multi-process run, ``parallel/distributed.py``, whose
+mesh's 'data' and 'sp' axes may cross them) the collectives are
+``torch.distributed``'s over a group of processes (``distributed.Group``,
+default every process), each under a profiler span ``"dist_collective"``:
+:func:`process_all_reduce` (sum), :func:`process_all_gather` (joined along
+a dim), :func:`process_reduce_scatter` (this process's piece of the sum),
+:func:`process_gather` (to one process), :func:`process_gather_shards`, the
+FSDP all-gather over a 'data' group as an autograd Function whose backward
+is the reduce-scatter of the gradients, summed in fp32,
+:func:`process_all_to_all` (Ulysses over an sp group, differentiable),
+:func:`ring_shift` (the plain ring's shift over an sp group) and
+:func:`gather_replicated` (a tensor whose pieces the processes hold, whole
+on each, for a computation every process of the group repeats). An sp
+group is described by a :class:`ShardGroup`: its size, this process's run
+of its ranks, and the group of its processes. :class:`RingTransport` sends
+a slot whose right neighbour lies in another process with ``isend`` and
+receives its own other slot with ``irecv`` (``RING_REMOTE`` counts those
+sends and their bytes). Under ``nccl`` they run on the tensors where they
+lie. Under ``gloo`` a CUDA tensor is staged: copied to host memory
+(:func:`staged_copy`), the gloo op, copied back; ``STAGED`` counts those
+copies and their bytes (gloo is not asked to read device memory).
 """
 
 from __future__ import annotations
 
 import contextlib
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -247,36 +258,51 @@ def _received(buf: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
         copy_to(buf, like.device)
 
 
-def process_all_reduce(x: torch.Tensor) -> torch.Tensor:
-    """The sum over the processes of their ``x`` (same shape and dtype), a
-    new tensor on ``x``'s device."""
+def _group(group: Optional[distributed.Group]) -> distributed.Group:
+    return distributed.world() if group is None else group
+
+
+def process_all_reduce(x: torch.Tensor, group: Optional[distributed.Group] = None) -> torch.Tensor:
+    """The sum over the processes of ``group`` (default: every process) of
+    their ``x`` (same shape and dtype), a new tensor on ``x``'s device."""
+    group = _group(group)
+    if group.size == 1:
+        return x.clone()
     with torch.profiler.record_function(DIST_SPAN):
         buf = _send_buffer(x)
-        dist.all_reduce(buf)
+        dist.all_reduce(buf, group=group.handle)
         return _received(buf, x)
 
 
-def process_all_gather(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
-    """The processes' ``x`` (same shape) joined along ``dim`` in process
-    order, on ``x``'s device (joined there)."""
+def process_all_gather(x: torch.Tensor, dim: int = 0, group: Optional[distributed.Group] = None) -> torch.Tensor:
+    """The ``x`` (same shape) of the processes of ``group`` (default: every
+    process) joined along ``dim`` in process order, on ``x``'s device
+    (joined there)."""
+    group = _group(group)
+    if group.size == 1:
+        return x
     with torch.profiler.record_function(DIST_SPAN):
         buf = _send_buffer(x)
-        parts = [_receive_buffer(buf) for _ in range(distributed.process_count())]
-        dist.all_gather(parts, buf)
+        parts = [_receive_buffer(buf) for _ in range(group.size)]
+        dist.all_gather(parts, buf, group=group.handle)
         return torch.cat([_received(p, x) for p in parts], dim)
 
 
-def process_reduce_scatter(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Piece p (of process_count() equal pieces along ``dim``) of the sum
-    over the processes of their ``x``, on process p, on ``x``'s device
-    (the pieces cut where ``x`` lies)."""
-    n = distributed.process_count()
+def process_reduce_scatter(x: torch.Tensor, dim: int, group: Optional[distributed.Group] = None) -> torch.Tensor:
+    """Piece i (of ``group.size`` equal pieces along ``dim``) of the sum
+    over the processes of ``group`` (default: every process) of their
+    ``x``, on the group's i-th process, on ``x``'s device (the pieces cut
+    where ``x`` lies)."""
+    group = _group(group)
+    n = group.size
     if x.shape[dim] % n:
         raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not split over {n} processes")
+    if n == 1:
+        return x.clone()
     with torch.profiler.record_function(DIST_SPAN):
         pieces = [_send_buffer(c) for c in x.chunk(n, dim)]
         out = _receive_buffer(pieces[0])
-        dist.reduce_scatter(out, pieces)
+        dist.reduce_scatter(out, pieces, group=group.handle)
         return _received(out, x)
 
 
@@ -293,27 +319,173 @@ def process_gather(x: torch.Tensor, dst: int = 0) -> Optional[List[torch.Tensor]
 
 class _GatherShards(torch.autograd.Function):
     """Forward: this process's shards cast to ``dtype`` and joined along
-    ``dim`` on ``device``, then joined with the other processes' (the
-    FSDP all-gather). Backward: the reduce-scatter of the gradient, summed
-    in fp32, each shard receiving its slice in its own dtype."""
+    ``dim`` on ``device``, then joined with the other processes' of
+    ``group`` (the FSDP all-gather over a 'data' group). Backward: the
+    reduce-scatter of the gradient over the group, summed in fp32, each
+    shard receiving its slice in its own dtype."""
 
     @staticmethod
-    def forward(ctx, dim, dtype, device, *shards):
-        ctx.dim, ctx.meta = dim, [(s.shape[dim], s.device, s.dtype) for s in shards]
+    def forward(ctx, dim, dtype, device, group, *shards):
+        ctx.dim, ctx.group, ctx.meta = dim, group, [(s.shape[dim], s.device, s.dtype) for s in shards]
         local = torch.cat([s.to(device=device, dtype=dtype) for s in shards], dim)
-        return process_all_gather(local, dim)
+        return process_all_gather(local, dim, group)
 
     @staticmethod
     def backward(ctx, grad):
-        mine = process_reduce_scatter(grad.float(), ctx.dim)
+        mine = process_reduce_scatter(grad.float(), ctx.dim, ctx.group)
         pieces = mine.split([n for n, _, _ in ctx.meta], ctx.dim)
-        return (None, None, None, *(p.to(device=d, dtype=t) for p, (_, d, t) in zip(pieces, ctx.meta)))
+        return (None, None, None, None, *(p.to(device=d, dtype=t) for p, (_, d, t) in zip(pieces, ctx.meta)))
 
 
-def process_gather_shards(shards: Sequence[torch.Tensor], dim: int, dtype, device) -> torch.Tensor:
-    """The FSDP all-gather across processes (see :class:`_GatherShards`):
-    ``shards`` are this process's, in 'data' order."""
-    return _GatherShards.apply(dim, dtype, torch.device(device), *shards)
+def process_gather_shards(shards: Sequence[torch.Tensor], dim: int, dtype, device,
+                          group: Optional[distributed.Group] = None) -> torch.Tensor:
+    """The FSDP all-gather across the processes of a 'data' ``group``
+    (default: every process; see :class:`_GatherShards`): ``shards`` are
+    this process's, in 'data' order."""
+    return _GatherShards.apply(dim, dtype, torch.device(device), group, *shards)
+
+
+# ---------------------------------------------------------------------------
+# an sp group across processes
+# ---------------------------------------------------------------------------
+
+# the ring transport's sends to another process since the last reset: how
+# many, and their bytes
+RING_REMOTE = {"sends": 0, "bytes": 0}
+
+
+@dataclass(frozen=True)
+class ShardGroup:
+    """One sp group: ``size`` ranks, this process's a contiguous run from
+    ``first``, ``processes[i]`` the process of rank i, and ``comm`` the
+    group of its processes (this process alone where the group lies in
+    it)."""
+
+    size: int
+    first: int
+    processes: Tuple[int, ...]
+    comm: distributed.Group
+
+    @classmethod
+    def local(cls, n: int) -> "ShardGroup":
+        """A group of ``n`` ranks all in this process."""
+        me = distributed.process_index()
+        return cls(n, 0, (me,) * n, distributed.Group((me,)))
+
+    @property
+    def spans(self) -> bool:
+        return self.comm.size > 1
+
+    def process_of(self, i: int) -> int:
+        return self.processes[i % self.size]
+
+
+def ring_shift(parts: Sequence[torch.Tensor], group: Optional[ShardGroup] = None) -> List[torch.Tensor]:
+    """:func:`ppermute` over an sp group whose ranks may lie in several
+    processes: ``parts`` are this process's ranks' tensors; each receives
+    its left neighbour's, the first from the previous process."""
+    if group is None or not group.spans:
+        return ppermute(parts)
+    m = len(parts)
+    right, left = group.process_of(group.first + m), group.process_of(group.first - 1)
+    with torch.profiler.record_function(DIST_SPAN):
+        sbuf = _send_buffer(parts[-1])
+        rbuf = _receive_buffer(sbuf)  # the ranks' tensors are alike
+        # posted together: the receive and the send of a pair never wait on each other
+        for w in dist.batch_isend_irecv([dist.P2POp(dist.irecv, rbuf, left, group.comm.handle),
+                                         dist.P2POp(dist.isend, sbuf, right, group.comm.handle)]):
+            w.wait()
+        first = _received(rbuf, parts[0])
+    return [first] + [parts[k - 1].to(parts[k].device) for k in range(1, m)]
+
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`all_to_all` over an sp group across processes: this process's
+    ranks' tensors in, theirs out; its backward the inverse all-to-all."""
+
+    @staticmethod
+    def forward(ctx, group, split_dim, concat_dim, *parts):
+        ctx.group, ctx.dims = group, (split_dim, concat_dim)
+        return tuple(_all_to_all(parts, split_dim, concat_dim, group))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        split_dim, concat_dim = ctx.dims
+        return (None, None, None, *_all_to_all([g.contiguous() for g in grads], concat_dim, split_dim, ctx.group))
+
+
+def _all_to_all(parts, split_dim: int, concat_dim: int, group: ShardGroup) -> List[torch.Tensor]:
+    """Rank j of this process receives piece j (along ``split_dim``) of
+    every rank i of the group: from this process's ranks by a move, from
+    another process's in one message per process (its ranks' pieces for
+    this process's ranks, stacked i-major)."""
+    n, me = group.size, distributed.process_index()
+    mine = list(range(group.first, group.first + len(parts)))
+    pieces = {i: p.chunk(n, split_dim) for i, p in zip(mine, parts)}
+    got: Dict[Tuple[int, int], torch.Tensor] = {}
+    with torch.profiler.record_function(DIST_SPAN):
+        ops, received = [], {}
+        for q in group.comm.ranks:
+            if q == me:
+                continue
+            theirs = [i for i in range(n) if group.processes[i] == q]
+            sbuf = _send_buffer(torch.stack([pieces[i][j] for i in mine for j in theirs]))
+            received[q] = (theirs, _receive_buffer(sbuf))
+            ops += [dist.P2POp(dist.irecv, received[q][1], q, group.comm.handle),
+                    dist.P2POp(dist.isend, sbuf, q, group.comm.handle)]
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+        for q, (theirs, rbuf) in received.items():
+            rows = _received(rbuf, parts[0]).unbind(0)
+            for a, i in enumerate(theirs):
+                for b, j in enumerate(mine):
+                    got[(i, j)] = rows[a * len(mine) + b]
+    return [torch.cat([(pieces[i][j] if i in pieces else got[(i, j)]).to(p.device) for i in range(n)], concat_dim)
+            for j, p in zip(mine, parts)]
+
+
+def process_all_to_all(parts: Sequence[torch.Tensor], split_dim: int, concat_dim: int,
+                       group: Optional[ShardGroup] = None) -> List[torch.Tensor]:
+    """:func:`all_to_all` over an sp group whose ranks may lie in several
+    processes: this process's ranks' tensors in and out (rank j receives
+    piece j of every rank, joined in rank order); differentiable."""
+    if group is None or not group.spans:
+        return all_to_all(parts, split_dim, concat_dim)
+    return list(_AllToAll.apply(group, split_dim, concat_dim, *(p.contiguous() for p in parts)))
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dim, sizes, group, x, *anchors):
+        ctx.dim, ctx.lo, ctx.n = dim, sum(sizes[:group.index()]), x.shape[dim]
+        ctx.anchors = [(a.shape, a.dtype, a.device) for a in anchors]
+        pad = max(sizes) - x.shape[dim]
+        padded = torch.cat([x, x.new_zeros((*x.shape[:dim], pad, *x.shape[dim + 1:]))], dim) if pad else x
+        whole = process_all_gather(padded.contiguous(), dim, group)
+        return torch.cat([p.narrow(dim, 0, n) for p, n in zip(whole.chunk(group.size, dim), sizes)], dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (None, None, None, grad.narrow(ctx.dim, ctx.lo, ctx.n),
+                *(torch.zeros(s, dtype=t, device=d) for s, t, d in ctx.anchors))
+
+
+def gather_replicated(x: torch.Tensor, dim: int, sizes: Sequence[int], group: distributed.Group,
+                      anchors: Sequence[torch.Tensor] = ()) -> torch.Tensor:
+    """The processes' pieces (``sizes[i]`` long along ``dim`` on the group's
+    i-th process; ``x`` this process's) joined in process order, on every
+    process. Differentiable for a computation that every process of the
+    group repeats on the joined tensor: a piece's gradient is then the
+    slice of its own process's gradient, taken with no exchange (the
+    masked loss of an sp group's output, which every process of the group
+    computes whole). ``anchors`` (tensors the piece came from) receive a
+    zero gradient, so that the backward runs through everything they came
+    from even where the piece is empty: a process whose ranks hold only
+    text tokens still takes part in the backward's exchanges of the sp
+    group, and its tokens' gradients arrive through them."""
+    if group.size == 1:
+        return x
+    return _GatherReplicated.apply(dim, list(sizes), group, x, *anchors)
 
 
 _STREAMS: Dict[Tuple[int, int, str], torch.cuda.Stream] = {}
@@ -327,15 +499,32 @@ def _stream(device: torch.device, rank: int, kind: str) -> "torch.cuda.Stream":
 
 
 class RingTransport:
-    """The slots, streams and events of one ring over ``devices`` (rank r on
-    devices[r]; its right neighbour is r + 1 mod n). Use: allocate slots
-    with :meth:`slots`, fill slot 0, :meth:`start`, then per hop and rank,
+    """The slots, streams and events of one ring: this process's ranks of
+    an sp group (``group``, default: every rank here), rank r (local index,
+    the group's rank ``group.first + r``) on devices[r]; its right
+    neighbour is the next rank of the group. Use: allocate slots with
+    :meth:`slots`, fill slot 0, :meth:`start`, then per hop and rank,
     inside ``with t.on(r)``: :meth:`wait_received`, :meth:`send`, the hop's
-    compute, :meth:`release`; last :meth:`finish`."""
+    compute, :meth:`release`; last :meth:`finish`.
 
-    def __init__(self, devices: Sequence[torch.device], sequential: bool = False):
+    A send to a neighbour in another process (from this process's last
+    rank) posts, with its ``isend``, the ``irecv`` of this process's first
+    rank's other slot from the previous process (``batch_isend_irecv``,
+    the receive first). "Received" is then the receive's completion and
+    the copy in (from host memory under gloo); the "ack" of the sent slot
+    is the send's completion, waited for in :meth:`release`. Under gloo a
+    CUDA slot is staged through page-locked host memory (``STAGED``); the
+    sends are counted in ``RING_REMOTE``. Every process posts its ring's
+    sends and receives in the same hop order, and a ring has waited for
+    all of them when :meth:`finish` returns: the rings of other tp ranks,
+    run one after another, never meet its messages."""
+
+    def __init__(self, devices: Sequence[torch.device], sequential: bool = False,
+                 group: Optional[ShardGroup] = None):
         self.devices = [torch.device(d) for d in devices]
-        self.n = len(self.devices)
+        self.m = len(self.devices)
+        self.group = group or ShardGroup.local(self.m)
+        self.n = self.group.size
         self.sequential = sequential or self.devices[0].type != "cuda"
         if not self.sequential:
             self.compute = [_stream(d, r, "compute") for r, d in enumerate(self.devices)]
@@ -343,6 +532,9 @@ class RingTransport:
         self._received: Dict[Tuple[str, int, int], torch.cuda.Event] = {}
         self._ack: Dict[Tuple[int, int], torch.cuda.Event] = {}
         self._sent: Dict[Tuple[int, int], List[torch.cuda.Event]] = {}
+        # a receive from another process: per (name, rank, slot), its work, host buffer (or None) and slots
+        self._incoming: Dict[Tuple[str, int, int], tuple] = {}
+        self._outgoing: Dict[Tuple[int, int], list] = {}  # sends to another process: (work, its buffer)
 
     def slots(self, shape, dtype, zero_first: bool = False) -> List[torch.Tensor]:
         """Per rank a (2, *shape) buffer: slot 0 and slot 1 (slot 0 zeroed
@@ -375,15 +567,32 @@ class RingTransport:
 
     def wait_received(self, r: int, name: str, slot: int) -> None:
         """Rank r's compute waits until its ``slot`` of ``name`` arrived."""
+        incoming = self._incoming.pop((name, r, slot), None)
+        if incoming is not None:
+            self._land(name, *incoming, slot)
         ev = self._received.get((name, r, slot))
         if ev is not None:
             self.compute[r].wait_event(ev)
 
+    def _land(self, name: str, work, buf: Optional[torch.Tensor], slots: torch.Tensor, slot: int) -> None:
+        """A receive from another process completes, then (from host
+        memory) the copy into ``slots[slot]``, on the current stream."""
+        work.wait()
+        if buf is not None:
+            STAGED["copies"] += 1
+            STAGED["bytes"] += buf.numel() * buf.element_size()
+            slots[slot].copy_(buf, non_blocking=True)
+
     def send(self, r: int, name: str, bufs: Sequence[torch.Tensor], cur: int) -> None:
         """Copy rank r's slot ``cur`` of ``bufs`` into its right neighbour's
         other slot, once what r's compute stream has queued so far is done
-        and the neighbour acknowledged its last use of that slot."""
-        right, nxt = (r + 1) % self.n, 1 - cur
+        and the neighbour acknowledged its last use of that slot (to
+        another process: see the class docstring)."""
+        nxt = 1 - cur
+        if self.group.spans and r == self.m - 1:
+            self._send_remote(r, name, bufs, cur)
+            return
+        right = (r + 1) % self.m
         src, dst = bufs[r][cur], bufs[right][nxt]
         if self.sequential:
             dst.copy_(src)
@@ -402,9 +611,34 @@ class RingTransport:
         self._received[(name, right, nxt)] = done
         self._sent.setdefault((r, cur), []).append(done)
 
+    def _send_remote(self, r: int, name: str, bufs: Sequence[torch.Tensor], cur: int) -> None:
+        """Rank r's slot ``cur`` to the next process, and this process's
+        first rank's other slot from the previous one (on rank r's compute
+        stream, which first waits for the first rank's last use of that
+        slot)."""
+        nxt, g = 1 - cur, self.group
+        src, dst = bufs[r][cur], bufs[0][nxt]
+        RING_REMOTE["sends"] += 1
+        RING_REMOTE["bytes"] += src.numel() * src.element_size()
+        right, left = g.process_of(g.first + self.m), g.process_of(g.first - 1)
+        ack = None if self.sequential else self._ack.get((0, nxt))
+        if ack is not None:
+            self.compute[r].wait_event(ack)
+        staged = src.device.type == "cuda" and distributed.backend() == "gloo"
+        with torch.profiler.record_function(DIST_SPAN), (contextlib.nullcontext() if self.sequential else self.on(r)):
+            out = staged_copy(src, "cpu") if staged else src
+            into = torch.empty(dst.shape, dtype=dst.dtype, pin_memory=True) if staged else dst
+            works = dist.batch_isend_irecv([dist.P2POp(dist.irecv, into, left, g.comm.handle),
+                                            dist.P2POp(dist.isend, out, right, g.comm.handle)])
+        # nccl coalesces the pair into one work
+        self._incoming[(name, 0, nxt)] = (works[0], into if staged else None, bufs[0])
+        self._outgoing.setdefault((r, cur), []).append((works[-1], out))
+
     def release(self, r: int, slot: int) -> None:
         """Rank r is done with ``slot``: its reads are queued and its sends
         out of it drain first; then the left neighbour may overwrite it."""
+        for work, _ in self._outgoing.pop((r, slot), []):
+            work.wait()
         if self.sequential:
             return
         for ev in self._sent.pop((r, slot), []):
@@ -414,7 +648,12 @@ class RingTransport:
         self._ack[(r, slot)] = ack
 
     def finish(self) -> None:
-        """The caller's stream waits on every rank's streams."""
+        """The receives still open land (the dK/dV accumulators' last
+        hop), then the caller's stream waits on every rank's streams."""
+        for (name, r, slot), incoming in list(self._incoming.items()):
+            with self.on(r):
+                self._land(name, *incoming, slot)
+        self._incoming.clear()
         if self.sequential:
             return
         for r, d in enumerate(self.devices):

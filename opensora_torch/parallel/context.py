@@ -3,12 +3,15 @@ run sequence-parallel attention (counterpart of
 opensora_tpu/parallel/context.py:17-48), and the rank scope of a sharded
 model's forward.
 
-One process holds every rank of the mesh (``parallel/mesh.py``). A model
+A process holds every rank of the mesh, or, in a multi-process run, the
+ranks at its own (data, sp) coordinates (``parallel/mesh.py``). A model
 sharded by ``parallel/sharding.py`` runs its ranks one after another; while
 it runs rank (d, m, t), the scope is (d, t, m): the sharded parameters then
 read that rank's shards on its device. ``m`` is the rank's coordinate on
 the mesh's middle axis: on an sp mesh the sp rank, on a pipeline mesh the
-stage.
+stage. A scope is only ever opened for a rank of this process; an sp group
+whose other ranks lie in other processes reaches them through its
+``comm.ShardGroup`` (``RankGroup.shard_group``), never through a scope.
 
 On an sp mesh whose joint sequence splits over 'sp', each sp rank holds
 and computes its own chunk of the tokens (``models/mmdit/model.py``), and

@@ -5,8 +5,7 @@ JAX places a host batch as global arrays laid out over the mesh: rows on
 'data', the token dim of the token tensors on 'sp'. The counterpart here is
 :class:`Placed`: one global batch entry cut into one piece per rank, each
 on its rank's device, with the spec that cut it. A data rank reads its
-rows back with :meth:`Placed.rows` (tokens joined over its sp ranks, on
-the device of rank (d, 0, 0)).
+whole rows back with :meth:`Placed.rows`.
 
 The MMDiT's sequence-parallel forward does not keep this cut: its sp ranks
 hold chunks of the joint [txt, img] sequence (:func:`joint_chunks`, the one
@@ -16,12 +15,15 @@ since the loss's interpolation and target are taken over them, so a
 batch entry's per-key cut over 'sp' is JAX's placement of the batch and
 no more.
 
-Over processes (a mesh whose 'data' axis crosses them) each process gives
-its local rows, as ``jax.make_array_from_process_local_data`` takes them
-(opensora_tpu/parallel/data.py:52-73): the global batch is the processes'
-rows joined in process order, and a process holds the pieces of its own
-ranks only (None for the others'). The processes' batches must have the
-same shapes.
+Over processes (a mesh whose 'data' and 'sp' axes may cross them) each
+process gives the rows of its 'data' coordinates, as
+``jax.make_array_from_process_local_data`` takes a host's
+(opensora_tpu/parallel/data.py:52-73): the processes of one data block (the
+same data coordinates, other sp ranks: ``Mesh.data_block``) give the same
+rows, read from the same samples (:func:`data_replicas`); the global batch
+is the blocks' rows joined in block order, and a process holds the pieces
+of its own ranks only (None for the others'). The processes' batches must
+have the same shapes.
 """
 
 from __future__ import annotations
@@ -64,6 +66,15 @@ def joint_chunks(n_txt: int, n_img: int, sp: int) -> List[Tuple[slice, slice]]:
     return out
 
 
+def data_replicas(mesh: Optional[Mesh]) -> Dict[str, int]:
+    """The sampler's ``num_replicas`` and ``rank`` over ``mesh``: its data
+    blocks and this process's (every process of one data block reads the
+    same samples); without a mesh, the processes of the run."""
+    if mesh is None:
+        return dict(num_replicas=distributed.process_count(), rank=distributed.process_index())
+    return dict(num_replicas=mesh.data_blocks, rank=mesh.data_block)
+
+
 def batch_sharding(mesh: Mesh, key: str, shape) -> Tuple[Optional[str], ...]:
     """The spec of one batch entry: rows on 'data'; the token dim on 'sp'
     when the key is a token tensor and its length divides the sp axis
@@ -77,33 +88,33 @@ def batch_sharding(mesh: Mesh, key: str, shape) -> Tuple[Optional[str], ...]:
 class Placed:
     """A global tensor (of ``shape``) cut over ``mesh``: ``shards[r]`` is
     rank r's piece, on its device (None where another process holds the
-    rank)."""
+    rank); ``whole[d]`` data rank d's rows (of this process's data
+    coordinates), whole along every other dim."""
 
     mesh: Mesh
     spec: Tuple[Optional[str], ...]
     shards: List[Optional[torch.Tensor]]
     shape: torch.Size
+    whole: Dict[int, torch.Tensor]
 
     @property
     def device(self) -> torch.device:
         return self.shards[self.mesh.local_ranks[0]].device
 
     def rows(self, d: int) -> torch.Tensor:
-        """Data rank ``d``'s rows (a rank of this process), whole along
-        every other dim, on the device of rank (d, 0, 0)."""
-        ranks = self.mesh.group(SP_AXIS, self.mesh.rank((d, 0, 0)))
-        home = self.mesh.devices[ranks[0]]
-        if SP_AXIS in self.spec:
-            return torch.cat([self.shards[r].to(home) for r in ranks], self.spec.index(SP_AXIS))
-        return self.shards[ranks[0]]
+        """Data rank ``d``'s rows (a rank of this process), on the device
+        of its first rank here ((d, 0, 0) in one process)."""
+        return self.whole[d]
 
     def full(self, device=None) -> torch.Tensor:
         """The global tensor on ``device`` (default: the first local
-        rank's); over processes, gathered from every process (every
-        process calls it)."""
+        rank's); over processes, gathered from the other data blocks (a
+        collective of this process's 'data' group)."""
         device = device or self.device
         mine = torch.cat([self.rows(d).to(device) for d in self.mesh.local_data], 0)
-        return process_all_gather(mine) if self.mesh.n_processes > 1 else mine
+        if self.mesh.data_blocks == 1:
+            return mine
+        return process_all_gather(mine, 0, self.mesh.process_group(DATA_AXIS, self.mesh.local_ranks[0]))
 
 
 def place(mesh: Mesh, key: str, x: torch.Tensor) -> Placed:
@@ -113,23 +124,25 @@ def place(mesh: Mesh, key: str, x: torch.Tensor) -> Placed:
     spec = batch_sharding(mesh, key, x.shape)
     sp, local = mesh.shape[SP_AXIS], mesh.local_data
     shards: List[Optional[torch.Tensor]] = []
+    whole: Dict[int, torch.Tensor] = {}
     for r, dev in enumerate(mesh.devices):
         if not mesh.is_local(r):
             shards.append(None)
             continue
         d, s, _ = mesh.coords(r)
         piece = x[row_slice(x.shape[0], len(local), local.index(d))]
+        whole.setdefault(d, piece.to(dev))
         if SP_AXIS in spec:
             piece = piece.chunk(sp, 1)[s]
         shards.append(piece.to(dev))
-    return Placed(mesh, spec, shards, torch.Size((x.shape[0] * mesh.n_processes, *x.shape[1:])))
+    return Placed(mesh, spec, shards, torch.Size((x.shape[0] * mesh.data_blocks, *x.shape[1:])), whole)
 
 
 def make_global_batch(mesh: Mesh, batch: Dict[str, Optional[torch.Tensor]]) -> Dict[str, Optional[Placed]]:
     """Place a batch dict on the mesh (None stays None): over processes,
-    each process's entries are its local rows. A global batch whose rows
-    do not divide over 'data' raises, with the JAX package's message, and
-    so do processes whose batches differ in shape."""
+    each process's entries are its data block's rows. A global batch whose
+    rows do not divide over 'data' raises, with the JAX package's message,
+    and so do processes whose batches differ in shape."""
     dp = mesh.shape[DATA_AXIS]
     batch = {k: None if v is None else torch.as_tensor(v) for k, v in batch.items()}
     if mesh.n_processes > 1:
@@ -143,7 +156,7 @@ def make_global_batch(mesh: Mesh, batch: Dict[str, Optional[torch.Tensor]]) -> D
         if val is None:
             out[key] = None
             continue
-        b_global = val.shape[0] * mesh.n_processes
+        b_global = val.shape[0] * mesh.data_blocks
         if b_global % dp != 0:
             raise ValueError(
                 f"global batch {b_global} (key {key!r}) not divisible by the "

@@ -21,6 +21,13 @@ the process's device and the backend, and joins the process group.
 
 Without a process group, :func:`process_index` is 0 and
 :func:`process_count` 1, and :func:`barrier` returns at once.
+
+A mesh whose 'sp' or 'data' groups span processes (``parallel/mesh.py``)
+runs each of their collectives and sends over a :class:`Group`: the
+processes of one such group and its ``torch.distributed`` subgroup, made by
+:func:`make_groups` on every process in one fixed order (``dist.new_group``
+is a collective of the whole world) and cached, with the group's timeout.
+A group of every process uses the default group.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ import datetime
 import logging
 import os
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -48,9 +55,30 @@ class ProcessGroup:
     world_size: int
     device: torch.device
     backend: str
+    timeout: Optional[datetime.timedelta] = None
 
 
 _GROUP: Optional[ProcessGroup] = None
+
+
+@dataclass(frozen=True)
+class Group:
+    """Some processes of the run, in order, and their ``torch.distributed``
+    group (``handle``; None for every process: the default group)."""
+
+    ranks: Tuple[int, ...]
+    handle: object = None
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+    def index(self) -> int:
+        """This process's place in the group."""
+        return self.ranks.index(process_index())
+
+
+_SUBGROUPS: Dict[Tuple[int, ...], Group] = {}
 
 
 def read_env() -> dict:
@@ -102,7 +130,7 @@ def initialize(device="cuda", timeout: Optional[datetime.timedelta] = None) -> t
     kw = {} if timeout is None else {"timeout": timeout}
     dist.init_process_group(backend, init_method=f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}",
                             rank=env["RANK"], world_size=env["WORLD_SIZE"], **kw)
-    _GROUP = ProcessGroup(env["RANK"], env["WORLD_SIZE"], dev, backend)
+    _GROUP = ProcessGroup(env["RANK"], env["WORLD_SIZE"], dev, backend, timeout)
     return dev
 
 
@@ -111,7 +139,35 @@ def shutdown() -> None:
     global _GROUP
     if _GROUP is not None:
         dist.destroy_process_group()
+        _SUBGROUPS.clear()
         _GROUP = None
+
+
+def make_groups(sets: Iterable[Sequence[int]]) -> None:
+    """The subgroups of ``sets`` (process ranks), each made once: a
+    collective that every process calls with the same sets in the same
+    order (sets of one process make none)."""
+    for ranks in sets:
+        ranks = tuple(sorted(ranks))
+        if 1 < len(ranks) < process_count() and ranks not in _SUBGROUPS:
+            kw = {} if _GROUP.timeout is None else {"timeout": _GROUP.timeout}
+            _SUBGROUPS[ranks] = Group(ranks, dist.new_group(list(ranks), **kw))
+
+
+def subgroup(ranks: Sequence[int]) -> Group:
+    """The group of ``ranks`` (made by :func:`make_groups`; one process:
+    a group without a handle, over which nothing is sent)."""
+    ranks = tuple(sorted(ranks))
+    if len(ranks) == 1 or ranks == tuple(range(process_count())):
+        return Group(ranks)
+    if ranks not in _SUBGROUPS:
+        raise RuntimeError(f"no process group for processes {ranks}: make it with make_groups on every process")
+    return _SUBGROUPS[ranks]
+
+
+def world() -> Group:
+    """Every process of the run."""
+    return Group(tuple(range(process_count())))
 
 
 def group() -> Optional[ProcessGroup]:

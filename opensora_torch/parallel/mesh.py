@@ -16,12 +16,17 @@ cards of one host. Collectives between the ranks of a process are moves
 between their tensors (``parallel/comm.py``).
 
 Across processes, ``processes[r]`` names the process that holds rank r.
-'data' is the outermost axis, so each process holds a contiguous block of
-whole sp / tp / pp groups, as the hosts of a pod cut JAX's mesh
-(opensora_tpu/parallel/mesh.py:61-79); only the 'data' axis crosses
-processes. Two processes on one card both name their device ``cuda:0``, so
-a rank's identity is (process, device) (:meth:`Mesh.home_key`), never the
-device alone.
+Each process holds a contiguous run of ranks in row-major order, as the
+hosts of a pod cut JAX's mesh (opensora_tpu/parallel/mesh.py:61-79): whole
+tp groups (and on a pipeline mesh whole pipelines), and either whole 'data'
+coordinates or a contiguous run of one data coordinate's sp ranks. So the
+'data' and the 'sp' axes may cross processes, each process holding the
+ranks at its own (data, sp) coordinates; a tp or pp group across processes
+raises (:data:`SPANNING_GROUP`). The processes of each 'data' and 'sp' group
+that spans several get a ``torch.distributed`` subgroup
+(:meth:`Mesh.process_group`), made when the mesh is. Two processes on one
+card both name their device ``cuda:0``, so a rank's identity is (process,
+device) (:meth:`Mesh.home_key`), never the device alone.
 """
 
 from __future__ import annotations
@@ -74,18 +79,17 @@ def _indexed(device: torch.device) -> torch.device:
     return device
 
 
-# a group other than 'data' across processes (see Mesh)
-SPANNING_GROUP = ("a mesh whose {axis} group spans processes is not ported (ROADMAP Queue 1: sp / tp / pp groups "
-                  "across processes): the ring kernels' "
-                  "KV transport, the TP all-reduce and the pipeline's sends across processes; lay the "
-                  "processes along 'data' only (each holding whole sp / tp / pp groups)")
+# a tp or pp group across processes (see Mesh)
+SPANNING_GROUP = ("a mesh whose {axis} group spans processes is not ported (ROADMAP Queue 1: tp / pp groups across "
+                  "processes): the TP all-reduce (with int8's row max) and the pipeline's sends across processes; lay "
+                  "the processes along 'data' and 'sp' only (each holding whole tp groups and pipelines)")
 
 
 class Mesh:
     """Axis sizes, the device of each rank (row-major over ``axes``:
     ``AXES``, or ``PP_AXES`` for a pipeline) and the process that holds it
-    (``processes``, default: this process for every rank). A group along an
-    axis other than 'data' must lie in one process."""
+    (``processes``, default: this process for every rank; see the module
+    docstring for the layouts over processes)."""
 
     def __init__(self, sizes: Sequence[int], devices: Sequence[torch.device], axes: Sequence[str] = AXES,
                  processes: Optional[Sequence[int]] = None):
@@ -99,16 +103,55 @@ class Mesh:
         self.n_processes = len(set(self.processes))
         if len(self.processes) != len(self.devices):
             raise ValueError(f"{len(self.processes)} processes for {len(self.devices)} ranks")
+        whole = (TP_AXIS,) if self.axes[1] == SP_AXIS else (PP_AXIS, TP_AXIS)
         for r in range(len(self.devices)):
             c = self.coords(r)
-            if self.processes[r] != self.processes[self.rank((c[0],) + (0,) * (len(c) - 1))]:
-                axis = next(a for a, x in zip(self.axes[1:], c[1:]) if x)
-                raise NotImplementedError(SPANNING_GROUP.format(axis=repr(axis)))
+            for axis in whole:  # the tp group, and the pipeline, lie in one process
+                i = self.axes.index(axis)
+                if self.processes[r] != self.processes[self.rank(c[:i] + (0,) * (len(c) - i))]:
+                    raise NotImplementedError(SPANNING_GROUP.format(axis=repr(axis)))
+        self._check_runs()
         if self.n_processes > 1 and sorted(set(self.processes)) != list(range(distributed.process_count())):
             raise ValueError(f"a mesh over processes {sorted(set(self.processes))} in a run of "
                              f"{distributed.process_count()}")
         self.local_ranks: List[int] = [r for r, p in enumerate(self.processes) if p == self.process]
         self.local_data: List[int] = self.process_data(self.process)
+        # the middle coordinates (sp ranks, or pipeline stages) of this process's ranks
+        self.local_mid: List[int] = sorted({self.coords(r)[1] for r in self.local_ranks})
+        # the 'data' blocks: the processes of one data coordinate read the same samples
+        self.data_blocks = self.shape[DATA_AXIS] // len(self.local_data)
+        self.data_block = self.local_data[0] // len(self.local_data)
+        if self.n_processes > 1:
+            distributed.make_groups(self.processes_along(axis, r) for axis in (DATA_AXIS, self.axes[1])
+                                    for r in range(len(self.devices)))
+
+    def _check_runs(self) -> None:
+        """Each process holds a contiguous run of ranks: whole data
+        coordinates, or a run of one data coordinate's ranks."""
+        per_data = len(self.devices) // self.shape[DATA_AXIS]
+        runs = {}
+        for r, p in enumerate(self.processes):
+            runs.setdefault(p, []).append(r)
+        for p, ranks in runs.items():
+            n = len(ranks)
+            if ranks != list(range(ranks[0], ranks[0] + n)) or (n % per_data and per_data % n) or ranks[0] % n:
+                raise ValueError(f"process {p} holds ranks {ranks} of a {self.shape} mesh: a process holds a "
+                                 f"contiguous run of whole data coordinates or of one coordinate's ranks")
+
+    def processes_along(self, axis: str, rank: int) -> List[int]:
+        """The processes that hold the ranks along ``axis`` through
+        ``rank``, in axis order (each once)."""
+        out: List[int] = []
+        for r in self.group(axis, rank):
+            if self.processes[r] not in out:
+                out.append(self.processes[r])
+        return out
+
+    def process_group(self, axis: str, rank: int) -> distributed.Group:
+        """The :class:`~opensora_torch.parallel.distributed.Group` of the
+        processes along ``axis`` through ``rank`` (of this process alone
+        where the group lies in it)."""
+        return distributed.subgroup(self.processes_along(axis, rank))
 
     def process_data(self, process: int) -> List[int]:
         """The 'data' coordinates of ``process``'s ranks, in order (a

@@ -60,16 +60,22 @@ in the scope (d, t, s). A parameter of no stage (the embedders, the final
 layer) is replicated on every stage's devices. PP cuts nothing over
 'data'.
 
-Over processes (a mesh whose 'data' axis crosses them,
-``parallel/mesh.py``) a process makes the leaves of its own 'data'
-coordinates only: a shard cut over 'data' lies in one process, a shard
-whole along 'data' in every process. A leaf's key is (i, j, (process,
-device)). The FSDP read joins the process's shards with the others' by
-``comm.process_gather_shards`` (its backward the reduce-scatter);
-:meth:`ModelSharding.sync_replica_grads` sums a shard held by every
-process across them (per device, in buckets); such a shard counts in the
-clip's norm on process 0 only (:meth:`ModelSharding.non_canonical`);
-:meth:`Placement.gather` brings a full tensor to process 0.
+Over processes (a mesh whose 'data' and 'sp' axes may cross them,
+``parallel/mesh.py``) a process makes the leaves of its own ranks only: its
+(data, sp) coordinates'. A leaf's key is (i, j, (process, device)); the
+processes that hold a shard (i, j) are its :meth:`Placement.holders`: every
+process for a shard whole along 'data', the processes of data coordinate i
+(its sp group's) for one cut over 'data'. The FSDP read joins the process's
+shards with the other processes' of its 'data' group (the processes of the
+rank's sp coordinate) by ``comm.process_gather_shards`` (its backward the
+reduce-scatter over that group); :meth:`ModelSharding.sync_replica_grads`
+sums a shard's gradient over its holders (per device, in buckets; a data
+shard's after that reduce-scatter, so over the data ranks and the sp
+ranks both); a shard counts in the clip's norm on its first holder only
+(:meth:`ModelSharding.non_canonical`); :meth:`Placement.gather` brings a
+full tensor to process 0. A :class:`RankGroup` with ``seq`` runs this
+process's sp ranks and reaches the others through its
+:meth:`RankGroup.shard_group`.
 """
 
 from __future__ import annotations
@@ -83,6 +89,7 @@ import torch.nn as nn
 
 from opensora_torch.parallel import distributed
 from opensora_torch.parallel.comm import (
+    ShardGroup,
     all_reduce,
     copy_to,
     gather,
@@ -201,7 +208,7 @@ class Placement:
         self.row_bias = bool(re.fullmatch(rf".*{_ROW}\.bias", name)) and not re.fullmatch(rf".*{_COL}\.bias", name)
         mesh = sharding.mesh
         self.keys: List[Tuple[int, int, Tuple[int, torch.device]]] = []
-        mids = range(sharding.mid) if stage is None else (stage,)
+        mids = mesh.local_mid if stage is None else (stage,)
         for d in mesh.local_data:
             for s in mids:
                 for t in range(sharding.tp):
@@ -211,8 +218,17 @@ class Placement:
                         self.keys.append(key)
         self.index = {k: i for i, k in enumerate(self.keys)}
         self.leaves: Optional[nn.ParameterList] = None
-        # held whole along 'data' by every process of a mesh across processes
-        self.on_every_process = sharding.across_processes and self.data_dim is None
+
+    def holders(self, i: int, j: int) -> Tuple[int, ...]:
+        """The processes that hold shard (i, j), in order."""
+        mesh = self.sharding.mesh
+        out = set()
+        for r, p in enumerate(mesh.processes):
+            d, m, t = mesh.coords(r)
+            if (self.data_dim is None or d == i) and (self.tp_dim is None or t == j) \
+                    and (self.stage is None or m == self.stage):
+                out.add(p)
+        return tuple(sorted(out))
 
     def piece(self, full: torch.Tensor, i: int, j: int) -> torch.Tensor:
         """Shard (i, j) of a tensor of the full shape (a view where it can be)."""
@@ -292,7 +308,8 @@ class Placement:
         # is the reduce-scatter: each shard receives the sum of the data
         # ranks' gradients of its slice
         if self.sharding.across_processes:
-            return process_gather_shards(parts, self.data_dim, dtype, dev)
+            group = mesh.process_group(DATA_AXIS, mesh.rank((d, s, t)))
+            return process_gather_shards(parts, self.data_dim, dtype, dev, group)
         return gather([p.to(dtype) for p in parts], self.data_dim, dev)
 
     def current(self) -> Optional[torch.Tensor]:
@@ -342,41 +359,47 @@ class ModelSharding:
 
     def non_canonical(self) -> set:
         """The ids of the leaves that repeat a shard another leaf holds: in
-        this process, or, for a shard every process holds, on a process
-        other than 0."""
-        later = distributed.process_index() != 0
-        keep = {id(pl.leaves[n]) for pl in self.placements.values() if not (later and pl.on_every_process)
-                for n in pl.canonical()}
+        this process, or in a process before this one (the first of the
+        shard's holders counts it)."""
+        me = distributed.process_index()
+        keep = {id(pl.leaves[n]) for pl in self.placements.values() for n in pl.canonical()
+                if pl.holders(*pl.keys[n][:2])[0] == me}
         return {id(p) for pl in self.placements.values() for p in pl.leaves if id(p) not in keep}
 
     @torch.no_grad()
     def sync_replica_grads(self) -> None:
         """Replicas on different devices each received their ranks' part
         of the gradient: every replica gets the sum (the DP all-reduce),
-        first over this process's devices, then, for a shard every process
-        holds, over the processes: fp32 all-reduces of at most
-        ``REPLICA_BUCKET`` elements, each of the leaves of one pipeline
-        stage and tp rank (on one device), so that no device holds
-        another's gradients."""
+        first over this process's devices, then, for a shard several
+        processes hold, over its holders (the sp ranks' partials in other
+        processes; a shard whole along 'data', every process's): fp32
+        all-reduces of at most ``REPLICA_BUCKET`` elements, each of the
+        leaves of one set of holders, pipeline stage and tp rank (on one
+        device), so that no device holds another's gradients. Every process
+        issues its sums in the order of the holders, so that the processes
+        of each group meet in the same order."""
         for group in self.replicas():
             if not group[0].requires_grad:  # a frozen leaf (a LoRA run's base) has no gradient
                 continue
             grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in group]
             for p, g in zip(group, all_reduce(grads)):
                 p.grad = g
-        # per (stage, tp index): the leaves of each shard every process holds,
-        # its first (this process's first data rank's) leading
-        shared: Dict[Tuple[int, int], List[List[nn.Parameter]]] = {}
+        # per (holders, stage, tp index): the leaves of each shard that several
+        # processes hold, its first (this process's first rank's) leading
+        shared: Dict[Tuple[Tuple[int, ...], int, int], List[List[nn.Parameter]]] = {}
         for pl in self.placements.values():
-            if pl.on_every_process and pl.leaves[0].requires_grad:
+            if self.across_processes and pl.leaves[0].requires_grad:
                 for n in pl.canonical():
                     shard = pl.keys[n][:2]
-                    shared.setdefault((pl.stage or 0, shard[1]), []).append(
-                        [pl.leaves[m] for m, key in enumerate(pl.keys) if key[:2] == shard])
+                    holders = pl.holders(*shard)
+                    if len(holders) > 1:
+                        shared.setdefault((holders, pl.stage or 0, shard[1]), []).append(
+                            [pl.leaves[m] for m, key in enumerate(pl.keys) if key[:2] == shard])
         for where in sorted(shared):
+            holders = distributed.subgroup(where[0])
             for bucket in _buckets(shared[where], REPLICA_BUCKET):
                 grads = [g[0].grad if g[0].grad is not None else torch.zeros_like(g[0]) for g in bucket]
-                total = process_all_reduce(torch.cat([x.detach().float().flatten() for x in grads]))
+                total = process_all_reduce(torch.cat([x.detach().float().flatten() for x in grads]), holders)
                 for group, piece in zip(bucket, total.split([x.numel() for x in grads])):
                     for p in group:
                         p.grad = piece.view(p.shape).to(device=p.device, dtype=p.dtype)
@@ -400,17 +423,21 @@ class RankGroup:
     """The ranks of a sharded model at one data coordinate that run a
     forward together, each on its home device: the tp ranks at (data, mid,
     ·) (``mid``: the pipeline stage, or sp coordinate 0 where the tokens
-    stay whole), or with ``seq`` every rank (data, s, t) of an sp mesh, sp
-    rank s holding the s-th chunk of the tokens. Per-rank lists are indexed
-    r = s * tp + t; ``at(r)`` opens rank r's scope."""
+    stay whole), or with ``seq`` (on a mesh with an 'sp' axis) this
+    process's ranks (data, s, t), sp rank s holding the s-th chunk of the
+    tokens: ``sps`` lists their sp coordinates (every one, unless the sp
+    group spans processes). Per-rank lists are indexed r = k * tp + t, k
+    the position in ``sps``; ``at(r)`` opens rank r's scope."""
 
     def __init__(self, sharding: ModelSharding, data: int, mid: int = 0, seq: bool = False):
         if data not in sharding.mesh.local_data:
             raise RuntimeError(f"data rank {data} is another process's (this one holds {sharding.mesh.local_data})")
         self.sharding, self.data, self.mid, self.tp = sharding, data, mid, sharding.tp
-        self.sp = sharding.sp if seq else 1
         mesh = sharding.mesh
-        self.coords = [(s, t) for s in (range(self.sp) if seq else (mid,)) for t in range(self.tp)]
+        self.seq = seq and sharding.sp > 1
+        self.sps = list(mesh.local_mid) if self.seq else [mid]
+        self.sp = len(self.sps)
+        self.coords = [(s, t) for s in self.sps for t in range(self.tp)]
         self.devices = [mesh.home(data, t, s) for s, t in self.coords]
         self.keys = [mesh.home_key(data, t, s) for s, t in self.coords]
 
@@ -454,9 +481,19 @@ class RankGroup:
         return out
 
     def sp_sets(self) -> List[List[int]]:
-        """Per tp rank t, the ranks of its sp group in sp order: the ranks
-        an attention over sequence shards runs over."""
+        """Per tp rank t, this process's ranks of its sp group in sp order:
+        the ranks an attention over sequence shards runs over."""
         return [list(range(t, len(self.coords), self.tp)) for t in range(self.tp)]
+
+    def shard_group(self, t: int) -> Optional[ShardGroup]:
+        """Tp rank t's sp group where its ranks lie in several processes
+        (None where all lie in this one)."""
+        mesh = self.sharding.mesh
+        ranks = mesh.group(SP_AXIS, mesh.rank((self.data, 0, t)))
+        if all(mesh.is_local(r) for r in ranks):
+            return None
+        return ShardGroup(len(ranks), self.sps[0], tuple(mesh.processes[r] for r in ranks),
+                          mesh.process_group(SP_AXIS, ranks[0]))
 
     def row(self, linear: nn.Module, xs: Sequence[torch.Tensor], width: Optional[int] = None) -> List[torch.Tensor]:
         """A row-parallel product over the tp ranks of each chunk: each
@@ -466,10 +503,10 @@ class RankGroup:
         rounded to its ``dtype``. A chunk without tokens (the text part of
         an image-only chunk) gets an empty output ``width`` wide and runs
         nothing."""
-        if self.sp > 1:
+        if self.seq:
             out: List[torch.Tensor] = []
-            for s in range(self.sp):
-                part = xs[s * self.tp:(s + 1) * self.tp]
+            for k, s in enumerate(self.sps):
+                part = xs[k * self.tp:(k + 1) * self.tp]
                 if part[0].shape[1] == 0:
                     out += [x.new_empty((*x.shape[:-1], width)) for x in part]
                 else:
@@ -487,6 +524,7 @@ class OneRank:
     its bias included."""
 
     tp = sp = 1
+    seq = False
 
     @staticmethod
     def each(fn: Callable[[int], object]) -> list:

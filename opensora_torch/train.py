@@ -33,11 +33,15 @@ mesh instead (:func:`pipeline_mesh`; GPipe, ``training/pp.py``).
 Each process joins the group first (``parallel/distributed.initialize``:
 its card, ``nccl`` where each process has a card of its own, else
 ``gloo``), and the mesh is over every process's device, the processes
-along 'data' (:func:`train_mesh`). Each process reads its own part of the
-data, encodes its rows (the posterior noise and the visual conditions drawn
-for the global batch and cut, as the step's draws are) and runs its data
-ranks; process 0 names the experiment directory, logs, writes the
-checkpoints, the metrics and the profile.
+along 'data' and 'sp' (:func:`train_mesh`: ``stage2.py``'s sp group of 4
+spans the processes; a process holds several consecutive ranks as logical
+ranks on its card where there are more ranks than processes). The
+processes of one 'data' coordinate read the same samples
+(``parallel/data.data_replicas``); each process encodes its data block's
+rows (the posterior noise and the visual conditions drawn for the global
+batch and cut, as the step's draws are) and runs its ranks; process 0
+names the experiment directory, logs, writes the checkpoints, the metrics
+and the profile.
 """
 
 from __future__ import annotations
@@ -71,14 +75,30 @@ def train_mesh(cfg, device):
     one (as ``inference.inference_mesh``): stage1.py's ``dp_size=-1`` and
     stage2.py's ``sp_size=4`` then train on one card without a mesh. In a
     multi-process run, the mesh (default ``dp_size=-1``) over every
-    process's device, one rank each (a collective)."""
+    process's device (a collective): one rank a process where the
+    processes fill the mesh (``dp_size=-1``: as many data coordinates as
+    they fill), else each process holds an equal run of consecutive ranks
+    as logical ranks on its device, as :func:`pipeline_mesh` lays out
+    stages (``stage2.py``'s sp 4 over 2 processes: 2 sp ranks each,
+    ``dp_size=-1`` then 1)."""
     from opensora_torch.inference import inference_mesh
     from opensora_torch.parallel import distributed
     from opensora_torch.parallel.mesh import MeshConfig, create_mesh
 
-    if distributed.process_count() > 1:
-        return create_mesh(MeshConfig(**(cfg.get("mesh") or {})))
-    return inference_mesh(cfg, device)
+    n_proc = distributed.process_count()
+    if n_proc == 1:
+        return inference_mesh(cfg, device)
+    mc = MeshConfig(**(cfg.get("mesh") or {}))
+    sizes = [mc.dp_size, mc.sp_size, mc.tp_size]
+    fixed = math.prod(x for x in sizes if x != -1)
+    if -1 in sizes and n_proc % fixed == 0:
+        total = n_proc  # the -1 axis fills the processes
+    else:
+        sizes = [1 if x == -1 else x for x in sizes]
+        total = math.prod(sizes)
+    if total % n_proc:
+        raise ValueError(f"mesh {cfg.get('mesh')}: {total} ranks do not split over {n_proc} processes")
+    return create_mesh(MeshConfig(*sizes), [distributed.group().device] * (total // n_proc))
 
 
 def pipeline_mesh(cfg, device):
@@ -273,9 +293,10 @@ class Trainer:
 
     def process_rows(self, n_local: int) -> "Rows":
         """This process's rows [p * n_local, (p + 1) * n_local) of the global
-        batch of n_local * n_processes rows (process p; one process holds
-        them all)."""
-        p, n = (self.mesh.process, self.mesh.n_processes) if self.mesh is not None else (0, 1)
+        batch of n_local * n rows: p its data block of the mesh's n (one
+        process holds them all; the processes of one data block, its sp
+        ranks, hold the same rows)."""
+        p, n = (self.mesh.data_block, self.mesh.data_blocks) if self.mesh is not None else (0, 1)
         return Rows(p * n_local, (p + 1) * n_local, n_local * n)
 
     def encode_rows(self, x: torch.Tensor, rows: "Rows") -> torch.Tensor:
@@ -366,6 +387,7 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
     import opensora_torch.datasets.datasets  # noqa: F401  (registers the datasets)
     from opensora_torch.datasets.dataloader import prepare_dataloader
     from opensora_torch.parallel import distributed
+    from opensora_torch.parallel.data import data_replicas
     from opensora_torch.registry import DATASETS, build_module
     from opensora_torch.utils.ckpt import CheckpointIO
     from opensora_torch.utils.config import create_experiment_workspace, parse_configs
@@ -392,11 +414,13 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
         logger.info("multi_host: %d processes, backend %s, devices %s", distributed.process_count(),
                     distributed.backend(), distributed.all_gather_object(str(device)))
 
+    mesh = pipeline_mesh(cfg, device or "cuda") if cfg.get("pipeline") else train_mesh(cfg, device or "cuda")
     dataset = build_module(dict(cfg.dataset), DATASETS)
+    # the processes of one data coordinate (its sp ranks) read the same samples
     dataloader, sampler = prepare_dataloader(
         dataset, batch_size=cfg.get("batch_size"), bucket_config=cfg.get("bucket_config"), seed=cfg.get("seed", 42),
+        **data_replicas(mesh),
     )
-    mesh = pipeline_mesh(cfg, device or "cuda") if cfg.get("pipeline") else train_mesh(cfg, device or "cuda")
     trainer = Trainer(cfg, device, mesh=mesh)
     ckpt_io = CheckpointIO()
     start_epoch = start_step = global_step = 0

@@ -28,15 +28,20 @@ state's shards are placed by stage, and the step's forward is the
 pipeline's (``make_train_step(forward_fn=)``) on the global batch: the
 draws, the loss and the optimizer are the unsharded step's.
 
-Over processes (a mesh whose 'data' axis crosses them, each process given
-its local rows): every process draws the global batch's t, x1 and dropout
-choices from the same generator in the unsharded order and cuts its rows
-(JAX's ``r_step`` draw on the global array, scripts/diffusion/train.py:
-366-367); it runs its own data ranks; the loss the gradient flows through
-is their sum over every data rank divided by dp (:func:`process_mean`),
-its value the all-reduced mean; the gradients meet in the FSDP
-reduce-scatter and the replicas' all-reduce, the norm is summed across
-processes, and a state dict is gathered on process 0. A pipeline over
+Over processes (a mesh whose 'data' and 'sp' axes may cross them, each
+process given its data block's rows): every process draws the global
+batch's t, x1 and dropout choices from the same generator in the unsharded
+order and cuts its rows (JAX's ``r_step`` draw on the global array,
+scripts/diffusion/train.py:366-367); it runs its own ranks; where a data
+rank's sp group spans processes, its output is joined over them
+(``MMDiTModel.forward_rank``), so each of them computes the rank's whole
+(masked) loss, its sums over all the group's tokens before the division,
+and its gradient reaches each process's chunk alone; the loss the gradient
+flows through is the sum over this process's data ranks divided by dp
+(:func:`process_mean`), its value the mean over the data blocks; the
+gradients meet in the FSDP reduce-scatter and the replicas' all-reduce over
+their holders, the norm is summed across processes, and a state dict is
+gathered on process 0. A pipeline over
 processes runs each process's rows through its own data ranks' pipelines
 on the global batch's draws (:func:`process_draws`).
 """
@@ -55,6 +60,7 @@ import torch.nn as nn
 from opensora_torch.parallel import distributed
 from opensora_torch.parallel.comm import process_all_gather, process_all_reduce
 from opensora_torch.parallel.data import Placed, make_global_batch, row_slice
+from opensora_torch.parallel.mesh import DATA_AXIS
 from opensora_torch.parallel.sharding import ModelSharding, mesh_spec, mmdit_param_specs, shard_params
 from opensora_torch.utils.optimizer import Optimizer, global_norm
 from opensora_torch.utils.sampling import get_res_lin_function, time_shift
@@ -350,19 +356,22 @@ def sharded_loss(model: nn.Module, sharding: ModelSharding, batch: Dict, generat
     is), the draws made over the global batch (as the unsharded step makes
     them: one generator, one order) and cut by rows, each data rank's loss
     on its rows (this process's data ranks), their mean on the device of
-    the first of them, then over the processes (:func:`process_mean`)."""
+    the first of them, then over the data blocks (:func:`process_mean`)."""
     mesh = sharding.mesh
     if not all(v is None or isinstance(v, Placed) for v in batch.values()):
         batch = make_global_batch(mesh, batch)
     if draws is None:
         draws = global_draws(batch, text_dropout_prob, generator)
-    b, home = batch["x0"].shape[0], mesh.home(mesh.local_data[0], 0)
+    b = batch["x0"].shape[0]
     losses = []
     for d in mesh.local_data:
         rows = {k: None if v is None else v.rows(d) for k, v in batch.items()}
-        cut = {k: v[row_slice(b, sharding.dp, d)].to(mesh.home(d, 0)) for k, v in draws.items()}
-        losses.append(compute_loss(functools.partial(model.forward_rank, d), rows, **loss_kw, **cut).to(home))
-    return process_mean(data_mean(losses), mesh.n_processes)
+        dev = rows["x0"].device
+        cut = {k: v[row_slice(b, sharding.dp, d)].to(dev) for k, v in draws.items()}
+        losses.append(compute_loss(functools.partial(model.forward_rank, d), rows, **loss_kw, **cut))
+    home = losses[0].device
+    return process_mean(data_mean([x.to(home) for x in losses]), mesh.data_blocks,
+                        mesh.process_group(DATA_AXIS, mesh.local_ranks[0]))
 
 
 def global_draws(batch: Dict[str, Optional[Placed]], text_dropout_prob: float, generator) -> Dict:
@@ -390,15 +399,16 @@ def data_mean(losses) -> torch.Tensor:
     return torch.stack(losses).mean()
 
 
-def process_mean(loss: torch.Tensor, n_processes: int) -> torch.Tensor:
-    """Over ``n_processes`` processes, each holding the mean ``loss`` of
-    its data ranks: the mean over the processes (all-reduced), whose
-    gradient is that of ``loss / n_processes``: the data ranks' gradients
-    meet in the cross-process sums, so each is divided by dp once."""
+def process_mean(loss: torch.Tensor, n_processes: int, group=None) -> torch.Tensor:
+    """Over ``n_processes`` processes (``group``, default every process),
+    each holding the mean ``loss`` of its data ranks: the mean over the
+    processes (all-reduced), whose gradient is that of ``loss /
+    n_processes``: the data ranks' gradients meet in the cross-process
+    sums, so each is divided by dp once."""
     if n_processes == 1:
         return loss
     mine = loss / n_processes
-    return mine - mine.detach() + process_all_reduce(mine.detach())
+    return mine - mine.detach() + process_all_reduce(mine.detach(), group)
 
 
 def compute_shift_alpha(latent_h: int, latent_w: int, latent_t: int) -> float:

@@ -430,11 +430,11 @@ def test_training_cli_names_the_queued_slices(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match=r"pipeline \+ lora_config"):
         Trainer(parse_configs([str(lora)]), "cpu", mesh=create_pp_mesh(2, 1, 1, [CPU, CPU]))
 
-    # multi_host is ported for processes along 'data'; a tp group across
-    # processes stays queued, and multi_host outside torchrun names its
-    # variables
+    # multi_host is ported for processes along 'data' and 'sp'; a tp group
+    # across processes stays queued, and multi_host outside torchrun names
+    # its variables
     with pytest.raises(NotImplementedError,
-                       match=r"'tp' group spans processes .*ROADMAP Queue 1: sp / tp / pp groups across processes"):
+                       match=r"'tp' group spans processes .*ROADMAP Queue 1: tp / pp groups across processes"):
         Mesh((1, 1, 2), [CPU, CPU], processes=[0, 1])
     cfg = tmp_path / "multi_host.py"
     cfg.write_text(f"_base_ = [{DEMO!r}]\nmulti_host = True\n")

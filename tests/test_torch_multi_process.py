@@ -211,7 +211,8 @@ def runs(tmp_path_factory):
     calls += [("load_sharded", (params, GEOM, OPT, (2, 1, 2), ckpt_u), {}),
               ("data_layer", (4, _table(), BUCKETS, 7), {}),
               ("spanning_mesh", ((1, 1, 2),), {}),
-              ("spanning_mesh", ((1, 2, 1),), {}),
+              ("sharded_steps", (params, batch, GEOM, OPT, (1, 2, 1)), dict(seed=SEED, n_steps=1)),
+              ("spanning_mesh", ((2, 1, 1), True), {}),
               ("trainer_iteration", (str(cfg_path), video, texts, state_path), {})]
     l_params, l_factors, l_batch = lora_inputs()
     l_draws = [_jax_draws(l_batch, jax.random.PRNGKey(11), 0, PROB)]
@@ -234,7 +235,7 @@ def runs(tmp_path_factory):
     results = procs.results()
     names = ["mesh_" + "x".join(map(str, s)) for s in MESHES] + ["gen_right"] + [f"gen_{v}" for v in WRONG] + \
         ["pp_" + "x".join(map(str, s)) for s in PP_MESHES] + ["pp_bucketed", "load", "data", "span_tp", "span_sp",
-                                                               "trainer", "lora"]
+                                                               "span_pp", "trainer", "lora"]
     return dict(by_name={n: [r[i] for r in results] for i, n in enumerate(names)}, ref=ref, gen_ref=gen_ref,
                 pp_ref=pp_ref, pp_start=pp_sd, trainer_ref=trainer_ref, lora_ref=lora_ref, params=params,
                 unsharded=unsharded, ckpt_u=ckpt_u, tmp=tmp)
@@ -436,12 +437,20 @@ def test_only_process_0_logs(runs):
 
 
 def test_a_group_other_than_data_across_processes_raises(runs):
-    """A mesh whose tp (or sp) group would span the two processes raises,
-    naming its ROADMAP item by title."""
-    for name, axis in (("span_tp", "tp"), ("span_sp", "sp")):
+    """A mesh whose tp group, or a pipeline whose stages, would span the two
+    processes raises, naming its ROADMAP item by title; an sp group across
+    them builds its mesh and takes the step (one sp rank a process; the
+    loss and norm those of the single-process port's step over (data 2, 1,
+    1) on the same global batch and draws)."""
+    for name, axis in (("span_tp", "tp"), ("span_pp", "pp")):
         for msg in runs["by_name"][name]:
             assert f"'{axis}' group spans processes" in msg
-            assert "ROADMAP Queue 1: sp / tp / pp groups across processes" in msg
+            assert "ROADMAP Queue 1: tp / pp groups across processes" in msg
+    out, ref = runs["by_name"]["span_sp"], runs["gen_ref"]["metrics"][0]
+    for r in out:
+        assert "in 2 processes" in r["mesh"]
+        for k in ("loss", "grad_norm"):
+            assert r["metrics"][0][k] == pytest.approx(ref[k], rel=PORT_UPDATE_TOL), k
 
 
 def test_trainer_iteration_across_processes_equals_one_process(runs):

@@ -1,6 +1,6 @@
-"""The worker side of tests/test_torch_multi_process.py: functions that run
-in each of the processes a test starts, and :class:`Processes`, which
-starts them.
+"""The worker side of tests/test_torch_multi_process.py and
+tests/test_torch_sp_processes.py: functions that run in each of the
+processes a test starts, and :class:`Processes`, which starts them.
 
 Imports torch and the port only: the workers are started with the
 ``spawn`` method (the pytest process has JAX initialised, so ``fork`` is
@@ -108,7 +108,7 @@ def run_calls(calls) -> list:
 # ----------------------------------------------------------------------
 
 
-def port_state(params: dict, geom: dict, opt: dict):
+def port_state(params: dict, geom: dict, opt: dict, backend: Optional[str] = "xla"):
     """The port's MMDiT from the JAX package's numpy params (fp32), and its
     train state with an EMA."""
     from opensora_torch.models.mmdit.model import MMDiTConfig, MMDiTModel
@@ -116,7 +116,7 @@ def port_state(params: dict, geom: dict, opt: dict):
     from opensora_torch.utils import optimizer as topt
     from opensora_torch.utils.weights import load_numpy_state_dict, mmdit_state_dict
 
-    tm = MMDiTModel(MMDiTConfig(**geom, dtype="fp32", attn_backend="xla", remat=True), device="meta",
+    tm = MMDiTModel(MMDiTConfig(**geom, dtype="fp32", attn_backend=backend, remat=True), device="meta",
                     dtype=torch.float32)
     load_numpy_state_dict(tm, {k: v.copy() for k, v in mmdit_state_dict(params).items()})
     tm.requires_grad_(True)
@@ -127,7 +127,16 @@ def local_rows(batch: dict) -> dict:
     """This process's rows of a global numpy batch, as torch tensors."""
     from opensora_torch.parallel import distributed
 
-    p, n = distributed.process_index(), distributed.process_count()
+    return _rows(batch, distributed.process_index(), distributed.process_count())
+
+
+def block_rows(batch: dict, mesh) -> dict:
+    """This process's data block's rows of a global numpy batch (the
+    processes of one data coordinate share them), as torch tensors."""
+    return _rows(batch, mesh.data_block, mesh.data_blocks)
+
+
+def _rows(batch: dict, p: int, n: int) -> dict:
     out = {}
     for k, v in batch.items():
         per = v.shape[0] // n
@@ -135,12 +144,12 @@ def local_rows(batch: dict) -> dict:
     return out
 
 
-def _unsummed(flat):
+def _unsummed(flat, group=None):
     """Known-wrong: the replicated leaves' gradients are not summed across
     processes (the all-reduce runs, its sum is dropped)."""
     from opensora_torch.parallel.comm import process_all_reduce
 
-    process_all_reduce(flat)
+    process_all_reduce(flat, group)
     return flat
 
 
@@ -157,12 +166,31 @@ def _local_draws(batch, text_dropout_prob, generator):
     return {k: torch.cat([v] * distributed.process_count()) for k, v in draws.items()}
 
 
-def _undivided(loss, n_processes):
+def _undivided(loss, n_processes, group=None):
     """Known-wrong: the loss is not divided across processes (its value the
     mean, its gradient the process's own mean's)."""
     from opensora_torch.parallel.comm import process_all_reduce
 
-    return loss - loss.detach() + process_all_reduce(loss.detach() / n_processes)
+    return loss - loss.detach() + process_all_reduce(loss.detach() / n_processes, group)
+
+
+def _own_kv(self, name, work, buf, slots, slot):
+    """Known-wrong: the ring's cross-process KV hop skipped: the receiving
+    rank reuses its own KV (its other slot) in place of its left
+    neighbour's."""
+    work.wait()
+    if name == "kv":
+        slots[slot].copy_(slots[1 - slot])
+    elif buf is not None:
+        slots[slot].copy_(buf)
+
+
+def _gather_over_every_process(shards, dim, dtype, device, group=None):
+    """Known-wrong: the FSDP all-gather over every process instead of the
+    rank's 'data' group (it joins the sp ranks' copies of one shard)."""
+    from opensora_torch.parallel import comm
+
+    return comm.process_gather_shards(shards, dim, dtype, device)
 
 
 VARIANTS = {
@@ -170,6 +198,8 @@ VARIANTS = {
     "unsummed": ("opensora_torch.parallel.sharding.process_all_reduce", _unsummed),
     "local_draws": ("opensora_torch.training.diffusion.global_draws", _local_draws),
     "undivided": ("opensora_torch.training.diffusion.process_mean", _undivided),
+    "kv_skipped": ("opensora_torch.parallel.comm.RingTransport._land", _own_kv),
+    "world_gather": ("opensora_torch.parallel.sharding.process_gather_shards", _gather_over_every_process),
 }
 
 
@@ -186,33 +216,43 @@ def _gathered(state) -> dict:
 
 
 def sharded_steps(params, batch, geom, opt, sizes, draws=None, seed=None, variant="right", n_steps=2,
-                  prob=0.5, ckpt_dir=None) -> dict:
+                  prob=0.5, ckpt_dir=None, backend="xla") -> dict:
     """``n_steps`` steps of the full-finetune train step over a (dp, sp, tp)
-    mesh whose 'data' axis crosses the processes, from the JAX package's
-    params, each process given its rows of ``batch``: with ``draws`` (a
-    list per step, the global batch's) or drawn from a generator seeded
-    ``seed``, under the named known-wrong ``variant``. Returns the metrics
-    per step, and on process 0 the gathered state; ``ckpt_dir``: the state
-    is also saved there by ``CheckpointIO`` (every process calls it)."""
+    mesh whose 'data' (and 'sp') axes cross the processes, each holding an
+    equal run of the ranks, from the JAX package's params, each process
+    given its data block's rows of ``batch``: with ``draws`` (a list per
+    step, the global batch's) or drawn from a generator seeded ``seed``,
+    under the named known-wrong ``variant``, the model's attention
+    ``backend``. Returns the metrics per step, and on process 0 the
+    gathered state; ``ckpt_dir``: the state is also saved there by
+    ``CheckpointIO`` (every process calls it). A variant that raises
+    returns its error."""
+    from opensora_torch.parallel import distributed
     from opensora_torch.parallel.context import set_mesh
     from opensora_torch.parallel.mesh import MeshConfig, create_mesh
     from opensora_torch.training import diffusion as tdiff
     from opensora_torch.utils.ckpt import CheckpointIO
 
     dp, sp, tp = sizes
-    mesh = create_mesh(MeshConfig(dp, sp, tp), [CPU] * (dp * sp * tp // 2))
+    mesh = create_mesh(MeshConfig(dp, sp, tp), [CPU] * (dp * sp * tp // distributed.process_count()))
     set_mesh(mesh)
-    tm, state = port_state(params, geom, opt)
+    tm, state = port_state(params, geom, opt, backend)
     state = tdiff.shard_state(mesh, state, tm, fsdp=True)
     step = tdiff.make_train_step(tm, ema_decay=0.9, text_dropout_prob=prob, use_masked_loss=True)
-    mine = local_rows(batch)
+    mine = block_rows(batch, mesh)
     gen = None if seed is None else torch.Generator().manual_seed(seed)
     patch = VARIANTS[variant]
     metrics = []
     with unittest.mock.patch(patch[0], patch[1]) if patch else contextlib.nullcontext():
-        for i in range(n_steps):
-            m = step(state, mine, generator=gen, draws=None if draws is None else draws[i])
-            metrics.append({k: float(v) for k, v in m.items()})
+        try:
+            for i in range(n_steps):
+                m = step(state, mine, generator=gen, draws=None if draws is None else draws[i])
+                metrics.append({k: float(v) for k, v in m.items()})
+        except RuntimeError as e:
+            if variant == "right":
+                raise
+            set_mesh(None)
+            return dict(error=str(e))
     leaves = sum(p.numel() for p in state.params.values())
     out = dict(metrics=metrics, state=_gathered(state), mesh=repr(mesh), local_leaf_numel=leaves,
                replica_ids=len(state.optimizer.replica_ids))
@@ -223,15 +263,16 @@ def sharded_steps(params, batch, geom, opt, sizes, draws=None, seed=None, varian
 
 
 def load_sharded(params, geom, opt, sizes, ckpt) -> dict:
-    """A 2-process sharded state (from ``params``) loaded from an unsharded
-    state's checkpoint, gathered on process 0."""
+    """A sharded state across the processes (from ``params``) loaded from
+    an unsharded state's checkpoint, gathered on process 0."""
+    from opensora_torch.parallel import distributed
     from opensora_torch.parallel.context import set_mesh
     from opensora_torch.parallel.mesh import MeshConfig, create_mesh
     from opensora_torch.training import diffusion as tdiff
     from opensora_torch.utils.ckpt import CheckpointIO
 
     dp, sp, tp = sizes
-    mesh = create_mesh(MeshConfig(dp, sp, tp), [CPU] * (dp * sp * tp // 2))
+    mesh = create_mesh(MeshConfig(dp, sp, tp), [CPU] * (dp * sp * tp // distributed.process_count()))
     set_mesh(mesh)
     tm, state = port_state(params, geom, opt)
     state = tdiff.shard_state(mesh, state, tm, fsdp=True)
@@ -398,12 +439,15 @@ def data_layer(n_rows: int, table: list, buckets: dict, seed: int) -> dict:
     return out
 
 
-def spanning_mesh(sizes) -> str:
-    """The error of a mesh whose non-'data' group crosses the processes."""
-    from opensora_torch.parallel.mesh import MeshConfig, create_mesh
+def spanning_mesh(sizes, pipeline: bool = False) -> str:
+    """The error of a mesh whose tp group (``sizes`` (data, sp, tp)), or
+    pipeline (``pipeline``: ``sizes`` (pp, data, tp)), crosses the
+    processes."""
+    from opensora_torch.parallel.mesh import MeshConfig, create_mesh, create_pp_mesh
 
+    n = sizes[0] * sizes[1] * sizes[2] // 2
     try:
-        create_mesh(MeshConfig(*sizes), [CPU] * (sizes[0] * sizes[1] * sizes[2] // 2))
+        create_pp_mesh(*sizes, [CPU] * n) if pipeline else create_mesh(MeshConfig(*sizes), [CPU] * n)
     except NotImplementedError as e:
         return str(e)
     return "no error"
@@ -435,3 +479,59 @@ def trainer_iteration(cfg_path: str, video: np.ndarray, texts: list, state_path:
     set_mesh(None)
     return dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), mask_conds=trainer.mask_conds,
                 mesh=repr(mesh), params=None if sd is None else sd["params"])
+
+
+# ----------------------------------------------------------------------
+# sp groups across processes
+# ----------------------------------------------------------------------
+
+
+def sampler_step(params, pool: dict, geom: dict, opt: dict, sizes, seed: int, wrong: bool = False,
+                 batch_size: int = 4) -> dict:
+    """One step over a (dp, sp, tp) mesh across the processes on the first
+    batch that ``prepare_dataloader``'s sampler gives this process from the
+    rows of ``pool``: the sampler's replicas those of the mesh's data blocks
+    (its defaults under the mesh), or, ``wrong``, one a process
+    (known-wrong: the sp ranks of one data coordinate read different
+    samples). Draws from a generator seeded ``seed``. Returns the indices
+    read, the metrics and the gathered masters (process 0)."""
+    from opensora_torch.datasets.dataloader import prepare_dataloader
+    from opensora_torch.parallel import distributed
+    from opensora_torch.parallel.context import set_mesh
+    from opensora_torch.parallel.mesh import MeshConfig, create_mesh
+    from opensora_torch.training import diffusion as tdiff
+
+    dp, sp, tp = sizes
+    mesh = create_mesh(MeshConfig(dp, sp, tp), [CPU] * (dp * sp * tp // distributed.process_count()))
+    set_mesh(mesh)
+    n = len(next(iter(pool.values())))
+
+    class Pool:
+        def __len__(self):
+            return n
+
+    kw = dict(num_replicas=distributed.process_count(), rank=distributed.process_index()) if wrong else {}
+    _, sampler = prepare_dataloader(Pool(), batch_size=batch_size, seed=seed, **kw)
+    index = list(sampler)[:batch_size]
+    tm, state = port_state(params, geom, opt)
+    state = tdiff.shard_state(mesh, state, tm, fsdp=True)
+    step = tdiff.make_train_step(tm, ema_decay=0.9, text_dropout_prob=0.5, use_masked_loss=True)
+    rows = {k: torch.from_numpy(np.ascontiguousarray(v[index])) for k, v in pool.items()}
+    m = step(state, rows, generator=torch.Generator().manual_seed(seed))
+    sd = state.state_dict()
+    set_mesh(None)
+    return dict(index=index, metrics=[{k: float(v) for k, v in m.items()}],
+                params=None if sd is None else sd["params"])
+
+
+def ring_traffic(params, batch, geom, opt, sizes, draws) -> dict:
+    """``ring_rdma`` steps (one per entry of ``draws``) over a mesh whose sp
+    group spans the processes (this process's ranks logical ranks on the
+    CPU): the metrics, the gathered state (process 0) and the ring's
+    cross-process sends (``comm.RING_REMOTE``)."""
+    from opensora_torch.parallel import comm
+
+    comm.RING_REMOTE.update(sends=0, bytes=0)
+    out = sharded_steps(params, batch, geom, opt, sizes, draws=draws, n_steps=len(draws), backend="ring_rdma")
+    out["ring_remote"] = dict(comm.RING_REMOTE)
+    return out
