@@ -279,12 +279,22 @@ the ring's cross-process sends exact by arithmetic, the distance to phase
 each process's peak; a ring forward reusing the receiving rank's own KV on
 the cross-process hop must move the output by more than phase 9's limit,
 and process 1 dropping the cross-process sum of the weight gradients must
-fail the limits. Then
+fail the limits. Phase 29 runs in the same two processes after phase 28:
+stage1.py at phase 21's cell on its encoded step inputs, over (1, 1, 2)
+with one tp rank a process (the row-parallel sums across the processes)
+and over the pipeline key's (pp 2, data 1), one stage a process (the
+boundaries' activations and gradients sent between them), one step each
+from phase 21's state held to phase 21's limits, exact launches, tp
+all-reduces and pipeline sends per process with their bytes, each
+process's step, gloo seconds, staged bytes and peak; the tp sum's backward
+left local, and the boundary's gradient not sent back, must fail the
+limits. Then
 ``python -m torch.distributed.run --nproc-per-node 2 -m
 opensora_torch.train`` trains stage1.py at full width and 1 + 0 blocks
 for 1 step of one seeded 33 x 256 x 256 clip a process: both exit 0, one
 log.txt writer, disjoint samples, and the checkpoint loads into a
-single-process Trainer equal to its file.
+single-process Trainer equal to its file; and again with --mesh.tp_size 2
+(phase 29(c): one clip both processes read, the mesh across them).
 LoRA over a sharded mesh and int8 under TP on the card: phase 25 (after
 phase 24) trains lora.py (r = 128) on phase 21's cell (stage1.py at full
 width and 2 + 4 blocks, 4 seeded 129 x 192 x 336 clips, lr and eps 1e-2)
@@ -314,7 +324,9 @@ unsharded step, exact launches, each rank's tokens and residual bytes,
 the peak; the last sp rank's image chunk left out of the gathered output
 must fail the limits. Phase 2 holds the D = 128 forward at the gathered sp
 group's (4, 24, 8828, 128) and the "ring" backend's hop (3, 24, 2207,
-128), phase 2b the backward at (4, 24, 8828, 128).
+128), phase 2b the backward at (4, 24, 8828, 128); both hold phase 29's
+tp rank (4, 12, 8828, 128) (its pipeline microbatch is phase 24's (2, 24,
+8828, 128)).
 Each phase's wall time is printed as "[time] <phase>: <s> s", and the sum
 as "[time] total: <s> s" before the card's line.
 Then it prints the card's name and power limit, one JSON line with the
@@ -623,6 +635,8 @@ ATTENTION_CASES = [
     ("mmdit_tp4_rank", (3, 6, 8828, 128), None, 1.0),  # phase 20: 256px_tp.py, one of 4 tp ranks' heads
     ("pp2_tp2_microbatch", (1, 12, 8828, 128), None, 1.0),  # phase 22 over (pp 2, tp 2): a 1-row microbatch's heads
     ("multi_process_rank", (2, 24, 8828, 128), None, 1.0),  # phase 24: one process's data rank, 2 rows
+    # (and phase 29(b)'s microbatch: one stage a process, 2 rows)
+    ("tp_process_rank", (4, 12, 8828, 128), None, 1.0),  # phase 29(a): one tp rank a process, B = 4
     # phase 27 over (1, 4, 1): the default attention on the sp group's gathered q, k, v (its (2, 2, 1) data
     # rank is the 2-row case above); phase 9's "ring" backend: one hop, a rank's queries on one KV shard
     ("sp4_gathered_data_rank", (4, 24, 8828, 128), None, 1.0),
@@ -890,7 +904,8 @@ BWD_CASES = [
     ("fsdp4_data_rank", (1, 24, 8828, 128), None),  # phase 21 over (4, 1, 1): one data rank's row
     ("dp2_tp2_rank", (2, 12, 8828, 128), None),  # phase 21 over (2, 1, 2): a rank's rows and heads
     ("pp2_tp2_microbatch", (1, 12, 8828, 128), None),  # phase 22 over (pp 2, tp 2): a 1-row microbatch's heads
-    ("multi_process_rank", (2, 24, 8828, 128), None),  # phase 24: one process's data rank, 2 rows
+    ("multi_process_rank", (2, 24, 8828, 128), None),  # phase 24's data rank; phase 29(b)'s microbatch
+    ("tp_process_rank", (4, 12, 8828, 128), None),  # phase 29(a): one tp rank a process, B = 4
     ("sp4_gathered_data_rank", (4, 24, 8828, 128), None),  # phase 27 over (1, 4, 1): the gathered sp group
     ("tail_bidirectional", (2, 3, 1000, 128), None),
     ("tail_frame_causal", (1, 2, 1000, 128), 96),
@@ -5596,10 +5611,10 @@ def _stage2_neighbour_microbatch(apply):
 
     calls = []
 
-    def wrong(stage_fn, stages, x_mb, mesh, axis="pp"):
+    def wrong(stage_fn, stages, x_mb, mesh, axis="pp", **kw):
         calls.append(1)
         if len(calls) > 1:
-            return apply(stage_fn, stages, x_mb, mesh, axis)
+            return apply(stage_fn, stages, x_mb, mesh, axis, **kw)
         out = []
         for d, row in enumerate(x_mb):
             sent = [pl.send_activation(stage_fn(stages[0], a, d, 0), pl.stage_devices(mesh, d, 1, axis)) for a in row]
@@ -5612,8 +5627,8 @@ def _stage2_neighbour_microbatch(apply):
 
 def _last_stage_skipped(apply):
     """Known-wrong: the last stage's blocks are not run."""
-    return lambda stage_fn, stages, x_mb, mesh, axis="pp": apply(stage_fn, list(stages[:-1]) + [[]], x_mb, mesh,
-                                                                  axis)
+    return lambda stage_fn, stages, x_mb, mesh, axis="pp", **kw: apply(stage_fn, list(stages[:-1]) + [[]], x_mb,
+                                                                        mesh, axis, **kw)
 
 
 class CopyTimer:
@@ -6199,7 +6214,8 @@ class StagingTimer:
 
         self.patches = [unittest.mock.patch.object(comm, "staged_copy", timed_copy)] + [
             unittest.mock.patch.object(comm.dist, name, timed(getattr(comm.dist, name)))
-            for name in ("all_reduce", "all_gather", "reduce_scatter", "gather", "batch_isend_irecv")] + [
+            for name in ("all_reduce", "all_gather", "reduce_scatter", "gather", "batch_isend_irecv", "broadcast",
+                         "recv")] + [
             unittest.mock.patch.object(comm.RingTransport, name, ring_timed(getattr(comm.RingTransport, name)))
             for name in ("_land", "release")]
         for p in self.patches:
@@ -6231,7 +6247,7 @@ def _masters_change(state, start: dict, ref_change: dict) -> dict:
     sums = []
     for name in names:
         pl = state.sharding.placements[name]
-        acc = torch.zeros(2, dtype=torch.float64, device=pl.leaves[0].device)
+        acc = torch.zeros(2, dtype=torch.float64, device=pl.leaves[0].device if len(pl.leaves) else "cpu")
         for n, leaf in enumerate(pl.leaves):
             if id(leaf) in state.optimizer.replica_ids:
                 continue
@@ -6321,6 +6337,8 @@ def multi_process_worker(root: str) -> int:
     t0 = time.perf_counter()
     rec["sp_processes"] = sp_processes_worker(device, data, snapshot)
     rec["sp_processes"]["phase_s"] = time.perf_counter() - t0
+    distributed.barrier()  # phase 28's trainers freed in both processes
+    rec["tp_pp_processes"] = tp_pp_processes_worker(device, data, snapshot)
     with open(os.path.join(root, f"result_{rank}.json"), "w") as f:
         json.dump(rec, f)
     distributed.shutdown()
@@ -6357,14 +6375,18 @@ def run_multi_process_path(device, carry: dict) -> dict:
         if torch.cuda.device_count() >= MP_WORLD:
             runs["nccl"] = alloc
         else:
-            log(f"[multi_process] nccl: not run ({torch.cuda.device_count()} CUDA device; phases 24 and 28)")
+            log(f"[multi_process] nccl: not run ({torch.cuda.device_count()} CUDA device; phases 24, 28 and 29)")
         res["part_a"] = {tag: _multi_process_part_a(root, tag, extra, ref, n_blocks) for tag, extra in runs.items()}
         res["sp_processes"] = {tag: check_sp_processes(tag, run, ref, carry["sp4_ref"])
                                for tag, run in res["part_a"].items()}
+        res["tp_pp_processes"] = {tag: check_tp_pp_processes(tag, run, ref) for tag, run in res["part_a"].items()}
         res["inputs_write_s"] = write_s
     finally:
         shutil.rmtree(root, ignore_errors=True)
     res["cli"] = _multi_process_part_b(device)
+    t0 = time.perf_counter()
+    res["cli_tp"] = _multi_process_part_b(device, TP_PROC_ARGS, "tp_processes_cli")
+    log(f"[time] phase 29 (c) the CLI with --mesh.tp_size 2: {time.perf_counter() - t0:.1f} s")
     return res
 
 
@@ -6419,6 +6441,224 @@ def check_sp_processes(tag: str, run: dict, ref: dict, sp4_ref: dict) -> dict:
     log(f"[time] phase 28 ({tag}, inside phase 24's processes): {max(r['phase_s'] for r in recs):.1f} s")
     return dict(processes=recs, tols=dict(loss=TP_TRAIN_LOSS_TOL, grad_norm=TP_TRAIN_NORM_TOL,
                                           update=TP_TRAIN_UPDATE_TOL))
+
+
+# Phase 29: tp groups and pipeline stages across processes, in phase 24's two
+# worker processes after phase 28 (its trainer freed): stage1.py at phase
+# 21's cell (full width, 2 + 4 blocks, phase 21's encoded step inputs and
+# generator state; the T5, CLIP and VAE dropped, as phase 28 drops them),
+# phase 21's saved state loaded. Part (a): Trainer(cfg, device,
+# mesh=train_mesh(...)) with --mesh.tp_size 2, (data 1, sp 1, tp 2), one tp
+# rank a process: each row-parallel product's fp32 partial summed across the
+# two processes (comm.tp_all_reduce, whose backward sums the gradient the
+# same way), the row bias added once. Part (b): the pipeline key (pp 2,
+# data 1, n_micro 2) through pipeline_mesh, one stage a process: each
+# boundary's activation sent to the other process, its gradient sent back
+# (comm.send_tree / receive_tree, one message each way), stage 0's process
+# running its backward from the anchors of its sends, the loss's value
+# broadcast to it from the last stage's. One step each, held to phase 21's limits
+# (TP_TRAIN_*) against phase 21's unsharded step: the loss and norm every
+# process reports, the masters' change summed over the processes' shards;
+# exact launches per process; the tp all-reduces (comm.TP_REMOTE) and the
+# pipeline's sends (comm.PP_REMOTE) per process, with their bytes, exact by
+# arithmetic. Known-wrong controls, each a step that must fail those limits:
+# (a) the tp sum's backward left local; (b) the last stage's received
+# activations sending back zero gradients. Part (c), after phase 24(b): the
+# training CLI under torchrun with --mesh.tp_size 2 at MP_CLI_DEPTH blocks
+# (phase 24(b)'s run, both processes reading the same clip), its checkpoint
+# loaded by one process.
+TP_PROC_ARGS = ["--mesh.tp_size", "2"]  # (data 1, sp 1, tp 2) over the two processes
+PP_PROC = dict(pp_size=2, data_size=1, n_micro=2)  # one stage a process
+
+
+def tp_proc_traffic(tb: dict, hidden: int, n_double: int, n_single: int) -> dict:
+    """Phase 29(a)'s tp all-reduces across processes per process and step,
+    by arithmetic: each row-parallel product's fp32 sum (B, its tokens,
+    hidden) -- a double block's img and txt proj and MLP out, a single
+    block's linear2 -- in the forward, its remat recompute and the
+    backward."""
+    b, n_img, n_txt = tb["x0"].shape[0], tb["x0"].shape[1], tb["txt"].shape[1]
+    tokens = n_double * 2 * (n_img + n_txt) + n_single * (n_img + n_txt)
+    return dict(all_reduces=3 * (4 * n_double + n_single), bytes=3 * tokens * b * hidden * 4)
+
+
+def pp_proc_traffic(tb: dict, model_cfg, n_micro: int, dtype) -> list:
+    """Phase 29(b)'s pipeline messages per process and step, by arithmetic
+    (stage 0's process, then the last stage's), each boundary's tensors
+    packed in one message and their gradients in one back: per microbatch
+    of mb rows, stage 0 sends the double stack's (img, txt, vec, pe) and the
+    single stack's (x, vec, pe) forward and the gradients of the double
+    stack's output (img, txt, vec) back; the last stage sends the double
+    stack's output (img, txt, vec, pe) to stage 0 and the gradients of its
+    two inputs ((img, txt, vec), (x, vec)). The activations and their
+    gradients in the compute ``dtype``; pe is RoPE's cos and sin, each (mb,
+    L, head_dim / 2) fp32."""
+    b, n_img, n_txt = tb["x0"].shape[0], tb["x0"].shape[1], tb["txt"].shape[1]
+    mb, h, e = b // n_micro, model_cfg.hidden_size, torch.finfo(dtype).bits // 8
+    img, txt, vec, x = (mb * n * h * e for n in (n_img, n_txt, 1, n_img + n_txt))
+    pe = 2 * mb * (n_img + n_txt) * sum(model_cfg.axes_dim) // 2 * 4
+    first = dict(sends=3, bytes=(img + txt + vec + pe) + (x + vec + pe) + (img + txt + vec))
+    last = dict(sends=3, bytes=(img + txt + vec + pe) + (img + txt + vec) + (x + vec))
+    return [{k: n_micro * v for k, v in d.items()} for d in (first, last)]
+
+
+def _tp_sum_local(ctx, grad):
+    """Known-wrong: the backward of the tp group's cross-process sum left
+    local (each process keeps its own share of the gradient)."""
+    return grad, None
+
+
+def _gradient_not_sent(ctx, *grads):
+    """Known-wrong: a received activation sends back a zero gradient, so
+    the stages before it get none."""
+    from opensora_torch.parallel import comm
+
+    return comm._Received.send_back(ctx, [torch.zeros_like(g) for g in grads])
+
+
+def tp_pp_processes_worker(device, data: dict, snapshot: dict) -> dict:
+    """Phase 29's parts (a) and (b) in one process (see its comment)."""
+    from opensora_torch.ops import _build
+    from opensora_torch.parallel import comm, distributed
+    from opensora_torch.parallel.context import set_mesh
+    from opensora_torch.train import Trainer, pipeline_mesh, train_mesh
+    from opensora_torch.utils.config import Config, parse_configs
+
+    rank = distributed.process_index()
+    t0 = time.perf_counter()
+    tb = _tree_to(data["step_inputs"]["tb"], device)
+    n_blocks = data["n_blocks"]
+    out = dict(runs={})
+
+    def build(cfg, mesh):
+        t1 = time.perf_counter()
+        trainer = Trainer(cfg, device, mesh=mesh)
+        trainer.t5 = trainer.clip = trainer.ae = None
+        free()
+        trainer.state.load_state_dict(snapshot)
+        torch.cuda.synchronize()
+        return trainer, time.perf_counter() - t1
+
+    def step(trainer, patch=None) -> dict:
+        """One step from phase 21's state and generator state."""
+        trainer.state.load_state_dict(snapshot)
+        gen = torch.Generator(device=device)
+        gen.set_state(data["step_inputs"]["gen_state"])
+        _build.LAUNCHES.clear()
+        comm.TP_REMOTE.update(all_reduces=0, bytes=0)
+        comm.PP_REMOTE.update(sends=0, bytes=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        with StagingTimer() as staging, patch or contextlib.nullcontext():
+            t1 = time.perf_counter()
+            m = trainer.train_step(trainer.state, tb, gen)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t1
+        rec = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), launches=dict(_build.LAUNCHES),
+                   tp_remote=dict(comm.TP_REMOTE), pp_remote=dict(comm.PP_REMOTE), staging=staging.read(),
+                   step_s=step_s, peak_mem_gb=torch.cuda.max_memory_allocated(device) / 1e9)
+        rec.update(_masters_change(trainer.state, snapshot["params"], data["ref_change"]))
+        return rec
+
+    # (a) the tp group across the processes
+    cfg = parse_configs(fsdp_cfg_args() + TP_PROC_ARGS)
+    mesh = train_mesh(cfg, device)
+    trainer, build_s = build(cfg, mesh)
+    model_cfg, dtype = trainer.model.config, trainer.model.dtype
+    rec = step(trainer)
+    rec.update(mesh=repr(mesh), build_and_load_s=build_s,
+               expected={"flash_attention_fwd_sm90": 2 * n_blocks, "flash_attention_bwd_fused": n_blocks,
+                         "flash_attention_bwd_dq_convert": n_blocks},
+               expected_tp_remote=tp_proc_traffic(tb, model_cfg.hidden_size, model_cfg.depth,
+                                                  model_cfg.depth_single_blocks))
+    out["runs"]["tp"] = rec
+    out["control_tp_sum_local"] = step(trainer, unittest.mock.patch.object(comm._TpSum, "backward", _tp_sum_local))
+    set_mesh(None)
+    del trainer
+    free()
+    distributed.barrier()
+
+    # (b) one pipeline stage a process
+    cfg = Config(parse_configs(fsdp_cfg_args()), pipeline=dict(PP_PROC))
+    mesh = pipeline_mesh(cfg, device)
+    trainer, build_s = build(cfg, mesh)
+    per = (model_cfg.depth + model_cfg.depth_single_blocks) // PP_PROC["pp_size"]  # blocks of a stage
+    rec = step(trainer)
+    rec.update(mesh=repr(mesh), stages=mesh.local_mid, build_and_load_s=build_s,
+               expected={"flash_attention_fwd_sm90": 2 * per * PP_PROC["n_micro"],
+                         "flash_attention_bwd_fused": per * PP_PROC["n_micro"],
+                         "flash_attention_bwd_dq_convert": per * PP_PROC["n_micro"]},
+               expected_pp_remote=pp_proc_traffic(tb, model_cfg, PP_PROC["n_micro"], dtype)[rank])
+    out["runs"]["pp"] = rec
+    out["control_gradient_not_sent"] = step(trainer, unittest.mock.patch.object(comm._Received, "backward",
+                                                                                 _gradient_not_sent))
+    set_mesh(None)
+    del trainer, tb
+    free()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def check_tp_pp_processes(tag: str, run: dict, ref: dict) -> dict:
+    """Phase 29's readings from one part (a) run's processes, held to the
+    phase's limits (see its comment)."""
+    recs = [r["tp_pp_processes"] for r in run["processes"]]
+
+    def vs(r):
+        return dict(loss_rel=abs(r["loss"] - ref["loss"]) / abs(ref["loss"]),
+                    grad_norm_rel=abs(r["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"],
+                    update_rel_l2_max=r["update_rel_l2_max"])
+
+    def held(c):
+        return (c["loss_rel"] <= TP_TRAIN_LOSS_TOL and c["grad_norm_rel"] <= TP_TRAIN_NORM_TOL
+                and c["update_rel_l2_max"] <= TP_TRAIN_UPDATE_TOL)
+
+    controls = ("control_tp_sum_local", "control_gradient_not_sent")
+    for p, rec in enumerate(recs):
+        for name, r in list(rec["runs"].items()) + [(c, rec[c]) for c in controls]:
+            r["vs_unsharded"] = vs(r)
+        log(f"[tp_pp_processes] {tag} process {p}: " + json.dumps(rec))
+        for name, r in rec["runs"].items():
+            gloo_s = r["staging"]["collectives_host_s"]
+            log(f"[tp_pp_processes] {tag} process {p} {name} ({r['mesh']}): step {r['step_s']:.2f} s, gloo calls "
+                f"{gloo_s:.2f} s, staged {r['staging']['bytes'] / 1e9:.2f} GB in {r['staging']['copies']} copies, tp "
+                f"all-reduces {r['tp_remote']}, pipeline sends {r['pp_remote']}, peak {r['peak_mem_gb']:.2f} GB; vs "
+                f"phase 21 {r['vs_unsharded']}")
+            if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) and held(r["vs_unsharded"])):
+                raise AssertionError(f"tp_pp_processes {tag} process {p} {name} vs phase 21's step: "
+                                     f"{r['vs_unsharded']}")
+            if r["launches"] != r["expected"]:
+                raise AssertionError(f"tp_pp_processes {tag} process {p} {name}: launches {r['launches']} != "
+                                     f"expected {r['expected']}")
+            check_peak(f"tp_pp_processes {tag} process {p} {name}", r["peak_mem_gb"])
+        tp, pp = rec["runs"]["tp"], rec["runs"]["pp"]
+        if tp["tp_remote"] != tp["expected_tp_remote"] or tp["pp_remote"]["sends"]:
+            raise AssertionError(f"tp_pp_processes {tag} process {p}: the tp all-reduces across processes "
+                                 f"{tp['tp_remote']} != {tp['expected_tp_remote']}, or pipeline sends {tp['pp_remote']}")
+        if pp["pp_remote"] != pp["expected_pp_remote"] or pp["tp_remote"]["all_reduces"]:
+            raise AssertionError(f"tp_pp_processes {tag} process {p}: the pipeline's sends {pp['pp_remote']} != "
+                                 f"{pp['expected_pp_remote']}, or tp all-reduces {pp['tp_remote']}")
+        log(f"[tp_pp_processes] {tag} process {p} controls: the tp sum's backward left local "
+            f"{rec['control_tp_sum_local']['vs_unsharded']}; the stage's gradient not sent back "
+            f"{rec['control_gradient_not_sent']['vs_unsharded']}")
+        for c in controls:
+            if held(rec[c]["vs_unsharded"]):
+                raise AssertionError(f"tp_pp_processes {tag}: the control {c} passed phase 21's limits: "
+                                     f"{rec[c]['vs_unsharded']}")
+    for name in recs[0]["runs"]:
+        if sum(r["runs"][name]["peak_mem_gb"] for r in recs) >= PEAK_LIMIT_GB:
+            raise AssertionError(f"tp_pp_processes {tag} {name}: the processes' peaks add up to "
+                                 f"{sum(r['runs'][name]['peak_mem_gb'] for r in recs):.2f} GB")
+    log(f"[time] phase 29 (a, b; {tag}, inside phase 24's processes): {max(r['seconds'] for r in recs):.1f} s")
+    return dict(processes=recs, tols=dict(loss=TP_TRAIN_LOSS_TOL, grad_norm=TP_TRAIN_NORM_TOL,
+                                          update=TP_TRAIN_UPDATE_TOL))
+
+
+def tp_pp_launches(res: dict, kernel: str) -> dict:
+    """Phase 29's launches of ``kernel``, per part (a) run, step and
+    process."""
+    return {tag: {name: [p["runs"][name]["launches"].get(kernel, 0) for p in run["processes"]]
+                  for name in ("tp", "pp")} for tag, run in res["tp_pp_processes"].items()}
 
 
 def _multi_process_part_a(root: str, tag: str, extra_env: dict, ref: dict, n_blocks: int) -> dict:
@@ -6485,8 +6725,11 @@ def _multi_process_part_a(root: str, tag: str, extra_env: dict, ref: dict, n_blo
     return out
 
 
-def _multi_process_part_b(device) -> dict:
-    """Part (b): the training CLI under torchrun (see the phase's comment)."""
+def _multi_process_part_b(device, extra=(), tag: str = "multi_process_cli") -> dict:
+    """Part (b): the training CLI under torchrun (see the phase's comment),
+    the processes along 'data' (each reads its own clips); with ``extra``
+    (phase 29(c)'s --mesh.tp_size 2) over a mesh of one data coordinate,
+    whose processes read the same clips."""
     import re
 
     from opensora_torch.train import Trainer
@@ -6496,7 +6739,8 @@ def _multi_process_part_b(device) -> dict:
     depth, single = MP_CLI_DEPTH
     root = tempfile.mkdtemp(prefix="chip_smoke_cli_mp_")
     try:
-        csv = write_clip_csv(os.path.join(root, "clips"), n=MP_WORLD * MP_CLI_STEPS, frames=MP_CLI_FRAMES,
+        blocks = 1 if extra else MP_WORLD  # the mesh's data blocks: each reads MP_CLI_STEPS clips
+        csv = write_clip_csv(os.path.join(root, "clips"), n=blocks * MP_CLI_STEPS, frames=MP_CLI_FRAMES,
                              size=MP_CLI_SIZE)
         cfg_file = os.path.join(root, "stage1_mp.py")
         with open(cfg_file, "w") as f:
@@ -6505,17 +6749,17 @@ def _multi_process_part_b(device) -> dict:
         out = os.path.join(root, "out")
         cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(MP_WORLD), "--master-addr",
                "localhost", "--master-port", str(free_port()), "-m", "opensora_torch.train", cfg_file,
-               "--multi_host", "True", "--outputs", out, "--exp_name", "mh", "--dataset.data_path", csv]
-        log(f"[multi_process_cli] {' '.join(cmd[2:])}")
+               "--multi_host", "True", "--outputs", out, "--exp_name", "mh", "--dataset.data_path", csv, *extra]
+        log(f"[{tag}] {' '.join(cmd[2:])}")
         t0 = time.perf_counter()
         with open(os.path.join(root, "torchrun.log"), "w") as f:
             proc = subprocess.Popen(cmd, cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), stdout=f,
                                     stderr=subprocess.STDOUT, start_new_session=True)
             try:
-                wait_all([proc], MP_TIMEOUT, "multi_process_cli")
+                wait_all([proc], MP_TIMEOUT, tag)
             except AssertionError:
                 with open(os.path.join(root, "torchrun.log")) as g:
-                    log(f"[multi_process_cli] torchrun's output (end):\n{g.read()[-8000:]}")
+                    log(f"[{tag}] torchrun's output (end):\n{g.read()[-8000:]}")
                 raise
         wall_s = time.perf_counter() - t0
         exp = os.path.join(out, "mh")
@@ -6525,6 +6769,7 @@ def _multi_process_part_b(device) -> dict:
         read = [json.loads(v) for v in re.findall(r"samples by process (\[.*\])", text)]
         steps = [float(v) for v in re.findall(r"'time/step': (\d+\.\d+)", text)]
         procs = re.findall(r"multi_host: (\d+) processes, backend (\w+), devices (\[.*\])", text)
+        meshes = re.findall(r"MMDiT sharded over (Mesh\(.*\))", text)
         ckpt = os.path.join(exp, f"epoch0-global_step{MP_CLI_STEPS}")
         t1 = time.perf_counter()
         saved = torch.load(os.path.join(ckpt, "state.pt"), map_location="cpu", weights_only=False)
@@ -6544,21 +6789,25 @@ def _multi_process_part_b(device) -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     res = dict(depth=[depth, single], wall_s=wall_s, losses=losses, step_s=steps, samples_by_process=read,
-               log_writers=text.count("experiment dir"), processes=procs, checkpoint_gb=ckpt_gb,
+               log_writers=text.count("experiment dir"), processes=procs, meshes=meshes, checkpoint_gb=ckpt_gb,
                checkpoint_equal=equal, load_and_compare_s=load_s)
-    log("[multi_process_cli] " + json.dumps(res))
+    log(f"[{tag}] " + json.dumps(res))
     if len(procs) != 1 or int(procs[0][0]) != MP_WORLD:
-        raise AssertionError(f"multi_process_cli: the run's processes were not logged once: {procs}")
-    log(f"[multi_process_cli] backend {procs[0][1]}, the processes' devices {procs[0][2]}")
+        raise AssertionError(f"{tag}: the run's processes were not logged once: {procs}")
+    log(f"[{tag}] backend {procs[0][1]}, the processes' devices {procs[0][2]}, mesh {meshes}")
     if not (len(losses) == MP_CLI_STEPS and all(math.isfinite(v) for v in losses)):
-        raise AssertionError(f"multi_process_cli: losses {losses}")
+        raise AssertionError(f"{tag}: losses {losses}")
     if res["log_writers"] != 1:
-        raise AssertionError(f"multi_process_cli: {res['log_writers']} log.txt writers")
-    if not (len(read) == MP_CLI_STEPS and all(not set(r[0]) & set(r[1]) for r in read)
-            and len({i for r in read for p in r for i in p}) == MP_WORLD * MP_CLI_STEPS):
-        raise AssertionError(f"multi_process_cli: the processes' samples {read} are not disjoint")
+        raise AssertionError(f"{tag}: {res['log_writers']} log.txt writers")
+    if extra:  # one data coordinate: both processes read the same clips, and the mesh spans them
+        if not (len(read) == MP_CLI_STEPS and all(r[0] == r[1] for r in read)
+                and len(meshes) == 1 and "'tp': 2" in meshes[0] and "in 2 processes" in meshes[0]):
+            raise AssertionError(f"{tag}: the processes' samples {read} differ, or the mesh {meshes}")
+    elif not (len(read) == MP_CLI_STEPS and all(not set(r[0]) & set(r[1]) for r in read)
+              and len({i for r in read for p in r for i in p}) == MP_WORLD * MP_CLI_STEPS):
+        raise AssertionError(f"{tag}: the processes' samples {read} are not disjoint")
     if not equal:
-        raise AssertionError("multi_process_cli: the checkpoint loaded into one process differs from the file")
+        raise AssertionError(f"{tag}: the checkpoint loaded into one process differs from the file")
     return res
 
 
@@ -6882,7 +7131,7 @@ def main(argv) -> int:
     fsdp_res = timed("phase 21 FSDP training", run_fsdp_train_path, device, "--profile" in argv, out_dir, carry)
     pp_res = timed("phase 22 GPipe training", run_pp_train_path, device, carry)
     sp_train_res = timed("phase 27 stage2 over sp", run_sp_train_path, device, carry)
-    mp_res = timed("phase 24 processes (and phase 28 in them)", run_multi_process_path, device, carry)
+    mp_res = timed("phase 24 processes (and phases 28 and 29 in them)", run_multi_process_path, device, carry)
     del carry
     with tempfile.TemporaryDirectory() as tmp:
         lora_res = timed("phase 25 LoRA over a sharded mesh", run_lora_sharded_path, device, tmp)
@@ -6954,6 +7203,7 @@ def main(argv) -> int:
         launches_lora_sharded=lora_sharded_launches(lora_res, "flash_attention_fwd_sm90"),
         launches_sp_train=sp_train_launches(sp_train_res, "flash_attention_fwd_sm90"),
         launches_sp_processes=sp_proc_launches(mp_res, "flash_attention_fwd_sm90"),
+        launches_tp_pp_processes=tp_pp_launches(mp_res, "flash_attention_fwd_sm90"),
         launches_ring_sp_step=ring_res["sp_ring"]["launches"].get("flash_attention_fwd_sm90", 0),
         max_abs_err=max([c["max_abs_err"] for c in sm90_cases] + [res_768["attention"]["max_abs_err"]]),
         ms=head["ms"], ms_is="flash_attention_with_lse (the bound A on the device, then the kernel), the mean of "
@@ -7008,6 +7258,7 @@ def main(argv) -> int:
         launches_lora_sharded=lora_sharded_launches(lora_res, "flash_attention_bwd_fused"),
         launches_sp_train=sp_train_launches(sp_train_res, "flash_attention_bwd_fused"),
         launches_sp_processes=sp_proc_launches(mp_res, "flash_attention_bwd_fused"),
+        launches_tp_pp_processes=tp_pp_launches(mp_res, "flash_attention_bwd_fused"),
         max_abs_err=max(c["max_abs_err"][g] for c in attn_bwd["cases"] for g in ("dq", "dk", "dv")),
         max_abs_err_is="dq (after the epilogue), dk and dv against the plain backward",
         ms=bwd_head["ms"]["flash_attention_bwd_fused"],
@@ -7035,6 +7286,7 @@ def main(argv) -> int:
         launches_lora_sharded=lora_sharded_launches(lora_res, "flash_attention_bwd_dq_convert"),
         launches_sp_train=sp_train_launches(sp_train_res, "flash_attention_bwd_dq_convert"),
         launches_sp_processes=sp_proc_launches(mp_res, "flash_attention_bwd_dq_convert"),
+        launches_tp_pp_processes=tp_pp_launches(mp_res, "flash_attention_bwd_dq_convert"),
         max_abs_err=max(c["dq_convert_max_abs_err"] for c in attn_bwd["cases"]),
         max_abs_err_is="against its plain version on the same dq_accum",
         ms=bwd_head["ms"]["flash_attention_bwd_dq_convert"], plain_ms=bwd_head["dq_convert_plain_ms"],

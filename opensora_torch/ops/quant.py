@@ -140,10 +140,11 @@ class QuantLinear(nn.Module):
         over the ranks of ``g`` (``parallel/sharding.RankGroup``), rank t's
         input slice ``xs[t]``: in the dynamic modes each row quantized
         against the whole row's scale, the max over the ranks of their
-        slices' scales."""
-        s_a = [None] * g.tp
+        slices' scales (across the tp group's processes too, where it spans
+        several)."""
+        s_a = [None] * len(xs)
         if self.mode in W8A8_MODES:
-            s_a = comm.all_reduce_max(g.each(lambda t: act_scale(xs[t].reshape(-1, xs[t].shape[-1]))))
+            s_a = comm.all_reduce_max(g.each(lambda t: act_scale(xs[t].reshape(-1, xs[t].shape[-1]))), g.tp_comm)
         return g.each(lambda t: self(xs[t], s_a=s_a[t], out_dtype=torch.float32))
 
 

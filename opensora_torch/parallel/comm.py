@@ -37,7 +37,7 @@ With ``sequential=True`` (always for CPU tensors) the same slot logic runs
 in program order on the caller's stream: no streams, no events.
 
 Across processes (a multi-process run, ``parallel/distributed.py``, whose
-mesh's 'data' and 'sp' axes may cross them) the collectives are
+mesh's axes may each cross them) the collectives are
 ``torch.distributed``'s over a group of processes (``distributed.Group``,
 default every process), each under a profiler span ``"dist_collective"``:
 :func:`process_all_reduce` (sum), :func:`process_all_gather` (joined along
@@ -53,7 +53,17 @@ group is described by a :class:`ShardGroup`: its size, this process's run
 of its ranks, and the group of its processes. :class:`RingTransport` sends
 a slot whose right neighbour lies in another process with ``isend`` and
 receives its own other slot with ``irecv`` (``RING_REMOTE`` counts those
-sends and their bytes). Under ``nccl`` they run on the tensors where they
+sends and their bytes). A tp group across processes sums its row-parallel
+partials with :func:`all_reduce` / :func:`all_reduce_max` given the group
+(:func:`tp_all_reduce`, whose backward sums the gradient over the group
+too; ``TP_REMOTE`` counts them and their bytes). Pipeline stages in other
+processes exchange activations with :func:`send_tree` /
+:func:`receive_tree`: a boundary's tensors, of shapes both sides know,
+packed in one tagged message (:func:`process_isend` /
+:func:`process_recv`); the receiver's backward sends their gradients back
+in one message, and the sender's anchors, roots of its backward
+(:func:`take_anchors`), receive them; ``PP_REMOTE`` counts the messages and
+their bytes; :func:`wait_sends` waits for the posted sends. Under ``nccl`` they run on the tensors where they
 lie. Under ``gloo`` a CUDA tensor is staged: copied to host memory
 (:func:`staged_copy`), the gloo op, copied back; ``STAGED`` counts those
 copies and their bytes (gloo is not asked to read device memory).
@@ -62,11 +72,13 @@ copies and their bytes (gloo is not asked to read device memory).
 from __future__ import annotations
 
 import contextlib
+import math
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from opensora_torch.parallel import distributed
 
@@ -163,31 +175,51 @@ def _per_device(parts: Sequence[torch.Tensor], fn) -> List[torch.Tensor]:
     return out
 
 
-def all_reduce(parts: Sequence[torch.Tensor], dtype=None, bias=None) -> List[torch.Tensor]:
+def all_reduce(parts: Sequence[torch.Tensor], dtype=None, bias=None,
+               group: Optional[distributed.Group] = None) -> List[torch.Tensor]:
     """The sum of the ranks' tensors, on every rank's device. The sum is
     taken in fp32 and rounded once to ``dtype`` (default: the parts'), so
     that tp partial products summed in bf16 do not drift from the
     unsharded product; ``bias`` (per rank, replicated), where given, is
     added once to the fp32 sum before that rounding (a row-parallel
     product's bias). Differentiable: each part receives the gradient of the
-    sum."""
+    sum. Where the group's ranks lie in several processes (``group``, the
+    processes of a tp group), ``parts`` are this process's ranks': their
+    fp32 sum is summed over the processes (:func:`tp_all_reduce`), then the
+    bias is added, once, and the total rounded."""
     dtype = dtype or parts[0].dtype
+    devices = [p.device for p in parts]
+    if group is not None and group.size > 1:
+        across = tp_all_reduce(sum(p.to(devices[0]).float() for p in parts), group)
+
+        def summed(device):
+            return across.to(device)
+    else:
+        def summed(device):
+            return sum(p.to(device).float() for p in parts)
 
     def total(device):
-        s = sum(p.to(device).float() for p in parts)
+        s = summed(device)
         if bias is not None:
-            s = s + bias[[p.device for p in parts].index(device)].float()
+            s = s + bias[devices.index(device)].float()
         return s.to(dtype)
 
     with torch.profiler.record_function("all_reduce"):  # a profile's span of the collective
         return _per_device(parts, total)
 
 
-def all_reduce_max(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+def all_reduce_max(parts: Sequence[torch.Tensor], group: Optional[distributed.Group] = None) -> List[torch.Tensor]:
     """The elementwise max of the ranks' tensors, on every rank's device
     (the per-token activation scale of an int8 row-parallel product, whose
-    row the ranks hold in slices)."""
-    return _per_device(parts, lambda device: torch.stack([p.to(device) for p in parts]).amax(0))
+    row the ranks hold in slices); over ``group`` (a tp group's processes)
+    the max of this process's ranks', then over the processes."""
+    if group is None or group.size == 1:
+        return _per_device(parts, lambda device: torch.stack([p.to(device) for p in parts]).amax(0))
+    home = parts[0].device
+    local = torch.stack([p.to(home) for p in parts]).amax(0)
+    _count_tp(local)
+    total = process_all_reduce(local, group, dist.ReduceOp.MAX)
+    return _per_device(parts, lambda device: total.to(device))
 
 
 def all_gather(parts: Sequence[torch.Tensor], dim: int) -> List[torch.Tensor]:
@@ -250,28 +282,84 @@ def _receive_buffer(like: torch.Tensor) -> torch.Tensor:
     return torch.empty(like.shape, dtype=like.dtype, device=like.device, pin_memory=like.is_pinned())
 
 
-def _received(buf: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """A transport buffer on ``like``'s device."""
-    if buf.device == like.device:
+def _landed(buf: torch.Tensor, device) -> torch.Tensor:
+    """A transport buffer on ``device``."""
+    device = torch.device(device)
+    if buf.device == device:
         return buf
-    return staged_copy(buf, like.device) if buf.device.type == "cpu" and like.device.type == "cuda" else \
-        copy_to(buf, like.device)
+    return staged_copy(buf, device) if buf.device.type == "cpu" and device.type == "cuda" else \
+        copy_to(buf, device)
+
+
+def _transport_buffer(shape, dtype, device) -> torch.Tensor:
+    """An empty buffer the backend receives into, for a tensor bound for
+    ``device`` (page-locked host memory for a CUDA tensor under gloo)."""
+    dev = _transport_device()
+    pin = dev.type == "cpu" and torch.device(device).type == "cuda"
+    return torch.empty(tuple(shape), dtype=dtype, device=dev, pin_memory=pin)
 
 
 def _group(group: Optional[distributed.Group]) -> distributed.Group:
     return distributed.world() if group is None else group
 
 
-def process_all_reduce(x: torch.Tensor, group: Optional[distributed.Group] = None) -> torch.Tensor:
-    """The sum over the processes of ``group`` (default: every process) of
-    their ``x`` (same shape and dtype), a new tensor on ``x``'s device."""
+def process_all_reduce(x: torch.Tensor, group: Optional[distributed.Group] = None,
+                       op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """The sum (or ``op``) over the processes of ``group`` (default: every
+    process) of their ``x`` (same shape and dtype), a new tensor on ``x``'s
+    device."""
     group = _group(group)
     if group.size == 1:
         return x.clone()
     with torch.profiler.record_function(DIST_SPAN):
         buf = _send_buffer(x)
-        dist.all_reduce(buf, group=group.handle)
-        return _received(buf, x)
+        dist.all_reduce(buf, op=op, group=group.handle)
+        return _landed(buf, x.device)
+
+
+def process_broadcast(x: torch.Tensor, src: int, group: Optional[distributed.Group] = None) -> torch.Tensor:
+    """Process ``src``'s ``x`` (same shape and dtype on every process of
+    ``group``, default every process), a new tensor on ``x``'s device (on
+    ``src``, ``x`` itself)."""
+    group = _group(group)
+    if group.size == 1:
+        return x
+    with torch.profiler.record_function(DIST_SPAN):
+        buf = _send_buffer(x)
+        dist.broadcast(buf, src, group=group.handle)
+        return x if distributed.process_index() == src else _landed(buf, x.device)
+
+
+_PENDING: List[tuple] = []  # (work, buffer) of the sends not yet waited for
+
+
+def process_isend(x: torch.Tensor, dst: int, tag: int = 0, counter: Optional[dict] = None) -> None:
+    """``x`` to process ``dst`` without waiting (a copy kept until
+    :func:`wait_sends`), which takes it with :func:`process_recv` under the
+    same ``tag`` (messages of one tag between two processes arrive in
+    order); ``counter`` (a dict of sends and bytes) counts it."""
+    if counter is not None:
+        counter["sends"] += 1
+        counter["bytes"] += x.numel() * x.element_size()
+    with torch.profiler.record_function(DIST_SPAN):
+        buf = _send_buffer(x.contiguous())
+        _PENDING.append((dist.isend(buf, dst, tag=tag), buf))
+
+
+def process_recv(shape, dtype, device, src: int, tag: int = 0) -> torch.Tensor:
+    """The tensor (of ``shape`` and ``dtype``) process ``src`` sends with
+    :func:`process_isend` under ``tag``, waited for, on ``device``."""
+    with torch.profiler.record_function(DIST_SPAN):
+        buf = _transport_buffer(shape, dtype, device)
+        dist.recv(buf, src, tag=tag)
+        return _landed(buf, device)
+
+
+def wait_sends() -> None:
+    """Wait until every send posted so far has left (the buffers freed)."""
+    while _PENDING:
+        work, _ = _PENDING.pop(0)
+        work.wait()
 
 
 def process_all_gather(x: torch.Tensor, dim: int = 0, group: Optional[distributed.Group] = None) -> torch.Tensor:
@@ -285,7 +373,7 @@ def process_all_gather(x: torch.Tensor, dim: int = 0, group: Optional[distribute
         buf = _send_buffer(x)
         parts = [_receive_buffer(buf) for _ in range(group.size)]
         dist.all_gather(parts, buf, group=group.handle)
-        return torch.cat([_received(p, x) for p in parts], dim)
+        return torch.cat([_landed(p, x.device) for p in parts], dim)
 
 
 def process_reduce_scatter(x: torch.Tensor, dim: int, group: Optional[distributed.Group] = None) -> torch.Tensor:
@@ -303,7 +391,7 @@ def process_reduce_scatter(x: torch.Tensor, dim: int, group: Optional[distribute
         pieces = [_send_buffer(c) for c in x.chunk(n, dim)]
         out = _receive_buffer(pieces[0])
         dist.reduce_scatter(out, pieces, group=group.handle)
-        return _received(out, x)
+        return _landed(out, x.device)
 
 
 def process_gather(x: torch.Tensor, dst: int = 0) -> Optional[List[torch.Tensor]]:
@@ -314,7 +402,7 @@ def process_gather(x: torch.Tensor, dst: int = 0) -> Optional[List[torch.Tensor]
         parts = [_receive_buffer(buf) for _ in range(distributed.process_count())] \
             if distributed.process_index() == dst else None
         dist.gather(buf, parts, dst=dst)
-        return None if parts is None else [_received(p, x) for p in parts]
+        return None if parts is None else [_landed(p, x.device) for p in parts]
 
 
 class _GatherShards(torch.autograd.Function):
@@ -343,6 +431,50 @@ def process_gather_shards(shards: Sequence[torch.Tensor], dim: int, dtype, devic
     (default: every process; see :class:`_GatherShards`): ``shards`` are
     this process's, in 'data' order."""
     return _GatherShards.apply(dim, dtype, torch.device(device), group, *shards)
+
+
+# ---------------------------------------------------------------------------
+# a tp group across processes
+# ---------------------------------------------------------------------------
+
+# the tp group's all-reduces across processes since the last reset (the
+# row-parallel sums, forward and backward, and int8's row max): how many,
+# and their bytes
+TP_REMOTE = {"all_reduces": 0, "bytes": 0}
+
+
+def _count_tp(x: torch.Tensor) -> None:
+    TP_REMOTE["all_reduces"] += 1
+    TP_REMOTE["bytes"] += x.numel() * x.element_size()
+
+
+class _TpSum(torch.autograd.Function):
+    """Forward: the sum over a tp group's processes; backward: the same sum
+    of the gradient. Each process of the group computes the replicated part
+    of a block (the modulation, norms and residuals) with its own share of
+    the gradient, and the shares meet here, at the row-parallel sums, and in
+    the replicated leaves' sum over their holders
+    (``ModelSharding.sync_replica_grads``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        _count_tp(x)
+        return process_all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous()
+        _count_tp(grad)
+        return process_all_reduce(grad, ctx.group), None
+
+
+def tp_all_reduce(x: torch.Tensor, group: distributed.Group) -> torch.Tensor:
+    """The sum of ``x`` over the processes of a tp ``group`` (in fp32 where
+    ``x`` is), counted in ``TP_REMOTE``; differentiable, its backward the
+    same sum of the gradient: a process's gradient of a tensor the group
+    replicates is its share, and the shares add up to the gradient."""
+    return _TpSum.apply(x, group)
 
 
 # ---------------------------------------------------------------------------
@@ -395,7 +527,7 @@ def ring_shift(parts: Sequence[torch.Tensor], group: Optional[ShardGroup] = None
         for w in dist.batch_isend_irecv([dist.P2POp(dist.irecv, rbuf, left, group.comm.handle),
                                          dist.P2POp(dist.isend, sbuf, right, group.comm.handle)]):
             w.wait()
-        first = _received(rbuf, parts[0])
+        first = _landed(rbuf, parts[0].device)
     return [first] + [parts[k - 1].to(parts[k].device) for k in range(1, m)]
 
 
@@ -436,7 +568,7 @@ def _all_to_all(parts, split_dim: int, concat_dim: int, group: ShardGroup) -> Li
         for w in dist.batch_isend_irecv(ops):
             w.wait()
         for q, (theirs, rbuf) in received.items():
-            rows = _received(rbuf, parts[0]).unbind(0)
+            rows = _landed(rbuf, parts[0].device).unbind(0)
             for a, i in enumerate(theirs):
                 for b, j in enumerate(mine):
                     got[(i, j)] = rows[a * len(mine) + b]
@@ -662,3 +794,137 @@ class RingTransport:
                 ev = torch.cuda.Event()
                 ev.record(s)
                 caller.wait_event(ev)
+
+
+# ---------------------------------------------------------------------------
+# pipeline stages across processes
+# ---------------------------------------------------------------------------
+
+# the pipeline's messages to another process since the last reset: a stage
+# boundary's activation (its tensors packed in one message) and, back, the
+# gradients of those of its tensors that carry one (one message): how many,
+# and their bytes
+PP_REMOTE = {"sends": 0, "bytes": 0}
+_ANCHORS: List[torch.Tensor] = []  # the anchors of this process's sends not yet taken
+
+
+def pipeline_tag(key: Tuple[int, ...], backward: bool = False) -> int:
+    """A message's tag: its key (call, microbatch, data index, from stage,
+    to stage) and direction, packed in 31 bits, so that a receive takes its
+    message whatever order the sender posted them in (gloo matches tags;
+    nccl does not: ``parallel/pipeline.check_transport``)."""
+    tag = 0
+    for v, bits in zip(key, (2, 9, 4, 5, 5)):
+        if not 0 <= v < 1 << bits:
+            raise ValueError(f"pipeline message key {key} out of range")
+        tag = (tag << bits) | v
+    return 2 * tag + int(backward)
+
+
+def _nbytes(like: Sequence[torch.Tensor]) -> int:
+    return sum(math.prod(s.shape) * s.dtype.itemsize for s in like)
+
+
+def _pack(xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Tensors joined, in order, into one byte buffer."""
+    return torch.cat([x.detach().contiguous().view(-1).view(torch.uint8) for x in xs])
+
+
+def _unpack(buf: torch.Tensor, like: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The tensors, shaped as ``like``'s, that :func:`_pack` joined into
+    ``buf`` (views of it where the offset allows)."""
+    out, at = [], 0
+    for s in like:
+        n = math.prod(s.shape) * s.dtype.itemsize
+        piece = buf[at:at + n]
+        if at % s.dtype.itemsize:  # a view needs an offset aligned to the element
+            piece = piece.clone()
+        out.append(piece.view(s.dtype).view(s.shape))
+        at += n
+    return out
+
+
+class _Received(torch.autograd.Function):
+    """A stage boundary's tensors from process ``src``, shaped as ``like``'s
+    leaves (meta tensors; those that require grad carry a gradient back).
+    The backward sends those gradients, packed in their order, in one
+    message (:meth:`send_back`)."""
+
+    @staticmethod
+    def forward(ctx, token, like, src, key, device):
+        ctx.src, ctx.key = src, key
+        ctx.back = [s.requires_grad for s in like]
+        out = _unpack(process_recv((_nbytes(like),), torch.uint8, device, src, pipeline_tag(key)), like)
+        ctx.mark_non_differentiable(*(x for x, b in zip(out, ctx.back) if not b))
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return _Received.send_back(ctx, grads)
+
+    @staticmethod
+    def send_back(ctx, grads):
+        """The gradients of the tensors that carry one, to the sender."""
+        process_isend(_pack([g for g, b in zip(grads, ctx.back) if b]), ctx.src, pipeline_tag(ctx.key, True),
+                      PP_REMOTE)
+        return None, None, None, None, None
+
+
+class _SentAnchor(torch.autograd.Function):
+    """The sending side of a boundary's tensors ``xs`` that carry a gradient
+    (shaped as ``like``'s): a zero scalar, a root of the process's backward
+    (:func:`take_anchors`), whose backward receives their gradients in one
+    message, so that the backward runs through the stages that made them."""
+
+    @staticmethod
+    def forward(ctx, token, like, dst, key, *xs):
+        ctx.like, ctx.dst, ctx.key = like, dst, key
+        ctx.devices = [x.device for x in xs]
+        return token.new_zeros(())
+
+    @staticmethod
+    def backward(ctx, _):
+        buf = process_recv((_nbytes(ctx.like),), torch.uint8, ctx.devices[0], ctx.dst, pipeline_tag(ctx.key, True))
+        return (None, None, None, None, *(g.to(d) for g, d in zip(_unpack(buf, ctx.like), ctx.devices)))
+
+
+def send_tree(tree, like, dst: int, key: Tuple[int, ...]) -> None:
+    """A pytree of tensors shaped as ``like``'s (a pytree of meta tensors
+    of the same structure) to process ``dst`` (:func:`receive_tree` there,
+    with the same ``like`` and ``key``), packed in one message, without
+    waiting. With grad on, where some of ``like``'s leaves require grad,
+    an anchor is kept for :func:`take_anchors`: its backward receives
+    those leaves' gradients. Both sides take from ``like`` what carries a
+    gradient, so they agree on every message."""
+    leaves, specs = tree_flatten(tree)[0], tree_flatten(like)[0]
+    if [(x.shape, x.dtype) for x in leaves] != [(s.shape, s.dtype) for s in specs]:
+        raise ValueError(f"pipeline message {key}: its tensors {[(tuple(x.shape), x.dtype) for x in leaves]} are "
+                         f"not the {[(tuple(s.shape), s.dtype) for s in specs]} the receiving process expects")
+    if any(x.requires_grad and not s.requires_grad for x, s in zip(leaves, specs)):
+        raise ValueError(f"pipeline message {key}: a tensor that requires grad would get no gradient back")
+    process_isend(_pack(leaves), dst, pipeline_tag(key), PP_REMOTE)
+    back = [(x, s) for x, s in zip(leaves, specs) if s.requires_grad]
+    if back and torch.is_grad_enabled():
+        token = torch.zeros((), device=back[0][0].device, requires_grad=True)
+        _ANCHORS.append(_SentAnchor.apply(token, [s for _, s in back], dst, key, *(x for x, _ in back)))
+
+
+def receive_tree(like, src: int, key: Tuple[int, ...], device):
+    """The pytree process ``src`` sent with :func:`send_tree` under
+    ``key``, shaped as ``like``, on ``device``; with grad on, its leaves
+    that carry a gradient send it back in their backward."""
+    specs, spec = tree_flatten(like)
+    token = torch.empty(0, requires_grad=torch.is_grad_enabled() and any(s.requires_grad for s in specs))
+    return tree_unflatten(list(_Received.apply(token, specs, src, key, torch.device(device))), spec)
+
+
+def take_anchors() -> List[torch.Tensor]:
+    """The anchors of this process's sends since the last call: roots of
+    its backward, beside its loss where it has one. Autograd runs a
+    process's nodes in the reverse order of their making, so each process
+    receives a gradient only after it has sent every gradient made after
+    that tensor was sent: the stages' backwards meet across processes
+    without a deadlock, the receives matched by tag."""
+    out = list(_ANCHORS)
+    _ANCHORS.clear()
+    return out

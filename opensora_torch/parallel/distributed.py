@@ -22,9 +22,10 @@ the process's device and the backend, and joins the process group.
 Without a process group, :func:`process_index` is 0 and
 :func:`process_count` 1, and :func:`barrier` returns at once.
 
-A mesh whose 'sp' or 'data' groups span processes (``parallel/mesh.py``)
-runs each of their collectives and sends over a :class:`Group`: the
-processes of one such group and its ``torch.distributed`` subgroup, made by
+A mesh whose 'data', 'sp', 'tp' or 'pp' groups span processes
+(``parallel/mesh.py``) runs each of their collectives over a
+:class:`Group`: the processes of one such group and its
+``torch.distributed`` subgroup, made by
 :func:`make_groups` on every process in one fixed order (``dist.new_group``
 is a collective of the whole world) and cached, with the group's timeout.
 A group of every process uses the default group.
@@ -199,13 +200,14 @@ def barrier() -> None:
             dist.barrier()
 
 
-def broadcast_object(obj, src: int = 0):
-    """``obj`` of process ``src`` on every process (picklable; ``obj``
-    itself without a group)."""
-    if _GROUP is None:
+def broadcast_object(obj, src: int = 0, over: Optional[Group] = None):
+    """``obj`` of process ``src`` on every process of ``over`` (default:
+    every process; picklable; ``obj`` itself without a group)."""
+    if _GROUP is None or (over is not None and over.size == 1):
         return obj
     box = [obj]
-    dist.broadcast_object_list(box, src=src, device=_GROUP.device if _GROUP.backend == "nccl" else None)
+    dist.broadcast_object_list(box, src=src, group=None if over is None else over.handle,
+                               device=_GROUP.device if _GROUP.backend == "nccl" else None)
     return box[0]
 
 

@@ -18,15 +18,17 @@ between their tensors (``parallel/comm.py``).
 Across processes, ``processes[r]`` names the process that holds rank r.
 Each process holds a contiguous run of ranks in row-major order, as the
 hosts of a pod cut JAX's mesh (opensora_tpu/parallel/mesh.py:61-79): whole
-tp groups (and on a pipeline mesh whole pipelines), and either whole 'data'
-coordinates or a contiguous run of one data coordinate's sp ranks. So the
-'data' and the 'sp' axes may cross processes, each process holding the
-ranks at its own (data, sp) coordinates; a tp or pp group across processes
-raises (:data:`SPANNING_GROUP`). The processes of each 'data' and 'sp' group
-that spans several get a ``torch.distributed`` subgroup
-(:meth:`Mesh.process_group`), made when the mesh is. Two processes on one
-card both name their device ``cuda:0``, so a rank's identity is (process,
-device) (:meth:`Mesh.home_key`), never the device alone.
+'data' coordinates, or a contiguous run of one data coordinate's ranks. So
+every axis may cross processes: a process may hold some of a tp group's
+ranks, some of a pipeline's stages, or some sp ranks, each at its own
+coordinates. Every 'data', 'sp' (or 'pp') and 'tp' group that spans
+several processes, and each data coordinate's processes (its *block*,
+which reads the same samples and feeds the model the same inputs), gets a
+``torch.distributed`` subgroup (:meth:`Mesh.process_group`,
+:attr:`Mesh.block_group`), made when the mesh is, in one order on every
+process. Two processes on one card both name their device ``cuda:0``, so a
+rank's identity is (process, device) (:meth:`Mesh.home_key`), never the
+device alone.
 """
 
 from __future__ import annotations
@@ -79,12 +81,6 @@ def _indexed(device: torch.device) -> torch.device:
     return device
 
 
-# a tp or pp group across processes (see Mesh)
-SPANNING_GROUP = ("a mesh whose {axis} group spans processes is not ported (ROADMAP Queue 1: tp / pp groups across "
-                  "processes): the TP all-reduce (with int8's row max) and the pipeline's sends across processes; lay "
-                  "the processes along 'data' and 'sp' only (each holding whole tp groups and pipelines)")
-
-
 class Mesh:
     """Axis sizes, the device of each rank (row-major over ``axes``:
     ``AXES``, or ``PP_AXES`` for a pipeline) and the process that holds it
@@ -103,13 +99,6 @@ class Mesh:
         self.n_processes = len(set(self.processes))
         if len(self.processes) != len(self.devices):
             raise ValueError(f"{len(self.processes)} processes for {len(self.devices)} ranks")
-        whole = (TP_AXIS,) if self.axes[1] == SP_AXIS else (PP_AXIS, TP_AXIS)
-        for r in range(len(self.devices)):
-            c = self.coords(r)
-            for axis in whole:  # the tp group, and the pipeline, lie in one process
-                i = self.axes.index(axis)
-                if self.processes[r] != self.processes[self.rank(c[:i] + (0,) * (len(c) - i))]:
-                    raise NotImplementedError(SPANNING_GROUP.format(axis=repr(axis)))
         self._check_runs()
         if self.n_processes > 1 and sorted(set(self.processes)) != list(range(distributed.process_count())):
             raise ValueError(f"a mesh over processes {sorted(set(self.processes))} in a run of "
@@ -121,9 +110,13 @@ class Mesh:
         # the 'data' blocks: the processes of one data coordinate read the same samples
         self.data_blocks = self.shape[DATA_AXIS] // len(self.local_data)
         self.data_block = self.local_data[0] // len(self.local_data)
+        # the processes of this process's tp group (1 where it holds whole tp groups)
+        self.tp_processes = len(self.processes_along(TP_AXIS, self.local_ranks[0]))
         if self.n_processes > 1:
-            distributed.make_groups(self.processes_along(axis, r) for axis in (DATA_AXIS, self.axes[1])
-                                    for r in range(len(self.devices)))
+            distributed.make_groups([self.processes_along(axis, r) for axis in (DATA_AXIS, self.axes[1], TP_AXIS)
+                                     for r in range(len(self.devices))]
+                                    + [self.block_processes(b) for b in range(self.data_blocks)])
+        self.block_group = distributed.subgroup(self.block_processes(self.data_block))
 
     def _check_runs(self) -> None:
         """Each process holds a contiguous run of ranks: whole data
@@ -152,6 +145,12 @@ class Mesh:
         processes along ``axis`` through ``rank`` (of this process alone
         where the group lies in it)."""
         return distributed.subgroup(self.processes_along(axis, rank))
+
+    def block_processes(self, block: int) -> List[int]:
+        """The processes of data block ``block`` (they hold the same 'data'
+        coordinates, and so read the same rows)."""
+        n = len(self.local_data)
+        return sorted({p for r, p in enumerate(self.processes) if self.coords(r)[0] // n == block})
 
     def process_data(self, process: int) -> List[int]:
         """The 'data' coordinates of ``process``'s ranks, in order (a
@@ -241,8 +240,9 @@ def create_pp_mesh(pp: int, data: int = 1, tp: int = 1, devices: Optional[Sequen
     (default: every CUDA device of the host), row-major; a device may
     repeat. ``tp`` > 1 cuts each pipeline stage's blocks over 'tp' (the
     PP x TP hybrid, ``training/pp.py``). In a multi-process run ``devices``
-    are this process's, each process's data / n_processes rows of the mesh
-    (a collective, as :func:`create_mesh`)."""
+    are this process's, each process an equal run of the mesh's ranks:
+    whole pipelines, or stages of one, or part of a stage's tp group (a
+    collective, as :func:`create_mesh`)."""
     n = data * pp * tp
     devices, processes = _over_processes(devices)
     if processes is None:

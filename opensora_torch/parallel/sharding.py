@@ -60,22 +60,30 @@ in the scope (d, t, s). A parameter of no stage (the embedders, the final
 layer) is replicated on every stage's devices. PP cuts nothing over
 'data'.
 
-Over processes (a mesh whose 'data' and 'sp' axes may cross them,
+Over processes (a mesh whose axes may each cross them,
 ``parallel/mesh.py``) a process makes the leaves of its own ranks only: its
-(data, sp) coordinates'. A leaf's key is (i, j, (process, device)); the
-processes that hold a shard (i, j) are its :meth:`Placement.holders`: every
-process for a shard whole along 'data', the processes of data coordinate i
-(its sp group's) for one cut over 'data'. The FSDP read joins the process's
-shards with the other processes' of its 'data' group (the processes of the
-rank's sp coordinate) by ``comm.process_gather_shards`` (its backward the
+(data, sp or stage, tp) coordinates' (none of a block of another process's
+stage). A leaf's key is (i, j, (process, device)); the processes that hold
+a shard (i, j) are its :meth:`Placement.holders`: every process of its
+stage for a shard whole along 'data' and 'tp', the processes of data
+coordinate i for one cut over 'data', of tp coordinate j for one cut over
+'tp'. The FSDP read joins the process's shards with the other processes'
+of its 'data' group by ``comm.process_gather_shards`` (its backward the
 reduce-scatter over that group); :meth:`ModelSharding.sync_replica_grads`
 sums a shard's gradient over its holders (per device, in buckets; a data
-shard's after that reduce-scatter, so over the data ranks and the sp
-ranks both); a shard counts in the clip's norm on its first holder only
+shard's after that reduce-scatter, so over the data ranks and the sp and
+tp ranks both); a shard counts in the clip's norm on its first holder only
 (:meth:`ModelSharding.non_canonical`); :meth:`Placement.gather` brings a
-full tensor to process 0. A :class:`RankGroup` with ``seq`` runs this
-process's sp ranks and reaches the others through its
-:meth:`RankGroup.shard_group`.
+full tensor to process 0, each shard from its first holder. A
+:class:`RankGroup` runs this process's ranks: with ``seq`` its sp ranks,
+the others reached through :meth:`RankGroup.shard_group`; where the tp
+group spans processes, its tp ranks, the row-parallel sums taken across
+the group's processes (``RankGroup.tp_comm``). Each process of a tp group
+computes the replicated part of a block (modulation, norms, residuals,
+embedders, final layer) with its share of the loss's gradient
+(``training/diffusion.tp_share``): the shares meet in the sums' backward
+(``comm.tp_all_reduce``) and in the replicated leaves' sum over their
+holders, so no process computes a partial result it keeps.
 """
 
 from __future__ import annotations
@@ -94,8 +102,10 @@ from opensora_torch.parallel.comm import (
     copy_to,
     gather,
     process_all_reduce,
-    process_gather,
     process_gather_shards,
+    process_isend,
+    process_recv,
+    wait_sends,
 )
 from opensora_torch.parallel.context import get_mesh, get_scope, rank_scope
 from opensora_torch.parallel.mesh import DATA_AXIS, SP_AXIS, TP_AXIS, Mesh
@@ -212,12 +222,16 @@ class Placement:
         for d in mesh.local_data:
             for s in mids:
                 for t in range(sharding.tp):
+                    if not mesh.is_local(mesh.rank((d, s, t))):
+                        continue  # another process's rank (of this tp group, or of another stage)
                     key = (d if self.data_dim is not None else 0, t if self.tp_dim is not None else 0,
                            mesh.home_key(d, t, s))
                     if key not in self.keys:
                         self.keys.append(key)
         self.index = {k: i for i, k in enumerate(self.keys)}
         self.leaves: Optional[nn.ParameterList] = None
+        self.trained = False  # whether the leaves require grad (known on every process, set by shard_params)
+        self.leaf_dtype = torch.float32  # the leaves' dtype (every process knows it, holding leaves or not)
 
     def holders(self, i: int, j: int) -> Tuple[int, ...]:
         """The processes that hold shard (i, j), in order."""
@@ -256,41 +270,48 @@ class Placement:
             seen.setdefault((i, j), n)
         return list(seen.values())
 
-    def gather(self, tensors: Sequence[torch.Tensor], device=None) -> Optional[torch.Tensor]:
+    def gather(self, tensors: Sequence[torch.Tensor], device=None, dtype=None) -> Optional[torch.Tensor]:
         """The full tensor from one tensor per key (the leaves, or their
         gradients or optimizer moments), on ``device`` (default: the
-        first's). Over processes every process calls it; process 0 gets the
-        tensor, the others None."""
-        device = device or tensors[0].device
-        by_shard = {self.keys[n][:2]: tensors[n].to(device) for n in self.canonical()}
+        first's). Over processes every process calls it, for the
+        placements in one order (a process may hold no leaf of one); each
+        shard comes from its first holder, process 0 gets the tensor (its
+        ``dtype``, default the leaves', tells it the shards' dtype), the
+        others None."""
+        by_shard = {self.keys[n][:2]: tensors[n] for n in self.canonical()}
         if self.sharding.across_processes:
-            if self.data_dim is not None:
-                by_shard = self._from_every_process(by_shard)
-            if distributed.process_index() != 0:
+            by_shard = self._on_process_0(by_shard, dtype or self.leaf_dtype)
+            if by_shard is None:
                 return None
+        device = device or next(iter(by_shard.values())).device
+        by_shard = {k: v.to(device) for k, v in by_shard.items()}
         n_i = self.sharding.dp if self.data_dim is not None else 1
         n_j = self.sharding.tp if self.tp_dim is not None else 1
         locals_ = [torch.cat([by_shard[(i, j)] for i in range(n_i)], self.data_dim) if self.data_dim is not None
                    else by_shard[(0, j)] for j in range(n_j)]
         return _tp_join(locals_, self.tp_dim, self.segments) if self.tp_dim is not None else locals_[0]
 
-    def _from_every_process(self, by_shard: Dict[Tuple[int, int], torch.Tensor]) -> Dict[Tuple[int, int], torch.Tensor]:
-        """This process's shards (i, j), and on process 0 every process's
-        (a gather to process 0: per process its shards stacked over j,
-        each joined over its 'data' indices i)."""
-        mine = sorted({i for i, _ in by_shard})
+    def _on_process_0(self, by_shard: Dict[Tuple[int, int], torch.Tensor], dtype
+                      ) -> Optional[Dict[Tuple[int, int], torch.Tensor]]:
+        """Every shard (i, j) on process 0, sent there by its first holder
+        in (i, j) order (None on the other processes)."""
+        me = distributed.process_index()
+        n_i = self.sharding.dp if self.data_dim is not None else 1
         n_j = self.sharding.tp if self.tp_dim is not None else 1
-        stacked = torch.stack([torch.cat([by_shard[(i, j)] for i in mine], self.data_dim) for j in range(n_j)])
-        parts = process_gather(stacked)
-        if parts is None:
-            return by_shard
+        meta = torch.empty(self.shape, device="meta")
         out = {}
-        for p, part in enumerate(parts):
-            coords = self.sharding.mesh.process_data(p)
+        for i in range(n_i):
             for j in range(n_j):
-                for i, x in zip(coords, part[j].chunk(len(coords), self.data_dim)):
-                    out[(i, j)] = x
-        return out
+                src = self.holders(i, j)[0]
+                if src == me:
+                    if me == 0:
+                        out[(i, j)] = by_shard[(i, j)]
+                    else:
+                        process_isend(by_shard[(i, j)], 0)
+                elif me == 0:
+                    out[(i, j)] = process_recv(self.piece(meta, i, j).shape, dtype, "cpu", src)
+        wait_sends()
+        return out if me == 0 else None
 
     def local(self, d: int, t: int, dtype, s: int = 0) -> torch.Tensor:
         """What rank (d, s, t) computes with (s: its sp rank or pipeline
@@ -388,7 +409,7 @@ class ModelSharding:
         # processes hold, its first (this process's first rank's) leading
         shared: Dict[Tuple[Tuple[int, ...], int, int], List[List[nn.Parameter]]] = {}
         for pl in self.placements.values():
-            if self.across_processes and pl.leaves[0].requires_grad:
+            if self.across_processes and len(pl.leaves) and pl.leaves[0].requires_grad:
                 for n in pl.canonical():
                     shard = pl.keys[n][:2]
                     holders = pl.holders(*shard)
@@ -421,13 +442,17 @@ def _buckets(groups: List[List[nn.Parameter]], limit: int) -> List[List[List[nn.
 
 class RankGroup:
     """The ranks of a sharded model at one data coordinate that run a
-    forward together, each on its home device: the tp ranks at (data, mid,
-    ·) (``mid``: the pipeline stage, or sp coordinate 0 where the tokens
-    stay whole), or with ``seq`` (on a mesh with an 'sp' axis) this
-    process's ranks (data, s, t), sp rank s holding the s-th chunk of the
-    tokens: ``sps`` lists their sp coordinates (every one, unless the sp
-    group spans processes). Per-rank lists are indexed r = k * tp + t, k
-    the position in ``sps``; ``at(r)`` opens rank r's scope."""
+    forward together, each on its home device: this process's tp ranks at
+    (data, mid, ·) (``mid``: the pipeline stage, or sp coordinate 0 where
+    the tokens stay whole), or with ``seq`` (on a mesh with an 'sp' axis)
+    this process's ranks (data, s, t), sp rank s holding the s-th chunk of
+    the tokens: ``sps`` lists their sp coordinates (every one, unless the sp
+    group spans processes), ``tps`` their tp coordinates (every one, unless
+    the tp group spans processes: then ``tp_comm`` is the group of its
+    processes, over which the row-parallel sums run). ``tp`` is the mesh's
+    tp size, which cuts the heads and MLP columns. Per-rank lists are
+    indexed r = k * n_tp + i, k the position in ``sps``, i in ``tps``;
+    ``at(r)`` opens rank r's scope."""
 
     def __init__(self, sharding: ModelSharding, data: int, mid: int = 0, seq: bool = False):
         if data not in sharding.mesh.local_data:
@@ -437,7 +462,12 @@ class RankGroup:
         self.seq = seq and sharding.sp > 1
         self.sps = list(mesh.local_mid) if self.seq else [mid]
         self.sp = len(self.sps)
-        self.coords = [(s, t) for s in self.sps for t in range(self.tp)]
+        self.tps = [t for t in range(self.tp) if mesh.is_local(mesh.rank((data, self.sps[0], t)))]
+        if not self.tps:
+            raise RuntimeError(f"no rank at (data {data}, {mesh.axes[1]} {self.sps[0]}) in this process")
+        self.n_tp = len(self.tps)
+        self.tp_comm = mesh.process_group(TP_AXIS, mesh.rank((data, self.sps[0], self.tps[0])))
+        self.coords = [(s, t) for s in self.sps for t in self.tps]
         self.devices = [mesh.home(data, t, s) for s, t in self.coords]
         self.keys = [mesh.home_key(data, t, s) for s, t in self.coords]
 
@@ -475,21 +505,22 @@ class RankGroup:
         """``fn(r)`` once per chunk of the tokens, in the scope of its tp
         rank 0: a list over the sp ranks."""
         out = []
-        for r in range(0, len(self.coords), self.tp):
+        for r in range(0, len(self.coords), self.n_tp):
             with self.at(r):
                 out.append(fn(r))
         return out
 
     def sp_sets(self) -> List[List[int]]:
-        """Per tp rank t, this process's ranks of its sp group in sp order:
-        the ranks an attention over sequence shards runs over."""
-        return [list(range(t, len(self.coords), self.tp)) for t in range(self.tp)]
+        """Per tp rank of this process (in ``tps`` order), its ranks of that
+        rank's sp group in sp order: the ranks an attention over sequence
+        shards runs over."""
+        return [list(range(i, len(self.coords), self.n_tp)) for i in range(self.n_tp)]
 
-    def shard_group(self, t: int) -> Optional[ShardGroup]:
-        """Tp rank t's sp group where its ranks lie in several processes
-        (None where all lie in this one)."""
+    def shard_group(self, i: int) -> Optional[ShardGroup]:
+        """The sp group of this process's i-th tp rank (``tps[i]``) where its
+        ranks lie in several processes (None where all lie in this one)."""
         mesh = self.sharding.mesh
-        ranks = mesh.group(SP_AXIS, mesh.rank((self.data, 0, t)))
+        ranks = mesh.group(SP_AXIS, mesh.rank((self.data, 0, self.tps[i])))
         if all(mesh.is_local(r) for r in ranks):
             return None
         return ShardGroup(len(ranks), self.sps[0], tuple(mesh.processes[r] for r in ranks),
@@ -506,7 +537,7 @@ class RankGroup:
         if self.seq:
             out: List[torch.Tensor] = []
             for k, s in enumerate(self.sps):
-                part = xs[k * self.tp:(k + 1) * self.tp]
+                part = xs[k * self.n_tp:(k + 1) * self.n_tp]
                 if part[0].shape[1] == 0:
                     out += [x.new_empty((*x.shape[:-1], width)) for x in part]
                 else:
@@ -523,7 +554,7 @@ class OneRank:
     function runs once, and a row-parallel product is the linear itself,
     its bias included."""
 
-    tp = sp = 1
+    tp = sp = n_tp = 1
     seq = False
 
     @staticmethod
@@ -544,10 +575,13 @@ def row_parallel(linear: nn.Module, partials: Sequence[torch.Tensor], group: Ran
                  dtype=None) -> List[torch.Tensor]:
     """The all-reduce of the tp ranks' partial products, summed in fp32 and
     rounded once (to ``dtype``, default the partials'), with the row bias
-    added once to the sum."""
+    added once to the sum: over the tp group's processes where it spans
+    several (``group.tp_comm``; the bias then added after the sum across
+    them, once per tp group)."""
     bias = getattr(linear, "_placements", {}).get("bias")
-    b = None if bias is None else [bias.local(group.data, t, partials[t].dtype, group.mid) for t in range(group.tp)]
-    return all_reduce(partials, dtype=dtype, bias=b)
+    b = None if bias is None else [bias.local(group.data, t, partials[i].dtype, group.mid)
+                                   for i, t in enumerate(group.tps)]
+    return all_reduce(partials, dtype=dtype, bias=b, group=group.tp_comm)
 
 
 _SHARDED_CLASSES: Dict[Tuple[type, Tuple[str, ...]], type] = {}
@@ -619,6 +653,7 @@ def shard_params(mesh: Mesh, model: nn.Module, fsdp: bool = True, specs: Optiona
             if pl.tp_dim is not None and p.shape[pl.tp_dim] % sharding.tp:
                 raise ValueError(f"{full} {tuple(p.shape)}: dim {pl.tp_dim} does not split over tp {sharding.tp}")
             requires_grad = p.requires_grad
+            pl.trained, pl.leaf_dtype = requires_grad, p.dtype
             tensors = pl.shard(p.data)
             del p
             pl.leaves = nn.ParameterList([nn.Parameter(x, requires_grad=requires_grad) for x in tensors])

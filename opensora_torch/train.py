@@ -30,18 +30,25 @@ mesh instead (:func:`pipeline_mesh`; GPipe, ``training/pp.py``).
 
     python -m torch.distributed.run --nproc-per-node N -m opensora_torch.train CFG --multi_host True
 
+    python -m torch.distributed.run --nproc-per-node 2 -m opensora_torch.train configs/diffusion/train/stage1.py \\
+        --multi_host True --mesh.tp_size 2           # one tp rank a process
+    python -m torch.distributed.run --nproc-per-node 2 -m opensora_torch.train configs/diffusion/train/stage1.py \\
+        --multi_host True --pipeline.pp_size 2       # one pipeline stage a process
+
 Each process joins the group first (``parallel/distributed.initialize``:
 its card, ``nccl`` where each process has a card of its own, else
-``gloo``), and the mesh is over every process's device, the processes
-along 'data' and 'sp' (:func:`train_mesh`: ``stage2.py``'s sp group of 4
-spans the processes; a process holds several consecutive ranks as logical
-ranks on its card where there are more ranks than processes). The
-processes of one 'data' coordinate read the same samples
-(``parallel/data.data_replicas``); each process encodes its data block's
-rows (the posterior noise and the visual conditions drawn for the global
-batch and cut, as the step's draws are) and runs its ranks; process 0
-names the experiment directory, logs, writes the checkpoints, the metrics
-and the profile.
+``gloo``), and the mesh is over every process's device, each process an
+equal run of its ranks along any axis (:func:`train_mesh`: ``stage2.py``'s
+sp group of 4, or ``--mesh.tp_size 2``'s tp group, spans the processes;
+:func:`pipeline_mesh`: one stage a process; a process holds several
+consecutive ranks as logical ranks on its card where there are more ranks
+than processes). The processes of one 'data' coordinate read the same
+samples (``parallel/data.data_replicas``); each process encodes its data
+block's rows (the posterior noise and the visual conditions drawn for the
+global batch and cut, as the step's draws are), the block's first process
+gives its inputs to the others (:meth:`Trainer.block_inputs`), and each
+runs its ranks; process 0 names the experiment directory, logs, writes the
+checkpoints (gathered from every process), the metrics and the profile.
 """
 
 from __future__ import annotations
@@ -80,7 +87,8 @@ def train_mesh(cfg, device):
     they fill), else each process holds an equal run of consecutive ranks
     as logical ranks on its device, as :func:`pipeline_mesh` lays out
     stages (``stage2.py``'s sp 4 over 2 processes: 2 sp ranks each,
-    ``dp_size=-1`` then 1)."""
+    ``dp_size=-1`` then 1; ``stage1.py --mesh.tp_size 2`` over 2
+    processes: one tp rank each)."""
     from opensora_torch.inference import inference_mesh
     from opensora_torch.parallel import distributed
     from opensora_torch.parallel.mesh import MeshConfig, create_mesh
@@ -106,7 +114,12 @@ def pipeline_mesh(cfg, device):
     scripts/diffusion/train.py:83-97): ``data_size`` None is the host's
     cards (one device for another ``device`` type) // (pp_size * tp_size).
     The ranks go over the cards in order, consecutive ranks sharing a card
-    where there are fewer cards than ranks (logical ranks)."""
+    where there are fewer cards than ranks (logical ranks). In a
+    multi-process run the mesh's ranks split into equal runs over the
+    processes, each on its own device: a process's run is whole pipelines
+    (its data coordinates'), or one stage, a run of stages or part of a
+    stage's tp group (``--pipeline.pp_size 2`` over 2 processes: one stage
+    a process)."""
     from opensora_torch.parallel import distributed
     from opensora_torch.parallel.mesh import create_pp_mesh
 
@@ -114,18 +127,18 @@ def pipeline_mesh(cfg, device):
     pp, tp = p["pp_size"], p.get("tp_size", 1)
     device = torch.device(device)
     n_proc = distributed.process_count()
-    if n_proc > 1:  # each process lays its rows of the mesh over its own device
+    if n_proc > 1:  # each process lays its run of the mesh over its own device
         cards = [distributed.group().device]
     else:
         cards = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())] if device.type == "cuda"
                  else [device])
     data = p.get("data_size") or n_proc * len(cards) // (pp * tp)
-    if data < 1 or data % n_proc:
+    total = data * pp * tp
+    if data < 1 or total % n_proc:
         raise ValueError(f"pipeline {p}: {len(cards)} device(s) in each of {n_proc} process(es) hold no pp_size x "
-                         f"tp_size = {pp * tp} ranks, or data_size does not divide over the processes; set "
-                         f"pipeline.data_size (a multiple of the processes) to lay the ranks over them as logical "
-                         f"ranks")
-    n = data // n_proc * pp * tp  # this process's ranks
+                         f"tp_size = {pp * tp} ranks, or the mesh's ranks do not split over the processes; set "
+                         f"pipeline.data_size to lay the ranks over them as logical ranks")
+    n = total // n_proc  # this process's ranks
     devices = cards[:n] if len(cards) >= n else [cards[r * len(cards) // n] for r in range(n)]
     return create_pp_mesh(pp, data, tp, devices)
 
@@ -156,9 +169,10 @@ class Trainer:
     the global batch with the ``pipeline`` key's ``n_micro`` microbatches
     (default 2 * pp_size; ``training/pp.make_pp_forward``). A mesh across
     processes (a multi-process run's :func:`train_mesh` /
-    :func:`pipeline_mesh`) gives each process its 'data' coordinates'
-    ranks; :meth:`run_batch` then takes the process's rows of the global
-    batch (:meth:`process_rows`)."""
+    :func:`pipeline_mesh`) gives each process its run of the ranks (its
+    'data' coordinates', or some sp, tp ranks or stages of one);
+    :meth:`run_batch` then takes the process's data block's rows of the
+    global batch (:meth:`process_rows`)."""
 
     def __init__(self, cfg, device=None, mesh=None):
         from opensora_torch.parallel.context import set_mesh
@@ -248,6 +262,22 @@ class Trainer:
         ``text_t5`` and ``text_clip``. Returns the step's metrics (0-d
         tensors on the device)."""
         from opensora_torch.parallel.data import make_global_batch
+
+        group = None if self.mesh is None else self.mesh.block_group
+        shared = group is not None and group.size > 1
+        if shared:  # the data block's first process encodes for all of them
+            tb = self.block_inputs(self.step_inputs(batch) if group.index() == 0 else None, group)
+        else:
+            tb = self.step_inputs(batch)
+        if self.place_batch:
+            tb = make_global_batch(self.mesh, tb)
+        with self.timers("step"):
+            return self.train_step(self.state, tb, self.gen)
+
+    def step_inputs(self, batch: Dict) -> Dict[str, Optional[torch.Tensor]]:
+        """The train step's inputs of this process's data block's rows of a
+        collated batch: the latents, the text embeddings, the visual
+        condition and the loss's masks."""
         from opensora_torch.training.diffusion import compute_shift_alpha
         from opensora_torch.utils.sampling import pack, prepare, prepare_ids
         from opensora_torch.utils.train import build_visual_condition, choose_mask_conditions
@@ -286,10 +316,33 @@ class Trainer:
             null_txt=fit_null_txt(self.null_txt, inp["txt"].shape[1]).expand_as(inp["txt"]).to(inp["txt"].dtype),
             null_vec=self.null_vec.expand_as(inp["y_vec"]).to(inp["y_vec"].dtype),
         )
-        if self.place_batch:
-            tb = make_global_batch(self.mesh, tb)
-        with self.timers("step"):
-            return self.train_step(self.state, tb, self.gen)
+        return tb
+
+    def block_inputs(self, tb: Optional[Dict], group) -> Dict:
+        """The step's inputs that ``group``'s first process encoded
+        (``tb`` there, None on the others), on each process of the group
+        (its data block: the processes of one data coordinate, its sp, tp
+        or pp ranks', must feed the model the same bits): their shapes and
+        the random state the encode left (the generator's, the host's, the
+        visual conditions chosen), then each tensor, broadcast. The others
+        encode nothing, and their random state goes on as the first
+        process's."""
+        from opensora_torch.parallel import distributed
+        from opensora_torch.parallel.comm import process_broadcast
+
+        src = group.ranks[0]
+        with self.timers("block_inputs"):
+            head = None if tb is None else dict(
+                meta={k: None if v is None else (tuple(v.shape), v.dtype) for k, v in tb.items()},
+                gen=self.gen.get_state(), host_rng=self.host_rng.bit_generator.state, mask_conds=self.mask_conds)
+            head = distributed.broadcast_object(head, src, group)
+            if tb is None:
+                self.gen.set_state(head["gen"])
+                self.host_rng.bit_generator.state = head["host_rng"]
+                self.mask_conds = head["mask_conds"]
+                tb = {k: None if m is None else torch.empty(m[0], dtype=m[1], device=self.device)
+                      for k, m in head["meta"].items()}
+            return {k: None if v is None else process_broadcast(v, src, group) for k, v in tb.items()}
 
     def process_rows(self, n_local: int) -> "Rows":
         """This process's rows [p * n_local, (p + 1) * n_local) of the global

@@ -28,8 +28,8 @@ state's shards are placed by stage, and the step's forward is the
 pipeline's (``make_train_step(forward_fn=)``) on the global batch: the
 draws, the loss and the optimizer are the unsharded step's.
 
-Over processes (a mesh whose 'data' and 'sp' axes may cross them, each
-process given its data block's rows): every process draws the global
+Over processes (a mesh whose axes may each cross them, each process given
+its data block's rows): every process draws the global
 batch's t, x1 and dropout choices from the same generator in the unsharded
 order and cuts its rows (JAX's ``r_step`` draw on the global array,
 scripts/diffusion/train.py:366-367); it runs its own ranks; where a data
@@ -38,12 +38,18 @@ rank's sp group spans processes, its output is joined over them
 (masked) loss, its sums over all the group's tokens before the division,
 and its gradient reaches each process's chunk alone; the loss the gradient
 flows through is the sum over this process's data ranks divided by dp
-(:func:`process_mean`), its value the mean over the data blocks; the
-gradients meet in the FSDP reduce-scatter and the replicas' all-reduce over
-their holders, the norm is summed across processes, and a state dict is
-gathered on process 0. A pipeline over
-processes runs each process's rows through its own data ranks' pipelines
-on the global batch's draws (:func:`process_draws`).
+(:func:`process_mean`), its value the mean over the data blocks; where
+a tp group spans processes, each of them computes the same loss, and its
+gradient enters once per tp group (:func:`tp_share`); the gradients meet
+in the FSDP reduce-scatter, the tp sums' backward and the replicas'
+all-reduce over their holders, the norm is summed across processes, and a
+state dict is gathered on process 0. A pipeline over processes runs each
+process's stages of its data block's pipelines on the global batch's draws
+(:func:`process_draws`): the last stage's processes compute the loss and
+broadcast its value, for logging, to their data block's other processes,
+whose backward starts from the anchors of their sends alone
+(:func:`pipeline_loss`); the sends' gradients have left when the step's
+backward returns (``comm.wait_sends``).
 """
 
 from __future__ import annotations
@@ -58,7 +64,8 @@ import torch
 import torch.nn as nn
 
 from opensora_torch.parallel import distributed
-from opensora_torch.parallel.comm import process_all_gather, process_all_reduce
+from opensora_torch.parallel.comm import process_all_gather, process_all_reduce, process_broadcast, \
+    take_anchors, wait_sends
 from opensora_torch.parallel.data import Placed, make_global_batch, row_slice
 from opensora_torch.parallel.mesh import DATA_AXIS
 from opensora_torch.parallel.sharding import ModelSharding, mesh_spec, mmdit_param_specs, shard_params
@@ -104,8 +111,10 @@ class TrainState:
         positions of its shards in ``params`` (the optimizer's order)."""
         pos = {n: i for i, n in enumerate(self.params)}
         names = self.sharding.leaf_names()
+        # every trained parameter, in one order on every process (a process
+        # may hold none of a parameter's shards: another stage's block)
         return [(name, pl, [pos[n] for n in names[name]]) for name, pl in self.sharding.placements.items()
-                if names[name][0] in pos]
+                if pl.trained]
 
     def state_dict(self) -> Optional[dict]:
         """The state in the unsharded layout. A state cut across processes
@@ -138,15 +147,17 @@ class TrainState:
         process 0, over processes)."""
         layout, leaves = self._layout(), list(self.params)
 
-        def gather(per_leaf):
-            return {name: pl.gather([per_leaf[leaves[j]] for j in idx], "cpu") for name, pl, idx in layout}
+        def gather(per_leaf, dtype=None):
+            return {name: pl.gather([per_leaf[leaves[j]] for j in idx], "cpu", dtype) for name, pl, idx in layout}
 
         opt = self.optimizer.state_dict()
         adam, acc = opt["adamw"], opt["acc"]
-        moments = {i: dict(step=adam["state"][idx[0]]["step"].cpu(),
+        # AdamW keeps a state for every leaf once it has stepped: one step count for all
+        any_state = next(iter(adam["state"].values()), None)
+        moments = {i: dict(step=any_state["step"].cpu(),
                            **{k: pl.gather([adam["state"][j][k] for j in idx], "cpu")
                               for k in ("exp_avg", "exp_avg_sq")})
-                   for i, (_, pl, idx) in enumerate(layout) if idx[0] in adam["state"]}
+                   for i, (_, pl, idx) in enumerate(layout)} if any_state is not None else {}
         groups = [dict(g, params=list(range(len(layout)))) for g in adam["param_groups"]]
         out = dict(
             step=self.step,
@@ -154,7 +165,7 @@ class TrainState:
             optimizer=dict(opt, adamw=dict(state=moments, param_groups=groups),
                            acc=None if acc is None else [pl.gather([acc[j] for j in idx], "cpu")
                                                          for _, pl, idx in layout]),
-            ema=None if self.ema is None else gather(self.ema),
+            ema=None if self.ema is None else gather(self.ema, torch.float32),
         )
         return out if distributed.process_index() == 0 or not self.sharding.across_processes else None
 
@@ -276,6 +287,12 @@ def compute_loss(
 ) -> torch.Tensor:
     """The rectified-flow loss of one batch given its draws (the JAX
     package's ``loss_fn``)."""
+    pred, v_t = predict(model, batch, t, x1, drop_txt, drop_vec, sigma_min)
+    return flow_loss(pred, v_t, batch, use_masked_loss, patch_size)
+
+
+def predict(model, batch: Dict, t, x1, drop_txt=None, drop_vec=None, sigma_min: float = 1e-5):
+    """The model's velocity on the noised batch, and the target velocity."""
     x0 = batch["x0"].float()
     x_t, v_t = rf_interpolate(x0, x1, t, sigma_min)
     txt, y_vec = batch["txt"], batch["y_vec"]
@@ -287,6 +304,12 @@ def compute_loss(
         img=x_t.to(txt.dtype), img_ids=batch["img_ids"], txt=txt, txt_ids=batch["txt_ids"],
         timesteps=t, y_vec=y_vec, cond=batch.get("cond"), guidance=batch.get("guidance"),
     )
+    return pred, v_t
+
+
+def flow_loss(pred: torch.Tensor, v_t: torch.Tensor, batch: Dict, use_masked_loss: bool = False,
+              patch_size: int = 2) -> torch.Tensor:
+    """The mean squared error of the velocity (masked where asked)."""
     masks = batch.get("masks")
     if use_masked_loss and masks is not None:
         return get_batch_loss(pred, v_t, masks, latent_shape=tuple(masks.shape[-3:]), patch_size=patch_size)
@@ -321,18 +344,20 @@ def make_train_step(
 
     def train_step(state: TrainState, batch: Dict, generator: Optional[torch.Generator] = None,
                    draws: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+        roots = None
         if state.sharding is not None and forward_fn is None:
             loss = sharded_loss(model, state.sharding, batch, generator, draws, text_dropout_prob, loss_kw)
         elif state.sharding is not None and state.sharding.across_processes:
-            # a pipeline over processes: this process's rows, the global draws
+            # a pipeline over processes: this process's data block's rows, the global draws
             if draws is None:
-                draws = process_draws(batch, text_dropout_prob, generator)
-            loss = process_mean(compute_loss(forward_fn, batch, **loss_kw, **draws), distributed.process_count())
+                draws = process_draws(batch, text_dropout_prob, generator, state.sharding.mesh)
+            loss, roots = pipeline_loss(forward_fn, state.sharding.mesh, batch, draws, loss_kw)
         else:
             if draws is None:
                 draws = draw_step(batch, text_dropout_prob, generator)
             loss = compute_loss(forward_fn or model, batch, **loss_kw, **draws)
-        loss.backward()
+        torch.autograd.backward(loss if roots is None else roots)
+        wait_sends()  # the pipeline's gradients sent to other processes have left
         params = list(state.params.values())
         device = params[0].device
         if state.sharding is not None:
@@ -370,8 +395,32 @@ def sharded_loss(model: nn.Module, sharding: ModelSharding, batch: Dict, generat
         cut = {k: v[row_slice(b, sharding.dp, d)].to(dev) for k, v in draws.items()}
         losses.append(compute_loss(functools.partial(model.forward_rank, d), rows, **loss_kw, **cut))
     home = losses[0].device
-    return process_mean(data_mean([x.to(home) for x in losses]), mesh.data_blocks,
+    loss = process_mean(data_mean([x.to(home) for x in losses]), mesh.data_blocks,
                         mesh.process_group(DATA_AXIS, mesh.local_ranks[0]))
+    return tp_share(loss, mesh.tp_processes)
+
+
+def pipeline_loss(forward_fn: Callable, mesh, batch: Dict, draws: Dict, loss_kw: dict):
+    """A pipeline over processes (``training/pp.make_pp_forward``): the
+    loss's value on every process, and the roots of this process's
+    backward. The last stage's processes compute the loss (the mean over
+    the data blocks, its gradient once per tp group, as
+    :func:`sharded_loss`'s) and give its value to their data block's other
+    processes, for the metrics alone. Every process's backward starts from
+    the anchors of its sends to other stages too (``comm.take_anchors``),
+    whose backward receives the sent tensors' gradients."""
+    from opensora_torch.parallel.mesh import PP_AXIS
+
+    pred, v_t = predict(forward_fn, batch, sigma_min=loss_kw["sigma_min"], **draws)
+    roots = take_anchors()
+    value = torch.zeros((), dtype=torch.float32, device=batch["x0"].device)
+    if pred is not None:  # this process holds the last stage
+        loss = process_mean(flow_loss(pred, v_t, batch, loss_kw["use_masked_loss"], loss_kw["patch_size"]),
+                            mesh.data_blocks, mesh.process_group(DATA_AXIS, mesh.local_ranks[0]))
+        roots.insert(0, tp_share(loss, mesh.tp_processes))
+        value = loss.detach()
+    src = mesh.processes[mesh.rank((mesh.local_data[0], mesh.shape[PP_AXIS] - 1, 0))]
+    return process_broadcast(value, src, mesh.block_group), roots
 
 
 def global_draws(batch: Dict[str, Optional[Placed]], text_dropout_prob: float, generator) -> Dict:
@@ -380,15 +429,16 @@ def global_draws(batch: Dict[str, Optional[Placed]], text_dropout_prob: float, g
     return draw_step(dict(x0=batch["x0"], shift_alpha=batch["shift_alpha"].full()), text_dropout_prob, generator)
 
 
-def process_draws(batch: Dict, text_dropout_prob: float, generator) -> Dict:
-    """The step's draws for this process's rows (``batch``, unplaced) of
-    the global batch (the processes' rows joined in process order): drawn
-    over the global batch, as the unsharded step draws them, and cut."""
-    n, p = distributed.process_count(), distributed.process_index()
+def process_draws(batch: Dict, text_dropout_prob: float, generator, mesh) -> Dict:
+    """The step's draws for this process's data block's rows (``batch``,
+    unplaced) of the global batch (the blocks' rows joined in block order):
+    drawn over the global batch, as the unsharded step draws them, and
+    cut."""
+    n, p = mesh.data_blocks, mesh.data_block
     x0, rows = batch["x0"], batch["x0"].shape[0]
     whole = SimpleNamespace(shape=torch.Size((rows * n, *x0.shape[1:])), device=x0.device)
-    draws = draw_step(dict(x0=whole, shift_alpha=process_all_gather(batch["shift_alpha"].float())),
-                      text_dropout_prob, generator)
+    alpha = process_all_gather(batch["shift_alpha"].float(), 0, mesh.process_group(DATA_AXIS, mesh.local_ranks[0]))
+    draws = draw_step(dict(x0=whole, shift_alpha=alpha), text_dropout_prob, generator)
     return {k: v[p * rows:(p + 1) * rows] for k, v in draws.items()}
 
 
@@ -409,6 +459,19 @@ def process_mean(loss: torch.Tensor, n_processes: int, group=None) -> torch.Tens
         return loss
     mine = loss / n_processes
     return mine - mine.detach() + process_all_reduce(mine.detach(), group)
+
+
+def tp_share(loss: torch.Tensor, n_processes: int) -> torch.Tensor:
+    """The loss every process of a tp group across ``n_processes``
+    processes computes alike: its value, its gradient divided by
+    ``n_processes``. Each process's gradient of what the group replicates
+    is then its share, the shares meeting in the row-parallel sums'
+    backward (``comm.tp_all_reduce``) and in the replicated leaves' sum
+    over their holders, so the loss's gradient enters once per tp group."""
+    if n_processes == 1:
+        return loss
+    share = loss / n_processes
+    return share - share.detach() + loss.detach()
 
 
 def compute_shift_alpha(latent_h: int, latent_w: int, latent_t: int) -> float:

@@ -15,6 +15,15 @@ over the 'data' ranks (JAX's ``batch_spec = P(None, 'data')``). Autograd
 through the pipelines gives the reverse schedule, so the train step is the
 shared one (``training/diffusion.make_train_step(forward_fn=)``).
 
+Across processes (a pipeline whose stages, or a stage's tp group, span
+them: ``parallel/pipeline.py``; gloo only) each process runs its own
+stages only: stage 0's processes prepare the inputs, and the last stage's
+compute the final layer and return the output; the others return None,
+and their backward starts from the anchors of their sends
+(``comm.take_anchors``, ``training/diffusion.pipeline_loss``). The
+activations' shapes between stages, which both sides of a message must
+know, follow from the batch and the config (``boundaries``).
+
 The depths must divide by the pp size (19 double blocks of the 11B config:
 pp sizes that divide 19), as the reference's stage manager assumes.
 """
@@ -29,7 +38,8 @@ from torch.utils._pytree import tree_map
 
 from opensora_torch.parallel.mesh import DATA_AXIS, PP_AXIS, TP_AXIS, Mesh
 from opensora_torch.parallel.mesh import create_pp_mesh  # noqa: F401  (JAX's training/pp.py has it here)
-from opensora_torch.parallel.pipeline import pipeline_apply, split_stages
+from opensora_torch.parallel.comm import wait_sends
+from opensora_torch.parallel.pipeline import check_transport, holds, pipeline_apply, split_stages
 from opensora_torch.parallel.sharding import RankGroup, Spec, mmdit_param_specs, shard_params
 from opensora_torch.training.diffusion import match_opt_shardings
 
@@ -96,7 +106,9 @@ def make_pp_forward(model: nn.Module, mesh: Mesh, n_micro: int, axis: str = PP_A
     must be placed on ``mesh`` (:func:`shard_pp`). ``n_micro``
     microbatches must divide the batch (fill the pipeline with n_micro >=
     2 * pp for a small bubble), and each microbatch's rows the (process's)
-    'data' ranks."""
+    'data' ranks. Over processes a process that holds no last stage
+    returns None (see the module docstring); under nccl that raises here,
+    before the first step (``pipeline.check_transport``)."""
     n_stages = mesh.shape[axis]
     _check_depths(model, n_stages)
     sharding = model.sharding
@@ -104,9 +116,26 @@ def make_pp_forward(model: nn.Module, mesh: Mesh, n_micro: int, axis: str = PP_A
         raise ValueError("make_pp_forward: place the model on the mesh first (training/pp.shard_pp)")
     local = mesh.local_data if data_axis and data_axis in mesh.shape else [0]
     dp = len(local)
-    groups = {(d, s): RankGroup(sharding, d, s) for d in local for s in range(n_stages)}
+    check_transport(mesh, axis)
+    last = n_stages - 1
+    groups = {(d, s): RankGroup(sharding, d, s) for d in local for s in range(n_stages) if holds(mesh, d, s)}
+    first, final = holds(mesh, local[0], 0), holds(mesh, local[0], last)
     dbl = split_stages(model.double_blocks, n_stages)
     sgl = split_stages(model.single_blocks, n_stages)
+    cfg = model.config
+
+    def boundaries(rows, n_txt, n_img):
+        """One tp rank's activation between two stages of the double and of
+        the single stack as meta tensors: (img, txt, vec, pe) and (x, vec,
+        pe), in the compute dtype; RoPE's (cos, sin), fp32, carry no
+        gradient."""
+        def meta(*shape, dtype=model.dtype, grad=True):
+            return torch.empty(shape, dtype=dtype, device="meta", requires_grad=grad)
+
+        n, h = n_txt + n_img, cfg.hidden_size
+        vec = meta(rows, h)
+        pe = tuple(meta(rows, n, sum(cfg.axes_dim) // 2, dtype=torch.float32, grad=False) for _ in range(2))
+        return (meta(rows, n_img, h), meta(rows, n_txt, h), vec, pe), (meta(rows, n, h), vec, pe)
 
     def fields(act, n):
         return [[a[i] for a in act] for i in range(n)]
@@ -116,14 +145,14 @@ def make_pp_forward(model: nn.Module, mesh: Mesh, n_micro: int, axis: str = PP_A
         img, txt, vec, pe = fields(act, 4)
         for block in blocks:
             img, txt = model.run_block(block, g, img, txt, vec, pe)
-        return [(img[t], txt[t], vec[t], pe[t]) for t in range(g.tp)]
+        return [(img[t], txt[t], vec[t], pe[t]) for t in range(g.n_tp)]
 
     def sgl_stage(blocks, act, d, s):
         g = groups[(d, s)]
         x, vec, pe = fields(act, 3)
         for block in blocks:
             x = model.run_block(block, g, x, vec, pe)
-        return [(x[t], vec[t], pe[t]) for t in range(g.tp)]
+        return [(x[t], vec[t], pe[t]) for t in range(g.n_tp)]
 
     def forward(img, img_ids, txt, txt_ids, timesteps, y_vec, cond=None, guidance=None):
         b = img.shape[0]
@@ -135,6 +164,8 @@ def make_pp_forward(model: nn.Module, mesh: Mesh, n_micro: int, axis: str = PP_A
                              f"'{data_axis}' axis ({dp})")
         per = mb // dp
         inputs = (img, img_ids, txt, txt_ids, timesteps, y_vec, cond, guidance)
+        n_txt = txt.shape[1]
+        dbl_like, sgl_like = boundaries(per, n_txt, img.shape[1])
         x_mb, cut = [], {}
 
         def microbatches(p):  # ranks that share a device share their pieces
@@ -143,26 +174,33 @@ def make_pp_forward(model: nn.Module, mesh: Mesh, n_micro: int, axis: str = PP_A
             return cut[id(p)]
 
         for k, d in enumerate(local):
+            if not first:  # another process holds stage 0
+                x_mb.append([None] * n_micro)
+                continue
             # data rank d's rows of every microbatch, microbatch by microbatch
             rows = torch.cat([torch.arange(m * mb + k * per, m * mb + (k + 1) * per) for m in range(n_micro)])
             g = groups[(d, 0)]
             prep = g.rep(lambda t: model.prepare_block_inputs(
                 *(None if x is None else x[rows.to(x.device)].to(g.devices[t]) for x in inputs)))
-            x_mb.append([[microbatches(prep[t])[m] for t in range(g.tp)] for m in range(n_micro)])
-        outs = pipeline_apply(dbl_stage, dbl, x_mb, mesh, axis)
-        n_txt = txt.shape[1]
+            x_mb.append([[microbatches(prep[t])[m] for t in range(g.n_tp)] for m in range(n_micro)])
+        outs = pipeline_apply(dbl_stage, dbl, x_mb, mesh, axis, deliver=[0], like=dbl_like, call=0)
         x_mb = []
         for k, d in enumerate(local):
+            if not first:
+                x_mb.append([None] * n_micro)
+                continue
             g = groups[(d, 0)]
             row = []
             for m in range(n_micro):
                 act = outs[k][m][0]
                 x = g.rep(lambda t: torch.cat([act[t][1], act[t][0]], dim=1))
-                row.append([(x[t], act[t][2], act[t][3]) for t in range(g.tp)])
+                row.append([(x[t], act[t][2], act[t][3]) for t in range(g.n_tp)])
             x_mb.append(row)
         del outs
-        outs = pipeline_apply(sgl_stage, sgl, x_mb, mesh, axis)
-        last = n_stages - 1
+        outs = pipeline_apply(sgl_stage, sgl, x_mb, mesh, axis, deliver=[last], like=sgl_like, call=1)
+        wait_sends()  # the forward's sends have left
+        if not final:
+            return None  # another process holds the last stage
         pieces = []
         for m in range(n_micro):
             for k, d in enumerate(local):

@@ -41,12 +41,13 @@ from opensora_torch.models.mmdit.model import MMDiTConfig, MMDiTModel
 from opensora_torch.parallel import data as tdata
 from opensora_torch.parallel import sharding as tsh
 from opensora_torch.parallel.context import set_mesh
-from opensora_torch.parallel.mesh import Mesh, MeshConfig, create_mesh, local_batch_size
+from opensora_torch.parallel.mesh import MeshConfig, create_mesh, local_batch_size
 from opensora_torch.training import diffusion as tdiff
 from opensora_torch.utils import optimizer as topt
 from opensora_torch.utils.ckpt import CheckpointIO
 from opensora_torch.utils.weights import load_numpy_state_dict, mmdit_state_dict
 from test_torch_training import _batch, _jax_draws
+from torch_multi_process_workers import Processes, run_calls
 from torch_parity_utils import one_torch_thread, randomize, t, to_numpy
 
 TOL = 1e-5
@@ -430,12 +431,34 @@ def test_training_cli_names_the_queued_slices(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match=r"pipeline \+ lora_config"):
         Trainer(parse_configs([str(lora)]), "cpu", mesh=create_pp_mesh(2, 1, 1, [CPU, CPU]))
 
-    # multi_host is ported for processes along 'data' and 'sp'; a tp group
-    # across processes stays queued, and multi_host outside torchrun names
+    # multi_host is ported for every axis across processes: in two processes
+    # Mesh((1, 1, 2), processes=[0, 1]) and a pipeline with one stage a
+    # process build, and the tp group's step holds against one process's
+    # over the same mesh of logical ranks; multi_host outside torchrun names
     # its variables
-    with pytest.raises(NotImplementedError,
-                       match=r"'tp' group spans processes .*ROADMAP Queue 1: tp / pp groups across processes"):
-        Mesh((1, 1, 2), [CPU, CPU], processes=[0, 1])
+    params, batch = _params(), _batch(B=4)
+    procs = Processes(run_calls, [("spanning_meshes", (), {}),
+                                  ("sharded_steps", (params, batch, GEOM, OPT, (1, 1, 2)), dict(seed=5, n_steps=1))])
+    mesh = _mesh(1, 1, 2)
+    set_mesh(mesh)
+    tm, state = _port_state(params)
+    state = tdiff.shard_state(mesh, state, tm, fsdp=True)
+    step = tdiff.make_train_step(tm, ema_decay=0.9, text_dropout_prob=PROB, use_masked_loss=True)
+    ref = {k: float(v) for k, v in step(state, {k: torch.from_numpy(v) for k, v in batch.items()},
+                                         generator=torch.Generator().manual_seed(5)).items()}
+    ref_params = state.state_dict()["params"]
+    set_mesh(None)
+    results = procs.results()
+    for p, (meshes, out) in enumerate(results):
+        assert meshes["tp"] == "Mesh({'data': 1, 'sp': 1, 'tp': 2}, 2 ranks on cpu in 2 processes)"
+        assert meshes["tp_ranks"] == [p] and meshes["tp_processes"] == 2
+        assert "'pp': 2" in meshes["pp"] and meshes["pp_stages"] == [p]
+        for k in ("loss", "grad_norm"):
+            assert out["metrics"][0][k] == pytest.approx(ref[k], rel=1e-6), k
+        assert out["tp_remote"][0]["all_reduces"] > 0
+    p0, got = mmdit_state_dict(params), results[0][1]["state"]["params"]
+    for n, want in ref_params.items():
+        assert _rel_l2(got[n].numpy() - p0[n], want.numpy() - p0[n]) <= 1e-5, n
     cfg = tmp_path / "multi_host.py"
     cfg.write_text(f"_base_ = [{DEMO!r}]\nmulti_host = True\n")
     with pytest.raises(RuntimeError, match="RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT "

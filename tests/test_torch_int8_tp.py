@@ -80,7 +80,7 @@ def _rel_l2(a, b) -> float:
     return float(np.linalg.norm(np.asarray(a, np.float64) - b) / np.linalg.norm(np.asarray(b, np.float64)))
 
 
-def _per_rank_max(parts):
+def _per_rank_max(parts, group=None):
     """Known-wrong: each rank keeps its own slice's activation scale."""
     return list(parts)
 

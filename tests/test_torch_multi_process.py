@@ -93,6 +93,7 @@ PP_GEOM = dict(in_channels=8, vec_in_dim=16, context_in_dim=24, hidden_size=64, 
                axes_dim=[4, 6, 6], depth=2, depth_single_blocks=2, qkv_bias=True, guidance_embed=False,
                cond_embed=False)
 PP_MESHES = [(2, 2, 1), (2, 2, 2)]
+SPAN_PP = (2, 1, 1)  # (pp 2, data 1): one stage a process
 
 
 def _pp_inputs():
@@ -210,9 +211,9 @@ def runs(tmp_path_factory):
     calls += [("pp_step", (pp_sd, PP_GEOM, OPT, PP_MESHES[-1], 2, pp_batch, SEED), dict(bucket=BUCKET))]
     calls += [("load_sharded", (params, GEOM, OPT, (2, 1, 2), ckpt_u), {}),
               ("data_layer", (4, _table(), BUCKETS, 7), {}),
-              ("spanning_mesh", ((1, 1, 2),), {}),
+              ("sharded_steps", (params, batch, GEOM, OPT, (1, 1, 2)), dict(seed=SEED, n_steps=1)),
               ("sharded_steps", (params, batch, GEOM, OPT, (1, 2, 1)), dict(seed=SEED, n_steps=1)),
-              ("spanning_mesh", ((2, 1, 1), True), {}),
+              ("pp_step", (pp_sd, PP_GEOM, OPT, SPAN_PP, 2, pp_batch, SEED), {}),
               ("trainer_iteration", (str(cfg_path), video, texts, state_path), {})]
     l_params, l_factors, l_batch = lora_inputs()
     l_draws = [_jax_draws(l_batch, jax.random.PRNGKey(11), 0, PROB)]
@@ -223,7 +224,8 @@ def runs(tmp_path_factory):
     ref = {sizes: dict(jax=_jax_steps(params, batch, sizes, "xla", rng) if sizes in JAX_MESHES else None,
                        port=_single_process(params, batch, sizes, draws=draws)) for sizes in MESHES}
     gen_ref = _single_process(params, batch, (2, 1, 1), seed=SEED, n_steps=1)
-    pp_ref = {sizes: pp_step(pp_sd, PP_GEOM, OPT, sizes, 2, pp_batch, SEED) for sizes in PP_MESHES}
+    span_tp_ref = _single_process(params, batch, (1, 1, 2), seed=SEED, n_steps=1)
+    pp_ref = {sizes: pp_step(pp_sd, PP_GEOM, OPT, sizes, 2, pp_batch, SEED) for sizes in PP_MESHES + [SPAN_PP]}
     trainer = Trainer(cfg, "cpu", mesh=_mesh(2, 1, 1))
     trainer.state.load_state_dict(torch.load(state_path, weights_only=False))
     m = trainer.run_batch({"video": torch.from_numpy(video), "text": texts})
@@ -237,6 +239,7 @@ def runs(tmp_path_factory):
         ["pp_" + "x".join(map(str, s)) for s in PP_MESHES] + ["pp_bucketed", "load", "data", "span_tp", "span_sp",
                                                                "span_pp", "trainer", "lora"]
     return dict(by_name={n: [r[i] for r in results] for i, n in enumerate(names)}, ref=ref, gen_ref=gen_ref,
+                span_tp_ref=span_tp_ref,
                 pp_ref=pp_ref, pp_start=pp_sd, trainer_ref=trainer_ref, lora_ref=lora_ref, params=params,
                 unsharded=unsharded, ckpt_u=ckpt_u, tmp=tmp)
 
@@ -437,15 +440,29 @@ def test_only_process_0_logs(runs):
 
 
 def test_a_group_other_than_data_across_processes_raises(runs):
-    """A mesh whose tp group, or a pipeline whose stages, would span the two
-    processes raises, naming its ROADMAP item by title; an sp group across
-    them builds its mesh and takes the step (one sp rank a process; the
-    loss and norm those of the single-process port's step over (data 2, 1,
-    1) on the same global batch and draws)."""
-    for name, axis in (("span_tp", "tp"), ("span_pp", "pp")):
-        for msg in runs["by_name"][name]:
-            assert f"'{axis}' group spans processes" in msg
-            assert "ROADMAP Queue 1: tp / pp groups across processes" in msg
+    """A mesh whose tp group, a pipeline whose stages, or an sp group spans
+    the two processes builds its mesh and takes the step (one rank, or one
+    stage, a process): the tp group's step against the single-process
+    port's over (1, 1, 2) and the pipeline's against the single-process
+    pipeline's over (pp 2, data 1) on the same global batch and draws (the
+    loss and norm within 1e-6, each parameter's change within 1e-5); the sp
+    group's loss and norm those of the single-process port's step over
+    (data 2, 1, 1) (tests/test_torch_tp_pp_processes.py holds these
+    layouts against JAX)."""
+    p0 = mmdit_state_dict(runs["params"])
+    out = runs["by_name"]["span_tp"]
+    assert all("in 2 processes" in r["mesh"] for r in out)
+    d = _held(out, runs["span_tp_ref"], p0)
+    assert _within(d), d
+    out, ref = runs["by_name"]["span_pp"], runs["pp_ref"][SPAN_PP]
+    assert "'pp': 2" in out[0]["mesh"] and "in 2 processes" in out[0]["mesh"] and out[1]["state"] is None
+    for r in out:
+        for k in ("loss", "grad_norm"):
+            assert r["metrics"][0][k] == pytest.approx(ref["metrics"][0][k], rel=PORT_TOL), k
+    start = {n: v.numpy() for n, v in runs["pp_start"].items()}
+    got = {n: p.numpy() for n, p in out[0]["state"]["params"].items()}
+    want = {n: p.numpy() for n, p in ref["state"]["params"].items()}
+    assert max(_changes(got, want, start).values()) <= PORT_UPDATE_TOL
     out, ref = runs["by_name"]["span_sp"], runs["gen_ref"]["metrics"][0]
     for r in out:
         assert "in 2 processes" in r["mesh"]

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import datetime
+import math
 import multiprocessing
 import os
 import socket
@@ -123,13 +124,6 @@ def port_state(params: dict, geom: dict, opt: dict, backend: Optional[str] = "xl
     return tm, tdiff.TrainState.create(tm, topt.create_optimizer(list(tm.parameters()), **opt), ema=True)
 
 
-def local_rows(batch: dict) -> dict:
-    """This process's rows of a global numpy batch, as torch tensors."""
-    from opensora_torch.parallel import distributed
-
-    return _rows(batch, distributed.process_index(), distributed.process_count())
-
-
 def block_rows(batch: dict, mesh) -> dict:
     """This process's data block's rows of a global numpy batch (the
     processes of one data coordinate share them), as torch tensors."""
@@ -193,8 +187,36 @@ def _gather_over_every_process(shards, dim, dtype, device, group=None):
     return comm.process_gather_shards(shards, dim, dtype, device)
 
 
+def _tp_grad_local(ctx, grad):
+    """Known-wrong: the backward of the tp group's cross-process sum left
+    out (each process keeps its own share of the gradient)."""
+    return grad, None
+
+
+def _tp_bias_each_process(parts, dtype=None, bias=None, group=None):
+    """Known-wrong: the row bias added on each process of a tp group, before
+    the sum across them (so once per process)."""
+    from opensora_torch.parallel import comm
+
+    if bias is not None and group is not None and group.size > 1:
+        parts = [parts[0].float() + bias[0].float()] + [p.float() for p in parts[1:]]
+        bias, dtype = None, dtype or parts[0].dtype
+    return comm.all_reduce(parts, dtype, bias, group)
+
+
+def _gradient_not_sent(ctx, *grads):
+    """Known-wrong: a pipeline stage's received activation sends back a zero
+    gradient, so the stages before it get none from it."""
+    from opensora_torch.parallel import comm
+
+    return comm._Received.send_back(ctx, [torch.zeros_like(g) for g in grads])
+
+
 VARIANTS = {
     "right": None,
+    "tp_grad_local": ("opensora_torch.parallel.comm._TpSum.backward", _tp_grad_local),
+    "tp_bias_each_process": ("opensora_torch.parallel.sharding.all_reduce", _tp_bias_each_process),
+    "pp_gradient_not_sent": ("opensora_torch.parallel.comm._Received.backward", _gradient_not_sent),
     "unsummed": ("opensora_torch.parallel.sharding.process_all_reduce", _unsummed),
     "local_draws": ("opensora_torch.training.diffusion.global_draws", _local_draws),
     "undivided": ("opensora_torch.training.diffusion.process_mean", _undivided),
@@ -227,7 +249,7 @@ def sharded_steps(params, batch, geom, opt, sizes, draws=None, seed=None, varian
     gathered state; ``ckpt_dir``: the state is also saved there by
     ``CheckpointIO`` (every process calls it). A variant that raises
     returns its error."""
-    from opensora_torch.parallel import distributed
+    from opensora_torch.parallel import comm, distributed
     from opensora_torch.parallel.context import set_mesh
     from opensora_torch.parallel.mesh import MeshConfig, create_mesh
     from opensora_torch.training import diffusion as tdiff
@@ -242,12 +264,14 @@ def sharded_steps(params, batch, geom, opt, sizes, draws=None, seed=None, varian
     mine = block_rows(batch, mesh)
     gen = None if seed is None else torch.Generator().manual_seed(seed)
     patch = VARIANTS[variant]
-    metrics = []
+    metrics, tp_remote = [], []
     with unittest.mock.patch(patch[0], patch[1]) if patch else contextlib.nullcontext():
         try:
             for i in range(n_steps):
+                comm.TP_REMOTE.update(all_reduces=0, bytes=0)
                 m = step(state, mine, generator=gen, draws=None if draws is None else draws[i])
                 metrics.append({k: float(v) for k, v in m.items()})
+                tp_remote.append(dict(comm.TP_REMOTE))
         except RuntimeError as e:
             if variant == "right":
                 raise
@@ -255,7 +279,7 @@ def sharded_steps(params, batch, geom, opt, sizes, draws=None, seed=None, varian
             return dict(error=str(e))
     leaves = sum(p.numel() for p in state.params.values())
     out = dict(metrics=metrics, state=_gathered(state), mesh=repr(mesh), local_leaf_numel=leaves,
-               replica_ids=len(state.optimizer.replica_ids))
+               replica_ids=len(state.optimizer.replica_ids), tp_remote=tp_remote)
     if ckpt_dir is not None:
         out["ckpt"] = CheckpointIO().save(ckpt_dir, state, 0, n_steps, n_steps)
     set_mesh(None)
@@ -284,10 +308,11 @@ def load_sharded(params, geom, opt, sizes, ckpt) -> dict:
 
 def lora_steps(params: dict, factors: dict, batch: dict, geom: dict, opt: dict, sizes, rank: int, scale: float,
                draws: list, prob: float = 0.5) -> dict:
-    """LoRA steps over a (dp, sp, tp) mesh whose 'data' axis crosses the
-    processes: the base from the JAX package's params (frozen, FSDP + TP),
-    the factors (``lora_state_dict`` names) replicated, each process given
-    its rows of ``batch``, the global batch's ``draws`` per step. Returns
+    """LoRA steps over a (dp, sp, tp) mesh whose 'data' (or 'tp') axis
+    crosses the processes: the base from the JAX package's params (frozen,
+    FSDP + TP), the factors (``lora_state_dict`` names) replicated, each
+    process given its data block's rows of ``batch``, the global batch's
+    ``draws`` per step. Returns
     the metrics, the factors gathered on process 0, and how many FSDP
     gathers and reduce-scatters crossed the processes (the frozen base's
     gathers take no gradient: no reduce-scatter)."""
@@ -320,7 +345,7 @@ def lora_steps(params: dict, factors: dict, batch: dict, geom: dict, opt: dict, 
             return fn(*args, **kwargs)
         return wrapped
 
-    mine = local_rows(batch)
+    mine = block_rows(batch, mesh)
     with unittest.mock.patch.multiple(comm, process_all_gather=counted(comm.process_all_gather, "gathers"),
                                       process_reduce_scatter=counted(comm.process_reduce_scatter,
                                                                      "reduce_scatters")):
@@ -332,17 +357,21 @@ def lora_steps(params: dict, factors: dict, batch: dict, geom: dict, opt: dict, 
 
 
 def pp_step(state_dict: dict, geom: dict, opt: dict, sizes, n_micro: int, batch: dict, seed: int,
-            bucket: Optional[int] = None) -> dict:
+            bucket: Optional[int] = None, variant: str = "right") -> dict:
     """One GPipe step over a (pp, data, tp) mesh (``sizes``), from
-    ``state_dict``, on this process's rows of ``batch``, the draws from a
-    generator seeded ``seed``: over processes, each holds its data rows'
-    whole pipelines; in one process (no group), every rank. Returns the
-    metrics and the gathered state (None off process 0); with ``bucket``,
-    the cross-process gradient sum runs in buckets of that many elements,
-    and ``buckets`` lists, per call of ``sharding._buckets``, its buckets'
-    leaf sizes."""
+    ``state_dict``, on this process's data block's rows of ``batch``, the
+    draws from a generator seeded ``seed``: over processes, each holds an
+    equal run of the ranks (its data rows' whole pipelines, or stages of
+    one, or part of a stage's tp group); in one process (no group), every
+    rank. Returns the
+    metrics, the gathered state (None off process 0) and the pipeline's and
+    the tp groups' traffic across processes (``comm.PP_REMOTE``,
+    ``comm.TP_REMOTE``), under the named known-wrong ``variant``; with
+    ``bucket``, the cross-process gradient sum runs in buckets of that many
+    elements, and ``buckets`` lists, per call of ``sharding._buckets``, its
+    buckets' leaf sizes."""
     from opensora_torch.models.mmdit.model import MMDiTConfig, MMDiTModel
-    from opensora_torch.parallel import distributed, sharding
+    from opensora_torch.parallel import comm, distributed, sharding
     from opensora_torch.parallel.context import set_mesh
     from opensora_torch.parallel.mesh import create_pp_mesh
     from opensora_torch.training import diffusion as tdiff
@@ -366,12 +395,78 @@ def pp_step(state_dict: dict, geom: dict, opt: dict, sizes, n_micro: int, batch:
         seen.append([[g[0].numel() for g in run] for run in runs])
         return runs
 
+    comm.PP_REMOTE.update(sends=0, bytes=0)
+    comm.TP_REMOTE.update(all_reduces=0, bytes=0)
+    patch = VARIANTS[variant]
     with unittest.mock.patch.multiple(sharding, REPLICA_BUCKET=bucket, _buckets=recorded) if bucket \
+            else contextlib.nullcontext(), unittest.mock.patch(patch[0], patch[1]) if patch \
             else contextlib.nullcontext():
-        m = step(state, local_rows(batch), generator=torch.Generator().manual_seed(seed))
+        m = step(state, block_rows(batch, mesh), generator=torch.Generator().manual_seed(seed))
     out = dict(metrics=[{k: float(v) for k, v in m.items()}], state=_gathered(state), mesh=repr(mesh),
-               buckets=seen)
+               buckets=seen, pp_remote=dict(comm.PP_REMOTE), tp_remote=dict(comm.TP_REMOTE))
     set_mesh(None)
+    return out
+
+
+def pp_forward(state_dict: dict, geom: dict, sizes, n_micro: int, inputs: dict) -> torch.Tensor:
+    """The GPipe forward (``make_pp_forward``) over a (pp, data, tp) mesh
+    (``sizes``; each process an equal run of its ranks) on ``inputs`` (the
+    model's keyword arguments, numpy): the output (None on a process without
+    the last stage)."""
+    from opensora_torch.models.mmdit.model import MMDiTConfig, MMDiTModel
+    from opensora_torch.parallel import distributed
+    from opensora_torch.parallel.mesh import create_pp_mesh
+    from opensora_torch.training.pp import make_pp_forward, shard_pp
+
+    pp, data, tp = sizes
+    tm = MMDiTModel(MMDiTConfig(**geom, dtype="fp32", attn_backend="xla"), device="cpu", dtype=torch.float32)
+    tm.load_state_dict(state_dict)
+    mesh = create_pp_mesh(pp, data, tp, [CPU] * (pp * data * tp // distributed.process_count()))
+    shard_pp(mesh, tm)
+    with torch.no_grad():
+        return make_pp_forward(tm, mesh, n_micro)(**{k: torch.from_numpy(v) for k, v in inputs.items()})
+
+
+def pp_under_nccl(state_dict: dict, geom: dict) -> dict:
+    """``make_pp_forward`` with the backend taken for nccl, over (pp 2, data
+    1), one stage a process, and over (pp 2, data 2), whole pipelines a
+    process: the error each raises before the first step, or None."""
+    from opensora_torch.models.mmdit.model import MMDiTConfig, MMDiTModel
+    from opensora_torch.parallel import distributed
+    from opensora_torch.parallel.mesh import create_pp_mesh
+    from opensora_torch.training.pp import make_pp_forward, shard_pp
+
+    out = {}
+    for sizes in ((2, 1, 1), (2, 2, 1)):
+        tm = MMDiTModel(MMDiTConfig(**geom, dtype="fp32", attn_backend="xla"), device="cpu", dtype=torch.float32)
+        tm.load_state_dict(state_dict)
+        mesh = create_pp_mesh(*sizes, [CPU] * (math.prod(sizes) // distributed.process_count()))
+        shard_pp(mesh, tm)
+        with unittest.mock.patch.object(distributed, "backend", lambda: "nccl"):
+            try:
+                make_pp_forward(tm, mesh, 2)
+                out[sizes] = None
+            except NotImplementedError as e:
+                out[sizes] = str(e)
+    return out
+
+
+def tp_max(seed: int, shape) -> dict:
+    """``comm.all_reduce_max`` over a tp group spanning every process, each
+    holding two ranks' tensors drawn from ``seed`` and its index, and
+    ``all_reduce`` of the same tensors with a bias: the results and the
+    cross-process all-reduces counted."""
+    from opensora_torch.parallel import comm, distributed
+
+    p = distributed.process_index()
+    gen = torch.Generator().manual_seed(seed + p)
+    parts = [torch.randn(shape, generator=gen) for _ in range(2)]
+    bias = torch.randn(shape[-1], generator=torch.Generator().manual_seed(seed))
+    comm.TP_REMOTE.update(all_reduces=0, bytes=0)
+    group = distributed.world()
+    out = dict(parts=parts, max=comm.all_reduce_max(parts, group), sum=comm.all_reduce(parts, bias=[bias] * 2,
+                                                                                        group=group))
+    out["tp_remote"] = dict(comm.TP_REMOTE)
     return out
 
 
@@ -439,18 +534,18 @@ def data_layer(n_rows: int, table: list, buckets: dict, seed: int) -> dict:
     return out
 
 
-def spanning_mesh(sizes, pipeline: bool = False) -> str:
-    """The error of a mesh whose tp group (``sizes`` (data, sp, tp)), or
-    pipeline (``pipeline``: ``sizes`` (pp, data, tp)), crosses the
-    processes."""
-    from opensora_torch.parallel.mesh import MeshConfig, create_mesh, create_pp_mesh
+def spanning_meshes() -> dict:
+    """``Mesh((1, 1, 2), ..., processes=[0, 1])`` (a tp group across the
+    two processes) and a (pp 2) pipeline mesh with one stage a process,
+    built in each process: their reprs, this process's ranks and the
+    processes of its tp group."""
+    from opensora_torch.parallel import distributed
+    from opensora_torch.parallel.mesh import Mesh, create_pp_mesh
 
-    n = sizes[0] * sizes[1] * sizes[2] // 2
-    try:
-        create_pp_mesh(*sizes, [CPU] * n) if pipeline else create_mesh(MeshConfig(*sizes), [CPU] * n)
-    except NotImplementedError as e:
-        return str(e)
-    return "no error"
+    tp = Mesh((1, 1, 2), [CPU, CPU], processes=[0, 1])
+    pp = create_pp_mesh(2, 1, 1, [CPU])
+    return dict(tp=repr(tp), tp_ranks=tp.local_ranks, tp_processes=tp.tp_processes, pp=repr(pp),
+                pp_ranks=pp.local_ranks, pp_stages=pp.local_mid, process=distributed.process_index())
 
 
 # ----------------------------------------------------------------------
@@ -459,10 +554,11 @@ def spanning_mesh(sizes, pipeline: bool = False) -> str:
 
 
 def trainer_iteration(cfg_path: str, video: np.ndarray, texts: list, state_path: str) -> dict:
-    """``Trainer.run_batch`` over (data 2, 1, 1) across the processes, each
-    given its rows of ``video`` / ``texts``, from the unsharded trainer's
-    saved state: the metrics, the mask conditions, and the masters on
-    process 0."""
+    """``Trainer.run_batch`` over the config's mesh across the processes
+    (``train_mesh``: (data 2, 1, 1) without a ``mesh`` key), each given its
+    data block's rows of ``video`` / ``texts``, from the unsharded
+    trainer's saved state: the metrics, the mask conditions, and the
+    masters on process 0."""
     from opensora_torch.parallel.context import set_mesh
     from opensora_torch.train import Trainer, train_mesh
     from opensora_torch.utils.config import parse_configs
@@ -471,8 +567,8 @@ def trainer_iteration(cfg_path: str, video: np.ndarray, texts: list, state_path:
     mesh = train_mesh(cfg, "cpu")
     trainer = Trainer(cfg, "cpu", mesh=mesh)
     trainer.state.load_state_dict(torch.load(state_path, weights_only=False))
-    rows = local_rows({"video": video})["video"]
-    p, n = mesh.process, mesh.n_processes
+    rows = block_rows({"video": video}, mesh)["video"]
+    p, n = mesh.data_block, mesh.data_blocks
     per = len(texts) // n
     m = trainer.run_batch({"video": rows, "text": texts[p * per:(p + 1) * per]})
     sd = trainer.state.state_dict()
