@@ -6339,6 +6339,8 @@ def multi_process_worker(root: str) -> int:
     rec["sp_processes"]["phase_s"] = time.perf_counter() - t0
     distributed.barrier()  # phase 28's trainers freed in both processes
     rec["tp_pp_processes"] = tp_pp_processes_worker(device, data, snapshot)
+    distributed.barrier()  # phase 29's trainers freed in both processes
+    rec["vae_cp_processes"] = vae_cp_processes_worker(device, data["vae_cp"])
     with open(os.path.join(root, f"result_{rank}.json"), "w") as f:
         json.dump(rec, f)
     distributed.shutdown()
@@ -6362,7 +6364,8 @@ def run_multi_process_path(device, carry: dict) -> dict:
         torch.save(dict(snapshot, ema=None), os.path.join(root, "state.pt"))
         torch.save(dict(video=carry["batch"]["video"].cpu(), text=carry["batch"]["text"],
                         rng_states=carry["rng_states"], ref_change=carry["ref_change"],
-                        step_inputs=carry["step_inputs"], n_blocks=n_blocks), os.path.join(root, "inputs.pt"))
+                        step_inputs=carry["step_inputs"], n_blocks=n_blocks, vae_cp=carry["vae_cp"]),
+                   os.path.join(root, "inputs.pt"))
         write_s = time.perf_counter() - t0
         free()
         res["parent_gb"] = dict(allocated=torch.cuda.memory_allocated(device) / 1e9,
@@ -6380,6 +6383,8 @@ def run_multi_process_path(device, carry: dict) -> dict:
         res["sp_processes"] = {tag: check_sp_processes(tag, run, ref, carry["sp4_ref"])
                                for tag, run in res["part_a"].items()}
         res["tp_pp_processes"] = {tag: check_tp_pp_processes(tag, run, ref) for tag, run in res["part_a"].items()}
+        res["vae_cp_processes"] = {tag: check_vae_cp_processes(tag, run, carry["vae_cp"]["limits"])
+                                   for tag, run in res["part_a"].items()}
         res["inputs_write_s"] = write_s
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -6452,18 +6457,25 @@ def check_sp_processes(tag: str, run: dict, ref: dict, sp4_ref: dict) -> dict:
 # rank a process: each row-parallel product's fp32 partial summed across the
 # two processes (comm.tp_all_reduce, whose backward sums the gradient the
 # same way), the row bias added once. Part (b): the pipeline key (pp 2,
-# data 1, n_micro 2) through pipeline_mesh, one stage a process: each
-# boundary's activation sent to the other process, its gradient sent back
-# (comm.send_tree / receive_tree, one message each way), stage 0's process
-# running its backward from the anchors of its sends, the loss's value
-# broadcast to it from the last stage's. One step each, held to phase 21's limits
+# data 1, n_micro 2) through pipeline_mesh, one stage a process, on the
+# ordered transport: each boundary's activation sent to the other process
+# in one message, its gradient sent back in one, every message under one
+# tag and posted by both processes in the order of the tick loop's slots
+# (comm.post_pipeline_messages; gloo then pairs them by posting order, as
+# nccl does), the backward run slot by slot in reverse tick order on both
+# processes (pipeline.PipelineTape), the loss's value broadcast to stage 0's
+# process from the last stage's. One step each, held to phase 21's limits
 # (TP_TRAIN_*) against phase 21's unsharded step: the loss and norm every
 # process reports, the masters' change summed over the processes' shards;
 # exact launches per process; the tp all-reduces (comm.TP_REMOTE) and the
 # pipeline's sends (comm.PP_REMOTE) per process, with their bytes, exact by
-# arithmetic. Known-wrong controls, each a step that must fail those limits:
-# (a) the tp sum's backward left local; (b) the last stage's received
-# activations sending back zero gradients. Part (c), after phase 24(b): the
+# arithmetic; each process's sequence of pipeline messages (posted and
+# received, in posting order) the mirror of the other's. Known-wrong
+# controls, each a step that must fail those limits: (a) the tp sum's
+# backward left local; (b) the last stage's received activations sending
+# back zero gradients, and process 0 running its microbatches' backwards in
+# forward order (its messages the same in size and place, so they meet the
+# other microbatches' gradients). Part (c), after phase 24(b): the
 # training CLI under torchrun with --mesh.tp_size 2 at MP_CLI_DEPTH blocks
 # (phase 24(b)'s run, both processes reading the same clip), its checkpoint
 # loaded by one process.
@@ -6508,18 +6520,40 @@ def _tp_sum_local(ctx, grad):
     return grad, None
 
 
-def _gradient_not_sent(ctx, *grads):
+def _gradient_not_sent(slot):
     """Known-wrong: a received activation sends back a zero gradient, so
     the stages before it get none."""
-    from opensora_torch.parallel import comm
+    return [torch.zeros_like(x) for x in slot.received]
 
-    return comm._Received.send_back(ctx, [torch.zeros_like(g) for g in grads])
+
+def _microbatches_forward(slots):
+    """Known-wrong: the slots' backwards in reverse order, each with the
+    microbatch of the mirrored slot (the microbatches' backwards in forward
+    order): the messages keep their sizes and places, so the gradients meet
+    other microbatches."""
+    at = {s.key: s for s in slots}
+    out = []
+    for s in reversed(slots):
+        if len(s.key) == 6:
+            call, tick, stage, d, m, n = s.key
+            s = at[(call, tick + n - 1 - 2 * m, stage, d, n - 1 - m, n)]
+        out.append(s)
+    return out
+
+
+def mirrored(log: dict, peer_log: dict, me: int, peer: int) -> bool:
+    """Whether this process's pipeline messages with ``peer`` (posting
+    order, (direction, bytes)) mirror the peer's with it element by
+    element: each send here a receive there, of the same size."""
+    flip = {"send": "recv", "recv": "send"}
+    mine, theirs = log.get(str(peer), []), peer_log.get(str(me), [])  # JSON's keys
+    return bool(mine) and [(flip[d], n) for d, n in mine] == [tuple(x) for x in theirs]
 
 
 def tp_pp_processes_worker(device, data: dict, snapshot: dict) -> dict:
     """Phase 29's parts (a) and (b) in one process (see its comment)."""
     from opensora_torch.ops import _build
-    from opensora_torch.parallel import comm, distributed
+    from opensora_torch.parallel import comm, distributed, pipeline
     from opensora_torch.parallel.context import set_mesh
     from opensora_torch.train import Trainer, pipeline_mesh, train_mesh
     from opensora_torch.utils.config import Config, parse_configs
@@ -6546,7 +6580,7 @@ def tp_pp_processes_worker(device, data: dict, snapshot: dict) -> dict:
         gen.set_state(data["step_inputs"]["gen_state"])
         _build.LAUNCHES.clear()
         comm.TP_REMOTE.update(all_reduces=0, bytes=0)
-        comm.PP_REMOTE.update(sends=0, bytes=0)
+        comm.reset_pp_remote()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
         with StagingTimer() as staging, patch or contextlib.nullcontext():
@@ -6555,7 +6589,8 @@ def tp_pp_processes_worker(device, data: dict, snapshot: dict) -> dict:
             torch.cuda.synchronize()
             step_s = time.perf_counter() - t1
         rec = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), launches=dict(_build.LAUNCHES),
-                   tp_remote=dict(comm.TP_REMOTE), pp_remote=dict(comm.PP_REMOTE), staging=staging.read(),
+                   tp_remote=dict(comm.TP_REMOTE), pp_remote={k: comm.PP_REMOTE[k] for k in ("sends", "bytes")},
+                   pp_log={str(p): v for p, v in comm.PP_REMOTE["log"].items()}, staging=staging.read(),
                    step_s=step_s, peak_mem_gb=torch.cuda.max_memory_allocated(device) / 1e9)
         rec.update(_masters_change(trainer.state, snapshot["params"], data["ref_change"]))
         return rec
@@ -6590,8 +6625,11 @@ def tp_pp_processes_worker(device, data: dict, snapshot: dict) -> dict:
                          "flash_attention_bwd_dq_convert": per * PP_PROC["n_micro"]},
                expected_pp_remote=pp_proc_traffic(tb, model_cfg, PP_PROC["n_micro"], dtype)[rank])
     out["runs"]["pp"] = rec
-    out["control_gradient_not_sent"] = step(trainer, unittest.mock.patch.object(comm._Received, "backward",
+    out["control_gradient_not_sent"] = step(trainer, unittest.mock.patch.object(pipeline, "sent_back",
                                                                                  _gradient_not_sent))
+    # process 0 alone runs its microbatches' backwards in forward order
+    out["control_microbatches_forward"] = step(
+        trainer, unittest.mock.patch.object(pipeline, "backward_order", _microbatches_forward) if rank == 0 else None)
     set_mesh(None)
     del trainer, tb
     free()
@@ -6613,7 +6651,7 @@ def check_tp_pp_processes(tag: str, run: dict, ref: dict) -> dict:
         return (c["loss_rel"] <= TP_TRAIN_LOSS_TOL and c["grad_norm_rel"] <= TP_TRAIN_NORM_TOL
                 and c["update_rel_l2_max"] <= TP_TRAIN_UPDATE_TOL)
 
-    controls = ("control_tp_sum_local", "control_gradient_not_sent")
+    controls = ("control_tp_sum_local", "control_gradient_not_sent", "control_microbatches_forward")
     for p, rec in enumerate(recs):
         for name, r in list(rec["runs"].items()) + [(c, rec[c]) for c in controls]:
             r["vs_unsharded"] = vs(r)
@@ -6638,9 +6676,16 @@ def check_tp_pp_processes(tag: str, run: dict, ref: dict) -> dict:
         if pp["pp_remote"] != pp["expected_pp_remote"] or pp["tp_remote"]["all_reduces"]:
             raise AssertionError(f"tp_pp_processes {tag} process {p}: the pipeline's sends {pp['pp_remote']} != "
                                  f"{pp['expected_pp_remote']}, or tp all-reduces {pp['tp_remote']}")
+        q = 1 - p  # the other stage's process
+        if not mirrored(pp["pp_log"], recs[q]["runs"]["pp"]["pp_log"], p, q):
+            raise AssertionError(f"tp_pp_processes {tag}: process {p}'s pipeline messages {pp['pp_log']} do not "
+                                 f"mirror process {q}'s {recs[q]['runs']['pp']['pp_log']}")
+        log(f"[tp_pp_processes] {tag} process {p}: {len(pp['pp_log'][str(q)])} pipeline messages posted and "
+            f"received with process {q}, in one order on both sides: {pp['pp_log'][str(q)]}")
         log(f"[tp_pp_processes] {tag} process {p} controls: the tp sum's backward left local "
             f"{rec['control_tp_sum_local']['vs_unsharded']}; the stage's gradient not sent back "
-            f"{rec['control_gradient_not_sent']['vs_unsharded']}")
+            f"{rec['control_gradient_not_sent']['vs_unsharded']}; process 0's microbatches' backwards in forward "
+            f"order {rec['control_microbatches_forward']['vs_unsharded']}")
         for c in controls:
             if held(rec[c]["vs_unsharded"]):
                 raise AssertionError(f"tp_pp_processes {tag}: the control {c} passed phase 21's limits: "
@@ -6659,6 +6704,170 @@ def tp_pp_launches(res: dict, kernel: str) -> dict:
     process."""
     return {tag: {name: [p["runs"][name]["launches"].get(kernel, 0) for p in run["processes"]]
                   for name in ("tp", "pp")} for tag, run in res["tp_pp_processes"].items()}
+
+
+# Phase 30: HunyuanVAE context parallelism with the sp ranks in other
+# processes, in phase 24's two worker processes after phase 29: each process
+# builds phase 23's VAE (stage1.py's ae, random bf16 weights from the seed;
+# the weights' fingerprint checked against phase 23's) and clip, and runs
+# make_sharded_vae_fn's encode (posterior mode) and decode (of phase 23's
+# unsharded latent) over (data 1, sp) for each of VAE_CP_PROC_SP, the sp
+# ranks split evenly over the two processes (sp 2: one rank a process; sp 4:
+# two): each process runs its own strips, the halo rows at the process
+# boundary come from the other process, the group norms' fp32 sums are
+# all-reduced across the processes and the mid-block attention's height is
+# all-gathered, each process running the D = 512 forward once a pass. Held
+# on each process, with the whole result it gets back, to phase 23's limits
+# against phase 23's unsharded pass; the traffic across the processes
+# (vae_sharding.VAE_REMOTE: halo sends, moment all-reduces, gathers, with
+# their bytes) exact against arithmetic over the unsharded pass's layers
+# (vae_cp_traffic, run before the sharded passes); exactly one D = 512 launch
+# per process and pass. Known-wrong control: the sp-2 encode with the halo
+# not exchanged across the process boundary (the boundary strips' own edge
+# rows replicated) must exceed the encode's limit.
+VAE_CP_PROC_SP = (2, 4)
+
+
+def vae_cp_traffic(vae, run, process: int, n_processes: int) -> dict:
+    """``VAE_REMOTE`` of one process for one pass, by arithmetic over the
+    unsharded pass's layers (``run(vae)``): per causal conv of kernel height
+    k and stride s on (B, C, T, H, W), a process above another sends it its
+    last strip's k // 2 bottom rows, a process below another its first
+    strip's k - s - k // 2 top rows; per group norm two fp32 all-reduces of
+    (B, groups); per mid-block attention, and per output (the quant_conv's
+    moments of each sample, the decoder's video), one all-gather of this
+    process's share of the height."""
+    from opensora_torch.models.hunyuan_vae.blocks import CausalAttention, CausalConv3d, GroupNorm
+    from opensora_torch.parallel import vae_sharding
+
+    convs, norms, gathers = [], [], []
+
+    def conv_hook(m, args, _):
+        convs.append((tuple(args[0].shape), m.conv.kernel_size[1], m.conv.stride[1], args[0].element_size()))
+
+    def gather_hook(m, args, out):
+        x = args[0] if isinstance(m, CausalAttention) else out
+        gathers.append(x.numel() * x.element_size())
+
+    hooks = [m.register_forward_hook(conv_hook) for m in vae.modules() if isinstance(m, CausalConv3d)]
+    hooks += [m.register_forward_hook(lambda m, a, o: norms.append((a[0].shape[0], m.num_groups)))
+              for m in vae.modules() if isinstance(m, GroupNorm)]
+    hooks += [m.register_forward_hook(gather_hook) for m in vae.modules() if isinstance(m, CausalAttention)]
+    hooks += [vae.quant_conv.register_forward_hook(gather_hook), vae.decoder.register_forward_hook(gather_hook)]
+    try:
+        with torch.no_grad():
+            run(vae)
+    finally:
+        for h in hooks:
+            h.remove()
+    out = dict.fromkeys(vae_sharding.VAE_REMOTE, 0)
+    for (b, c, t, _, w), k, s, e in convs:
+        for rows, sends in ((k // 2, process < n_processes - 1), (k - s - k // 2, process > 0)):
+            if rows and sends:
+                out["halo_sends"] += 1
+                out["halo_bytes"] += b * c * t * rows * w * e
+    out.update(moment_all_reduces=2 * len(norms), moment_bytes=sum(2 * b * g * 4 for b, g in norms),
+               gathers=len(gathers), gather_bytes=sum(n // n_processes for n in gathers))
+    return out
+
+
+def _halo_from_own_rows(self, xs, top, bottom):
+    """Known-wrong: no halo rows across the process boundary: a process's
+    end strips take their own edge rows, replicated, for the other
+    process's."""
+    return ((xs[0][:, :, :, :1].expand(-1, -1, -1, top, -1) if self.group.first > 0 and top else None),
+            (xs[-1][:, :, :, -1:].expand(-1, -1, -1, bottom, -1)
+             if self.group.first + len(xs) < self.n and bottom else None))
+
+
+def vae_cp_processes_worker(device, ref: dict) -> dict:
+    """Phase 30 in one process (see its comment)."""
+    from opensora_torch.models.hunyuan_vae.model import CausalVAE3D_HUNYUAN
+    from opensora_torch.ops import _build
+    from opensora_torch.parallel import distributed, vae_sharding
+    from opensora_torch.parallel.mesh import MeshConfig, create_mesh
+    from opensora_torch.utils.config import parse_configs
+
+    t0 = time.perf_counter()
+    rank, world = distributed.process_index(), distributed.process_count()
+    cfg = parse_configs([STAGE1_CFG])
+    torch.manual_seed(cfg.seed)
+    vae = CausalVAE3D_HUNYUAN(device=device, **{k: v for k, v in dict(cfg.ae).items() if k != "type"}).eval()
+    if vae_fingerprint(vae) != ref["fingerprint"]:
+        raise AssertionError(f"vae_cp_processes: the VAE's weights {vae_fingerprint(vae)} are not phase 23's "
+                             f"{ref['fingerprint']}")
+    x = vae_cp_clip(device, VAE_CP_FRAMES, VAE_CP_SIZE, cfg.seed)
+    want = dict(encode=ref["z_ref"].to(device), decode=ref["y_ref"].to(device))
+    runs = dict(encode=lambda fn: fn(x, sample_posterior=False), decode=lambda fn: fn(want["encode"]))
+    out = dict(expected={w: vae_cp_traffic(vae, lambda v, w=w: runs[w](getattr(v, w)), rank, world) for w in runs},
+               sp={})
+    for sp in VAE_CP_PROC_SP:
+        mesh = create_mesh(MeshConfig(1, sp, 1), [device] * (sp // world))
+        out["sp"][sp] = dict(mesh=repr(mesh))
+        for w in runs:
+            fn = vae_sharding.make_sharded_vae_fn(vae, mesh, w)
+            free()
+            torch.cuda.reset_peak_memory_stats(device)
+            vae_sharding.reset_vae_remote()
+            _build.LAUNCHES.clear()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with torch.no_grad():
+                y = runs[w](fn)
+                torch.cuda.synchronize()
+            out["sp"][sp][w] = dict(seconds=time.perf_counter() - t1, rel_l2=rel_l2(y, want[w]),
+                                    max_rel=max_rel(y, want[w]), shape=list(y.shape), launches=dict(_build.LAUNCHES),
+                                    traffic=dict(vae_sharding.VAE_REMOTE),
+                                    peak_mem_gb=torch.cuda.max_memory_allocated(device) / 1e9)
+            del y
+    mesh = create_mesh(MeshConfig(1, VAE_CP_PROC_SP[0], 1), [device] * (VAE_CP_PROC_SP[0] // world))
+    vae_sharding.reset_vae_remote()
+    with unittest.mock.patch.object(vae_sharding.HeightStrips, "_edges", _halo_from_own_rows), torch.no_grad():
+        z = vae_sharding.make_sharded_vae_fn(vae, mesh, "encode")(x, sample_posterior=False)
+    out["control_halo_left_out"] = dict(rel_l2=rel_l2(z, want["encode"]), max_rel=max_rel(z, want["encode"]),
+                                        traffic=dict(vae_sharding.VAE_REMOTE))
+    del vae, x, want, z
+    free()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def check_vae_cp_processes(tag: str, run: dict, limits: dict) -> dict:
+    """Phase 30's readings from one part (a) run's processes, held to phase
+    23's limits (see the phase's comment)."""
+    recs = [r["vae_cp_processes"] for r in run["processes"]]
+    for p, rec in enumerate(recs):
+        log(f"[vae_cp_processes] {tag} process {p}: " + json.dumps(rec))
+        for sp, r in rec["sp"].items():
+            for w in ("encode", "decode"):
+                got = r[w]
+                log(f"[vae_cp_processes] {tag} process {p} sp {sp} {w} ({r['mesh']}): {got['seconds']:.2f} s, rel L2 "
+                    f"{got['rel_l2']:.3e} (limit {limits[w]:.3e}), traffic {got['traffic']}, launches "
+                    f"{got['launches']}, peak {got['peak_mem_gb']:.2f} GB")
+                if not got["rel_l2"] <= limits[w]:
+                    raise AssertionError(f"vae_cp_processes {tag} process {p} sp {sp} {w}: {got['rel_l2']} over "
+                                         f"{limits[w]}")
+                if got["traffic"] != rec["expected"][w]:
+                    raise AssertionError(f"vae_cp_processes {tag} process {p} sp {sp} {w}: traffic {got['traffic']} "
+                                         f"!= expected {rec['expected'][w]}")
+                if got["launches"] != {"flash_attention_fwd_d512": 1}:
+                    raise AssertionError(f"vae_cp_processes {tag} process {p} sp {sp} {w}: launches {got['launches']}")
+                check_peak(f"vae_cp_processes {tag} process {p} sp {sp} {w}", got["peak_mem_gb"])
+        c = rec["control_halo_left_out"]
+        log(f"[vae_cp_processes] {tag} process {p} control, the halo left out across the processes: {c}")
+        if not (c["rel_l2"] > limits["encode"] and c["traffic"]["halo_sends"] == 0):
+            raise AssertionError(f"vae_cp_processes {tag}: the control passed the encode's limit {limits['encode']}: "
+                                 f"{c}")
+    log(f"[time] phase 30 ({tag}, inside phase 24's processes): {max(r['seconds'] for r in recs):.1f} s")
+    return dict(processes=recs, limits=limits)
+
+
+def vae_cp_proc_launches(res: dict) -> dict:
+    """Phase 30's D = 512 launches per part (a) run, sp, pass and
+    process."""
+    return {tag: {f"sp{sp}": {w: [p["sp"][sp][w]["launches"].get("flash_attention_fwd_d512", 0) for p in run["processes"]]
+                               for w in ("encode", "decode")} for sp in run["processes"][0]["sp"]}
+            for tag, run in res["vae_cp_processes"].items()}
 
 
 def _multi_process_part_a(root: str, tag: str, extra_env: dict, ref: dict, n_blocks: int) -> dict:
@@ -6868,7 +7077,14 @@ def vae_cp_clip(device, frames: int, size: int, seed: int) -> torch.Tensor:
     return (0.2 * torch.randn((1, 3, frames, size, size), generator=gen, device=device) + ramp).clamp(-1, 1)
 
 
-def run_vae_cp_path(device) -> dict:
+def vae_fingerprint(vae) -> list:
+    """The sum and the sum of squares of every weight, in float64: equal in
+    two processes that built the VAE from one seed."""
+    weights = [p.detach().double() for p in vae.parameters()]
+    return [float(sum(w.sum() for w in weights)), float(sum(w.square().sum() for w in weights))]
+
+
+def run_vae_cp_path(device, carry: dict) -> dict:
     """Phase 23: HunyuanVAE context parallelism over height
     (``parallel/vae_sharding.make_sharded_vae_fn``) on logical ranks of the
     card. On a small clip, the unsharded and the sp-4 bf16 passes against
@@ -6942,6 +7158,8 @@ def run_vae_cp_path(device) -> dict:
 
     z_ref, rec_enc = run(lambda v: vae.encode(v, sample_posterior=False), x)
     y_ref, rec_dec = run(vae.decode, z_ref)
+    # phase 30's references: the same VAE and clip, rebuilt from the seed in each process
+    carry["vae_cp"] = dict(z_ref=z_ref.cpu(), y_ref=y_ref.cpu(), limits=limits, fingerprint=vae_fingerprint(vae))
     res = dict(shape=list(x.shape), latent=list(z_ref.shape), small_clip=list(small.shape), fp32=fp32, limits=limits,
                halo_convs_max_rel=halo, unsharded=dict(encode=rec_enc, decode=rec_dec), sp={}, controls={})
     for sp in VAE_CP_SP:
@@ -7131,11 +7349,11 @@ def main(argv) -> int:
     fsdp_res = timed("phase 21 FSDP training", run_fsdp_train_path, device, "--profile" in argv, out_dir, carry)
     pp_res = timed("phase 22 GPipe training", run_pp_train_path, device, carry)
     sp_train_res = timed("phase 27 stage2 over sp", run_sp_train_path, device, carry)
-    mp_res = timed("phase 24 processes (and phases 28 and 29 in them)", run_multi_process_path, device, carry)
+    vae_cp_res = timed("phase 23 VAE context parallel", run_vae_cp_path, device, carry)  # phase 30's references
+    mp_res = timed("phase 24 processes (and phases 28, 29 and 30 in them)", run_multi_process_path, device, carry)
     del carry
     with tempfile.TemporaryDirectory() as tmp:
         lora_res = timed("phase 25 LoRA over a sharded mesh", run_lora_sharded_path, device, tmp)
-    vae_cp_res = timed("phase 23 VAE context parallel", run_vae_cp_path, device)
     int8_res, int8_built = timed("phase 6 int8", run_int8_path, device, [], STEPS, "--profile" in argv, out_dir,
                                  "int8", records, keep=True)
     int8_res["small_input"] = small_int8
@@ -7236,6 +7454,7 @@ def main(argv) -> int:
         launches_lora_sharded=lora_sharded_launches(lora_res, "flash_attention_fwd_d512"),
         launches_vae_cp={f"sp{sp}": {w: r[w]["launches"]["flash_attention_fwd_d512"] for w in ("encode", "decode")}
                          for sp, r in vae_cp_res["sp"].items()},
+        launches_vae_cp_processes=vae_cp_proc_launches(mp_res),
         max_abs_err=max(c["max_abs_err"] for c in d512_cases),
         ms=head["ms"], ms_is="flash_attention_with_lse, the mean of 4 readings in turns with SDPA's 4 (library_ms)",
         plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],

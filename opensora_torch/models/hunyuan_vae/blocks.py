@@ -11,7 +11,10 @@ Each block also runs height-sharded (``parallel/vae_sharding.py``):
 ``forward_strips(cp, xs)`` maps the strips of one activation, one per sp
 rank of ``cp`` (a ``HeightStrips``), to the strips of its output. The
 convolutions take halo rows from the neighbouring strips, the group norms
-all-reduce their statistics, the mid-block attention gathers the height.
+all-reduce their statistics, the mid-block attention gathers the height;
+each strip runs through its own device's replica of the block's weights
+(``cp.on(block, r)``; the block itself where the strip lies on the VAE's
+device).
 Over ``ONE_STRIP`` (one strip: the whole tensor) every block is its plain
 forward, which the composite blocks' ``forward`` is.
 
@@ -59,13 +62,13 @@ class CausalConv3d(nn.Module):
         below), padded in T and W, then convolved: the unsharded conv's
         output rows of that strip."""
         if cp.n == 1:
-            return [self(x) for x in xs]
+            return [cp.on(self, r)(x) for r, x in enumerate(xs)]
         kh, sh = self.conv.kernel_size[1], self.conv.stride[1]
         if any(x.shape[3] % sh for x in xs):
             raise ValueError(f"strips of {xs[0].shape[3]} rows under a height stride of {sh}")
         pad = self.pad[:2] + (0, 0) + self.pad[4:]
         xs = cp.halo(xs, kh // 2, kh - sh - kh // 2)
-        return [self.conv(F.pad(x, pad, mode="replicate") if any(pad) else x) for x in xs]
+        return [cp.on(self, r).conv(F.pad(x, pad, mode="replicate") if any(pad) else x) for r, x in enumerate(xs)]
 
 
 class GroupNorm(nn.Module):
@@ -85,12 +88,13 @@ class GroupNorm(nn.Module):
         its statistics: x * a + b in fp32 with a = rstd * weight and
         b = bias - mean * a per channel, rounded once."""
         if cp.n == 1:
-            return [self(x) for x in xs]
+            return [cp.on(self, r)(x) for r, x in enumerate(xs)]
         means, vars_ = cp.group_moments(xs, self.num_groups)
         out = []
-        for x, mean, var in zip(xs, means, vars_):
-            a = torch.rsqrt(var + self.eps) * self.weight.float().reshape(self.num_groups, -1)  # (B, G, C / G)
-            b = self.bias.float().reshape(self.num_groups, -1) - mean * a
+        for r, (x, mean, var) in enumerate(zip(xs, means, vars_)):
+            own = cp.on(self, r)
+            a = torch.rsqrt(var + self.eps) * own.weight.float().reshape(self.num_groups, -1)  # (B, G, C / G)
+            b = own.bias.float().reshape(self.num_groups, -1) - mean * a
             y = x.float().reshape(*a.shape, -1) * a[..., None] + b[..., None]
             out.append(y.reshape(x.shape).to(x.dtype))
         return out
@@ -173,8 +177,8 @@ class CausalAttention(nn.Module):
         distinct device over the full height, each rank's rows cut back
         out."""
         if cp.n == 1:
-            return [self(x) for x in xs]
-        outs = cp.gathered(self._attend, self.group_norm.forward_strips(cp, xs))
+            return [cp.on(self, r)(x) for r, x in enumerate(xs)]
+        outs = cp.gathered(lambda full, r: cp.on(self, r)._attend(full), self.group_norm.forward_strips(cp, xs))
         return [o + x for o, x in zip(outs, xs)]
 
 

@@ -57,13 +57,14 @@ sends and their bytes). A tp group across processes sums its row-parallel
 partials with :func:`all_reduce` / :func:`all_reduce_max` given the group
 (:func:`tp_all_reduce`, whose backward sums the gradient over the group
 too; ``TP_REMOTE`` counts them and their bytes). Pipeline stages in other
-processes exchange activations with :func:`send_tree` /
-:func:`receive_tree`: a boundary's tensors, of shapes both sides know,
-packed in one tagged message (:func:`process_isend` /
-:func:`process_recv`); the receiver's backward sends their gradients back
-in one message, and the sender's anchors, roots of its backward
-(:func:`take_anchors`), receive them; ``PP_REMOTE`` counts the messages and
-their bytes; :func:`wait_sends` waits for the posted sends. Under ``nccl`` they run on the tensors where they
+processes exchange a boundary's tensors, of shapes both sides know, packed
+in one message, and their gradients back in one message, with
+:func:`post_pipeline_messages`: each process posts a slot's messages in
+one order that both sides derive from the schedule (``parallel/
+pipeline.py``), under one tag, as one ``batch_isend_irecv``; its receives
+are waited for at use (:class:`Incoming`); ``PP_REMOTE`` counts the
+messages and their bytes and logs each pair's sequence; :func:`wait_sends`
+waits for the posted sends. Under ``nccl`` they run on the tensors where they
 lie. Under ``gloo`` a CUDA tensor is staged: copied to host memory
 (:func:`staged_copy`), the gloo op, copied back; ``STAGED`` counts those
 copies and their bytes (gloo is not asked to read device memory).
@@ -78,7 +79,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
-from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from opensora_torch.parallel import distributed
 
@@ -333,14 +333,11 @@ def process_broadcast(x: torch.Tensor, src: int, group: Optional[distributed.Gro
 _PENDING: List[tuple] = []  # (work, buffer) of the sends not yet waited for
 
 
-def process_isend(x: torch.Tensor, dst: int, tag: int = 0, counter: Optional[dict] = None) -> None:
+def process_isend(x: torch.Tensor, dst: int, tag: int = 0) -> None:
     """``x`` to process ``dst`` without waiting (a copy kept until
     :func:`wait_sends`), which takes it with :func:`process_recv` under the
     same ``tag`` (messages of one tag between two processes arrive in
-    order); ``counter`` (a dict of sends and bytes) counts it."""
-    if counter is not None:
-        counter["sends"] += 1
-        counter["bytes"] += x.numel() * x.element_size()
+    order)."""
     with torch.profiler.record_function(DIST_SPAN):
         buf = _send_buffer(x.contiguous())
         _PENDING.append((dist.isend(buf, dst, tag=tag), buf))
@@ -353,6 +350,29 @@ def process_recv(shape, dtype, device, src: int, tag: int = 0) -> torch.Tensor:
         buf = _transport_buffer(shape, dtype, device)
         dist.recv(buf, src, tag=tag)
         return _landed(buf, device)
+
+
+def process_exchange(sends: Sequence[Tuple[int, torch.Tensor]], recvs: Sequence[Tuple[int, torch.Tensor]],
+                     group: Optional[distributed.Group] = None) -> List[torch.Tensor]:
+    """Tensors to and from other processes of ``group`` (default: every
+    process; peers by their rank in the run), posted together as one
+    ``batch_isend_irecv`` and waited for: ``sends`` (dst, x); ``recvs``
+    (src, like), each received shaped as ``like`` onto its device. Returns
+    the received tensors, in order."""
+    if not sends and not recvs:
+        return []
+    handle = _group(group).handle
+    with torch.profiler.record_function(DIST_SPAN):
+        ops, into = [], []
+        for src, like in recvs:
+            buf = _transport_buffer(like.shape, like.dtype, like.device)
+            into.append((buf, like.device))
+            ops.append(dist.P2POp(dist.irecv, buf, src, handle))
+        out = [_send_buffer(x.contiguous()) for _, x in sends]
+        ops += [dist.P2POp(dist.isend, buf, dst, handle) for (dst, _), buf in zip(sends, out)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        return [_landed(buf, device) for buf, device in into]
 
 
 def wait_sends() -> None:
@@ -800,25 +820,18 @@ class RingTransport:
 # pipeline stages across processes
 # ---------------------------------------------------------------------------
 
-# the pipeline's messages to another process since the last reset: a stage
-# boundary's activation (its tensors packed in one message) and, back, the
-# gradients of those of its tensors that carry one (one message): how many,
-# and their bytes
-PP_REMOTE = {"sends": 0, "bytes": 0}
-_ANCHORS: List[torch.Tensor] = []  # the anchors of this process's sends not yet taken
+# the pipeline's messages since the last reset (:func:`reset_pp_remote`):
+# "sends" and "bytes" count those this process posted (a stage boundary's
+# activation, its tensors packed in one message, and, back, the gradients of
+# those of its tensors that carry one); "log" holds, per peer process, every
+# message posted to it or received from it, in posting order, as (direction,
+# bytes): the sequence both processes of a pair must agree on
+PP_REMOTE: dict = {"sends": 0, "bytes": 0, "log": {}}
+PIPELINE_TAG = 1  # every pipeline message's tag: one tag, so a pair's messages meet in posting order
 
 
-def pipeline_tag(key: Tuple[int, ...], backward: bool = False) -> int:
-    """A message's tag: its key (call, microbatch, data index, from stage,
-    to stage) and direction, packed in 31 bits, so that a receive takes its
-    message whatever order the sender posted them in (gloo matches tags;
-    nccl does not: ``parallel/pipeline.check_transport``)."""
-    tag = 0
-    for v, bits in zip(key, (2, 9, 4, 5, 5)):
-        if not 0 <= v < 1 << bits:
-            raise ValueError(f"pipeline message key {key} out of range")
-        tag = (tag << bits) | v
-    return 2 * tag + int(backward)
+def reset_pp_remote() -> None:
+    PP_REMOTE.update(sends=0, bytes=0, log={})
 
 
 def _nbytes(like: Sequence[torch.Tensor]) -> int:
@@ -826,8 +839,10 @@ def _nbytes(like: Sequence[torch.Tensor]) -> int:
 
 
 def _pack(xs: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Tensors joined, in order, into one byte buffer."""
-    return torch.cat([x.detach().contiguous().view(-1).view(torch.uint8) for x in xs])
+    """Tensors joined, in order, into one byte buffer (on the first one's
+    device)."""
+    dev = xs[0].device
+    return torch.cat([x.detach().contiguous().view(-1).view(torch.uint8).to(dev) for x in xs])
 
 
 def _unpack(buf: torch.Tensor, like: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -844,87 +859,60 @@ def _unpack(buf: torch.Tensor, like: Sequence[torch.Tensor]) -> List[torch.Tenso
     return out
 
 
-class _Received(torch.autograd.Function):
-    """A stage boundary's tensors from process ``src``, shaped as ``like``'s
-    leaves (meta tensors; those that require grad carry a gradient back).
-    The backward sends those gradients, packed in their order, in one
-    message (:meth:`send_back`)."""
+class Incoming:
+    """A posted receive of tensors shaped as ``like`` (meta tensors), on
+    ``device``: :meth:`wait` waits for it and returns them."""
 
-    @staticmethod
-    def forward(ctx, token, like, src, key, device):
-        ctx.src, ctx.key = src, key
-        ctx.back = [s.requires_grad for s in like]
-        out = _unpack(process_recv((_nbytes(like),), torch.uint8, device, src, pipeline_tag(key)), like)
-        ctx.mark_non_differentiable(*(x for x, b in zip(out, ctx.back) if not b))
-        return tuple(out)
+    def __init__(self, work, buf: torch.Tensor, like: Sequence[torch.Tensor], device: torch.device):
+        self.work, self.buf, self.like, self.device = work, buf, list(like), device
+        self.out: Optional[List[torch.Tensor]] = None
 
-    @staticmethod
-    def backward(ctx, *grads):
-        return _Received.send_back(ctx, grads)
-
-    @staticmethod
-    def send_back(ctx, grads):
-        """The gradients of the tensors that carry one, to the sender."""
-        process_isend(_pack([g for g, b in zip(grads, ctx.back) if b]), ctx.src, pipeline_tag(ctx.key, True),
-                      PP_REMOTE)
-        return None, None, None, None, None
+    def wait(self) -> List[torch.Tensor]:
+        if self.out is None:
+            with torch.profiler.record_function(DIST_SPAN):
+                self.work.wait()
+                self.out = _unpack(_landed(self.buf, self.device), self.like)
+            self.work = self.buf = None
+        return self.out
 
 
-class _SentAnchor(torch.autograd.Function):
-    """The sending side of a boundary's tensors ``xs`` that carry a gradient
-    (shaped as ``like``'s): a zero scalar, a root of the process's backward
-    (:func:`take_anchors`), whose backward receives their gradients in one
-    message, so that the backward runs through the stages that made them."""
-
-    @staticmethod
-    def forward(ctx, token, like, dst, key, *xs):
-        ctx.like, ctx.dst, ctx.key = like, dst, key
-        ctx.devices = [x.device for x in xs]
-        return token.new_zeros(())
-
-    @staticmethod
-    def backward(ctx, _):
-        buf = process_recv((_nbytes(ctx.like),), torch.uint8, ctx.devices[0], ctx.dst, pipeline_tag(ctx.key, True))
-        return (None, None, None, None, *(g.to(d) for g, d in zip(_unpack(buf, ctx.like), ctx.devices)))
-
-
-def send_tree(tree, like, dst: int, key: Tuple[int, ...]) -> None:
-    """A pytree of tensors shaped as ``like``'s (a pytree of meta tensors
-    of the same structure) to process ``dst`` (:func:`receive_tree` there,
-    with the same ``like`` and ``key``), packed in one message, without
-    waiting. With grad on, where some of ``like``'s leaves require grad,
-    an anchor is kept for :func:`take_anchors`: its backward receives
-    those leaves' gradients. Both sides take from ``like`` what carries a
-    gradient, so they agree on every message."""
-    leaves, specs = tree_flatten(tree)[0], tree_flatten(like)[0]
-    if [(x.shape, x.dtype) for x in leaves] != [(s.shape, s.dtype) for s in specs]:
-        raise ValueError(f"pipeline message {key}: its tensors {[(tuple(x.shape), x.dtype) for x in leaves]} are "
-                         f"not the {[(tuple(s.shape), s.dtype) for s in specs]} the receiving process expects")
-    if any(x.requires_grad and not s.requires_grad for x, s in zip(leaves, specs)):
-        raise ValueError(f"pipeline message {key}: a tensor that requires grad would get no gradient back")
-    process_isend(_pack(leaves), dst, pipeline_tag(key), PP_REMOTE)
-    back = [(x, s) for x, s in zip(leaves, specs) if s.requires_grad]
-    if back and torch.is_grad_enabled():
-        token = torch.zeros((), device=back[0][0].device, requires_grad=True)
-        _ANCHORS.append(_SentAnchor.apply(token, [s for _, s in back], dst, key, *(x for x, _ in back)))
-
-
-def receive_tree(like, src: int, key: Tuple[int, ...], device):
-    """The pytree process ``src`` sent with :func:`send_tree` under
-    ``key``, shaped as ``like``, on ``device``; with grad on, its leaves
-    that carry a gradient send it back in their backward."""
-    specs, spec = tree_flatten(like)
-    token = torch.empty(0, requires_grad=torch.is_grad_enabled() and any(s.requires_grad for s in specs))
-    return tree_unflatten(list(_Received.apply(token, specs, src, key, torch.device(device))), spec)
-
-
-def take_anchors() -> List[torch.Tensor]:
-    """The anchors of this process's sends since the last call: roots of
-    its backward, beside its loss where it has one. Autograd runs a
-    process's nodes in the reverse order of their making, so each process
-    receives a gradient only after it has sent every gradient made after
-    that tensor was sent: the stages' backwards meet across processes
-    without a deadlock, the receives matched by tag."""
-    out = list(_ANCHORS)
-    _ANCHORS.clear()
+def post_pipeline_messages(ops: Sequence[tuple]) -> List[Incoming]:
+    """One slot's pipeline messages, posted in the given order as one
+    ``batch_isend_irecv`` under :data:`PIPELINE_TAG`: ``("send", dst,
+    tensors)`` sends the tensors packed in one message (kept until
+    :func:`wait_sends`); ``("recv", src, like, device)`` receives one shaped
+    as ``like`` onto ``device``, returned, in order, as an
+    :class:`Incoming`. Both processes of a pair post a message in the same
+    slot and place, so that a backend which pairs messages in posting order
+    (nccl; gloo too, under one tag) pairs them right, and a pair's sends in
+    both directions of one slot go out together (nccl runs a communicator's
+    operations in order: a send posted alone before a receive, met by the
+    same on the other side, waits forever once it outgrows nccl's
+    buffers). Counted in ``PP_REMOTE``."""
+    p2p, bufs, incoming = [], [], []
+    with torch.profiler.record_function(DIST_SPAN):
+        for op in ops:
+            if op[0] == "send":
+                _, peer, xs = op
+                buf = _send_buffer(_pack(xs))
+                PP_REMOTE["sends"] += 1
+                PP_REMOTE["bytes"] += buf.numel()
+                p2p.append(dist.P2POp(dist.isend, buf, peer, tag=PIPELINE_TAG))
+            else:
+                _, peer, like, device = op
+                buf = _transport_buffer((_nbytes(like),), torch.uint8, device)
+                p2p.append(dist.P2POp(dist.irecv, buf, peer, tag=PIPELINE_TAG))
+                incoming.append((buf, like, torch.device(device)))
+            PP_REMOTE["log"].setdefault(peer, []).append((op[0], buf.numel()))
+            bufs.append(buf)
+        works = dist.batch_isend_irecv(p2p) if p2p else []
+    if len(works) != len(p2p):  # nccl: one work for the coalesced batch
+        works = works[-1:] * len(p2p)
+    received = iter(incoming)
+    out = []
+    for op, work, buf in zip(ops, works, bufs):
+        if op[0] == "send":
+            _PENDING.append((work, buf))
+        else:
+            out.append(Incoming(work, *next(received)))
     return out

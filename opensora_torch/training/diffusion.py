@@ -46,10 +46,12 @@ all-reduce over their holders, the norm is summed across processes, and a
 state dict is gathered on process 0. A pipeline over processes runs each
 process's stages of its data block's pipelines on the global batch's draws
 (:func:`process_draws`): the last stage's processes compute the loss and
-broadcast its value, for logging, to their data block's other processes,
-whose backward starts from the anchors of their sends alone
-(:func:`pipeline_loss`); the sends' gradients have left when the step's
-backward returns (``comm.wait_sends``).
+broadcast its value, for logging, to their data block's other processes;
+every process then runs the pipeline's backward slot by slot in reverse
+tick order (:func:`pipeline_loss`, ``parallel/pipeline.PipelineTape``), so
+that its messages, and the tp all-reduces inside each slot's backward,
+fall in one order on every process; the sends' gradients have left when
+the step's backward returns (``comm.wait_sends``).
 """
 
 from __future__ import annotations
@@ -64,8 +66,7 @@ import torch
 import torch.nn as nn
 
 from opensora_torch.parallel import distributed
-from opensora_torch.parallel.comm import process_all_gather, process_all_reduce, process_broadcast, \
-    take_anchors, wait_sends
+from opensora_torch.parallel.comm import process_all_gather, process_all_reduce, process_broadcast, wait_sends
 from opensora_torch.parallel.data import Placed, make_global_batch, row_slice
 from opensora_torch.parallel.mesh import DATA_AXIS
 from opensora_torch.parallel.sharding import ModelSharding, mesh_spec, mmdit_param_specs, shard_params
@@ -344,19 +345,22 @@ def make_train_step(
 
     def train_step(state: TrainState, batch: Dict, generator: Optional[torch.Generator] = None,
                    draws: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
-        roots = None
+        backward = None
         if state.sharding is not None and forward_fn is None:
             loss = sharded_loss(model, state.sharding, batch, generator, draws, text_dropout_prob, loss_kw)
         elif state.sharding is not None and state.sharding.across_processes:
             # a pipeline over processes: this process's data block's rows, the global draws
             if draws is None:
                 draws = process_draws(batch, text_dropout_prob, generator, state.sharding.mesh)
-            loss, roots = pipeline_loss(forward_fn, state.sharding.mesh, batch, draws, loss_kw)
+            loss, backward = pipeline_loss(forward_fn, state.sharding.mesh, batch, draws, loss_kw)
         else:
             if draws is None:
                 draws = draw_step(batch, text_dropout_prob, generator)
             loss = compute_loss(forward_fn or model, batch, **loss_kw, **draws)
-        torch.autograd.backward(loss if roots is None else roots)
+        if backward is None:
+            loss.backward()
+        else:
+            backward()
         wait_sends()  # the pipeline's gradients sent to other processes have left
         params = list(state.params.values())
         device = params[0].device
@@ -402,25 +406,29 @@ def sharded_loss(model: nn.Module, sharding: ModelSharding, batch: Dict, generat
 
 def pipeline_loss(forward_fn: Callable, mesh, batch: Dict, draws: Dict, loss_kw: dict):
     """A pipeline over processes (``training/pp.make_pp_forward``): the
-    loss's value on every process, and the roots of this process's
-    backward. The last stage's processes compute the loss (the mean over
-    the data blocks, its gradient once per tp group, as
-    :func:`sharded_loss`'s) and give its value to their data block's other
-    processes, for the metrics alone. Every process's backward starts from
-    the anchors of its sends to other stages too (``comm.take_anchors``),
-    whose backward receives the sent tensors' gradients."""
+    loss's value on every process, and the step's backward. The last
+    stage's processes compute the loss (the mean over the data blocks, its
+    gradient once per tp group, as :func:`sharded_loss`'s) and give its
+    value to their data block's other processes, for the metrics alone.
+    Where the pipeline spans processes the backward is its tape's
+    (``parallel/pipeline.PipelineTape.backward``): the loss's gradient of
+    each microbatch's last-stage output, then the slots in reverse tick
+    order, the same on every process."""
     from opensora_torch.parallel.mesh import PP_AXIS
+    from opensora_torch.parallel.pipeline import take_tape
 
     pred, v_t = predict(forward_fn, batch, sigma_min=loss_kw["sigma_min"], **draws)
-    roots = take_anchors()
+    tape = take_tape()
+    root = None
     value = torch.zeros((), dtype=torch.float32, device=batch["x0"].device)
     if pred is not None:  # this process holds the last stage
         loss = process_mean(flow_loss(pred, v_t, batch, loss_kw["use_masked_loss"], loss_kw["patch_size"]),
                             mesh.data_blocks, mesh.process_group(DATA_AXIS, mesh.local_ranks[0]))
-        roots.insert(0, tp_share(loss, mesh.tp_processes))
+        root = tp_share(loss, mesh.tp_processes)
         value = loss.detach()
     src = mesh.processes[mesh.rank((mesh.local_data[0], mesh.shape[PP_AXIS] - 1, 0))]
-    return process_broadcast(value, src, mesh.block_group), roots
+    value = process_broadcast(value, src, mesh.block_group)
+    return value, (lambda: root.backward()) if tape is None else (lambda: tape.backward(root))
 
 
 def global_draws(batch: Dict[str, Optional[Placed]], text_dropout_prob: float, generator) -> Dict:

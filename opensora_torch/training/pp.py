@@ -16,13 +16,16 @@ through the pipelines gives the reverse schedule, so the train step is the
 shared one (``training/diffusion.make_train_step(forward_fn=)``).
 
 Across processes (a pipeline whose stages, or a stage's tp group, span
-them: ``parallel/pipeline.py``; gloo only) each process runs its own
-stages only: stage 0's processes prepare the inputs, and the last stage's
-compute the final layer and return the output; the others return None,
-and their backward starts from the anchors of their sends
-(``comm.take_anchors``, ``training/diffusion.pipeline_loss``). The
-activations' shapes between stages, which both sides of a message must
-know, follow from the batch and the config (``boundaries``).
+them: ``parallel/pipeline.py``; under gloo and nccl alike) each process
+runs its own stages only: stage 0's processes prepare the inputs, and the
+last stage's compute the final layer and return the output; the others
+return None. With grad on, the forward records its slots on a
+``pipeline.PipelineTape`` (``pipeline.take_tape``), cut from the stage-0
+inputs (the embedders' outputs stand as leaves, the cut's backward runs
+last); ``training/diffusion.pipeline_loss`` runs the backward from it, slot
+by slot in reverse tick order, on every process. The activations' shapes
+between stages, which both sides of a message must know, follow from the
+batch and the config (``boundaries``).
 
 The depths must divide by the pp size (19 double blocks of the 11B config:
 pp sizes that divide 19), as the reference's stage manager assumes.
@@ -34,12 +37,12 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
-from torch.utils._pytree import tree_map
+from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from opensora_torch.parallel.mesh import DATA_AXIS, PP_AXIS, TP_AXIS, Mesh
 from opensora_torch.parallel.mesh import create_pp_mesh  # noqa: F401  (JAX's training/pp.py has it here)
 from opensora_torch.parallel.comm import wait_sends
-from opensora_torch.parallel.pipeline import check_transport, holds, pipeline_apply, split_stages
+from opensora_torch.parallel.pipeline import check_transport, holds, pipeline_apply, split_stages, start_tape
 from opensora_torch.parallel.sharding import RankGroup, Spec, mmdit_param_specs, shard_params
 from opensora_torch.training.diffusion import match_opt_shardings
 
@@ -107,8 +110,7 @@ def make_pp_forward(model: nn.Module, mesh: Mesh, n_micro: int, axis: str = PP_A
     microbatches must divide the batch (fill the pipeline with n_micro >=
     2 * pp for a small bubble), and each microbatch's rows the (process's)
     'data' ranks. Over processes a process that holds no last stage
-    returns None (see the module docstring); under nccl that raises here,
-    before the first step (``pipeline.check_transport``)."""
+    returns None (see the module docstring)."""
     n_stages = mesh.shape[axis]
     _check_depths(model, n_stages)
     sharding = model.sharding
@@ -116,7 +118,7 @@ def make_pp_forward(model: nn.Module, mesh: Mesh, n_micro: int, axis: str = PP_A
         raise ValueError("make_pp_forward: place the model on the mesh first (training/pp.shard_pp)")
     local = mesh.local_data if data_axis and data_axis in mesh.shape else [0]
     dp = len(local)
-    check_transport(mesh, axis)
+    spans = check_transport(mesh, axis)
     last = n_stages - 1
     groups = {(d, s): RankGroup(sharding, d, s) for d in local for s in range(n_stages) if holds(mesh, d, s)}
     first, final = holds(mesh, local[0], 0), holds(mesh, local[0], last)
@@ -166,12 +168,21 @@ def make_pp_forward(model: nn.Module, mesh: Mesh, n_micro: int, axis: str = PP_A
         inputs = (img, img_ids, txt, txt_ids, timesteps, y_vec, cond, guidance)
         n_txt = txt.shape[1]
         dbl_like, sgl_like = boundaries(per, n_txt, img.shape[1])
+        tape = start_tape() if spans and torch.is_grad_enabled() else None
         x_mb, cut = [], {}
 
         def microbatches(p):  # ranks that share a device share their pieces
             if id(p) not in cut:
                 cut[id(p)] = [tree_map(lambda f: f.chunk(n_micro)[m], p) for m in range(n_micro)]
             return cut[id(p)]
+
+        def leaves_for(prep, k):
+            """The tp ranks' stage-0 inputs as leaves of the tape's first cut
+            (tensors that several ranks share stay shared)."""
+            flat, spec = tree_flatten(prep)
+            uniq = list({id(x): x for x in flat}.values())
+            stand = dict(zip(map(id, uniq), tape.cut((-1, k), uniq)))
+            return tree_unflatten([stand[id(x)] for x in flat], spec)
 
         for k, d in enumerate(local):
             if not first:  # another process holds stage 0
@@ -182,8 +193,10 @@ def make_pp_forward(model: nn.Module, mesh: Mesh, n_micro: int, axis: str = PP_A
             g = groups[(d, 0)]
             prep = g.rep(lambda t: model.prepare_block_inputs(
                 *(None if x is None else x[rows.to(x.device)].to(g.devices[t]) for x in inputs)))
+            if tape is not None:
+                prep = leaves_for(prep, k)
             x_mb.append([[microbatches(prep[t])[m] for t in range(g.n_tp)] for m in range(n_micro)])
-        outs = pipeline_apply(dbl_stage, dbl, x_mb, mesh, axis, deliver=[0], like=dbl_like, call=0)
+        outs = pipeline_apply(dbl_stage, dbl, x_mb, mesh, axis, deliver=[0], like=dbl_like, call=0, tape=tape)
         x_mb = []
         for k, d in enumerate(local):
             if not first:
@@ -197,7 +210,7 @@ def make_pp_forward(model: nn.Module, mesh: Mesh, n_micro: int, axis: str = PP_A
                 row.append([(x[t], act[t][2], act[t][3]) for t in range(g.n_tp)])
             x_mb.append(row)
         del outs
-        outs = pipeline_apply(sgl_stage, sgl, x_mb, mesh, axis, deliver=[last], like=sgl_like, call=1)
+        outs = pipeline_apply(sgl_stage, sgl, x_mb, mesh, axis, deliver=[last], like=sgl_like, call=1, tape=tape)
         wait_sends()  # the forward's sends have left
         if not final:
             return None  # another process holds the last stage

@@ -175,7 +175,6 @@ def runs(tmp_path_factory):
         dict(variant="pp_gradient_not_sent"))
     add(2, "lora", "lora_steps", (l_params, lora_state_dict(l_factors), l_batch, GEOM, OPT, (1, 1, 2), RANK, SCALE,
                                   l_draws))
-    add(2, "nccl", "pp_under_nccl", (pp_sd, PP_GEOM))
     # the Trainer's iteration with a data block of 2 processes (a tp group
     # across them): the demo config with visual conditions, its state saved
     tmp = tmp_path_factory.mktemp("block")
@@ -347,16 +346,6 @@ def test_pp_gradient_not_sent_back_fails(runs):
     want = {n: p.numpy() for n, p in ref["state"]["params"].items()}
     change = max(_changes(got, want, p0).values())
     assert metric > 100 * PORT_TOL or change > 100 * PORT_UPDATE_TOL, (metric, change)
-
-
-def test_pipeline_across_processes_under_nccl_raises(runs):
-    """With the backend taken for nccl, which pairs a process pair's
-    messages in posting order and not by tag, a pipeline whose stages span
-    the processes raises when its forward is built, before the first step,
-    naming its ROADMAP item; whole pipelines a process build."""
-    for r in runs["by_name"]["nccl"]:
-        assert "ROADMAP Queue 1, \"Pipeline stages across processes under NCCL\"" in r[(2, 1, 1)], r
-        assert r[(2, 2, 1)] is None
 
 
 def test_trainer_iteration_with_a_data_block_of_two_processes(runs):

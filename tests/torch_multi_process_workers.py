@@ -204,19 +204,33 @@ def _tp_bias_each_process(parts, dtype=None, bias=None, group=None):
     return comm.all_reduce(parts, dtype, bias, group)
 
 
-def _gradient_not_sent(ctx, *grads):
+def _gradient_not_sent(slot):
     """Known-wrong: a pipeline stage's received activation sends back a zero
     gradient, so the stages before it get none from it."""
-    from opensora_torch.parallel import comm
+    return [torch.zeros_like(x) for x in slot.received]
 
-    return comm._Received.send_back(ctx, [torch.zeros_like(g) for g in grads])
+
+def _microbatches_forward(slots):
+    """Known-wrong: the slots' backwards run in the reverse order, but each
+    with the microbatch of the mirrored one (the microbatches' backwards in
+    forward order): the messages keep their sizes and places, so the
+    gradients meet the wrong microbatches."""
+    at = {s.key: s for s in slots}
+    out = []
+    for s in reversed(slots):
+        if len(s.key) == 6:
+            call, tick, stage, d, m, n = s.key
+            s = at[(call, tick + n - 1 - 2 * m, stage, d, n - 1 - m, n)]
+        out.append(s)
+    return out
 
 
 VARIANTS = {
     "right": None,
     "tp_grad_local": ("opensora_torch.parallel.comm._TpSum.backward", _tp_grad_local),
     "tp_bias_each_process": ("opensora_torch.parallel.sharding.all_reduce", _tp_bias_each_process),
-    "pp_gradient_not_sent": ("opensora_torch.parallel.comm._Received.backward", _gradient_not_sent),
+    "pp_gradient_not_sent": ("opensora_torch.parallel.pipeline.sent_back", _gradient_not_sent),
+    "pp_microbatches_forward": ("opensora_torch.parallel.pipeline.backward_order", _microbatches_forward),
     "unsummed": ("opensora_torch.parallel.sharding.process_all_reduce", _unsummed),
     "local_draws": ("opensora_torch.training.diffusion.global_draws", _local_draws),
     "undivided": ("opensora_torch.training.diffusion.process_mean", _undivided),
@@ -395,15 +409,18 @@ def pp_step(state_dict: dict, geom: dict, opt: dict, sizes, n_micro: int, batch:
         seen.append([[g[0].numel() for g in run] for run in runs])
         return runs
 
-    comm.PP_REMOTE.update(sends=0, bytes=0)
+    comm.reset_pp_remote()
     comm.TP_REMOTE.update(all_reduces=0, bytes=0)
     patch = VARIANTS[variant]
+    if variant == "pp_microbatches_forward" and distributed.process_index():
+        patch = None  # process 0 alone runs its microbatches' backwards in forward order
     with unittest.mock.patch.multiple(sharding, REPLICA_BUCKET=bucket, _buckets=recorded) if bucket \
             else contextlib.nullcontext(), unittest.mock.patch(patch[0], patch[1]) if patch \
             else contextlib.nullcontext():
         m = step(state, block_rows(batch, mesh), generator=torch.Generator().manual_seed(seed))
     out = dict(metrics=[{k: float(v) for k, v in m.items()}], state=_gathered(state), mesh=repr(mesh),
-               buckets=seen, pp_remote=dict(comm.PP_REMOTE), tp_remote=dict(comm.TP_REMOTE))
+               buckets=seen, pp_remote={k: comm.PP_REMOTE[k] for k in ("sends", "bytes")},
+               pp_log={p: list(v) for p, v in comm.PP_REMOTE["log"].items()}, tp_remote=dict(comm.TP_REMOTE))
     set_mesh(None)
     return out
 
@@ -427,13 +444,16 @@ def pp_forward(state_dict: dict, geom: dict, sizes, n_micro: int, inputs: dict) 
         return make_pp_forward(tm, mesh, n_micro)(**{k: torch.from_numpy(v) for k, v in inputs.items()})
 
 
-def pp_under_nccl(state_dict: dict, geom: dict) -> dict:
-    """``make_pp_forward`` with the backend taken for nccl, over (pp 2, data
-    1), one stage a process, and over (pp 2, data 2), whole pipelines a
-    process: the error each raises before the first step, or None."""
+def pp_under_nccl(state_dict: dict, geom: dict, n_micro: int, inputs: dict) -> dict:
+    """``make_pp_forward`` with the backend taken for nccl (its buffers then
+    lie where the tensors do, unstaged), over (pp 2, data 1), one stage a
+    process, and over (pp 2, data 2), whole pipelines a process: per mesh,
+    whether the pipeline spans the processes and the forward's output on
+    ``inputs`` (None on a process without the last stage)."""
     from opensora_torch.models.mmdit.model import MMDiTConfig, MMDiTModel
     from opensora_torch.parallel import distributed
     from opensora_torch.parallel.mesh import create_pp_mesh
+    from opensora_torch.parallel.pipeline import check_transport
     from opensora_torch.training.pp import make_pp_forward, shard_pp
 
     out = {}
@@ -442,12 +462,10 @@ def pp_under_nccl(state_dict: dict, geom: dict) -> dict:
         tm.load_state_dict(state_dict)
         mesh = create_pp_mesh(*sizes, [CPU] * (math.prod(sizes) // distributed.process_count()))
         shard_pp(mesh, tm)
-        with unittest.mock.patch.object(distributed, "backend", lambda: "nccl"):
-            try:
-                make_pp_forward(tm, mesh, 2)
-                out[sizes] = None
-            except NotImplementedError as e:
-                out[sizes] = str(e)
+        with unittest.mock.patch.object(distributed, "backend", lambda: "nccl"), torch.no_grad():
+            fwd = make_pp_forward(tm, mesh, n_micro)
+            rows = _rows(inputs, mesh.data_block, mesh.data_blocks)
+            out[sizes] = dict(spans=check_transport(mesh), out=fwd(**rows))
     return out
 
 
@@ -631,3 +649,74 @@ def ring_traffic(params, batch, geom, opt, sizes, draws) -> dict:
     out = sharded_steps(params, batch, geom, opt, sizes, draws=draws, n_steps=len(draws), backend="ring_rdma")
     out["ring_remote"] = dict(comm.RING_REMOTE)
     return out
+
+
+# ----------------------------------------------------------------------
+# the HunyuanVAE's height sharding over processes
+# ----------------------------------------------------------------------
+
+
+def _halo_from_own_rows(self, xs, top, bottom):
+    """Known-wrong: no halo rows across the process boundary: a process's
+    end strips take their own edge rows, replicated, for the neighbouring
+    process's."""
+    return ((xs[0][:, :, :, :1].expand(-1, -1, -1, top, -1) if self.group.first > 0 and top else None),
+            (xs[-1][:, :, :, -1:].expand(-1, -1, -1, bottom, -1)
+             if self.group.first + len(xs) < self.n and bottom else None))
+
+
+def vae_cp_passes(state_dict: dict, cfg: dict, sp: int, x: np.ndarray, noise: np.ndarray, z: np.ndarray,
+                  zt: np.ndarray, tiled: dict) -> dict:
+    """The HunyuanVAE (``cfg``, fp32, weights ``state_dict``) over a (data 1,
+    sp) mesh, the sp ranks split evenly over the processes: the encode of
+    ``x`` with the posterior ``noise``, the decode of ``z``, the tiled
+    decode of ``zt`` and encode of ``x`` (``tiled``: the config's tiling
+    keys for each), and
+    the encode with the cross-process halo left out; per pass, the
+    ``VAE_REMOTE`` counts."""
+    from opensora_torch.models.hunyuan_vae.model import AutoEncoder3DConfig, AutoencoderKLCausal3D
+    from opensora_torch.parallel import distributed, vae_sharding
+    from opensora_torch.parallel.mesh import MeshConfig, create_mesh
+
+    def vae(**kw):
+        ae = AutoencoderKLCausal3D(AutoEncoder3DConfig(**cfg, dtype="fp32", **kw), device="cpu",
+                                   dtype=torch.float32).eval()
+        ae.load_state_dict(state_dict)
+        return ae
+
+    mesh = create_mesh(MeshConfig(1, sp, 1), [CPU] * (sp // distributed.process_count()))
+    x, noise, z, zt = (torch.from_numpy(a) for a in (x, noise, z, zt))
+    out, counts = {}, {}
+
+    def run(name, fn, *args, **kwargs):
+        vae_sharding.reset_vae_remote()
+        with torch.no_grad():
+            out[name] = fn(*args, **kwargs)
+        counts[name] = dict(vae_sharding.VAE_REMOTE)
+
+    plain = vae()
+    run("encode", vae_sharding.make_sharded_vae_fn(plain, mesh, "encode"), x, noise=noise)
+    run("decode", vae_sharding.make_sharded_vae_fn(plain, mesh, "decode"), z)
+    run("tiled_decode", vae_sharding.make_sharded_vae_fn(vae(**tiled["decode"]), mesh, "decode"), zt)
+    run("tiled_encode", vae_sharding.make_sharded_vae_fn(vae(**tiled["encode"]), mesh, "encode"), x, noise=noise)
+    with unittest.mock.patch.object(vae_sharding.HeightStrips, "_edges", _halo_from_own_rows):
+        run("halo_left_out", vae_sharding.make_sharded_vae_fn(plain, mesh, "encode"), x, noise=noise)
+    return dict(out=out, counts=counts, mesh=repr(mesh))
+
+
+def vae_rows_over_processes(state_dict: dict, cfg: dict, x: np.ndarray, noise: np.ndarray, z: np.ndarray) -> dict:
+    """The HunyuanVAE's sharded encode and decode over (data 2, sp 1), one
+    data coordinate a process: each process computes its rows and gets the
+    other's from it, so both return the whole result."""
+    from opensora_torch.models.hunyuan_vae.model import AutoEncoder3DConfig, AutoencoderKLCausal3D
+    from opensora_torch.parallel import distributed
+    from opensora_torch.parallel.mesh import MeshConfig, create_mesh
+    from opensora_torch.parallel.vae_sharding import make_sharded_vae_fn
+
+    vae = AutoencoderKLCausal3D(AutoEncoder3DConfig(**cfg, dtype="fp32"), device="cpu", dtype=torch.float32).eval()
+    vae.load_state_dict(state_dict)
+    mesh = create_mesh(MeshConfig(2, 1, 1), [CPU] * (2 // distributed.process_count()))
+    with torch.no_grad():
+        return dict(mesh=repr(mesh), encode=make_sharded_vae_fn(vae, mesh, "encode")(
+            torch.from_numpy(x), noise=torch.from_numpy(noise)), decode=make_sharded_vae_fn(vae, mesh, "decode")(
+            torch.from_numpy(z)))
