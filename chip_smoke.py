@@ -327,6 +327,19 @@ group's (4, 24, 8828, 128) and the "ring" backend's hop (3, 24, 2207,
 128), phase 2b the backward at (4, 24, 8828, 128); both hold phase 29's
 tp rank (4, 12, 8828, 128) (its pipeline microbatch is phase 24's (2, 24,
 8828, 128)).
+The finetune loop through the dataset and checkpoint tools: phase 31
+(right after phase 14, with phase 13's HunyuanVAE file and T5-XXL / CLIP-L
+directories as from_pretrained) writes 4 seeded 256 x 256 mp4s and 2 pngs,
+builds the table with ``python -m opensora_torch.cnv.meta`` (each row's
+size, frames and fps as written), trains stage1.py at full width and 1 + 1
+blocks on it through the training CLI for 2 steps with a checkpoint,
+exports the EMA with ``cnv.export --layout published`` (every tensor, loaded
+back, the EMA bitwise), samples 129 x 192 x 336 for 2 steps with the
+inference CLI on 256px.py from the export (its latent the in-memory EMA's,
+bitwise), caches latents and embeddings with ``cnv.cache`` (the trainer's
+video path and encoders on the same clips, bitwise; one cached_video step)
+and runs ``cnv.verify_pretrained`` on the export and on the VAE file;
+exact launches of each part.
 Each phase's wall time is printed as "[time] <phase>: <s> s", and the sum
 as "[time] total: <s> s" before the card's line.
 Then it prints the card's name and power limit, one JSON line with the
@@ -7208,6 +7221,364 @@ def run_vae_cp_path(device, carry: dict) -> dict:
     return res
 
 
+# ----------------------------------------------------------------------
+# phase 31: the finetune loop through the dataset and checkpoint tools
+# ----------------------------------------------------------------------
+
+LOOP_DEPTH = (1, 1)  # phase 3d's cut: a full finetune's state takes 20 bytes a parameter on disk
+LOOP_CLIPS = [(33, 16.0), (36, 12.0), (40, 16.0), (33, 8.0)]  # (frames, fps <= fps_max 16) of the seeded 256 x 256 mp4s
+LOOP_IMAGES = [(256, 256), (192, 336)]  # (height, width) of the seeded pngs
+LOOP_SIZE, LOOP_FRAMES, LOOP_BATCH, LOOP_BUCKET = 256, 33, 2, "256px"  # 2 clips a step: 2 steps
+LOOP_STEPS = 2  # the inference CLI's steps, cut from 50
+LOOP_PROMPT = "a red panda eating bamboo in a misty forest"
+LOOP_CFG = """_base_ = [{base!r}]
+model = dict(depth={depth}, depth_single_blocks={single})
+bucket_config = {{"_delete_": True, {bucket!r}: {{{frames}: (1.0, {batch})}}}}
+dataset = dict(type="video_text", data_path={table!r})
+ae = dict(from_pretrained={vae!r})
+t5 = dict(from_pretrained={t5!r})
+clip = dict(from_pretrained={clip!r})
+warmup_steps = 0
+epochs = 1
+log_every = 1
+ckpt_every = 1000
+"""
+
+
+def write_loop_media(root: str) -> dict:
+    """Phase 31(a)'s folder: LOOP_CLIPS as mp4 (moving seeded noise) and
+    LOOP_IMAGES as png, through OpenCV; returns each file's (height,
+    width, num_frames, fps) as written."""
+    import cv2
+    import numpy as np
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(31)
+    written = {}
+    for i, (frames, fps) in enumerate(LOOP_CLIPS):
+        path = os.path.join(root, f"clip{i}.mp4")
+        writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (LOOP_SIZE, LOOP_SIZE))
+        base = rng.integers(0, 255, (LOOP_SIZE, LOOP_SIZE, 3), np.uint8)
+        for k in range(frames):
+            writer.write(np.roll(base, 4 * k, axis=1))
+        writer.release()
+        written[path] = (LOOP_SIZE, LOOP_SIZE, frames, fps)
+    for i, (h, w) in enumerate(LOOP_IMAGES):
+        path = os.path.join(root, f"still{i}.png")
+        cv2.imwrite(path, rng.integers(0, 255, (h, w, 3), np.uint8))
+        written[path] = (h, w, 1, 0.0)
+    return written
+
+
+def loop_train_expected(n_blocks: int, steps: list) -> dict:
+    """The training CLI's launches: per step the D = 128 forward twice a
+    block (forward and recompute), the fused backward and its dQ epilogue
+    once a block, and one D = 512 mid-block attention per clip and per
+    single frame the visual conditions encode."""
+    n = len(steps)
+    return {"flash_attention_fwd_sm90": 2 * n_blocks * n, "flash_attention_bwd_fused": n_blocks * n,
+            "flash_attention_bwd_dq_convert": n_blocks * n,
+            "flash_attention_fwd_d512": sum(s["clips"] + s["single_frames"] for s in steps)}
+
+
+def loop_launches(res: dict, kernel: str) -> dict:
+    """Phase 31's launches of ``kernel``, per part."""
+    parts = dict(train=res["train"]["launches"], serve=res["serve"]["launches"], cache=res["cache"]["launches"],
+                 cached_step=res["cache"]["cached_step"]["launches"])
+    return {part: launches.get(kernel, 0) for part, launches in parts.items()}
+
+
+def run_finetune_loop_path(device, vae_file: str, text_dirs: dict, root: str) -> dict:
+    """Phase 31: a finetune from a folder of clips to a video sampled from
+    its own exported weights, through the entry points a user calls, with
+    phase 13's HunyuanVAE file and T5-XXL / CLIP-L directories as the
+    config's from_pretrained. (a) ``cnv.meta`` over the folder (4 seeded
+    mp4s, 2 pngs) and over a caption table of it: each row's height,
+    width, frames and fps as written. (b) The training CLI on that table
+    with stage1.py at full width and LOOP_DEPTH blocks (fp32 masters, the
+    EMA), 2 steps of 2 clips, a checkpoint at the end (its write, and its
+    read as ``--load`` reads it, timed).
+    (c) ``cnv.export --source ema --layout published``: unfused q/k/v and
+    v_mlp, no qkv / linear1; loaded back with ``load_checkpoint`` into the
+    fp32 model, every tensor equals the trainer's EMA bitwise. (d) The
+    inference CLI on 256px.py at LOOP_DEPTH from the export, LOOP_STEPS
+    steps at 129 x 192 x 336: its MMDiT equals the in-memory EMA cast to
+    bf16, and its final latent equals the latent ``api_fn`` gives from
+    that in-memory model on the same call, bitwise. (e) ``cnv.cache`` over
+    (a)'s table with (b)'s config: each latent equals the trainer's video
+    path (``Trainer.encode_rows``) on the same clips from the generator
+    seeded with ``seed``, each T5 / CLIP row the trainer's encoders', and
+    one ``cached_video`` step runs on the cache with ``--model.cond_embed
+    False`` (R4). (f) ``cnv.verify_pretrained`` on (c)'s file and on the
+    VAE file: both reports, the RoPE pairings within 1e-3. Exact launches
+    of (b), (d) and (e)'s training step; the checkpoint and the export are
+    deleted with ``root``'s files at the end."""
+    import numpy as np
+
+    import opensora_torch.utils.api as api
+    import opensora_torch.utils.ckpt as ckpt_mod
+    import opensora_torch.utils.safetensors_io as st_io
+    from opensora_torch import inference, train
+    from opensora_torch.cnv import cache, export, meta, verify_pretrained
+    from opensora_torch.datasets.dataloader import prepare_dataloader
+    from opensora_torch.datasets.datasets import read_data_file
+    from opensora_torch.ops import _build
+    from opensora_torch.registry import DATASETS, build_module
+    from opensora_torch.utils.config import ae_spatial_compression, parse_configs
+    from opensora_torch.utils.train import single_frame_encodes
+
+    res = {}
+    depth, single = LOOP_DEPTH
+    n_blocks = depth + single
+    loop = os.path.join(root, "finetune_loop")
+    # (a) the table
+    t0 = time.perf_counter()
+    written = write_loop_media(os.path.join(loop, "media"))
+    captions = os.path.join(loop, "captions.csv")
+    with open(captions, "w") as f:
+        f.write("path,text\n" + "".join(f"{p},{LOOP_PROMPT} {i}\n" for i, p in enumerate(sorted(written))))
+    folder_table = meta.main([os.path.join(loop, "media"), os.path.join(loop, "folder.csv")])
+    table = os.path.join(loop, "meta.csv")
+    meta.main([captions, table])
+    rows = {r["path"]: (r["height"], r["width"], r["num_frames"], r["fps"]) for r in read_data_file(table)}
+    res["meta"] = dict(rows=len(rows), seconds=time.perf_counter() - t0, columns=read_data_file(table).columns)
+    log(f"[loop] (a) meta: {json.dumps(res['meta'])}")
+    folder_rows = {r["path"]: (r["height"], r["width"], r["num_frames"], r["fps"]) for r in folder_table}
+    if rows != written or folder_rows != written:
+        raise AssertionError(f"loop (a): meta's rows {rows} / {folder_rows} are not the files written {written}")
+
+    # (b) train
+    cfg_file = os.path.join(loop, "stage1_loop.py")
+    with open(cfg_file, "w") as f:
+        f.write(LOOP_CFG.format(base=STAGE1_CFG, depth=depth, single=single, bucket=LOOP_BUCKET, frames=LOOP_FRAMES,
+                                batch=LOOP_BATCH, table=table, vae=vae_file, t5=text_dirs["t5"], clip=text_dirs["clip"]))
+    steps, saves = [], []
+
+    def wrap_run_batch(fn):
+        def run(self, batch):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(self, batch)
+            torch.cuda.synchronize()
+            steps.append(dict(seconds=time.perf_counter() - t, clips=len(batch["text"]),
+                              single_frames=single_frame_encodes(self.mask_conds), loss=float(out["loss"])))
+            return out
+        return run
+
+    def wrap_save(fn):
+        def save(self, exp_dir, state, *args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            d = fn(self, exp_dir, state, *args, **kwargs)
+            saves.append(dict(dir=d, seconds=time.perf_counter() - t,
+                              gb=os.path.getsize(os.path.join(d, "state.pt")) / 1e9))
+            return d
+        return save
+
+    free()
+    torch.cuda.reset_peak_memory_stats(device)
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with patched(train.Trainer, "run_batch", wrap_run_batch), patched(ckpt_mod.CheckpointIO, "save", wrap_save):
+        trainer = train.main([cfg_file, "--outputs", os.path.join(loop, "out"), "--exp_name", "loop", "--device",
+                              str(device)])
+    torch.cuda.synchronize()
+    expect = loop_train_expected(n_blocks, steps)
+    res["train"] = dict(wall_s=time.perf_counter() - t0, steps=steps, save=saves[-1], launches=dict(_build.LAUNCHES),
+                        expected=expect, peak_mem_gb=torch.cuda.max_memory_allocated(device) / 1e9,
+                        state_pt_gb_per_s_write=saves[-1]["gb"] / saves[-1]["seconds"])
+    log(f"[loop] (b) train: {json.dumps(res['train'])}")
+    if not (len(steps) == len(LOOP_CLIPS) // LOOP_BATCH and all(math.isfinite(s["loss"]) for s in steps)):
+        raise AssertionError(f"loop (b): steps {steps}")
+    if res["train"]["launches"] != expect:
+        raise AssertionError(f"loop (b): launches {res['train']['launches']} != {expect}")
+    # the checkpoint read back as --load reads it (into the trainer's own state: the same values)
+    ckpt = saves[-1]["dir"]
+    t0 = time.perf_counter()
+    ckpt_mod.CheckpointIO().load(ckpt, trainer.state)
+    torch.cuda.synchronize()
+    res["train"]["state_pt_read_s"] = time.perf_counter() - t0
+    res["train"]["state_pt_gb_per_s_read"] = saves[-1]["gb"] / res["train"]["state_pt_read_s"]
+    log(f"[loop] (b) state.pt: {saves[-1]['gb']:.3f} GB written in {saves[-1]['seconds']:.2f} s, read back "
+        f"(--load, warm) in {res['train']['state_pt_read_s']:.2f} s")
+
+    # (c) export
+    exported = os.path.join(loop, "finetuned.safetensors")
+    writes = []
+
+    def wrap_write(fn):
+        def write(tensors, path, *args, **kwargs):
+            t = time.perf_counter()
+            n = fn(tensors, path, *args, **kwargs)
+            writes.append(dict(seconds=time.perf_counter() - t, gb=n / 1e9))
+            return n
+        return write
+
+    t0 = time.perf_counter()
+    with patched(st_io, "save_file", wrap_write):
+        out = export.main([ckpt, exported, "--config", cfg_file, "--source", "ema", "--layout", "published"])
+    export_s = time.perf_counter() - t0
+    names = list(st_io.SafetensorsFile(exported).keys())
+    cfg = parse_configs([cfg_file])
+    ema = trainer.state.ema
+    t0 = time.perf_counter()
+    back = ckpt_mod.load_checkpoint(export.build_meta(cfg.model), exported, "mmdit", device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    differ = [n for n, p in back.state_dict().items() if not torch.equal(p, ema[n])]
+    # state.pt is mapped: the EMA's pages are read as save_file writes them
+    res["export"] = dict(n_tensors=out["n_tensors"], gb=out["bytes"] / 1e9, seconds=export_s,
+                         read_and_write_s=writes[-1]["seconds"], load_back_s=load_s, differ_from_ema=len(differ))
+    log(f"[loop] (c) export: {json.dumps(res['export'])}")
+    del back
+    free()
+    unfused = all(any(f".{p}." in n for n in names) for p in ("q_proj", "k_proj", "v_proj", "v_mlp"))
+    if not unfused or any(".qkv." in n or ".linear1." in n for n in names):
+        raise AssertionError(f"loop (c): not the published layout: {names[:12]}")
+    if differ:
+        raise AssertionError(f"loop (c): the exported weights differ from the EMA: {differ[:8]}")
+
+    # (d) serve
+    seen, calls = {}, []
+
+    def wrap_models(fn):
+        def build(*args, **kwargs):
+            built = fn(*args, **kwargs)
+            seen["models"] = built[:4]
+            seen["latents"] = LatentRecorder(built[1]).__enter__()
+            return built
+        return build
+
+    def wrap_api(fn):
+        def make(*args, **kwargs):
+            api_fn = fn(*args, **kwargs)
+
+            def call(*a, **k):
+                calls.append((a, k))
+                return api_fn(*a, **k)
+            return call
+        return make
+
+    overrides = [MAIN_CFG, "--model.from_pretrained", exported, "--model.depth", str(depth),
+                 "--model.depth_single_blocks", str(single), "--sampling_option.num_steps", str(LOOP_STEPS),
+                 "--sampling_option.seed", "42", "--ae.from_pretrained", vae_file, "--t5.from_pretrained", text_dirs["t5"], "--clip.from_pretrained",
+                 text_dirs["clip"], "--save_dir", os.path.join(loop, "samples")]
+    argv = [*overrides, "--prompt", LOOP_PROMPT, "--device", str(device)]
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    try:
+        with LoadRecorder() as loads, patched(api, "prepare_models", wrap_models), patched(api, "prepare_api",
+                                                                                             wrap_api):
+            paths = inference.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        if "latents" in seen:
+            seen["latents"].__exit__(None, None, None)
+    serve_s = time.perf_counter() - t0
+    serve_launches = dict(_build.LAUNCHES)
+    model, ae, t5, clip = seen.pop("models")
+    latent = seen["latents"].latents[-1]
+    cfg_inf = parse_configs(overrides)
+    serve_expect = {"flash_attention_fwd_sm90": n_blocks * LOOP_STEPS,
+                    "flash_attention_fwd_d512": hunyuan_mid_launches(ae, tuple(latent.shape), decode=True)}
+    in_memory = build_module(dict(cfg_inf.model, from_pretrained=None), api.MODELS, device="meta")
+    in_memory.load_state_dict({n: ema[n].to(device, p.dtype) for n, p in in_memory.state_dict().items()},
+                              strict=True, assign=True)
+    in_memory.eval().requires_grad_(False)
+    weights_equal = all(torch.equal(p, in_memory.state_dict()[n]) for n, p in model.state_dict().items())
+    del model
+    free()
+    with LatentRecorder(ae) as rec:
+        api.prepare_api(in_memory, ae, t5, clip, spatial_compression=ae_spatial_compression(cfg_inf))(
+            *calls[0][0], **calls[0][1])
+    in_memory_latent = rec.latents[-1]
+    res["serve"] = dict(wall_s=serve_s, sample=[os.path.basename(p) for p in paths], latent_shape=list(latent.shape),
+                        weights_equal_in_memory=weights_equal,
+                        latent_bitwise_equal=bool(torch.equal(latent, in_memory_latent)),
+                        latent_max_abs_diff=float((latent - in_memory_latent).abs().max()),
+                        export_load=[dict(gb=d["gb"], seconds=d["seconds"], gb_per_s=d["gb_per_s"])
+                                     for d in loads.loads if d["kind"] == "mmdit"],
+                        launches=serve_launches, expected=serve_expect)
+    log(f"[loop] (d) serve: {json.dumps(res['serve'])}")
+    del in_memory, ae, t5, clip
+    free()
+    if not (len(paths) == 1 and weights_equal and res["serve"]["latent_bitwise_equal"]
+            and torch.isfinite(latent).all()):
+        raise AssertionError(f"loop (d): {res['serve']}")
+    if serve_launches != serve_expect:
+        raise AssertionError(f"loop (d): launches {serve_launches} != {serve_expect}")
+
+    # (e) cache
+    cache_dir = os.path.join(loop, "cache")
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    meta_csv = cache.main([cfg_file, "--out_dir", cache_dir, "--device", str(device)])
+    torch.cuda.synchronize()
+    cache_s = time.perf_counter() - t0
+    cache_launches = dict(_build.LAUNCHES)
+    cached = read_data_file(meta_csv)
+    loader, _ = prepare_dataloader(build_module(dict(cfg.dataset), DATASETS), bucket_config=cfg.bucket_config,
+                                   batch_size=cfg.get("batch_size", 1), shuffle=False, seed=cfg.seed)
+    trainer.gen = torch.Generator(device=device).manual_seed(cfg.seed)
+    n, bad, encodes = 0, [], 0
+    with torch.inference_mode():
+        for batch in loader:
+            x = torch.as_tensor(batch["video"]).to(device, torch.float32)
+            texts = list(batch["text"])
+            z = trainer.encode_rows(x, train.Rows(0, x.shape[0], x.shape[0])).float().cpu().numpy()
+            t5_emb, clip_emb = trainer.t5(texts).float().cpu().numpy(), trainer.clip(texts).float().cpu().numpy()
+            encodes += hunyuan_mid_launches(trainer.ae, tuple(x.shape), decode=False)
+            for i in range(x.shape[0]):
+                row = cached[n]
+                for key, want in (("latent_path", z[i]), ("t5_path", t5_emb[i]), ("clip_path", clip_emb[i])):
+                    if not np.array_equal(np.load(row[key]), want):
+                        bad.append((n, key))
+                if row["text"] != texts[i]:
+                    bad.append((n, "text"))
+                n += 1
+    del trainer
+    free()
+    cfg_cached = [cfg_file, "--cached_video", "True", "--model.cond_embed", "False", "--dataset.type",
+                  "cached_video_text", "--dataset.data_path", meta_csv]
+    cached_cfg = parse_configs(cfg_cached)
+    step_trainer = train.Trainer(cached_cfg, device)
+    cached_loader, _ = prepare_dataloader(build_module(dict(cached_cfg.dataset), DATASETS), batch_size=LOOP_BATCH,
+                                          shuffle=False)
+    _build.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = step_trainer.run_batch(next(iter(cached_loader)))
+    loss = float(metrics["loss"])
+    cached_step_s = time.perf_counter() - t0
+    cached_launches = dict(_build.LAUNCHES)
+    cached_expect = {"flash_attention_fwd_sm90": 2 * n_blocks, "flash_attention_bwd_fused": n_blocks,
+                     "flash_attention_bwd_dq_convert": n_blocks}
+    del step_trainer
+    free()
+    res["cache"] = dict(rows=len(cached), seconds=cache_s, differ=bad, launches=cache_launches,
+                        expected={"flash_attention_fwd_d512": encodes}, cached_step=dict(
+                            loss=loss, seconds=cached_step_s, launches=cached_launches, expected=cached_expect))
+    log(f"[loop] (e) cache: {json.dumps(res['cache'])}")
+    if n != len(cached) or n != len(LOOP_CLIPS) or bad:
+        raise AssertionError(f"loop (e): {n} rows replayed of {len(cached)}; differ: {bad}")
+    if cache_launches != res["cache"]["expected"] or cached_launches != cached_expect or not math.isfinite(loss):
+        raise AssertionError(f"loop (e): {res['cache']}")
+
+    # (f) verify
+    t0 = time.perf_counter()
+    reports = {"mmdit": verify_pretrained.main(["mmdit", exported, "--device", str(device)]),
+               "vae": verify_pretrained.main(["vae", vae_file, "--device", str(device)])}
+    res["verify"] = dict(seconds=time.perf_counter() - t0, reports=reports)
+    log(f"[loop] (f) verify: {json.dumps(res['verify'])}")
+    if not (reports["mmdit"]["rope_convention_max_delta"] < verify_pretrained.ROPE_TOL
+            and reports["mmdit"]["depth"] == depth and reports["mmdit"]["depth_single"] == single
+            and reports["mmdit"]["fwd"]["finite"] and reports["vae"]["latent"]["finite"]
+            and reports["vae"]["recon"]["finite"]):
+        raise AssertionError(f"loop (f): {reports}")
+    shutil.rmtree(loop, ignore_errors=True)  # the checkpoint, the export and the cache
+    return res
+
+
 def _kernel_name(mangled: str) -> str:
     """The kernel's name and template arguments from its mangled name (the
     length-prefixed identifier ending in "kernel", then Lb0/Lb1/Li<n>)."""
@@ -7376,7 +7747,10 @@ def main(argv) -> int:
     try:
         with tempfile.TemporaryDirectory() as tmp:
             ckpt_res = timed("phase 13 checkpoints", run_ckpt_path, device, records, tmp, text_root)
-            cli_res = timed("phase 14 VAE CLIs", run_vae_cli_path, device, ckpt_res.pop("vae_file"), tmp)
+            vae_file = ckpt_res.pop("vae_file")
+            cli_res = timed("phase 14 VAE CLIs", run_vae_cli_path, device, vae_file, tmp)
+            loop_res = timed("phase 31 the finetune loop", run_finetune_loop_path, device, vae_file,
+                             ckpt_res["text_dirs"], tmp)
         del records
         small_hc_train = timed("phase 3f full finetune small input", check_hc_train_small_input, device)
         with tempfile.TemporaryDirectory() as tmp:
@@ -7423,6 +7797,7 @@ def main(argv) -> int:
         launches_sp_processes=sp_proc_launches(mp_res, "flash_attention_fwd_sm90"),
         launches_tp_pp_processes=tp_pp_launches(mp_res, "flash_attention_fwd_sm90"),
         launches_ring_sp_step=ring_res["sp_ring"]["launches"].get("flash_attention_fwd_sm90", 0),
+        launches_finetune_loop=loop_launches(loop_res, "flash_attention_fwd_sm90"),
         max_abs_err=max([c["max_abs_err"] for c in sm90_cases] + [res_768["attention"]["max_abs_err"]]),
         ms=head["ms"], ms_is="flash_attention_with_lse (the bound A on the device, then the kernel), the mean of "
         "4 readings in turns with SDPA's 4 (library_ms)", anchor_ms=head["anchor_ms"],
@@ -7455,6 +7830,7 @@ def main(argv) -> int:
         launches_vae_cp={f"sp{sp}": {w: r[w]["launches"]["flash_attention_fwd_d512"] for w in ("encode", "decode")}
                          for sp, r in vae_cp_res["sp"].items()},
         launches_vae_cp_processes=vae_cp_proc_launches(mp_res),
+        launches_finetune_loop=loop_launches(loop_res, "flash_attention_fwd_d512"),
         max_abs_err=max(c["max_abs_err"] for c in d512_cases),
         ms=head["ms"], ms_is="flash_attention_with_lse, the mean of 4 readings in turns with SDPA's 4 (library_ms)",
         plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
@@ -7478,6 +7854,7 @@ def main(argv) -> int:
         launches_sp_train=sp_train_launches(sp_train_res, "flash_attention_bwd_fused"),
         launches_sp_processes=sp_proc_launches(mp_res, "flash_attention_bwd_fused"),
         launches_tp_pp_processes=tp_pp_launches(mp_res, "flash_attention_bwd_fused"),
+        launches_finetune_loop=loop_launches(loop_res, "flash_attention_bwd_fused"),
         max_abs_err=max(c["max_abs_err"][g] for c in attn_bwd["cases"] for g in ("dq", "dk", "dv")),
         max_abs_err_is="dq (after the epilogue), dk and dv against the plain backward",
         ms=bwd_head["ms"]["flash_attention_bwd_fused"],
@@ -7506,6 +7883,7 @@ def main(argv) -> int:
         launches_sp_train=sp_train_launches(sp_train_res, "flash_attention_bwd_dq_convert"),
         launches_sp_processes=sp_proc_launches(mp_res, "flash_attention_bwd_dq_convert"),
         launches_tp_pp_processes=tp_pp_launches(mp_res, "flash_attention_bwd_dq_convert"),
+        launches_finetune_loop=loop_launches(loop_res, "flash_attention_bwd_dq_convert"),
         max_abs_err=max(c["dq_convert_max_abs_err"] for c in attn_bwd["cases"]),
         max_abs_err_is="against its plain version on the same dq_accum",
         ms=bwd_head["ms"]["flash_attention_bwd_dq_convert"], plain_ms=bwd_head["dq_convert_plain_ms"],
@@ -7647,6 +8025,7 @@ def main(argv) -> int:
     log("[dcae] " + json.dumps(dcae_res))
     log("[ckpt] " + json.dumps(ckpt_res))
     log("[vae_cli] " + json.dumps(cli_res))
+    log("[loop] " + json.dumps({k: v for k, v in loop_res.items() if k != "verify"}))
     log("[hc] " + json.dumps(hc_res))
     log("[hc_train] " + json.dumps(hc_train_res))
     log("[tok] " + json.dumps(tok_res))

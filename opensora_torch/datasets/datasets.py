@@ -127,7 +127,7 @@ class VideoTextDataset:
         self.transform_name = transform_name
         self.fps_max = fps_max
         if "height" not in self.data.columns or "width" not in self.data.columns:
-            raise ValueError("dataset needs height/width columns (scripts/cnv/meta.py writes them)")
+            raise ValueError("dataset needs height/width columns (python -m opensora_torch.cnv.meta writes them)")
 
     def __len__(self):
         return len(self.data)

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 IMG_EXTENSIONS = (".jpg", ".jpeg", ".png", ".ppm", ".bmp", ".pgm", ".tif", ".tiff", ".webp")
+VID_EXTENSIONS = (".mp4", ".avi", ".mov", ".mkv", ".webm")
 
 
 def is_img(path: str) -> bool:

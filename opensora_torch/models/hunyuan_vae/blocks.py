@@ -26,7 +26,7 @@ parameters to its input's dtype at use (``models/cast_layers.py``).
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -149,10 +149,13 @@ class ResnetBlockCausal3D(nn.Module):
 class CausalAttention(nn.Module):
     """One-head self-attention over the flattened T*H*W tokens with a
     frame-causal mask: group norm -> q, k, v -> attention -> out-proj ->
-    residual."""
+    residual. ``attn_backend`` None runs the flash kernel (bf16 on a card);
+    "xla", the plain attention (any dtype, e.g. an fp32 check)."""
 
-    def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-6, **factory):
+    def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-6, attn_backend: Optional[str] = None,
+                 **factory):
         super().__init__()
+        self.attn_backend = attn_backend
         self.group_norm = GroupNorm(channels, num_groups, eps, **factory)
         self.to_q = Linear(channels, channels, **factory)
         self.to_k = Linear(channels, channels, **factory)
@@ -168,7 +171,7 @@ class CausalAttention(nn.Module):
         b, c, t, h, w = normed.shape
         y = normed.flatten(2).transpose(1, 2)  # (B, T*H*W, C)
         q, k, v = (proj(y)[:, None].contiguous() for proj in (self.to_q, self.to_k, self.to_v))
-        out = scaled_dot_product_attention(q, k, v, causal_block=h * w)[:, 0]
+        out = scaled_dot_product_attention(q, k, v, causal_block=h * w, backend=self.attn_backend)[:, 0]
         out = self.to_out[0](out)
         return out.transpose(1, 2).reshape(b, c, t, h, w)
 
@@ -184,13 +187,14 @@ class CausalAttention(nn.Module):
 
 class UNetMidBlockCausal3D(nn.Module):
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-6,
-                 add_attention: bool = True, num_layers: int = 1, **factory):
+                 add_attention: bool = True, num_layers: int = 1, attn_backend: Optional[str] = None, **factory):
         super().__init__()
         self.resnets = nn.ModuleList(
             ResnetBlockCausal3D(channels, channels, num_groups, eps, **factory) for _ in range(num_layers + 1)
         )
         self.attentions = nn.ModuleList(
-            CausalAttention(channels, num_groups, eps, **factory) for _ in range(num_layers if add_attention else 0)
+            CausalAttention(channels, num_groups, eps, attn_backend, **factory)
+            for _ in range(num_layers if add_attention else 0)
         )
 
     def forward(self, x):

@@ -67,6 +67,7 @@ class AutoEncoder3DConfig:
     tile_overlap_factor: float = 0.25
     dtype: str = "bf16"
     param_dtype: Optional[str] = None  # None: the compute dtype
+    attn_backend: Optional[str] = None  # the mid-block attention: None = the flash kernel; "xla" = plain attention
 
 
 def blend_tiles(a: torch.Tensor, b: torch.Tensor, extent: int, dim: int) -> torch.Tensor:
@@ -146,7 +147,8 @@ class EncoderCausal3D(nn.Module):
                 downsample_stride=stride, num_groups=g, **factory,
             ))
         self.down_blocks = nn.ModuleList(blocks)
-        self.mid_block = UNetMidBlockCausal3D(boc[-1], g, add_attention=cfg.mid_block_add_attention, **factory)
+        self.mid_block = UNetMidBlockCausal3D(boc[-1], g, add_attention=cfg.mid_block_add_attention,
+                                              attn_backend=cfg.attn_backend, **factory)
         self.conv_norm_out = GroupNorm(boc[-1], g, 1e-6, **factory)
         self.conv_out = CausalConv3d(boc[-1], 2 * cfg.latent_channels, 3, 1, **factory)
 
@@ -167,7 +169,8 @@ class DecoderCausal3D(nn.Module):
         rev = list(reversed(cfg.block_out_channels))
         g = cfg.norm_num_groups
         self.conv_in = CausalConv3d(cfg.latent_channels, rev[0], 3, 1, **factory)
-        self.mid_block = UNetMidBlockCausal3D(rev[0], g, add_attention=cfg.mid_block_add_attention, **factory)
+        self.mid_block = UNetMidBlockCausal3D(rev[0], g, add_attention=cfg.mid_block_add_attention,
+                                              attn_backend=cfg.attn_backend, **factory)
         blocks = []
         for i, ch in enumerate(rev):
             add_up, stride = _block_strides(cfg, i)

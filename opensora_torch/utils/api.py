@@ -57,7 +57,6 @@ def prepare_models(cfg, device=None, seed: int = 0):
     int8 twins as soon as the block is built (``quantize_as_built``): a
     QuantLinear built directly holds zeros, which would serve nothing."""
     device = resolve_device(device)
-    text_dtype = torch_dtype(cfg.get("dtype", "bf16"))
     with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):
         torch.manual_seed(seed)
         quantized = quant_mode(cfg.model.get("quantized", False))
@@ -68,13 +67,24 @@ def prepare_models(cfg, device=None, seed: int = 0):
                 model = build_module(dict(cfg.model, quantized=False), MODELS, device=device)
             if quantized:
                 model.config.quantized = quantized
-        ae = build_module(dict(cfg.ae), MODELS, device=device)
-        t5 = build_module(dict(cfg.t5), MODELS, device=device, dtype=text_dtype)
-        clip = build_module(dict(cfg.clip), MODELS, device=device, dtype=text_dtype)
+        ae, t5, clip = build_encoders(cfg, device)
         optional = prepare_optional_models(cfg, device)
-    for m in (model, ae, t5, clip):
-        m.eval().requires_grad_(False)
+    model.eval().requires_grad_(False)
     return model, ae, t5, clip, optional
+
+
+def build_encoders(cfg, device):
+    """(ae, t5, clip) of the config on ``device``, in eval mode without
+    gradients: each loaded from its ``from_pretrained``, else drawn from the
+    current random state; the text encoders in the config's top-level
+    ``dtype``."""
+    text_dtype = torch_dtype(cfg.get("dtype", "bf16"))
+    ae = build_module(dict(cfg.ae), MODELS, device=device)
+    t5 = build_module(dict(cfg.t5), MODELS, device=device, dtype=text_dtype)
+    clip = build_module(dict(cfg.clip), MODELS, device=device, dtype=text_dtype)
+    for m in (ae, t5, clip):
+        m.eval().requires_grad_(False)
+    return ae, t5, clip
 
 
 def prepare_optional_models(cfg, device) -> dict:

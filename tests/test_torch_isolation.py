@@ -50,9 +50,9 @@ def test_port_imports_no_checkpoint_package(path):
 
 
 def test_scan_covers_every_module_of_the_port():
-    """The scan finds each slice's modules, the VAE training slice's and the
-    sequence-parallel slice's among them, so a new module cannot slip past
-    it."""
+    """The scan finds each slice's modules, the VAE training slice's, the
+    sequence-parallel slice's and the dataset and checkpoint tools among
+    them, so a new module cannot slip past it."""
     scanned = {os.path.relpath(p, REPO) for p in _port_files()}
     for module in ("inference.py", "train.py", "train_vae.py", "training/vae.py", "models/cast_layers.py",
                    "models/dc_ae/model.py", "models/dc_ae/ops.py", "models/vae2d/losses.py",
@@ -61,5 +61,6 @@ def test_scan_covers_every_module_of_the_port():
                    "utils/ckpt.py", "utils/safetensors_io.py", "vae_inference.py", "vae_stats.py",
                    "models/text/clip_tokenizer.py", "models/text/t5_tokenizer.py", "eval/metrics.py", "eval/vbench.py",
                    "eval/aesthetic.py", "eval/clip_scorer.py", "eval/suites.py", "evaluate.py",
-                   "parallel/pipeline.py", "training/pp.py", "parallel/vae_sharding.py", "parallel/distributed.py"):
+                   "parallel/pipeline.py", "training/pp.py", "parallel/vae_sharding.py", "parallel/distributed.py",
+                   "cnv/meta.py", "cnv/export.py", "cnv/cache.py", "cnv/verify_pretrained.py"):
         assert os.path.join("opensora_torch", module) in scanned, module
