@@ -151,22 +151,23 @@ video_dc_ae.py (phase 8's DC-AE drawn again and written) over 4 seeded
 33 x 256 x 256 mp4 clips: the latent statistics equal a direct encode's
 with the same generator, PSNR finite, D = 512 launches exactly the
 tiles' mid-blocks (none for the DC-AE), seconds per clip printed.
-The high-compression paths (Video DC-AE latents, patch 1), last: phase 2
-holds the D = 128 forward at their shapes, (3, 24, 2624, 128) for t2v at
-192 x 336 and (3, 24, 2560, 128) at 256 x 256, and phase 2b the backward at
-the training clip's (3, 24, 2560, 128); phase 3f checks one full-finetune
+The high-compression paths (Video DC-AE latents, patch 1, sized at the
+configs' 32 px a token), last: phase 2 holds the D = 128 forward at their
+shapes, (3, 24, 2432, 128) for t2v and i2v_head at 192 x 320 and (3, 24,
+2528, 128) for the training clip at 224 x 288, and phase 2b the backward at
+the training clip's (3, 24, 2528, 128); phase 3f checks one full-finetune
 step (fp32 masters, bf16 compute) of the training config's full-width MMDiT
 at depth 1 + 1 against the CPU's fp32 step, and, on phase 15's models, the
 full-width, full-depth MMDiT on a small latent (the CPU's plain path
 streamed block by block; a control with one block skipped must fail) and
 the DC-AE decoder; phase 15 runs configs/diffusion/inference/
-high_compression.py at full width and depth, t2v for 2 steps at 192 x 336,
-129 frames (decoded 128 x 192 x 352, as the JAX package decodes 11 latent
-columns), then i2v_head for 1 step from a seeded 256 x 256 image: shapes,
-finite videos, the first latent frame equal to the encoded reference, 57
-launches a step; phase 16 runs configs/diffusion/train/high_compression.py
-as a full finetune at full width and 2 + 4 blocks for 3 steps on a seeded
-128 x 256 x 256 clip, B = 3 (losses, moving parameters, exact launches,
+high_compression.py at full width and depth, t2v for 2 steps at 192 x 320,
+129 frames (32 x 6 x 10 latent tokens, decoded 128 x 192 x 320), then
+i2v_head for 1 step from a seeded 192 x 320 image: shapes, finite videos,
+the first latent frame equal to the encoded reference, 57 launches a step;
+phase 16 runs configs/diffusion/train/high_compression.py as a full
+finetune at full width and 2 + 4 blocks for 3 steps on a seeded 128 x 224 x
+288 clip (a 32-px bucket of 256px), B = 3 (losses, moving parameters, exact launches,
 peak memory), one step from one saved state with remat_policy "full" and
 one with "offload" (equal losses, gradients within the backward's limit,
 the device memory held through the forward, offload's below full's, and
@@ -201,9 +202,9 @@ frame tiles of the reference encode at 576 x 1024; phase 18 (after phase 9,
 on phase 4's models, no image model resident) runs configs/diffusion/
 inference/768px.py at full width and depth through parse_configs, the
 CLI's mesh rule (sp_size=-1 on one card: no mesh) and api_fn for 1 step:
-a finite (1, 3, 129, 576, 1024) video, 76032 image tokens, 57 D = 128
-launches a step and 18 D = 512 launches in the decode (the 3 x 6 tile
-grid), the peak under 80 GB; then holds the D = 128 forward at the path's
+a finite 33 x 72 x 128 latent, 76032 image tokens, 57 D = 128 launches a
+step, the peak under 80 GB (its decode left out: phase 32 decodes the same
+latent shape with the same VAE); then holds the D = 128 forward at the path's
 (3, 24, 76544, 128) against the plain version on three (b, h) pairs with
 all keys, in query chunks (one pair on the running-max loop, two on the
 anchored), with phase 2's known-wrong outputs, and times the kernel and
@@ -211,7 +212,7 @@ SDPA in turns; phase 19 (after phase 11, on its image models) runs
 configs/diffusion/inference/t2i2v_768px.py through the CLI's t2i2v code
 (inference.ImageStage: the image, then the image models parked in host
 memory): the 768 x 768 image, the i2v_head video of (1, 3, 129, 576,
-1024) for 1 step on the first 5 + 10 blocks of the MMDiT (T2I2V_768_DEPTH:
+1024) for 1 step on the first 2 + 4 blocks of the MMDiT (T2I2V_768_DEPTH:
 phase 18 runs the full depth at that shape), the first latent frame equal
 to the encoded reference,
 the exact launches (the reference encode's 18 D = 512 tiles among them),
@@ -277,9 +278,9 @@ to phase 21's limits (each process's masters), exact launches per process,
 the ring's cross-process sends exact by arithmetic, the distance to phase
 27's (1, 4, 1) step, the staged bytes, the gloo and ring-wait seconds and
 each process's peak; a ring forward reusing the receiving rank's own KV on
-the cross-process hop must move the output by more than phase 9's limit,
-and process 1 dropping the cross-process sum of the weight gradients must
-fail the limits. Phase 29 runs in the same two processes after phase 28:
+the cross-process hop, and process 1 dropping the cross-process sum of the
+weight gradients, must fail the limits. Phase 29 runs in the same two
+processes after phase 28:
 stage1.py at phase 21's cell on its encoded step inputs, over (1, 1, 2)
 with one tp rank a process (the row-parallel sums across the processes)
 and over the pipeline key's (pp 2, data 1), one stage a process (the
@@ -340,6 +341,36 @@ bitwise), caches latents and embeddings with ``cnv.cache`` (the trainer's
 video path and encoders on the same clips, bitwise; one cached_video step)
 and runs ``cnv.verify_pretrained`` on the export and on the VAE file;
 exact launches of each part.
+One-card 768px serving: phase 32 (right after phase 6, on its int8 models;
+w8a8 and the configs' w8a8_pallas compute the same function) runs
+configs/diffusion/inference/768px_1chip_int8attn.py (int8 products, int8
+qk8 attention, cfg_batched=False: three B = 1 passes a step) through
+parse_configs, the CLI's mesh rule, sanitize_sampling_option and api_fn
+for 1 step and the decode: a finite (1, 3, 129, 576, 1024) video, 912
+w8a8_matmul, 171 int8 attention launches (each (b, h)'s loop from its a2)
+and 18 D = 512 launches (the 3 x 6 decode tiles), the peak; then
+768px_1chip.py (the same weights, the bf16 flash attention) for 1 step
+(its decode the same call, left out): 912 + 171 D = 128 launches; the
+sequential CFG's velocity against the batched pass's on a small input at
+2 + 4 blocks (a control with the prompts swapped must fail the limit);
+then holds w8a8_matmul at the B = 1 pass's shapes (76032 / 512 / 76544 /
+1 rows; linear1's bf16 output is 3.29 GB) on row bands -- the first, the
+last, and the band past 2^31 output bytes, every element exact, its rows
+left unwritten, one consumer's rows from the other's and a K slice dropped
+rejected --, int8 qk8 attention and the D = 128 forward at (1, 24, 76544,
+128) on two (b, h) over every query row in chunks, with known-wrong
+outputs, each timed in turns with its library call.
+Single-frame and i2v training: phase 33 (after phase 27) trains
+configs/diffusion/train/image.py at phase 21's depth from its saved state
+through the training CLI's loader (seeded pngs of 1024 x 1024, 768 x 768
+and 256 x 256, the rows landing in the 1024px, 768px and 256px buckets by
+the sampler's own draws) and Trainer.run_batch: one step per resolution at
+the config's batch sizes (7, 11, 50), finite losses, every weight matrix
+moved but cond_in's (masters_moved), exact launches (one D = 512 encode a
+frame); phase
+34 takes one stage1_i2v.py step on phase 21's batch with the host's draws
+seeded to include i2v_loop and i2v_tail: finite loss, every weight matrix moved,
+exact launches (the single frames' encodes counted).
 Each phase's wall time is printed as "[time] <phase>: <s> s", and the sum
 as "[time] total: <s> s" before the card's line.
 Then it prints the card's name and power limit, one JSON line with the
@@ -656,10 +687,15 @@ ATTENTION_CASES = [
     ("ring_sp4_hop", (3, 24, 2207, 128), None, 1.0),
     ("flux_image_768px", (1, 24, 2816, 128), None, 1.0),  # the t2i2v image stage: 2304 image + 512 text tokens
     # the high-compression paths (patch 1 over DC-AE latents, 512 text tokens):
-    # t2v at 192 x 336 (32 x 6 x 11 latent tokens) and, at the 256px bucket's
-    # 1:1 size, i2v_head and the training clip (32 x 8 x 8)
-    ("hc_t2v_192x336", (3, 24, 2624, 128), None, 1.0),
-    ("hc_256x256", (3, 24, 2560, 128), None, 1.0),
+    # t2v and i2v_head at 256px 16:9 snapped to 32 px, 192 x 320 (32 x 6 x 10
+    # latent tokens), and the training clip at the 32-px bucket 224 x 288 (32 x 7 x 9)
+    ("hc_192x320", (3, 24, 2432, 128), None, 1.0),
+    ("hc_train_224x288", (3, 24, 2528, 128), None, 1.0),
+    # image.py's single-frame buckets on phase 21's cell (phase 33): 256px 1:1
+    # at B = 50, 768px at B = 11, 1024px at B = 7 (image + 512 text tokens)
+    ("image_256px_b50", (50, 24, 256 + 512, 128), None, 1.0),
+    ("image_768px_b11", (11, 24, 2304 + 512, 128), None, 1.0),
+    ("image_1024px_b7", (7, 24, 4096 + 512, 128), None, 1.0),
     ("vae_mid_tile_24x32", (1, 1, 33 * 768, 512), 768, 1.0),
     ("vae_mid_tile_24x18", (1, 1, 33 * 432, 512), 432, 1.0),
     # the reference encodes: one frame (i2v, t2i2v; causal_block = L) and
@@ -678,6 +714,10 @@ ATTENTION_CASES = [
     ("vae_mid_encode_1frame_32x32", (1, 1, 1024, 512), 1024, 1.0),
     ("vae_mid_encode_1frame_32x8", (1, 1, 256, 512), 256, 1.0),
     ("vae_mid_encode_1frame_24x8", (1, 1, 192, 512), 192, 1.0),
+    # phase 33's untiled single-frame encodes (stage1.py's AE tiles nothing):
+    # a 768 x 768 frame (96 x 96 latent) and a 1024 x 1024 frame (128 x 128)
+    ("vae_mid_encode_1frame_768px", (1, 1, 96 * 96, 512), 96 * 96, 1.0),
+    ("vae_mid_encode_1frame_1024px", (1, 1, 128 * 128, 512), 128 * 128, 1.0),
     ("tail_bidirectional", (2, 3, 1000, 128), None, 1.0),
     ("tail_running_max_wide", (2, 3, 1000, 128), None, 8.0),  # A ~ 200: the anchored loop would underflow
     ("tail_frame_causal_d128", (1, 2, 1000, 128), 96, 1.0),
@@ -913,7 +953,10 @@ def sdpa_backward_ms(q, k, v, do, mask, iters: int) -> float:
 BWD_CASES = [
     # name, (B, H, L, D), causal_block[, Lk]
     ("mmdit_joint", (3, 24, 8828, 128), None),
-    ("hc_train_128x256x256", (3, 24, 2560, 128), None),  # phase 16: 32 x 8 x 8 latent + 512 text tokens
+    ("hc_train_128x224x288", (3, 24, 2528, 128), None),  # phase 16: 32 x 7 x 9 latent + 512 text tokens
+    ("image_256px_b50", (50, 24, 256 + 512, 128), None),  # phase 33: image.py's three single-frame buckets
+    ("image_768px_b11", (11, 24, 2304 + 512, 128), None),
+    ("image_1024px_b7", (7, 24, 4096 + 512, 128), None),
     ("fsdp4_data_rank", (1, 24, 8828, 128), None),  # phase 21 over (4, 1, 1): one data rank's row
     ("dp2_tp2_rank", (2, 12, 8828, 128), None),  # phase 21 over (2, 1, 2): a rank's rows and heads
     ("pp2_tp2_microbatch", (1, 12, 8828, 128), None),  # phase 22 over (pp 2, tp 2): a 1-row microbatch's heads
@@ -1877,7 +1920,7 @@ def run_main_path(device, profile: bool = False, out_dir=None, records=None) -> 
     (phase 13 replays them)."""
     from opensora_torch.ops import _build
     from opensora_torch.utils.api import prepare_api, prepare_models
-    from opensora_torch.utils.config import parse_configs
+    from opensora_torch.utils.config import ae_spatial_compression, parse_configs
     from opensora_torch.utils.sampling import SamplingOption, sanitize_sampling_option
 
     cfg = parse_configs([
@@ -1894,7 +1937,7 @@ def run_main_path(device, profile: bool = False, out_dir=None, records=None) -> 
     log(f"[main] models built on {device} in {build_s:.1f} s; MMDiT {n_params / 1e9:.2f}B params")
 
     api_fn = prepare_api(model, ae, t5, clip)
-    opt = sanitize_sampling_option(SamplingOption(**cfg.sampling_option))
+    opt = sanitize_sampling_option(SamplingOption(**cfg.sampling_option), ae_spatial_compression(cfg))
     prompt = ["a red panda eating bamboo in a misty forest, 16 FPS. 4 motion score."]
 
     run_kwargs = dict(opt=opt, cond_type=cfg.cond_type, seed=cfg.seed, text=prompt,
@@ -1979,6 +2022,7 @@ def run_ring_path(device, built, profile: bool = False, out_dir=None) -> dict:
     from opensora_torch.parallel.context import set_mesh
     from opensora_torch.parallel.sharding import unshard_params
     from opensora_torch.utils.api import prepare_api
+    from opensora_torch.utils.config import ae_spatial_compression
     from opensora_torch.utils.sampling import SamplingOption, sanitize_sampling_option
 
     cfg, (model, ae, t5, clip), dense = built["cfg"], built["models"], built["video"]
@@ -1990,7 +2034,8 @@ def run_ring_path(device, built, profile: bool = False, out_dir=None) -> dict:
     def run(backend, steps):
         set_attn_backend(model, backend)
         api_fn = prepare_api(model, ae, t5, clip, mesh=mesh)
-        opt = sanitize_sampling_option(SamplingOption(**dict(cfg.sampling_option, num_steps=steps)))
+        opt = sanitize_sampling_option(SamplingOption(**dict(cfg.sampling_option, num_steps=steps)),
+                                       ae_spatial_compression(cfg))
         _build.LAUNCHES.clear()
         timings: dict = {}
         t0 = time.perf_counter()
@@ -2146,6 +2191,27 @@ def hunyuan_mid_launches(ae, shape, decode: bool) -> int:
     return per_tile
 
 
+class StandInDecode:
+    """While active, the video AE's decode records its latent (on the host)
+    and returns zeros of (B, 3, frames, 8, 8) in its place: a path whose
+    decode another phase runs at the same shape skips it."""
+
+    def __init__(self, ae, frames: int):
+        self.ae, self.frames, self.latents = ae, frames, []
+
+    def __enter__(self):
+        def stand_in(z, *args, **kwargs):
+            self.latents.append(z.detach().float().cpu())
+            return torch.zeros((z.shape[0], 3, self.frames, 8, 8), device=z.device)
+
+        self.ae.decode = stand_in
+        return self
+
+    def __exit__(self, *exc):
+        del self.ae.decode
+        return False
+
+
 class AERecorder:
     """Records what the video AE encodes (its input and output) and what it
     decodes, while active, by wrapping the instance's methods."""
@@ -2187,7 +2253,7 @@ def run_t2i2v_path(device, built, out_root, profile: bool = False, out_dir=None,
     from opensora_torch.inference import make_reference_images, prepare_image_stage
     from opensora_torch.ops import _build
     from opensora_torch.utils.api import prepare_api, prepare_optional_models
-    from opensora_torch.utils.config import parse_configs
+    from opensora_torch.utils.config import ae_spatial_compression, parse_configs
     from opensora_torch.utils.sampling import SamplingOption, sanitize_sampling_option
 
     cfg = parse_configs([T2I2V_CFG, "--sampling_option.num_steps", str(STEPS),
@@ -2215,7 +2281,7 @@ def run_t2i2v_path(device, built, out_root, profile: bool = False, out_dir=None,
     patch = cfg.get("patch_size", 2)
     api_img, opt_img = prepare_image_stage(cfg, optional, t5, clip, patch)
     api_fn = prepare_api(model, ae, t5, clip)
-    opt = sanitize_sampling_option(SamplingOption(**cfg.sampling_option))
+    opt = sanitize_sampling_option(SamplingOption(**cfg.sampling_option), ae_spatial_compression(cfg))
     n_img_blocks = cfg.img_flux["depth"] + cfg.img_flux["depth_single_blocks"]
     n_blocks = cfg.model["depth"] + cfg.model["depth_single_blocks"]
 
@@ -2298,13 +2364,15 @@ def run_v2v_path(device, built, out_root) -> dict:
     from opensora_torch.datasets.utils import read_from_path
     from opensora_torch.ops import _build
     from opensora_torch.utils.inference import save_sample
+    from opensora_torch.utils.config import ae_spatial_compression
     from opensora_torch.utils.sampling import SamplingOption, sanitize_sampling_option
 
     cfg, (model, ae, t5, clip) = built["cfg"], built["models"]
     video = built["video"]
     with unittest.mock.patch.dict(sys.modules, {"cv2": None}):
         ref_path = save_sample(video[0].numpy(), os.path.join(out_root, "v2v_reference"))
-    opt = sanitize_sampling_option(SamplingOption(**dict(cfg.sampling_option, num_steps=V2V_STEPS)))
+    opt = sanitize_sampling_option(SamplingOption(**dict(cfg.sampling_option, num_steps=V2V_STEPS)),
+                                   ae_spatial_compression(cfg))
     api_fn = api_mod.prepare_api(model, ae, t5, clip)
     conditions = []
 
@@ -2371,9 +2439,9 @@ CFG_768 = os.path.join(REPO, "configs", "diffusion", "inference", "768px.py")
 T2I2V_768_CFG = os.path.join(REPO, "configs", "diffusion", "inference", "t2i2v_768px.py")
 STEPS_768 = 1  # phase 18's steps, cut from 50 (one step launches each block's forward)
 T2I2V_768_STEPS = 1  # phase 19's video steps, cut from 50 (its image stage takes STEPS)
-# phase 19's video stage runs the first 5 double and 10 single blocks of
+# phase 19's video stage runs the first 2 double and 4 single blocks of
 # phase 4's MMDiT: its full-depth step at 76544 tokens repeats phase 18's
-T2I2V_768_DEPTH = (5, 10)
+T2I2V_768_DEPTH = (2, 4)
 SIZE_768, IMAGE_SIZE_768 = (576, 1024), (768, 768)  # 768px 16:9 (the video), 768px 1:1 (the t2i2v image)
 # the 129-frame 576 x 1024 video's latent is 33 x 72 x 128; patches of 2 x 2
 IMAGE_TOKENS_768 = 33 * 36 * 64
@@ -2421,18 +2489,19 @@ def plain_rows(fa, q, k, v, rows: int = ATTN_768_ROWS):
     return torch.cat(outs, 2), torch.cat(lses, 2)
 
 
-def check_attention_768px(device) -> dict:
-    """The D = 128 forward at 768px's joint attention (3, 24, 76544, 128)
-    bf16 on seeded inputs: the kernel's output and LSE against the plain
-    version on ATTN_768_PAIRS with all keys, in query chunks (all 72 pairs
-    would need 23 GB of fp32 scores each), with phase 2's known-wrong
+def check_attention_768px(device, shape=ATTN_768, pairs_held=ATTN_768_PAIRS, tag: str = "768px") -> dict:
+    """The D = 128 forward at 768px's joint attention (``shape``: phase 18's
+    batched CFG (3, 24, 76544, 128), or a B = 1 pass of phase 32's) bf16 on
+    seeded inputs: the kernel's output and LSE against the plain version on
+    ``pairs_held`` with all keys, in query chunks (each pair would need 23
+    GB of fp32 scores whole), with phase 2's known-wrong
     outputs read on the same pairs (one consumer's rows from the other's,
     the last 128-key tile dropped, V one tile off, the last 64 keys
     skipped); the loop the device picked for every (b, h); the wrapper and
     SDPA timed in turns; the plain version's time on one pair."""
     from opensora_torch.ops import flash_attention as fa
 
-    b, h, l, d = ATTN_768
+    b, h, l, d = shape
     gen = torch.Generator(device=device).manual_seed(18)
     q = torch.randn(b, h, l, d, generator=gen, device=device)
     q[0, 0] *= 3.0
@@ -2443,7 +2512,7 @@ def check_attention_768px(device) -> dict:
     out, lse = fa.flash_attention_with_lse(q, k, v)
     torch.cuda.synchronize()
     pairs, ok = [], True
-    for bi, hi in ATTN_768_PAIRS:
+    for bi, hi in pairs_held:
         qs, ks, vs = (t[bi:bi + 1, hi:hi + 1] for t in (q, k, v))
         ref_out, ref_lse = plain_rows(fa, qs, ks, vs)
         scale = ref_out.abs().max().item()
@@ -2480,13 +2549,13 @@ def check_attention_768px(device) -> dict:
     ms, library_ms = (sum(x) / len(x) for x in (turns["ms"], turns["library_ms"]))
     bound_ms, bound_by = attention_bound(b, h, l, d, None)
     branches = {"anchored": int((anchor < 40).sum()), "running_max": int((anchor >= 40).sum())}
-    res = dict(name="mmdit_joint_768px", shape=list(ATTN_768), causal_block=None, pairs=pairs,
+    res = dict(name=f"mmdit_joint_{tag}", shape=list(shape), causal_block=None, pairs=pairs,
                device_branches=branches, max_abs_err=max(p["max_abs_err"] for p in pairs),
                rel_err=max(p["rel_err"] for p in pairs), lse_max_abs_err=max(p["lse_max_abs_err"] for p in pairs),
                ms=ms, ms_turns=turns["ms"], library_ms=library_ms, library_ms_turns=turns["library_ms"],
                plain_ms_one_pair=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                kernel=fa.KERNEL_FWD_SM90)
-    log(f"[768px] {fa.KERNEL_FWD_SM90} {list(ATTN_768)}: loops picked {branches}; on (b, h) "
+    log(f"[{tag}] {fa.KERNEL_FWD_SM90} {list(shape)}: loops picked {branches}; on (b, h) "
         + "; ".join(f"({p['b']}, {p['h']}) {p['branch']} A={p['anchor']:.1f} out_err={p['rel_err']:.3e} of max|ref| "
                     f"(tol {OUT_RTOL}) lse_err={p['lse_max_abs_err']:.3e} (tol {LSE_TOL}) wrong outputs "
                     + ", ".join(f"{n} ({ro:.2e}, {rl:.2e})" for n, (ro, rl) in p["mutants"].items())
@@ -2531,21 +2600,23 @@ def run_768px_path(device, built, profile: bool = False, out_dir=None) -> dict:
     """configs/diffusion/inference/768px.py at full width and depth on phase
     4's models (the config's model, ae, t5 and clip are 256px.py's), while
     no image model is resident, through parse_configs, the CLI's mesh rule
-    and api_fn for STEPS_768 steps: a finite (1, 3, 129, 576, 1024) video,
-    76032 image tokens, 57 D = 128 launches a step and one D = 512 launch per
-    decode tile (DECODE_TILES_768), the peak under PEAK_LIMIT_GB; then the
-    D = 128 forward at the path's attention shape (check_attention_768px)."""
+    and api_fn for STEPS_768 steps: a finite latent of 33 x 72 x 128, 76032
+    image tokens, 57 D = 128 launches a step, the peak under PEAK_LIMIT_GB;
+    then the D = 128 forward at the path's attention shape
+    (check_attention_768px). The decode is left out (a stand-in records the
+    latent): phase 32 decodes a 768px latent with the same VAE, its tiles
+    and launches checked there."""
     from opensora_torch.inference import inference_mesh
     from opensora_torch.ops import _build
     from opensora_torch.utils.api import prepare_api
-    from opensora_torch.utils.config import parse_configs
+    from opensora_torch.utils.config import ae_spatial_compression, parse_configs
     from opensora_torch.utils.sampling import SamplingOption, sanitize_sampling_option
 
     cfg = parse_configs([CFG_768, "--sampling_option.num_steps", str(STEPS_768)])
     check_same_models(cfg, built["cfg"], ("model", "ae", "t5", "clip"), "768px.py (against 256px.py)")
     model, ae, t5, clip = built["models"]
     mesh = inference_mesh(cfg, device)
-    opt = sanitize_sampling_option(SamplingOption(**cfg.sampling_option))
+    opt = sanitize_sampling_option(SamplingOption(**cfg.sampling_option), ae_spatial_compression(cfg))
     lt = (opt.num_frames - 1) // opt.temporal_reduction + 1
     tokens = lt * (opt.height // 16) * (opt.width // 16)
     log(f"[768px] 768px.py at full width and depth on phase 4's models; num_steps cut 50 -> {STEPS_768}; mesh "
@@ -2560,31 +2631,25 @@ def run_768px_path(device, built, profile: bool = False, out_dir=None) -> dict:
     torch.cuda.reset_peak_memory_stats(device)
     _build.LAUNCHES.clear()
     timings: dict = {}
-    with AERecorder(ae) as rec:
+    with StandInDecode(ae, opt.num_frames) as rec:
         t0 = time.perf_counter()
-        x = api_fn(opt, cond_type=cfg.cond_type, seed=cfg.seed, text=T2I2V_PROMPT,
-                   channel=cfg.model["in_channels"], timings=timings)
+        api_fn(opt, cond_type=cfg.cond_type, seed=cfg.seed, text=T2I2V_PROMPT, channel=cfg.model["in_channels"],
+               timings=timings)
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
-    latent, = rec.decoded
-    grid = tile_grid(ae, latent.shape[3], latent.shape[4], decode=True)
+    latent, = rec.latents
     n_blocks = cfg.model["depth"] + cfg.model["depth_single_blocks"]
-    expect = {"flash_attention_fwd_sm90": n_blocks * STEPS_768, "flash_attention_fwd_d512": sum(grid.values())}
-    finite = bool(torch.isfinite(x).all())
-    outside = float((x.abs() > 1.0).float().mean())
-    res = dict(video_shape=list(x.shape), latent_shape=list(latent.shape), image_tokens=tokens,
-               decode_tiles={f"{r}x{c}": n for (r, c), n in grid.items()}, text_encode_s=timings["text_encode_s"],
-               step_s=timings["step_s"], decode_s=timings["decode_s"], total_s=total_s, peak_mem_gb=peak_gb,
-               outside_share=outside, launches=launches, expected=expect)
-    log(f"[768px] decode tiles ({grid_text(grid)}) " + json.dumps(res))
-    del x
-    if tuple(res["video_shape"]) != (1, 3, opt.num_frames, opt.height, opt.width) or not finite \
-            or outside > OUTSIDE_MAX:
-        raise AssertionError(f"768px video {res['video_shape']} finite={finite} outside={outside:.4f}")
-    if grid != DECODE_TILES_768 or launches != expect:
-        raise AssertionError(f"768px tiles {grid} / launches {launches} != {DECODE_TILES_768} / {expect}")
+    expect = {"flash_attention_fwd_sm90": n_blocks * STEPS_768}
+    finite = bool(torch.isfinite(latent).all())
+    res = dict(latent_shape=list(latent.shape), image_tokens=tokens, text_encode_s=timings["text_encode_s"],
+               step_s=timings["step_s"], total_s=total_s, peak_mem_gb=peak_gb, launches=launches, expected=expect)
+    log("[768px] " + json.dumps(res))
+    if tuple(latent.shape) != (1, 16, lt, opt.height // 8, opt.width // 8) or not finite:
+        raise AssertionError(f"768px latent {res['latent_shape']} finite={finite}")
+    if launches != expect:
+        raise AssertionError(f"768px launches {launches} != {expect}")
     check_peak("768px.py", peak_gb)
     if profile:
         res["profile"] = profile_run(lambda: api_fn(opt, cond_type=cfg.cond_type, seed=cfg.seed, text=T2I2V_PROMPT,
@@ -2612,7 +2677,7 @@ def run_t2i2v_768px_path(device, built, out_root) -> dict:
     from opensora_torch.inference import ImageStage
     from opensora_torch.ops import _build
     from opensora_torch.utils.api import load_to_device, prepare_api
-    from opensora_torch.utils.config import parse_configs
+    from opensora_torch.utils.config import ae_spatial_compression, parse_configs
     from opensora_torch.utils.sampling import SamplingOption, sanitize_sampling_option
 
     cfg = parse_configs([T2I2V_768_CFG, "--sampling_option.num_steps", str(T2I2V_768_STEPS),
@@ -2626,7 +2691,7 @@ def run_t2i2v_768px_path(device, built, out_root) -> dict:
     patch = cfg.get("patch_size", 2)
     stage = ImageStage(cfg, optional, t5, clip, patch)
     api_fn = prepare_api(model, ae, t5, clip)
-    opt = sanitize_sampling_option(SamplingOption(**cfg.sampling_option))
+    opt = sanitize_sampling_option(SamplingOption(**cfg.sampling_option), ae_spatial_compression(cfg))
     n_img_blocks = cfg.img_flux["depth"] + cfg.img_flux["depth_single_blocks"]
     n_blocks = sum(T2I2V_768_DEPTH)
     log(f"[t2i2v_768px] t2i2v_768px.py at full width on phases 4 and 11's models, the video stage at "
@@ -3183,7 +3248,7 @@ def run_int8_path(device, overrides, steps: int, profile: bool = False, out_dir=
     latent, for phase 26."""
     from opensora_torch.ops import _build
     from opensora_torch.utils.api import prepare_api, prepare_models
-    from opensora_torch.utils.config import parse_configs
+    from opensora_torch.utils.config import ae_spatial_compression, parse_configs
     from opensora_torch.utils.sampling import SamplingOption, sanitize_sampling_option
 
     cfg = parse_configs([INT8_CFG, "--sampling_option.num_steps", str(steps), *overrides])
@@ -3200,7 +3265,7 @@ def run_int8_path(device, overrides, steps: int, profile: bool = False, out_dir=
         f"{resident_gb:.2f} GB resident, {build_peak_gb:.2f} GB peak during the build")
     torch.cuda.reset_peak_memory_stats(device)
     api_fn = prepare_api(model, ae, t5, clip)
-    opt = sanitize_sampling_option(SamplingOption(**cfg.sampling_option))
+    opt = sanitize_sampling_option(SamplingOption(**cfg.sampling_option), ae_spatial_compression(cfg))
     prompt = ["a red panda eating bamboo in a misty forest, 16 FPS. 4 motion score."]
     run_kwargs = dict(opt=opt, cond_type=cfg.cond_type, seed=cfg.seed, text=prompt, channel=cfg.model["in_channels"])
     _build.LAUNCHES.clear()
@@ -3341,6 +3406,684 @@ def run_int8_tp_path(device, built, root: str) -> dict:
         raise AssertionError(f"int8 tp latent vs phase 6's: relative L2 {latent_rel:.4e} (phase 6 again: "
                              f"{spread:.4e}) > {INT8_TP_LATENT_TOL}")
     check_peak("int8_tp", peak_gb)
+    return res
+
+
+# ----------------------------------------------------------------------
+# phase 32: the one-card 768px serving configs on phase 6's int8 models
+# ----------------------------------------------------------------------
+
+# configs/diffusion/inference/768px_1chip.py and 768px_1chip_int8attn.py:
+# 768px.py with w8a8_pallas products and cfg_batched=False (three B = 1
+# passes a step), the second with int8_qk8 attention; seq_chunks=16 is a
+# memory lever of the JAX package that the port leaves out (ROADMAP's
+# porting rules): its builder ignores the key. Phase 32 runs both on phase
+# 6's full-depth int8 model (w8a8 and w8a8_pallas compute the same function:
+# opensora_torch/ops/quant.py), its T5-XXL, CLIP-L and VAE, which are the
+# configs' own (checked), for STEPS_768_1CHIP denoise steps each.
+CFG_768_1CHIP = os.path.join(REPO, "configs", "diffusion", "inference", "768px_1chip.py")
+CFG_768_1CHIP_INT8ATTN = os.path.join(REPO, "configs", "diffusion", "inference", "768px_1chip_int8attn.py")
+STEPS_768_1CHIP = 1  # denoise steps of each config, cut from 50
+# the B = 1 pass's W8A8 products: the image stream's (76032 rows), the text
+# stream's (512 rows), the single blocks' over the joint 76544 tokens (linear1's
+# bf16 output is 3.29 GB, past 2^31 bytes), and the modulations' one row
+GEMM_768_CASES = [
+    ("768_double_img_qkv", IMAGE_TOKENS_768, 3072, 9216),
+    ("768_double_img_mlp2", IMAGE_TOKENS_768, 12288, 3072),
+    ("768_double_txt_mlp0", 512, 3072, 12288),
+    ("768_single_linear1", IMAGE_TOKENS_768 + 512, 3072, 21504),
+    ("768_single_linear2", IMAGE_TOKENS_768 + 512, 15360, 3072),
+    ("768_modulation_b1", 1, 3072, 18432),
+]
+GEMM_768_HEAD = "768_single_linear1"
+GEMM_768_BAND = 1024  # rows of each band of the output held against the plain version
+# the int8 and bf16 attention of one B = 1 pass, held on these (b, h) pairs
+# over all query rows in chunks; (0, 0) has q scaled by 3 so that its loop is
+# the running max
+ATTN_768_B1 = (1, 24, IMAGE_TOKENS_768 + 512, 128)
+ATTN_768_B1_PAIRS = ((0, 0), (0, 13))
+# cfg_batched=False against the batched pass on a small input (2 x 16 x 16
+# latent: 128 image + 64 text tokens, so that int8 attention engages) at
+# full width and 2 + 4 blocks of phase 6's model: the velocity of one Euler
+# step, relative L2. Each token and (b, h) quantizes alone, but the batch
+# changes the bf16 products' sums (the embedders and the final layer run in
+# bf16 through cuBLAS), and an activation an ulp from an int8 rounding step
+# cascades (tests/test_torch_768px_1chip.py reads 2.9e-3 on the CPU's tiny
+# model). The control, the sequential passes with the conditional and the
+# first unconditional prompt swapped, must exceed the limit.
+CFG_BATCHED_DEPTH = (2, 4)
+CFG_BATCHED_TOL = 2e-2
+
+
+def int8_1chip_expected(cfg, steps: int, passes: int = 3) -> dict:
+    """Kernel launches of ``steps`` steps of the sequential CFG (``passes``
+    B = 1 forwards a step): every block linear a w8a8_matmul (10 per double
+    block, 3 per single block; w8a8_pallas quantizes outside at every row
+    count), one attention per block: int8_qk8's, or the bf16 flash forward."""
+    depth, single = cfg.model["depth"], cfg.model["depth_single_blocks"]
+    attn = "int8_flash_attention" if cfg.model.get("attn_backend") == "int8_qk8" else "flash_attention_fwd_sm90"
+    return {"w8a8_matmul": passes * steps * (10 * depth + 3 * single), attn: passes * steps * (depth + single)}
+
+
+def gemm_bands(m: int, n: int) -> dict:
+    """Row bands of an (m, n) bf16 product held against the plain version:
+    the first and the last GEMM_768_BAND rows and, where the output passes
+    2^31 bytes, the band around the row that holds byte 2^31 ("past_2^31")."""
+    if m <= 3 * GEMM_768_BAND:
+        return {"all": (0, m)}
+    bands = {"first": (0, GEMM_768_BAND)}
+    if 2 * m * n > 2 ** 31:
+        edge = 2 ** 31 // (2 * n)
+        lo = edge // 64 * 64 - GEMM_768_BAND // 2
+        bands["past_2^31"] = (lo, lo + GEMM_768_BAND)
+    bands["last"] = (m - GEMM_768_BAND, m)
+    return bands
+
+
+def check_int8_gemm_768px(device) -> dict:
+    """w8a8_matmul at the 768px B = 1 pass's shapes (GEMM_768_CASES), bf16
+    output as on the path, on seeded int8 inputs: every element of each row
+    band (gemm_bands) equal to the plain version's; on the band past 2^31
+    output bytes (else the last band), known-wrong outputs -- its rows left
+    unwritten (zero), one consumer's rows from the other's, a 32-wide K
+    slice dropped -- each differing; the kernel and torch._int_mm + the
+    fp32 rescale timed in turns, the plain version on one band."""
+    from opensora_torch.ops import int8_matmul as im
+
+    gen = torch.Generator(device=device).manual_seed(32)
+    cases = []
+    bf16 = torch.bfloat16
+    for name, m, k, n in GEMM_768_CASES:
+        x8 = torch.randint(-127, 128, (m, k), generator=gen, device=device, dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, k), generator=gen, device=device, dtype=torch.int8)
+        sa = torch.rand((m, 1), generator=gen, device=device) * 1e-2 + 1e-3
+        sw = torch.rand((n,), generator=gen, device=device) * 1e-2 + 1e-3
+        out = im.w8a8_matmul(x8, w, sa, sw)
+        torch.cuda.synchronize()
+        bands = gemm_bands(m, n)
+        held = "past_2^31" if "past_2^31" in bands else list(bands)[-1]
+        rec = dict(name=name, shape_mkn=[m, k, n], output_bytes=2 * m * n, bands={}, mutants={})
+        for tag, (lo, hi) in bands.items():
+            ref = im.w8a8_matmul_ref(x8[lo:hi], w, sa[lo:hi], sw, bf16)
+            got = out[lo:hi]
+            rec["bands"][tag] = dict(rows=[lo, hi], elements_differing=int((got != ref).sum()),
+                                     max_abs_err=float((got.float() - ref.float()).abs().max()))
+            if tag == held:
+                def differing(wrong):
+                    return int((wrong != ref).sum())
+
+                rec["mutants"] = {"band_rows_not_written": differing(torch.zeros_like(ref)),
+                                  "k32_slice_dropped": differing((ref.float() - gemm_from_x8(
+                                      x8[lo:hi, 32:64], w[:, 32:64], sa[lo:hi], sw)).to(bf16))}
+                if hi - lo > 64:
+                    rec["mutants"]["consumer_rows_swapped"] = differing(consumer_rows_swapped(ref))
+                rec["held_band"] = tag
+                band = (lo, hi)
+            del ref, got
+        del out
+        iters = 3 if 2.0 * m * n * k > 1e12 else 20
+        timed = dict(kernel=lambda: im.w8a8_matmul(x8, w, sa, sw))
+        if m > 16:  # torch._int_mm takes more than 16 rows
+            timed["library"] = lambda: (torch._int_mm(x8, w.t()).float() * sa * sw).to(bf16)
+        turns = {key: [] for key in timed}
+        for key in (tuple(timed) + tuple(timed)[::-1]) * 2:
+            turns[key].append(time_cuda(timed[key], iters))
+        mean = {key: sum(v) / len(v) for key, v in turns.items()}
+        lo, hi = band
+        plain_ms = time_cuda(lambda: im.w8a8_matmul_ref(x8[lo:hi], w, sa[lo:hi], sw, bf16), 1, warmup=0)
+        bound_ms, bound_by = gemm_bound(m, k, n, False)
+        rec.update(ms=mean["kernel"], ms_turns=turns["kernel"], library_ms=mean.get("library"),
+                   library_ms_turns=turns.get("library"), plain_ms=plain_ms, plain_rows=hi - lo,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   max_abs_err=max(b["max_abs_err"] for b in rec["bands"].values()))
+        ok = all(b["elements_differing"] == 0 for b in rec["bands"].values())
+        caught = all(c > 0 for c in rec["mutants"].values())
+        rec.update(within_limits=ok, wrong_rejected=caught)
+        cases.append(rec)
+        library_txt = "n/a (one row)" if "library" not in mean else (
+            f"{mean['library']:.3f} ({min(turns['library']):.3f}-{max(turns['library']):.3f})")
+        log(f"[768px_1chip] w8a8_matmul {name} (M, K, N) = ({m}, {k}, {n}), bf16 output {2 * m * n / 1e9:.2f} GB: "
+            "elements differing from the plain version by band " + ", ".join(
+                f"{t} {b['rows']} {b['elements_differing']}" for t, b in rec["bands"].items())
+            + f" (must be 0); wrong outputs on the {held} band (elements differing): {rec['mutants']} "
+            f"{'rejected' if caught else 'NOT REJECTED'}; in turns ms={mean['kernel']:.3f} "
+            f"({min(turns['kernel']):.3f}-{max(turns['kernel']):.3f}) torch._int_mm + rescale {library_txt}; "
+            f"bound {bound_ms:.3f} ({bound_by}); plain on {hi - lo} rows {plain_ms:.3f} "
+            f"{'OK' if ok and caught else 'FAIL'}")
+        del x8, w, sa, sw, timed
+        torch.cuda.empty_cache()
+        if not ok:
+            raise AssertionError(f"w8a8_matmul disagrees with its plain version at {name}")
+        if not caught:
+            raise AssertionError(f"the check at {name} does not reject a known-wrong output")
+    return {"cases": cases}
+
+
+def int8_pair_plain(ia, pre, rows: int = ATTN_768_ROWS):
+    """The plain int8 attention of one (b, h) from its preamble (the whole
+    head's: a2 and K's tiles need every row), over chunks of query rows."""
+    outs = []
+    for r0 in range(0, pre["q8"].shape[2], rows):
+        band = dict(pre, q8=pre["q8"][:, :, r0:r0 + rows], sq=pre["sq"][:, :, r0:r0 + rows])
+        outs.append(ia.attention_from_quantized(band, False))
+    return torch.cat(outs, 2)
+
+
+def check_int8_attention_768px(device, mufu_per_s: float) -> dict:
+    """int8_qk8 attention at the 768px B = 1 pass's (1, 24, 76544, 128) on
+    seeded inputs: the kernel's output against the plain version on
+    ATTN_768_B1_PAIRS over every query row in chunks (a head's fp32 logits
+    are 23 GB whole), known-wrong outputs read on the same pairs (sk of the
+    neighbouring tile, the tail key tile skipped, one consumer's rows from
+    the other's); the loop of every (b, h) from its a2; the kernel alone,
+    the wrapper and bf16 SDPA timed in turns; the plain version on one
+    pair."""
+    from opensora_torch.ops import int8_flash as ia
+
+    b, h, l, d = ATTN_768_B1
+    gen = torch.Generator(device=device).manual_seed(33)
+    q = torch.randn((b, h, l, d), generator=gen, device=device)
+    q[0, 0] *= 3.0
+    q = q.to(torch.bfloat16)
+    k = torch.randn((b, h, l, d), generator=gen, device=device).to(torch.bfloat16)
+    v = (torch.randn((b, h, l, d), generator=gen, device=device) + 0.5).to(torch.bfloat16)
+    scale = d ** -0.5
+    block_k = ia.default_block_k(l)
+    out = ia.int8_flash_attention(q, k, v, pv_int8=False)
+    torch.cuda.synchronize()
+    pre = ia.kernel_inputs(q, k, v, scale, block_k, False)
+    a2 = pre["a2"].cpu()
+    pairs, ok = [], True
+    keep = l - (l % 64 or 64)
+    for bi, hi in ATTN_768_B1_PAIRS:
+        qs, ks, vs = (x[bi:bi + 1, hi:hi + 1] for x in (q, k, v))
+        pair_pre = ia.quantize_inputs(qs, ks, vs, scale, block_k, False)
+        ref = int8_pair_plain(ia, pair_pre)
+        ref_scale = ref.abs().max().item()
+        err = (out[bi:bi + 1, hi:hi + 1].float() - ref).abs().max().item()
+
+        def reading(wrong):
+            return (wrong - ref).abs().max().item() / ref_scale
+
+        swapped = ref.clone()
+        for m0 in range(0, l - 64, 128):
+            n = min(64, l - m0 - 64)
+            swapped[:, :, m0 + 64:m0 + 64 + n] = ref[:, :, m0:m0 + n]
+        mutants = {"consumer_rows_from_other_consumer": reading(swapped)}
+        del swapped
+        mutants["sk_of_neighbouring_tile"] = reading(int8_pair_plain(ia, dict(pair_pre, sk=pair_pre["sk"].roll(-1, 2))))
+        tail_pre = ia.quantize_inputs(qs, ks[:, :, :keep], vs[:, :, :keep], scale, block_k, False)
+        mutants["tail_tile_skipped"] = reading(int8_pair_plain(ia, tail_pre))
+        del tail_pre
+        good = math.isfinite(err) and err <= INT8_ATTN_RTOL * ref_scale
+        caught = all(r > INT8_ATTN_RTOL for r in mutants.values())
+        ok &= good and caught
+        pairs.append(dict(b=bi, h=hi, a2=float(a2[bi, hi]), branch="anchored" if a2[bi, hi] < 40 else "running_max",
+                          max_abs_err=err, ref_max_abs=ref_scale, rel_err=err / ref_scale, mutants=mutants,
+                          within_limits=good, wrong_rejected=caught))
+        del ref, pair_pre
+    plain_ms = time_cuda(lambda: int8_pair_plain(ia, ia.quantize_inputs(q[:1, :1], k[:1, :1], v[:1, :1], scale,
+                                                                       block_k, False)), 1, warmup=0)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    timed = dict(kernel=lambda: ia.launch(pre, False), wrapper=lambda: ia.int8_flash_attention(q, k, v, pv_int8=False),
+                 library=lambda: sdpa(q, k, v))
+    turns = {key: [] for key in timed}
+    for key in (tuple(timed) + tuple(timed)[::-1]) * 2:
+        turns[key].append(time_cuda(timed[key], 1))
+    mean = {key: sum(t) / len(t) for key, t in turns.items()}
+    bound_ms, bound_by, exp2_ms = int8_attention_bound(b, h, l, d, False, mufu_per_s)
+    branches = {"anchored": int((a2 < 40).sum()), "running_max": int((a2 >= 40).sum())}
+    res = dict(name="int8_qk8_768px_b1", mode="qk8", shape=list(ATTN_768_B1), block_k=block_k, pairs=pairs,
+               device_branches=branches, max_abs_err=max(p["max_abs_err"] for p in pairs),
+               rel_err=max(p["rel_err"] for p in pairs), ms=mean["kernel"], ms_turns=turns["kernel"],
+               wrapper_ms=mean["wrapper"], wrapper_ms_turns=turns["wrapper"], library_ms=mean["library"],
+               library_ms_turns=turns["library"], library="bf16 SDPA (the bf16 route's yardstick)",
+               plain_ms_one_pair=plain_ms, bound_ms=bound_ms, bound_by=bound_by, exp2_ms=exp2_ms)
+    log(f"[768px_1chip] int8_flash_attention qk8 {list(ATTN_768_B1)} block_k={block_k}: loops from a2 {branches}; "
+        + "; ".join(f"({p['b']}, {p['h']}) {p['branch']} a2={p['a2']:.1f} err={p['rel_err']:.3e} of max|ref| "
+                    f"(tol {INT8_ATTN_RTOL}) wrong outputs " + ", ".join(f"{n} {r:.2e}" for n, r in p["mutants"].items())
+                    + (" rejected" if p["wrong_rejected"] else " NOT REJECTED") for p in pairs)
+        + f"; in turns (ms): kernel {mean['kernel']:.3f} ({min(turns['kernel']):.3f}-{max(turns['kernel']):.3f}), "
+        f"wrapper {mean['wrapper']:.3f}, bf16 SDPA {mean['library']:.3f}; bound {bound_ms:.3f} ({bound_by}; exp2 "
+        f"{exp2_ms:.3f}); plain one pair {plain_ms:.3f} {'OK' if ok else 'FAIL'}")
+    del q, k, v, out, pre, timed
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("int8 attention at 768px disagrees with its plain version, or a known-wrong output "
+                             "passes the limit")
+    return res
+
+
+def check_cfg_batched(device, model, opt) -> dict:
+    """cfg_batched=False against cfg_batched=True: one Euler step of the I2V
+    denoiser (the config's guidance, oscillation and image guidance) on a
+    small seeded input at full width and CFG_BATCHED_DEPTH blocks of the
+    served model (its int8 products and attention), the velocity of the
+    three B = 1 passes against the batched pass's in relative L2 within
+    CFG_BATCHED_TOL; the control (the conditional and first unconditional
+    prompts swapped) must exceed it; exact launches."""
+    from opensora_torch.ops import _build
+    from opensora_torch.utils import sampling as S
+
+    gen = torch.Generator(device=device).manual_seed(34)
+    lt, lh, lw, n_txt = 2, 16, 16, 64
+    c = model.config
+    n_img = lt * (lh // 2) * (lw // 2)
+    img = torch.randn((1, n_img, c.in_channels), generator=gen, device=device).expand(3, -1, -1)
+    base = dict(img_ids=S.build_img_ids(lt, lh, lw, bs=3, device=device),
+                txt=torch.randn((3, n_txt, c.context_in_dim), generator=gen, device=device).to(torch.bfloat16),
+                txt_ids=torch.zeros((3, n_txt, 3), device=device),
+                y_vec=torch.randn((3, c.vec_in_dim), generator=gen, device=device).to(torch.bfloat16),
+                masks=torch.zeros((1, 1, lt, lh, lw), device=device),
+                masked_ref=torch.zeros((1, c.in_channels // 4, lt, lh, lw), device=device))
+    ts = S.get_schedule(1, n_img, lt)
+    kw = dict(guidance=opt.guidance, guidance_img=opt.guidance_img, text_osci=opt.text_osci,
+              image_osci=opt.image_osci, scale_temporal_osci=False, patch_size=2)
+    dt = float(ts[1] - ts[0])
+    depth, single = CFG_BATCHED_DEPTH
+    velocity, launches = {}, {}
+    swapped = {k: base[k][[1, 0, 2]] for k in ("txt", "y_vec")}
+    with cut_depth(model, depth, single), torch.inference_mode():
+        for tag, batched, over in (("batched", True, {}), ("sequential", False, {}),
+                                   ("control_prompts_swapped", False, swapped)):
+            _build.LAUNCHES.clear()
+            x = S.I2VDenoiser().denoise(model, img=img, timesteps=ts, cfg_batched=batched, **kw,
+                                        **dict(base, **over))
+            torch.cuda.synchronize()
+            velocity[tag] = (x.float() - img[:1].float()) / dt
+            launches[tag] = dict(_build.LAUNCHES)
+    n_blocks = depth + single
+    per_pass = {"w8a8_matmul": 10 * depth + 3 * single, "int8_flash_attention": n_blocks}
+    expect = {"batched": per_pass, "sequential": {k: 3 * v for k, v in per_pass.items()}}
+    expect["control_prompts_swapped"] = expect["sequential"]
+    rel = rel_l2(velocity["sequential"], velocity["batched"])
+    control = rel_l2(velocity["control_prompts_swapped"], velocity["batched"])
+    finite = all(bool(torch.isfinite(v).all()) for v in velocity.values())
+    res = dict(depth=[depth, single], tokens=n_img + n_txt, velocity_rel_l2=rel, control_rel_l2=control,
+               tol=CFG_BATCHED_TOL, launches=launches, expected=expect)
+    ok = finite and rel <= CFG_BATCHED_TOL < control and launches == expect
+    log(f"[768px_1chip] cfg_batched=False vs True on a small input ({n_img} + {n_txt} tokens, {depth}+{single} "
+        f"blocks of the int8 model): velocity rel L2 {rel:.3e} (tol {CFG_BATCHED_TOL}); control, the prompts "
+        f"swapped, {control:.3e} {'rejected' if control > CFG_BATCHED_TOL else 'NOT REJECTED'}; launches "
+        f"{launches} (expected {expect}) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"cfg_batched=False vs True: {res}")
+    return res
+
+
+def run_768px_1chip_path(device, built, mufu_per_s: float) -> dict:
+    """Phase 32: 768px_1chip_int8attn.py through the CLI's steps (parse_configs,
+    inference_mesh, prepare_api, sanitize_sampling_option with the config's
+    compression, api_fn) at full width and depth on phase 6's int8 models
+    for STEPS_768_1CHIP steps and the decode: a finite (1, 3, 129, 576, 1024)
+    video, exact launches (int8_1chip_expected and the decode's tiles), the
+    peak; then 768px_1chip.py, the same weights with the bf16 flash
+    attention, for its denoise steps (its decode left out: the same VAE
+    call as before), exact launches; then the sequential CFG against the
+    batched (check_cfg_batched) and both int8 kernels and the D = 128
+    forward at these shapes."""
+    from opensora_torch.inference import inference_mesh
+    from opensora_torch.ops import _build
+    from opensora_torch.ops import int8_flash as ia
+    from opensora_torch.ops.quant import QuantLinear
+    from opensora_torch.utils.api import prepare_api
+    from opensora_torch.utils.config import ae_spatial_compression, parse_configs
+    from opensora_torch.utils.sampling import SamplingOption, sanitize_sampling_option
+
+    steps = ["--sampling_option.num_steps", str(STEPS_768_1CHIP)]
+    cfgs = {"int8attn": parse_configs([CFG_768_1CHIP_INT8ATTN, *steps]), "bf16attn": parse_configs([CFG_768_1CHIP,
+                                                                                                   *steps])}
+    base = built["cfg"]
+    check_same_models(cfgs["int8attn"], base, ("ae", "t5", "clip"), "768px_1chip_int8attn.py (against 256px_int8attn.py)")
+    check_same_models(cfgs["bf16attn"], base, ("ae", "t5", "clip"), "768px_1chip.py (against 256px_int8attn.py)")
+    mine = ("quantized", "seq_chunks", "attn_backend")
+    for tag, cfg in cfgs.items():
+        if {k: v for k, v in cfg.model.items() if k not in mine} != {k: v for k, v in base.model.items()
+                                                                      if k not in mine}:
+            raise AssertionError(f"phase 32 ({tag}): the config's MMDiT is not phase 6's but for {mine}")
+        if cfg.model["quantized"] != "w8a8_pallas" or cfg.sampling_option.get("cfg_batched") is not False:
+            raise AssertionError(f"phase 32 ({tag}): quantized {cfg.model['quantized']}, cfg_batched "
+                                 f"{cfg.sampling_option.get('cfg_batched')}")
+    if base.model["quantized"] != "w8a8" or cfgs["int8attn"].model["attn_backend"] != "int8_qk8" \
+            or cfgs["bf16attn"].model.get("attn_backend") is not None:
+        raise AssertionError("phase 32: the configs' attention or phase 6's quantization changed")
+    model, ae, t5, clip = built["models"]
+    quant = [m for m in model.modules() if isinstance(m, QuantLinear)]
+    modes = {m.mode for m in quant}
+    cfg = cfgs["int8attn"]
+    mesh = inference_mesh(cfg, device)
+    compression = ae_spatial_compression(cfg)
+    opt = sanitize_sampling_option(SamplingOption(**cfg.sampling_option), compression)
+    lt = (opt.num_frames - 1) // opt.temporal_reduction + 1
+    tokens = lt * (opt.height // 16) * (opt.width // 16)
+    log(f"[768px_1chip] 768px_1chip_int8attn.py and 768px_1chip.py at full width and depth on phase 6's int8 "
+        f"models ({len(quant)} products, modes {sorted(modes)} -> w8a8_pallas); num_steps cut 50 -> "
+        f"{STEPS_768_1CHIP}; cfg_batched {opt.cfg_batched}; mesh {cfg.mesh}: {mesh}; video {opt.num_frames} x "
+        f"{opt.height} x {opt.width}, {tokens} image tokens; seq_chunks {cfg.model['seq_chunks']} not used by the port")
+    if mesh is not None or (opt.height, opt.width) != SIZE_768 or tokens != IMAGE_TOKENS_768 or opt.cfg_batched:
+        raise AssertionError(f"phase 32: mesh {mesh}, size {opt.height} x {opt.width}, {tokens} tokens")
+    n_blocks = cfg.model["depth"] + cfg.model["depth_single_blocks"]
+    api_fn = prepare_api(model, ae, t5, clip, spatial_compression=compression, mesh=mesh)
+    run_kwargs = dict(cond_type=cfg.cond_type, seed=cfg.seed, text=T2I2V_PROMPT, channel=cfg.model["in_channels"])
+    res = dict(image_tokens=tokens, runs={})
+    loops = {"anchored": 0, "running_max": 0}
+
+    def counting(launch):
+        def wrapped(pre, pv_int8):
+            anchored = int((pre["a2"] < 40).sum())
+            loops["anchored"] += anchored
+            loops["running_max"] += pre["a2"].numel() - anchored
+            return launch(pre, pv_int8)
+        return wrapped
+
+    latents = {}
+    try:
+        for m in quant:
+            m.mode = cfg.model["quantized"]
+        for tag in ("int8attn", "bf16attn"):
+            set_attn_backend(model, cfgs[tag].model.get("attn_backend"))
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+            _build.LAUNCHES.clear()
+            timings: dict = {}
+            ctx = contextlib.ExitStack()
+            if tag == "int8attn":
+                rec = ctx.enter_context(AERecorder(ae))
+                ctx.enter_context(patched(ia, "launch", counting))
+            else:  # the denoiser only: the decode is the one above
+                rec = ctx.enter_context(StandInDecode(ae, opt.num_frames))
+            with ctx:
+                t0 = time.perf_counter()
+                x = api_fn(opt, **run_kwargs, timings=timings)
+                torch.cuda.synchronize()
+                total_s = time.perf_counter() - t0
+            launches = dict(_build.LAUNCHES)
+            peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+            expect = int8_1chip_expected(cfgs[tag], STEPS_768_1CHIP)
+            r = dict(config=os.path.basename(CFG_768_1CHIP_INT8ATTN if tag == "int8attn" else CFG_768_1CHIP),
+                     text_encode_s=timings["text_encode_s"], step_s=timings["step_s"], total_s=total_s,
+                     peak_mem_gb=peak_gb, launches=launches)
+            if tag == "int8attn":
+                latent, = rec.decoded
+                grid = tile_grid(ae, latent.shape[3], latent.shape[4], decode=True)
+                if grid != DECODE_TILES_768:
+                    raise AssertionError(f"phase 32: decode tiles {grid} != {DECODE_TILES_768}")
+                expect["flash_attention_fwd_d512"] = sum(grid.values())
+                finite = bool(torch.isfinite(x).all())
+                outside = float((x.abs() > 1.0).float().mean())
+                r.update(video_shape=list(x.shape), decode_s=timings["decode_s"], outside_share=outside,
+                         finite=finite, int8_attention_loops=dict(loops),
+                         decode_tiles={f"{a}x{b}": n for (a, b), n in grid.items()})
+                if tuple(x.shape) != (1, 3, opt.num_frames, opt.height, opt.width) or not finite \
+                        or outside > OUTSIDE_MAX:
+                    raise AssertionError(f"phase 32 video {tuple(x.shape)} finite={finite} outside={outside:.4f}")
+            else:
+                latent, = rec.latents
+            latents[tag] = latent
+            r["expected"] = expect
+            r["latent_shape"] = list(latent.shape)
+            res["runs"][tag] = r
+            log(f"[768px_1chip] {tag}: " + json.dumps(r))
+            del x
+            if launches != expect:
+                raise AssertionError(f"phase 32 ({tag}): launches {launches} != expected {expect}")
+            check_peak(f"phase 32 ({tag})", peak_gb)
+        if sum(loops.values()) != res["runs"]["int8attn"]["expected"]["int8_flash_attention"] * ATTN_768_B1[1]:
+            raise AssertionError(f"phase 32: int8 attention loops {loops}: not one a head and launch")
+        res["latent_int8_vs_bf16_attention_rel_l2"] = rel_l2(latents["int8attn"], latents["bf16attn"])
+        if not all(bool(torch.isfinite(v).all()) for v in latents.values()):
+            raise AssertionError("phase 32: a latent is not finite")
+        res["peak_mem_gb"] = max(r["peak_mem_gb"] for r in res["runs"].values())
+        log(f"[768px_1chip] peak device memory {res['peak_mem_gb']:.2f} GB (768px.py's bf16 batched CFG, phase 18: "
+            f"read there); latents of the two attentions {res['latent_int8_vs_bf16_attention_rel_l2']:.3e} apart "
+            "(relative L2)")
+        set_attn_backend(model, cfg.model["attn_backend"])
+        res["cfg_batched"] = check_cfg_batched(device, model, opt)
+    finally:
+        for m in quant:
+            m.mode = base.model["quantized"]
+        set_attn_backend(model, base.model["attn_backend"])
+    del api_fn, latents
+    free()
+    res["gemm"] = check_int8_gemm_768px(device)
+    res["int8_attention"] = check_int8_attention_768px(device, mufu_per_s)
+    res["attention"] = check_attention_768px(device, ATTN_768_B1, ATTN_768_B1_PAIRS, tag="768px_1chip")
+    return res
+
+
+# ----------------------------------------------------------------------
+# phases 33 and 34: image.py and stage1_i2v.py on phase 21's cell
+# ----------------------------------------------------------------------
+
+IMAGE_CFG = os.path.join(REPO, "configs", "diffusion", "train", "image.py")
+STAGE1_I2V_CFG = os.path.join(REPO, "configs", "diffusion", "train", "stage1_i2v.py")
+# seeded pngs, one file a size: image.py's buckets walk the resolutions from
+# the highest down with keep draws (1024px 0.5, 768px 0.5, 256px 1.0), so a
+# 1024 x 1024 image lands in any of the three, a 768 x 768 one in 768px or
+# 256px, a 256 x 256 one in 256px
+IMAGE_SIZES = ((1024, 1024), (768, 768), (256, 256))
+
+
+def train_cfg_args(path: str) -> list:
+    """``path`` (a child of stage1.py) at phase 21's depth and Adam settings
+    (fsdp_cfg_args), as parse_configs arguments."""
+    return [path, *fsdp_cfg_args()[1:]]
+
+
+def image_table(root: str, bucket, seed: int) -> tuple:
+    """Phase 33's table: rows of the seeded pngs (one file a size), each
+    row's size picked, in row order, as the largest whose sampler draw (the
+    seed of its row, as VariableVideoBatchSampler.group_by_bucket seeds it)
+    lands it in a bucket still short of one batch, until each holds one.
+    Returns (the csv's path, each row's intended resolution)."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(33)
+    files = {}
+    for h, w in IMAGE_SIZES:
+        files[(h, w)] = os.path.join(root, f"image_{h}x{w}.png")
+        cv2.imwrite(files[(h, w)], rng.integers(0, 255, (h, w, 3), np.uint8))
+    need = {res: bucket.get_batch_size((res, 1)) for res in bucket.bucket_bs}
+    rows, landed = [], []
+    while any(need.values()):
+        i = len(rows)
+        for h, w in IMAGE_SIZES:
+            res = bucket.get_bucket_id(1, h, w, 0.0, seed=seed + i * bucket.num_bucket)[0]
+            if need[res]:
+                need[res] -= 1
+                rows.append(f"{files[(h, w)]},a seeded still image {i},1,{h},{w},0.0")
+                landed.append(res)
+                break
+        else:
+            raise AssertionError(f"phase 33: no size lands row {i} in a bucket still short: {need}")
+    path = os.path.join(root, "images.csv")
+    with open(path, "w") as f:
+        f.write("\n".join(["path,text,num_frames,height,width,fps", *rows]) + "\n")
+    return path, landed
+
+
+def masters_moved(state, start: dict) -> dict:
+    """The share of the trained parameters' elements that differ from
+    ``start`` (host tensors by name), the tensors equal to it, and those
+    of them with two dimensions or more. At Adam's eps 1e-2 (TP_ADAM) an
+    element moves by lr |g| / (|g| + eps), under the fp32 spacing of a norm's
+    scale near 1 where |g| is below ~1e-5: a vector may stay whole, a weight
+    matrix must move (but cond_in's under t2v alone, whose input is zero)."""
+    changed = total = 0
+    still = []
+    for n, p in state.params.items():
+        diff = int((p.detach() != start[n].to(p.device)).sum())
+        changed, total = changed + diff, total + p.numel()
+        if diff == 0:
+            still.append(n)
+    return dict(share=changed / total, still=still, still_matrices=[n for n in still if start[n].dim() >= 2])
+
+
+def train_step_expected(n_blocks: int, d512: int) -> dict:
+    """One step's launches: the D = 128 forward twice a block (forward and
+    recompute), the fused backward and its dQ epilogue once, and ``d512``
+    mid-block attentions in the encodes."""
+    return {"flash_attention_fwd_sm90": 2 * n_blocks, "flash_attention_bwd_fused": n_blocks,
+            "flash_attention_bwd_dq_convert": n_blocks, "flash_attention_fwd_d512": d512}
+
+
+def run_image_train_path(device, carry: dict) -> dict:
+    """Phase 33: configs/diffusion/train/image.py at phase 21's depth and
+    Adam settings, from phase 21's saved state, through the training CLI's
+    loader (VideoTextDataset over a table of seeded pngs, the config's
+    bucket_config through prepare_dataloader) and Trainer.run_batch: one
+    step per resolution at the config's batch sizes (256px B = 50, 768px
+    B = 11, 1024px B = 7). Each row lands in the bucket the table meant
+    (the sampler's draws), each batch is one bucket's single frames at its
+    size; finite losses, every weight matrix moved but cond_in's
+    (masters_moved), exact launches (the D = 128 kernels at (B, 24,
+    tokens + 512, 128), one D = 512 encode a frame: the AE tiles nothing),
+    each step's peak."""
+    from opensora_torch.datasets.bucket import Bucket
+    from opensora_torch.datasets.dataloader import prepare_dataloader
+    from opensora_torch.datasets.datasets import VideoTextDataset
+    from opensora_torch.ops import _build
+    from opensora_torch.train import Trainer
+    from opensora_torch.utils.config import ae_spatial_compression, parse_configs
+
+    cfg = parse_configs(train_cfg_args(IMAGE_CFG))
+    check_same_models(cfg, carry["cfg"], ("model", "ae", "t5", "clip"), "image.py (against stage1.py)")
+    n_blocks = carry["n_blocks"]
+    log(f"[image] image.py at full width, depth {cfg.model['depth']}+{cfg.model['depth_single_blocks']}, from "
+        f"phase 21's state; buckets {dict(cfg.bucket_config)}; condition_config {dict(cfg.condition_config)}")
+    free()
+    trainer = Trainer(cfg, device)
+    trainer.state.load_state_dict(carry["snapshot"])
+    root = tempfile.mkdtemp(prefix="chip_smoke_image_")
+    try:
+        t0 = time.perf_counter()
+        bucket = Bucket(cfg.bucket_config, ae_spatial_compression(cfg))
+        table, landed = image_table(root, bucket, cfg.seed)
+        loader, sampler = prepare_dataloader(VideoTextDataset(table), bucket_config=cfg.bucket_config, seed=cfg.seed,
+                                             spatial_compression=ae_spatial_compression(cfg), num_replicas=1, rank=0)
+        groups = sampler.group_by_bucket()
+        got = {i: bucket_id[0] for bucket_id, rows in groups.items() for i in rows}
+        if [got.get(i) for i in range(len(landed))] != landed:
+            raise AssertionError("phase 33: the sampler's buckets are not the table's")
+        table_s = time.perf_counter() - t0
+        steps = []
+        for batch in loader:
+            video = batch["video"]
+            b, _, t, h, w = video.shape
+            _build.LAUNCHES.clear()
+            torch.cuda.reset_peak_memory_stats(device)  # each step's own peak
+            t0 = time.perf_counter()
+            m = trainer.run_batch(batch)
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t0
+            times = trainer.timers.to_dict()
+            tokens = (h // 16) * (w // 16)
+            rec = dict(batch=b, frames=t, size=[h, w], image_tokens=tokens, loss=float(m["loss"]),
+                       grad_norm=float(m["grad_norm"]), mask_conds=sorted(set(trainer.mask_conds)),
+                       launches=dict(_build.LAUNCHES),
+                       expected=train_step_expected(n_blocks, hunyuan_mid_launches(trainer.ae, (b, 3, t, h, w), False)),
+                       encode_video_s=times["time/encode_video"], encode_text_s=times["time/encode_text"],
+                       step_s=times["time/step"], total_s=total_s,
+                       peak_mem_gb=torch.cuda.max_memory_allocated(device) / 1e9)
+            steps.append(rec)
+            log(f"[image] {h}x{w} B={b}: " + json.dumps(rec))
+        peak_gb = max((s["peak_mem_gb"] for s in steps), default=0.0)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    moved = masters_moved(trainer.state, carry["snapshot"]["params"])
+    n_params = len(trainer.state.params)
+    res = dict(rows=len(landed), rows_by_bucket={r: landed.count(r) for r in sorted(set(landed))}, table_s=table_s,
+               steps=steps, masters_moved=moved, masters=n_params, peak_mem_gb=peak_gb,
+               launches={k: sum(s["launches"].get(k, 0) for s in steps) for k in steps[0]["expected"]} if steps else {})
+    del trainer, loader, sampler
+    free()
+    want = sorted((bucket.get_batch_size(bid), *bucket.get_thw(bid)[1:]) for bid in groups)
+    seen = sorted((s["batch"], *s["size"]) for s in steps)
+    log(f"[image] {len(steps)} steps, batches {seen} (expected {want}); the masters' elements moved "
+        f"{moved['share']:.6f}, tensors that did not {moved['still']} of {n_params}; peak {peak_gb:.2f} GB ("
+        + ", ".join(f"{h}x{w} B={s['batch']}: {s['peak_mem_gb']:.2f} GB" for s in steps for h, w in [s["size"]]) + ")")
+    if seen != want or sorted(bid[0] for bid in groups) != sorted(bucket.bucket_bs) \
+            or any(s["frames"] != 1 for s in steps):
+        raise AssertionError(f"phase 33: batches {seen}, expected one of each resolution: {want}")
+    for s in steps:
+        if not (math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])) or s["launches"] != s["expected"] \
+                or s["mask_conds"] != ["t2v"]:
+            raise AssertionError(f"phase 33: step {s}")
+    if moved["still_matrices"] != ["cond_in.weight"]:  # t2v alone: the visual condition is zero
+        raise AssertionError(f"phase 33: weight matrices that did not move: {moved}")
+    check_peak("image.py", peak_gb)
+    return res
+
+
+def i2v_draw_seed(condition_config: dict, batch: int, latent_t: int, time_compression: int) -> int:
+    """The first seed of the trainer's host generator whose visual-condition
+    draws for ``batch`` clips of ``latent_t`` latent frames include
+    i2v_loop and i2v_tail (utils/train.choose_mask_conditions)."""
+    import numpy as np
+
+    from opensora_torch.utils.train import choose_mask_conditions
+
+    for seed in range(1000):
+        draws = choose_mask_conditions(dict(condition_config), batch, latent_t, time_compression,
+                                       np.random.default_rng(seed))
+        if "i2v_loop" in draws and "i2v_tail" in draws:
+            return seed
+    raise AssertionError("no seed below 1000 draws i2v_loop and i2v_tail")
+
+
+def run_stage1_i2v_path(device, carry: dict) -> dict:
+    """Phase 34: configs/diffusion/train/stage1_i2v.py at phase 21's depth
+    and Adam settings, one step from phase 21's saved state on phase 21's
+    batch (4 seeded 129 x 192 x 336 clips) through Trainer.run_batch, the
+    host generator seeded by i2v_draw_seed so that the draws include
+    i2v_loop and i2v_tail: finite loss, every weight matrix moved, exact launches (one
+    D = 512 encode per clip and per single frame the conditions encode)."""
+    import numpy as np
+
+    from opensora_torch.ops import _build
+    from opensora_torch.train import Trainer
+    from opensora_torch.utils.config import parse_configs
+    from opensora_torch.utils.train import single_frame_encodes
+
+    cfg = parse_configs(train_cfg_args(STAGE1_I2V_CFG))
+    check_same_models(cfg, carry["cfg"], ("model", "ae", "t5", "clip"), "stage1_i2v.py (against stage1.py)")
+    n_blocks = carry["n_blocks"]
+    batch = carry["batch"]
+    b, _, frames = batch["video"].shape[:3]
+    free()
+    trainer = Trainer(cfg, device)
+    trainer.state.load_state_dict(carry["snapshot"])
+    tc = trainer.ae.config.time_compression_ratio
+    seed = i2v_draw_seed(cfg.condition_config, b, (frames - 1) // tc + 1, tc)
+    trainer.gen.set_state(carry["rng_states"][0])
+    trainer.host_rng = np.random.default_rng(seed)
+    log(f"[stage1_i2v] stage1_i2v.py at full width, depth {cfg.model['depth']}+{cfg.model['depth_single_blocks']}, "
+        f"condition_config {dict(cfg.condition_config)}; host draws from seed {seed}")
+    torch.cuda.reset_peak_memory_stats(device)
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    m = trainer.run_batch(batch)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    times = trainer.timers.to_dict()
+    conds = list(trainer.mask_conds)
+    res = dict(draw_seed=seed, mask_conds=conds, loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+               launches=dict(_build.LAUNCHES), expected=train_step_expected(n_blocks, b + single_frame_encodes(conds)),
+               encode_video_s=times["time/encode_video"], step_s=times["time/step"], total_s=total_s,
+               peak_mem_gb=torch.cuda.max_memory_allocated(device) / 1e9)
+    res["masters_moved"] = masters_moved(trainer.state, carry["snapshot"]["params"])
+    res["masters"] = len(trainer.state.params)
+    del trainer
+    free()
+    log("[stage1_i2v] " + json.dumps(res))
+    if not ("i2v_loop" in conds and "i2v_tail" in conds) or not math.isfinite(res["loss"]) \
+            or not math.isfinite(res["grad_norm"]) or res["launches"] != res["expected"] \
+            or res["masters_moved"]["still_matrices"]:
+        raise AssertionError(f"phase 34: {res}")
+    check_peak("stage1_i2v.py", res["peak_mem_gb"])
     return res
 
 
@@ -3738,15 +4481,16 @@ def run_vae_cli_path(device, vae_file: str, root: str) -> dict:
 HC_INF_CFG = os.path.join(REPO, "configs", "diffusion", "inference", "high_compression.py")
 HC_TRAIN_CFG = os.path.join(REPO, "configs", "diffusion", "train", "high_compression.py")
 HC_STEPS = 2  # t2v steps of phase 15, cut from 50
+HC_SIZE = (192, 320)  # the inference config's 256px 16:9 at its 32 px a token
 HC_I2V_STEPS = 1  # i2v_head steps of phase 15
 # The DC-AE halves each tile five times in space and twice in time, so a
-# 256px 16:9 frame (192 x 336: tiles of 256 and 144 px) and a clip of 4k + 1
-# frames (a last temporal tile of 9) cannot be encoded, in the JAX package as
-# here (ROADMAP Queue 3 R11). The i2v reference and the training clip take
-# the 256px bucket's 1:1 size; the clip, the 129-frame bucket's batch less
-# one frame.
-HC_I2V_RATIO = "1:1"
-HC_TRAIN_FRAMES, HC_TRAIN_SIZE, HC_TRAIN_BATCH = 128, (256, 256), 3
+# clip of 4k + 1 frames (a last temporal tile of 9) cannot be encoded, in
+# the JAX package as here (ROADMAP Queue 3 R11); every size of the configs'
+# 32-px sizing does (256px 16:9 is 192 x 320: tiles of 256 and 128 px;
+# tests/test_torch_sizing.py encodes each 256px bucket). The training clip
+# takes the 129-frame 256px bucket's 224 x 288 (4:3 at 32 px a token), its
+# batch, and one frame less.
+HC_TRAIN_FRAMES, HC_TRAIN_SIZE, HC_TRAIN_BATCH = 128, (224, 288), 3
 # fp32 masters, their gradients, Adam's two moments and the fp32 EMA take 20
 # bytes a parameter: 236 GB at full depth. 2 double + 4 single blocks are
 # 1.25 B parameters (25 GB of state); the full width is kept
@@ -3957,11 +4701,11 @@ def check_hc_train_small_input(device) -> dict:
 def run_hc_inference_path(device, root: str, profile: bool = False, out_dir=None) -> dict:
     """Phase 15: configs/diffusion/inference/high_compression.py at full
     width and depth (random weights from the config's seed) through
-    prepare_models and api_fn: t2v at the config's 192 x 336, 129 frames
-    (32 x 6 x 11 latent tokens; decoded 128 x 192 x 352, as the JAX package
-    decodes it), HC_STEPS steps, then i2v_head for HC_I2V_STEPS from a
-    seeded 256 x 256 image (HC_I2V_RATIO: the DC-AE cannot encode the 16:9
-    frame), its 3 padding frames trimmed. Checks shapes, finite videos, the
+    prepare_models and api_fn: t2v at the config's 192 x 320 (256px 16:9
+    sized at the config's 32 px a token), 129 frames (32 x 6 x 10 latent
+    tokens; decoded 128 x 192 x 320), HC_STEPS steps, then i2v_head for
+    HC_I2V_STEPS from a seeded image of that size, its 3 padding frames
+    trimmed. Checks shapes, finite videos, the
     first latent frame equal to the encoded reference and the exact
     launches (57 a step at D = 128, none at D = 512); phase 3f runs on the
     built models first."""
@@ -3973,7 +4717,7 @@ def run_hc_inference_path(device, root: str, profile: bool = False, out_dir=None
 
     cfg = parse_configs([HC_INF_CFG, "--sampling_option.num_steps", str(HC_STEPS)])
     log(f"[hc] high_compression.py at full width and depth; num_steps cut 50 -> {HC_STEPS} (t2v), "
-        f"{HC_I2V_STEPS} (i2v_head at {HC_I2V_RATIO})")
+        f"{HC_I2V_STEPS} (i2v_head)")
     free()
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
@@ -3990,8 +4734,10 @@ def run_hc_inference_path(device, root: str, profile: bool = False, out_dir=None
     n_blocks = cfg.model["depth"] + cfg.model["depth_single_blocks"]
     runs = {}
     ref_path = None
-    for cond_type, opt_over in (("t2v", {}), ("i2v_head", dict(aspect_ratio=HC_I2V_RATIO, num_steps=HC_I2V_STEPS))):
-        opt = sanitize_sampling_option(SamplingOption(**dict(cfg.sampling_option, **opt_over)))
+    for cond_type, opt_over in (("t2v", {}), ("i2v_head", dict(num_steps=HC_I2V_STEPS))):
+        opt = sanitize_sampling_option(SamplingOption(**dict(cfg.sampling_option, **opt_over)), compression)
+        if (opt.height, opt.width) != HC_SIZE:
+            raise AssertionError(f"{cond_type}: sized {opt.height} x {opt.width}, not {HC_SIZE} (32 px a token)")
         kw = {}
         if cond_type != "t2v":
             img = torch.rand((3, 1, opt.height, opt.width), generator=torch.Generator().manual_seed(cfg.seed)) * 2 - 1
@@ -4037,7 +4783,7 @@ def run_hc_inference_path(device, root: str, profile: bool = False, out_dir=None
         del x
     res = dict(models_build_s=build_s, resident_gb=resident_gb, small_input=small, **runs)
     if profile:
-        opt = sanitize_sampling_option(SamplingOption(**cfg.sampling_option))
+        opt = sanitize_sampling_option(SamplingOption(**cfg.sampling_option), compression)
         res["profile"] = profile_run(lambda: api_fn(opt, "t2v", seed=cfg.seed, text=HC_PROMPT, patch_size=patch,
                                                     channel=channel), "hc", out_dir)
     del model, ae, t5, clip, api_fn
@@ -4051,7 +4797,7 @@ def run_hc_train_path(device, profile: bool = False, out_dir=None) -> dict:
     width and HC_TRAIN_DEPTH blocks, through the training CLI's per-batch
     body (Trainer.run_batch: the DC-AE encode, the mask-type draw, the
     single-frame encodes, T5 / CLIP, the step) for HC_TRAIN_STEPS steps on a
-    seeded HC_TRAIN_FRAMES x 256 x 256 clip, B = HC_TRAIN_BATCH. Then, from
+    seeded HC_TRAIN_FRAMES x HC_TRAIN_SIZE clip, B = HC_TRAIN_BATCH. Then, from
     one saved state, batch and generator state, one step with "full" and
     one with "offload": bitwise equal losses (the same forward), gradients
     within HC_REMAT_GRAD_TOL of each other (dQ's atomic sum orders differently from
@@ -4589,7 +5335,7 @@ def run_tokenized_path(device, text_dirs: dict, root: str) -> dict:
     from opensora_torch.models.text.conditioner import ByteFallbackTokenizer
     from opensora_torch.models.text.t5_tokenizer import T5Tokenizer
     from opensora_torch.ops import _build
-    from opensora_torch.utils.config import parse_configs
+    from opensora_torch.utils.config import ae_spatial_compression, parse_configs
     from opensora_torch.utils.sampling import SamplingOption, sanitize_sampling_option
 
     t0 = time.perf_counter()
@@ -4680,7 +5426,7 @@ def run_tokenized_path(device, text_dirs: dict, root: str) -> dict:
     del t5, clip, seen
     free()
     cfg = parse_configs([cfg_path, "--sampling_option.num_steps", str(STEPS)])
-    opt = sanitize_sampling_option(SamplingOption(**cfg.sampling_option))
+    opt = sanitize_sampling_option(SamplingOption(**cfg.sampling_option), ae_spatial_compression(cfg))
     expect = tokenized_expected_launches(cfg)
     res["expected_launches"] = expect
     sample = paths[0] if len(paths) == 1 else None
@@ -6007,11 +6753,13 @@ def sp_proc_launches(res: dict, kernel: str) -> dict:
 # ring's cross-process sends (comm.RING_REMOTE) exact by arithmetic; the
 # distance to phase 27's one-process (1, 4, 1) step printed. Known-wrong
 # variants, each a step that must fail phase 21's limits: the default step
-# with process 1 dropping the cross-process sum of the weight gradients, and
-# the ring_rdma step in which the receiving rank reuses its own KV on the
-# cross-process hop (its forward's output distance from the right step's is
-# printed beside phase 9's video limit: at 2 + 4 random-weight blocks it
-# read 0.016, below that limit, in the first card run; the masters see it).
+# with process 1 dropping the cross-process sum of the weight gradients (over
+# the sp group split across the processes, where phase 24's control drops
+# the sum over 'data'), and the ring_rdma step in which the receiving rank
+# reuses its own KV on the cross-process hop (its forward's output distance
+# from the right step's is printed beside phase 9's video limit: at 2 + 4
+# random-weight blocks it read 0.016, below that limit, in the first card
+# run; the masters see it).
 SP_PROC_BACKENDS = (("default", None), ("ring_rdma", "ring_rdma"))
 
 
@@ -6083,8 +6831,8 @@ def sp_processes_worker(device, data: dict, snapshot: dict) -> dict:
     from opensora_torch.train import Trainer, train_mesh
     from opensora_torch.utils.config import parse_configs
 
-    rank = distributed.process_index()
     t0 = time.perf_counter()
+    rank = distributed.process_index()
     cfg = parse_configs(stage2_cfg_args())
     mesh = train_mesh(cfg, device)
     trainer = Trainer(cfg, device, mesh=mesh)
@@ -7281,6 +8029,11 @@ def loop_train_expected(n_blocks: int, steps: list) -> dict:
             "flash_attention_fwd_d512": sum(s["clips"] + s["single_frames"] for s in steps)}
 
 
+def image_launches(res: dict, kernel: str) -> dict:
+    """Phase 33's launches of ``kernel``, per bucket's step."""
+    return {f"{s['size'][0]}x{s['size'][1]}_b{s['batch']}": s["launches"].get(kernel, 0) for s in res["steps"]}
+
+
 def loop_launches(res: dict, kernel: str) -> dict:
     """Phase 31's launches of ``kernel``, per part."""
     parts = dict(train=res["train"]["launches"], serve=res["serve"]["launches"], cache=res["cache"]["launches"],
@@ -7518,7 +8271,8 @@ def run_finetune_loop_path(device, vae_file: str, text_dirs: dict, root: str) ->
     cache_launches = dict(_build.LAUNCHES)
     cached = read_data_file(meta_csv)
     loader, _ = prepare_dataloader(build_module(dict(cfg.dataset), DATASETS), bucket_config=cfg.bucket_config,
-                                   batch_size=cfg.get("batch_size", 1), shuffle=False, seed=cfg.seed)
+                                   batch_size=cfg.get("batch_size", 1), shuffle=False, seed=cfg.seed,
+                                   spatial_compression=ae_spatial_compression(cfg))
     trainer.gen = torch.Generator(device=device).manual_seed(cfg.seed)
     n, bad, encodes = 0, [], 0
     with torch.inference_mode():
@@ -7543,7 +8297,7 @@ def run_finetune_loop_path(device, vae_file: str, text_dirs: dict, root: str) ->
     cached_cfg = parse_configs(cfg_cached)
     step_trainer = train.Trainer(cached_cfg, device)
     cached_loader, _ = prepare_dataloader(build_module(dict(cached_cfg.dataset), DATASETS), batch_size=LOOP_BATCH,
-                                          shuffle=False)
+                                          shuffle=False, spatial_compression=ae_spatial_compression(cached_cfg))
     _build.LAUNCHES.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -7720,6 +8474,8 @@ def main(argv) -> int:
     fsdp_res = timed("phase 21 FSDP training", run_fsdp_train_path, device, "--profile" in argv, out_dir, carry)
     pp_res = timed("phase 22 GPipe training", run_pp_train_path, device, carry)
     sp_train_res = timed("phase 27 stage2 over sp", run_sp_train_path, device, carry)
+    image_res = timed("phase 33 image.py", run_image_train_path, device, carry)
+    i2v_train_res = timed("phase 34 stage1_i2v.py", run_stage1_i2v_path, device, carry)
     vae_cp_res = timed("phase 23 VAE context parallel", run_vae_cp_path, device, carry)  # phase 30's references
     mp_res = timed("phase 24 processes (and phases 28, 29 and 30 in them)", run_multi_process_path, device, carry)
     del carry
@@ -7728,6 +8484,7 @@ def main(argv) -> int:
     int8_res, int8_built = timed("phase 6 int8", run_int8_path, device, [], STEPS, "--profile" in argv, out_dir,
                                  "int8", records, keep=True)
     int8_res["small_input"] = small_int8
+    res_768_1chip = timed("phase 32 768px on one card (int8)", run_768px_1chip_path, device, int8_built, mufu_per_s)
     with tempfile.TemporaryDirectory() as tmp:
         int8_tp_res = timed("phase 26 int8 under TP", run_int8_tp_path, device, int8_built, tmp)
     del int8_built
@@ -7788,6 +8545,9 @@ def main(argv) -> int:
         launches_768px=dict(t2v=res_768["launches"]["flash_attention_fwd_sm90"],
                             t2i2v_image=t2i2v_768_res["image_launches"]["flash_attention_fwd_sm90"],
                             t2i2v_video=t2i2v_768_res["launches"]["flash_attention_fwd_sm90"]),
+        launches_768px_1chip=res_768_1chip["runs"]["bf16attn"]["launches"].get("flash_attention_fwd_sm90", 0),
+        launches_image_train=image_launches(image_res, "flash_attention_fwd_sm90"),
+        launches_stage1_i2v=i2v_train_res["launches"].get("flash_attention_fwd_sm90", 0),
         launches_tp=tp_res["launches"]["flash_attention_fwd_sm90"],
         launches_fsdp=fsdp_launches(fsdp_res, "flash_attention_fwd_sm90"),
         launches_pp=pp_launches(pp_res, "flash_attention_fwd_sm90"),
@@ -7798,13 +8558,14 @@ def main(argv) -> int:
         launches_tp_pp_processes=tp_pp_launches(mp_res, "flash_attention_fwd_sm90"),
         launches_ring_sp_step=ring_res["sp_ring"]["launches"].get("flash_attention_fwd_sm90", 0),
         launches_finetune_loop=loop_launches(loop_res, "flash_attention_fwd_sm90"),
-        max_abs_err=max([c["max_abs_err"] for c in sm90_cases] + [res_768["attention"]["max_abs_err"]]),
+        max_abs_err=max([c["max_abs_err"] for c in sm90_cases] + [res_768["attention"]["max_abs_err"],
+                                                                   res_768_1chip["attention"]["max_abs_err"]]),
         ms=head["ms"], ms_is="flash_attention_with_lse (the bound A on the device, then the kernel), the mean of "
         "4 readings in turns with SDPA's 4 (library_ms)", anchor_ms=head["anchor_ms"],
         running_max_ms=sm90_cases[1]["ms"],
         plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],
-        cases=sm90_cases + [res_768.pop("attention")],
+        cases=sm90_cases + [res_768.pop("attention"), res_768_1chip.pop("attention")],
     )]
     head = d512_cases[0]  # the main path's VAE decode tile
     kernels.append(dict(
@@ -7822,8 +8583,11 @@ def main(argv) -> int:
         launches_vae_cli={k: cli_res["hunyuan_vae"][k].get("flash_attention_fwd_d512", 0)
                           for k in ("launches_inference", "launches_stats")},
         launches_tokenized_t2v=tok_res["launches"]["flash_attention_fwd_d512"],
-        launches_768px=dict(t2v_decode=res_768["launches"]["flash_attention_fwd_d512"],
+        launches_768px=dict(t2v_decode=res_768["launches"].get("flash_attention_fwd_d512", 0),
                             t2i2v_encode_and_decode=t2i2v_768_res["launches"]["flash_attention_fwd_d512"]),
+        launches_768px_1chip_decode=res_768_1chip["runs"]["int8attn"]["launches"].get("flash_attention_fwd_d512", 0),
+        launches_image_train=image_launches(image_res, "flash_attention_fwd_d512"),
+        launches_stage1_i2v=i2v_train_res["launches"].get("flash_attention_fwd_d512", 0),
         launches_pp=pp_launches(pp_res, "flash_attention_fwd_d512"),
         launches_multi_process=mp_launches(mp_res, "flash_attention_fwd_d512"),
         launches_lora_sharded=lora_sharded_launches(lora_res, "flash_attention_fwd_d512"),
@@ -7855,6 +8619,8 @@ def main(argv) -> int:
         launches_sp_processes=sp_proc_launches(mp_res, "flash_attention_bwd_fused"),
         launches_tp_pp_processes=tp_pp_launches(mp_res, "flash_attention_bwd_fused"),
         launches_finetune_loop=loop_launches(loop_res, "flash_attention_bwd_fused"),
+        launches_image_train=image_launches(image_res, "flash_attention_bwd_fused"),
+        launches_stage1_i2v=i2v_train_res["launches"].get("flash_attention_bwd_fused", 0),
         max_abs_err=max(c["max_abs_err"][g] for c in attn_bwd["cases"] for g in ("dq", "dk", "dv")),
         max_abs_err_is="dq (after the epilogue), dk and dv against the plain backward",
         ms=bwd_head["ms"]["flash_attention_bwd_fused"],
@@ -7884,6 +8650,8 @@ def main(argv) -> int:
         launches_sp_processes=sp_proc_launches(mp_res, "flash_attention_bwd_dq_convert"),
         launches_tp_pp_processes=tp_pp_launches(mp_res, "flash_attention_bwd_dq_convert"),
         launches_finetune_loop=loop_launches(loop_res, "flash_attention_bwd_dq_convert"),
+        launches_image_train=image_launches(image_res, "flash_attention_bwd_dq_convert"),
+        launches_stage1_i2v=i2v_train_res["launches"].get("flash_attention_bwd_dq_convert", 0),
         max_abs_err=max(c["dq_convert_max_abs_err"] for c in attn_bwd["cases"]),
         max_abs_err_is="against its plain version on the same dq_accum",
         ms=bwd_head["ms"]["flash_attention_bwd_dq_convert"], plain_ms=bwd_head["dq_convert_plain_ms"],
@@ -7935,6 +8703,7 @@ def main(argv) -> int:
              {"int8": int8_res, "int8_fq": fq_res}, "true"),
             ("w8a8_fq_matmul", 51, None, {"int8_fq": fq_res}, "false")):
         head = gemm_head[name]
+        fq_kernel = name == "w8a8_fq_matmul"
         extra = dict(ms_is="the kernel alone, the mean of 4 readings in turns with the other instantiation's, the "
                      "fused-quant wrapper's and the library call's", ms_turns=head["ms_turns"],
                      path_step_s=(fq_res if name == "w8a8_fq_matmul" else int8_res)["step_s"],
@@ -7952,11 +8721,14 @@ def main(argv) -> int:
             launches_by_run={tag: r["launches"].get(name, 0) for tag, r in runs.items()},
             launches_ckpt_int8_step=ckpt_res["steps"]["256px_int8attn"]["launches"].get(name, 0),
             launches_int8_tp=int8_tp_res["launches"].get(name, 0),
-            max_abs_err=max(c[name]["max_abs_err"] for c in gemm["cases"]),
+            launches_768px_1chip={tag: r["launches"].get(name, 0) for tag, r in res_768_1chip["runs"].items()},
+            max_abs_err=max([c[name]["max_abs_err"] for c in gemm["cases"]]
+                            + ([c["max_abs_err"] for c in res_768_1chip["gemm"]["cases"]] if not fq_kernel else [])),
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], shape_mkn=gemm_head["shape_mkn"],
             library="torch._int_mm + the fp32 rescale epilogue" if head["library_ms"] is not None else None,
             cases=[dict(name=c["name"], shape_mkn=c["shape_mkn"], **c[name]) for c in gemm["cases"]],
+            **({} if fq_kernel else {"cases_768px_1chip": res_768_1chip["gemm"]["cases"]}),
         ))
     for name, mode, res in (("int8_flash_attention", "qk8", int8_res), ("int8_flash_attention_pv8", "int8", fq_res)):
         mine = [c for c in int8_attn["cases"] if c["mode"] == mode]
@@ -7969,13 +8741,15 @@ def main(argv) -> int:
             mode=mode, launches=res["launches"].get(name, 0),
             launches_ckpt_int8_step=ckpt_res["steps"]["256px_int8attn"]["launches"].get(name, 0),
             launches_int8_tp=int8_tp_res["launches"].get(name, 0),
-            max_abs_err=max(c["max_abs_err"] for c in mine),
+            launches_768px_1chip=res_768_1chip["runs"]["int8attn"]["launches"].get(name, 0),
+            max_abs_err=max([c["max_abs_err"] for c in mine]
+                            + ([res_768_1chip["int8_attention"]["max_abs_err"]] if mode == "qk8" else [])),
             ms=head["ms"], ms_is="the kernel alone on the preamble's output, the mean of 4 readings in turns with "
             "the wrapper's and bf16 SDPA's", ms_turns=head["ms_turns"], wrapper_ms=head["wrapper_ms"],
             plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], library=head["library"],
             ptxas=[r for r in ptxas["int8_flash_attention"] if r["kernel"].startswith(f"int8_flash_fwd_kernel<{pv}")],
-            cases=mine,
+            cases=mine + ([res_768_1chip["int8_attention"]] if mode == "qk8" else []),
         ))
     for name, line in zip(RING_KERNELS, (70, 185)):
         mine = ring["cases"]
@@ -8007,6 +8781,9 @@ def main(argv) -> int:
     log("[ring] " + json.dumps(ring_res))
     log("[t2i2v] " + json.dumps(t2i2v_res))
     log("[768px] " + json.dumps(res_768))
+    log("[768px_1chip] " + json.dumps({k: v for k, v in res_768_1chip.items() if k not in ("gemm", "int8_attention")}))
+    log("[image] " + json.dumps(image_res))
+    log("[stage1_i2v] " + json.dumps(i2v_train_res))
     log("[t2i2v_768px] " + json.dumps(t2i2v_768_res))
     log("[v2v] " + json.dumps(v2v_res))
     log("[ring_train] " + json.dumps(ring_train_res))

@@ -58,7 +58,7 @@ def main(argv: Optional[List[str]] = None) -> str:
     from opensora_torch.datasets.dataloader import prepare_dataloader
     from opensora_torch.inference import _pop_flag
     from opensora_torch.registry import DATASETS, build_module
-    from opensora_torch.utils.config import parse_configs
+    from opensora_torch.utils.config import ae_spatial_compression, parse_configs
     from opensora_torch.utils.logger import create_logger
     from opensora_torch.utils.misc import resolve_device
 
@@ -72,7 +72,8 @@ def main(argv: Optional[List[str]] = None) -> str:
 
     dataset = build_module(dict(cfg.dataset), DATASETS)
     dataloader, _ = prepare_dataloader(dataset, bucket_config=cfg.get("bucket_config"),
-                                       batch_size=cfg.get("batch_size", 1), shuffle=False, seed=seed)
+                                       batch_size=cfg.get("batch_size", 1), shuffle=False, seed=seed,
+                                       spatial_compression=ae_spatial_compression(cfg))
     ae, t5, clip = build_encoders(cfg, device, seed)
     gen = torch.Generator(device=device).manual_seed(seed)
 

@@ -15,10 +15,12 @@ from opensora_torch.datasets.utils import map_target_fps
 
 
 class Bucket:
-    """bucket_config: {resolution: {num_frames: (prob or (prob, next_t_prob), batch_size)}}"""
+    """bucket_config: {resolution: {num_frames: (prob or (prob, next_t_prob), batch_size)}}.
+    Every (height, width) snaps to ``spatial_compression``, the config's
+    ``ae_spatial_compression``."""
 
-    def __init__(self, bucket_config: Dict[str, Dict[int, tuple]]):
-        aspect_ratios = {key: get_resolution_with_aspect_ratio(key) for key in bucket_config}
+    def __init__(self, bucket_config: Dict[str, Dict[int, tuple]], spatial_compression: int):
+        aspect_ratios = {key: get_resolution_with_aspect_ratio(key, spatial_compression) for key in bucket_config}
         # resolutions by pixel count, high to low
         bucket_names = sorted(bucket_config, key=lambda x: aspect_ratios[x][0], reverse=True)
         self.bucket_probs: Dict[str, OrderedDict] = OrderedDict()

@@ -11,7 +11,8 @@ from typing import Iterator, List, Optional
 
 import numpy as np
 
-from opensora_torch.datasets.sampler import StatefulDistributedSampler, VariableVideoBatchSampler
+from opensora_torch.datasets.sampler import (ShapeGroupedBatchSampler, StatefulDistributedSampler,
+                                             VariableVideoBatchSampler)
 
 
 def collate_fn_default(samples: List[Optional[dict]]) -> Optional[dict]:
@@ -82,9 +83,13 @@ class _Batched:
 
 def prepare_dataloader(dataset, batch_size: Optional[int] = None, bucket_config: Optional[dict] = None,
                        shuffle: bool = True, seed: int = 42, drop_last: bool = False,
-                       num_replicas: Optional[int] = None, rank: Optional[int] = None, prefetch: int = 2, **_):
+                       num_replicas: Optional[int] = None, rank: Optional[int] = None, prefetch: int = 2, *,
+                       spatial_compression: int, **_):
     """(dataloader, sampler): bucketed batches when ``bucket_config`` is
-    given, else fixed-size batches of shuffled indices. ``num_replicas``
+    given (sizes snapped to ``spatial_compression``, the config's
+    ``ae_spatial_compression``), else batches of one latent shape for a
+    table with a ``shape`` column (a latent cache), else fixed-size batches
+    of shuffled indices. ``num_replicas``
     and ``rank`` default to the data blocks of the process's mesh
     (``parallel/data.data_replicas``: without a mesh, the process group's;
     one process: 1 and 0), so each data coordinate reads its own part of
@@ -99,9 +104,13 @@ def prepare_dataloader(dataset, batch_size: Optional[int] = None, bucket_config:
     rank = default["rank"] if rank is None else rank
     kw = dict(num_replicas=num_replicas, rank=rank, shuffle=shuffle, seed=seed, drop_last=drop_last)
     if bucket_config is not None:
-        sampler = VariableVideoBatchSampler(dataset, bucket_config, **kw)
+        sampler = VariableVideoBatchSampler(dataset, bucket_config, spatial_compression=spatial_compression, **kw)
         return DataLoader(dataset, sampler, prefetch), sampler
     if batch_size is None:
         raise ValueError("batch_size is required without a bucket_config")
+    data = getattr(dataset, "data", None)
+    if data is not None and "shape" in getattr(data, "columns", ()):
+        sampler = ShapeGroupedBatchSampler([row["shape"] for row in data], batch_size, **kw)
+        return DataLoader(dataset, sampler, prefetch), sampler
     sampler = StatefulDistributedSampler(len(dataset), **kw)
     return DataLoader(dataset, _Batched(sampler, batch_size, drop_last), prefetch), sampler

@@ -75,9 +75,9 @@ class VariableVideoBatchSampler:
     """Bucketed variable-shape batch sampler."""
 
     def __init__(self, dataset, bucket_config: dict, num_replicas: int = 1, rank: int = 0,
-                 shuffle: bool = True, seed: int = 0, drop_last: bool = False, **_):
+                 shuffle: bool = True, seed: int = 0, drop_last: bool = False, *, spatial_compression: int, **_):
         self.dataset = dataset
-        self.bucket = Bucket(bucket_config)
+        self.bucket = Bucket(bucket_config, spatial_compression)
         self.num_replicas = num_replicas
         self.rank = rank
         self.shuffle = shuffle
@@ -172,3 +172,68 @@ class VariableVideoBatchSampler:
         self.seed = state.get("seed", self.seed)
         self.epoch = state.get("epoch", self.epoch)
         self.last_micro_batch_access_index = state.get("last_micro_batch_access_index", 0)
+
+
+class ShapeGroupedBatchSampler:
+    """Batches of one latent shape for a cached-latent table (the rows'
+    ``shape`` column), so that collate can stack them; the JAX package's
+    batches for the same shapes, seed and replicas
+    (opensora_tpu/datasets/sampler.py:323-400). Groups are keyed by
+    ``str(shape)`` and taken in sorted order, each shuffled, then the
+    batches, by one generator seeded with (seed + epoch). A short tail
+    stays short on one replica and is wrap-padded to a full batch with
+    more (every replica's batches share a shape at a step), unless
+    ``drop_last``; the batch list is wrapped to an equal count a replica."""
+
+    def __init__(self, shapes, batch_size: int, num_replicas: int = 1, rank: int = 0, shuffle: bool = True,
+                 seed: int = 0, drop_last: bool = False):
+        self.shapes = list(shapes)
+        self.batch_size = batch_size
+        self.num_replicas = num_replicas
+        self.rank = rank
+        self.shuffle = shuffle
+        self.seed = seed
+        self.drop_last = drop_last
+        self.epoch = 0
+        self.start_index = 0
+
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
+
+    def _batches(self) -> List[List[int]]:
+        groups: Dict[str, List[int]] = defaultdict(list)
+        for i, shape in enumerate(self.shapes):
+            groups[str(shape)].append(i)
+        rng = np.random.default_rng(self.seed + self.epoch)
+        batches = []
+        for key in sorted(groups):
+            idx = groups[key]
+            if self.shuffle:
+                idx = [idx[j] for j in rng.permutation(len(idx))]
+            for s in range(0, len(idx), self.batch_size):
+                b = idx[s:s + self.batch_size]
+                if len(b) < self.batch_size:
+                    if self.drop_last:
+                        continue
+                    if self.num_replicas > 1:  # padded from the group, cycling it where it is smaller than a batch
+                        need = self.batch_size - len(b)
+                        b = b + (idx * (need // len(idx) + 1))[:need]
+                batches.append(b)
+        if self.shuffle:
+            batches = [batches[j] for j in rng.permutation(len(batches))]
+        per_rank = -(-len(batches) // self.num_replicas)
+        batches = batches + batches[:per_rank * self.num_replicas - len(batches)]
+        return batches[self.rank::self.num_replicas]
+
+    def __iter__(self) -> Iterator[List[int]]:
+        yield from self._batches()[self.start_index:]
+        self.start_index = 0
+
+    def __len__(self) -> int:
+        return len(self._batches()) - self.start_index
+
+    def state_dict(self, step: int) -> dict:
+        return {"start_index": step}
+
+    def load_state_dict(self, state: dict):
+        self.start_index = state.get("start_index", 0)

@@ -108,12 +108,15 @@ def prepare_image_stage(cfg, optional: dict, model_t5, model_clip, patch_size: i
     pixels per token edge read from the AE) and the sampling option from
     ``sampling_option_t2i`` (768px 1:1, one frame, distilled by default)."""
     from opensora_torch.utils.api import prepare_api
+    from opensora_torch.utils.config import ae_spatial_compression
     from opensora_torch.utils.sampling import SamplingOption, sanitize_sampling_option
 
     img_ae = optional["img_flux_ae"]
     api_fn_img = prepare_api(optional["img_flux"], img_ae, model_t5, model_clip,
                              spatial_compression=img_ae.spatial_compression_ratio * patch_size)
-    opt_img = sanitize_sampling_option(SamplingOption(**cfg.get("sampling_option_t2i", DEFAULT_T2I_OPTION)))
+    # the image's size snaps to the config's compression, as the video's does
+    opt_img = sanitize_sampling_option(SamplingOption(**cfg.get("sampling_option_t2i", DEFAULT_T2I_OPTION)),
+                                       ae_spatial_compression(cfg))
     return api_fn_img, opt_img
 
 
@@ -233,8 +236,9 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
     model_device = next(model.parameters()).device
     logger.info("models on %s", model_device)
     mesh = inference_mesh(cfg, model_device)
-    api_fn = prepare_api(model, ae, t5, clip, spatial_compression=ae_spatial_compression(cfg), mesh=mesh)
-    opt = sanitize_sampling_option(SamplingOption(**cfg.get("sampling_option", {})))
+    compression = ae_spatial_compression(cfg)
+    api_fn = prepare_api(model, ae, t5, clip, spatial_compression=compression, mesh=mesh)
+    opt = sanitize_sampling_option(SamplingOption(**cfg.get("sampling_option", {})), compression)
     cond_type = cfg.get("cond_type", "t2v")
     save_dir = cfg.get("save_dir", "samples")
     patch_size = cfg.get("patch_size", 2)

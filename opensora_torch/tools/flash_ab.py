@@ -50,6 +50,8 @@ FWD_CASES = [
     ("vae_mid_encode_1frame_32x32", (1, 1, 1024, 512), 1024, 1.0, None),  # the 576x1024 reference encode
     ("vae_mid_encode_1frame_32x8", (1, 1, 256, 512), 256, 1.0, None),
     ("vae_mid_encode_1frame_24x8", (1, 1, 192, 512), 192, 1.0, None),
+    ("vae_mid_encode_1frame_768px", (1, 1, 96 * 96, 512), 96 * 96, 1.0, None),  # image.py's untiled frames
+    ("vae_mid_encode_1frame_1024px", (1, 1, 128 * 128, 512), 128 * 128, 1.0, None),
     ("tail_frame_causal", (1, 2, 1000, 512), 96, 1.0, None),
     ("bidirectional_anchored", (2, 2, 1000, 512), None, 0.5, None),  # A ~ 20
     ("bidirectional_running_max", (2, 2, 1000, 512), None, 4.0, None),  # A >= 40

@@ -443,7 +443,7 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
     from opensora_torch.parallel.data import data_replicas
     from opensora_torch.registry import DATASETS, build_module
     from opensora_torch.utils.ckpt import CheckpointIO
-    from opensora_torch.utils.config import create_experiment_workspace, parse_configs
+    from opensora_torch.utils.config import ae_spatial_compression, create_experiment_workspace, parse_configs
     from opensora_torch.utils.logger import create_logger
     from opensora_torch.utils.tb import MetricsWriter
 
@@ -472,7 +472,7 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
     # the processes of one data coordinate (its sp ranks) read the same samples
     dataloader, sampler = prepare_dataloader(
         dataset, batch_size=cfg.get("batch_size"), bucket_config=cfg.get("bucket_config"), seed=cfg.get("seed", 42),
-        **data_replicas(mesh),
+        spatial_compression=ae_spatial_compression(cfg), **data_replicas(mesh),
     )
     trainer = Trainer(cfg, device, mesh=mesh)
     ckpt_io = CheckpointIO()

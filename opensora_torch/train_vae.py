@@ -126,7 +126,7 @@ def main(argv: Optional[List[str]] = None) -> VAETrainer:
     from opensora_torch.datasets.dataloader import prepare_dataloader
     from opensora_torch.registry import DATASETS, build_module
     from opensora_torch.utils.ckpt import CheckpointIO
-    from opensora_torch.utils.config import create_experiment_workspace, parse_configs
+    from opensora_torch.utils.config import ae_spatial_compression, create_experiment_workspace, parse_configs
     from opensora_torch.utils.logger import create_logger
 
     argv = list(sys.argv[1:] if argv is None else argv)
@@ -139,6 +139,7 @@ def main(argv: Optional[List[str]] = None) -> VAETrainer:
     dataset = build_module(dict(cfg.dataset), DATASETS)
     dataloader, sampler = prepare_dataloader(
         dataset, bucket_config=cfg.get("bucket_config"), batch_size=cfg.get("batch_size"), seed=cfg.get("seed", 42),
+        spatial_compression=ae_spatial_compression(cfg),
     )
     trainer = VAETrainer(cfg, device)
     ckpt_io = CheckpointIO()

@@ -52,13 +52,16 @@ class SamplingOption:
     cfg_batched: bool = True
 
 
-def sanitize_sampling_option(opt: SamplingOption) -> SamplingOption:
-    """Resolve resolution/aspect ratio to 16-aligned (height, width)."""
+def sanitize_sampling_option(opt: SamplingOption, spatial_compression: int) -> SamplingOption:
+    """Resolve resolution/aspect ratio to 16-aligned (height, width). The
+    named size snaps to ``spatial_compression``, the config's
+    ``ae_spatial_compression`` (``utils.config.ae_spatial_compression``)."""
     if opt.resolution is not None or opt.aspect_ratio is not None:
         assert opt.resolution is not None and opt.aspect_ratio is not None, (
             "Both resolution and aspect ratio must be provided"
         )
-        height, width = get_image_size(opt.resolution, opt.aspect_ratio, training=False)
+        height, width = get_image_size(opt.resolution, opt.aspect_ratio, training=False,
+                                       spatial_compression=spatial_compression)
     else:
         assert opt.height is not None and opt.width is not None, "Both height and width must be provided"
         height, width = opt.height, opt.width

@@ -68,7 +68,7 @@ def prepare_vae_eval(argv: List[str], bucket_from_eval_setting):
     from opensora_torch.datasets.dataloader import prepare_dataloader
     from opensora_torch.registry import DATASETS, build_module
     from opensora_torch.utils.ckpt import init_ae
-    from opensora_torch.utils.config import parse_configs
+    from opensora_torch.utils.config import ae_spatial_compression, parse_configs
     from opensora_torch.utils.logger import create_logger
     from opensora_torch.utils.misc import resolve_device
 
@@ -80,7 +80,8 @@ def prepare_vae_eval(argv: List[str], bucket_from_eval_setting):
         cfg["bucket_config"] = {f"{s}px": {t: (1.0, cfg.get("batch_size", 1))}}
     dataset = build_module(dict(cfg.dataset), DATASETS)
     dataloader, _ = prepare_dataloader(dataset, bucket_config=cfg.get("bucket_config"),
-                                       batch_size=cfg.get("batch_size", 1), shuffle=False)
+                                       batch_size=cfg.get("batch_size", 1), shuffle=False,
+                                       spatial_compression=ae_spatial_compression(cfg))
     seed = cfg.get("seed", 42)
     ae = init_ae(dict(cfg.model), device, seed).eval().requires_grad_(False)
     logger.info("AE (%s) %s on %s", cfg.model["type"],

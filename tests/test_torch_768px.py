@@ -29,7 +29,7 @@ from opensora_torch.datasets.aspect import get_image_size
 from opensora_torch.models.mmdit.model import MMDiTConfig, MMDiTModel
 from opensora_torch.utils import api
 from opensora_torch.utils import sampling as S
-from opensora_torch.utils.config import parse_configs
+from opensora_torch.utils.config import ae_spatial_compression, parse_configs
 from test_torch_t2i2v_cli import TINY_T2I2V
 from test_torch_vae import TOL, _jax_vae, _port_vae
 from torch_parity_utils import max_rel_err, read_frames, t
@@ -41,7 +41,7 @@ CFG_768 = os.path.join(REPO, "configs", "diffusion", "inference", "768px.py")
 def test_768px_shape_arithmetic_equals_jax():
     ours, theirs = parse_configs([CFG_768]), jparse_configs([CFG_768])
     assert ours.to_dict() == theirs.to_dict()
-    opt = S.sanitize_sampling_option(S.SamplingOption(**ours.sampling_option))
+    opt = S.sanitize_sampling_option(S.SamplingOption(**ours.sampling_option), ae_spatial_compression(ours))
     jopt = JS.sanitize_sampling_option(JS.SamplingOption(**theirs.sampling_option))
     assert (opt.height, opt.width) == (jopt.height, jopt.width) == get_image_size("768px", "16:9") \
         == jget_image_size("768px", "16:9") == (576, 1024)

@@ -280,7 +280,7 @@ def _sample(model, cfg, seed=0):
 
     _, ae, t5, clip, _ = prepare_models(cfg, device="cpu", seed=cfg.seed)
     api_fn = prepare_api(model.eval(), ae, t5, clip, spatial_compression=ae_spatial_compression(cfg))
-    opt = sanitize_sampling_option(SamplingOption(**cfg.sampling_option))
+    opt = sanitize_sampling_option(SamplingOption(**cfg.sampling_option), ae_spatial_compression(cfg))
     return api_fn(opt, cond_type="t2v", seed=seed, text=["a clip"], channel=cfg.model["in_channels"])
 
 
@@ -348,7 +348,7 @@ def _jax_text(kind, seed):
 def test_cache_equals_the_jax_encoders(media, tmp_path, monkeypatch):
     from opensora_torch.datasets.dataloader import prepare_dataloader
     from opensora_torch.registry import DATASETS, build_module
-    from opensora_torch.utils.config import parse_configs
+    from opensora_torch.utils.config import ae_spatial_compression, parse_configs
 
     # the demo geometry's AE, T5 and CLIP with JAX weights, carried into files
     vae = JVAE(JVAEConfig(**DEMO_VAE, dtype="fp32"))
@@ -377,7 +377,7 @@ def test_cache_equals_the_jax_encoders(media, tmp_path, monkeypatch):
     assert rows.columns == list(cache.META_COLUMNS)
     cfg = parse_configs(argv)
     loader, _ = prepare_dataloader(build_module(dict(cfg.dataset), DATASETS), bucket_config=cfg.bucket_config,
-                                   shuffle=False, seed=cfg.seed)
+                                   shuffle=False, seed=cfg.seed, spatial_compression=ae_spatial_compression(cfg))
     ae = cache.build_encoders(cfg, torch.device("cpu"), cfg.seed)[0]
     gen = torch.Generator().manual_seed(cfg.seed)
     n = 0

@@ -5,14 +5,16 @@ patch_size 1 -- against the JAX package on the CPU, at a tiny width with
 the configs' structure and the same seeded numpy weights:
 
 - the configs' geometry (cond_in takes 129 channels; 129 frames at 192 x
-  336 make 32 x 6 x 11 latent tokens, 352 pixels wide when decoded);
+  320, the 256px 16:9 size at 32 px a token, make 32 x 6 x 10 latent
+  tokens);
 - ``api_fn`` t2v at a width that is no multiple of 32 (the 336 -> 11
   columns -> 352 case) and ``i2v_head`` from a png reference, against the
   JAX package's ``api_fn`` given the same noise (the reference encoded by
   each package's DC-AE, tiled in time and space; the non-causal trim);
 - what the DC-AE cannot encode: a tile of 4k + 1 frames or a width that is
-  no multiple of 32 fails in both packages alike (the 256px buckets of the
-  training config, and the 192 x 336 reference of the inference config);
+  no multiple of 32 fails in both packages alike (the 4k + 1-frame buckets
+  of the training config, and 336 px, the 256px 16:9 width at 16 px a
+  token);
 - ``Trainer.run_batch`` on the training config against the JAX step (the
   DC-AE encode, the i2v_head conditions, patch-1 packing, shift, masked
   loss, clip + AdamW, EMA), and the causal condition layout that both
@@ -100,11 +102,11 @@ def _mmdit_pair(model_cfg: dict, seed=4):
     return jm, params, model
 
 
-def test_configs_have_the_high_compression_geometry():
+def test_configs_have_the_high_compression_geometry(monkeypatch):
     """cond_in takes the 128 latent channels + 1 mask channel (patch 1); 129
-    frames at 192 x 336 make 32 x 6 x 11 latent tokens (width ceil(336 /
-    32) = 11, decoded 352 wide), as the JAX package's get_noise makes them;
-    both configs name a non-causal DC-AE at 32x."""
+    frames at 192 x 320 (256px 16:9 snapped to 32 px, as the JAX package
+    sizes it) make 32 x 6 x 10 latent tokens, as the JAX package's
+    get_noise makes them; both configs name a non-causal DC-AE at 32x."""
     inf, train = parse_configs([INF_CFG]), parse_configs([TRAIN_CFG])
     for cfg in (inf, train):
         assert cfg.ae["type"] == "dc_ae" and ae_spatial_compression(cfg) == 32 and cfg.patch_size == 1
@@ -117,17 +119,14 @@ def test_configs_have_the_high_compression_geometry():
         t2v=1, i2v_head=7, i2v_tail=0.05, i2v_loop=0.05, v2v_head=0.05)
     assert train.to_dict() == jparse_configs([TRAIN_CFG]).to_dict()
     assert train.model["remat_policy"] == "dots" and train.ae["use_temporal_tiling"]
-    opt = S.sanitize_sampling_option(S.SamplingOption(**inf.sampling_option))
-    assert (opt.height, opt.width, opt.is_causal_vae, opt.temporal_reduction) == (192, 336, False, 4)
+    opt = S.sanitize_sampling_option(S.SamplingOption(**inf.sampling_option), ae_spatial_compression(inf))
+    assert (opt.height, opt.width, opt.is_causal_vae, opt.temporal_reduction) == (192, 320, False, 4)
     frames = opt.num_frames // opt.temporal_reduction  # non-causal: 129 // 4
     z = S.get_noise(1, opt.height, opt.width, frames, generator=torch.Generator().manual_seed(0), patch_size=1,
                     channel=128, spatial_compression=32)
-    os.environ["AE_SPATIAL_COMPRESSION"] = "32"
-    try:
-        jz = JS.get_noise(jax.random.PRNGKey(0), 1, opt.height, opt.width, frames, patch_size=1, channel=128)
-    finally:
-        del os.environ["AE_SPATIAL_COMPRESSION"]
-    assert z.shape == jz.shape == (1, 128, 32, 6, 11) and S.pack(z, 1).shape == (1, 2112, 128)
+    monkeypatch.setenv("AE_SPATIAL_COMPRESSION", "32")  # the JAX package's get_noise reads it
+    jz = JS.get_noise(jax.random.PRNGKey(0), 1, opt.height, opt.width, frames, patch_size=1, channel=128)
+    assert z.shape == jz.shape == (1, 128, 32, 6, 10) and S.pack(z, 1).shape == (1, 1920, 128)
 
 
 @pytest.fixture(scope="module")
@@ -180,7 +179,7 @@ def test_api_fn_matches_jax(hc_pair, tmp_path, monkeypatch, cond_type, height, w
         return t(z)
 
     monkeypatch.setattr(S, "get_noise", jax_noise)
-    popt = S.sanitize_sampling_option(S.SamplingOption(**opt))
+    popt = S.sanitize_sampling_option(S.SamplingOption(**opt), ae_spatial_compression(cfg))
     out = api(popt, cond_type, seed, text=prompts, **kw).numpy()
     want = (1, 3, 32 - (3 if cond_type == "i2v_head" else 0), height, 32 * -(-width // 32))
     assert out.shape == ref.shape == want
@@ -189,15 +188,15 @@ def test_api_fn_matches_jax(hc_pair, tmp_path, monkeypatch, cond_type, height, w
 
 @pytest.mark.parametrize("shape,encodes", [
     ((1, 3, 33, 64, 64), False),  # the 33-frame bucket: tiles of 32 every 24 frames leave one of 9
-    ((1, 3, 1, 192, 336), False),  # a 16:9 256px frame: tiles of 256 every 192 px leave one of 144
+    ((1, 3, 1, 192, 336), False),  # 256px 16:9 at 16 px a token: tiles of 256 every 192 px leave one of 144
     ((1, 3, 40, 64, 64), True),  # tiles of 32 and 16 frames
     ((1, 3, 1, 64, 320), True),  # tiles of 256 and 128 px
 ])
 def test_dc_ae_encodes_only_what_its_tiles_divide(shape, encodes):
     """The DC-AE with the configs' own tiling (256 px, 32 frames, overlap
     1/4) halves each tile 5 times in space and twice in time. The training
-    config's 256px buckets (4k + 1 frames, 336 px at 16:9) and the inference
-    config's 192 x 336 reference image are not encodable: both packages
+    config's 4k + 1-frame buckets and a 336-px side (256px 16:9 at 16 px a
+    token; at the configs' 32 it is 320) are not encodable: both packages
     fail there alike, and agree where the tiles divide."""
     tiling = dict(use_spatial_tiling=True, use_temporal_tiling=True)
     jm, params, ae = _dcae_pair(seed=3, **tiling)

@@ -45,7 +45,7 @@ from opensora_torch.models.dc_ae.model import DCAE, DCAEConfig
 from opensora_torch.models.mmdit.model import MMDiTConfig, MMDiTModel
 from opensora_torch.utils import sampling as S
 from opensora_torch.utils.api import prepare_api
-from opensora_torch.utils.config import parse_configs
+from opensora_torch.utils.config import ae_spatial_compression, parse_configs
 from opensora_torch.utils.inference import add_noise_to_ref, collect_references_batch, prepare_inference_condition
 from opensora_torch.utils.weights import dc_ae_state_dict, load_numpy_state_dict, mmdit_state_dict
 from test_torch_pipeline import CONFIG_DIR, TOL, tiny_models, tiny_pair  # noqa: F401  (module fixtures)
@@ -271,7 +271,7 @@ def test_conditioned_slice_matches_jax(tiny_pair, cond_type, variant):  # noqa: 
     cfg, js, api_fn = tiny_pair
     opt = dict(cfg.sampling_option, **variant)
     jopt = JS.sanitize_sampling_option(JS.SamplingOption(**opt))
-    popt = S.sanitize_sampling_option(S.SamplingOption(**opt))
+    popt = S.sanitize_sampling_option(S.SamplingOption(**opt), ae_spatial_compression(cfg))
     prompts = ["a cat playing piano", "raining, sea"]
     T = (popt.num_frames - 1) // popt.temporal_reduction + 1
     z = _rng(7).standard_normal((2, 4, T, 4, 4)).astype(np.float32)
@@ -287,7 +287,7 @@ def test_references_change_the_video(tiny_pair):  # noqa: F811
     """An i2v video differs from the t2v video of the same noise, and the
     api_fn without ``ref`` falls back to t2v as the JAX package does."""
     cfg, _, api_fn = tiny_pair
-    opt = S.sanitize_sampling_option(S.SamplingOption(**cfg.sampling_option))
+    opt = S.sanitize_sampling_option(S.SamplingOption(**cfg.sampling_option), ae_spatial_compression(cfg))
     z = t(_rng(10).standard_normal((1, 4, 2, 4, 4)).astype(np.float32))
     refs = [[t(x) for x in _ref_latents("i2v_head", 4, 1, 4, 4, 11)]]
     t2v = api_fn.generate(z, ["a cat"], opt, "t2v")
@@ -327,7 +327,7 @@ def test_noncausal_trim_on_dc_ae_matches_jax(dcae_pair, monkeypatch, cond_type):
     opt = dict(height=64, width=64, num_frames=8, num_steps=2, guidance=4.0, guidance_img=1.0,
                is_causal_vae=False, temporal_reduction=4, method="i2v", seed=0)
     jopt = JS.sanitize_sampling_option(JS.SamplingOption(**opt))
-    popt = S.sanitize_sampling_option(S.SamplingOption(**opt))
+    popt = S.sanitize_sampling_option(S.SamplingOption(**opt), 32)
     z = _rng(13).standard_normal((1, 8, 2, 2, 2)).astype(np.float32)
     refs = None if cond_type == "t2v" else [_ref_latents(cond_type, 8, 1, 2, 2, 14)]
     ref = _jax_conditioned(js, decode, z, ["a cat"], jopt, cond_type, refs, dict(patch_size=1, pad_len=3))

@@ -111,7 +111,7 @@ def test_prepare_api_int8_under_tp_matches_jax(tp_cfg, tiny_models, monkeypatch,
     assert [(tuple(p.shape), p.dtype) for p in qkv.leaves] == [((96, 64), torch.int8)] * 2
     scale = model.sharding.placements["double_blocks.0.img_attn.qkv.weight_scale"]
     assert [(tuple(p.shape), p.dtype) for p in scale.leaves] == [((96,), torch.float32)] * 2
-    out = api(S.sanitize_sampling_option(S.SamplingOption(**opt)), "t2v", seed, text=prompts).numpy()
+    out = api(S.sanitize_sampling_option(S.SamplingOption(**opt), 16), "t2v", seed, text=prompts).numpy()
     assert out.shape == ref.shape
     if mode == "w8":
         assert max_rel_err(out, ref) <= W8_TOL, max_rel_err(out, ref)

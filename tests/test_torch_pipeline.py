@@ -39,7 +39,7 @@ from opensora_torch.models.text import t5 as tt5
 from opensora_torch.models.text.conditioner import HFEmbedder
 from opensora_torch.utils import sampling as S
 from opensora_torch.utils.api import prepare_api, prepare_models
-from opensora_torch.utils.config import parse_configs
+from opensora_torch.utils.config import ae_spatial_compression, parse_configs
 from opensora_torch.utils.weights import (
     clip_text_state_dict,
     hunyuan_vae_state_dict,
@@ -141,7 +141,7 @@ def test_t2v_slice_matches_jax(tiny_pair, variant):
     cfg, js, api_fn = tiny_pair
     opt = dict(cfg.sampling_option, **variant)
     jopt = JS.sanitize_sampling_option(JS.SamplingOption(**{k: v for k, v in opt.items() if k != "cfg_batched"}))
-    popt = S.sanitize_sampling_option(S.SamplingOption(**opt))
+    popt = S.sanitize_sampling_option(S.SamplingOption(**opt), ae_spatial_compression(cfg))
     prompts = ["a cat playing piano", "raining, sea"]
     z = np.random.default_rng(5).standard_normal((2, 4, 2, 4, 4)).astype(np.float32)
     ref = _jax_generate(js, z, prompts, jopt)

@@ -25,7 +25,7 @@ from opensora_tpu.utils import sampling as JS
 from opensora_torch.inference import main, prompt_batches, text_dataset
 from opensora_torch.utils import sampling as S
 from opensora_torch.utils.api import prepare_api, prepare_models
-from opensora_torch.utils.config import parse_configs
+from opensora_torch.utils.config import ae_spatial_compression, parse_configs
 from opensora_torch.utils.inference import process_and_save
 from test_torch_pipeline import TOL, _jax_generate, tiny_models  # noqa: F401  (the fixture)
 from torch_parity_utils import max_rel_err, read_frames, t
@@ -62,7 +62,7 @@ def direct():
     """tiny_dev.py's models as the CLI draws them, and api_fn over them."""
     cfg = parse_configs([TINY_DEV])
     model, ae, t5, clip, _ = prepare_models(cfg, device="cpu", seed=cfg.seed)
-    opt = S.sanitize_sampling_option(S.SamplingOption(**cfg.sampling_option))
+    opt = S.sanitize_sampling_option(S.SamplingOption(**cfg.sampling_option), ae_spatial_compression(cfg))
     return prepare_api(model, ae, t5, clip), opt
 
 
@@ -76,7 +76,7 @@ def test_neg_prompt_matches_jax(tiny_models):
     video."""
     cfg, js, models = tiny_models
     api_fn = prepare_api(**models)
-    opt = S.sanitize_sampling_option(S.SamplingOption(**cfg.sampling_option))
+    opt = S.sanitize_sampling_option(S.SamplingOption(**cfg.sampling_option), ae_spatial_compression(cfg))
     jopt = JS.sanitize_sampling_option(JS.SamplingOption(**cfg.sampling_option))
     prompts, negs = ["a cat playing piano", "raining, sea"], [NEG, "cartoon"]
     z = np.random.default_rng(7).standard_normal((2, 4, 2, 4, 4)).astype(np.float32)

@@ -16,7 +16,7 @@ from opensora_tpu.utils.config import parse_configs as jparse_configs
 
 from opensora_torch.inference import main, text_dataset
 from opensora_torch.utils.api import prepare_api, prepare_models
-from opensora_torch.utils.config import parse_configs
+from opensora_torch.utils.config import ae_spatial_compression, parse_configs
 from opensora_torch.utils.inference import process_and_save
 from opensora_torch.utils.sampling import SamplingOption, sanitize_sampling_option
 from torch_parity_utils import read_frames
@@ -78,7 +78,7 @@ def test_i2v_head_cli_reads_the_reference_from_the_csv(tmp_path):
 
     model, ae, t5, clip, optional = prepare_models(cfg, device="cpu", seed=cfg.seed)
     assert optional == {}
-    opt = sanitize_sampling_option(SamplingOption(**cfg.sampling_option))
+    opt = sanitize_sampling_option(SamplingOption(**cfg.sampling_option), ae_spatial_compression(cfg))
     x = prepare_api(model, ae, t5, clip)(opt, "i2v_head", text=["a cat"], channel=16, ref=[ref])
     want = process_and_save(x.numpy(), [0], str(tmp_path / "direct"))
     np.testing.assert_array_equal(read_frames(paths[0]), read_frames(want[0]))

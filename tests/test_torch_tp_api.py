@@ -103,7 +103,7 @@ def test_prepare_api_with_the_tp_mesh_matches_jax(tp_cfg, tiny_models, monkeypat
     z = JS.get_noise(jax.random.split(jax.random.PRNGKey(seed))[0], 1, opt["height"], opt["width"], 2,
                      dtype=jnp.float32, patch_size=2, channel=4)
     monkeypatch.setattr(S, "get_noise", lambda *a, **k: t(z))
-    out = api(S.sanitize_sampling_option(S.SamplingOption(**opt)), "t2v", seed, text=prompts, neg=neg).numpy()
+    out = api(S.sanitize_sampling_option(S.SamplingOption(**opt), 16), "t2v", seed, text=prompts, neg=neg).numpy()
     assert out.shape == ref.shape
     assert max_rel_err(out, ref) <= TOL, max_rel_err(out, ref)
 

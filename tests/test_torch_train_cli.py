@@ -66,7 +66,7 @@ def test_bucket_sampler_batches_equal_jax(tmp_path, num_replicas, rank, resume):
         data = read_data_file(path)
 
     kw = dict(num_replicas=num_replicas, rank=rank, seed=7)
-    js, ts = JSampler(JData(), buckets, **kw), VariableVideoBatchSampler(TData(), buckets, **kw)
+    js, ts = JSampler(JData(), buckets, **kw), VariableVideoBatchSampler(TData(), buckets, spatial_compression=16, **kw)
     for s in (js, ts):
         s.set_epoch(1)
         s.load_state_dict({"last_micro_batch_access_index": resume * num_replicas})

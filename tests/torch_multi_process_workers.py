@@ -532,8 +532,8 @@ def data_layer(n_rows: int, table: list, buckets: dict, seed: int) -> dict:
         def __len__(self):
             return len(table)
 
-    _, index_sampler = prepare_dataloader(Data(), batch_size=3, seed=seed)
-    _, bucket_sampler = prepare_dataloader(Data(), bucket_config=buckets, seed=seed)
+    _, index_sampler = prepare_dataloader(Data(), batch_size=3, seed=seed, spatial_compression=16)
+    _, bucket_sampler = prepare_dataloader(Data(), bucket_config=buckets, seed=seed, spatial_compression=16)
     out["index_sampler"] = list(index_sampler)
     bucket_sampler.set_epoch(1)
     out["bucket_sampler"] = list(bucket_sampler)
@@ -625,7 +625,7 @@ def sampler_step(params, pool: dict, geom: dict, opt: dict, sizes, seed: int, wr
             return n
 
     kw = dict(num_replicas=distributed.process_count(), rank=distributed.process_index()) if wrong else {}
-    _, sampler = prepare_dataloader(Pool(), batch_size=batch_size, seed=seed, **kw)
+    _, sampler = prepare_dataloader(Pool(), batch_size=batch_size, seed=seed, spatial_compression=16, **kw)
     index = list(sampler)[:batch_size]
     tm, state = port_state(params, geom, opt)
     state = tdiff.shard_state(mesh, state, tm, fsdp=True)
